@@ -16,7 +16,21 @@ Phases, each of which exits non-zero on failure:
    four requests of 8 x 1024 tokens on the flash kernel; the launch
    count must rise by one per layer per request, the logits must be
    finite, the mean NLL near ln(vocab), and one request must agree with
-   the same model on plain attention.
+   the same model on plain attention;
+4. backward kernels: launch the dK/dV and dQ kernels on the card at the
+   shapes of phase 2 (and a rectangular float32 case with a nonzero lse
+   cotangent), hold each against its plain PyTorch version, check that
+   the autograd Function gives the kernels' gradients, and time each
+   beside its bound, its plain version and the backward of
+   scaled_dot_product_attention;
+5. train: the train step at the widths of phase 3, bf16, on one batch
+   of 8 x 1024 tokens. Every parameter's gradient must be finite and
+   nonzero on the flash path and on plain attention and agree between
+   the two; then a warm-up step, whose update must be w - lr * g, and
+   four timed steps, each of which must launch the forward, dK/dV and
+   dQ kernels once per layer; a torch.profiler breakdown of one step;
+   last, five float32 steps at full width and 4 layers on one batch,
+   whose loss must fall.
 
 It prints one JSON line with every kernel's numbers, then the card's
 name and power limit from nvidia-smi, and last
@@ -54,6 +68,25 @@ LSE_TOL = {'float32': dict(rtol=2e-4, atol=2e-5),
 # up to about 4, where a bf16 step is 1/32
 LM_LOGIT_ATOL = 0.125
 LM_NLL_ATOL = 5e-3
+# a backward kernel against its plain version, max |difference| over the
+# largest |gradient|: float32 at the JAX package's flash-gradient atol
+# (tests/test_parallel.py), taken relative because these gradients sum
+# up to 1024 keys and reach sizes well above 1, and fp32 rounding in
+# another summing order grows with them; bfloat16 gradients are rounded
+# to 8 bits (2^-8 = 3.9e-3 of the value) on output, and p and ds to bf16
+# before their products, where another fp32 summing order can flip a
+# rounding
+BWD_TOL = {'float32': 2e-5, 'bfloat16': 2e-2}
+# the LM's gradients on the flash kernels against plain attention, both
+# bf16, as ||g_flash - g_plain|| / ||g_plain|| per parameter: plain
+# attention rounds its scores and softmax to bf16 (2^-8) where the
+# kernels keep fp32, and those differences add through 24 layers of
+# backward (0.018 at most on an H100 at this seed, about five bf16
+# steps); a gradient that is cut or wrong gives about 1
+GRAD_REL_TOL = 0.05
+TRAIN_STEPS = 4
+LR = 0.1                 # the JAX package's make_train_step default
+FP32_LAYERS, FP32_STEPS = 4, 5
 
 
 def fail(msg):
@@ -82,6 +115,29 @@ def device_us(event):
         getattr(event, 'self_cuda_time_total', 0)
 
 
+def device_events(torch, fn, iters=1):
+    """The kernels fn launches over iters calls, by name, from
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return [e for e in prof.key_averages()
+            if str(getattr(e, 'device_type', '')).endswith('CUDA')]
+
+
+def profiled_ms(torch, fn, iters):
+    """Mean device time of fn over iters calls, summed over its kernels,
+    after one warm-up: for a call whose host work may outlast its
+    kernels, where CUDA events around the calls would time the host."""
+    fn()
+    torch.cuda.synchronize()
+    return sum(device_us(e) for e in device_events(torch, fn, iters)) \
+        / 1e3 / iters
+
+
 def attention_bound(b, h, tq, tk, d, dtype_name, causal):
     """Least time for one attention forward: q, k, v read once, O and
     lse written once, against the two products over the live (row, key)
@@ -89,16 +145,42 @@ def attention_bound(b, h, tq, tk, d, dtype_name, causal):
     itemsize = 2 if dtype_name == 'bfloat16' else 4
     nbytes = (2 * b * h * tq * d + 2 * b * h * tk * d) * itemsize \
         + b * h * tq * 4
-    if causal:
-        offset = tk - tq
-        pairs = sum(min(tk, i + offset + 1) for i in range(tq))
-    else:
-        pairs = tq * tk
-    flops = 4.0 * b * h * pairs * d
+    flops = 4.0 * b * h * live_pairs(tq, tk, causal) * d
     t_bytes = nbytes / HBM_BYTES_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
     return (max(t_bytes, t_ops), 'bytes' if t_bytes >= t_ops else 'operations',
             nbytes, flops)
+
+
+def live_pairs(tq, tk, causal):
+    """(row, key) pairs that causal masking leaves, per (batch, head)."""
+    if not causal:
+        return tq * tk
+    offset = tk - tq
+    return sum(min(tk, i + offset + 1) for i in range(tq))
+
+
+def backward_bounds(b, h, tq, tk, d, dtype_name, causal):
+    """Least time of each backward kernel and of the whole backward:
+    q, k, v, dO, lse and D read once, the kernel's gradients written
+    once, against its products over the live pairs (S, dP, dV, dK for
+    dK/dV; S, dP, dQ for dQ; five for the function)."""
+    itemsize = 2 if dtype_name == 'bfloat16' else 4
+    reads = (2 * b * h * tq * d + 2 * b * h * tk * d) * itemsize \
+        + 2 * b * h * tq * 4
+    per_product = 2.0 * b * h * live_pairs(tq, tk, causal) * d
+    out = {}
+    for name, writes, products in (
+            ('dkdv', 2 * b * h * tk * d, 4), ('dq', b * h * tq * d, 3),
+            ('whole', b * h * (tq + 2 * tk) * d, 5)):
+        nbytes = reads + writes * itemsize
+        flops = products * per_product
+        t_bytes = nbytes / HBM_BYTES_S * 1e3
+        t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+        out[name] = dict(bound_ms=max(t_bytes, t_ops),
+                         bound_by='bytes' if t_bytes >= t_ops
+                         else 'operations', bytes=nbytes, flops=flops)
+    return out
 
 
 def kernel_case(torch, cuda_ops, name, shape_q, tk, dtype, causal, iters):
@@ -146,6 +228,244 @@ def kernel_case(torch, cuda_ops, name, shape_q, tk, dtype, causal, iters):
              '(tol %s), lse %.3g (tol %s)' % (name, row['max_abs_err'], tol,
                                              row['lse_max_abs_err'], ltol))
     return row
+
+
+def bwd_case(torch, cuda_ops, name, shape_q, tk, dtype, causal, with_glse,
+             iters):
+    """Phase 4, one shape: each backward kernel against its plain
+    version on the same inputs (the kernel forward's out and lse, a
+    seeded dO and lse cotangent), the autograd Function against the
+    kernels, and the times."""
+    import torch.nn.functional as F
+    b, h, tq, d = shape_q
+    dtype_name = str(dtype).split('.')[-1]
+    scale = 1.0 / math.sqrt(d)
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 2)
+    q = torch.randn(shape_q, generator=gen, device='cuda', dtype=dtype)
+    k = torch.randn((b, h, tk, d), generator=gen, device='cuda', dtype=dtype)
+    v = torch.randn((b, h, tk, d), generator=gen, device='cuda', dtype=dtype)
+    do = torch.randn(shape_q, generator=gen, device='cuda', dtype=dtype)
+    glse = None
+    if with_glse:
+        glse = torch.randn((b * h, tq, 1), generator=gen, device='cuda')
+    out, lse = cuda_ops.flash_attention_with_lse(q, k, v, causal=causal)
+    dd = cuda_ops.attention_bwd_delta(out, do, glse).contiguous()
+    args = (q, k, v, do, lse, dd, causal, scale)
+
+    dk, dv = cuda_ops.flash_attention_bwd_dkdv_cuda(*args)
+    dq = cuda_ops.flash_attention_bwd_dq_cuda(*args)
+    torch.cuda.synchronize()
+    ref_dk, ref_dv = cuda_ops.flash_attention_bwd_dkdv_reference(*args)
+    ref_dq = cuda_ops.flash_attention_bwd_dq_reference(*args)
+    errs, ok = {}, True
+    for gname, got, ref in (('dq', dq, ref_dq), ('dk', dk, ref_dk),
+                            ('dv', dv, ref_dv)):
+        err = float((got.float() - ref.float()).abs().max())
+        size = float(ref.float().abs().max())
+        finite = bool(torch.isfinite(got).all())
+        errs[gname] = dict(max_abs_err=err, max_abs_ref=size,
+                           tol=BWD_TOL[dtype_name] * size, finite=finite)
+        ok = ok and finite and err <= BWD_TOL[dtype_name] * size
+
+    # the Function's backward is these kernels on these inputs
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    o2, l2 = cuda_ops.flash_attention_with_lse(*leaves, causal=causal)
+    outs, cots = ((o2, l2), (do, glse)) if with_glse else ((o2,), (do,))
+    fn_grads = torch.autograd.grad(outs, leaves, cots)
+    same = all(torch.equal(a, b) for a, b in zip(fn_grads, (dq, dk, dv)))
+
+    dkdv_ms = cuda_ms(torch, lambda: cuda_ops.flash_attention_bwd_dkdv_cuda(
+        *args), iters)
+    dq_ms = cuda_ms(torch, lambda: cuda_ops.flash_attention_bwd_dq_cuda(
+        *args), iters)
+    plain_iters = max(2, iters // 4)
+    dkdv_plain_ms = cuda_ms(
+        torch, lambda: cuda_ops.flash_attention_bwd_dkdv_reference(*args),
+        plain_iters)
+    dq_plain_ms = cuda_ms(
+        torch, lambda: cuda_ops.flash_attention_bwd_dq_reference(*args),
+        plain_iters)
+    library_ms = None
+    if tq == tk and not with_glse:   # SDPA's is_causal aligns top-left
+        sq, sk, sv = (t.detach().clone().requires_grad_(True)
+                      for t in (q, k, v))
+        sdpa_out = F.scaled_dot_product_attention(sq, sk, sv,
+                                                  is_causal=causal)
+        # device time: the autograd engine's host work per call can
+        # outlast these kernels
+        library_ms = profiled_ms(torch, lambda: torch.autograd.grad(
+            sdpa_out, (sq, sk, sv), do, retain_graph=True), iters)
+    bounds = backward_bounds(b, h, tq, tk, d, dtype_name, causal)
+    row = dict(case=name, q=list(shape_q), tk=tk, dtype=dtype_name,
+               causal=causal, glse=with_glse, errors=errs,
+               function_equals_kernels=same,
+               dkdv_ms=dkdv_ms, dq_ms=dq_ms, dkdv_plain_ms=dkdv_plain_ms,
+               dq_plain_ms=dq_plain_ms, sdpa_backward_ms=library_ms,
+               bounds=bounds)
+    print('backward case ' + json.dumps(row))
+    if not ok:
+        fail('%s: a backward kernel disagrees with its plain version: %s'
+             % (name, errs))
+    if not same:
+        fail('%s: the autograd Function does not give the kernels\' '
+             'gradients' % name)
+    return row
+
+
+def reset_counts(cuda_ops):
+    cuda_ops.FLASH_FWD_LAUNCHES = 0
+    cuda_ops.FLASH_BWD_DKDV_LAUNCHES = 0
+    cuda_ops.FLASH_BWD_DQ_LAUNCHES = 0
+
+
+def read_counts(cuda_ops):
+    return (cuda_ops.FLASH_FWD_LAUNCHES, cuda_ops.FLASH_BWD_DKDV_LAUNCHES,
+            cuda_ops.FLASH_BWD_DQ_LAUNCHES)
+
+
+def profile_device(torch, fn, label, top):
+    """Run fn once under torch.profiler; print and return the device time
+    by kernel (ms), heaviest first."""
+    events = device_events(torch, fn)
+    total_us = sum(device_us(e) for e in events)
+    print('%s: device time %.3f ms in %d kernels' % (
+        label, total_us / 1e3, len(events)))
+    rows = []
+    for e in sorted(events, key=lambda e: -device_us(e))[:top]:
+        print('  %9.3f ms  %5d x  %s' % (device_us(e) / 1e3, e.count,
+                                          e.key[:110]))
+        rows.append(dict(kernel=e.key[:200], ms=device_us(e) / 1e3,
+                         count=e.count))
+    return total_us / 1e3, rows
+
+
+def train_phase(torch, cuda_ops, tfm, params, batch):
+    """Phase 5: the bf16 train step at full width and depth on `params`
+    (updated in place), then the float32 loss check at FP32_LAYERS."""
+    cfg = tfm.lm_config(use_flash=True, **GPT2_MEDIUM)
+    tokens, targets = batch
+
+    # gradients on the flash kernels and on plain attention, same weights
+    grads, losses, peaks = {}, {}, {}
+    for use_flash in (True, False):
+        model = tfm.TransformerLM(dict(cfg, use_flash=use_flash), params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loss = model.loss(tokens, targets)
+        loss.backward()
+        torch.cuda.synchronize()
+        peaks[use_flash] = torch.cuda.max_memory_allocated()
+        losses[use_flash] = loss.item()
+        grads[use_flash] = {n: p.grad for n, p in model.named_parameters()}
+        del model, loss
+    bad, rel = [], {}
+    for name, gf in grads[True].items():
+        gp = grads[False][name]
+        if gf is None or gp is None:
+            bad.append('%s: no gradient (flash %s, plain %s)' % (
+                name, gf is None, gp is None))
+            continue
+        gf, gp = gf.float(), gp.float()
+        if not (bool(torch.isfinite(gf).all()) and
+                bool(torch.isfinite(gp).all())):
+            bad.append('%s: non-finite gradient' % name)
+        if not (float(gf.abs().max()) > 0 and float(gp.abs().max()) > 0):
+            bad.append('%s: zero gradient' % name)
+        rel[name] = float((gf - gp).norm() / gp.norm())
+        if not rel[name] <= GRAD_REL_TOL:
+            bad.append('%s: flash vs plain gradient %.4g (tol %g)' % (
+                name, rel[name], GRAD_REL_TOL))
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:5]
+    grad_check = dict(parameters=len(grads[True]), loss_flash=losses[True],
+                      loss_plain=losses[False], rel_err_max=worst[0][1],
+                      rel_err_worst=worst, rel_tol=GRAD_REL_TOL,
+                      wqkv_grad_norm_flash=float(
+                          grads[True]['layers.0.wqkv'].float().norm()),
+                      peak_bytes_flash=peaks[True],
+                      peak_bytes_plain=peaks[False])
+    print('train grad check ' + json.dumps(grad_check))
+    del grads
+    if bad:
+        fail('train gradients: ' + '; '.join(bad[:10]))
+    if abs(losses[True] - losses[False]) > LM_NLL_ATOL:
+        fail('train loss flash %.5f vs plain %.5f (tol %g)' % (
+            losses[True], losses[False], LM_NLL_ATOL))
+
+    # the warm-up step, whose update is checked on layer 0's wqkv
+    model = tfm.TransformerLM(cfg, params)
+    step = tfm.make_train_step(cfg, lr=LR)
+    w = model.layers[0].wqkv
+    before = w.detach().clone()
+    step(model, tokens, targets)
+    torch.cuda.synchronize()
+    update_exact = torch.equal(w.detach(), before - LR * w.grad)
+    moved = int((w.detach() != before).sum())
+    del before
+
+    # the main path: TRAIN_STEPS steps, counted and timed
+    reset_counts(cuda_ops)
+    times, step_losses, per_step = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(TRAIN_STEPS):
+        counts = read_counts(cuda_ops)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(model, tokens, targets)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        step_losses.append(float(loss))
+        per_step.append([a - b for a, b in zip(read_counts(cuda_ops),
+                                                counts)])
+    launches = read_counts(cuda_ops)
+    peak_step = torch.cuda.max_memory_allocated()
+    dev_ms, top = profile_device(
+        torch, lambda: step(model, tokens, targets),
+        'train profile, one step', 12)
+    del model
+
+    step_ms = sorted(times)[len(times) // 2] * 1e3
+    train = dict(config='gpt2-medium widths, %d layers, bf16' % cfg['layers'],
+                 batch=BATCH, seq=SEQ, lr=LR, steps=TRAIN_STEPS,
+                 step_ms=[t * 1e3 for t in times], step_ms_median=step_ms,
+                 tokens_per_s=BATCH * SEQ / (step_ms / 1e3),
+                 losses=step_losses, launches=launches,
+                 launches_per_step=per_step, update_exact=update_exact,
+                 wqkv_elements_moved=moved, peak_bytes_step=peak_step,
+                 profiled_device_ms=dev_ms,
+                 device_busy_share=dev_ms / step_ms, profile_top=top)
+    print('train ' + json.dumps(train))
+    want = [cfg['layers']] * 3
+    if per_step != [want] * TRAIN_STEPS:
+        fail('launches (fwd, dK/dV, dQ) per step %s, expected %s each'
+             % (per_step, want))
+    if not update_exact:
+        fail('the update of layers.0.wqkv is not w - lr * g')
+    if not all(math.isfinite(x) for x in step_losses):
+        fail('non-finite train loss %s' % step_losses)
+
+    # float32 at full width, cut depth: the loss falls on one batch
+    cfg32 = tfm.lm_config(use_flash=True,
+                          **dict(GPT2_MEDIUM, layers=FP32_LAYERS))
+    model = tfm.TransformerLM(cfg32, tfm.params_from_jax(
+        seeded_tree(cfg32, SEED + 3), dtype=torch.float32, device='cuda'))
+    step = tfm.make_train_step(cfg32, lr=LR)
+    counts = read_counts(cuda_ops)
+    fp32_losses = [float(step(model, tokens, targets))
+                   for _ in range(FP32_STEPS)]
+    fp32_launches = [a - b for a, b in zip(read_counts(cuda_ops), counts)]
+    del model
+    fp32 = dict(config='gpt2-medium widths, %d layers, float32'
+                % FP32_LAYERS, lr=LR, losses=fp32_losses,
+                launches=fp32_launches)
+    print('train fp32 ' + json.dumps(fp32))
+    if not all(math.isfinite(x) for x in fp32_losses) or \
+            not fp32_losses[-1] < fp32_losses[0]:
+        fail('float32 loss did not fall over %d steps: %s'
+             % (FP32_STEPS, fp32_losses))
+    if fp32_launches != [FP32_LAYERS * FP32_STEPS] * 3:
+        fail('float32 steps launched %s kernels, expected %d each'
+             % (fp32_launches, FP32_LAYERS * FP32_STEPS))
+    return dict(train, grad_check=grad_check, fp32=fp32)
 
 
 def seeded_tree(cfg, seed):
@@ -213,22 +533,92 @@ def main():
     t0 = time.perf_counter()
     params = tfm.params_from_jax(seeded_tree(cfg, SEED),
                                  dtype=torch.bfloat16, device='cuda')
-    model = tfm.TransformerLM(cfg, params).eval()
-    dense = tfm.TransformerLM(dict(cfg, use_flash=False), params).eval()
-    n_params = sum(p.numel() for p in model.parameters())
-    print('lm: %d parameters (bf16), made in %.1f s' % (
-        n_params, time.perf_counter() - t0))
+    print('lm: parameters made in %.1f s' % (time.perf_counter() - t0))
     rng = np.random.default_rng(SEED + 1)
     requests = []
     for _ in range(REQUESTS):
         tok = rng.integers(0, cfg['vocab'], (BATCH, SEQ + 1))
         tok = torch.from_numpy(tok).cuda()
         requests.append((tok[:, :-1], tok[:, 1:]))
+    lm = lm_phase(torch, cuda_ops, tfm, cfg, params, requests)
 
+    # 4. the backward kernels against their plain versions, at phase 2's
+    # shapes and one with an lse cotangent
+    bwd_cases = [
+        bwd_case(torch, cuda_ops, 'lm', (BATCH, 16, SEQ, 64), SEQ,
+                 torch.bfloat16, True, False, iters=10),
+        bwd_case(torch, cuda_ops, 'decode', (BATCH, 16, 16, 64), SEQ,
+                 torch.bfloat16, True, False, iters=20),
+        bwd_case(torch, cuda_ops, 'ragged_f32', (2, 4, 1000, 128), 1000,
+                 torch.float32, True, False, iters=10),
+        bwd_case(torch, cuda_ops, 'rect_glse_f32', (2, 4, 300, 64), 700,
+                 torch.float32, True, True, iters=10),
+    ]
+
+    # 5. the train step, the port's training path
+    train = train_phase(torch, cuda_ops, tfm, params, requests[0])
+
+    main_case = cases[0]
+    kernels = [dict(
+        name='flash_attention_fwd', route='cuda',
+        source='mxnet_tpu_torch/csrc/flash_attention.cu',
+        replaces='mxnet_tpu/pallas_ops.py:95',
+        launches=lm['flash_launches'],
+        launches_by_path=dict(lm_serve=lm['flash_launches'],
+                              lm_train=train['launches'][0]),
+        max_abs_err=main_case['max_abs_err'],
+        ms=main_case['ms'], plain_ms=main_case['plain_ms'],
+        bound_ms=main_case['bound_ms'], bound_by=main_case['bound_by'],
+        library_ms=main_case['library_ms'], build_s=build_s,
+        cases=cases)]
+    for i, (name, key, grads, line) in enumerate((
+            ('flash_attention_bwd_dkdv', 'dkdv', ('dk', 'dv'), 313),
+            ('flash_attention_bwd_dq', 'dq', ('dq',), 362))):
+        per_case = [dict(
+            case=c['case'], max_abs_err=max(c['errors'][g]['max_abs_err']
+                                            for g in grads),
+            tol=min(c['errors'][g]['tol'] for g in grads),
+            ms=c[key + '_ms'], plain_ms=c[key + '_plain_ms'],
+            library_ms=c['sdpa_backward_ms'], **c['bounds'][key])
+            for c in bwd_cases]
+        main_case = per_case[0]
+        kernels.append(dict(
+            name=name, route='cuda',
+            source='mxnet_tpu_torch/csrc/flash_attention_bwd.cu',
+            replaces='mxnet_tpu/pallas_ops.py:%d' % line,
+            launches=train['launches'][1 + i],
+            launches_by_path=dict(lm_serve=lm['launches'][1 + i],
+                                  lm_train=train['launches'][1 + i]),
+            max_abs_err=main_case['max_abs_err'], ms=main_case['ms'],
+            plain_ms=main_case['plain_ms'], bound_ms=main_case['bound_ms'],
+            bound_by=main_case['bound_by'],
+            library_ms=main_case['library_ms'],
+            library_call='scaled_dot_product_attention backward (dq, dk '
+                         'and dv together), device time by torch.profiler',
+            whole_backward_bound_ms=bwd_cases[0]['bounds']['whole'][
+                'bound_ms'],
+            cases=per_case))
+    for kern in kernels:
+        if kern['launches'] == 0:
+            fail('the LM path launched no %s kernel' % kern['name'])
+    print(json.dumps({'kernels': kernels}))
+    print(smi)
+    print(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+        'count': torch.cuda.device_count()}}))
+
+
+def lm_phase(torch, cuda_ops, tfm, cfg, params, requests):
+    """Phase 3: the LM forward answers REQUESTS requests on the flash
+    kernel, and one request is held against plain attention."""
+    model = tfm.TransformerLM(cfg, params).eval()
+    dense = tfm.TransformerLM(dict(cfg, use_flash=False), params).eval()
+    print('lm: %d parameters (bf16)' % sum(
+        p.numel() for p in model.parameters()))
     with torch.inference_mode():
         model(requests[0][0])          # warm-up, not counted
         torch.cuda.synchronize()
-        cuda_ops.FLASH_FWD_LAUNCHES = 0
+        reset_counts(cuda_ops)
         times, nlls, per_request = [], [], []
         for tokens, targets in requests:
             before = cuda_ops.FLASH_FWD_LAUNCHES
@@ -242,7 +632,7 @@ def main():
             if not bool(torch.isfinite(logits).all()):
                 fail('non-finite logits')
             nlls.append(float(tfm.nll(logits, targets)))
-        launches = cuda_ops.FLASH_FWD_LAUNCHES
+        launches = read_counts(cuda_ops)
 
         # one request on plain attention, same weights
         tokens, targets = requests[0]
@@ -253,36 +643,26 @@ def main():
         del flash_logits, dense_logits, logits
 
         # where the time of one request goes, by kernel
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            model(tokens)
-            torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if str(getattr(e, 'device_type', '')).endswith('CUDA')]
-    dev_total_us = sum(device_us(e) for e in events)
-    print('lm profile, one request: device time %.3f ms in %d kernels' % (
-        dev_total_us / 1e3, len(events)))
-    for e in sorted(events, key=lambda e: -device_us(e))[:10]:
-        print('  %9.3f ms  %5d x  %s' % (device_us(e) / 1e3, e.count,
-                                          e.key[:90]))
+        dev_ms, _ = profile_device(torch, lambda: model(tokens),
+                                   'lm profile, one request', 10)
 
     fwd_ms = sorted(times)[len(times) // 2] * 1e3
     lm = dict(config='gpt2-medium widths, %d layers, bf16' % cfg['layers'],
               batch=BATCH, seq=SEQ, requests=REQUESTS,
               forward_ms=[t * 1e3 for t in times], forward_ms_median=fwd_ms,
               tokens_per_s=BATCH * SEQ / (fwd_ms / 1e3), mean_nll=nlls,
-              ln_vocab=math.log(cfg['vocab']), flash_launches=launches,
-              launches_per_request=per_request,
+              ln_vocab=math.log(cfg['vocab']), flash_launches=launches[0],
+              launches=launches, launches_per_request=per_request,
               flash_vs_plain_max_abs_logit_err=logit_err,
               logit_atol=LM_LOGIT_ATOL, nll_flash=nlls[0],
               nll_plain=nll_dense, nll_atol=LM_NLL_ATOL,
-              profiled_device_ms=dev_total_us / 1e3,
-              device_busy_share=dev_total_us / 1e3 / fwd_ms)
+              profiled_device_ms=dev_ms, device_busy_share=dev_ms / fwd_ms)
     print('lm ' + json.dumps(lm))
     if per_request != [cfg['layers']] * REQUESTS:
         fail('flash launches per request %s, expected %d each'
              % (per_request, cfg['layers']))
+    if launches[1:] != (0, 0):
+        fail('the forward launched backward kernels: %s' % (launches,))
     if not all(abs(n - math.log(cfg['vocab'])) < 1.0 for n in nlls):
         fail('mean NLL %s far from ln(vocab) = %.3f'
              % (nlls, math.log(cfg['vocab'])))
@@ -291,24 +671,7 @@ def main():
              'nll %.5f vs %.5f (tol %g)' % (logit_err, LM_LOGIT_ATOL,
                                             nlls[0], nll_dense,
                                             LM_NLL_ATOL))
-
-    main_case = cases[0]
-    kernels = [dict(
-        name='flash_attention_fwd', route='cuda',
-        source='mxnet_tpu_torch/csrc/flash_attention.cu',
-        replaces='mxnet_tpu/pallas_ops.py:95',
-        launches=launches, max_abs_err=main_case['max_abs_err'],
-        ms=main_case['ms'], plain_ms=main_case['plain_ms'],
-        bound_ms=main_case['bound_ms'], bound_by=main_case['bound_by'],
-        library_ms=main_case['library_ms'], build_s=build_s,
-        cases=cases)]
-    if launches == 0:
-        fail('the LM path launched no flash kernel')
-    print(json.dumps({'kernels': kernels}))
-    print(smi)
-    print(json.dumps({'ok': True, 'device': {
-        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
-        'count': torch.cuda.device_count()}}))
+    return lm
 
 
 if __name__ == '__main__':

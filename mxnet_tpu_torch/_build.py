@@ -108,6 +108,15 @@ def _declare(lib):
     fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32,
                    ctypes.c_float, i32, i32, ptr]
     fn.restype = i32
+    fn = lib.mxt_flash_attention_bwd_dkdv
+    # q, k, v, dout, lse, dd, dk, dv, bh, tq, tk, d, scale, causal, dtype,
+    # stream
+    fn.argtypes = [ptr] * 8 + [i32] * 4 + [ctypes.c_float, i32, i32, ptr]
+    fn.restype = i32
+    fn = lib.mxt_flash_attention_bwd_dq
+    # q, k, v, dout, lse, dd, dq, bh, tq, tk, d, scale, causal, dtype, stream
+    fn.argtypes = [ptr] * 7 + [i32] * 4 + [ctypes.c_float, i32, i32, ptr]
+    fn.restype = i32
     lib.mxt_error_string.argtypes = [i32]
     lib.mxt_error_string.restype = ctypes.c_char_p
     return lib

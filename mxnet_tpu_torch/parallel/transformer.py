@@ -9,7 +9,9 @@ tree's names and shapes, so `params_from_jax` loads a JAX tree as it is.
 
 `TransformerLM.forward` scores a batch of token sequences (logits) and
 `TransformerLM.loss` gives the mean next-token NLL: the serving path.
-Training (`make_train_step`) comes with the attention backward kernels.
+`make_train_step` is the training path: forward, backward (attention's
+gradient from the flash backward kernels when `use_flash`) and a plain
+SGD update.
 """
 import numpy as np
 import torch
@@ -149,3 +151,29 @@ def nll(logits, targets):
     """Mean negative log-likelihood of `targets` (batch, seq) under
     `logits` (batch, seq, vocab), taken in float32."""
     return F.cross_entropy(logits.float().flatten(0, 1), targets.flatten())
+
+
+def make_train_step(cfg, lr=0.1):
+    """The train step of the JAX package's `make_train_step` at
+    dp = tp = sp = 1: `step(model, tokens, targets) -> loss` takes the
+    mean NLL (`nll`), its gradient, and updates every parameter as
+    w <- w - lr * g in the parameter's own dtype, with no master
+    weights, momentum or clipping. The update is made in place under
+    no_grad, the counterpart of the JAX step's donated parameters
+    (`donate_argnums=(0,)`); the returned loss is the one before it.
+    `model` is a TransformerLM built for `cfg`."""
+    cfg = dict(cfg)
+
+    def step(model, tokens, targets):
+        if model.cfg != cfg:
+            raise ValueError('make_train_step: the model was built for %s, '
+                             'the step for %s' % (model.cfg, cfg))
+        model.zero_grad(set_to_none=True)
+        loss = model.loss(tokens, targets)
+        loss.backward()
+        with torch.no_grad():
+            for p in model.parameters():
+                p.sub_(lr * p.grad)
+        return loss.detach()
+
+    return step

@@ -149,7 +149,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         'import sys\n'
         'before = set(sys.modules)\n'
         'import mxnet_tpu_torch, mxnet_tpu_torch._build, '
-        'mxnet_tpu_torch.cuda_ops, mxnet_tpu_torch.parallel.transformer\n'
+        'mxnet_tpu_torch.context, mxnet_tpu_torch.cuda_ops, '
+        'mxnet_tpu_torch.parallel, mxnet_tpu_torch.parallel.ring_attention, '
+        'mxnet_tpu_torch.parallel.transformer\n'
         'added = set(sys.modules) - before\n'
         "bad = sorted(m for m in added if m == 'jax' or "
         "m.startswith('jax.') or m == 'mxnet_tpu' or "

@@ -71,6 +71,68 @@ def test_lm_forward_and_loss_match_jax(use_flash):
     np.testing.assert_allclose(float(nll), ref_loss, rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize('use_flash', [False, True])
+def test_train_step_matches_jax(use_flash):
+    """Three SGD steps of the port's make_train_step against the JAX
+    package's on a 1 x 1 x 1 mesh, from the same parameters: the loss of
+    every step and every parameter after the last."""
+    lr, steps = 0.1, 3
+    cfg = jax_tfm.lm_config(vocab=64, dim=32, heads=4, layers=2,
+                            use_flash=use_flash)
+    mesh = make_mesh({'data': 1, 'sp': 1, 'model': 1},
+                     devices=jax.devices()[:1])
+    jparams = jax_tfm.place_params(
+        jax_tfm.init_params(cfg, jax.random.PRNGKey(2)), cfg, mesh)
+    # the JAX step donates its parameters: copy them out first
+    model = tfm.TransformerLM(
+        tfm.lm_config(vocab=64, dim=32, heads=4, layers=2,
+                      use_flash=use_flash),
+        tfm.params_from_jax(_numpy_tree(jparams), device='cpu'))
+    rs = np.random.RandomState(5)
+    tokens = rs.randint(0, cfg['vocab'], (B, T)).astype(np.int32)
+    targets = np.roll(tokens, -1, axis=1)
+
+    jax_step = jax_tfm.make_train_step(cfg, mesh, lr=lr)
+    step = tfm.make_train_step(model.cfg, lr=lr)
+    tt = torch.from_numpy(tokens).long()
+    ty = torch.from_numpy(targets).long()
+    for i in range(steps):
+        ref_loss, jparams = jax_step(jparams, jnp.asarray(tokens),
+                                     jnp.asarray(targets))
+        loss = step(model, tt, ty)
+        np.testing.assert_allclose(float(loss), float(ref_loss),
+                                   rtol=RTOL, atol=ATOL, err_msg=str(i))
+    ref = _numpy_tree(jparams)
+    for name in ('embed', 'ln_f'):
+        np.testing.assert_allclose(getattr(model, name).detach().numpy(),
+                                   ref[name], rtol=RTOL, atol=ATOL,
+                                   err_msg=name)
+    for layer, lp in zip(model.layers, ref['layers']):
+        for key, want in lp.items():
+            np.testing.assert_allclose(getattr(layer, key).detach().numpy(),
+                                       want, rtol=RTOL, atol=ATOL,
+                                       err_msg=key)
+
+
+def test_train_step_updates_in_place_and_checks_its_config():
+    cfg = tfm.lm_config(vocab=64, dim=32, heads=4, layers=1, use_flash=True)
+    model = tfm.TransformerLM(cfg, tfm.init_params(
+        cfg, torch.Generator().manual_seed(3), device='cpu'))
+    rs = np.random.RandomState(6)
+    tok = torch.from_numpy(rs.randint(0, 64, (B, T + 1))).long()
+    before = model.layers[0].wqkv.detach().clone()
+    storage = model.layers[0].wqkv.data_ptr()
+    loss = tfm.make_train_step(cfg, lr=0.5)(model, tok[:, :-1], tok[:, 1:])
+    assert not loss.requires_grad and np.isfinite(float(loss))
+    wqkv = model.layers[0].wqkv
+    assert wqkv.data_ptr() == storage
+    assert torch.equal(wqkv.detach(), before - 0.5 * wqkv.grad)
+    assert bool(wqkv.grad.abs().max() > 0)
+    with pytest.raises(ValueError, match='built for'):
+        tfm.make_train_step(dict(cfg, use_flash=False))(
+            model, tok[:, :-1], tok[:, 1:])
+
+
 def test_params_from_jax_keeps_names_shapes_and_values():
     cfg = jax_tfm.lm_config(vocab=64, dim=32, heads=4, layers=2)
     tree = _numpy_tree(jax_tfm.init_params(cfg, jax.random.PRNGKey(1)))
