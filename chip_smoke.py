@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Drive the port (mxnet_tpu_torch) on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                      # every phase
+    python3 chip_smoke.py --backward-case lm   # build, one case of phase 4
+    python3 chip_smoke.py --mutants            # phase 4 against broken kernels
 
 Phases, each of which exits non-zero on failure:
 
@@ -19,10 +21,10 @@ Phases, each of which exits non-zero on failure:
    the same model on plain attention;
 4. backward kernels: launch the dK/dV and dQ kernels on the card at the
    shapes of phase 2 (and a rectangular float32 case with a nonzero lse
-   cotangent), hold each against its plain PyTorch version, check that
-   the autograd Function gives the kernels' gradients, and time each
-   beside its bound, its plain version and the backward of
-   scaled_dot_product_attention;
+   cotangent), hold each against its plain PyTorch version element by
+   element, check that the autograd Function gives the kernels'
+   gradients, and time each beside its bound, its plain version and the
+   backward of scaled_dot_product_attention;
 5. train: the train step at the widths of phase 3, bf16, on one batch
    of 8 x 1024 tokens. Every parameter's gradient must be finite and
    nonzero on the flash path and on plain attention and agree between
@@ -36,6 +38,10 @@ It prints one JSON line with every kernel's numbers, then the card's
 name and power limit from nvidia-smi, and last
 {"ok": true, "device": {...}}. It imports neither JAX nor mxnet_tpu, and
 needs a CUDA device and the repository beside it.
+
+--mutants builds each of BWD_MUTANTS (a rounding left out, a tile
+skipped, the causal mask widened) in a copy of the port under
+build/mutants/ and fails unless phase 4's LM case fails every one.
 """
 import json
 import math
@@ -68,15 +74,25 @@ LSE_TOL = {'float32': dict(rtol=2e-4, atol=2e-5),
 # up to about 4, where a bf16 step is 1/32
 LM_LOGIT_ATOL = 0.125
 LM_NLL_ATOL = 5e-3
-# a backward kernel against its plain version, max |difference| over the
-# largest |gradient|: float32 at the JAX package's flash-gradient atol
-# (tests/test_parallel.py), taken relative because these gradients sum
-# up to 1024 keys and reach sizes well above 1, and fp32 rounding in
-# another summing order grows with them; bfloat16 gradients are rounded
-# to 8 bits (2^-8 = 3.9e-3 of the value) on output, and p and ds to bf16
-# before their products, where another fp32 summing order can flip a
-# rounding
-BWD_TOL = {'float32': 2e-5, 'bfloat16': 2e-2}
+# a backward kernel against its plain version, element by element:
+# |got - ref| <= rtol * |ref| + atol + atol_of_max * max|ref|, and at
+# most a share `differ` of the elements may differ at all. float32 at
+# the JAX package's flash-gradient tolerance (tests/test_parallel.py);
+# every element may differ there, in the last bits of another summing
+# order. bfloat16: the kernel and its plain version take the same
+# roundings (p and ds to bf16 before their products, the gradient on
+# output), so they differ only where another fp32 summing order moves a
+# value across a bf16 rounding: one bf16 step of the value (2^-7 of it
+# at most), plus 1e-3 of the largest gradient for elements near 0 and
+# for a flipped rounding of one p or ds. Such flips are rare, under
+# 0.1 % of the elements when the sums run in float64 instead, while a
+# missing rounding of p or ds moves over 30 % of its gradient by a step
+# (both emulated on the CPU in tests/test_torch_flash_backward.py), so
+# at most 1 % may differ.
+BWD_TOL = {'float32': dict(rtol=2e-4, atol=2e-5, atol_of_max=0.0,
+                           differ=1.0),
+           'bfloat16': dict(rtol=2.0 ** -7, atol=0.0, atol_of_max=1e-3,
+                            differ=1e-2)}
 # the LM's gradients on the flash kernels against plain attention, both
 # bf16, as ||g_flash - g_plain|| / ||g_plain|| per parameter: plain
 # attention rounds its scores and softmax to bf16 (2^-8) where the
@@ -87,6 +103,31 @@ GRAD_REL_TOL = 0.05
 TRAIN_STEPS = 4
 LR = 0.1                 # the JAX package's make_train_step default
 FP32_LAYERS, FP32_STEPS = 4, 5
+
+# phase 4: name -> (q shape, kv length, dtype, lse cotangent, iterations),
+# all causal; phase 2's shapes and a rectangular one with an lse cotangent
+BWD_CASES = {
+    'lm': ((BATCH, 16, SEQ, 64), SEQ, 'bfloat16', False, 10),
+    'decode': ((BATCH, 16, 16, 64), SEQ, 'bfloat16', False, 20),
+    'ragged_f32': ((2, 4, 1000, 128), 1000, 'float32', False, 10),
+    'rect_glse_f32': ((2, 4, 300, 64), 700, 'float32', True, 10),
+}
+# --mutants: edits of csrc/flash_attention_bwd.cu (text, replacement),
+# each of which phase 4's LM case must catch
+BWD_MUTANTS = {
+    'p_not_rounded': ('Ps[e] = round_to<T>(s[i][j]);', 'Ps[e] = s[i][j];'),
+    'dkdv_ds_not_rounded': ('dSs[e] = round_to<T>(dp[i][j]);',
+                            'dSs[e] = dp[i][j];'),
+    'dq_ds_not_rounded': ('16 * j] = round_to<T>(dp[i][j]);',
+                          '16 * j] = dp[i][j];'),
+    'dkdv_q_tile_skipped': ('for (int qt = first; qt < nq; ++qt) {',
+                            'for (int qt = first; qt < nq; ++qt) {'
+                            ' if (qt == nq / 2) continue;'),
+    'dq_k_tile_skipped': ('for (int kt = 0; kt <= last; ++kt) {',
+                          'for (int kt = 0; kt <= last; ++kt) {'
+                          ' if (kt == last / 2) continue;'),
+    'mask_one_key_wide': ('col <= r + offset)', 'col <= r + offset + 1)'),
+}
 
 
 def fail(msg):
@@ -230,6 +271,23 @@ def kernel_case(torch, cuda_ops, name, shape_q, tk, dtype, causal, iters):
     return row
 
 
+def grad_mismatch(torch, got, ref, tol):
+    """A gradient against its plain version under `tol` (a BWD_TOL
+    entry): the largest error and reference, the elements over their
+    tolerance and the share that differ at all; ok when finite, none is
+    over and no more than tol['differ'] differ."""
+    got, ref = got.float(), ref.float()
+    err = (got - ref).abs()
+    size = float(ref.abs().max())
+    limit = tol['rtol'] * ref.abs() + tol['atol'] + tol['atol_of_max'] * size
+    over = int((err > limit).sum())
+    differ = float((err > 0).float().mean())
+    finite = bool(torch.isfinite(got).all())
+    return dict(max_abs_err=float(err.max()), max_abs_ref=size,
+                over_tol=over, share_differ=differ, finite=finite,
+                ok=finite and over == 0 and differ <= tol['differ'])
+
+
 def bwd_case(torch, cuda_ops, name, shape_q, tk, dtype, causal, with_glse,
              iters):
     """Phase 4, one shape: each backward kernel against its plain
@@ -257,15 +315,10 @@ def bwd_case(torch, cuda_ops, name, shape_q, tk, dtype, causal, with_glse,
     torch.cuda.synchronize()
     ref_dk, ref_dv = cuda_ops.flash_attention_bwd_dkdv_reference(*args)
     ref_dq = cuda_ops.flash_attention_bwd_dq_reference(*args)
-    errs, ok = {}, True
-    for gname, got, ref in (('dq', dq, ref_dq), ('dk', dk, ref_dk),
-                            ('dv', dv, ref_dv)):
-        err = float((got.float() - ref.float()).abs().max())
-        size = float(ref.float().abs().max())
-        finite = bool(torch.isfinite(got).all())
-        errs[gname] = dict(max_abs_err=err, max_abs_ref=size,
-                           tol=BWD_TOL[dtype_name] * size, finite=finite)
-        ok = ok and finite and err <= BWD_TOL[dtype_name] * size
+    errs = {gname: grad_mismatch(torch, got, ref, BWD_TOL[dtype_name])
+            for gname, got, ref in (('dq', dq, ref_dq), ('dk', dk, ref_dk),
+                                    ('dv', dv, ref_dv))}
+    ok = all(e['ok'] for e in errs.values())
 
     # the Function's backward is these kernels on these inputs
     leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
@@ -297,7 +350,8 @@ def bwd_case(torch, cuda_ops, name, shape_q, tk, dtype, causal, with_glse,
             sdpa_out, (sq, sk, sv), do, retain_graph=True), iters)
     bounds = backward_bounds(b, h, tq, tk, d, dtype_name, causal)
     row = dict(case=name, q=list(shape_q), tk=tk, dtype=dtype_name,
-               causal=causal, glse=with_glse, errors=errs,
+               causal=causal, glse=with_glse, tol=BWD_TOL[dtype_name],
+               errors=errs,
                function_equals_kernels=same,
                dkdv_ms=dkdv_ms, dq_ms=dq_ms, dkdv_plain_ms=dkdv_plain_ms,
                dq_plain_ms=dq_plain_ms, sdpa_backward_ms=library_ms,
@@ -487,7 +541,82 @@ def seeded_tree(cfg, seed):
                        for _ in range(cfg['layers'])]}
 
 
-def main():
+def backward_phase(torch, cuda_ops, names):
+    """Phase 4: the named BWD_CASES, in order."""
+    rows = []
+    for name in names:
+        shape_q, tk, dtype_name, with_glse, iters = BWD_CASES[name]
+        rows.append(bwd_case(torch, cuda_ops, name, shape_q, tk,
+                             getattr(torch, dtype_name), True, with_glse,
+                             iters))
+    return rows
+
+
+def mutant_check(root):
+    """--mutants: build each of BWD_MUTANTS in its own copy of the port
+    under build/mutants/ and run phase 4's LM case there, all at once;
+    each must fail it and the copy with no edit must pass. Times from
+    these runs mean nothing: they share the card."""
+    import shutil
+    base = root / 'build' / 'mutants'
+    shutil.rmtree(base, ignore_errors=True)
+    runs = []
+    for name, edit in [('unchanged', None)] + list(BWD_MUTANTS.items()):
+        copy = base / name
+        shutil.copytree(root / 'mxnet_tpu_torch', copy / 'mxnet_tpu_torch',
+                        ignore=shutil.ignore_patterns('__pycache__'))
+        shutil.copy2(root / 'chip_smoke.py', copy)
+        if edit:
+            src = copy / 'mxnet_tpu_torch' / 'csrc' / 'flash_attention_bwd.cu'
+            text = src.read_text()
+            if text.count(edit[0]) != 1:
+                fail('mutant %s: %r is not in the source once' % (name,
+                                                                    edit[0]))
+            src.write_text(text.replace(edit[0], edit[1]))
+        with open(copy / 'run.log', 'w') as log:
+            runs.append((name, copy, subprocess.Popen(
+                [sys.executable, 'chip_smoke.py', '--backward-case', 'lm'],
+                cwd=copy, stdout=log, stderr=subprocess.STDOUT)))
+    try:
+        rcs = [proc.wait(timeout=600) for _, _, proc in runs]
+    finally:
+        for _, _, proc in runs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wrong = []
+    for (name, copy, _), rc in zip(runs, rcs):
+        text = (copy / 'run.log').read_text()
+        rows = [json.loads(line[len('backward case '):])
+                for line in text.splitlines()
+                if line.startswith('backward case ')]
+        errors = {g: {k: e[k] for k in ('max_abs_err', 'over_tol',
+                                         'share_differ')}
+                  for g, e in (rows[0]['errors'].items() if rows else ())}
+        failed_check = rc == 1 and 'disagrees with its plain' in text
+        print('mutant ' + json.dumps(dict(mutant=name, rc=rc,
+                                          caught=failed_check,
+                                          errors=errors)))
+        if (name == 'unchanged') != (rc == 0) or \
+                (name != 'unchanged' and not failed_check):
+            wrong.append('%s (rc %d):\n%s' % (name, rc, text[-3000:]))
+    if wrong:
+        fail('mutant check: ' + '\n'.join(wrong))
+    print('mutants: all %d caught by the LM case; the unchanged copy '
+          'passes' % len(BWD_MUTANTS))
+
+
+def main(argv=None):
+    import argparse
+    parser = argparse.ArgumentParser(
+        description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
+    parser.add_argument('--backward-case', choices=sorted(BWD_CASES),
+                        help='build, then run only this case of phase 4')
+    parser.add_argument('--mutants', action='store_true',
+                        help='check that phase 4\'s LM case fails each of '
+                             'BWD_MUTANTS, a broken copy of the backward '
+                             'kernels')
+    args = parser.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         fail('torch.cuda.is_available() is False: this script needs a '
@@ -496,6 +625,9 @@ def main():
     if not (root / 'mxnet_tpu_torch' / 'csrc').is_dir():
         fail('mxnet_tpu_torch/csrc not found beside %s: run it from a '
              'checkout of the repository' % Path(__file__).name)
+    if args.mutants:
+        mutant_check(root)
+        return
     sys.path.insert(0, str(root))
     from mxnet_tpu_torch import _build, cuda_ops
     from mxnet_tpu_torch.parallel import transformer as tfm
@@ -517,6 +649,9 @@ def main():
     build_s = time.perf_counter() - t0
     print('build: %.1f s' % build_s)
     print(_build.build_log().strip())
+    if args.backward_case:
+        backward_phase(torch, cuda_ops, [args.backward_case])
+        return
 
     # 2. each kernel against its plain version, at the LM's shape first
     cases = [
@@ -542,18 +677,8 @@ def main():
         requests.append((tok[:, :-1], tok[:, 1:]))
     lm = lm_phase(torch, cuda_ops, tfm, cfg, params, requests)
 
-    # 4. the backward kernels against their plain versions, at phase 2's
-    # shapes and one with an lse cotangent
-    bwd_cases = [
-        bwd_case(torch, cuda_ops, 'lm', (BATCH, 16, SEQ, 64), SEQ,
-                 torch.bfloat16, True, False, iters=10),
-        bwd_case(torch, cuda_ops, 'decode', (BATCH, 16, 16, 64), SEQ,
-                 torch.bfloat16, True, False, iters=20),
-        bwd_case(torch, cuda_ops, 'ragged_f32', (2, 4, 1000, 128), 1000,
-                 torch.float32, True, False, iters=10),
-        bwd_case(torch, cuda_ops, 'rect_glse_f32', (2, 4, 300, 64), 700,
-                 torch.float32, True, True, iters=10),
-    ]
+    # 4. the backward kernels against their plain versions
+    bwd_cases = backward_phase(torch, cuda_ops, BWD_CASES)
 
     # 5. the train step, the port's training path
     train = train_phase(torch, cuda_ops, tfm, params, requests[0])
@@ -577,7 +702,8 @@ def main():
         per_case = [dict(
             case=c['case'], max_abs_err=max(c['errors'][g]['max_abs_err']
                                             for g in grads),
-            tol=min(c['errors'][g]['tol'] for g in grads),
+            share_differ=max(c['errors'][g]['share_differ'] for g in grads),
+            tol=c['tol'],
             ms=c[key + '_ms'], plain_ms=c[key + '_plain_ms'],
             library_ms=c['sdpa_backward_ms'], **c['bounds'][key])
             for c in bwd_cases]

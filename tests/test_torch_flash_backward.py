@@ -136,6 +136,58 @@ def test_bwd_reference_rounds_as_the_kernels_in_bfloat16():
         assert not torch.equal(a.float(), b)
 
 
+def _bf16_variant_grads(variant):
+    """(dq, dk, dv) of the plain backward in bf16 at (1, 4, 256, 64)
+    causal, and the same recomputed with its sums in float64 and one
+    change: 'sound' none, 'p_not_rounded' / 'ds_not_rounded' leave out a
+    rounding before the products, 'q_tile_skipped' drops one 64-row q
+    tile from dK and dV."""
+    rs = np.random.RandomState(17)
+    q, k, v, do = (torch.from_numpy(rs.randn(1, 4, 256, 64).astype(
+        np.float32)).bfloat16() for _ in range(4))
+    scale = 0.125
+    out, lse = cuda_ops.flash_attention_reference(q, k, v, True, scale)
+    dd = cuda_ops.attention_bwd_delta(out, do)
+    ref = (cuda_ops.flash_attention_bwd_dq_reference(q, k, v, do, lse, dd,
+                                                     True, scale),
+           *cuda_ops.flash_attention_bwd_dkdv_reference(q, k, v, do, lse, dd,
+                                                        True, scale))
+    p, ds = cuda_ops._probs_and_dscores(q, k, v, do, lse, dd, True, scale)
+    f64 = torch.float64
+    p_used = p.to(f64) if variant == 'p_not_rounded' else \
+        p.bfloat16().to(f64)
+    ds_used = ds.to(f64) if variant == 'ds_not_rounded' else \
+        ds.bfloat16().to(f64)
+    dq = torch.einsum('bhqk,bhkd->bhqd', ds_used, k.to(f64)) * scale
+    if variant == 'q_tile_skipped':
+        p_used[:, :, 128:192] = 0
+        ds_used[:, :, 128:192] = 0
+    got = (dq, torch.einsum('bhqk,bhqd->bhkd', ds_used, q.to(f64)) * scale,
+           torch.einsum('bhqk,bhqd->bhkd', p_used, do.to(f64)))
+    return [g.bfloat16() for g in got], ref
+
+
+@pytest.mark.parametrize('variant,broken', [
+    ('sound', ()), ('p_not_rounded', (2,)), ('ds_not_rounded', (0, 1)),
+    ('q_tile_skipped', (1, 2))])
+def test_chip_smoke_bf16_backward_gate(variant, broken):
+    """chip_smoke.py's bf16 check of a backward kernel against its plain
+    version passes another summing order, which differs on under 0.1 %
+    of the elements, and fails a rounding left out (over 30 % differ by
+    a bf16 step) or a skipped q tile."""
+    import chip_smoke
+    tol = chip_smoke.BWD_TOL['bfloat16']
+    got, ref = _bf16_variant_grads(variant)
+    for i, (a, b) in enumerate(zip(got, ref)):
+        check = chip_smoke.grad_mismatch(torch, a, b, tol)
+        if i not in broken:
+            assert check['ok'] and check['share_differ'] < 1e-3, check
+        else:
+            assert not check['ok'], check
+            if variant != 'q_tile_skipped':
+                assert check['share_differ'] > 0.3, check
+
+
 def test_cpu_backward_launches_no_kernel():
     q, k, v = _qkv(15, (1, 2, 16, 8), (1, 2, 16, 8))
     tq, tk, tv = _leaves(q, k, v)
