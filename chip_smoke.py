@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py                      # every phase
     python3 chip_smoke.py --backward-case lm   # build, one case of phase 4
-    python3 chip_smoke.py --mutants            # phase 4 against broken kernels
+    python3 chip_smoke.py --conv-case main     # build, one case of phase 6
+    python3 chip_smoke.py --mutants            # phases 4 and 6 against
+                                               # broken kernels
 
 Phases, each of which exits non-zero on failure:
 
@@ -32,7 +34,17 @@ Phases, each of which exits non-zero on failure:
    four timed steps, each of which must launch the forward, dK/dV and
    dQ kernels once per layer; a torch.profiler breakdown of one step;
    last, five float32 steps at full width and 4 layers on one batch,
-   whose loss must fall.
+   whose loss must fall;
+6. conv + BatchNorm statistics: the kernel against its plain version,
+   element by element, at the main ResNet-50 shape (3x3, 64 -> 64 at
+   56^2, batch 256, bf16), a strided 1x1, a ragged float32 case and a
+   stem-like 7x7 stride-2 one, and the same bits on a second run; the autograd Function's dx and dw
+   against the fold of the statistics' cotangents and the transposed
+   convs on the plain version's y; then the bench path
+   (mxnet_tpu_torch.tools.bench_conv_bn) over all 19 conv shapes of the
+   ResNet-50 body at batch 256 in bf16, each of whose result calls must
+   launch the kernel once, timed beside its bound, its plain version and
+   cuDNN's conv with the statistics summed after it.
 
 It prints one JSON line with every kernel's numbers, then the card's
 name and power limit from nvidia-smi, and last
@@ -40,8 +52,11 @@ name and power limit from nvidia-smi, and last
 needs a CUDA device and the repository beside it.
 
 --mutants builds each of BWD_MUTANTS (a rounding left out, a tile
-skipped, the causal mask widened) in a copy of the port under
-build/mutants/ and fails unless phase 4's LM case fails every one.
+skipped, the causal mask widened) and CONV_MUTANTS (a tap skipped, the
+padding one pixel off, one M tile's statistics left out) in a copy of
+the port under build/mutants/ and fails unless phase 4's LM case fails
+every backward mutant, phase 6's main case every conv mutant, and the
+unchanged copy passes both.
 """
 import json
 import math
@@ -127,6 +142,53 @@ BWD_MUTANTS = {
                           'for (int kt = 0; kt <= last; ++kt) {'
                           ' if (kt == last / 2) continue;'),
     'mask_one_key_wide': ('col <= r + offset)', 'col <= r + offset + 1)'),
+}
+
+# phase 6: name -> (x NHWC, w HWIO, stride, pad, dtype): the main
+# ResNet-50 shape, a strided 1x1 of the ResNet-50 body, a ragged float32
+# case (M = 507 and Cout = 96 fill no tile, Cin = 24 no chunk), and a
+# stem-like 7x7 stride-2 conv on a non-square image whose Cin = 3 and
+# Cout = 30 take the kernel's element-wise loads and stores
+CONV_BATCH = 256
+CONV_CASES = {
+    'main': ((CONV_BATCH, 56, 56, 64), (3, 3, 64, 64), (1, 1), (1, 1),
+             'bfloat16'),
+    'strided': ((CONV_BATCH, 56, 56, 256), (1, 1, 256, 512), (2, 2), (0, 0),
+                'bfloat16'),
+    'ragged_f32': ((3, 13, 13, 24), (3, 3, 24, 96), (1, 1), (1, 1),
+                   'float32'),
+    'odd_bf16': ((2, 15, 17, 3), (7, 7, 3, 30), (2, 2), (3, 3), 'bfloat16'),
+}
+CONV_GRAD_CASE = 'strided'
+# the conv's y against its plain version, element by element. bf16: both
+# round the same fp32 sum of the same products, taken in another order,
+# so they differ only where that order moves a value across a rounding:
+# one bf16 step of the value (2^-7 of it at most), plus 1e-3 of the
+# largest for values near 0, and at most 1 % of the elements may differ
+# at all (a tap skipped or the padding moved changes most of them).
+# float32: two summing orders of the K = kh*kw*Cin products each lie
+# within K * 2^-24 of the sum of the products' magnitudes, (|x| conv |w|)
+# at that element, so |got - ref| <= 2 * K * 2^-24 * (|x| conv |w|).
+CONV_Y_TOL = dict(rtol=2.0 ** -7, atol=0.0, atol_of_max=1e-3, differ=1e-2)
+CONV_F32_ORDERS = 2
+# s1 and s2 against the plain version's, relative to sum |y| and sum y^2
+# per channel: the kernel's longest chain of float32 additions (8 rows, 16
+# row groups, a 128-row tile's partials in 8 groups of up to 784 at
+# batch 256, 8 groups) is under 1,024 adds, so it lies within 2^-14 of
+# the exact sum on that scale, and the plain version's tree sums closer.
+# One 128-row tile of 802,816 left out moves s2 by about 1.6e-4 of it.
+CONV_STATS_RTOL = 2.0 ** -14
+# --mutants: edits of csrc/conv_bn_stats.cu, each of which phase 6's main
+# case must catch
+CONV_MUTANTS = {
+    'conv_tap_skipped': ('wi >= 0 && wi < s.w;',
+                         'wi >= 0 && wi < s.w && tap != taps / 2;'),
+    'conv_pad_off_by_one': ('const int hbase = ho * s.sh - s.ph;',
+                            'const int hbase = ho * s.sh - s.ph + 1;'),
+    'conv_partial_left_out': (
+        'for (int b = g; b < m_tiles; b += FIN_GROUPS) {',
+        'for (int b = g; b < m_tiles; b += FIN_GROUPS) {'
+        ' if (b == m_tiles / 2) continue;'),
 }
 
 
@@ -552,22 +614,218 @@ def backward_phase(torch, cuda_ops, names):
     return rows
 
 
+def conv_inputs(torch, name, seed):
+    """Seeded x and w of CONV_CASES[name] on the card: w scaled by 0.05,
+    so y is of size about 1 at the ResNet-50 depths."""
+    xs, ws, stride, pad, dtype_name = CONV_CASES[name]
+    dtype = getattr(torch, dtype_name)
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    x = torch.randn(xs, generator=gen, device='cuda', dtype=dtype)
+    w = torch.randn(ws, generator=gen, device='cuda', dtype=dtype) * 0.05
+    return x, w, stride, pad, dtype_name
+
+
+def conv_y_mismatch(torch, cuda_conv, got, ref, x, w, stride, pad):
+    """y against the plain version's under CONV_Y_TOL (bf16) or the
+    float32 depth bound; the fields of `grad_mismatch`."""
+    if got.dtype == torch.bfloat16:
+        return grad_mismatch(torch, got, ref, CONV_Y_TOL)
+    depth = w.shape[0] * w.shape[1] * w.shape[2]
+    magnitude = cuda_conv.conv_bn_stats_plain(x.abs(), w.abs(), stride,
+                                              pad)[0]
+    limit = CONV_F32_ORDERS * depth * 2.0 ** -24 * magnitude
+    err = (got - ref).abs()
+    over = int((err > limit).sum())
+    finite = bool(torch.isfinite(got).all())
+    return dict(max_abs_err=float(err.max()),
+                max_abs_ref=float(ref.abs().max()), over_tol=over,
+                share_differ=float((err > 0).float().mean()), finite=finite,
+                ok=finite and over == 0)
+
+
+def stats_mismatch(torch, got, ref, scale):
+    """A statistic against the plain version's, as the largest
+    |got - ref| / scale over the channels; ok when finite and within
+    CONV_STATS_RTOL."""
+    err = float(((got - ref).abs() / scale.clamp_min(1e-30)).max())
+    finite = bool(torch.isfinite(got).all())
+    return dict(rel_err=err, ok=finite and err <= CONV_STATS_RTOL)
+
+
+def conv_case(torch, cuda_conv, name):
+    """Phase 6, one case: the kernel against its plain version on the same
+    inputs, element by element, and the same bits on a second run."""
+    x, w, stride, pad, dtype_name = conv_inputs(torch, name, SEED + 4)
+    y, s1, s2 = cuda_conv.conv_bn_stats_cuda(x, w, stride, pad)
+    again = cuda_conv.conv_bn_stats_cuda(x, w, stride, pad)
+    torch.cuda.synchronize()
+    same_bits = all(torch.equal(a, b) for a, b in zip((y, s1, s2), again))
+    del again
+    py, p1, p2 = cuda_conv.conv_bn_stats_plain(x, w, stride, pad)
+    pf = py.float()
+    y_check = conv_y_mismatch(torch, cuda_conv, y, py, x, w, stride, pad)
+    s1_check = stats_mismatch(torch, s1, p1, pf.abs().sum((0, 1, 2)))
+    s2_check = stats_mismatch(torch, s2, p2, (pf * pf).sum((0, 1, 2)))
+    ok = y_check['ok'] and s1_check['ok'] and s2_check['ok']
+    row = dict(case=name, x=list(x.shape), w=list(w.shape),
+               stride=list(stride), pad=list(pad), dtype=dtype_name,
+               y=y_check, s1=s1_check, s2=s2_check,
+               y_tol=CONV_Y_TOL if dtype_name == 'bfloat16' else
+               '%d * K * 2^-24 * (|x| conv |w|)' % CONV_F32_ORDERS,
+               stats_rtol=CONV_STATS_RTOL, same_bits_twice=same_bits)
+    print('conv case ' + json.dumps(row))
+    if not ok:
+        fail('conv %s: the kernel disagrees with its plain version: y %s, '
+             's1 %s, s2 %s' % (name, y_check, s1_check, s2_check))
+    if not same_bits:
+        fail('conv %s: a second run of the kernel gave other bits' % name)
+    return row
+
+
+def conv_grad_check(torch, cuda_conv):
+    """Phase 6: dx and dw of the autograd Function on the card (kernel
+    forward, seeded dy, ds1, ds2) against the statistics' cotangents
+    folded into dy on the plain version's y, dy + ds1 + 2 y ds2, and
+    PyTorch's transposed convs, written out here."""
+    name = CONV_GRAD_CASE
+    x, w, stride, pad, dtype_name = conv_inputs(torch, name, SEED + 5)
+    xl, wl = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    y, s1, s2 = cuda_conv.conv2d_bn_stats(xl, wl, stride, pad)
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 6)
+    dy = torch.randn(y.shape, generator=gen, device='cuda', dtype=y.dtype)
+    ds1 = torch.randn(s1.shape, generator=gen, device='cuda')
+    ds2 = torch.randn(s2.shape, generator=gen, device='cuda') * 0.1
+    dx, dw = torch.autograd.grad((y, s1, s2), (xl, wl), (dy, ds1, ds2))
+
+    py = cuda_conv.conv_bn_stats_plain(x, w, stride, pad)[0]
+    tot = (dy.float() + ds1 + 2.0 * py.float() * ds2).to(y.dtype)
+    tot = tot.permute(0, 3, 1, 2)
+    xn, wn = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
+    ref_dx = torch.nn.grad.conv2d_input(xn.shape, wn, tot, stride,
+                                        pad).permute(0, 2, 3, 1)
+    ref_dw = torch.nn.grad.conv2d_weight(xn, wn.shape, tot, stride,
+                                         pad).permute(2, 3, 1, 0)
+    tol = BWD_TOL[dtype_name]
+    errs = {'dx': grad_mismatch(torch, dx, ref_dx, tol),
+            'dw': grad_mismatch(torch, dw, ref_dw, tol)}
+    row = dict(case=name, tol=tol, errors=errs)
+    print('conv grad check ' + json.dumps(row))
+    if not all(e['ok'] for e in errs.values()):
+        fail('conv gradients of the Function disagree with the fold and '
+             'transposes on the plain version: %s' % errs)
+    return row
+
+
+def conv_bench_phase(torch, cuda_ops, cuda_conv, bench_conv_bn):
+    """Phase 6's path: the bench over every ResNet-50 conv shape at batch
+    CONV_BATCH in bf16, its launch counts read from zero."""
+    reset_counts(cuda_ops)
+    cuda_conv.CONV_BN_STATS_LAUNCHES = 0
+    bench = bench_conv_bn.run(batch=CONV_BATCH, dtype='bfloat16',
+                              log=lambda line: print('conv bench ' + line))
+    launches = cuda_conv.CONV_BN_STATS_LAUNCHES
+    flash = read_counts(cuda_ops)
+    rows = bench['rows']
+    print('conv bench ' + json.dumps(dict(bench, launches=launches)))
+    bad = []
+    for r in rows:
+        where = tuple(r['shape'])
+        if r['launches'] != 1:
+            bad.append('%s: the result call launched %d kernels, expected 1'
+                       % (where, r['launches']))
+        if not r['y_finite'] or r['y_share_differ'] > CONV_Y_TOL['differ'] \
+                or r['y_max_abs_err'] > (CONV_Y_TOL['rtol'] +
+                                         CONV_Y_TOL['atol_of_max']) * \
+                r['y_max_abs']:
+            bad.append('%s: y disagrees with the plain version: max err %.3g '
+                       'of max %.3g, %.2g differ' % (
+                           where, r['y_max_abs_err'], r['y_max_abs'],
+                           r['y_share_differ']))
+        if not max(r['s1_err'], r['s2_err']) <= CONV_STATS_RTOL:
+            bad.append('%s: statistics disagree with the plain version: s1 '
+                       '%.3g, s2 %.3g (tol %g)' % (where, r['s1_err'],
+                                                   r['s2_err'],
+                                                   CONV_STATS_RTOL))
+    if len(rows) != len(cuda_conv.RESNET50_CONVS):
+        bad.append('%d shapes ran of %d' % (len(rows),
+                                             len(cuda_conv.RESNET50_CONVS)))
+    counted = sum(r['launches'] + r['timed_launches'] for r in rows)
+    if launches != counted:
+        bad.append('the bench launched %d kernels; its rows count %d'
+                   % (launches, counted))
+    if flash != (0, 0, 0):
+        bad.append('the bench launched flash kernels: %s' % (flash,))
+    if bad:
+        fail('conv bench: ' + '; '.join(bad))
+    return dict(bench, launches=launches,
+                launches_per_body_forward=sum(r['count'] * r['launches']
+                                              for r in rows))
+
+
+def conv_phase(torch, cuda_ops, cuda_conv, bench_conv_bn):
+    """Phase 6: CONV_CASES, the gradient check and the bench path."""
+    cases = [conv_case(torch, cuda_conv, name) for name in CONV_CASES]
+    grad = conv_grad_check(torch, cuda_conv)
+    bench = conv_bench_phase(torch, cuda_ops, cuda_conv, bench_conv_bn)
+    return dict(cases=cases, grad=grad, bench=bench)
+
+
+def conv_kernel_entry(conv):
+    """The conv_bn_stats entry of the kernels line: times at the main
+    case's shape from the bench, errors from the cases."""
+    xs, ws = CONV_CASES['main'][:2]
+    main_shape = [xs[1], xs[3], ws[3], ws[0], CONV_CASES['main'][2][0]]
+    bench = conv['bench']
+    row = next(r for r in bench['rows'] if r['shape'] == main_shape)
+    cases = [dict(case=c['case'], x=c['x'], w=c['w'], dtype=c['dtype'],
+                  max_abs_err=c['y']['max_abs_err'],
+                  share_differ=c['y']['share_differ'],
+                  s1_rel_err=c['s1']['rel_err'],
+                  s2_rel_err=c['s2']['rel_err'], y_tol=c['y_tol'],
+                  stats_rtol=c['stats_rtol'],
+                  same_bits_twice=c['same_bits_twice'])
+             for c in conv['cases']]
+    return dict(
+        name='conv_bn_stats', route='cuda',
+        source='mxnet_tpu_torch/csrc/conv_bn_stats.cu',
+        replaces='mxnet_tpu/pallas_conv.py:101',
+        launches=bench['launches'],
+        launches_by_path=dict(conv_bn_bench=bench['launches']),
+        launches_per_body_forward=bench['launches_per_body_forward'],
+        max_abs_err=cases[0]['max_abs_err'], ms=row['ms'],
+        plain_ms=row['plain_ms'], bound_ms=row['bound_ms'],
+        bound_by=row['bound_by'], library_ms=row['library_ms'],
+        library_call='cuDNN F.conv2d on channels-last tensors, then the '
+                     'float32 sum and sum of squares of y per channel',
+        main_shape=dict(x=list(xs), w=list(ws), dtype='bfloat16'),
+        totals=bench['totals'], grad_check=conv['grad']['errors'],
+        cases=cases)
+
+
 def mutant_check(root):
-    """--mutants: build each of BWD_MUTANTS in its own copy of the port
-    under build/mutants/ and run phase 4's LM case there, all at once;
-    each must fail it and the copy with no edit must pass. Times from
-    these runs mean nothing: they share the card."""
+    """--mutants: build each of BWD_MUTANTS and CONV_MUTANTS in its own
+    copy of the port under build/mutants/ and run there, all at once,
+    phase 4's LM case (a backward mutant) or phase 6's main case (a conv
+    mutant); each must fail its case and the copy with no edit must pass
+    both. Times from these runs mean nothing: they share the card."""
     import shutil
     base = root / 'build' / 'mutants'
     shutil.rmtree(base, ignore_errors=True)
+    bwd = ('flash_attention_bwd.cu', ['--backward-case', 'lm'])
+    conv = ('conv_bn_stats.cu', ['--conv-case', 'main'])
+    plan = [('unchanged', None, None, bwd[1] + conv[1])]
+    plan += [(name, edit, bwd[0], bwd[1])
+             for name, edit in BWD_MUTANTS.items()]
+    plan += [(name, edit, conv[0], conv[1])
+             for name, edit in CONV_MUTANTS.items()]
     runs = []
-    for name, edit in [('unchanged', None)] + list(BWD_MUTANTS.items()):
+    for name, edit, source, case in plan:
         copy = base / name
         shutil.copytree(root / 'mxnet_tpu_torch', copy / 'mxnet_tpu_torch',
                         ignore=shutil.ignore_patterns('__pycache__'))
         shutil.copy2(root / 'chip_smoke.py', copy)
         if edit:
-            src = copy / 'mxnet_tpu_torch' / 'csrc' / 'flash_attention_bwd.cu'
+            src = copy / 'mxnet_tpu_torch' / 'csrc' / source
             text = src.read_text()
             if text.count(edit[0]) != 1:
                 fail('mutant %s: %r is not in the source once' % (name,
@@ -575,7 +833,7 @@ def mutant_check(root):
             src.write_text(text.replace(edit[0], edit[1]))
         with open(copy / 'run.log', 'w') as log:
             runs.append((name, copy, subprocess.Popen(
-                [sys.executable, 'chip_smoke.py', '--backward-case', 'lm'],
+                [sys.executable, 'chip_smoke.py'] + case,
                 cwd=copy, stdout=log, stderr=subprocess.STDOUT)))
     try:
         rcs = [proc.wait(timeout=600) for _, _, proc in runs]
@@ -587,12 +845,18 @@ def mutant_check(root):
     wrong = []
     for (name, copy, _), rc in zip(runs, rcs):
         text = (copy / 'run.log').read_text()
-        rows = [json.loads(line[len('backward case '):])
-                for line in text.splitlines()
-                if line.startswith('backward case ')]
-        errors = {g: {k: e[k] for k in ('max_abs_err', 'over_tol',
-                                         'share_differ')}
-                  for g, e in (rows[0]['errors'].items() if rows else ())}
+        errors = {}
+        for line in text.splitlines():
+            if line.startswith('backward case '):
+                row = json.loads(line[len('backward case '):])
+                errors.update({g: {k: e[k] for k in (
+                    'max_abs_err', 'over_tol', 'share_differ')}
+                    for g, e in row['errors'].items()})
+            elif line.startswith('conv case '):
+                row = json.loads(line[len('conv case '):])
+                errors.update(y={k: row['y'][k] for k in (
+                    'max_abs_err', 'over_tol', 'share_differ')},
+                    s1=row['s1']['rel_err'], s2=row['s2']['rel_err'])
         failed_check = rc == 1 and 'disagrees with its plain' in text
         print('mutant ' + json.dumps(dict(mutant=name, rc=rc,
                                           caught=failed_check,
@@ -602,8 +866,9 @@ def mutant_check(root):
             wrong.append('%s (rc %d):\n%s' % (name, rc, text[-3000:]))
     if wrong:
         fail('mutant check: ' + '\n'.join(wrong))
-    print('mutants: all %d caught by the LM case; the unchanged copy '
-          'passes' % len(BWD_MUTANTS))
+    print('mutants: all %d backward mutants caught by the LM case and all '
+          '%d conv mutants by the main conv case; the unchanged copy '
+          'passes both' % (len(BWD_MUTANTS), len(CONV_MUTANTS)))
 
 
 def main(argv=None):
@@ -612,10 +877,12 @@ def main(argv=None):
         description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
     parser.add_argument('--backward-case', choices=sorted(BWD_CASES),
                         help='build, then run only this case of phase 4')
+    parser.add_argument('--conv-case', choices=sorted(CONV_CASES),
+                        help='build, then run only this case of phase 6')
     parser.add_argument('--mutants', action='store_true',
                         help='check that phase 4\'s LM case fails each of '
-                             'BWD_MUTANTS, a broken copy of the backward '
-                             'kernels')
+                             'BWD_MUTANTS and phase 6\'s main case each of '
+                             'CONV_MUTANTS, broken copies of the kernels')
     args = parser.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -629,8 +896,9 @@ def main(argv=None):
         mutant_check(root)
         return
     sys.path.insert(0, str(root))
-    from mxnet_tpu_torch import _build, cuda_ops
+    from mxnet_tpu_torch import _build, cuda_conv, cuda_ops
     from mxnet_tpu_torch.parallel import transformer as tfm
+    from mxnet_tpu_torch.tools import bench_conv_bn
 
     # full float32 products in the plain versions (no TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -649,8 +917,11 @@ def main(argv=None):
     build_s = time.perf_counter() - t0
     print('build: %.1f s' % build_s)
     print(_build.build_log().strip())
-    if args.backward_case:
-        backward_phase(torch, cuda_ops, [args.backward_case])
+    if args.backward_case or args.conv_case:
+        if args.backward_case:
+            backward_phase(torch, cuda_ops, [args.backward_case])
+        if args.conv_case:
+            conv_case(torch, cuda_conv, args.conv_case)
         return
 
     # 2. each kernel against its plain version, at the LM's shape first
@@ -682,6 +953,10 @@ def main(argv=None):
 
     # 5. the train step, the port's training path
     train = train_phase(torch, cuda_ops, tfm, params, requests[0])
+    del params
+
+    # 6. the conv + BN statistics kernel and its bench path
+    conv = conv_phase(torch, cuda_ops, cuda_conv, bench_conv_bn)
 
     main_case = cases[0]
     kernels = [dict(
@@ -724,9 +999,10 @@ def main(argv=None):
             whole_backward_bound_ms=bwd_cases[0]['bounds']['whole'][
                 'bound_ms'],
             cases=per_case))
+    kernels.append(conv_kernel_entry(conv))
     for kern in kernels:
         if kern['launches'] == 0:
-            fail('the LM path launched no %s kernel' % kern['name'])
+            fail('its path launched no %s kernel' % kern['name'])
     print(json.dumps({'kernels': kernels}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

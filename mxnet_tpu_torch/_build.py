@@ -117,6 +117,13 @@ def _declare(lib):
     # q, k, v, dout, lse, dd, dq, bh, tq, tk, d, scale, causal, dtype, stream
     fn.argtypes = [ptr] * 7 + [i32] * 4 + [ctypes.c_float, i32, i32, ptr]
     fn.restype = i32
+    fn = lib.mxt_conv_bn_stats
+    # x, w, y, s1, s2, part, n, h, w, cin, cout, kh, kw, sh, sw, ph, pw,
+    # dtype, stream
+    fn.argtypes = [ptr] * 6 + [i32] * 12 + [ptr]
+    fn.restype = i32
+    lib.mxt_conv_bn_stats_block_rows.argtypes = []
+    lib.mxt_conv_bn_stats_block_rows.restype = i32
     lib.mxt_error_string.argtypes = [i32]
     lib.mxt_error_string.restype = ctypes.c_char_p
     return lib
