@@ -4,6 +4,7 @@
     python3 chip_smoke.py                      # every phase
     python3 chip_smoke.py --backward-case lm   # build, one case of phase 4
     python3 chip_smoke.py --conv-case main     # build, one case of phase 6
+    python3 chip_smoke.py --phases 7,8         # build, phases 7 and 8 only
     python3 chip_smoke.py --mutants            # phases 4 and 6 against
                                                # broken kernels
 
@@ -11,7 +12,8 @@ Phases, each of which exits non-zero on failure:
 
 1. build: compile every kernel from mxnet_tpu_torch/csrc with nvcc;
 2. kernels: launch each kernel on the card at the LM's shapes (and a
-   decode-shaped and a ragged float32 case), hold it against its plain
+   decode-shaped case, a ragged float32 one, head_dim 192 in bf16 and a
+   ragged float32 one with head_dim 100), hold it against its plain
    PyTorch version within the stated tolerance, and time it beside its
    bound, the plain version and, where one exists, one PyTorch call
    that computes the same function;
@@ -20,7 +22,8 @@ Phases, each of which exits non-zero on failure:
    four requests of 8 x 1024 tokens on the flash kernel; the launch
    count must rise by one per layer per request, the logits must be
    finite, the mean NLL near ln(vocab), and one request must agree with
-   the same model on plain attention;
+   the same model on plain attention; then the same check for one
+   request at dim 768 with 4 heads (head_dim 192) and 2 layers;
 4. backward kernels: launch the dK/dV and dQ kernels on the card at the
    shapes of phase 2 (and a rectangular float32 case with a nonzero lse
    cotangent), hold each against its plain PyTorch version element by
@@ -44,7 +47,23 @@ Phases, each of which exits non-zero on failure:
    (mxnet_tpu_torch.tools.bench_conv_bn) over all 19 conv shapes of the
    ResNet-50 body at batch 256 in bf16, each of whose result calls must
    launch the kernel once, timed beside its bound, its plain version and
-   cuDNN's conv with the statistics summed after it.
+   cuDNN's conv with the statistics summed after it;
+7. the NDArray core: every op that mxnet_tpu_torch/ops/tensor.py
+   registers (aliases included) runs once on gpu(0) and once on cpu(0)
+   on the same seeded float32 inputs, n x n = 1024 x 1024 where it takes
+   a matrix, and the two must agree (tools/op_consistency.py: exact for
+   data movement and integer results, rtol 1e-5 / atol 1e-6 for
+   elementwise float math, rtol 1e-4 for reductions and products, TF32
+   off); each sampler of mx.random on gpu(0), its mean and variance
+   within 5 standard errors of its distribution's; then the host time
+   of one small nd op beside the same torch call;
+8. mx.rtc: each RTC_CASES kernel, CUDA source compiled by NVRTC for
+   sm_90a, pushed on gpu(0) and held against its plain version; a second
+   push at the same key compiles nothing; saxpy1 timed beside its bound,
+   its plain version and torch.addcmul; then the imperative training
+   loop (logistic regression under autograd.record() with the SGD step
+   through sgd_update's Rtc), whose accuracy must pass 0.9 in 100 steps,
+   each launching the kernel once.
 
 It prints one JSON line with every kernel's numbers, then the card's
 name and power limit from nvidia-smi, and last
@@ -119,6 +138,16 @@ TRAIN_STEPS = 4
 LR = 0.1                 # the JAX package's make_train_step default
 FP32_LAYERS, FP32_STEPS = 4, 5
 
+# phase 2: name -> (q shape, kv length, dtype, iterations), all causal:
+# the LM's shape, decode, a ragged float32 one, head_dim 192 (the DP 256
+# instance) and a ragged head_dim of 100 (not a multiple of 8)
+FWD_CASES = {
+    'lm': ((BATCH, 16, SEQ, 64), SEQ, 'bfloat16', 20),
+    'decode': ((BATCH, 16, 16, 64), SEQ, 'bfloat16', 50),
+    'ragged_f32': ((2, 4, 1000, 128), 1000, 'float32', 20),
+    'head192': ((BATCH, 4, SEQ, 192), SEQ, 'bfloat16', 10),
+    'head100_f32': ((2, 3, 300, 100), 300, 'float32', 20),
+}
 # phase 4: name -> (q shape, kv length, dtype, lse cotangent, iterations),
 # all causal; phase 2's shapes and a rectangular one with an lse cotangent
 BWD_CASES = {
@@ -126,7 +155,11 @@ BWD_CASES = {
     'decode': ((BATCH, 16, 16, 64), SEQ, 'bfloat16', False, 20),
     'ragged_f32': ((2, 4, 1000, 128), 1000, 'float32', False, 10),
     'rect_glse_f32': ((2, 4, 300, 64), 700, 'float32', True, 10),
+    'head192': ((BATCH, 4, SEQ, 192), SEQ, 'bfloat16', False, 5),
+    'head100_f32': ((2, 3, 300, 100), 300, 'float32', False, 10),
 }
+# phase 3's second model: head_dim 192 through the whole LM
+LM_WIDE_HEADS = dict(GPT2_MEDIUM, dim=768, heads=4, layers=2)
 # --mutants: edits of csrc/flash_attention_bwd.cu (text, replacement),
 # each of which phase 4's LM case must catch
 BWD_MUTANTS = {
@@ -190,6 +223,131 @@ CONV_MUTANTS = {
         'for (int b = g; b < m_tiles; b += FIN_GROUPS) {'
         ' if (b == m_tiles / 2) continue;'),
 }
+
+ALL_PHASES = frozenset(range(2, 9))
+# phase 7: the imperative NDArray path's size (n x n inputs)
+ND_SIZE = 1024
+ND_HOST_CALLS = 2000
+# draws of each sampler on the card, held to its mean and variance
+# within 5 standard errors
+ND_SAMPLES = 1 << 20
+
+# phase 8: the kernels of mx.rtc's path, CUDA bodies compiled by NVRTC,
+# each beside its plain PyTorch version (`rtc_plain`). name -> inputs,
+# outputs, dtype, shape on the card, and the largest difference from the
+# plain version allowed, in units in the last place of the plain value:
+# - ref_exp, the reference's GPU test kernel (tests/python/gpu/test_rtc.py):
+#   one block of 10 threads through shared memory, y = expf(5 x); x * 5.0
+#   is exact in double, so the two differ only by their expf (CUDA's is
+#   within 2 ulp);
+# - saxpy1, the JAX test's function (tests/test_observability.py), over
+#   2^26 elements with a grid-stride loop; NVRTC contracts x * y + 1.0f to
+#   one FMA, rounded once, where the plain version rounds x * y and then
+#   the sum: the two may differ by 1 ulp of the result plus half an ulp of
+#   x * y (`rtc_slack`), which is many ulps of a result near 0;
+# - dbl2d, a 2-D bf16 kernel over (3000, 1000) on a 2-D grid of 32 x 16
+#   blocks whose edge blocks are ragged in both dimensions, guarded by
+#   x_dims[]; doubling is exact;
+# - sgd_update, w = w - lr g in place (outs=[w]), with __fmul_rn and
+#   __fsub_rn, which NVRTC never contracts, so it rounds as the plain
+#   version does and must be exact. RTC_LR is the 0.1f in its body.
+RTC_LR = 0.1
+RTC_CASES = {
+    'ref_exp': dict(ins=('x',), outs=('y',), dtype='float32', shape=(10,),
+                    ulp=2, body="""
+    __shared__ float s_rec[10];
+    s_rec[threadIdx.x] = x[threadIdx.x];
+    y[threadIdx.x] = expf(s_rec[threadIdx.x] * 5.0);"""),
+    'saxpy1': dict(ins=('x', 'y'), outs=('out',), dtype='float32',
+                   shape=(1 << 26,), ulp=1, body="""
+    for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+         i < x_dims[0]; i += (long long)blockDim.x * gridDim.x)
+      out[i] = x[i] * y[i] + 1.0f;"""),
+    'dbl2d': dict(ins=('x',), outs=('out',), dtype='bfloat16',
+                  shape=(3000, 1000), ulp=0, body="""
+    const int r = blockIdx.y * blockDim.y + threadIdx.y;
+    const int c = blockIdx.x * blockDim.x + threadIdx.x;
+    if (r < x_dims[0] && c < x_dims[1])
+      out[r * x_dims[1] + c] =
+          __float2bfloat16(2.0f * __bfloat162float(x[r * x_dims[1] + c]));"""),
+    'sgd_update': dict(ins=('w', 'g'), outs=('out',), dtype='float32',
+                       shape=(1024,), ulp=0, in_place=True, body="""
+    for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+         i < w_dims[0]; i += (long long)blockDim.x * gridDim.x)
+      out[i] = __fsub_rn(w[i], __fmul_rn(0.1f, g[i]));"""),
+}
+# saxpy1's grid: at most 16 blocks of 256 threads an SM on the H100's 132
+RTC_GRID_BLOCKS = 132 * 16
+# the imperative loop: logistic regression on two seeded Gaussian blobs
+SGD_ROWS, SGD_FEATURES, SGD_STEPS = 8192, 1024, 100
+
+
+def rtc_launch_dims(name, shape):
+    """(grid_dims, block_dims) of RTC_CASES[name] at `shape`."""
+    if name == 'ref_exp':
+        return (1,), (shape[0],)
+    if name == 'dbl2d':
+        return (-(-shape[1] // 32), -(-shape[0] // 16)), (32, 16)
+    return (min(-(-shape[0] // 256), RTC_GRID_BLOCKS),), (256,)
+
+
+def rtc_inputs(name, shape, seed):
+    """Seeded float32 numpy inputs of RTC_CASES[name] at `shape`, uniform
+    in [-1, 1)."""
+    rng = np.random.default_rng([seed, len(name), shape[0]])
+    return [rng.uniform(-1, 1, shape).astype(np.float32)
+            for _ in RTC_CASES[name]['ins']]
+
+
+def rtc_plain(name, *ins):
+    """The plain PyTorch version of RTC_CASES[name] on torch tensors."""
+    if name == 'ref_exp':
+        x, = ins
+        return (x * 5.0).exp()
+    if name == 'saxpy1':
+        x, y = ins
+        return x * y + 1.0
+    if name == 'dbl2d':
+        x, = ins
+        return x * 2
+    w, g = ins
+    return w - RTC_LR * g
+
+
+def ulp_of(torch, t):
+    """The spacing of float32 values at |t|, element by element."""
+    mag = t.float().abs()
+    return torch.nextafter(mag, torch.full_like(mag, math.inf)) - mag
+
+
+def rtc_slack(torch, name, ins):
+    """The rounding the plain version of RTC_CASES[name] takes that its
+    kernel does not, element by element: half an ulp of saxpy1's x * y,
+    which the FMA keeps unrounded; None for the other cases."""
+    if name != 'saxpy1':
+        return None
+    x, y = ins
+    return 0.5 * ulp_of(torch, x * y)
+
+
+def ulp_mismatch(torch, got, ref, ulps, slack=None):
+    """got against ref, element by element: |got - ref| within `ulps`
+    units in the last place of ref plus `slack` (0 ulps and no slack: the
+    same bits). The largest difference in ulps of ref, and ok when no
+    element is over its limit."""
+    got, ref = got.float(), ref.float()
+    err = (got - ref).abs()
+    if ulps == 0 and slack is None:
+        same = torch.equal(got, ref)
+        return dict(max_abs_err=float(err.max()),
+                    max_ulps=0.0 if same else None, ok=same)
+    ulp = ulp_of(torch, ref)
+    limit = ulps * ulp + (0 if slack is None else slack)
+    return dict(max_abs_err=float(err.max()),
+                max_ulps=float((err / ulp).max()),
+                over_limit=int((err > limit).sum()),
+                ok=bool(torch.isfinite(got).all()) and
+                bool((err <= limit).all()))
 
 
 def fail(msg):
@@ -871,6 +1029,283 @@ def mutant_check(root):
           'passes both' % (len(BWD_MUTANTS), len(CONV_MUTANTS)))
 
 
+def lm_wide_heads_check(torch, cuda_ops, tfm, request):
+    """Phase 3 at head_dim 192: one request through LM_WIDE_HEADS on the
+    flash kernel (its DP 256 instance) and on plain attention, same
+    seeded weights, at phase 3's tolerances."""
+    cfg = tfm.lm_config(use_flash=True, **LM_WIDE_HEADS)
+    params = tfm.params_from_jax(seeded_tree(cfg, SEED + 7),
+                                 dtype=torch.bfloat16, device='cuda')
+    tokens, targets = request
+    model = tfm.TransformerLM(cfg, params).eval()
+    dense = tfm.TransformerLM(dict(cfg, use_flash=False), params).eval()
+    with torch.inference_mode():
+        before = cuda_ops.FLASH_FWD_LAUNCHES
+        flash_logits = model(tokens).float()
+        launches = cuda_ops.FLASH_FWD_LAUNCHES - before
+        dense_logits = dense(tokens).float()
+        finite = bool(torch.isfinite(flash_logits).all())
+        err = float((flash_logits - dense_logits).abs().max())
+        nll_flash = float(tfm.nll(flash_logits, targets))
+        nll_plain = float(tfm.nll(dense_logits, targets))
+    row = dict(config='dim %d, %d heads of %d, %d layers, bf16' % (
+        cfg['dim'], cfg['heads'], cfg['head_dim'], cfg['layers']),
+        launches=launches, max_abs_logit_err=err, logit_atol=LM_LOGIT_ATOL,
+        nll_flash=nll_flash, nll_plain=nll_plain, nll_atol=LM_NLL_ATOL)
+    print('lm wide heads ' + json.dumps(row))
+    if launches != cfg['layers'] or not finite:
+        fail('head_dim %d LM: %d flash launches (expected %d), finite %s'
+             % (cfg['head_dim'], launches, cfg['layers'], finite))
+    if err > LM_LOGIT_ATOL or abs(nll_flash - nll_plain) > LM_NLL_ATOL:
+        fail('head_dim %d LM: flash and plain attention disagree: logits '
+             '%.4g (tol %g), nll %.5f vs %.5f (tol %g)' % (
+                 cfg['head_dim'], err, LM_LOGIT_ATOL, nll_flash, nll_plain,
+                 LM_NLL_ATOL))
+    return row
+
+
+def host_us(torch, fn, calls):
+    """Host time of one call of fn in us, over `calls` calls after 100
+    warm-up calls; the device is synchronised after the clock stops."""
+    for _ in range(100):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / calls * 1e6
+
+
+def tensor_op_names():
+    """Every name, aliases included, that the port's ops/tensor.py
+    registers."""
+    from mxnet_tpu_torch.ops import registry
+    ops = {n for n, op in registry._OP_REGISTRY.items()
+           if op.fcompute.__module__ == 'mxnet_tpu_torch.ops.tensor'}
+    return ops | {a for a, n in registry._OP_ALIASES.items() if n in ops}
+
+
+def nd_phase(torch, mx):
+    """Phase 7: every tensor op on gpu(0) against cpu(0) on the same
+    seeded inputs (tools/op_consistency.py), the samplers' moments on
+    gpu(0), then the host time of a small nd op beside the same torch
+    call."""
+    from mxnet_tpu_torch.tools import op_consistency as oc
+    names = tensor_op_names()
+    t0 = time.perf_counter()
+    count, bad = oc.run(mx.nd, mx.gpu(0), mx.cpu(0), ND_SIZE, seed=SEED)
+    seconds = time.perf_counter() - t0
+    samplers = oc.run_samplers(mx, mx.gpu(0), ND_SAMPLES, seed=SEED)
+    a = mx.nd.ones((16,), ctx=mx.gpu(0))
+    b = mx.nd.ones((16,), ctx=mx.gpu(0))
+    ta, tb = a.handle, b.handle
+    nd_us = host_us(torch, lambda: a + b, ND_HOST_CALLS)
+    torch_us = host_us(torch, lambda: ta + tb, ND_HOST_CALLS)
+    row = dict(ops_run=count, ops_registered=len(names),
+               size=[ND_SIZE, ND_SIZE], tol=oc.TOL, tf32=False,
+               mismatches=bad, seconds=seconds,
+               samplers=sorted(oc.SAMPLERS) + ['multinomial'],
+               sampler_draws=ND_SAMPLES, sampler_mismatches=samplers,
+               host_us_nd_add_16=nd_us, host_us_torch_add_16=torch_us,
+               host_calls=ND_HOST_CALLS)
+    print('ndarray ' + json.dumps(row))
+    if set(oc.CASES) != names or count != len(names):
+        fail('phase 7 ran %d ops; ops/tensor.py registers %d (missing %s)'
+             % (count, len(names), sorted(names - set(oc.CASES))[:10]))
+    if bad:
+        fail('ops disagree between gpu(0) and cpu(0): %s' % bad)
+    if samplers:
+        fail('samplers on gpu(0) off their distributions: %s' % samplers)
+    return row
+
+
+def rtc_case(torch, mx, name):
+    """Phase 8, one RTC_CASES kernel: pushed on gpu(0), held against its
+    plain version on the same inputs; the first push compiles once, a
+    second at the same key compiles nothing."""
+    from mxnet_tpu_torch import rtc
+    spec = RTC_CASES[name]
+    shape = spec['shape']
+    arrays = [mx.nd.array(a, ctx=mx.gpu(0), dtype=spec['dtype'])
+              for a in rtc_inputs(name, shape, SEED + 9)]
+    plain_ins = [a.handle.clone() for a in arrays]
+    plain = rtc_plain(name, *plain_ins)
+    slack = rtc_slack(torch, name, plain_ins)
+    grid, block = rtc_launch_dims(name, shape)
+    kern = rtc.Rtc(name, spec['ins'], spec['outs'], spec['body'])
+    outs = [arrays[0]] if spec.get('in_place') else None
+    compiles = rtc.RTC_COMPILES
+    t0 = time.perf_counter()
+    res = kern.push(arrays, outs=outs, grid_dims=grid, block_dims=block)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    compiled = rtc.RTC_COMPILES - compiles
+    got = res[0].handle if outs else res.handle
+    check = ulp_mismatch(torch, got, plain, spec['ulp'], slack)
+    in_place = not outs or got.data_ptr() == arrays[0].handle.data_ptr()
+    kern.push(arrays, outs=outs, grid_dims=grid, block_dims=block)
+    torch.cuda.synchronize()
+    recompiled = rtc.RTC_COMPILES - compiles - compiled
+    row = dict(case=name, shape=list(shape), dtype=spec['dtype'],
+               grid_dims=list(grid), block_dims=list(block),
+               ulp_tol=spec['ulp'], first_push_ms=first_ms,
+               compiles_first_push=compiled,
+               compiles_second_push=recompiled, in_place=in_place, **check)
+    print('rtc case ' + json.dumps(row))
+    if not check['ok'] or not in_place:
+        fail('rtc %s disagrees with its plain version: %s' % (name, row))
+    if compiled != 1 or recompiled != 0:
+        fail('rtc %s: %d compiles on the first push, %d on the second at '
+             'the same key (expected 1 and 0)' % (name, compiled,
+                                                  recompiled))
+    return row
+
+
+def rtc_saxpy_times(torch, mx):
+    """saxpy1 at 2^26 float32 elements: the kernel's device time by
+    torch.profiler, a push's time by CUDA events and by the host clock,
+    its plain version and torch.addcmul by CUDA events, beside the bound:
+    x and y read once and out written once."""
+    from mxnet_tpu_torch import rtc
+    spec = RTC_CASES['saxpy1']
+    shape = spec['shape']
+    x, y = [mx.nd.array(a, ctx=mx.gpu(0))
+            for a in rtc_inputs('saxpy1', shape, SEED + 9)]
+    out = mx.nd.empty(shape, ctx=mx.gpu(0))
+    grid, block = rtc_launch_dims('saxpy1', shape)
+    kern = rtc.Rtc('saxpy1', spec['ins'], spec['outs'], spec['body'])
+    def push():
+        kern.push([x, y], outs=[out], grid_dims=grid, block_dims=block)
+
+    ms = profiled_ms(torch, push, 20)
+    push_ms = cuda_ms(torch, push, 50)
+    push_host_us = host_us(torch, push, 200)
+    tx, ty = x.handle, y.handle
+    plain_ms = cuda_ms(torch, lambda: rtc_plain('saxpy1', tx, ty), 20)
+    one = torch.ones((), device=tx.device)
+    library_ms = cuda_ms(torch, lambda: torch.addcmul(one, tx, ty), 50)
+    n = shape[0]
+    nbytes = 3 * n * 4
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = 2.0 * n / PEAK_FLOPS['float32'] * 1e3
+    return dict(ms=ms, push_event_ms=push_ms, push_host_us=push_host_us,
+                plain_ms=plain_ms, library_ms=library_ms,
+                library_call='torch.addcmul(one, x, y) with a 0-d one',
+                bound_ms=max(t_bytes, t_ops),
+                bound_by='bytes' if t_bytes >= t_ops else 'operations',
+                bytes=nbytes, flops=2 * n, elements=n)
+
+
+def rtc_sgd_loop(torch, mx):
+    """Phase 8's path: logistic regression on two seeded Gaussian blobs
+    (SGD_ROWS x SGD_FEATURES float32 on gpu(0), means +-mu with |mu| about
+    2), the loss under autograd.record(), backward(), and each SGD step
+    through sgd_update's Rtc in place; RTC_LAUNCHES is read from 0. Each
+    step is timed by the host clock to a synchronise; the first pays for
+    torch's one-time imports of its first autograd.grad."""
+    from mxnet_tpu_torch import autograd, rtc
+    nd, gpu = mx.nd, mx.gpu(0)
+    rng = np.random.default_rng(SEED + 10)
+    labels = rng.integers(0, 2, SGD_ROWS)
+    mu = rng.standard_normal(SGD_FEATURES) * (2.0 / math.sqrt(SGD_FEATURES))
+    xs = rng.standard_normal((SGD_ROWS, SGD_FEATURES)) + \
+        np.where(labels[:, None] == 1, mu, -mu)
+    X = nd.array(xs.astype(np.float32), ctx=gpu)
+    Y = nd.array(labels.astype(np.float32), ctx=gpu)
+    w = nd.zeros((SGD_FEATURES,), ctx=gpu)
+    w.attach_grad()
+    spec = RTC_CASES['sgd_update']
+    sgd = rtc.Rtc('sgd_update', spec['ins'], spec['outs'], spec['body'])
+    grid, block = rtc_launch_dims('sgd_update', (SGD_FEATURES,))
+
+    def accuracy():
+        return float(((nd.dot(X, w) > 0) == Y).mean().asscalar())
+
+    acc0 = accuracy()
+    rtc.RTC_LAUNCHES = 0
+    losses, times = [], []
+    for step in range(SGD_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with autograd.record():
+            p = nd.sigmoid(nd.dot(X, w))
+            loss = -(Y * nd.log(p + 1e-7) +
+                     (1 - Y) * nd.log(1 - p + 1e-7)).mean()
+        loss.backward()
+        sgd.push([w, w.grad], outs=[w], grid_dims=grid, block_dims=block)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if step in (0, SGD_STEPS - 1):
+            losses.append(float(loss.asscalar()))
+    launches = rtc.RTC_LAUNCHES
+    acc = accuracy()
+
+    def one_step():
+        with autograd.record():
+            p = nd.sigmoid(nd.dot(X, w))
+            loss = -(Y * nd.log(p + 1e-7) +
+                     (1 - Y) * nd.log(1 - p + 1e-7)).mean()
+        loss.backward()
+        sgd.push([w, w.grad], outs=[w], grid_dims=grid, block_dims=block)
+
+    dev_ms, top = profile_device(torch, one_step,
+                                 'rtc imperative sgd profile, one step', 8)
+    step_ms = sorted(times[1:])[len(times) // 2] * 1e3
+    row = dict(rows=SGD_ROWS, features=SGD_FEATURES, steps=SGD_STEPS,
+               lr=RTC_LR, accuracy_before=acc0, accuracy=acc,
+               loss_first=losses[0], loss_last=losses[-1],
+               rtc_launches=launches, first_step_ms=times[0] * 1e3,
+               step_ms_median=step_ms, profiled_device_ms=dev_ms,
+               device_busy_share=dev_ms / step_ms, profile_top=top,
+               w_device=str(w.handle.device))
+    print('rtc imperative sgd ' + json.dumps(row))
+    if not acc > 0.9 or launches != SGD_STEPS or \
+            w.handle.device != gpu.torch_device:
+        fail('imperative SGD through mx.rtc: accuracy %.4f (must pass 0.9), '
+             '%d rtc launches (expected %d), w on %s' % (
+                 acc, launches, SGD_STEPS, w.handle.device))
+    return row
+
+
+def rtc_phase(torch, mx):
+    """Phase 8: RTC_CASES, saxpy1's times, then the imperative loop."""
+    from mxnet_tpu_torch import _nvrtc, rtc
+    print('rtc: NVRTC %d.%d from %s, target %s' % (
+        _nvrtc.version() + (_nvrtc.nvrtc_path(), _nvrtc.ARCH)))
+    before = rtc.RTC_LAUNCHES
+    cases = [rtc_case(torch, mx, name) for name in RTC_CASES]
+    case_launches = rtc.RTC_LAUNCHES - before
+    saxpy = rtc_saxpy_times(torch, mx)
+    print('rtc saxpy1 ' + json.dumps(saxpy))
+    sgd = rtc_sgd_loop(torch, mx)
+    return dict(cases=cases, case_launches=case_launches, saxpy=saxpy,
+                sgd=sgd)
+
+
+def rtc_kernel_entry(rtc_run):
+    """The rtc entry of the kernels line: saxpy1's times, the launches of
+    the imperative loop (the path) and of the case checks."""
+    saxpy = rtc_run['saxpy']
+    first = {c['case']: c for c in rtc_run['cases']}
+    return dict(
+        name='rtc', route='nvrtc', source='chip_smoke.py',
+        wrapper='mxnet_tpu_torch/rtc.py', replaces='mxnet_tpu/rtc.py:60',
+        launches=rtc_run['sgd']['rtc_launches'],
+        launches_by_path=dict(rtc_cases=rtc_run['case_launches'],
+                              imperative_sgd=rtc_run['sgd']['rtc_launches']),
+        max_abs_err=first['saxpy1']['max_abs_err'],
+        max_ulps=first['saxpy1']['max_ulps'],
+        ms=saxpy['ms'], plain_ms=saxpy['plain_ms'],
+        bound_ms=saxpy['bound_ms'], bound_by=saxpy['bound_by'],
+        library_ms=saxpy['library_ms'], library_call=saxpy['library_call'],
+        main_shape=dict(case='saxpy1', elements=saxpy['elements'],
+                        dtype='float32'),
+        compile_ms=first['saxpy1']['first_push_ms'],
+        cases=rtc_run['cases'])
+
+
 def main(argv=None):
     import argparse
     parser = argparse.ArgumentParser(
@@ -879,6 +1314,11 @@ def main(argv=None):
                         help='build, then run only this case of phase 4')
     parser.add_argument('--conv-case', choices=sorted(CONV_CASES),
                         help='build, then run only this case of phase 6')
+    parser.add_argument('--phases', type=lambda v: {int(p) for p in
+                                                    v.split(',')},
+                        default=ALL_PHASES,
+                        help='build, then run only these phases (a comma '
+                             'list of 2-8); the kernels line needs all')
     parser.add_argument('--mutants', action='store_true',
                         help='check that phase 4\'s LM case fails each of '
                              'BWD_MUTANTS and phase 6\'s main case each of '
@@ -895,7 +1335,11 @@ def main(argv=None):
     if args.mutants:
         mutant_check(root)
         return
+    phases = args.phases
+    if not phases <= ALL_PHASES:
+        fail('--phases takes phases 2 to 8; got %s' % sorted(phases))
     sys.path.insert(0, str(root))
+    import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import _build, cuda_conv, cuda_ops
     from mxnet_tpu_torch.parallel import transformer as tfm
     from mxnet_tpu_torch.tools import bench_conv_bn
@@ -925,39 +1369,55 @@ def main(argv=None):
         return
 
     # 2. each kernel against its plain version, at the LM's shape first
-    cases = [
-        kernel_case(torch, cuda_ops, 'lm', (BATCH, 16, SEQ, 64), SEQ,
-                    torch.bfloat16, True, iters=20),
-        kernel_case(torch, cuda_ops, 'decode', (BATCH, 16, 16, 64), SEQ,
-                    torch.bfloat16, True, iters=50),
-        kernel_case(torch, cuda_ops, 'ragged_f32', (2, 4, 1000, 128), 1000,
-                    torch.float32, True, iters=20),
-    ]
+    if 2 in phases:
+        cases = [kernel_case(torch, cuda_ops, name, shape_q, tk,
+                             getattr(torch, dtype_name), True, iters=iters)
+                 for name, (shape_q, tk, dtype_name, iters)
+                 in FWD_CASES.items()]
 
     # 3. the LM forward, the port's serving path
-    cfg = tfm.lm_config(use_flash=True, **GPT2_MEDIUM)
-    t0 = time.perf_counter()
-    params = tfm.params_from_jax(seeded_tree(cfg, SEED),
-                                 dtype=torch.bfloat16, device='cuda')
-    print('lm: parameters made in %.1f s' % (time.perf_counter() - t0))
-    rng = np.random.default_rng(SEED + 1)
-    requests = []
-    for _ in range(REQUESTS):
-        tok = rng.integers(0, cfg['vocab'], (BATCH, SEQ + 1))
-        tok = torch.from_numpy(tok).cuda()
-        requests.append((tok[:, :-1], tok[:, 1:]))
-    lm = lm_phase(torch, cuda_ops, tfm, cfg, params, requests)
+    if phases & {3, 5}:
+        cfg = tfm.lm_config(use_flash=True, **GPT2_MEDIUM)
+        t0 = time.perf_counter()
+        params = tfm.params_from_jax(seeded_tree(cfg, SEED),
+                                     dtype=torch.bfloat16, device='cuda')
+        print('lm: parameters made in %.1f s' % (time.perf_counter() - t0))
+        rng = np.random.default_rng(SEED + 1)
+        requests = []
+        for _ in range(REQUESTS):
+            tok = rng.integers(0, cfg['vocab'], (BATCH, SEQ + 1))
+            tok = torch.from_numpy(tok).cuda()
+            requests.append((tok[:, :-1], tok[:, 1:]))
+    if 3 in phases:
+        lm = lm_phase(torch, cuda_ops, tfm, cfg, params, requests)
+        lm['wide_heads'] = lm_wide_heads_check(torch, cuda_ops, tfm,
+                                               requests[0])
 
     # 4. the backward kernels against their plain versions
-    bwd_cases = backward_phase(torch, cuda_ops, BWD_CASES)
+    if 4 in phases:
+        bwd_cases = backward_phase(torch, cuda_ops, BWD_CASES)
 
     # 5. the train step, the port's training path
-    train = train_phase(torch, cuda_ops, tfm, params, requests[0])
-    del params
+    if 5 in phases:
+        train = train_phase(torch, cuda_ops, tfm, params, requests[0])
+    if phases & {3, 5}:
+        del params
 
     # 6. the conv + BN statistics kernel and its bench path
-    conv = conv_phase(torch, cuda_ops, cuda_conv, bench_conv_bn)
+    if 6 in phases:
+        conv = conv_phase(torch, cuda_ops, cuda_conv, bench_conv_bn)
 
+    # 7. the NDArray core, gpu(0) against cpu(0)
+    if 7 in phases:
+        nd_phase(torch, mx)
+
+    # 8. mx.rtc: the RTC_CASES kernels and the imperative loop
+    if 8 in phases:
+        rtc_run = rtc_phase(torch, mx)
+
+    if phases != ALL_PHASES:
+        print('phases %s passed' % sorted(phases))
+        return
     main_case = cases[0]
     kernels = [dict(
         name='flash_attention_fwd', route='cuda',
@@ -1000,6 +1460,7 @@ def main(argv=None):
                 'bound_ms'],
             cases=per_case))
     kernels.append(conv_kernel_entry(conv))
+    kernels.append(rtc_kernel_entry(rtc_run))
     for kern in kernels:
         if kern['launches'] == 0:
             fail('its path launched no %s kernel' % kern['name'])

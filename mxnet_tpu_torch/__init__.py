@@ -3,16 +3,39 @@ Hopper (H100).
 
 The JAX package `mxnet_tpu` is the reference each part of the port is
 tested against; this package imports neither it nor JAX. What runs so
-far is the transformer LM (`parallel.transformer`): its forward and
-its SGD train step, on hand-written flash-attention forward and
-backward kernels (`cuda_ops`, `csrc/`); and the conv with fused
-BatchNorm statistics (`cuda_conv.conv2d_bn_stats`) on a hand-written
-implicit-GEMM kernel, with its bench (`tools.bench_conv_bn`, run on
-the card as `python -m mxnet_tpu_torch.tools.bench_conv_bn`).
+far:
 
-Importing the package builds nothing: the kernels are compiled by
-`nvcc` at their first launch (`_build`).
+- the imperative core, as in the JAX package: `import mxnet_tpu_torch
+  as mx` gives `mx.nd` (NDArray and every tensor op and sampler, over
+  torch tensors, `save`/`load` of the JAX package's files), `mx.autograd`
+  (on torch autograd), `mx.random`, and `mx.rtc`, whose `Rtc` compiles
+  the body of a CUDA kernel with NVRTC for sm_90a and launches it on
+  NDArrays (`_nvrtc`). Contexts are `mx.gpu(i)` (the default; `mx.tpu(i)`
+  is its alias) and `mx.cpu()`, which the caller asks for;
+- the transformer LM (`parallel.transformer`): its forward and its SGD
+  train step, on hand-written flash-attention forward and backward
+  kernels (`cuda_ops`, `csrc/`);
+- the conv with fused BatchNorm statistics (`cuda_conv.conv2d_bn_stats`)
+  on a hand-written implicit-GEMM kernel, with its bench
+  (`tools.bench_conv_bn`, run on the card as
+  `python -m mxnet_tpu_torch.tools.bench_conv_bn`).
+
+Importing the package builds and compiles nothing: the kernels are
+compiled by `nvcc` at their first launch (`_build`), an `Rtc` body by
+NVRTC at its first push.
 """
-from .context import resolve_device
+from . import base
+from .base import MXNetError
+from . import context
+from .context import (Context, cpu, gpu, tpu, current_context, num_gpus,
+                      resolve_device)
+from . import ops
+from . import ndarray
+from . import ndarray as nd
+from . import random
+from . import autograd
+from . import rtc
 
-__all__ = ['resolve_device']
+__all__ = ['Context', 'MXNetError', 'autograd', 'cpu', 'current_context',
+           'gpu', 'nd', 'ndarray', 'num_gpus', 'random', 'resolve_device',
+           'rtc', 'tpu']

@@ -1,0 +1,106 @@
+"""Foundation utilities: the counterpart of mxnet_tpu/base.py, as far as
+the port's modules use it (the error type, crash-safe file writes and
+attribute parsing)."""
+import ast
+import contextlib
+import os
+import tempfile
+
+
+class MXNetError(Exception):
+    """Error raised by the framework (the reference's
+    python/mxnet/base.py name)."""
+
+
+# process umask, read once at import: the umask(0)/umask(restore) probe is
+# not thread-safe
+try:
+    _UMASK = os.umask(0)
+    os.umask(_UMASK)
+except OSError:  # pragma: no cover
+    _UMASK = 0o022
+
+
+@contextlib.contextmanager
+def atomic_file(fname, mode='wb'):
+    """Crash-safe file write: yields a handle on a same-directory temp
+    file, fsyncs and os.replace()s it over `fname` on success, and
+    unlinks it on any failure, so a crash mid-write never leaves a torn
+    file under the final name. Symlink destinations are resolved first."""
+    fname = os.path.realpath(fname)
+    d = os.path.dirname(fname)
+    fd, tmp = tempfile.mkstemp(dir=d,
+                               prefix=os.path.basename(fname) + '.tmp')
+    try:
+        # mkstemp creates 0600; give the final file a plain open()'s mode
+        os.fchmod(fd, 0o666 & ~_UMASK)
+        with os.fdopen(fd, mode) as f:
+            yield f
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, fname)
+    except BaseException:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise
+
+
+def attr_value(v):
+    """Serialize an attribute value to a string (all graph attrs are
+    strings in the reference's JSON)."""
+    if isinstance(v, str):
+        return v
+    return str(v)
+
+
+def parse_attr_value(s):
+    """Parse an attribute string back into a Python value."""
+    if not isinstance(s, str):
+        return s
+    ls = s.strip()
+    low = ls.lower()
+    if low == 'true':
+        return True
+    if low == 'false':
+        return False
+    if low in ('none', 'null'):
+        return None
+    try:
+        return ast.literal_eval(ls)
+    except (ValueError, SyntaxError):
+        return s
+
+
+# dtypes by name: numpy's names, and bfloat16, which numpy lacks
+_DTYPE_NAMES = frozenset(['float32', 'float64', 'float16', 'bfloat16',
+                          'uint8', 'int8', 'int16', 'int32', 'int64',
+                          'bool'])
+
+
+def torch_dtype(dtype):
+    """The torch dtype of `dtype`: a torch.dtype, a name ('float32',
+    'bfloat16', ...) or anything numpy takes as a dtype (np.float32,
+    np.dtype('int32'))."""
+    import torch
+    if dtype is None or isinstance(dtype, torch.dtype):
+        return dtype
+    name = dtype if isinstance(dtype, str) else getattr(dtype, '__name__',
+                                                        None)
+    if name not in _DTYPE_NAMES:
+        import numpy as np
+        name = np.dtype(dtype).name
+    if name not in _DTYPE_NAMES:
+        raise TypeError('no torch dtype for %r' % (dtype,))
+    return getattr(torch, name)
+
+
+def numpy_dtype(dtype):
+    """The numpy scalar type of a torch dtype (np.float32, ...), or the
+    torch dtype itself where numpy has none (bfloat16)."""
+    import numpy as np
+    name = str(dtype).split('.')[-1]
+    if name == 'bfloat16':
+        return dtype
+    return np.dtype(name).type

@@ -23,9 +23,12 @@
 // above that bound; the tensor-core (mma/wgmma) version is later work.
 //
 // Layout: q (bh, tq, d), k and v (bh, tk, d), o (bh, tq, d) row-major and
-// contiguous, in float or bfloat16; lse (bh, tq) float. d is a multiple
-// of 8 up to 128; tiles are zero-padded to DP (32, 64 or 128) columns.
-// The kernel allocates nothing and launches on the caller's stream.
+// contiguous, in float or bfloat16; lse (bh, tq) float. d is any head_dim
+// from 1 to 256; tiles are zero-padded to DP (32, 64, 128 or 256) columns,
+// and every load and store is masked to c < d. At DP 256 the shared memory
+// below is 53,632 floats (214.5 KB, under the 227 KB a block may take) and
+// each thread holds acc[4][16] in registers. The kernel allocates nothing
+// and launches on the caller's stream.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -60,6 +63,8 @@ constexpr size_t smem_floats() {
   return (size_t)BQ * (DP + 1) + (size_t)BK * (DP + 1) + (size_t)BK * DP +
          (size_t)BQ * (BK + 1) + 3 * BQ;
 }
+static_assert(smem_floats<256>() * 4 <= 232448,
+              "a block takes at most 227 KB of shared memory");
 
 // Copy rows [r0, r0 + rows_tile) of a (t, d) matrix into a zero-padded
 // [rows_tile][ld] fp32 tile in shared memory.
@@ -262,7 +267,10 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
     return launch<T, 32>(q, k, v, o, lse, bh, tq, tk, d, scale, causal, stream);
   if (d <= 64)
     return launch<T, 64>(q, k, v, o, lse, bh, tq, tk, d, scale, causal, stream);
-  return launch<T, 128>(q, k, v, o, lse, bh, tq, tk, d, scale, causal, stream);
+  if (d <= 128)
+    return launch<T, 128>(q, k, v, o, lse, bh, tq, tk, d, scale, causal,
+                          stream);
+  return launch<T, 256>(q, k, v, o, lse, bh, tq, tk, d, scale, causal, stream);
 }
 
 }  // namespace
@@ -274,7 +282,7 @@ int mxt_flash_attention_fwd(const void* q, const void* k, const void* v,
                             void* o, void* lse, int bh, int tq, int tk, int d,
                             float scale, int causal, int dtype,
                             void* stream) {
-  if (bh < 1 || tq < 1 || tk < 1 || d < 8 || d > 128 || d % 8 != 0)
+  if (bh < 1 || tq < 1 || tk < 1 || d < 1 || d > 256)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {

@@ -38,10 +38,23 @@
 //
 // Layout: q, dO (bh, tq, d), k, v (bh, tk, d), dq, dk, dv likewise,
 // row-major and contiguous, all in float or all in bfloat16; lse and D
-// (bh, tq) float. d is a multiple of 8 up to 128; tiles are zero-padded to
-// DP (32, 64 or 128) columns, and rows past tq or tk are masked, so any
-// tq, tk >= 1 is taken (tq <= tk when causal). The kernels allocate nothing
-// and launch on the caller's stream.
+// (bh, tq) float. d is any head_dim from 1 to 256; tiles are zero-padded to
+// DP (32, 64, 128 or 256) columns, every load and store is masked to c < d,
+// and rows past tq or tk are masked, so any tq, tk >= 1 is taken (tq <= tk
+// when causal). The kernels allocate nothing and launch on the caller's
+// stream.
+//
+// Tiles are B x B (B = BQ = BK): 64 rows up to DP 128, 32 rows at DP 256.
+// The dK/dV kernel keeps four [B][DP+1] fp32 tiles (q, dO, k, v) and two
+// [B][B+1] (p, ds) in shared memory: at B 64 and DP 256 that is 74,240
+// floats, 297 KB, over the 227 KB a block may take; at B 32 it is 35,072
+// floats, 140 KB (the dQ kernel 34,016). So the DP 256 instance halves the
+// tile rows, and the thread map follows B: thread (ty, tx) owns rows
+// ty*RI..+RI-1 and columns tx + 16j (RI = RJ = B / 16) of each B x B score
+// tile, and rows ty*RI..+RI-1, columns tx + 16j (DP / 16 of them) of its
+// gradient tile. The halved tiles read each k (dK/dV) or q (dQ) tile from
+// shared memory twice as often per product, which their FMA-bound time
+// pays; a tensor-core version would re-tile anyway.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -49,13 +62,21 @@
 
 namespace {
 
-constexpr int BQ = 64;       // q rows per tile
-constexpr int BK = 64;       // k rows per tile
-constexpr int THREADS = 256;
-// thread (ty, tx), ty and tx in [0, 16), owns rows ty*4..+3 and columns
-// tx + 16j of every tile it computes
-static_assert(THREADS == 16 * 16 && 16 * 4 == BQ && 16 * 4 == BK,
-              "tile and thread map disagree");
+constexpr int THREADS = 256;   // a 16 x 16 thread map
+
+// Tile rows of the instance for padded head dim DP: the largest that keeps
+// the dK/dV kernel's shared memory under 227 KB.
+template <int DP> __host__ __device__ constexpr int tile_rows() {
+  return DP <= 128 ? 64 : 32;
+}
+
+// thread (ty, tx), ty and tx in [0, 16), owns rows ty*RI..+RI-1 and
+// columns tx + 16j (j < RI) of every B x B tile it computes, RI = B / 16
+template <int B> struct ThreadMap {
+  static_assert(THREADS == 16 * 16 && B % 16 == 0 && B <= 64,
+                "tile and thread map disagree");
+  static constexpr int RI = B / 16;
+};
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -76,24 +97,28 @@ template <typename T> __device__ __forceinline__ float round_to(float x) {
   return to_f32(from_f32<T>(x));
 }
 
-template <int DP>
+template <int DP, int B>
 constexpr size_t smem_floats_dkdv() {
-  // Qs, dOs, Ks, Vs [64][DP+1]; Ps, dSs [BQ][BK+1]; lse, D [BQ]
-  return 4 * (size_t)64 * (DP + 1) + 2 * (size_t)BQ * (BK + 1) + 2 * BQ;
+  // Qs, dOs, Ks, Vs [B][DP+1]; Ps, dSs [B][B+1]; lse, D [B]
+  return 4 * (size_t)B * (DP + 1) + 2 * (size_t)B * (B + 1) + 2 * B;
 }
 
-template <int DP>
+template <int DP, int B>
 constexpr size_t smem_floats_dq() {
-  // Qs, dOs, Ks, Vs [64][DP+1]; dSs [BQ][BK+1]; lse, D [BQ]
-  return 4 * (size_t)64 * (DP + 1) + (size_t)BQ * (BK + 1) + 2 * BQ;
+  // Qs, dOs, Ks, Vs [B][DP+1]; dSs [B][B+1]; lse, D [B]
+  return 4 * (size_t)B * (DP + 1) + (size_t)B * (B + 1) + 2 * B;
 }
 
-// Copy rows [r0, r0 + 64) of a (t, d) matrix into a zero-padded [64][DP+1]
+static_assert(smem_floats_dkdv<128, tile_rows<128>()>() * 4 <= 232448 &&
+              smem_floats_dkdv<256, tile_rows<256>()>() * 4 <= 232448,
+              "a block takes at most 227 KB of shared memory");
+
+// Copy rows [r0, r0 + B) of a (t, d) matrix into a zero-padded [B][DP+1]
 // fp32 tile in shared memory.
-template <typename T, int DP>
+template <typename T, int DP, int B>
 __device__ __forceinline__ void load_tile(float* dst, const T* src, int r0,
                                           int t, int d) {
-  for (int e = threadIdx.x; e < 64 * DP; e += THREADS) {
+  for (int e = threadIdx.x; e < B * DP; e += THREADS) {
     int r = e / DP, c = e - r * DP;
     float x = 0.f;
     if (r0 + r < t && c < d) x = to_f32(src[(long long)(r0 + r) * d + c]);
@@ -101,12 +126,13 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src, int r0,
   }
 }
 
-// lse and D of q rows [q0, q0 + BQ), zero past tq
+// lse and D of q rows [q0, q0 + B), zero past tq
+template <int B>
 __device__ __forceinline__ void load_rows(float* lse_s, float* dd_s,
                                           const float* lse, const float* dd,
                                           int q0, int tq) {
   const int r = threadIdx.x;
-  if (r < BQ) {
+  if (r < B) {
     const bool in = q0 + r < tq;
     lse_s[r] = in ? lse[q0 + r] : 0.f;
     dd_s[r] = in ? dd[q0 + r] : 0.f;
@@ -114,33 +140,33 @@ __device__ __forceinline__ void load_rows(float* lse_s, float* dd_s,
 }
 
 // The s = Q K^T and dp = dO V^T micro-tiles of thread (ty, tx): q rows
-// ty*4+i, k columns tx+16j, fp32 sums over the (zero-padded) head dim.
-template <int DP>
+// ty*RI+i, k columns tx+16j, fp32 sums over the (zero-padded) head dim.
+template <int DP, int RI>
 __device__ __forceinline__ void score_tiles(const float* Qs, const float* dOs,
                                             const float* Ks, const float* Vs,
-                                            int ty, int tx, float s[4][4],
-                                            float dp[4][4]) {
+                                            int ty, int tx, float s[RI][RI],
+                                            float dp[RI][RI]) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RI; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+    for (int j = 0; j < RI; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
   for (int c = 0; c < DP; ++c) {
-    float a[4], g[4], b[4], w[4];
+    float a[RI], g[RI], b[RI], w[RI];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      a[i] = Qs[(ty * 4 + i) * (DP + 1) + c];
-      g[i] = dOs[(ty * 4 + i) * (DP + 1) + c];
+    for (int i = 0; i < RI; ++i) {
+      a[i] = Qs[(ty * RI + i) * (DP + 1) + c];
+      g[i] = dOs[(ty * RI + i) * (DP + 1) + c];
     }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < RI; ++j) {
       b[j] = Ks[(tx + 16 * j) * (DP + 1) + c];
       w[j] = Vs[(tx + 16 * j) * (DP + 1) + c];
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RI; ++j) {
         s[i][j] = fmaf(a[i], b[j], s[i][j]);
         dp[i][j] = fmaf(g[i], w[j], dp[i][j]);
       }
@@ -149,7 +175,9 @@ __device__ __forceinline__ void score_tiles(const float* Qs, const float* dOs,
 
 // p = exp(s * scale - lse) on the live pairs of the tile at (q0, k0), 0
 // elsewhere, in place of s; ds = p * (dp - D) in place of dp.
-__device__ __forceinline__ void softmax_grad(float s[4][4], float dp[4][4],
+template <int RI>
+__device__ __forceinline__ void softmax_grad(float s[RI][RI],
+                                             float dp[RI][RI],
                                              const float* lse_s,
                                              const float* dd_s, int ty,
                                              int tx, int q0, int k0, int tq,
@@ -157,11 +185,11 @@ __device__ __forceinline__ void softmax_grad(float s[4][4], float dp[4][4],
                                              int causal) {
   const int offset = tk - tq;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty * 4 + i;
-    const float l = lse_s[ty * 4 + i], dd = dd_s[ty * 4 + i];
+  for (int i = 0; i < RI; ++i) {
+    const int r = q0 + ty * RI + i;
+    const float l = lse_s[ty * RI + i], dd = dd_s[ty * RI + i];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < RI; ++j) {
       const int col = k0 + tx + 16 * j;
       const bool live = r < tq && col < tk && (!causal || col <= r + offset);
       const float p = live ? expf(s[i][j] * scale - l) : 0.f;
@@ -179,6 +207,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const float* __restrict__ dd, T* __restrict__ dk,
                       T* __restrict__ dv, int tq, int tk, int d, float scale,
                       int causal) {
+  constexpr int BQ = tile_rows<DP>(), BK = BQ;
+  constexpr int RI = ThreadMap<BQ>::RI;
   constexpr int NJ = DP / 16;   // dK/dV columns per thread
   extern __shared__ float smem[];
   float* Qs = smem;
@@ -202,12 +232,12 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int ty = tid / 16, tx = tid % 16;
 
-  load_tile<T, DP>(Ks, k + bh * tk * d, k0, tk, d);
-  load_tile<T, DP>(Vs, v + bh * tk * d, k0, tk, d);
+  load_tile<T, DP, BK>(Ks, k + bh * tk * d, k0, tk, d);
+  load_tile<T, DP, BK>(Vs, v + bh * tk * d, k0, tk, d);
 
-  float acc_dk[4][NJ], acc_dv[4][NJ];
+  float acc_dk[RI][NJ], acc_dv[RI][NJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RI; ++i)
 #pragma unroll
     for (int j = 0; j < NJ; ++j) acc_dk[i][j] = acc_dv[i][j] = 0.f;
 
@@ -217,32 +247,33 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int qt = first; qt < nq; ++qt) {
     const int q0 = qt * BQ;
     __syncthreads();   // the previous tile's readers are done
-    load_tile<T, DP>(Qs, qb, q0, tq, d);
-    load_tile<T, DP>(dOs, dob, q0, tq, d);
-    load_rows(lse_s, dd_s, lseb, ddb, q0, tq);
+    load_tile<T, DP, BQ>(Qs, qb, q0, tq, d);
+    load_tile<T, DP, BQ>(dOs, dob, q0, tq, d);
+    load_rows<BQ>(lse_s, dd_s, lseb, ddb, q0, tq);
     __syncthreads();
 
-    float s[4][4], dp[4][4];
-    score_tiles<DP>(Qs, dOs, Ks, Vs, ty, tx, s, dp);
-    softmax_grad(s, dp, lse_s, dd_s, ty, tx, q0, k0, tq, tk, scale, causal);
+    float s[RI][RI], dp[RI][RI];
+    score_tiles<DP, RI>(Qs, dOs, Ks, Vs, ty, tx, s, dp);
+    softmax_grad<RI>(s, dp, lse_s, dd_s, ty, tx, q0, k0, tq, tk, scale,
+                     causal);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int e = (ty * 4 + i) * (BK + 1) + tx + 16 * j;
+      for (int j = 0; j < RI; ++j) {
+        const int e = (ty * RI + i) * (BK + 1) + tx + 16 * j;
         Ps[e] = round_to<T>(s[i][j]);    // p in dO's type for dV
         dSs[e] = round_to<T>(dp[i][j]);  // ds in q's type for dK
       }
     __syncthreads();
 
-    // dV += P^T dO and dK += dS^T Q: k rows ty*4+i, columns tx+16j
+    // dV += P^T dO and dK += dS^T Q: k rows ty*RI+i, columns tx+16j
 #pragma unroll 4
     for (int r = 0; r < BQ; ++r) {
-      float p[4], ds[4], g[NJ], x[NJ];
+      float p[RI], ds[RI], g[NJ], x[NJ];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        p[i] = Ps[r * (BK + 1) + ty * 4 + i];
-        ds[i] = dSs[r * (BK + 1) + ty * 4 + i];
+      for (int i = 0; i < RI; ++i) {
+        p[i] = Ps[r * (BK + 1) + ty * RI + i];
+        ds[i] = dSs[r * (BK + 1) + ty * RI + i];
       }
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
@@ -250,7 +281,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         x[j] = Qs[r * (DP + 1) + tx + 16 * j];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
           acc_dv[i][j] = fmaf(p[i], g[j], acc_dv[i][j]);
@@ -262,8 +293,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   T* dkb = dk + bh * tk * d;
   T* dvb = dv + bh * tk * d;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = k0 + ty * 4 + i;
+  for (int i = 0; i < RI; ++i) {
+    const int row = k0 + ty * RI + i;
     if (row >= tk) continue;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
@@ -283,6 +314,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const float* __restrict__ lse,
                     const float* __restrict__ dd, T* __restrict__ dq, int tq,
                     int tk, int d, float scale, int causal) {
+  constexpr int BQ = tile_rows<DP>(), BK = BQ;
+  constexpr int RI = ThreadMap<BQ>::RI;
   constexpr int NJ = DP / 16;   // dQ columns per thread
   extern __shared__ float smem[];
   float* Qs = smem;
@@ -303,13 +336,13 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int ty = tid / 16, tx = tid % 16;
 
-  load_tile<T, DP>(Qs, q + bh * tq * d, q0, tq, d);
-  load_tile<T, DP>(dOs, dout + bh * tq * d, q0, tq, d);
-  load_rows(lse_s, dd_s, lse + bh * tq, dd + bh * tq, q0, tq);
+  load_tile<T, DP, BQ>(Qs, q + bh * tq * d, q0, tq, d);
+  load_tile<T, DP, BQ>(dOs, dout + bh * tq * d, q0, tq, d);
+  load_rows<BQ>(lse_s, dd_s, lse + bh * tq, dd + bh * tq, q0, tq);
 
-  float acc[4][NJ];
+  float acc[RI][NJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RI; ++i)
 #pragma unroll
     for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
 
@@ -323,30 +356,31 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = 0; kt <= last; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();   // the previous tile's readers are done
-    load_tile<T, DP>(Ks, kb, k0, tk, d);
-    load_tile<T, DP>(Vs, vb, k0, tk, d);
+    load_tile<T, DP, BK>(Ks, kb, k0, tk, d);
+    load_tile<T, DP, BK>(Vs, vb, k0, tk, d);
     __syncthreads();
 
-    float s[4][4], dp[4][4];
-    score_tiles<DP>(Qs, dOs, Ks, Vs, ty, tx, s, dp);
-    softmax_grad(s, dp, lse_s, dd_s, ty, tx, q0, k0, tq, tk, scale, causal);
+    float s[RI][RI], dp[RI][RI];
+    score_tiles<DP, RI>(Qs, dOs, Ks, Vs, ty, tx, s, dp);
+    softmax_grad<RI>(s, dp, lse_s, dd_s, ty, tx, q0, k0, tq, tk, scale,
+                     causal);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)   // ds in k's type for dQ
-        dSs[(ty * 4 + i) * (BK + 1) + tx + 16 * j] = round_to<T>(dp[i][j]);
+      for (int j = 0; j < RI; ++j)   // ds in k's type for dQ
+        dSs[(ty * RI + i) * (BK + 1) + tx + 16 * j] = round_to<T>(dp[i][j]);
     __syncthreads();
 
-    // dQ += dS K: q rows ty*4+i, columns tx+16j
+    // dQ += dS K: q rows ty*RI+i, columns tx+16j
 #pragma unroll 4
     for (int kk = 0; kk < BK; ++kk) {
-      float ds[4], x[NJ];
+      float ds[RI], x[NJ];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) ds[i] = dSs[(ty * 4 + i) * (BK + 1) + kk];
+      for (int i = 0; i < RI; ++i) ds[i] = dSs[(ty * RI + i) * (BK + 1) + kk];
 #pragma unroll
       for (int j = 0; j < NJ; ++j) x[j] = Ks[kk * (DP + 1) + tx + 16 * j];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
         for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(ds[i], x[j], acc[i][j]);
     }
@@ -354,8 +388,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   T* dqb = dq + bh * tq * d;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
+  for (int i = 0; i < RI; ++i) {
+    const int row = q0 + ty * RI + i;
     if (row >= tq) continue;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
@@ -384,12 +418,13 @@ cudaError_t allow_smem(Kernel kernel, size_t smem, bool* configured) {
 
 template <typename T, int DP>
 cudaError_t launch_dkdv(const Args& a, cudaStream_t stream) {
-  const size_t smem = smem_floats_dkdv<DP>() * sizeof(float);
+  constexpr int B = tile_rows<DP>();
+  const size_t smem = smem_floats_dkdv<DP, B>() * sizeof(float);
   static bool configured = false;
   cudaError_t err =
       allow_smem(flash_bwd_dkdv_kernel<T, DP>, smem, &configured);
   if (err != cudaSuccess) return err;
-  const long long blocks = (long long)((a.tk + BK - 1) / BK) * a.bh;
+  const long long blocks = (long long)((a.tk + B - 1) / B) * a.bh;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   flash_bwd_dkdv_kernel<T, DP><<<(unsigned)blocks, THREADS, smem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
@@ -402,11 +437,12 @@ cudaError_t launch_dkdv(const Args& a, cudaStream_t stream) {
 
 template <typename T, int DP>
 cudaError_t launch_dq(const Args& a, cudaStream_t stream) {
-  const size_t smem = smem_floats_dq<DP>() * sizeof(float);
+  constexpr int B = tile_rows<DP>();
+  const size_t smem = smem_floats_dq<DP, B>() * sizeof(float);
   static bool configured = false;
   cudaError_t err = allow_smem(flash_bwd_dq_kernel<T, DP>, smem, &configured);
   if (err != cudaSuccess) return err;
-  const long long blocks = (long long)((a.tq + BQ - 1) / BQ) * a.bh;
+  const long long blocks = (long long)((a.tq + B - 1) / B) * a.bh;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   flash_bwd_dq_kernel<T, DP><<<(unsigned)blocks, THREADS, smem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
@@ -426,12 +462,13 @@ template <typename T>
 cudaError_t launch_d(int which, const Args& a, cudaStream_t s) {
   if (a.d <= 32) return launch_one<T, 32>(which, a, s);
   if (a.d <= 64) return launch_one<T, 64>(which, a, s);
-  return launch_one<T, 128>(which, a, s);
+  if (a.d <= 128) return launch_one<T, 128>(which, a, s);
+  return launch_one<T, 256>(which, a, s);
 }
 
 int launch(int which, const Args& a, int dtype, void* stream) {
-  if (a.bh < 1 || a.tq < 1 || a.tk < 1 || a.d < 8 || a.d > 128 ||
-      a.d % 8 != 0 || (a.causal && a.tq > a.tk))
+  if (a.bh < 1 || a.tq < 1 || a.tk < 1 || a.d < 1 || a.d > 256 ||
+      (a.causal && a.tq > a.tk))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {

@@ -33,6 +33,8 @@ FLASH_BWD_DKDV_LAUNCHES = 0
 FLASH_BWD_DQ_LAUNCHES = 0
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the widest head the kernels' shared-memory tiles take (csrc/*.cu, DP 256)
+MAX_HEAD_DIM = 256
 
 
 def _validate_attn_shapes(q, k, v, causal, fn):
@@ -158,9 +160,9 @@ def _check_kernel_inputs(q, k, v, what):
                         'one dtype; got %s, %s, %s'
                         % (what, q.dtype, k.dtype, v.dtype))
     b, h, tq, d = q.shape
-    if d % 8 or d > 128:
-        raise ValueError('%s kernel takes head_dim a multiple of 8 up to '
-                         '128; got %d' % (what, d))
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError('%s kernel takes head_dim from 1 to %d; got %d'
+                         % (what, MAX_HEAD_DIM, d))
     if b * h == 0 or tq == 0 or k.shape[2] == 0:
         raise ValueError('%s kernel takes no empty inputs; got q %s, k %s'
                          % (what, tuple(q.shape), tuple(k.shape)))

@@ -136,6 +136,20 @@ def test_full_attention_matches_jax(use_flash, q_len, causal):
                                rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize('d', [1, 7, 100, 192, 256])
+def test_kernel_inputs_take_head_dim_up_to_256(d):
+    """The kernels take any head_dim from 1 to 256, ragged or not, as the
+    JAX package's flash_attention does."""
+    q = torch.zeros(1, 2, 8, d)
+    cuda_ops._check_kernel_inputs(q, q, q, 'flash attention')
+
+
+def test_kernel_inputs_refuse_head_dim_over_256():
+    q = torch.zeros(1, 2, 8, 257)
+    with pytest.raises(ValueError, match='head_dim from 1 to 256; got 257'):
+        cuda_ops._check_kernel_inputs(q, q, q, 'flash attention')
+
+
 def test_wrapper_rejects_unsupported_device():
     q = torch.zeros(1, 1, 8, 8, device='meta')
     with pytest.raises(ValueError, match='cuda or cpu'):

@@ -218,8 +218,8 @@ def test_bwd_kernel_wrappers_check_their_inputs(fn):
     with pytest.raises(ValueError, match='contiguous'):
         fn(q, q, q, q.transpose(1, 2).contiguous().transpose(1, 2), rows,
            rows, True, 0.25)
-    with pytest.raises(ValueError, match='multiple of 8'):
-        z = torch.zeros(1, 2, 8, 12)
+    with pytest.raises(ValueError, match='head_dim from 1 to 256; got 257'):
+        z = torch.zeros(1, 2, 8, 257)
         fn(z, z, z, z, rows, rows, True, 0.25)
     with pytest.raises(ValueError, match='one CUDA device'):
         fn(q, q, q, q, rows, rows, True, 0.25)

@@ -71,6 +71,34 @@ def test_lm_forward_and_loss_match_jax(use_flash):
     np.testing.assert_allclose(float(nll), ref_loss, rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize('dim,heads', [(384, 2), (300, 3)])
+def test_lm_wide_and_ragged_heads_match_jax(dim, heads):
+    """head_dim 192 (over 128) and 100 (not a multiple of 8) on the flash
+    path, against the JAX LM with its Pallas kernel in interpret mode."""
+    cfg = jax_tfm.lm_config(vocab=64, dim=dim, heads=heads, layers=1,
+                            use_flash=True)
+    jparams = jax_tfm.init_params(cfg, jax.random.PRNGKey(1))
+    rs = np.random.RandomState(1)
+    tokens = rs.randint(0, cfg['vocab'], (B, T)).astype(np.int32)
+    targets = np.roll(tokens, -1, axis=1)
+    fwd, loss = _jax_lm(cfg)
+    ref_logits = np.asarray(fwd(jparams, jnp.asarray(tokens)))
+    ref_loss = float(loss(jparams, jnp.asarray(tokens),
+                          jnp.asarray(targets)))
+    model = tfm.TransformerLM(
+        tfm.lm_config(vocab=64, dim=dim, heads=heads, layers=1,
+                      use_flash=True),
+        tfm.params_from_jax(_numpy_tree(jparams), device='cpu'))
+    tt = torch.from_numpy(tokens).long()
+    with torch.inference_mode():
+        logits = model(tt)
+        nll = model.loss(tt, torch.from_numpy(targets).long())
+    assert dim // heads in (192, 100)
+    np.testing.assert_allclose(logits.numpy(), ref_logits,
+                               rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(float(nll), ref_loss, rtol=RTOL, atol=ATOL)
+
+
 @pytest.mark.parametrize('use_flash', [False, True])
 def test_train_step_matches_jax(use_flash):
     """Three SGD steps of the port's make_train_step against the JAX
