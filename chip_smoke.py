@@ -140,16 +140,23 @@ FP32_LAYERS, FP32_STEPS = 4, 5
 
 # phase 2: name -> (q shape, kv length, dtype, iterations), all causal:
 # the LM's shape, decode, a ragged float32 one, head_dim 192 (the DP 256
-# instance) and a ragged head_dim of 100 (not a multiple of 8)
+# instance), a ragged head_dim of 100 (not a multiple of 8), and head_dim
+# 320 in both dtypes (two column groups of at most 256)
 FWD_CASES = {
     'lm': ((BATCH, 16, SEQ, 64), SEQ, 'bfloat16', 20),
     'decode': ((BATCH, 16, 16, 64), SEQ, 'bfloat16', 50),
     'ragged_f32': ((2, 4, 1000, 128), 1000, 'float32', 20),
     'head192': ((BATCH, 4, SEQ, 192), SEQ, 'bfloat16', 10),
     'head100_f32': ((2, 3, 300, 100), 300, 'float32', 20),
+    'head320': ((2, 4, 512, 320), 512, 'bfloat16', 10),
+    'head320_f32': ((1, 2, 200, 320), 200, 'float32', 10),
 }
 # phase 4: name -> (q shape, kv length, dtype, lse cotangent, iterations),
-# all causal; phase 2's shapes and a rectangular one with an lse cotangent
+# all causal. bf16 runs on the tensor-core kernels, float32 on the FMA
+# ones: the LM's shape, decode, head_dim 192 (groups of 128 and 64), a
+# ragged head_dim of 100 (plain loads instead of TMA; columns padded to
+# 112), rectangular with an lse cotangent, head_dim 320 (the contraction
+# in chunks of 128), and float32 cases of each kind
 BWD_CASES = {
     'lm': ((BATCH, 16, SEQ, 64), SEQ, 'bfloat16', False, 10),
     'decode': ((BATCH, 16, 16, 64), SEQ, 'bfloat16', False, 20),
@@ -157,25 +164,37 @@ BWD_CASES = {
     'rect_glse_f32': ((2, 4, 300, 64), 700, 'float32', True, 10),
     'head192': ((BATCH, 4, SEQ, 192), SEQ, 'bfloat16', False, 5),
     'head100_f32': ((2, 3, 300, 100), 300, 'float32', False, 10),
+    'head100': ((2, 3, 300, 100), 300, 'bfloat16', False, 10),
+    'rect_glse': ((2, 4, 300, 64), 700, 'bfloat16', True, 10),
+    'head320': ((2, 4, 512, 320), 512, 'bfloat16', False, 5),
+    'head320_f32': ((1, 2, 200, 320), 200, 'float32', False, 5),
 }
+# output columns of one block of the backward kernels: the tensor-core
+# (bf16) kernels' groups, the FMA (float32) kernels' groups
+BWD_GROUP = {'bfloat16': 128, 'float32': 256}
 # phase 3's second model: head_dim 192 through the whole LM
 LM_WIDE_HEADS = dict(GPT2_MEDIUM, dim=768, heads=4, layers=2)
-# --mutants: edits of csrc/flash_attention_bwd.cu (text, replacement),
-# each of which phase 4's LM case must catch
+# --mutants: edits of csrc/flash_attention_bwd_sm90.cu (text,
+# replacement), the kernels of phase 4's bf16 LM case, each of which that
+# case must catch: p or ds rounded toward zero (fp32 bits cut to bf16), the
+# first q tile of dK/dV or the last k tile of dQ skipped, the causal mask
+# one key wide
+_TRUNCATE = ('[](float lo, float hi) { return (__float_as_uint(lo) >> 16) | '
+             '(__float_as_uint(hi) & 0xffff0000u); }(')
 BWD_MUTANTS = {
-    'p_not_rounded': ('Ps[e] = round_to<T>(s[i][j]);', 'Ps[e] = s[i][j];'),
-    'dkdv_ds_not_rounded': ('dSs[e] = round_to<T>(dp[i][j]);',
-                            'dSs[e] = dp[i][j];'),
-    'dq_ds_not_rounded': ('16 * j] = round_to<T>(dp[i][j]);',
-                          '16 * j] = dp[i][j];'),
-    'dkdv_q_tile_skipped': ('for (int qt = first; qt < nq; ++qt) {',
-                            'for (int qt = first; qt < nq; ++qt) {'
-                            ' if (qt == nq / 2) continue;'),
-    'dq_k_tile_skipped': ('for (int kt = 0; kt <= last; ++kt) {',
-                          'for (int kt = 0; kt <= last; ++kt) {'
-                          ' if (kt == last / 2) continue;'),
-    'mask_one_key_wide': ('col <= r + offset)', 'col <= r + offset + 1)'),
+    'p_truncated': ('pt[ks][i] = bf16x2_rn(', 'pt[ks][i] = ' + _TRUNCATE),
+    'dkdv_ds_truncated': ('dst[ks][i] = bf16x2_rn(',
+                          'dst[ks][i] = ' + _TRUNCATE),
+    'dq_ds_truncated': ('ds[ks][i] = bf16x2_rn(', 'ds[ks][i] = ' + _TRUNCATE),
+    'dkdv_q_tile_skipped': ('max(r0 - offset, 0) / BN : 0;',
+                            'max(r0 - offset, 0) / BN + 1 : 0;'),
+    'dq_k_tile_skipped': ('return make_int2(0, last + 1);',
+                          'return make_int2(0, last);'),
+    'mask_one_key_wide': ('k <= q + offset)', 'k <= q + offset + 1)'),
 }
+# the bf16 backward kernels, whose SASS must hold tensor-core
+# instructions (HGMMA)
+SM90_KERNELS = ('flash_bwd_dkdv_sm90', 'flash_bwd_dq_sm90')
 
 # phase 6: name -> (x NHWC, w HWIO, stride, pad, dtype): the main
 # ResNet-50 shape, a strided 1x1 of the ResNet-50 body, a ragged float32
@@ -444,6 +463,41 @@ def backward_bounds(b, h, tq, tk, d, dtype_name, causal):
     return out
 
 
+def backward_flops_done(b, h, tq, tk, d, dtype_name, causal):
+    """The operations each backward kernel really does over the live
+    pairs: S and dP once per column group of BWD_GROUP (each group sums
+    them over the whole head), then dV and dK, or dQ, once."""
+    groups = -(-d // BWD_GROUP[dtype_name])
+    per_product = 2.0 * b * h * live_pairs(tq, tk, causal) * d
+    return dict(dkdv=(2 * groups + 2) * per_product,
+                dq=(2 * groups + 1) * per_product)
+
+
+def sass_check(lib_path):
+    """Phase 1: the bf16 backward kernels run on the tensor cores: every
+    instance of each of SM90_KERNELS in the built library's SASS
+    (cuobjdump -sass) holds HGMMA instructions."""
+    import os
+    import shutil
+    tool = shutil.which('cuobjdump') or os.path.join(
+        os.environ.get('CUDA_HOME', '/usr/local/cuda'), 'bin', 'cuobjdump')
+    sass = subprocess.run([tool, '-sass', str(lib_path)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    functions = sass.split('Function : ')[1:]
+    found = {}
+    for name in SM90_KERNELS:
+        bodies = [f for f in functions if name in f.split('\n', 1)[0]]
+        found[name] = dict(instances=len(bodies),
+                           with_hgmma=sum('HGMMA' in f for f in bodies),
+                           hgmma=sum(f.count('HGMMA') for f in bodies))
+    print('sass ' + json.dumps(found))
+    for name, row in found.items():
+        if row['instances'] == 0 or row['with_hgmma'] != row['instances']:
+            fail('%s: %d of %d instances hold HGMMA in the SASS' % (
+                name, row['with_hgmma'], row['instances']))
+    return found
+
+
 def kernel_case(torch, cuda_ops, name, shape_q, tk, dtype, causal, iters):
     import torch.nn.functional as F
     b, h, tq, d = shape_q
@@ -532,7 +586,11 @@ def bwd_case(torch, cuda_ops, name, shape_q, tk, dtype, causal, with_glse,
 
     dk, dv = cuda_ops.flash_attention_bwd_dkdv_cuda(*args)
     dq = cuda_ops.flash_attention_bwd_dq_cuda(*args)
+    again = (cuda_ops.flash_attention_bwd_dq_cuda(*args),
+             *cuda_ops.flash_attention_bwd_dkdv_cuda(*args))
     torch.cuda.synchronize()
+    same_bits = all(torch.equal(a, b) for a, b in zip(again, (dq, dk, dv)))
+    del again
     ref_dk, ref_dv = cuda_ops.flash_attention_bwd_dkdv_reference(*args)
     ref_dq = cuda_ops.flash_attention_bwd_dq_reference(*args)
     errs = {gname: grad_mismatch(torch, got, ref, BWD_TOL[dtype_name])
@@ -569,17 +627,25 @@ def bwd_case(torch, cuda_ops, name, shape_q, tk, dtype, causal, with_glse,
         library_ms = profiled_ms(torch, lambda: torch.autograd.grad(
             sdpa_out, (sq, sk, sv), do, retain_graph=True), iters)
     bounds = backward_bounds(b, h, tq, tk, d, dtype_name, causal)
+    done = backward_flops_done(b, h, tq, tk, d, dtype_name, causal)
+    rates = {key: dict(tflops=bounds[key]['flops'] / ms / 1e9,
+                       tflops_done=done[key] / ms / 1e9,
+                       flops_done=done[key])
+             for key, ms in (('dkdv', dkdv_ms), ('dq', dq_ms))}
     row = dict(case=name, q=list(shape_q), tk=tk, dtype=dtype_name,
                causal=causal, glse=with_glse, tol=BWD_TOL[dtype_name],
-               errors=errs,
+               errors=errs, same_bits_twice=same_bits,
                function_equals_kernels=same,
                dkdv_ms=dkdv_ms, dq_ms=dq_ms, dkdv_plain_ms=dkdv_plain_ms,
                dq_plain_ms=dq_plain_ms, sdpa_backward_ms=library_ms,
-               bounds=bounds)
+               bounds=bounds, rates=rates)
     print('backward case ' + json.dumps(row))
     if not ok:
         fail('%s: a backward kernel disagrees with its plain version: %s'
              % (name, errs))
+    if not same_bits:
+        fail('%s: a second launch of the backward kernels gave other bits'
+             % name)
     if not same:
         fail('%s: the autograd Function does not give the kernels\' '
              'gradients' % name)
@@ -969,7 +1035,7 @@ def mutant_check(root):
     import shutil
     base = root / 'build' / 'mutants'
     shutil.rmtree(base, ignore_errors=True)
-    bwd = ('flash_attention_bwd.cu', ['--backward-case', 'lm'])
+    bwd = ('flash_attention_bwd_sm90.cu', ['--backward-case', 'lm'])
     conv = ('conv_bn_stats.cu', ['--conv-case', 'main'])
     plan = [('unchanged', None, None, bwd[1] + conv[1])]
     plan += [(name, edit, bwd[0], bwd[1])
@@ -1361,6 +1427,7 @@ def main(argv=None):
     build_s = time.perf_counter() - t0
     print('build: %.1f s' % build_s)
     print(_build.build_log().strip())
+    sass = sass_check(_build.build())
     if args.backward_case or args.conv_case:
         if args.backward_case:
             backward_phase(torch, cuda_ops, [args.backward_case])
@@ -1435,17 +1502,21 @@ def main(argv=None):
             ('flash_attention_bwd_dkdv', 'dkdv', ('dk', 'dv'), 313),
             ('flash_attention_bwd_dq', 'dq', ('dq',), 362))):
         per_case = [dict(
-            case=c['case'], max_abs_err=max(c['errors'][g]['max_abs_err']
-                                            for g in grads),
+            case=c['case'], dtype=c['dtype'],
+            max_abs_err=max(c['errors'][g]['max_abs_err'] for g in grads),
             share_differ=max(c['errors'][g]['share_differ'] for g in grads),
-            tol=c['tol'],
+            tol=c['tol'], same_bits_twice=c['same_bits_twice'],
             ms=c[key + '_ms'], plain_ms=c[key + '_plain_ms'],
-            library_ms=c['sdpa_backward_ms'], **c['bounds'][key])
+            library_ms=c['sdpa_backward_ms'], **c['bounds'][key],
+            **c['rates'][key])
             for c in bwd_cases]
         main_case = per_case[0]
         kernels.append(dict(
             name=name, route='cuda',
-            source='mxnet_tpu_torch/csrc/flash_attention_bwd.cu',
+            source='mxnet_tpu_torch/csrc/flash_attention_bwd_sm90.cu',
+            float32_source='mxnet_tpu_torch/csrc/flash_attention_bwd.cu',
+            sass=sass[SM90_KERNELS[i]],
+            tflops=main_case['tflops'], tflops_done=main_case['tflops_done'],
             replaces='mxnet_tpu/pallas_ops.py:%d' % line,
             launches=train['launches'][1 + i],
             launches_by_path=dict(lm_serve=lm['launches'][1 + i],

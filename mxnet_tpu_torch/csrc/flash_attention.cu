@@ -24,8 +24,11 @@
 //
 // Layout: q (bh, tq, d), k and v (bh, tk, d), o (bh, tq, d) row-major and
 // contiguous, in float or bfloat16; lse (bh, tq) float. d is any head_dim
-// from 1 to 256; tiles are zero-padded to DP (32, 64, 128 or 256) columns,
-// and every load and store is masked to c < d. At DP 256 the shared memory
+// >= 1; tiles are zero-padded to DP (32, 64, 128 or 256) columns, and
+// every load and store is masked to c < d. A head wider than 256 runs in
+// column groups of 256 on the grid's y axis: each block writes its group's
+// output columns and sums S over the whole head in chunks of 256 columns,
+// reloading q with each chunk; group 0 writes lse. At DP 256 the shared memory
 // below is 53,632 floats (214.5 KB, under the 227 KB a block may take) and
 // each thread holds acc[4][16] in registers. The kernel allocates nothing
 // and launches on the caller's stream.
@@ -66,21 +69,25 @@ constexpr size_t smem_floats() {
 static_assert(smem_floats<256>() * 4 <= 232448,
               "a block takes at most 227 KB of shared memory");
 
-// Copy rows [r0, r0 + rows_tile) of a (t, d) matrix into a zero-padded
-// [rows_tile][ld] fp32 tile in shared memory.
+// Copy rows [r0, r0 + rows_tile), columns [c0, c0 + DP) of a (t, d) matrix
+// into a zero-padded [rows_tile][ld] fp32 tile in shared memory.
 template <typename T, int DP>
 __device__ __forceinline__ void load_tile(float* dst, int ld, const T* src,
-                                          int r0, int rows_tile, int t,
-                                          int d) {
+                                          int r0, int rows_tile, int t, int d,
+                                          int c0) {
   for (int e = threadIdx.x; e < rows_tile * DP; e += THREADS) {
     int r = e / DP, c = e - r * DP;
     float x = 0.f;
-    if (r0 + r < t && c < d) x = to_f32(src[(long long)(r0 + r) * d + c]);
+    if (r0 + r < t && c0 + c < d)
+      x = to_f32(src[(long long)(r0 + r) * d + c0 + c]);
     dst[r * ld + c] = x;
   }
 }
 
-template <typename T, int DP>
+// CHUNKED: the head is wider than DP (only at DP 256), so S sums over
+// chunks of DP columns; a separate instance, so that the one-chunk kernel
+// keeps its registers
+template <typename T, int DP, bool CHUNKED>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
@@ -109,8 +116,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int tid = threadIdx.x;
   const int ty = tid / 16, tx = tid % 16;   // rows ty*4..+3, cols tx+16j
+  // output columns [g * DP, g * DP + DP); S sums over nch chunks of DP
+  // columns (q reloaded with each chunk when there is more than one)
+  const int g = blockIdx.y, nch = CHUNKED ? (d + DP - 1) / DP : 1;
 
-  load_tile<T, DP>(Qs, DP + 1, qb, q0, BQ, tq, d);
+  if (!CHUNKED) load_tile<T, DP>(Qs, DP + 1, qb, q0, BQ, tq, d, 0);
   if (tid < BQ) {
     m_s[tid] = -INFINITY;
     l_s[tid] = 0.f;
@@ -133,28 +143,30 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int kt = 0; kt <= last; ++kt) {
     const int k0 = kt * BK;
-    __syncthreads();   // the previous tile's readers are done
-    load_tile<T, DP>(Ks, DP + 1, kp, k0, BK, tk, d);
-    load_tile<T, DP>(Vs, DP, vb, k0, BK, tk, d);
-    __syncthreads();
-
     // S = Q K^T on a 4 x 4 micro-tile per thread, fp32
     float s[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    for (int ci = 0; ci < nch; ++ci) {
+      __syncthreads();   // the previous tile's or chunk's readers are done
+      if (CHUNKED) load_tile<T, DP>(Qs, DP + 1, qb, q0, BQ, tq, d, ci * DP);
+      load_tile<T, DP>(Ks, DP + 1, kp, k0, BK, tk, d, ci * DP);
+      if (ci == 0) load_tile<T, DP>(Vs, DP, vb, k0, BK, tk, d, g * DP);
+      __syncthreads();
 #pragma unroll 8
-    for (int c = 0; c < DP; ++c) {
-      float a[4], b[4];
+      for (int c = 0; c < DP; ++c) {
+        float a[4], b[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = Qs[(ty * 4 + i) * (DP + 1) + c];
+        for (int i = 0; i < 4; ++i) a[i] = Qs[(ty * 4 + i) * (DP + 1) + c];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Ks[(tx + 16 * j) * (DP + 1) + c];
+        for (int j = 0; j < 4; ++j) b[j] = Ks[(tx + 16 * j) * (DP + 1) + c];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
+          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
+      }
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -228,15 +240,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float l = l_s[r];
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
-      const int c = tx + 16 * j;
+      const int c = g * DP + tx + 16 * j;
       if (c < d) ob[(long long)(q0 + r) * d + c] = from_f32<T>(acc[i][j] / l);
     }
   }
-  if (tid < BQ && q0 + tid < tq)
+  if (g == 0 && tid < BQ && q0 + tid < tq)   // one group writes lse
     lse[bh * tq + q0 + tid] = m_s[tid] + logf(l_s[tid]);
 }
 
-template <typename T, int DP>
+template <typename T, int DP, bool CHUNKED = false>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    void* lse, int bh, int tq, int tk, int d, float scale,
                    int causal, cudaStream_t stream) {
@@ -244,15 +256,18 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        flash_fwd_kernel<T, DP, CHUNKED>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     configured = true;
   }
   const long long nq = (tq + BQ - 1) / BQ;
   const long long blocks = nq * bh;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  flash_fwd_kernel<T, DP><<<(unsigned)blocks, THREADS, smem, stream>>>(
+  const int groups = (d + DP - 1) / DP;
+  if (blocks > 0x7fffffffLL || groups > 65535)
+    return cudaErrorInvalidConfiguration;
+  const dim3 grid((unsigned)blocks, groups);
+  flash_fwd_kernel<T, DP, CHUNKED><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
       tq, tk, d, scale, causal);
@@ -270,7 +285,11 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
   if (d <= 128)
     return launch<T, 128>(q, k, v, o, lse, bh, tq, tk, d, scale, causal,
                           stream);
-  return launch<T, 256>(q, k, v, o, lse, bh, tq, tk, d, scale, causal, stream);
+  if (d <= 256)
+    return launch<T, 256>(q, k, v, o, lse, bh, tq, tk, d, scale, causal,
+                          stream);
+  return launch<T, 256, true>(q, k, v, o, lse, bh, tq, tk, d, scale, causal,
+                              stream);
 }
 
 }  // namespace
@@ -282,7 +301,7 @@ int mxt_flash_attention_fwd(const void* q, const void* k, const void* v,
                             void* o, void* lse, int bh, int tq, int tk, int d,
                             float scale, int causal, int dtype,
                             void* stream) {
-  if (bh < 1 || tq < 1 || tk < 1 || d < 1 || d > 256)
+  if (bh < 1 || tq < 1 || tk < 1 || d < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {

@@ -1,48 +1,51 @@
-// Flash-attention backward for Hopper (sm_90a): dQ, dK and dV of
-// O = softmax(Q K^T * scale) V, recomputed tile by tile from the forward's
-// logsumexp, never materialising the tq x tk score matrix in device memory.
+// Flash-attention backward for float32 on Hopper (sm_90a): dQ, dK and dV
+// of O = softmax(Q K^T * scale) V, recomputed tile by tile from the
+// forward's logsumexp, never materialising the tq x tk score matrix in
+// device memory. bfloat16 inputs take the tensor-core kernels of
+// flash_attention_bwd_sm90.cu instead (launch() below dispatches by dtype):
+// the tensor cores take fp32 only as TF32, whose 10-bit mantissa fails the
+// JAX package's float32 gradient tolerance, so float32 stays on FMAs.
 //
 // Replaces mxnet_tpu/pallas_ops.py:_bwd_dkdv_kernel and _bwd_dq_kernel
 // (launched by _flash_bwd_impl) and their streaming twins
 // _bwd_dkdv_stream_kernel and _bwd_dq_stream_kernel (launched by
-// _flash_bwd_stream_impl). The TPU chooses between the two pairs by whether
-// one head's sequence fits VMEM; here one block holds only its own tiles,
-// so one pair of kernels serves every length. As on the TPU there are two
-// kernels, so that each gradient is written once, by one block, with no
-// atomics: the gradients are bit-for-bit the same from run to run.
+// _flash_bwd_stream_impl), for float32. The TPU chooses between the two
+// pairs by whether one head's sequence fits VMEM; here one block holds only
+// its own tiles, so one pair of kernels serves every length. As on the TPU
+// there are two kernels, so that each gradient is written once, by one
+// block, with no atomics: the gradients are bit-for-bit the same from run
+// to run.
 //
-// - dkdv: one block per (bh, BK-row k tile). It loops over q tiles from the
-//   causal lower bound max(k0 - offset, 0) / BQ (pallas_ops.py:355) and
-//   keeps dK and dV in registers in fp32.
-// - dq: one block per (bh, BQ-row q tile). It loops over k tiles up to the
-//   causal upper bound, the last tile its last real row sees
-//   (pallas_ops.py:393).
-// Both recompute s = (q . k) * scale and p = exp(s - lse) in fp32, take
-// dp = dO . v in fp32 and ds = p * (dp - D), with D = rowsum(dO * O) - glse
-// from the caller (an elementwise pass, outside Pallas on the TPU too). The
-// roundings are the Pallas kernels': p to dO's type before dV += p^T dO,
-// ds to q's (k's) type before dK += ds^T q and dQ += ds k; all sums in
-// fp32; dK and dQ times scale.
+// - dkdv: one block per (bh, BK-row k tile, column group). It loops over q
+//   tiles from the causal lower bound max(k0 - offset, 0) / BQ
+//   (pallas_ops.py:355) and keeps dK and dV in registers.
+// - dq: one block per (bh, BQ-row q tile, column group). It loops over k
+//   tiles up to the causal upper bound, the last tile its last real row
+//   sees (pallas_ops.py:393).
+// Both recompute s = (q . k) * scale and p = exp(s - lse), take
+// dp = dO . v and ds = p * (dp - D), with D = rowsum(dO * O) - glse from
+// the caller (an elementwise pass, outside Pallas on the TPU too); all
+// sums in fp32; dK and dQ times scale.
 //
-// Bound at the LM's shape (batch 8, heads 16, T 1024, head_dim 64, bf16,
-// causal: 524,800 live (row, key) pairs a head) on an H100 SXM: the function
-// needs five products over the live pairs (S, dP, dV, dK, dQ),
-// 10 * pairs * d = 43.0 GFLOP, 43.5 us at 989 TFLOP/s; it reads q, k, v, dO
-// (16.8 MB each), lse and D (0.5 MB each) and writes dq, dk, dv: 118.5 MB,
-// 35.4 us at 3.35 TB/s. So it is bound by operations at 43.5 us. Alone, the
-// dK/dV kernel's four products give 34.8 us and the dQ kernel's three
-// 26.1 us: the split computes S and dP twice, seven products in all. This
-// first version runs them on fp32 FMAs from shared memory, as the forward
-// does, so FMA throughput and shared-memory reads, not the bound, set its
-// time; the tensor-core (mma/wgmma) version is later work.
+// Bound at float32 and the LM's shape (batch 8, heads 16, T 1024, head_dim
+// 64, causal) on an H100 SXM: the dK/dV kernel's four products over the
+// live pairs take 513 us at 67 TFLOP/s of fp32 FMA, the dQ kernel's three
+// 385 us; both read q, k, v, dO (33.6 MB each in fp32). They run the
+// products on fp32 FMAs from shared memory, so FMA throughput and
+// shared-memory reads set their time.
 //
 // Layout: q, dO (bh, tq, d), k, v (bh, tk, d), dq, dk, dv likewise,
-// row-major and contiguous, all in float or all in bfloat16; lse and D
-// (bh, tq) float. d is any head_dim from 1 to 256; tiles are zero-padded to
-// DP (32, 64, 128 or 256) columns, every load and store is masked to c < d,
-// and rows past tq or tk are masked, so any tq, tk >= 1 is taken (tq <= tk
-// when causal). The kernels allocate nothing and launch on the caller's
-// stream.
+// row-major and contiguous; lse and D (bh, tq) float. d is any head_dim
+// >= 1; tiles are zero-padded to DP (32, 64, 128 or 256) columns, every
+// load and store is masked to c < d, and rows past tq or tk are masked,
+// so any tq, tk >= 1 is taken (tq <= tk when causal). A head wider than
+// 256 runs in column groups of DP = 256 on the grid's y axis: each block
+// writes its group's columns and sums S and dP over the whole head in
+// chunks of 256 columns through the same tiles, the group's own chunk
+// last, so that its q, dO (dK/dV) or k (dQ) columns are the ones left in
+// shared memory for the group's products. At d <= 256 there is one group
+// and the resident tiles load once. The kernels allocate nothing and
+// launch on the caller's stream.
 //
 // Tiles are B x B (B = BQ = BK): 64 rows up to DP 128, 32 rows at DP 256.
 // The dK/dV kernel keeps four [B][DP+1] fp32 tiles (q, dO, k, v) and two
@@ -52,13 +55,16 @@
 // tile rows, and the thread map follows B: thread (ty, tx) owns rows
 // ty*RI..+RI-1 and columns tx + 16j (RI = RJ = B / 16) of each B x B score
 // tile, and rows ty*RI..+RI-1, columns tx + 16j (DP / 16 of them) of its
-// gradient tile. The halved tiles read each k (dK/dV) or q (dQ) tile from
-// shared memory twice as often per product, which their FMA-bound time
-// pays; a tensor-core version would re-tile anyway.
+// gradient tile.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+// flash_attention_bwd_sm90.cu: the bf16 kernels on the tensor cores
+extern "C" int mxt_flash_attention_bwd_sm90(
+    int which, const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* dd, void* dq, void* dk, void* dv, int bh,
+    int tq, int tk, int d, float scale, int causal, void* stream);
 
 namespace {
 
@@ -78,25 +84,6 @@ template <int B> struct ThreadMap {
   static constexpr int RI = B / 16;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// x rounded to T and back: the Pallas kernels' .astype before a product
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f32(from_f32<T>(x));
-}
-
 template <int DP, int B>
 constexpr size_t smem_floats_dkdv() {
   // Qs, dOs, Ks, Vs [B][DP+1]; Ps, dSs [B][B+1]; lse, D [B]
@@ -113,15 +100,16 @@ static_assert(smem_floats_dkdv<128, tile_rows<128>()>() * 4 <= 232448 &&
               smem_floats_dkdv<256, tile_rows<256>()>() * 4 <= 232448,
               "a block takes at most 227 KB of shared memory");
 
-// Copy rows [r0, r0 + B) of a (t, d) matrix into a zero-padded [B][DP+1]
-// fp32 tile in shared memory.
-template <typename T, int DP, int B>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int r0,
-                                          int t, int d) {
+// Copy rows [r0, r0 + B), columns [c0, c0 + DP) of a (t, d) matrix into a
+// zero-padded [B][DP+1] fp32 tile in shared memory.
+template <int DP, int B>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
+                                          int r0, int t, int d, int c0) {
   for (int e = threadIdx.x; e < B * DP; e += THREADS) {
     int r = e / DP, c = e - r * DP;
     float x = 0.f;
-    if (r0 + r < t && c < d) x = to_f32(src[(long long)(r0 + r) * d + c]);
+    if (r0 + r < t && c0 + c < d)
+      x = src[(long long)(r0 + r) * d + c0 + c];
     dst[r * (DP + 1) + c] = x;
   }
 }
@@ -139,17 +127,14 @@ __device__ __forceinline__ void load_rows(float* lse_s, float* dd_s,
   }
 }
 
-// The s = Q K^T and dp = dO V^T micro-tiles of thread (ty, tx): q rows
-// ty*RI+i, k columns tx+16j, fp32 sums over the (zero-padded) head dim.
+// Add to the s = Q K^T and dp = dO V^T micro-tiles of thread (ty, tx),
+// q rows ty*RI+i, k columns tx+16j, the fp32 sums over one (zero-padded)
+// chunk of the head dim.
 template <int DP, int RI>
 __device__ __forceinline__ void score_tiles(const float* Qs, const float* dOs,
                                             const float* Ks, const float* Vs,
                                             int ty, int tx, float s[RI][RI],
                                             float dp[RI][RI]) {
-#pragma unroll
-  for (int i = 0; i < RI; ++i)
-#pragma unroll
-    for (int j = 0; j < RI; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
   for (int c = 0; c < DP; ++c) {
     float a[RI], g[RI], b[RI], w[RI];
@@ -199,14 +184,15 @@ __device__ __forceinline__ void softmax_grad(float s[RI][RI],
   }
 }
 
-template <typename T, int DP>
+template <int DP>
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const float* __restrict__ dout,
                       const float* __restrict__ lse,
-                      const float* __restrict__ dd, T* __restrict__ dk,
-                      T* __restrict__ dv, int tq, int tk, int d, float scale,
-                      int causal) {
+                      const float* __restrict__ dd, float* __restrict__ dk,
+                      float* __restrict__ dv, int tq, int tk, int d,
+                      float scale, int causal) {
   constexpr int BQ = tile_rows<DP>(), BK = BQ;
   constexpr int RI = ThreadMap<BQ>::RI;
   constexpr int NJ = DP / 16;   // dK/dV columns per thread
@@ -225,15 +211,23 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // start first, so the short ones fill the tail of the grid
   const int k0 = (int)(blockIdx.x % nk) * BK;
   const long long bh = blockIdx.x / nk;
-  const T* qb = q + bh * tq * d;
-  const T* dob = dout + bh * tq * d;
+  const float* qb = q + bh * tq * d;
+  const float* dob = dout + bh * tq * d;
+  const float* kb = k + bh * tk * d;
+  const float* vb = v + bh * tk * d;
   const float* lseb = lse + bh * tq;
   const float* ddb = dd + bh * tq;
   const int tid = threadIdx.x;
   const int ty = tid / 16, tx = tid % 16;
+  // output columns [g * DP, g * DP + DP); the contraction runs over nch
+  // chunks of DP columns, the group's own last, so that its Q and dO
+  // columns are in shared memory for dK and dV
+  const int g = blockIdx.y, nch = (d + DP - 1) / DP;
 
-  load_tile<T, DP, BK>(Ks, k + bh * tk * d, k0, tk, d);
-  load_tile<T, DP, BK>(Vs, v + bh * tk * d, k0, tk, d);
+  if (nch == 1) {
+    load_tile<DP, BK>(Ks, kb, k0, tk, d, 0);
+    load_tile<DP, BK>(Vs, vb, k0, tk, d, 0);
+  }
 
   float acc_dk[RI][NJ], acc_dv[RI][NJ];
 #pragma unroll
@@ -246,14 +240,24 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int first = causal ? max(k0 - (tk - tq), 0) / BQ : 0;
   for (int qt = first; qt < nq; ++qt) {
     const int q0 = qt * BQ;
-    __syncthreads();   // the previous tile's readers are done
-    load_tile<T, DP, BQ>(Qs, qb, q0, tq, d);
-    load_tile<T, DP, BQ>(dOs, dob, q0, tq, d);
-    load_rows<BQ>(lse_s, dd_s, lseb, ddb, q0, tq);
-    __syncthreads();
-
     float s[RI][RI], dp[RI][RI];
-    score_tiles<DP, RI>(Qs, dOs, Ks, Vs, ty, tx, s, dp);
+#pragma unroll
+    for (int i = 0; i < RI; ++i)
+#pragma unroll
+      for (int j = 0; j < RI; ++j) s[i][j] = dp[i][j] = 0.f;
+    for (int ci = 0; ci < nch; ++ci) {
+      const int c0 = (nch == 1 ? 0 : (g + 1 + ci) % nch) * DP;
+      __syncthreads();   // the previous tile's readers are done
+      if (nch > 1) {
+        load_tile<DP, BK>(Ks, kb, k0, tk, d, c0);
+        load_tile<DP, BK>(Vs, vb, k0, tk, d, c0);
+      }
+      load_tile<DP, BQ>(Qs, qb, q0, tq, d, c0);
+      load_tile<DP, BQ>(dOs, dob, q0, tq, d, c0);
+      if (ci == 0) load_rows<BQ>(lse_s, dd_s, lseb, ddb, q0, tq);
+      __syncthreads();
+      score_tiles<DP, RI>(Qs, dOs, Ks, Vs, ty, tx, s, dp);
+    }
     softmax_grad<RI>(s, dp, lse_s, dd_s, ty, tx, q0, k0, tq, tk, scale,
                      causal);
 #pragma unroll
@@ -261,8 +265,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < RI; ++j) {
         const int e = (ty * RI + i) * (BK + 1) + tx + 16 * j;
-        Ps[e] = round_to<T>(s[i][j]);    // p in dO's type for dV
-        dSs[e] = round_to<T>(dp[i][j]);  // ds in q's type for dK
+        Ps[e] = s[i][j];
+        dSs[e] = dp[i][j];
       }
     __syncthreads();
 
@@ -290,30 +294,31 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* dkb = dk + bh * tk * d;
-  T* dvb = dv + bh * tk * d;
+  float* dkb = dk + bh * tk * d;
+  float* dvb = dv + bh * tk * d;
 #pragma unroll
   for (int i = 0; i < RI; ++i) {
     const int row = k0 + ty * RI + i;
     if (row >= tk) continue;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
-      const int c = tx + 16 * j;
+      const int c = g * DP + tx + 16 * j;
       if (c < d) {
-        dkb[(long long)row * d + c] = from_f32<T>(acc_dk[i][j] * scale);
-        dvb[(long long)row * d + c] = from_f32<T>(acc_dv[i][j]);
+        dkb[(long long)row * d + c] = acc_dk[i][j] * scale;
+        dvb[(long long)row * d + c] = acc_dv[i][j];
       }
     }
   }
 }
 
-template <typename T, int DP>
+template <int DP>
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ dd, T* __restrict__ dq, int tq,
-                    int tk, int d, float scale, int causal) {
+                    const float* __restrict__ dd, float* __restrict__ dq,
+                    int tq, int tk, int d, float scale, int causal) {
   constexpr int BQ = tile_rows<DP>(), BK = BQ;
   constexpr int RI = ThreadMap<BQ>::RI;
   constexpr int NJ = DP / 16;   // dQ columns per thread
@@ -331,13 +336,20 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // start first
   const int q0 = (nq - 1 - (int)(blockIdx.x % nq)) * BQ;
   const long long bh = blockIdx.x / nq;
-  const T* kb = k + bh * tk * d;
-  const T* vb = v + bh * tk * d;
+  const float* kb = k + bh * tk * d;
+  const float* vb = v + bh * tk * d;
+  const float* qb = q + bh * tq * d;
+  const float* dob = dout + bh * tq * d;
   const int tid = threadIdx.x;
   const int ty = tid / 16, tx = tid % 16;
+  // output columns [g * DP, g * DP + DP), the contraction in nch chunks,
+  // the group's own last (its K columns feed dQ)
+  const int g = blockIdx.y, nch = (d + DP - 1) / DP;
 
-  load_tile<T, DP, BQ>(Qs, q + bh * tq * d, q0, tq, d);
-  load_tile<T, DP, BQ>(dOs, dout + bh * tq * d, q0, tq, d);
+  if (nch == 1) {
+    load_tile<DP, BQ>(Qs, qb, q0, tq, d, 0);
+    load_tile<DP, BQ>(dOs, dob, q0, tq, d, 0);
+  }
   load_rows<BQ>(lse_s, dd_s, lse + bh * tq, dd + bh * tq, q0, tq);
 
   float acc[RI][NJ];
@@ -355,20 +367,30 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   for (int kt = 0; kt <= last; ++kt) {
     const int k0 = kt * BK;
-    __syncthreads();   // the previous tile's readers are done
-    load_tile<T, DP, BK>(Ks, kb, k0, tk, d);
-    load_tile<T, DP, BK>(Vs, vb, k0, tk, d);
-    __syncthreads();
-
     float s[RI][RI], dp[RI][RI];
-    score_tiles<DP, RI>(Qs, dOs, Ks, Vs, ty, tx, s, dp);
+#pragma unroll
+    for (int i = 0; i < RI; ++i)
+#pragma unroll
+      for (int j = 0; j < RI; ++j) s[i][j] = dp[i][j] = 0.f;
+    for (int ci = 0; ci < nch; ++ci) {
+      const int c0 = (nch == 1 ? 0 : (g + 1 + ci) % nch) * DP;
+      __syncthreads();   // the previous tile's readers are done
+      if (nch > 1) {
+        load_tile<DP, BQ>(Qs, qb, q0, tq, d, c0);
+        load_tile<DP, BQ>(dOs, dob, q0, tq, d, c0);
+      }
+      load_tile<DP, BK>(Ks, kb, k0, tk, d, c0);
+      load_tile<DP, BK>(Vs, vb, k0, tk, d, c0);
+      __syncthreads();
+      score_tiles<DP, RI>(Qs, dOs, Ks, Vs, ty, tx, s, dp);
+    }
     softmax_grad<RI>(s, dp, lse_s, dd_s, ty, tx, q0, k0, tq, tk, scale,
                      causal);
 #pragma unroll
     for (int i = 0; i < RI; ++i)
 #pragma unroll
-      for (int j = 0; j < RI; ++j)   // ds in k's type for dQ
-        dSs[(ty * RI + i) * (BK + 1) + tx + 16 * j] = round_to<T>(dp[i][j]);
+      for (int j = 0; j < RI; ++j)
+        dSs[(ty * RI + i) * (BK + 1) + tx + 16 * j] = dp[i][j];
     __syncthreads();
 
     // dQ += dS K: q rows ty*RI+i, columns tx+16j
@@ -386,15 +408,15 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* dqb = dq + bh * tq * d;
+  float* dqb = dq + bh * tq * d;
 #pragma unroll
   for (int i = 0; i < RI; ++i) {
     const int row = q0 + ty * RI + i;
     if (row >= tq) continue;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
-      const int c = tx + 16 * j;
-      if (c < d) dqb[(long long)row * d + c] = from_f32<T>(acc[i][j] * scale);
+      const int c = g * DP + tx + 16 * j;
+      if (c < d) dqb[(long long)row * d + c] = acc[i][j] * scale;
     }
   }
 }
@@ -416,66 +438,76 @@ cudaError_t allow_smem(Kernel kernel, size_t smem, bool* configured) {
   return err;
 }
 
-template <typename T, int DP>
+template <int DP>
 cudaError_t launch_dkdv(const Args& a, cudaStream_t stream) {
   constexpr int B = tile_rows<DP>();
   const size_t smem = smem_floats_dkdv<DP, B>() * sizeof(float);
   static bool configured = false;
   cudaError_t err =
-      allow_smem(flash_bwd_dkdv_kernel<T, DP>, smem, &configured);
+      allow_smem(flash_bwd_dkdv_kernel<DP>, smem, &configured);
   if (err != cudaSuccess) return err;
   const long long blocks = (long long)((a.tk + B - 1) / B) * a.bh;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  flash_bwd_dkdv_kernel<T, DP><<<(unsigned)blocks, THREADS, smem, stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+  const int groups = (a.d + DP - 1) / DP;
+  if (blocks > 0x7fffffffLL || groups > 65535)
+    return cudaErrorInvalidConfiguration;
+  const dim3 grid((unsigned)blocks, groups);
+  flash_bwd_dkdv_kernel<DP><<<grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.dd),
-      static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.tq, a.tk, a.d, a.scale,
-      a.causal);
+      static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.tq, a.tk, a.d,
+      a.scale, a.causal);
   return cudaGetLastError();
 }
 
-template <typename T, int DP>
+template <int DP>
 cudaError_t launch_dq(const Args& a, cudaStream_t stream) {
   constexpr int B = tile_rows<DP>();
   const size_t smem = smem_floats_dq<DP, B>() * sizeof(float);
   static bool configured = false;
-  cudaError_t err = allow_smem(flash_bwd_dq_kernel<T, DP>, smem, &configured);
+  cudaError_t err = allow_smem(flash_bwd_dq_kernel<DP>, smem, &configured);
   if (err != cudaSuccess) return err;
   const long long blocks = (long long)((a.tq + B - 1) / B) * a.bh;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  flash_bwd_dq_kernel<T, DP><<<(unsigned)blocks, THREADS, smem, stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+  const int groups = (a.d + DP - 1) / DP;
+  if (blocks > 0x7fffffffLL || groups > 65535)
+    return cudaErrorInvalidConfiguration;
+  const dim3 grid((unsigned)blocks, groups);
+  flash_bwd_dq_kernel<DP><<<grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.dd),
-      static_cast<T*>(a.dq), a.tq, a.tk, a.d, a.scale, a.causal);
+      static_cast<float*>(a.dq), a.tq, a.tk, a.d, a.scale, a.causal);
   return cudaGetLastError();
 }
 
-// kernel 0: dK/dV, 1: dQ; dtype 0: float32, 1: bfloat16
-template <typename T, int DP>
+// kernel 0: dK/dV, 1: dQ
+template <int DP>
 cudaError_t launch_one(int which, const Args& a, cudaStream_t s) {
-  return which == 0 ? launch_dkdv<T, DP>(a, s) : launch_dq<T, DP>(a, s);
+  return which == 0 ? launch_dkdv<DP>(a, s) : launch_dq<DP>(a, s);
 }
 
-template <typename T>
 cudaError_t launch_d(int which, const Args& a, cudaStream_t s) {
-  if (a.d <= 32) return launch_one<T, 32>(which, a, s);
-  if (a.d <= 64) return launch_one<T, 64>(which, a, s);
-  if (a.d <= 128) return launch_one<T, 128>(which, a, s);
-  return launch_one<T, 256>(which, a, s);
+  if (a.d <= 32) return launch_one<32>(which, a, s);
+  if (a.d <= 64) return launch_one<64>(which, a, s);
+  if (a.d <= 128) return launch_one<128>(which, a, s);
+  return launch_one<256>(which, a, s);
 }
 
+// The dispatch by dtype: float32 takes the FMA kernels above, bfloat16 the
+// tensor-core kernels of flash_attention_bwd_sm90.cu.
 int launch(int which, const Args& a, int dtype, void* stream) {
-  if (a.bh < 1 || a.tq < 1 || a.tk < 1 || a.d < 1 || a.d > 256 ||
+  if (a.bh < 1 || a.tq < 1 || a.tk < 1 || a.d < 1 ||
       (a.causal && a.tq > a.tk))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return (int)launch_d<float>(which, a, s);
+      return (int)launch_d(which, a, s);
     case 1:
-      return (int)launch_d<__nv_bfloat16>(which, a, s);
+      return mxt_flash_attention_bwd_sm90(which, a.q, a.k, a.v, a.dout, a.lse,
+                                          a.dd, a.dq, a.dk, a.dv, a.bh, a.tq,
+                                          a.tk, a.d, a.scale, a.causal,
+                                          stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -8,9 +8,13 @@ keys up to kv_len - q_len + i), and causal with q_len > kv_len is
 rejected. Both are differentiable through one `torch.autograd.Function`,
 the counterpart of the custom VJPs `_flash` and `_flash_lse`: its
 forward is the forward kernel (`csrc/flash_attention.cu`), its backward
-the dK/dV and dQ kernels (`csrc/flash_attention_bwd.cu`), and the lse is
-differentiable, its cotangent folding into D = rowsum(dO * O) - glse.
-The kernels take any length, so the JAX package's tiling limits
+the dK/dV and dQ kernels, and the lse is differentiable, its cotangent
+folding into D = rowsum(dO * O) - glse. The backward dispatches by dtype
+inside the library: bfloat16 runs on the tensor cores
+(`csrc/flash_attention_bwd_sm90.cu`: wgmma, TMA, mbarriers), float32 on
+the FMA kernels (`csrc/flash_attention_bwd.cu`), since TF32 would fail
+the float32 gradient tolerance. The kernels take any length and any
+head_dim, so the JAX package's tiling limits
 (`_fit_block`, the dense forward fallback, the `_blocked_backward` XLA
 fallback) have no counterpart here.
 
@@ -33,8 +37,6 @@ FLASH_BWD_DKDV_LAUNCHES = 0
 FLASH_BWD_DQ_LAUNCHES = 0
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# the widest head the kernels' shared-memory tiles take (csrc/*.cu, DP 256)
-MAX_HEAD_DIM = 256
 
 
 def _validate_attn_shapes(q, k, v, causal, fn):
@@ -160,10 +162,7 @@ def _check_kernel_inputs(q, k, v, what):
                         'one dtype; got %s, %s, %s'
                         % (what, q.dtype, k.dtype, v.dtype))
     b, h, tq, d = q.shape
-    if not 1 <= d <= MAX_HEAD_DIM:
-        raise ValueError('%s kernel takes head_dim from 1 to %d; got %d'
-                         % (what, MAX_HEAD_DIM, d))
-    if b * h == 0 or tq == 0 or k.shape[2] == 0:
+    if b * h == 0 or tq == 0 or k.shape[2] == 0 or d == 0:
         raise ValueError('%s kernel takes no empty inputs; got q %s, k %s'
                          % (what, tuple(q.shape), tuple(k.shape)))
 

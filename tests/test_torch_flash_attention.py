@@ -136,18 +136,24 @@ def test_full_attention_matches_jax(use_flash, q_len, causal):
                                rtol=RTOL, atol=ATOL)
 
 
-@pytest.mark.parametrize('d', [1, 7, 100, 192, 256])
+@pytest.mark.parametrize('d', [1, 7, 100, 192, 256, 320, 512])
 def test_kernel_inputs_take_head_dim_up_to_256(d):
-    """The kernels take any head_dim from 1 to 256, ragged or not, as the
-    JAX package's flash_attention does."""
+    """The kernels take any head_dim, ragged or not, and past 256 (in
+    column groups), as the JAX package's flash_attention does."""
     q = torch.zeros(1, 2, 8, d)
     cuda_ops._check_kernel_inputs(q, q, q, 'flash attention')
 
 
-def test_kernel_inputs_refuse_head_dim_over_256():
-    q = torch.zeros(1, 2, 8, 257)
-    with pytest.raises(ValueError, match='head_dim from 1 to 256; got 257'):
+@pytest.mark.parametrize('d', [257, 320])
+def test_kernel_inputs_refuse_head_dim_over_256(d):
+    """head_dim over 256 was refused; the kernels now split the output
+    columns into groups of at most 256 and take it, in both dtypes."""
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.zeros(1, 2, 8, d, dtype=dtype)
         cuda_ops._check_kernel_inputs(q, q, q, 'flash attention')
+    z = torch.zeros(1, 2, 8, 0)
+    with pytest.raises(ValueError, match='no empty inputs'):
+        cuda_ops._check_kernel_inputs(z, z, z, 'flash attention')
 
 
 def test_wrapper_rejects_unsupported_device():

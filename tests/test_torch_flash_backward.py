@@ -136,12 +136,20 @@ def test_bwd_reference_rounds_as_the_kernels_in_bfloat16():
         assert not torch.equal(a.float(), b)
 
 
+def _truncated(t):
+    """t rounded toward zero to bf16 (its float32 bits masked to the top
+    16), in float64."""
+    return (t.float().view(torch.int32) & -65536).view(torch.float32).to(
+        torch.float64)
+
+
 def _bf16_variant_grads(variant):
     """(dq, dk, dv) of the plain backward in bf16 at (1, 4, 256, 64)
     causal, and the same recomputed with its sums in float64 and one
     change: 'sound' none, 'p_not_rounded' / 'ds_not_rounded' leave out a
-    rounding before the products, 'q_tile_skipped' drops one 64-row q
-    tile from dK and dV."""
+    rounding before the products, 'p_truncated' / 'ds_truncated' round
+    toward zero instead of to nearest, 'q_tile_skipped' drops one 64-row
+    q tile from dK and dV."""
     rs = np.random.RandomState(17)
     q, k, v, do = (torch.from_numpy(rs.randn(1, 4, 256, 64).astype(
         np.float32)).bfloat16() for _ in range(4))
@@ -154,10 +162,12 @@ def _bf16_variant_grads(variant):
                                                         True, scale))
     p, ds = cuda_ops._probs_and_dscores(q, k, v, do, lse, dd, True, scale)
     f64 = torch.float64
-    p_used = p.to(f64) if variant == 'p_not_rounded' else \
-        p.bfloat16().to(f64)
-    ds_used = ds.to(f64) if variant == 'ds_not_rounded' else \
-        ds.bfloat16().to(f64)
+    p_used = {'p_not_rounded': p.to(f64),
+              'p_truncated': _truncated(p)}.get(variant,
+                                                p.bfloat16().to(f64))
+    ds_used = {'ds_not_rounded': ds.to(f64),
+               'ds_truncated': _truncated(ds)}.get(variant,
+                                                   ds.bfloat16().to(f64))
     dq = torch.einsum('bhqk,bhkd->bhqd', ds_used, k.to(f64)) * scale
     if variant == 'q_tile_skipped':
         p_used[:, :, 128:192] = 0
@@ -169,12 +179,13 @@ def _bf16_variant_grads(variant):
 
 @pytest.mark.parametrize('variant,broken', [
     ('sound', ()), ('p_not_rounded', (2,)), ('ds_not_rounded', (0, 1)),
+    ('p_truncated', (2,)), ('ds_truncated', (0, 1)),
     ('q_tile_skipped', (1, 2))])
 def test_chip_smoke_bf16_backward_gate(variant, broken):
     """chip_smoke.py's bf16 check of a backward kernel against its plain
     version passes another summing order, which differs on under 0.1 %
-    of the elements, and fails a rounding left out (over 30 % differ by
-    a bf16 step) or a skipped q tile."""
+    of the elements, and fails a rounding left out or taken toward zero
+    (over 30 % differ by a bf16 step) or a skipped q tile."""
     import chip_smoke
     tol = chip_smoke.BWD_TOL['bfloat16']
     got, ref = _bf16_variant_grads(variant)
@@ -186,6 +197,80 @@ def test_chip_smoke_bf16_backward_gate(variant, broken):
             assert not check['ok'], check
             if variant != 'q_tile_skipped':
                 assert check['share_differ'] > 0.3, check
+
+
+@pytest.mark.parametrize('causal', [False, True])
+def test_head_dim_320_matches_jax(causal):
+    """Past 256 columns (the kernels' column groups), the forward, the lse
+    and the gradients through both outputs agree with the JAX package's
+    flash_attention_with_lse and its VJP in interpret mode."""
+    q_shape, k_shape = (1, 2, 24, 320), (1, 2, 40, 320)
+    q, k, v = _qkv(18, q_shape, k_shape, scale=0.3)
+    g, gl = _cotangents(19, q_shape)
+    (ref_o, ref_lse), vjp = jax.vjp(
+        lambda q, k, v: pallas_ops.flash_attention_with_lse(
+            q, k, v, causal=causal, interpret=True),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    ref = vjp((jnp.asarray(g), jnp.asarray(gl)))
+
+    tq, tk, tv = _leaves(q, k, v)
+    out, lse = cuda_ops.flash_attention_with_lse(tq, tk, tv, causal=causal)
+    grads = torch.autograd.grad((out, lse), (tq, tk, tv),
+                                (torch.from_numpy(g), torch.from_numpy(gl)))
+    for mine, theirs in zip((out, lse) + grads, (ref_o, ref_lse) + ref):
+        np.testing.assert_allclose(mine.detach().numpy(), np.asarray(theirs),
+                                   rtol=RTOL, atol=ATOL)
+
+
+def _tc_matmul(a, b, truncate):
+    """a @ b as the tensor cores sum it: exact sums of 16-product blocks
+    (one wgmma k-step) added into a float32 accumulator, each addition
+    rounded to nearest or, with `truncate`, toward zero."""
+    acc = np.zeros(a.shape[:-1] + (b.shape[-1],), np.float32)
+    for k0 in range(0, a.shape[-1], 16):
+        x = acc.astype(np.float64) + (a[..., k0:k0 + 16].astype(np.float64)
+                                      @ b[..., k0:k0 + 16, :])
+        acc = x.astype(np.float32)
+        if truncate:
+            up = np.abs(acc.astype(np.float64)) > np.abs(x)
+            acc = np.where(up, np.nextafter(acc, np.float32(0)), acc)
+    return acc
+
+
+@pytest.mark.parametrize('truncate', [False, True])
+def test_tensor_core_accumulation_passes_the_bf16_gate(truncate):
+    """The bf16 backward kernels sum on the tensor cores, in 16-product
+    blocks added into fp32, where the plain version sums in fp32 on the
+    CUDA cores. Emulated here at (1, 4, 256, 64) causal, that other
+    order, with its additions rounded to nearest or toward zero, moves
+    well under 1 % of the gradients by a bf16 step: chip_smoke.py's gate
+    passes it, while it fails a rounding left out (over 30 %)."""
+    import chip_smoke
+    rs = np.random.RandomState(17)
+    q, k, v, do = (torch.from_numpy(rs.randn(1, 4, 256, 64).astype(
+        np.float32)).bfloat16() for _ in range(4))
+    scale = 0.125
+    out, lse = cuda_ops.flash_attention_reference(q, k, v, True, scale)
+    dd = cuda_ops.attention_bwd_delta(out, do)
+    args = (q, k, v, do, lse, dd, True, scale)
+    ref = (cuda_ops.flash_attention_bwd_dq_reference(*args),
+           *cuda_ops.flash_attention_bwd_dkdv_reference(*args))
+    Q, K, V, dO = (t.float().numpy() for t in (q, k, v, do))
+    T = lambda x: np.swapaxes(x, -1, -2)
+    bf = lambda x: torch.from_numpy(x).bfloat16().float().numpy()
+    s = _tc_matmul(Q, T(K), truncate) * np.float32(scale)
+    p = np.where(np.tril(np.ones((256, 256), bool)),
+                 np.exp(s - lse.reshape(1, 4, 256, 1).numpy()), 0)
+    dp = _tc_matmul(dO, T(V), truncate)
+    ds = (p * (dp - dd.reshape(1, 4, 256, 1).numpy())).astype(np.float32)
+    got = (_tc_matmul(bf(ds), K, truncate) * np.float32(scale),
+           _tc_matmul(T(bf(ds)), Q, truncate) * np.float32(scale),
+           _tc_matmul(T(bf(p.astype(np.float32))), dO, truncate))
+    tol = chip_smoke.BWD_TOL['bfloat16']
+    for a, b in zip(got, ref):
+        check = chip_smoke.grad_mismatch(torch, torch.from_numpy(a).bfloat16(),
+                                         b, tol)
+        assert check['ok'] and check['share_differ'] < 5e-3, check
 
 
 def test_cpu_backward_launches_no_kernel():
@@ -218,8 +303,8 @@ def test_bwd_kernel_wrappers_check_their_inputs(fn):
     with pytest.raises(ValueError, match='contiguous'):
         fn(q, q, q, q.transpose(1, 2).contiguous().transpose(1, 2), rows,
            rows, True, 0.25)
-    with pytest.raises(ValueError, match='head_dim from 1 to 256; got 257'):
-        z = torch.zeros(1, 2, 8, 257)
+    with pytest.raises(ValueError, match='no empty inputs'):
+        z = torch.zeros(1, 2, 8, 0)
         fn(z, z, z, z, rows, rows, True, 0.25)
     with pytest.raises(ValueError, match='one CUDA device'):
         fn(q, q, q, q, rows, rows, True, 0.25)
