@@ -2,28 +2,35 @@
 """Drive the port (mxnet_tpu_torch) on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py                      # every phase
+    python3 chip_smoke.py --forward-case lm    # build, one case of phase 2
     python3 chip_smoke.py --backward-case lm   # build, one case of phase 4
     python3 chip_smoke.py --conv-case main     # build, one case of phase 6
     python3 chip_smoke.py --phases 7,8         # build, phases 7 and 8 only
-    python3 chip_smoke.py --mutants            # phases 4 and 6 against
+    python3 chip_smoke.py --mutants            # phases 2, 4 and 6 against
                                                # broken kernels
 
 Phases, each of which exits non-zero on failure:
 
-1. build: compile every kernel from mxnet_tpu_torch/csrc with nvcc;
-2. kernels: launch each kernel on the card at the LM's shapes (and a
-   decode-shaped case, a ragged float32 one, head_dim 192 in bf16 and a
-   ragged float32 one with head_dim 100), hold it against its plain
-   PyTorch version within the stated tolerance, and time it beside its
-   bound, the plain version and, where one exists, one PyTorch call
-   that computes the same function;
+1. build: compile every kernel from mxnet_tpu_torch/csrc with nvcc; the
+   SASS of every instance of the tensor-core kernels (SM90_KERNELS), in
+   bf16 and float16, must hold HGMMA, and ptxas must report no
+   serialised wgmma (C7520);
+2. kernels: launch the forward kernel on the card at the LM's shapes in
+   bf16 and float16 (and decode-shaped cases, a ragged float32 one,
+   head_dim 192, a ragged head_dim 100 in both dtypes, and head_dim 320),
+   hold it against its plain PyTorch version (16-bit: the online
+   recurrence at the kernel's 64-key tile, element by element, the same
+   bits on a second launch), and time it beside its bound, the plain
+   version and, where one exists, one PyTorch call that computes the
+   same function;
 3. lm: the transformer LM forward at GPT-2-medium width (vocab 50257,
    dim 1024, 16 heads, 24 layers, bf16, seeded random weights) answers
    four requests of 8 x 1024 tokens on the flash kernel; the launch
    count must rise by one per layer per request, the logits must be
    finite, the mean NLL near ln(vocab), and one request must agree with
    the same model on plain attention; then the same check for one
-   request at dim 768 with 4 heads (head_dim 192) and 2 layers;
+   request at dim 768 with 4 heads (head_dim 192) and 2 layers, and for
+   one request in float16 at full width and 4 layers;
 4. backward kernels: launch the dK/dV and dQ kernels on the card at the
    shapes of phase 2 (and a rectangular float32 case with a nonzero lse
    cotangent), hold each against its plain PyTorch version element by
@@ -36,8 +43,10 @@ Phases, each of which exits non-zero on failure:
    the two; then a warm-up step, whose update must be w - lr * g, and
    four timed steps, each of which must launch the forward, dK/dV and
    dQ kernels once per layer; a torch.profiler breakdown of one step;
-   last, five float32 steps at full width and 4 layers on one batch,
-   whose loss must fall;
+   then one float16 step at full width and 4 layers, whose gradients
+   must agree with plain attention's and which must launch each kernel
+   once per layer; last, five float32 steps at full width and 4 layers
+   on one batch, whose loss must fall;
 6. conv + BatchNorm statistics: the kernel against its plain version,
    element by element, at the main ResNet-50 shape (3x3, 64 -> 64 at
    56^2, batch 256, bf16), a strided 1x1, a ragged float32 case and a
@@ -70,12 +79,13 @@ name and power limit from nvidia-smi, and last
 {"ok": true, "device": {...}}. It imports neither JAX nor mxnet_tpu, and
 needs a CUDA device and the repository beside it.
 
---mutants builds each of BWD_MUTANTS (a rounding left out, a tile
-skipped, the causal mask widened) and CONV_MUTANTS (a tap skipped, the
-padding one pixel off, one M tile's statistics left out) in a copy of
-the port under build/mutants/ and fails unless phase 4's LM case fails
-every backward mutant, phase 6's main case every conv mutant, and the
-unchanged copy passes both.
+--mutants builds each of FWD_MUTANTS and BWD_MUTANTS (a rounding left
+out, a tile skipped, the causal mask widened, the forward's running
+correction left out) and CONV_MUTANTS (a tap skipped, the padding one
+pixel off, one M tile's statistics left out) in a copy of the port
+under build/mutants/ and fails unless phase 2's LM case fails every
+forward mutant, phase 4's LM case every backward mutant, phase 6's main
+case every conv mutant, and the unchanged copy passes all three.
 """
 import json
 import math
@@ -88,22 +98,37 @@ import numpy as np
 
 SEED = 0
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, dense
-# bf16 tensor-core FLOP/s, float32 FLOP/s outside the tensor cores
+# bf16 and fp16 tensor-core FLOP/s, float32 FLOP/s outside the tensor cores
 HBM_BYTES_S = 3.35e12
-PEAK_FLOPS = {'bfloat16': 989e12, 'float32': 67e12}
+PEAK_FLOPS = {'bfloat16': 989e12, 'float16': 989e12, 'float32': 67e12}
 
 GPT2_MEDIUM = dict(vocab=50257, dim=1024, heads=16, layers=24, mlp_mult=4)
 BATCH, SEQ, REQUESTS = 8, 1024, 4
 
-# kernel against its plain version, max |difference| allowed:
-# float32 as the JAX package's own flash test (tests/test_parallel.py);
-# bfloat16 inputs leave the output rounded to bf16 (8 bits, 4e-3 of the
-# value) and p rounded to bf16 before P.V, so 2e-2 absolute on outputs
-# of size about 1; lse is float32 from the same upcast inputs in both.
-TOL = {'float32': dict(rtol=2e-4, atol=2e-5),
-       'bfloat16': dict(rtol=0.0, atol=2e-2)}
+# the float32 forward kernel against its plain version, max |difference|
+# allowed: the JAX package's own flash tolerance (tests/test_parallel.py);
+# lse is float32 from the same inputs in both.
+F32_TOL = dict(rtol=2e-4, atol=2e-5)
 LSE_TOL = {'float32': dict(rtol=2e-4, atol=2e-5),
-           'bfloat16': dict(rtol=0.0, atol=1e-3)}
+           'bfloat16': dict(rtol=0.0, atol=1e-3),
+           'float16': dict(rtol=0.0, atol=1e-3)}
+# the 16-bit forward kernel against the online plain version at its
+# 64-key tile (cuda_ops.flash_attention_online_reference), element by
+# element, as BWD_TOL below: both round p to v's type before P.V and the
+# output to q's, so they differ only where another fp32 summing order of
+# s or of P.V moves a value across a rounding: one 16-bit step of the
+# value plus 1e-3 of the largest. The share that differs at all is set
+# from a CPU emulation of that order (s summed in 16-product blocks as
+# the tensor cores add; `python tests/test_torch_flash_forward_sm90.py`):
+# 0.04-0.11 % of bf16 outputs, but 0.96 % of float16 ones at
+# (1, 8, 512, 64) and 2.98 % at decode, since a float16 step is 8 times
+# finer; p left unrounded moves over 37 % in both.
+FWD_TOL = {'bfloat16': dict(rtol=2.0 ** -7, atol=0.0, atol_of_max=1e-3,
+                            differ=1e-2),
+           'float16': dict(rtol=2.0 ** -10, atol=0.0, atol_of_max=1e-3,
+                           differ=0.1)}
+# the kernel's key tile (BN in csrc/flash_attention_sm90.cu)
+FWD_BLOCK_K = 64
 # flash against plain attention through 24 bf16 layers: logits of size
 # up to about 4, where a bf16 step is 1/32
 LM_LOGIT_ATOL = 0.125
@@ -123,10 +148,15 @@ LM_NLL_ATOL = 5e-3
 # missing rounding of p or ds moves over 30 % of its gradient by a step
 # (both emulated on the CPU in tests/test_torch_flash_backward.py), so
 # at most 1 % may differ.
+# float16: one float16 step, and at most 5 %: the same emulation moves
+# 0.3-0.7 % of float16 gradients, where a rounding left out moves 40 %
+# (tests/test_torch_flash_forward_sm90.py, the backward's emulation).
 BWD_TOL = {'float32': dict(rtol=2e-4, atol=2e-5, atol_of_max=0.0,
                            differ=1.0),
            'bfloat16': dict(rtol=2.0 ** -7, atol=0.0, atol_of_max=1e-3,
-                            differ=1e-2)}
+                            differ=1e-2),
+           'float16': dict(rtol=2.0 ** -10, atol=0.0, atol_of_max=1e-3,
+                           differ=5e-2)}
 # the LM's gradients on the flash kernels against plain attention, both
 # bf16, as ||g_flash - g_plain|| / ||g_plain|| per parameter: plain
 # attention rounds its scores and softmax to bf16 (2^-8) where the
@@ -138,42 +168,68 @@ TRAIN_STEPS = 4
 LR = 0.1                 # the JAX package's make_train_step default
 FP32_LAYERS, FP32_STEPS = 4, 5
 
-# phase 2: name -> (q shape, kv length, dtype, iterations), all causal:
-# the LM's shape, decode, a ragged float32 one, head_dim 192 (the DP 256
-# instance), a ragged head_dim of 100 (not a multiple of 8), and head_dim
-# 320 in both dtypes (two column groups of at most 256)
+# phase 2: name -> (q shape, kv length, dtype, iterations), all causal.
+# 16-bit runs on the tensor-core kernel, float32 on the FMA one: the LM's
+# shape and decode (a 64-row tile of which 48 rows are padding) in both
+# 16-bit types, a ragged float32 one, head_dim 192 (column groups of 128
+# and 64), a ragged head_dim of 100 (not a multiple of 8: plain loads
+# instead of TMA) in both kernels, and head_dim 320 in both (the
+# contraction in chunks of 128; column groups of 256 in the FMA kernel)
 FWD_CASES = {
     'lm': ((BATCH, 16, SEQ, 64), SEQ, 'bfloat16', 20),
+    'lm_f16': ((BATCH, 16, SEQ, 64), SEQ, 'float16', 20),
     'decode': ((BATCH, 16, 16, 64), SEQ, 'bfloat16', 50),
+    'decode_f16': ((BATCH, 16, 16, 64), SEQ, 'float16', 50),
     'ragged_f32': ((2, 4, 1000, 128), 1000, 'float32', 20),
     'head192': ((BATCH, 4, SEQ, 192), SEQ, 'bfloat16', 10),
     'head100_f32': ((2, 3, 300, 100), 300, 'float32', 20),
+    'head100': ((2, 3, 300, 100), 300, 'bfloat16', 20),
     'head320': ((2, 4, 512, 320), 512, 'bfloat16', 10),
     'head320_f32': ((1, 2, 200, 320), 200, 'float32', 10),
 }
 # phase 4: name -> (q shape, kv length, dtype, lse cotangent, iterations),
-# all causal. bf16 runs on the tensor-core kernels, float32 on the FMA
-# ones: the LM's shape, decode, head_dim 192 (groups of 128 and 64), a
-# ragged head_dim of 100 (plain loads instead of TMA; columns padded to
-# 112), rectangular with an lse cotangent, head_dim 320 (the contraction
-# in chunks of 128), and float32 cases of each kind
+# all causal. 16-bit runs on the tensor-core kernels, float32 on the FMA
+# ones: the LM's shape (bf16 and float16), decode, head_dim 192 (groups of
+# 128 and 64), a ragged head_dim of 100 (plain loads instead of TMA;
+# columns padded to 112; bf16 and float16), rectangular with an lse
+# cotangent, head_dim 320 (the contraction in chunks of 128), and float32
+# cases of each kind
 BWD_CASES = {
     'lm': ((BATCH, 16, SEQ, 64), SEQ, 'bfloat16', False, 10),
+    'lm_f16': ((BATCH, 16, SEQ, 64), SEQ, 'float16', False, 10),
     'decode': ((BATCH, 16, 16, 64), SEQ, 'bfloat16', False, 20),
     'ragged_f32': ((2, 4, 1000, 128), 1000, 'float32', False, 10),
     'rect_glse_f32': ((2, 4, 300, 64), 700, 'float32', True, 10),
     'head192': ((BATCH, 4, SEQ, 192), SEQ, 'bfloat16', False, 5),
     'head100_f32': ((2, 3, 300, 100), 300, 'float32', False, 10),
     'head100': ((2, 3, 300, 100), 300, 'bfloat16', False, 10),
+    'head100_f16': ((2, 3, 300, 100), 300, 'float16', False, 10),
     'rect_glse': ((2, 4, 300, 64), 700, 'bfloat16', True, 10),
     'head320': ((2, 4, 512, 320), 512, 'bfloat16', False, 5),
     'head320_f32': ((1, 2, 200, 320), 200, 'float32', False, 5),
 }
 # output columns of one block of the backward kernels: the tensor-core
-# (bf16) kernels' groups, the FMA (float32) kernels' groups
-BWD_GROUP = {'bfloat16': 128, 'float32': 256}
+# (16-bit) kernels' groups, the FMA (float32) kernels' groups
+BWD_GROUP = {'bfloat16': 128, 'float16': 128, 'float32': 256}
 # phase 3's second model: head_dim 192 through the whole LM
 LM_WIDE_HEADS = dict(GPT2_MEDIUM, dim=768, heads=4, layers=2)
+# phases 3 and 5 in float16: full width, cut depth. The train step's
+# embedding is drawn at std 0.05, not 0.02: at 0.02 the activations'
+# mean square (4e-4) makes RMSNorm's backward overflow float16
+# (rsqrt(var)^3 = 1.25e5 > 65504) into NaN gradients, in the JAX package
+# as in the port (tests/test_torch_flash_forward_sm90.py), on either
+# attention path; at 0.05 (8e3) every gradient is finite.
+# The flash and plain gradients are compared on the loss times
+# F16_LOSS_SCALE, as float16 training scales its loss (torch.amp's
+# GradScaler): the loss is a mean over 8192 tokens, and without the scale
+# most of layer 0's float16 gradients fall below float16's smallest normal
+# (6.1e-5), where each path rounds them to a few bits and the two differ
+# by 7.55 % in relative norm (an H100 run of this script), with no kernel
+# at fault (the plain versions alone on the CPU:
+# `python tests/test_torch_flash_forward_sm90.py`).
+F16_LAYERS = 4
+F16_EMBED_STD = 0.05
+F16_LOSS_SCALE = 2.0 ** 12
 # --mutants: edits of csrc/flash_attention_bwd_sm90.cu (text,
 # replacement), the kernels of phase 4's bf16 LM case, each of which that
 # case must catch: p or ds rounded toward zero (fp32 bits cut to bf16), the
@@ -182,19 +238,36 @@ LM_WIDE_HEADS = dict(GPT2_MEDIUM, dim=768, heads=4, layers=2)
 _TRUNCATE = ('[](float lo, float hi) { return (__float_as_uint(lo) >> 16) | '
              '(__float_as_uint(hi) & 0xffff0000u); }(')
 BWD_MUTANTS = {
-    'p_truncated': ('pt[ks][i] = bf16x2_rn(', 'pt[ks][i] = ' + _TRUNCATE),
-    'dkdv_ds_truncated': ('dst[ks][i] = bf16x2_rn(',
+    'p_truncated': ('pt[ks][i] = pack2_rn<T16>(', 'pt[ks][i] = ' + _TRUNCATE),
+    'dkdv_ds_truncated': ('dst[ks][i] = pack2_rn<T16>(',
                           'dst[ks][i] = ' + _TRUNCATE),
-    'dq_ds_truncated': ('ds[ks][i] = bf16x2_rn(', 'ds[ks][i] = ' + _TRUNCATE),
+    'dq_ds_truncated': ('ds[ks][i] = pack2_rn<T16>(',
+                        'ds[ks][i] = ' + _TRUNCATE),
     'dkdv_q_tile_skipped': ('max(r0 - offset, 0) / BN : 0;',
                             'max(r0 - offset, 0) / BN + 1 : 0;'),
     'dq_k_tile_skipped': ('return make_int2(0, last + 1);',
                           'return make_int2(0, last);'),
     'mask_one_key_wide': ('k <= q + offset)', 'k <= q + offset + 1)'),
 }
-# the bf16 backward kernels, whose SASS must hold tensor-core
-# instructions (HGMMA)
-SM90_KERNELS = ('flash_bwd_dkdv_sm90', 'flash_bwd_dq_sm90')
+# --mutants: edits of csrc/flash_attention_sm90.cu, the kernel of phase
+# 2's bf16 LM case, each of which that case must catch: p rounded toward
+# zero, the running correction of acc left out, the last live k tile (the
+# diagonal's) skipped, the causal mask one key wide
+FWD_MUTANTS = {
+    'fwd_p_truncated': ('pa[ks][i] = pack2_rn<T16>(',
+                        'pa[ks][i] = ' + _TRUNCATE),
+    'fwd_correction_left_out': ('e < 2; ++e) acc[4 * j + 2 * h + e] *= corr;',
+                                'e < 2; ++e) (void)corr;'),
+    'fwd_last_tile_skipped': ('const int last = last_k_tile(r0, p);',
+                              'const int last = last_k_tile(r0, p) - 1;'),
+    'fwd_mask_one_key_wide': ('(!p.causal || k <= q + offset));',
+                              '(!p.causal || k <= q + offset + 1));'),
+}
+# the tensor-core kernels, every instance of which (bf16 and float16) must
+# hold tensor-core instructions (HGMMA) in its SASS
+SM90_KERNELS = ('flash_fwd_sm90', 'flash_bwd_dkdv_sm90', 'flash_bwd_dq_sm90')
+# a 16-bit type as it appears in a mangled instance name
+SM90_TYPES = {'bfloat16': '__nv_bfloat16', 'float16': '6__half'}
 
 # phase 6: name -> (x NHWC, w HWIO, stride, pad, dtype): the main
 # ResNet-50 shape, a strided 1x1 of the ResNet-50 body, a ragged float32
@@ -422,7 +495,7 @@ def attention_bound(b, h, tq, tk, d, dtype_name, causal):
     """Least time for one attention forward: q, k, v read once, O and
     lse written once, against the two products over the live (row, key)
     pairs of this shape."""
-    itemsize = 2 if dtype_name == 'bfloat16' else 4
+    itemsize = 4 if dtype_name == 'float32' else 2
     nbytes = (2 * b * h * tq * d + 2 * b * h * tk * d) * itemsize \
         + b * h * tq * 4
     flops = 4.0 * b * h * live_pairs(tq, tk, causal) * d
@@ -445,7 +518,7 @@ def backward_bounds(b, h, tq, tk, d, dtype_name, causal):
     q, k, v, dO, lse and D read once, the kernel's gradients written
     once, against its products over the live pairs (S, dP, dV, dK for
     dK/dV; S, dP, dQ for dQ; five for the function)."""
-    itemsize = 2 if dtype_name == 'bfloat16' else 4
+    itemsize = 4 if dtype_name == 'float32' else 2
     reads = (2 * b * h * tq * d + 2 * b * h * tk * d) * itemsize \
         + 2 * b * h * tq * 4
     per_product = 2.0 * b * h * live_pairs(tq, tk, causal) * d
@@ -473,10 +546,11 @@ def backward_flops_done(b, h, tq, tk, d, dtype_name, causal):
                 dq=(2 * groups + 1) * per_product)
 
 
-def sass_check(lib_path):
-    """Phase 1: the bf16 backward kernels run on the tensor cores: every
-    instance of each of SM90_KERNELS in the built library's SASS
-    (cuobjdump -sass) holds HGMMA instructions."""
+def sass_check(lib_path, build_log):
+    """Phase 1: the tensor-core kernels run on the tensor cores: every
+    instance of each of SM90_KERNELS, in each 16-bit type, in the built
+    library's SASS (cuobjdump -sass) holds HGMMA instructions, and ptxas
+    serialised no wgmma (warning C7520) in the build log."""
     import os
     import shutil
     tool = shutil.which('cuobjdump') or os.path.join(
@@ -486,19 +560,35 @@ def sass_check(lib_path):
     functions = sass.split('Function : ')[1:]
     found = {}
     for name in SM90_KERNELS:
-        bodies = [f for f in functions if name in f.split('\n', 1)[0]]
-        found[name] = dict(instances=len(bodies),
-                           with_hgmma=sum('HGMMA' in f for f in bodies),
-                           hgmma=sum(f.count('HGMMA') for f in bodies))
-    print('sass ' + json.dumps(found))
-    for name, row in found.items():
-        if row['instances'] == 0 or row['with_hgmma'] != row['instances']:
-            fail('%s: %d of %d instances hold HGMMA in the SASS' % (
-                name, row['with_hgmma'], row['instances']))
+        found[name] = {}
+        for dtype_name, mangled in SM90_TYPES.items():
+            bodies = [f for f in functions
+                      if name in f.split('\n', 1)[0] and
+                      mangled in f.split('\n', 1)[0]]
+            found[name][dtype_name] = dict(
+                instances=len(bodies),
+                with_hgmma=sum('HGMMA' in f for f in bodies),
+                hgmma=sum(f.count('HGMMA') for f in bodies))
+    serialised = [line for line in build_log.splitlines()
+                  if 'C7520' in line or 'serialized' in line]
+    print('sass ' + json.dumps(dict(found, c7520_lines=serialised)))
+    for name, rows in found.items():
+        for dtype_name, row in rows.items():
+            if row['instances'] == 0 or \
+                    row['with_hgmma'] != row['instances']:
+                fail('%s (%s): %d of %d instances hold HGMMA in the SASS'
+                     % (name, dtype_name, row['with_hgmma'],
+                        row['instances']))
+    if serialised:
+        fail('ptxas serialised wgmma: %s' % serialised[:4])
     return found
 
 
 def kernel_case(torch, cuda_ops, name, shape_q, tk, dtype, causal, iters):
+    """Phase 2, one shape: the forward kernel against its plain version
+    (16-bit: the online recurrence at the kernel's tile, element by
+    element under FWD_TOL, and the same bits on a second launch; float32:
+    the dense version under F32_TOL), and the times."""
     import torch.nn.functional as F
     b, h, tq, d = shape_q
     dtype_name = str(dtype).split('.')[-1]
@@ -508,21 +598,35 @@ def kernel_case(torch, cuda_ops, name, shape_q, tk, dtype, causal, iters):
     v = torch.randn((b, h, tk, d), generator=gen, device='cuda', dtype=dtype)
 
     out, lse = cuda_ops.flash_attention_with_lse(q, k, v, causal=causal)
+    again = cuda_ops.flash_attention_with_lse(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    ref_out, ref_lse = cuda_ops.flash_attention_reference(q, k, v, causal)
-    err = (out.float() - ref_out.float()).abs()
+    same_bits = torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    del again
+    if dtype_name == 'float32':
+        plain = lambda: cuda_ops.flash_attention_reference(q, k, v, causal)
+    else:
+        plain = lambda: cuda_ops.flash_attention_online_reference(
+            q, k, v, causal, block_k=FWD_BLOCK_K)
+    ref_out, ref_lse = plain()
     lse_err = (lse - ref_lse).abs()
-    tol, ltol = TOL[dtype_name], LSE_TOL[dtype_name]
-    ok_out = bool((err <= tol['atol'] + tol['rtol'] *
-                   ref_out.float().abs()).all())
+    ltol = LSE_TOL[dtype_name]
     ok_lse = bool((lse_err <= ltol['atol'] + ltol['rtol'] *
                    ref_lse.abs()).all())
+    if dtype_name == 'float32':
+        tol = F32_TOL
+        err = (out.float() - ref_out.float()).abs()
+        ok_out = bool((err <= tol['atol'] + tol['rtol'] *
+                       ref_out.float().abs()).all())
+        check = dict(max_abs_err=float(err.max()))
+    else:
+        tol = FWD_TOL[dtype_name]
+        check = grad_mismatch(torch, out, ref_out, tol)
+        ok_out = check['ok']
     finite = bool(torch.isfinite(out).all() and torch.isfinite(lse).all())
 
     ms = cuda_ms(torch, lambda: cuda_ops.flash_attention_with_lse(
         q, k, v, causal=causal), iters)
-    plain_ms = cuda_ms(torch, lambda: cuda_ops.flash_attention_reference(
-        q, k, v, causal), max(2, iters // 4))
+    plain_ms = cuda_ms(torch, plain, max(2, iters // 4))
     library_ms = None
     if tq == tk:   # SDPA's is_causal aligns top-left: same function only
         library_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
@@ -530,18 +634,24 @@ def kernel_case(torch, cuda_ops, name, shape_q, tk, dtype, causal, iters):
     bound_ms, bound_by, nbytes, flops = attention_bound(
         b, h, tq, tk, d, dtype_name, causal)
     row = dict(case=name, q=list(shape_q), tk=tk, dtype=dtype_name,
-               causal=causal, max_abs_err=float(err.max()),
-               tol=tol, lse_max_abs_err=float(lse_err.max()), lse_tol=ltol,
-               ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+               causal=causal, **check, tol=tol,
+               plain='dense' if dtype_name == 'float32' else
+               'online, %d-key tiles' % FWD_BLOCK_K,
+               lse_max_abs_err=float(lse_err.max()), lse_tol=ltol,
+               same_bits_twice=same_bits, ms=ms, tflops=flops / ms / 1e9,
+               plain_ms=plain_ms, library_ms=library_ms,
                bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
                flops=flops)
     print('kernel case ' + json.dumps(row))
+    if not (ok_out and ok_lse):
+        fail('%s: kernel disagrees with its plain version: out %s '
+             '(tol %s), lse %.3g (tol %s)' % (name, check, tol,
+                                             row['lse_max_abs_err'], ltol))
     if not finite:
         fail('%s: non-finite kernel output' % name)
-    if not (ok_out and ok_lse):
-        fail('%s: kernel disagrees with its plain version: out %.3g '
-             '(tol %s), lse %.3g (tol %s)' % (name, row['max_abs_err'], tol,
-                                             row['lse_max_abs_err'], ltol))
+    if not same_bits:
+        fail('%s: a second launch of the forward kernel gave other bits'
+             % name)
     return row
 
 
@@ -665,7 +775,8 @@ def read_counts(cuda_ops):
 
 def profile_device(torch, fn, label, top):
     """Run fn once under torch.profiler; print and return the device time
-    by kernel (ms), heaviest first."""
+    (ms), the heaviest `top` kernels, and the share of PyTorch's copy
+    kernel (direct_copy_kernel_cuda: .contiguous(), dtype casts)."""
     events = device_events(torch, fn)
     total_us = sum(device_us(e) for e in events)
     print('%s: device time %.3f ms in %d kernels' % (
@@ -676,23 +787,46 @@ def profile_device(torch, fn, label, top):
                                           e.key[:110]))
         rows.append(dict(kernel=e.key[:200], ms=device_us(e) / 1e3,
                          count=e.count))
-    return total_us / 1e3, rows
+    copies = [e for e in events if 'direct_copy_kernel' in e.key]
+    copy = dict(ms=sum(device_us(e) for e in copies) / 1e3,
+                launches=sum(e.count for e in copies))
+    copy['share'] = copy['ms'] / max(total_us / 1e3, 1e-9)
+    print('  copies (direct_copy_kernel_cuda): %.3f ms in %d launches, '
+          '%.1f %% of the device time' % (copy['ms'], copy['launches'],
+                                          100 * copy['share']))
+    return total_us / 1e3, rows, copy
 
 
-def train_phase(torch, cuda_ops, tfm, params, batch):
-    """Phase 5: the bf16 train step at full width and depth on `params`
-    (updated in place), then the float32 loss check at FP32_LAYERS."""
-    cfg = tfm.lm_config(use_flash=True, **GPT2_MEDIUM)
-    tokens, targets = batch
+def wrapper_copy_ms(torch):
+    """Device time of the flash wrapper's own copies for one layer at the
+    LM's shape: q, k and v, each a (batch, heads, seq, head_dim) view of
+    the (batch, seq, 3 * dim) projection, made contiguous in the forward
+    (cuda_ops._FlashAttention.forward), and dO made contiguous in the
+    backward; bf16, CUDA events over 50 runs."""
+    b, t, h = BATCH, SEQ, GPT2_MEDIUM['heads']
+    dh = GPT2_MEDIUM['dim'] // h
+    x = torch.randn((b, t, 3 * h * dh), device='cuda', dtype=torch.bfloat16)
+    views = [z.reshape(b, t, h, dh).transpose(1, 2) for z in x.chunk(3, -1)]
+    fwd = cuda_ms(torch, lambda: [z.contiguous() for z in views], 50)
+    bwd = cuda_ms(torch, lambda: views[0].contiguous(), 50)
+    return dict(forward_ms_per_layer=fwd, backward_ms_per_layer=bwd,
+                layers=GPT2_MEDIUM['layers'],
+                step_ms=(fwd + bwd) * GPT2_MEDIUM['layers'])
 
-    # gradients on the flash kernels and on plain attention, same weights
+
+def flash_vs_plain_grads(torch, tfm, cfg, params, tokens, targets,
+                         loss_scale=1.0):
+    """Every parameter's gradient of the loss (times loss_scale) on the
+    flash kernels and on plain attention, same weights: (the check's row,
+    what is wrong). Each must be finite and nonzero, and the two within
+    GRAD_REL_TOL in relative norm; the losses within LM_NLL_ATOL."""
     grads, losses, peaks = {}, {}, {}
     for use_flash in (True, False):
         model = tfm.TransformerLM(dict(cfg, use_flash=use_flash), params)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         loss = model.loss(tokens, targets)
-        loss.backward()
+        (loss * loss_scale).backward()
         torch.cuda.synchronize()
         peaks[use_flash] = torch.cuda.max_memory_allocated()
         losses[use_flash] = loss.item()
@@ -722,14 +856,26 @@ def train_phase(torch, cuda_ops, tfm, params, batch):
                       wqkv_grad_norm_flash=float(
                           grads[True]['layers.0.wqkv'].float().norm()),
                       peak_bytes_flash=peaks[True],
-                      peak_bytes_plain=peaks[False])
+                      peak_bytes_plain=peaks[False], loss_scale=loss_scale)
+    if abs(losses[True] - losses[False]) > LM_NLL_ATOL:
+        bad.append('loss flash %.5f vs plain %.5f (tol %g)' % (
+            losses[True], losses[False], LM_NLL_ATOL))
+    return grad_check, bad
+
+
+def train_phase(torch, cuda_ops, tfm, params, batch):
+    """Phase 5: the bf16 train step at full width and depth on `params`
+    (updated in place), then one float16 step and the float32 loss check
+    at cut depth."""
+    cfg = tfm.lm_config(use_flash=True, **GPT2_MEDIUM)
+    tokens, targets = batch
+
+    # gradients on the flash kernels and on plain attention, same weights
+    grad_check, bad = flash_vs_plain_grads(torch, tfm, cfg, params, tokens,
+                                           targets)
     print('train grad check ' + json.dumps(grad_check))
-    del grads
     if bad:
         fail('train gradients: ' + '; '.join(bad[:10]))
-    if abs(losses[True] - losses[False]) > LM_NLL_ATOL:
-        fail('train loss flash %.5f vs plain %.5f (tol %g)' % (
-            losses[True], losses[False], LM_NLL_ATOL))
 
     # the warm-up step, whose update is checked on layer 0's wqkv
     model = tfm.TransformerLM(cfg, params)
@@ -758,10 +904,11 @@ def train_phase(torch, cuda_ops, tfm, params, batch):
                                                 counts)])
     launches = read_counts(cuda_ops)
     peak_step = torch.cuda.max_memory_allocated()
-    dev_ms, top = profile_device(
+    dev_ms, top, copies = profile_device(
         torch, lambda: step(model, tokens, targets),
         'train profile, one step', 12)
     del model
+    wrapper_copies = wrapper_copy_ms(torch)
 
     step_ms = sorted(times)[len(times) // 2] * 1e3
     train = dict(config='gpt2-medium widths, %d layers, bf16' % cfg['layers'],
@@ -772,7 +919,8 @@ def train_phase(torch, cuda_ops, tfm, params, batch):
                  launches_per_step=per_step, update_exact=update_exact,
                  wqkv_elements_moved=moved, peak_bytes_step=peak_step,
                  profiled_device_ms=dev_ms,
-                 device_busy_share=dev_ms / step_ms, profile_top=top)
+                 device_busy_share=dev_ms / step_ms, profile_top=top,
+                 copies=copies, flash_wrapper_copies=wrapper_copies)
     print('train ' + json.dumps(train))
     want = [cfg['layers']] * 3
     if per_step != [want] * TRAIN_STEPS:
@@ -782,6 +930,8 @@ def train_phase(torch, cuda_ops, tfm, params, batch):
         fail('the update of layers.0.wqkv is not w - lr * g')
     if not all(math.isfinite(x) for x in step_losses):
         fail('non-finite train loss %s' % step_losses)
+
+    f16 = train_f16_check(torch, cuda_ops, tfm, batch)
 
     # float32 at full width, cut depth: the loss falls on one batch
     cfg32 = tfm.lm_config(use_flash=True,
@@ -805,22 +955,55 @@ def train_phase(torch, cuda_ops, tfm, params, batch):
     if fp32_launches != [FP32_LAYERS * FP32_STEPS] * 3:
         fail('float32 steps launched %s kernels, expected %d each'
              % (fp32_launches, FP32_LAYERS * FP32_STEPS))
-    return dict(train, grad_check=grad_check, fp32=fp32)
+    return dict(train, grad_check=grad_check, fp32=fp32, f16=f16)
 
 
-def seeded_tree(cfg, seed):
+def train_f16_check(torch, cuda_ops, tfm, batch):
+    """Phase 5 in float16: at full width and F16_LAYERS layers, every
+    gradient of the loss times F16_LOSS_SCALE on the flash kernels
+    against plain attention's, then one train step (unscaled, as
+    make_train_step takes it), which must launch the forward, dK/dV and
+    dQ kernels once per layer and give a finite loss."""
+    cfg = tfm.lm_config(use_flash=True,
+                        **dict(GPT2_MEDIUM, layers=F16_LAYERS))
+    params = tfm.params_from_jax(
+        seeded_tree(cfg, SEED + 8, embed_std=F16_EMBED_STD),
+        dtype=torch.float16, device='cuda')
+    tokens, targets = batch
+    grad_check, bad = flash_vs_plain_grads(torch, tfm, cfg, params, tokens,
+                                           targets, F16_LOSS_SCALE)
+    model = tfm.TransformerLM(cfg, params)
+    step = tfm.make_train_step(cfg, lr=LR)
+    counts = read_counts(cuda_ops)
+    loss = float(step(model, tokens, targets))
+    launches = [a - b for a, b in zip(read_counts(cuda_ops), counts)]
+    del model
+    row = dict(config='gpt2-medium widths, %d layers, float16'
+               % F16_LAYERS, grad_check=grad_check, step_loss=loss,
+               launches=launches)
+    print('train f16 ' + json.dumps(row))
+    if bad:
+        fail('float16 train gradients: ' + '; '.join(bad[:10]))
+    if launches != [F16_LAYERS] * 3 or not math.isfinite(loss):
+        fail('float16 step: launches (fwd, dK/dV, dQ) %s, expected %d '
+             'each; loss %s' % (launches, F16_LAYERS, loss))
+    return row
+
+
+def seeded_tree(cfg, seed, embed_std=0.02):
     """A JAX-layout parameter tree of numpy float32 arrays: weights
-    normal * 0.02, norm scales one (the JAX package's init_params)."""
+    normal * 0.02, norm scales one (the JAX package's init_params); the
+    embedding normal * embed_std."""
     rng = np.random.default_rng(seed)
     D, V, H = cfg['dim'], cfg['vocab'], cfg['mlp_mult'] * cfg['dim']
 
-    def normal(*shape):
+    def normal(*shape, std=0.02):
         w = rng.standard_normal(shape, dtype=np.float32)
-        w *= np.float32(0.02)
+        w *= np.float32(std)
         return w
 
     ones = lambda n: np.ones((n,), np.float32)
-    return {'embed': normal(V, D), 'ln_f': ones(D),
+    return {'embed': normal(V, D, std=embed_std), 'ln_f': ones(D),
             'layers': [{'ln1': ones(D), 'wqkv': normal(D, 3 * D),
                         'wo': normal(D, D), 'ln2': ones(D),
                         'w1': normal(D, H), 'w2': normal(H, D)}
@@ -1027,17 +1210,21 @@ def conv_kernel_entry(conv):
 
 
 def mutant_check(root):
-    """--mutants: build each of BWD_MUTANTS and CONV_MUTANTS in its own
-    copy of the port under build/mutants/ and run there, all at once,
-    phase 4's LM case (a backward mutant) or phase 6's main case (a conv
-    mutant); each must fail its case and the copy with no edit must pass
-    both. Times from these runs mean nothing: they share the card."""
+    """--mutants: build each of FWD_MUTANTS, BWD_MUTANTS and CONV_MUTANTS
+    in its own copy of the port under build/mutants/ and run there, all
+    at once, phase 2's LM case (a forward mutant), phase 4's LM case (a
+    backward mutant) or phase 6's main case (a conv mutant); each must
+    fail its case and the copy with no edit must pass all three. Times
+    from these runs mean nothing: they share the card."""
     import shutil
     base = root / 'build' / 'mutants'
     shutil.rmtree(base, ignore_errors=True)
+    fwd = ('flash_attention_sm90.cu', ['--forward-case', 'lm'])
     bwd = ('flash_attention_bwd_sm90.cu', ['--backward-case', 'lm'])
     conv = ('conv_bn_stats.cu', ['--conv-case', 'main'])
-    plan = [('unchanged', None, None, bwd[1] + conv[1])]
+    plan = [('unchanged', None, None, fwd[1] + bwd[1] + conv[1])]
+    plan += [(name, edit, fwd[0], fwd[1])
+             for name, edit in FWD_MUTANTS.items()]
     plan += [(name, edit, bwd[0], bwd[1])
              for name, edit in BWD_MUTANTS.items()]
     plan += [(name, edit, conv[0], conv[1])
@@ -1071,7 +1258,12 @@ def mutant_check(root):
         text = (copy / 'run.log').read_text()
         errors = {}
         for line in text.splitlines():
-            if line.startswith('backward case '):
+            if line.startswith('kernel case '):
+                row = json.loads(line[len('kernel case '):])
+                errors.update(out={k: row.get(k) for k in (
+                    'max_abs_err', 'over_tol', 'share_differ')},
+                    lse=row['lse_max_abs_err'])
+            elif line.startswith('backward case '):
                 row = json.loads(line[len('backward case '):])
                 errors.update({g: {k: e[k] for k in (
                     'max_abs_err', 'over_tol', 'share_differ')}
@@ -1090,18 +1282,20 @@ def mutant_check(root):
             wrong.append('%s (rc %d):\n%s' % (name, rc, text[-3000:]))
     if wrong:
         fail('mutant check: ' + '\n'.join(wrong))
-    print('mutants: all %d backward mutants caught by the LM case and all '
-          '%d conv mutants by the main conv case; the unchanged copy '
-          'passes both' % (len(BWD_MUTANTS), len(CONV_MUTANTS)))
+    print('mutants: all %d forward mutants caught by phase 2\'s LM case, '
+          'all %d backward mutants by phase 4\'s and all %d conv mutants '
+          'by the main conv case; the unchanged copy passes all three'
+          % (len(FWD_MUTANTS), len(BWD_MUTANTS), len(CONV_MUTANTS)))
 
 
-def lm_wide_heads_check(torch, cuda_ops, tfm, request):
-    """Phase 3 at head_dim 192: one request through LM_WIDE_HEADS on the
-    flash kernel (its DP 256 instance) and on plain attention, same
+def lm_variant_check(torch, cuda_ops, tfm, request, widths, dtype, seed,
+                     label):
+    """Phase 3 at other widths or in another dtype: one request through
+    the LM of `widths` on the flash kernel and on plain attention, same
     seeded weights, at phase 3's tolerances."""
-    cfg = tfm.lm_config(use_flash=True, **LM_WIDE_HEADS)
-    params = tfm.params_from_jax(seeded_tree(cfg, SEED + 7),
-                                 dtype=torch.bfloat16, device='cuda')
+    cfg = tfm.lm_config(use_flash=True, **widths)
+    params = tfm.params_from_jax(seeded_tree(cfg, seed), dtype=dtype,
+                                 device='cuda')
     tokens, targets = request
     model = tfm.TransformerLM(cfg, params).eval()
     dense = tfm.TransformerLM(dict(cfg, use_flash=False), params).eval()
@@ -1114,18 +1308,19 @@ def lm_wide_heads_check(torch, cuda_ops, tfm, request):
         err = float((flash_logits - dense_logits).abs().max())
         nll_flash = float(tfm.nll(flash_logits, targets))
         nll_plain = float(tfm.nll(dense_logits, targets))
-    row = dict(config='dim %d, %d heads of %d, %d layers, bf16' % (
-        cfg['dim'], cfg['heads'], cfg['head_dim'], cfg['layers']),
+    row = dict(config='dim %d, %d heads of %d, %d layers, %s' % (
+        cfg['dim'], cfg['heads'], cfg['head_dim'], cfg['layers'],
+        str(dtype).split('.')[-1]),
         launches=launches, max_abs_logit_err=err, logit_atol=LM_LOGIT_ATOL,
         nll_flash=nll_flash, nll_plain=nll_plain, nll_atol=LM_NLL_ATOL)
-    print('lm wide heads ' + json.dumps(row))
+    print('lm %s ' % label + json.dumps(row))
     if launches != cfg['layers'] or not finite:
-        fail('head_dim %d LM: %d flash launches (expected %d), finite %s'
-             % (cfg['head_dim'], launches, cfg['layers'], finite))
+        fail('%s LM: %d flash launches (expected %d), finite %s'
+             % (label, launches, cfg['layers'], finite))
     if err > LM_LOGIT_ATOL or abs(nll_flash - nll_plain) > LM_NLL_ATOL:
-        fail('head_dim %d LM: flash and plain attention disagree: logits '
-             '%.4g (tol %g), nll %.5f vs %.5f (tol %g)' % (
-                 cfg['head_dim'], err, LM_LOGIT_ATOL, nll_flash, nll_plain,
+        fail('%s LM: flash and plain attention disagree: logits %.4g (tol '
+             '%g), nll %.5f vs %.5f (tol %g)' % (
+                 label, err, LM_LOGIT_ATOL, nll_flash, nll_plain,
                  LM_NLL_ATOL))
     return row
 
@@ -1177,9 +1372,10 @@ def nd_phase(torch, mx):
                host_us_nd_add_16=nd_us, host_us_torch_add_16=torch_us,
                host_calls=ND_HOST_CALLS)
     print('ndarray ' + json.dumps(row))
-    if set(oc.CASES) != names or count != len(names):
-        fail('phase 7 ran %d ops; ops/tensor.py registers %d (missing %s)'
-             % (count, len(names), sorted(names - set(oc.CASES))[:10]))
+    if set(oc.CASES) != names or count != len(names) + len(oc.VARIANTS):
+        fail('phase 7 ran %d cases; ops/tensor.py registers %d ops, and %d '
+             'variants (missing %s)' % (count, len(names), len(oc.VARIANTS),
+                                        sorted(names - set(oc.CASES))[:10]))
     if bad:
         fail('ops disagree between gpu(0) and cpu(0): %s' % bad)
     if samplers:
@@ -1316,8 +1512,9 @@ def rtc_sgd_loop(torch, mx):
         loss.backward()
         sgd.push([w, w.grad], outs=[w], grid_dims=grid, block_dims=block)
 
-    dev_ms, top = profile_device(torch, one_step,
-                                 'rtc imperative sgd profile, one step', 8)
+    dev_ms, top, _ = profile_device(torch, one_step,
+                                    'rtc imperative sgd profile, one step',
+                                    8)
     step_ms = sorted(times[1:])[len(times) // 2] * 1e3
     row = dict(rows=SGD_ROWS, features=SGD_FEATURES, steps=SGD_STEPS,
                lr=RTC_LR, accuracy_before=acc0, accuracy=acc,
@@ -1376,6 +1573,8 @@ def main(argv=None):
     import argparse
     parser = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
+    parser.add_argument('--forward-case', choices=sorted(FWD_CASES),
+                        help='build, then run only this case of phase 2')
     parser.add_argument('--backward-case', choices=sorted(BWD_CASES),
                         help='build, then run only this case of phase 4')
     parser.add_argument('--conv-case', choices=sorted(CONV_CASES),
@@ -1386,8 +1585,9 @@ def main(argv=None):
                         help='build, then run only these phases (a comma '
                              'list of 2-8); the kernels line needs all')
     parser.add_argument('--mutants', action='store_true',
-                        help='check that phase 4\'s LM case fails each of '
-                             'BWD_MUTANTS and phase 6\'s main case each of '
+                        help='check that phase 2\'s LM case fails each of '
+                             'FWD_MUTANTS, phase 4\'s each of BWD_MUTANTS '
+                             'and phase 6\'s main case each of '
                              'CONV_MUTANTS, broken copies of the kernels')
     args = parser.parse_args(argv)
     import torch
@@ -1426,9 +1626,14 @@ def main(argv=None):
     _build.library()
     build_s = time.perf_counter() - t0
     print('build: %.1f s' % build_s)
-    print(_build.build_log().strip())
-    sass = sass_check(_build.build())
-    if args.backward_case or args.conv_case:
+    build_log = _build.build_log().strip()
+    print(build_log)
+    sass = sass_check(_build.build(), build_log)
+    if args.forward_case or args.backward_case or args.conv_case:
+        if args.forward_case:
+            shape_q, tk, dtype_name, iters = FWD_CASES[args.forward_case]
+            kernel_case(torch, cuda_ops, args.forward_case, shape_q, tk,
+                        getattr(torch, dtype_name), True, iters)
         if args.backward_case:
             backward_phase(torch, cuda_ops, [args.backward_case])
         if args.conv_case:
@@ -1457,8 +1662,13 @@ def main(argv=None):
             requests.append((tok[:, :-1], tok[:, 1:]))
     if 3 in phases:
         lm = lm_phase(torch, cuda_ops, tfm, cfg, params, requests)
-        lm['wide_heads'] = lm_wide_heads_check(torch, cuda_ops, tfm,
-                                               requests[0])
+        lm['wide_heads'] = lm_variant_check(
+            torch, cuda_ops, tfm, requests[0], LM_WIDE_HEADS, torch.bfloat16,
+            SEED + 7, 'wide heads')
+        lm['float16'] = lm_variant_check(
+            torch, cuda_ops, tfm, requests[0],
+            dict(GPT2_MEDIUM, layers=F16_LAYERS), torch.float16, SEED + 8,
+            'float16')
 
     # 4. the backward kernels against their plain versions
     if 4 in phases:
@@ -1488,16 +1698,21 @@ def main(argv=None):
     main_case = cases[0]
     kernels = [dict(
         name='flash_attention_fwd', route='cuda',
-        source='mxnet_tpu_torch/csrc/flash_attention.cu',
+        source='mxnet_tpu_torch/csrc/flash_attention_sm90.cu',
+        float32_source='mxnet_tpu_torch/csrc/flash_attention.cu',
+        sass=sass['flash_fwd_sm90'],
         replaces='mxnet_tpu/pallas_ops.py:95',
         launches=lm['flash_launches'],
         launches_by_path=dict(lm_serve=lm['flash_launches'],
                               lm_train=train['launches'][0]),
         max_abs_err=main_case['max_abs_err'],
-        ms=main_case['ms'], plain_ms=main_case['plain_ms'],
+        share_differ=main_case['share_differ'],
+        ms=main_case['ms'], tflops=main_case['tflops'],
+        plain_ms=main_case['plain_ms'],
         bound_ms=main_case['bound_ms'], bound_by=main_case['bound_by'],
-        library_ms=main_case['library_ms'], build_s=build_s,
-        cases=cases)]
+        library_ms=main_case['library_ms'],
+        library_call='scaled_dot_product_attention forward (is_causal)',
+        build_s=build_s, cases=cases)]
     for i, (name, key, grads, line) in enumerate((
             ('flash_attention_bwd_dkdv', 'dkdv', ('dk', 'dv'), 313),
             ('flash_attention_bwd_dq', 'dq', ('dq',), 362))):
@@ -1515,7 +1730,7 @@ def main(argv=None):
             name=name, route='cuda',
             source='mxnet_tpu_torch/csrc/flash_attention_bwd_sm90.cu',
             float32_source='mxnet_tpu_torch/csrc/flash_attention_bwd.cu',
-            sass=sass[SM90_KERNELS[i]],
+            sass=sass[SM90_KERNELS[1 + i]],
             tflops=main_case['tflops'], tflops_done=main_case['tflops_done'],
             replaces='mxnet_tpu/pallas_ops.py:%d' % line,
             launches=train['launches'][1 + i],
@@ -1577,8 +1792,8 @@ def lm_phase(torch, cuda_ops, tfm, cfg, params, requests):
         del flash_logits, dense_logits, logits
 
         # where the time of one request goes, by kernel
-        dev_ms, _ = profile_device(torch, lambda: model(tokens),
-                                   'lm profile, one request', 10)
+        dev_ms, top, copies = profile_device(
+            torch, lambda: model(tokens), 'lm profile, one request', 10)
 
     fwd_ms = sorted(times)[len(times) // 2] * 1e3
     lm = dict(config='gpt2-medium widths, %d layers, bf16' % cfg['layers'],
@@ -1590,7 +1805,8 @@ def lm_phase(torch, cuda_ops, tfm, cfg, params, requests):
               flash_vs_plain_max_abs_logit_err=logit_err,
               logit_atol=LM_LOGIT_ATOL, nll_flash=nlls[0],
               nll_plain=nll_dense, nll_atol=LM_NLL_ATOL,
-              profiled_device_ms=dev_ms, device_busy_share=dev_ms / fwd_ms)
+              profiled_device_ms=dev_ms, device_busy_share=dev_ms / fwd_ms,
+              profile_top=top, copies=copies)
     print('lm ' + json.dumps(lm))
     if per_request != [cfg['layers']] * REQUESTS:
         fail('flash launches per request %s, expected %d each'

@@ -1,9 +1,14 @@
-// Flash-attention forward for Hopper (sm_90a): O = softmax(Q K^T * scale) V
-// and the per-row logsumexp, never materialising the tq x tk score matrix
-// in device memory.
+// Flash-attention forward for float32 on Hopper (sm_90a):
+// O = softmax(Q K^T * scale) V and the per-row logsumexp, never
+// materialising the tq x tk score matrix in device memory. bfloat16 and
+// float16 inputs take the tensor-core kernel of flash_attention_sm90.cu
+// instead (mxt_flash_attention_fwd below dispatches by dtype): the tensor
+// cores take fp32 only as TF32, whose 10-bit mantissa fails the float32
+// tolerance, so float32 stays on FMAs.
 //
 // Replaces mxnet_tpu/pallas_ops.py:_attn_kernel_resident and
-// pallas_ops.py:_attn_kernel (both launched by _flash_fwd_impl). Same
+// pallas_ops.py:_attn_kernel (both launched by _flash_fwd_impl), for
+// float32. Same
 // function: online softmax with running max m, normaliser l and
 // accumulator acc in fp32; scores scaled after the product; p rounded to
 // v's type before the P.V product; causal rows suffix-aligned to the keys
@@ -13,17 +18,14 @@
 // owns a BQ-row q tile of one (batch, head) and loops over BK-row k tiles,
 // masking the ragged edge, so any tq, tk >= 1 is taken.
 //
-// Bound at the LM's shape (batch 8, heads 16, T 1024, head_dim 64, bf16,
-// causal) on an H100 SXM: q, k, v and O are 16.8 MB each and lse 0.5 MB,
-// 67.6 MB at 3.35 TB/s = 20.2 us; the two products over the causal half
-// are 17.2 GFLOP, 17.4 us at 989 TFLOP/s of bf16 tensor-core rate. So the
-// kernel is bound by bytes at about 20 us a launch. This first version
-// does both products with fp32 FMAs from shared memory (no tensor cores),
-// so its FMA and shared-memory traffic, not the bytes, set its time, far
-// above that bound; the tensor-core (mma/wgmma) version is later work.
+// Bound at the LM's shape (batch 8, heads 16, T 1024, head_dim 64, float32,
+// causal) on an H100 SXM: the two products over the causal half are 17.2
+// GFLOP, 257 us at 67 TFLOP/s of fp32 FMA, against 40.3 us for the bytes.
+// Both products run on fp32 FMAs from shared memory, so FMA throughput
+// and shared-memory reads set its time.
 //
 // Layout: q (bh, tq, d), k and v (bh, tk, d), o (bh, tq, d) row-major and
-// contiguous, in float or bfloat16; lse (bh, tq) float. d is any head_dim
+// contiguous, in float; lse (bh, tq) float. d is any head_dim
 // >= 1; tiles are zero-padded to DP (32, 64, 128 or 256) columns, and
 // every load and store is masked to c < d. A head wider than 256 runs in
 // column groups of 256 on the grid's y axis: each block writes its group's
@@ -33,9 +35,15 @@
 // each thread holds acc[4][16] in registers. The kernel allocates nothing
 // and launches on the caller's stream.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+// flash_attention_sm90.cu: the 16-bit kernel on the tensor cores
+extern "C" int mxt_flash_attention_fwd_sm90(const void* q, const void* k,
+                                            const void* v, void* o, void* lse,
+                                            int bh, int tq, int tk, int d,
+                                            float scale, int causal,
+                                            int dtype, void* stream);
 
 namespace {
 
@@ -45,20 +53,6 @@ constexpr int THREADS = 256;
 // the thread maps below cover the tiles exactly
 static_assert(THREADS == 4 * BQ && THREADS / 16 * 4 == BQ && BK == 64,
               "tile and thread map disagree");
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 template <int DP>
 constexpr size_t smem_floats() {
@@ -71,15 +65,15 @@ static_assert(smem_floats<256>() * 4 <= 232448,
 
 // Copy rows [r0, r0 + rows_tile), columns [c0, c0 + DP) of a (t, d) matrix
 // into a zero-padded [rows_tile][ld] fp32 tile in shared memory.
-template <typename T, int DP>
-__device__ __forceinline__ void load_tile(float* dst, int ld, const T* src,
+template <int DP>
+__device__ __forceinline__ void load_tile(float* dst, int ld, const float* src,
                                           int r0, int rows_tile, int t, int d,
                                           int c0) {
   for (int e = threadIdx.x; e < rows_tile * DP; e += THREADS) {
     int r = e / DP, c = e - r * DP;
     float x = 0.f;
     if (r0 + r < t && c0 + c < d)
-      x = to_f32(src[(long long)(r0 + r) * d + c0 + c]);
+      x = src[(long long)(r0 + r) * d + c0 + c];
     dst[r * ld + c] = x;
   }
 }
@@ -87,10 +81,10 @@ __device__ __forceinline__ void load_tile(float* dst, int ld, const T* src,
 // CHUNKED: the head is wider than DP (only at DP 256), so S sums over
 // chunks of DP columns; a separate instance, so that the one-chunk kernel
 // keeps its registers
-template <typename T, int DP, bool CHUNKED>
+template <int DP, bool CHUNKED>
 __global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, int tq, int tk, int d, float scale,
                  int causal) {
   constexpr int NJ = DP / 16;   // output columns per thread in P.V
@@ -110,9 +104,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const long long bh = blockIdx.x / nq;
   const int q0 = qi * BQ;
   const int offset = tk - tq;
-  const T* qb = q + bh * tq * d;
-  const T* kp = k + bh * tk * d;
-  const T* vb = v + bh * tk * d;
+  const float* qb = q + bh * tq * d;
+  const float* kp = k + bh * tk * d;
+  const float* vb = v + bh * tk * d;
 
   const int tid = threadIdx.x;
   const int ty = tid / 16, tx = tid % 16;   // rows ty*4..+3, cols tx+16j
@@ -120,7 +114,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // columns (q reloaded with each chunk when there is more than one)
   const int g = blockIdx.y, nch = CHUNKED ? (d + DP - 1) / DP : 1;
 
-  if (!CHUNKED) load_tile<T, DP>(Qs, DP + 1, qb, q0, BQ, tq, d, 0);
+  if (!CHUNKED) load_tile<DP>(Qs, DP + 1, qb, q0, BQ, tq, d, 0);
   if (tid < BQ) {
     m_s[tid] = -INFINITY;
     l_s[tid] = 0.f;
@@ -151,9 +145,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
     for (int ci = 0; ci < nch; ++ci) {
       __syncthreads();   // the previous tile's or chunk's readers are done
-      if (CHUNKED) load_tile<T, DP>(Qs, DP + 1, qb, q0, BQ, tq, d, ci * DP);
-      load_tile<T, DP>(Ks, DP + 1, kp, k0, BK, tk, d, ci * DP);
-      if (ci == 0) load_tile<T, DP>(Vs, DP, vb, k0, BK, tk, d, g * DP);
+      if (CHUNKED) load_tile<DP>(Qs, DP + 1, qb, q0, BQ, tq, d, ci * DP);
+      load_tile<DP>(Ks, DP + 1, kp, k0, BK, tk, d, ci * DP);
+      if (ci == 0) load_tile<DP>(Vs, DP, vb, k0, BK, tk, d, g * DP);
       __syncthreads();
 #pragma unroll 8
       for (int c = 0; c < DP; ++c) {
@@ -197,7 +191,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = sub; j < BK; j += 4) {
         const float p = __expf(srow[j] - m_use);
         sum += p;
-        srow[j] = to_f32(from_f32<T>(p));   // p in v's type for P.V
+        srow[j] = p;   // p in v's type (float32) for P.V
       }
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
       sum += __shfl_xor_sync(0xffffffffu, sum, 2);
@@ -232,7 +226,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   __syncthreads();
 
-  T* ob = o + bh * tq * d;
+  float* ob = o + bh * tq * d;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty * 4 + i;
@@ -241,14 +235,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int c = g * DP + tx + 16 * j;
-      if (c < d) ob[(long long)(q0 + r) * d + c] = from_f32<T>(acc[i][j] / l);
+      if (c < d) ob[(long long)(q0 + r) * d + c] = acc[i][j] / l;
     }
   }
   if (g == 0 && tid < BQ && q0 + tid < tq)   // one group writes lse
     lse[bh * tq + q0 + tid] = m_s[tid] + logf(l_s[tid]);
 }
 
-template <typename T, int DP, bool CHUNKED = false>
+template <int DP, bool CHUNKED = false>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    void* lse, int bh, int tq, int tk, int d, float scale,
                    int causal, cudaStream_t stream) {
@@ -256,7 +250,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, DP, CHUNKED>,
+        flash_fwd_kernel<DP, CHUNKED>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     configured = true;
@@ -267,36 +261,34 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   if (blocks > 0x7fffffffLL || groups > 65535)
     return cudaErrorInvalidConfiguration;
   const dim3 grid((unsigned)blocks, groups);
-  flash_fwd_kernel<T, DP, CHUNKED><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      tq, tk, d, scale, causal);
+  flash_fwd_kernel<DP, CHUNKED><<<grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(lse), tq, tk, d, scale, causal);
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
                      void* lse, int bh, int tq, int tk, int d, float scale,
                      int causal, cudaStream_t stream) {
   if (d <= 32)
-    return launch<T, 32>(q, k, v, o, lse, bh, tq, tk, d, scale, causal, stream);
+    return launch<32>(q, k, v, o, lse, bh, tq, tk, d, scale, causal, stream);
   if (d <= 64)
-    return launch<T, 64>(q, k, v, o, lse, bh, tq, tk, d, scale, causal, stream);
+    return launch<64>(q, k, v, o, lse, bh, tq, tk, d, scale, causal, stream);
   if (d <= 128)
-    return launch<T, 128>(q, k, v, o, lse, bh, tq, tk, d, scale, causal,
-                          stream);
+    return launch<128>(q, k, v, o, lse, bh, tq, tk, d, scale, causal, stream);
   if (d <= 256)
-    return launch<T, 256>(q, k, v, o, lse, bh, tq, tk, d, scale, causal,
-                          stream);
-  return launch<T, 256, true>(q, k, v, o, lse, bh, tq, tk, d, scale, causal,
-                              stream);
+    return launch<256>(q, k, v, o, lse, bh, tq, tk, d, scale, causal, stream);
+  return launch<256, true>(q, k, v, o, lse, bh, tq, tk, d, scale, causal,
+                           stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 float32, 1 bfloat16. Returns a cudaError_t (0 on success).
+// dtype: 0 float32, 1 bfloat16, 2 float16. Returns a cudaError_t (0 on
+// success).
 int mxt_flash_attention_fwd(const void* q, const void* k, const void* v,
                             void* o, void* lse, int bh, int tq, int tk, int d,
                             float scale, int causal, int dtype,
@@ -306,11 +298,11 @@ int mxt_flash_attention_fwd(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return (int)launch_d<float>(q, k, v, o, lse, bh, tq, tk, d, scale,
-                                  causal, s);
+      return (int)launch_d(q, k, v, o, lse, bh, tq, tk, d, scale, causal, s);
     case 1:
-      return (int)launch_d<__nv_bfloat16>(q, k, v, o, lse, bh, tq, tk, d,
-                                          scale, causal, s);
+    case 2:
+      return mxt_flash_attention_fwd_sm90(q, k, v, o, lse, bh, tq, tk, d,
+                                          scale, causal, dtype, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

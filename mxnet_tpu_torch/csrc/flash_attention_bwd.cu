@@ -1,8 +1,9 @@
 // Flash-attention backward for float32 on Hopper (sm_90a): dQ, dK and dV
 // of O = softmax(Q K^T * scale) V, recomputed tile by tile from the
 // forward's logsumexp, never materialising the tq x tk score matrix in
-// device memory. bfloat16 inputs take the tensor-core kernels of
-// flash_attention_bwd_sm90.cu instead (launch() below dispatches by dtype):
+// device memory. bfloat16 and float16 inputs take the tensor-core kernels
+// of flash_attention_bwd_sm90.cu instead (launch() below dispatches by
+// dtype):
 // the tensor cores take fp32 only as TF32, whose 10-bit mantissa fails the
 // JAX package's float32 gradient tolerance, so float32 stays on FMAs.
 //
@@ -60,11 +61,11 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
-// flash_attention_bwd_sm90.cu: the bf16 kernels on the tensor cores
+// flash_attention_bwd_sm90.cu: the 16-bit kernels on the tensor cores
 extern "C" int mxt_flash_attention_bwd_sm90(
     int which, const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* dd, void* dq, void* dk, void* dv, int bh,
-    int tq, int tk, int d, float scale, int causal, void* stream);
+    int tq, int tk, int d, float scale, int causal, int dtype, void* stream);
 
 namespace {
 
@@ -493,8 +494,8 @@ cudaError_t launch_d(int which, const Args& a, cudaStream_t s) {
   return launch_one<256>(which, a, s);
 }
 
-// The dispatch by dtype: float32 takes the FMA kernels above, bfloat16 the
-// tensor-core kernels of flash_attention_bwd_sm90.cu.
+// The dispatch by dtype: float32 takes the FMA kernels above, bfloat16 and
+// float16 the tensor-core kernels of flash_attention_bwd_sm90.cu.
 int launch(int which, const Args& a, int dtype, void* stream) {
   if (a.bh < 1 || a.tq < 1 || a.tk < 1 || a.d < 1 ||
       (a.causal && a.tq > a.tk))
@@ -504,9 +505,10 @@ int launch(int which, const Args& a, int dtype, void* stream) {
     case 0:
       return (int)launch_d(which, a, s);
     case 1:
+    case 2:
       return mxt_flash_attention_bwd_sm90(which, a.q, a.k, a.v, a.dout, a.lse,
                                           a.dd, a.dq, a.dk, a.dv, a.bh, a.tq,
-                                          a.tk, a.d, a.scale, a.causal,
+                                          a.tk, a.d, a.scale, a.causal, dtype,
                                           stream);
     default:
       return (int)cudaErrorInvalidValue;
@@ -517,7 +519,8 @@ int launch(int which, const Args& a, int dtype, void* stream) {
 
 extern "C" {
 
-// dtype: 0 float32, 1 bfloat16. Returns a cudaError_t (0 on success).
+// dtype: 0 float32, 1 bfloat16, 2 float16. Returns a cudaError_t (0 on
+// success).
 int mxt_flash_attention_bwd_dkdv(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
                                  const void* dd, void* dk, void* dv, int bh,

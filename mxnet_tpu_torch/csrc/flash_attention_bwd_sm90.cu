@@ -1,24 +1,27 @@
-// Flash-attention backward for bf16 on Hopper's tensor cores (sm_90a): dK,
-// dV and dQ of O = softmax(Q K^T * scale) V, recomputed tile by tile from
-// the forward's logsumexp, with every product on wgmma.
+// Flash-attention backward for bf16 and float16 on Hopper's tensor cores
+// (sm_90a): dK, dV and dQ of O = softmax(Q K^T * scale) V, recomputed tile
+// by tile from the forward's logsumexp, with every product on wgmma. The
+// two 16-bit types share one template (T16); the PTX building blocks are
+// in sm90_common.cuh, shared with the forward (flash_attention_sm90.cu).
 //
 // Replaces mxnet_tpu/pallas_ops.py:_bwd_dkdv_kernel (:313) and its
 // streaming twin _bwd_dkdv_stream_kernel (:403), and _bwd_dq_kernel (:362)
-// and _bwd_dq_stream_kernel (:458), for bf16 inputs. float32 inputs stay on
+// and _bwd_dq_stream_kernel (:458), for 16-bit inputs. float32 inputs stay on
 // the FMA kernels of flash_attention_bwd.cu: the tensor cores take fp32
 // only as TF32, whose 10-bit mantissa fails the JAX package's float32
 // gradient tolerance (rtol 2e-4 / atol 2e-5). That is a dispatch by dtype,
-// made in flash_attention_bwd.cu's launch(); a bf16 CUDA input always
-// comes here.
+// made in flash_attention_bwd.cu's launch(); a bf16 or float16 CUDA input
+// always comes here.
 //
 // The function is the Pallas kernels', with their roundings
 // (pallas_ops.py:329-351, :375-391): s = q.k in fp32 times scale,
-// p = exp(s - lse), dp = dO.v in fp32, ds = p * (dp - D); p rounded to bf16
-// before dV += p^T dO, ds rounded to bf16 before dK += ds^T q and
-// dQ += ds k; fp32 sums; dK and dQ times scale. D = rowsum(dO * O) - glse
-// comes from the caller. Causal rows suffix-align to the keys (row i sees
-// keys <= i + tk - tq). There are no atomics: each gradient element has one
-// writer, so the gradients are the same bits from run to run.
+// p = exp(s - lse), dp = dO.v in fp32, ds = p * (dp - D); p rounded to the
+// inputs' 16-bit type before dV += p^T dO, ds rounded to it before
+// dK += ds^T q and dQ += ds k; fp32 sums; dK and dQ times scale.
+// D = rowsum(dO * O) - glse comes from the caller. Causal rows suffix-align
+// to the keys (row i sees keys <= i + tk - tq). There are no atomics: each
+// gradient element has one writer, so the gradients are the same bits from
+// run to run.
 //
 // Bound at the LM's shape (batch 8, heads 16, T 1024, head_dim 64, causal)
 // on an H100 SXM: five products over the 524,800 live (row, key) pairs a
@@ -26,9 +29,9 @@
 // bound by operations. The split into a dK/dV and a dQ kernel computes S
 // and dP twice, seven products: 34.8 us for the dK/dV kernel's four and
 // 26.1 us for the dQ kernel's three. What the design does about it:
-// - every product is a wgmma (bf16 in, fp32 accumulators) on 64-row
+// - every product is a wgmma (16-bit in, fp32 accumulators) on 64-row
 //   warpgroup tiles;
-// - tiles stay bf16 in shared memory, in the 128-byte swizzled layout wgmma
+// - tiles stay 16-bit in shared memory, in the 128-byte swizzled layout wgmma
 //   reads; nothing is widened to fp32 there;
 // - a producer warp streams tiles by TMA (cp.async.bulk.tensor) into a
 //   two-stage ring guarded by mbarriers, so the next tile's copy overlaps
@@ -39,7 +42,7 @@
 // Each block holds one 64-row "resident" tile and streams 64-row tiles past
 // it. dK/dV: resident k and v rows, streamed q, dO, lse and D; it computes
 // S^T = K Q^T and dP^T = V dO^T, so that k rows are the accumulator's rows,
-// and P^T and dS^T, rounded to bf16, already sit in registers in the layout
+// and P^T and dS^T, rounded to 16 bits, already sit in registers in the layout
 // wgmma takes as its A operand for dV += P^T dO and dK += dS^T Q, with dO
 // and Q read from shared memory MN-major (the transpose bit). dQ: resident
 // q, dO, lse and D, streamed k and v; S = Q K^T, dP = dO V^T, and dS from
@@ -73,15 +76,14 @@
 //   plus S^T and dP^T (64); one consumer warpgroup and one producer warp
 //   make a block of 160 threads with up to 255 registers each.
 // - Shared memory at head_dim 256: K and V, and two stages of Q and dO,
-//   64 rows each in bf16, come to 192 KB (static_assert below).
+//   64 rows each in 16 bits, come to 192 KB (static_assert below).
 // - Accumulation order: the tensor cores add in another order from the
-//   plain version's fp32 einsum, so a few bf16 results round the other way.
+//   plain version's fp32 einsum, so a few 16-bit results round the other
+//   way.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "sm90_common.cuh"
 
 namespace {
 
@@ -92,7 +94,6 @@ constexpr int STAGES = 2;
 constexpr int GROUP = 128;      // output columns of a block, at most
 constexpr int CONSUMERS = 128;  // one warpgroup
 constexpr int THREADS = CONSUMERS + 32;
-constexpr int ATOM = 64 * 128;  // 64 rows x 64 bf16 columns: one TMA box
 static_assert(BM == 64 && BN == 64, "one box shape serves every tile");
 
 __host__ __device__ constexpr size_t smem_bytes(int cw, int nres) {
@@ -105,233 +106,15 @@ static_assert(smem_bytes(256, 1) <= 232448 && smem_bytes(128, STAGES) <=
               232448, "a block takes at most 227 KB of shared memory");
 
 struct Params {
-  CUtensorMap tm[4];  // q, k, v, dO as 3-D (d, t, bh) bf16, when use_tma
-  const __nv_bfloat16* x[4];  // q, k, v, dO
+  CUtensorMap tm[4];  // q, k, v, dO as 3-D (d, t, bh) 16-bit, when use_tma
+  const uint16_t* x[4];  // q, k, v, dO: bf16 or float16 bits
   const float *lse, *dd;
-  __nv_bfloat16 *dq, *dk, *dv;
+  void *dq, *dk, *dv;
   int tq, tk, d, causal, use_tma;
   int cw, nchunks, nres;  // contraction chunk width, chunks, resident slots
   int group0;             // the first column group of this launch
   float scale;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// ---- mbarriers ----
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(count));
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-// the phase also waits for `bytes` of TMA copies (no arrival)
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;" ::"r"(
-                   smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-// wait until the phase of parity `parity` has completed. The spin stays
-// inside one PTX block (its labels are local to the block), so that the
-// compiler sees no divergent exit before the wgmmas that follow; a wait of
-// 2^35 clocks (over 15 s) traps, so that a pipeline fault ends the launch
-// with an error instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred p_done, p_late;\n.reg .u64 t0, t1;\n"
-      "mov.u64 t0, %%clock64;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p_done, [%0], %1;\n"
-      "@p_done bra DONE;\n"
-      "mov.u64 t1, %%clock64;\n"
-      "sub.u64 t1, t1, t0;\n"
-      "setp.gt.u64 p_late, t1, 34359738368;\n"
-      "@p_late trap;\n"
-      "bra.uni WAIT;\n"
-      "DONE:\n}" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-// ---- copies into the swizzled layout ----
-// A tile is 64 rows x cw columns, stored as cw / 64 atoms of 64 x 64 bf16;
-// in an atom, row r takes 128 bytes at r * 128, its 16-byte chunk c at
-// chunk c ^ (r % 8): TMA's CU_TENSOR_MAP_SWIZZLE_128B and wgmma's B128.
-__device__ __forceinline__ void tma_tile(const CUtensorMap* tm, uint8_t* dst,
-                                         int cw, int col0, int row0, int bh,
-                                         uint64_t* bar) {
-  for (int b = 0; b < cw / 64; ++b)
-    asm volatile(
-        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::"
-        "complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(
-            smem_u32(dst + b * ATOM)),
-        "l"(reinterpret_cast<uint64_t>(tm)), "r"(smem_u32(bar)),
-        "r"(col0 + 64 * b), "r"(row0), "r"(bh)
-        : "memory");
-}
-
-// the same layout by plain loads from one warp, zero past row t and
-// column d; the caller fences for the async proxy
-__device__ __forceinline__ void copy_tile(const __nv_bfloat16* head, int t,
-                                          int d, uint8_t* dst, int cw,
-                                          int col0, int row0, int lane) {
-  const unsigned short* src = reinterpret_cast<const unsigned short*>(head);
-  const int chunks = cw / 8;
-  for (int e = lane; e < BN * chunks; e += 32) {
-    const int r = e / chunks, cc = e - r * chunks;
-    const int row = row0 + r, c = col0 + cc * 8;
-    unsigned short v[8];
-#pragma unroll
-    for (int u = 0; u < 8; ++u)
-      v[u] = (row < t && c + u < d) ? src[(long long)row * d + c + u] : 0;
-    uint4 w;
-    w.x = v[0] | (uint32_t)v[1] << 16;
-    w.y = v[2] | (uint32_t)v[3] << 16;
-    w.z = v[4] | (uint32_t)v[5] << 16;
-    w.w = v[6] | (uint32_t)v[7] << 16;
-    *reinterpret_cast<uint4*>(dst + (cc / 8) * ATOM + r * 128 +
-                              (((cc & 7) ^ (r & 7)) << 4)) = w;
-  }
-}
-
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
-// ---- wgmma ----
-// K-major operand (rows of 64 bf16, the contraction along the row): the
-// start address steps 32 bytes per 16 columns inside an atom; 8-row groups
-// 1024 bytes apart (SBO).
-__device__ __forceinline__ uint64_t desc_k(const uint8_t* tile, int ks) {
-  const uint32_t a = smem_u32(tile + (ks / 4) * ATOM + (ks % 4) * 32);
-  return (uint64_t)((a & 0x3FFFF) >> 4) | (uint64_t)1 << 16 |
-         (uint64_t)64 << 32 | (uint64_t)1 << 62;
-}
-// MN-major operand (the contraction down the rows, N along a row): one
-// atom of 64 columns per instruction (LBO, the next atom, is unused), 8-row
-// groups 1024 bytes apart (SBO); the start steps 16 rows per k-step.
-__device__ __forceinline__ uint64_t desc_mn(const uint8_t* atom, int ks) {
-  const uint32_t a = smem_u32(atom + ks * 16 * 128);
-  return (uint64_t)((a & 0x3FFFF) >> 4) | (uint64_t)(ATOM >> 4) << 16 |
-         (uint64_t)64 << 32 | (uint64_t)1 << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-// keep the compiler from touching registers across an async product
-template <int N> __device__ __forceinline__ void fence_regs(float* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N> __device__ __forceinline__ void fence_regs(uint32_t* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-#define ACC8(i)                                                         \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),           \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-
-// d (64 x 64) (+)= A B^T, A and B K-major in shared memory
-__device__ __forceinline__ void wgmma_ss64(float* d, uint64_t da,
-                                           uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}"
-      : ACC8(0), ACC8(8), ACC8(16), ACC8(24)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d (64 x N) += A B, A in registers, B MN-major in shared memory; the
-// scale-d predicate is always set (accumulate)
-template <int N> struct WgmmaRS;
-template <> struct WgmmaRS<16> {
-  static __device__ __forceinline__ void run(float* d, const uint32_t* a,
-                                             uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, "
-        "1, 1, 1;\n}"
-        : ACC8(0)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-template <> struct WgmmaRS<32> {
-  static __device__ __forceinline__ void run(float* d, const uint32_t* a,
-                                             uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-        "%14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}"
-        : ACC8(0), ACC8(8)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-template <> struct WgmmaRS<48> {
-  static __device__ __forceinline__ void run(float* d, const uint32_t* a,
-                                             uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, {%24, %25, "
-        "%26, %27}, %28, p, 1, 1, 1;\n}"
-        : ACC8(0), ACC8(8), ACC8(16)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-template <> struct WgmmaRS<64> {
-  static __device__ __forceinline__ void run(float* d, const uint32_t* a,
-                                             uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-        "%26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, "
-        "1, 1, 1;\n}"
-        : ACC8(0), ACC8(8), ACC8(16), ACC8(24)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-#undef ACC8
-
-// acc (64 x GN) += A (64 x 16, registers) B (16 rows of the tile from
-// column atom `atom`, GN columns): pieces of 64 columns, then the rest,
-// each starting on an atom
-template <int GN>
-__device__ __forceinline__ void wgmma_group(float* acc, const uint32_t* a,
-                                            const uint8_t* atom, int ks) {
-#pragma unroll
-  for (int i = 0; i < GN / 64; ++i)
-    WgmmaRS<64>::run(acc + 32 * i, a, desc_mn(atom + i * ATOM, ks));
-  if constexpr (GN % 64 != 0)
-    WgmmaRS<GN % 64>::run(acc + 32 * (GN / 64), a,
-                          desc_mn(atom + (GN / 64) * ATOM, ks));
-}
-
-// two floats rounded to nearest bf16, packed low then high
-__device__ __forceinline__ uint32_t bf16x2_rn(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // The streamed tiles [lo, hi) that a block whose resident tile starts at
 // row r0 meets: for dK/dV the q tiles from the first whose rows reach key
@@ -357,7 +140,7 @@ __device__ __forceinline__ int chunk_at(int ci, int g, const Params& p) {
   return p.nchunks == 1 ? 0 : (g + 1 + ci) % p.nchunks;
 }
 
-template <int KIND, int GN>
+template <typename T16, int KIND, int GN>
 __device__ __forceinline__ void bwd_block(const Params& p) {
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -384,8 +167,8 @@ __device__ __forceinline__ void bwd_block(const Params& p) {
   const int2 range = stream_range(KIND, r0, p);
   const long long hq = (long long)bh * p.tq * p.d;
   const long long hk = (long long)bh * p.tk * p.d;
-  const __nv_bfloat16* head[4] = {p.x[0] + hq, p.x[1] + hk, p.x[2] + hk,
-                                  p.x[3] + hq};
+  const uint16_t* head[4] = {p.x[0] + hq, p.x[1] + hk, p.x[2] + hk,
+                             p.x[3] + hq};
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -497,8 +280,8 @@ __device__ __forceinline__ void bwd_block(const Params& p) {
       wgmma_fence();
       for (int ks = 0; ks < ksteps; ++ks) {
         const int acc_on = ci > 0 || ks > 0;
-        wgmma_ss64(x, desc_k(rt, ks), desc_k(st, ks), acc_on);
-        wgmma_ss64(y, desc_k(rt + tb, ks), desc_k(st + tb, ks), acc_on);
+        wgmma_ss64<T16>(x, desc_k(rt, ks), desc_k(st, ks), acc_on);
+        wgmma_ss64<T16>(y, desc_k(rt + tb, ks), desc_k(st + tb, ks), acc_on);
       }
       wgmma_commit();
       wgmma_wait();
@@ -551,15 +334,15 @@ __device__ __forceinline__ void bwd_block(const Params& p) {
       for (int ks = 0; ks < 4; ++ks)
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          pt[ks][i] = bf16x2_rn(x[8 * ks + 2 * i], x[8 * ks + 2 * i + 1]);
-          dst[ks][i] = bf16x2_rn(y[8 * ks + 2 * i], y[8 * ks + 2 * i + 1]);
+          pt[ks][i] = pack2_rn<T16>(x[8 * ks + 2 * i], x[8 * ks + 2 * i + 1]);
+          dst[ks][i] = pack2_rn<T16>(y[8 * ks + 2 * i], y[8 * ks + 2 * i + 1]);
         }
       wgmma_fence();
 #pragma unroll
       for (int ks = 0; ks < 4; ++ks) {
         // dV += P^T dO, dK += dS^T Q
-        wgmma_group<GN>(acc[0], pt[ks], st + tb + gatom * ATOM, ks);
-        wgmma_group<GN>(acc[1], dst[ks], st + gatom * ATOM, ks);
+        wgmma_group<T16, GN>(acc[0], pt[ks], st + tb + gatom * ATOM, ks);
+        wgmma_group<T16, GN>(acc[1], dst[ks], st + gatom * ATOM, ks);
       }
       wgmma_commit();
       wgmma_wait();
@@ -571,11 +354,11 @@ __device__ __forceinline__ void bwd_block(const Params& p) {
       for (int ks = 0; ks < 4; ++ks)
 #pragma unroll
         for (int i = 0; i < 4; ++i)
-          ds[ks][i] = bf16x2_rn(y[8 * ks + 2 * i], y[8 * ks + 2 * i + 1]);
+          ds[ks][i] = pack2_rn<T16>(y[8 * ks + 2 * i], y[8 * ks + 2 * i + 1]);
       wgmma_fence();
 #pragma unroll
       for (int ks = 0; ks < 4; ++ks)  // dQ += dS K
-        wgmma_group<GN>(acc[0], ds[ks], st + gatom * ATOM, ks);
+        wgmma_group<T16, GN>(acc[0], ds[ks], st + gatom * ATOM, ks);
       wgmma_commit();
       wgmma_wait();
       fence_regs<16>(&ds[0][0]);
@@ -590,7 +373,8 @@ __device__ __forceinline__ void bwd_block(const Params& p) {
   const long long hout = (long long)bh * t_res * p.d;
 #pragma unroll
   for (int o = 0; o < NOUT; ++o) {
-    __nv_bfloat16* out = KIND == kDq ? p.dq : (o == 0 ? p.dv : p.dk);
+    T16* out = static_cast<T16*>(KIND == kDq ? p.dq
+                                             : (o == 0 ? p.dv : p.dk));
     const float mult = (KIND == kDkDv && o == 0) ? 1.f : p.scale;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -603,135 +387,59 @@ __device__ __forceinline__ void bwd_block(const Params& p) {
           const int c = c_base + 8 * j + e;
           if (c < p.d)
             out[hout + (long long)row * p.d + c] =
-                __float2bfloat16(acc[o][4 * j + 2 * h + e] * mult);
+                round_to<T16>(acc[o][4 * j + 2 * h + e] * mult);
         }
     }
   }
 }
 
-template <int GN>
+template <typename T16, int GN>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_bwd_dkdv_sm90(const __grid_constant__ Params p) {
-  bwd_block<kDkDv, GN>(p);
+  bwd_block<T16, kDkDv, GN>(p);
 }
 
-template <int GN>
+template <typename T16, int GN>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_bwd_dq_sm90(const __grid_constant__ Params p) {
-  bwd_block<kDq, GN>(p);
+  bwd_block<T16, kDq, GN>(p);
 }
 
 // ---- host ----
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
-                                cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// (d, t, bh) bf16, 64 x 64 boxes, 128-byte swizzle, zeros out of range
-cudaError_t tensor_map(CUtensorMap* tm, const void* ptr, int bh, int t,
-                       int d) {
-  EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorSymbolNotFound;
-  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)t, (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)t * d * 2};
-  const cuuint32_t box[3] = {64, 64, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  CUresult r = encode(tm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                      const_cast<void*>(ptr), dims, strides, box, elem,
-                      CU_TENSOR_MAP_INTERLEAVE_NONE,
-                      CU_TENSOR_MAP_SWIZZLE_128B,
-                      CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
-template <typename Kernel>
-cudaError_t launch_kernel(Kernel kernel, int* configured, const Params& p,
-                          dim3 grid, size_t smem, cudaStream_t stream) {
-  if ((int)smem > *configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    *configured = (int)smem;
-  }
-  kernel<<<grid, THREADS, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
-template <int GN>
+template <typename T16, int GN>
 cudaError_t launch_gn(int which, const Params& p, dim3 grid, size_t smem,
                       cudaStream_t stream) {
   static int configured[2] = {0, 0};
-  return which == 0 ? launch_kernel(flash_bwd_dkdv_sm90<GN>, &configured[0],
-                                    p, grid, smem, stream)
-                    : launch_kernel(flash_bwd_dq_sm90<GN>, &configured[1], p,
-                                    grid, smem, stream);
+  return which == 0
+             ? launch_kernel(flash_bwd_dkdv_sm90<T16, GN>, &configured[0], p,
+                             grid, THREADS, smem, stream)
+             : launch_kernel(flash_bwd_dq_sm90<T16, GN>, &configured[1], p,
+                             grid, THREADS, smem, stream);
 }
 
+template <typename T16>
 cudaError_t launch_group(int which, int gn, const Params& p, dim3 grid,
                          size_t smem, cudaStream_t s) {
   switch (gn) {
-    case 16: return launch_gn<16>(which, p, grid, smem, s);
-    case 32: return launch_gn<32>(which, p, grid, smem, s);
-    case 48: return launch_gn<48>(which, p, grid, smem, s);
-    case 64: return launch_gn<64>(which, p, grid, smem, s);
-    case 80: return launch_gn<80>(which, p, grid, smem, s);
-    case 96: return launch_gn<96>(which, p, grid, smem, s);
-    case 112: return launch_gn<112>(which, p, grid, smem, s);
-    case 128: return launch_gn<128>(which, p, grid, smem, s);
+    case 16: return launch_gn<T16, 16>(which, p, grid, smem, s);
+    case 32: return launch_gn<T16, 32>(which, p, grid, smem, s);
+    case 48: return launch_gn<T16, 48>(which, p, grid, smem, s);
+    case 64: return launch_gn<T16, 64>(which, p, grid, smem, s);
+    case 80: return launch_gn<T16, 80>(which, p, grid, smem, s);
+    case 96: return launch_gn<T16, 96>(which, p, grid, smem, s);
+    case 112: return launch_gn<T16, 112>(which, p, grid, smem, s);
+    case 128: return launch_gn<T16, 128>(which, p, grid, smem, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-// bf16 dK/dV (which 0) or dQ (which 1) on the tensor cores, for
-// flash_attention_bwd.cu's launch(). Returns a cudaError_t.
-int mxt_flash_attention_bwd_sm90(int which, const void* q, const void* k,
-                                 const void* v, const void* dout,
-                                 const void* lse, const void* dd, void* dq,
-                                 void* dk, void* dv, int bh, int tq, int tk,
-                                 int d, float scale, int causal,
-                                 void* stream) {
-  Params p;
-  const void* x[4] = {q, k, v, dout};
-  bool aligned = true;
-  for (int i = 0; i < 4; ++i) {
-    p.x[i] = static_cast<const __nv_bfloat16*>(x[i]);
-    aligned = aligned && reinterpret_cast<uintptr_t>(x[i]) % 16 == 0;
-  }
-  p.lse = static_cast<const float*>(lse);
-  p.dd = static_cast<const float*>(dd);
-  p.dq = static_cast<__nv_bfloat16*>(dq);
-  p.dk = static_cast<__nv_bfloat16*>(dk);
-  p.dv = static_cast<__nv_bfloat16*>(dv);
-  p.tq = tq;
-  p.tk = tk;
-  p.d = d;
-  p.causal = causal;
-  p.scale = scale;
-  p.use_tma = d % 8 == 0 && aligned;
+template <typename T16>
+int launch_all(int which, Params& p, int bh, int tq, int tk, int d,
+               cudaStream_t s) {
   if (p.use_tma)
     for (int i = 0; i < 4; ++i) {
       const int t = (i == 1 || i == 2) ? tk : tq;
-      cudaError_t err = tensor_map(&p.tm[i], x[i], bh, t, d);
+      cudaError_t err = tensor_map<T16>(&p.tm[i], p.x[i], bh, t, d);
       if (err != cudaSuccess) return (int)err;
     }
   const int d64 = (d + 63) / 64 * 64;
@@ -744,21 +452,58 @@ int mxt_flash_attention_bwd_sm90(int which, const void* q, const void* k,
   const int full_groups = d / GROUP, rest = d - full_groups * GROUP;
   if (blocks > 0x7fffffffLL || full_groups > 65535)
     return (int)cudaErrorInvalidConfiguration;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (full_groups > 0) {
     p.group0 = 0;
-    cudaError_t err = launch_group(which, GROUP, p,
-                                   dim3((unsigned)blocks, full_groups), smem,
-                                   s);
+    cudaError_t err = launch_group<T16>(
+        which, GROUP, p, dim3((unsigned)blocks, full_groups), smem, s);
     if (err != cudaSuccess) return (int)err;
   }
   if (rest > 0) {
     p.group0 = full_groups;
-    cudaError_t err = launch_group(which, (rest + 15) / 16 * 16, p,
-                                   dim3((unsigned)blocks, 1), smem, s);
+    cudaError_t err = launch_group<T16>(which, (rest + 15) / 16 * 16, p,
+                                        dim3((unsigned)blocks, 1), smem, s);
     if (err != cudaSuccess) return (int)err;
   }
   return 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// 16-bit dK/dV (which 0) or dQ (which 1) on the tensor cores, for
+// flash_attention_bwd.cu's launch(); dtype 1 bfloat16, 2 float16. Returns
+// a cudaError_t.
+int mxt_flash_attention_bwd_sm90(int which, const void* q, const void* k,
+                                 const void* v, const void* dout,
+                                 const void* lse, const void* dd, void* dq,
+                                 void* dk, void* dv, int bh, int tq, int tk,
+                                 int d, float scale, int causal, int dtype,
+                                 void* stream) {
+  Params p;
+  const void* x[4] = {q, k, v, dout};
+  bool aligned = true;
+  for (int i = 0; i < 4; ++i) {
+    p.x[i] = static_cast<const uint16_t*>(x[i]);
+    aligned = aligned && reinterpret_cast<uintptr_t>(x[i]) % 16 == 0;
+  }
+  p.lse = static_cast<const float*>(lse);
+  p.dd = static_cast<const float*>(dd);
+  p.dq = dq;
+  p.dk = dk;
+  p.dv = dv;
+  p.tq = tq;
+  p.tk = tk;
+  p.d = d;
+  p.causal = causal;
+  p.scale = scale;
+  p.use_tma = d % 8 == 0 && aligned;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 1: return launch_all<__nv_bfloat16>(which, p, bh, tq, tk, d, s);
+    case 2: return launch_all<__half>(which, p, bh, tq, tk, d, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

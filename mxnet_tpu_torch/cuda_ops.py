@@ -9,11 +9,13 @@ rejected. Both are differentiable through one `torch.autograd.Function`,
 the counterpart of the custom VJPs `_flash` and `_flash_lse`: its
 forward is the forward kernel (`csrc/flash_attention.cu`), its backward
 the dK/dV and dQ kernels, and the lse is differentiable, its cotangent
-folding into D = rowsum(dO * O) - glse. The backward dispatches by dtype
-inside the library: bfloat16 runs on the tensor cores
-(`csrc/flash_attention_bwd_sm90.cu`: wgmma, TMA, mbarriers), float32 on
-the FMA kernels (`csrc/flash_attention_bwd.cu`), since TF32 would fail
-the float32 gradient tolerance. The kernels take any length and any
+folding into D = rowsum(dO * O) - glse. Both directions dispatch by
+dtype inside the library: bfloat16 and float16 run on the tensor cores
+(`csrc/flash_attention_sm90.cu` forward and
+`csrc/flash_attention_bwd_sm90.cu` backward: wgmma, TMA, mbarriers),
+float32 on the FMA kernels (`csrc/flash_attention.cu`,
+`csrc/flash_attention_bwd.cu`), since TF32 would fail the float32
+tolerances. The kernels take any length and any
 head_dim, so the JAX package's tiling limits
 (`_fit_block`, the dense forward fallback, the `_blocked_backward` XLA
 fallback) have no counterpart here.
@@ -21,7 +23,9 @@ fallback) have no counterpart here.
 Dispatch is by the tensors' device: CPU tensors take the plain PyTorch
 versions (`flash_attention_reference`, `flash_attention_bwd_reference`);
 CUDA tensors launch the kernels or raise. There is no fallback from one
-to the other.
+to the other, nor from a 16-bit kernel to the FMA ones.
+`flash_attention_online_reference` is the plain version of the 16-bit
+forward's own recurrence, which the kernel is held to on the card.
 """
 import math
 
@@ -36,7 +40,9 @@ FLASH_FWD_LAUNCHES = 0
 FLASH_BWD_DKDV_LAUNCHES = 0
 FLASH_BWD_DQ_LAUNCHES = 0
 
-_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the library's dtype codes: float32 on the FMA kernels, bfloat16 and
+# float16 on the tensor-core ones
+_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def _validate_attn_shapes(q, k, v, causal, fn):
@@ -92,6 +98,46 @@ def flash_attention_reference(q, k, v, causal=False, scale=None):
     out = torch.einsum('bhqk,bhkd->bhqd', torch.exp(s - lse[..., None]),
                        v.to(s.dtype)).to(q.dtype)
     return out, lse.reshape(b * h, tq, 1)
+
+
+def flash_attention_online_reference(q, k, v, causal=False, scale=None,
+                                     block_k=64):
+    """Plain PyTorch version of the forward's recurrence
+    (pallas_ops._online_softmax_step over key tiles of `block_k`, then
+    out = acc / l and lse = m + log l): s in the summing type times
+    scale, the suffix-aligned causal mask, a running max m and sum l, p
+    rounded to v's dtype before acc += p v while l sums p unrounded. The
+    16-bit forward kernel is held to it at its tile of 64 keys; the dense
+    `flash_attention_reference` never rounds p. Returns (out, lse) as
+    `flash_attention_reference` does."""
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    acc_t = _acc_dtype(q.dtype)
+    qa = q.to(acc_t)
+    m = torch.full((b, h, tq, 1), float('-inf'), dtype=acc_t,
+                   device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, h, tq, v.shape[-1]), dtype=acc_t, device=q.device)
+    rows = torch.arange(tq, device=q.device)[:, None] + (tk - tq)
+    for k0 in range(0, tk, block_k):
+        kt, vt = k[:, :, k0:k0 + block_k], v[:, :, k0:k0 + block_k]
+        s = torch.einsum('bhqd,bhkd->bhqk', qa, kt.to(acc_t)) * scale
+        if causal:
+            cols = torch.arange(k0, k0 + kt.shape[2], device=q.device)
+            s = s.masked_fill(rows < cols[None, :], float('-inf'))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        # a row with no live key yet keeps m = -inf: exp(-inf - 0) = 0
+        m_use = m_new.masked_fill(m_new == float('-inf'), 0.0)
+        corr = torch.exp(m - m_use)
+        p = torch.exp(s - m_use)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + torch.einsum(
+            'bhqk,bhkd->bhqd', p.to(v.dtype).to(acc_t), vt.to(acc_t))
+        m = m_new
+    out = (acc / l).to(q.dtype)
+    return out, (m + torch.log(l)).reshape(b * h, tq, 1)
 
 
 def attention_bwd_delta(o, do, glse=None):
@@ -158,8 +204,8 @@ def flash_attention_bwd_reference(q, k, v, o, lse, do, glse=None,
 
 def _check_kernel_inputs(q, k, v, what):
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _KERNEL_DTYPES:
-        raise TypeError('%s kernel takes float32 or bfloat16 q, k, v of '
-                        'one dtype; got %s, %s, %s'
+        raise TypeError('%s kernel takes float32 or bfloat16 or float16 q, '
+                        'k, v of one dtype; got %s, %s, %s'
                         % (what, q.dtype, k.dtype, v.dtype))
     b, h, tq, d = q.shape
     if b * h == 0 or tq == 0 or k.shape[2] == 0 or d == 0:
@@ -179,7 +225,10 @@ def _launch(entry, what, *args, device):
 
 def _flash_fwd_cuda(q, k, v, causal, scale):
     """Forward kernel on contiguous (batch, heads, seq, head_dim) CUDA
-    tensors: (out, lse (batch*heads, q_len, 1) float32)."""
+    tensors: (out, lse (batch*heads, q_len, 1) float32). bfloat16 and
+    float16 run on the tensor-core kernel (`flash_fwd_sm90`), float32 on
+    the FMA one; the library raises, never falls back, if the one for the
+    dtype does not launch."""
     global FLASH_FWD_LAUNCHES
     _check_kernel_inputs(q, k, v, 'flash attention')
     b, h, tq, d = q.shape

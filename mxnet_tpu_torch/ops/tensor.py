@@ -21,12 +21,68 @@ def _dtype(attrs, default=torch.float32):
     return default if d is None else torch_dtype(d)
 
 
+_UNSIGNED = (torch.uint8, torch.uint16, torch.uint32)
+
+
 def _int_sum_dtype(dtype):
     """The dtype of a sum or product: the JAX package (x64 off) sums
-    integers in int32, where torch would take int64."""
+    integers in int32, unsigned ones in uint32, where torch would take
+    int64."""
     if dtype.is_floating_point or dtype == torch.int64:
         return None
-    return torch.int32
+    return torch.uint32 if dtype in _UNSIGNED else torch.int32
+
+
+def _int_summed(fn, x, **kw):
+    """fn(x, dtype=..., **kw) in `_int_sum_dtype`. torch sums in no
+    uint32, so an unsigned sum or product runs in int64 and keeps its low
+    32 bits, which are the uint32 result."""
+    dt = _int_sum_dtype(x.dtype)
+    if dt == torch.uint32:
+        return fn(x, dtype=torch.int64, **kw).to(torch.uint32)
+    return fn(x, dtype=dt, **kw)
+
+
+def _inexact(fn):
+    """fn on integer operands taken as float32, as jnp promotes them for
+    an inexact function (hypot, rint)."""
+    def _fn(*ts):
+        return fn(*[t if not isinstance(t, torch.Tensor) or
+                    t.is_floating_point() else t.to(torch.float32)
+                    for t in ts])
+    return _fn
+
+
+def _int_pow(x, e):
+    """x ** e for integer x and e as jnp.power computes it: binary
+    exponentiation over the low 6 bits of e, wrapping, so that a negative
+    or large exponent gives jnp's bits; 0 ** e is 0 for e != 0."""
+    acc = torch.where((x == 0) & (e != 0), torch.zeros_like(x),
+                      torch.ones_like(x))
+    e = e.to(acc.dtype)
+    for _ in range(6):
+        acc = torch.where((e & 1) != 0, acc * x, acc)
+        x = x * x
+        e = e >> 1 if e.dtype in _UNSIGNED else \
+            (e >> 1) & torch.iinfo(e.dtype).max
+    return acc
+
+
+def _pow(x, e):
+    """torch.pow, with integer ** integer as `_int_pow`."""
+    if x.is_floating_point() or e.is_floating_point():
+        return torch.pow(x, e)
+    return _int_pow(*torch.broadcast_tensors(x, e))
+
+
+def _mod(x, d):
+    """torch.remainder, with an integer remainder by 0 giving 0 as jnp's
+    does (torch raises, or on the card returns garbage)."""
+    if x.is_floating_point() or d.is_floating_point():
+        return torch.remainder(x, d)
+    zero = d == 0
+    return torch.where(zero, torch.zeros((), dtype=x.dtype, device=x.device),
+                       torch.remainder(x, torch.where(zero, 1, d)))
 
 
 # ---------------------------------------------------------------------------
@@ -44,11 +100,11 @@ _reg_binary('elemwise_add', torch.add, aliases=('_add', '_plus', '_Plus'))
 _reg_binary('elemwise_sub', torch.sub, aliases=('_sub', '_minus', '_Minus'))
 _reg_binary('elemwise_mul', torch.mul, aliases=('_mul', '_Mul'))
 _reg_binary('elemwise_div', torch.true_divide, aliases=('_div', '_Div'))
-_reg_binary('_power', torch.pow, aliases=('_Power',))
+_reg_binary('_power', _pow, aliases=('_Power',))
 _reg_binary('_maximum', torch.maximum, aliases=('_Maximum', 'maximum'))
 _reg_binary('_minimum', torch.minimum, aliases=('_Minimum', 'minimum'))
-_reg_binary('_hypot', torch.hypot)
-_reg_binary('_mod', torch.remainder, aliases=('_Mod',))
+_reg_binary('_hypot', _inexact(torch.hypot))
+_reg_binary('_mod', _mod, aliases=('_Mod',))
 
 _COMPARE = [('equal', torch.eq), ('not_equal', torch.ne),
             ('greater', torch.gt), ('greater_equal', torch.ge),
@@ -84,16 +140,15 @@ _reg_scalar('_rminus_scalar', lambda x, s: s - x)
 _reg_scalar('_mul_scalar', torch.mul)
 _reg_scalar('_div_scalar', torch.true_divide)
 _reg_scalar('_rdiv_scalar', lambda x, s: s / x)
-_reg_scalar('_power_scalar', torch.pow)
-_reg_scalar('_rpower_scalar', lambda x, s: torch.pow(s, x))
+_reg_scalar('_power_scalar', lambda x, s: _pow(x, torch.full_like(x, s)))
+_reg_scalar('_rpower_scalar', lambda x, s: _pow(torch.full_like(x, s), x))
 _reg_scalar('_maximum_scalar', lambda x, s: torch.clamp(x, min=s))
 _reg_scalar('_minimum_scalar', lambda x, s: torch.clamp(x, max=s))
-_reg_scalar('_mod_scalar', torch.remainder)
+_reg_scalar('_mod_scalar', lambda x, s: _mod(x, torch.full_like(x, s)))
 # remainder(Scalar, Tensor) has no derivative in torch; the tensor form
 # has, so the scalar is filled out first
-_reg_scalar('_rmod_scalar',
-            lambda x, s: torch.remainder(torch.full_like(x, s), x))
-_reg_scalar('_hypot_scalar', lambda x, s: torch.hypot(
+_reg_scalar('_rmod_scalar', lambda x, s: _mod(torch.full_like(x, s), x))
+_reg_scalar('_hypot_scalar', lambda x, s: _inexact(torch.hypot)(
     x, torch.full((), s, dtype=x.dtype, device=x.device)))
 for _n, _f in _COMPARE:
     _reg_scalar('_%s_scalar' % _n, lambda x, s, _f=_f: _f(x, s).to(x.dtype))
@@ -118,7 +173,7 @@ def _cbrt(x):
 _UNARY = {
     'negative': torch.neg, 'reciprocal': torch.reciprocal,
     'abs': torch.abs, 'sign': torch.sign, 'round': torch.round,
-    'rint': torch.round, 'ceil': torch.ceil, 'floor': torch.floor,
+    'rint': _inexact(torch.round), 'ceil': torch.ceil, 'floor': torch.floor,
     'trunc': torch.trunc, 'fix': torch.trunc,
     'square': torch.square, 'sqrt': torch.sqrt,
     'rsqrt': lambda x: 1.0 / torch.sqrt(x),
@@ -227,11 +282,11 @@ for _n, _f in [('broadcast_add', torch.add), ('broadcast_plus', torch.add),
                ('broadcast_sub', torch.sub), ('broadcast_minus', torch.sub),
                ('broadcast_mul', torch.mul),
                ('broadcast_div', torch.true_divide),
-               ('broadcast_mod', torch.remainder),
-               ('broadcast_power', torch.pow),
+               ('broadcast_mod', _mod),
+               ('broadcast_power', _pow),
                ('broadcast_maximum', torch.maximum),
                ('broadcast_minimum', torch.minimum),
-               ('broadcast_hypot', torch.hypot)]:
+               ('broadcast_hypot', _inexact(torch.hypot))]:
     _reg_broadcast(_n, _f)
 
 for _n, _f in _COMPARE:
@@ -291,8 +346,7 @@ def _over_last(fn, data, axes, keepdims):
 def _sum(x, axes, keepdims):
     if not axes:
         return x.clone()
-    return torch.sum(x, dim=axes, keepdim=keepdims,
-                     dtype=_int_sum_dtype(x.dtype))
+    return _int_summed(torch.sum, x, dim=axes, keepdim=keepdims)
 
 
 def _mean(x, axes, keepdims):
@@ -302,12 +356,13 @@ def _mean(x, axes, keepdims):
 
 
 def _prod(x, axes, keepdims):
-    dt = _int_sum_dtype(x.dtype)
-    return _over_last(lambda t, dim: torch.prod(t, dim=dim, dtype=dt), x,
+    return _over_last(lambda t, dim: _int_summed(torch.prod, t, dim=dim), x,
                       axes, keepdims)
 
 
 def _nansum(x, axes, keepdims):
+    if not x.is_floating_point():
+        return _sum(x, axes, keepdims)
     if not axes:
         return torch.nan_to_num(x, nan=0.0)
     return torch.nansum(x, dim=axes, keepdim=keepdims)
@@ -666,9 +721,32 @@ def _take(attrs, a, indices):
     return _take_along(a, idx, axis)
 
 
+def _fill_value(dtype):
+    """What jnp's gather gives past the end: NaN for a float, the most
+    negative value of a signed integer, the largest of an unsigned one."""
+    if dtype.is_floating_point:
+        return float('nan')
+    if dtype == torch.bool:
+        return True
+    info = torch.iinfo(dtype)
+    return info.max if dtype in _UNSIGNED else info.min
+
+
+def _take_filled(data, idx, axis):
+    """torch.gather(data, axis, idx) as jnp.take_along_axis reads it: an
+    index -n <= i < 0 counts from the end, and one out of [-n, n) gives
+    `_fill_value`. All on the device: no host sync, no device assert."""
+    n = data.shape[axis]
+    idx = torch.where(idx < 0, idx + n, idx)
+    inside = (idx >= 0) & (idx < n)
+    out = torch.gather(data, axis, idx.clamp(0, max(n - 1, 0)))
+    return torch.where(inside, out, torch.full(
+        (), _fill_value(data.dtype), dtype=data.dtype, device=data.device))
+
+
 @register('batch_take', input_names=('a', 'indices'))
 def _batch_take(attrs, a, indices):
-    return torch.gather(a, 1, _as_index(indices)[:, None])[:, 0]
+    return _take_filled(a, _as_index(indices)[:, None], 1)[:, 0]
 
 
 @register('pick', input_names=('data', 'index'))
@@ -678,7 +756,7 @@ def _pick(attrs, data, index):
     axis = normalize_axis(parse_attr_value(attrs.get('axis', -1)),
                           data.ndim)
     keepdims = asbool(attrs.get('keepdims', False))
-    out = torch.gather(data, axis, _as_index(index).unsqueeze(axis))
+    out = _take_filled(data, _as_index(index).unsqueeze(axis), axis)
     return out if keepdims else torch.squeeze(out, dim=axis)
 
 
@@ -708,21 +786,46 @@ def _where(attrs, condition, x, y):
     return torch.where(cond, x, y)
 
 
-def _nd_index(indices):
+def _nd_index(indices, shape):
+    """The rows of an index array over the leading dims of `shape`, each
+    with -n <= i < 0 counted from the end, and whether each position is
+    inside [0, n) in every dim."""
     idx = _as_index(indices)
-    return tuple(idx[i] for i in range(idx.shape[0]))
+    rows, inside = [], True
+    for i, n in enumerate(shape[:idx.shape[0]]):
+        r = torch.where(idx[i] < 0, idx[i] + n, idx[i])
+        inside = inside & (r >= 0) & (r < n)
+        rows.append(r)
+    return rows, inside
 
 
 @register('gather_nd', input_names=('data', 'indices'))
 def _gather_nd(attrs, data, indices):
-    return data[_nd_index(indices)]
+    """data[indices], an index out of range clamped to the edge, as jnp's
+    indexing reads it."""
+    rows, _ = _nd_index(indices, data.shape)
+    return data[tuple(r.clamp(0, max(n - 1, 0))
+                      for r, n in zip(rows, data.shape))]
+
+
+def _scatter(attrs, data, indices, accumulate):
+    """zeros(shape) with data put at indices, as jnp's .at[] does: an
+    update out of range is dropped. Each dropped update goes to one extra
+    slot past the end of every indexed dim, which is sliced off: no host
+    sync."""
+    shape = astuple(attrs['shape'])
+    rows, inside = _nd_index(indices, shape)
+    m = len(rows)
+    out = torch.zeros([n + 1 for n in shape[:m]] + list(shape[m:]),
+                      dtype=data.dtype, device=data.device)
+    rows = tuple(torch.where(inside, r, n) for r, n in zip(rows, shape))
+    out = out.index_put(rows, data, accumulate=accumulate)
+    return out[tuple(slice(0, n) for n in shape[:m])].clone()
 
 
 @register('scatter_nd', input_names=('data', 'indices'))
 def _scatter_nd(attrs, data, indices):
-    out = torch.zeros(astuple(attrs['shape']), dtype=data.dtype,
-                      device=data.device)
-    return out.index_put(_nd_index(indices), data)
+    return _scatter(attrs, data, indices, accumulate=False)
 
 
 @register('_backward_gather_nd', input_names=('data', 'indices'),
@@ -730,9 +833,7 @@ def _scatter_nd(attrs, data, indices):
 def _backward_gather_nd(attrs, data, indices):
     """Accumulating scatter (the reference's gather_nd gradient):
     duplicate indices add instead of scatter_nd's undefined last-wins."""
-    out = torch.zeros(astuple(attrs['shape']), dtype=data.dtype,
-                      device=data.device)
-    return out.index_put(_nd_index(indices), data, accumulate=True)
+    return _scatter(attrs, data, indices, accumulate=True)
 
 
 # ---------------------------------------------------------------------------
@@ -772,8 +873,11 @@ def _topk(attrs, data):
     if axis is None:
         data, axis = data.reshape(-1), 0
     axis = normalize_axis(axis, data.ndim)
-    vals, idx = torch.topk(data, k, dim=axis, largest=not is_ascend,
-                           sorted=True)
+    # a stable sort narrowed to k: among equal values the lower index
+    # comes first, as in jax.lax.top_k (torch.topk breaks ties otherwise)
+    vals, idx = torch.sort(data, dim=axis, descending=not is_ascend,
+                           stable=True)
+    vals, idx = vals.narrow(axis, 0, k), idx.narrow(axis, 0, k)
     if ret_typ == 'value':
         return vals
     if ret_typ == 'indices':

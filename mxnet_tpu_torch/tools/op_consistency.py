@@ -12,6 +12,11 @@ where a sum, product or divisor must stay away from 0, in (-0.9, 0.9)
 for arcsin, on a grid of quarters where comparisons need ties, and so
 on. Index arrays are float32, as the JAX package takes them.
 
+`VARIANTS` holds further cases of some ops, run beside `CASES`: `topk`
+on integer-valued inputs full of ties, in both directions, at k = 1, 3
+and 7, for each `ret_typ`, and each index op with indices that count
+from the end (-1) and that run past it (>= n).
+
 Tolerances: data movement, selections and integer results are exact;
 elementwise float math rtol 1e-5, atol 1e-6 (the two devices' libm
 differ by a few ulp); reductions and products rtol 1e-4, on positive
@@ -50,6 +55,12 @@ def inputs(kinds, n, rng):
         'mask': lambda: (rng.random((n, n)) < 0.5).astype(np.float32),
         'idx': lambda: rng.integers(0, n, (n,)).astype(np.float32),
         'idx_out': lambda: rng.integers(-2, n + 2, (n,)).astype(np.float32),
+        'idx_wrap': lambda: rng.integers(-n - 2, n + 2, (n,))
+        .astype(np.float32),
+        'nd_idx_out': lambda: rng.integers(-n - 2, n + 2, (2, n))
+        .astype(np.float32),
+        'nd_perm_out': lambda: _perm_out(n, rng),
+        'ties': lambda: rng.integers(0, 4, (n, n)).astype(np.float32),
         'nd_idx': lambda: rng.integers(0, n, (2, n)).astype(np.float32),
         'nd_perm': lambda: np.stack([np.arange(n), rng.permutation(n)])
         .astype(np.float32),
@@ -61,6 +72,19 @@ def inputs(kinds, n, rng):
         'nchw16': lambda: uni(-1, 1, (1, 16, n // 2, n // 2)),
     }
     return [make[k]() for k in kinds]
+
+
+def _perm_out(n, rng):
+    """(2, n) indices into an n x n array that hit no position twice:
+    rows 0..n-1 against a permutation of the columns, two of them written
+    as the equal row - n (counted from the end), one column moved past
+    the end and one row before -n (both dropped by a scatter)."""
+    idx = np.stack([np.arange(n), rng.permutation(n)])
+    at = rng.choice(n, 4, replace=False)
+    idx[0, at[:2]] -= n
+    idx[1, at[2]] += n
+    idx[0, at[3]] = -n - 1
+    return idx.astype(np.float32)
 
 
 def _cases():
@@ -190,6 +214,31 @@ def _cases():
 
 CASES = _cases()
 
+
+def _variants():
+    v = {}
+    for asc in (False, True):
+        for k in (1, 3, 7):
+            for ret in ('indices', 'mask', 'both'):
+                v['topk/%s/k%d/%s' % ('asc' if asc else 'desc', k, ret)] = (
+                    'topk', ('ties',), dict(axis=1, k=k, ret_typ=ret,
+                                            is_ascend=asc), EXACT)
+    v['pick/out_of_range'] = ('pick', ('m', 'idx_wrap'), dict(axis=1), EXACT)
+    v['batch_take/out_of_range'] = ('batch_take', ('m', 'idx_wrap'), {},
+                                    EXACT)
+    v['gather_nd/out_of_range'] = ('gather_nd', ('m', 'nd_idx_out'), {},
+                                   EXACT)
+    v['scatter_nd/out_of_range'] = ('scatter_nd', ('vec', 'nd_perm_out'),
+                                    dict(shape=None), EXACT)
+    v['scatter_nd_acc/out_of_range'] = ('scatter_nd_acc',
+                                        ('vec', 'nd_idx_out'),
+                                        dict(shape=None), FLOAT)
+    return v
+
+
+# name -> (op, input kinds, attrs, tolerance class)
+VARIANTS = _variants()
+
 # attrs that take the size n: name of the attr -> its value for size n
 _SIZED = {'size': lambda n: n, 'input_dim': lambda n: n,
           'output_dim': lambda n: n, 'depth': lambda n: n,
@@ -198,10 +247,16 @@ _SIZED = {'size': lambda n: n, 'input_dim': lambda n: n,
           'end': lambda n: (1 + n // 2, 2 + n // 2)}
 
 
+def op_of(name):
+    """The op that case `name` (of CASES or VARIANTS) runs."""
+    return VARIANTS[name][0] if name in VARIANTS else name
+
+
 def case(name, n, seed=0):
-    """(numpy inputs, attrs, tolerance class) of op `name` at size n,
-    from a generator seeded by seed and the name."""
-    kinds, attrs, tol = CASES[name]
+    """(numpy inputs, attrs, tolerance class) of case `name` (of CASES or
+    VARIANTS) at size n, from a generator seeded by seed and the name."""
+    kinds, attrs, tol = VARIANTS[name][1:] if name in VARIANTS \
+        else CASES[name]
     rng = np.random.default_rng([seed, zlib.crc32(name.encode())])
     attrs = {k: (_SIZED[k](n) if v is None else v) for k, v in attrs.items()}
     return inputs(kinds, n, rng), attrs, tol
@@ -243,17 +298,18 @@ def mismatch(got, ref, tol):
 
 
 def run(nd, ctx_a, ctx_b, n, seed=0):
-    """Every CASES op on ctx_a and ctx_b from the same inputs; returns
-    (count run, {name: mismatch})."""
+    """Every case of CASES and VARIANTS on ctx_a and ctx_b from the same
+    inputs; returns (count run, {name: mismatch})."""
     bad = {}
-    names = sorted(CASES)
+    names = sorted(CASES) + sorted(VARIANTS)
     for name in names:
         arrays, attrs, tol = case(name, n, seed)
         outs = []
         for ctx in (ctx_a, ctx_b):
             with ctx:
                 xs = [nd.array(a, ctx=ctx) for a in arrays]
-                outs.append([o.asnumpy() for o in call(nd, name, xs, attrs)])
+                outs.append([o.asnumpy() for o in call(nd, op_of(name), xs,
+                                                       attrs)])
         for got, ref in zip(*outs):
             why = mismatch(got, ref, tol)
             if why:

@@ -72,6 +72,83 @@ def test_op_matches_jax(name):
         assert why is None, why
 
 
+@pytest.mark.parametrize('name', sorted(oc.VARIANTS))
+def test_op_variant_matches_jax(name):
+    """topk on ties in both directions, at k 1, 3 and 7 and every
+    ret_typ; each index op with indices -n <= i < 0 and past the end."""
+    arrays, attrs, tol = oc.case(name, N)
+    op = oc.op_of(name)
+    got = oc.call(nd, op, [nd.array(a) for a in arrays], attrs)
+    ref = oc.call(jnd, op, [jnd.array(a) for a in arrays], attrs)
+    assert len(got) == len(ref)
+    for g, r in zip(got, ref):
+        why = oc.mismatch(g.asnumpy(), r.asnumpy(), CPU_TOL[tol])
+        assert why is None, why
+
+
+def test_topk_breaks_ties_as_jax():
+    x = np.array([[1, 2, 2, 0, 2, 1], [3, 3, 1, 3, 0, 0]], np.float32)
+    for kw in (dict(k=3, ret_typ='both'), dict(k=2, ret_typ='mask'),
+               dict(k=3, ret_typ='indices', is_ascend=True)):
+        got = nd.topk(nd.array(x), **kw)
+        ref = jnd.topk(jnd.array(x), **kw)
+        for g, r in zip(*(o if isinstance(o, list) else [o]
+                          for o in (got, ref))):
+            np.testing.assert_array_equal(g.asnumpy(), r.asnumpy())
+    np.testing.assert_array_equal(
+        nd.topk(nd.array(x), k=3).asnumpy(), [[1, 2, 4], [0, 1, 3]])
+
+
+def test_pick_counts_from_the_end_and_fills_past_it():
+    x = np.arange(12, dtype=np.float32).reshape(3, 4)
+    for idx, want in (([0, 1, -1], [0, 5, 11]), ([0, 1, 4], [0, 5, np.nan]),
+                      ([-4, -5, 2], [0, np.nan, 10])):
+        got = nd.pick(nd.array(x), nd.array(idx), axis=1).asnumpy()
+        ref = jnd.pick(jnd.array(x), jnd.array(idx), axis=1).asnumpy()
+        np.testing.assert_array_equal(got, ref)
+        np.testing.assert_array_equal(got, want)
+
+
+def _integer_inputs(name, dtype):
+    """The case's inputs as integers of `dtype`: index arrays keep their
+    values (clipped at 0 for uint8), the others are rounded after scaling
+    by 3, so that each domain (positive divisors, nonzero bases) holds,
+    NaN taken as 0, and taken in magnitude for uint8."""
+    arrays, attrs, tol = oc.case(name, N)
+    kinds = oc.CASES[name][0]
+    out = []
+    for kind, a in zip(kinds, arrays):
+        if 'idx' in kind or kind in ('nd_perm', 'mask'):
+            v = a if dtype == 'int32' else np.maximum(a, 0)
+        else:
+            v = np.rint(np.nan_to_num(a) * 3)
+            v = v if dtype == 'int32' else np.abs(v)
+        out.append(v.astype(dtype))
+    return out, attrs, tol
+
+
+@pytest.mark.parametrize('dtype', ['int32', 'uint8'])
+@pytest.mark.parametrize('name', TENSOR_NAMES)
+def test_op_matches_jax_at_integer_dtype(name, dtype):
+    """Result dtype and value of every op at int32 and uint8 inputs
+    against the JAX package's (sums in int32 or uint32, rint and hypot in
+    float32, integer powers and remainders by 0 as jnp computes them).
+    An op that JAX refuses at that dtype (sigmoid) has nothing to hold the
+    port to."""
+    arrays, attrs, tol = _integer_inputs(name, dtype)
+    try:
+        ref = oc.call(jnd, name, [jnd.array(a, dtype=dtype) for a in arrays],
+                      attrs)
+    except TypeError:
+        return
+    got = oc.call(nd, name, [nd.array(a, dtype=dtype) for a in arrays],
+                  attrs)
+    assert len(got) == len(ref)
+    for g, r in zip(got, ref):
+        why = oc.mismatch(g.asnumpy(), r.asnumpy(), CPU_TOL[tol])
+        assert why is None, why
+
+
 def _pair(seed=0, shape=(3, 4)):
     rs = np.random.RandomState(seed)
     a = (rs.rand(*shape) + 0.5).astype(np.float32)
