@@ -4,7 +4,7 @@
     python3 chip_smoke.py                      # every phase
     python3 chip_smoke.py --forward-case lm    # build, one case of phase 2
     python3 chip_smoke.py --backward-case lm   # build, one case of phase 4
-    python3 chip_smoke.py --conv-case main     # build, one case of phase 6
+    python3 chip_smoke.py --conv-case main     # build, cases of phase 6
     python3 chip_smoke.py --phases 7,8         # build, phases 7 and 8 only
     python3 chip_smoke.py --mutants            # phases 2, 4 and 6 against
                                                # broken kernels
@@ -12,9 +12,9 @@
 Phases, each of which exits non-zero on failure:
 
 1. build: compile every kernel from mxnet_tpu_torch/csrc with nvcc; the
-   SASS of every instance of the tensor-core kernels (SM90_KERNELS), in
-   bf16 and float16, must hold HGMMA, and ptxas must report no
-   serialised wgmma (C7520);
+   SASS of every instance of the tensor-core kernels (SM90_KERNELS: the
+   flash kernels in bf16 and float16, the conv in bf16) must hold HGMMA,
+   and ptxas must report no serialised wgmma (C7520);
 2. kernels: launch the forward kernel on the card at the LM's shapes in
    bf16 and float16 (and decode-shaped cases, a ragged float32 one,
    head_dim 192, a ragged head_dim 100 in both dtypes, and head_dim 320),
@@ -47,16 +47,18 @@ Phases, each of which exits non-zero on failure:
    must agree with plain attention's and which must launch each kernel
    once per layer; last, five float32 steps at full width and 4 layers
    on one batch, whose loss must fall;
-6. conv + BatchNorm statistics: the kernel against its plain version,
-   element by element, at the main ResNet-50 shape (3x3, 64 -> 64 at
-   56^2, batch 256, bf16), a strided 1x1, a ragged float32 case and a
-   stem-like 7x7 stride-2 one, and the same bits on a second run; the autograd Function's dx and dw
+6. conv + BatchNorm statistics: the kernels (bf16 on the tensor cores,
+   float32 on FMAs) against their plain version, element by element, at
+   the main ResNet-50 shape (3x3, 64 -> 64 at 56^2, batch 256, bf16), a
+   strided 1x1, a ragged float32 case and a stem-like 7x7 stride-2 one,
+   and the same bits on a second run; the autograd Function's dx and dw
    against the fold of the statistics' cotangents and the transposed
    convs on the plain version's y; then the bench path
    (mxnet_tpu_torch.tools.bench_conv_bn) over all 19 conv shapes of the
    ResNet-50 body at batch 256 in bf16, each of whose result calls must
-   launch the kernel once, timed beside its bound, its plain version and
-   cuDNN's conv with the statistics summed after it;
+   launch the kernel once, timed beside its bound, its plain version,
+   cuDNN's conv with the statistics summed after it, cuDNN's conv alone
+   and the Function's backward;
 7. the NDArray core: every op that mxnet_tpu_torch/ops/tensor.py
    registers (aliases included) runs once on gpu(0) and once on cpu(0)
    on the same seeded float32 inputs, n x n = 1024 x 1024 where it takes
@@ -81,11 +83,14 @@ needs a CUDA device and the repository beside it.
 
 --mutants builds each of FWD_MUTANTS and BWD_MUTANTS (a rounding left
 out, a tile skipped, the causal mask widened, the forward's running
-correction left out) and CONV_MUTANTS (a tap skipped, the padding one
-pixel off, one M tile's statistics left out) in a copy of the port
-under build/mutants/ and fails unless phase 2's LM case fails every
-forward mutant, phase 4's LM case every backward mutant, phase 6's main
-case every conv mutant, and the unchanged copy passes all three.
+correction left out), CONV_MUTANTS of the float32 kernel (a tap skipped,
+the padding one pixel off, one M tile's statistics left out) and
+CONV_SM90_MUTANTS of the bf16 one (a K step skipped, a tap's copy one
+pixel off, one tile's partials left out, y truncated) in a copy of the
+port under build/mutants/ and fails unless phase 2's LM case fails every
+forward mutant, phase 4's LM case every backward mutant, phase 6's
+ragged float32 case every FMA conv mutant, its bf16 main case every
+tensor-core conv mutant, and the unchanged copy passes all four.
 """
 import json
 import math
@@ -263,11 +268,17 @@ FWD_MUTANTS = {
     'fwd_mask_one_key_wide': ('(!p.causal || k <= q + offset));',
                               '(!p.causal || k <= q + offset + 1));'),
 }
-# the tensor-core kernels, every instance of which (bf16 and float16) must
-# hold tensor-core instructions (HGMMA) in its SASS
-SM90_KERNELS = ('flash_fwd_sm90', 'flash_bwd_dkdv_sm90', 'flash_bwd_dq_sm90')
-# a 16-bit type as it appears in a mangled instance name
+# the tensor-core kernels and the 16-bit types each is instantiated for,
+# every instance of which must hold tensor-core instructions (HGMMA) in its
+# SASS
+SM90_KERNELS = {'flash_fwd_sm90': ('bfloat16', 'float16'),
+                'flash_bwd_dkdv_sm90': ('bfloat16', 'float16'),
+                'flash_bwd_dq_sm90': ('bfloat16', 'float16'),
+                'conv_bn_stats_sm90': ('bfloat16',)}
+# a 16-bit type as it appears in a mangled instance name; the conv kernel
+# is templated on its tile width alone, so its instances name no type
 SM90_TYPES = {'bfloat16': '__nv_bfloat16', 'float16': '6__half'}
+SM90_UNTYPED = frozenset({'conv_bn_stats_sm90'})
 
 # phase 6: name -> (x NHWC, w HWIO, stride, pad, dtype): the main
 # ResNet-50 shape, a strided 1x1 of the ResNet-50 body, a ragged float32
@@ -297,14 +308,22 @@ CONV_GRAD_CASE = 'strided'
 CONV_Y_TOL = dict(rtol=2.0 ** -7, atol=0.0, atol_of_max=1e-3, differ=1e-2)
 CONV_F32_ORDERS = 2
 # s1 and s2 against the plain version's, relative to sum |y| and sum y^2
-# per channel: the kernel's longest chain of float32 additions (8 rows, 16
-# row groups, a 128-row tile's partials in 8 groups of up to 784 at
-# batch 256, 8 groups) is under 1,024 adds, so it lies within 2^-14 of
-# the exact sum on that scale, and the plain version's tree sums closer.
-# One 128-row tile of 802,816 left out moves s2 by about 1.6e-4 of it.
+# per channel. The longest chain of float32 additions behind a sum: in the
+# bf16 tensor-core kernel (csrc/conv_bn_stats_sm90.cu) a thread's 2 rows
+# (1 add), the lanes of its column (3), the 8 warps of the 128-row tile
+# (8); in the float32 FMA kernel (csrc/conv_bn_stats.cu) 8 rows, then 16
+# row groups; then, for both, the finalize kernel's 8 groups of up to 784
+# tiles at batch 256, and the 8 groups: at most 1 + 3 + 8 + 784 + 8 = 804
+# (bf16) or 8 + 16 + 784 + 8 = 816 (float32) adds, under 1,024, so each
+# lies within 1024 * 2^-24 = 2^-14 of the exact sum on that scale, and the
+# plain version's tree sums closer. One 128-row tile of 802,816 left out
+# moves s2 by about 1.6e-4 of it.
 CONV_STATS_RTOL = 2.0 ** -14
-# --mutants: edits of csrc/conv_bn_stats.cu, each of which phase 6's main
-# case must catch
+# --mutants: edits of csrc/conv_bn_stats.cu, the float32 (FMA) kernel and
+# the finalize both kernels share, each of which phase 6's ragged float32
+# case (CONV_FMA_MUTANT_CASE) must catch: a tap skipped, the padding one
+# pixel off, one M tile's partials left out of the second pass
+CONV_FMA_MUTANT_CASE = 'ragged_f32'
 CONV_MUTANTS = {
     'conv_tap_skipped': ('wi >= 0 && wi < s.w;',
                          'wi >= 0 && wi < s.w && tap != taps / 2;'),
@@ -314,6 +333,27 @@ CONV_MUTANTS = {
         'for (int b = g; b < m_tiles; b += FIN_GROUPS) {',
         'for (int b = g; b < m_tiles; b += FIN_GROUPS) {'
         ' if (b == m_tiles / 2) continue;'),
+}
+# --mutants: edits of csrc/conv_bn_stats_sm90.cu, the bf16 tensor-core
+# kernel, each of which phase 6's main case must catch: one K step's
+# products (the middle tap's) skipped, the middle tap's im2col copy one
+# pixel off along w, one M tile's partials left out (written as 0), y
+# rounded toward zero instead of to nearest in the 64-wide instance, the
+# main case's (in the 128-wide one too, the edit left ptxas short of
+# registers for the wgmma pipeline, C7511, which phase 1 refuses before
+# any case runs)
+CONV_SM90_MUTANTS = {
+    'sm90_k_step_skipped': (
+        'const int ksteps = (min(p.cin - c0, BK) + 15) / 16;',
+        'const int ksteps = (min(p.cin - c0, BK) + 15) / 16 * (it != nt / 2);'),
+    'sm90_tap_coordinate_off': (
+        'img, (uint16_t)dx,', 'img, (uint16_t)(dx + (tap == taps / 2)),'),
+    'sm90_partial_left_out': (
+        'for (int wp = 0; wp < WARPS; ++wp)',
+        'for (int wp = 0; wp < WARPS * (m_tile != p.m_tiles / 2); ++wp)'),
+    'sm90_y_truncated': ('pack2_rn<__nv_bfloat16>(v[0], v[1]);',
+                         '(BN == 128 ? pack2_rn<__nv_bfloat16>(v[0], v[1]) '
+                         ': ' + _TRUNCATE + 'v[0], v[1]));'),
 }
 
 ALL_PHASES = frozenset(range(2, 9))
@@ -548,9 +588,9 @@ def backward_flops_done(b, h, tq, tk, d, dtype_name, causal):
 
 def sass_check(lib_path, build_log):
     """Phase 1: the tensor-core kernels run on the tensor cores: every
-    instance of each of SM90_KERNELS, in each 16-bit type, in the built
-    library's SASS (cuobjdump -sass) holds HGMMA instructions, and ptxas
-    serialised no wgmma (warning C7520) in the build log."""
+    instance of each of SM90_KERNELS, in each of its 16-bit types, in the
+    built library's SASS (cuobjdump -sass) holds HGMMA instructions, and
+    ptxas serialised no wgmma (warning C7520) in the build log."""
     import os
     import shutil
     tool = shutil.which('cuobjdump') or os.path.join(
@@ -559,9 +599,10 @@ def sass_check(lib_path, build_log):
                           text=True, check=True, timeout=300).stdout
     functions = sass.split('Function : ')[1:]
     found = {}
-    for name in SM90_KERNELS:
+    for name, types in SM90_KERNELS.items():
         found[name] = {}
-        for dtype_name, mangled in SM90_TYPES.items():
+        for dtype_name in types:
+            mangled = '' if name in SM90_UNTYPED else SM90_TYPES[dtype_name]
             bodies = [f for f in functions
                       if name in f.split('\n', 1)[0] and
                       mangled in f.split('\n', 1)[0]]
@@ -1177,7 +1218,7 @@ def conv_phase(torch, cuda_ops, cuda_conv, bench_conv_bn):
     return dict(cases=cases, grad=grad, bench=bench)
 
 
-def conv_kernel_entry(conv):
+def conv_kernel_entry(conv, sass):
     """The conv_bn_stats entry of the kernels line: times at the main
     case's shape from the bench, errors from the cases."""
     xs, ws = CONV_CASES['main'][:2]
@@ -1194,7 +1235,15 @@ def conv_kernel_entry(conv):
              for c in conv['cases']]
     return dict(
         name='conv_bn_stats', route='cuda',
-        source='mxnet_tpu_torch/csrc/conv_bn_stats.cu',
+        source='mxnet_tpu_torch/csrc/conv_bn_stats_sm90.cu',
+        float32_source='mxnet_tpu_torch/csrc/conv_bn_stats.cu',
+        routes=dict(bfloat16='conv_bn_stats_sm90 (wgmma fed by TMA), '
+                             'csrc/conv_bn_stats_sm90.cu',
+                    float32='conv_bn_stats_kernel (fp32 FMA), '
+                            'csrc/conv_bn_stats.cu, which holds the C '
+                            'entry that routes by dtype and the finalize '
+                            'kernel both share'),
+        sass=sass['conv_bn_stats_sm90'],
         replaces='mxnet_tpu/pallas_conv.py:101',
         launches=bench['launches'],
         launches_by_path=dict(conv_bn_bench=bench['launches']),
@@ -1204,31 +1253,38 @@ def conv_kernel_entry(conv):
         bound_by=row['bound_by'], library_ms=row['library_ms'],
         library_call='cuDNN F.conv2d on channels-last tensors, then the '
                      'float32 sum and sum of squares of y per channel',
+        cudnn_ms=row['cudnn_ms'], backward_ms=row['backward_ms'],
+        tflops=row['tflops'],
         main_shape=dict(x=list(xs), w=list(ws), dtype='bfloat16'),
         totals=bench['totals'], grad_check=conv['grad']['errors'],
         cases=cases)
 
 
 def mutant_check(root):
-    """--mutants: build each of FWD_MUTANTS, BWD_MUTANTS and CONV_MUTANTS
-    in its own copy of the port under build/mutants/ and run there, all
-    at once, phase 2's LM case (a forward mutant), phase 4's LM case (a
-    backward mutant) or phase 6's main case (a conv mutant); each must
-    fail its case and the copy with no edit must pass all three. Times
+    """--mutants: build each of FWD_MUTANTS, BWD_MUTANTS, CONV_MUTANTS and
+    CONV_SM90_MUTANTS in its own copy of the port under build/mutants/ and
+    run there, all at once, phase 2's LM case (a forward mutant), phase
+    4's LM case (a backward mutant), phase 6's ragged float32 case (an FMA
+    conv mutant) or its bf16 main case (a tensor-core conv mutant); each
+    must fail its case and the copy with no edit must pass all four. Times
     from these runs mean nothing: they share the card."""
     import shutil
     base = root / 'build' / 'mutants'
     shutil.rmtree(base, ignore_errors=True)
     fwd = ('flash_attention_sm90.cu', ['--forward-case', 'lm'])
     bwd = ('flash_attention_bwd_sm90.cu', ['--backward-case', 'lm'])
-    conv = ('conv_bn_stats.cu', ['--conv-case', 'main'])
-    plan = [('unchanged', None, None, fwd[1] + bwd[1] + conv[1])]
+    conv = ('conv_bn_stats.cu', ['--conv-case', CONV_FMA_MUTANT_CASE])
+    sm90 = ('conv_bn_stats_sm90.cu', ['--conv-case', 'main'])
+    plan = [('unchanged', None, None,
+             fwd[1] + bwd[1] + conv[1] + sm90[1][1:])]
     plan += [(name, edit, fwd[0], fwd[1])
              for name, edit in FWD_MUTANTS.items()]
     plan += [(name, edit, bwd[0], bwd[1])
              for name, edit in BWD_MUTANTS.items()]
     plan += [(name, edit, conv[0], conv[1])
              for name, edit in CONV_MUTANTS.items()]
+    plan += [(name, edit, sm90[0], sm90[1])
+             for name, edit in CONV_SM90_MUTANTS.items()]
     runs = []
     for name, edit, source, case in plan:
         copy = base / name
@@ -1270,7 +1326,7 @@ def mutant_check(root):
                     for g, e in row['errors'].items()})
             elif line.startswith('conv case '):
                 row = json.loads(line[len('conv case '):])
-                errors.update(y={k: row['y'][k] for k in (
+                errors.update(case=row['case'], y={k: row['y'][k] for k in (
                     'max_abs_err', 'over_tol', 'share_differ')},
                     s1=row['s1']['rel_err'], s2=row['s2']['rel_err'])
         failed_check = rc == 1 and 'disagrees with its plain' in text
@@ -1283,9 +1339,11 @@ def mutant_check(root):
     if wrong:
         fail('mutant check: ' + '\n'.join(wrong))
     print('mutants: all %d forward mutants caught by phase 2\'s LM case, '
-          'all %d backward mutants by phase 4\'s and all %d conv mutants '
-          'by the main conv case; the unchanged copy passes all three'
-          % (len(FWD_MUTANTS), len(BWD_MUTANTS), len(CONV_MUTANTS)))
+          'all %d backward mutants by phase 4\'s, all %d FMA conv mutants '
+          'by the %s conv case and all %d tensor-core conv mutants by the '
+          'main one; the unchanged copy passes all four'
+          % (len(FWD_MUTANTS), len(BWD_MUTANTS), len(CONV_MUTANTS),
+             CONV_FMA_MUTANT_CASE, len(CONV_SM90_MUTANTS)))
 
 
 def lm_variant_check(torch, cuda_ops, tfm, request, widths, dtype, seed,
@@ -1578,7 +1636,8 @@ def main(argv=None):
     parser.add_argument('--backward-case', choices=sorted(BWD_CASES),
                         help='build, then run only this case of phase 4')
     parser.add_argument('--conv-case', choices=sorted(CONV_CASES),
-                        help='build, then run only this case of phase 6')
+                        nargs='+',
+                        help='build, then run only these cases of phase 6')
     parser.add_argument('--phases', type=lambda v: {int(p) for p in
                                                     v.split(',')},
                         default=ALL_PHASES,
@@ -1636,8 +1695,8 @@ def main(argv=None):
                         getattr(torch, dtype_name), True, iters)
         if args.backward_case:
             backward_phase(torch, cuda_ops, [args.backward_case])
-        if args.conv_case:
-            conv_case(torch, cuda_conv, args.conv_case)
+        for name in args.conv_case or ():
+            conv_case(torch, cuda_conv, name)
         return
 
     # 2. each kernel against its plain version, at the LM's shape first
@@ -1730,7 +1789,7 @@ def main(argv=None):
             name=name, route='cuda',
             source='mxnet_tpu_torch/csrc/flash_attention_bwd_sm90.cu',
             float32_source='mxnet_tpu_torch/csrc/flash_attention_bwd.cu',
-            sass=sass[SM90_KERNELS[1 + i]],
+            sass=sass[('flash_bwd_dkdv_sm90', 'flash_bwd_dq_sm90')[i]],
             tflops=main_case['tflops'], tflops_done=main_case['tflops_done'],
             replaces='mxnet_tpu/pallas_ops.py:%d' % line,
             launches=train['launches'][1 + i],
@@ -1745,7 +1804,7 @@ def main(argv=None):
             whole_backward_bound_ms=bwd_cases[0]['bounds']['whole'][
                 'bound_ms'],
             cases=per_case))
-    kernels.append(conv_kernel_entry(conv))
+    kernels.append(conv_kernel_entry(conv, sass))
     kernels.append(rtc_kernel_entry(rtc_run))
     for kern in kernels:
         if kern['launches'] == 0:

@@ -122,7 +122,8 @@ def _declare(lib):
     # dtype, stream
     fn.argtypes = [ptr] * 6 + [i32] * 12 + [ptr]
     fn.restype = i32
-    lib.mxt_conv_bn_stats_block_rows.argtypes = []
+    # dtype -> the M-tile height of that dtype's kernel
+    lib.mxt_conv_bn_stats_block_rows.argtypes = [i32]
     lib.mxt_conv_bn_stats_block_rows.restype = i32
     lib.mxt_error_string.argtypes = [i32]
     lib.mxt_error_string.restype = ctypes.c_char_p

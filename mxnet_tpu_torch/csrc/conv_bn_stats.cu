@@ -3,6 +3,13 @@
 // in the same pass the per-channel sums s1 = sum(y) and s2 = sum(y * y) in
 // fp32, taken from the fp32 accumulators before y is rounded.
 //
+// mxt_conv_bn_stats dispatches by dtype: bfloat16 to the tensor-core
+// kernel of conv_bn_stats_sm90.cu (wgmma fed by TMA), float32 to the FMA
+// kernel here, since the tensor cores take fp32 only as TF32, whose 10-bit
+// mantissa fails the float32 gate (K * 2^-24 of |x| conv |w|). Both write
+// one partial of s1 and s2 per (M tile, channel), and this file's finalize
+// kernel sums them.
+//
 // Replaces mxnet_tpu/pallas_conv.py:_conv_bn_kernel (launched by
 // _conv_bn_stats_impl). The TPU kernel computes the conv as kh * kw shifted
 // matmuls over a block of whole images held in VMEM, and carries s1 and s2
@@ -15,8 +22,8 @@
 // are masked, and the TPU's gates (Cin < 8, Cout % 64, a power-of-two
 // batch, the VMEM budget) have no counterpart.
 //
-// - conv_bn_stats_kernel: one block per (BM-row M tile, BN-column Cout
-//   tile). It loops over (dy, dx, BK-channel Cin chunk), staging the x and
+// - conv_bn_stats_kernel (float32): one block per (BM-row M tile,
+//   BN-column Cout tile). It loops over (dy, dx, BK-channel Cin chunk), staging the x and
 //   w tiles in shared memory as fp32 (two buffers, the next tile's loads in
 //   flight while the current one is multiplied), and accumulates an 8 x 4
 //   micro-tile a thread in fp32 registers. It writes y rounded to x's type,
@@ -37,19 +44,19 @@
 // tensor-core rate. The main case, 3x3 64 -> 64 at 56^2, is 59.2 GFLOP and
 // 206 MB: 61 us by bytes. The statistics cost no bytes beyond s1 and s2
 // themselves: they are summed while the tile is in registers, which is the
-// point of the fusion. This first version multiplies with fp32 FMAs from
-// shared memory (no tensor cores), so FMA throughput (67 TFLOP/s at most)
-// sets its time, far above the bound; the tensor-core (mma.sync, then
-// wgmma with TMA) version is later work.
+// point of the fusion. The float32 kernel multiplies with fp32 FMAs from
+// shared memory, so FMA throughput (67 TFLOP/s at most) sets its time, far
+// above the bound; conv_bn_stats_sm90.cu says what the bf16 kernel does
+// about each bound.
 //
 // Layout: x (n, h, w, cin), w (kh, kw, cin, cout), y (n, ho, wo, cout),
 // row-major and contiguous, all float or all bfloat16; s1, s2 (cout) float;
 // part (2, m_tiles, cout) float scratch from the caller, m_tiles =
-// ceil(M / BM) (mxt_conv_bn_stats_block_rows gives BM). Offsets into x, y
+// ceil(M / BM), BM the tile height of the dtype's kernel
+// (mxt_conv_bn_stats_block_rows). Offsets into x, y
 // and part are 64-bit; M, the tile count and each size fit an int. The
 // kernels allocate nothing and launch on the caller's stream.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -71,17 +78,10 @@ static_assert(THREADS * 8 == BM * BK && THREADS * 4 == BK * BN,
               "tile loads and thread map disagree");
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) {
   return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
 }
 
 // Eight consecutive elements from a 16-byte-aligned address, as float.
@@ -91,47 +91,14 @@ __device__ __forceinline__ void load8(const float* p, float* out) {
   out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
   out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
 }
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const uint32_t words[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    __nv_bfloat162 pair;
-    *reinterpret_cast<uint32_t*>(&pair) = words[i];
-    const float2 f = __bfloat1622float2(pair);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
 
-// Four consecutive elements from an 8- (bf16) or 16-byte-aligned address.
+// Four consecutive elements from a 16-byte-aligned address.
 __device__ __forceinline__ void load4(const float* p, float* out) {
   const float4 a = *reinterpret_cast<const float4*>(p);
   out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
 }
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* out) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const uint32_t words[2] = {u.x, u.y};
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    __nv_bfloat162 pair;
-    *reinterpret_cast<uint32_t*>(&pair) = words[i];
-    const float2 f = __bfloat1622float2(pair);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
-
 __device__ __forceinline__ void store4(float* p, const float* v) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float* v) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
-  uint2 u;
-  u.x = *reinterpret_cast<uint32_t*>(&lo);
-  u.y = *reinterpret_cast<uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(p) = u;
 }
 
 struct ConvShape {
@@ -318,6 +285,15 @@ conv_bn_stats_finalize(const float* __restrict__ part, float* __restrict__ s1,
   }
 }
 
+cudaError_t finalize(void* part, void* s1, void* s2, int m_tiles, int cout,
+                     cudaStream_t stream) {
+  conv_bn_stats_finalize<<<(cout + FIN_CH - 1) / FIN_CH, THREADS, 0,
+                           stream>>>(static_cast<const float*>(part),
+                                     static_cast<float*>(s1),
+                                     static_cast<float*>(s2), m_tiles, cout);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch(const void* x, const void* w, void* y, void* s1, void* s2,
                    void* part, ConvShape s, cudaStream_t stream) {
@@ -329,12 +305,7 @@ cudaError_t launch(const void* x, const void* w, void* y, void* s1, void* s2,
       static_cast<float*>(part), s);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  conv_bn_stats_finalize<<<(s.cout + FIN_CH - 1) / FIN_CH, THREADS, 0,
-                           stream>>>(static_cast<const float*>(part),
-                                     static_cast<float*>(s1),
-                                     static_cast<float*>(s2), (int)m_tiles,
-                                     s.cout);
-  return cudaGetLastError();
+  return finalize(part, s1, s2, (int)m_tiles, s.cout, stream);
 }
 
 bool aligned(const void* p, uintptr_t bytes) {
@@ -345,11 +316,26 @@ bool aligned(const void* p, uintptr_t bytes) {
 
 extern "C" {
 
-// Rows of the output (output pixels) per M tile: the caller's scratch
-// `part` holds 2 * ceil(M / this) * cout floats.
-int mxt_conv_bn_stats_block_rows(void) { return BM; }
+// conv_bn_stats_sm90.cu: the bf16 kernel, its partials in part
+int mxt_conv_bn_stats_sm90(const void* x, const void* w, void* y, void* part,
+                           int n, int h, int wd, int cin, int cout, int kh,
+                           int kw, int sh, int sw, int ph, int pw, int ho,
+                           int wo, void* stream);
+int mxt_conv_bn_stats_sm90_block_rows(void);
 
-// dtype: 0 float32, 1 bfloat16. Returns a cudaError_t (0 on success).
+// Rows of the output (output pixels) per M tile of dtype's kernel (0
+// float32, 1 bfloat16; 0 for any other): the caller's scratch `part` holds
+// 2 * ceil(M / this) * cout floats.
+int mxt_conv_bn_stats_block_rows(int dtype) {
+  switch (dtype) {
+    case 0: return BM;
+    case 1: return mxt_conv_bn_stats_sm90_block_rows();
+    default: return 0;
+  }
+}
+
+// dtype: 0 float32 (the FMA kernel), 1 bfloat16 (the tensor-core kernel of
+// conv_bn_stats_sm90.cu). Returns a cudaError_t (0 on success).
 int mxt_conv_bn_stats(const void* x, const void* w, void* y, void* s1,
                       void* s2, void* part, int n, int h, int wd, int cin,
                       int cout, int kh, int kw, int sh, int sw, int ph,
@@ -368,15 +354,20 @@ int mxt_conv_bn_stats(const void* x, const void* w, void* y, void* s1,
   if (m > 0x7fffffffLL - BM || (long long)kh * kw * cin > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   s.ho = (int)ho; s.wo = (int)wo; s.m = (int)m;
-  const uintptr_t vec_bytes = dtype == 0 ? 16 : 8;
   s.vec_x = cin % 8 == 0 && aligned(x, 16);
-  s.vec_w = cout % 4 == 0 && aligned(w, vec_bytes) && aligned(y, vec_bytes);
+  s.vec_w = cout % 4 == 0 && aligned(w, 16) && aligned(y, 16);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
       return (int)launch<float>(x, w, y, s1, s2, part, s, st);
-    case 1:
-      return (int)launch<__nv_bfloat16>(x, w, y, s1, s2, part, s, st);
+    case 1: {
+      const int err = mxt_conv_bn_stats_sm90(x, w, y, part, n, h, wd, cin,
+                                             cout, kh, kw, sh, sw, ph, pw,
+                                             s.ho, s.wo, stream);
+      if (err != 0) return err;
+      const int rows = mxt_conv_bn_stats_sm90_block_rows();
+      return (int)finalize(part, s1, s2, (s.m + rows - 1) / rows, cout, st);
+    }
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks shared by the tensor-core flash kernels
-// (flash_attention_sm90.cu, flash_attention_bwd_sm90.cu): mbarriers, TMA
-// and plain copies into the 128-byte swizzled tile layout, wgmma
-// descriptors and instructions, and the host's tensor maps. Whatever names
+// Hopper (sm_90a) building blocks shared by the tensor-core kernels
+// (flash_attention_sm90.cu, flash_attention_bwd_sm90.cu,
+// conv_bn_stats_sm90.cu): mbarriers, TMA (tiled and im2col) and plain
+// copies into the 128-byte swizzled tile layout, wgmma descriptors and
+// instructions, and the host's tensor maps. Whatever names
 // the 16-bit type (the wgmma instruction, the tensor map's data type, the
 // packing of two values) is templated on T16, __nv_bfloat16 or __half;
 // wgmma takes both with the same layouts.
@@ -112,6 +113,24 @@ __device__ __forceinline__ void copy_tile(const void* head, int t, int d,
   }
 }
 
+// One im2col column of an NHWC tensor map (`im2col_map`): the channels
+// c .. c + 63 of each of the map's `pixels` pixels, walked from the pixel
+// (w, h, n) through the map's bounding box at its traversal strides, row
+// by row and image by image, each read at (w + dx, h + dy); one 128-byte
+// swizzled row a pixel, zeros outside the tensor.
+__device__ __forceinline__ void tma_im2col(const CUtensorMap* tm, uint8_t* dst,
+                                           int c, int w, int h, int n,
+                                           uint16_t dx, uint16_t dy,
+                                           uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.im2col.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2], {%7, %8};" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(tm)), "r"(smem_u32(bar)), "r"(c),
+      "r"(w), "r"(h), "r"(n), "h"(dx), "h"(dy)
+      : "memory");
+}
+
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
@@ -142,6 +161,10 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// every committed group but the newest is done
+__device__ __forceinline__ void wgmma_wait1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
 }
 // keep the compiler from touching registers across an async product
 template <int N> __device__ __forceinline__ void fence_regs(float* r) {
@@ -177,6 +200,56 @@ __device__ __forceinline__ void wgmma_ss64(float* d, uint64_t da,
     MXT_WGMMA_SS64("f16");
 }
 #undef MXT_WGMMA_SS64
+
+// d (64 x 64) (+)= A B, A K-major and B MN-major (the transpose bit) in
+// shared memory
+#define MXT_WGMMA_SS64_BT(TY)                                           \
+  asm volatile(                                                         \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                      \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "       \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "   \
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "    \
+      "%26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 1;\n}"      \
+      : MXT_ACC8(0), MXT_ACC8(8), MXT_ACC8(16), MXT_ACC8(24)            \
+      : "l"(da), "l"(db), "r"(accumulate))
+
+template <typename T16>
+__device__ __forceinline__ void wgmma_ss64_bt(float* d, uint64_t da,
+                                              uint64_t db, int accumulate) {
+  if constexpr (is_bf16<T16>)
+    MXT_WGMMA_SS64_BT("bf16");
+  else
+    MXT_WGMMA_SS64_BT("f16");
+}
+#undef MXT_WGMMA_SS64_BT
+
+// d (64 x 128) (+)= A B, A K-major and B MN-major in shared memory, B's
+// two 64-column atoms ATOM bytes apart (the descriptor's LBO, desc_mn)
+template <typename T16>
+__device__ __forceinline__ void wgmma_ss128_bt(float* d, uint64_t da,
+                                               uint64_t db, int accumulate) {
+#define MXT_WGMMA_SS128_BT(TY)                                          \
+  asm volatile(                                                         \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                      \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "      \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "                               \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                          \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                        \
+      "%24, %25, %26, %27, %28, %29, %30, %31, "                        \
+      "%32, %33, %34, %35, %36, %37, %38, %39, "                        \
+      "%40, %41, %42, %43, %44, %45, %46, %47, "                        \
+      "%48, %49, %50, %51, %52, %53, %54, %55, "                        \
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "                       \
+      "%64, %65, p, 1, 1, 0, 1;\n}"                                     \
+      : MXT_ACC8(0), MXT_ACC8(8), MXT_ACC8(16), MXT_ACC8(24),           \
+        MXT_ACC8(32), MXT_ACC8(40), MXT_ACC8(48), MXT_ACC8(56)          \
+      : "l"(da), "l"(db), "r"(accumulate))
+  if constexpr (is_bf16<T16>)
+    MXT_WGMMA_SS128_BT("bf16");
+  else
+    MXT_WGMMA_SS128_BT("f16");
+#undef MXT_WGMMA_SS128_BT
+}
 
 // d (64 x N) += A B, A in registers, B MN-major in shared memory; the
 // scale-d predicate is always set (accumulate). REGS names the N / 2
@@ -307,6 +380,62 @@ cudaError_t tensor_map(CUtensorMap* tm, const void* ptr, int bh, int t,
                       is_bf16<T16> ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                                    : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
                       3, const_cast<void*>(ptr), dims, strides, box, elem,
+                      CU_TENSOR_MAP_INTERLEAVE_NONE,
+                      CU_TENSOR_MAP_SWIZZLE_128B,
+                      CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+typedef CUresult (*EncodeIm2col)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const int*, const int*,
+                                 cuuint32_t, cuuint32_t, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeIm2col, reached as encode_tiled is
+EncodeIm2col encode_im2col() {
+  static EncodeIm2col fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeIm2col", &ptr,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeIm2col>(ptr);
+  }
+  return fn;
+}
+
+// The im2col map of an NHWC (n, h, w, c) tensor of T16 for a conv of
+// kernel (kh, kw), stride (sh, sw) and padding (ph, pw): each copy
+// (tma_im2col) brings 64 channels of `pixels` consecutive output pixels,
+// the pixel of output (ho, wo) starting at input (ho sh - ph, wo sw - pw).
+// The bounding box runs from -pad to (size - 1) + pad - (k - 1) on each
+// axis, so one traversal step is one output pixel and a row of the box is
+// a row of the output; 128-byte swizzle, zeros out of range. The caller
+// keeps c % 8 == 0, a 16-byte aligned ptr, strides <= 8, each corner in
+// [-128, 127] and each kernel size <= 256 (a 4-D map's limits).
+template <typename T16>
+cudaError_t im2col_map(CUtensorMap* tm, const void* ptr, int n, int h, int w,
+                       int c, int kh, int kw, int sh, int sw, int ph, int pw,
+                       int pixels) {
+  EncodeIm2col encode = encode_im2col();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  const cuuint64_t dims[4] = {(cuuint64_t)c, (cuuint64_t)w, (cuuint64_t)h,
+                              (cuuint64_t)n};
+  const cuuint64_t strides[3] = {(cuuint64_t)c * 2, (cuuint64_t)w * c * 2,
+                                 (cuuint64_t)h * w * c * 2};
+  const int lower[2] = {-pw, -ph};
+  const int upper[2] = {pw - (kw - 1), ph - (kh - 1)};
+  const cuuint32_t elem[4] = {1, (cuuint32_t)sw, (cuuint32_t)sh, 1};
+  CUresult r = encode(tm,
+                      is_bf16<T16> ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                   : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
+                      4, const_cast<void*>(ptr), dims, strides, lower, upper,
+                      64, (cuuint32_t)pixels, elem,
                       CU_TENSOR_MAP_INTERLEAVE_NONE,
                       CU_TENSOR_MAP_SWIZZLE_128B,
                       CU_TENSOR_MAP_L2_PROMOTION_L2_128B,

@@ -9,15 +9,18 @@ differentiable through one `torch.autograd.Function`, the counterpart of
 the custom VJP: the statistics' cotangents fold into dy
 (dy + ds1 + 2 * y * ds2) and dx, dw are the transposed convolutions.
 
-The kernel (`csrc/conv_bn_stats.cu`) is an implicit GEMM that takes any
-kernel size, stride and padding and ragged sizes, so the JAX package's
-gates (Cin < 8, Cout % 64, a power-of-two batch, 1x1 strides only, the
-VMEM budget) have no counterpart: `supported` states the kernel's own
-limits, and `conv2d_bn_stats` raises ValueError on what it refuses.
+The kernel is an implicit GEMM that takes any kernel size, stride and
+padding and ragged sizes, so the JAX package's gates (Cin < 8, Cout % 64,
+a power-of-two batch, 1x1 strides only, the VMEM budget) have no
+counterpart: `supported` states the kernel's own limits, and
+`conv2d_bn_stats` raises ValueError on what it refuses. The library's C
+entry (`csrc/conv_bn_stats.cu`) routes by dtype: bfloat16 to the
+tensor-core kernel (`csrc/conv_bn_stats_sm90.cu`: bf16 wgmma fed by TMA),
+float32 to the FMA kernel beside the entry.
 
 Dispatch is by the tensors' device: CPU tensors take the plain version
-(`conv_bn_stats_plain`), CUDA tensors launch the kernel or raise. There
-is no fallback from one to the other. The float32 backward and the plain
+(`conv_bn_stats_plain`), CUDA tensors launch the kernel of their dtype or
+raise. There is no fallback from one to the other. The float32 backward and the plain
 version go through cuDNN on the card, in TF32 unless
 `torch.backends.cudnn.allow_tf32` is False.
 """
@@ -140,9 +143,21 @@ def _check_kernel_inputs(x, w, stride, pad):
                          'CUDA device; got %s and %s' % (x.device, w.device))
 
 
+def _partials(m, cout, dtype, device):
+    """Scratch for the kernel's per-tile statistics: (2, ceil(m / rows),
+    cout) float32, rows the M-tile height of dtype's kernel."""
+    rows = _build.library().mxt_conv_bn_stats_block_rows(
+        _KERNEL_DTYPES[dtype])
+    if rows < 1:
+        raise TypeError('conv + BN statistics kernel has no %s route' % dtype)
+    return torch.empty((2, -(-m // rows), cout), dtype=torch.float32,
+                       device=device)
+
+
 def conv_bn_stats_cuda(x, w, stride=(1, 1), pad=(0, 0)):
     """The kernel on contiguous CUDA tensors: NHWC x, HWIO w, both float32
-    or both bfloat16. Returns (y, s1, s2)."""
+    (the FMA kernel) or both bfloat16 (the tensor-core kernel). Returns
+    (y, s1, s2)."""
     global CONV_BN_STATS_LAUNCHES
     stride, pad = _pair(stride), _pair(pad)
     _check_kernel_inputs(x, w, stride, pad)
@@ -154,9 +169,7 @@ def conv_bn_stats_cuda(x, w, stride=(1, 1), pad=(0, 0)):
     y = torch.empty((n, ho, wo, cout), dtype=x.dtype, device=dev)
     s1 = torch.empty((cout,), dtype=torch.float32, device=dev)
     s2 = torch.empty((cout,), dtype=torch.float32, device=dev)
-    rows = _build.library().mxt_conv_bn_stats_block_rows()
-    m_tiles = -(-(n * ho * wo) // rows)
-    part = torch.empty((2, m_tiles, cout), dtype=torch.float32, device=dev)
+    part = _partials(n * ho * wo, cout, x.dtype, dev)
     _launch('mxt_conv_bn_stats', 'conv + BN statistics', x.data_ptr(),
             w.data_ptr(), y.data_ptr(), s1.data_ptr(), s2.data_ptr(),
             part.data_ptr(), n, h, wd, cin, cout, kh, kw, stride[0],

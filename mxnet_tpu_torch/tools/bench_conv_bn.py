@@ -5,13 +5,20 @@ At every distinct conv feeding a BatchNorm in the ResNet-50 body
 (`cuda_conv.RESNET50_CONVS`: 19 shapes, 51 convs by count), batch 256 in
 bfloat16 unless told otherwise, it runs `cuda_conv.conv2d_bn_stats` once
 for its result, holds that against the plain version, and times, with
-CUDA events over a run of launches after a warm-up:
+CUDA events over a run of launches after a warm-up, queued behind a
+spin of the card so that they run back to back (device time, not the
+host's pace):
 
 - kernel: the conv + statistics kernel (`cuda_conv.conv_bn_stats_cuda`;
-  y is written to device memory);
+  y is written to device memory): the tensor-core kernel in bfloat16,
+  the FMA kernel in float32;
 - library: the yardstick, cuDNN `F.conv2d` on channels-last tensors and
   the float32 sum and sum of squares of its output (the counterpart of
   the JAX tool's XLA column); timed only, never called by the port;
+- cudnn: cuDNN's conv alone, the yardstick without its statistics;
+- backward: the autograd Function's backward on the result call's graph
+  (the statistics' cotangents folded into dy, then cuDNN's transposed
+  convs for dx and dw), for seeded cotangents of y, s1 and s2;
 - plain: the kernel's plain version (`cuda_conv.conv_bn_stats_plain`,
   a float32 cuDNN conv, in TF32 unless `torch.backends.cudnn.allow_tf32`
   is False; `main` sets it False);
@@ -45,6 +52,10 @@ PEAK_FLOPS = {'bfloat16': 989e12, 'float32': 67e12}
 # take 0.1-2 ms a launch at batch 256, the plain version up to 4 ms
 ITERS, PLAIN_ITERS = 10, 3
 SEED = 0
+# clock cycles the card spins before a timed run (about 50 ms), so that
+# the host has queued every launch of the run before the first starts and
+# the events time the device alone, not the host's pace between launches
+LEAD_CYCLES = 100_000_000
 
 
 def conv_geometry(batch, h, cin, cout, k, stride):
@@ -99,11 +110,14 @@ def yardstick(x_cl, w_cl, stride, pad):
 
 
 def cuda_ms(fn, iters):
-    """Mean device time of fn over iters launches, after one warm-up."""
+    """Mean device time of fn over iters launches, after one warm-up, the
+    launches queued behind a spin of LEAD_CYCLES so that they run back to
+    back."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(LEAD_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -141,12 +155,19 @@ def bench_shape(shape, batch, dtype, device, seed):
     w = torch.randn(ws, generator=gen, device=device, dtype=tdtype) * 0.05
 
     before = cuda_conv.CONV_BN_STATS_LAUNCHES
-    y, s1, s2 = cuda_conv.conv2d_bn_stats(x, w, stride, pad)
+    xl, wl = x.requires_grad_(True), w.requires_grad_(True)
+    y, s1, s2 = cuda_conv.conv2d_bn_stats(xl, wl, stride, pad)
     torch.cuda.synchronize()
     launches = cuda_conv.CONV_BN_STATS_LAUNCHES - before
-    errors = compare(y, s1, s2,
+    x, w = x.detach(), w.detach()
+    errors = compare(y.detach(), s1.detach(), s2.detach(),
                      cuda_conv.conv_bn_stats_plain(x, w, stride, pad))
-    del y, s1, s2
+    cot = (torch.randn(y.shape, generator=gen, device=device, dtype=tdtype),
+           torch.randn(s1.shape, generator=gen, device=device),
+           torch.randn(s2.shape, generator=gen, device=device) * 0.1)
+    backward_ms = cuda_ms(lambda: torch.autograd.grad(
+        (y, s1, s2), (xl, wl), cot, retain_graph=True), ITERS)
+    del y, s1, s2, xl, wl, cot
 
     before = cuda_conv.CONV_BN_STATS_LAUNCHES
     ms = cuda_ms(lambda: cuda_conv.conv_bn_stats_cuda(x, w, stride, pad),
@@ -155,13 +176,16 @@ def bench_shape(shape, batch, dtype, device, seed):
     x_cl = x.permute(0, 3, 1, 2)        # NHWC memory: channels-last NCHW
     w_cl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
     library_ms = cuda_ms(lambda: yardstick(x_cl, w_cl, stride, pad), ITERS)
+    cudnn_ms = cuda_ms(lambda: F.conv2d(x_cl, w_cl, stride=stride,
+                                        padding=pad), ITERS)
     plain_ms = cuda_ms(lambda: cuda_conv.conv_bn_stats_plain(
         x, w, stride, pad), PLAIN_ITERS)
     bound = conv_bound(xs, ws, stride, pad, dtype)
     return dict(shape=[h, cin, cout, k, s], count=count, x=list(xs),
                 w=list(ws), stride=list(stride), pad=list(pad), dtype=dtype,
                 launches=launches, timed_launches=timed, ms=ms,
-                library_ms=library_ms, plain_ms=plain_ms,
+                library_ms=library_ms, cudnn_ms=cudnn_ms,
+                backward_ms=backward_ms, plain_ms=plain_ms,
                 tflops=bound['flops'] / ms / 1e9, **bound, **errors)
 
 
@@ -178,22 +202,26 @@ def run(batch=256, dtype='bfloat16', device=None, log=print):
         for i, shape in enumerate(cuda_conv.RESNET50_CONVS):
             row = bench_shape(shape, batch, dtype, device, SEED + i)
             rows.append(row)
-            log('%-24s kernel %8.3f ms  cudnn+stats %7.3f ms  plain %8.3f '
-                'ms  bound %6.4f ms (%s)  x%d  s2 err %.1e'
+            log('%-24s kernel %8.4f ms  cudnn+stats %7.4f ms  cudnn %7.4f '
+                'ms  backward %7.4f ms  plain %8.3f ms  bound %6.4f ms (%s)  '
+                'x%d  s2 err %.1e'
                 % (tuple(row['shape']), row['ms'], row['library_ms'],
-                   row['plain_ms'], row['bound_ms'], row['bound_by'],
-                   row['count'], row['s2_err']))
+                   row['cudnn_ms'], row['backward_ms'], row['plain_ms'],
+                   row['bound_ms'], row['bound_by'], row['count'],
+                   row['s2_err']))
     totals = {key: sum(r['count'] * r[key] for r in rows)
-              for key in ('ms', 'library_ms', 'plain_ms', 'bound_ms',
-                          'flops', 'bytes')}
+              for key in ('ms', 'library_ms', 'cudnn_ms', 'backward_ms',
+                          'plain_ms', 'bound_ms', 'flops', 'bytes')}
     totals.update(convs=sum(r['count'] for r in rows), shapes=len(rows),
                   tflops=totals['flops'] / totals['ms'] / 1e9,
                   kernel_over_library=totals['ms'] / totals['library_ms'],
                   kernel_over_bound=totals['ms'] / totals['bound_ms'])
     log('TOTAL (count-weighted, %d convs): kernel %.3f ms, cudnn+stats '
-        '%.3f ms, plain %.3f ms, bound %.3f ms; kernel %.1f TFLOP/s'
+        '%.3f ms, cudnn %.3f ms, backward %.3f ms, plain %.3f ms, bound '
+        '%.3f ms; kernel %.1f TFLOP/s'
         % (totals['convs'], totals['ms'], totals['library_ms'],
-           totals['plain_ms'], totals['bound_ms'], totals['tflops']))
+           totals['cudnn_ms'], totals['backward_ms'], totals['plain_ms'],
+           totals['bound_ms'], totals['tflops']))
     return dict(rows=rows, totals=totals)
 
 

@@ -320,9 +320,18 @@ def test_bench_needs_a_card_and_its_yardstick_is_the_oracle():
     assert errs['y_max_abs_err'] == 0 and errs['s2_err'] == 0
 
 
-def _kernel_block_rows():
-    text = (REPO / 'mxnet_tpu_torch' / 'csrc' / 'conv_bn_stats.cu').read_text()
-    return int(re.search(r'constexpr int BM = (\d+);', text).group(1))
+# the kernels' sources: float32 on the FMA kernel, bfloat16 on the
+# tensor-core one
+FMA_SOURCE, SM90_SOURCE = 'conv_bn_stats.cu', 'conv_bn_stats_sm90.cu'
+
+
+def _source(name):
+    return (REPO / 'mxnet_tpu_torch' / 'csrc' / name).read_text()
+
+
+def _kernel_block_rows(source):
+    return int(re.search(r'constexpr int BM = (\d+);',
+                         _source(source)).group(1))
 
 
 def _variant(name):
@@ -372,14 +381,16 @@ def test_chip_smoke_conv_y_gate(variant, broken):
         assert check['share_differ'] > 0.05, check
 
 
+@pytest.mark.parametrize('source', [FMA_SOURCE, SM90_SOURCE])
 @pytest.mark.parametrize('left_out', [False, True])
-def test_chip_smoke_conv_stats_gate(left_out):
+def test_chip_smoke_conv_stats_gate(left_out, source):
     """The statistics check at the main case's M (batch 256 at 56^2,
-    6,272 tiles of the kernel's height): the float64 sums pass it, and
-    leaving one tile's partials out of s2, as the partial mutant does,
-    fails it. A 3x3 conv of few channels keeps it quick."""
+    6,272 tiles of each kernel's height, read from its source): the
+    float64 sums pass it, and leaving one tile's partials out of s2, as
+    the partial mutants do, fails it. A 3x3 conv of few channels keeps it
+    quick."""
     import chip_smoke
-    rows = _kernel_block_rows()
+    rows = _kernel_block_rows(source)
     rs = np.random.RandomState(22)
     x = torch.from_numpy(rs.randn(256, 56, 56, 4).astype(np.float32))
     w = torch.from_numpy((rs.randn(3, 3, 4, 8) * 0.2).astype(np.float32))
@@ -404,8 +415,123 @@ def test_chip_smoke_conv_stats_gate(left_out):
 
 def test_chip_smoke_conv_mutants_edit_the_source_once():
     import chip_smoke
-    text = (REPO / 'mxnet_tpu_torch' / 'csrc' / 'conv_bn_stats.cu').read_text()
+    text = _source(FMA_SOURCE)
     assert len(chip_smoke.CONV_MUTANTS) == 3
     for name, (old, new) in chip_smoke.CONV_MUTANTS.items():
         assert text.count(old) == 1, name
         assert new != old
+    # they are held against a float32 case, which runs the FMA kernel
+    case = chip_smoke.CONV_CASES[chip_smoke.CONV_FMA_MUTANT_CASE]
+    assert case[-1] == 'float32'
+
+
+@pytest.mark.parametrize('name', ['sm90_k_step_skipped',
+                                  'sm90_tap_coordinate_off',
+                                  'sm90_partial_left_out',
+                                  'sm90_y_truncated'])
+def test_chip_smoke_sm90_conv_mutants_edit_the_source_once(name):
+    """Each tensor-core conv mutant edits one text of
+    conv_bn_stats_sm90.cu once; a text that is gone or repeated would
+    refuse the --mutants check. They are held against the bf16 main
+    case, which runs that kernel."""
+    import chip_smoke
+    assert sorted(chip_smoke.CONV_SM90_MUTANTS) == sorted([
+        'sm90_k_step_skipped', 'sm90_tap_coordinate_off',
+        'sm90_partial_left_out', 'sm90_y_truncated'])
+    old, new = chip_smoke.CONV_SM90_MUTANTS[name]
+    assert _source(SM90_SOURCE).count(old) == 1
+    assert new != old
+    assert chip_smoke.CONV_CASES['main'][-1] == 'bfloat16'
+
+
+def _tensor_core_conv(x, w, toward_zero):
+    """The bf16 kernel's order for a stride-1 conv padded by kh // 2: over
+    the taps, then 16-channel steps, each step's 16 products summed
+    exactly (float64) and rounded to float32, the steps added in float32,
+    as the tensor cores add; y rounded to bf16 to nearest, or toward zero
+    (the y_truncated mutant). Returns (y, s1, s2), the statistics summed
+    from the float32 accumulators."""
+    kh, kw, cin, _ = w.shape
+    n, h, wd, _ = x.shape
+    xp = torch.nn.functional.pad(x.double(), (0, 0, kw // 2, kw // 2,
+                                              kh // 2, kh // 2))
+    acc = None
+    for dy in range(kh):
+        for dx in range(kw):
+            xs = xp[:, dy:dy + h, dx:dx + wd]
+            for c in range(0, cin, 16):
+                part = torch.einsum('nhwc,co->nhwo', xs[..., c:c + 16],
+                                    w[dy, dx, c:c + 16].double()).float()
+                acc = part if acc is None else acc + part
+    if toward_zero:
+        y = (acc.view(torch.int32) & -65536).view(torch.float32).bfloat16()
+    else:
+        y = acc.bfloat16()
+    return y, acc.sum((0, 1, 2)), (acc * acc).sum((0, 1, 2))
+
+
+@pytest.mark.parametrize('toward_zero', [False, True])
+def test_tensor_core_order_passes_the_conv_gate(toward_zero):
+    """At the main case's pattern (3x3, 64 -> 64, padding 1, bf16) on a
+    small batch: the tensor cores' summing order moves under 1 % of y by a
+    bf16 step against the plain version (chip_smoke.py's CONV_Y_TOL), and
+    its statistics pass CONV_STATS_RTOL; y rounded toward zero instead of
+    to nearest fails the gate."""
+    import chip_smoke
+    rs = np.random.RandomState(23)
+    x = torch.from_numpy(rs.randn(2, 14, 14, 64).astype(np.float32))
+    w = torch.from_numpy((rs.randn(3, 3, 64, 64) * 0.05).astype(np.float32))
+    x, w = x.bfloat16(), w.bfloat16()
+    py, p1, p2 = cuda_conv.conv_bn_stats_plain(x, w, (1, 1), (1, 1))
+    y, s1, s2 = _tensor_core_conv(x, w, toward_zero)
+    check = chip_smoke.conv_y_mismatch(torch, cuda_conv, y, py, x, w,
+                                       (1, 1), (1, 1))
+    if toward_zero:
+        assert not check['ok'] and check['share_differ'] > 0.3, check
+        return
+    assert check['ok'] and check['share_differ'] < 0.01, check
+    pf = py.float()
+    for got_s, ref_s, scale in ((s1, p1, pf.abs().sum((0, 1, 2))),
+                                (s2, p2, (pf * pf).sum((0, 1, 2)))):
+        assert chip_smoke.stats_mismatch(torch, got_s, ref_s, scale)['ok']
+
+
+@pytest.mark.parametrize('dtype,code', [(torch.float32, 0),
+                                        (torch.bfloat16, 1)])
+def test_conv_wrapper_passes_each_dtype_to_the_library(monkeypatch, dtype,
+                                                       code):
+    """The wrapper hands the library the dtype code of its dispatch
+    (float32 to the FMA kernel, bfloat16 to the tensor-core one), sizes
+    the partials from that dtype's tile height, counts the launch, and
+    returns x's dtype and float32 statistics."""
+    rows = {0: 128, 1: 64}     # distinct, so the scratch shows which
+    asked, calls, made = [], [], []
+
+    class Library:
+        def mxt_conv_bn_stats_block_rows(self, c):
+            asked.append(c)
+            return rows.get(c, 0)
+
+    monkeypatch.setattr(cuda_conv._build, 'library', Library)
+    monkeypatch.setattr(cuda_conv, '_check_kernel_inputs',
+                        lambda *args: None)
+    monkeypatch.setattr(cuda_conv, '_launch',
+                        lambda entry, what, *args, device: calls.append(
+                            (entry, args)))
+    partials = cuda_conv._partials
+    monkeypatch.setattr(cuda_conv, '_partials',
+                        lambda *args: made.append(partials(*args)) or made[-1])
+    x = torch.zeros(3, 10, 10, 8, dtype=dtype)
+    w = torch.zeros(3, 3, 8, 16, dtype=dtype)
+    before = cuda_conv.CONV_BN_STATS_LAUNCHES
+    y, s1, s2 = cuda_conv.conv_bn_stats_cuda(x, w, (1, 1), (1, 1))
+    assert cuda_conv.CONV_BN_STATS_LAUNCHES == before + 1
+    (entry, args), = calls
+    assert entry == 'mxt_conv_bn_stats' and args[-1] == code
+    assert asked == [code]
+    assert tuple(made[0].shape) == (2, -(-300 // rows[code]), 16)
+    assert args[5] == made[0].data_ptr()
+    assert y.dtype == dtype and y.shape == (3, 10, 10, 16)
+    assert s1.dtype == s2.dtype == torch.float32
+    with pytest.raises(TypeError, match='no torch.float16 route'):
+        partials(300, 16, torch.float16, 'cpu')
