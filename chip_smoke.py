@@ -74,7 +74,29 @@ Phases, each of which exits non-zero on failure:
    its plain version and torch.addcmul; then the imperative training
    loop (logistic regression under autograd.record() with the SGD step
    through sgd_update's Rtc), whose accuracy must pass 0.9 in 100 steps,
-   each launching the kernel once.
+   each launching the kernel once;
+9. resnet: the bf16 ResNet-50 v2 (models.resnet.get_symbol, 1000
+   classes, 3x224x224) bound by simple_bind on gpu(0) at batch 256, data
+   and label without gradient, seeded He-normal weights. An eval forward
+   must launch the conv + BN statistics kernel 0 times and each train
+   forward_backward exactly 33 times (its train-mode conv -> BatchNorm
+   pairs); every weight gradient finite and nonzero but bn_data_gamma's,
+   exactly zero (fix_gamma); the step with the pair route off (cuDNN's
+   conv, BatchNorm's own sums) within RESNET_LOSS_ATOL in loss and
+   RESNET_OUT_REL / RESNET_AUX_REL in relative norm, its gradients'
+   distance reported (at initialisation the whole network amplifies
+   bf16 rounding past any useful gradient bound); the kernel against its
+   plain version at every shape the route gives it; at each of those
+   shapes a one-pair bf16 graph through the executor with the route on
+   against the route off, output, moving statistics and every gradient
+   (data, weight, gamma, beta) within RESNET_OUT_REL, RESNET_AUX_REL and
+   RESNET_GRAD_REL; the cut ResNet of tests/test_torch_resnet.py in
+   bf16 on gpu(0) against cpu(0) (output and statistics gated, gradients
+   reported); then a warm-up and RESNET_STEPS timed steps of
+   forward_backward and w -= lr / batch * g through nd ops (median ms,
+   images/s, peak memory; the loss on the one batch must fall), the same
+   with the pair route off, timed eval forwards, and one step's
+   torch.profiler breakdown.
 
 It prints one JSON line with every kernel's numbers, then the card's
 name and power limit from nvidia-smi, and last
@@ -356,7 +378,7 @@ CONV_SM90_MUTANTS = {
                          ': ' + _TRUNCATE + 'v[0], v[1]));'),
 }
 
-ALL_PHASES = frozenset(range(2, 9))
+ALL_PHASES = frozenset(range(2, 10))
 # phase 7: the imperative NDArray path's size (n x n inputs)
 ND_SIZE = 1024
 ND_HOST_CALLS = 2000
@@ -1218,9 +1240,10 @@ def conv_phase(torch, cuda_ops, cuda_conv, bench_conv_bn):
     return dict(cases=cases, grad=grad, bench=bench)
 
 
-def conv_kernel_entry(conv, sass):
+def conv_kernel_entry(conv, sass, resnet):
     """The conv_bn_stats entry of the kernels line: times at the main
-    case's shape from the bench, errors from the cases."""
+    case's shape from the bench, errors from the cases, launches from the
+    ResNet-50 train steps of phase 9 (its main path)."""
     xs, ws = CONV_CASES['main'][:2]
     main_shape = [xs[1], xs[3], ws[3], ws[0], CONV_CASES['main'][2][0]]
     bench = conv['bench']
@@ -1245,9 +1268,17 @@ def conv_kernel_entry(conv, sass):
                             'kernel both share'),
         sass=sass['conv_bn_stats_sm90'],
         replaces='mxnet_tpu/pallas_conv.py:101',
-        launches=bench['launches'],
-        launches_by_path=dict(conv_bn_bench=bench['launches']),
+        launches=resnet['train_path_launches'],
+        launches_by_path=dict(resnet_train=resnet['train_path_launches'],
+                              conv_bn_bench=bench['launches']),
+        launches_per_train_step=resnet['train_launches'],
         launches_per_body_forward=bench['launches_per_body_forward'],
+        resnet_shape_checks=[dict(x=r['x'], w=r['w'], stride=r['stride'],
+                                  pairs=r['pairs'],
+                                  max_abs_err=r['y']['max_abs_err'],
+                                  s1_rel_err=r['s1']['rel_err'],
+                                  s2_rel_err=r['s2']['rel_err'])
+                             for r in resnet['kernel_checks']],
         max_abs_err=cases[0]['max_abs_err'], ms=row['ms'],
         plain_ms=row['plain_ms'], bound_ms=row['bound_ms'],
         bound_by=row['bound_by'], library_ms=row['library_ms'],
@@ -1627,6 +1658,635 @@ def rtc_kernel_entry(rtc_run):
         cases=rtc_run['cases'])
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the bf16 ResNet-50 v2 through Symbol, simple_bind and the
+# executor, its 33 train-mode conv -> BatchNorm pairs on the conv + BN
+# statistics kernel
+# ---------------------------------------------------------------------------
+
+RESNET = dict(num_classes=1000, num_layers=50, image_shape='3,224,224',
+              dtype='bfloat16')
+RESNET_BATCH = 256
+# the stem's conv0 -> bn0 and conv1 -> bn2, conv2 -> bn3 of each of the 16
+# bottleneck units; conv3 and the shortcuts feed an elemwise_add
+RESNET_PAIRS = 33
+RESNET_STEPS = 4            # timed steps, after one warm-up
+RESNET_EVAL_ITERS = 4       # timed eval forwards, after one warm-up
+# SGD on the summed loss (SoftmaxOutput normalization 'null'), rescaled by
+# 1 / batch as MXNet's optimizers take rescale_grad
+RESNET_LR = 0.1
+# the step with the pair route off (the conv by cuDNN, BatchNorm's own
+# bf16 one-pass sums of the rounded y) against the step with it on: the
+# loss within RESNET_LOSS_ATOL, the output and each moving statistic
+# within its bound in relative norm. The whole network's gradients are
+# reported, not gated: at initialisation it amplifies bf16 rounding into
+# them (the unfused bf16 step is 1.20 apart from float32, median), so the
+# gradient bound (the LM's) holds the route on one pair at each shape
+RESNET_LOSS_ATOL = 5e-3
+RESNET_OUT_REL, RESNET_GRAD_REL, RESNET_AUX_REL = 0.02, 0.05, 0.02
+# the cut ResNet of tests/test_torch_resnet.py, gpu(0) against cpu(0)
+CUT_RESNET = dict(units=[1, 1, 1, 1], num_stages=4,
+                  filter_list=[8, 32, 64, 128, 256], num_classes=10,
+                  image_shape=(3, 64, 64), bottle_neck=True)
+CUT_RESNET_BATCH = 4
+CUT_RESNET_PAIRS = 1 + 2 * len(CUT_RESNET['units'])
+NO_GRAD = ('data', 'softmax_label')
+
+
+def resnet_params(symbol, shapes, num_classes, seed):
+    """Seeded numpy values by name: He-normal weights, gamma near 1, small
+    beta, biases and moving statistics, normal images, integer labels."""
+    arg_shapes, _, aux_shapes = symbol.infer_shape(**shapes)
+    rng = np.random.default_rng(seed)
+    args, auxs = {}, {}
+    for name, shape in zip(symbol.list_arguments(), arg_shapes):
+        if name == 'softmax_label':
+            args[name] = rng.integers(0, num_classes, shape)
+        elif name.endswith('_weight'):
+            fan_in = int(np.prod(shape[1:]))
+            args[name] = rng.standard_normal(shape, dtype=np.float32) * \
+                math.sqrt(2.0 / fan_in)
+        elif name.endswith('_gamma'):
+            args[name] = 1.0 + 0.1 * rng.standard_normal(shape)
+        elif name == 'data':
+            args[name] = rng.standard_normal(shape, dtype=np.float32)
+        else:
+            args[name] = 0.1 * rng.standard_normal(shape)
+    for name, shape in zip(symbol.list_auxiliary_states(), aux_shapes):
+        auxs[name] = 0.1 * rng.standard_normal(shape) \
+            if name.endswith('_mean') else 1.0 + 0.1 * rng.random(shape)
+    return ({k: np.asarray(v, np.float32) for k, v in args.items()},
+            {k: np.asarray(v, np.float32) for k, v in auxs.items()})
+
+
+def bind_resnet(mx, symbol, ctx, batch, image_shape, params):
+    """simple_bind on ctx, the data and label with grad_req null, and the
+    seeded parameters copied in."""
+    req = {n: 'null' if n in NO_GRAD else 'write'
+           for n in symbol.list_arguments()}
+    ex = symbol.simple_bind(ctx, grad_req=req,
+                            data=(batch,) + tuple(image_shape))
+    ex.copy_params_from(*params)
+    return ex
+
+
+def resnet_state(torch, ex):
+    """The output, every gradient and every moving statistic of the last
+    step, float32 copies by name."""
+    state = {'output': ex.outputs[0].handle.float().clone()}
+    for name, g in ex.grad_dict.items():
+        state['grad ' + name] = g.handle.float().clone()
+    for name, a in ex.aux_dict.items():
+        state['aux ' + name] = a.handle.float().clone()
+    return state
+
+
+def rel_err(torch, got, ref):
+    """||got - ref|| / ||ref|| in float64 (on got's device)."""
+    got = got.double().to(ref.device)
+    ref = ref.double()
+    return float(torch.linalg.vector_norm(got - ref) /
+                 torch.linalg.vector_norm(ref).clamp_min(1e-300))
+
+
+def compare_states(torch, got, ref):
+    """Relative errors of every quantity of `got` against `ref`, as
+    dict(out_rel, grad_rel={name: x}, aux_rel={name: x}); bn_data_gamma's
+    gradient (exactly zero under fix_gamma) is left out."""
+    out = dict(out_rel=rel_err(torch, got['output'], ref['output']),
+               grad_rel={}, aux_rel={})
+    for key, v in ref.items():
+        kind, _, name = key.partition(' ')
+        if kind == 'grad' and name != 'bn_data_gamma':
+            out['grad_rel'][name] = rel_err(torch, got[key], v)
+        elif kind == 'aux':
+            out['aux_rel'][name] = rel_err(torch, got[key], v)
+    return out
+
+
+def spread(errs):
+    """Median and largest of a {name: relative error} dict."""
+    vals = sorted(errs.values())
+    return dict(median=vals[len(vals) // 2], max=vals[-1],
+                worst=max(errs, key=errs.get))
+
+
+def nll(torch, ex, label):
+    """Mean negative log-likelihood of the labels under the SoftmaxOutput
+    probabilities of the last forward."""
+    p = ex.outputs[0].handle.float()
+    picked = p.gather(1, label.long().view(-1, 1)).clamp_min(1e-30)
+    return float(-picked.log().mean())
+
+
+def restore(ex, saved):
+    """Put the parameters and moving statistics back (`saved` from
+    `save_params`), so that two steps start alike."""
+    for name, t in saved.items():
+        holder = ex.arg_dict[name] if name in ex.arg_dict else \
+            ex.aux_dict[name]
+        holder.handle.copy_(t)
+
+
+def save_params(ex):
+    return {n: a.handle.clone() for n, a in
+            list(ex.arg_dict.items()) + list(ex.aux_dict.items())}
+
+
+def pair_shapes(symbol, batch, image_shape, executor):
+    """The distinct pairs of the bound graph as (x NHWC, w HWIO, stride,
+    pad) in the symbol's own channels, with the convs of each."""
+    from mxnet_tpu_torch.ops import nn as nn_ops
+    topo = symbol._topo()
+    _, _, entries = symbol._run_shape_inference(
+        {'data': (batch,) + tuple(image_shape)}, want_entries=True)
+    shapes = {}
+    for ci in sorted(executor.conv_bn_pairs(topo, symbol._outputs)):
+        conv = topo[ci]
+        n, c, h, w = entries[(id(conv.inputs[0][0]), conv.inputs[0][1])]
+        o, _, kh, kw = entries[(id(conv.inputs[1][0]), 0)]
+        _, stride, _, pad, _ = nn_ops.conv_params(conv.attrs)
+        key = ((n, h, w, c), (kh, kw, c, o), tuple(stride), tuple(pad))
+        shapes.setdefault(key, []).append(conv.name)
+    return shapes
+
+
+def resnet_kernel_checks(torch, cuda_conv, executor, shapes,
+                         device='cuda'):
+    """The kernel against its plain version at each shape the pair route
+    gives it (Cin zero-padded as executor.padded_cin pads it; seeded x
+    and w, w scaled by 0.05): y element by element (CONV_Y_TOL), s1 and
+    s2 within CONV_STATS_RTOL; and the kernel's device time beside the
+    bound of the symbol's conv and cuDNN's conv with the statistics
+    summed after it (bench_conv_bn's yardstick) on the unpadded
+    tensors."""
+    from mxnet_tpu_torch.tools import bench_conv_bn as bench
+    rows = []
+    for i, ((xs, ws, stride, pad), convs) in enumerate(sorted(
+            shapes.items())):
+        gen = torch.Generator(device=device).manual_seed(SEED + 40 + i)
+        cin = executor.padded_cin(xs[3])
+        x = torch.randn(xs, generator=gen, device=device,
+                        dtype=torch.bfloat16)
+        w = torch.randn(ws, generator=gen, device=device,
+                        dtype=torch.bfloat16) * 0.05
+        xk = torch.nn.functional.pad(x, (0, cin - xs[3])).contiguous()
+        wk = torch.nn.functional.pad(
+            w, (0, 0, 0, cin - xs[3])).contiguous()
+        y, s1, s2 = cuda_conv.conv_bn_stats_cuda(xk, wk, stride, pad)
+        py, p1, p2 = cuda_conv.conv_bn_stats_plain(xk, wk, stride, pad)
+        pf = py.float()
+        y_check = conv_y_mismatch(torch, cuda_conv, y, py, xk, wk, stride,
+                                  pad)
+        s1_check = stats_mismatch(torch, s1, p1, pf.abs().sum((0, 1, 2)))
+        s2_check = stats_mismatch(torch, s2, p2, (pf * pf).sum((0, 1, 2)))
+        row = dict(x=list(xs), w=list(ws), kernel_cin=cin,
+                   stride=list(stride), pad=list(pad), pairs=len(convs),
+                   convs=convs, y=y_check, s1=s1_check, s2=s2_check,
+                   ok=y_check['ok'] and s1_check['ok'] and s2_check['ok'])
+        del y, py, pf
+        row.update(bench.conv_bound(xs, ws, stride, pad, 'bfloat16'))
+        row['ms'] = bench.cuda_ms(lambda: cuda_conv.conv_bn_stats_cuda(
+            xk, wk, stride, pad), 5)
+        x_cl = x.permute(0, 3, 1, 2)
+        w_cl = w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        row['library_ms'] = bench.cuda_ms(
+            lambda: bench.yardstick(x_cl, w_cl, stride, pad), 5)
+        print('resnet kernel %-40s x%d  kernel %8.4f ms  cudnn+stats '
+              '%8.4f ms  bound %7.4f ms (%s)%s' % (
+                  '%s %s s%d' % (tuple(xs), tuple(ws), stride[0]),
+                  len(convs), row['ms'], row['library_ms'],
+                  row['bound_ms'], row['bound_by'],
+                  '  (Cin padded to %d)' % cin if cin != xs[3] else ''))
+        rows.append(row)
+        del x, w, xk, wk
+    torch.cuda.synchronize()
+    return rows
+
+
+def pair_symbol(mx, ws, stride, pad):
+    """One conv -> train-mode BatchNorm pair in bf16: float32 data cast to
+    bfloat16, then the conv (no bias) and the BatchNorm."""
+    data = mx.sym.Cast(mx.sym.Variable('data'), dtype='bfloat16')
+    conv = mx.sym.Convolution(data, kernel=tuple(ws[:2]), num_filter=ws[3],
+                              stride=tuple(stride), pad=tuple(pad),
+                              no_bias=True, name='conv')
+    return mx.sym.BatchNorm(conv, fix_gamma=False, eps=2e-5, momentum=0.9,
+                            name='bn')
+
+
+def pair_executor_checks(torch, mx, cuda_conv, shapes, ctx):
+    """At each pair shape, the one-pair graph of `pair_symbol` bound by
+    simple_bind on ctx, every argument with a gradient, seeded data,
+    He-normal weight, gamma, beta and head gradient: one train forward and
+    backward with the executor's pair route on (one call of the conv +
+    statistics Function) and one with it off (the conv and the
+    BatchNorm's own sums). The output, the moving statistics and the
+    gradients of data, weight, gamma and beta, in relative norm. One
+    layer deep, bf16 rounding is not amplified, so this holds the route
+    (its gradient through the statistics) where the whole network
+    cannot."""
+    device = ctx.torch_device
+    on_card = device.type == 'cuda'
+    rows = []
+    for i, ((xs, ws, stride, pad), convs) in enumerate(sorted(
+            shapes.items())):
+        n, h, w, c = xs
+        sym = pair_symbol(mx, ws, stride, pad)
+        ex = sym.simple_bind(ctx, grad_req='write', data=(n, c, h, w))
+        gen = torch.Generator(device=device).manual_seed(SEED + 70 + i)
+        fan_in = ws[0] * ws[1] * ws[2]
+        cout = ws[3]
+
+        def randn(shape, scale=1.0, shift=0.0):
+            return torch.randn(shape, generator=gen, device=device) * \
+                scale + shift
+        ex.copy_params_from(
+            dict(data=randn((n, c, h, w)),
+                 conv_weight=randn(ex.arg_dict['conv_weight'].shape,
+                                   math.sqrt(2.0 / fan_in)),
+                 bn_gamma=randn((cout,), 0.1, 1.0),
+                 bn_beta=randn((cout,), 0.1)),
+            dict(bn_moving_mean=randn((cout,), 0.1),
+                 bn_moving_var=randn((cout,), 0.1).abs() + 1.0))
+        saved = save_params(ex)
+        states, launches = {}, {}
+        for route in (True, False):
+            restore(ex, saved)
+            ex._pair_route = route
+            before = (cuda_conv.CONV_BN_STATS_LAUNCHES if on_card else
+                      cuda_conv.CONV_BN_STATS_PLAIN_CALLS)
+            ex.forward(is_train=True)
+            cot = torch.randn(ex.outputs[0].shape, device=device,
+                              generator=torch.Generator(
+                                  device=device).manual_seed(SEED + 90 + i))
+            ex.backward(out_grads=mx.nd.NDArray(cot, ctx))
+            launches[route] = (cuda_conv.CONV_BN_STATS_LAUNCHES if on_card
+                               else cuda_conv.CONV_BN_STATS_PLAIN_CALLS) - \
+                before
+            states[route] = resnet_state(torch, ex)
+        ex._pair_route = True
+        got, ref = states[True], states[False]
+        rows.append(dict(
+            x=list(xs), w=list(ws), stride=list(stride), pad=list(pad),
+            pairs=len(convs), launches_route=launches[True],
+            launches_unfused=launches[False],
+            finite=all(bool(torch.isfinite(v).all()) for v in got.values()),
+            rel_err={k: rel_err(torch, got[k], ref[k]) for k in ref}))
+        del ex, states, got, ref
+    return rows
+
+
+def pair_bound(name):
+    """The bound of a quantity of a pair check, by its state key."""
+    if name.startswith('grad '):
+        return RESNET_GRAD_REL
+    return RESNET_OUT_REL if name == 'output' else RESNET_AUX_REL
+
+
+def resnet_gate(run):
+    """Phase 9's checks on a run's numbers: a list of what failed, empty
+    when it passed. `run` holds the launches of the eval forward and of
+    each train step, the gradients' finiteness and which are zero, the
+    unfused step's and the cut ResNet's relative errors (their gradients'
+    are reported, not gated), the losses of the steps on one batch, the
+    kernel checks and the one-pair executor checks."""
+    bad = []
+    if run['eval_launches'] != 0:
+        bad.append('the eval forward launched the kernel %d times, '
+                   'expected 0' % run['eval_launches'])
+    for i, n in enumerate(run['train_launches']):
+        if n != RESNET_PAIRS:
+            bad.append('train step %d launched the kernel %d times, '
+                       'expected %d' % (i, n, RESNET_PAIRS))
+    if not run['grad_finite']:
+        bad.append('a gradient is not finite')
+    if run['grad_zero'] != ['bn_data_gamma'] or \
+            not run['bn_data_gamma_zero']:
+        bad.append('zero gradients: %s; only bn_data_gamma (fix_gamma) '
+                   'should be, and exactly' % run['grad_zero'])
+    unfused = run['unfused']
+    if unfused['launches'] != 0:
+        bad.append('the step with the pair route off launched the kernel '
+                   '%d times' % unfused['launches'])
+    if not unfused['loss_err'] <= RESNET_LOSS_ATOL:
+        bad.append('unfused: loss differs by %.3g (bound %.3g)'
+                   % (unfused['loss_err'], RESNET_LOSS_ATOL))
+    if run['cut']['launches'] != CUT_RESNET_PAIRS:
+        bad.append('cut: the gpu step launched the kernel %d times, '
+                   'expected %d' % (run['cut']['launches'],
+                                    CUT_RESNET_PAIRS))
+    for what in ('unfused', 'cut'):
+        cmp_ = run[what]
+        errs = dict(cmp_['aux_rel'], output=cmp_['out_rel'])
+        for name, err in errs.items():
+            bound = RESNET_OUT_REL if name == 'output' else RESNET_AUX_REL
+            if not err <= bound:
+                bad.append('%s: %s differs by %.3g (bound %.3g)'
+                           % (what, name, err, bound))
+    losses = run['losses']
+    if not losses[-1] < losses[0]:
+        bad.append('the loss on one batch did not fall: %s' % losses)
+    for row in run['kernel_checks']:
+        if not row['ok']:
+            bad.append('the kernel disagrees with its plain version at %s'
+                       % row)
+    if not run['pair_checks']:
+        bad.append('no one-pair executor check ran')
+    for row in run['pair_checks']:
+        where = '%s %s s%s' % (row['x'], row['w'], row['stride'])
+        if row['launches_route'] != 1 or row['launches_unfused'] != 0:
+            bad.append('pair %s: the route launched the kernel %d times '
+                       'and the unfused pair %d, expected 1 and 0'
+                       % (where, row['launches_route'],
+                          row['launches_unfused']))
+        if not row['finite']:
+            bad.append('pair %s: a value is not finite' % where)
+        for name, err in row['rel_err'].items():
+            if not err <= pair_bound(name):
+                bad.append('pair %s: %s differs by %.3g between the route '
+                           'and the unfused pair (bound %.3g)'
+                           % (where, name, err, pair_bound(name)))
+    return bad
+
+
+def cut_resnet_check(torch, mx, cuda_conv, gpu):
+    """The cut ResNet in bf16 with the pair route, one step on gpu(0)
+    (the kernel) and one on cpu(0) (its plain version) from the same
+    seeded values."""
+    symbol = mx.models.resnet.resnet(dtype='bfloat16', **CUT_RESNET)
+    shape = CUT_RESNET['image_shape']
+    params = resnet_params(symbol, dict(data=(CUT_RESNET_BATCH,) + shape),
+                           CUT_RESNET['num_classes'], SEED + 60)
+    states = {}
+    launches = None
+    for key, ctx in (('gpu', gpu), ('cpu', mx.cpu(0))):
+        ex = bind_resnet(mx, symbol, ctx, CUT_RESNET_BATCH, shape, params)
+        before = cuda_conv.CONV_BN_STATS_LAUNCHES
+        ex.forward_backward()
+        if key == 'gpu':
+            launches = cuda_conv.CONV_BN_STATS_LAUNCHES - before
+        states[key] = {k: v.cpu() for k, v in resnet_state(torch, ex).items()}
+    out = compare_states(torch, states['gpu'], states['cpu'])
+    return dict(out, launches=launches, grad_spread=spread(out['grad_rel']))
+
+
+def kernel_class(name):
+    """The class of a CUDA kernel by its name, for phase 9's breakdown."""
+    n = name.lower()
+    if 'conv_bn_stats' in n:
+        return 'conv_bn_stats kernel (and its finalize)'
+    if 'direct_copy' in n:
+        return 'copies (direct_copy_kernel_cuda)'
+    if any(k in n for k in ('cudnn', 'xmma', 'fprop', 'dgrad', 'wgrad',
+                            'conv', 'nchwtonhwc', 'nhwctonchw',
+                            'implicit', 'cutlass')):
+        return 'cuDNN convolutions'
+    if 'gemm' in n:
+        return 'GEMM (FullyConnected)'
+    if 'pool' in n:
+        return 'pooling'
+    if 'reduce' in n:
+        return 'reductions (BatchNorm statistics, sums)'
+    if 'elementwise' in n:
+        return 'elementwise (BatchNorm scale and shift, ReLU, adds, casts)'
+    return 'other'
+
+
+def op_device_ms(events, key):
+    """Device time (ms) under the op or autograd node `key`, its children's
+    kernels included."""
+    total = 0.0
+    for e in events:
+        if e.key == key:
+            total += (getattr(e, 'device_time_total', None) or
+                      getattr(e, 'cuda_time_total', 0)) / 1e3
+    return total
+
+
+def resnet_profile(torch, step, step_ms):
+    """One train step under torch.profiler: the device time by kernel
+    class, the device time under the conv + statistics Function's backward
+    and under the unpaired convs, and the device-busy share against the
+    timed step."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        step()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    # the copies (aten::copy_: casts, .contiguous(), .to()) by input shape
+    copies = [dict(shapes=str(e.input_shapes)[:160], count=e.count,
+                   ms=(getattr(e, 'device_time_total', None) or
+                       getattr(e, 'cuda_time_total', 0)) / 1e3)
+              for e in prof.key_averages(group_by_input_shape=True)
+              if e.key == 'aten::copy_']
+    copies = sorted(copies, key=lambda c: -c['ms'])[:10]
+    kernels = [e for e in events
+               if str(getattr(e, 'device_type', '')).endswith('CUDA')]
+    device_ms = sum(device_us(e) for e in kernels) / 1e3
+    classes = {}
+    for e in kernels:
+        c = classes.setdefault(kernel_class(e.key), dict(ms=0.0, launches=0))
+        c['ms'] += device_us(e) / 1e3
+        c['launches'] += e.count
+    for c in classes.values():
+        c['share'] = c['ms'] / max(device_ms, 1e-9)
+    ops = {
+        'conv_bn_stats Function backward (fold, cuDNN dgrad and wgrad)':
+            'autograd::engine::evaluate_function: _ConvBnStatsBackward',
+        'unpaired convs, forward (cuDNN)': 'aten::cudnn_convolution',
+        'unpaired convs, backward (cuDNN)':
+            'autograd::engine::evaluate_function: ConvolutionBackward0',
+    }
+    by_op = {}
+    for label, key in ops.items():
+        ms = op_device_ms(events, key)
+        by_op[label] = dict(op=key, ms=ms, share=ms / max(device_ms, 1e-9))
+    top = [dict(kernel=e.key[:160], ms=device_us(e) / 1e3, count=e.count)
+           for e in sorted(kernels, key=lambda e: -device_us(e))[:12]]
+    return dict(device_ms=device_ms, step_ms=step_ms,
+                device_busy_share=device_ms / step_ms, classes=classes,
+                by_op=by_op, top=top, copies_by_shape=copies)
+
+
+def resnet_phase(torch, mx, cuda_conv, ctx=None):
+    """Phase 9: the bf16 ResNet-50 v2 at batch 256 through simple_bind on
+    gpu(0): the eval forward (no kernel launch), the train step (33), its
+    gradients, the step with the pair route off, the kernel and a one-pair
+    graph through the executor at every shape the route gives it, the cut
+    ResNet on gpu(0) against cpu(0), timed steps with the route on and
+    off, timed eval forwards, and one step's profile."""
+    from mxnet_tpu_torch import executor
+    ctx = ctx or mx.gpu(0)
+    t0 = time.perf_counter()
+    symbol = mx.models.resnet.get_symbol(**RESNET)
+    shape = tuple(int(v) for v in RESNET['image_shape'].split(','))
+    params = resnet_params(symbol, dict(data=(RESNET_BATCH,) + shape),
+                           RESNET['num_classes'], SEED + 50)
+    ex = bind_resnet(mx, symbol, ctx, RESNET_BATCH, shape, params)
+    torch.cuda.synchronize()
+    bind_s = time.perf_counter() - t0
+    label = ex.arg_dict['softmax_label'].handle
+    if len(ex.pairs) != RESNET_PAIRS:
+        fail('resnet: the executor found %d conv -> BatchNorm pairs, '
+             'expected %d' % (len(ex.pairs), RESNET_PAIRS))
+    saved = save_params(ex)
+
+    # the eval forward: no pair route
+    cuda_conv.CONV_BN_STATS_LAUNCHES = 0
+    ex.forward(is_train=False)
+    torch.cuda.synchronize()
+    eval_launches = cuda_conv.CONV_BN_STATS_LAUNCHES
+    probs = ex.outputs[0].handle
+    eval_ok = tuple(probs.shape) == (RESNET_BATCH, RESNET['num_classes']) \
+        and bool(torch.isfinite(probs).all())
+
+    # the train step with the pair route, then without, from one start
+    ex.forward_backward()
+    fused = resnet_state(torch, ex)
+    fused_loss = nll(torch, ex, label)
+    grads = {k[5:]: v for k, v in fused.items() if k.startswith('grad ')}
+    grad_finite = all(bool(torch.isfinite(g).all()) for g in grads.values())
+    grad_zero = sorted(n for n, g in grads.items() if not bool(g.any()))
+    bn_data_gamma_zero = not bool(grads['bn_data_gamma'].any())
+    restore(ex, saved)
+    ex._pair_route = False
+    cuda_conv.CONV_BN_STATS_LAUNCHES = 0
+    ex.forward_backward()
+    torch.cuda.synchronize()
+    unfused_launches = cuda_conv.CONV_BN_STATS_LAUNCHES
+    unfused = resnet_state(torch, ex)
+    unfused_loss = nll(torch, ex, label)
+    ex._pair_route = True
+    unfused_cmp = compare_states(torch, fused, unfused)
+    unfused_cmp.update(loss_err=abs(fused_loss - unfused_loss),
+                       loss_fused=fused_loss, loss_unfused=unfused_loss,
+                       launches=unfused_launches,
+                       grad_spread=spread(unfused_cmp['grad_rel']))
+    del fused, unfused, grads
+    torch.cuda.empty_cache()
+
+    # the kernel, and one pair through the executor, at every shape the
+    # path gives it
+    shapes = pair_shapes(symbol, RESNET_BATCH, shape, executor)
+    kernel_checks = resnet_kernel_checks(torch, cuda_conv, executor, shapes,
+                                         ctx.torch_device)
+    pair_checks = pair_executor_checks(torch, mx, cuda_conv, shapes, ctx)
+    torch.cuda.empty_cache()
+
+    # the cut ResNet, gpu(0) against cpu(0)
+    cut = cut_resnet_check(torch, mx, cuda_conv, ctx)
+
+    # timed steps: forward_backward and w -= lr / batch * g through nd ops
+    def step():
+        ex.forward_backward()
+        for name, g in ex.grad_dict.items():
+            ex.arg_dict[name] -= g * (RESNET_LR / RESNET_BATCH)
+
+    def timed_steps():
+        restore(ex, saved)
+        losses, times, launches = [], [], []
+        for i in range(1 + RESNET_STEPS):
+            before = cuda_conv.CONV_BN_STATS_LAUNCHES
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+            launches.append(cuda_conv.CONV_BN_STATS_LAUNCHES - before)
+            losses.append(nll(torch, ex, label))
+        return losses, times, launches
+
+    # the main path: every count set to 0 just before it, read just after
+    torch.cuda.reset_peak_memory_stats()
+    cuda_conv.CONV_BN_STATS_LAUNCHES = 0
+    losses, times, train_launches = timed_steps()
+    train_path_launches = cuda_conv.CONV_BN_STATS_LAUNCHES
+    peak_bytes = torch.cuda.max_memory_allocated()
+    step_ms = sorted(times[1:])[len(times[1:]) // 2] * 1e3
+    step_device_ms = sum(device_us(e) for e in device_events(
+        torch, step)) / 1e3
+    # the same steps with the pair route off
+    ex._pair_route = False
+    cuda_conv.CONV_BN_STATS_LAUNCHES = 0
+    _, off_times, _ = timed_steps()
+    off_launches = cuda_conv.CONV_BN_STATS_LAUNCHES
+    off_ms = sorted(off_times[1:])[len(off_times[1:]) // 2] * 1e3
+    off_device_ms = sum(device_us(e) for e in device_events(
+        torch, step)) / 1e3
+    ex._pair_route = True
+    restore(ex, saved)
+
+    # eval forwards
+    eval_times = []
+    for i in range(1 + RESNET_EVAL_ITERS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ex.forward(is_train=False)
+        torch.cuda.synchronize()
+        eval_times.append(time.perf_counter() - t1)
+    eval_ms = sorted(eval_times[1:])[len(eval_times[1:]) // 2] * 1e3
+    eval_device_ms = sum(device_us(e) for e in device_events(
+        torch, lambda: ex.forward(is_train=False))) / 1e3
+
+    profile = resnet_profile(torch, step, step_ms)
+    for label_, c in sorted(profile['classes'].items(),
+                            key=lambda kv: -kv[1]['ms']):
+        print('resnet profile: %-62s %8.3f ms %5.1f %%  %5d launches'
+              % (label_, c['ms'], 100 * c['share'], c['launches']))
+    for label_, c in profile['by_op'].items():
+        print('resnet profile: %-62s %8.3f ms %5.1f %%'
+              % (label_, c['ms'], 100 * c['share']))
+
+    run = dict(
+        config=dict(RESNET, batch=RESNET_BATCH, pairs=len(ex.pairs),
+                    convs=sum(1 for n in symbol._topo() if n.op is not None
+                              and n.op.name == 'Convolution')),
+        bind_s=bind_s, eval_launches=eval_launches, eval_ok=eval_ok,
+        train_launches=train_launches,
+        train_path_launches=train_path_launches,
+        grad_finite=grad_finite, grad_zero=grad_zero,
+        bn_data_gamma_zero=bn_data_gamma_zero,
+        unfused=unfused_cmp, cut=cut, losses=losses, lr=RESNET_LR,
+        step_ms=[t * 1e3 for t in times], step_ms_median=step_ms,
+        step_device_ms=step_device_ms,
+        images_per_s=RESNET_BATCH / (step_ms / 1e3),
+        peak_bytes=peak_bytes,
+        route_off=dict(step_ms=[t * 1e3 for t in off_times],
+                       step_ms_median=off_ms, step_device_ms=off_device_ms,
+                       images_per_s=RESNET_BATCH / (off_ms / 1e3),
+                       launches=off_launches),
+        eval_ms=[t * 1e3 for t in eval_times], eval_ms_median=eval_ms,
+        eval_images_per_s=RESNET_BATCH / (eval_ms / 1e3),
+        eval_device_ms=eval_device_ms,
+        eval_device_busy_share=eval_device_ms / eval_ms,
+        kernel_checks=kernel_checks, pair_checks=pair_checks,
+        profile=profile)
+    print('resnet ' + json.dumps(run))
+    bad = resnet_gate(run)
+    if not eval_ok:
+        bad.append('the eval forward gave %s probabilities or non-finite '
+                   'ones' % (tuple(probs.shape),))
+    if off_launches:
+        bad.append('the timed steps with the pair route off launched the '
+                   'kernel %d times' % off_launches)
+    if bad:
+        fail('resnet: ' + '; '.join(bad))
+    print('resnet: %.1f ms a train step (%.0f images/s, device %.1f ms), '
+          'route off %.1f ms (device %.1f ms); %.1f ms an eval forward '
+          '(%.0f images/s, device busy %.1f %%), peak %.2f GB, launches a '
+          'step %s; whole-step gradients, route on against off: median '
+          '%.3g, max %.3g (reported)'
+          % (step_ms, run['images_per_s'], step_device_ms, off_ms,
+             off_device_ms, eval_ms, run['eval_images_per_s'],
+             100 * run['eval_device_busy_share'], peak_bytes / 1e9,
+             train_launches, unfused_cmp['grad_spread']['median'],
+             unfused_cmp['grad_spread']['max']))
+    return run
+
+
 def main(argv=None):
     import argparse
     parser = argparse.ArgumentParser(
@@ -1642,7 +2302,7 @@ def main(argv=None):
                                                     v.split(',')},
                         default=ALL_PHASES,
                         help='build, then run only these phases (a comma '
-                             'list of 2-8); the kernels line needs all')
+                             'list of 2-9); the kernels line needs all')
     parser.add_argument('--mutants', action='store_true',
                         help='check that phase 2\'s LM case fails each of '
                              'FWD_MUTANTS, phase 4\'s each of BWD_MUTANTS '
@@ -1662,7 +2322,7 @@ def main(argv=None):
         return
     phases = args.phases
     if not phases <= ALL_PHASES:
-        fail('--phases takes phases 2 to 8; got %s' % sorted(phases))
+        fail('--phases takes phases 2 to 9; got %s' % sorted(phases))
     sys.path.insert(0, str(root))
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import _build, cuda_conv, cuda_ops
@@ -1751,6 +2411,10 @@ def main(argv=None):
     if 8 in phases:
         rtc_run = rtc_phase(torch, mx)
 
+    # 9. the bf16 ResNet-50 through Symbol and the executor
+    if 9 in phases:
+        resnet = resnet_phase(torch, mx, cuda_conv)
+
     if phases != ALL_PHASES:
         print('phases %s passed' % sorted(phases))
         return
@@ -1804,7 +2468,7 @@ def main(argv=None):
             whole_backward_bound_ms=bwd_cases[0]['bounds']['whole'][
                 'bound_ms'],
             cases=per_case))
-    kernels.append(conv_kernel_entry(conv, sass))
+    kernels.append(conv_kernel_entry(conv, sass, resnet))
     kernels.append(rtc_kernel_entry(rtc_run))
     for kern in kernels:
         if kern['launches'] == 0:

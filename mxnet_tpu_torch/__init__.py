@@ -18,7 +18,14 @@ far:
 - the conv with fused BatchNorm statistics (`cuda_conv.conv2d_bn_stats`)
   on a hand-written implicit-GEMM kernel, with its bench
   (`tools.bench_conv_bn`, run on the card as
-  `python -m mxnet_tpu_torch.tools.bench_conv_bn`).
+  `python -m mxnet_tpu_torch.tools.bench_conv_bn`);
+- the symbolic path: `mx.sym` (`symbol`: Symbol, shape and dtype
+  inference, the JAX package's JSON), `executor` (`simple_bind`, `bind`,
+  forward, backward on torch autograd), the layers of `ops/nn.py`, the
+  model zoo's ResNet (`models`) and `profiler`. A bfloat16 ResNet-50
+  trains on the card with `mx.models.resnet.get_symbol(...,
+  dtype='bfloat16').simple_bind(mx.gpu(0), data=(256, 3, 224, 224))`,
+  its train-mode conv -> BatchNorm pairs on the conv + statistics kernel.
 
 Importing the package builds and compiles nothing: the kernels are
 compiled by `nvcc` at their first launch (`_build`), an `Rtc` body by
@@ -35,7 +42,16 @@ from . import ndarray as nd
 from . import random
 from . import autograd
 from . import rtc
+from . import profiler
+from . import attribute
+from .attribute import AttrScope
+from .base import NameManager, Prefix
+from . import symbol
+from . import symbol as sym
+from . import executor
+from . import models
 
-__all__ = ['Context', 'MXNetError', 'autograd', 'cpu', 'current_context',
-           'gpu', 'nd', 'ndarray', 'num_gpus', 'random', 'resolve_device',
-           'rtc', 'tpu']
+__all__ = ['AttrScope', 'Context', 'MXNetError', 'NameManager', 'Prefix',
+           'attribute', 'autograd', 'cpu', 'current_context', 'executor',
+           'gpu', 'models', 'nd', 'ndarray', 'num_gpus', 'profiler',
+           'random', 'resolve_device', 'rtc', 'sym', 'symbol', 'tpu']

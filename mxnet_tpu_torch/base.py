@@ -1,10 +1,11 @@
 """Foundation utilities: the counterpart of mxnet_tpu/base.py, as far as
-the port's modules use it (the error type, crash-safe file writes and
-attribute parsing)."""
+the port's modules use it (the error type, crash-safe file writes, the
+name manager of symbol construction and attribute parsing)."""
 import ast
 import contextlib
 import os
 import tempfile
+import threading
 
 
 class MXNetError(Exception):
@@ -45,6 +46,58 @@ def atomic_file(fname, mode='wb'):
         except OSError:
             pass
         raise
+
+
+class _NameManager:
+    """Automatic op naming, mirroring python/mxnet/name.py.
+
+    Thread-local current manager; `with NameManager():` scopes a fresh
+    counter space.
+    """
+    _current = threading.local()
+
+    def __init__(self):
+        self._counter = {}
+        self._old = None
+
+    def get(self, name, hint):
+        if name:
+            return name
+        hint = hint.lower()
+        seq = self._counter.get(hint, 0)
+        self._counter[hint] = seq + 1
+        return '%s%d' % (hint, seq)
+
+    def __enter__(self):
+        self._old = getattr(_NameManager._current, 'value', None)
+        _NameManager._current.value = self
+        return self
+
+    def __exit__(self, *args):
+        _NameManager._current.value = self._old
+
+
+NameManager = _NameManager
+
+
+def current_name_manager():
+    mgr = getattr(_NameManager._current, 'value', None)
+    if mgr is None:
+        mgr = _NameManager()
+        _NameManager._current.value = mgr
+    return mgr
+
+
+class Prefix(_NameManager):
+    """Name manager that always attaches a prefix (python/mxnet/name.py:70)."""
+
+    def __init__(self, prefix):
+        super().__init__()
+        self._prefix = prefix
+
+    def get(self, name, hint):
+        name = super().get(name, hint)
+        return self._prefix + name
 
 
 def attr_value(v):
@@ -94,6 +147,12 @@ def torch_dtype(dtype):
     if name not in _DTYPE_NAMES:
         raise TypeError('no torch dtype for %r' % (dtype,))
     return getattr(torch, name)
+
+
+def dtype_name(dtype):
+    """The name of a dtype given as `torch_dtype` takes it: 'float32',
+    'bfloat16', ..."""
+    return str(torch_dtype(dtype)).replace('torch.', '')
 
 
 def numpy_dtype(dtype):

@@ -36,6 +36,9 @@ from .cuda_ops import _KERNEL_DTYPES, _launch
 # Launches of the kernel, counted by its wrapper where it launches; a run
 # resets it to see whether its path used the kernel.
 CONV_BN_STATS_LAUNCHES = 0
+# Calls of the autograd Function on CPU tensors, which take the plain
+# version: the CPU tests' view of the same path.
+CONV_BN_STATS_PLAIN_CALLS = 0
 
 # (H, Cin, Cout, K, stride, count): every conv feeding a BatchNorm in the
 # ResNet-50 body (the 7x7 stem excluded), as in the JAX package's
@@ -184,9 +187,11 @@ class _ConvBnStats(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w, stride, pad):
+        global CONV_BN_STATS_PLAIN_CALLS
         x, w = x.contiguous(), w.contiguous()
         if x.device.type == 'cpu':
             y, s1, s2 = conv_bn_stats_plain(x, w, stride, pad)
+            CONV_BN_STATS_PLAIN_CALLS += 1
         else:
             y, s1, s2 = conv_bn_stats_cuda(x, w, stride, pad)
         ctx.save_for_backward(x, w, y)

@@ -1,0 +1,574 @@
+"""Executor: execution of a bound Symbol, the counterpart of the core of
+mxnet_tpu/executor.py (reference GraphExecutor,
+src/executor/graph_executor.cc).
+
+`forward` walks the symbol's DAG op by op on torch tensors (PyTorch
+launches each op's kernels asynchronously on the device's stream), and
+the train-mode walk is differentiated by torch autograd where the JAX
+package takes jax.vjp of one jitted function; there is no jit and no
+compiled-program cache.
+
+Semantics kept from the JAX package and the reference:
+  * arg/grad/aux NDArray dictionaries owned by the executor;
+  * grad_req write/add/null per argument;
+  * aux states (BatchNorm's moving statistics) updated once by each
+    train-mode forward, and not by backward: `backward()` differentiates
+    the autograd graph of the last `forward(is_train=True)`, where the
+    JAX package reruns the forward from the aux states it started from,
+    so both leave them updated once;
+  * backward() with no head gradients seeds ones, which loss ops
+    (SoftmaxOutput) ignore but as a scale.
+
+The NHWC layout pass (MXNET_TPU_LAYOUT_OPT: 'auto', the default, is on
+for a gpu context and off for cpu; '1' on; '0' off) carries 4-D
+activations channels-last through Convolution, Pooling, BatchNorm and
+the elementwise ops, and turns them back to NCHW where an op needs the
+semantic layout (Flatten, FullyConnected, ...).
+
+The conv -> BatchNorm pair route. A 2-D Convolution with no bias, one
+group and no dilation, whose output's only use is input 0 of a
+BatchNorm on axis 1 without use_global_stats, is a pair (`pairs`, found
+at bind). In a train-mode forward on bfloat16 data and weight, the pair
+runs as `cuda_conv.conv2d_bn_stats` on the NHWC activation and the HWIO
+weight, the conv kernel returning y with the float32 sums of y and y^2,
+and the BatchNorm takes mean = s1 / m and var = max(s2 / m - mean^2, 0)
+from them, not from its own sums: the one-pass statistics the JAX
+BatchNorm takes in bfloat16, differentiable through s1 and s2. Float32
+BatchNorm takes the two-pass variance, so float32 pairs stay unfused; in
+eval mode and on unpaired convs the conv is F.conv2d. Where Cin is not
+a multiple of KERNEL_CIN_MULTIPLE (the stem's 3 channels), x and w are
+zero-padded to the next multiple, which the kernel takes by TMA instead
+of by plain loads; the zeros change neither y nor the sums. There is no
+fallback: the route raises where the kernel does not build or launch.
+"""
+import os
+import warnings
+from collections import OrderedDict
+
+import numpy as np
+import torch
+
+from . import cuda_conv
+from . import ndarray as nd
+from . import profiler
+from . import random as _random
+from .base import MXNetError, torch_dtype
+from .context import Context
+from .ops import nn as _nn
+from .ops.registry import OpContext, asbool, astuple, normalize_axis
+
+# elementwise ops whose outputs follow the input permutation unchanged
+_LAYOUT_FLEX = frozenset((
+    'Activation', 'Dropout', 'elemwise_add', 'elemwise_sub',
+    'elemwise_mul', 'elemwise_div', '_grad_add', '_copy', 'BlockGrad',
+    'Cast', 'relu', 'sigmoid', 'tanh', 'softsign', 'clip',
+    '_plus_scalar', '_minus_scalar', '_mul_scalar', '_div_scalar',
+    '_maximum_scalar', '_minimum_scalar', '_CrossDeviceCopy',
+))
+
+
+def _to_nchw(v, cur):
+    return v.permute(0, 3, 1, 2) if cur == 'NHWC' else v
+
+
+def _to_nhwc(v, cur):
+    """v channels-last and contiguous, as the NHWC consumers take it."""
+    if cur == 'NHWC':
+        return v
+    return v.permute(0, 2, 3, 1).contiguous()
+
+
+def _layout_mode(op, attrs, vals):
+    """'io' = the op consumes and produces its data input in NHWC when
+    asked (the private __layout__ attr); 'elemwise' = the op is
+    permutation-transparent; None = the op needs semantic NCHW inputs."""
+    name = op.name
+    if name == 'Convolution':
+        return 'io' if len(astuple(attrs['kernel'])) == 2 else None
+    if name == 'Pooling':
+        return 'io' if vals[0].ndim == 4 else None
+    if name == 'BatchNorm':
+        if vals[0].ndim != 4:
+            return None
+        return 'io' if normalize_axis(attrs.get('axis', 1), 4) == 1 \
+            else None
+    if name in _LAYOUT_FLEX:
+        return 'elemwise'
+    return None
+
+
+# the input channel count the kernel's TMA path needs a multiple of
+KERNEL_CIN_MULTIPLE = 8
+
+
+def padded_cin(cin):
+    """The input channels the pair route gives the kernel for `cin`."""
+    return -(-cin // KERNEL_CIN_MULTIPLE) * KERNEL_CIN_MULTIPLE
+
+
+def conv_bn_pairs(topo, heads):
+    """{conv node index: BatchNorm node index} of the topo order `topo`
+    (heads: the symbol's output entries): each 2-D Convolution with
+    no_bias, num_group 1 and dilate 1 whose output's only use is input 0
+    of a BatchNorm on axis 1 without use_global_stats."""
+    index = {id(n): i for i, n in enumerate(topo)}
+    uses = {}
+    for n in topo:
+        for src, oi in n.inputs:
+            uses.setdefault((id(src), oi), []).append(n)
+    for n, oi in heads:
+        uses.setdefault((id(n), oi), []).append(None)
+    pairs = {}
+    for conv in topo:
+        if conv.op is None or conv.op.name != 'Convolution':
+            continue
+        kernel, _, dilate, _, group = _nn.conv_params(conv.attrs)
+        if len(kernel) != 2 or group != 1 or any(d != 1 for d in dilate) \
+                or not asbool(conv.attrs.get('no_bias', False)):
+            continue
+        users = uses.get((id(conv), 0), [])
+        if len(users) != 1 or users[0] is None:
+            continue
+        bn = users[0]
+        if bn.op.name != 'BatchNorm' or bn.inputs[0][0] is not conv or \
+                normalize_axis(bn.attrs.get('axis', 1), 4) != 1 or \
+                asbool(bn.attrs.get('use_global_stats', False)):
+            continue
+        pairs[index[id(conv)]] = index[id(bn)]
+    return pairs
+
+
+def _tensor_of(value, dtype, device):
+    """A tensor of `value` (an NDArray, a torch tensor or anything
+    numpy takes, a bfloat16 numpy array included) in `dtype` on
+    `device`."""
+    if isinstance(value, nd.NDArray):
+        t = value._data.detach()
+    elif isinstance(value, torch.Tensor):
+        t = value.detach()
+    else:
+        a = np.asarray(value)
+        if a.dtype.name == 'bfloat16':
+            # numpy's bfloat16 (ml_dtypes) has no torch counterpart to
+            # convert through: its bits are bfloat16's
+            t = torch.from_numpy(a.view(np.uint16).copy()).view(
+                torch.bfloat16)
+        else:
+            t = torch.from_numpy(np.array(a))
+    return t.to(device=device, dtype=torch_dtype(dtype))
+
+
+def params_from_jax(arg_np, aux_np, ctx):
+    """The JAX executor's parameters, its arg_dict / aux_dict as numpy
+    arrays by name (OIHW conv weights, bfloat16 arrays included), as the
+    port's NDArrays on `ctx`, each in its array's dtype, which is the one
+    both packages' infer_type gives it. Returns (arg_params,
+    aux_params) for `Executor.copy_params_from`."""
+    def convert(arrays):
+        out = {}
+        for name, a in arrays.items():
+            a = np.asarray(a)
+            dtype = 'bfloat16' if a.dtype.name == 'bfloat16' else a.dtype
+            out[name] = nd.NDArray(_tensor_of(a, dtype, ctx.torch_device),
+                                   ctx)
+        return out
+    return convert(arg_np), convert(aux_np or {})
+
+
+def _check_ctx(ctx):
+    if not isinstance(ctx, Context):
+        raise TypeError('an executor binds to a Context (mx.gpu(0), '
+                        'mx.cpu()); got %r' % (ctx,))
+    if ctx.device_type == 'gpu' and not torch.cuda.is_available():
+        raise MXNetError('bind to %s: torch.cuda.is_available() is False; '
+                         'bind to mx.cpu() to run on the CPU' % ctx)
+
+
+class Executor:
+    def __init__(self, symbol, ctx, arg_dict, grad_dict, aux_dict,
+                 grad_req_dict):
+        _check_ctx(ctx)
+        self._symbol = symbol
+        self._ctx = ctx
+        self.arg_dict = arg_dict        # OrderedDict name -> NDArray
+        self.grad_dict = grad_dict      # name -> NDArray (or absent)
+        self.aux_dict = aux_dict        # OrderedDict name -> NDArray
+        self._grad_req = grad_req_dict  # name -> 'write'|'add'|'null'
+        self._arg_names = list(arg_dict.keys())
+        self._aux_names = list(aux_dict.keys())
+        self._diff_names = [n for n in self._arg_names
+                            if grad_req_dict.get(n, 'null') != 'null']
+        self.outputs = []
+        # the autograd graph of the last train-mode forward, for backward
+        self._stash = None
+        # the conv -> BatchNorm pair route, read by each forward; off,
+        # the pairs run unfused, which the tests and chip_smoke.py's
+        # phase 9 compare it with
+        self._pair_route = True
+        self._build()
+
+    def _build(self):
+        sym = self._symbol
+        self._topo = topo = sym._topo()
+        self._node_index = {id(n): i for i, n in enumerate(topo)}
+        self._arg_pos = {n: i for i, n in enumerate(self._arg_names)}
+        self._aux_pos = {n: i for i, n in enumerate(self._aux_names)}
+        self._out_entries = [(self._node_index[id(n)], i)
+                             for n, i in sym._outputs]
+        # shape-carrying init ops (zeros(shape=(0, H))) take their
+        # bidirectionally inferred shapes, when their attr has 0 dims
+        node_shapes = {}
+        if any(n.op is not None and n.op.needs_out_shapes and
+               any(d == 0 for d in astuple(n.attrs.get('shape', ())))
+               for n in topo):
+            known = {name: tuple(a.shape)
+                     for name, a in list(self.arg_dict.items()) +
+                     list(self.aux_dict.items())}
+            by_id = sym._infer_node_shapes(known)
+            node_shapes = {self._node_index[nid]: v
+                           for nid, v in by_id.items()}
+        self._node_shapes = node_shapes
+        self._has_aux_always = any(
+            n.op is not None and n.op.mutable_aux and n.op.aux_always
+            for n in topo)
+        pref = os.environ.get('MXNET_TPU_LAYOUT_OPT', 'auto')
+        if pref == '1':
+            self._layout_opt = True
+        elif pref == 'auto':
+            self._layout_opt = self._ctx.device_type == 'gpu'
+        elif pref in ('0', ''):
+            self._layout_opt = False
+        else:
+            raise ValueError("MXNET_TPU_LAYOUT_OPT must be 'auto', '1' or "
+                             "'0', got %r" % pref)
+        self.pairs = conv_bn_pairs(topo, sym._outputs)
+
+    # ------------------------------------------------------------------
+    def _pair_conv(self, node, vals, in_l):
+        """The conv of a pair on the conv + statistics kernel: (y NHWC,
+        (s1, s2))."""
+        _, stride, _, pad, _ = _nn.conv_params(node.attrs)
+        x = _to_nhwc(vals[0], in_l[0])
+        w = vals[1].permute(2, 3, 1, 0)       # OIHW -> HWIO
+        extra = padded_cin(x.shape[3]) - x.shape[3]
+        if extra:
+            # zero channels: the same y and sums; autograd slices the
+            # gradients of x and w back
+            x = torch.nn.functional.pad(x, (0, extra))
+            w = torch.nn.functional.pad(w, (0, 0, 0, extra))
+        y, s1, s2 = cuda_conv.conv2d_bn_stats(x, w, stride, pad)
+        return y, (s1, s2)
+
+    def _run_graph(self, arg_vals, aux_vals, is_train):
+        """Walk the DAG; returns (outputs, new aux values)."""
+        topo = self._topo
+        results = [None] * len(topo)   # per node: list of outputs
+        layouts = [None] * len(topo)   # per node: layout per output
+        new_aux = list(aux_vals)
+        pairs = self.pairs if self._pair_route and is_train else {}
+        sums = {}                      # BatchNorm node index -> (s1, s2)
+        device = self._ctx.torch_device
+        for ni, node in enumerate(topo):
+            if node.op is None:
+                if node.name in self._arg_pos:
+                    results[ni] = [arg_vals[self._arg_pos[node.name]]]
+                else:
+                    results[ni] = [new_aux[self._aux_pos[node.name]]]
+                layouts[ni] = ['NCHW']
+                continue
+            op = node.op
+            vals = [results[self._node_index[id(src)]][idx]
+                    for src, idx in node.inputs]
+            in_l = [layouts[self._node_index[id(src)]][idx]
+                    for src, idx in node.inputs]
+            if ni in pairs and vals[0].dtype == torch.bfloat16 and \
+                    vals[1].dtype == torch.bfloat16:
+                y, sums[pairs[ni]] = self._pair_conv(node, vals, in_l)
+                results[ni], layouts[ni] = [y], ['NHWC']
+                continue
+            eff_attrs = node.attrs
+            out_layout = 'NCHW'
+            if ni in sums:
+                mode = 'io'
+            elif self._layout_opt:
+                mode = _layout_mode(op, node.attrs, vals)
+            else:
+                mode = None
+            if mode == 'io':
+                # the data input rides NHWC; params and aux stay as-is
+                vals = [_to_nhwc(v, l) if j == 0 else _to_nchw(v, l)
+                        for j, (v, l) in enumerate(zip(vals, in_l))]
+                eff_attrs = dict(node.attrs, __layout__='NHWC')
+                out_layout = 'NHWC'
+            elif mode == 'elemwise' and 'NHWC' in in_l:
+                vals = [_to_nhwc(v, l) if v.ndim == 4 else v
+                        for v, l in zip(vals, in_l)]
+                out_layout = 'NHWC'
+            else:
+                vals = [_to_nchw(v, l) for v, l in zip(vals, in_l)]
+            n_aux = op.num_aux
+            args = vals[:len(vals) - n_aux] if n_aux else vals
+            auxs = vals[len(vals) - n_aux:] if n_aux else []
+            op_ctx = OpContext(
+                is_train=is_train,
+                rng=_random.generator(device) if op.needs_rng else None,
+                device=device,
+                out_shapes=self._node_shapes.get(ni)
+                if op.needs_out_shapes else None)
+            if ni in sums:
+                outs, updated = _nn.batch_norm(eff_attrs, args, auxs, op_ctx,
+                                               sums=sums.pop(ni))
+            else:
+                outs, updated = op.apply(eff_attrs, args, auxs, op_ctx)
+            results[ni] = outs
+            layouts[ni] = [out_layout if o.ndim == 4 else 'NCHW'
+                           for o in outs]
+            if op.mutable_aux and (is_train or op.aux_always) and updated:
+                for (src, _), newv in zip(node.inputs[len(vals) - n_aux:],
+                                          updated):
+                    if src.op is None and src.name in self._aux_pos:
+                        new_aux[self._aux_pos[src.name]] = newv.detach()
+        outputs = [_to_nchw(results[ni][oi], layouts[ni][oi])
+                   for ni, oi in self._out_entries]
+        return outputs, new_aux
+
+    # ------------------------------------------------------------------
+    def _name(self, suffix):
+        return '%s_%s' % (self._symbol.name or 'executor', suffix)
+
+    def _set_args(self, kwargs):
+        for k, v in kwargs.items():
+            if k not in self.arg_dict:
+                raise MXNetError('forward: unknown argument %s' % k)
+            dst = self.arg_dict[k]
+            if isinstance(v, nd.NDArray) and v.shape != dst.shape:
+                raise MXNetError('forward: shape mismatch for %s: %s vs '
+                                 'bound %s' % (k, v.shape, dst.shape))
+            # moved to the executor's device: inputs often arrive on
+            # cpu(0) from host-side iterators
+            dst._data = _tensor_of(v, dst._data.dtype,
+                                   self._ctx.torch_device)
+
+    def _train_forward(self):
+        """The train-mode walk under autograd: the diff args enter as
+        leaves that require grad. Returns (outputs, leaves)."""
+        arg_vals = []
+        leaves = []
+        diff = set(self._diff_names)
+        for n in self._arg_names:
+            t = self.arg_dict[n]._data.detach()
+            if n in diff:
+                t = t.requires_grad_(True)
+                leaves.append(t)
+            arg_vals.append(t)
+        aux_vals = [self.aux_dict[n]._data.detach() for n in self._aux_names]
+        with torch.enable_grad():
+            outs, new_aux = self._run_graph(arg_vals, aux_vals, True)
+        for n, v in zip(self._aux_names, new_aux):
+            self.aux_dict[n]._data = v
+        self.outputs = [nd.NDArray(o.detach(), self._ctx) for o in outs]
+        return outs, leaves
+
+    def forward(self, is_train=False, **kwargs):
+        if kwargs:
+            self._set_args(kwargs)
+        self._stash = None
+        if is_train:
+            with profiler.scope(self._name('forward_train')):
+                self._stash = self._train_forward()
+                profiler.synchronize(self._stash[0])
+            return self.outputs
+        arg_vals = [self.arg_dict[n]._data for n in self._arg_names]
+        aux_vals = [self.aux_dict[n]._data for n in self._aux_names]
+        with profiler.scope(self._name('forward')), torch.no_grad():
+            outs, new_aux = self._run_graph(arg_vals, aux_vals, False)
+            profiler.synchronize(outs)
+        if self._has_aux_always:
+            # update ops advance their states on every call
+            for n, v in zip(self._aux_names, new_aux):
+                self.aux_dict[n]._data = v
+        self.outputs = [nd.NDArray(o, self._ctx) for o in outs]
+        return self.outputs
+
+    def _backward(self, out_grads):
+        outs, leaves = self._stash
+        self._stash = None
+        heads = self._default_head_grads(out_grads)
+        live = [(o, h) for o, h in zip(outs, heads) if o.requires_grad]
+        grads = [None] * len(leaves)
+        if live and leaves:
+            grads = torch.autograd.grad([o for o, _ in live],
+                                        leaves, [h for _, h in live],
+                                        allow_unused=True)
+        # an argument no output depends on, or one cut off by a
+        # stop-gradient (fix_gamma's gamma), gets a zero gradient
+        grads = [torch.zeros_like(t) if g is None else g
+                 for t, g in zip(leaves, grads)]
+        self._write_grads(grads)
+        return grads
+
+    def backward(self, out_grads=None):
+        """Gradients of the last forward(is_train=True) into grad_dict.
+        Its autograd graph is freed: a second backward needs another
+        train-mode forward."""
+        if self._stash is None:
+            raise MXNetError('backward called before forward(is_train=True)')
+        with profiler.scope(self._name('backward')):
+            profiler.synchronize(self._backward(out_grads))
+
+    def forward_backward(self, out_grads=None, **kwargs):
+        """Train-mode forward and backward in one call (the path Module
+        takes). Returns the outputs."""
+        if kwargs:
+            self._set_args(kwargs)
+        with profiler.scope(self._name('forward_backward')):
+            self._stash = self._train_forward()
+            profiler.synchronize(self._backward(out_grads))
+        return self.outputs
+
+    def _default_head_grads(self, out_grads):
+        """No head grads: ones. Loss outputs (SoftmaxOutput) scale their
+        own gradient by the head cotangent, so ones give the reference's
+        backward(). On a graph of several outputs that are not losses,
+        ones give the gradient of their sum, which the reference refuses;
+        a warning says so once."""
+        if out_grads is None:
+            if len(self.outputs) > 1 and not getattr(
+                    self, '_warned_multi_head', False):
+                self._warned_multi_head = True
+                warnings.warn(
+                    'backward() without head gradients on a %d-output '
+                    'graph: gradients are of the SUM of outputs (loss ops '
+                    'are unaffected; pass out_grads for per-output '
+                    'control)' % len(self.outputs))
+            return [torch.ones_like(o._data) for o in self.outputs]
+        if isinstance(out_grads, nd.NDArray):
+            out_grads = [out_grads]
+        return [_tensor_of(g, o._data.dtype, self._ctx.torch_device)
+                for g, o in zip(out_grads, self.outputs)]
+
+    def _write_grads(self, grads):
+        for n, g in zip(self._diff_names, grads):
+            holder = self.grad_dict.get(n)
+            if holder is None:
+                continue
+            if self._grad_req.get(n) == 'add':
+                holder._data = holder._data + g
+            else:
+                holder._data = g
+
+    # ------------------------------------------------------------------
+    @property
+    def arg_arrays(self):
+        return [self.arg_dict[n] for n in self._arg_names]
+
+    @property
+    def grad_arrays(self):
+        return [self.grad_dict.get(n) for n in self._arg_names]
+
+    @property
+    def aux_arrays(self):
+        return [self.aux_dict[n] for n in self._aux_names]
+
+    @property
+    def output_dict(self):
+        return OrderedDict(zip(self._symbol.list_outputs(), self.outputs))
+
+    def copy_params_from(self, arg_params, aux_params=None,
+                         allow_extra_params=False):
+        for params, holders, what in ((arg_params, self.arg_dict,
+                                       'arguments'),
+                                      (aux_params or {}, self.aux_dict,
+                                       'aux states')):
+            for k, v in params.items():
+                if k in holders:
+                    dst = holders[k]
+                    dst._data = _tensor_of(v, dst._data.dtype,
+                                           self._ctx.torch_device)
+                elif not allow_extra_params:
+                    raise MXNetError('Found name "%s" not in %s' % (k, what))
+
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _normalize_grad_req(grad_req, arg_names):
+        if isinstance(grad_req, str):
+            return {n: grad_req for n in arg_names}
+        if isinstance(grad_req, (list, tuple)):
+            return dict(zip(arg_names, grad_req))
+        out = {n: 'null' for n in arg_names}
+        out.update(grad_req or {})
+        return out
+
+    @staticmethod
+    def _simple_bind(symbol, ctx, grad_req='write', type_dict=None,
+                     shared_exec=None, shape_kwargs=None, group2ctx=None):
+        """The reference simple_bind flow: infer shapes and dtypes,
+        allocate the arg, grad and aux arrays, bind."""
+        _check_group2ctx(group2ctx)
+        _check_ctx(ctx)
+        shape_kwargs = shape_kwargs or {}
+        arg_names = symbol.list_arguments()
+        aux_names = symbol.list_auxiliary_states()
+        arg_shapes, _, aux_shapes = symbol.infer_shape(**shape_kwargs)
+        type_dict = type_dict or {}
+        # parameters downstream of a Cast allocate in the compute dtype
+        arg_types, _, aux_types = symbol.infer_type(**type_dict)
+        inferred = dict(zip(arg_names, arg_types))
+        inferred.update(zip(aux_names, aux_types))
+        req = Executor._normalize_grad_req(grad_req, arg_names)
+
+        def alloc(holders, name, shape, dtype):
+            a = getattr(shared_exec, holders).get(name) \
+                if shared_exec is not None else None
+            if a is not None and a.shape == tuple(shape):
+                return a
+            return nd.zeros(shape, ctx, dtype=dtype)
+
+        arg_dict = OrderedDict()
+        grad_dict = {}
+        for name, shape in zip(arg_names, arg_shapes):
+            dtype = type_dict.get(name, inferred[name])
+            arg_dict[name] = alloc('arg_dict', name, shape, dtype)
+            if req.get(name, 'null') != 'null':
+                grad_dict[name] = alloc('grad_dict', name, shape, dtype)
+        aux_dict = OrderedDict()
+        for name, shape in zip(aux_names, aux_shapes):
+            aux_dict[name] = alloc('aux_dict', name, shape, inferred[name])
+        return Executor(symbol, ctx, arg_dict, grad_dict, aux_dict, req)
+
+    @staticmethod
+    def _bind(symbol, ctx, args, args_grad=None, grad_req='write',
+              aux_states=None, shared_exec=None, group2ctx=None):
+        _check_group2ctx(group2ctx)
+        _check_ctx(ctx)
+        arg_names = symbol.list_arguments()
+        aux_names = symbol.list_auxiliary_states()
+        if isinstance(args, (list, tuple)):
+            arg_dict = OrderedDict(zip(arg_names, args))
+        else:
+            arg_dict = OrderedDict((n, args[n]) for n in arg_names)
+        req = Executor._normalize_grad_req(grad_req, arg_names)
+        if args_grad is None:
+            grad_dict = {n: nd.zeros(arg_dict[n].shape, ctx,
+                                     dtype=arg_dict[n].dtype)
+                         for n in arg_names if req.get(n, 'null') != 'null'}
+        elif isinstance(args_grad, (list, tuple)):
+            grad_dict = dict(zip(arg_names, args_grad))
+        else:
+            grad_dict = dict(args_grad)
+        if aux_states is None:
+            _, _, aux_shapes = symbol.infer_shape(
+                **{n: a.shape for n, a in arg_dict.items()})
+            aux_dict = OrderedDict(
+                (n, nd.zeros(s, ctx)) for n, s in zip(aux_names, aux_shapes))
+        elif isinstance(aux_states, (list, tuple)):
+            aux_dict = OrderedDict(zip(aux_names, aux_states))
+        else:
+            aux_dict = OrderedDict((n, aux_states[n]) for n in aux_names)
+        return Executor(symbol, ctx, arg_dict, grad_dict, aux_dict, req)
+
+
+def _check_group2ctx(group2ctx):
+    if group2ctx:
+        raise MXNetError('group2ctx (ctx_group model parallelism) is not '
+                         'ported yet')

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from . import autograd as _autograd
+from . import profiler as _profiler
 from . import random as _random
 from .base import MXNetError, numpy_dtype, torch_dtype
 from .context import Context, current_context
@@ -425,25 +426,40 @@ def _owned(outs, inputs):
             if o.untyped_storage().data_ptr() in taken else o for o in outs]
 
 
-def _run(op, attrs, inputs, ctx):
+def _run(op, attrs, inputs, ctx, auxs=()):
     """Apply `op` on the device of `ctx`, recorded for autograd while
-    `autograd.record()` is on; returns its output tensors."""
-    for x in inputs:
+    `autograd.record()` is on; returns its output tensors. The aux
+    states (`auxs`, NDArrays) take no gradient; a mutable_aux op's new
+    values are written into them in train mode (every call with
+    aux_always), as the JAX package's invoke does."""
+    for x in list(inputs) + list(auxs):
         if x._ctx != ctx:
             raise MXNetError(
                 'operator %s: inputs on %s and %s; arrays are not moved '
                 'between devices implicitly, use copyto or as_in_context'
                 % (op.name, ctx, x._ctx))
     device = ctx.torch_device
+    is_train = _autograd.is_training()
     op_ctx = _reg.OpContext(
-        is_train=_autograd.is_training(),
+        is_train=is_train,
         rng=_random.generator(device) if op.needs_rng else None,
         device=device)
     recording = _autograd.is_recording()
     data = [_autograd._enter(x) if recording else x._data for x in inputs]
+    aux_data = [x._data.detach() for x in auxs]
     with torch.set_grad_enabled(recording):
-        outs, _ = op.apply(attrs, data, [], op_ctx)
-    outs = _owned(outs, data)
+        if _profiler.is_running() and _profiler.mode() == 'all':
+            # a span per imperative op under mode='all' (reference
+            # kAllOperator), the device synchronised inside it
+            with _profiler.scope(op.name, 'imperative'):
+                outs, new_auxs = op.apply(attrs, data, aux_data, op_ctx)
+                _profiler.synchronize(outs)
+        else:
+            outs, new_auxs = op.apply(attrs, data, aux_data, op_ctx)
+    outs = _owned(outs, data + aux_data)
+    if op.mutable_aux and (is_train or op.aux_always):
+        for holder, new in zip(auxs, new_auxs):
+            holder._data = new.detach()
     if recording:
         _autograd._recorded(outs)
     return outs
@@ -452,8 +468,11 @@ def _run(op, attrs, inputs, ctx):
 def invoke(op_name, inputs, attrs, out=None):
     op = _reg.get(op_name)
     attrs = {k: v for k, v in attrs.items() if v is not None}
-    ctx = inputs[0]._ctx if inputs else _attr_ctx(attrs)
-    results = [NDArray(o, ctx) for o in _run(op, attrs, inputs, ctx)]
+    n_aux = op.num_aux
+    args = inputs[:len(inputs) - n_aux] if n_aux else inputs
+    auxs = inputs[len(inputs) - n_aux:] if n_aux else []
+    ctx = args[0]._ctx if args else _attr_ctx(attrs)
+    results = [NDArray(o, ctx) for o in _run(op, attrs, args, ctx, auxs)]
     if out is not None:
         outlist = out if isinstance(out, (list, tuple)) else [out]
         for dst, src in zip(outlist, results):

@@ -1,0 +1,398 @@
+"""Neural-network layer operators: the counterpart of mxnet_tpu/ops/nn.py,
+for the ops ResNet-50 uses (FullyConnected, Activation, Convolution,
+Pooling, BatchNorm, SoftmaxOutput), over torch tensors.
+
+Each keeps its JAX namesake's names, attrs, shape and dtype rules and
+values. Convolution and Pooling take the executor's NHWC layout pass
+(the private `__layout__='NHWC'` attr: the data arrives channels-last
+and the output leaves channels-last), and BatchNorm re-targets its
+channel axis under it. SoftmaxOutput ignores the head gradient except as
+a scale, as the reference's loss ops do, through one
+`torch.autograd.Function`.
+
+The executor's conv -> BatchNorm pair route hands BatchNorm the sums of
+the conv kernel (`cuda_conv.conv2d_bn_stats`) through `batch_norm`'s
+`sums`, in place of its own.
+"""
+import math
+
+import torch
+import torch.nn.functional as F
+
+from .registry import (register, astuple, asbool, asint, asfloat,
+                       normalize_axis)
+from ..base import parse_attr_value
+
+
+# ---------------------------------------------------------------------------
+# FullyConnected: reference src/operator/fully_connected-inl.h
+# ---------------------------------------------------------------------------
+
+def _fc_names(attrs):
+    if asbool(attrs.get('no_bias', False)):
+        return ['data', 'weight']
+    return ['data', 'weight', 'bias']
+
+
+def _fc_infer_shape(attrs, in_shapes):
+    num_hidden = asint(attrs['num_hidden'])
+    flatten = asbool(attrs.get('flatten', True))
+    if in_shapes[0] is not None and in_shapes[1] is None:
+        d = in_shapes[0]
+        # the feature dims must be known (the batch may still be 0)
+        # before the weight's shape can be filled in
+        if all(x != 0 for x in d[1:]):
+            in_dim = math.prod(d[1:]) if flatten else d[-1]
+            in_shapes[1] = (num_hidden, in_dim)
+    if len(in_shapes) > 2 and in_shapes[2] is None:
+        in_shapes[2] = (num_hidden,)
+    return in_shapes
+
+
+def _fc_infer_shape_bwd(attrs, in_shapes, out_shapes):
+    """The batch dim flows from the output back to the data."""
+    out = out_shapes[0] if out_shapes else None
+    d = in_shapes[0]
+    if out is not None and out[0] != 0 and d is not None and d[0] == 0:
+        in_shapes[0] = (out[0],) + tuple(d[1:])
+    return in_shapes
+
+
+@register('FullyConnected', input_names=_fc_names,
+          infer_shape=_fc_infer_shape, infer_shape_bwd=_fc_infer_shape_bwd,
+          hint='fullyconnected')
+def _fully_connected(attrs, data, weight, bias=None):
+    x = data.reshape(data.shape[0], -1) \
+        if asbool(attrs.get('flatten', True)) else data
+    out = torch.matmul(x, weight.t())
+    if bias is not None:
+        out = out + bias
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Activation: reference src/operator/activation-inl.h
+# ---------------------------------------------------------------------------
+
+_ACTS = {
+    'relu': torch.relu,
+    'sigmoid': torch.sigmoid,
+    'tanh': torch.tanh,
+    # jax.nn.softplus is logaddexp(x, 0)
+    'softrelu': lambda x: torch.logaddexp(x, torch.zeros_like(x)),
+    'softsign': lambda x: x / (1 + torch.abs(x)),
+}
+
+
+@register('Activation', input_names=('data',), hint='activation')
+def _activation(attrs, data):
+    return _ACTS[str(parse_attr_value(attrs['act_type']))](data)
+
+
+# ---------------------------------------------------------------------------
+# SoftmaxOutput: its backward is softmax(x) - onehot(label), whatever the
+# head gradient beyond a scale (reference softmax_output-inl.h)
+# ---------------------------------------------------------------------------
+
+def _softmax_axis(params, ndim):
+    multi_output, preserve_shape = params[3], params[5]
+    if preserve_shape or (not multi_output and ndim <= 2):
+        return ndim - 1
+    return 1
+
+
+class _SoftmaxOutput(torch.autograd.Function):
+    """softmax of data along the class axis; the custom VJP of
+    mxnet_tpu/ops/nn.py's _softmax_output_fn."""
+
+    @staticmethod
+    def forward(ctx, data, label, params):
+        out = torch.softmax(data, dim=_softmax_axis(params, data.ndim))
+        ctx.save_for_backward(out, label)
+        ctx.params = params
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out, label = ctx.saved_tensors
+        (grad_scale, ignore_label, use_ignore, _, normalization,
+         _) = ctx.params
+        axis = _softmax_axis(ctx.params, out.ndim)
+        k = out.shape[axis]
+        lab = label.to(torch.int32).long()
+        # jax.nn.one_hot: an out-of-range class is a row of zeros
+        onehot = (lab.unsqueeze(-1) == torch.arange(
+            k, device=out.device)).to(out.dtype)
+        grad = out - torch.movedim(onehot, -1, axis)
+        valid = None
+        if use_ignore:
+            mask = (lab != int(ignore_label)).to(out.dtype)
+            grad = grad * mask.unsqueeze(axis)
+            valid = torch.clamp(mask.sum(), min=1.0)
+        grad = grad * grad_scale
+        if normalization == 'batch':
+            grad = grad / out.shape[0]
+        elif normalization == 'valid':
+            grad = grad / (valid if valid is not None else lab.numel())
+        # the head cotangent scales it: ones from the executor, so the
+        # identity there, and a zero cotangent gives a zero gradient
+        return grad * g, torch.zeros_like(label), None
+
+
+def _softmax_label_shape(attrs, dshape):
+    if asbool(attrs.get('multi_output', False)) or len(dshape) > 2:
+        return (dshape[0],) + tuple(dshape[2:])
+    return (dshape[0],)
+
+
+@register('SoftmaxOutput', input_names=('data', 'label'),
+          aliases=('Softmax',), hint='softmaxoutput',
+          infer_shape=lambda attrs, s: (
+              s if s[0] is None or s[1] is not None
+              else [s[0], _softmax_label_shape(attrs, s[0])]))
+def _softmax_output(attrs, data, label):
+    params = (asfloat(attrs.get('grad_scale', 1.0)),
+              asfloat(attrs.get('ignore_label', -1.0)),
+              asbool(attrs.get('use_ignore', False)),
+              asbool(attrs.get('multi_output', False)),
+              str(parse_attr_value(attrs.get('normalization', 'null'))),
+              asbool(attrs.get('preserve_shape', False)))
+    return _SoftmaxOutput.apply(data, label, params)
+
+
+# ---------------------------------------------------------------------------
+# Convolution: reference src/operator/convolution-inl.h
+# ---------------------------------------------------------------------------
+
+def _conv_names(attrs):
+    if asbool(attrs.get('no_bias', False)):
+        return ['data', 'weight']
+    return ['data', 'weight', 'bias']
+
+
+def _conv_infer_shape(attrs, in_shapes):
+    kernel = astuple(attrs['kernel'])
+    num_filter = asint(attrs['num_filter'])
+    num_group = asint(attrs.get('num_group', 1))
+    if in_shapes[0] is not None and in_shapes[1] is None:
+        c = in_shapes[0][1]
+        in_shapes[1] = (num_filter, c // num_group) + kernel
+    if len(in_shapes) > 2 and in_shapes[2] is None:
+        in_shapes[2] = (num_filter,)
+    return in_shapes
+
+
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+
+
+def conv_params(attrs):
+    """(kernel, stride, dilate, pad, num_group) of a Convolution's attrs,
+    each spatial one a tuple of the kernel's rank."""
+    kernel = astuple(attrs['kernel'])
+    nd = len(kernel)
+    return (kernel, astuple(attrs.get('stride', (1,) * nd), nd),
+            astuple(attrs.get('dilate', (1,) * nd), nd),
+            astuple(attrs.get('pad', (0,) * nd), nd),
+            asint(attrs.get('num_group', 1)))
+
+
+@register('Convolution', input_names=_conv_names,
+          infer_shape=_conv_infer_shape, hint='convolution',
+          aliases=('Convolution_v1',))
+def _convolution(attrs, data, weight, bias=None):
+    kernel, stride, dilate, pad, num_group = conv_params(attrs)
+    nhwc_io = attrs.get('__layout__') == 'NHWC' and len(kernel) == 2
+    # the executor's layout pass: NHWC data is an NCHW tensor in the
+    # channels-last memory format, which cuDNN takes as it lies and
+    # answers in kind, so the output's NHWC view is contiguous
+    x = data.permute(0, 3, 1, 2) if nhwc_io else data
+    out = _CONV[len(kernel)](x, weight, bias, stride=stride, padding=pad,
+                             dilation=dilate, groups=num_group)
+    return out.permute(0, 2, 3, 1) if nhwc_io else out
+
+
+# ---------------------------------------------------------------------------
+# Pooling: reference src/operator/pooling-inl.h
+# ---------------------------------------------------------------------------
+
+_MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
+
+
+def _pool_pads(attrs, sizes, kernel, stride, pad):
+    """(lo, hi) padding per spatial dim: the JAX package's asymmetric
+    padding, hi = max((out - 1) * s + k - size - p, p), with out rounded
+    down ('valid') or up ('full')."""
+    convention = str(parse_attr_value(attrs.get('pooling_convention',
+                                                'valid')))
+    pads = []
+    for size, k, s, p in zip(sizes, kernel, stride, pad):
+        if convention == 'full':
+            out = int(math.ceil((size + 2 * p - k) / s)) + 1
+        else:
+            out = (size + 2 * p - k) // s + 1
+        pads.append((p, max((out - 1) * s + k - size - p, p)))
+    return pads
+
+
+def _window_sum(x, kernel, stride):
+    """Sum over each window of the spatial dims of an NC... tensor (no
+    padding): an average pool scaled back, exact for 2-D and 3-D
+    (divisor_override=1), otherwise a strided view summed."""
+    nd = len(kernel)
+    if nd == 2:
+        return F.avg_pool2d(x, kernel, stride, divisor_override=1)
+    if nd == 3:
+        return F.avg_pool3d(x, kernel, stride, divisor_override=1)
+    for i, (k, s) in enumerate(zip(kernel, stride)):
+        x = x.unfold(2 + i, k, s)
+    return x.sum(tuple(range(x.ndim - nd, x.ndim)))
+
+
+@register('Pooling', input_names=('data',), hint='pooling',
+          aliases=('Pooling_v1',))
+def _pooling(attrs, data):
+    pool_type = str(parse_attr_value(attrs.get('pool_type', 'max')))
+    nhwc_io = attrs.get('__layout__') == 'NHWC' and data.ndim == 4
+    nspatial = data.ndim - 2
+    sp0 = 1 if nhwc_io else 2
+    if asbool(attrs.get('global_pool', False)):
+        axes = tuple(range(sp0, sp0 + nspatial))
+        if pool_type == 'max':
+            return torch.amax(data, dim=axes, keepdim=True)
+        if pool_type == 'sum':
+            return torch.sum(data, dim=axes, keepdim=True)
+        return torch.mean(data, dim=axes, keepdim=True)
+    kernel = astuple(attrs['kernel'])
+    stride = astuple(attrs.get('stride', (1,) * nspatial), nspatial)
+    pad = astuple(attrs.get('pad', (0,) * nspatial), nspatial)
+    sizes = data.shape[sp0:sp0 + nspatial]
+    pads = _pool_pads(attrs, sizes, kernel, stride, pad)
+    # F.pad takes (lo, hi) pairs from the last dim back; under NHWC the
+    # channel dim comes last and takes none
+    flat = [q for lo_hi in reversed(pads) for q in lo_hi]
+    if nhwc_io:
+        flat = [0, 0] + flat
+    if pool_type == 'max':
+        fill = -math.inf if data.is_floating_point() else \
+            torch.iinfo(data.dtype).min
+    else:
+        fill = 0
+    x = F.pad(data, flat, value=fill)
+    if nhwc_io:
+        x = x.permute(0, 3, 1, 2)      # channels-last NCHW view
+    if pool_type == 'max':
+        out = _MAX_POOL[nspatial](x, kernel, stride)
+    else:
+        out = _window_sum(x, kernel, stride)
+        if pool_type == 'avg':
+            # cuDNN COUNT_INCLUDE_PADDING, the reference default
+            out = out / float(math.prod(kernel))
+    return out.permute(0, 2, 3, 1) if nhwc_io else out
+
+
+# ---------------------------------------------------------------------------
+# BatchNorm: reference src/operator/batch_norm-inl.h (aux moving stats)
+# ---------------------------------------------------------------------------
+
+def _bn_infer_shape(attrs, in_shapes):
+    if in_shapes[0] is not None:
+        axis = normalize_axis(attrs.get('axis', 1), len(in_shapes[0]))
+        c = (in_shapes[0][axis],)
+        for i in range(1, len(in_shapes)):
+            if in_shapes[i] is None:
+                in_shapes[i] = c
+    return in_shapes
+
+
+def _bn_infer_dtype(attrs, in_dtypes):
+    """Scale, shift and the moving statistics stay float32 whatever the
+    compute dtype; the output follows the data."""
+    d = in_dtypes[0] if in_dtypes[0] is not None else torch.float32
+    f32 = torch.float32
+    n_out = 3 if asbool(attrs.get('output_mean_var', False)) else 1
+    return [d, f32, f32, f32, f32], [d] + [f32] * (n_out - 1)
+
+
+def bn_axis(attrs, ndim):
+    """The channel axis of a BatchNorm: its attr, or 3 when the layout
+    pass hands it NHWC data for axis 1."""
+    axis = normalize_axis(attrs.get('axis', 1), ndim)
+    if attrs.get('__layout__') == 'NHWC' and axis == 1 and ndim == 4:
+        return 3
+    return axis
+
+
+def batch_norm(attrs, inputs, auxs, op_ctx, sums=None):
+    """BatchNorm as the JAX package's _bn_compute: in train mode (without
+    use_global_stats) the batch statistics, float32 data by the two-pass
+    variance and lower precision by the one-pass sums, the moving
+    statistics updated from them without a gradient; else the moving
+    statistics. The normalisation is a per-channel scale and shift in
+    the data's dtype, differentiable through mean and var.
+
+    `sums` = (s1, s2), the float32 sum and sum of squares of the data per
+    channel taken elsewhere (the conv kernel of the executor's pair
+    route), replaces the one-pass sums; the gradient reaches them."""
+    data, gamma, beta = inputs
+    moving_mean, moving_var = auxs
+    in_dtype = data.dtype
+    eps = asfloat(attrs.get('eps', 1e-3))
+    momentum = asfloat(attrs.get('momentum', 0.9))
+    fix_gamma = asbool(attrs.get('fix_gamma', True))
+    use_global = asbool(attrs.get('use_global_stats', False))
+    output_mean_var = asbool(attrs.get('output_mean_var', False))
+    axis = bn_axis(attrs, data.ndim)
+    bshape = [1] * data.ndim
+    bshape[axis] = data.shape[axis]
+    if fix_gamma:
+        # ones, with no gradient: gamma's gradient is zero
+        gamma = torch.ones_like(gamma).detach()
+    gamma = gamma.to(torch.float32)
+    beta = beta.to(torch.float32)
+    red = tuple(i for i in range(data.ndim) if i != axis)
+
+    def apply(mean, var):
+        scale = gamma * torch.rsqrt(var + eps)
+        shift = beta - mean * scale
+        return data * scale.to(in_dtype).reshape(bshape) + \
+            shift.to(in_dtype).reshape(bshape)
+
+    if op_ctx.is_train and not use_global:
+        nelem = math.prod(data.shape[i] for i in red)
+        if sums is not None:
+            mean = sums[0] / nelem
+            var = torch.clamp(sums[1] / nelem - mean * mean, min=0.0)
+        elif data.dtype == torch.float32:
+            # full precision: the two-pass variance, which does not cancel
+            # when |mean| >> std
+            mean = torch.mean(data, dim=red)
+            var = torch.var(data, dim=red, unbiased=False)
+        else:
+            # low precision: one pass over the data for both sums
+            dataf = data.to(torch.float32)
+            mean = torch.sum(dataf, dim=red) / nelem
+            var = torch.clamp(
+                torch.sum(dataf * dataf, dim=red) / nelem - mean * mean,
+                min=0.0)
+        smean, svar = mean.detach(), var.detach()
+        new_mean = moving_mean * momentum + smean * (1 - momentum)
+        new_var = moving_var * momentum + svar * (1 - momentum)
+        outs = [apply(mean, var), mean, var] if output_mean_var \
+            else [apply(mean, var)]
+        return outs, [new_mean, new_var]
+    out = apply(moving_mean, moving_var)
+    outs = [out, moving_mean, moving_var] if output_mean_var else [out]
+    return outs, [moving_mean, moving_var]
+
+
+register('BatchNorm', input_names=('data', 'gamma', 'beta',
+                                   'moving_mean', 'moving_var'),
+         num_aux=2, mutable_aux=True,
+         infer_shape=_bn_infer_shape, infer_dtype=_bn_infer_dtype,
+         hint='batchnorm',
+         num_outputs=lambda attrs: 3 if asbool(
+             attrs.get('output_mean_var', False)) else 1,
+         output_names=lambda attrs: (
+             ['output', 'mean', 'var']
+             if asbool(attrs.get('output_mean_var', False)) else ['output']),
+         aliases=('BatchNorm_v1',), simple=False)(batch_norm)

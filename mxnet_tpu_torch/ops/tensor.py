@@ -90,7 +90,8 @@ def _mod(x, d):
 # ---------------------------------------------------------------------------
 
 def _reg_binary(name, fn, aliases=()):
-    @register(name, input_names=('lhs', 'rhs'), aliases=aliases)
+    @register(name, input_names=('lhs', 'rhs'), aliases=aliases,
+              shape_rule='same')
     def _op(attrs, lhs, rhs, _fn=fn):
         return _fn(lhs, rhs)
     return _op
@@ -113,7 +114,7 @@ _COMPARE = [('equal', torch.eq), ('not_equal', torch.ne),
 for _n, _f in _COMPARE:
     def _cmp(attrs, lhs, rhs, _f=_f):
         return _f(lhs, rhs).to(lhs.dtype)
-    register('_' + _n, input_names=('lhs', 'rhs'))(_cmp)
+    register('_' + _n, input_names=('lhs', 'rhs'), shape_rule='same')(_cmp)
 
 
 # ---------------------------------------------------------------------------
@@ -128,7 +129,7 @@ def _scalar(attrs, data):
 
 
 def _reg_scalar(name, fn):
-    @register(name, input_names=('data',))
+    @register(name, input_names=('data',), shape_rule='same')
     def _op(attrs, data, _fn=fn):
         return _fn(data, _scalar(attrs, data))
     return _op
@@ -159,7 +160,8 @@ for _n, _f in _COMPARE:
 # ---------------------------------------------------------------------------
 
 def _reg_unary(name, fn, aliases=()):
-    @register(name, input_names=('data',), aliases=aliases)
+    @register(name, input_names=('data',), aliases=aliases,
+              shape_rule='same')
     def _op(attrs, data, _fn=fn):
         return _fn(data)
     return _op
@@ -226,7 +228,7 @@ def _identity_like_rhs(attrs, lhs, rhs):
     return lhs
 
 
-@register('_CrossDeviceCopy', input_names=('data',))
+@register('_CrossDeviceCopy', input_names=('data',), shape_rule='same')
 def _cross_device_copy(attrs, data):
     return data
 
@@ -257,7 +259,10 @@ def _make_loss(attrs, data):
     return _MakeLoss.apply(data, asfloat(attrs.get('grad_scale', 1.0)))
 
 
-@register('Cast', input_names=('data',), aliases=('cast',))
+@register('Cast', input_names=('data',), aliases=('cast',),
+          infer_dtype=lambda attrs, in_dt: (
+              [torch.float32 if in_dt[0] is None else in_dt[0]],
+              [_dtype(attrs)]))
 def _cast(attrs, data):
     return data.to(_dtype(attrs))
 
@@ -693,7 +698,14 @@ def _as_index(t):
     return t.to(torch.int32).long()
 
 
-@register('Embedding', input_names=('data', 'weight'))
+def _embedding_infer_shape(attrs, in_shapes):
+    if in_shapes[1] is None:
+        in_shapes[1] = (asint(attrs['input_dim']), asint(attrs['output_dim']))
+    return in_shapes
+
+
+@register('Embedding', input_names=('data', 'weight'),
+          infer_shape=_embedding_infer_shape)
 def _embedding(attrs, data, weight):
     # the reference clips out-of-range ids to the table's edge
     idx = _as_index(data).clamp(0, weight.shape[0] - 1)
@@ -893,21 +905,35 @@ def _topk(attrs, data):
 # Init ops: made on the device of the invocation (op_ctx.device)
 # ---------------------------------------------------------------------------
 
-@register('_zeros', input_names=(), aliases=('zeros',), simple=False)
+def _init_shape(attrs, op_ctx):
+    """Init-op shape: the attr may carry unknown 0 dims (zeros(shape=(0,
+    H))), which bidirectional inference resolves and the executor passes
+    in as op_ctx.out_shapes."""
+    shape = astuple(attrs['shape'])
+    if any(d == 0 for d in shape) and op_ctx.out_shapes and \
+            op_ctx.out_shapes[0] is not None:
+        shape = tuple(op_ctx.out_shapes[0])
+    return shape
+
+
+@register('_zeros', input_names=(), aliases=('zeros',), simple=False,
+          needs_out_shapes=True)
 def _zeros(attrs, inputs, auxs, op_ctx):
-    return [torch.zeros(astuple(attrs['shape']), dtype=_dtype(attrs),
+    return [torch.zeros(_init_shape(attrs, op_ctx), dtype=_dtype(attrs),
                         device=op_ctx.device)], []
 
 
-@register('_ones', input_names=(), aliases=('ones',), simple=False)
+@register('_ones', input_names=(), aliases=('ones',), simple=False,
+          needs_out_shapes=True)
 def _ones(attrs, inputs, auxs, op_ctx):
-    return [torch.ones(astuple(attrs['shape']), dtype=_dtype(attrs),
+    return [torch.ones(_init_shape(attrs, op_ctx), dtype=_dtype(attrs),
                        device=op_ctx.device)], []
 
 
-@register('_full', input_names=(), aliases=('full',), simple=False)
+@register('_full', input_names=(), aliases=('full',), simple=False,
+          needs_out_shapes=True)
 def _full(attrs, inputs, auxs, op_ctx):
-    return [torch.full(astuple(attrs['shape']), asfloat(attrs['value']),
+    return [torch.full(_init_shape(attrs, op_ctx), asfloat(attrs['value']),
                        dtype=_dtype(attrs), device=op_ctx.device)], []
 
 
