@@ -6,6 +6,7 @@
     python3 chip_smoke.py --backward-case lm   # build, one case of phase 4
     python3 chip_smoke.py --conv-case main     # build, cases of phase 6
     python3 chip_smoke.py --phases 7,8         # build, phases 7 and 8 only
+    python3 chip_smoke.py --phases 10          # build, Module.fit only
     python3 chip_smoke.py --mutants            # phases 2, 4 and 6 against
                                                # broken kernels
 
@@ -96,7 +97,26 @@ Phases, each of which exits non-zero on failure:
    forward_backward and w -= lr / batch * g through nd ops (median ms,
    images/s, peak memory; the loss on the one batch must fall), the same
    with the pair route off, timed eval forwards, and one step's
-   torch.profiler breakdown.
+   torch.profiler breakdown;
+10. module: Module.fit trains the network of phase 9 (mx.mod.Module on
+   gpu(0), batch 256, bf16) for MODULE_EPOCHS epochs of MODULE_BATCHES
+   seeded batches staged by io.prefetch_to_device: momentum SGD with
+   weight decay on float32 masters (FusedSGD), a MultiFactorScheduler
+   step inside the run, Xavier initialisation, acc and top-5 metrics, a
+   Speedometer and do_checkpoint. Gated (module_gate): 33 kernel
+   launches a fit step, 0 in predict and score and in an epoch with the
+   pair route off; the lr schedule; weight decay on *_weight and *_gamma
+   only; float32 masters for exactly the bf16 parameters; every state
+   finite; one Module step against the executor step and the per-key
+   registered update ops (bf16 weights within one bf16 step, float32
+   states within MODULE_STATE_REL); three steps on staged batches equal
+   to the same steps on batches copied in the step; the loss on one
+   batch falling over MODULE_LOSS_STEPS steps; save_checkpoint with the
+   optimizer states, Module.load and one step equal to the uninterrupted
+   step bit for bit. Printed: the step time and images/s with the route
+   on and off, the Speedometer's rate, the update's host and device
+   time, update_metric's, the H2D copy of a batch, the staging stall,
+   peak memory, and one step's profile beside phase 9's.
 
 It prints one JSON line with every kernel's numbers, then the card's
 name and power limit from nvidia-smi, and last
@@ -378,7 +398,7 @@ CONV_SM90_MUTANTS = {
                          ': ' + _TRUNCATE + 'v[0], v[1]));'),
 }
 
-ALL_PHASES = frozenset(range(2, 10))
+ALL_PHASES = frozenset(range(2, 11))
 # phase 7: the imperative NDArray path's size (n x n inputs)
 ND_SIZE = 1024
 ND_HOST_CALLS = 2000
@@ -1240,10 +1260,11 @@ def conv_phase(torch, cuda_ops, cuda_conv, bench_conv_bn):
     return dict(cases=cases, grad=grad, bench=bench)
 
 
-def conv_kernel_entry(conv, sass, resnet):
+def conv_kernel_entry(conv, sass, resnet, module):
     """The conv_bn_stats entry of the kernels line: times at the main
     case's shape from the bench, errors from the cases, launches from the
-    ResNet-50 train steps of phase 9 (its main path)."""
+    ResNet-50 train steps of phase 9 (its main path) and of phase 10's
+    Module.fit."""
     xs, ws = CONV_CASES['main'][:2]
     main_shape = [xs[1], xs[3], ws[3], ws[0], CONV_CASES['main'][2][0]]
     bench = conv['bench']
@@ -1270,6 +1291,7 @@ def conv_kernel_entry(conv, sass, resnet):
         replaces='mxnet_tpu/pallas_conv.py:101',
         launches=resnet['train_path_launches'],
         launches_by_path=dict(resnet_train=resnet['train_path_launches'],
+                              module_fit=module['fit_launches'],
                               conv_bn_bench=bench['launches']),
         launches_per_train_step=resnet['train_launches'],
         launches_per_body_forward=bench['launches_per_body_forward'],
@@ -2049,6 +2071,8 @@ def kernel_class(name):
         return 'pooling'
     if 'reduce' in n:
         return 'reductions (BatchNorm statistics, sums)'
+    if 'multi_tensor_apply' in n or 'foreach' in n:
+        return 'optimizer update (torch._foreach_*)'
     if 'elementwise' in n:
         return 'elementwise (BatchNorm scale and shift, ReLU, adds, casts)'
     return 'other'
@@ -2287,6 +2311,596 @@ def resnet_phase(torch, mx, cuda_conv, ctx=None):
     return run
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: Module.fit trains the bf16 ResNet-50 v2 of phase 9 with
+# multi-precision momentum SGD, its conv -> BatchNorm pairs on the conv +
+# BN statistics kernel
+# ---------------------------------------------------------------------------
+
+MODULE_BATCHES = 6          # batches an epoch
+MODULE_EPOCHS = 2
+MODULE_OPT = dict(learning_rate=0.1, momentum=0.9, wd=1e-4,
+                  multi_precision=True)
+# the MultiFactorScheduler's milestone: lr x MODULE_LR_FACTOR after it
+MODULE_LR_STEP, MODULE_LR_FACTOR = 8, 0.1
+MODULE_SPEEDOMETER = 2      # Speedometer's period, in batches
+MODULE_PREFETCH = 2
+MODULE_LOSS_STEPS = 5       # steps on one fixed batch whose loss must fall
+MODULE_TIMED = 4            # update / split timings, after one warm-up
+# the Module step (FusedSGD) against the executor step and the per-key
+# registered update ops: bf16 weights within one bf16 step, float32
+# weights, masters and momenta within this relative norm
+MODULE_STATE_REL = 1e-6
+
+
+def module_symbol_params(mx):
+    """The phase's network and its Xavier initializer, the example's
+    (examples/image_classification/common/fit.py)."""
+    symbol = mx.models.resnet.get_symbol(**RESNET)
+    init = mx.init.Xavier(rnd_type='gaussian', factor_type='in', magnitude=2)
+    return symbol, init
+
+
+def module_data(num_classes, n, image_shape, seed):
+    """Seeded synthetic images (float32, N(0, 1)) and integer labels."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n,) + tuple(image_shape), dtype=np.float32)
+    y = rng.integers(0, num_classes, n).astype(np.float32)
+    return x, y
+
+
+def module_optimizer_params(mx):
+    return dict(MODULE_OPT, lr_scheduler=mx.lr_scheduler.MultiFactorScheduler(
+        step=[MODULE_LR_STEP], factor=MODULE_LR_FACTOR))
+
+
+def module_snapshot(mod):
+    """Everything one step changes: bound weights and moving statistics,
+    the FusedSGD's momenta and masters, the update counts and the
+    schedule's state, as device clones. (Not the bound data and label: a
+    batch already on the device is bound as it is, and writing into it
+    would change the batch.)"""
+    ex = mod._exec_group.executor
+    fu = mod._fused_updater
+    opt = mod._optimizer
+    sched = opt.lr_scheduler
+    return dict(
+        args={n: ex.arg_dict[n].handle.clone() for n in fu.param_names},
+        auxs={n: a.handle.clone() for n, a in ex.aux_dict.items()},
+        moms={n: t.clone() for n, t in fu.states.items()},
+        masters={n: None if t is None else t.clone()
+                 for n, t in fu.masters.items()},
+        counts=dict(opt._index_update_count), num_update=opt.num_update,
+        sched=dict(sched.__dict__) if sched is not None else None)
+
+
+def module_restore(mod, snap):
+    ex = mod._exec_group.executor
+    fu = mod._fused_updater
+    opt = mod._optimizer
+    for n, t in snap['args'].items():
+        ex.arg_dict[n].handle.copy_(t)
+    for n, t in snap['auxs'].items():
+        ex.aux_dict[n].handle.copy_(t)
+    fu.states = {n: t.clone() for n, t in snap['moms'].items()}
+    fu.masters = {n: None if t is None else t.clone()
+                  for n, t in snap['masters'].items()}
+    opt._index_update_count = dict(snap['counts'])
+    opt.num_update = snap['num_update']
+    if snap['sched'] is not None:
+        opt.lr_scheduler.__dict__.update(snap['sched'])
+    mod._params_dirty = True
+
+
+def module_state(mod):
+    """Weights, moving statistics, momenta and masters after a step."""
+    ex = mod._exec_group.executor
+    fu = mod._fused_updater
+    state = {'arg ' + n: ex.arg_dict[n].handle.clone()
+             for n in fu.param_names}
+    state.update(('aux ' + n, a.handle.clone())
+                 for n, a in ex.aux_dict.items())
+    state.update(('mom ' + n, t.clone()) for n, t in fu.states.items())
+    state.update(('master ' + n, t.clone()) for n, t in fu.masters.items()
+                 if t is not None)
+    return state
+
+
+def bf16_steps(torch, got, ref):
+    """The largest |got - ref| in units of one bf16 step (the spacing of
+    bf16 numbers at |ref|: 2^(e - 8) for |ref| in [2^(e-1), 2^e))."""
+    ref32 = ref.float()
+    _, exp = torch.frexp(ref32.abs())
+    spacing = torch.ldexp(torch.ones_like(ref32), exp - 8)
+    spacing = torch.where(ref32 == 0, torch.full_like(ref32, 2.0 ** -133),
+                          spacing)
+    return float(((got.float() - ref32).abs() / spacing).max())
+
+
+def op_update(mx, mod):
+    """The per-key update through the registered optimizer ops, on the
+    FusedSGD's momenta and masters: mp_sgd_mom_update for the bf16
+    weights, sgd_mom_update for the float32 ones, lr and wd from the
+    module's optimizer, counted by name as FusedSGD counts."""
+    ex = mod._exec_group.executor
+    fu = mod._fused_updater
+    opt = mod._optimizer
+    ctx = ex._ctx
+    hyper = dict(momentum=opt.momentum, rescale_grad=opt.rescale_grad)
+    for name in fu.param_names:
+        opt._update_count(name)
+        lr, wd = opt._get_lr(name), opt._get_wd(name)
+        w, g = ex.arg_dict[name], ex.grad_dict[name]
+        mom = mx.nd.NDArray(fu.states[name], ctx)
+        if fu.masters[name] is not None:
+            w32 = mx.nd.NDArray(fu.masters[name], ctx)
+            mx.nd.mp_sgd_mom_update(w, g, mom, w32, out=w, lr=lr, wd=wd,
+                                    **hyper)
+            fu.masters[name] = w32.handle
+        else:
+            mx.nd.sgd_mom_update(w, g, mom, out=w, lr=lr, wd=wd, **hyper)
+        fu.states[name] = mom.handle
+
+
+def module_update_check(torch, mx, mod, batch):
+    """One Module step (forward_backward, then update through FusedSGD)
+    against phase 9's executor step followed by the per-key registered
+    ops, from one saved start on one batch."""
+    snap = module_snapshot(mod)
+    ex = mod._exec_group.executor
+    mod.forward_backward(batch)
+    grads = {n: ex.grad_dict[n].handle.clone()
+             for n in mod._fused_updater.param_names}
+    mod.update()
+    fused = module_state(mod)
+    module_restore(mod, snap)
+    mod._exec_group.load_data_batch(batch)
+    ex.forward_backward()
+    grads_equal = all(torch.equal(ex.grad_dict[n].handle, g)
+                      for n, g in grads.items())
+    op_update(mx, mod)
+    ops = module_state(mod)
+    module_restore(mod, snap)
+    weight_steps, rel = {}, {}
+    for key, ref in ops.items():
+        if key.startswith('arg ') and ref.dtype == torch.bfloat16:
+            weight_steps[key[4:]] = bf16_steps(torch, fused[key], ref)
+        elif not key.startswith('aux '):
+            rel[key] = rel_err(torch, fused[key], ref)
+    worst = max(rel, key=rel.get)
+    return dict(grads_equal=grads_equal,
+                weight_steps_max=max(weight_steps.values()),
+                weight_steps_worst=max(weight_steps, key=weight_steps.get),
+                state_rel_max=rel[worst], state_rel_worst=worst,
+                bf16_weights=len(weight_steps), float32_states=len(rel))
+
+
+def module_prefetch_check(torch, mx, mod, x, y, batches, ctx):
+    """`batches` steps on batches staged by prefetch_to_device (copies on
+    a side stream, the next batch staged while this one's step runs, no
+    host sync between steps) against the same steps on batches copied in
+    the step, from one start: the outputs must be the same bits."""
+    snap = module_snapshot(mod)
+    outs = {}
+    for staged in (True, False):
+        module_restore(mod, snap)
+        it = mx.io.NDArrayIter(x, y, batch_size=RESNET_BATCH)
+        if staged:
+            it = mx.io.prefetch_to_device(it, size=MODULE_PREFETCH,
+                                          device=ctx)
+        got = []
+        for i, batch in enumerate(it):
+            if i == batches:
+                break
+            mod.forward_backward(batch)
+            mod.update()
+            got.append(mod.get_outputs()[0].handle.clone())
+        if staged:
+            it.close()
+        outs[staged] = got
+    module_restore(mod, snap)
+    return all(torch.equal(a, b) for a, b in zip(outs[True], outs[False])) \
+        and len(outs[True]) == batches
+
+
+def module_resume_check(torch, mx, mod, batch, prefix, ctx):
+    """save_checkpoint with the optimizer states, Module.load with them,
+    one step: it must equal the uninterrupted module's next step bit for
+    bit (weights, moving statistics, momenta, masters)."""
+    mod.save_checkpoint(prefix, 1, save_optimizer_states=True)
+    mod.forward_backward(batch)
+    mod.update()
+    ref = {k: v.cpu() for k, v in module_state(mod).items()}
+    sym_ = mod.symbol
+    data_shapes = mod.data_shapes
+    label_shapes = mod.label_shapes
+    resumed = mx.mod.Module.load(prefix, 1, load_optimizer_states=True,
+                                 context=ctx)
+    resumed.bind(data_shapes=data_shapes, label_shapes=label_shapes)
+    resumed.init_optimizer(optimizer='sgd',
+                           optimizer_params=module_optimizer_params(mx))
+    resumed.forward_backward(batch)
+    resumed.update()
+    got = {k: v.cpu() for k, v in module_state(resumed).items()}
+    differ = sorted(k for k in ref if k not in got or
+                    not torch.equal(got[k], ref[k]))
+    missing = sorted(set(got) - set(ref))
+    same_symbol = sym_.tojson() == resumed.symbol.tojson()
+    del resumed
+    return dict(differ=differ + missing, compared=len(ref),
+                same_symbol=same_symbol)
+
+
+class _LogCapture:
+    """The root logger's records while in use, at INFO."""
+
+    def __init__(self):
+        import logging
+        self.records = []
+        capture = self
+
+        class Handler(logging.Handler):
+            def emit(self, record):
+                capture.records.append(record.getMessage())
+        self._handler = Handler(logging.INFO)
+        self._logging = logging
+
+    def __enter__(self):
+        root = self._logging.getLogger()
+        self._level = root.level
+        root.addHandler(self._handler)
+        root.setLevel(self._logging.INFO)
+        return self
+
+    def __exit__(self, *exc):
+        root = self._logging.getLogger()
+        root.removeHandler(self._handler)
+        root.setLevel(self._level)
+
+
+def module_fit(mx, cuda_conv, mod, train, init, num_epoch, callbacks=(),
+               epoch_end=None, begin_epoch=0):
+    """mod.fit on `train` (a prefetch_to_device iterator), recording each
+    batch's end time (host clock), kernel launches, lr and the host ms
+    its next() waited for the batch; returns (times, launches, lrs,
+    stalls, the metric's values)."""
+    times, launches, lrs, stalls = [], [], [], []
+    count = [cuda_conv.CONV_BN_STATS_LAUNCHES, 0.0]
+
+    def record(param):
+        times.append((param.epoch, time.perf_counter()))
+        launches.append(cuda_conv.CONV_BN_STATS_LAUNCHES - count[0])
+        stalls.append(train.input_stall_ms - count[1])
+        count[:] = [cuda_conv.CONV_BN_STATS_LAUNCHES, train.input_stall_ms]
+        lrs.append(mod._optimizer._get_lr(mod._fused_updater.param_names[0]))
+
+    metric = mx.metric.create(['acc', mx.metric.TopKAccuracy(top_k=5)])
+    mod.fit(train, eval_metric=metric, optimizer='sgd',
+            optimizer_params=module_optimizer_params(mx),
+            initializer=init,
+            batch_end_callback=list(callbacks) + [record],
+            epoch_end_callback=epoch_end, begin_epoch=begin_epoch,
+            num_epoch=begin_epoch + num_epoch)
+    return times, launches, lrs, stalls, [
+        (n, float(v)) for n, v in metric.get_name_value()]
+
+
+def step_intervals(times):
+    """Host ms between consecutive batch ends of one epoch (the intervals
+    across an epoch's end, which holds its checkpoint and callbacks, are
+    left out)."""
+    return [(t1 - t0) * 1e3 for (e0, t0), (e1, t1) in zip(times, times[1:])
+            if e0 == e1]
+
+
+def median(vals):
+    vals = sorted(vals)
+    return vals[len(vals) // 2]
+
+
+def module_timings(torch, mod, batch, metric, device):
+    """Host ms of forward_backward (to return, and to the end of its device
+    work), update (to return; its device time by CUDA events, queued
+    behind a spin), update_metric (which waits for the step and reads
+    the outputs back) and of the metric alone on read-back outputs; and
+    the H2D copy of one batch from pinned and from pageable memory."""
+    from mxnet_tpu_torch.tools import bench_conv_bn as bench
+    snap = module_snapshot(mod)
+    rows = []
+    for i in range(1 + MODULE_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mod.forward_backward(batch)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        mod.update()
+        t3 = time.perf_counter()
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        mod.update_metric(metric, batch.label)
+        t5 = time.perf_counter()
+        mod.update_metric(metric, batch.label)
+        t6 = time.perf_counter()
+        rows.append(dict(fb_host_ms=(t1 - t0) * 1e3,
+                         fb_total_ms=(t2 - t0) * 1e3,
+                         update_host_ms=(t3 - t2) * 1e3,
+                         update_total_ms=(t4 - t2) * 1e3,
+                         metric_ms=(t5 - t4) * 1e3,
+                         metric_again_ms=(t6 - t5) * 1e3))
+    # the update's own device time: launches queued behind a spin, so
+    # that the host's pace does not show in it
+    update_device_ms = bench.cuda_ms(mod.update, MODULE_TIMED)
+    module_restore(mod, snap)
+    rows = rows[1:]
+    out = {k: median([r[k] for r in rows]) for k in rows[0]}
+    out['update_device_ms'] = update_device_ms
+    host = batch.data[0].handle
+    pinned = host.pin_memory()
+    ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    copies = []
+    for src in (pinned, host):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev0.record()
+        dst = src.to(device)
+        ev1.record()
+        torch.cuda.synchronize()
+        copies.append(((time.perf_counter() - t0) * 1e3,
+                       ev0.elapsed_time(ev1)))
+        del dst
+    t0 = time.perf_counter()
+    host.pin_memory()
+    out.update(h2d_pinned_ms=copies[0][0], h2d_pinned_device_ms=copies[0][1],
+               h2d_pageable_ms=copies[1][0],
+               h2d_pageable_device_ms=copies[1][1],
+               pin_copy_ms=(time.perf_counter() - t0) * 1e3,
+               batch_bytes=host.numel() * host.element_size())
+    return out
+
+
+def module_gate(run):
+    """Phase 10's checks on a run's numbers: a list of what failed, empty
+    when it passed."""
+    bad = []
+    for i, n in enumerate(run['train_launches']):
+        if n != RESNET_PAIRS:
+            bad.append('fit step %d launched the kernel %d times, expected '
+                       '%d' % (i, n, RESNET_PAIRS))
+    if len(run['train_launches']) != MODULE_EPOCHS * MODULE_BATCHES:
+        bad.append('fit ran %d steps, expected %d'
+                   % (len(run['train_launches']),
+                      MODULE_EPOCHS * MODULE_BATCHES))
+    if run['fit_launches'] != RESNET_PAIRS * len(run['train_launches']):
+        bad.append('fit launched the kernel %d times in all'
+                   % run['fit_launches'])
+    if run['eval_launches'] != 0:
+        bad.append('predict and score launched the kernel %d times, '
+                   'expected 0' % run['eval_launches'])
+    if run['route_off']['launches'] != 0:
+        bad.append('fit with the pair route off launched the kernel %d '
+                   'times' % run['route_off']['launches'])
+    lrs, base = run['lrs'], MODULE_OPT['learning_rate']
+    want = [base if i < MODULE_LR_STEP else base * MODULE_LR_FACTOR
+            for i in range(len(lrs))]
+    if any(abs(a - b) > 1e-12 for a, b in zip(lrs, want)):
+        bad.append('the lr schedule gave %s, expected %s' % (lrs, want))
+    for name, wd in run['wd'].items():
+        decays = name.endswith(('_weight', '_gamma'))
+        if wd != (MODULE_OPT['wd'] if decays else 0.0):
+            bad.append('%s decays with wd %g' % (name, wd))
+    if run['masters'] != run['low_precision_params']:
+        bad.append('float32 masters for %s, but the bf16 parameters are %s'
+                   % (run['masters'], run['low_precision_params']))
+    if run['master_dtypes'] != ['float32']:
+        bad.append('master dtypes %s' % run['master_dtypes'])
+    if not run['finite']:
+        bad.append('a weight, statistic or optimizer state is not finite')
+    upd = run['update']
+    if not upd['weight_steps_max'] <= 1.0:
+        bad.append('update: the FusedSGD step and the per-key ops differ by '
+                   '%.3g bf16 steps (%s)' % (upd['weight_steps_max'],
+                                             upd['weight_steps_worst']))
+    if not upd['state_rel_max'] <= MODULE_STATE_REL:
+        bad.append('update: %s differs by %.3g (bound %g)'
+                   % (upd['state_rel_worst'], upd['state_rel_max'],
+                      MODULE_STATE_REL))
+    if not run['prefetch_equal']:
+        bad.append('the prefetched steps\' outputs differ from the '
+                   'unprefetched ones')
+    losses = run['losses']
+    if not losses[-1] < losses[0]:
+        bad.append('the loss on one batch did not fall: %s' % losses)
+    resume = run['resume']
+    if resume['differ'] or not resume['compared'] or \
+            not resume['same_symbol']:
+        bad.append('the resumed step differs from the uninterrupted one '
+                   'in %s' % (resume['differ'][:8] or 'its symbol',))
+    if not run['speedometer']:
+        bad.append('the Speedometer logged no rate')
+    if not run['score_finite']:
+        bad.append('score gave %s' % run['score'])
+    return bad
+
+
+def module_phase(torch, mx, cuda_conv, root, resnet=None, ctx=None):
+    """Phase 10: Module.fit trains the bf16 ResNet-50 at batch 256 on
+    gpu(0); its launches, update, schedule, state, prefetch, loss and
+    resume gated (module_gate), its times and profile printed beside
+    phase 9's."""
+    import shutil
+    ctx = ctx or mx.gpu(0)
+    torch.cuda.empty_cache()
+    symbol, init = module_symbol_params(mx)
+    shape = tuple(int(v) for v in RESNET['image_shape'].split(','))
+    x, y = module_data(RESNET['num_classes'], MODULE_BATCHES * RESNET_BATCH,
+                       shape, SEED + 100)
+    ckpt_dir = root / 'build' / 'phase10'
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ckpt_dir.mkdir(parents=True)
+    prefix = str(ckpt_dir / 'resnet50')
+    try:
+        t0 = time.perf_counter()
+        mod = mx.mod.Module(symbol, context=ctx)
+        np.random.seed(SEED)
+        speedo = mx.callback.Speedometer(RESNET_BATCH, MODULE_SPEEDOMETER,
+                                         auto_reset=False)
+
+        def train_iter():
+            return mx.io.prefetch_to_device(
+                mx.io.NDArrayIter(x, y, batch_size=RESNET_BATCH,
+                                  shuffle=True),
+                size=MODULE_PREFETCH, device=ctx)
+
+        # the main path: the count set to 0 just before, read just after
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        train = train_iter()
+        cuda_conv.CONV_BN_STATS_LAUNCHES = 0
+        with _LogCapture() as logs:
+            times, launches, lrs, stalls, train_metric = module_fit(
+                mx, cuda_conv, mod, train, init, MODULE_EPOCHS,
+                callbacks=[speedo],
+                epoch_end=mx.callback.do_checkpoint(prefix))
+        torch.cuda.synchronize()
+        fit_launches = cuda_conv.CONV_BN_STATS_LAUNCHES
+        fit_s = time.perf_counter() - t0
+        peak_bytes = torch.cuda.max_memory_allocated()
+        stall = train.stall_ms_per_batch()
+        speeds = [float(m.split('Speed: ')[1].split()[0])
+                  for m in logs.records if 'Speed: ' in m]
+        checkpoints = sorted(p.name for p in ckpt_dir.iterdir())
+        fu = mod._fused_updater
+        opt = mod._optimizer
+        ex = mod._exec_group.executor
+        step_ms = median(step_intervals(times))
+
+        # eval: predict and score launch no kernel
+        eval_iter = mx.io.NDArrayIter(x[:RESNET_BATCH], y[:RESNET_BATCH],
+                                      batch_size=RESNET_BATCH)
+        cuda_conv.CONV_BN_STATS_LAUNCHES = 0
+        probs = mod.predict(eval_iter)
+        score = [(n, float(v))
+                 for n, v in mod.score(eval_iter, ['acc', 'ce'])]
+        torch.cuda.synchronize()
+        eval_launches = cuda_conv.CONV_BN_STATS_LAUNCHES
+        score_finite = tuple(probs.shape) == (RESNET_BATCH,
+                                              RESNET['num_classes']) and \
+            all(math.isfinite(v) for _, v in score)
+
+        # the same fit, an epoch more, with the pair route off
+        ex._pair_route = False
+        off_train = train_iter()
+        cuda_conv.CONV_BN_STATS_LAUNCHES = 0
+        off_times, _, _, off_stalls, _ = module_fit(
+            mx, cuda_conv, mod, off_train, init, 1, begin_epoch=MODULE_EPOCHS)
+        torch.cuda.synchronize()
+        off = dict(launches=cuda_conv.CONV_BN_STATS_LAUNCHES,
+                   step_ms=step_intervals(off_times),
+                   stall_ms_per_batch=off_train.stall_ms_per_batch(),
+                   stall_ms=off_stalls)
+        off['step_ms_median'] = median(off['step_ms'])
+        off['images_per_s'] = RESNET_BATCH / (off['step_ms_median'] / 1e3)
+        ex._pair_route = True
+
+        # the state after training
+        params = fu.param_names
+        low = sorted(n for n in params
+                     if ex.arg_dict[n].handle.dtype == torch.bfloat16)
+        masters = sorted(n for n, t in fu.masters.items() if t is not None)
+        tensors = [ex.arg_dict[n].handle for n in params] + \
+            [a.handle for a in ex.aux_dict.values()] + \
+            list(fu.states.values()) + [t for t in fu.masters.values()
+                                        if t is not None]
+        finite = all(bool(torch.isfinite(t).all()) for t in tensors)
+        wd = {n: opt._get_wd(n) for n in params}
+
+        # the gates that compare steps: deterministic cuDNN algorithms, so
+        # that the same step gives the same bits
+        batch = mx.io.NDArrayIter(x, y, batch_size=RESNET_BATCH).next()
+        batch2 = mx.io.NDArrayIter(x[RESNET_BATCH:], y[RESNET_BATCH:],
+                                   batch_size=RESNET_BATCH).next()
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            update = module_update_check(torch, mx, mod, batch)
+            prefetch_equal = module_prefetch_check(torch, mx, mod, x, y, 3,
+                                                   ctx)
+            split = module_timings(torch, mod, batch,
+                                   mx.metric.create(
+                                       ['acc', mx.metric.TopKAccuracy(
+                                           top_k=5)]), ctx.torch_device)
+            # the loss on one fixed batch over MODULE_LOSS_STEPS steps
+            label = batch.label[0].handle.to(ctx.torch_device)
+            losses = []
+            for _ in range(MODULE_LOSS_STEPS):
+                mod.forward_backward(batch)
+                mod.update()
+                losses.append(nll(torch, ex, label))
+            resume = module_resume_check(torch, mx, mod, batch2, prefix,
+                                         ctx)
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+
+        # one fit step, its batch staged on the device as fit's are
+        staged = mx.io.DataBatch(
+            [mx.nd.NDArray(t, ctx) for t in mx.io.stage_to_device(
+                batch.data, ctx)],
+            [mx.nd.NDArray(t, ctx) for t in mx.io.stage_to_device(
+                batch.label, ctx)])
+
+        def one_step():
+            mod.forward_backward(staged)
+            mod.update()
+            mod.update_metric(mx.metric.create('acc'), staged.label)
+        profile = resnet_profile(torch, one_step, step_ms)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    run = dict(
+        config=dict(RESNET, batch=RESNET_BATCH, batches=MODULE_BATCHES,
+                    epochs=MODULE_EPOCHS, optimizer='sgd', **MODULE_OPT,
+                    lr_step=MODULE_LR_STEP, lr_factor=MODULE_LR_FACTOR,
+                    prefetch=MODULE_PREFETCH, params=len(params)),
+        fit_s=fit_s, train_launches=launches, fit_launches=fit_launches,
+        eval_launches=eval_launches, lrs=lrs, train_metric=train_metric,
+        score=score, score_finite=score_finite, step_ms=step_intervals(times),
+        step_ms_median=step_ms, images_per_s=RESNET_BATCH / (step_ms / 1e3),
+        speedometer=speeds, stall_ms_per_batch=stall, stall_ms=stalls,
+        checkpoints=checkpoints,
+        peak_bytes=peak_bytes,
+        optimizer_state_bytes=fu.state_bytes_per_device(),
+        route_off=off, wd=wd, masters=masters, low_precision_params=low,
+        master_dtypes=sorted({str(t.dtype).replace('torch.', '')
+                              for t in fu.masters.values() if t is not None}),
+        finite=finite, update=update, prefetch_equal=prefetch_equal,
+        split=split, losses=losses, resume=resume, profile=profile)
+    print('module ' + json.dumps(run))
+    for label_, c in sorted(profile['classes'].items(),
+                            key=lambda kv: -kv[1]['ms']):
+        beside = resnet['profile']['classes'].get(label_) if resnet else None
+        print('module profile: %-62s %8.3f ms %5.1f %%  %5d launches'
+              '  (phase 9: %s)' % (
+                  label_, c['ms'], 100 * c['share'], c['launches'],
+                  '%.3f ms' % beside['ms'] if beside else 'none'))
+    bad = module_gate(run)
+    if bad:
+        fail('module: ' + '; '.join(bad))
+    print('module: fit %.1f ms a step (%.0f images/s; Speedometer %s '
+          'samples/s), route off %.1f ms (%.0f images/s); update %.2f ms '
+          'host, %.2f ms device; update_metric %.1f ms (the metric alone '
+          '%.1f ms); H2D of a batch %.1f ms pinned, %.1f ms pageable, '
+          'stall %.2f ms a batch; peak %.2f GB; device busy %.1f %%; loss '
+          'on one batch %s; resumed step equal in %d tensors'
+          % (step_ms, run['images_per_s'], speeds, off['step_ms_median'],
+             off['images_per_s'], split['update_host_ms'],
+             split['update_device_ms'], split['metric_ms'],
+             split['metric_again_ms'], split['h2d_pinned_device_ms'],
+             split['h2d_pageable_device_ms'], stall, peak_bytes / 1e9,
+             100 * profile['device_busy_share'], losses, resume['compared']))
+    return run
+
+
 def main(argv=None):
     import argparse
     parser = argparse.ArgumentParser(
@@ -2302,7 +2916,7 @@ def main(argv=None):
                                                     v.split(',')},
                         default=ALL_PHASES,
                         help='build, then run only these phases (a comma '
-                             'list of 2-9); the kernels line needs all')
+                             'list of 2-10); the kernels line needs all')
     parser.add_argument('--mutants', action='store_true',
                         help='check that phase 2\'s LM case fails each of '
                              'FWD_MUTANTS, phase 4\'s each of BWD_MUTANTS '
@@ -2322,7 +2936,7 @@ def main(argv=None):
         return
     phases = args.phases
     if not phases <= ALL_PHASES:
-        fail('--phases takes phases 2 to 9; got %s' % sorted(phases))
+        fail('--phases takes phases 2 to 10; got %s' % sorted(phases))
     sys.path.insert(0, str(root))
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import _build, cuda_conv, cuda_ops
@@ -2415,6 +3029,11 @@ def main(argv=None):
     if 9 in phases:
         resnet = resnet_phase(torch, mx, cuda_conv)
 
+    # 10. Module.fit trains the same network
+    if 10 in phases:
+        module = module_phase(torch, mx, cuda_conv, root,
+                              resnet if 9 in phases else None)
+
     if phases != ALL_PHASES:
         print('phases %s passed' % sorted(phases))
         return
@@ -2468,7 +3087,7 @@ def main(argv=None):
             whole_backward_bound_ms=bwd_cases[0]['bounds']['whole'][
                 'bound_ms'],
             cases=per_case))
-    kernels.append(conv_kernel_entry(conv, sass, resnet))
+    kernels.append(conv_kernel_entry(conv, sass, resnet, module))
     kernels.append(rtc_kernel_entry(rtc_run))
     for kern in kernels:
         if kern['launches'] == 0:

@@ -25,7 +25,12 @@ far:
   model zoo's ResNet (`models`) and `profiler`. A bfloat16 ResNet-50
   trains on the card with `mx.models.resnet.get_symbol(...,
   dtype='bfloat16').simple_bind(mx.gpu(0), data=(256, 3, 224, 224))`,
-  its train-mode conv -> BatchNorm pairs on the conv + statistics kernel.
+  its train-mode conv -> BatchNorm pairs on the conv + statistics kernel;
+- training through `Module`: `optimizer` (the 13 optimizers, the per-key
+  `Updater`, `FusedSGD`), `initializer`, `lr_scheduler`, `metric`, `io`
+  (iterators, staging on the card), `recordio`, `model` (checkpoints,
+  FeedForward), `callback` and `module` (`Module`, `SequentialModule`):
+  `mx.mod.Module(sym).fit(train_iter, ...)` trains on `gpu(0)`.
 
 Importing the package builds and compiles nothing: the kernels are
 compiled by `nvcc` at their first launch (`_build`), an `Rtc` body by
@@ -49,9 +54,29 @@ from .base import NameManager, Prefix
 from . import symbol
 from . import symbol as sym
 from . import executor
+from .executor import Executor
 from . import models
+from . import initializer
+from . import initializer as init
+from . import optimizer
+from .optimizer import Optimizer
+from . import lr_scheduler
+from . import metric
+from . import io
+from .io import DataBatch, DataIter, NDArrayIter, DataDesc
+from . import recordio
+from . import callback
+from . import model
+from .model import FeedForward
+from . import module
+from . import module as mod
+from .module import Module
 
-__all__ = ['AttrScope', 'Context', 'MXNetError', 'NameManager', 'Prefix',
-           'attribute', 'autograd', 'cpu', 'current_context', 'executor',
-           'gpu', 'models', 'nd', 'ndarray', 'num_gpus', 'profiler',
-           'random', 'resolve_device', 'rtc', 'sym', 'symbol', 'tpu']
+__all__ = ['AttrScope', 'Context', 'DataBatch', 'DataDesc', 'DataIter',
+           'Executor', 'FeedForward', 'MXNetError', 'Module', 'NDArrayIter',
+           'NameManager', 'Optimizer', 'Prefix', 'attribute', 'autograd',
+           'callback', 'cpu', 'current_context', 'executor', 'gpu', 'init',
+           'initializer', 'io', 'lr_scheduler', 'metric', 'mod', 'model',
+           'models', 'module', 'nd', 'ndarray', 'num_gpus', 'optimizer',
+           'profiler', 'random', 'recordio', 'resolve_device', 'rtc', 'sym',
+           'symbol', 'tpu']

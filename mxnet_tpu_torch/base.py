@@ -163,3 +163,76 @@ def numpy_dtype(dtype):
     if name == 'bfloat16':
         return dtype
     return np.dtype(name).type
+
+
+def unported(what, item):
+    """The error of a feature the port does not have yet: `what` names
+    it, `item` the ROADMAP Queue A item that brings it."""
+    return MXNetError('%s is not ported yet (ROADMAP Queue A %s)'
+                      % (what, item))
+
+
+# -- name registries (reference python/mxnet/registry.py): optimizers,
+# initializers and metrics are registered and created by lowercase name
+_REGISTRIES = {}
+
+
+def get_register_func(base_class, nickname):
+    """A decorator registering subclasses of `base_class` under their
+    lowercase class name (or `name`)."""
+    registry = _REGISTRIES.setdefault(base_class, {})
+
+    def register(klass, name=None):
+        assert issubclass(klass, base_class), \
+            'Can only register subclass of %s' % base_class.__name__
+        name = (name or klass.__name__).lower()
+        registry[name] = klass
+        klass.__register_name__ = name
+        return klass
+
+    register.__name__ = 'register_%s' % nickname
+    return register
+
+
+def get_alias_func(base_class, nickname):
+    """A decorator factory registering a class under extra names."""
+    register = get_register_func(base_class, nickname)
+
+    def alias(*aliases):
+        def reg(klass):
+            for extra in aliases:
+                register(klass, extra)
+            return klass
+        return reg
+    return alias
+
+
+def get_create_func(base_class, nickname):
+    """A creator taking an instance (returned as it is), a registered
+    name, or a 'name,k=v,...' spec string."""
+    registry = _REGISTRIES.setdefault(base_class, {})
+
+    def create(*args, **kwargs):
+        if args and isinstance(args[0], base_class):
+            return args[0]
+        if args and isinstance(args[0], str):
+            name, args = args[0], args[1:]
+        elif nickname in kwargs and isinstance(kwargs[nickname], str):
+            name = kwargs.pop(nickname)
+        else:
+            raise ValueError('%s is not valid' % nickname)
+        if ',' in name:
+            parts = name.split(',')
+            name = parts[0]
+            for kv in parts[1:]:
+                if kv:
+                    k, v = kv.split('=')
+                    kwargs[k] = parse_attr_value(v)
+        name = name.lower()
+        if name not in registry:
+            raise ValueError('%s is not registered for %s'
+                             % (name, nickname))
+        return registry[name](*args, **kwargs)
+
+    create.__name__ = 'create_%s' % nickname
+    return create

@@ -52,7 +52,7 @@ from . import cuda_conv
 from . import ndarray as nd
 from . import profiler
 from . import random as _random
-from .base import MXNetError, torch_dtype
+from .base import MXNetError, torch_dtype, unported
 from .context import Context
 from .ops import nn as _nn
 from .ops.registry import OpContext, asbool, astuple, normalize_axis
@@ -138,10 +138,10 @@ def conv_bn_pairs(topo, heads):
     return pairs
 
 
-def _tensor_of(value, dtype, device):
+def _tensor_of(value, dtype, device, copy=False):
     """A tensor of `value` (an NDArray, a torch tensor or anything
     numpy takes, a bfloat16 numpy array included) in `dtype` on
-    `device`."""
+    `device`; with `copy`, never the source's own storage."""
     if isinstance(value, nd.NDArray):
         t = value._data.detach()
     elif isinstance(value, torch.Tensor):
@@ -155,7 +155,7 @@ def _tensor_of(value, dtype, device):
                 torch.bfloat16)
         else:
             t = torch.from_numpy(np.array(a))
-    return t.to(device=device, dtype=torch_dtype(dtype))
+    return t.to(device=device, dtype=torch_dtype(dtype), copy=copy)
 
 
 def params_from_jax(arg_np, aux_np, ctx):
@@ -458,6 +458,41 @@ class Executor:
                 holder._data = g
 
     # ------------------------------------------------------------------
+    def make_fused_train_step(self, step_math, step_key=None,
+                              grad_reduce=None):
+        """The whole train step with the optimizer's update, the
+        counterpart of the JAX package's fused step (one XLA dispatch
+        there): `forward_backward`, then `step_math(ws, gs, moms,
+        masters, lrs, wds) -> (ws, moms, masters)` (FusedSGD.step_math)
+        on the bound weights of the differentiable arguments, in
+        _diff_names order, which it updates in place. Torch has no
+        single dispatch to fuse them into, and there is no program to
+        cache, so `step_key` is not used."""
+        if grad_reduce is not None:
+            raise unported('the in-step gradient all-reduce', '6')
+
+        def step(diff_names, moms, masters, lrs, wds):
+            self.forward_backward()
+            ws = [self.arg_dict[n]._data for n in diff_names]
+            gs = [self.grad_dict[n]._data for n in diff_names]
+            return step_math(ws, gs, moms, masters, lrs, wds)
+        return step
+
+    def run_fused_train_step(self, step, diff_names, moms, masters,
+                             lrs, wds, zero=False):
+        """Run a step of make_fused_train_step on the bound arrays and
+        return (new_moms, new_masters) for the optimizer; the weights it
+        returns are bound (they are the same tensors when step_math
+        updates in place)."""
+        if zero:
+            raise unported('ZeRO optimizer-state sharding', '6')
+        new_ws, new_moms, new_masters = step(diff_names, moms, masters,
+                                             lrs, wds)
+        for n, w in zip(diff_names, new_ws):
+            self.arg_dict[n]._data = w
+        return new_moms, new_masters
+
+    # ------------------------------------------------------------------
     @property
     def arg_arrays(self):
         return [self.arg_dict[n] for n in self._arg_names]
@@ -483,8 +518,12 @@ class Executor:
             for k, v in params.items():
                 if k in holders:
                     dst = holders[k]
+                    # a copy: the optimizer updates the bound
+                    # tensors in place, which must not reach the
+                    # caller's arrays
                     dst._data = _tensor_of(v, dst._data.dtype,
-                                           self._ctx.torch_device)
+                                           self._ctx.torch_device,
+                                           copy=True)
                 elif not allow_extra_params:
                     raise MXNetError('Found name "%s" not in %s' % (k, what))
 

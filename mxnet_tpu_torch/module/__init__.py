@@ -1,0 +1,6 @@
+"""Module API: the counterpart of mxnet_tpu/module/ (reference
+python/mxnet/module/). BucketingModule is not ported yet."""
+from .base_module import BaseModule
+from .module import Module
+from .sequential_module import SequentialModule
+from .executor_group import DataParallelExecutorGroup

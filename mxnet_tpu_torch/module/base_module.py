@@ -1,0 +1,260 @@
+"""BaseModule, the high-level training interface: the counterpart of
+mxnet_tpu/module/base_module.py (reference
+python/mxnet/module/base_module.py: fit, score, predict).
+
+`fit`'s epoch and batch loop, its callbacks, metrics and epoch-end
+parameter sync are the JAX package's serialized loop, the one it runs
+when its step-ahead overlap is 0: each batch runs forward_backward,
+update and update_metric, whose read of the outputs waits for the
+device. The overlap, `bulk=`, `pipeline=`, `checkpoint=` (the elastic
+runtime) and `monitor=` are not ported and raise.
+"""
+import logging
+import time
+from collections import namedtuple
+
+from .. import metric as metric_mod
+from .. import ndarray as nd
+from ..base import unported
+from ..initializer import Uniform
+
+BatchEndParam = namedtuple('BatchEndParams',
+                           ['epoch', 'nbatch', 'eval_metric', 'locals'])
+
+
+def _as_list(obj):
+    if isinstance(obj, list):
+        return obj
+    return [obj]
+
+
+def _fire(callbacks, *cb_args):
+    """Call a callback or each of a list of callbacks (None: none)."""
+    if callbacks is None:
+        return
+    for cb in _as_list(callbacks):
+        cb(*cb_args)
+
+
+def _trim_pad(arrays, pad):
+    """Drop the trailing `pad` rows that a padded last batch carries."""
+    if not pad:
+        return list(arrays)
+    return [a[:a.shape[0] - pad] for a in arrays]
+
+
+class BaseModule:
+    def __init__(self, logger=logging):
+        self.logger = logger
+        for flag in ('binded', 'for_training', 'inputs_need_grad',
+                     'params_initialized', 'optimizer_initialized'):
+            setattr(self, flag, False)
+        self._symbol = None
+
+    # -- the interface Module implements -----------------------------------
+    def forward(self, data_batch, is_train=None):
+        raise NotImplementedError
+
+    def backward(self, out_grads=None):
+        raise NotImplementedError
+
+    def update(self):
+        raise NotImplementedError
+
+    def get_outputs(self, merge_multi_context=True):
+        raise NotImplementedError
+
+    def update_metric(self, eval_metric, labels):
+        raise NotImplementedError
+
+    def bind(self, *args, **kwargs):
+        raise NotImplementedError
+
+    def init_params(self, *args, **kwargs):
+        raise NotImplementedError
+
+    def init_optimizer(self, *args, **kwargs):
+        raise NotImplementedError
+
+    def get_params(self):
+        raise NotImplementedError
+
+    # -- shared high-level logic -------------------------------------------
+    def forward_backward(self, data_batch):
+        self.forward(data_batch, is_train=True)
+        self.backward()
+
+    def score(self, eval_data, eval_metric, num_batch=None,
+              batch_end_callback=None, score_end_callback=None, reset=True,
+              epoch=0):
+        """Evaluate on a data iterator: the metric's name-value pairs."""
+        assert self.binded and self.params_initialized
+        if reset:
+            eval_data.reset()
+        if not isinstance(eval_metric, metric_mod.EvalMetric):
+            eval_metric = metric_mod.create(eval_metric)
+        eval_metric.reset()
+        seen = 0
+        for eval_batch in eval_data:
+            if num_batch is not None and seen >= num_batch:
+                break
+            self.forward(eval_batch, is_train=False)
+            self.update_metric(eval_metric, eval_batch.label)
+            if batch_end_callback is not None:
+                _fire(batch_end_callback,
+                      BatchEndParam(epoch=epoch, nbatch=seen,
+                                    eval_metric=eval_metric,
+                                    locals=locals()))
+            seen += 1
+        if score_end_callback:
+            _fire(score_end_callback,
+                  BatchEndParam(epoch=epoch, nbatch=seen,
+                                eval_metric=eval_metric, locals=locals()))
+        return eval_metric.get_name_value()
+
+    def iter_predict(self, eval_data, num_batch=None, reset=True):
+        assert self.binded and self.params_initialized
+        if reset:
+            eval_data.reset()
+        stream = (enumerate(eval_data) if num_batch is None
+                  else zip(range(num_batch), eval_data))
+        for nbatch, eval_batch in stream:
+            self.forward(eval_batch, is_train=False)
+            yield (_trim_pad(self.get_outputs(), eval_batch.pad),
+                   nbatch, eval_batch)
+
+    def predict(self, eval_data, num_batch=None, merge_batches=True,
+                reset=True, always_output_list=False):
+        """The outputs over an iterator, padding dropped, batches joined
+        unless merge_batches is False."""
+        collected = [[out.copy() for out in outputs]
+                     for outputs, _, _ in self.iter_predict(
+                         eval_data, num_batch=num_batch, reset=reset)]
+        if not collected or not merge_batches:
+            return collected
+        widths = {len(outs) for outs in collected}
+        assert len(widths) == 1, \
+            'Cannot merge batches: different number of outputs'
+        merged = [nd.concatenate(list(column)) for column in zip(*collected)]
+        if len(merged) == 1 and not always_output_list:
+            return merged[0]
+        return merged
+
+    def fit(self, train_data, eval_data=None, eval_metric='acc',
+            epoch_end_callback=None, batch_end_callback=None,
+            kvstore='local', optimizer='sgd',
+            optimizer_params=(('learning_rate', 0.01),),
+            eval_end_callback=None, eval_batch_end_callback=None,
+            initializer=Uniform(0.01), arg_params=None, aux_params=None,
+            allow_missing=False, force_rebind=False, force_init=False,
+            begin_epoch=0, num_epoch=None, validation_metric=None,
+            monitor=None, bulk=None, checkpoint=None, pipeline=None):
+        """Train: bind, init_params, init_optimizer, then the epoch loop
+        with its callbacks and validation."""
+        assert num_epoch is not None, 'please specify number of epochs'
+        if pipeline is not None:
+            raise unported('fit(pipeline=) (parallel/pipeline.py)', '6')
+        if bulk is not None and int(bulk) > 1:
+            raise unported('fit(bulk=) (Module.bulk_step)', '2')
+        if checkpoint is not None:
+            raise unported('fit(checkpoint=) (elastic.py)', '5')
+        if monitor is not None:
+            raise unported('fit(monitor=) (the executor monitor)', '1b')
+        self.bind(data_shapes=train_data.provide_data,
+                  label_shapes=train_data.provide_label, for_training=True,
+                  force_rebind=force_rebind)
+        self.init_params(initializer=initializer, arg_params=arg_params,
+                         aux_params=aux_params, allow_missing=allow_missing,
+                         force_init=force_init)
+        self.init_optimizer(kvstore=kvstore, optimizer=optimizer,
+                            optimizer_params=optimizer_params)
+        validation_metric = validation_metric or eval_metric
+        if not isinstance(eval_metric, metric_mod.EvalMetric):
+            eval_metric = metric_mod.create(eval_metric)
+        # stage upcoming batches on the device so that the copy of batch
+        # N+1 overlaps step N (Module's hook; the default is identity)
+        train_data = self._wrap_train_iter(train_data)
+        self._fit_epochs(train_data, eval_data, eval_metric,
+                         validation_metric, epoch_end_callback,
+                         batch_end_callback, eval_end_callback,
+                         eval_batch_end_callback, begin_epoch, num_epoch)
+
+    def _fit_epochs(self, train_data, eval_data, eval_metric,
+                    validation_metric, epoch_end_callback,
+                    batch_end_callback, eval_end_callback,
+                    eval_batch_end_callback, begin_epoch, num_epoch):
+        """The epoch loop of fit, batch by batch."""
+        for epoch in range(begin_epoch, num_epoch):
+            epoch_start = time.time()
+            eval_metric.reset()
+            for nbatch, data_batch in enumerate(train_data):
+                self.forward_backward(data_batch)
+                self.update()
+                self.update_metric(eval_metric, data_batch.label)
+                if batch_end_callback is not None:
+                    _fire(batch_end_callback,
+                          BatchEndParam(epoch=epoch, nbatch=nbatch,
+                                        eval_metric=eval_metric,
+                                        locals=locals()))
+            for name, val in eval_metric.get_name_value():
+                self.logger.info('Epoch[%d] Train-%s=%f', epoch, name, val)
+            self.logger.info('Epoch[%d] Time cost=%.3f', epoch,
+                             time.time() - epoch_start)
+
+            # a host copy of the parameters for the epoch's callbacks
+            arg_snap, aux_snap = self.get_params()
+            self.set_params(arg_snap, aux_snap)
+            if epoch_end_callback is not None:
+                for callback in _as_list(epoch_end_callback):
+                    callback(epoch, self.symbol, arg_snap, aux_snap)
+            if eval_data:
+                for name, val in self.score(
+                        eval_data, validation_metric,
+                        score_end_callback=eval_end_callback,
+                        batch_end_callback=eval_batch_end_callback,
+                        epoch=epoch):
+                    self.logger.info('Epoch[%d] Validation-%s=%f',
+                                     epoch, name, val)
+            train_data.reset()
+
+    def _wrap_train_iter(self, train_data):
+        """Hook to decorate the training iterator (Module stages batches
+        on the device). Default: as it is."""
+        return train_data
+
+    # -- properties --------------------------------------------------------
+    @property
+    def symbol(self):
+        return self._symbol
+
+    @property
+    def data_names(self):
+        raise NotImplementedError
+
+    @property
+    def output_names(self):
+        raise NotImplementedError
+
+    @property
+    def data_shapes(self):
+        raise NotImplementedError
+
+    @property
+    def label_shapes(self):
+        raise NotImplementedError
+
+    @property
+    def output_shapes(self):
+        raise NotImplementedError
+
+    def set_params(self, arg_params, aux_params, allow_missing=False,
+                   force_init=True, allow_extra=False):
+        self.init_params(initializer=None, arg_params=arg_params,
+                         aux_params=aux_params, allow_missing=allow_missing,
+                         force_init=force_init, allow_extra=allow_extra)
+
+    def install_monitor(self, mon):
+        raise unported('the executor monitor (install_monitor)', '1b')
+
+    def get_input_grads(self, merge_multi_context=True):
+        raise NotImplementedError

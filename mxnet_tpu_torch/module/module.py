@@ -1,0 +1,395 @@
+"""Module: a symbol, its executor and an optimizer; the counterpart of
+mxnet_tpu/module/module.py (reference python/mxnet/module/module.py).
+
+One context, `current_context()` (gpu(0)) when none is given. With SGD
+or NAG the update is `optimizer.FusedSGD` over the whole parameter list,
+in place on the executor's tensors; any other optimizer takes the
+per-key `Updater`. `rescale_grad` is 1 / batch. Checkpoints, parameter
+files and optimizer-state files are the JAX package's formats.
+
+The JAX package defers `forward_backward` to `update`, so that XLA sees
+forward, backward and the update as one program; torch has no such
+program, so `forward_backward` runs at once and `update` applies the
+update to the gradients it left.
+
+Not ported, each raising: several contexts, kvstore objects and dist
+stores, ZeRO, sparse embedding tables, `bulk_step`, `install_monitor`
+and `reshape`.
+"""
+import logging
+import os
+
+from .. import context as ctx_mod
+from .. import initializer as init_mod
+from .. import io as mxio
+from .. import model as model_mod
+from .. import ndarray as nd
+from .. import optimizer as opt_mod
+from ..base import MXNetError, atomic_file, unported
+from .base_module import BaseModule
+from .executor_group import DataParallelExecutorGroup
+
+
+class Module(BaseModule):
+    def __init__(self, symbol, data_names=('data',),
+                 label_names=('softmax_label',), logger=logging,
+                 context=None, work_load_list=None, fixed_param_names=None,
+                 state_names=None):
+        super().__init__(logger=logger)
+        if context is None:
+            context = ctx_mod.current_context()
+        if isinstance(context, ctx_mod.Context):
+            context = [context]
+        if len(context) != 1:
+            raise unported('a Module over %d contexts (data-parallel '
+                           'mesh)' % len(context), '6')
+        self._context = context
+        if work_load_list is None:
+            work_load_list = [1] * len(self._context)
+        self._work_load_list = work_load_list
+
+        self._symbol = symbol
+        data_names = list(data_names) if data_names is not None else []
+        label_names = list(label_names) if label_names is not None else []
+        arg_names = symbol.list_arguments()
+        input_names = data_names + label_names + list(state_names or [])
+        self._param_names = [x for x in arg_names if x not in input_names]
+        self._fixed_param_names = list(fixed_param_names or [])
+        self._aux_names = symbol.list_auxiliary_states()
+        self._data_names, self._label_names = data_names, label_names
+        self._state_names = list(state_names or [])
+        self._output_names = symbol.list_outputs()
+
+        self._arg_params = self._aux_params = None
+        self._params_dirty = False
+
+        self._optimizer = self._kvstore = self._updater = None
+        self._fused_updater = None
+        self._update_on_kvstore = None
+        self._preload_opt_states = None
+        self._exec_group = None
+        self._data_shapes = self._label_shapes = None
+
+    # -- checkpoints -------------------------------------------------------
+    @staticmethod
+    def load(prefix, epoch, load_optimizer_states=False, **kwargs):
+        """A Module of the checkpoint `prefix`, `epoch`; its parameters
+        and (with load_optimizer_states) optimizer states are set at
+        bind and init_optimizer."""
+        sym, args, auxs = model_mod.load_checkpoint(
+            prefix, epoch, ctx=ctx_mod.cpu())
+        mod = Module(symbol=sym, **kwargs)
+        mod._arg_params = args
+        mod._aux_params = auxs
+        mod.params_initialized = True
+        if load_optimizer_states:
+            mod._preload_opt_states = '%s-%04d.states' % (prefix, epoch)
+        return mod
+
+    def save_checkpoint(self, prefix, epoch, save_optimizer_states=False):
+        self._symbol.save('%s-symbol.json' % prefix)
+        param_name = '%s-%04d.params' % (prefix, epoch)
+        self.save_params(param_name)
+        logging.info('Saved checkpoint to "%s"', param_name)
+        if save_optimizer_states:
+            state_name = '%s-%04d.states' % (prefix, epoch)
+            self.save_optimizer_states(state_name)
+            logging.info('Saved optimizer state to "%s"', state_name)
+
+    def save_params(self, fname):
+        arg_params, aux_params = self.get_params()
+        save_dict = {('arg:%s' % k): v for k, v in arg_params.items()}
+        save_dict.update({('aux:%s' % k): v for k, v in aux_params.items()})
+        nd.save(fname, save_dict)
+
+    def load_params(self, fname):
+        buckets = {'arg': {}, 'aux': {}}
+        for key, value in nd.load(fname, ctx=ctx_mod.cpu()).items():
+            kind, _, name = key.partition(':')
+            if kind not in buckets:
+                raise ValueError('Invalid param file ' + fname)
+            buckets[kind][name] = value
+        self.set_params(buckets['arg'], buckets['aux'])
+
+    # -- properties --------------------------------------------------------
+    @property
+    def data_names(self):
+        return self._data_names
+
+    @property
+    def label_names(self):
+        return self._label_names
+
+    @property
+    def output_names(self):
+        return self._output_names
+
+    @property
+    def data_shapes(self):
+        assert self.binded
+        return self._data_shapes
+
+    @property
+    def label_shapes(self):
+        assert self.binded
+        return self._label_shapes
+
+    @property
+    def output_shapes(self):
+        assert self.binded
+        outs = self._exec_group.executor.outputs
+        return [(n, o.shape) for n, o in zip(self._output_names, outs)] \
+            if outs else None
+
+    # -- parameters --------------------------------------------------------
+    def get_params(self):
+        """(arg_params, aux_params): copies of the bound values, taken
+        again after each update."""
+        assert self.binded and self.params_initialized
+        if self._params_dirty:
+            self._exec_group.get_params(self._arg_params, self._aux_params)
+            self._params_dirty = False
+        return (self._arg_params, self._aux_params)
+
+    def init_params(self, initializer=init_mod.Uniform(0.01),
+                    arg_params=None, aux_params=None, allow_missing=False,
+                    force_init=False, allow_extra=False):
+        if self.params_initialized and not force_init:
+            return
+        assert self.binded, 'call bind before initializing the parameters'
+        ctx = self._context[0]
+        if self._arg_params is None:
+            self._arg_params = {
+                name: nd.zeros(arr.shape, ctx, dtype=arr._data.dtype)
+                for name, arr in zip(
+                    self._param_names, self._exec_group.param_arrays)}
+        if self._aux_params is None:
+            self._aux_params = {
+                name: nd.zeros(arr.shape, ctx, dtype=arr._data.dtype)
+                for name, arr in zip(
+                    self._aux_names, self._exec_group.aux_arrays)}
+
+        def _impl(name, arr, cache):
+            if cache is not None and name in cache:
+                cache_arr = cache[name]
+                if cache_arr is not arr:
+                    if tuple(cache_arr.shape) != arr.shape:
+                        raise MXNetError(
+                            'shape mismatch for %s: %s vs %s'
+                            % (name, cache_arr.shape, arr.shape))
+                    if isinstance(cache_arr, nd.NDArray):
+                        cache_arr.as_in_context(arr.context).copyto(arr)
+                    else:
+                        arr[:] = cache_arr
+            else:
+                if not allow_missing and cache is not None:
+                    raise RuntimeError('%s is not presented' % name)
+                if initializer is not None:
+                    # `name` is an InitDesc with the variable's attrs
+                    # (the __init__ attr dispatches inside)
+                    initializer(name, arr)
+
+        attrs = self._symbol.attr_dict()
+        for name, arr in sorted(self._arg_params.items()):
+            _impl(init_mod.InitDesc(name, attrs.get(name, None)), arr,
+                  arg_params)
+        for name, arr in sorted(self._aux_params.items()):
+            _impl(init_mod.InitDesc(name, attrs.get(name, None)), arr,
+                  aux_params)
+        if not allow_extra:
+            self._check_extra_params(arg_params, aux_params)
+        self.params_initialized = True
+        self._params_dirty = False
+        self._exec_group.set_params(self._arg_params, self._aux_params)
+
+    def _check_extra_params(self, arg_params, aux_params):
+        """Parameters the symbol does not know fail loudly unless
+        allow_extra."""
+        extra = []
+        if arg_params:
+            extra += [n for n in arg_params if n not in self._param_names
+                      and n not in self._data_names
+                      and n not in self._label_names
+                      and n not in self._state_names]
+        if aux_params:
+            extra += [n for n in aux_params if n not in self._aux_names]
+        if extra:
+            raise MXNetError(
+                'set_params/init_params got parameters not in the '
+                'symbol (pass allow_extra=True to ignore them): %s'
+                % sorted(extra))
+
+    def set_params(self, arg_params, aux_params, allow_missing=False,
+                   force_init=True, allow_extra=False):
+        if not allow_missing:
+            self.init_params(initializer=None, arg_params=arg_params,
+                             aux_params=aux_params,
+                             allow_missing=allow_missing,
+                             force_init=force_init,
+                             allow_extra=allow_extra)
+            return
+        if self.params_initialized and not force_init:
+            return
+        if not allow_extra:
+            self._check_extra_params(arg_params, aux_params)
+        self._exec_group.set_params(arg_params, aux_params)
+        self._params_dirty = True
+        self.params_initialized = True
+
+    # -- binding -----------------------------------------------------------
+    def bind(self, data_shapes, label_shapes=None, for_training=True,
+             inputs_need_grad=False, force_rebind=False, shared_module=None,
+             grad_req='write'):
+        if force_rebind:
+            self._exec_group = None
+            self.binded = False
+        if self.binded:
+            self.logger.warning('Already binded, ignoring bind()')
+            return
+        self.for_training = for_training
+        self.inputs_need_grad = inputs_need_grad
+        self.binded = True
+        if not for_training:
+            assert not inputs_need_grad
+        self._data_shapes = list(data_shapes)
+        self._label_shapes = list(label_shapes) if label_shapes else []
+        shared_group = shared_module._exec_group if shared_module else None
+        self._exec_group = DataParallelExecutorGroup(
+            self._symbol, self._context, self._work_load_list,
+            self._data_shapes, self._label_shapes, self._param_names,
+            for_training, inputs_need_grad, shared_group=shared_group,
+            logger=self.logger, fixed_param_names=self._fixed_param_names,
+            grad_req=grad_req, state_names=self._state_names)
+        if shared_module is not None and shared_module.params_initialized:
+            self._arg_params = shared_module._arg_params
+            self._aux_params = shared_module._aux_params
+            self.params_initialized = True
+        elif self.params_initialized:
+            self._exec_group.set_params(self._arg_params, self._aux_params)
+            # the loaded values live on the host; get_params copies the
+            # bound ones back
+            self._params_dirty = True
+
+    # -- optimizer ---------------------------------------------------------
+    def init_optimizer(self, kvstore='local', optimizer='sgd',
+                       optimizer_params=(('learning_rate', 0.01),),
+                       force_init=False, zero=None):
+        assert self.binded and self.params_initialized
+        if self.optimizer_initialized and not force_init:
+            self.logger.warning('optimizer already initialized, '
+                                'ignoring...')
+            return
+        if zero:
+            raise unported('ZeRO optimizer-state sharding', '6')
+        kvstore, update_on_kvstore = model_mod._create_kvstore(
+            kvstore, len(self._context), self._arg_params)
+        rescale_grad = 1.0 / self._exec_group.batch_size
+        if isinstance(optimizer, str):
+            idx2name = {i: n for i, n in enumerate(self._param_names)}
+            optimizer_params = dict(optimizer_params)
+            if 'rescale_grad' not in optimizer_params:
+                optimizer_params['rescale_grad'] = rescale_grad
+            optimizer = opt_mod.create(optimizer, sym=self.symbol,
+                                       param_idx2name=idx2name,
+                                       **optimizer_params)
+        else:
+            assert isinstance(optimizer, opt_mod.Optimizer)
+        self._optimizer = optimizer
+        self._kvstore = kvstore
+        self._update_on_kvstore = update_on_kvstore
+        self._fused_updater = opt_mod.create_fused_updater(
+            optimizer, self._param_names)
+        self._updater = None if self._fused_updater is not None \
+            else opt_mod.get_updater(optimizer)
+        self.optimizer_initialized = True
+        if self._preload_opt_states is not None:
+            self.load_optimizer_states(self._preload_opt_states)
+            self._preload_opt_states = None
+
+    # -- per batch ---------------------------------------------------------
+    def forward(self, data_batch, is_train=None):
+        assert self.binded and self.params_initialized
+        self._exec_group.forward(data_batch, is_train)
+
+    def backward(self, out_grads=None):
+        assert self.binded and self.params_initialized
+        self._exec_group.backward(out_grads=out_grads)
+
+    def forward_backward(self, data_batch):
+        """Train-mode forward and backward of one batch, run at once (the
+        JAX package defers them to update() only to give XLA one
+        program)."""
+        assert self.binded and self.params_initialized
+        self._exec_group.forward_backward(data_batch)
+
+    def bulk_step(self, batches=None, batch=None, repeat=None,
+                  scan_dtype=None, eval_metric=None):
+        raise unported('Module.bulk_step (make_fused_multistep)', '2')
+
+    def update(self):
+        """The optimizer's update of every parameter with a gradient."""
+        assert self.binded and self.params_initialized and \
+            self.optimizer_initialized
+        self._params_dirty = True
+        eg = self._exec_group
+        if self._fused_updater is not None:
+            names, weights, grads = [], [], []
+            for n, w, g in zip(self._param_names, eg.param_arrays,
+                               eg.grad_arrays):
+                if g is not None:
+                    names.append(n)
+                    weights.append(w)
+                    grads.append(g)
+            self._fused_updater.param_names = names
+            self._fused_updater(weights, grads)
+            return
+        model_mod._update_params(eg.param_arrays, eg.grad_arrays,
+                                 updater=self._updater,
+                                 num_device=len(self._context),
+                                 kvstore=self._kvstore,
+                                 param_names=self._param_names)
+
+    def get_outputs(self, merge_multi_context=True):
+        assert self.binded and self.params_initialized
+        return self._exec_group.get_outputs(merge_multi_context)
+
+    def get_input_grads(self, merge_multi_context=True):
+        assert self.binded and self.params_initialized and \
+            self.inputs_need_grad
+        return self._exec_group.get_input_grads(merge_multi_context)
+
+    def update_metric(self, eval_metric, labels):
+        self._exec_group.update_metric(eval_metric, labels)
+
+    # -- optimizer states --------------------------------------------------
+    def save_optimizer_states(self, fname):
+        assert self.optimizer_initialized
+        updater = self._fused_updater or self._updater
+        with atomic_file(fname) as fout:
+            fout.write(updater.get_states())
+
+    def load_optimizer_states(self, fname):
+        assert self.optimizer_initialized
+        updater = self._fused_updater or self._updater
+        with open(fname, 'rb') as fin:
+            updater.set_states(fin.read())
+
+    def install_monitor(self, mon):
+        raise unported('the executor monitor (install_monitor)', '1b')
+
+    def _wrap_train_iter(self, train_data):
+        """fit's input pipeline: upcoming batches staged on the module's
+        device (io.prefetch_to_device), MXNET_TPU_PREFETCH of them
+        (default 2; 0 turns staging off)."""
+        try:
+            depth = int(os.environ.get('MXNET_TPU_PREFETCH', '2'))
+        except ValueError:
+            depth = 2
+        if depth <= 0 or not self.binded or \
+                isinstance(train_data, mxio.PrefetchToDeviceIter):
+            return train_data
+        return mxio.prefetch_to_device(train_data, size=depth,
+                                       device=self._context[0])
+
+    def reshape(self, data_shapes, label_shapes=None):
+        raise unported('Module.reshape (Executor.reshape)', '1b')

@@ -1,14 +1,15 @@
 """Operator registry and implementations (see registry.py).
 
 Importing this package registers the ops the port has so far: the
-tensor ops (`tensor`), the samplers (`random_ops`) and the layers of
-ResNet-50 (`nn`), under the names of their JAX namesakes in
+tensor ops (`tensor`), the samplers (`random_ops`), the layers of
+ResNet-50 (`nn`) and the optimizer updates (`optimizer_ops`), under the names of their JAX namesakes in
 mxnet_tpu/ops/.
 """
 from . import registry
 from . import tensor
 from . import random_ops
 from . import nn
+from . import optimizer_ops
 
 from .registry import get, exists, list_ops, register, OpDef, OpContext
 
