@@ -7,6 +7,7 @@
     python3 chip_smoke.py --conv-case main     # build, cases of phase 6
     python3 chip_smoke.py --phases 7,8         # build, phases 7 and 8 only
     python3 chip_smoke.py --phases 10          # build, Module.fit only
+    python3 chip_smoke.py --phases 11          # build, serving only
     python3 chip_smoke.py --mutants            # phases 2, 4 and 6 against
                                                # broken kernels
 
@@ -116,7 +117,31 @@ Phases, each of which exits non-zero on failure:
    step bit for bit. Printed: the step time and images/s with the route
    on and off, the Speedometer's rate, the update's host and device
    time, update_metric's, the H2D copy of a batch, the staging stall,
-   peak memory, and one step's profile beside phase 9's.
+   peak memory, and one step's profile beside phase 9's;
+11. serve: the network of phase 9 (SERVE_RESIDUAL_SCALE on each residual
+   branch's last conv, BatchNorm statistics from one seeded batch) saved
+   with model.save_checkpoint, loaded by Predictor.from_checkpoint with
+   no ctx (it must bind to cuda:0) and served by pred.serve(max_batch=32,
+   max_wait_us=2000), the ladder 1-32 at depth 2: SERVE_CLIENTS threads
+   send SERVE_REQUESTS requests each of 1-4 seeded images; then the same
+   traffic through an int8 engine and an engine over a Module bound for
+   inference at batch 32; serial Predictor.forward at batch 32 and 1
+   timed beside them. Gated (serving_gate): every request and row
+   counted and answered with its own rows (each answer row nearest its
+   own reference row), a full-bucket request equal bit for bit to the
+   serial forward, a padded one to the padded serial forward, a
+   request's rows the same bits whatever they are batched with, a
+   70-row request equal to the serial forward of its chunks, no rung
+   built after warmup, batch fill in (0, 1], the int8 engine within its
+   parity gate with codes taking half the bf16 bytes plus scales, the
+   Module engine equal to the Predictor engine, close() joining both
+   threads and refusing later work, every NN op of the second ops slice
+   equal on gpu(0) and cpu(0), and no flash or conv kernel launched.
+   Printed: requests/s, images/s, latency p50/p99, fill, padded rows,
+   queue depth, the service-ms EMA, the host ms of a dispatch (assembly,
+   staging, the walk's launches, the completion's copy), a window's
+   device time by kernel class and device-busy share, peak memory,
+   memory_cost and resident bytes.
 
 It prints one JSON line with every kernel's numbers, then the card's
 name and power limit from nvidia-smi, and last
@@ -398,7 +423,7 @@ CONV_SM90_MUTANTS = {
                          ': ' + _TRUNCATE + 'v[0], v[1]));'),
 }
 
-ALL_PHASES = frozenset(range(2, 11))
+ALL_PHASES = frozenset(range(2, 12))
 # phase 7: the imperative NDArray path's size (n x n inputs)
 ND_SIZE = 1024
 ND_HOST_CALLS = 2000
@@ -1260,11 +1285,11 @@ def conv_phase(torch, cuda_ops, cuda_conv, bench_conv_bn):
     return dict(cases=cases, grad=grad, bench=bench)
 
 
-def conv_kernel_entry(conv, sass, resnet, module):
+def conv_kernel_entry(conv, sass, resnet, module, serve):
     """The conv_bn_stats entry of the kernels line: times at the main
     case's shape from the bench, errors from the cases, launches from the
-    ResNet-50 train steps of phase 9 (its main path) and of phase 10's
-    Module.fit."""
+    ResNet-50 train steps of phase 9 (its main path), of phase 10's
+    Module.fit and of phase 11's serving (0)."""
     xs, ws = CONV_CASES['main'][:2]
     main_shape = [xs[1], xs[3], ws[3], ws[0], CONV_CASES['main'][2][0]]
     bench = conv['bench']
@@ -1292,6 +1317,7 @@ def conv_kernel_entry(conv, sass, resnet, module):
         launches=resnet['train_path_launches'],
         launches_by_path=dict(resnet_train=resnet['train_path_launches'],
                               module_fit=module['fit_launches'],
+                              resnet_serve=serve['launches']['conv'],
                               conv_bn_bench=bench['launches']),
         launches_per_train_step=resnet['train_launches'],
         launches_per_body_forward=bench['launches_per_body_forward'],
@@ -2901,6 +2927,646 @@ def module_phase(torch, mx, cuda_conv, root, resnet=None, ctx=None):
     return run
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: serving the bf16 ResNet-50 checkpoint
+# ---------------------------------------------------------------------------
+
+SERVE_BATCH = 32            # max_batch: the ladder 1, 2, 4, 8, 16, 32
+SERVE_WAIT_US = 2000
+SERVE_CLIENTS = 16
+SERVE_REQUESTS = 32         # each client's, one after another
+SERVE_ROWS = (1, 4)         # a request's rows, seeded uniform
+SERVE_SPLIT_ROWS = 70       # a request over max_batch: 32 + 32 + 6
+SERVE_SERIAL_ITERS = 8      # timed serial forwards at each batch
+SERVE_PROFILE_REQUESTS = 8  # each client's, in the profiled window
+# Largest |answer - serial forward| over the largest serial output: the
+# traffic's rows run at the 1-16 rungs, the serial forward at 32, and
+# cuDNN sums in another order at each batch. Sound runs on an H100 read
+# 0.012-0.014 in bf16 and 1.7e-6 in the float32 control (PERF.md §6):
+# the spread is bf16's rounding of those sums. The limit is 2.5 times the
+# largest sound reading.
+SERVE_SERIAL_REL_TOL = 0.035
+# The seeded He-normal ResNet-50 is chaotic at initialisation: in eval
+# mode bf16 rounding alone moves its softmax by a large share of its
+# largest output (serve_conditioning measures it), where a trained
+# network moves by far less, so no precision check (the int8 parity gate)
+# could pass on it. The served checkpoint scales the last conv of each
+# residual branch by this (zero-init-residual schemes set it to 0: Goyal
+# et al. 2017; Zhang et al. 2019), and its BatchNorm moving statistics
+# are those of one seeded batch (a train-mode forward at momentum 0), as
+# a trained model's match its activations; plain He-normal statistics
+# saturate the softmax to one class for every image.
+SERVE_RESIDUAL_SCALE = 0.05
+SERVE_CONDITION_BATCH = 8   # images of the conditioning check
+# every newly ported NN op on gpu(0) against cpu(0): (op, attrs, inputs
+# as (kind, shape), tolerance class: 'float' rtol 1e-5 / atol 1e-6, 'reduce'
+# rtol 1e-4 / atol 1e-5 with TF32 off)
+NN_OP_CASES = {
+    'LeakyReLU/leaky': ('LeakyReLU', dict(act_type='leaky', slope=0.1),
+                        [('normal', (8, 16, 32, 32))], 'float'),
+    'LeakyReLU/elu': ('LeakyReLU', dict(act_type='elu', slope=0.3),
+                      [('normal', (8, 16, 32, 32))], 'float'),
+    'LeakyReLU/prelu': ('LeakyReLU', dict(act_type='prelu'),
+                        [('normal', (8, 16, 32, 32)), ('normal', (16,))],
+                        'float'),
+    'LeakyReLU/rrelu': ('LeakyReLU', dict(act_type='rrelu'),
+                        [('normal', (8, 16, 32, 32))], 'float'),
+    'softmax': ('softmax', dict(axis=1, temperature=2.0),
+                [('normal', (64, 1000))], 'reduce'),
+    'log_softmax': ('log_softmax', {}, [('normal', (64, 1000))], 'reduce'),
+    'SoftmaxActivation/channel': ('SoftmaxActivation', dict(mode='channel'),
+                                  [('normal', (8, 16, 32, 32))], 'reduce'),
+    'SoftmaxActivation/instance': ('SoftmaxActivation', {},
+                                   [('normal', (8, 16, 8, 8))], 'reduce'),
+    'LinearRegressionOutput': ('LinearRegressionOutput', {},
+                               [('normal', (256, 64)), ('normal', (256, 64))],
+                               'float'),
+    'LogisticRegressionOutput': ('LogisticRegressionOutput', {},
+                                 [('normal', (256, 64)),
+                                  ('normal', (256, 64))], 'float'),
+    'MAERegressionOutput': ('MAERegressionOutput', {},
+                            [('normal', (256, 64)), ('normal', (256, 64))],
+                            'float'),
+    'softmax_cross_entropy': ('softmax_cross_entropy', {},
+                              [('normal', (256, 1000)), ('class', (256,))],
+                              'reduce'),
+    'Deconvolution': ('Deconvolution',
+                      dict(kernel=(4, 4), stride=(2, 2), pad=(1, 1),
+                           num_filter=32),
+                      [('normal', (8, 16, 32, 32)), ('small', (16, 32, 4, 4)),
+                       ('small', (32,))], 'reduce'),
+    'InstanceNorm': ('InstanceNorm', {},
+                     [('normal', (8, 16, 32, 32)), ('normal', (16,)),
+                      ('normal', (16,))], 'reduce'),
+    'L2Normalization/instance': ('L2Normalization', {},
+                                 [('normal', (8, 16, 32, 32))], 'reduce'),
+    'L2Normalization/channel': ('L2Normalization', dict(mode='channel'),
+                                [('normal', (8, 16, 32, 32))], 'reduce'),
+    'L2Normalization/spatial': ('L2Normalization', dict(mode='spatial'),
+                                [('normal', (8, 16, 32, 32))], 'reduce'),
+    'LRN': ('LRN', dict(nsize=5), [('normal', (8, 16, 32, 32))], 'reduce'),
+    'Dropout/eval': ('Dropout', dict(p=0.5), [('normal', (8, 16, 32, 32))],
+                     'float'),
+    'SequenceLast': ('SequenceLast', dict(use_sequence_length=True),
+                     [('normal', (32, 64, 128)), ('length', (64,))], 'float'),
+    'SequenceMask': ('SequenceMask', dict(use_sequence_length=True,
+                                          value=-1.0),
+                     [('normal', (32, 64, 128)), ('length', (64,))], 'float'),
+    'SequenceReverse': ('SequenceReverse', dict(use_sequence_length=True),
+                        [('normal', (32, 64, 128)), ('length', (64,))],
+                        'float'),
+    'UpSampling/nearest': ('UpSampling', dict(scale=2),
+                           [('normal', (8, 16, 32, 32))], 'float'),
+    'UpSampling/bilinear': ('UpSampling', dict(scale=2,
+                                               sample_type='bilinear',
+                                               num_filter=16),
+                            [('normal', (8, 16, 32, 32)),
+                             ('small', (16, 1, 4, 4))], 'reduce'),
+    'Crop': ('Crop', dict(h_w=(20, 24), center_crop=True),
+             [('normal', (8, 16, 32, 32))], 'float'),
+}
+NN_TOL = {'float': dict(rtol=1e-5, atol=1e-6),
+          'reduce': dict(rtol=1e-4, atol=1e-5)}
+
+
+def nn_op_inputs(case, seed):
+    """The seeded float32 inputs of one NN_OP_CASES case."""
+    _, _, kinds, _ = NN_OP_CASES[case]
+    rng = np.random.default_rng(seed)
+    out = []
+    for kind, shape in kinds:
+        if kind == 'normal':
+            out.append(rng.standard_normal(shape, dtype=np.float32))
+        elif kind == 'small':
+            out.append(0.1 * rng.standard_normal(shape, dtype=np.float32))
+        elif kind == 'class':
+            out.append(rng.integers(0, 1000, shape).astype(np.float32))
+        else:                   # a sequence length in [1, T]
+            out.append(rng.integers(1, 33, shape).astype(np.float32))
+    return out
+
+
+def nn_op_checks(mx, ctx_a, ctx_b):
+    """Each NN_OP_CASES op on ctx_a against ctx_b from the same inputs:
+    one row each, with its largest error and whether it is within its
+    tolerance."""
+    rows = []
+    for i, (case, (op, attrs, _, tol)) in enumerate(sorted(
+            NN_OP_CASES.items())):
+        arrays = nn_op_inputs(case, SEED + 120 + i)
+        outs = []
+        for ctx in (ctx_a, ctx_b):
+            got = getattr(mx.nd, op)(
+                *[mx.nd.array(a, ctx=ctx) for a in arrays], **attrs)
+            outs.append([o.asnumpy() for o in
+                         (got if isinstance(got, list) else [got])])
+        ok, err = True, 0.0
+        for a, b in zip(*outs):
+            ok = ok and a.shape == b.shape and np.allclose(
+                a, b, **NN_TOL[tol])
+            err = max(err, float(np.abs(a - b).max()) if a.size else 0.0)
+        rows.append(dict(op=case, ok=bool(ok), max_abs_err=err, tol=tol))
+    return rows
+
+
+def serve_params(mx, symbol, shape, ctx, residual_scale, batch):
+    """Seeded weights of `symbol` (a ResNet), each residual branch's last
+    conv scaled by `residual_scale`, and BatchNorm moving statistics from
+    one seeded batch of `batch` images: (args, auxs) by name."""
+    args, auxs = resnet_params(symbol, dict(data=(1,) + shape),
+                               RESNET['num_classes'], SEED + 110)
+    args.pop('data')
+    args.pop('softmax_label')
+    for name in args:
+        if name.endswith('_conv3_weight'):
+            args[name] = args[name] * np.float32(residual_scale)
+    calib = mx.sym.load_json(symbol.tojson().replace('"momentum": "0.9"',
+                                                     '"momentum": "0"'))
+    ex = calib.simple_bind(ctx, grad_req='null', data=(batch,) + shape)
+    ex.copy_params_from(args, auxs)
+    ex._pair_route = False      # the phase launches no conv kernel
+    x = np.random.default_rng(SEED + 111).standard_normal(
+        (batch,) + shape, dtype=np.float32)
+    ex.forward(is_train=True, data=x)
+    return args, {n: a.asnumpy() for n, a in ex.aux_dict.items()}
+
+
+def serve_conditioning(mx, shape, ctx, residual_scale):
+    """How far bf16 rounding moves the seeded network's eval softmax at
+    `residual_scale`: the float32 network's statistics, its outputs and
+    the bf16 network's on SERVE_CONDITION_BATCH seeded images; max |bf16
+    - float32| over the largest float32 output, the largest probability
+    and the number of distinct top classes."""
+    from mxnet_tpu_torch.predictor import Predictor
+    n = SERVE_CONDITION_BATCH
+    kw = dict(RESNET, image_shape=','.join(map(str, shape)))
+    args, auxs = serve_params(mx, mx.models.resnet.get_symbol(
+        **dict(kw, dtype='float32')), shape, ctx, residual_scale, n)
+    x = np.random.default_rng(SEED + 113).standard_normal(
+        (n,) + shape, dtype=np.float32)
+    outs = {}
+    for dtype in ('float32', 'bfloat16'):
+        pred = Predictor(symbol=mx.models.resnet.get_symbol(
+            **dict(kw, dtype=dtype)), arg_params=args, aux_params=auxs,
+            input_shapes={'data': (n,) + shape}, ctx=ctx)
+        outs[dtype] = pred.predict(x)
+    f32 = outs['float32']
+    return dict(residual_scale=residual_scale,
+                bf16_rel_diff=float(np.abs(outs['bfloat16'] - f32).max() /
+                                    np.abs(f32).max()),
+                max_prob=float(f32.max()),
+                top_classes=int(len(set(f32.argmax(axis=1).tolist()))))
+
+
+def serve_checkpoint(torch, mx, prefix, ctx):
+    """The bf16 ResNet-50 of phase 9 with serve_params' weights and
+    statistics, saved with model.save_checkpoint."""
+    symbol = mx.models.resnet.get_symbol(**RESNET)
+    shape = tuple(int(v) for v in RESNET['image_shape'].split(','))
+    args, auxs = serve_params(mx, symbol, shape, ctx, SERVE_RESIDUAL_SCALE,
+                              SERVE_BATCH)
+    mx.model.save_checkpoint(
+        prefix, 0, symbol,
+        {n: mx.nd.array(a, ctx=mx.cpu()) for n, a in args.items()},
+        {n: mx.nd.array(a, ctx=mx.cpu()) for n, a in auxs.items()})
+    return symbol, shape
+
+
+def serve_requests(shape):
+    """Each client's SERVE_REQUESTS requests: seeded float32 normal images,
+    rows uniform in SERVE_ROWS."""
+    rng = np.random.default_rng(SEED + 112)
+    return [[rng.standard_normal(
+        (int(rng.integers(SERVE_ROWS[0], SERVE_ROWS[1] + 1)),) + shape,
+        dtype=np.float32) for _ in range(SERVE_REQUESTS)]
+        for _ in range(SERVE_CLIENTS)]
+
+
+def drive(eng, requests):
+    """SERVE_CLIENTS threads, each sending its requests one after
+    another through eng.infer: (wall seconds, answers by client)."""
+    import threading
+    answers = [[None] * len(r) for r in requests]
+    errors = []
+    barrier = threading.Barrier(len(requests))
+
+    def client(i):
+        try:
+            barrier.wait()
+            for j, x in enumerate(requests[i]):
+                answers[i][j] = eng.infer(x)[0]
+        except Exception as e:      # raised by fail() below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(requests))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        fail('serve: clients failed: %s' % errors[:3])
+    return wall, answers
+
+
+def coalesced(eng, arrays):
+    """The answers of requests enqueued in one lock hold, so that the
+    dispatcher batches them together (their rows fill max_batch)."""
+    reqs = eng._submit_all([[a] for a in arrays])
+    for r in reqs:
+        r.event.wait()
+        if r.error is not None:
+            raise r.error
+    return [r.outputs[0] for r in reqs]
+
+
+def serial_outputs(pred, images):
+    """The serial Predictor.forward of `images` in chunks of the
+    predictor's batch (the last padded with zeros): (n, classes)."""
+    batch = pred._executor.arg_dict['data'].shape[0]
+    out = []
+    for i in range(0, len(images), batch):
+        chunk = images[i:i + batch]
+        if len(chunk) < batch:
+            pad = np.zeros((batch,) + chunk.shape[1:], np.float32)
+            pad[:len(chunk)] = chunk
+            chunk = pad
+        out.append(pred.forward(data=chunk)[0].asnumpy()[:len(
+            images[i:i + batch])])
+    return np.concatenate(out)
+
+
+def wrong_rows(torch, answers, refs):
+    """(request, row) of every answer row whose nearest reference row is
+    not its own: a row swapped between requests. Answers in request
+    order, refs one row per image in the same order."""
+    flat = np.concatenate([a for client in answers for a in client])
+    got = torch.from_numpy(flat).cuda()
+    ref = torch.from_numpy(refs).cuda()
+    nearest = torch.cdist(got, ref).argmin(dim=1).cpu().numpy()
+    own = np.arange(len(flat))
+    bad = np.nonzero(nearest != own)[0]
+    starts = np.cumsum([0] + [len(a) for client in answers
+                              for a in client])
+    where = [(int(np.searchsorted(starts, i, side='right') - 1),
+              int(i - starts[np.searchsorted(starts, i, side='right') - 1]))
+             for i in bad]
+    return where, float(np.abs(flat - refs).max())
+
+
+def engine_row(eng, requests, wall):
+    """One engine's traffic numbers from its stats() and the answers."""
+    st = eng.stats()
+    n = sum(len(r) for r in requests)
+    rows = sum(len(x) for r in requests for x in r)
+    return dict(
+        requests=st['requests'], rows=st['rows'], batches=st['batches'],
+        requests_per_s=n / wall, images_per_s=rows / wall, wall_s=wall,
+        latency_p50_ms=st['latency_p50_ms'],
+        latency_p99_ms=st['latency_p99_ms'],
+        batch_fill_avg=st['batch_fill_avg'],
+        padded_rows=st['padded_rows'], pad_waste_frac=st['pad_waste_frac'],
+        queue_depth_avg=st['queue_depth_avg'],
+        service_ms_ema=st['service_ms_ema'], host_ms=st['host_ms'],
+        compiles_after_warmup=st['compiles_after_warmup'],
+        compile_s_after_warmup=st['compile_s_after_warmup'],
+        answered_requests=n, answered_rows=rows,
+        resident_bytes=eng.resident_bytes())
+
+
+def serve_profile(torch, eng, requests):
+    """A short window of traffic under torch.profiler: the device time by
+    kernel class and the device-busy share of the window."""
+    from torch.profiler import ProfilerActivity, profile
+    window = [r[:SERVE_PROFILE_REQUESTS] for r in requests]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall, _ = drive(eng, window)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if str(getattr(e, 'device_type', '')).endswith('CUDA')]
+    device_ms = sum(device_us(e) for e in kernels) / 1e3
+    classes = {}
+    for e in kernels:
+        c = classes.setdefault(kernel_class(e.key), dict(ms=0.0, launches=0))
+        c['ms'] += device_us(e) / 1e3
+        c['launches'] += e.count
+    return dict(window_ms=wall * 1e3, device_ms=device_ms,
+                device_busy_share=device_ms / (wall * 1e3),
+                requests=sum(len(r) for r in window), classes=classes)
+
+
+def float32_control(torch, mx, prefix, shape, requests):
+    """The checkpoint's weights in the float32 network, served by an
+    engine to SERVE_PROFILE_REQUESTS requests of each client and held
+    against its serial forward at SERVE_BATCH: how far the rungs' sums
+    alone move the answers, without bf16 rounding."""
+    from mxnet_tpu_torch.predictor import Predictor
+    _, args, auxs = mx.model.load_checkpoint(prefix, 0, ctx=mx.cpu())
+    symbol = mx.models.resnet.get_symbol(**dict(RESNET, dtype='float32'))
+    preds = [Predictor(symbol=symbol, arg_params=args, aux_params=auxs,
+                       input_shapes={'data': (b,) + shape}, ctx=mx.gpu(0))
+             for b in (1, SERVE_BATCH)]
+    window = [r[:SERVE_PROFILE_REQUESTS] for r in requests]
+    with preds[0].serve(max_batch=SERVE_BATCH,
+                        max_wait_us=SERVE_WAIT_US) as eng:
+        wall, answers = drive(eng, window)
+        st = eng.stats()
+    refs = serial_outputs(preds[1], np.concatenate(
+        [x for client in window for x in client]))
+    bad, err = wrong_rows(torch, answers, refs)
+    return dict(requests=st['requests'], rows=st['rows'],
+                images_per_s=st['rows'] / wall, wrong_rows=bad,
+                max_abs_err_vs_serial=err,
+                max_rel_err_vs_serial=err / float(np.abs(refs).max()))
+
+
+def serving_gate(run):
+    """Phase 11's checks on a run's numbers: a list of what failed, empty
+    when it passed."""
+    bad = []
+    if run['default_device'] != 'cuda:0':
+        bad.append('a Predictor with no ctx bound to %s, not cuda:0'
+                   % run['default_device'])
+    sent = SERVE_CLIENTS * SERVE_REQUESTS
+    for name in ('bf16', 'int8', 'module'):
+        e = run[name]
+        if e['requests'] != sent or e['answered_requests'] != sent:
+            bad.append('%s engine counted %d requests, answered %d, of %d'
+                       % (name, e['requests'], e['answered_requests'], sent))
+        if e['rows'] != run['sent_rows'] or \
+                e['answered_rows'] != run['sent_rows']:
+            bad.append('%s engine counted %d rows, answered %d, of %d'
+                       % (name, e['rows'], e['answered_rows'],
+                          run['sent_rows']))
+        if e['wrong_rows']:
+            bad.append('%s engine answered rows of other requests: %s'
+                       % (name, e['wrong_rows'][:5]))
+        if not e['max_rel_err_vs_serial'] <= SERVE_SERIAL_REL_TOL:
+            bad.append('%s engine answers %.4g of the largest output from '
+                       'the serial forward, over %.4g'
+                       % (name, e['max_rel_err_vs_serial'],
+                          SERVE_SERIAL_REL_TOL))
+        if e['compiles_after_warmup'] != 0:
+            bad.append('%s engine built %d rungs after warmup'
+                       % (name, e['compiles_after_warmup']))
+        if not 0 < e['batch_fill_avg'] <= 1:
+            bad.append('%s engine batch fill %.3f' % (name,
+                                                       e['batch_fill_avg']))
+    for key, what in (('full_bucket_equal', 'a full-bucket request differs '
+                       'from serial Predictor.forward'),
+                      ('padded_equal', 'a padded request differs from the '
+                       'padded serial forward'),
+                      ('row_independent', 'a request\'s rows depend on what '
+                       'they were batched with'),
+                      ('split_equal', 'the split request differs from the '
+                       'serial forward of its chunks'),
+                      ('closed_joined', 'close() left a worker thread '
+                       'running'),
+                      ('closed_refuses', 'infer() after close() did not '
+                       'raise')):
+        if not run[key]:
+            bad.append(what)
+    c = run['float32']
+    if c['wrong_rows'] or not c['max_rel_err_vs_serial'] <= \
+            SERVE_SERIAL_REL_TOL:
+        bad.append('the float32 control answers %.4g of the largest output '
+                   'from its serial forward (wrong rows %s)'
+                   % (c['max_rel_err_vs_serial'], c['wrong_rows'][:5]))
+    q = run['int8']
+    if not q['parity_measured'] <= q['parity_tol']:
+        bad.append('int8 parity %.4g over its tolerance %.4g'
+                   % (q['parity_measured'], q['parity_tol']))
+    if q['quant_bytes'] * 2 != q['bf16_bytes'] or q['scale_bytes'] <= 0:
+        bad.append('int8 weights take %d bytes (and %d of scales) for %d '
+                   'bf16 bytes' % (q['quant_bytes'], q['scale_bytes'],
+                                   q['bf16_bytes']))
+    if run['module_max_abs_diff'] != 0.0:
+        bad.append('the Module engine differs from the Predictor engine by '
+                   '%.4g' % run['module_max_abs_diff'])
+    if not run['nn_ops'] or not all(r['ok'] for r in run['nn_ops']):
+        bad.append('NN ops disagree between gpu(0) and cpu(0): %s'
+                   % [r['op'] for r in run['nn_ops'] if not r['ok']])
+    for kernel, n in sorted(run['launches'].items()):
+        if n:
+            bad.append('serving launched the %s kernel %d times' % (kernel,
+                                                                    n))
+    return bad
+
+
+def serve_phase(torch, mx, cuda_conv, cuda_ops, root):
+    """Phase 11: the bf16 ResNet-50 checkpoint served on gpu(0) by
+    Predictor.from_checkpoint(...).serve(), an int8 engine and an engine
+    over a Module, under SERVE_CLIENTS threads of traffic; gated by
+    serving_gate."""
+    import shutil
+    from mxnet_tpu_torch.predictor import Predictor
+    from mxnet_tpu_torch.serving import InferenceEngine
+    torch.cuda.empty_cache()
+    ckpt_dir = root / 'build' / 'phase11'
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ckpt_dir.mkdir(parents=True)
+    prefix = str(ckpt_dir / 'resnet50')
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        t0 = time.perf_counter()
+        symbol, shape = serve_checkpoint(torch, mx, prefix, mx.gpu(0))
+        requests = serve_requests(shape)
+        images = np.concatenate([x for client in requests for x in client])
+        print('serve: checkpoint and %d requests (%d images) made in %.1f s'
+              % (SERVE_CLIENTS * SERVE_REQUESTS, len(images),
+                 time.perf_counter() - t0))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+        # the serving path's launch counts: from the Predictor's load to
+        # the Module engine's close
+        cuda_conv.CONV_BN_STATS_LAUNCHES = 0
+        reset_counts(cuda_ops)
+        # the Predictor, default device, and the serial references
+        pred = Predictor.from_checkpoint(prefix, 0, {'data': (1,) + shape})
+        devices = {str(a._data.device) for d in (
+            pred._executor.arg_dict, pred._executor.aux_dict)
+            for a in d.values()}
+        default_device = devices.pop() if len(devices) == 1 else \
+            str(sorted(devices))
+        serial = Predictor.from_checkpoint(
+            prefix, 0, {'data': (SERVE_BATCH,) + shape}, ctx=mx.gpu(0))
+        refs = serial_outputs(serial, images)
+
+        # the bf16 engine: traffic, then the gates that compare bits
+        t0 = time.perf_counter()
+        eng = pred.serve(max_batch=SERVE_BATCH, max_wait_us=SERVE_WAIT_US)
+        warm_s = time.perf_counter() - t0
+        wall, answers = drive(eng, requests)
+        bf16 = engine_row(eng, requests, wall)
+        bf16['warmup_s'] = warm_s
+        bf16['wrong_rows'], bf16['max_abs_err_vs_serial'] = wrong_rows(
+            torch, answers, refs)
+        ref_max = float(np.abs(refs).max())
+        bf16['max_rel_err_vs_serial'] = bf16['max_abs_err_vs_serial'] / \
+            ref_max
+        x32 = images[:SERVE_BATCH]
+        full = eng.infer(x32)[0]
+        full_bucket_equal = bool(np.array_equal(full, refs[:SERVE_BATCH]))
+        a3, b29, c29 = images[40:43], images[100:129], images[200:229]
+        with_b = coalesced(eng, [a3, b29])[0]
+        with_c = coalesced(eng, [a3, c29])[0]
+        row_independent = bool(np.array_equal(with_b, with_c))
+        # 70 rows: chunks of 32, 32 and 6 (the last padded to the 8 rung)
+        x70 = images[300:300 + SERVE_SPLIT_ROWS]
+        split = eng.infer(x70)[0]
+        padded = eng.infer(images[400:405])[0]
+        split_ref = [serial_outputs(serial, x70[:2 * SERVE_BATCH])]
+        serial.reshape({'data': (8,) + shape})
+        split_ref.append(serial_outputs(serial, x70[2 * SERVE_BATCH:]))
+        split_equal = bool(np.array_equal(split, np.concatenate(split_ref)))
+        padded_equal = bool(np.array_equal(
+            padded, serial_outputs(serial, images[400:405])))
+        profile = serve_profile(torch, eng, requests)
+        bf16['compiles_after_warmup'] = eng.stats()['compiles_after_warmup']
+        workers = [eng._dispatcher, eng._completer]
+        eng.close()
+        closed_joined = not any(t.is_alive() for t in workers)
+        try:
+            eng.infer(images[:1])
+            closed_refuses = False
+        except mx.MXNetError:
+            closed_refuses = True
+        bf16_names = {n: a._data.numel() * a._data.element_size()
+                      for n, a in pred._executor.arg_dict.items()}
+        del eng
+
+        # the int8 engine over a fresh Predictor (the swap is in place)
+        qpred = Predictor.from_checkpoint(prefix, 0, {'data': (1,) + shape})
+        t0 = time.perf_counter()
+        qeng = qpred.serve(max_batch=SERVE_BATCH, max_wait_us=SERVE_WAIT_US,
+                           quantize='int8')
+        qwarm_s = time.perf_counter() - t0
+        wall, qanswers = drive(qeng, requests)
+        int8 = engine_row(qeng, requests, wall)
+        int8['warmup_s'] = qwarm_s
+        st = qeng.stats()['quantized']
+        int8.update(parity_measured=st['parity_measured'],
+                    parity_tol=st['parity_tol'], quant_names=st['weights'])
+        qrefs = np.concatenate([qeng.infer(images[i:i + SERVE_BATCH])[0]
+                                for i in range(0, len(images), SERVE_BATCH)])
+        int8['wrong_rows'], int8['max_abs_err_vs_own_full_buckets'] = \
+            wrong_rows(torch, qanswers, qrefs)
+        # the int8 engine's serial reference: its own full buckets
+        int8['max_rel_err_vs_serial'] = \
+            int8['max_abs_err_vs_own_full_buckets'] / \
+            float(np.abs(qrefs).max())
+        int8['max_abs_diff_vs_bf16_serial'] = float(np.abs(qrefs -
+                                                           refs).max())
+        names = qeng._quant_names
+        int8['quant_bytes'] = sum(
+            qeng._base_ex.arg_dict[n]._data.numel() for n in names)
+        int8['bf16_bytes'] = sum(bf16_names[n] for n in names)
+        int8['scale_bytes'] = sum(s.numel() * s.element_size()
+                                  for s in qeng._quant_scale_vals)
+        int8['compiles_after_warmup'] = \
+            qeng.stats()['compiles_after_warmup']
+        qeng.close()
+        del qeng, qpred
+
+        # the engine over a Module bound for inference
+        sym_, args, auxs = mx.model.load_checkpoint(prefix, 0, ctx=mx.cpu())
+        mod = mx.mod.Module(sym_, context=mx.gpu(0))
+        mod.bind(data_shapes=[('data', (SERVE_BATCH,) + shape)],
+                 for_training=False)
+        mod.set_params(args, auxs)
+        meng = InferenceEngine(mod, max_batch=SERVE_BATCH,
+                               max_wait_us=SERVE_WAIT_US)
+        wall, manswers = drive(meng, requests)
+        module = engine_row(meng, requests, wall)
+        module['wrong_rows'], module['max_abs_err_vs_serial'] = wrong_rows(
+            torch, manswers, refs)
+        module['max_rel_err_vs_serial'] = \
+            module['max_abs_err_vs_serial'] / ref_max
+        module_max_abs_diff = float(np.abs(meng.infer(x32)[0] -
+                                           full).max())
+        module['compiles_after_warmup'] = \
+            meng.stats()['compiles_after_warmup']
+        meng.close()
+        launches = dict(conv=cuda_conv.CONV_BN_STATS_LAUNCHES,
+                        **dict(zip(('flash_fwd', 'flash_bwd_dkdv',
+                                    'flash_bwd_dq'), read_counts(cuda_ops))))
+        del meng, mod
+
+        # serial Predictor.forward at batch 32 and 1, timed
+        serial_ms = {}
+        for b in (SERVE_BATCH, 1):
+            serial.reshape({'data': (b,) + shape})
+            serial.forward(data=images[:b])[0].asnumpy()
+            t0 = time.perf_counter()
+            for i in range(SERVE_SERIAL_ITERS):
+                serial.forward(data=images[i * b:(i + 1) * b])[0].asnumpy()
+            serial_ms[b] = (time.perf_counter() - t0) * 1e3 / \
+                SERVE_SERIAL_ITERS
+        torch.cuda.synchronize()
+        peak_bytes = torch.cuda.max_memory_allocated()
+        # the card's bytes of one eval forward at batch 32 (it resets the
+        # peak statistics, so it comes after the peak is read)
+        serial.reshape({'data': (SERVE_BATCH,) + shape})
+        memory = serial._executor.memory_cost('forward')
+        control = float32_control(torch, mx, prefix, shape, requests)
+        nn_ops = nn_op_checks(mx, mx.gpu(0), mx.cpu(0))
+        conditioning = [serve_conditioning(mx, shape, mx.gpu(0), scale)
+                        for scale in (1.0, SERVE_RESIDUAL_SCALE)]
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    run = dict(
+        config=dict(RESNET, max_batch=SERVE_BATCH, ladder=list(
+            mx.exec_cache.batch_ladder(SERVE_BATCH)),
+            max_wait_us=SERVE_WAIT_US, clients=SERVE_CLIENTS,
+            requests_each=SERVE_REQUESTS, rows=list(SERVE_ROWS),
+            residual_scale=SERVE_RESIDUAL_SCALE, depth=2),
+        default_device=default_device, sent_rows=int(len(images)),
+        bf16=bf16, int8=int8, module=module, float32=control,
+        serial_max_output=ref_max,
+        serial_ms={str(b): ms for b, ms in serial_ms.items()},
+        serial_images_per_s={str(b): b / (ms / 1e3)
+                             for b, ms in serial_ms.items()},
+        full_bucket_equal=full_bucket_equal, padded_equal=padded_equal,
+        row_independent=row_independent, split_equal=split_equal,
+        module_max_abs_diff=module_max_abs_diff,
+        closed_joined=closed_joined, closed_refuses=closed_refuses,
+        memory_cost=memory, peak_bytes=peak_bytes, profile=profile,
+        conditioning=conditioning, nn_ops=nn_ops, launches=launches)
+    print('serve ' + json.dumps(run))
+    for label_, c in sorted(profile['classes'].items(),
+                            key=lambda kv: -kv[1]['ms']):
+        print('serve profile: %-62s %8.3f ms %5d launches'
+              % (label_, c['ms'], c['launches']))
+    bad = serving_gate(run)
+    if bad:
+        fail('serve: ' + '; '.join(bad))
+    print('serve: bf16 %.1f requests/s, %.1f images/s, p50 %.2f ms, p99 '
+          '%.2f ms, fill %.3f, service %.3f ms a batch, host ms a dispatch '
+          '%s; answers from the serial forward %.4g (bf16) / %.4g (float32 '
+          'control) of the largest output; int8 %.1f images/s '
+          '(parity %.4f); module %.1f images/s; serial forward %s ms; '
+          'resident %d / %d bytes (bf16 / int8); peak %.2f GB; device busy '
+          '%.1f %%'
+          % (bf16['requests_per_s'], bf16['images_per_s'],
+             bf16['latency_p50_ms'], bf16['latency_p99_ms'],
+             bf16['batch_fill_avg'], bf16['service_ms_ema'],
+             {k: round(v, 3) for k, v in bf16['host_ms'].items()},
+             bf16['max_rel_err_vs_serial'],
+             control['max_rel_err_vs_serial'],
+             int8['images_per_s'], int8['parity_measured'],
+             module['images_per_s'], run['serial_ms'],
+             bf16['resident_bytes'], int8['resident_bytes'],
+             peak_bytes / 1e9, 100 * profile['device_busy_share']))
+    return run
+
+
 def main(argv=None):
     import argparse
     parser = argparse.ArgumentParser(
@@ -2916,7 +3582,7 @@ def main(argv=None):
                                                     v.split(',')},
                         default=ALL_PHASES,
                         help='build, then run only these phases (a comma '
-                             'list of 2-10); the kernels line needs all')
+                             'list of 2-11); the kernels line needs all')
     parser.add_argument('--mutants', action='store_true',
                         help='check that phase 2\'s LM case fails each of '
                              'FWD_MUTANTS, phase 4\'s each of BWD_MUTANTS '
@@ -2936,7 +3602,7 @@ def main(argv=None):
         return
     phases = args.phases
     if not phases <= ALL_PHASES:
-        fail('--phases takes phases 2 to 10; got %s' % sorted(phases))
+        fail('--phases takes phases 2 to 11; got %s' % sorted(phases))
     sys.path.insert(0, str(root))
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import _build, cuda_conv, cuda_ops
@@ -3034,6 +3700,10 @@ def main(argv=None):
         module = module_phase(torch, mx, cuda_conv, root,
                               resnet if 9 in phases else None)
 
+    # 11. the checkpoint served: Predictor and the InferenceEngine
+    if 11 in phases:
+        serve = serve_phase(torch, mx, cuda_conv, cuda_ops, root)
+
     if phases != ALL_PHASES:
         print('phases %s passed' % sorted(phases))
         return
@@ -3046,7 +3716,8 @@ def main(argv=None):
         replaces='mxnet_tpu/pallas_ops.py:95',
         launches=lm['flash_launches'],
         launches_by_path=dict(lm_serve=lm['flash_launches'],
-                              lm_train=train['launches'][0]),
+                              lm_train=train['launches'][0],
+                              resnet_serve=serve['launches']['flash_fwd']),
         max_abs_err=main_case['max_abs_err'],
         share_differ=main_case['share_differ'],
         ms=main_case['ms'], tflops=main_case['tflops'],
@@ -3076,8 +3747,11 @@ def main(argv=None):
             tflops=main_case['tflops'], tflops_done=main_case['tflops_done'],
             replaces='mxnet_tpu/pallas_ops.py:%d' % line,
             launches=train['launches'][1 + i],
-            launches_by_path=dict(lm_serve=lm['launches'][1 + i],
-                                  lm_train=train['launches'][1 + i]),
+            launches_by_path=dict(
+                lm_serve=lm['launches'][1 + i],
+                lm_train=train['launches'][1 + i],
+                resnet_serve=serve['launches'][('flash_bwd_dkdv',
+                                                'flash_bwd_dq')[i]]),
             max_abs_err=main_case['max_abs_err'], ms=main_case['ms'],
             plain_ms=main_case['plain_ms'], bound_ms=main_case['bound_ms'],
             bound_by=main_case['bound_by'],
@@ -3087,7 +3761,7 @@ def main(argv=None):
             whole_backward_bound_ms=bwd_cases[0]['bounds']['whole'][
                 'bound_ms'],
             cases=per_case))
-    kernels.append(conv_kernel_entry(conv, sass, resnet, module))
+    kernels.append(conv_kernel_entry(conv, sass, resnet, module, serve))
     kernels.append(rtc_kernel_entry(rtc_run))
     for kern in kernels:
         if kern['launches'] == 0:

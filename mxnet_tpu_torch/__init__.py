@@ -30,7 +30,16 @@ far:
   `Updater`, `FusedSGD`), `initializer`, `lr_scheduler`, `metric`, `io`
   (iterators, staging on the card), `recordio`, `model` (checkpoints,
   FeedForward), `callback` and `module` (`Module`, `SequentialModule`):
-  `mx.mod.Module(sym).fit(train_iter, ...)` trains on `gpu(0)`.
+  `mx.mod.Module(sym).fit(train_iter, ...)` trains on `gpu(0)`;
+- serving: `predictor.Predictor` (checkpoints, forward only) and
+  `serving.InferenceEngine` (a shape-bucket ladder, a dynamic batcher,
+  staging and completion on their own streams, int8 or bf16 weight
+  storage, `quantization`), over a Predictor or a bound Module:
+  `Predictor.from_checkpoint(prefix, epoch, {'data': shape}).serve(
+  max_batch=32)` answers `infer()` calls from many threads on `gpu(0)`;
+  `exec_cache` keys the rung programs; `monitor` (`mx.mon.Monitor`) and
+  the executor's `reshape`, `partial_forward`, `memory_cost` and
+  `debug_str`.
 
 Importing the package builds and compiles nothing: the kernels are
 compiled by `nvcc` at their first launch (`_build`), an `Rtc` body by
@@ -71,12 +80,19 @@ from .model import FeedForward
 from . import module
 from . import module as mod
 from .module import Module
+from . import monitor
+from . import monitor as mon
+from . import exec_cache
+from . import quantization
+from . import predictor
+from . import serving
 
 __all__ = ['AttrScope', 'Context', 'DataBatch', 'DataDesc', 'DataIter',
            'Executor', 'FeedForward', 'MXNetError', 'Module', 'NDArrayIter',
            'NameManager', 'Optimizer', 'Prefix', 'attribute', 'autograd',
-           'callback', 'cpu', 'current_context', 'executor', 'gpu', 'init',
-           'initializer', 'io', 'lr_scheduler', 'metric', 'mod', 'model',
-           'models', 'module', 'nd', 'ndarray', 'num_gpus', 'optimizer',
-           'profiler', 'random', 'recordio', 'resolve_device', 'rtc', 'sym',
-           'symbol', 'tpu']
+           'callback', 'cpu', 'current_context', 'exec_cache', 'executor',
+           'gpu', 'init', 'initializer', 'io', 'lr_scheduler', 'metric',
+           'mod', 'model', 'models', 'module', 'mon', 'monitor', 'nd',
+           'ndarray', 'num_gpus', 'optimizer', 'predictor', 'profiler',
+           'quantization', 'random', 'recordio', 'resolve_device', 'rtc',
+           'serving', 'sym', 'symbol', 'tpu']

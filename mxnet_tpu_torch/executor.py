@@ -40,6 +40,18 @@ a multiple of KERNEL_CIN_MULTIPLE (the stem's 3 channels), x and w are
 zero-padded to the next multiple, which the kernel takes by TMA instead
 of by plain loads; the zeros change neither y nor the sums. There is no
 fallback: the route raises where the kernel does not build or launch.
+
+At bind the executor takes its graph signature (`exec_cache.
+graph_signature`, `_sig`), which the serving engine keys its rung
+programs on. `serve` is the counterpart of the JAX package's
+`raw_forward`: the eval walk on the values it is given, under
+`torch.inference_mode()`, with no device synchronisation (the serving
+engine overlaps one dispatch with the completion of the one before).
+`set_monitor_callback` gives the callback every node's output of each
+forward while it is active (`monitor.Monitor`); `partial_forward` runs
+the graph op by op in steps; `memory_cost` measures the card's
+allocator over one run; `reshape` rebinds new shapes, sharing the
+arrays whose shapes did not change.
 """
 import os
 import warnings
@@ -49,6 +61,7 @@ import numpy as np
 import torch
 
 from . import cuda_conv
+from . import exec_cache
 from . import ndarray as nd
 from . import profiler
 from . import random as _random
@@ -205,6 +218,10 @@ class Executor:
         # the pairs run unfused, which the tests and chip_smoke.py's
         # phase 9 compare it with
         self._pair_route = True
+        # ctx_group placement is refused at bind (_check_group2ctx)
+        self._grouped = False
+        self._monitor_callback = None
+        self._partial_state = None
         self._build()
 
     def _build(self):
@@ -242,6 +259,19 @@ class Executor:
             raise ValueError("MXNET_TPU_LAYOUT_OPT must be 'auto', '1' or "
                              "'0', got %r" % pref)
         self.pairs = conv_bn_pairs(topo, sym._outputs)
+        self._sig = exec_cache.graph_signature(
+            sym, self._ctx, self.arg_dict, self.aux_dict, self._grad_req)
+        # the monitor's names of every op node's outputs, in topo order
+        self._monitor_names = []
+        for node in topo:
+            if node.op is None:
+                continue
+            n_out = node.op.num_outputs(node.attrs)
+            if n_out == 1:
+                self._monitor_names.append(node.name + '_output')
+            else:
+                self._monitor_names.extend('%s_output%d' % (node.name, i)
+                                           for i in range(n_out))
 
     # ------------------------------------------------------------------
     def _pair_conv(self, node, vals, in_l):
@@ -259,8 +289,10 @@ class Executor:
         y, s1, s2 = cuda_conv.conv2d_bn_stats(x, w, stride, pad)
         return y, (s1, s2)
 
-    def _run_graph(self, arg_vals, aux_vals, is_train):
-        """Walk the DAG; returns (outputs, new aux values)."""
+    def _run_graph(self, arg_vals, aux_vals, is_train, collect=None):
+        """Walk the DAG; returns (outputs, new aux values). A list
+        `collect` receives every op node's outputs in topo order, in the
+        semantic (NCHW) layout, for the monitor."""
         topo = self._topo
         results = [None] * len(topo)   # per node: list of outputs
         layouts = [None] * len(topo)   # per node: layout per output
@@ -285,6 +317,8 @@ class Executor:
                     vals[1].dtype == torch.bfloat16:
                 y, sums[pairs[ni]] = self._pair_conv(node, vals, in_l)
                 results[ni], layouts[ni] = [y], ['NHWC']
+                if collect is not None:
+                    collect.append(_to_nchw(y, 'NHWC'))
                 continue
             eff_attrs = node.attrs
             out_layout = 'NCHW'
@@ -323,6 +357,9 @@ class Executor:
             results[ni] = outs
             layouts[ni] = [out_layout if o.ndim == 4 else 'NCHW'
                            for o in outs]
+            if collect is not None:
+                collect.extend(_to_nchw(o, l)
+                               for o, l in zip(outs, layouts[ni]))
             if op.mutable_aux and (is_train or op.aux_always) and updated:
                 for (src, _), newv in zip(node.inputs[len(vals) - n_aux:],
                                           updated):
@@ -349,7 +386,7 @@ class Executor:
             dst._data = _tensor_of(v, dst._data.dtype,
                                    self._ctx.torch_device)
 
-    def _train_forward(self):
+    def _train_forward(self, collect=None):
         """The train-mode walk under autograd: the diff args enter as
         leaves that require grad. Returns (outputs, leaves)."""
         arg_vals = []
@@ -363,7 +400,8 @@ class Executor:
             arg_vals.append(t)
         aux_vals = [self.aux_dict[n]._data.detach() for n in self._aux_names]
         with torch.enable_grad():
-            outs, new_aux = self._run_graph(arg_vals, aux_vals, True)
+            outs, new_aux = self._run_graph(arg_vals, aux_vals, True,
+                                            collect)
         for n, v in zip(self._aux_names, new_aux):
             self.aux_dict[n]._data = v
         self.outputs = [nd.NDArray(o.detach(), self._ctx) for o in outs]
@@ -373,22 +411,225 @@ class Executor:
         if kwargs:
             self._set_args(kwargs)
         self._stash = None
+        monitor = self._monitor_callback
+        # every node's outputs only while the monitor collects
+        collect = [] if monitor is not None and \
+            getattr(monitor, 'active', True) else None
         if is_train:
             with profiler.scope(self._name('forward_train')):
-                self._stash = self._train_forward()
+                self._stash = self._train_forward(collect)
                 profiler.synchronize(self._stash[0])
-            return self.outputs
-        arg_vals = [self.arg_dict[n]._data for n in self._arg_names]
-        aux_vals = [self.aux_dict[n]._data for n in self._aux_names]
-        with profiler.scope(self._name('forward')), torch.no_grad():
-            outs, new_aux = self._run_graph(arg_vals, aux_vals, False)
-            profiler.synchronize(outs)
-        if self._has_aux_always:
-            # update ops advance their states on every call
-            for n, v in zip(self._aux_names, new_aux):
-                self.aux_dict[n]._data = v
-        self.outputs = [nd.NDArray(o, self._ctx) for o in outs]
+        else:
+            arg_vals = [self.arg_dict[n]._data for n in self._arg_names]
+            aux_vals = [self.aux_dict[n]._data for n in self._aux_names]
+            with profiler.scope(self._name('forward')), torch.no_grad():
+                outs, new_aux = self._run_graph(arg_vals, aux_vals, False,
+                                                collect)
+                profiler.synchronize(outs)
+            if self._has_aux_always:
+                # update ops advance their states on every call
+                for n, v in zip(self._aux_names, new_aux):
+                    self.aux_dict[n]._data = v
+            self.outputs = [nd.NDArray(o, self._ctx) for o in outs]
+        if collect is not None:
+            for name, v in zip(self._monitor_names, collect):
+                monitor(name, nd.NDArray(v.detach(), self._ctx))
         return self.outputs
+
+    def serve(self, arg_vals, aux_vals):
+        """The eval walk on the given tensors, one per argument and aux
+        state in list order: the outputs, fresh tensors each call. No
+        state of the executor is read or written but its graph, and the
+        device is not synchronised (the counterpart of the JAX
+        package's raw_forward, which the serving engine jits)."""
+        with torch.inference_mode():
+            outs, _ = self._run_graph(list(arg_vals), list(aux_vals),
+                                      False)
+        return outs
+
+    def partial_forward(self, step=None, is_train=False, **kwargs):
+        """Run the forward graph only up to op node `step` (reference
+        Executor::PartialForward): the topo prefix op by op, the partial
+        state kept so that the next call goes on where this one stopped;
+        step=None finishes the graph. Ops run on their semantic layouts
+        and the pair route is not taken. Returns the number of op nodes
+        still to run."""
+        topo = self._topo
+        op_nodes = [n for n in topo if n.op is not None]
+        total = len(op_nodes)
+        if kwargs:
+            self._set_args(kwargs)
+            self._partial_state = None
+        state = self._partial_state
+        device = self._ctx.torch_device
+        if state is None:
+            state = {'done': 0, 'results': {},
+                     'args': [self.arg_dict[n]._data
+                              for n in self._arg_names],
+                     'auxs': [self.aux_dict[n]._data
+                              for n in self._aux_names]}
+        target = total if step is None else min(int(step), total)
+        done_ops = 0
+        with torch.no_grad():
+            for ni, node in enumerate(topo):
+                if node.op is None:
+                    if ni not in state['results']:
+                        state['results'][ni] = [
+                            state['args'][self._arg_pos[node.name]]
+                            if node.name in self._arg_pos else
+                            state['auxs'][self._aux_pos[node.name]]]
+                    continue
+                done_ops += 1
+                if done_ops <= state['done']:
+                    continue
+                if done_ops > target:
+                    break
+                op = node.op
+                vals = [state['results'][self._node_index[id(src)]][idx]
+                        for src, idx in node.inputs]
+                n_aux = op.num_aux
+                args = vals[:len(vals) - n_aux] if n_aux else vals
+                auxs = vals[len(vals) - n_aux:] if n_aux else []
+                op_ctx = OpContext(
+                    is_train=is_train,
+                    rng=_random.generator(device) if op.needs_rng else None,
+                    device=device,
+                    out_shapes=self._node_shapes.get(ni)
+                    if op.needs_out_shapes else None)
+                outs, updated = op.apply(node.attrs, args, auxs, op_ctx)
+                state['results'][ni] = outs
+                if op.mutable_aux and (is_train or op.aux_always) and \
+                        updated:
+                    # consumers keep the value before the update, as in
+                    # the whole walk
+                    for (src, _), newv in zip(
+                            node.inputs[len(vals) - n_aux:], updated):
+                        if src.op is None and src.name in self._aux_pos:
+                            state['auxs'][self._aux_pos[src.name]] = newv
+        state['done'] = min(target, total)
+        self._partial_state = state
+        if state['done'] < total:
+            return total - state['done']
+        self.outputs = [nd.NDArray(state['results'][ni][oi], self._ctx)
+                        for ni, oi in self._out_entries]
+        for n, v in zip(self._aux_names, state['auxs']):
+            self.aux_dict[n]._data = v
+        self._partial_state = None
+        return 0
+
+    def set_monitor_callback(self, callback):
+        """callback(name, NDArray) receives every op node's outputs of
+        each forward while `callback.active` (default True) holds."""
+        self._monitor_callback = callback
+
+    def _bound_bytes(self):
+        return sum(a._data.numel() * a._data.element_size()
+                   for a in list(self.arg_dict.values()) +
+                   list(self.aux_dict.values()))
+
+    def memory_cost(self, mode='forward'):
+        """Memory of one run of this executor on the card, the role of
+        the reference's memcost example (there the NNVM allocation plan,
+        in the JAX package XLA's buffer assignment): `mode` 'forward'
+        (the eval walk), 'train' (the train-mode walk) or
+        'train_backward' (forward and backward). Returns
+        argument_bytes (the bound arrays the walk reads), output_bytes
+        (its outputs; with 'train' the new aux states too, with
+        'train_backward' the gradients too), peak_memory_bytes (the
+        allocator's peak over the run, torch.cuda.max_memory_allocated,
+        above what was allocated before it, plus argument_bytes),
+        temp_bytes (peak less arguments and outputs) and
+        generated_code_bytes (0: nothing is compiled). The run changes
+        no state of the executor, but it resets the device's peak
+        memory statistics. On a CPU executor peak_memory_bytes and
+        temp_bytes are None: the CPU allocator keeps no peak."""
+        if mode not in ('forward', 'train', 'train_backward'):
+            raise ValueError("memory_cost mode must be 'forward', "
+                             "'train' or 'train_backward', got %r" % mode)
+        device = self._ctx.torch_device
+        on_card = device.type == 'cuda'
+        arg_bytes = self._bound_bytes()
+        if on_card:
+            torch.cuda.synchronize(device)
+            before = torch.cuda.memory_allocated(device)
+            torch.cuda.reset_peak_memory_stats(device)
+        arg_vals = [self.arg_dict[n]._data.detach()
+                    for n in self._arg_names]
+        aux_vals = [self.aux_dict[n]._data.detach()
+                    for n in self._aux_names]
+        if mode == 'forward':
+            with torch.no_grad():
+                outs, _ = self._run_graph(arg_vals, aux_vals, False)
+            results = list(outs)
+        else:
+            leaves = []
+            for i, n in enumerate(self._arg_names):
+                if n in self._diff_names:
+                    arg_vals[i] = arg_vals[i].requires_grad_(True)
+                    leaves.append(arg_vals[i])
+            with torch.enable_grad():
+                outs, new_aux = self._run_graph(arg_vals, aux_vals, True)
+            results = [o.detach() for o in outs] + list(new_aux)
+            if mode == 'train_backward':
+                live = [o for o in outs if o.requires_grad]
+                grads = torch.autograd.grad(
+                    live, leaves, [torch.ones_like(o) for o in live],
+                    allow_unused=True) if live and leaves else []
+                results += [g for g in grads if g is not None]
+        out_bytes = sum(t.numel() * t.element_size() for t in results)
+        out = dict(argument_bytes=arg_bytes, output_bytes=out_bytes,
+                   temp_bytes=None, peak_memory_bytes=None,
+                   generated_code_bytes=0)
+        if on_card:
+            torch.cuda.synchronize(device)
+            peak = torch.cuda.max_memory_allocated(device) - before + \
+                arg_bytes
+            out['peak_memory_bytes'] = int(peak)
+            out['temp_bytes'] = int(max(peak - arg_bytes - out_bytes, 0))
+        return out
+
+    def debug_str(self):
+        """Plan dump: the topo-ordered ops and the bytes of the bound
+        arrays (reference Executor::Print)."""
+        lines = ['Symbol outputs: %s' % ', '.join(
+            self._symbol.list_outputs())]
+        for node in self._topo:
+            if node.op is None:
+                continue
+            group = node.user_attrs.get('ctx_group')
+            lines.append('  op %s (%s)%s' % (
+                node.name, node.op.name, ' @%s' % group if group else ''))
+        total = self._bound_bytes()
+        lines.append('Total bytes in args/aux: %d (%.1f MB)'
+                     % (total, total / 1e6))
+        lines.append('Executed: op by op on %s (no compiled module)'
+                     % self._ctx)
+        return '\n'.join(lines)
+
+    def reshape(self, partial_shaping=False, allow_up_sizing=False,
+                **kwargs):
+        """A new executor bound to new input shapes (reference
+        executor.py reshape; Module.reshape, Predictor.reshape): the
+        arg, grad and aux arrays whose shapes did not change are shared,
+        the others are new zeros."""
+        sym = self._symbol
+        arg_shapes, _, aux_shapes = sym.infer_shape(**kwargs)
+        arg_names = sym.list_arguments()
+
+        def keep(cur, shape):
+            return cur if cur.shape == tuple(shape) else \
+                nd.zeros(shape, self._ctx, dtype=cur._data.dtype)
+
+        arg_dict = OrderedDict(
+            (name, keep(self.arg_dict[name], shape))
+            for name, shape in zip(arg_names, arg_shapes))
+        grad_dict = {name: keep(g, arg_shapes[arg_names.index(name)])
+                     for name, g in self.grad_dict.items()}
+        aux_dict = OrderedDict(
+            (name, keep(self.aux_dict[name], shape))
+            for name, shape in zip(sym.list_auxiliary_states(), aux_shapes))
+        return Executor(sym, self._ctx, arg_dict, grad_dict, aux_dict,
+                        dict(self._grad_req))
 
     def _backward(self, out_grads):
         outs, leaves = self._stash
@@ -609,5 +850,4 @@ class Executor:
 
 def _check_group2ctx(group2ctx):
     if group2ctx:
-        raise MXNetError('group2ctx (ctx_group model parallelism) is not '
-                         'ported yet')
+        raise unported('group2ctx (ctx_group model parallelism)', '1b')

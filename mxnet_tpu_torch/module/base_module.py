@@ -6,8 +6,9 @@ python/mxnet/module/base_module.py: fit, score, predict).
 parameter sync are the JAX package's serialized loop, the one it runs
 when its step-ahead overlap is 0: each batch runs forward_backward,
 update and update_metric, whose read of the outputs waits for the
-device. The overlap, `bulk=`, `pipeline=`, `checkpoint=` (the elastic
-runtime) and `monitor=` are not ported and raise.
+device. `monitor=` installs a `monitor.Monitor` on the executor and
+ticks it around each batch. The overlap, `bulk=`, `pipeline=` and
+`checkpoint=` (the elastic runtime) are not ported and raise.
 """
 import logging
 import time
@@ -158,14 +159,14 @@ class BaseModule:
             raise unported('fit(bulk=) (Module.bulk_step)', '2')
         if checkpoint is not None:
             raise unported('fit(checkpoint=) (elastic.py)', '5')
-        if monitor is not None:
-            raise unported('fit(monitor=) (the executor monitor)', '1b')
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label, for_training=True,
                   force_rebind=force_rebind)
         self.init_params(initializer=initializer, arg_params=arg_params,
                          aux_params=aux_params, allow_missing=allow_missing,
                          force_init=force_init)
+        if monitor is not None:
+            self.install_monitor(monitor)
         self.init_optimizer(kvstore=kvstore, optimizer=optimizer,
                             optimizer_params=optimizer_params)
         validation_metric = validation_metric or eval_metric
@@ -177,20 +178,26 @@ class BaseModule:
         self._fit_epochs(train_data, eval_data, eval_metric,
                          validation_metric, epoch_end_callback,
                          batch_end_callback, eval_end_callback,
-                         eval_batch_end_callback, begin_epoch, num_epoch)
+                         eval_batch_end_callback, begin_epoch, num_epoch,
+                         monitor)
 
     def _fit_epochs(self, train_data, eval_data, eval_metric,
                     validation_metric, epoch_end_callback,
                     batch_end_callback, eval_end_callback,
-                    eval_batch_end_callback, begin_epoch, num_epoch):
+                    eval_batch_end_callback, begin_epoch, num_epoch,
+                    monitor=None):
         """The epoch loop of fit, batch by batch."""
         for epoch in range(begin_epoch, num_epoch):
             epoch_start = time.time()
             eval_metric.reset()
             for nbatch, data_batch in enumerate(train_data):
+                if monitor is not None:
+                    monitor.tic()
                 self.forward_backward(data_batch)
                 self.update()
                 self.update_metric(eval_metric, data_batch.label)
+                if monitor is not None:
+                    monitor.toc_print()
                 if batch_end_callback is not None:
                     _fire(batch_end_callback,
                           BatchEndParam(epoch=epoch, nbatch=nbatch,
@@ -254,7 +261,7 @@ class BaseModule:
                          force_init=force_init, allow_extra=allow_extra)
 
     def install_monitor(self, mon):
-        raise unported('the executor monitor (install_monitor)', '1b')
+        raise NotImplementedError
 
     def get_input_grads(self, merge_multi_context=True):
         raise NotImplementedError

@@ -118,7 +118,14 @@ class DataParallelExecutorGroup:
              if k in self.executor.aux_dict})
 
     def reshape(self, data_shapes, label_shapes=None):
-        raise unported('Module.reshape (Executor.reshape)', '1b')
+        """Rebind to new input shapes (Executor.reshape: the arrays whose
+        shapes did not change, the parameters among them, are shared)."""
+        self.data_shapes = list(data_shapes)
+        self.label_shapes = list(label_shapes) if label_shapes else []
+        self.batch_size = _name_shape(self.data_shapes[0])[1][0]
+        shapes = dict(_name_shape(d)
+                      for d in self.data_shapes + self.label_shapes)
+        self.executor = self.executor.reshape(**shapes)
 
     @property
     def param_arrays(self):
@@ -139,5 +146,5 @@ class DataParallelExecutorGroup:
         eval_metric.update_dict(labels, preds)
 
     def install_monitor(self, mon):
-        raise unported('the executor monitor (install_monitor)', '1b')
+        mon.install(self.executor)
 

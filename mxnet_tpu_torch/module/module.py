@@ -13,8 +13,7 @@ program, so `forward_backward` runs at once and `update` applies the
 update to the gradients it left.
 
 Not ported, each raising: several contexts, kvstore objects and dist
-stores, ZeRO, sparse embedding tables, `bulk_step`, `install_monitor`
-and `reshape`.
+stores, ZeRO, sparse embedding tables and `bulk_step`.
 """
 import logging
 import os
@@ -375,7 +374,8 @@ class Module(BaseModule):
             updater.set_states(fin.read())
 
     def install_monitor(self, mon):
-        raise unported('the executor monitor (install_monitor)', '1b')
+        assert self.binded
+        self._exec_group.install_monitor(mon)
 
     def _wrap_train_iter(self, train_data):
         """fit's input pipeline: upcoming batches staged on the module's
@@ -392,4 +392,8 @@ class Module(BaseModule):
                                        device=self._context[0])
 
     def reshape(self, data_shapes, label_shapes=None):
-        raise unported('Module.reshape (Executor.reshape)', '1b')
+        """Rebind to new input shapes, sharing the parameters."""
+        assert self.binded
+        self._data_shapes = list(data_shapes)
+        self._label_shapes = list(label_shapes) if label_shapes else []
+        self._exec_group.reshape(self._data_shapes, self._label_shapes)

@@ -646,6 +646,19 @@ def load(fname, ctx=None):
     """Load a save() blob onto `ctx` (default: the current context).
     Every length field is validated before it is trusted, so a truncated
     or bit-flipped file raises a clear MXNetError naming the file."""
+    with open(fname, 'rb') as f:
+        return _load_stream(f, fname, ctx)
+
+
+def load_buffer(buf, ctx=None):
+    """load() of a save() blob held in memory (bytes)."""
+    import io
+    return _load_stream(io.BytesIO(bytes(buf)), '<buffer>', ctx)
+
+
+def _load_stream(f, fname, ctx):
+    """The entries of a save() blob read from the file object `f`
+    (`fname` names it in errors), on `ctx`."""
     def read_exact(f, n, what):
         b = f.read(n)
         if len(b) != n:
@@ -660,50 +673,49 @@ def load(fname, ctx=None):
         return v
 
     ctx = ctx or current_context()
-    with open(fname, 'rb') as f:
-        magic = f.read(len(_SAVE_MAGIC))
-        if magic != _SAVE_MAGIC:
-            _load_fail(fname, 'bad magic %r' % magic[:16])
-        n = read_len(f, 'entry count', limit=1 << 32)
-        items = []
-        named = False
-        for i in range(n):
-            what = 'entry %d/%d' % (i + 1, n)
-            ln = read_len(f, '%s name length' % what, limit=1 << 20)
-            try:
-                name = read_exact(f, ln, '%s name' % what) \
-                    .decode('utf-8')
-            except UnicodeDecodeError as e:
-                _load_fail(fname, 'bad name for %s (%s)' % (what, e))
-            ld = read_len(f, '%s dtype length' % what, limit=1 << 10)
-            try:
-                dt = np.dtype(read_exact(f, ld, '%s dtype' % what)
-                              .decode('utf-8'))
-            except (TypeError, ValueError, UnicodeDecodeError) as e:
-                _load_fail(fname, 'bad dtype for %s (%s)' % (what, e))
-            ndim = read_len(f, '%s ndim' % what, limit=64)
-            shape = struct.unpack(
-                '<%dq' % ndim,
-                read_exact(f, 8 * ndim, '%s shape' % what)) \
-                if ndim else ()
-            if any(s < 0 for s in shape):
-                _load_fail(fname, 'negative dim in %s shape %s'
-                           % (what, shape))
-            lr = read_len(f, '%s payload length' % what)
-            expect = int(np.prod(shape, dtype=np.int64)) * dt.itemsize \
-                if shape else dt.itemsize
-            if lr != expect:
-                _load_fail(fname, '%s payload is %d bytes but shape %s '
-                           'dtype %s needs %d' % (what, lr, shape,
-                                                  dt.name, expect))
-            a = np.frombuffer(read_exact(f, lr, '%s payload' % what),
-                              dtype=dt).reshape(shape)
-            if name:
-                named = True
-            # the stored dtype exactly (no float64/int64 narrowing), in
-            # the host's byte order
-            host = torch.from_numpy(a.astype(dt.newbyteorder('='), copy=True))
-            items.append((name, NDArray(host.to(ctx.torch_device), ctx)))
+    magic = f.read(len(_SAVE_MAGIC))
+    if magic != _SAVE_MAGIC:
+        _load_fail(fname, 'bad magic %r' % magic[:16])
+    n = read_len(f, 'entry count', limit=1 << 32)
+    items = []
+    named = False
+    for i in range(n):
+        what = 'entry %d/%d' % (i + 1, n)
+        ln = read_len(f, '%s name length' % what, limit=1 << 20)
+        try:
+            name = read_exact(f, ln, '%s name' % what) \
+                .decode('utf-8')
+        except UnicodeDecodeError as e:
+            _load_fail(fname, 'bad name for %s (%s)' % (what, e))
+        ld = read_len(f, '%s dtype length' % what, limit=1 << 10)
+        try:
+            dt = np.dtype(read_exact(f, ld, '%s dtype' % what)
+                          .decode('utf-8'))
+        except (TypeError, ValueError, UnicodeDecodeError) as e:
+            _load_fail(fname, 'bad dtype for %s (%s)' % (what, e))
+        ndim = read_len(f, '%s ndim' % what, limit=64)
+        shape = struct.unpack(
+            '<%dq' % ndim,
+            read_exact(f, 8 * ndim, '%s shape' % what)) \
+            if ndim else ()
+        if any(s < 0 for s in shape):
+            _load_fail(fname, 'negative dim in %s shape %s'
+                       % (what, shape))
+        lr = read_len(f, '%s payload length' % what)
+        expect = int(np.prod(shape, dtype=np.int64)) * dt.itemsize \
+            if shape else dt.itemsize
+        if lr != expect:
+            _load_fail(fname, '%s payload is %d bytes but shape %s '
+                       'dtype %s needs %d' % (what, lr, shape,
+                                              dt.name, expect))
+        a = np.frombuffer(read_exact(f, lr, '%s payload' % what),
+                          dtype=dt).reshape(shape)
+        if name:
+            named = True
+        # the stored dtype exactly (no float64/int64 narrowing), in
+        # the host's byte order
+        host = torch.from_numpy(a.astype(dt.newbyteorder('='), copy=True))
+        items.append((name, NDArray(host.to(ctx.torch_device), ctx)))
     if named:
         return dict(items)
     return [v for _, v in items]

@@ -1,14 +1,17 @@
-"""Neural-network layer operators: the counterpart of mxnet_tpu/ops/nn.py,
-for the ops ResNet-50 uses (FullyConnected, Activation, Convolution,
-Pooling, BatchNorm, SoftmaxOutput), over torch tensors.
+"""Neural-network layer operators: the counterpart of mxnet_tpu/ops/nn.py
+over torch tensors: FullyConnected, Activation, LeakyReLU, the softmax
+family, SoftmaxOutput and the regression outputs, Convolution,
+Deconvolution, Pooling, BatchNorm, InstanceNorm, L2Normalization, LRN,
+Dropout, the sequence ops, UpSampling and Crop.
 
 Each keeps its JAX namesake's names, attrs, shape and dtype rules and
 values. Convolution and Pooling take the executor's NHWC layout pass
 (the private `__layout__='NHWC'` attr: the data arrives channels-last
 and the output leaves channels-last), and BatchNorm re-targets its
-channel axis under it. SoftmaxOutput ignores the head gradient except as
-a scale, as the reference's loss ops do, through one
-`torch.autograd.Function`.
+channel axis under it. SoftmaxOutput and the regression outputs ignore
+the head gradient except as a scale, as the reference's loss ops do,
+each through a `torch.autograd.Function`. Dropout draws its mask from
+the op context's generator and is the identity when not training.
 
 The executor's conv -> BatchNorm pair route hands BatchNorm the sums of
 the conv kernel (`cuda_conv.conv2d_bn_stats`) through `batch_norm`'s
@@ -396,3 +399,327 @@ register('BatchNorm', input_names=('data', 'gamma', 'beta',
              ['output', 'mean', 'var']
              if asbool(attrs.get('output_mean_var', False)) else ['output']),
          aliases=('BatchNorm_v1',), simple=False)(batch_norm)
+
+
+# ---------------------------------------------------------------------------
+# LeakyReLU: reference src/operator/leaky_relu-inl.h
+# ---------------------------------------------------------------------------
+
+def _leaky_act(attrs):
+    return str(parse_attr_value(attrs.get('act_type', 'leaky')))
+
+
+@register('LeakyReLU', input_names=lambda attrs: (
+    ['data', 'gamma'] if _leaky_act(attrs) == 'prelu' else ['data']),
+    hint='leakyrelu',
+    infer_shape=lambda attrs, s: (
+        s if len(s) < 2 or s[1] is not None or s[0] is None
+        else [s[0], (s[0][1],)]))
+def _leaky_relu(attrs, data, gamma=None):
+    act = _leaky_act(attrs)
+    slope = asfloat(attrs.get('slope', 0.25))
+    if act == 'prelu':
+        g = gamma.reshape((1, -1) + (1,) * (data.ndim - 2))
+        return torch.where(data >= 0, data, g * data)
+    if act == 'elu':
+        return torch.where(data >= 0, data, slope * torch.expm1(data))
+    if act == 'rrelu':
+        # the mean slope, train mode as test mode (the JAX package's)
+        lo = asfloat(attrs.get('lower_bound', 0.125))
+        hi = asfloat(attrs.get('upper_bound', 0.334))
+        slope = (lo + hi) / 2.0
+    return torch.where(data >= 0, data, slope * data)
+
+
+# ---------------------------------------------------------------------------
+# Softmax family: reference src/operator/tensor/nn/softmax.cc
+# ---------------------------------------------------------------------------
+
+@register('softmax', input_names=('data',))
+def _softmax(attrs, data):
+    axis = asint(attrs.get('axis', -1))
+    t = parse_attr_value(attrs.get('temperature', None))
+    x = data / t if t else data
+    return torch.softmax(x, dim=axis)
+
+
+@register('log_softmax', input_names=('data',))
+def _log_softmax(attrs, data):
+    return torch.log_softmax(data, dim=asint(attrs.get('axis', -1)))
+
+
+@register('SoftmaxActivation', input_names=('data',),
+          hint='softmaxactivation')
+def _softmax_activation(attrs, data):
+    if str(parse_attr_value(attrs.get('mode', 'instance'))) == 'channel':
+        return torch.softmax(data, dim=1)
+    flat = data.reshape(data.shape[0], -1)
+    return torch.softmax(flat, dim=-1).reshape(data.shape)
+
+
+# ---------------------------------------------------------------------------
+# Regression outputs: reference src/operator/regression_output-inl.h; the
+# backward ignores the head gradient but as a scale: f(out) - label
+# (linear, logistic), sign(out - label) (MAE), times grad_scale
+# ---------------------------------------------------------------------------
+
+_REGRESSIONS = {
+    'LinearRegressionOutput': (lambda x: x, lambda out, lab: out - lab),
+    'LogisticRegressionOutput': (torch.sigmoid,
+                                 lambda out, lab: out - lab),
+    'MAERegressionOutput': (lambda x: x,
+                            lambda out, lab: torch.sign(out - lab)),
+}
+
+
+class _RegressionOutput(torch.autograd.Function):
+    """A regression output op: its forward and the reference's
+    gradient, the custom VJP of mxnet_tpu/ops/nn.py's _make_regression
+    (no batch normalisation: the optimizer's rescale_grad carries it)."""
+
+    @staticmethod
+    def forward(ctx, data, label, name, grad_scale):
+        out = _REGRESSIONS[name][0](data)
+        ctx.save_for_backward(out, label)
+        ctx.name, ctx.grad_scale = name, grad_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out, label = ctx.saved_tensors
+        lab = label.reshape(out.shape)
+        grad = _REGRESSIONS[ctx.name][1](out, lab) * ctx.grad_scale * g
+        return grad, torch.zeros_like(label), None, None
+
+
+def _register_regression(name):
+    @register(name, input_names=('data', 'label'), hint=name.lower(),
+              infer_shape=lambda attrs, s: (
+                  s if s[0] is None or s[1] is not None else [s[0], s[0]]))
+    def op(attrs, data, label):
+        return _RegressionOutput.apply(
+            data, label, name, asfloat(attrs.get('grad_scale', 1.0)))
+    return op
+
+
+for _name in _REGRESSIONS:
+    _register_regression(_name)
+
+
+@register('softmax_cross_entropy', input_names=('data', 'label'))
+def _softmax_cross_entropy(attrs, data, label):
+    logp = torch.log_softmax(data, dim=-1)
+    lab = label.to(torch.int32).long()
+    nll = -torch.gather(logp, -1, lab[:, None])
+    return nll.sum().reshape((1,))
+
+
+# ---------------------------------------------------------------------------
+# Deconvolution: reference src/operator/deconvolution-inl.h; weight
+# (C_in, num_filter // group, *kernel), output (i-1)*s + k - 2p + adj,
+# torch's transposed convolution exactly
+# ---------------------------------------------------------------------------
+
+def _deconv_infer_shape(attrs, in_shapes):
+    kernel = astuple(attrs['kernel'])
+    num_filter = asint(attrs['num_filter'])
+    num_group = asint(attrs.get('num_group', 1))
+    if in_shapes[0] is not None and in_shapes[1] is None:
+        c = in_shapes[0][1]
+        in_shapes[1] = (c, num_filter // num_group) + kernel
+    if len(in_shapes) > 2 and in_shapes[2] is None:
+        in_shapes[2] = (num_filter,)
+    return in_shapes
+
+
+_DECONV = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+
+
+@register('Deconvolution', input_names=_conv_names,
+          infer_shape=_deconv_infer_shape, hint='deconvolution')
+def _deconvolution(attrs, data, weight, bias=None):
+    kernel = astuple(attrs['kernel'])
+    nd = len(kernel)
+    stride = astuple(attrs.get('stride', (1,) * nd), nd)
+    pad = astuple(attrs.get('pad', (0,) * nd), nd)
+    adj = astuple(attrs.get('adj', (0,) * nd), nd)
+    return _DECONV[nd](data, weight, bias, stride=stride, padding=pad,
+                       output_padding=adj,
+                       groups=asint(attrs.get('num_group', 1)))
+
+
+# ---------------------------------------------------------------------------
+# InstanceNorm, L2Normalization, LRN
+# ---------------------------------------------------------------------------
+
+def _in_infer_shape(attrs, in_shapes):
+    if in_shapes[0] is not None:
+        c = (in_shapes[0][1],)
+        for i in (1, 2):
+            if in_shapes[i] is None:
+                in_shapes[i] = c
+    return in_shapes
+
+
+@register('InstanceNorm', input_names=('data', 'gamma', 'beta'),
+          infer_shape=_in_infer_shape, hint='instancenorm')
+def _instance_norm(attrs, data, gamma, beta):
+    eps = asfloat(attrs.get('eps', 1e-3))
+    red = tuple(range(2, data.ndim))
+    mean = torch.mean(data, dim=red, keepdim=True)
+    var = torch.var(data, dim=red, unbiased=False, keepdim=True)
+    bshape = (1, -1) + (1,) * (data.ndim - 2)
+    return ((data - mean) * torch.rsqrt(var + eps) * gamma.reshape(bshape)
+            + beta.reshape(bshape))
+
+
+@register('L2Normalization', input_names=('data',), hint='l2normalization')
+def _l2_normalization(attrs, data):
+    eps = asfloat(attrs.get('eps', 1e-10))
+    mode = str(parse_attr_value(attrs.get('mode', 'instance')))
+    if mode == 'instance':
+        red = tuple(range(1, data.ndim))
+    elif mode == 'channel':
+        red = (1,)
+    else:  # spatial
+        red = tuple(range(2, data.ndim))
+    norm = torch.sqrt(torch.sum(data * data, dim=red, keepdim=True) + eps)
+    return data / norm
+
+
+@register('LRN', input_names=('data',), hint='lrn')
+def _lrn(attrs, data):
+    """Local response normalisation across channels (reference
+    src/operator/lrn-inl.h): the channel window padded so that the output
+    keeps the channel count for odd and even nsize."""
+    nsize = asint(attrs['nsize'])
+    alpha = asfloat(attrs.get('alpha', 1e-4))
+    beta = asfloat(attrs.get('beta', 0.75))
+    knorm = asfloat(attrs.get('knorm', 2.0))
+    lo, hi = nsize // 2, (nsize - 1) // 2
+    sq = F.pad(data * data, (0, 0, 0, 0, lo, hi))
+    c = data.shape[1]
+    acc = sq[:, 0:c]
+    for i in range(1, nsize):
+        acc = acc + sq[:, i:i + c]
+    return data / torch.pow(knorm + alpha / nsize * acc, beta)
+
+
+# ---------------------------------------------------------------------------
+# Dropout: reference src/operator/dropout-inl.h; the mask drawn from the op
+# context's generator, identity when not training (mode 'always': always)
+# ---------------------------------------------------------------------------
+
+def _dropout_compute(attrs, inputs, auxs, op_ctx):
+    data, = inputs
+    p = asfloat(attrs.get('p', 0.5))
+    mode = str(parse_attr_value(attrs.get('mode', 'training')))
+    if (op_ctx.is_train or mode == 'always') and p > 0:
+        keep = 1.0 - p
+        if data.device.type == 'meta':
+            return [data / keep], []
+        u = torch.rand(data.shape, generator=op_ctx.rng,
+                       device=data.device)
+        return [torch.where(u < keep, data / keep,
+                            torch.zeros_like(data))], []
+    return [data], []
+
+
+register('Dropout', input_names=('data',), needs_rng=True,
+         hint='dropout', simple=False)(_dropout_compute)
+
+
+# ---------------------------------------------------------------------------
+# Sequence ops: reference src/operator/sequence_{last,mask,reverse}-inl.h,
+# layout (max_sequence_length, batch, ...)
+# ---------------------------------------------------------------------------
+
+def _seq_names(attrs):
+    if asbool(attrs.get('use_sequence_length', False)):
+        return ['data', 'sequence_length']
+    return ['data']
+
+
+@register('SequenceLast', input_names=_seq_names, hint='sequencelast')
+def _sequence_last(attrs, data, sequence_length=None):
+    if sequence_length is None:
+        return data[-1]
+    idx = sequence_length.to(torch.int32).long() - 1
+    batch = torch.arange(data.shape[1], device=data.device)
+    return data[idx, batch]
+
+
+@register('SequenceMask', input_names=_seq_names, hint='sequencemask')
+def _sequence_mask(attrs, data, sequence_length=None):
+    if sequence_length is None:
+        return data
+    value = asfloat(attrs.get('value', 0.0))
+    steps = torch.arange(data.shape[0], device=data.device)
+    mask = steps[:, None] < sequence_length.to(torch.int32)[None, :]
+    mask = mask.reshape(mask.shape + (1,) * (data.ndim - 2))
+    return torch.where(mask, data, torch.full_like(data, value))
+
+
+@register('SequenceReverse', input_names=_seq_names,
+          hint='sequencereverse')
+def _sequence_reverse(attrs, data, sequence_length=None):
+    if sequence_length is None:
+        return torch.flip(data, dims=(0,))
+    steps = torch.arange(data.shape[0], device=data.device)[:, None]
+    lens = sequence_length.to(torch.int32).long()[None, :]
+    src = torch.where(steps < lens, lens - 1 - steps, steps)
+    batch = torch.arange(data.shape[1], device=data.device)[None, :]
+    return data[src, batch]
+
+
+# ---------------------------------------------------------------------------
+# UpSampling (nearest, bilinear) and Crop: reference
+# src/operator/upsampling-inl.h, crop-inl.h
+# ---------------------------------------------------------------------------
+
+def _upsampling_type(attrs):
+    return str(parse_attr_value(attrs.get('sample_type', 'nearest')))
+
+
+def _upsampling_infer_shape(attrs, in_shapes):
+    """The bilinear form's weight, which the compute does not read: the
+    reference's (C, 1, 2 s - s % 2, 2 s - s % 2)."""
+    if _upsampling_type(attrs) != 'nearest' and in_shapes[0] is not None \
+            and in_shapes[1] is None:
+        s = asint(attrs['scale'])
+        k = 2 * s - s % 2
+        in_shapes[1] = (in_shapes[0][1], 1, k, k)
+    return in_shapes
+
+
+@register('UpSampling', input_names=lambda attrs: (
+    ['arg%d' % i for i in range(asint(attrs.get('num_args', 1)))]
+    if _upsampling_type(attrs) == 'nearest' else ['data', 'weight']),
+    hint='upsampling', infer_shape=_upsampling_infer_shape)
+def _upsampling(attrs, *args):
+    scale = asint(attrs['scale'])
+    if _upsampling_type(attrs) == 'nearest':
+        outs = [x.repeat_interleave(scale, dim=2)
+                .repeat_interleave(scale, dim=3) for x in args]
+        return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+    # half-pixel bilinear, the edges clamped (jax.image.resize's bilinear
+    # when enlarging)
+    return F.interpolate(args[0], scale_factor=scale, mode='bilinear',
+                         align_corners=False)
+
+
+@register('Crop', input_names=lambda attrs: (
+    ['data', 'crop_like'] if asint(attrs.get('num_args', 1)) > 1
+    else ['data']), hint='crop')
+def _crop(attrs, data, crop_like=None):
+    if crop_like is not None:
+        th, tw = crop_like.shape[2], crop_like.shape[3]
+    else:
+        th, tw = astuple(attrs['h_w'], 2)
+    if asbool(attrs.get('center_crop', False)):
+        oh = (data.shape[2] - th) // 2
+        ow = (data.shape[3] - tw) // 2
+    else:
+        oh, ow = astuple(attrs.get('offset', (0, 0)), 2)
+    return data[:, :, oh:oh + th, ow:ow + tw]

@@ -12,13 +12,18 @@ ops on a CPU-only run) at pids 100 and up, where the JAX package merges
 its XLA trace's device lanes.
 
 MXNET_PROFILER_AUTOSTART=1 starts it at import, as in the reference.
-The JAX package's per-subsystem counters (exec_cache, comm, serving,
-...) come with the subsystems they count.
+The per-subsystem counters come with the subsystems they count: the
+program cache's (exec_cache), the serving engine's and the
+quantization counters so far; `summary()` prints them, and
+`dump_profile` writes each as a metadata event ('exec_cache',
+'serving', 'quant').
 """
 import json
 import os
 import threading
 import time
+
+import numpy as np
 
 _STATE = {
     'mode': 'symbolic',        # 'symbolic' | 'all'
@@ -31,6 +36,166 @@ _STATE = {
     'torch_profile': None,     # the running torch.profiler.profile
     'device_events': [],       # its lanes, once stopped
 }
+
+
+# serving-engine counters (serving.InferenceEngine's dynamic batcher):
+# coalesced dispatches, batch fill and pad waste, batcher queue depth
+# observations, and a bounded ring of request latencies for p50/p99
+_SERVING = {
+    'serve_requests': 0,
+    'serve_batches': 0,
+    'serve_rows': 0,
+    'serve_padded_rows': 0,
+    'serve_fill_sum': 0.0,
+    'serve_pad_elem_frac_sum': 0.0,
+    'serve_queue_depth_sum': 0,
+    'serve_queue_depth_obs': 0,
+}
+_SERVE_LAT_CAP = 8192
+_SERVE_LAT = []                 # ring buffer of request latencies (ms)
+_SERVE_LAT_POS = [0]
+
+
+def add_serving_stats(requests=0, batches=0, rows=0, padded_rows=0,
+                      fill=None, pad_elem_frac=None, queue_depth=None,
+                      latencies_ms=()):
+    """Accumulate serving counters (the engine's completion thread
+    feeds one call per coalesced dispatch)."""
+    with _STATE['lock']:
+        _SERVING['serve_requests'] += requests
+        _SERVING['serve_batches'] += batches
+        _SERVING['serve_rows'] += rows
+        _SERVING['serve_padded_rows'] += padded_rows
+        if fill is not None:
+            _SERVING['serve_fill_sum'] += float(fill)
+        if pad_elem_frac is not None:
+            _SERVING['serve_pad_elem_frac_sum'] += float(pad_elem_frac)
+        if queue_depth is not None:
+            _SERVING['serve_queue_depth_sum'] += int(queue_depth)
+            _SERVING['serve_queue_depth_obs'] += 1
+        for lat in latencies_ms:
+            if len(_SERVE_LAT) < _SERVE_LAT_CAP:
+                _SERVE_LAT.append(float(lat))
+            else:   # overwrite the oldest: percentiles track recent traffic
+                _SERVE_LAT[_SERVE_LAT_POS[0]] = float(lat)
+                _SERVE_LAT_POS[0] = (_SERVE_LAT_POS[0] + 1) \
+                    % _SERVE_LAT_CAP
+
+
+def serving_stats():
+    """Snapshot of the serving counters with derived means and the
+    request latency percentiles (serve_latency_p50_ms / p99; 0.0 when no
+    request was served)."""
+    with _STATE['lock']:
+        out = dict(_SERVING)
+        lats = list(_SERVE_LAT)
+    fill, pad = out.pop('serve_fill_sum'), out.pop('serve_pad_elem_frac_sum')
+    nb = out['serve_batches']
+    out['serve_batch_fill_avg'] = fill / nb if nb else 0.0
+    out['serve_pad_elem_frac_avg'] = pad / nb if nb else 0.0
+    qs = out.pop('serve_queue_depth_sum')
+    qo = out.pop('serve_queue_depth_obs')
+    out['serve_queue_depth_avg'] = qs / qo if qo else 0.0
+    total = out['serve_rows'] + out['serve_padded_rows']
+    out['serve_pad_waste_frac'] = \
+        out['serve_padded_rows'] / total if total else 0.0
+    out['serve_latency_p50_ms'] = \
+        float(np.percentile(lats, 50)) if lats else 0.0
+    out['serve_latency_p99_ms'] = \
+        float(np.percentile(lats, 99)) if lats else 0.0
+    return out
+
+
+# low-precision counters. Gauges (set, not added): quant_models_resident,
+# quant_paged_bytes, quant_error_feedback_norm. The rest accumulate:
+# quant_int8_rungs_warmed (ladder rungs warmed in quantized mode),
+# quant_wire_bytes_saved, quant_page_ins.
+_QUANT = {
+    'quant_models_resident': 0,         # gauge
+    'quant_int8_rungs_warmed': 0,
+    'quant_wire_bytes_saved': 0,
+    'quant_error_feedback_norm': 0.0,   # gauge
+    'quant_page_ins': 0,
+    'quant_paged_bytes': 0,             # gauge
+}
+
+
+def add_quant_stats(models_resident=None, error_feedback_norm=None,
+                    paged_bytes=None, **deltas):
+    """Accumulate low-precision counters: the three gauge keywords set,
+    everything else adds (keys without the quant_ prefix:
+    int8_rungs_warmed=1, wire_bytes_saved=n, page_ins=1)."""
+    with _STATE['lock']:
+        for k, v in deltas.items():
+            _QUANT['quant_' + k] += int(v)
+        if models_resident is not None:
+            _QUANT['quant_models_resident'] = int(models_resident)
+        if error_feedback_norm is not None:
+            _QUANT['quant_error_feedback_norm'] = \
+                float(error_feedback_norm)
+        if paged_bytes is not None:
+            _QUANT['quant_paged_bytes'] = int(paged_bytes)
+
+
+def quant_stats():
+    """Snapshot of the low-precision counters."""
+    with _STATE['lock']:
+        return dict(_QUANT)
+
+
+def exec_cache_stats():
+    """The program cache's counters: exec_cache_hits / exec_cache_misses
+    (lookups of a rung's serve program; a miss builds one) and
+    total_compile_s (host seconds building programs and running their
+    first calls)."""
+    from . import exec_cache
+    st = exec_cache.stats()
+    return {'exec_cache_hits': st['hits'],
+            'exec_cache_misses': st['misses'],
+            'total_compile_s': st['total_compile_s']}
+
+
+def summary(print_out=True):
+    """Human-readable profile summary: span time by category, then the
+    program cache, serving and quantization counters."""
+    with _STATE['lock']:
+        records = list(_STATE['records'])
+    by_cat = {}
+    for _name, cat, _ts, dur, _tid in records:
+        by_cat[cat] = by_cat.get(cat, 0) + dur
+    lines = ['profile summary: %d spans' % len(records)]
+    for cat in sorted(by_cat):
+        lines.append('  %-16s %10.3f ms' % (cat, by_cat[cat] / 1e3))
+    st = exec_cache_stats()
+    lines.append('  exec_cache_hits=%d exec_cache_misses=%d '
+                 'total_compile_s=%.3f'
+                 % (st['exec_cache_hits'], st['exec_cache_misses'],
+                    st['total_compile_s']))
+    sv = serving_stats()
+    lines.append('  serve_requests=%d serve_batches=%d '
+                 'serve_queue_depth_avg=%.2f serve_batch_fill_avg=%.2f '
+                 'serve_pad_waste_frac=%.3f serve_latency_p50_ms=%.3f '
+                 'serve_latency_p99_ms=%.3f'
+                 % (sv['serve_requests'], sv['serve_batches'],
+                    sv['serve_queue_depth_avg'],
+                    sv['serve_batch_fill_avg'],
+                    sv['serve_pad_waste_frac'],
+                    sv['serve_latency_p50_ms'],
+                    sv['serve_latency_p99_ms']))
+    qt = quant_stats()
+    lines.append('  quant_models_resident=%d quant_int8_rungs_warmed=%d '
+                 'quant_wire_bytes_saved=%d '
+                 'quant_error_feedback_norm=%.6f quant_page_ins=%d '
+                 'quant_paged_bytes=%d'
+                 % (qt['quant_models_resident'],
+                    qt['quant_int8_rungs_warmed'],
+                    qt['quant_wire_bytes_saved'],
+                    qt['quant_error_feedback_norm'],
+                    qt['quant_page_ins'], qt['quant_paged_bytes']))
+    text = '\n'.join(lines)
+    if print_out:
+        print(text)
+    return text
 
 
 def profiler_set_config(mode='symbolic', filename='profile.json',
@@ -118,7 +283,13 @@ def dump_profile():
     Profiler::DumpProfile), with torch.profiler's lanes at pids 100 and
     up when profile_xla was set. Returns the file name."""
     events = [{'ph': 'M', 'name': 'process_name', 'pid': 0,
-               'args': {'name': 'mxnet_tpu_torch host spans'}}]
+               'args': {'name': 'mxnet_tpu_torch host spans'}},
+              {'ph': 'M', 'name': 'exec_cache', 'pid': 0,
+               'args': exec_cache_stats()},
+              {'ph': 'M', 'name': 'serving', 'pid': 0,
+               'args': serving_stats()},
+              {'ph': 'M', 'name': 'quant', 'pid': 0,
+               'args': quant_stats()}]
     with _STATE['lock']:
         records = list(_STATE['records'])
     for name, cat, ts, dur, tid in records:
@@ -152,6 +323,12 @@ def clear():
     with _STATE['lock']:
         _STATE['records'].clear()
         _STATE['device_events'] = []
+        for k in _SERVING:
+            _SERVING[k] = type(_SERVING[k])()
+        for k in _QUANT:
+            _QUANT[k] = type(_QUANT[k])()
+        del _SERVE_LAT[:]
+        _SERVE_LAT_POS[0] = 0
 
 
 class scope(object):

@@ -289,15 +289,16 @@ def _cut(case):
         mod.init_optimizer(kvstore=object())
     elif case == 'zero':
         mod.init_optimizer(zero=1)
-    elif case in ('bulk', 'pipeline', 'checkpoint', 'monitor'):
+    elif case in ('bulk', 'pipeline', 'checkpoint'):
         value = {'bulk': 2, 'pipeline': (2, 2)}.get(case, object())
         mod.fit(it, num_epoch=1, **{case: value})
     elif case == 'bulk_step':
         mod.bulk_step(batch=it.next(), repeat=2)
-    elif case == 'install_monitor':
-        mod.install_monitor(object())
-    elif case == 'reshape':
-        mod.reshape([('data', (20, 10))])
+    elif case == 'bucketing':
+        mx.mod.BucketingModule(lambda key: (_mlp(mx), ('data',), None))
+    elif case == 'group2ctx':
+        _mlp(mx).simple_bind(mx.cpu(), data=(20, 10),
+                             group2ctx={'dev1': mx.cpu()})
     elif case == 'zero_fused':
         mx.optimizer.FusedSGD(mx.optimizer.SGD(), ['w'], zero=1)
     elif case == 'sparse_fused':
@@ -310,8 +311,8 @@ def _cut(case):
 
 CUTS = {'contexts': '6', 'dist_kvstore': '5', 'kvstore_object': '5',
         'zero': '6', 'bulk': '2', 'pipeline': '6', 'checkpoint': '5',
-        'monitor': '1b', 'bulk_step': '2', 'install_monitor': '1b',
-        'reshape': '1b', 'zero_fused': '6', 'sparse_fused': '6',
+        'bulk_step': '2', 'bucketing': '1b', 'group2ctx': '1b',
+        'zero_fused': '6', 'sparse_fused': '6',
         'mesh_staging': '6', 'kvstore_update': '5'}
 
 
