@@ -8,6 +8,8 @@
     python3 chip_smoke.py --phases 7,8         # build, phases 7 and 8 only
     python3 chip_smoke.py --phases 10          # build, Module.fit only
     python3 chip_smoke.py --phases 11          # build, serving only
+    python3 chip_smoke.py --phases 12          # build, the Module remainder
+    python3 chip_smoke.py --phases 13          # build, Gluon only
     python3 chip_smoke.py --mutants            # phases 2, 4 and 6 against
                                                # broken kernels
 
@@ -81,8 +83,9 @@ Phases, each of which exits non-zero on failure:
    classes, 3x224x224) bound by simple_bind on gpu(0) at batch 256, data
    and label without gradient, seeded He-normal weights. An eval forward
    must launch the conv + BN statistics kernel 0 times and each train
-   forward_backward exactly 33 times (its train-mode conv -> BatchNorm
-   pairs); every weight gradient finite and nonzero but bn_data_gamma's,
+   forward_backward exactly 32 times (its 33 train-mode conv -> BatchNorm
+   pairs but the stem's, which the stem split takes; 33 with
+   MXNET_TPU_STEM_SPLIT=0); every weight gradient finite and nonzero but bn_data_gamma's,
    exactly zero (fix_gamma); the step with the pair route off (cuDNN's
    conv, BatchNorm's own sums) within RESNET_LOSS_ATOL in loss and
    RESNET_OUT_REL / RESNET_AUX_REL in relative norm, its gradients'
@@ -104,8 +107,8 @@ Phases, each of which exits non-zero on failure:
    seeded batches staged by io.prefetch_to_device: momentum SGD with
    weight decay on float32 masters (FusedSGD), a MultiFactorScheduler
    step inside the run, Xavier initialisation, acc and top-5 metrics, a
-   Speedometer and do_checkpoint. Gated (module_gate): 33 kernel
-   launches a fit step, 0 in predict and score and in an epoch with the
+   Speedometer and do_checkpoint. Gated (module_gate): 32 kernel
+   launches a fit step (the stem split on), 0 in predict and score and in an epoch with the
    pair route off; the lr schedule; weight decay on *_weight and *_gamma
    only; float32 masters for exactly the bf16 parameters; every state
    finite; one Module step against the executor step and the per-key
@@ -141,7 +144,41 @@ Phases, each of which exits non-zero on failure:
    queue depth, the service-ms EMA, the host ms of a dispatch (assembly,
    staging, the walk's launches, the completion's copy), a window's
    device time by kernel class and device-busy share, peak memory,
-   memory_cost and resident bytes.
+   memory_cost and resident bytes;
+12. bucketing: the Module remainder on the network of phase 9. A
+   BucketingModule whose sym_gen gives it at image side 224 (the default
+   key) and 160, both ladder rungs (no padding), the 160 bucket bound
+   with the 224 bucket's parameters (one copy) and one FusedSGD state,
+   both warmed up at init_optimizer; steps alternating between the
+   buckets, each launching the kernel 32 times (the stem split on); the
+   kernel against its plain version at every pair shape of the 160
+   bucket's route (sides 40, 20, 10, 5); a step on 160 changing what 224
+   reads; no rung built after warm-up. Then Module.bulk_step of 4 batches
+   against 4 per-step steps from one state under deterministic cuDNN
+   (weights, moving statistics, momenta, masters and the acc / top-5
+   sums bit for bit, the lr of each step with a FactorScheduler boundary
+   inside the dispatch, the dispatch under
+   torch.cuda.set_sync_debug_mode('error')); fit(bulk=4) for one epoch
+   on a Module and on the BucketingModule (one dispatch of 4 steps, one
+   queued metric pair and one host read a dispatch); the network bound
+   with the stem split on and off (32 and 33 launches, loss, output and
+   statistics within phase 9's bounds, the backward's ms); and a
+   two-group graph (cpu(0) and the card) bound with group2ctx against
+   the one-device bind (output and gradients within GROUP_TOL). Gated
+   by bucketing_gate. Printed: each bucket's step ms and images/s, the
+   bulk step's ms against the per-step ms, peak memory;
+13. gluon: model_zoo.vision.resnet50_v1 (1000 classes, float32),
+   initialize(Xavier) with no ctx (it must land on cuda:0), hybridized,
+   Trainer('sgd', momentum 0.9, wd 1e-4) with SoftmaxCrossEntropyLoss
+   under autograd.record() on a DataLoader over SyntheticImageDataset
+   at batch 64: a warm-up and 5 timed steps, then 5 steps on one batch
+   whose loss must fall; the hybridized forward equal to the imperative
+   one bit for bit (eval and train); save_params / load_params and
+   save_states / load_states, then one step equal to the uninterrupted
+   step bit for bit; every other zoo family one forward at batch 2 on the
+   card against cpu(0); no hand-written kernel launched. Gated by
+   gluon_gate. Printed: the step ms and images/s, the hybridized and
+   imperative forward ms.
 
 It prints one JSON line with every kernel's numbers, then the card's
 name and power limit from nvidia-smi, and last
@@ -423,7 +460,7 @@ CONV_SM90_MUTANTS = {
                          ': ' + _TRUNCATE + 'v[0], v[1]));'),
 }
 
-ALL_PHASES = frozenset(range(2, 12))
+ALL_PHASES = frozenset(range(2, 14))
 # phase 7: the imperative NDArray path's size (n x n inputs)
 ND_SIZE = 1024
 ND_HOST_CALLS = 2000
@@ -1285,11 +1322,13 @@ def conv_phase(torch, cuda_ops, cuda_conv, bench_conv_bn):
     return dict(cases=cases, grad=grad, bench=bench)
 
 
-def conv_kernel_entry(conv, sass, resnet, module, serve):
+def conv_kernel_entry(conv, sass, resnet, module, serve, bucketing,
+                      gluon_run):
     """The conv_bn_stats entry of the kernels line: times at the main
     case's shape from the bench, errors from the cases, launches from the
     ResNet-50 train steps of phase 9 (its main path), of phase 10's
-    Module.fit and of phase 11's serving (0)."""
+    Module.fit, of phase 11's serving (0), of phase 12's bucket steps and
+    of phase 13's Gluon training (0)."""
     xs, ws = CONV_CASES['main'][:2]
     main_shape = [xs[1], xs[3], ws[3], ws[0], CONV_CASES['main'][2][0]]
     bench = conv['bench']
@@ -1318,7 +1357,11 @@ def conv_kernel_entry(conv, sass, resnet, module, serve):
         launches_by_path=dict(resnet_train=resnet['train_path_launches'],
                               module_fit=module['fit_launches'],
                               resnet_serve=serve['launches']['conv'],
+                              bucketing_train=bucketing['path_launches'],
+                              gluon_train=gluon_run['kernel_launches'][
+                                  'conv_bn_stats'],
                               conv_bn_bench=bench['launches']),
+        stem_split=resnet['stem_split'],
         launches_per_train_step=resnet['train_launches'],
         launches_per_body_forward=bench['launches_per_body_forward'],
         resnet_shape_checks=[dict(x=r['x'], w=r['w'], stride=r['stride'],
@@ -1326,7 +1369,8 @@ def conv_kernel_entry(conv, sass, resnet, module, serve):
                                   max_abs_err=r['y']['max_abs_err'],
                                   s1_rel_err=r['s1']['rel_err'],
                                   s2_rel_err=r['s2']['rel_err'])
-                             for r in resnet['kernel_checks']],
+                             for r in resnet['kernel_checks'] +
+                             bucketing['kernel_checks']],
         max_abs_err=cases[0]['max_abs_err'], ms=row['ms'],
         plain_ms=row['plain_ms'], bound_ms=row['bound_ms'],
         bound_by=row['bound_by'], library_ms=row['library_ms'],
@@ -1708,7 +1752,7 @@ def rtc_kernel_entry(rtc_run):
 
 # ---------------------------------------------------------------------------
 # Phase 9: the bf16 ResNet-50 v2 through Symbol, simple_bind and the
-# executor, its 33 train-mode conv -> BatchNorm pairs on the conv + BN
+# executor, its train-mode conv -> BatchNorm pairs on the conv + BN
 # statistics kernel
 # ---------------------------------------------------------------------------
 
@@ -1739,6 +1783,23 @@ CUT_RESNET = dict(units=[1, 1, 1, 1], num_stages=4,
 CUT_RESNET_BATCH = 4
 CUT_RESNET_PAIRS = 1 + 2 * len(CUT_RESNET['units'])
 NO_GRAD = ('data', 'softmax_label')
+
+
+def stem_split_on():
+    """The executor's stem split (MXNET_TPU_STEM_SPLIT, on by default)."""
+    import os
+    return os.environ.get('MXNET_TPU_STEM_SPLIT', '1') not in ('0', '')
+
+
+def route_pairs(pairs, split):
+    """The pairs the route takes of a ResNet's `pairs`: with the stem
+    split on, the stem's conv0 -> bn0 leaves it (its conv runs as
+    conv(x^ gamma) + conv(beta 1), whose sums the kernel cannot give)."""
+    return pairs - 1 if split else pairs
+
+
+def split_word(split):
+    return 'stem split %s' % ('on' if split else 'off')
 
 
 def resnet_params(symbol, shapes, num_classes, seed):
@@ -1841,15 +1902,19 @@ def save_params(ex):
             list(ex.arg_dict.items()) + list(ex.aux_dict.items())}
 
 
-def pair_shapes(symbol, batch, image_shape, executor):
+def pair_shapes(symbol, batch, image_shape, executor, pairs=None):
     """The distinct pairs of the bound graph as (x NHWC, w HWIO, stride,
-    pad) in the symbol's own channels, with the convs of each."""
+    pad) in the symbol's own channels, with the convs of each: every
+    conv -> BatchNorm pair of the graph, or those of `pairs` (an
+    executor's `pairs`, the ones its route takes)."""
     from mxnet_tpu_torch.ops import nn as nn_ops
     topo = symbol._topo()
     _, _, entries = symbol._run_shape_inference(
         {'data': (batch,) + tuple(image_shape)}, want_entries=True)
     shapes = {}
-    for ci in sorted(executor.conv_bn_pairs(topo, symbol._outputs)):
+    if pairs is None:
+        pairs = executor.conv_bn_pairs(topo, symbol._outputs)
+    for ci in sorted(pairs):
         conv = topo[ci]
         n, c, h, w = entries[(id(conv.inputs[0][0]), conv.inputs[0][1])]
         o, _, kh, kw = entries[(id(conv.inputs[1][0]), 0)]
@@ -2001,31 +2066,35 @@ def resnet_gate(run):
     are reported, not gated), the losses of the steps on one batch, the
     kernel checks and the one-pair executor checks."""
     bad = []
+    split = run['stem_split']
+    want = route_pairs(RESNET_PAIRS, split)
     if run['eval_launches'] != 0:
         bad.append('the eval forward launched the kernel %d times, '
                    'expected 0' % run['eval_launches'])
     for i, n in enumerate(run['train_launches']):
-        if n != RESNET_PAIRS:
+        if n != want:
             bad.append('train step %d launched the kernel %d times, '
-                       'expected %d' % (i, n, RESNET_PAIRS))
+                       'expected %d (%s)' % (i, n, want, split_word(split)))
     if not run['grad_finite']:
         bad.append('a gradient is not finite')
     if run['grad_zero'] != ['bn_data_gamma'] or \
             not run['bn_data_gamma_zero']:
         bad.append('zero gradients: %s; only bn_data_gamma (fix_gamma) '
                    'should be, and exactly' % run['grad_zero'])
-    unfused = run['unfused']
-    if unfused['launches'] != 0:
-        bad.append('the step with the pair route off launched the kernel '
-                   '%d times' % unfused['launches'])
-    if not unfused['loss_err'] <= RESNET_LOSS_ATOL:
-        bad.append('unfused: loss differs by %.3g (bound %.3g)'
-                   % (unfused['loss_err'], RESNET_LOSS_ATOL))
-    if run['cut']['launches'] != CUT_RESNET_PAIRS:
+    for what in ('unfused', 'unfused_split'):
+        unfused = run[what]
+        if unfused['launches'] != 0:
+            bad.append('%s: the step with the pair route off launched the '
+                       'kernel %d times' % (what, unfused['launches']))
+        if not unfused['loss_err'] <= RESNET_LOSS_ATOL:
+            bad.append('%s: loss differs by %.3g (bound %.3g)'
+                       % (what, unfused['loss_err'], RESNET_LOSS_ATOL))
+    cut_want = route_pairs(CUT_RESNET_PAIRS, split)
+    if run['cut']['launches'] != cut_want:
         bad.append('cut: the gpu step launched the kernel %d times, '
-                   'expected %d' % (run['cut']['launches'],
-                                    CUT_RESNET_PAIRS))
-    for what in ('unfused', 'cut'):
+                   'expected %d (%s)' % (run['cut']['launches'], cut_want,
+                                         split_word(split)))
+    for what in ('unfused', 'unfused_split', 'cut'):
         cmp_ = run[what]
         errs = dict(cmp_['aux_rel'], output=cmp_['out_rel'])
         for name, err in errs.items():
@@ -2057,6 +2126,58 @@ def resnet_gate(run):
                            'and the unfused pair (bound %.3g)'
                            % (where, name, err, pair_bound(name)))
     return bad
+
+
+def route_comparison(torch, mx, cuda_conv, symbol, shape, params, ctx,
+                     split, residual_scale):
+    """One train step of the network with the pair route on and one with
+    it off, from the same seeded values, bound with the stem split on or
+    off, each residual branch's last conv scaled by `residual_scale`:
+    their relative errors, loss difference and the off step's launches.
+
+    Phase 9 gates two of these: the He-normal network with the split off
+    (the comparison of PRs 8-10, made before the port had a split) and
+    phase 11's conditioned network with the split on (the default). At
+    initialisation the He-normal network amplifies any rounding of the
+    route's statistics into its output, by an amount that depends on
+    which roundings differ: with the split on, the 32 routed pairs'
+    differences reach 0.033 of its train output, where the 33 pairs
+    without the split gave 0.016 (PERF.md); phase 9 reports that
+    reading."""
+    import os
+    args, auxs = params
+    args = {n: (a * np.float32(residual_scale)
+                if n.endswith('_conv3_weight') else a)
+            for n, a in args.items()}
+    old = os.environ.get('MXNET_TPU_STEM_SPLIT')
+    os.environ['MXNET_TPU_STEM_SPLIT'] = '1' if split else '0'
+    try:
+        ex = bind_resnet(mx, symbol, ctx, RESNET_BATCH, shape, (args, auxs))
+    finally:
+        if old is None:
+            os.environ.pop('MXNET_TPU_STEM_SPLIT')
+        else:
+            os.environ['MXNET_TPU_STEM_SPLIT'] = old
+    label = ex.arg_dict['softmax_label'].handle
+    saved = save_params(ex)
+    states, losses = {}, {}
+    for route in (True, False):
+        restore(ex, saved)
+        ex._pair_route = route
+        before = cuda_conv.CONV_BN_STATS_LAUNCHES
+        ex.forward_backward()
+        torch.cuda.synchronize()
+        launches = cuda_conv.CONV_BN_STATS_LAUNCHES - before
+        states[route] = resnet_state(torch, ex)
+        losses[route] = nll(torch, ex, label)
+    out = compare_states(torch, states[True], states[False])
+    out.update(split=split, residual_scale=residual_scale,
+               loss_err=abs(losses[True] - losses[False]),
+               loss_fused=losses[True], loss_unfused=losses[False],
+               launches=launches, grad_spread=spread(out['grad_rel']))
+    del ex, states, saved
+    torch.cuda.empty_cache()
+    return out
 
 
 def cut_resnet_check(torch, mx, cuda_conv, gpu):
@@ -2163,7 +2284,8 @@ def resnet_profile(torch, step, step_ms):
 
 def resnet_phase(torch, mx, cuda_conv, ctx=None):
     """Phase 9: the bf16 ResNet-50 v2 at batch 256 through simple_bind on
-    gpu(0): the eval forward (no kernel launch), the train step (33), its
+    gpu(0): the eval forward (no kernel launch), the train step (32 with
+    the stem split on, 33 with it off), its
     gradients, the step with the pair route off, the kernel and a one-pair
     graph through the executor at every shape the route gives it, the cut
     ResNet on gpu(0) against cpu(0), timed steps with the route on and
@@ -2179,9 +2301,12 @@ def resnet_phase(torch, mx, cuda_conv, ctx=None):
     torch.cuda.synchronize()
     bind_s = time.perf_counter() - t0
     label = ex.arg_dict['softmax_label'].handle
-    if len(ex.pairs) != RESNET_PAIRS:
-        fail('resnet: the executor found %d conv -> BatchNorm pairs, '
-             'expected %d' % (len(ex.pairs), RESNET_PAIRS))
+    split = stem_split_on()
+    if len(ex.pairs) != route_pairs(RESNET_PAIRS, split):
+        fail('resnet: the executor routes %d conv -> BatchNorm pairs, '
+             'expected %d (%s)' % (len(ex.pairs),
+                                   route_pairs(RESNET_PAIRS, split),
+                                   split_word(split)))
     saved = save_params(ex)
 
     # the eval forward: no pair route
@@ -2210,13 +2335,19 @@ def resnet_phase(torch, mx, cuda_conv, ctx=None):
     unfused = resnet_state(torch, ex)
     unfused_loss = nll(torch, ex, label)
     ex._pair_route = True
-    unfused_cmp = compare_states(torch, fused, unfused)
-    unfused_cmp.update(loss_err=abs(fused_loss - unfused_loss),
-                       loss_fused=fused_loss, loss_unfused=unfused_loss,
-                       launches=unfused_launches,
-                       grad_spread=spread(unfused_cmp['grad_rel']))
+    # the route on against off at the default (the split on) on this
+    # seeded network: reported (route_comparison's docstring)
+    unfused_he = compare_states(torch, fused, unfused)
+    unfused_he.update(loss_err=abs(fused_loss - unfused_loss),
+                      loss_fused=fused_loss, loss_unfused=unfused_loss,
+                      launches=unfused_launches,
+                      grad_spread=spread(unfused_he['grad_rel']))
     del fused, unfused, grads
     torch.cuda.empty_cache()
+    unfused_cmp = route_comparison(torch, mx, cuda_conv, symbol, shape,
+                                   params, ctx, False, 1.0)
+    unfused_split = route_comparison(torch, mx, cuda_conv, symbol, shape,
+                                     params, ctx, True, SERVE_RESIDUAL_SCALE)
 
     # the kernel, and one pair through the executor, at every shape the
     # path gives it
@@ -2294,12 +2425,15 @@ def resnet_phase(torch, mx, cuda_conv, ctx=None):
         config=dict(RESNET, batch=RESNET_BATCH, pairs=len(ex.pairs),
                     convs=sum(1 for n in symbol._topo() if n.op is not None
                               and n.op.name == 'Convolution')),
+        stem_split=split,
         bind_s=bind_s, eval_launches=eval_launches, eval_ok=eval_ok,
         train_launches=train_launches,
         train_path_launches=train_path_launches,
         grad_finite=grad_finite, grad_zero=grad_zero,
         bn_data_gamma_zero=bn_data_gamma_zero,
-        unfused=unfused_cmp, cut=cut, losses=losses, lr=RESNET_LR,
+        unfused=unfused_cmp, unfused_split=unfused_split,
+        unfused_split_he_normal=unfused_he, cut=cut, losses=losses,
+        lr=RESNET_LR,
         step_ms=[t * 1e3 for t in times], step_ms_median=step_ms,
         step_device_ms=step_device_ms,
         images_per_s=RESNET_BATCH / (step_ms / 1e3),
@@ -2689,15 +2823,17 @@ def module_gate(run):
     """Phase 10's checks on a run's numbers: a list of what failed, empty
     when it passed."""
     bad = []
+    split = run['stem_split']
+    want = route_pairs(RESNET_PAIRS, split)
     for i, n in enumerate(run['train_launches']):
-        if n != RESNET_PAIRS:
+        if n != want:
             bad.append('fit step %d launched the kernel %d times, expected '
-                       '%d' % (i, n, RESNET_PAIRS))
+                       '%d (%s)' % (i, n, want, split_word(split)))
     if len(run['train_launches']) != MODULE_EPOCHS * MODULE_BATCHES:
         bad.append('fit ran %d steps, expected %d'
                    % (len(run['train_launches']),
                       MODULE_EPOCHS * MODULE_BATCHES))
-    if run['fit_launches'] != RESNET_PAIRS * len(run['train_launches']):
+    if run['fit_launches'] != want * len(run['train_launches']):
         bad.append('fit launched the kernel %d times in all'
                    % run['fit_launches'])
     if run['eval_launches'] != 0:
@@ -2888,6 +3024,7 @@ def module_phase(torch, mx, cuda_conv, root, resnet=None, ctx=None):
                     epochs=MODULE_EPOCHS, optimizer='sgd', **MODULE_OPT,
                     lr_step=MODULE_LR_STEP, lr_factor=MODULE_LR_FACTOR,
                     prefetch=MODULE_PREFETCH, params=len(params)),
+        stem_split=stem_split_on(),
         fit_s=fit_s, train_launches=launches, fit_launches=fit_launches,
         eval_launches=eval_launches, lrs=lrs, train_metric=train_metric,
         score=score, score_finite=score_finite, step_ms=step_intervals(times),
@@ -3567,6 +3704,858 @@ def serve_phase(torch, mx, cuda_conv, cuda_ops, root):
     return run
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the Module remainder: BucketingModule over two image sides of
+# the bf16 ResNet-50, bulk_step and fit(bulk=), the stem split, group2ctx
+# ---------------------------------------------------------------------------
+
+BUCKET_KEYS = (224, 160)    # image sides, both rungs; the first the default
+BUCKET_STEPS = 3            # steps on each bucket, alternating
+BULK_K = 4                  # steps a bulk dispatch
+BULK_BATCHES = 8            # fit(bulk=BULK_K): two dispatches an epoch
+# a FactorScheduler whose lr halves after every BULK_LR_STEP updates: a
+# boundary inside the first dispatch
+BULK_LR_STEP, BULK_LR_FACTOR = 2, 0.5
+SPLIT_TIMED = 3             # timed forward / backward pairs, split on, off
+# the grouped graph (one group on cpu(0), one on the card) against the
+# one-device bind: float32 products, TF32 off
+GROUP_SHAPE = (32, 100)
+GROUP_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+def bucket_sym_gen(mx):
+    """The BucketingModule's sym_gen: the network of phase 9 at image
+    side `side`."""
+    def sym_gen(side):
+        symbol = mx.models.resnet.get_symbol(
+            **dict(RESNET, image_shape='3,%d,%d' % (side, side)))
+        return symbol, ('data',), ('softmax_label',)
+    return sym_gen
+
+
+def bucket_batches(torch, mx, side, n, seed, ctx):
+    """n seeded batches at image side `side` on ctx, bucket_key the side:
+    N(0, 1) images and integer labels."""
+    device = ctx.torch_device
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = []
+    for _ in range(n):
+        x = torch.randn((RESNET_BATCH, 3, side, side), generator=gen,
+                        device=device)
+        y = torch.randint(0, RESNET['num_classes'], (RESNET_BATCH,),
+                          generator=gen, device=device).float()
+        out.append(mx.io.DataBatch(
+            [mx.nd.NDArray(x, ctx)], [mx.nd.NDArray(y, ctx)],
+            bucket_key=side,
+            provide_data=[mx.io.DataDesc('data', tuple(x.shape))],
+            provide_label=[mx.io.DataDesc('softmax_label', (RESNET_BATCH,))]))
+    return out
+
+
+class ListIter:
+    """A data iterator over a list of DataBatches (one epoch each pass),
+    their shapes those of the first."""
+
+    def __init__(self, batches):
+        self.batches = batches
+        self.provide_data = batches[0].provide_data
+        self.provide_label = batches[0].provide_label
+        self.batch_size = RESNET_BATCH
+
+    def __iter__(self):
+        return iter(self.batches)
+
+    def reset(self):
+        pass
+
+
+def bulk_metric(mx):
+    return mx.metric.create(['acc', mx.metric.TopKAccuracy(top_k=5)])
+
+
+def count_metric_reads(metric):
+    """Wrap the leaf metrics' update_device and _drain_device to count the
+    pairs queued and the host reads of a pending pair."""
+    counts = dict(queued=0, reads=0)
+    for m in metric.metrics:
+        queue, drain = m.update_device, m._drain_device
+
+        def update_device(dsum, dcount, _queue=queue):
+            counts['queued'] += 1
+            _queue(dsum, dcount)
+
+        def drain(_m=m, _drain=drain):
+            if _m._pending_device is not None:
+                counts['reads'] += 1
+            _drain()
+        m.update_device, m._drain_device = update_device, drain
+    return counts
+
+
+def bulk_optimizer_params(mx):
+    return dict(MODULE_OPT, lr_scheduler=mx.lr_scheduler.FactorScheduler(
+        step=BULK_LR_STEP, factor=BULK_LR_FACTOR))
+
+
+def schedule_lrs(mx, first_update, k):
+    """The lr a fresh copy of the bulk schedule gives updates
+    first_update .. first_update + k - 1."""
+    sched = mx.lr_scheduler.FactorScheduler(step=BULK_LR_STEP,
+                                            factor=BULK_LR_FACTOR)
+    sched.base_lr = MODULE_OPT['learning_rate']
+    return [sched(n) for n in range(first_update, first_update + k)]
+
+
+def bulk_check(torch, mx, cuda_conv, ctx, batches):
+    """Module.bulk_step of BULK_K batches against BULK_K per-step steps
+    from the same state, under deterministic cuDNN: weights, moving
+    statistics, momenta, masters and the metric's sums bit for bit, the
+    lr of every step (a FactorScheduler boundary inside the dispatch),
+    the dispatch under torch.cuda.set_sync_debug_mode('error'), its
+    launches, and the dispatch's ms against the per-step ms."""
+    symbol, init = module_symbol_params(mx)
+    mod = mx.mod.Module(symbol, context=ctx)
+    mod.bind(batches[0].provide_data, batches[0].provide_label)
+    mod.init_params(initializer=init)
+    mod.init_optimizer(optimizer='sgd',
+                       optimizer_params=bulk_optimizer_params(mx))
+    # one per-step step and the programs' warm-up, so that neither path
+    # pays cuDNN's or the allocator's first calls
+    mod.forward_backward(batches[0])
+    mod.update()
+    mod.warmup_fused(bulk=BULK_K, eval_metric=bulk_metric(mx))
+    fu = mod._fused_updater
+    ex = mod._exec_group.executor
+    captured = []
+    prep_steps, prep = fu.host_prep_steps, fu.host_prep
+
+    def host_prep_steps(weights, k, advance=True):
+        out = prep_steps(weights, k, advance)
+        captured.append([row[0] for row in out[2]])
+        return out
+
+    def host_prep(weights):
+        out = prep(weights)
+        captured.append([out[2][0]])
+        return out
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        snap = module_snapshot(mod)
+        first_update = mod._optimizer.num_update + 1
+        metric_b = bulk_metric(mx)
+        fu.host_prep_steps, fu.host_prep = host_prep_steps, host_prep
+        d0 = ex.fused_dispatches
+        torch.cuda.synchronize()
+        before = cuda_conv.CONV_BN_STATS_LAUNCHES
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode('error')
+        try:
+            mod.bulk_step(batches=batches, eval_metric=metric_b)
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
+        torch.cuda.synchronize()
+        bulk_ms = (time.perf_counter() - t0) * 1e3
+        bulk_launches = cuda_conv.CONV_BN_STATS_LAUNCHES - before
+        dispatches = ex.fused_dispatches - d0
+        state_b = {k: v.cpu() for k, v in module_state(mod).items()}
+        for m in metric_b.metrics:
+            m.get()                # the host read of the device sums
+        raw_b = [(float(m.sum_metric), m.num_inst)
+                 for m in metric_b.metrics]
+        lrs_bulk = captured.pop()
+        del captured[:]
+        module_restore(mod, snap)
+        # the per-step loop: the host metric, and the same device fold on
+        # each step's outputs (what the dispatch folds inside it)
+        metric_s, metric_f = bulk_metric(mx), bulk_metric(mx)
+        fold = mx.metric.device_fold(metric_f)
+        carry = fold.init(ctx.torch_device)
+        names = mod.output_names
+        step_ms = []
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mod.forward_backward(b)
+            mod.update()
+            mod.update_metric(metric_s, b.label)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            carry = fold.update(
+                carry, {'softmax_label': b.label[0].handle},
+                dict(zip(names, [o.handle for o in mod.get_outputs()])))
+        fold.commit(carry)
+        for m in metric_f.metrics:
+            m.get()
+        lrs_step = [c[0] for c in captured]
+        state_s = {k: v.cpu() for k, v in module_state(mod).items()}
+        raw_s = [(float(m.sum_metric), m.num_inst) for m in metric_f.metrics]
+        raw_host = [(float(m.sum_metric), m.num_inst)
+                    for m in metric_s.metrics]
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        fu.host_prep_steps, fu.host_prep = prep_steps, prep
+    differ = sorted(k for k in state_s if not torch.equal(state_b[k],
+                                                         state_s[k]))
+    return dict(
+        dispatches=dispatches, launches=bulk_launches,
+        differ=differ, compared=len(state_s),
+        metric_bulk=[(float(a), int(b)) for a, b in raw_b],
+        metric_steps=[(float(a), int(b)) for a, b in raw_s],
+        metric_steps_host=[(float(a), int(b)) for a, b in raw_host],
+        lrs_bulk=lrs_bulk, lrs_step=lrs_step,
+        lrs_want=schedule_lrs(mx, first_update, BULK_K),
+        bulk_ms=bulk_ms, bulk_ms_per_step=bulk_ms / len(batches),
+        step_ms=step_ms, step_ms_median=median(step_ms))
+
+
+def fit_bulk_check(torch, mx, cuda_conv, ctx, mod, train, expect_steps,
+                   executors):
+    """mod.fit(train, bulk=BULK_K) for one epoch with acc and top-5, a
+    batch_end_callback reading the metric as a Speedometer does: the
+    launches, the dispatches (fused_dispatches of `executors`), the pairs
+    queued on the metric and its host reads, the rungs' compiles."""
+    from mxnet_tpu_torch import profiler
+    metric = bulk_metric(mx)
+    counts = count_metric_reads(metric)
+    callbacks = []
+
+    def read(param):
+        callbacks.append(param.nbatch)
+        param.eval_metric.get_name_value()
+    rungs0 = profiler.bucketing_stats()['train_rungs']
+    d0 = sum(ex.fused_dispatches for ex in executors())
+    torch.cuda.synchronize()
+    cuda_conv.CONV_BN_STATS_LAUNCHES = 0
+    t0 = time.perf_counter()
+    mod.fit(train, eval_metric=metric, optimizer='sgd',
+            optimizer_params=bulk_optimizer_params(mx),
+            initializer=module_symbol_params(mx)[1], batch_end_callback=read,
+            num_epoch=1, bulk=BULK_K)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = cuda_conv.CONV_BN_STATS_LAUNCHES
+    rungs1 = profiler.bucketing_stats()['train_rungs']
+    compiles = {k: v['compiles'] - rungs0.get(k, {}).get('compiles', 0)
+                for k, v in rungs1.items()}
+    values = [(n, float(v)) for n, v in metric.get_name_value()]
+    return dict(launches=launches, steps=expect_steps,
+                dispatches=sum(ex.fused_dispatches
+                               for ex in executors()) - d0,
+                queued=counts['queued'], reads=counts['reads'],
+                callbacks=callbacks, leaves=len(metric.metrics),
+                compiles_during_steps=compiles, metric=values, fit_s=fit_s,
+                finite=all(math.isfinite(v) for _, v in values))
+
+
+def split_check(torch, mx, cuda_conv, ctx, residual_scale, resnet=None):
+    """The network of phase 9 bound with the stem split on (the default)
+    and off (MXNET_TPU_STEM_SPLIT=0), from the same seeded values, each
+    residual branch's last conv scaled by `residual_scale` (1: phase 9's
+    He-normal network; SERVE_RESIDUAL_SCALE: the conditioned one of phase
+    11): the launches of a train step, the loss, output and moving
+    statistics (the gradients' distance reported), and the median ms of
+    the train forward and of the backward of each."""
+    import os
+    symbol = mx.models.resnet.get_symbol(**RESNET)
+    shape = tuple(int(v) for v in RESNET['image_shape'].split(','))
+    params = resnet_params(symbol, dict(data=(RESNET_BATCH,) + shape),
+                           RESNET['num_classes'], SEED + 50)
+    for name in params[0]:
+        if name.endswith('_conv3_weight'):
+            params[0][name] = params[0][name] * np.float32(residual_scale)
+    out = {}
+    states = {}
+    old = os.environ.get('MXNET_TPU_STEM_SPLIT')
+    for split in (True, False):
+        os.environ['MXNET_TPU_STEM_SPLIT'] = '1' if split else '0'
+        try:
+            ex = bind_resnet(mx, symbol, ctx, RESNET_BATCH, shape, params)
+        finally:
+            if old is None:
+                os.environ.pop('MXNET_TPU_STEM_SPLIT')
+            else:
+                os.environ['MXNET_TPU_STEM_SPLIT'] = old
+        label = ex.arg_dict['softmax_label'].handle
+        saved = save_params(ex)
+        before = cuda_conv.CONV_BN_STATS_LAUNCHES
+        ex.forward_backward()
+        torch.cuda.synchronize()
+        launches = cuda_conv.CONV_BN_STATS_LAUNCHES - before
+        loss = nll(torch, ex, label)
+        states[split] = resnet_state(torch, ex)
+        fwd, bwd = [], []
+        for _ in range(1 + SPLIT_TIMED):
+            restore(ex, saved)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ex.forward(is_train=True)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            ex.backward()
+            torch.cuda.synchronize()
+            fwd.append((t1 - t0) * 1e3)
+            bwd.append((time.perf_counter() - t1) * 1e3)
+        out[split] = dict(split_convs=len(ex._split_conv),
+                          route_pairs=len(ex.pairs), launches=launches,
+                          loss=loss, forward_ms=median(fwd[1:]),
+                          backward_ms=median(bwd[1:]))
+        del ex, saved
+        torch.cuda.empty_cache()
+    cmp_ = compare_states(torch, states[True], states[False])
+    del states
+    return dict(residual_scale=residual_scale, on=out[True], off=out[False],
+                loss_err=abs(out[True]['loss'] - out[False]['loss']),
+                out_rel=cmp_['out_rel'], aux_rel=cmp_['aux_rel'],
+                grad_spread=spread(cmp_['grad_rel']),
+                phase9_step_ms=resnet['step_ms_median'] if resnet else None)
+
+
+def group_check(torch, mx, ctx):
+    """A two-layer net with its first group on cpu(0) and its second on
+    ctx, bound with group2ctx, against the same net bound on ctx alone:
+    the train forward's output and every gradient, and where the groups
+    ran."""
+    with mx.AttrScope(ctx_group='dev1'):
+        data = mx.sym.Variable('data')
+        act = mx.sym.Activation(mx.sym.FullyConnected(
+            data, num_hidden=64, name='fc1'), act_type='relu')
+    with mx.AttrScope(ctx_group='dev2'):
+        net = mx.sym.SoftmaxOutput(mx.sym.FullyConnected(
+            act, num_hidden=10, name='fc2'), name='softmax')
+    grouped = net.simple_bind(ctx, data=GROUP_SHAPE,
+                              group2ctx={'dev1': mx.cpu(0), 'dev2': ctx})
+    single = net.simple_bind(ctx, data=GROUP_SHAPE)
+    rng = np.random.default_rng(SEED + 300)
+    values = {n: (rng.integers(0, 10, a.shape).astype(np.float32)
+                  if n == 'softmax_label' else
+                  rng.standard_normal(a.shape).astype(np.float32) * 0.3)
+              for n, a in single.arg_dict.items()}
+    outs, grads = {}, {}
+    for key, ex in (('grouped', grouped), ('single', single)):
+        ex.copy_params_from(values)
+        ex.forward(is_train=True)
+        ex.backward()
+        outs[key] = ex.outputs[0].asnumpy()
+        grads[key] = {n: g.asnumpy() for n, g in ex.grad_dict.items()}
+    errs = {'output': float(np.abs(outs['grouped'] - outs['single']).max())}
+    ok = np.allclose(outs['grouped'], outs['single'], **GROUP_TOL)
+    for n in grads['single']:
+        errs['grad ' + n] = float(np.abs(grads['grouped'][n] -
+                                         grads['single'][n]).max())
+        ok = ok and np.allclose(grads['grouped'][n], grads['single'][n],
+                                **GROUP_TOL)
+    placed = sorted({str(c) for c in grouped._node_ctx.values()})
+    return dict(ok=bool(ok), max_abs_err=errs, grouped=grouped._grouped,
+                placed=placed, output_ctx=str(grouped.outputs[0].context),
+                tol=GROUP_TOL)
+
+
+def bucketing_gate(run):
+    """Phase 12's checks on a run's numbers: a list of what failed."""
+    bad = []
+    split = run['stem_split']
+    want = route_pairs(RESNET_PAIRS, split)
+    for side, n in run['step_launches']:
+        if n != want:
+            bad.append('a step on bucket %d launched the kernel %d times, '
+                       'expected %d (%s)' % (side, n, want,
+                                             split_word(split)))
+    if run['path_launches'] != want * len(run['step_launches']):
+        bad.append('the bucket steps launched the kernel %d times in all'
+                   % run['path_launches'])
+    if not run['shared_params'] or not run['one_updater']:
+        bad.append('the buckets do not share their parameters (%s) or '
+                   'their optimizer state (%s)' % (run['shared_params'],
+                                                   run['one_updater']))
+    if not run['update_seen']:
+        bad.append('a step on bucket %d did not change what bucket %d '
+                   'reads' % (BUCKET_KEYS[1], BUCKET_KEYS[0]))
+    if run['rungs_built_after_warmup'] or run['compiles_after_warmup']:
+        bad.append('rungs were built after warm-up: %d programs, %s'
+                   % (run['rungs_built_after_warmup'],
+                      run['compiles_after_warmup']))
+    if run['buckets'] != sorted(BUCKET_KEYS):
+        bad.append('buckets bound: %s' % run['buckets'])
+    sides = sorted({row['x'][1] for row in run['kernel_checks']})
+    want_sides = [BUCKET_KEYS[1] // 32, BUCKET_KEYS[1] // 16,
+                  BUCKET_KEYS[1] // 8, BUCKET_KEYS[1] // 4]
+    if sides != want_sides:
+        bad.append('the kernel was checked at sides %s of bucket %d, '
+                   'expected %s' % (sides, BUCKET_KEYS[1], want_sides))
+    for row in run['kernel_checks']:
+        if not row['ok']:
+            bad.append('the kernel disagrees with its plain version at %s'
+                       % row)
+    bulk = run['bulk']
+    if bulk['dispatches'] != 1 or bulk['launches'] != want * BULK_K:
+        bad.append('bulk_step: %d dispatches and %d launches for %d steps'
+                   % (bulk['dispatches'], bulk['launches'], BULK_K))
+    if bulk['differ'] or not bulk['compared']:
+        bad.append('bulk_step differs from %d per-step steps in %s'
+                   % (BULK_K, bulk['differ'][:8]))
+    if bulk['metric_bulk'] != bulk['metric_steps']:
+        bad.append('the metric sums differ: bulk %s, the per-step steps\' '
+                   'folded %s' % (bulk['metric_bulk'], bulk['metric_steps']))
+    # accuracy's host update agrees exactly (argmax takes the first of
+    # tied scores on both sides); top-5's host argsort orders ties of the
+    # bf16 network's scores otherwise than the fold's stable one, so its
+    # host sums are reported, not gated
+    if bulk['metric_bulk'][0] != bulk['metric_steps_host'][0]:
+        bad.append('accuracy: bulk %s, per-step host update %s'
+                   % (bulk['metric_bulk'][0], bulk['metric_steps_host'][0]))
+    if bulk['lrs_bulk'] != bulk['lrs_step'] or \
+            any(abs(a - b) > 1e-12 for a, b in zip(bulk['lrs_bulk'],
+                                                   bulk['lrs_want'])) or \
+            len(set(bulk['lrs_bulk'])) < 2:
+        bad.append('the lr inside the dispatch %s, per step %s, expected '
+                   '%s with a decay' % (bulk['lrs_bulk'], bulk['lrs_step'],
+                                        bulk['lrs_want']))
+    for what in ('fit_bulk', 'bucket_fit_bulk'):
+        fit = run[what]
+        dispatches = -(-fit['steps'] // BULK_K)
+        if fit['launches'] != want * fit['steps']:
+            bad.append('%s launched the kernel %d times for %d steps'
+                       % (what, fit['launches'], fit['steps']))
+        if fit['dispatches'] != dispatches:
+            bad.append('%s ran %d dispatches, expected %d'
+                       % (what, fit['dispatches'], dispatches))
+        if fit['queued'] != dispatches * fit['leaves'] or \
+                fit['reads'] != dispatches * fit['leaves']:
+            bad.append('%s: %d metric pairs queued and %d host reads, '
+                       'expected one of each a dispatch and leaf metric'
+                       % (what, fit['queued'], fit['reads']))
+        if any(fit['compiles_during_steps'].values()):
+            bad.append('%s built programs during its steps: %s'
+                       % (what, fit['compiles_during_steps']))
+        if not fit['finite']:
+            bad.append('%s: metric %s' % (what, fit['metric']))
+    sc = run['split']
+    if split and (sc['on']['launches'], sc['off']['launches']) != \
+            (RESNET_PAIRS - 1, RESNET_PAIRS):
+        bad.append('stem split on / off launched the kernel %d / %d times, '
+                   'expected %d / %d' % (sc['on']['launches'],
+                                         sc['off']['launches'],
+                                         RESNET_PAIRS - 1, RESNET_PAIRS))
+    if not sc['loss_err'] <= RESNET_LOSS_ATOL:
+        bad.append('stem split on / off: the loss differs by %.3g (bound '
+                   '%.3g)' % (sc['loss_err'], RESNET_LOSS_ATOL))
+    errs = dict(sc['aux_rel'], output=sc['out_rel'])
+    for name, err in errs.items():
+        bound = RESNET_OUT_REL if name == 'output' else RESNET_AUX_REL
+        if not err <= bound:
+            bad.append('stem split on / off: %s differs by %.3g (bound '
+                       '%.3g)' % (name, err, bound))
+    grp = run['group2ctx']
+    if not grp['ok'] or not grp['grouped'] or len(grp['placed']) != 2:
+        bad.append('group2ctx: %s' % grp)
+    return bad
+
+
+def bucketing_phase(torch, mx, cuda_conv, resnet=None, ctx=None):
+    """Phase 12: a BucketingModule over the bf16 ResNet-50 at image sides
+    BUCKET_KEYS (both rungs: no padding), one parameter set and one
+    FusedSGD state, warmed up at init_optimizer; alternating steps; the
+    kernel against its plain version at the second bucket's pair
+    shapes; bulk_step against the per-step loop; fit(bulk=) on a Module
+    and on the BucketingModule; the stem split on against off; and
+    group2ctx. Gated by bucketing_gate."""
+    from mxnet_tpu_torch import exec_cache, executor
+    ctx = ctx or mx.gpu(0)
+    torch.cuda.empty_cache()
+    split = stem_split_on()
+    sides = BUCKET_KEYS
+    batches = {side: bucket_batches(torch, mx, side, BULK_BATCHES // 2,
+                                    SEED + 200 + side, ctx)
+               for side in sides}
+    descs = {side: (batches[side][0].provide_data,
+                    batches[side][0].provide_label) for side in sides}
+    _, init = module_symbol_params(mx)
+    t0 = time.perf_counter()
+    mod = mx.mod.BucketingModule(
+        bucket_sym_gen(mx), default_bucket_key=sides[0], context=ctx,
+        bucket_ladder=list(sides), mask_label=-1, warmup_buckets=True)
+    mod.bind(*descs[sides[0]])
+    mod.init_params(initializer=init)
+    mod.switch_bucket(sides[1], *descs[sides[1]])
+    mod.switch_bucket(sides[0], *descs[sides[0]])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # init_optimizer warms both rungs (their one-step programs)
+    cuda_conv.CONV_BN_STATS_LAUNCHES = 0
+    mod.init_optimizer(optimizer='sgd',
+                       optimizer_params=module_optimizer_params(mx))
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    warm_launches = cuda_conv.CONV_BN_STATS_LAUNCHES
+    exes = {side: mod._buckets[side]._exec_group.executor for side in sides}
+    params = mod._buckets[sides[0]]._param_names
+    shared = all(exes[sides[0]].arg_dict[n] is exes[sides[1]].arg_dict[n]
+                 for n in params) and \
+        all(exes[sides[0]].aux_dict[n] is exes[sides[1]].aux_dict[n]
+            for n in exes[sides[0]].aux_dict)
+    one_updater = len({id(m._fused_updater)
+                       for m in mod._buckets.values()}) == 1
+    stats0 = exec_cache.stats()
+    from mxnet_tpu_torch import profiler
+    rungs0 = profiler.bucketing_stats()['train_rungs']
+
+    # the main path: every count set to 0 just before, read just after
+    step_launches, step_ms = [], {side: [] for side in sides}
+    seen = None
+    cuda_conv.CONV_BN_STATS_LAUNCHES = 0
+    for i in range(2 * BUCKET_STEPS):
+        side = sides[i % 2]
+        b = batches[side][(i // 2) % len(batches[side])]
+        if side == sides[1] and seen is None:
+            w0 = exes[sides[0]].arg_dict['conv0_weight'].handle.clone()
+        before = cuda_conv.CONV_BN_STATS_LAUNCHES
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        mod.forward_backward(b)
+        mod.update()
+        torch.cuda.synchronize()
+        step_ms[side].append((time.perf_counter() - t1) * 1e3)
+        step_launches.append((side, cuda_conv.CONV_BN_STATS_LAUNCHES -
+                              before))
+        if side == sides[1] and seen is None:
+            seen = not torch.equal(
+                exes[sides[0]].arg_dict['conv0_weight'].handle, w0)
+    path_launches = cuda_conv.CONV_BN_STATS_LAUNCHES
+    peak_bytes = torch.cuda.max_memory_allocated()
+    stats1 = exec_cache.stats()
+    rungs1 = profiler.bucketing_stats()['train_rungs']
+    compiles = {k: v['compiles'] - rungs0.get(k, {}).get('compiles', 0)
+                for k, v in rungs1.items()
+                if v['compiles'] != rungs0.get(k, {}).get('compiles', 0)}
+
+    # the kernel at the pairs the second bucket's route takes
+    sym160 = mod._buckets[sides[1]].symbol
+    shapes = pair_shapes(sym160, RESNET_BATCH, (3, sides[1], sides[1]),
+                         executor, pairs=exes[sides[1]].pairs)
+    kernel_checks = resnet_kernel_checks(torch, cuda_conv, executor, shapes,
+                                         ctx.torch_device)
+
+    # fit(bulk=) on the BucketingModule, its rungs' bulk programs warmed
+    # before it (fit's own warm-up then finds them)
+    mod.warmup_buckets(bulk=BULK_K, eval_metric=bulk_metric(mx))
+    bucket_fit = fit_bulk_check(
+        torch, mx, cuda_conv, ctx, mod,
+        ListIter(batches[sides[0]] + batches[sides[1]]), BULK_BATCHES,
+        lambda: [m._exec_group.executor for m in mod._buckets.values()])
+    buckets = sorted(mod._buckets)
+    del mod, exes
+    torch.cuda.empty_cache()
+
+    # bulk_step against the per-step loop, then fit(bulk=) on a Module
+    bulk = bulk_check(torch, mx, cuda_conv, ctx, batches[sides[0]])
+    torch.cuda.empty_cache()
+    symbol, init = module_symbol_params(mx)
+    fmod = mx.mod.Module(symbol, context=ctx)
+    x, y = module_data(RESNET['num_classes'], BULK_BATCHES * RESNET_BATCH,
+                       (3, sides[0], sides[0]), SEED + 210)
+    train = mx.io.prefetch_to_device(
+        mx.io.NDArrayIter(x, y, batch_size=RESNET_BATCH),
+        size=MODULE_PREFETCH, device=ctx)
+    fmod.bind(train.provide_data, train.provide_label)
+    fit = fit_bulk_check(torch, mx, cuda_conv, ctx, fmod, train,
+                         BULK_BATCHES,
+                         lambda: [fmod._exec_group.executor])
+    del fmod, train, x, y
+    torch.cuda.empty_cache()
+
+    # the split on against off, gated on the conditioned network: at
+    # initialisation the He-normal one amplifies any rounding of its input
+    # (split_he_normal: reported)
+    split_cmp = split_check(torch, mx, cuda_conv, ctx, SERVE_RESIDUAL_SCALE,
+                            resnet)
+    split_he = split_check(torch, mx, cuda_conv, ctx, 1.0, resnet)
+    group = group_check(torch, mx, ctx)
+
+    run = dict(
+        config=dict(RESNET, batch=RESNET_BATCH, buckets=list(sides),
+                    steps=2 * BUCKET_STEPS, bulk=BULK_K,
+                    bulk_batches=BULK_BATCHES, lr_step=BULK_LR_STEP,
+                    lr_factor=BULK_LR_FACTOR),
+        stem_split=split, warm_s=warm_s, warm_launches=warm_launches,
+        step_launches=step_launches, path_launches=path_launches,
+        step_ms={str(k): v for k, v in step_ms.items()},
+        step_ms_median={str(k): median(v[1:] or v)
+                        for k, v in step_ms.items()},
+        images_per_s={str(k): RESNET_BATCH / (median(v[1:] or v) / 1e3)
+                      for k, v in step_ms.items()},
+        peak_bytes=peak_bytes, shared_params=shared,
+        one_updater=one_updater, update_seen=bool(seen),
+        rungs_built_after_warmup=stats1['misses'] - stats0['misses'],
+        compile_s_after_warmup=stats1['total_compile_s'] -
+        stats0['total_compile_s'],
+        compiles_after_warmup=compiles, buckets=buckets,
+        kernel_checks=kernel_checks, bulk=bulk, fit_bulk=fit,
+        bucket_fit_bulk=bucket_fit, split=split_cmp,
+        split_he_normal=dict(
+            (k, split_he[k]) for k in ('loss_err', 'out_rel', 'aux_rel',
+                                       'grad_spread', 'on', 'off')),
+        group2ctx=group)
+    print('bucketing ' + json.dumps(run))
+    bad = bucketing_gate(run)
+    if bad:
+        fail('bucketing: ' + '; '.join(bad))
+    print('bucketing: %s ms a step (%s images/s) on buckets %s, launches '
+          'a step %s; bulk_step %.1f ms a step against %.1f ms per step; '
+          'stem split backward %.1f ms on, %.1f ms off (phase 9 step %s '
+          'ms); peak %.2f GB'
+          % ([round(run['step_ms_median'][str(k)], 2) for k in sides],
+             [round(run['images_per_s'][str(k)], 1) for k in sides],
+             list(sides), sorted({n for _, n in step_launches}),
+             bulk['bulk_ms_per_step'], bulk['step_ms_median'],
+             split_cmp['on']['backward_ms'], split_cmp['off']['backward_ms'],
+             split_cmp['phase9_step_ms'], peak_bytes / 1e9))
+    return run
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: Gluon trains ResNet-50 v1 (model_zoo) on the card
+# ---------------------------------------------------------------------------
+
+GLUON_BATCH = 64
+GLUON_SIDE = 224
+GLUON_CLASSES = 1000
+GLUON_TIMED = 5             # timed steps, after one warm-up
+GLUON_LOSS_STEPS = 5        # steps on one repeated batch, whose loss falls
+GLUON_OPT = dict(learning_rate=0.01, momentum=0.9, wd=1e-4)
+GLUON_WORKERS = 2           # the DataLoader's threads
+GLUON_FWD_TIMED = 3         # timed forwards, hybridized and imperative
+# every other family of the zoo, one forward at batch 2 on the card
+# against cpu(0) (TF32 off): max |gpu - cpu| within GLUON_ZOO_TOL of the
+# largest |cpu| output
+GLUON_ZOO = (('resnet50_v2', 224), ('vgg11', 224), ('vgg11_bn', 224),
+             ('alexnet', 224), ('squeezenet1.0', 224),
+             ('squeezenet1.1', 224), ('densenet121', 224),
+             ('inceptionv3', 299))
+GLUON_ZOO_BATCH = 2
+GLUON_ZOO_TOL = 1e-3
+
+
+def gluon_transform(data, label):
+    """An HWC uint8 image as CHW float32 in [-0.5, 0.5]."""
+    return data.astype('float32').transpose((2, 0, 1)) / 255.0 - 0.5, label
+
+
+def gluon_param_state(net):
+    """Every parameter's value (moving statistics included), by name."""
+    return {n: p.data().handle.detach().clone()
+            for n, p in net.collect_params().items()}
+
+
+def gluon_set_state(net, state):
+    for n, p in net.collect_params().items():
+        p.data()._data = state[n].clone()
+
+
+def gluon_zoo_check(torch, mx, ctx):
+    """Each GLUON_ZOO family initialized on cpu(0) (Xavier), one eval
+    forward there and one on ctx with the same parameters."""
+    rows = []
+    for name, side in GLUON_ZOO:
+        net = mx.gluon.model_zoo.vision.get_model(name, classes=GLUON_CLASSES)
+        mx.random.seed(SEED)
+        net.initialize(mx.init.Xavier(), ctx=mx.cpu(0))
+        x = np.random.default_rng(SEED + 500).standard_normal(
+            (GLUON_ZOO_BATCH, 3, side, side)).astype(np.float32)
+        ref = net(mx.nd.array(x, ctx=mx.cpu(0))).asnumpy()
+        net.collect_params().reset_ctx(ctx)
+        got = net(mx.nd.array(x, ctx=ctx)).asnumpy()
+        scale = float(np.abs(ref).max())
+        err = float(np.abs(got - ref).max())
+        rows.append(dict(model=name, side=side, shape=list(got.shape),
+                         max_abs_err=err, max_abs_out=scale,
+                         finite=bool(np.isfinite(got).all()),
+                         ok=list(got.shape) == [GLUON_ZOO_BATCH,
+                                                GLUON_CLASSES] and
+                         bool(np.isfinite(got).all()) and
+                         err <= GLUON_ZOO_TOL * scale))
+        print('gluon zoo: %-14s max |gpu - cpu| %.3g of %.3g' % (
+            name, err, scale))
+        del net
+    return rows
+
+
+def gluon_gate(run):
+    """Phase 13's checks on a run's numbers: a list of what failed."""
+    bad = []
+    if run['param_devices'] != ['cuda:0'] or run['param_ctxs'] != ['gpu(0)']:
+        bad.append('initialize() without a ctx put the parameters on %s '
+                   '(%s)' % (run['param_devices'], run['param_ctxs']))
+    if run['kernel_launches'] != dict(conv_bn_stats=0, flash_fwd=0,
+                                      flash_bwd_dkdv=0, flash_bwd_dq=0):
+        bad.append('the Gluon phase launched hand-written kernels: %s'
+                   % run['kernel_launches'])
+    losses = run['losses']
+    if not losses[-1] < losses[0]:
+        bad.append('the loss on one repeated batch did not fall: %s'
+                   % losses)
+    if not all(math.isfinite(v) for v in run['timed_losses']):
+        bad.append('timed steps: losses %s' % run['timed_losses'])
+    for mode in ('eval', 'train'):
+        if not run['hybrid_equal'][mode]:
+            bad.append('the hybridized %s forward differs from the '
+                       'imperative one' % mode)
+    if run['resume']['differ'] or not run['resume']['compared']:
+        bad.append('the step after load_params and load_states differs in '
+                   '%s' % run['resume']['differ'][:8])
+    for row in run['zoo']:
+        if not row['ok']:
+            bad.append('zoo %s: %s' % (row['model'], row))
+    if run['batch_shape'] != [GLUON_BATCH, 3, GLUON_SIDE, GLUON_SIDE]:
+        bad.append('the DataLoader gave batches of %s' % run['batch_shape'])
+    return bad
+
+
+def gluon_phase(torch, mx, cuda_conv, cuda_ops, root, ctx=None):
+    """Phase 13: model_zoo.vision.resnet50_v1 in float32 at batch 64,
+    initialized with no ctx (it must land on cuda:0), hybridized, trained
+    by Trainer('sgd') on SoftmaxCrossEntropyLoss under autograd.record()
+    from a DataLoader over SyntheticImageDataset; the hybridized forward
+    against the imperative one; save_params / load_params and
+    save_states / load_states against the uninterrupted step; every
+    other zoo family on the card against cpu(0); no hand-written kernel
+    launched. Gated by gluon_gate."""
+    import shutil
+    from mxnet_tpu_torch import autograd
+    gluon = mx.gluon
+    ctx = ctx or mx.gpu(0)
+    torch.cuda.empty_cache()
+    cuda_conv.CONV_BN_STATS_LAUNCHES = 0
+    reset_counts(cuda_ops)
+    mx.random.seed(SEED)
+    net = gluon.model_zoo.vision.resnet50_v1(classes=GLUON_CLASSES)
+    net.initialize(mx.init.Xavier())
+    params = net.collect_params()
+    net.hybridize()
+    trainer = gluon.Trainer(params, 'sgd', dict(GLUON_OPT))
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    dataset = gluon.data.vision.SyntheticImageDataset(
+        num_samples=GLUON_BATCH * (1 + GLUON_TIMED),
+        shape=(GLUON_SIDE, GLUON_SIDE, 3), num_classes=GLUON_CLASSES,
+        transform=gluon_transform, seed=SEED + 400)
+    loader = gluon.data.DataLoader(dataset, batch_size=GLUON_BATCH,
+                                   num_workers=GLUON_WORKERS)
+
+    def step(x, y):
+        with autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        trainer.step(GLUON_BATCH)
+        return loss
+
+    torch.cuda.reset_peak_memory_stats()
+    times, timed_losses = [], []
+    it = iter(loader)
+    batch_shape = None
+    t_last = time.perf_counter()
+    for i in range(1 + GLUON_TIMED):
+        x, y = next(it)
+        batch_shape = list(x.shape)
+        loss = step(x, y)
+        timed_losses.append(float(loss.mean().asscalar()))
+        now = time.perf_counter()
+        times.append((now - t_last) * 1e3)
+        t_last = now
+    peak_bytes = torch.cuda.max_memory_allocated()
+    step_ms = median(times[1:])
+    # where initialize() without a ctx put the parameters (their shapes
+    # complete at the first forward)
+    param_devices = sorted({str(p.data().handle.device)
+                            for p in params.values()})
+    param_ctxs = sorted({str(c) for p in params.values()
+                         for c in p.list_ctx()})
+
+    # the loss on one repeated batch
+    losses = []
+    for _ in range(GLUON_LOSS_STEPS):
+        losses.append(float(step(x, y).mean().asscalar()))
+
+    # the hybridized forward against the imperative one, eval and train
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    ckpt = root / 'build' / 'phase13'
+    shutil.rmtree(ckpt, ignore_errors=True)
+    ckpt.mkdir(parents=True)
+    try:
+        state = gluon_param_state(net)
+        outs, fwd_ms = {}, {}
+        for hybrid in (False, True):
+            net.hybridize(hybrid)
+            gluon_set_state(net, state)
+            o_eval = net(x).handle.clone()
+            with autograd.record():
+                out = net(x)
+            o_train = out.handle.detach().clone()
+            out.backward()         # ends the recording
+            outs[hybrid] = (o_eval, o_train)
+            ts = []
+            for _ in range(1 + GLUON_FWD_TIMED):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                net(x)
+                torch.cuda.synchronize()
+                ts.append((time.perf_counter() - t0) * 1e3)
+            fwd_ms['hybridized' if hybrid else 'imperative'] = \
+                median(ts[1:])
+        gluon_set_state(net, state)
+        hybrid_equal = dict(
+            eval=bool(torch.equal(outs[False][0], outs[True][0])),
+            train=bool(torch.equal(outs[False][1], outs[True][1])))
+        del outs
+
+        # save and load: the next step equals the uninterrupted one
+        fparams, fstates = str(ckpt / 'net.params'), str(ckpt / 'net.states')
+        net.save_params(fparams)
+        trainer.save_states(fstates)
+        step(x, y)
+        ref = {k: v.cpu() for k, v in gluon_param_state(net).items()}
+        net.load_params(fparams, ctx=ctx)
+        trainer.load_states(fstates)
+        step(x, y)
+        got = {k: v.cpu() for k, v in gluon_param_state(net).items()}
+        resume = dict(differ=sorted(k for k in ref
+                                    if not torch.equal(ref[k], got[k])),
+                      compared=len(ref))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        shutil.rmtree(ckpt, ignore_errors=True)
+    del net, trainer, loader, dataset
+    torch.cuda.empty_cache()
+
+    zoo = gluon_zoo_check(torch, mx, ctx)
+    torch.cuda.synchronize()
+    launches = dict(conv_bn_stats=cuda_conv.CONV_BN_STATS_LAUNCHES,
+                    flash_fwd=cuda_ops.FLASH_FWD_LAUNCHES,
+                    flash_bwd_dkdv=cuda_ops.FLASH_BWD_DKDV_LAUNCHES,
+                    flash_bwd_dq=cuda_ops.FLASH_BWD_DQ_LAUNCHES)
+    run = dict(
+        config=dict(model='resnet50_v1', dtype='float32', batch=GLUON_BATCH,
+                    side=GLUON_SIDE, classes=GLUON_CLASSES, **GLUON_OPT),
+        param_devices=param_devices, param_ctxs=param_ctxs,
+        batch_shape=batch_shape, step_ms=times, step_ms_median=step_ms,
+        images_per_s=GLUON_BATCH / (step_ms / 1e3), timed_losses=timed_losses,
+        losses=losses, peak_bytes=peak_bytes, forward_ms=fwd_ms,
+        hybrid_equal=hybrid_equal, resume=resume, zoo=zoo,
+        kernel_launches=launches)
+    print('gluon ' + json.dumps(run))
+    bad = gluon_gate(run)
+    if bad:
+        fail('gluon: ' + '; '.join(bad))
+    print('gluon: %.1f ms a step (%.1f images/s) with the DataLoader, '
+          'forward %.1f ms hybridized, %.1f ms imperative (eval, batch %d); '
+          'loss on one batch %s; peak %.2f GB; hand-written kernel '
+          'launches %s'
+          % (step_ms, run['images_per_s'], fwd_ms['hybridized'],
+             fwd_ms['imperative'], GLUON_BATCH, losses, peak_bytes / 1e9,
+             launches))
+    return run
+
+
 def main(argv=None):
     import argparse
     parser = argparse.ArgumentParser(
@@ -3582,7 +4571,7 @@ def main(argv=None):
                                                     v.split(',')},
                         default=ALL_PHASES,
                         help='build, then run only these phases (a comma '
-                             'list of 2-11); the kernels line needs all')
+                             'list of 2-13); the kernels line needs all')
     parser.add_argument('--mutants', action='store_true',
                         help='check that phase 2\'s LM case fails each of '
                              'FWD_MUTANTS, phase 4\'s each of BWD_MUTANTS '
@@ -3602,7 +4591,7 @@ def main(argv=None):
         return
     phases = args.phases
     if not phases <= ALL_PHASES:
-        fail('--phases takes phases 2 to 11; got %s' % sorted(phases))
+        fail('--phases takes phases 2 to 13; got %s' % sorted(phases))
     sys.path.insert(0, str(root))
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import _build, cuda_conv, cuda_ops
@@ -3704,6 +4693,16 @@ def main(argv=None):
     if 11 in phases:
         serve = serve_phase(torch, mx, cuda_conv, cuda_ops, root)
 
+    # 12. the Module remainder: BucketingModule, bulk_step, fit(bulk=),
+    # the stem split and group2ctx
+    if 12 in phases:
+        bucketing = bucketing_phase(torch, mx, cuda_conv,
+                                    resnet if 9 in phases else None)
+
+    # 13. Gluon trains ResNet-50 v1
+    if 13 in phases:
+        gluon_run = gluon_phase(torch, mx, cuda_conv, cuda_ops, root)
+
     if phases != ALL_PHASES:
         print('phases %s passed' % sorted(phases))
         return
@@ -3717,7 +4716,9 @@ def main(argv=None):
         launches=lm['flash_launches'],
         launches_by_path=dict(lm_serve=lm['flash_launches'],
                               lm_train=train['launches'][0],
-                              resnet_serve=serve['launches']['flash_fwd']),
+                              resnet_serve=serve['launches']['flash_fwd'],
+                              gluon_train=gluon_run['kernel_launches'][
+                                  'flash_fwd']),
         max_abs_err=main_case['max_abs_err'],
         share_differ=main_case['share_differ'],
         ms=main_case['ms'], tflops=main_case['tflops'],
@@ -3751,7 +4752,9 @@ def main(argv=None):
                 lm_serve=lm['launches'][1 + i],
                 lm_train=train['launches'][1 + i],
                 resnet_serve=serve['launches'][('flash_bwd_dkdv',
-                                                'flash_bwd_dq')[i]]),
+                                                'flash_bwd_dq')[i]],
+                gluon_train=gluon_run['kernel_launches'][
+                    ('flash_bwd_dkdv', 'flash_bwd_dq')[i]]),
             max_abs_err=main_case['max_abs_err'], ms=main_case['ms'],
             plain_ms=main_case['plain_ms'], bound_ms=main_case['bound_ms'],
             bound_by=main_case['bound_by'],
@@ -3761,7 +4764,8 @@ def main(argv=None):
             whole_backward_bound_ms=bwd_cases[0]['bounds']['whole'][
                 'bound_ms'],
             cases=per_case))
-    kernels.append(conv_kernel_entry(conv, sass, resnet, module, serve))
+    kernels.append(conv_kernel_entry(conv, sass, resnet, module, serve,
+                                     bucketing, gluon_run))
     kernels.append(rtc_kernel_entry(rtc_run))
     for kern in kernels:
         if kern['launches'] == 0:

@@ -29,8 +29,14 @@ far:
 - training through `Module`: `optimizer` (the 13 optimizers, the per-key
   `Updater`, `FusedSGD`), `initializer`, `lr_scheduler`, `metric`, `io`
   (iterators, staging on the card), `recordio`, `model` (checkpoints,
-  FeedForward), `callback` and `module` (`Module`, `SequentialModule`):
-  `mx.mod.Module(sym).fit(train_iter, ...)` trains on `gpu(0)`;
+  FeedForward), `callback` and `module` (`Module`, `SequentialModule`,
+  `BucketingModule`): `mx.mod.Module(sym).fit(train_iter, ...)` trains
+  on `gpu(0)`, `fit(bulk=K)` in K-step dispatches with the metric folded
+  on the device (`metric.device_fold`); the executor's stem split and
+  ctx_group placement (`group2ctx`);
+- Gluon (`mx.gluon`): Parameter, Block, HybridBlock and `hybridize`,
+  the layers of `gluon.nn`, the losses, Trainer, the data pipeline and
+  the vision model zoo;
 - serving: `predictor.Predictor` (checkpoints, forward only) and
   `serving.InferenceEngine` (a shape-bucket ladder, a dynamic batcher,
   staging and completion on their own streams, int8 or bf16 weight
@@ -86,12 +92,13 @@ from . import exec_cache
 from . import quantization
 from . import predictor
 from . import serving
+from . import gluon
 
 __all__ = ['AttrScope', 'Context', 'DataBatch', 'DataDesc', 'DataIter',
            'Executor', 'FeedForward', 'MXNetError', 'Module', 'NDArrayIter',
            'NameManager', 'Optimizer', 'Prefix', 'attribute', 'autograd',
            'callback', 'cpu', 'current_context', 'exec_cache', 'executor',
-           'gpu', 'init', 'initializer', 'io', 'lr_scheduler', 'metric',
+           'gluon', 'gpu', 'init', 'initializer', 'io', 'lr_scheduler', 'metric',
            'mod', 'model', 'models', 'module', 'mon', 'monitor', 'nd',
            'ndarray', 'num_gpus', 'optimizer', 'predictor', 'profiler',
            'quantization', 'random', 'recordio', 'resolve_device', 'rtc',

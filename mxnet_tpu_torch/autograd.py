@@ -135,6 +135,23 @@ def _recorded(tensors):
         st.tensors[id(t)] = t
 
 
+@contextmanager
+def _nested_recording(tensors):
+    """Record into a state of its own, the enclosing one set aside: the
+    ops see `tensors` as tensors of this recording (not detached when
+    they enter), and their graph is the caller's to differentiate (a
+    hybridized Gluon call, gluon/block.py _CachedCall)."""
+    st = _st()
+    saved = (st.recording, st.tensors, st.inputs)
+    st.recording = True
+    st.tensors = {id(t): t for t in tensors}
+    st.inputs = {}
+    try:
+        yield
+    finally:
+        st.recording, st.tensors, st.inputs = saved
+
+
 def _end_recording():
     st = _st()
     st.tensors = {}

@@ -32,10 +32,11 @@ MAX_ENTRIES = 64                # LRU bound
 
 # Every env knob whose value changes what an executor's graph walk
 # computes joins the signature, read at bind: MXNET_TPU_LAYOUT_OPT, the
-# NHWC layout pass. (The JAX package's stem split and conv layout have
-# no counterpart in the port.)
+# NHWC layout pass, and MXNET_TPU_STEM_SPLIT, the stem split. (The JAX
+# package's conv layout knob has no counterpart in the port.)
 TRACE_ENV_KNOBS = (
     ('MXNET_TPU_LAYOUT_OPT', 'auto'),
+    ('MXNET_TPU_STEM_SPLIT', '1'),
 )
 
 

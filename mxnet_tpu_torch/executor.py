@@ -41,6 +41,25 @@ zero-padded to the next multiple, which the kernel takes by TMA instead
 of by plain loads; the zeros change neither y nor the sums. There is no
 fallback: the route raises where the kernel does not build or launch.
 
+The stem split (MXNET_TPU_STEM_SPLIT, on unless '0' or ''). A
+Convolution with no bias fed by a BatchNorm(fix_gamma=True) whose input
+carries no gradient (ResNet's bn_data -> conv0) runs as conv(x^ g) +
+conv(beta 1): the BatchNorm with beta zeroed, whose output then carries
+no autograd graph, and the conv's output plus the conv of the constant
+image beta at batch 1. Its backward reaches beta through a batch-1
+dgrad instead of the whole batch's. Such a conv leaves the pair route:
+the kernel's sums would be those of conv(x^ g) alone, and the sums of
+y need sum_n y per output position, which the kernel does not give. The
+split applies in every walk but the monitor's, which shows each node's
+own output. `_split_conv` maps each split conv to its BatchNorm.
+
+ctx_group placement (`group2ctx`). A node whose ctx_group attribute
+maps to a context runs there: its inputs go there by `.to(device)`, and
+autograd carries the gradients back across devices. A group2ctx that
+matches no node changes nothing; a grouped executor takes neither the
+layout pass nor the pair route, and has no multistep program (Module
+runs its steps one by one).
+
 At bind the executor takes its graph signature (`exec_cache.
 graph_signature`, `_sig`), which the serving engine keys its rung
 programs on. `serve` is the counterpart of the JAX package's
@@ -151,6 +170,44 @@ def conv_bn_pairs(topo, heads):
     return pairs
 
 
+def stem_splits(topo, heads, grad_req, aux_names):
+    """{conv node index: BatchNorm node index} of the stem split: each
+    Convolution with no_bias and a 2-D kernel whose input 0 is output 0
+    of a BatchNorm with fix_gamma (and no output_mean_var) used once,
+    whose own data input, through any Casts, is an aux state or an
+    argument of grad_req 'null'."""
+    index = {id(n): i for i, n in enumerate(topo)}
+    uses = {}
+    for n in topo:
+        for src, oi in n.inputs:
+            uses[(id(src), oi)] = uses.get((id(src), oi), 0) + 1
+    for n, oi in heads:
+        uses[(id(n), oi)] = uses.get((id(n), oi), 0) + 1
+
+    def grad_free(n):
+        while n.op is not None and n.op.name == 'Cast':
+            n = n.inputs[0][0]
+        if n.op is not None:
+            return False
+        return n.name in aux_names or grad_req.get(n.name, 'null') == 'null'
+
+    out = {}
+    for ci, conv in enumerate(topo):
+        if conv.op is None or conv.op.name != 'Convolution' or \
+                not asbool(conv.attrs.get('no_bias', False)) or \
+                len(astuple(conv.attrs.get('kernel', ()))) != 2:
+            continue
+        bn, boi = conv.inputs[0]
+        if bn.op is None or bn.op.name != 'BatchNorm' or boi != 0 or \
+                not asbool(bn.attrs.get('fix_gamma', False)) or \
+                asbool(bn.attrs.get('output_mean_var', False)) or \
+                uses.get((id(bn), 0), 0) != 1 or \
+                not grad_free(bn.inputs[0][0]):
+            continue
+        out[ci] = index[id(bn)]
+    return out
+
+
 def _tensor_of(value, dtype, device, copy=False):
     """A tensor of `value` (an NDArray, a torch tensor or anything
     numpy takes, a bfloat16 numpy array included) in `dtype` on
@@ -199,10 +256,13 @@ def _check_ctx(ctx):
 
 class Executor:
     def __init__(self, symbol, ctx, arg_dict, grad_dict, aux_dict,
-                 grad_req_dict):
+                 grad_req_dict, group2ctx=None):
         _check_ctx(ctx)
+        for g in (group2ctx or {}).values():
+            _check_ctx(g)
         self._symbol = symbol
         self._ctx = ctx
+        self._group2ctx = dict(group2ctx or {})
         self.arg_dict = arg_dict        # OrderedDict name -> NDArray
         self.grad_dict = grad_dict      # name -> NDArray (or absent)
         self.aux_dict = aux_dict        # OrderedDict name -> NDArray
@@ -218,10 +278,10 @@ class Executor:
         # the pairs run unfused, which the tests and chip_smoke.py's
         # phase 9 compare it with
         self._pair_route = True
-        # ctx_group placement is refused at bind (_check_group2ctx)
-        self._grouped = False
         self._monitor_callback = None
         self._partial_state = None
+        # fused train dispatches run (run_fused_multistep)
+        self.fused_dispatches = 0
         self._build()
 
     def _build(self):
@@ -248,19 +308,38 @@ class Executor:
         self._has_aux_always = any(
             n.op is not None and n.op.mutable_aux and n.op.aux_always
             for n in topo)
+        # the context each op node runs on: its group's where its
+        # ctx_group attribute maps to one
+        self._node_ctx = {
+            ni: self._group2ctx[n.user_attrs['ctx_group']]
+            for ni, n in enumerate(topo)
+            if n.op is not None and
+            n.user_attrs.get('ctx_group') in self._group2ctx}
+        self._grouped = bool(self._node_ctx)
         pref = os.environ.get('MXNET_TPU_LAYOUT_OPT', 'auto')
         if pref == '1':
             self._layout_opt = True
         elif pref == 'auto':
-            self._layout_opt = self._ctx.device_type == 'gpu'
+            self._layout_opt = self._ctx.device_type == 'gpu' and \
+                not self._grouped
         elif pref in ('0', ''):
             self._layout_opt = False
         else:
             raise ValueError("MXNET_TPU_LAYOUT_OPT must be 'auto', '1' or "
                              "'0', got %r" % pref)
-        self.pairs = conv_bn_pairs(topo, sym._outputs)
+        split = os.environ.get('MXNET_TPU_STEM_SPLIT', '1') not in ('0', '')
+        self._split_conv = stem_splits(
+            topo, sym._outputs, self._grad_req, self._aux_pos) \
+            if split else {}
+        self._split_bn = set(self._split_conv.values())
+        # a split conv leaves the route (module docstring); a grouped
+        # executor takes none
+        self.pairs = {} if self._grouped else {
+            c: b for c, b in conv_bn_pairs(topo, sym._outputs).items()
+            if c not in self._split_conv}
         self._sig = exec_cache.graph_signature(
-            sym, self._ctx, self.arg_dict, self.aux_dict, self._grad_req)
+            sym, self._ctx, self.arg_dict, self.aux_dict, self._grad_req,
+            self._group2ctx)
         # the monitor's names of every op node's outputs, in topo order
         self._monitor_names = []
         for node in topo:
@@ -299,7 +378,10 @@ class Executor:
         new_aux = list(aux_vals)
         pairs = self.pairs if self._pair_route and is_train else {}
         sums = {}                      # BatchNorm node index -> (s1, s2)
-        device = self._ctx.torch_device
+        # the monitor sees every node's own output: no split there
+        split_conv = self._split_conv if collect is None else {}
+        split_beta = {}                # split BatchNorm index -> beta
+        node_ctx = self._node_ctx
         for ni, node in enumerate(topo):
             if node.op is None:
                 if node.name in self._arg_pos:
@@ -343,17 +425,34 @@ class Executor:
             n_aux = op.num_aux
             args = vals[:len(vals) - n_aux] if n_aux else vals
             auxs = vals[len(vals) - n_aux:] if n_aux else []
+            device = node_ctx.get(ni, self._ctx).torch_device
+            if ni in node_ctx:
+                # the group's device: the inputs go there, and autograd
+                # carries their gradients back
+                args = [v.to(device) for v in args]
+                auxs = [v.to(device) for v in auxs]
             op_ctx = OpContext(
                 is_train=is_train,
                 rng=_random.generator(device) if op.needs_rng else None,
                 device=device,
                 out_shapes=self._node_shapes.get(ni)
                 if op.needs_out_shapes else None)
+            if ni in self._split_bn and split_conv:
+                # the stem split: the BatchNorm with beta zeroed (its
+                # statistics and aux updates do not read beta), and no
+                # graph on its output; the conv adds conv(beta 1) back
+                args = list(args)
+                split_beta[ni] = args[2]
+                args[2] = torch.zeros_like(args[2].detach())
             if ni in sums:
                 outs, updated = _nn.batch_norm(eff_attrs, args, auxs, op_ctx,
                                                sums=sums.pop(ni))
             else:
                 outs, updated = op.apply(eff_attrs, args, auxs, op_ctx)
+            if ni in split_conv:
+                outs = [outs[0] + self._beta_conv(
+                    op, eff_attrs, args, split_beta.pop(split_conv[ni]),
+                    op_ctx)]
             results[ni] = outs
             layouts[ni] = [out_layout if o.ndim == 4 else 'NCHW'
                            for o in outs]
@@ -368,6 +467,33 @@ class Executor:
         outputs = [_to_nchw(results[ni][oi], layouts[ni][oi])
                    for ni, oi in self._out_entries]
         return outputs, new_aux
+
+    @staticmethod
+    def _beta_conv(op, attrs, args, beta, op_ctx):
+        """conv(beta 1) of the stem split: the conv of the image whose
+        every pixel is beta, at batch 1, in the activation dtype (the
+        JAX package adds the two convs in that dtype too)."""
+        x = args[0]
+        beta = beta.to(x.dtype)
+        if attrs.get('__layout__') == 'NHWC':
+            b_in = beta.expand((1,) + tuple(x.shape[1:]))
+        else:
+            b_in = beta[:, None, None].expand((1,) + tuple(x.shape[1:]))
+        outs, _ = op.apply(attrs, [b_in, args[1]], [], op_ctx)
+        return outs[0]
+
+    def _wrap_outputs(self, outs):
+        """The walk's outputs as NDArrays, each on the context of the
+        node that made it."""
+        return [nd.NDArray(o, self._node_ctx.get(ni, self._ctx))
+                for o, (ni, _) in zip(outs, self._out_entries)]
+
+    def _commit_aux(self, new_aux):
+        """New aux values into aux_dict, each on its array's device (a
+        grouped BatchNorm updates them on its group's)."""
+        for n, v in zip(self._aux_names, new_aux):
+            holder = self.aux_dict[n]
+            holder._data = v.to(holder._data.device)
 
     # ------------------------------------------------------------------
     def _name(self, suffix):
@@ -402,9 +528,8 @@ class Executor:
         with torch.enable_grad():
             outs, new_aux = self._run_graph(arg_vals, aux_vals, True,
                                             collect)
-        for n, v in zip(self._aux_names, new_aux):
-            self.aux_dict[n]._data = v
-        self.outputs = [nd.NDArray(o.detach(), self._ctx) for o in outs]
+        self._commit_aux(new_aux)
+        self.outputs = self._wrap_outputs([o.detach() for o in outs])
         return outs, leaves
 
     def forward(self, is_train=False, **kwargs):
@@ -428,9 +553,8 @@ class Executor:
                 profiler.synchronize(outs)
             if self._has_aux_always:
                 # update ops advance their states on every call
-                for n, v in zip(self._aux_names, new_aux):
-                    self.aux_dict[n]._data = v
-            self.outputs = [nd.NDArray(o, self._ctx) for o in outs]
+                self._commit_aux(new_aux)
+            self.outputs = self._wrap_outputs(outs)
         if collect is not None:
             for name, v in zip(self._monitor_names, collect):
                 monitor(name, nd.NDArray(v.detach(), self._ctx))
@@ -629,7 +753,7 @@ class Executor:
             (name, keep(self.aux_dict[name], shape))
             for name, shape in zip(sym.list_auxiliary_states(), aux_shapes))
         return Executor(sym, self._ctx, arg_dict, grad_dict, aux_dict,
-                        dict(self._grad_req))
+                        dict(self._grad_req), group2ctx=self._group2ctx)
 
     def _backward(self, out_grads):
         outs, leaves = self._stash
@@ -685,7 +809,7 @@ class Executor:
             return [torch.ones_like(o._data) for o in self.outputs]
         if isinstance(out_grads, nd.NDArray):
             out_grads = [out_grads]
-        return [_tensor_of(g, o._data.dtype, self._ctx.torch_device)
+        return [_tensor_of(g, o._data.dtype, o._data.device)
                 for g, o in zip(out_grads, self.outputs)]
 
     def _write_grads(self, grads):
@@ -732,6 +856,122 @@ class Executor:
         for n, w in zip(diff_names, new_ws):
             self.arg_dict[n]._data = w
         return new_moms, new_masters
+
+    def make_fused_multistep(self, step_math, scan_names, repeat=None,
+                             step_key=None, grad_reduce=None, metric=None,
+                             lr_stacked=False):
+        """K whole train steps (forward, backward, step_math's update) in
+        one dispatch, the counterpart of the JAX package's lax.scan
+        program: the steps run back to back on the device's stream with
+        no host synchronisation among them. `scan_names` are the
+        arguments fed per step (data, labels): stacked on a leading K
+        axis, or with `repeat=K` the bound batch K times. The stacks may
+        be narrower than the bound dtype (bulk_step's scan_dtype): each
+        step casts its slice back. `metric` is an (init, update) pair,
+        init(device) the zero carry and update(carry, outs, step_vals)
+        torch ops on device tensors; the final carry comes back. With
+        `lr_stacked`, lrs and wds are one list per step, else one for
+        all. Only the last step's outputs are kept, and the monitor does
+        not fire.
+
+        The program takes the executor as its first argument and keeps
+        nothing of it, so equivalent executors share it through
+        exec_cache under (graph signature, ..., step_key), as in the JAX
+        package; its first call is billed to the cache's build time.
+        Returns None for a grouped executor, whose steps run one by
+        one."""
+        if grad_reduce is not None:
+            raise unported('the in-step gradient all-reduce', '6')
+        if self._grouped:
+            return None
+        diff_set = set(self._diff_names)
+        scan_order = [n for n in self._arg_names
+                      if n in set(scan_names) and n not in diff_set]
+        scan_dt = tuple(str(self.arg_dict[n]._data.dtype)
+                        for n in scan_order)
+        cache_key = None
+        if step_key is not None:
+            cache_key = (self._sig, 'multistep', tuple(scan_order), repeat,
+                         scan_dt, bool(lr_stacked), step_key)
+            fn = exec_cache.get(cache_key, count=True)
+            if fn is not None:
+                return fn
+
+        def multistep(ex, diff_names, scan_stacks, moms, masters, lrs, wds):
+            k = repeat if repeat is not None else \
+                len(next(iter(scan_stacks.values())))
+            mc = metric[0](ex._ctx.torch_device) if metric is not None \
+                else ()
+            for i in range(k):
+                sv = []
+                for n in scan_order:
+                    bound = ex.arg_dict[n]._data
+                    if scan_stacks is not None:
+                        v = scan_stacks[n][i]
+                        if v.dtype != bound.dtype:
+                            v = v.to(bound.dtype)
+                        ex.arg_dict[n]._data = v
+                    sv.append(ex.arg_dict[n]._data)
+                ex.forward_backward()
+                ws = [ex.arg_dict[n]._data for n in diff_names]
+                gs = [ex.grad_dict[n]._data for n in diff_names]
+                lr_t = lrs[i] if lr_stacked else lrs
+                wd_t = wds[i] if lr_stacked else wds
+                _, moms, masters = step_math(ws, gs, moms, masters,
+                                             lr_t, wd_t)
+                if metric is not None:
+                    mc = metric[1](mc, [o._data for o in ex.outputs], sv)
+            return moms, masters, mc
+
+        fn = exec_cache.TimedJit(multistep)
+        if cache_key is not None:
+            exec_cache.put(cache_key, fn)
+        return fn
+
+    def run_fused_multistep(self, step, diff_names, scan_names,
+                            scan_stacks, moms, masters, lrs, wds,
+                            zero=False):
+        """Run a make_fused_multistep program on the bound arrays:
+        `scan_stacks` {name: (K, ...) tensor}, or None in repeat mode.
+        The weights update in place; returns (new_moms, new_masters,
+        metric_carry), the carry () without a metric."""
+        if zero:
+            raise unported('ZeRO optimizer-state sharding', '6')
+        self.fused_dispatches += 1
+        with profiler.scope(self._name('fused_multistep')):
+            new_moms, new_masters, mcarry = step(
+                self, list(diff_names), scan_stacks, moms, masters, lrs,
+                wds)
+            profiler.synchronize([o._data for o in self.outputs])
+        self._stash = None
+        return new_moms, new_masters, mcarry
+
+    def warm_fused_multistep(self, step, diff_names, scan_names,
+                             scan_stacks, moms, masters, lrs, wds):
+        """Run a make_fused_multistep program once on copies of the bound
+        weights, aux states, momenta and masters, with the device's
+        random stream saved and restored, so that cuDNN and cuBLAS set
+        up for its shapes (its first call: exec_cache's build time) and
+        no state of the executor or the optimizer changes."""
+        device = self._ctx.torch_device
+        saved = [(a, a._data) for a in list(self.arg_dict.values()) +
+                 list(self.aux_dict.values()) +
+                 list(self.grad_dict.values())]
+        outputs = self.outputs
+        rng = _random.generator(device).get_state()
+        try:
+            for arr, t in saved:
+                arr._data = t.clone()
+            step(self, list(diff_names), scan_stacks,
+                 [m.clone() for m in moms],
+                 [None if m is None else m.clone() for m in masters],
+                 lrs, wds)
+        finally:
+            for arr, t in saved:
+                arr._data = t
+            self.outputs = outputs
+            self._stash = None
+            _random.generator(device).set_state(rng)
 
     # ------------------------------------------------------------------
     @property
@@ -784,7 +1024,6 @@ class Executor:
                      shared_exec=None, shape_kwargs=None, group2ctx=None):
         """The reference simple_bind flow: infer shapes and dtypes,
         allocate the arg, grad and aux arrays, bind."""
-        _check_group2ctx(group2ctx)
         _check_ctx(ctx)
         shape_kwargs = shape_kwargs or {}
         arg_names = symbol.list_arguments()
@@ -814,12 +1053,12 @@ class Executor:
         aux_dict = OrderedDict()
         for name, shape in zip(aux_names, aux_shapes):
             aux_dict[name] = alloc('aux_dict', name, shape, inferred[name])
-        return Executor(symbol, ctx, arg_dict, grad_dict, aux_dict, req)
+        return Executor(symbol, ctx, arg_dict, grad_dict, aux_dict, req,
+                        group2ctx=group2ctx)
 
     @staticmethod
     def _bind(symbol, ctx, args, args_grad=None, grad_req='write',
               aux_states=None, shared_exec=None, group2ctx=None):
-        _check_group2ctx(group2ctx)
         _check_ctx(ctx)
         arg_names = symbol.list_arguments()
         aux_names = symbol.list_auxiliary_states()
@@ -845,9 +1084,5 @@ class Executor:
             aux_dict = OrderedDict(zip(aux_names, aux_states))
         else:
             aux_dict = OrderedDict((n, aux_states[n]) for n in aux_names)
-        return Executor(symbol, ctx, arg_dict, grad_dict, aux_dict, req)
-
-
-def _check_group2ctx(group2ctx):
-    if group2ctx:
-        raise unported('group2ctx (ctx_group model parallelism)', '1b')
+        return Executor(symbol, ctx, arg_dict, grad_dict, aux_dict, req,
+                        group2ctx=group2ctx)

@@ -1,17 +1,33 @@
 """Evaluation metrics: the counterpart of mxnet_tpu/metric.py (reference
 python/mxnet/metric.py).
 
-Every metric accumulates on the host, from outputs and labels read back
-as numpy (`asnumpy` waits for the device), the JAX package's host loop.
-The device-resident fold (`DeviceFold`, `device_fold`) serves only
-`fit(bulk=)` and is not ported: `device_fold` raises.
+`update` accumulates on the host, from outputs and labels read back as
+numpy (`asnumpy` waits for the device), the JAX package's host loop.
+
+The device-resident fold serves `Module.bulk_step` and `fit(bulk=)`.
+A metric with `_device_delta` gives, from device tensors, the (sum,
+count) pair its `update` would add, as torch ops that read nothing
+back: `device_fold` builds the `DeviceFold` of a metric (None when any
+part of it accumulates only on the host), whose carry holds one pair of
+0-d device tensors per leaf metric, in the JAX package's dtypes (int32
+counts; int32 sums for the accuracies, float32 for the rest).
+`update_device` adds a dispatch's pair to a running device pair with no
+synchronisation, and `get()` is the first read on the host. The integer
+sums equal the host loop's; the float ones agree to float32 rounding.
 """
 import math
 
 import numpy as np
+import torch
 
 from . import base
 from .ndarray import NDArray
+
+
+def _count(n, like):
+    """The count `n` as a 0-d int32 tensor on `like`'s device: a fill,
+    not a copy from the host (which would synchronise)."""
+    return torch.full((), int(n), dtype=torch.int32, device=like.device)
 
 
 def _as_numpy(x):
@@ -62,11 +78,46 @@ class EvalMetric:
     def update(self, labels, preds):
         raise NotImplementedError
 
+    # -- device-resident accumulation: `_device_delta(labels, preds)` on
+    # device tensors returns the (sum, count) pair `update` would add;
+    # None = this metric accumulates only on the host
+    _device_delta = None
+    _device_sum_dtype = 'float32'
+
+    def update_device(self, dsum, dcount):
+        """Add a (sum, count) pair of device tensors to the running
+        device pair, with no synchronisation: the pending state stays
+        one pair however many dispatches run, and `get()` reads it."""
+        pend = self._pending_device
+        if pend is None:
+            self._pending_device = (dsum, dcount)
+        else:
+            self._pending_device = (pend[0] + dsum, pend[1] + dcount)
+
+    def _drain_device(self):
+        pend = getattr(self, '_pending_device', None)
+        if pend is not None:
+            self._pending_device = None
+            self.sum_metric += float(pend[0].item())
+            self.num_inst += int(pend[1].item())
+
+    def device_key(self):
+        """Hashable identity of this metric's device fold: its math and
+        its output_names / label_names routing."""
+        return (type(self).__name__,
+                tuple(sorted(self._kwargs.items())),
+                None if self.output_names is None
+                else tuple(self.output_names),
+                None if self.label_names is None
+                else tuple(self.label_names))
+
     def reset(self):
         self.num_inst = 0
         self.sum_metric = 0.0
+        self._pending_device = None
 
     def get(self):
+        self._drain_device()
         if self.num_inst == 0:
             return (self.name, float('nan'))
         return (self.name, self.sum_metric / self.num_inst)
@@ -181,6 +232,26 @@ class Accuracy(EvalMetric):
                 self.sum_metric += (pred == lab).sum()
                 self.num_inst += len(pred)
 
+    _device_sum_dtype = 'int32'
+
+    def _device_delta(self, labels, preds):
+        ds = dc = None
+        for label, pred in zip(labels, preds):
+            if tuple(pred.shape) != tuple(label.shape):
+                pred = torch.argmax(pred, dim=self.axis)
+            pred = pred.to(torch.int32).reshape(-1)
+            lab = label.to(torch.int32).reshape(-1)
+            if self.ignore_label is not None:
+                keep = lab != int(self.ignore_label)
+                s = ((pred == lab) & keep).sum(dtype=torch.int32)
+                c = keep.sum(dtype=torch.int32)
+            else:
+                s = (pred == lab).sum(dtype=torch.int32)
+                c = _count(pred.numel(), pred)
+            ds = s if ds is None else ds + s
+            dc = c if dc is None else dc + c
+        return ds, dc
+
 
 @register
 @alias('top_k_accuracy', 'top_k_acc')
@@ -206,6 +277,24 @@ class TopKAccuracy(EvalMetric):
                 self.sum_metric += (pred[:, num_classes - 1 - j].flat ==
                                     lab.flat).sum()
             self.num_inst += num_samples
+
+    _device_sum_dtype = 'int32'
+
+    def _device_delta(self, labels, preds):
+        # ties between equal scores may rank otherwise than numpy's
+        # unstable argsort (as in the JAX package); real scores do not tie
+        ds, dc = None, 0
+        for label, pred in zip(labels, preds):
+            pred = pred.to(torch.float32)
+            lab = label.to(torch.int32).reshape(-1)
+            order = torch.argsort(pred, dim=1, stable=True)
+            num_samples, num_classes = pred.shape
+            for j in range(min(num_classes, self.top_k)):
+                s = (order[:, num_classes - 1 - j] == lab).sum(
+                    dtype=torch.int32)
+                ds = s if ds is None else ds + s
+            dc += num_samples
+        return ds, _count(dc, ds)
 
 
 @register
@@ -263,6 +352,29 @@ class Perplexity(EvalMetric):
         self.sum_metric += math.exp(loss / max(num, 1)) * max(num, 1)
         self.num_inst += max(num, 1)
 
+    def _device_delta(self, labels, preds):
+        # one exp of the step's mean loss, weighted by its count, as
+        # `update`; ignored positions (-1 included, which indexes the last
+        # column as in numpy before it is masked) add nothing
+        loss = num = None
+        for label, pred in zip(labels, preds):
+            lab = label.reshape(-1).to(torch.int64)
+            probs = pred.reshape(-1, pred.shape[-1])
+            picked = probs[torch.arange(lab.shape[0], device=lab.device),
+                           lab].to(torch.float32)
+            n = _count(lab.shape[0], lab)
+            if self.ignore_label is not None:
+                ignore = lab == int(self.ignore_label)
+                picked = torch.where(ignore, torch.ones_like(picked),
+                                     picked)
+                n = n - ignore.sum(dtype=torch.int32)
+            term = -torch.log(torch.clamp(picked, min=1e-10)).sum()
+            loss = term if loss is None else loss + term
+            num = n if num is None else num + n
+        n = torch.clamp(num, min=1)
+        nf = n.to(torch.float32)
+        return torch.exp(loss / nf) * nf, n
+
 
 class _RegressionMetric(EvalMetric):
     """Scaffold for metrics that average a per-batch error statistic."""
@@ -277,6 +389,18 @@ class _RegressionMetric(EvalMetric):
             self.sum_metric += self._measure(diff)
             self.num_inst += 1
 
+    def _device_measure(self, diff):
+        raise NotImplementedError
+
+    def _device_delta(self, labels, preds):
+        ds, dc = None, 0
+        for label, pred in zip(labels, preds):
+            lab = label.reshape(-1, 1) if label.ndim == 1 else label
+            s = self._device_measure(lab - pred).to(torch.float32)
+            ds = s if ds is None else ds + s
+            dc += 1
+        return ds, _count(dc, ds)
+
 
 @register
 class MAE(_RegressionMetric):
@@ -285,6 +409,9 @@ class MAE(_RegressionMetric):
 
     def _measure(self, diff):
         return np.abs(diff).mean()
+
+    def _device_measure(self, diff):
+        return diff.abs().mean()
 
 
 @register
@@ -295,6 +422,9 @@ class MSE(_RegressionMetric):
     def _measure(self, diff):
         return (diff ** 2.0).mean()
 
+    def _device_measure(self, diff):
+        return (diff ** 2.0).mean()
+
 
 @register
 class RMSE(_RegressionMetric):
@@ -303,6 +433,9 @@ class RMSE(_RegressionMetric):
 
     def _measure(self, diff):
         return np.sqrt((diff ** 2.0).mean())
+
+    def _device_measure(self, diff):
+        return torch.sqrt((diff ** 2.0).mean())
 
 
 @register
@@ -323,6 +456,17 @@ class CrossEntropy(EvalMetric):
             self.sum_metric += -np.log(picked + self.eps).sum()
             self.num_inst += idx.shape[0]
 
+    def _device_delta(self, labels, preds):
+        ds, dc = None, 0
+        for label, pred in zip(labels, preds):
+            idx = label.reshape(-1).to(torch.int64)
+            picked = pred[torch.arange(idx.shape[0], device=idx.device),
+                          idx]
+            s = -torch.log(picked + self.eps).sum().to(torch.float32)
+            ds = s if ds is None else ds + s
+            dc += idx.shape[0]
+        return ds, _count(dc, ds)
+
 
 @register
 class Loss(EvalMetric):
@@ -335,6 +479,14 @@ class Loss(EvalMetric):
         for pred in preds:
             self.sum_metric += pred.asnumpy().sum()
             self.num_inst += pred.size
+
+    def _device_delta(self, labels, preds):
+        ds, dc = None, 0
+        for pred in preds:
+            s = pred.sum().to(torch.float32)
+            ds = s if ds is None else ds + s
+            dc += pred.numel()
+        return ds, _count(dc, ds)
 
 
 @register
@@ -366,9 +518,63 @@ class CustomMetric(EvalMetric):
             self.num_inst += count
 
 
+class DeviceFold:
+    """The device-resident running sums of one (possibly composite)
+    metric, built by `device_fold`. `init(device)` is the zero carry, a
+    (sum, count) pair of 0-d tensors per leaf metric in its sum dtype;
+    `update(carry, label_dict, pred_dict)` adds a step's pairs, each
+    leaf's update_dict routing applied, with torch ops that read nothing
+    back; `commit(carry)` queues the carry on the leaf metrics
+    (`update_device`)."""
+
+    def __init__(self, leaves):
+        self.leaves = leaves
+        self.key = tuple(m.device_key() for m in leaves)
+
+    def init(self, device):
+        return tuple((torch.zeros((), dtype=getattr(torch,
+                                                    m._device_sum_dtype),
+                                  device=device),
+                      torch.zeros((), dtype=torch.int32, device=device))
+                     for m in self.leaves)
+
+    def update(self, carry, label, pred):
+        out = []
+        for m, (s, c) in zip(self.leaves, carry):
+            picked_preds = (list(pred.values()) if m.output_names is None
+                            else [pred[n] for n in m.output_names])
+            picked_labels = (list(label.values())
+                             if m.label_names is None
+                             else [label[n] for n in m.label_names])
+            ds, dc = m._device_delta(picked_labels, picked_preds)
+            out.append((s + ds.to(s.dtype), c + dc.to(c.dtype)))
+        return tuple(out)
+
+    def commit(self, carry):
+        for m, (s, c) in zip(self.leaves, carry):
+            m.update_device(s, c)
+
+
 def device_fold(metric):
-    """The device-resident metric fold of fit(bulk=): not ported."""
-    raise base.unported('the device-resident metric fold (fit bulk=)', '2')
+    """The device-resident fold of `metric`, or None when any part of it
+    accumulates only on the host (CustomMetric, F1, a composite with
+    name filters of its own): the caller then takes the per-batch host
+    update."""
+    if metric is None:
+        return None
+    leaves = []
+    stack = [metric]
+    while stack:
+        m = stack.pop(0)
+        if isinstance(m, CompositeEvalMetric):
+            if m.output_names is not None or m.label_names is not None:
+                return None
+            stack = list(m.metrics) + stack
+            continue
+        if getattr(m, '_device_delta', None) is None:
+            return None
+        leaves.append(m)
+    return DeviceFold(leaves)
 
 
 def np_metric(numpy_feval, name=None, allow_extra_outputs=False):

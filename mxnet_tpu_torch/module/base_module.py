@@ -7,8 +7,11 @@ parameter sync are the JAX package's serialized loop, the one it runs
 when its step-ahead overlap is 0: each batch runs forward_backward,
 update and update_metric, whose read of the outputs waits for the
 device. `monitor=` installs a `monitor.Monitor` on the executor and
-ticks it around each batch. The overlap, `bulk=`, `pipeline=` and
-`checkpoint=` (the elastic runtime) are not ported and raise.
+ticks it around each batch. `bulk=K` runs the epoch in K-step
+dispatches (`bulk_step`), the metric folded on the device; a monitor,
+or a metric with no device fold (fit warns), keeps the per-batch loop.
+The overlap, `pipeline=` and `checkpoint=` (the elastic runtime) are
+not ported and raise.
 """
 import logging
 import time
@@ -155,8 +158,6 @@ class BaseModule:
         assert num_epoch is not None, 'please specify number of epochs'
         if pipeline is not None:
             raise unported('fit(pipeline=) (parallel/pipeline.py)', '6')
-        if bulk is not None and int(bulk) > 1:
-            raise unported('fit(bulk=) (Module.bulk_step)', '2')
         if checkpoint is not None:
             raise unported('fit(checkpoint=) (elastic.py)', '5')
         self.bind(data_shapes=train_data.provide_data,
@@ -172,37 +173,61 @@ class BaseModule:
         validation_metric = validation_metric or eval_metric
         if not isinstance(eval_metric, metric_mod.EvalMetric):
             eval_metric = metric_mod.create(eval_metric)
+        use_bulk = bulk is not None and int(bulk) > 1 and \
+            hasattr(self, 'bulk_step') and monitor is None
+        if use_bulk and metric_mod.device_fold(eval_metric) is None:
+            self.logger.warning(
+                'fit(bulk=%d): metric %s has no device fold; '
+                'falling back to per-batch metric updates', int(bulk),
+                eval_metric.name)
+            use_bulk = False
+        # the ladder warm-up hook (BucketingModule): every rung's train
+        # programs before the first batch
+        warm = getattr(self, '_warmup_for_fit', None)
+        if warm is not None:
+            warm(bulk=int(bulk) if use_bulk else None,
+                 eval_metric=eval_metric if use_bulk else None)
         # stage upcoming batches on the device so that the copy of batch
         # N+1 overlaps step N (Module's hook; the default is identity)
-        train_data = self._wrap_train_iter(train_data)
-        self._fit_epochs(train_data, eval_data, eval_metric,
-                         validation_metric, epoch_end_callback,
-                         batch_end_callback, eval_end_callback,
-                         eval_batch_end_callback, begin_epoch, num_epoch,
-                         monitor)
+        staged = self._wrap_train_iter(train_data)
+        try:
+            self._fit_epochs(staged, eval_data, eval_metric,
+                             validation_metric, epoch_end_callback,
+                             batch_end_callback, eval_end_callback,
+                             eval_batch_end_callback, begin_epoch,
+                             num_epoch, monitor,
+                             int(bulk) if use_bulk else None)
+        finally:
+            if staged is not train_data:
+                staged.close()      # the staging thread fit started
 
     def _fit_epochs(self, train_data, eval_data, eval_metric,
                     validation_metric, epoch_end_callback,
                     batch_end_callback, eval_end_callback,
                     eval_batch_end_callback, begin_epoch, num_epoch,
-                    monitor=None):
-        """The epoch loop of fit, batch by batch."""
+                    monitor=None, bulk=None):
+        """The epoch loop of fit, batch by batch, or in K-step dispatches
+        with bulk=K."""
         for epoch in range(begin_epoch, num_epoch):
             epoch_start = time.time()
             eval_metric.reset()
-            for nbatch, data_batch in enumerate(train_data):
-                if monitor is not None:
-                    monitor.tic()
-                self.forward_backward(data_batch)
-                self.update()
-                self.update_metric(eval_metric, data_batch.label)
-                if monitor is not None:
-                    monitor.toc_print()
-                if batch_end_callback is not None:
-                    _fire(batch_end_callback,
-                          BatchEndParam(epoch=epoch, nbatch=nbatch,
-                                        eval_metric=eval_metric,
-                                        locals=locals()))
+            if bulk is not None:
+                self._fit_epoch_bulk(train_data, bulk, eval_metric,
+                                     batch_end_callback, epoch)
+            else:
+                for nbatch, data_batch in enumerate(train_data):
+                    if monitor is not None:
+                        monitor.tic()
+                    self.forward_backward(data_batch)
+                    self.update()
+                    self.update_metric(eval_metric, data_batch.label)
+                    if monitor is not None:
+                        monitor.toc_print()
+                    if batch_end_callback is not None:
+                        _fire(batch_end_callback,
+                              BatchEndParam(epoch=epoch, nbatch=nbatch,
+                                            eval_metric=eval_metric,
+                                            locals=locals()))
             for name, val in eval_metric.get_name_value():
                 self.logger.info('Epoch[%d] Train-%s=%f', epoch, name, val)
             self.logger.info('Epoch[%d] Time cost=%.3f', epoch,
@@ -223,6 +248,56 @@ class BaseModule:
                     self.logger.info('Epoch[%d] Validation-%s=%f',
                                      epoch, name, val)
             train_data.reset()
+
+    def _fit_epoch_bulk(self, train_data, bulk, eval_metric,
+                        batch_end_callback, epoch):
+        """One fit epoch in dispatches of up to `bulk` batches, for
+        Module and BucketingModule alike: consecutive batches group while
+        `_bulk_group_key` stays the same (the ladder rung; the base key
+        never splits), and `_bulk_dispatch_group` runs a group. Callbacks
+        fire once a dispatch, with nbatch at its last batch."""
+        state = {'nbatch': 0}
+        group = []
+        group_key = [None]
+
+        def flush():
+            if not group:
+                return
+            self._bulk_dispatch_group(list(group), bulk, eval_metric)
+            state['nbatch'] += len(group)
+            del group[:]
+            if batch_end_callback is not None:
+                _fire(batch_end_callback,
+                      BatchEndParam(epoch=epoch,
+                                    nbatch=state['nbatch'] - 1,
+                                    eval_metric=eval_metric,
+                                    locals=locals()))
+
+        for data_batch in train_data:
+            key = self._bulk_group_key(data_batch)
+            if group and key != group_key[0]:
+                flush()
+            group_key[0] = key
+            group.append(data_batch)
+            if len(group) >= bulk:
+                flush()
+        flush()
+
+    def _bulk_group_key(self, data_batch):
+        """Consecutive batches join one dispatch while this stays the
+        same; the base key never splits."""
+        return None
+
+    def _bulk_dispatch_group(self, group, bulk, eval_metric):
+        """Run one group of _fit_epoch_bulk: a single batch per step, a
+        larger group (a trailing partial one included) as one
+        bulk_step."""
+        if len(group) == 1:
+            self.forward_backward(group[0])
+            self.update()
+            self.update_metric(eval_metric, group[0].label)
+        else:
+            self.bulk_step(batches=group, eval_metric=eval_metric)
 
     def _wrap_train_iter(self, train_data):
         """Hook to decorate the training iterator (Module stages batches

@@ -12,19 +12,31 @@ forward, backward and the update as one program; torch has no such
 program, so `forward_backward` runs at once and `update` applies the
 update to the gradients it left.
 
+`bulk_step` runs K train steps as one dispatch of the executor's
+multistep program (`Executor.make_fused_multistep`): the lr and wd
+schedule evaluated on the host for every step index before it, the
+batches stacked on the device (in `scan_dtype` where given), the metric
+folded on the device (`metric.device_fold`), and no host
+synchronisation among the steps. A step that cannot fuse takes the
+per-step loop, as in the JAX package.
+
 Not ported, each raising: several contexts, kvstore objects and dist
-stores, ZeRO, sparse embedding tables and `bulk_step`.
+stores, ZeRO and sparse embedding tables.
 """
 import logging
 import os
 
+import torch
+
 from .. import context as ctx_mod
 from .. import initializer as init_mod
 from .. import io as mxio
+from .. import metric as metric_mod
 from .. import model as model_mod
 from .. import ndarray as nd
 from .. import optimizer as opt_mod
-from ..base import MXNetError, atomic_file, unported
+from ..base import MXNetError, atomic_file, torch_dtype, unported
+from ..executor import _tensor_of
 from .base_module import BaseModule
 from .executor_group import DataParallelExecutorGroup
 
@@ -64,6 +76,7 @@ class Module(BaseModule):
 
         self._optimizer = self._kvstore = self._updater = None
         self._fused_updater = None
+        self._bulk_cache_key = self._bulk_step_fn = None
         self._update_on_kvstore = None
         self._preload_opt_states = None
         self._exec_group = None
@@ -305,6 +318,17 @@ class Module(BaseModule):
             self.load_optimizer_states(self._preload_opt_states)
             self._preload_opt_states = None
 
+    def borrow_optimizer(self, shared_module):
+        """Share another module's optimizer and its state (the buckets
+        of a BucketingModule)."""
+        assert shared_module.optimizer_initialized
+        self._optimizer = shared_module._optimizer
+        self._kvstore = shared_module._kvstore
+        self._update_on_kvstore = shared_module._update_on_kvstore
+        self._updater = shared_module._updater
+        self._fused_updater = shared_module._fused_updater
+        self.optimizer_initialized = True
+
     # -- per batch ---------------------------------------------------------
     def forward(self, data_batch, is_train=None):
         assert self.binded and self.params_initialized
@@ -321,9 +345,188 @@ class Module(BaseModule):
         assert self.binded and self.params_initialized
         self._exec_group.forward_backward(data_batch)
 
+    def _fusable_step(self):
+        """True when a train step can run as the executor's fused
+        program: a fused updater, no input gradients, an executor that is
+        neither grouped nor monitored, and every differentiable argument
+        a grad_req 'write' parameter the updater owns."""
+        if self._fused_updater is None or not self.optimizer_initialized \
+                or self.inputs_need_grad:
+            return False
+        eg = self._exec_group
+        ex = eg.executor
+        if ex._grouped or ex._monitor_callback is not None:
+            return False
+        fnames = [n for n, g in zip(self._param_names, eg.grad_arrays)
+                  if g is not None]
+        if ex._diff_names != fnames:
+            return False
+        return all(ex._grad_req.get(n) == 'write' for n in fnames)
+
+    def _scan_names(self, ex, fnames):
+        eg = self._exec_group
+        return [n for n in eg.data_names + eg.label_names
+                if n in ex.arg_dict and n not in set(fnames)]
+
+    def _ensure_bulk_program(self, ex, fu, scan_names, k, stacked,
+                             scan_dtype, fold):
+        """The executor's K-step program with the fold's metric update in
+        it, kept while the executor, updater, K and fold stay."""
+        fkey = (fu.cache_key(), fold.key if fold is not None else None,
+                'lrstack')
+        cache_key = (id(ex), id(fu), 'stacked' if stacked else 'repeat',
+                     k, str(scan_dtype), fkey)
+        if self._bulk_cache_key != cache_key:
+            metric_arg = None
+            if fold is not None:
+                eg = self._exec_group
+                order = [n for n in ex._arg_names if n in set(scan_names)]
+                label_pos = {n: i for i, n in enumerate(order)
+                             if n in eg.label_names}
+                out_names = self._symbol.list_outputs()
+
+                def m_update(mc, outs, sv):
+                    label = {n: sv[i] for n, i in label_pos.items()}
+                    return fold.update(mc, label, dict(zip(out_names, outs)))
+                metric_arg = (fold.init, m_update)
+            self._bulk_step_fn = ex.make_fused_multistep(
+                fu.step_math, scan_names, repeat=None if stacked else k,
+                step_key=fkey, metric=metric_arg, lr_stacked=True)
+            self._bulk_cache_key = cache_key
+        return self._bulk_step_fn
+
+    def _stack_batches(self, batches, scan_names, scan_dtype):
+        """{name: (K, ...) tensor} of the batches' data and labels on the
+        executor's device, the data in scan_dtype where given."""
+        eg = self._exec_group
+        ex = eg.executor
+        device = self._context[0].torch_device
+        data_set = set(eg.data_names)
+        per_name = {n: [] for n in scan_names}
+        for b in batches:
+            vals = dict(zip(eg.data_names, b.data))
+            if eg.label_names and b.label:
+                vals.update(zip(eg.label_names, b.label))
+            for n in scan_names:
+                store = scan_dtype if (scan_dtype is not None and
+                                       n in data_set) \
+                    else ex.arg_dict[n]._data.dtype
+                per_name[n].append(_tensor_of(vals[n], store, device))
+        return {n: torch.stack(v) for n, v in per_name.items()}
+
+    def warmup_fused(self, bulk=None, eval_metric=None, scan_dtype=None,
+                     single=True):
+        """Build this module's fused train programs and run each once on
+        copies of its state (Executor.warm_fused_multistep): the one-step
+        program and, for bulk=K > 1, the K-step program with
+        eval_metric's fold. The programs key into exec_cache, so an
+        equivalent module built later finds them. No parameter, aux,
+        optimizer or schedule state changes. Returns False, warming
+        nothing, when the step cannot fuse."""
+        assert self.binded and self.params_initialized and \
+            self.optimizer_initialized
+        if not self._fusable_step():
+            return False
+        eg = self._exec_group
+        ex = eg.executor
+        fu = self._fused_updater
+        fnames = ex._diff_names
+        fu.param_names = list(fnames)
+        weights = [ex.arg_dict[n] for n in fnames]
+        scan_names = self._scan_names(ex, fnames)
+        device = self._context[0].torch_device
+        plan = [(1, None)] if single else []
+        if bulk is not None and int(bulk) > 1:
+            plan.append((int(bulk), metric_mod.device_fold(eval_metric)
+                         if eval_metric is not None else None))
+        for k, fold in plan:
+            stacks = {n: torch.zeros(
+                (k,) + tuple(ex.arg_dict[n].shape),
+                dtype=(torch_dtype(scan_dtype) if scan_dtype is not None
+                       and n in eg.data_names
+                       else ex.arg_dict[n]._data.dtype), device=device)
+                for n in scan_names}
+            moms, masters, lrs, wds = fu.host_prep_steps(weights, k,
+                                                         advance=False)
+            fn = self._ensure_bulk_program(ex, fu, scan_names, k, True,
+                                           scan_dtype if k > 1 else None,
+                                           fold)
+            ex.warm_fused_multistep(fn, fnames, scan_names, stacks, moms,
+                                    masters, lrs, wds)
+        return True
+
     def bulk_step(self, batches=None, batch=None, repeat=None,
                   scan_dtype=None, eval_metric=None):
-        raise unported('Module.bulk_step (make_fused_multistep)', '2')
+        """K full train steps (forward, backward, update) as one dispatch
+        of the executor's multistep program: `batches` (a list of
+        DataBatch, stacked on the device) or `batch` with `repeat=K` (the
+        one batch K times).
+
+        lr and wd are evaluated on the host at every step index before
+        the dispatch, so a scheduler boundary crossed inside it takes
+        effect at its step, as in the per-step loop. `eval_metric` needs
+        a device fold (metric.device_fold): its sums run on the device
+        inside the dispatch, and one pair of device scalars per leaf
+        metric reaches it, read at its next get(). Only the last step's
+        outputs are kept, and monitors do not fire. `scan_dtype` is the
+        storage dtype of the stacked data (labels keep theirs); each step
+        casts its slice back. A step that cannot fuse takes the per-step
+        loop."""
+        assert self.binded and self.params_initialized and \
+            self.optimizer_initialized
+        k = len(batches) if batches is not None else repeat
+        if batches is None:
+            assert batch is not None and repeat is not None
+        if k == 0:
+            return
+        if not self._fusable_step():
+            for b in (batches if batches is not None else [batch] * k):
+                self._single_step(b)
+                if eval_metric is not None:
+                    self.update_metric(eval_metric, b.label)
+            return
+        eg = self._exec_group
+        ex = eg.executor
+        fu = self._fused_updater
+        fnames = ex._diff_names
+        fu.param_names = list(fnames)
+        fold = None
+        if eval_metric is not None:
+            fold = metric_mod.device_fold(eval_metric)
+            if fold is None:
+                raise ValueError(
+                    'bulk_step: metric %r has no device fold (see '
+                    'metric.device_fold); run the per-step loop for '
+                    'host-only metrics'
+                    % (getattr(eval_metric, 'name', eval_metric),))
+        scan_names = self._scan_names(ex, fnames)
+        scan_stacks = None
+        if batches is not None:
+            if k == 1:
+                self._single_step(batches[0])
+                if eval_metric is not None:
+                    self.update_metric(eval_metric, batches[0].label)
+                return
+            eg.load_data_batch(batches[0])   # shape checks
+            scan_stacks = self._stack_batches(batches, scan_names,
+                                              scan_dtype)
+        else:
+            eg.load_data_batch(batch)
+        weights = [ex.arg_dict[n] for n in fnames]
+        moms, masters, lrs, wds = fu.host_prep_steps(weights, k)
+        fn = self._ensure_bulk_program(ex, fu, scan_names, k,
+                                       batches is not None, scan_dtype,
+                                       fold)
+        new_moms, new_masters, mcarry = ex.run_fused_multistep(
+            fn, fnames, scan_names, scan_stacks, moms, masters, lrs, wds)
+        fu.commit(new_moms, new_masters)
+        if fold is not None:
+            fold.commit(mcarry)
+        self._params_dirty = True
+
+    def _single_step(self, data_batch):
+        self.forward_backward(data_batch)
+        self.update()
 
     def update(self):
         """The optimizer's update of every parameter with a gradient."""

@@ -652,6 +652,53 @@ class FusedSGD:
     def _is_mp(self, w):
         return self.multi_precision and w._data.dtype in _LOW_PRECISION
 
+    def cache_key(self):
+        """The identity of step_math: what it reads of the optimizer (lr
+        and wd are its arguments)."""
+        return ('FusedSGD', type(self.optimizer).__name__, self.momentum,
+                self.rescale, self.clip, self.multi_precision)
+
+    def _snapshot_schedule_state(self):
+        """All that _get_lr changes: the update counts and the stateful
+        lr scheduler's own attributes."""
+        opt = self.optimizer
+        sched = getattr(opt, 'lr_scheduler', None)
+        return (dict(opt._index_update_count), opt.num_update,
+                dict(sched.__dict__) if sched is not None else None)
+
+    def _restore_schedule_state(self, saved):
+        opt = self.optimizer
+        counts, num_update, sched_state = saved
+        opt._index_update_count = counts
+        opt.num_update = num_update
+        if sched_state is not None:
+            opt.lr_scheduler.__dict__.clear()
+            opt.lr_scheduler.__dict__.update(sched_state)
+
+    def host_prep_steps(self, weights, k, advance=True):
+        """host_prep for a K-step bulk dispatch: the states once, the
+        update counts bumped K times and lr and wd evaluated at every
+        step index, as the per-step loop evaluates them, so that a
+        scheduler boundary crossed inside the dispatch takes effect at
+        its step. Returns (moms, masters, lrs, wds) with lrs and wds one
+        list of floats per step. advance=False leaves the counts and
+        the schedule as they were (a warm-up)."""
+        opt = self.optimizer
+        saved = None if advance else self._snapshot_schedule_state()
+        moms, masters, lrs0, wds0 = self.host_prep(weights)
+        lrs, wds = [lrs0], [wds0]
+        for _ in range(1, k):
+            lr_s, wd_s = [], []
+            for name in self.param_names:
+                opt._update_count(name)
+                lr_s.append(opt._get_lr(name))
+                wd_s.append(opt._get_wd(name))
+            lrs.append(lr_s)
+            wds.append(wd_s)
+        if saved is not None:
+            self._restore_schedule_state(saved)
+        return moms, masters, lrs, wds
+
     def host_prep(self, weights):
         """Create the momenta and masters a parameter lacks (zeros; the
         master from the weight), put loaded ones on the weight's device

@@ -13,10 +13,10 @@ its XLA trace's device lanes.
 
 MXNET_PROFILER_AUTOSTART=1 starts it at import, as in the reference.
 The per-subsystem counters come with the subsystems they count: the
-program cache's (exec_cache), the serving engine's and the
-quantization counters so far; `summary()` prints them, and
+program cache's (exec_cache), the serving engine's, the quantization
+and the bucketed-training counters so far; `summary()` prints them, and
 `dump_profile` writes each as a metadata event ('exec_cache',
-'serving', 'quant').
+'serving', 'quant', 'bucketing').
 """
 import json
 import os
@@ -143,6 +143,70 @@ def quant_stats():
         return dict(_QUANT)
 
 
+# bucketed-training counters (BucketingModule's bucket ladder): bucket
+# switches, the label rows padded up to a rung, and per rung its steps,
+# dispatches, the dispatches during which a program was built
+# ('compiles': none after warm-up is the ladder's contract), its
+# warm-up visits and those that built a program
+_BUCKET = {
+    'train_bucket_switches': 0,
+    'train_pad_waste_rows': 0,
+    'train_rows': 0,
+}
+_BUCKET_RUNGS = {}
+
+
+def _rung_entry(rung):
+    e = _BUCKET_RUNGS.get(str(rung))
+    if e is None:
+        e = {'steps': 0, 'dispatches': 0, 'compiles': 0,
+             'warmups': 0, 'warm_compiles': 0}
+        _BUCKET_RUNGS[str(rung)] = e
+    return e
+
+
+def add_bucket_stats(switches=0, pad_rows=0, rows=0):
+    """Accumulate the bucket switches and the padded and total label
+    rows."""
+    with _STATE['lock']:
+        _BUCKET['train_bucket_switches'] += int(switches)
+        _BUCKET['train_pad_waste_rows'] += int(pad_rows)
+        _BUCKET['train_rows'] += int(rows)
+
+
+def note_bucket_dispatch(rung, steps=1, compiled=False):
+    """One train dispatch of `steps` steps on `rung`; compiled: a
+    program was built during it."""
+    with _STATE['lock']:
+        e = _rung_entry(rung)
+        e['steps'] += int(steps)
+        e['dispatches'] += 1
+        if compiled:
+            e['compiles'] += 1
+
+
+def note_bucket_warmup(rung, compiled=False):
+    """One warm-up of `rung`; compiled=False: its programs were all in
+    exec_cache already."""
+    with _STATE['lock']:
+        e = _rung_entry(rung)
+        e['warmups'] += 1
+        if compiled:
+            e['warm_compiles'] += 1
+
+
+def bucketing_stats():
+    """The bucket-ladder counters, train_pad_waste_frac (padded over all
+    label rows) and the per-rung table ('train_rungs')."""
+    with _STATE['lock']:
+        out = dict(_BUCKET)
+        out['train_rungs'] = {k: dict(v) for k, v in _BUCKET_RUNGS.items()}
+    total = out['train_rows'] + out['train_pad_waste_rows']
+    out['train_pad_waste_frac'] = \
+        out['train_pad_waste_rows'] / total if total else 0.0
+    return out
+
+
 def exec_cache_stats():
     """The program cache's counters: exec_cache_hits / exec_cache_misses
     (lookups of a rung's serve program; a miss builds one) and
@@ -192,6 +256,18 @@ def summary(print_out=True):
                     qt['quant_wire_bytes_saved'],
                     qt['quant_error_feedback_norm'],
                     qt['quant_page_ins'], qt['quant_paged_bytes']))
+    bk = bucketing_stats()
+    lines.append('  train_bucket_switches=%d train_pad_waste_rows=%d '
+                 'train_pad_waste_frac=%.3f'
+                 % (bk['train_bucket_switches'],
+                    bk['train_pad_waste_rows'],
+                    bk['train_pad_waste_frac']))
+    for rung in sorted(bk['train_rungs']):
+        e = bk['train_rungs'][rung]
+        lines.append('    rung %-8s steps=%d dispatches=%d compiles=%d '
+                     'warmups=%d warm_compiles=%d'
+                     % (rung, e['steps'], e['dispatches'], e['compiles'],
+                        e['warmups'], e['warm_compiles']))
     text = '\n'.join(lines)
     if print_out:
         print(text)
@@ -289,7 +365,9 @@ def dump_profile():
               {'ph': 'M', 'name': 'serving', 'pid': 0,
                'args': serving_stats()},
               {'ph': 'M', 'name': 'quant', 'pid': 0,
-               'args': quant_stats()}]
+               'args': quant_stats()},
+              {'ph': 'M', 'name': 'bucketing', 'pid': 0,
+               'args': bucketing_stats()}]
     with _STATE['lock']:
         records = list(_STATE['records'])
     for name, cat, ts, dur, tid in records:
@@ -327,6 +405,9 @@ def clear():
             _SERVING[k] = type(_SERVING[k])()
         for k in _QUANT:
             _QUANT[k] = type(_QUANT[k])()
+        for k in _BUCKET:
+            _BUCKET[k] = 0
+        _BUCKET_RUNGS.clear()
         del _SERVE_LAT[:]
         _SERVE_LAT_POS[0] = 0
 

@@ -12,15 +12,18 @@ its compute dtype. The JSON of `tojson`/`load_json` is the JAX
 package's, string for string: a graph built in either package loads in
 the other.
 
-Dtypes are torch dtypes inside; `infer_type` answers as `NDArray.dtype`
-does, numpy's scalar types with torch.bfloat16 for bfloat16.
+Dtypes are torch dtypes inside; `infer_type` answers as the JAX
+package's does, with `np.dtype` objects, and torch.bfloat16 for
+bfloat16 (numpy has no bfloat16 of its own).
 """
 import json
 import sys
 
 from . import attribute
+import numpy as np
+
 from .base import (MXNetError, current_name_manager, attr_value, dtype_name,
-                   numpy_dtype, parse_attr_value, torch_dtype)
+                   parse_attr_value, torch_dtype)
 from .ops import registry as _reg
 
 _py_slice = slice
@@ -30,6 +33,12 @@ _py_slice = slice
 # so attr edits through one handle invalidate caches on every handle
 # sharing the nodes
 _ATTR_EPOCH = 0
+
+
+def _np_dtype(t):
+    """np.dtype of the torch dtype `t`, or torch.bfloat16 itself."""
+    name = dtype_name(t)
+    return t if name == 'bfloat16' else np.dtype(name)
 
 
 class _Node:
@@ -376,9 +385,9 @@ class Symbol:
                      for n in self.list_auxiliary_states()]
         out_types = [entry_type.get((id(n), i), default)
                      for n, i in self._outputs]
-        return ([numpy_dtype(t) for t in arg_types],
-                [numpy_dtype(t) for t in out_types],
-                [numpy_dtype(t) for t in aux_types])
+        return ([_np_dtype(t) for t in arg_types],
+                [_np_dtype(t) for t in out_types],
+                [_np_dtype(t) for t in aux_types])
 
     # -- serialization (nnvm JSON layout) ---------------------------------
     def tojson(self):

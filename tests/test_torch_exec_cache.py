@@ -73,7 +73,9 @@ def test_graph_signature_matches_jax_but_for_the_env_knobs():
     mine = _net(mx).simple_bind(mx.cpu(), data=(2, 3, 5, 5))._sig
     theirs = _net(jmx).simple_bind(jmx.cpu(), data=(2, 3, 5, 5))._sig
     assert mine[:4] == theirs[:4]
-    assert mine[4] == ('none', 'auto')
+    # remat, MXNET_TPU_LAYOUT_OPT and MXNET_TPU_STEM_SPLIT, as the JAX
+    # package's; its conv layout knob has no counterpart
+    assert mine[4] == ('none', 'auto', '1') == theirs[4][:3]
 
 
 def test_signature_ignores_names_and_keys_shapes_and_dtypes():

@@ -253,8 +253,17 @@ def test_module_fit_ticks_an_installed_monitor():
 
 
 def test_bucketing_module_and_group2ctx_raise_naming_their_item():
-    with pytest.raises(MXNetError, match='Queue A 1b\\)'):
-        mx.mod.BucketingModule(lambda key: (_mlp(mx), ('data',), None))
-    with pytest.raises(MXNetError, match='Queue A 1b\\)'):
-        _mlp(mx).simple_bind(mx.cpu(), data=(2, 5),
-                             group2ctx={'a': mx.cpu()})
+    """Both are ported (tests/test_torch_bucketing.py,
+    tests/test_torch_stem_split.py); what they still defer raises naming
+    its ROADMAP item: a BucketingModule over several contexts, and the
+    in-step gradient all-reduce of a fused step."""
+    mod = mx.mod.BucketingModule(lambda key: (_mlp(mx), ('data',), None),
+                                 default_bucket_key=5,
+                                 context=[mx.cpu(0), mx.cpu(1)])
+    with pytest.raises(MXNetError, match='Queue A 6\\)'):
+        mod.bind([('data', (2, 5))])
+    ex = _mlp(mx).simple_bind(mx.cpu(), data=(2, 5),
+                              group2ctx={'a': mx.cpu()})
+    with pytest.raises(MXNetError, match='Queue A 6\\)'):
+        ex.make_fused_multistep(lambda *a: a, ['data'],
+                                grad_reduce=lambda g: g)

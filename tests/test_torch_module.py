@@ -179,7 +179,6 @@ RESNET_OPT = dict(learning_rate=0.1 * BATCH / 256, momentum=0.9, wd=1e-4,
 
 
 def _resnet_steps(pkg, dtype, params, batches, monkeypatch):
-    monkeypatch.setenv('MXNET_TPU_STEM_SPLIT', '0')
     monkeypatch.setenv('MXNET_TPU_LAYOUT_OPT', '1')
     symbol = pkg.models.resnet.resnet(dtype=dtype, **CUT)
     mod = pkg.mod.Module(symbol, context=pkg.cpu())
@@ -209,7 +208,9 @@ def test_cut_resnet_module_steps_match_jax(dtype, monkeypatch):
     jm = _resnet_steps(jmx, dtype, params, batches, monkeypatch)
     cuda_conv.CONV_BN_STATS_PLAIN_CALLS = 0
     tm = _resnet_steps(mx, dtype, params, batches, monkeypatch)
-    pairs = 1 + 2 * len(CUT['units'])
+    # the units' pairs: the stem's conv0 -> bn0 leaves the route under
+    # the stem split, on in both packages
+    pairs = 2 * len(CUT['units'])
     assert cuda_conv.CONV_BN_STATS_PLAIN_CALLS == \
         (2 * pairs if dtype == 'bfloat16' else 0)
     ref, got = _np_params(jm), _np_params(tm)
@@ -289,16 +290,9 @@ def _cut(case):
         mod.init_optimizer(kvstore=object())
     elif case == 'zero':
         mod.init_optimizer(zero=1)
-    elif case in ('bulk', 'pipeline', 'checkpoint'):
-        value = {'bulk': 2, 'pipeline': (2, 2)}.get(case, object())
+    elif case in ('pipeline', 'checkpoint'):
+        value = {'pipeline': (2, 2)}.get(case, object())
         mod.fit(it, num_epoch=1, **{case: value})
-    elif case == 'bulk_step':
-        mod.bulk_step(batch=it.next(), repeat=2)
-    elif case == 'bucketing':
-        mx.mod.BucketingModule(lambda key: (_mlp(mx), ('data',), None))
-    elif case == 'group2ctx':
-        _mlp(mx).simple_bind(mx.cpu(), data=(20, 10),
-                             group2ctx={'dev1': mx.cpu()})
     elif case == 'zero_fused':
         mx.optimizer.FusedSGD(mx.optimizer.SGD(), ['w'], zero=1)
     elif case == 'sparse_fused':
@@ -310,8 +304,7 @@ def _cut(case):
 
 
 CUTS = {'contexts': '6', 'dist_kvstore': '5', 'kvstore_object': '5',
-        'zero': '6', 'bulk': '2', 'pipeline': '6', 'checkpoint': '5',
-        'bulk_step': '2', 'bucketing': '1b', 'group2ctx': '1b',
+        'zero': '6', 'pipeline': '6', 'checkpoint': '5',
         'zero_fused': '6', 'sparse_fused': '6',
         'mesh_staging': '6', 'kvstore_update': '5'}
 
@@ -434,9 +427,11 @@ def _passing_run(cs):
     steps = cs.MODULE_EPOCHS * cs.MODULE_BATCHES
     base = cs.MODULE_OPT['learning_rate']
     wd = cs.MODULE_OPT['wd']
+    pairs = cs.route_pairs(cs.RESNET_PAIRS, True)
     return dict(
-        train_launches=[cs.RESNET_PAIRS] * steps,
-        fit_launches=cs.RESNET_PAIRS * steps, eval_launches=0,
+        stem_split=True,
+        train_launches=[pairs] * steps,
+        fit_launches=pairs * steps, eval_launches=0,
         route_off=dict(launches=0),
         lrs=[base if i < cs.MODULE_LR_STEP else base * cs.MODULE_LR_FACTOR
              for i in range(steps)],
@@ -456,7 +451,8 @@ def test_phase10_gate_passes_a_good_run_and_refuses_bad_ones():
     cs = _chip_smoke()
     run = _passing_run(cs)
     assert cs.module_gate(run) == []
-    wrong_launches = dict(run, train_launches=[32] + run['train_launches'][1:])
+    wrong_launches = dict(run, train_launches=[cs.RESNET_PAIRS] +
+                          run['train_launches'][1:])
     assert any('launched' in m for m in cs.module_gate(wrong_launches))
     assert cs.module_gate(dict(run, eval_launches=2))
     decayed_bias = dict(run, wd=dict(run['wd'], fc1_bias=1e-4))

@@ -91,16 +91,11 @@ def _f32(a):
 
 
 def _jax_step(dtype):
-    """The JAX executor's step, its stem split off: the port computes the
-    stem conv of bn_data as one conv, and the split form conv(x^ gamma) +
-    conv(beta 1) is the same function summed in another order, which this
-    ill-conditioned net amplifies past the float32 bound in one element of
-    conv0_weight's gradient (2.3e-5 against 1e-5 + 1e-3 |g|)."""
+    """The JAX executor's step at its default, the stem split on, as the
+    port's executor runs it."""
     s = jresnet.resnet(dtype=dtype, **CUT)
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv('MXNET_TPU_STEM_SPLIT', '0')
-        ex = s.simple_bind(jmx.cpu(), grad_req=_grad_req(s), **SHAPES)
-    assert not ex._split_conv
+    ex = s.simple_bind(jmx.cpu(), grad_req=_grad_req(s), **SHAPES)
+    assert ex._split_conv
     args, auxs = seeded_params(s, SHAPES, seed=0)
     ex.copy_params_from(args, auxs)
     arg_np = {n: a.asnumpy() for n, a in ex.arg_dict.items()}
@@ -187,8 +182,9 @@ def test_cut_resnet_bfloat16_matches_jax(jax_bf16, pair_route, monkeypatch):
     holds the route's gradients."""
     ex, calls = _port_step(jax_bf16, 'bfloat16', '1', pair_route,
                            monkeypatch)
-    assert len(ex.pairs) == CUT_PAIRS
-    assert calls == (CUT_PAIRS if pair_route else 0)
+    # the stem's conv0 -> bn0 leaves the route under the stem split
+    assert ex._split_conv and len(ex.pairs) == CUT_PAIRS - 1
+    assert calls == (CUT_PAIRS - 1 if pair_route else 0)
     assert ex.arg_dict['conv0_weight'].dtype == torch.bfloat16
     gamma = _f32(ex.grad_dict['bn_data_gamma'])
     assert not gamma.any() and not jax_bf16['grads']['bn_data_gamma'].any()
@@ -393,7 +389,7 @@ def _chip_smoke():
 
 
 def _passing_run(cs):
-    pairs = cs.RESNET_PAIRS
+    pairs = cs.route_pairs(cs.RESNET_PAIRS, True)
     grads = {'conv0_weight': 0.7, 'fc1_weight': 0.02}
     pair = dict(x=[256, 56, 56, 64], w=[3, 3, 64, 64], stride=[1, 1],
                 launches_route=1, launches_unfused=0, finite=True,
@@ -402,14 +398,17 @@ def _passing_run(cs):
                          'grad bn_beta': 0.0, 'aux bn_moving_mean': 1e-3,
                          'aux bn_moving_var': 1e-4})
     return dict(
+        stem_split=True,
         eval_launches=0, train_launches=[pairs] * (1 + cs.RESNET_STEPS),
         grad_finite=True, grad_zero=['bn_data_gamma'],
         bn_data_gamma_zero=True,
         unfused=dict(loss_err=1e-4, out_rel=0.01, grad_rel=grads,
                      aux_rel={'bn0_moving_mean': 1e-3}, launches=0),
+        unfused_split=dict(loss_err=1e-4, out_rel=0.005, grad_rel=grads,
+                           aux_rel={'bn0_moving_mean': 1e-3}, launches=0),
         cut=dict(out_rel=1e-3, grad_rel=grads, aux_rel={'bn0_moving_var':
                                                         1e-3},
-                 launches=cs.CUT_RESNET_PAIRS),
+                 launches=cs.route_pairs(cs.CUT_RESNET_PAIRS, True)),
         losses=[2.4, 2.3, 2.1, 1.9, 1.6],
         kernel_checks=[dict(shape='conv0', ok=True)],
         pair_checks=[pair])
@@ -446,6 +445,8 @@ def test_phase9_gate_passes_a_good_run_and_refuses_bad_ones():
     assert any('bn0_moving_mean' in m for m in cs.resnet_gate(stats))
     loss = dict(run, unfused=dict(run['unfused'], loss_err=0.01))
     assert any('loss' in m for m in cs.resnet_gate(loss))
+    split = dict(run, unfused_split=dict(run['unfused_split'], out_rel=0.05))
+    assert any('unfused_split' in m for m in cs.resnet_gate(split))
     zero_grad = dict(run, grad_zero=['bn_data_gamma', 'fc1_weight'])
     assert any('fc1_weight' in m for m in cs.resnet_gate(zero_grad))
     flat = dict(run, losses=[2.4, 2.4, 2.4, 2.4, 2.5])

@@ -400,16 +400,14 @@ def test_batch_reducing_model_rejected():
 
 
 def test_model_parallel_source_rejected():
-    """The port refuses ctx_group placement at bind (Queue A 1b); a source
-    whose executor says it is placed by groups is refused by the engine,
-    whose rung executors would collapse the placement."""
-    net = sym.FullyConnected(sym.Variable('data'), num_hidden=2, name='fc')
-    with pytest.raises(MXNetError, match='Queue A 1b'):
-        net.simple_bind(mx.cpu(), grad_req='null', data=(2, 3),
-                        group2ctx={'dev1': mx.cpu(0)})
-    ex = net.simple_bind(mx.cpu(), grad_req='null', data=(2, 3))
-    assert ex._grouped is False
-    ex._grouped = True
+    """A source whose executor is placed by ctx_group groups is refused by
+    the engine, whose rung executors would collapse the placement."""
+    with mx.AttrScope(ctx_group='dev1'):
+        net = sym.FullyConnected(sym.Variable('data'), num_hidden=2,
+                                 name='fc')
+    ex = net.simple_bind(mx.cpu(), grad_req='null', data=(2, 3),
+                         group2ctx={'dev1': mx.cpu(0)})
+    assert ex._grouped is True
     src = types.SimpleNamespace(_executor=ex, _symbol=net, _ctx=mx.cpu(0),
                                 _input_names=['data'])
     with pytest.raises(MXNetError, match='ctx_group'):
@@ -527,8 +525,6 @@ def test_predictor_matches_jax_on_the_cut_resnet(dtype, monkeypatch):
     x = np.random.RandomState(4).randn(
         CUT_BATCH, *CUT['image_shape']).astype(np.float32)
     shapes = {'data': (CUT_BATCH,) + CUT['image_shape']}
-    # the port has no stem split (ROADMAP Queue A 1b)
-    monkeypatch.setenv('MXNET_TPU_STEM_SPLIT', '0')
     theirs = JPredictor(symbol=jsym, input_shapes=shapes,
                         arg_params={k: jmx.nd.array(v)
                                     for k, v in args.items()},
