@@ -10,6 +10,8 @@
     python3 chip_smoke.py --phases 11          # build, serving only
     python3 chip_smoke.py --phases 12          # build, the Module remainder
     python3 chip_smoke.py --phases 13          # build, Gluon only
+    python3 chip_smoke.py --phases 14,15,16    # build, the PTB LSTM LM,
+                                               # gluon.rnn, the factories
     python3 chip_smoke.py --mutants            # phases 2, 4 and 6 against
                                                # broken kernels
 
@@ -178,7 +180,41 @@ Phases, each of which exits non-zero on failure:
    step bit for bit; every other zoo family one forward at batch 2 on the
    card against cpu(0); no hand-written kernel launched. Gated by
    gluon_gate. Printed: the step ms and images/s, the hybridized and
-   imperative forward ms.
+   imperative forward ms;
+14. ptb: the PTB LSTM language model of examples/rnn/lstm_bucketing.py
+   at the reference's widths (FusedRNNCell(200, 2 layers, lstm), embed
+   200, vocab 10,000, batch 32, buckets 10-60, float32) on a seeded
+   synthetic corpus encoded by mx.rnn.encode_sentences and batched by
+   BucketSentenceIter: BucketingModule.fit with Xavier, adam (lr 0.01)
+   and Perplexity(None) for 2 epochs. Gated by ptb_gate: the perplexity
+   falls, no hand-written kernel launched, the buckets share their
+   parameters, the unfused SequentialRNNCell of LSTMCells with
+   unpack_weights's weights within 1e-5 of the fused op, a batch on the
+   card within 1e-5 of cpu(0) (output and every gradient), fit(bulk=4)
+   over bucket_major batches bit-equal to the same batches stepped one
+   by one (momentum SGD, deterministic algorithms) in its dispatches, and
+   save_rnn_checkpoint / load_rnn_checkpoint equal in every tensor.
+   Printed: tokens/s by bucket, one bucket-60 step's kernel launches and
+   device-busy share, peak memory;
+15. gluon_lm: the medium word LM of Zaremba et al. 2014 in Gluon
+   (gluon.rnn.LSTM(650, 2 layers, dropout 0.5), embed 650, vocab
+   10,000, bptt 35, batch 20, untied), six Trainer('sgd') steps with the
+   global-norm clip. Gated by gluon_lm_gate: the loss falls, no
+   hand-written kernel launched, LSTMCell.unroll over the layer's
+   weights within 1e-5 of the layer in eval mode, the dropout mask's
+   kept share within 5 standard errors and its scale exact. Printed:
+   tokens/s, peak memory;
+16. factories: Inception-v3 (3x299x299) and ResNeXt-50 32x4d (224) in
+   bf16 through Module at batch 128, three steps each: every step
+   launches the conv + statistics kernel once a conv -> BatchNorm pair,
+   the pairs counted from the graph's JSON (94 and 37; ResNeXt's 16
+   grouped convs stay on cuDNN); the kernel against its plain version
+   at every distinct routed shape (1x7, 7x1, 1x3, 3x1 and 5x5 taps
+   among them); one train step with the route on against off, on
+   conditioned weights (gated as phase 9 gates it) and on He-normal ones
+   (reported). LeNet, MLP (1x28x28, batch 64), AlexNet, VGG-16 and
+   Inception-BN (224, batch 32-64) one float32 step each, and a batch of
+   2 on the card against cpu(0). Gated by factories_gate.
 
 It prints one JSON line with every kernel's numbers, then the card's
 name and power limit from nvidia-smi, and last
@@ -460,7 +496,7 @@ CONV_SM90_MUTANTS = {
                          ': ' + _TRUNCATE + 'v[0], v[1]));'),
 }
 
-ALL_PHASES = frozenset(range(2, 14))
+ALL_PHASES = frozenset(range(2, 17))
 # phase 7: the imperative NDArray path's size (n x n inputs)
 ND_SIZE = 1024
 ND_HOST_CALLS = 2000
@@ -1323,12 +1359,13 @@ def conv_phase(torch, cuda_ops, cuda_conv, bench_conv_bn):
 
 
 def conv_kernel_entry(conv, sass, resnet, module, serve, bucketing,
-                      gluon_run):
+                      gluon_run, ptb, gluon_lm, factories):
     """The conv_bn_stats entry of the kernels line: times at the main
     case's shape from the bench, errors from the cases, launches from the
     ResNet-50 train steps of phase 9 (its main path), of phase 10's
-    Module.fit, of phase 11's serving (0), of phase 12's bucket steps and
-    of phase 13's Gluon training (0)."""
+    Module.fit, of phase 11's serving (0), of phase 12's bucket steps, of
+    phase 13's Gluon training (0), of phases 14 and 15's LSTM LMs (0)
+    and of phase 16's Inception-v3 and ResNeXt-50 steps."""
     xs, ws = CONV_CASES['main'][:2]
     main_shape = [xs[1], xs[3], ws[3], ws[0], CONV_CASES['main'][2][0]]
     bench = conv['bench']
@@ -1360,6 +1397,14 @@ def conv_kernel_entry(conv, sass, resnet, module, serve, bucketing,
                               bucketing_train=bucketing['path_launches'],
                               gluon_train=gluon_run['kernel_launches'][
                                   'conv_bn_stats'],
+                              lstm_ptb_train=ptb['kernel_launches'][
+                                  'conv_bn_stats'],
+                              gluon_lstm_train=gluon_lm['kernel_launches'][
+                                  'conv_bn_stats'],
+                              inception_v3_train=factories['bf16'][
+                                  'inception_v3']['path_launches'],
+                              resnext50_train=factories['bf16'][
+                                  'resnext50']['path_launches'],
                               conv_bn_bench=bench['launches']),
         stem_split=resnet['stem_split'],
         launches_per_train_step=resnet['train_launches'],
@@ -1371,6 +1416,16 @@ def conv_kernel_entry(conv, sass, resnet, module, serve, bucketing,
                                   s2_rel_err=r['s2']['rel_err'])
                              for r in resnet['kernel_checks'] +
                              bucketing['kernel_checks']],
+        factory_shape_checks={
+            name: [dict(x=r['x'], w=r['w'], stride=r['stride'],
+                        pad=r['pad'], pairs=r['pairs'],
+                        max_abs_err=r['y']['max_abs_err'],
+                        s1_rel_err=r['s1']['rel_err'],
+                        s2_rel_err=r['s2']['rel_err'], ms=r['ms'],
+                        library_ms=r['library_ms'],
+                        bound_ms=r['bound_ms'], bound_by=r['bound_by'])
+                   for r in f['kernel_checks']]
+            for name, f in factories['bf16'].items()},
         max_abs_err=cases[0]['max_abs_err'], ms=row['ms'],
         plain_ms=row['plain_ms'], bound_ms=row['bound_ms'],
         bound_by=row['bound_by'], library_ms=row['library_ms'],
@@ -1728,9 +1783,10 @@ def rtc_phase(torch, mx):
                 sgd=sgd)
 
 
-def rtc_kernel_entry(rtc_run):
+def rtc_kernel_entry(rtc_run, ptb, gluon_lm):
     """The rtc entry of the kernels line: saxpy1's times, the launches of
-    the imperative loop (the path) and of the case checks."""
+    the imperative loop (the path), of the case checks and of phases 14
+    and 15's LSTM LMs (0)."""
     saxpy = rtc_run['saxpy']
     first = {c['case']: c for c in rtc_run['cases']}
     return dict(
@@ -1738,7 +1794,10 @@ def rtc_kernel_entry(rtc_run):
         wrapper='mxnet_tpu_torch/rtc.py', replaces='mxnet_tpu/rtc.py:60',
         launches=rtc_run['sgd']['rtc_launches'],
         launches_by_path=dict(rtc_cases=rtc_run['case_launches'],
-                              imperative_sgd=rtc_run['sgd']['rtc_launches']),
+                              imperative_sgd=rtc_run['sgd']['rtc_launches'],
+                              lstm_ptb_train=ptb['kernel_launches']['rtc'],
+                              gluon_lstm_train=gluon_lm['kernel_launches'][
+                                  'rtc']),
         max_abs_err=first['saxpy1']['max_abs_err'],
         max_ulps=first['saxpy1']['max_ulps'],
         ms=saxpy['ms'], plain_ms=saxpy['plain_ms'],
@@ -2208,12 +2267,15 @@ def kernel_class(name):
         return 'conv_bn_stats kernel (and its finalize)'
     if 'direct_copy' in n:
         return 'copies (direct_copy_kernel_cuda)'
-    if any(k in n for k in ('cudnn', 'xmma', 'fprop', 'dgrad', 'wgrad',
-                            'conv', 'nchwtonhwc', 'nhwctonchw',
-                            'implicit', 'cutlass')):
+    if any(k in n for k in ('fprop', 'dgrad', 'wgrad', 'conv', 'nchwtonhwc',
+                            'nhwctonchw', 'implicit')):
         return 'cuDNN convolutions'
+    # cuBLAS's products run on xmma and cutlass kernels too: a gemm that
+    # names no convolution is a product (FullyConnected, the RNN's)
     if 'gemm' in n:
-        return 'GEMM (FullyConnected)'
+        return 'GEMM (FullyConnected, the RNN\'s products)'
+    if any(k in n for k in ('cudnn', 'xmma', 'cutlass')):
+        return 'cuDNN convolutions'
     if 'pool' in n:
         return 'pooling'
     if 'reduce' in n:
@@ -4556,6 +4618,1025 @@ def gluon_phase(torch, mx, cuda_conv, cuda_ops, root, ctx=None):
     return run
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the PTB LSTM language model through mx.rnn and BucketingModule
+# ---------------------------------------------------------------------------
+
+# examples/rnn/lstm_bucketing.py's graph at the reference's PTB widths
+# (example/rnn/lstm_bucketing.py: 2 layers of 200, embed 200, batch 32,
+# buckets 10-60; PTB's 10,000 words), in float32
+PTB = dict(vocab=10000, embed=200, hidden=200, layers=2, batch=32,
+           buckets=(10, 20, 30, 40, 50, 60))
+PTB_SENTENCES = 1536        # about 8 batches a bucket, 48 an epoch
+PTB_EPOCHS = 2
+PTB_LR = 0.01               # adam, the example's default
+PTB_ZIPF = 1.3              # the corpus's word draws
+PTB_FOLLOW = 0.8            # the share of words that follow their rule
+PTB_TIMED = 3               # timed steps on each bucket, after one warm-up
+PTB_TOL = 1e-5              # fused against unfused, gpu against cpu
+PTB_CPU_BUCKET = 20         # the bucket of the gpu-against-cpu batch
+PTB_BULK_K = 4
+PTB_BULK_OPT = dict(learning_rate=0.1, momentum=0.9)
+
+
+def ptb_sentences(n, vocab, max_len, seed):
+    """A seeded synthetic corpus with PTB's vocabulary size: n sentences
+    of 1 to max_len words, the first Zipf-drawn, each next one with
+    probability PTB_FOLLOW the successor (7 t + 13) mod (vocab - 1) + 1
+    of the word before (a next-word structure the model can learn), else
+    Zipf-drawn. Words are strings, for encode_sentences."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        length = int(rng.integers(1, max_len + 1))
+        draws = np.minimum(rng.zipf(PTB_ZIPF, length), vocab - 1)
+        follow = rng.random(length) < PTB_FOLLOW
+        words = [int(draws[0])]
+        for i in range(1, length):
+            words.append((7 * words[-1] + 13) % (vocab - 1) + 1
+                         if follow[i] else int(draws[i]))
+        out.append(['w%d' % w for w in words])
+    return out
+
+
+def ptb_corpus(mx, seed):
+    """The corpus encoded by mx.rnn.encode_sentences (0 the invalid
+    label, words from 1): (sentences, vocab)."""
+    words = ptb_sentences(PTB_SENTENCES, PTB['vocab'], max(PTB['buckets']),
+                          seed)
+    return mx.rnn.encode_sentences(words, invalid_label=0, start_label=1)
+
+
+def ptb_iter(mx, sentences, bucket_major=False):
+    """BucketSentenceIter over the corpus, its shuffles seeded."""
+    import random
+    random.seed(SEED + 300)
+    np.random.seed(SEED + 301)
+    return mx.rnn.BucketSentenceIter(sentences, PTB['batch'],
+                                     buckets=list(PTB['buckets']),
+                                     invalid_label=0,
+                                     bucket_major=bucket_major)
+
+
+def ptb_fused_cell(mx):
+    return mx.rnn.FusedRNNCell(PTB['hidden'], num_layers=PTB['layers'],
+                               mode='lstm', prefix='lstm_')
+
+
+def ptb_unfused_cell(mx):
+    """The same stack as unfused LSTMCells: their parameter names are
+    those FusedRNNCell.unpack_weights gives."""
+    stack = mx.rnn.SequentialRNNCell()
+    for i in range(PTB['layers']):
+        stack.add(mx.rnn.LSTMCell(PTB['hidden'], prefix='lstm_l%d_' % i))
+    return stack
+
+
+def ptb_sym_gen(mx, cell, hidden_only=False):
+    """The example's sym_gen: Embedding, the cell unrolled over the
+    bucket's length, FullyConnected to the vocabulary, SoftmaxOutput;
+    with hidden_only, the cell's outputs alone."""
+    def sym_gen(seq_len):
+        data = mx.sym.Variable('data')
+        label = mx.sym.Variable('softmax_label')
+        embed = mx.sym.Embedding(data, input_dim=PTB['vocab'],
+                                 output_dim=PTB['embed'], name='embed')
+        outputs, _ = cell.unroll(seq_len, embed, layout='NTC',
+                                 merge_outputs=True)
+        if hidden_only:
+            return outputs, ('data',), ()
+        pred = mx.sym.Reshape(outputs, shape=(-1, PTB['hidden']))
+        pred = mx.sym.FullyConnected(pred, num_hidden=PTB['vocab'],
+                                     name='pred')
+        lab = mx.sym.Reshape(label, shape=(-1,))
+        return (mx.sym.SoftmaxOutput(pred, label=lab, name='softmax'),
+                ('data',), ('softmax_label',))
+    return sym_gen
+
+
+def hand_written_launches(cuda_conv, cuda_ops):
+    """Every hand-written kernel's launch count."""
+    from mxnet_tpu_torch import rtc
+    return dict(conv_bn_stats=cuda_conv.CONV_BN_STATS_LAUNCHES,
+                flash_fwd=cuda_ops.FLASH_FWD_LAUNCHES,
+                flash_bwd_dkdv=cuda_ops.FLASH_BWD_DKDV_LAUNCHES,
+                flash_bwd_dq=cuda_ops.FLASH_BWD_DQ_LAUNCHES,
+                rtc=rtc.RTC_LAUNCHES)
+
+
+def reset_hand_written(cuda_conv, cuda_ops):
+    from mxnet_tpu_torch import rtc
+    cuda_conv.CONV_BN_STATS_LAUNCHES = 0
+    reset_counts(cuda_ops)
+    rtc.RTC_LAUNCHES = 0
+
+
+class RecordingIter:
+    """A data iterator that hands out another's batches and keeps them."""
+
+    def __init__(self, it):
+        self.it = it
+        self.batches = []
+        self.provide_data = it.provide_data
+        self.provide_label = it.provide_label
+
+    def __iter__(self):
+        for b in self.it:
+            self.batches.append(b)
+            yield b
+
+    def reset(self):
+        self.it.reset()
+
+
+def bulk_dispatches(keys, k):
+    """The dispatches of a BucketingModule's fit(bulk=k) over batches of
+    these bucket keys: runs of one key in groups of k, each full group
+    one dispatch (a shorter group takes the per-step path)."""
+    count, run = 0, 0
+    for i, key in enumerate(keys):
+        run += 1
+        if i + 1 == len(keys) or keys[i + 1] != key:
+            count += run // k
+            run = 0
+    return count
+
+
+def ptb_bulk_check(torch, mx, ctx, sentences, start):
+    """fit(bulk=PTB_BULK_K) over bucket_major batches against the same
+    batches stepped one by one, from the same parameters, with momentum
+    SGD (FusedSGD; adam has no fused update and would take the per-step
+    path), under deterministic algorithms: every parameter and momentum
+    bit for bit, and the dispatches."""
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        mods = []
+        for _ in range(2):
+            mod = mx.mod.BucketingModule(
+                ptb_sym_gen(mx, ptb_fused_cell(mx)),
+                default_bucket_key=max(PTB['buckets']), context=ctx)
+            it = ptb_iter(mx, sentences, bucket_major=True)
+            mod.bind(it.provide_data, it.provide_label)
+            mod.init_params(arg_params={n: mx.nd.array(v, ctx=ctx)
+                                        for n, v in start.items()})
+            mods.append((mod, it))
+        (bulk_mod, it), (step_mod, _) = mods
+        rec = RecordingIter(it)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bulk_mod.fit(rec, eval_metric=mx.metric.Perplexity(None),
+                     optimizer='sgd', optimizer_params=dict(PTB_BULK_OPT),
+                     num_epoch=1, bulk=PTB_BULK_K)
+        torch.cuda.synchronize()
+        bulk_s = time.perf_counter() - t0
+        dispatches = sum(m._exec_group.executor.fused_dispatches
+                         for m in bulk_mod._buckets.values())
+        step_mod.init_optimizer(optimizer='sgd',
+                                optimizer_params=dict(PTB_BULK_OPT))
+        t0 = time.perf_counter()
+        for b in rec.batches:
+            step_mod.forward_backward(b)
+            step_mod.update()
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        states = []
+        for mod in (bulk_mod, step_mod):
+            args, _ = mod.get_params()
+            fu = mod._buckets[mod._default_bucket_key]._fused_updater
+            state = {'arg ' + n: a.handle.detach().cpu()
+                     for n, a in args.items()}
+            state.update(('mom ' + n, t.detach().cpu())
+                         for n, t in fu.states.items())
+            states.append(state)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        torch.use_deterministic_algorithms(False)
+    keys = [b.bucket_key for b in rec.batches]
+    got, ref = states
+    return dict(steps=len(keys), keys=keys, dispatches=dispatches,
+                dispatches_want=bulk_dispatches(keys, PTB_BULK_K),
+                differ=sorted(k for k in ref if k not in got or
+                              not torch.equal(got[k], ref[k])),
+                compared=len(ref), moms=sum(k.startswith('mom ')
+                                            for k in ref),
+                bulk_s=bulk_s, step_s=step_s)
+
+
+def ptb_unfused_check(torch, mx, ctx, args, batch):
+    """The cell's outputs on one batch: the fused graph against the
+    SequentialRNNCell of LSTMCells with FusedRNNCell.unpack_weights's
+    weights, both bound on ctx."""
+    seq_len = batch.bucket_key
+    fused = ptb_fused_cell(mx)
+    outs = []
+    for cell, params in (
+            (fused, {n: args[n] for n in ('embed_weight',
+                                          'lstm_parameters')}),
+            (ptb_unfused_cell(mx), fused.unpack_weights(
+                {'embed_weight': args['embed_weight'],
+                 'lstm_parameters': args['lstm_parameters']}))):
+        symbol = ptb_sym_gen(mx, cell, hidden_only=True)(seq_len)[0]
+        ex = symbol.simple_bind(ctx, grad_req='null',
+                                data=(PTB['batch'], seq_len))
+        ex.copy_params_from(params)
+        ex.forward(is_train=False, data=batch.data[0])
+        outs.append(ex.outputs[0].handle.detach().clone())
+        del ex
+    err = float((outs[0] - outs[1]).abs().max())
+    return dict(bucket=seq_len, max_abs_err=err, tol=PTB_TOL,
+                unfused_params=sorted(params), ok=err <= PTB_TOL)
+
+
+def ptb_cpu_check(torch, mx, ctx, args, batch):
+    """One train step of the LM on one batch on ctx and on cpu(0) from the
+    same parameters: the output and every gradient, each within PTB_TOL
+    of its largest cpu magnitude (1 at least)."""
+    seq_len = batch.bucket_key
+    symbol = ptb_sym_gen(mx, ptb_fused_cell(mx))(seq_len)[0]
+    req = {n: 'null' if n in NO_GRAD else 'write'
+           for n in symbol.list_arguments()}
+    states = {}
+    for key, c in (('gpu', ctx), ('cpu', mx.cpu(0))):
+        ex = symbol.simple_bind(c, grad_req=req,
+                                data=(PTB['batch'], seq_len),
+                                softmax_label=(PTB['batch'], seq_len))
+        ex.copy_params_from({n: mx.nd.array(v.asnumpy(), ctx=c)
+                             for n, v in args.items()})
+        ex.forward_backward(
+            data=mx.nd.array(batch.data[0].asnumpy(), ctx=c),
+            softmax_label=mx.nd.array(batch.label[0].asnumpy(), ctx=c))
+        st = {'output': ex.outputs[0].handle.detach().cpu()}
+        st.update(('grad ' + n, g.handle.detach().cpu())
+                  for n, g in ex.grad_dict.items() if n not in NO_GRAD)
+        states[key] = st
+        del ex
+    errs = {}
+    for k, ref in states['cpu'].items():
+        scale = max(1.0, float(ref.abs().max()))
+        errs[k] = float((states['gpu'][k] - ref).abs().max()) / scale
+    return dict(bucket=seq_len, rel_err=errs, tol=PTB_TOL,
+                ok=all(e <= PTB_TOL for e in errs.values()))
+
+
+def ptb_checkpoint_check(torch, mx, mod, root):
+    """save_rnn_checkpoint of the module's parameters (the cell's unpacked
+    per layer) and load_rnn_checkpoint: the same symbol and every tensor
+    equal."""
+    import shutil
+    ckpt = root / 'build' / 'phase14'
+    shutil.rmtree(ckpt, ignore_errors=True)
+    ckpt.mkdir(parents=True)
+    try:
+        cell = ptb_fused_cell(mx)
+        args, auxs = mod.get_params()
+        prefix = str(ckpt / 'ptb')
+        symbol = mod._buckets[mod._default_bucket_key].symbol
+        mx.rnn.save_rnn_checkpoint(cell, prefix, 1, symbol, args, auxs)
+        with mx.cpu():
+            stored = sorted(mx.nd.load('%s-0001.params' % prefix))
+            sym2, args2, auxs2 = mx.rnn.load_rnn_checkpoint(cell, prefix, 1)
+        differ = sorted(n for n in args if n not in args2 or not torch.equal(
+            args[n].handle.detach().cpu(), args2[n].handle.detach().cpu()))
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    return dict(stored=stored, differ=differ, compared=len(args),
+                extra=sorted(set(args2) - set(args)),
+                same_symbol=sym2.tojson() == symbol.tojson(),
+                unpacked='arg:lstm_l0_i2h_weight' in stored and
+                'arg:lstm_parameters' not in stored)
+
+
+def ptb_timings(torch, mx, mod, batches):
+    """Each bucket's step (forward_backward and update) timed, after one
+    warm-up: median ms and tokens/s; then one bucket-60 step's profile."""
+    rows = {}
+    for key in sorted(batches):
+        b = batches[key]
+        ts = []
+        for _ in range(1 + PTB_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mod.forward_backward(b)
+            mod.update()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        ms = median(ts[1:])
+        rows[key] = dict(step_ms=ts, step_ms_median=ms,
+                         tokens_per_s=PTB['batch'] * key / (ms / 1e3))
+    top = max(batches)
+
+    def step():
+        mod.forward_backward(batches[top])
+        mod.update()
+    prof = resnet_profile(torch, step, rows[top]['step_ms_median'])
+    prof['launches'] = sum(c['launches'] for c in prof['classes'].values())
+    return rows, prof
+
+
+def ptb_gate(run):
+    """Phase 14's checks on a run's numbers: a list of what failed."""
+    bad = []
+    if any(run['kernel_launches'].values()):
+        bad.append('the LSTM LM launched hand-written kernels: %s'
+                   % run['kernel_launches'])
+    ppl = run['epoch_perplexity']
+    if len(ppl) != PTB_EPOCHS or not ppl[-1] < ppl[0] or \
+            not all(math.isfinite(p) for p in ppl):
+        bad.append('the perplexity did not fall over the epochs: %s' % ppl)
+    if min(run['batches_per_epoch']) < 20:
+        bad.append('epochs of %s batches, fewer than 20'
+                   % run['batches_per_epoch'])
+    if sorted(run['buckets_bound']) != sorted(PTB['buckets']):
+        bad.append('buckets bound: %s' % run['buckets_bound'])
+    if not run['shared_params']:
+        bad.append('the buckets do not share their parameters')
+    for what in ('unfused', 'cpu'):
+        if not run[what]['ok']:
+            bad.append('%s: %s' % (what, run[what]))
+    bulk = run['bulk']
+    if bulk['differ'] or not bulk['compared'] or not bulk['moms']:
+        bad.append('fit(bulk=%d) differs from the per-step steps in %s '
+                   '(%d compared)' % (PTB_BULK_K, bulk['differ'][:8],
+                                      bulk['compared']))
+    if bulk['dispatches'] != bulk['dispatches_want'] or \
+            not bulk['dispatches']:
+        bad.append('fit(bulk=%d) ran %d dispatches, expected %d'
+                   % (PTB_BULK_K, bulk['dispatches'],
+                      bulk['dispatches_want']))
+    ck = run['checkpoint']
+    if ck['differ'] or ck['extra'] or not ck['compared'] or \
+            not ck['same_symbol'] or not ck['unpacked']:
+        bad.append('the rnn checkpoint round trip: %s' % ck)
+    return bad
+
+
+def ptb_phase(torch, mx, cuda_conv, cuda_ops, root, ctx=None):
+    """Phase 14: the PTB LSTM LM (FusedRNNCell(200, 2 layers), embed 200,
+    vocab 10,000, batch 32, buckets 10-60) in float32 through
+    BucketSentenceIter and BucketingModule.fit (Xavier, adam,
+    Perplexity(None)) for PTB_EPOCHS epochs; the unfused cells against
+    the fused op; a batch on ctx against cpu(0); fit(bulk=) over
+    bucket_major batches against the per-step steps; the rnn checkpoint
+    round trip; tokens/s per bucket and one step's profile. Gated by
+    ptb_gate."""
+    ctx = ctx or mx.gpu(0)
+    torch.cuda.empty_cache()
+    sentences, vocab = ptb_corpus(mx, SEED + 302)
+    it = ptb_iter(mx, sentences)
+    mod = mx.mod.BucketingModule(ptb_sym_gen(mx, ptb_fused_cell(mx)),
+                                 default_bucket_key=it.default_bucket_key,
+                                 context=ctx)
+    ppl_seen = []
+
+    def record(param):
+        ppl_seen.append((param.epoch, param.nbatch,
+                         float(param.eval_metric.get()[1])))
+    mx.random.seed(SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the main path: every count set to 0 just before, read just after
+    reset_hand_written(cuda_conv, cuda_ops)
+    t0 = time.perf_counter()
+    mod.fit(it, eval_metric=mx.metric.Perplexity(None),
+            num_epoch=PTB_EPOCHS, optimizer='adam',
+            optimizer_params={'learning_rate': PTB_LR},
+            initializer=mx.init.Xavier(), batch_end_callback=record)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = hand_written_launches(cuda_conv, cuda_ops)
+    peak_bytes = torch.cuda.max_memory_allocated()
+    epoch_ppl = [[p for e, _, p in ppl_seen if e == epoch][-1]
+                 for epoch in range(PTB_EPOCHS)]
+    per_epoch = [sum(1 for e, _, _ in ppl_seen if e == epoch)
+                 for epoch in range(PTB_EPOCHS)]
+    exes = {k: m._exec_group.executor for k, m in mod._buckets.items()}
+    base = exes[mod._default_bucket_key]
+    shared = all(ex.arg_dict[n] is base.arg_dict[n]
+                 for ex in exes.values()
+                 for n in ('embed_weight', 'lstm_parameters', 'pred_weight'))
+
+    # one batch of each bucket, for the timings and the checks
+    it.reset()
+    batches = {}
+    for b in it:
+        batches.setdefault(b.bucket_key, b)
+    rows, prof = ptb_timings(torch, mx, mod, batches)
+    args, _ = mod.get_params()
+    start = {n: a.asnumpy() for n, a in args.items()}
+    unfused = ptb_unfused_check(torch, mx, ctx, args,
+                                batches[max(PTB['buckets'])])
+    cpu = ptb_cpu_check(torch, mx, ctx, args, batches[PTB_CPU_BUCKET])
+    ckpt = ptb_checkpoint_check(torch, mx, mod, root)
+    buckets_bound = sorted(mod._buckets)
+    del mod, exes, base
+    torch.cuda.empty_cache()
+    bulk = ptb_bulk_check(torch, mx, ctx, sentences, start)
+
+    run = dict(
+        config=dict(PTB, sentences=PTB_SENTENCES, epochs=PTB_EPOCHS,
+                    optimizer='adam', lr=PTB_LR, dtype='float32',
+                    vocab_words=len(vocab)),
+        fit_s=fit_s, batches_per_epoch=per_epoch,
+        perplexity_by_batch=[p for _, _, p in ppl_seen],
+        epoch_perplexity=epoch_ppl, kernel_launches=launches,
+        peak_bytes=peak_bytes, shared_params=shared,
+        buckets_bound=buckets_bound,
+        buckets={str(k): v for k, v in rows.items()},
+        profile=dict((k, prof[k]) for k in ('device_ms', 'step_ms',
+                                            'device_busy_share',
+                                            'launches', 'classes', 'top')),
+        unfused=unfused, cpu=cpu, checkpoint=ckpt, bulk=bulk)
+    print('ptb ' + json.dumps(run))
+    bad = ptb_gate(run)
+    if bad:
+        fail('ptb: ' + '; '.join(bad))
+    print('ptb: fit %.1f s for %d epochs of %s batches, perplexity %s; '
+          'tokens/s by bucket %s; a bucket-%d step %.1f ms, %d kernel '
+          'launches, device busy %.3f; peak %.2f GB; fused vs unfused %.3g, '
+          'gpu vs cpu %.3g; fit(bulk=%d) %d dispatches, bit-equal'
+          % (fit_s, PTB_EPOCHS, per_epoch, [round(p, 2) for p in epoch_ppl],
+             {k: round(v['tokens_per_s']) for k, v in sorted(rows.items())},
+             max(PTB['buckets']), prof['step_ms'], prof['launches'],
+             prof['device_busy_share'], peak_bytes / 1e9,
+             unfused['max_abs_err'], max(cpu['rel_err'].values()),
+             PTB_BULK_K, bulk['dispatches']))
+    return run
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: gluon.rnn, the medium word LM of Zaremba et al. 2014
+# ---------------------------------------------------------------------------
+
+GLUON_LM = dict(vocab=10000, embed=650, hidden=650, layers=2, dropout=0.5,
+                bptt=35, batch=20)
+GLUON_LM_STEPS = 6
+GLUON_LM_LR = 1.0           # SGD, Zaremba et al.'s
+GLUON_LM_CLIP = 5.0         # the global norm of the per-token gradient
+GLUON_LM_TOL = 1e-5         # the layer against LSTMCell.unroll
+GLUON_DROPOUT_SE = 5.0      # the mask's kept share, in standard errors
+
+
+def gluon_word_lm(mx):
+    """The word LM of the Gluon example (untied): Embedding, dropout, the
+    fused LSTM with dropout between its layers, dropout, Dense to the
+    vocabulary."""
+    gluon = mx.gluon
+    cfg = GLUON_LM
+
+    class WordLM(gluon.Block):
+        def __init__(self, **kwargs):
+            super().__init__(**kwargs)
+            with self.name_scope():
+                self.drop = gluon.nn.Dropout(cfg['dropout'])
+                self.encoder = gluon.nn.Embedding(cfg['vocab'], cfg['embed'])
+                self.rnn = gluon.rnn.LSTM(cfg['hidden'],
+                                          num_layers=cfg['layers'],
+                                          dropout=cfg['dropout'],
+                                          input_size=cfg['embed'])
+                self.decoder = gluon.nn.Dense(cfg['vocab'], flatten=False,
+                                              in_units=cfg['hidden'])
+
+        def forward(self, inputs, hidden):
+            emb = self.drop(self.encoder(inputs))
+            out, hidden = self.rnn(emb, hidden)
+            return self.decoder(self.drop(out)), hidden
+
+    return WordLM(prefix='lm_')
+
+
+def gluon_lm_batches(mx, ctx, n):
+    """n (bptt, batch) segments of one token stream (the corpus of phase
+    14 laid end to end), each with its next-token targets."""
+    sentences, _ = ptb_corpus(mx, SEED + 320)
+    stream = np.array([w for s in sentences for w in s], dtype=np.float32)
+    cfg = GLUON_LM
+    cols = len(stream) // cfg['batch']
+    grid = stream[:cols * cfg['batch']].reshape(cfg['batch'], cols).T
+    if (cols - 1) < n * cfg['bptt']:
+        fail('gluon lm: a stream of %d tokens is too short' % len(stream))
+    out = []
+    for i in range(n):
+        seg = grid[i * cfg['bptt']:(i + 1) * cfg['bptt'] + 1]
+        out.append((mx.nd.array(seg[:-1], ctx=ctx),
+                    mx.nd.array(seg[1:], ctx=ctx)))
+    return out
+
+
+def gluon_unroll_check(torch, mx, ctx, model, x):
+    """The model's LSTM in eval mode (dropout off) against an LSTMCell per
+    layer, unrolled over the layer's own weights, on the embedded batch."""
+    gluon = mx.gluon
+    emb = model.encoder(x)
+    layer = model.rnn
+    out = layer(emb).handle.detach().clone()
+    seq = mx.nd.swapaxes(emb, dim1=0, dim2=1)
+    for i in range(GLUON_LM['layers']):
+        width = GLUON_LM['embed'] if i == 0 else GLUON_LM['hidden']
+        cell = gluon.rnn.LSTMCell(GLUON_LM['hidden'], input_size=width,
+                                  prefix='unroll%d_' % i)
+        cell.initialize(ctx=ctx)
+        for part in ('i2h_weight', 'h2h_weight', 'i2h_bias', 'h2h_bias'):
+            getattr(cell, part).set_data(
+                getattr(layer, 'l%d_%s' % (i, part)).data(ctx))
+        seq, _ = cell.unroll(GLUON_LM['bptt'], seq, layout='NTC',
+                             merge_outputs=True)
+    ref = mx.nd.swapaxes(seq, dim1=0, dim2=1).handle
+    err = float((out - ref).abs().max())
+    return dict(max_abs_err=err, tol=GLUON_LM_TOL, ok=err <= GLUON_LM_TOL)
+
+
+def gluon_dropout_check(torch, mx, ctx):
+    """The fused layer's dropout between its layers in train mode: an RNN
+    (relu, 2 layers) whose input weights are the identity and whose
+    recurrence and biases are 0, on ones, gives 0 where the mask drops a
+    unit and 1 / (1 - p) where it keeps one: the kept share within
+    GLUON_DROPOUT_SE standard errors of 1 - p, the kept values exact, two
+    forwards different masks, and eval mode all ones."""
+    from mxnet_tpu_torch import autograd
+    cfg = GLUON_LM
+    p, h = cfg['dropout'], cfg['hidden']
+    layer = mx.gluon.rnn.RNN(h, num_layers=2, activation='relu', dropout=p,
+                             input_size=h, prefix='mask_')
+    layer.initialize(ctx=ctx)
+    eye = mx.nd.array(np.eye(h, dtype=np.float32), ctx=ctx)
+    zero = mx.nd.zeros((h, h), ctx=ctx)
+    for i in range(2):
+        getattr(layer, 'l%d_i2h_weight' % i).set_data(eye)
+        getattr(layer, 'l%d_h2h_weight' % i).set_data(zero)
+        for b in ('i2h_bias', 'h2h_bias'):
+            getattr(layer, 'l%d_%s' % (i, b)).set_data(
+                mx.nd.zeros((h,), ctx=ctx))
+    x = mx.nd.ones((cfg['bptt'], cfg['batch'], h), ctx=ctx)
+    with autograd.train_mode():
+        a = layer(x).handle.detach()
+        b = layer(x).handle.detach()
+    kept = a != 0
+    share = float(kept.float().mean())
+    se = math.sqrt(p * (1 - p) / kept.numel())
+    scale_err = float((a[kept] - 1.0 / (1 - p)).abs().max())
+    ev = layer(x).handle
+    return dict(p=p, kept_share=share, se=se,
+                share_z=abs(share - (1 - p)) / se, scale_err=scale_err,
+                masks_differ=bool((a != b).any()),
+                eval_ones=bool((ev == 1).all()),
+                ok=abs(share - (1 - p)) <= GLUON_DROPOUT_SE * se and
+                scale_err <= 1e-6 and bool((a != b).any()) and
+                bool((ev == 1).all()))
+
+
+def gluon_lm_gate(run):
+    """Phase 15's checks on a run's numbers: a list of what failed."""
+    bad = []
+    if any(run['kernel_launches'].values()):
+        bad.append('the Gluon LM launched hand-written kernels: %s'
+                   % run['kernel_launches'])
+    losses = run['losses']
+    if not all(math.isfinite(v) for v in losses) or \
+            not min(losses[-2:]) < losses[0]:
+        bad.append('the loss did not fall: %s' % losses)
+    if run['param_devices'] != ['cuda:0']:
+        bad.append('parameters on %s' % run['param_devices'])
+    for what in ('unroll', 'dropout'):
+        if not run[what]['ok']:
+            bad.append('%s: %s' % (what, run[what]))
+    return bad
+
+
+def gluon_lm_phase(torch, mx, cuda_conv, cuda_ops, ctx=None):
+    """Phase 15: the medium word LM of Zaremba et al. 2014 in Gluon
+    (gluon.rnn.LSTM(650, 2 layers, dropout 0.5), embed 650, vocab 10,000,
+    bptt 35, batch 20, untied) takes GLUON_LM_STEPS Trainer('sgd') steps
+    with the global-norm clip under autograd.record(); LSTMCell.unroll
+    over the layer's weights against the layer in eval mode; the dropout
+    mask's statistics. Gated by gluon_lm_gate."""
+    from mxnet_tpu_torch import autograd
+    gluon = mx.gluon
+    ctx = ctx or mx.gpu(0)
+    cfg = GLUON_LM
+    torch.cuda.empty_cache()
+    mx.random.seed(SEED)
+    model = gluon_word_lm(mx)
+    model.initialize(mx.init.Xavier(), ctx=ctx)
+    params = model.collect_params()
+    trainer = gluon.Trainer(params, 'sgd', {'learning_rate': GLUON_LM_LR})
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    batches = gluon_lm_batches(mx, ctx, GLUON_LM_STEPS)
+    tokens = cfg['bptt'] * cfg['batch']
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the main path: every count set to 0 just before, read just after
+    reset_hand_written(cuda_conv, cuda_ops)
+    hidden = model.rnn.begin_state(cfg['batch'], ctx=ctx)
+    losses, norms, times = [], [], []
+    for x, y in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hidden = [h.detach() for h in hidden]
+        with autograd.record():
+            out, hidden = model(x, hidden)
+            loss = loss_fn(out.reshape((-1, cfg['vocab'])),
+                           y.reshape((-1,)))
+        loss.backward()
+        grads = [p.grad(ctx) for p in params.values()
+                 if p.grad_req != 'null']
+        norms.append(float(gluon.utils.clip_global_norm(
+            grads, GLUON_LM_CLIP * tokens)))
+        trainer.step(tokens)
+        losses.append(float(loss.mean().asscalar()))
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = hand_written_launches(cuda_conv, cuda_ops)
+    peak_bytes = torch.cuda.max_memory_allocated()
+    param_devices = sorted({str(p.data(ctx).handle.device)
+                            for p in params.values()})
+    unroll = gluon_unroll_check(torch, mx, ctx, model, batches[0][0])
+    dropout = gluon_dropout_check(torch, mx, ctx)
+    step_ms = median(times[1:])
+    run = dict(config=dict(cfg, steps=GLUON_LM_STEPS, lr=GLUON_LM_LR,
+                           clip=GLUON_LM_CLIP, optimizer='sgd',
+                           dtype='float32'),
+               losses=losses, grad_norms=[n / tokens for n in norms],
+               clipped=any(n > GLUON_LM_CLIP * tokens for n in norms),
+               step_ms=times, step_ms_median=step_ms,
+               tokens_per_s=tokens / (step_ms / 1e3), peak_bytes=peak_bytes,
+               param_devices=param_devices, kernel_launches=launches,
+               unroll=unroll, dropout=dropout)
+    print('gluon_lm ' + json.dumps(run))
+    bad = gluon_lm_gate(run)
+    if bad:
+        fail('gluon lm: ' + '; '.join(bad))
+    print('gluon lm: losses %s; %.1f ms a step (%.0f tokens/s); peak %.2f '
+          'GB; layer vs cell unroll %.3g; dropout kept share %.4f (%.2f '
+          'standard errors from %.2f)'
+          % ([round(v, 3) for v in losses], step_ms, run['tokens_per_s'],
+             peak_bytes / 1e9, unroll['max_abs_err'], dropout['kept_share'],
+             dropout['share_z'], 1 - dropout['p']))
+    del model, trainer
+    torch.cuda.empty_cache()
+    return run
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: the model factories, Inception-v3 and ResNeXt-50 on the conv
+# kernel
+# ---------------------------------------------------------------------------
+
+# (name, factory, image shape): bf16 through Module on the pair route
+FACTORY_BF16 = (('inception_v3', 'inception-v3', (3, 299, 299)),
+                ('resnext50', 'resnext', (3, 224, 224)))
+FACTORY_BATCH = 128
+FACTORY_STEPS = 3
+FACTORY_OPT = dict(learning_rate=0.01, momentum=0.9, wd=1e-4,
+                   multi_precision=True)
+# the conditioned weights: every BatchNorm's gamma scaled by this and its
+# beta moved to 1 + 0.1 x, so that each ReLU takes its inputs in its
+# linear range and the network does not amplify rounding (phase 11's
+# reason; He-normal at gamma ~1 and beta ~0 is reported beside it), and
+# the classifier's weight scaled by it too, so that the logits of those
+# all-positive features stay near a uniform guess's (a peaked softmax
+# turns the rounding of a tiny probability into a large loss difference)
+FACTORY_GAMMA_SCALE = 0.1
+# (name, factory, image shape, batch): one float32 train step each
+FACTORY_F32 = (('lenet', 'lenet', (1, 28, 28), 64),
+               ('mlp', 'mlp', (1, 28, 28), 64),
+               ('alexnet', 'alexnet', (3, 224, 224), 64),
+               ('vgg16', 'vgg', (3, 224, 224), 32),
+               ('inception_bn', 'inception-bn', (3, 224, 224), 64))
+FACTORY_CPU_BATCH = 2
+# a batch of 2 on the card against cpu(0), TF32 off: the output and each
+# moving statistic within FACTORY_CPU_TOL of the largest cpu magnitude.
+# The gradients are chaotic at initialisation (ReLU masks flip; in the
+# BatchNorm nets, tests/test_torch_models.py): scaling the input by
+# 1 + FACTORY_CHAOS_NUDGE moves VGG-16's first weight gradient on cpu(0)
+# by 4.0e-3 in relative norm. So the card's gradients are held to
+# cpu(0)'s own spread under that nudge, measured in the run: the median
+# and the largest relative-norm error over the gradients within
+# FACTORY_CHAOS_FACTOR times cpu(0)'s plus FACTORY_CHAOS_SLACK
+FACTORY_CPU_TOL = 1e-4
+FACTORY_CHAOS_NUDGE = 2.0 ** -22
+FACTORY_CHAOS_FACTOR, FACTORY_CHAOS_SLACK = 2.0, 1e-4
+
+
+def graph_pairs(symbol):
+    """The conv -> BatchNorm pairs of a symbol's JSON, counted without the
+    executor: each Convolution with no_bias, a 2-D kernel, one group and
+    no dilation whose output's only use is input 0 of a BatchNorm on axis
+    1 without use_global_stats."""
+    graph = json.loads(symbol.tojson())
+    nodes = graph['nodes']
+    uses = {}
+    for i, n in enumerate(nodes):
+        for src, idx, _ in n['inputs']:
+            uses.setdefault((src, idx), []).append((i, n))
+    for src, idx, _ in graph['heads']:
+        uses.setdefault((src, idx), []).append((None, None))
+
+    def attr(n, key, default):
+        return n.get('attrs', {}).get(key, default)
+    count = 0
+    for i, n in enumerate(nodes):
+        if n['op'] != 'Convolution':
+            continue
+        kernel = attr(n, 'kernel', '()').strip('()').split(',')
+        dilate = [d for d in attr(n, 'dilate', '(1, 1)').strip('()').split(',')
+                  if d.strip()]
+        if attr(n, 'no_bias', 'False') != 'True' or \
+                len([k for k in kernel if k.strip()]) != 2 or \
+                int(attr(n, 'num_group', '1')) != 1 or \
+                any(int(d) != 1 for d in dilate):
+            continue
+        users = uses.get((i, 0), [])
+        if len(users) != 1 or users[0][1] is None:
+            continue
+        j, bn = users[0]
+        if bn['op'] == 'BatchNorm' and bn['inputs'][0][0] == i and \
+                int(attr(bn, 'axis', '1')) == 1 and \
+                attr(bn, 'use_global_stats', 'False') != 'True':
+            count += 1
+    return count
+
+
+def conditioned(args):
+    """The seeded values with every BatchNorm in its linear-ReLU regime
+    and the classifier (fc1) scaled down."""
+    out = {}
+    for n, a in args.items():
+        if n.endswith('_gamma') or n == 'fc1_weight':
+            a = a * np.float32(FACTORY_GAMMA_SCALE)
+        elif n.endswith('_beta'):
+            a = np.float32(1.0) + a
+        out[n] = a
+    return out
+
+
+def factory_route_comparison(torch, mx, cuda_conv, symbol, shape, params,
+                             ctx):
+    """One train step with the pair route on and one with it off from the
+    same values: relative errors, loss difference, the launches of each."""
+    ex = bind_resnet(mx, symbol, ctx, FACTORY_BATCH, shape, params)
+    label = ex.arg_dict['softmax_label'].handle
+    saved = save_params(ex)
+    states, losses, launches = {}, {}, {}
+    for route in (True, False):
+        restore(ex, saved)
+        ex._pair_route = route
+        before = cuda_conv.CONV_BN_STATS_LAUNCHES
+        ex.forward_backward()
+        torch.cuda.synchronize()
+        launches[route] = cuda_conv.CONV_BN_STATS_LAUNCHES - before
+        states[route] = resnet_state(torch, ex)
+        losses[route] = nll(torch, ex, label)
+    out = compare_states(torch, states[True], states[False])
+    out.update(loss_err=abs(losses[True] - losses[False]),
+               loss_fused=losses[True], loss_unfused=losses[False],
+               launches_route=launches[True],
+               launches_unfused=launches[False],
+               grad_spread=spread(out['grad_rel']))
+    del ex, states, saved
+    torch.cuda.empty_cache()
+    return out
+
+
+def factory_bf16_run(torch, mx, cuda_conv, name, network, shape, ctx):
+    """One bf16 network through Module at FACTORY_BATCH: FACTORY_STEPS
+    steps (forward_backward, update) counting the kernel's launches; the
+    route against route-off on conditioned and on He-normal weights; the
+    kernel against its plain version at every distinct routed shape."""
+    from mxnet_tpu_torch import executor
+    symbol = mx.models.get_symbol(network, num_classes=1000,
+                                  dtype='bfloat16')
+    want = graph_pairs(symbol)
+    mod = mx.mod.Module(symbol, context=ctx)
+    mod.bind([mx.io.DataDesc('data', (FACTORY_BATCH,) + shape)],
+             [mx.io.DataDesc('softmax_label', (FACTORY_BATCH,))])
+    mod.init_params(initializer=mx.init.Xavier(
+        rnd_type='gaussian', factor_type='in', magnitude=2))
+    mod.init_optimizer(optimizer='sgd', optimizer_params=dict(FACTORY_OPT))
+    ex = mod._exec_group.executor
+    x, y = module_data(1000, FACTORY_BATCH, shape, SEED + 330)
+    batch = mx.io.DataBatch([mx.nd.array(x, ctx=ctx)],
+                            [mx.nd.array(y, ctx=ctx)])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches, times, losses = [], [], []
+    label = batch.label[0].handle
+    for _ in range(FACTORY_STEPS):
+        before = cuda_conv.CONV_BN_STATS_LAUNCHES
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mod.forward_backward(batch)
+        losses.append(nll(torch, ex, label))
+        mod.update()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        launches.append(cuda_conv.CONV_BN_STATS_LAUNCHES - before)
+    peak_bytes = torch.cuda.max_memory_allocated()
+    pairs = dict(ex.pairs)
+    shapes = pair_shapes(symbol, FACTORY_BATCH, shape, executor,
+                         pairs=pairs)
+    split = bool(ex._split_conv)
+    grouped = sum(1 for n in ex._topo if n.op is not None and
+                  n.op.name == 'Convolution' and
+                  int(n.attrs.get('num_group', 1)) != 1)
+    del mod, ex, batch
+    torch.cuda.empty_cache()
+    kernel_checks = resnet_kernel_checks(torch, cuda_conv, executor, shapes,
+                                         ctx.torch_device)
+    params = resnet_params(symbol, dict(data=(FACTORY_BATCH,) + shape),
+                           1000, SEED + 340)
+    cond = factory_route_comparison(
+        torch, mx, cuda_conv, symbol, shape,
+        (conditioned(params[0]), params[1]), ctx)
+    he = factory_route_comparison(torch, mx, cuda_conv, symbol, shape,
+                                  params, ctx)
+    step_ms = median(times[1:])
+    return dict(
+        network=network, shape=list(shape), batch=FACTORY_BATCH,
+        pairs_from_graph=want, pairs_routed=len(pairs),
+        stem_split=split, grouped_convs=grouped, step_launches=launches,
+        path_launches=sum(launches), losses=losses, step_ms=times,
+        step_ms_median=step_ms,
+        images_per_s=FACTORY_BATCH / (step_ms / 1e3), peak_bytes=peak_bytes,
+        distinct_shapes=len(shapes), kernel_checks=kernel_checks,
+        conditioned=cond,
+        he_normal=dict((k, he[k]) for k in (
+            'loss_err', 'out_rel', 'aux_rel', 'grad_spread',
+            'launches_route', 'launches_unfused')))
+
+
+def no_dropout(mx, symbol):
+    """The symbol with every Dropout's p set to 0 (cpu(0) and the card
+    draw different masks)."""
+    return mx.sym.load_json(symbol.tojson().replace('"p": "0.5"',
+                                                    '"p": "0"'))
+
+
+def factory_f32_run(torch, mx, name, network, shape, batch, ctx):
+    """One float32 train step of a factory's network through Module at
+    `batch`, then a batch of FACTORY_CPU_BATCH on ctx against cpu(0) from
+    the same seeded values (dropout at p 0)."""
+    symbol = mx.models.get_symbol(network, num_classes=1000
+                                  if network not in ('lenet', 'mlp') else 10)
+    classes = 10 if network in ('lenet', 'mlp') else 1000
+    mod = mx.mod.Module(symbol, context=ctx)
+    mod.bind([mx.io.DataDesc('data', (batch,) + shape)],
+             [mx.io.DataDesc('softmax_label', (batch,))])
+    mod.init_params(initializer=mx.init.Xavier())
+    mod.init_optimizer(optimizer='sgd', optimizer_params=dict(
+        learning_rate=0.01, momentum=0.9))
+    x, y = module_data(classes, batch, shape, SEED + 350)
+    db = mx.io.DataBatch([mx.nd.array(x, ctx=ctx)],
+                         [mx.nd.array(y, ctx=ctx)])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mod.forward_backward(db)
+    mod.update()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    out = mod.get_outputs()[0].handle
+    finite = bool(torch.isfinite(out).all())
+    del mod, db
+    plain = no_dropout(mx, symbol)
+    cshape = (FACTORY_CPU_BATCH,) + shape
+    args, auxs = resnet_params(plain, dict(data=cshape), classes, SEED + 360)
+    nudged = dict(args, data=args['data'] *
+                  np.float32(1.0 + FACTORY_CHAOS_NUDGE))
+    states = {}
+    for key, c, a in (('gpu', ctx, args), ('cpu', mx.cpu(0), args),
+                      ('cpu_nudged', mx.cpu(0), nudged)):
+        ex = bind_resnet(mx, plain, c, FACTORY_CPU_BATCH, shape, (a, auxs))
+        ex.forward_backward()
+        st = {'output': ex.outputs[0].handle.detach().float().cpu()}
+        st.update(('grad ' + n, g.handle.detach().float().cpu())
+                  for n, g in ex.grad_dict.items())
+        st.update(('aux ' + n, a.handle.detach().float().cpu())
+                  for n, a in ex.aux_dict.items())
+        states[key] = st
+        del ex
+    ref = states['cpu']
+    forward = {k: float((states['gpu'][k] - v).abs().max()) /
+               max(1e-30, float(v.abs().max()))
+               for k, v in ref.items() if not k.startswith('grad ')}
+    grads = {k: rel_err(torch, states['gpu'][k], v)
+             for k, v in ref.items() if k.startswith('grad ')}
+    own = {k: rel_err(torch, states['cpu_nudged'][k], v)
+           for k, v in ref.items() if k.startswith('grad ')}
+
+    def med(d):
+        return sorted(d.values())[len(d) // 2]
+    grad_bound = dict(
+        median=FACTORY_CHAOS_FACTOR * med(own) + FACTORY_CHAOS_SLACK,
+        max=FACTORY_CHAOS_FACTOR * max(own.values()) + FACTORY_CHAOS_SLACK)
+    ok = finite and max(forward.values()) <= FACTORY_CPU_TOL and \
+        med(grads) <= grad_bound['median'] and \
+        max(grads.values()) <= grad_bound['max'] and \
+        all(bool(torch.isfinite(v).all()) for v in states['gpu'].values())
+    return dict(network=network, shape=list(shape), batch=batch,
+                step_ms=step_ms, finite=finite,
+                cpu_forward_max_err=max(forward.values()),
+                cpu_grad_rel=dict(median=med(grads),
+                                  max=max(grads.values()),
+                                  worst=max(grads, key=grads.get)),
+                cpu_own_spread=dict(median=med(own), max=max(own.values()),
+                                    worst=max(own, key=own.get)),
+                cpu_grad_bound=grad_bound, ok=ok)
+
+
+def factories_gate(run):
+    """Phase 16's checks on a run's numbers: a list of what failed."""
+    bad = []
+    for name, r in run['bf16'].items():
+        want = r['pairs_from_graph']
+        if not want or r['pairs_routed'] != want:
+            bad.append('%s: the executor routes %d pairs, the graph has %d'
+                       % (name, r['pairs_routed'], want))
+        if r['stem_split']:
+            bad.append('%s: a stem split took a conv' % name)
+        if r['step_launches'] != [want] * FACTORY_STEPS:
+            bad.append('%s: launches a step %s, expected %d'
+                       % (name, r['step_launches'], want))
+        if not all(math.isfinite(v) for v in r['losses']):
+            bad.append('%s: losses %s' % (name, r['losses']))
+        if len(r['kernel_checks']) != r['distinct_shapes'] or \
+                not r['kernel_checks']:
+            bad.append('%s: %d kernel checks for %d shapes'
+                       % (name, len(r['kernel_checks']),
+                          r['distinct_shapes']))
+        for row in r['kernel_checks']:
+            if not row['ok']:
+                bad.append('%s: the kernel disagrees with its plain version '
+                           'at %s' % (name, row))
+        c = r['conditioned']
+        if c['launches_route'] != want or c['launches_unfused'] != 0:
+            bad.append('%s: route on / off launched %d / %d times'
+                       % (name, c['launches_route'], c['launches_unfused']))
+        if not c['loss_err'] <= RESNET_LOSS_ATOL:
+            bad.append('%s: route on / off loss differs by %.3g (bound %.3g)'
+                       % (name, c['loss_err'], RESNET_LOSS_ATOL))
+        for key, err in dict(c['aux_rel'], output=c['out_rel']).items():
+            bound = RESNET_OUT_REL if key == 'output' else RESNET_AUX_REL
+            if not err <= bound:
+                bad.append('%s: route on / off %s differs by %.3g (bound '
+                           '%.3g)' % (name, key, err, bound))
+    if run['bf16']['resnext50']['grouped_convs'] != 16:
+        bad.append('resnext50: %d grouped convs'
+                   % run['bf16']['resnext50']['grouped_convs'])
+    for name, r in run['f32'].items():
+        if not r['ok']:
+            bad.append('%s (float32): %s' % (name, r))
+    return bad
+
+
+def factories_phase(torch, mx, cuda_conv, ctx=None):
+    """Phase 16: Inception-v3 at 3x299x299 and ResNeXt-50 32x4d at 224 in
+    bf16 through Module at batch FACTORY_BATCH, FACTORY_STEPS steps each
+    on the pair route (launches a step counted against the graph's pairs),
+    the kernel at every distinct routed shape, the route against route-off
+    on conditioned and He-normal weights; LeNet, MLP, AlexNet, VGG-16 and
+    Inception-BN one float32 step each and a batch of 2 against cpu(0).
+    Gated by factories_gate."""
+    ctx = ctx or mx.gpu(0)
+    torch.cuda.empty_cache()
+    bf16 = {}
+    # the main path of each network: the count set to 0 just before, read
+    # just after, in factory_bf16_run
+    for name, network, shape in FACTORY_BF16:
+        bf16[name] = factory_bf16_run(torch, mx, cuda_conv, name, network,
+                                      shape, ctx)
+        r = bf16[name]
+        print('factories: %s bf16 batch %d: %.1f ms a step (%.1f images/s), '
+              '%s launches a step (%d pairs in the graph, %d distinct '
+              'shapes), route on / off output %.3g (conditioned), %.3g '
+              '(He-normal); peak %.2f GB'
+              % (name, FACTORY_BATCH, r['step_ms_median'],
+                 r['images_per_s'], r['step_launches'], r['pairs_from_graph'],
+                 r['distinct_shapes'], r['conditioned']['out_rel'],
+                 r['he_normal']['out_rel'], r['peak_bytes'] / 1e9))
+        torch.cuda.empty_cache()
+    f32 = {}
+    for name, network, shape, batch in FACTORY_F32:
+        f32[name] = factory_f32_run(torch, mx, name, network, shape, batch,
+                                    ctx)
+        torch.cuda.empty_cache()
+    run = dict(bf16=bf16, f32=f32)
+    print('factories ' + json.dumps(run))
+    bad = factories_gate(run)
+    if bad:
+        fail('factories: ' + '; '.join(bad))
+    print('factories: float32 steps %s ms; gpu vs cpu forward %s, '
+          'gradients (median, largest) %s against cpu\'s own spread %s'
+          % ({k: round(v['step_ms'], 1) for k, v in f32.items()},
+             {k: '%.2g' % v['cpu_forward_max_err'] for k, v in f32.items()},
+             {k: '%.2g, %.2g' % (v['cpu_grad_rel']['median'],
+                                 v['cpu_grad_rel']['max'])
+              for k, v in f32.items()},
+             {k: '%.2g, %.2g' % (v['cpu_own_spread']['median'],
+                                 v['cpu_own_spread']['max'])
+              for k, v in f32.items()}))
+    return run
+
+
 def main(argv=None):
     import argparse
     parser = argparse.ArgumentParser(
@@ -4571,7 +5652,7 @@ def main(argv=None):
                                                     v.split(',')},
                         default=ALL_PHASES,
                         help='build, then run only these phases (a comma '
-                             'list of 2-13); the kernels line needs all')
+                             'list of 2-16); the kernels line needs all')
     parser.add_argument('--mutants', action='store_true',
                         help='check that phase 2\'s LM case fails each of '
                              'FWD_MUTANTS, phase 4\'s each of BWD_MUTANTS '
@@ -4591,7 +5672,7 @@ def main(argv=None):
         return
     phases = args.phases
     if not phases <= ALL_PHASES:
-        fail('--phases takes phases 2 to 13; got %s' % sorted(phases))
+        fail('--phases takes phases 2 to 16; got %s' % sorted(phases))
     sys.path.insert(0, str(root))
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import _build, cuda_conv, cuda_ops
@@ -4703,6 +5784,19 @@ def main(argv=None):
     if 13 in phases:
         gluon_run = gluon_phase(torch, mx, cuda_conv, cuda_ops, root)
 
+    # 14. the PTB LSTM LM through mx.rnn and BucketingModule
+    if 14 in phases:
+        ptb = ptb_phase(torch, mx, cuda_conv, cuda_ops, root)
+
+    # 15. gluon.rnn: the medium word LM
+    if 15 in phases:
+        gluon_lm = gluon_lm_phase(torch, mx, cuda_conv, cuda_ops)
+
+    # 16. the model factories: Inception-v3 and ResNeXt-50 on the conv
+    # kernel, the rest in float32
+    if 16 in phases:
+        factories = factories_phase(torch, mx, cuda_conv)
+
     if phases != ALL_PHASES:
         print('phases %s passed' % sorted(phases))
         return
@@ -4718,6 +5812,10 @@ def main(argv=None):
                               lm_train=train['launches'][0],
                               resnet_serve=serve['launches']['flash_fwd'],
                               gluon_train=gluon_run['kernel_launches'][
+                                  'flash_fwd'],
+                              lstm_ptb_train=ptb['kernel_launches'][
+                                  'flash_fwd'],
+                              gluon_lstm_train=gluon_lm['kernel_launches'][
                                   'flash_fwd']),
         max_abs_err=main_case['max_abs_err'],
         share_differ=main_case['share_differ'],
@@ -4754,6 +5852,10 @@ def main(argv=None):
                 resnet_serve=serve['launches'][('flash_bwd_dkdv',
                                                 'flash_bwd_dq')[i]],
                 gluon_train=gluon_run['kernel_launches'][
+                    ('flash_bwd_dkdv', 'flash_bwd_dq')[i]],
+                lstm_ptb_train=ptb['kernel_launches'][
+                    ('flash_bwd_dkdv', 'flash_bwd_dq')[i]],
+                gluon_lstm_train=gluon_lm['kernel_launches'][
                     ('flash_bwd_dkdv', 'flash_bwd_dq')[i]]),
             max_abs_err=main_case['max_abs_err'], ms=main_case['ms'],
             plain_ms=main_case['plain_ms'], bound_ms=main_case['bound_ms'],
@@ -4765,8 +5867,9 @@ def main(argv=None):
                 'bound_ms'],
             cases=per_case))
     kernels.append(conv_kernel_entry(conv, sass, resnet, module, serve,
-                                     bucketing, gluon_run))
-    kernels.append(rtc_kernel_entry(rtc_run))
+                                     bucketing, gluon_run, ptb, gluon_lm,
+                                     factories))
+    kernels.append(rtc_kernel_entry(rtc_run, ptb, gluon_lm))
     for kern in kernels:
         if kern['launches'] == 0:
             fail('its path launched no %s kernel' % kern['name'])

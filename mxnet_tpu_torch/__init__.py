@@ -22,7 +22,8 @@ far:
 - the symbolic path: `mx.sym` (`symbol`: Symbol, shape and dtype
   inference, the JAX package's JSON), `executor` (`simple_bind`, `bind`,
   forward, backward on torch autograd), the layers of `ops/nn.py`, the
-  model zoo's ResNet (`models`) and `profiler`. A bfloat16 ResNet-50
+  symbol factories of `models` (ResNet, ResNeXt, Inception-v3 and -BN,
+  VGG, AlexNet, LeNet, MLP) and `profiler`. A bfloat16 ResNet-50
   trains on the card with `mx.models.resnet.get_symbol(...,
   dtype='bfloat16').simple_bind(mx.gpu(0), data=(256, 3, 224, 224))`,
   its train-mode conv -> BatchNorm pairs on the conv + statistics kernel;
@@ -35,8 +36,13 @@ far:
   on the device (`metric.device_fold`); the executor's stem split and
   ctx_group placement (`group2ctx`);
 - Gluon (`mx.gluon`): Parameter, Block, HybridBlock and `hybridize`,
-  the layers of `gluon.nn`, the losses, Trainer, the data pipeline and
-  the vision model zoo;
+  the layers of `gluon.nn`, the recurrent cells and layers of
+  `gluon.rnn`, the losses, Trainer, the data pipeline and the vision
+  model zoo;
+- recurrent networks: `mx.rnn` (the symbolic cells, `FusedRNNCell` over
+  the fused `RNN` op, `BucketSentenceIter`, rnn checkpoints) and
+  `init.FusedRNN`; the PTB LSTM language model trains through
+  `BucketingModule` on `gpu(0)`;
 - serving: `predictor.Predictor` (checkpoints, forward only) and
   `serving.InferenceEngine` (a shape-bucket ladder, a dynamic batcher,
   staging and completion on their own streams, int8 or bf16 weight
@@ -93,6 +99,7 @@ from . import quantization
 from . import predictor
 from . import serving
 from . import gluon
+from . import rnn
 
 __all__ = ['AttrScope', 'Context', 'DataBatch', 'DataDesc', 'DataIter',
            'Executor', 'FeedForward', 'MXNetError', 'Module', 'NDArrayIter',
@@ -101,5 +108,5 @@ __all__ = ['AttrScope', 'Context', 'DataBatch', 'DataDesc', 'DataIter',
            'gluon', 'gpu', 'init', 'initializer', 'io', 'lr_scheduler', 'metric',
            'mod', 'model', 'models', 'module', 'mon', 'monitor', 'nd',
            'ndarray', 'num_gpus', 'optimizer', 'predictor', 'profiler',
-           'quantization', 'random', 'recordio', 'resolve_device', 'rtc',
-           'serving', 'sym', 'symbol', 'tpu']
+           'quantization', 'random', 'recordio', 'resolve_device', 'rnn',
+           'rtc', 'serving', 'sym', 'symbol', 'tpu']

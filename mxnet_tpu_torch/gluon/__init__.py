@@ -2,7 +2,7 @@
 mxnet_tpu/gluon/ (reference python/mxnet/gluon/).
 
 `fused` (FusedStep, fuse_step) waits for the port's parallel/ (Queue A
-6) and `rnn` for the recurrent cells (Queue A 4b): both raise.
+6): it raises.
 """
 from ..base import unported
 from .parameter import Parameter, Constant, ParameterDict, \
@@ -14,6 +14,7 @@ from . import loss
 from . import utils
 from . import data
 from . import model_zoo
+from . import rnn
 
 
 class FusedStep:
@@ -27,8 +28,3 @@ class FusedStep:
 def fuse_step(*args, **kwargs):
     raise unported('gluon.fuse_step (gluon/fused.py)', '6')
 
-
-def __getattr__(name):
-    if name == 'rnn':
-        raise unported('gluon.rnn', '4b')
-    raise AttributeError('module %r has no attribute %r' % (__name__, name))

@@ -151,12 +151,51 @@ class LSTMBias(Initializer):
 
 @register
 class FusedRNN(Initializer):
-    """The flat parameter vector of a fused RNN op: needs the port's
-    rnn/, which is not there yet."""
+    """The flat parameter vector of a fused RNN op: unpacked into its
+    per-layer weight and bias blocks, each initialised by `init` (or the
+    global initializer in scope) and the LSTM's i2h biases by
+    LSTMBias(forget_bias), then packed again."""
 
     def __init__(self, init, num_hidden, num_layers, mode,
                  bidirectional=False, forget_bias=1.0):
-        raise base.unported('FusedRNN (rnn/)', '4')
+        if init is not None and not isinstance(init, str):
+            init = init.dumps()
+        super().__init__(init=init, num_hidden=num_hidden,
+                         num_layers=num_layers, mode=mode,
+                         bidirectional=bidirectional,
+                         forget_bias=forget_bias)
+        self._init = init
+        self._num_hidden, self._num_layers = num_hidden, num_layers
+        self._mode, self._bidirectional = mode, bidirectional
+        self._forget_bias = forget_bias
+
+    def _init_weight(self, desc, arr):
+        from .rnn import rnn_cell
+        cell = rnn_cell.FusedRNNCell(
+            self._num_hidden, num_layers=self._num_layers, mode=self._mode,
+            bidirectional=self._bidirectional,
+            forget_bias=self._forget_bias, prefix='')
+        args = cell.unpack_weights({'parameters': arr})
+        inner = None
+        if self._init is not None:
+            klass, kwargs = json.loads(self._init)
+            inner = create(klass, **kwargs)
+        global_init = desc.global_init if isinstance(desc, InitDesc) \
+            else None
+        lstm_bias = LSTMBias(self._forget_bias) if self._mode == 'lstm' \
+            else None
+        for name, block in args.items():
+            sub_desc = InitDesc(name, global_init=global_init)
+            if lstm_bias is not None and name.endswith('i2h_bias'):
+                lstm_bias._init_weight(sub_desc, block)
+            elif inner is not None:
+                inner(sub_desc, block)
+            else:
+                assert global_init is not None, (
+                    'FusedRNN needs either an explicit init or a '
+                    'global initializer in scope')
+                global_init(sub_desc, block)
+        arr[:] = cell.pack_weights(args)['parameters']
 
 
 @register

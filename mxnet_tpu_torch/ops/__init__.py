@@ -2,7 +2,8 @@
 
 Importing this package registers the ops the port has so far: the
 tensor ops (`tensor`), the samplers (`random_ops`), the layers of
-ResNet-50 (`nn`) and the optimizer updates (`optimizer_ops`), under the names of their JAX namesakes in
+ResNet-50 (`nn`), the optimizer updates (`optimizer_ops`) and the fused
+RNN (`rnn_op`), under the names of their JAX namesakes in
 mxnet_tpu/ops/.
 """
 from . import registry
@@ -10,6 +11,7 @@ from . import tensor
 from . import random_ops
 from . import nn
 from . import optimizer_ops
+from . import rnn_op
 
 from .registry import get, exists, list_ops, register, OpDef, OpContext
 

@@ -390,7 +390,7 @@ def batch_norm(attrs, inputs, auxs, op_ctx, sums=None):
 
 register('BatchNorm', input_names=('data', 'gamma', 'beta',
                                    'moving_mean', 'moving_var'),
-         num_aux=2, mutable_aux=True,
+         num_aux=2, mutable_aux=True, mode_dependent=True,
          infer_shape=_bn_infer_shape, infer_dtype=_bn_infer_dtype,
          hint='batchnorm',
          num_outputs=lambda attrs: 3 if asbool(
@@ -611,23 +611,27 @@ def _lrn(attrs, data):
 # context's generator, identity when not training (mode 'always': always)
 # ---------------------------------------------------------------------------
 
+def dropout(data, p, rng):
+    """data with each element kept with probability 1 - p and scaled by
+    1 / (1 - p), the mask drawn from the generator `rng`."""
+    keep = 1.0 - p
+    if data.device.type == 'meta':
+        return data / keep
+    u = torch.rand(data.shape, generator=rng, device=data.device)
+    return torch.where(u < keep, data / keep, torch.zeros_like(data))
+
+
 def _dropout_compute(attrs, inputs, auxs, op_ctx):
     data, = inputs
     p = asfloat(attrs.get('p', 0.5))
     mode = str(parse_attr_value(attrs.get('mode', 'training')))
     if (op_ctx.is_train or mode == 'always') and p > 0:
-        keep = 1.0 - p
-        if data.device.type == 'meta':
-            return [data / keep], []
-        u = torch.rand(data.shape, generator=op_ctx.rng,
-                       device=data.device)
-        return [torch.where(u < keep, data / keep,
-                            torch.zeros_like(data))], []
+        return [dropout(data, p, op_ctx.rng)], []
     return [data], []
 
 
 register('Dropout', input_names=('data',), needs_rng=True,
-         hint='dropout', simple=False)(_dropout_compute)
+         mode_dependent=True, hint='dropout', simple=False)(_dropout_compute)
 
 
 # ---------------------------------------------------------------------------

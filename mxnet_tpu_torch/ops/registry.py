@@ -83,7 +83,7 @@ class OpDef:
 
     def __init__(self, name, fcompute, input_names=('data',), num_aux=0,
                  num_outputs=1, output_names=None, infer_shape=None,
-                 infer_dtype=None, needs_rng=False,
+                 infer_dtype=None, needs_rng=False, mode_dependent=False,
                  mutable_aux=False, hint=None, shape_rule=None,
                  needs_out_shapes=False, infer_shape_bwd=None,
                  aux_always=False):
@@ -96,6 +96,9 @@ class OpDef:
         self.infer_shape_fn = infer_shape
         self.infer_dtype_fn = infer_dtype
         self.needs_rng = needs_rng
+        # the compute reads op_ctx.is_train (the fused RNN's dropout); a
+        # registration flag kept as the JAX package keeps it
+        self.mode_dependent = mode_dependent
         self.mutable_aux = mutable_aux
         # aux states mutate whatever the mode (optimizer update ops)
         self.aux_always = aux_always
@@ -215,7 +218,7 @@ _OP_ALIASES = {}
 
 def register(name, input_names=('data',), num_aux=0, num_outputs=1,
              output_names=None, infer_shape=None, infer_dtype=None,
-             needs_rng=False, mutable_aux=False,
+             needs_rng=False, mode_dependent=False, mutable_aux=False,
              aliases=(), hint=None, simple=True, shape_rule=None,
              needs_out_shapes=False, infer_shape_bwd=None,
              aux_always=False):
@@ -239,7 +242,7 @@ def register(name, input_names=('data',), num_aux=0, num_outputs=1,
         op = OpDef(name, fcompute, input_names=input_names, num_aux=num_aux,
                    num_outputs=num_outputs, output_names=output_names,
                    infer_shape=infer_shape, infer_dtype=infer_dtype,
-                   needs_rng=needs_rng,
+                   needs_rng=needs_rng, mode_dependent=mode_dependent,
                    mutable_aux=mutable_aux, hint=hint,
                    shape_rule=shape_rule, needs_out_shapes=needs_out_shapes,
                    infer_shape_bwd=infer_shape_bwd, aux_always=aux_always)

@@ -102,7 +102,7 @@ def test_nn_op_registers_as_its_jax_namesake(name):
     mine, theirs = reg.get(name), jreg.get(name)
     attrs = {'no_bias': False, 'output_mean_var': True}
     for attr in ('num_aux', 'hint', 'mutable_aux', 'shape_rule',
-                 'needs_rng'):
+                 'needs_rng', 'mode_dependent'):
         assert getattr(mine, attr) == getattr(theirs, attr), attr
     for method in ('input_names', 'arg_names', 'aux_names', 'num_outputs',
                    'output_names'):

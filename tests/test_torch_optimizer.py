@@ -584,5 +584,24 @@ def test_name_dispatch_matches_jax():
 
 
 def test_fused_rnn_initializer_raises():
-    with pytest.raises(mx.MXNetError, match='Queue A 4'):
-        tinit.FusedRNN(None, 8, 1, 'lstm')
+    """FusedRNN against the JAX initializer: its dumps() and the flat
+    vector it gives under Orthogonal (numpy's global draws) and LSTMBias
+    are the JAX initializer's, bit for bit; without an inner init and a
+    global initializer in scope it raises, as the JAX one does."""
+    assert tinit.FusedRNN(None, 8, 1, 'lstm').dumps() == \
+        jinit.FusedRNN(None, 8, 1, 'lstm').dumps()
+    out = []
+    for p, ctx in ((tinit, mx.cpu()), (jinit, jmx.cpu())):
+        fused = p.FusedRNN(p.Orthogonal(), 8, 2, 'lstm', bidirectional=True,
+                           forget_bias=1.5)
+        arr = (mx if p is tinit else jmx).nd.zeros((2816,), ctx=ctx)
+        np.random.seed(5)
+        p.Uniform()(p.InitDesc('lstm_parameters',
+                               attrs={'__init__': fused.dumps()}), arr)
+        out.append(arr.asnumpy())
+    np.testing.assert_array_equal(out[0], out[1])
+    for p, ctx in ((tinit, mx.cpu()), (jinit, jmx.cpu())):
+        arr = (mx if p is tinit else jmx).nd.zeros((2816,), ctx=ctx)
+        with pytest.raises(AssertionError, match='global initializer'):
+            p.FusedRNN(None, 8, 2, 'lstm', bidirectional=True)._init_weight(
+                p.InitDesc('lstm_parameters'), arr)
