@@ -12,6 +12,9 @@
     python3 chip_smoke.py --phases 13          # build, Gluon only
     python3 chip_smoke.py --phases 14,15,16    # build, the PTB LSTM LM,
                                                # gluon.rnn, the factories
+    python3 chip_smoke.py --phases 17,18,19    # build, the last 50 ops,
+                                               # ImageRecordIter -> fit,
+                                               # VGG16-SSD300
     python3 chip_smoke.py --mutants            # phases 2, 4 and 6 against
                                                # broken kernels
 
@@ -214,7 +217,47 @@ Phases, each of which exits non-zero on failure:
    conditioned weights (gated as phase 9 gates it) and on He-normal ones
    (reported). LeNet, MLP (1x28x28, batch 64), AlexNet, VGG-16 and
    Inception-BN (224, batch 32-64) one float32 step each, and a batch of
-   2 on the card against cpu(0). Gated by factories_gate.
+   2 on the card against cpu(0). Gated by factories_gate;
+17. contrib: every name of ops/extra.py, ops/spatial.py and
+   ops/contrib_ops.py (50 with the aliases) and the case table's
+   variants (tools/op_consistency.py) on gpu(0) against cpu(0), forward
+   and gradient, at the sizes of the examples that use them
+   (MultiBoxPrior on SSD300's six maps, MultiBoxTarget and Detection at
+   8,732 anchors and batch 32, Proposal and MultiProposal at Faster
+   R-CNN's RPN, 300 rois, a 512-channel deformable 3x3 at 38x50, the
+   OCR example's CTC, 512 64x64 SPD matrices): integer, mask, id, order
+   and selection results equal, floats within their class; the host ms
+   of a call printed;
+18. record: RECORD_IMAGES seeded JPEGs (sides 256-500, 1,000 classes)
+   written on the card by recordio.pack_img (nvJPEG, quality 95) into a
+   .rec and .idx; mx.io.ImageRecordIter as
+   examples/image_classification/common/data.py makes it (shuffle, random
+   crop and mirror, 8 decode workers each on its own CUDA stream,
+   nvJPEG) feeds Module.fit on phase 10's bf16 ResNet-50 for 2 epochs of
+   6 batches, then score on the val iterator (resize 256, centre crop).
+   Gated by record_gate: 32 kernel launches a fit step, 0 in score; (a)
+   one step on an ImageRecordIter batch bit-equal to the same batch
+   through NDArrayIter; (b) each image of a batch decoded within 30 dB
+   PSNR of its pixels; (c) the augmentation on the card against cpu(0)
+   (crop and flip equal, resize within a level); (d) an epoch on 2
+   workers equal to one on 8; (e) the kernel against its plain version
+   at every pair shape of the step. Printed: fit images/s beside phase
+   10's, the iterator alone, nvJPEG's decode ms, the input stall, the
+   device-busy share, peak memory;
+19. ssd: 256 seeded detection JPEGs (1-6 boxes of 20 classes) written
+   on the card; mx.image.ImageDetIter (batch 32, 3x300x300, random crop
+   0.5, pad 0.5, mirror, mean) feeds Module.fit on
+   models.ssd.get_symbol_train(num_classes=20) in float32 (Xavier, SGD
+   lr 0.002, momentum 0.9, wd 5e-4) for 2 epochs of 8 batches; then the
+   detection symbol (nms 0.45, topk 400) on the trained weights. Gated
+   by ssd_gate: MultiBoxTarget and MultiBoxDetection on the card
+   against cpu(0) on one step's inputs (targets, masks, ids and order
+   equal, floats within 1e-5), a train step at batch 2 on the card
+   against cpu(0) within cpu(0)'s own spread, finite losses, no
+   hand-written kernel launched. Printed: step ms and images/s,
+   MultiBoxTarget's device ms, the detection forward's ms and NMS's,
+   kernel launches a step, the device-busy share, peak memory, the loc
+   loss by epoch.
 
 It prints one JSON line with every kernel's numbers, then the card's
 name and power limit from nvidia-smi, and last
@@ -234,6 +277,7 @@ tensor-core conv mutant, and the unchanged copy passes all four.
 """
 import json
 import math
+import random
 import subprocess
 import sys
 import time
@@ -496,7 +540,7 @@ CONV_SM90_MUTANTS = {
                          ': ' + _TRUNCATE + 'v[0], v[1]));'),
 }
 
-ALL_PHASES = frozenset(range(2, 17))
+ALL_PHASES = frozenset(range(2, 20))
 # phase 7: the imperative NDArray path's size (n x n inputs)
 ND_SIZE = 1024
 ND_HOST_CALLS = 2000
@@ -1359,13 +1403,14 @@ def conv_phase(torch, cuda_ops, cuda_conv, bench_conv_bn):
 
 
 def conv_kernel_entry(conv, sass, resnet, module, serve, bucketing,
-                      gluon_run, ptb, gluon_lm, factories):
+                      gluon_run, ptb, gluon_lm, factories, record):
     """The conv_bn_stats entry of the kernels line: times at the main
     case's shape from the bench, errors from the cases, launches from the
     ResNet-50 train steps of phase 9 (its main path), of phase 10's
     Module.fit, of phase 11's serving (0), of phase 12's bucket steps, of
-    phase 13's Gluon training (0), of phases 14 and 15's LSTM LMs (0)
-    and of phase 16's Inception-v3 and ResNeXt-50 steps."""
+    phase 13's Gluon training (0), of phases 14 and 15's LSTM LMs (0),
+    of phase 16's Inception-v3 and ResNeXt-50 steps and of phase 18's
+    Module.fit fed by ImageRecordIter."""
     xs, ws = CONV_CASES['main'][:2]
     main_shape = [xs[1], xs[3], ws[3], ws[0], CONV_CASES['main'][2][0]]
     bench = conv['bench']
@@ -1405,6 +1450,7 @@ def conv_kernel_entry(conv, sass, resnet, module, serve, bucketing,
                                   'inception_v3']['path_launches'],
                               resnext50_train=factories['bf16'][
                                   'resnext50']['path_launches'],
+                              imagerecord_fit=record['fit_launches'],
                               conv_bn_bench=bench['launches']),
         stem_split=resnet['stem_split'],
         launches_per_train_step=resnet['train_launches'],
@@ -1416,6 +1462,11 @@ def conv_kernel_entry(conv, sass, resnet, module, serve, bucketing,
                                   s2_rel_err=r['s2']['rel_err'])
                              for r in resnet['kernel_checks'] +
                              bucketing['kernel_checks']],
+        imagerecord_shape_checks=[dict(x=r['x'], w=r['w'],
+                                       stride=r['stride'], pairs=r['pairs'],
+                                       max_abs_err=r['y']['max_abs_err'],
+                                       ok=r['ok'])
+                                  for r in record['kernel_checks']],
         factory_shape_checks={
             name: [dict(x=r['x'], w=r['w'], stride=r['stride'],
                         pad=r['pad'], pairs=r['pairs'],
@@ -4669,7 +4720,6 @@ def ptb_corpus(mx, seed):
 
 def ptb_iter(mx, sentences, bucket_major=False):
     """BucketSentenceIter over the corpus, its shuffles seeded."""
-    import random
     random.seed(SEED + 300)
     np.random.seed(SEED + 301)
     return mx.rnn.BucketSentenceIter(sentences, PTB['batch'],
@@ -5637,6 +5687,801 @@ def factories_phase(torch, mx, cuda_conv, ctx=None):
     return run
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the last 50 op names of the registry
+# ---------------------------------------------------------------------------
+
+CONTRIB_EXAMPLE = True      # the case table's example sizes (False: small)
+
+
+def contrib_phase(torch, cuda_conv, cuda_ops, device='cuda'):
+    """Phase 17: every name of ops/extra.py, ops/spatial.py and
+    ops/contrib_ops.py (aliases included) and the table's variants on the
+    card against cpu(0), forward and gradient, at the sizes of the
+    examples that use them (tools/op_consistency.py's contrib cases);
+    integer, mask, id, order and selection results equal, floats within
+    their class; no hand-written kernel launched."""
+    from mxnet_tpu_torch.tools import op_consistency as oc
+    reset_hand_written(cuda_conv, cuda_ops)
+    t0 = time.perf_counter()
+    bad, host_ms = oc.run_contrib(torch, device, 'cpu',
+                                  example=CONTRIB_EXAMPLE, seed=SEED)
+    run = dict(names=len(oc.CONTRIB_NAMES),
+               variants=sorted(oc.CONTRIB_VARIANTS),
+               example_sizes=CONTRIB_EXAMPLE,
+               s=time.perf_counter() - t0, host_ms_a_call=host_ms,
+               mismatches=bad,
+               kernel_launches=hand_written_launches(cuda_conv, cuda_ops))
+    print('contrib ' + json.dumps(run))
+    for name, ms in sorted(host_ms.items(), key=lambda kv: -kv[1])[:12]:
+        print('contrib: %-36s %9.3f host ms a call on the card' % (name, ms))
+    if bad:
+        fail('contrib: %d cases disagree between the card and cpu(0): %s'
+             % (len(bad), bad))
+    if any(run['kernel_launches'].values()):
+        fail('contrib: hand-written kernels launched: %s'
+             % run['kernel_launches'])
+    print('contrib: %d names and %d variants agree on the card and cpu(0) '
+          'in %.1f s' % (run['names'], len(run['variants']), run['s']))
+    return run
+
+
+# ---------------------------------------------------------------------------
+# Phase 18: the train_imagenet input path (ImageRecordIter -> Module.fit)
+# ---------------------------------------------------------------------------
+
+RECORD_IMAGES = 1536        # 6 batches of RESNET_BATCH an epoch
+RECORD_SIDES = (256, 500)
+RECORD_QUALITY = 95
+RECORD_THREADS = 8          # preprocess_threads of the train iterator
+RECORD_GATE_THREADS = 2     # gate (d): the same epoch on fewer workers
+RECORD_EPOCHS = 2
+RECORD_VAL_RESIZE = 256
+RECORD_PSNR_DB = 30.0       # gate (b): a decoded image against its pixels
+RECORD_DECODE_TIMED = 64    # records decoded one by one for the decode ms
+
+
+def synthetic_image(torch, rng, label, classes, sides, device):
+    """A smooth seeded image (uint8 H x W x 3, OpenCV's BGR order) with an
+    ellipse whose colour is its class's, made on `device`."""
+    h, w = (int(v) for v in rng.integers(sides[0], sides[1] + 1, 2))
+    yy = torch.arange(h, device=device, dtype=torch.float32)[:, None]
+    xx = torch.arange(w, device=device, dtype=torch.float32)[None, :]
+    freq = rng.uniform(0.005, 0.03, (3, 2))
+    phase = rng.uniform(0, 2 * math.pi, 3)
+    chans = [128 + 60 * torch.sin(xx * float(freq[c, 0]) +
+                                  yy * float(freq[c, 1]) + float(phase[c]))
+             for c in range(3)]
+    img = torch.stack(chans, dim=2)
+    colour = torch.tensor([(label * 37) % 200 + 30, (label * 91) % 200 + 30,
+                           (label * 53) % 200 + 30], dtype=torch.float32,
+                          device=device)
+    cx, cy = rng.uniform(0.3, 0.7) * w, rng.uniform(0.3, 0.7) * h
+    rx, ry = rng.uniform(0.15, 0.3) * w, rng.uniform(0.15, 0.3) * h
+    d = ((xx - cx) / rx) ** 2 + ((yy - cy) / ry) ** 2
+    alpha = torch.sigmoid((1.0 - d) * 6.0)[:, :, None]
+    img = img * (1 - alpha) + colour * alpha
+    return img.round().clamp(0, 255).to(torch.uint8)
+
+
+def write_record_images(torch, mx, prefix, n, classes, ctx, keep=0):
+    """n seeded images packed by recordio.pack_img (nvJPEG on the card,
+    JPEG quality RECORD_QUALITY) into prefix.rec / prefix.idx with labels
+    i % classes; returns (seconds, the first `keep` images' pixels)."""
+    rng = np.random.default_rng(SEED + 180)
+    rec = mx.recordio.MXIndexedRecordIO(prefix + '.idx', prefix + '.rec',
+                                        'w')
+    kept = []
+    t0 = time.perf_counter()
+    for i in range(n):
+        label = i % classes
+        img = synthetic_image(torch, rng, label, classes, RECORD_SIDES,
+                              ctx.torch_device)
+        if i < keep:
+            kept.append(img)
+        header = mx.recordio.IRHeader(0, float(label), i, 0)
+        rec.write_idx(i, mx.recordio.pack_img(header, img,
+                                              quality=RECORD_QUALITY))
+    rec.close()
+    return time.perf_counter() - t0, kept
+
+
+def record_iter(mx, prefix, ctx, threads=RECORD_THREADS, train=True):
+    """examples/image_classification/common/data.py's iterators: the train
+    one shuffled with random crops and mirrors, the val one resized to
+    RECORD_VAL_RESIZE and centre-cropped."""
+    shape = tuple(int(v) for v in RESNET['image_shape'].split(','))
+    if train:
+        return mx.io.ImageRecordIter(
+            path_imgrec=prefix + '.rec', data_shape=shape,
+            batch_size=RESNET_BATCH, shuffle=True, rand_crop=True,
+            rand_mirror=True, preprocess_threads=threads, ctx=ctx)
+    return mx.io.ImageRecordIter(
+        path_imgrec=prefix + '.rec', data_shape=shape,
+        batch_size=RESNET_BATCH, resize=RECORD_VAL_RESIZE,
+        preprocess_threads=threads, ctx=ctx)
+
+
+def psnr_db(torch, got, ref):
+    mse = float(((got.double() - ref.double()) ** 2).mean())
+    return math.inf if mse == 0 else 10 * math.log10(255.0 ** 2 / mse)
+
+
+def decode_checks(torch, mx, prefix, kept, ctx):
+    """Gate (b): every kept image decoded on the card (BGR) against the
+    pixels that were encoded, by PSNR; beside it the host decoder's
+    (cv2) difference from nvJPEG's where cv2 imports; and the decode ms
+    an image of nvJPEG alone, one thread, RECORD_DECODE_TIMED records."""
+    from mxnet_tpu_torch.image import image as img_mod
+    rec = mx.recordio.MXIndexedRecordIO(prefix + '.idx', prefix + '.rec',
+                                        'r')
+    bufs = [mx.recordio.unpack(rec.read_idx(i))[1]
+            for i in range(max(len(kept), RECORD_DECODE_TIMED))]
+    psnrs, host = [], None
+    try:
+        import cv2
+    except ImportError:
+        cv2 = None
+    diffs = []
+    for buf, src in zip(bufs, kept):
+        dec = img_mod.decode_tensor(buf, ctx.torch_device, to_rgb=False)
+        psnrs.append(psnr_db(torch, dec, src))
+        if cv2 is not None:
+            ref = cv2.imdecode(np.frombuffer(buf, np.uint8), 1)
+            d = np.abs(dec.cpu().numpy().astype(np.int32) - ref)
+            diffs.append((int(d.max()), float(d.mean())))
+    if diffs:
+        host = dict(decoder='cv2 %s' % cv2.__version__,
+                    max_abs_diff=max(m for m, _ in diffs),
+                    mean_abs_diff=float(np.mean([a for _, a in diffs])))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for buf in bufs[:RECORD_DECODE_TIMED]:
+        img_mod.decode_tensor(buf, ctx.torch_device)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / RECORD_DECODE_TIMED
+    return dict(images=len(psnrs), min_psnr_db=min(psnrs),
+                mean_psnr_db=float(np.mean(psnrs)), host_decoder=host,
+                nvjpeg_decode_ms_an_image=decode_ms,
+                mean_jpeg_bytes=float(np.mean([len(b) for b in bufs])))
+
+
+def augment_check(torch, mx, prefix, ctx):
+    """Gate (c): one decoded image through the train chain (random crop
+    and mirror) and through one that resizes first (RECORD_VAL_RESIZE),
+    on the card and on cpu(0), from the same pixels and the same seeded
+    draws: the crop and flip equal, the resize within 1 level."""
+    from mxnet_tpu_torch.image import image as img_mod
+    shape = tuple(int(v) for v in RESNET['image_shape'].split(','))
+    rec = mx.recordio.MXIndexedRecordIO(prefix + '.idx', prefix + '.rec',
+                                        'r')
+    buf = mx.recordio.unpack(rec.read_idx(0))[1]
+    dev = img_mod.decode_tensor(buf, ctx.torch_device)
+    host = dev.cpu()
+    out = {}
+    for name, kw in (('crop_mirror', dict(rand_crop=True, rand_mirror=True)),
+                     ('resize_crop_mirror', dict(resize=RECORD_VAL_RESIZE,
+                                                 rand_crop=True,
+                                                 rand_mirror=True))):
+        augs = img_mod.CreateAugmenter(shape, **kw)
+        results = []
+        for img in (dev, host):
+            with img_mod._seeded_aug_rng(SEED + 181):
+                for aug in augs:
+                    img = aug(img)[0]
+            results.append(img)
+        diff = float((results[0].cpu() - results[1]).abs().max())
+        out[name] = dict(max_abs_diff=diff, shape=list(results[1].shape))
+    return out
+
+
+def record_epoch(torch, it):
+    """One epoch of an iterator: (images, seconds, the batches' data and
+    labels as device tensors)."""
+    it.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batches = []
+    for batch in it:
+        batches.append((batch.data[0].handle, batch.label[0].handle))
+    torch.cuda.synchronize()
+    return (sum(d.shape[0] for d, _ in batches), time.perf_counter() - t0,
+            batches)
+
+
+def record_step_check(torch, mx, mod, prefix, ctx):
+    """Gate (a): the parameters after one step on the first batch of an
+    ImageRecordIter bit-equal to those after the same batch (its numbers
+    copied to the host) fed through NDArrayIter, from one state, under
+    deterministic cuDNN."""
+    it = record_iter(mx, prefix, ctx)
+    batch = it.next()
+    it.close()
+    x, y = batch.data[0].asnumpy(), batch.label[0].asnumpy()
+    snap = module_snapshot(mod)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        mod.forward_backward(batch)
+        mod.update()
+        fed = module_state(mod)
+        module_restore(mod, snap)
+        nd_batch = mx.io.NDArrayIter(x, y, batch_size=x.shape[0]).next()
+        mod.forward_backward(nd_batch)
+        mod.update()
+        ref = module_state(mod)
+        module_restore(mod, snap)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    unequal = sorted(k for k in ref if not torch.equal(fed[k], ref[k]))
+    return dict(compared=len(ref), unequal=unequal[:10],
+                equal=not unequal)
+
+
+def record_gate(run):
+    """Phase 18's gates; the list of what failed."""
+    bad = []
+    want = route_pairs(RESNET_PAIRS, run['stem_split'])
+    for i, n in enumerate(run['train_launches']):
+        if n != want:
+            bad.append('fit step %d launched the kernel %d times, expected '
+                       '%d' % (i, n, want))
+    if run['score_launches'] != 0:
+        bad.append('score launched the kernel %d times'
+                   % run['score_launches'])
+    if not run['score_finite']:
+        bad.append('score not finite: %s' % run['score'])
+    if not run['step_check']['equal']:
+        bad.append('(a) the ImageRecordIter step differs from the '
+                   'NDArrayIter step in %s' % run['step_check']['unequal'])
+    if run['decode']['min_psnr_db'] < RECORD_PSNR_DB:
+        bad.append('(b) a decoded image at %.2f dB < %.1f dB'
+                   % (run['decode']['min_psnr_db'], RECORD_PSNR_DB))
+    aug = run['augment']
+    if aug['crop_mirror']['max_abs_diff'] != 0:
+        bad.append('(c) the crop and flip differ on the card by %g'
+                   % aug['crop_mirror']['max_abs_diff'])
+    if aug['resize_crop_mirror']['max_abs_diff'] > 1:
+        bad.append('(c) the resize differs on the card by %g levels'
+                   % aug['resize_crop_mirror']['max_abs_diff'])
+    if not run['workers_equal']:
+        bad.append('(d) the epoch on %d workers differs from %d workers'
+                   % (RECORD_GATE_THREADS, RECORD_THREADS))
+    for r in run['kernel_checks']:
+        if not r['ok']:
+            bad.append('(e) the kernel at %s %s: %s' % (r['x'], r['w'], r))
+    if not run['finite']:
+        bad.append('a parameter or state is not finite after fit')
+    return bad
+
+
+def record_phase(torch, mx, cuda_conv, root, module=None, ctx=None):
+    """Phase 18: RECORD_IMAGES seeded JPEGs written on the card by
+    pack_img, ImageRecordIter (8 decode workers on their own streams)
+    feeding Module.fit on the bf16 ResNet-50 of phase 10, then score on
+    the val iterator; gated by record_gate."""
+    import shutil
+    from mxnet_tpu_torch import executor
+    phase_t0 = time.perf_counter()
+    ctx = ctx or mx.gpu(0)
+    torch.cuda.empty_cache()
+    work = root / 'build' / 'phase18'
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    prefix = str(work / 'train')
+    try:
+        write_s, kept = write_record_images(
+            torch, mx, prefix, RECORD_IMAGES, RESNET['num_classes'], ctx,
+            keep=RESNET_BATCH)
+        decode = decode_checks(torch, mx, prefix, kept, ctx)
+        del kept
+        augment = augment_check(torch, mx, prefix, ctx)
+
+        # the iterator alone, then gate (d): the same epoch on fewer
+        # workers (the shuffle from `random`, the draws from stream_seed)
+        mx.random.seed(SEED)
+        random.seed(SEED)
+        it8 = record_iter(mx, prefix, ctx)
+        images, iter_s, first = record_epoch(torch, it8)
+        it8.close()
+        random.seed(SEED)
+        it2 = record_iter(mx, prefix, ctx, threads=RECORD_GATE_THREADS)
+        _, _, second = record_epoch(torch, it2)
+        it2.close()
+        workers_equal = len(first) == len(second) and all(
+            torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+            for a, b in zip(first, second))
+        del first, second
+
+        # the main path: fit fed by ImageRecordIter, the count set to 0
+        # just before it and read just after
+        symbol, init = module_symbol_params(mx)
+        mod = mx.mod.Module(symbol, context=ctx)
+        random.seed(SEED + 1)
+        train = mx.io.prefetch_to_device(record_iter(mx, prefix, ctx),
+                                         size=MODULE_PREFETCH, device=ctx)
+        from mxnet_tpu_torch import profiler
+        profiler.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        cuda_conv.CONV_BN_STATS_LAUNCHES = 0
+        times, launches, _, stalls, train_metric = module_fit(
+            mx, cuda_conv, mod, train, init, RECORD_EPOCHS)
+        torch.cuda.synchronize()
+        fit_launches = cuda_conv.CONV_BN_STATS_LAUNCHES
+        fit_s = time.perf_counter() - t0
+        peak_bytes = torch.cuda.max_memory_allocated()
+        inputs = profiler.input_stats()
+        stall = train.stall_ms_per_batch()
+        train.close()
+        train.data_iter.close()
+        step_ms = median(step_intervals(times))
+
+        ex = mod._exec_group.executor
+        tensors = [ex.arg_dict[n].handle
+                   for n in mod._fused_updater.param_names] + \
+            [a.handle for a in ex.aux_dict.values()]
+        finite = all(bool(torch.isfinite(t).all()) for t in tensors)
+
+        # score on the val iterator launches no kernel
+        val = record_iter(mx, prefix, ctx, train=False)
+        cuda_conv.CONV_BN_STATS_LAUNCHES = 0
+        score = [(n, float(v)) for n, v in mod.score(val, ['acc', 'ce'])]
+        torch.cuda.synchronize()
+        score_launches = cuda_conv.CONV_BN_STATS_LAUNCHES
+        val.close()
+
+        step_check = record_step_check(torch, mx, mod, prefix, ctx)
+
+        # one fit step's profile, its batch from the iterator
+        it = record_iter(mx, prefix, ctx)
+        batch = it.next()
+        it.close()
+
+        def one_step():
+            mod.forward_backward(batch)
+            mod.update()
+            mod.update_metric(mx.metric.create('acc'), batch.label)
+        profile = resnet_profile(torch, one_step, step_ms)
+
+        # gate (e): the kernel against its plain version at every pair
+        # shape of the step
+        shape = tuple(int(v) for v in RESNET['image_shape'].split(','))
+        shapes = pair_shapes(symbol, RESNET_BATCH, shape, executor,
+                             pairs=dict(ex.pairs))
+        del mod, ex, batch, train
+        torch.cuda.empty_cache()
+        kernel_checks = resnet_kernel_checks(torch, cuda_conv, executor,
+                                             shapes, ctx.torch_device)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    nd_fit = module['step_ms_median'] if module else None
+    run = dict(
+        config=dict(images=RECORD_IMAGES, sides=list(RECORD_SIDES),
+                    quality=RECORD_QUALITY, classes=RESNET['num_classes'],
+                    batch=RESNET_BATCH, epochs=RECORD_EPOCHS,
+                    preprocess_threads=RECORD_THREADS, network=RESNET),
+        stem_split=stem_split_on(), write_s=write_s,
+        write_images_per_s=RECORD_IMAGES / write_s, decode=decode,
+        augment=augment, iterator_images_per_s=images / iter_s,
+        workers_equal=workers_equal, fit_s=fit_s,
+        train_launches=launches, fit_launches=fit_launches,
+        step_ms=step_intervals(times), step_ms_median=step_ms,
+        images_per_s=RESNET_BATCH / (step_ms / 1e3),
+        epoch_images_per_s=epoch_images_per_s(times, RECORD_IMAGES),
+        ndarrayiter_fit_step_ms=nd_fit,
+        ndarrayiter_fit_images_per_s=(RESNET_BATCH / (nd_fit / 1e3)
+                                      if nd_fit else None),
+        stall_ms_per_batch=stall, stall_ms=stalls,
+        input_stats=inputs,
+        decode_augment_ms_a_sample=(inputs['decode_ms'] /
+                                    max(inputs['decoded_samples'], 1)),
+        train_metric=train_metric, score=score,
+        score_finite=all(math.isfinite(v) for _, v in score),
+        score_launches=score_launches, peak_bytes=peak_bytes,
+        finite=finite, step_check=step_check,
+        device_busy_share=profile['device_busy_share'], profile=profile,
+        kernel_checks=kernel_checks, s=time.perf_counter() - phase_t0)
+    print('record ' + json.dumps(run))
+    bad = record_gate(run)
+    if bad:
+        fail('record: ' + '; '.join(bad))
+    print('record: ImageRecordIter -> fit %.1f ms a step (%.0f images/s; '
+          'a whole epoch %s images/s; NDArrayIter fit %s); the iterator '
+          'alone %.0f images/s; nvJPEG '
+          '%.3f ms an image; decode + augment %.3f host ms a sample; '
+          'stall %.2f ms a batch; device busy %.1f %%; peak %.2f GB; %s '
+          'kernel launches a step; lowest PSNR %.2f dB; the phase %.1f s'
+          % (step_ms, run['images_per_s'],
+             ['%.0f' % v for v in run['epoch_images_per_s']],
+             '%.1f ms' % nd_fit if nd_fit else 'not run',
+             run['iterator_images_per_s'],
+             decode['nvjpeg_decode_ms_an_image'],
+             run['decode_augment_ms_a_sample'], run['stall_ms_per_batch'],
+             100 * run['device_busy_share'], peak_bytes / 1e9,
+             sorted(set(launches)), decode['min_psnr_db'], run['s']))
+    return run
+
+
+def epoch_images_per_s(times, per_epoch):
+    """Images a second of each epoch after the first, from the last batch
+    end of the epoch before to its own (its reset, the pipeline's refill
+    and its steps), from module_fit's batch-end times."""
+    last = {}
+    for epoch, t in times:
+        last[epoch] = t
+    return [per_epoch / (last[e] - last[e - 1])
+            for e in sorted(last) if e - 1 in last]
+
+
+# ---------------------------------------------------------------------------
+# Phase 19: VGG16-SSD300 through ImageDetIter and Module.fit
+# ---------------------------------------------------------------------------
+
+SSD_IMAGES = 256            # 8 batches of SSD_BATCH an epoch
+SSD_SIDES = (300, 500)
+SSD_CLASSES = 20
+SSD_BATCH = 32
+SSD_SHAPE = (3, 300, 300)
+SSD_EPOCHS = 2
+# examples/ssd/train_ssd.py's SGD, with each gradient element clipped to
+# 1: from a random start (no pretrained VGG) the loc loss's gradient,
+# which MakeLoss does not divide by the valid count in either package,
+# blows the weights up within a few steps (the JAX package's too)
+SSD_OPT = dict(learning_rate=0.002, momentum=0.9, wd=5e-4,
+               clip_gradient=1.0)
+SSD_AUG = dict(rand_crop=0.5, rand_pad=0.5, rand_mirror=True, mean=True)
+SSD_THREADS = 8
+SSD_NMS = dict(nms_thresh=0.45, nms_topk=400)
+SSD_TOL = 1e-5              # MultiBoxTarget / Detection, card against cpu(0)
+SSD_CPU_BATCH = 2           # the train step on the card against cpu(0)
+SSD_CHAOS_NUDGE = 2.0 ** -22
+SSD_CHAOS_FACTOR, SSD_CHAOS_SLACK = 2.0, 0.005
+SSD_TIMED = 3               # timed detection forwards, after one warm-up
+
+
+def write_det_images(torch, mx, prefix, n, ctx):
+    """n seeded detection images (sides SSD_SIDES, 1-6 boxes of
+    SSD_CLASSES classes drawn as coloured rectangles on a smooth field,
+    JPEG by pack_img), labels packed as tools/im2rec.py packs them:
+    [2, 5, cls, x1, y1, x2, y2, ...] in normalised corners."""
+    rng = np.random.default_rng(SEED + 190)
+    rec = mx.recordio.MXIndexedRecordIO(prefix + '.idx', prefix + '.rec',
+                                        'w')
+    for i in range(n):
+        img = synthetic_image(torch, rng, i % SSD_CLASSES, SSD_CLASSES,
+                              SSD_SIDES, ctx.torch_device).float()
+        h, w = img.shape[:2]
+        label = [2, 5]
+        for _ in range(int(rng.integers(1, 7))):
+            cls = int(rng.integers(0, SSD_CLASSES))
+            bw, bh = rng.uniform(0.1, 0.5, 2)
+            x1, y1 = rng.uniform(0, 1 - bw), rng.uniform(0, 1 - bh)
+            colour = torch.tensor([(cls * 37) % 200 + 30,
+                                   (cls * 91) % 200 + 30,
+                                   (cls * 53) % 200 + 30],
+                                  dtype=torch.float32, device=img.device)
+            img[int(y1 * h):int((y1 + bh) * h),
+                int(x1 * w):int((x1 + bw) * w)] = colour
+            label += [cls, x1, y1, x1 + bw, y1 + bh]
+        header = mx.recordio.IRHeader(0, np.array(label, np.float32), i, 0)
+        rec.write_idx(i, mx.recordio.pack_img(
+            header, img.to(torch.uint8), quality=RECORD_QUALITY))
+    rec.close()
+
+
+def ssd_loss_metric(mx):
+    """An EvalMetric of the loc loss of a batch (the sum of loc_loss over
+    the positive anchors' count, the reference's SmoothL1 of
+    MultiBoxMetric) and the class cross-entropy over the non-ignored
+    anchors."""
+    class Metric(mx.metric.EvalMetric):
+        def __init__(self):
+            super().__init__(['loc_loss', 'cls_ce'])
+
+        def reset(self):
+            self.num_inst = 0
+            self.sum_metric = 0.0
+            self.loc, self.ce, self.n = 0.0, 0.0, 0
+            self._pending_device = None
+
+        def update(self, labels, preds):
+            cls_prob, loc_loss, cls_label = (p.handle for p in preds)
+            pos = (cls_label > 0).sum().clamp(min=1)
+            valid = cls_label >= 0
+            lab = cls_label.clamp(min=0).long()
+            p = cls_prob.gather(1, lab[:, None]).squeeze(1)
+            ce = -(p.clamp(min=1e-12).log() * valid).sum() / \
+                valid.sum().clamp(min=1)
+            self.loc += float(loc_loss.sum() / pos)
+            self.ce += float(ce)
+            self.n += 1
+
+        def get(self):
+            if not self.n:
+                return (['loc_loss', 'cls_ce'], [math.nan, math.nan])
+            return (['loc_loss', 'cls_ce'],
+                    [self.loc / self.n, self.ce / self.n])
+    return Metric()
+
+
+def ssd_internals(mx, symbol):
+    """The head's cls_preds, loc_preds and anchors as one symbol."""
+    internals = symbol.get_internals()
+    return mx.sym.Group([internals['multibox_cls_pred_output'],
+                         internals['multibox_loc_pred_output'],
+                         internals['multibox_anchors_output']])
+
+
+def ssd_head_outputs(mx, symbol, args, data, ctx):
+    """(cls_preds, loc_preds, anchors) of the trained head on `data`."""
+    heads = ssd_internals(mx, symbol)
+    ex = heads.simple_bind(ctx, grad_req='null', data=tuple(data.shape))
+    ex.copy_params_from(args, {}, allow_extra_params=True)
+    ex.arg_dict['data'][:] = data
+    return [o.handle for o in ex.forward(is_train=False)]
+
+
+def ssd_op_checks(torch, mx, cls_preds, loc_preds, anchors, label):
+    """MultiBoxTarget (the train symbol's attrs) and MultiBoxDetection
+    (the detection symbol's) on the card against cpu(0) on the same
+    inputs: targets, masks, ids and order equal, floats within
+    SSD_TOL."""
+    from mxnet_tpu_torch.ops import contrib_ops as co
+    anchors2 = anchors.reshape(-1, 4)
+    target_args = (0.5, -1.0, 3.0, 0.5, 0, (0.1, 0.1, 0.2, 0.2))
+    got = co.multibox_target(anchors2, label, cls_preds, *target_args)
+    ref = co.multibox_target(anchors2.cpu(), label.cpu(), cls_preds.cpu(),
+                             *target_args)
+    cls_prob = torch.softmax(cls_preds, dim=1)
+    det_args = (0.01, True, (0.1, 0.1, 0.2, 0.2), SSD_NMS['nms_thresh'],
+                False, SSD_NMS['nms_topk'])
+    det = co.multibox_detection(cls_prob, loc_preds, anchors2, *det_args)
+    det_ref = co.multibox_detection(cls_prob.cpu(), loc_preds.cpu(),
+                                    anchors2.cpu(), *det_args)
+    out = dict(
+        loc_target_max_abs_err=float((got[0].cpu() - ref[0]).abs().max()),
+        loc_mask_equal=bool(torch.equal(got[1].cpu(), ref[1])),
+        cls_target_equal=bool(torch.equal(got[2].cpu(), ref[2])),
+        positives=int((ref[2] > 0).sum()),
+        ids_equal=bool(torch.equal(det[..., 0].cpu(), det_ref[..., 0])),
+        kept=int((det_ref[..., 0] >= 0).sum()),
+        detection_max_abs_err=float((det.cpu() - det_ref).abs().max()))
+    out['ok'] = (out['loc_mask_equal'] and out['cls_target_equal'] and
+                 out['ids_equal'] and
+                 out['loc_target_max_abs_err'] <= SSD_TOL and
+                 out['detection_max_abs_err'] <= SSD_TOL)
+    return out
+
+
+def ssd_cpu_check(torch, mx, symbol, args, data, label, ctx):
+    """One train step at batch SSD_CPU_BATCH on the card against cpu(0),
+    float32, from the trained weights: cls_label equal, and the
+    gradients' median relative error within SSD_CHAOS_FACTOR times
+    cpu(0)'s own under a SSD_CHAOS_NUDGE nudge of the input, plus
+    SSD_CHAOS_SLACK (VGG's ReLU masks flip under rounding)."""
+    shapes = dict(data=tuple(data.shape), label=tuple(label.shape))
+    req = {n: 'null' if n in ('data', 'label') else 'write'
+           for n in symbol.list_arguments()}
+
+    host_label = label.asnumpy()
+
+    def step(c, x):
+        ex = symbol.simple_bind(c, grad_req=req, **shapes)
+        ex.copy_params_from({k: v.as_in_context(c) for k, v in args.items()},
+                            {}, allow_extra_params=True)
+        ex.arg_dict['data'][:] = x
+        ex.arg_dict['label'][:] = host_label
+        ex.forward_backward()
+        return ([o.asnumpy() for o in ex.outputs],
+                {n: g.asnumpy() for n, g in ex.grad_dict.items()})
+    host = data.asnumpy()
+    g_outs, g_grads = step(ctx, host)
+    c_outs, c_grads = step(mx.cpu(), host)
+    _, n_grads = step(mx.cpu(), host * np.float32(1 + SSD_CHAOS_NUDGE))
+
+    def rel(a, b):
+        return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+    own = float(np.median([rel(n_grads[k], g) for k, g in c_grads.items()]))
+    port = float(np.median([rel(g_grads[k], g) for k, g in c_grads.items()]))
+    finite = all(np.isfinite(g).all() for g in g_grads.values())
+    return dict(batch=int(data.shape[0]), grad_median_rel=port,
+                cpu_own_spread=own,
+                bound=SSD_CHAOS_FACTOR * own + SSD_CHAOS_SLACK,
+                cls_label_equal=bool(np.array_equal(g_outs[2], c_outs[2])),
+                cls_prob_max_abs_err=float(np.abs(g_outs[0] - c_outs[0])
+                                           .max()),
+                finite=finite,
+                ok=finite and bool(np.array_equal(g_outs[2], c_outs[2])) and
+                port <= SSD_CHAOS_FACTOR * own + SSD_CHAOS_SLACK)
+
+
+def ssd_detect(torch, mx, args, ctx):
+    """The detection symbol on the trained weights: the forward's median
+    host ms over SSD_TIMED runs and the NMS host ms inside one of them
+    (nms_keep timed around its call)."""
+    from mxnet_tpu_torch.ops import contrib_ops as co
+    det = mx.models.ssd.get_symbol(num_classes=SSD_CLASSES, **SSD_NMS)
+    ex = det.simple_bind(ctx, grad_req='null',
+                         data=(SSD_BATCH,) + SSD_SHAPE)
+    ex.copy_params_from(args, {}, allow_extra_params=True)
+    rng = np.random.default_rng(SEED + 191)
+    ex.arg_dict['data'][:] = rng.standard_normal(
+        (SSD_BATCH,) + SSD_SHAPE).astype(np.float32)
+    ex.forward(is_train=False)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(SSD_TIMED):
+        t0 = time.perf_counter()
+        out = ex.forward(is_train=False)[0].handle
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    nms_ms = []
+    keep = co.nms_keep
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = keep(*a, **k)
+        torch.cuda.synchronize()
+        nms_ms.append((time.perf_counter() - t) * 1e3)
+        return r
+    co.nms_keep = timed
+    try:
+        out = ex.forward(is_train=False)[0].handle
+        torch.cuda.synchronize()
+    finally:
+        co.nms_keep = keep
+    return dict(forward_ms=times, forward_ms_median=median(times),
+                nms_ms=sum(nms_ms), rows=list(out.shape),
+                kept=int((out[..., 0] >= 0).sum()),
+                finite=bool(torch.isfinite(out).all()))
+
+
+def ssd_gate(run):
+    bad = []
+    if any(run['kernel_launches'].values()):
+        bad.append('hand-written kernels launched: %s'
+                   % run['kernel_launches'])
+    if not all(math.isfinite(v) for v in run['loc_loss_by_epoch'] +
+               run['cls_ce_by_epoch']):
+        bad.append('a loss is not finite: %s %s' % (
+            run['loc_loss_by_epoch'], run['cls_ce_by_epoch']))
+    if not run['ops']['ok']:
+        bad.append('MultiBoxTarget / Detection on the card differ from '
+                   'cpu(0): %s' % run['ops'])
+    if not run['cpu']['ok']:
+        bad.append('the train step on the card against cpu(0): %s'
+                   % run['cpu'])
+    if not run['detect']['finite']:
+        bad.append('the detections are not finite')
+    if run['anchors'] != run['expected_anchors']:
+        bad.append('%d anchors, expected %d' % (run['anchors'],
+                                                run['expected_anchors']))
+    return bad
+
+
+def ssd_phase(torch, mx, cuda_conv, cuda_ops, root, ctx=None):
+    """Phase 19: VGG16-SSD300 (models.ssd.get_symbol_train, 20 classes,
+    float32) trained by Module.fit from ImageDetIter (random crop, pad and
+    mirror, the mean subtracted) on SSD_IMAGES seeded JPEGs written on
+    the card, then the detection symbol on the trained weights; gated by
+    ssd_gate."""
+    import shutil
+    phase_t0 = time.perf_counter()
+    ctx = ctx or mx.gpu(0)
+    torch.cuda.empty_cache()
+    work = root / 'build' / 'phase19'
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    prefix = str(work / 'det')
+    try:
+        t0 = time.perf_counter()
+        write_det_images(torch, mx, prefix, SSD_IMAGES, ctx)
+        write_s = time.perf_counter() - t0
+        random.seed(SEED + 2)
+        mx.random.seed(SEED)
+        det_iter = mx.image.ImageDetIter(
+            batch_size=SSD_BATCH, data_shape=SSD_SHAPE,
+            path_imgrec=prefix + '.rec', shuffle=True,
+            preprocess_threads=SSD_THREADS, ctx=ctx, **SSD_AUG)
+        symbol = mx.models.ssd.get_symbol_train(num_classes=SSD_CLASSES)
+        _, outs, _ = symbol.infer_shape(
+            data=(1,) + SSD_SHAPE, label=(1, det_iter.max_objects, 5))
+        anchors = outs[0][2]
+        mod = mx.mod.Module(symbol, data_names=('data',),
+                            label_names=('label',), context=ctx)
+        train = mx.io.prefetch_to_device(det_iter, size=MODULE_PREFETCH,
+                                         device=ctx)
+        metric = ssd_loss_metric(mx)
+        times, epoch_losses = [], []
+
+        def record(param):
+            times.append((param.epoch, time.perf_counter()))
+
+        def epoch_end(epoch, *args):
+            epoch_losses.append(dict(metric.get_name_value()))
+        reset_hand_written(cuda_conv, cuda_ops)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        mod.fit(train, eval_metric=metric, optimizer='sgd',
+                optimizer_params=SSD_OPT, initializer=mx.init.Xavier(),
+                batch_end_callback=[record], epoch_end_callback=epoch_end,
+                num_epoch=SSD_EPOCHS)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = hand_written_launches(cuda_conv, cuda_ops)
+        peak_bytes = torch.cuda.max_memory_allocated()
+        stall = train.stall_ms_per_batch()
+        train.close()
+        step_ms = median(step_intervals(times))
+        args, _ = mod.get_params()
+
+        # one step's profile and MultiBoxTarget's share, on a batch of
+        # the iterator
+        det_iter.reset()
+        batch = det_iter.next()
+        det_iter.close()
+
+        def one_step():
+            mod.forward_backward(batch)
+            mod.update()
+        profile = resnet_profile(torch, one_step, step_ms)
+        step_launches = sum(c['launches']
+                            for c in profile['classes'].values())
+        cls_preds, loc_preds, anc = ssd_head_outputs(
+            mx, symbol, args, batch.data[0], ctx)
+        label = batch.label[0].handle
+        from mxnet_tpu_torch.ops import contrib_ops as co
+        from mxnet_tpu_torch.tools import bench_conv_bn as bench
+        mbt_ms = bench.cuda_ms(lambda: co.multibox_target(
+            anc.reshape(-1, 4), label, cls_preds, 0.5, -1.0, 3.0, 0.5, 0,
+            (0.1, 0.1, 0.2, 0.2)), 5)
+        ops = ssd_op_checks(torch, mx, cls_preds, loc_preds, anc, label)
+        detect = ssd_detect(torch, mx, args, ctx)
+        cpu = ssd_cpu_check(torch, mx, symbol, args,
+                            batch.data[0][:SSD_CPU_BATCH],
+                            batch.label[0][:SSD_CPU_BATCH], ctx)
+        del mod, batch, train
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    run = dict(
+        config=dict(images=SSD_IMAGES, sides=list(SSD_SIDES),
+                    classes=SSD_CLASSES, batch=SSD_BATCH,
+                    data_shape=list(SSD_SHAPE), epochs=SSD_EPOCHS,
+                    optimizer='sgd', **SSD_OPT, threads=SSD_THREADS,
+                    augment=SSD_AUG, **SSD_NMS),
+        anchors=anchors, expected_anchors=8096, write_s=write_s,
+        fit_s=fit_s, step_ms=step_intervals(times), step_ms_median=step_ms,
+        images_per_s=SSD_BATCH / (step_ms / 1e3),
+        epoch_images_per_s=epoch_images_per_s(times, SSD_IMAGES),
+        stall_ms_per_batch=stall,
+        multibox_target_device_ms=mbt_ms,
+        loc_loss_by_epoch=[e['loc_loss'] for e in epoch_losses],
+        cls_ce_by_epoch=[e['cls_ce'] for e in epoch_losses],
+        kernel_launches=launches, launches_a_step=step_launches,
+        device_busy_share=profile['device_busy_share'],
+        peak_bytes=peak_bytes, ops=ops, detect=detect, cpu=cpu,
+        profile=profile, s=time.perf_counter() - phase_t0)
+    print('ssd ' + json.dumps(run))
+    bad = ssd_gate(run)
+    if bad:
+        fail('ssd: ' + '; '.join(bad))
+    print('ssd: fit %.1f ms a step (%.1f images/s, %d anchors), '
+          'MultiBoxTarget %.3f ms of device time, %d kernel launches a '
+          'step, device busy %.1f %%, peak %.2f GB; detection forward %.1f '
+          'ms with NMS %.1f ms; loc loss by epoch %s; the phase %.1f s'
+          % (step_ms, run['images_per_s'], anchors, mbt_ms, step_launches,
+             100 * run['device_busy_share'], peak_bytes / 1e9,
+             detect['forward_ms_median'], detect['nms_ms'],
+             run['loc_loss_by_epoch'], run['s']))
+    return run
+
+
 def main(argv=None):
     import argparse
     parser = argparse.ArgumentParser(
@@ -5652,7 +6497,7 @@ def main(argv=None):
                                                     v.split(',')},
                         default=ALL_PHASES,
                         help='build, then run only these phases (a comma '
-                             'list of 2-16); the kernels line needs all')
+                             'list of 2-19); the kernels line needs all')
     parser.add_argument('--mutants', action='store_true',
                         help='check that phase 2\'s LM case fails each of '
                              'FWD_MUTANTS, phase 4\'s each of BWD_MUTANTS '
@@ -5672,7 +6517,7 @@ def main(argv=None):
         return
     phases = args.phases
     if not phases <= ALL_PHASES:
-        fail('--phases takes phases 2 to 16; got %s' % sorted(phases))
+        fail('--phases takes phases 2 to 19; got %s' % sorted(phases))
     sys.path.insert(0, str(root))
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import _build, cuda_conv, cuda_ops
@@ -5797,6 +6642,19 @@ def main(argv=None):
     if 16 in phases:
         factories = factories_phase(torch, mx, cuda_conv)
 
+    # 17. the last 50 op names, gpu(0) against cpu(0)
+    if 17 in phases:
+        contrib_phase(torch, cuda_conv, cuda_ops)
+
+    # 18. the train_imagenet input path: ImageRecordIter feeds Module.fit
+    if 18 in phases:
+        record = record_phase(torch, mx, cuda_conv, root,
+                              module if 10 in phases else None)
+
+    # 19. VGG16-SSD300 through ImageDetIter and Module.fit
+    if 19 in phases:
+        ssd_phase(torch, mx, cuda_conv, cuda_ops, root)
+
     if phases != ALL_PHASES:
         print('phases %s passed' % sorted(phases))
         return
@@ -5868,7 +6726,7 @@ def main(argv=None):
             cases=per_case))
     kernels.append(conv_kernel_entry(conv, sass, resnet, module, serve,
                                      bucketing, gluon_run, ptb, gluon_lm,
-                                     factories))
+                                     factories, record))
     kernels.append(rtc_kernel_entry(rtc_run, ptb, gluon_lm))
     for kern in kernels:
         if kern['launches'] == 0:

@@ -43,6 +43,12 @@ far:
   the fused `RNN` op, `BucketSentenceIter`, rnn checkpoints) and
   `init.FusedRNN`; the PTB LSTM language model trains through
   `BucketingModule` on `gpu(0)`;
+- images: `mx.image` (decoding, by nvJPEG on the card and cv2 or PIL on
+  the host, OpenCV's resize semantics, the augmenters, `ImageIter` and
+  `ImageDetIter` with a decode pool whose workers each run on their own
+  CUDA stream) and `io.ImageRecordIter`, which feeds `Module.fit` batches
+  made on the card; `recordio.pack_img` encodes with nvJPEG on the card;
+  the SSD detector (`models.ssd`) over the contrib MultiBox ops;
 - serving: `predictor.Predictor` (checkpoints, forward only) and
   `serving.InferenceEngine` (a shape-bucket ladder, a dynamic batcher,
   staging and completion on their own streams, int8 or bf16 weight
@@ -100,12 +106,13 @@ from . import predictor
 from . import serving
 from . import gluon
 from . import rnn
+from . import image
 
 __all__ = ['AttrScope', 'Context', 'DataBatch', 'DataDesc', 'DataIter',
            'Executor', 'FeedForward', 'MXNetError', 'Module', 'NDArrayIter',
            'NameManager', 'Optimizer', 'Prefix', 'attribute', 'autograd',
            'callback', 'cpu', 'current_context', 'exec_cache', 'executor',
-           'gluon', 'gpu', 'init', 'initializer', 'io', 'lr_scheduler', 'metric',
+           'gluon', 'gpu', 'image', 'init', 'initializer', 'io', 'lr_scheduler', 'metric',
            'mod', 'model', 'models', 'module', 'mon', 'monitor', 'nd',
            'ndarray', 'num_gpus', 'optimizer', 'predictor', 'profiler',
            'quantization', 'random', 'recordio', 'resolve_device', 'rnn',

@@ -17,8 +17,12 @@ consumer's stream wait on that event when it hands the batch out, and
 reads the staged tensor, so its memory is not reused for a later batch
 before the step that reads it has run.
 
-ImageRecordIter needs the port's image/ and the native decoder, which
-are not there yet: it raises.
+ImageRecordIter layers the port's image.ImageIter under a
+PrefetchingIter, as the JAX package's Python pipeline does: decode
+workers under a batch-prefetch thread, its batches made on the
+iterator's context (nvJPEG and the card on a GPU context). The native
+C++ pipeline (`use_native=True`) is the JAX package's libmxtpu.so, which
+the port does not have yet.
 """
 import queue
 import threading
@@ -30,6 +34,7 @@ import numpy as np
 import torch
 
 from . import ndarray as nd
+from . import profiler
 from .base import unported
 from .context import Context, cpu
 from .ndarray import NDArray
@@ -568,8 +573,10 @@ class PrefetchToDeviceIter(_StagedBatchMixin, DataIter):
             pad=batch.pad, index=batch.index, bucket_key=batch.bucket_key,
             provide_data=batch.provide_data,
             provide_label=batch.provide_label)
-        self.input_stall_ms += (time.perf_counter() - t0) * 1e3
+        stall_ms = (time.perf_counter() - t0) * 1e3
+        self.input_stall_ms += stall_ms
         self.batches_served += 1
+        profiler.add_input_stats(stall_ms=stall_ms, batches=1)
         return True
 
     def next(self):
@@ -626,15 +633,87 @@ class CSVIter(DataIter):
 
 
 class ImageRecordIter(DataIter):
-    """RecordIO image iterator: needs the port's image/ pipeline and the
-    native decoder, which are not there yet."""
+    """RecordIO image iterator with augmentation and prefetch (reference
+    src/io/iter_image_recordio_2.cc): image.ImageIter, its decode pool
+    of preprocess_threads workers, under a PrefetchingIter; mean_r/g/b
+    and std_r/g/b normalise, mean_img (a saved NDArray, CHW or HWC)
+    subtracts a mean image, resize resizes the shorter side first,
+    num_parts / part_index shard. The batches are made on `ctx` (the
+    current context when None: gpu(0) unless the caller is in
+    `with mx.cpu():`). use_native=True asks for the JAX package's C++
+    pipeline, which the port does not have: it raises."""
 
-    def __init__(self, *args, **kwargs):
-        raise unported('ImageRecordIter (image/ and the native decoder)',
-                       '4')
+    def __init__(self, path_imgrec, data_shape, batch_size,
+                 label_width=1, shuffle=False, rand_crop=False,
+                 rand_mirror=False, mean_img=None,
+                 mean_r=0, mean_g=0, mean_b=0,
+                 std_r=0, std_g=0, std_b=0,
+                 resize=0, num_parts=1, part_index=0,
+                 preprocess_threads=4, prefetch_buffer=4,
+                 seed=0, use_native=None,
+                 data_name='data', label_name='softmax_label', ctx=None,
+                 **kwargs):
+        super().__init__(batch_size)
+        if use_native:
+            raise unported('ImageRecordIter(use_native=True), the native '
+                           'C++ pipeline of libmxtpu.so', '7')
+        from .image import image as img_mod
+        mean = std = None
+        if mean_r or mean_g or mean_b:
+            mean = np.array([mean_r, mean_g, mean_b], np.float32)
+        if std_r or std_g or std_b:
+            std = np.array([std_r, std_g, std_b], np.float32)
+        aug_list = img_mod.CreateAugmenter(
+            tuple(data_shape), resize=resize, rand_crop=rand_crop,
+            rand_mirror=rand_mirror, mean=mean, std=std)
+        if mean_img is not None:
+            if not isinstance(mean_img, str):
+                raise ValueError('mean_img must be a path to a saved '
+                                 'NDArray mean image')
+            loaded = nd.load(mean_img, ctx=cpu())
+            marr = (list(loaded.values())[0] if isinstance(loaded, dict)
+                    else loaded[0]).asnumpy().astype(np.float32)
+            if marr.ndim == 3 and marr.shape[0] in (1, 3):
+                marr = marr.transpose(1, 2, 0)  # CHW -> HWC
+            aug_list.append(_MeanImageAug(marr))
+        self._inner = PrefetchingIter(img_mod.ImageIter(
+            batch_size=batch_size, data_shape=tuple(data_shape),
+            label_width=label_width, path_imgrec=path_imgrec,
+            shuffle=shuffle, part_index=part_index, num_parts=num_parts,
+            aug_list=aug_list, preprocess_threads=preprocess_threads,
+            data_name=data_name, label_name=label_name, ctx=ctx))
+
+    @property
+    def provide_data(self):
+        return self._inner.provide_data
+
+    @property
+    def provide_label(self):
+        return self._inner.provide_label
+
+    def reset(self):
+        self._inner.reset()
+
+    def next(self):
+        return self._inner.next()
+
+    def close(self):
+        """Join the prefetch thread and the decode workers (idempotent)."""
+        self._inner.close()
+        self._inner.iters[0].close()
 
 
-_NativeImageRecordIter = ImageRecordIter
+class _MeanImageAug:
+    """Subtract a mean image (reference iter_normalize.h), in float32 on
+    the image's device."""
+
+    def __init__(self, mean):
+        self.mean = mean
+
+    def __call__(self, src):
+        from .image.image import _t, _like, _vec
+        img = _t(src).to(torch.float32)
+        return [_like(img - _vec(self.mean, img), src)]
 
 
 class MNISTIter(DataIter):

@@ -1,20 +1,14 @@
 """Model zoo: symbol factories, the counterpart of mxnet_tpu/models/.
 
-Reference: example/image-classification/symbols/*.py. The port has the
-JAX package's factories but SSD: lenet, mlp, resnet, alexnet, vgg,
-inception-bn, inception-v3 and resnext, each building the JAX package's
-graph (the same JSON) with the port's symbol API. SSD needs the contrib
-MultiBox ops, which the port's registry does not have yet:
-`get_symbol('ssd')` raises.
+Reference: example/image-classification/symbols/*.py and example/ssd.
+The port has every factory of the JAX package: lenet, mlp, resnet,
+alexnet, vgg, inception-bn, inception-v3, resnext and ssd (the VGG16
+SSD's training symbol; `ssd.get_symbol` gives its detection symbol),
+each building the JAX package's graph (the same JSON) with the port's
+symbol API.
 """
-from ..base import unported
-from . import (lenet, mlp, resnet, alexnet, vgg, inception_bn,
+from . import (lenet, mlp, resnet, alexnet, vgg, inception_bn, ssd,
                inception_v3, resnext)
-
-
-def _ssd(**kwargs):
-    raise unported("get_symbol('ssd') (models/ssd.py, the contrib "
-                   "MultiBox ops)", '4c')
 
 
 _FACTORY = {
@@ -28,7 +22,7 @@ _FACTORY = {
     'inception-v3': inception_v3.get_symbol,
     'inception_v3': inception_v3.get_symbol,
     'resnext': resnext.get_symbol,
-    'ssd': _ssd,
+    'ssd': ssd.get_symbol_train,
 }
 
 

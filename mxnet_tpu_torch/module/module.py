@@ -581,9 +581,16 @@ class Module(BaseModule):
         self._exec_group.install_monitor(mon)
 
     def _wrap_train_iter(self, train_data):
-        """fit's input pipeline: upcoming batches staged on the module's
-        device (io.prefetch_to_device), MXNET_TPU_PREFETCH of them
-        (default 2; 0 turns staging off)."""
+        """fit's input pipeline: an image iterator left at its default
+        worker count takes MXNET_TPU_DECODE_WORKERS decode workers (an
+        explicit preprocess_threads wins), then upcoming batches are
+        staged on the module's device (io.prefetch_to_device),
+        MXNET_TPU_PREFETCH of them (default 2; 0 turns staging off)."""
+        from ..image.image import decode_workers_from_env
+        workers = decode_workers_from_env()
+        if workers >= 2 and \
+                getattr(train_data, '_workers_explicit', None) is False:
+            train_data.set_preprocess_threads(workers)
         try:
             depth = int(os.environ.get('MXNET_TPU_PREFETCH', '2'))
         except ValueError:

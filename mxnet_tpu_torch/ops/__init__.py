@@ -1,10 +1,13 @@
 """Operator registry and implementations (see registry.py).
 
-Importing this package registers the ops the port has so far: the
-tensor ops (`tensor`), the samplers (`random_ops`), the layers of
-ResNet-50 (`nn`), the optimizer updates (`optimizer_ops`) and the fused
-RNN (`rnn_op`), under the names of their JAX namesakes in
-mxnet_tpu/ops/.
+Importing this package registers the ops: the tensor ops (`tensor`),
+the samplers (`random_ops`), the layers (`nn`), the optimizer updates
+(`optimizer_ops`), the fused RNN (`rnn_op`), the spatial ops
+(`spatial`), the losses and linalg family (`extra`) and the contrib ops
+(`contrib_ops`: MultiBox, Proposal, the PSROI and deformable ops, CTC,
+FFT, count-sketch, quantize), under the names of their JAX namesakes in
+mxnet_tpu/ops/. The JAX registry's Custom, _Native and _NDArray
+(operator.py) are not here yet (ROADMAP Queue A 7).
 """
 from . import registry
 from . import tensor
@@ -12,6 +15,9 @@ from . import random_ops
 from . import nn
 from . import optimizer_ops
 from . import rnn_op
+from . import spatial
+from . import extra
+from . import contrib_ops
 
 from .registry import get, exists, list_ops, register, OpDef, OpContext
 

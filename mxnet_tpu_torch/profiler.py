@@ -13,10 +13,11 @@ its XLA trace's device lanes.
 
 MXNET_PROFILER_AUTOSTART=1 starts it at import, as in the reference.
 The per-subsystem counters come with the subsystems they count: the
-program cache's (exec_cache), the serving engine's, the quantization
-and the bucketed-training counters so far; `summary()` prints them, and
-`dump_profile` writes each as a metadata event ('exec_cache',
-'serving', 'quant', 'bucketing').
+program cache's (exec_cache), the serving engine's, the quantization,
+the bucketed-training and the input pipeline's counters so far;
+`summary()` prints them, and `dump_profile` writes each as a metadata
+event ('exec_cache', 'serving', 'quant', 'bucketing',
+'input_pipeline').
 """
 import json
 import os
@@ -195,6 +196,51 @@ def note_bucket_warmup(rung, compiled=False):
             e['warm_compiles'] += 1
 
 
+# host input-pipeline counters (the image decode pool and the device
+# prefetch): the decode work done by the workers, the time the consumer
+# waited on the pool, ready-chunk queue depth observations, and the input
+# stall the training loop sees (PrefetchToDeviceIter.next's blocking time)
+_INPUT = {
+    'decode_ms': 0.0,
+    'decoded_samples': 0,
+    'decode_wait_ms': 0.0,
+    'queue_depth_sum': 0,
+    'queue_depth_obs': 0,
+    'input_stall_ms': 0.0,
+    'input_batches': 0,
+}
+
+
+def add_input_stats(decode_ms=0.0, decoded_samples=0, decode_wait_ms=0.0,
+                    queue_depth=None, stall_ms=0.0, batches=0):
+    """Accumulate the input-pipeline counters (decode workers feed
+    decode_ms / decoded_samples; the batch consumer decode_wait_ms and
+    queue_depth; PrefetchToDeviceIter stall_ms / batches)."""
+    with _STATE['lock']:
+        _INPUT['decode_ms'] += decode_ms
+        _INPUT['decoded_samples'] += decoded_samples
+        _INPUT['decode_wait_ms'] += decode_wait_ms
+        if queue_depth is not None:
+            _INPUT['queue_depth_sum'] += int(queue_depth)
+            _INPUT['queue_depth_obs'] += 1
+        _INPUT['input_stall_ms'] += stall_ms
+        _INPUT['input_batches'] += batches
+
+
+def input_stats():
+    """A snapshot of the input-pipeline counters and their means
+    (queue_depth_avg, input_stall_ms_per_batch)."""
+    with _STATE['lock']:
+        out = dict(_INPUT)
+    out['queue_depth_avg'] = (out['queue_depth_sum'] /
+                              out['queue_depth_obs']
+                              if out['queue_depth_obs'] else 0.0)
+    out['input_stall_ms_per_batch'] = (out['input_stall_ms'] /
+                                       out['input_batches']
+                                       if out['input_batches'] else 0.0)
+    return out
+
+
 def bucketing_stats():
     """The bucket-ladder counters, train_pad_waste_frac (padded over all
     label rows) and the per-rung table ('train_rungs')."""
@@ -221,7 +267,7 @@ def exec_cache_stats():
 
 def summary(print_out=True):
     """Human-readable profile summary: span time by category, then the
-    program cache, serving and quantization counters."""
+    input pipeline, program cache, serving and quantization counters."""
     with _STATE['lock']:
         records = list(_STATE['records'])
     by_cat = {}
@@ -230,6 +276,13 @@ def summary(print_out=True):
     lines = ['profile summary: %d spans' % len(records)]
     for cat in sorted(by_cat):
         lines.append('  %-16s %10.3f ms' % (cat, by_cat[cat] / 1e3))
+    ip = input_stats()
+    lines.append('  decode_ms=%.3f decoded_samples=%d '
+                 'decode_wait_ms=%.3f queue_depth_avg=%.2f '
+                 'input_stall_ms_per_batch=%.3f'
+                 % (ip['decode_ms'], ip['decoded_samples'],
+                    ip['decode_wait_ms'], ip['queue_depth_avg'],
+                    ip['input_stall_ms_per_batch']))
     st = exec_cache_stats()
     lines.append('  exec_cache_hits=%d exec_cache_misses=%d '
                  'total_compile_s=%.3f'
@@ -367,7 +420,9 @@ def dump_profile():
               {'ph': 'M', 'name': 'quant', 'pid': 0,
                'args': quant_stats()},
               {'ph': 'M', 'name': 'bucketing', 'pid': 0,
-               'args': bucketing_stats()}]
+               'args': bucketing_stats()},
+              {'ph': 'M', 'name': 'input_pipeline', 'pid': 0,
+               'args': input_stats()}]
     with _STATE['lock']:
         records = list(_STATE['records'])
     for name, cat, ts, dur, tid in records:
@@ -408,6 +463,8 @@ def clear():
         for k in _BUCKET:
             _BUCKET[k] = 0
         _BUCKET_RUNGS.clear()
+        for k in _INPUT:
+            _INPUT[k] = type(_INPUT[k])()
         del _SERVE_LAT[:]
         _SERVE_LAT_POS[0] = 0
 

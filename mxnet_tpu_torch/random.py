@@ -11,7 +11,11 @@ torch RNG state is touched. The numbers differ from JAX's by nature.
 The samplers (`uniform`, `normal`, `gamma`, `exponential`, `poisson`,
 `negative_binomial`, `generalized_negative_binomial`, `multinomial`) are
 set on this module by `ndarray._init_module`, as in the JAX package.
+`stream_seed` derives the seeds of host-side streams (the image decode
+workers' augmentation draws) from the last seed, as the JAX package's
+does, so both packages draw the same numbers there.
 """
+import hashlib
 import threading
 
 import torch
@@ -49,3 +53,15 @@ def seed(seed_state):
         _seed[0] = int(seed_state)
         for gen in _generators.values():
             gen.manual_seed(_seed[0])
+
+
+def stream_seed(*components):
+    """A reproducible integer seed for an auxiliary host-side stream, from
+    the last `seed()` and `components` (('image-aug', epoch, position)):
+    the blake2b of repr((seed, components)), the JAX package's integers.
+    The image decode workers seed one random.Random / RandomState per
+    sample from it, so augmentation depends only on (seed, epoch, sample
+    position), whatever worker runs the sample."""
+    payload = repr((_seed[0] or 0, components)).encode()
+    h = hashlib.blake2b(payload, digest_size=8).digest()
+    return int.from_bytes(h, 'little')

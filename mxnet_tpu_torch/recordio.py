@@ -4,8 +4,9 @@ package's pure-Python code, so files are byte-compatible both ways.
 
 Each record is uint32 magic | uint32 (cflag << 29 | length) | payload,
 padded to 4 bytes; multi-part records are chained by cflag (dmlc-core's
-spec). pack_img and unpack_img decode and encode with cv2, else PIL,
-imported when called; without either they raise ImportError.
+spec). unpack_img decodes, and pack_img encodes, with cv2, else PIL,
+imported when called; without either they raise ImportError. pack_img
+of an image on the card encodes JPEG there with nvJPEG.
 """
 import numbers
 import os
@@ -250,7 +251,19 @@ def unpack_img(s, iscolor=-1):
 
 
 def pack_img(header, img, quality=95, img_fmt='.jpg'):
-    """Encode an image array and pack into a record payload."""
+    """Encode an image (H, W, C) uint8 in OpenCV's BGR order and pack it
+    into a record payload: a CUDA tensor (or an NDArray on the card) by
+    nvJPEG there, JPEG only; an array on the host by cv2, else PIL."""
+    from .ndarray import NDArray
+    data = img._data if isinstance(img, NDArray) else img
+    if getattr(data, 'is_cuda', False):
+        if img_fmt.lower() not in ('.jpg', '.jpeg'):
+            raise ValueError('pack_img of an image on the card encodes '
+                             'JPEG with nvJPEG, not %s' % img_fmt)
+        from .image import _nvjpeg
+        return pack(header, _nvjpeg.encode(data, quality))
+    if hasattr(data, 'numpy'):
+        img = data.numpy()
     buf = _imencode(img, quality, img_fmt)
     return pack(header, buf)
 

@@ -371,3 +371,544 @@ def run_samplers(mx, ctx, samples, seed=0):
         bad['multinomial'] = 'dtype %s, frequencies %s for %s' % (
             draws.dtype, freq, probs)
     return bad
+
+
+# ---------------------------------------------------------------------------
+# The ops of ops/extra.py, ops/spatial.py and ops/contrib_ops.py: one case
+# for each name (aliases included), at two sizes. 'small' is the CPU
+# tests' (against the JAX package); 'example' is the size of the example
+# that uses the op, for the card against cpu(0): MultiBoxPrior on SSD300's
+# six feature maps, MultiBoxTarget and MultiBoxDetection at SSD300's 8,732
+# anchors, Proposal and MultiProposal at Faster R-CNN's RPN (stride 16, 9
+# anchors, pre-NMS 6000, post-NMS 300, a 600 x 1000 image), ROIPooling
+# and PSROIPooling with 300 rois, DeformableConvolution at a 512-channel
+# 3x3 layer of 38 x 50, ctc_loss at examples/ctc/lstm_ocr.py's lengths
+# and the linalg ops on a batch of 512 64 x 64 SPD matrices.
+#
+# A case is a dict: `calls`, a list of (numpy args, numpy auxs, attrs)
+# each run through the op; `train`, the op context's mode; `grad`, the
+# indices of the args the gradient is taken for; `tol`, the class of the
+# float outputs and gradients (FLOAT, or REDUCE for products and sums:
+# rtol 1e-4 and an atol of 1e-5 of the largest magnitude);
+# `exact`, a function of the outputs (and new auxs) giving the arrays
+# that must be equal: integer results, masks, ids, kept rows and order,
+# selections and maxima; `card_tol`, the float class on the card against
+# cpu(0) where it differs: REDUCE where a position computed in float
+# scales an ulp by the image's width (the samplers), where a gradient
+# sums over a batch, channels or overlapping bins (MultiBoxTarget's
+# anchors, the sampler's grid, ROIPooling's data), where a box is a difference of large terms
+# (Proposal) and where CUDA's exp and log round otherwise (ctc_loss).
+# ---------------------------------------------------------------------------
+
+CONTRIB_ALIASES = {
+    '_contrib_MultiBoxPrior': 'MultiBoxPrior',
+    '_contrib_MultiBoxTarget': 'MultiBoxTarget',
+    '_contrib_MultiBoxDetection': 'MultiBoxDetection',
+    '_contrib_Proposal': 'Proposal', 'MultiProposal': 'Proposal',
+    '_contrib_MultiProposal': 'Proposal',
+    '_contrib_PSROIPooling': 'PSROIPooling',
+    '_contrib_DeformableConvolution': 'DeformableConvolution',
+    '_contrib_DeformablePSROIPooling': 'DeformablePSROIPooling',
+    '_contrib_ctc_loss': 'ctc_loss', 'CTCLoss': 'ctc_loss',
+    '_contrib_CTCLoss': 'ctc_loss',
+    '_contrib_fft': 'fft', '_contrib_ifft': 'ifft',
+    '_contrib_count_sketch': 'count_sketch',
+    '_contrib_quantize': 'quantize', '_contrib_dequantize': 'dequantize',
+}
+
+SSD300_MAPS = ((38, 38), (19, 19), (10, 10), (5, 5), (3, 3), (1, 1))
+SSD300_SIZES = ((.1, .141), (.2, .272), (.37, .447), (.54, .619),
+                (.71, .79), (.88, .961))
+SSD300_RATIOS = ((1, 2, .5), (1, 2, .5, 3, 1. / 3), (1, 2, .5, 3, 1. / 3),
+                 (1, 2, .5, 3, 1. / 3), (1, 2, .5), (1, 2, .5))
+
+
+def _f32(x):
+    return np.asarray(x, np.float32)
+
+
+def _normal(rng, shape, scale=1.0):
+    return _f32(rng.standard_normal(shape) * scale)
+
+
+def _spd(rng, b, n):
+    x = rng.standard_normal((b, n, n))
+    return _f32(x @ np.swapaxes(x, 1, 2) / n + np.eye(n))
+
+
+def _lower(rng, b, n):
+    """Well-conditioned lower-triangular matrices."""
+    return _f32(np.tril(rng.uniform(-0.5, 0.5, (b, n, n))) +
+                2.0 * np.eye(n))
+
+
+def _ssd_anchors(maps, sizes, ratios):
+    """The anchors MultiBoxPrior makes over `maps`, concatenated."""
+    from ..ops import contrib_ops
+    return np.concatenate([
+        contrib_ops.multibox_prior(h, w, s, r, False, (-1.0, -1.0),
+                                   (0.5, 0.5))[0]
+        for (h, w), s, r in zip(maps, sizes, ratios)])[None]
+
+
+def _det_labels(rng, b, g, classes, ties=False, empty_image=False):
+    """(b, g, 5) labels: 1..g boxes an image, class ids in [0, classes),
+    corners in (0, 1), the rest -1; with ties the first two boxes of
+    each image are the same box."""
+    lab = np.full((b, g, 5), -1.0, np.float32)
+    for i in range(b):
+        n = 0 if empty_image and i == b - 1 else rng.integers(1, g + 1)
+        for j in range(n):
+            w, h = rng.uniform(0.1, 0.5, 2)
+            x, y = rng.uniform(0.0, 1.0 - w), rng.uniform(0.0, 1.0 - h)
+            lab[i, j] = [rng.integers(0, classes), x, y, x + w, y + h]
+        if ties and n >= 2:
+            lab[i, 1, 1:] = lab[i, 0, 1:]
+    return lab
+
+
+def _rois(rng, r, batch, height, width, scale):
+    """(r, 5) rois [batch, x1, y1, x2, y2] in image pixels (feature map
+    height x width at spatial_scale `scale`), some corners on .5."""
+    img_h, img_w = height / scale, width / scale
+    x1 = rng.uniform(0, img_w * 0.7, r)
+    y1 = rng.uniform(0, img_h * 0.7, r)
+    x2 = np.minimum(x1 + rng.uniform(8, img_w * 0.5, r), img_w - 1)
+    y2 = np.minimum(y1 + rng.uniform(8, img_h * 0.5, r), img_h - 1)
+    x1[:r // 4] = np.floor(x1[:r // 4]) + 0.5
+    return _f32(np.stack([rng.integers(0, batch, r), x1, y1, x2, y2], 1))
+
+
+def _softmax(x, axis):
+    e = np.exp(x - x.max(axis=axis, keepdims=True))
+    return _f32(e / e.sum(axis=axis, keepdims=True))
+
+
+def _rpn_inputs(rng, b, h, w, stride):
+    a = 9
+    score = rng.uniform(0.0, 1.0, (b, a, h, w))
+    cls_prob = _f32(np.concatenate([1.0 - score, score], 1))
+    bbox = _normal(rng, (b, 4 * a, h, w), 0.1)
+    im_info = _f32([[h * stride, w * stride, 1.0]] * b)
+    return [cls_prob, bbox, im_info]
+
+
+def _first(outs, auxs):
+    return [outs[0]]
+
+
+def _contrib_builders():
+    """op -> fn(rng, example) -> case dict (see the section's comment)."""
+    b = {}
+
+    def case(calls, grad=(), tol=FLOAT, exact=None, train=False,
+             card_tol=None):
+        return dict(calls=calls, grad=tuple(grad), tol=tol, exact=exact,
+                    train=train, card_tol=card_tol or tol)
+
+    def one(args, attrs, auxs=()):
+        return [(list(args), list(auxs), dict(attrs))]
+
+    # --- ops/extra.py ------------------------------------------------------
+    def svm(rng, ex):
+        n, k = (512, 1000) if ex else (8, 5)
+        return case(one([_normal(rng, (n, k)),
+                         _f32(rng.integers(0, k, n))],
+                        dict(margin=1.0, regularization_coefficient=0.5)),
+                    grad=[0])
+    b['SVMOutput'] = svm
+    b['smooth_l1'] = lambda rng, ex: case(
+        one([_normal(rng, (32, 34928) if ex else (4, 24), 2.0)],
+            dict(scalar=1.0)), grad=[0])
+    b['IdentityAttachKLSparseReg'] = lambda rng, ex: case(
+        one([_normal(rng, (256, 1024) if ex else (6, 10))],
+            dict(sparseness_target=0.1, penalty=0.001, momentum=0.9),
+            auxs=[_f32(rng.uniform(0.1, 0.9, 1024 if ex else 10))]),
+        grad=[0], train=True, exact=None)
+    def lin(shape_fn, attrs, grad, tol=REDUCE):
+        def build(rng, ex):
+            batch, n = (512, 64) if ex else (3, 5)
+            return case(one(shape_fn(rng, batch, n), attrs), grad=grad,
+                        tol=tol)
+        return build
+    b['linalg_gemm'] = lin(lambda rng, k, n: [
+        _normal(rng, (k, n, n)), _normal(rng, (k, n, n)),
+        _normal(rng, (k, n, n))],
+        dict(transpose_b=True, alpha=0.5, beta=2.0), [0, 1, 2])
+    b['linalg_gemm2'] = lin(lambda rng, k, n: [
+        _normal(rng, (k, n, n)), _normal(rng, (k, n, n))],
+        dict(transpose_a=True, alpha=1.5), [0, 1])
+    b['linalg_potrf'] = lin(lambda rng, k, n: [_spd(rng, k, n)], {}, [0])
+    b['linalg_potri'] = lin(lambda rng, k, n: [
+        _f32(np.linalg.cholesky(_spd(rng, k, n).astype(np.float64)))],
+        {}, [0])
+    b['linalg_trmm'] = lin(lambda rng, k, n: [
+        _lower(rng, k, n), _normal(rng, (k, n, n))],
+        dict(transpose=True, rightside=True, alpha=2.0), [0, 1])
+    b['linalg_trsm'] = lin(lambda rng, k, n: [
+        _lower(rng, k, n), _normal(rng, (k, n, n))],
+        dict(alpha=0.5), [0, 1])
+    b['linalg_sumlogdiag'] = lin(lambda rng, k, n: [_spd(rng, k, n)], {},
+                                 [0])
+    b['linalg_syrk'] = lin(lambda rng, k, n: [_normal(rng, (k, n, n))],
+                           dict(alpha=0.3), [0])
+
+    def lsoftmax(rng, ex):
+        n, d, h = (256, 512, 1000) if ex else (6, 8, 5)
+        return case(one([_normal(rng, (n, d)), _normal(rng, (h, d)),
+                         _f32(rng.integers(0, h, n))],
+                        dict(num_hidden=h, margin=3, beta=1.0)),
+                    grad=[0, 1], tol=REDUCE, train=True)
+    b['LSoftmax'] = lsoftmax
+    b['MultiLogistic'] = lambda rng, ex: case(
+        one([_normal(rng, (256, 1000) if ex else (4, 6)),
+             _f32(rng.integers(0, 2, (256, 1000) if ex else (4, 6)))],
+            dict(grad_scale=0.5, weight=2.0)), grad=[0])
+    b['WeightedL1'] = lambda rng, ex: case(
+        one([_normal(rng, (256, 1000) if ex else (4, 6)),
+             _normal(rng, (256, 1000) if ex else (4, 6))],
+            dict(grad_scale=0.5)), grad=[0])
+
+    # --- ops/spatial.py ----------------------------------------------------
+    def theta(rng, n):
+        return _f32(np.tile([1.0, 0.0, 0.0, 0.0, 1.0, 0.0], (n, 1)) +
+                    rng.uniform(-0.2, 0.2, (n, 6)))
+
+    def grid_gen(rng, ex):
+        n, h, w = (8, 64, 96) if ex else (2, 5, 7)
+        return case(one([theta(rng, n)], dict(transform_type='affine',
+                                               target_shape=(h, w))) +
+                    one([_normal(rng, (n, 2, h, w), 2.0)],
+                        dict(transform_type='warp')), grad=[0],
+                    card_tol=REDUCE)
+    b['GridGenerator'] = grid_gen
+
+    def sampler(rng, ex):
+        n, c, h, w = (8, 64, 64, 96) if ex else (2, 3, 6, 7)
+        return case(one([_normal(rng, (n, c, h, w)),
+                         _f32(rng.uniform(-1.1, 1.1, (n, 2, h, w)))], {}),
+                    grad=[0, 1], card_tol=REDUCE)
+    b['BilinearSampler'] = sampler
+
+    def transformer(rng, ex):
+        n, c, h, w = (8, 64, 64, 96) if ex else (2, 3, 6, 7)
+        return case(one([_normal(rng, (n, c, h, w)), theta(rng, n)],
+                        dict(target_shape=(h - 1, w + 1))), grad=[0, 1],
+                    card_tol=REDUCE)
+    b['SpatialTransformer'] = transformer
+
+    def roi_pool(rng, ex):
+        n, c, h, w, r, scale = (1, 512, 38, 50, 300, 1 / 16.) if ex \
+            else (2, 3, 12, 15, 6, 0.5)
+        return case(one([_normal(rng, (n, c, h, w)),
+                         _rois(rng, r, n, h, w, scale)],
+                        dict(pooled_size=(7, 7) if ex else (3, 2),
+                             spatial_scale=scale)),
+                    grad=[0], exact=_first, card_tol=REDUCE)
+    b['ROIPooling'] = roi_pool
+
+    def corr(rng, ex):
+        # FlowNetC's: kernel 1, displacement 20 at stride 2, 256 channels
+        n, c, h, w = (1, 256, 48, 64) if ex else (1, 3, 9, 10)
+        md, s2, pad = (20, 2, 20) if ex else (2, 1, 2)
+        x1, x2 = _normal(rng, (n, c, h, w)), _normal(rng, (n, c, h, w))
+        # a 3x3 kernel by absolute differences, at a smaller size
+        y1, y2 = (_normal(rng, (1, 32, 24, 32)), _normal(rng, (1, 32, 24, 32))
+                  ) if ex else (x1, x2)
+        return case(one([x1, x2], dict(kernel_size=1, max_displacement=md,
+                                       stride1=1, stride2=s2, pad_size=pad))
+                    + one([y1, y2], dict(kernel_size=3, max_displacement=4,
+                                         stride1=2, stride2=1 if ex else s2,
+                                         pad_size=4, is_multiply=False)),
+                    grad=[0, 1], tol=REDUCE)
+    b['Correlation'] = corr
+
+    def corr1d(rng, ex):
+        n, c, h, w = (1, 64, 48, 96) if ex else (1, 3, 6, 12)
+        md = 40 if ex else 3
+        x1, x2 = _normal(rng, (n, c, h, w)), _normal(rng, (n, c, h, w))
+        return case([(list((x1, x2)), [], dict(
+            kernel_size=1, max_displacement=md, stride1=1, stride2=1,
+            pad_size=md, single_side=side)) for side in (0, -1, 1)],
+            grad=[0, 1], tol=REDUCE)
+    b['Correlation1D'] = corr1d
+
+    # --- ops/contrib_ops.py ------------------------------------------------
+    def prior(rng, ex):
+        maps = SSD300_MAPS if ex else ((4, 4), (2, 3))
+        calls = []
+        for (h, w), s, r in zip(maps, SSD300_SIZES, SSD300_RATIOS):
+            calls += one([np.zeros((1, 4, h, w), np.float32)],
+                         dict(sizes=s, ratios=r, clip=False,
+                              steps=(-1.0, -1.0)))
+        calls += one([np.zeros((1, 2, 3, 5), np.float32)],
+                     dict(sizes=(0.3, 0.6), ratios=(1, 2), clip=True,
+                          steps=(0.25, 0.2), offsets=(0.5, 0.25)))
+        return case(calls, exact=_first)
+    b['MultiBoxPrior'] = prior
+
+    def target(rng, ex, ties=False, neg_ratio=3.0):
+        if ex:
+            anchors = _ssd_anchors(SSD300_MAPS, SSD300_SIZES, SSD300_RATIOS)
+            bsz, g, classes = 32, 6, 20
+        else:
+            anchors = _ssd_anchors(((4, 4), (2, 2)), SSD300_SIZES[:2],
+                                   SSD300_RATIOS[:2])
+            bsz, g, classes = 3, 4, 3
+        lab = _det_labels(rng, bsz, g, classes, ties=ties,
+                          empty_image=True)
+        cls_pred = _normal(rng, (bsz, classes + 1, anchors.shape[1]))
+        return case(one([anchors, lab, cls_pred], dict(
+            overlap_threshold=0.5, ignore_label=-1,
+            negative_mining_ratio=neg_ratio, negative_mining_thresh=0.5,
+            minimum_negative_samples=0, variances=(0.1, 0.1, 0.2, 0.2))),
+            grad=[0, 1], exact=lambda outs, auxs: [outs[1], outs[2]],
+            card_tol=REDUCE)
+    b['MultiBoxTarget'] = target
+
+    def detection(rng, ex, topk=None, ties=False, force=False):
+        if ex:
+            anchors = _ssd_anchors(SSD300_MAPS, SSD300_SIZES, SSD300_RATIOS)
+            # every box a candidate with topk -1: its (A, A) overlaps at
+            # two images, not 32
+            bsz, classes = (2 if topk == -1 else 32), 21
+            topk = 400 if topk is None else topk
+        else:
+            anchors = _ssd_anchors(((4, 4), (2, 2)), SSD300_SIZES[:2],
+                                   SSD300_RATIOS[:2])
+            bsz, classes = 2, 4
+            topk = 20 if topk is None else topk
+        a = anchors.shape[1]
+        logits = _normal(rng, (bsz, classes, a), 2.0)
+        if ties:
+            # pairs of anchors with the same scores: ties in the sort
+            logits[:, :, 1::2] = logits[:, :, 0:-1:2]
+        return case(one([_softmax(logits, 1), _normal(rng, (bsz, 4 * a), 0.5),
+                         anchors],
+                        dict(threshold=0.01, nms_threshold=0.45,
+                             nms_topk=topk, clip=True,
+                             force_suppress=force,
+                             variances=(0.1, 0.1, 0.2, 0.2))),
+                    grad=[0, 1],
+                    exact=lambda outs, auxs: [outs[0][..., 0]])
+    b['MultiBoxDetection'] = detection
+
+    def prop(rng, ex, batch=1, score=False):
+        if ex:
+            h, w, pre, post = 38, 63, 6000, 300
+        else:
+            h, w, pre, post = 5, 7, 120, 30
+        return case(one(_rpn_inputs(rng, batch, h, w, 16), dict(
+            feature_stride=16, scales=(8, 16, 32), ratios=(0.5, 1, 2),
+            rpn_pre_nms_top_n=pre, rpn_post_nms_top_n=post, threshold=0.7,
+            rpn_min_size=16, output_score=score)),
+            grad=[0, 1], exact=lambda outs, auxs: [outs[0][:, 0]],
+            card_tol=REDUCE)
+    b['Proposal'] = prop
+
+    def psroi(rng, ex):
+        n, h, w, r, dim, p, scale = (1, 38, 63, 300, 21, 7, 1 / 16.) if ex \
+            else (2, 9, 11, 5, 2, 3, 0.5)
+        return case(one([_normal(rng, (n, dim * p * p, h, w)),
+                         _rois(rng, r, n, h, w, scale)],
+                        dict(spatial_scale=scale, output_dim=dim,
+                             pooled_size=p, group_size=p)), grad=[0])
+    b['PSROIPooling'] = psroi
+
+    def dconv(rng, ex):
+        n, c, h, w, f = (1, 512, 38, 50, 512) if ex else (2, 4, 6, 7, 3)
+        g = 1 if ex else 2
+        return case(one([_normal(rng, (n, c, h, w)),
+                         _normal(rng, (n, 2 * g * 9, h, w), 1.5),
+                         _normal(rng, (f, c, 3, 3), 0.1),
+                         _normal(rng, (f,), 0.1)],
+                        dict(kernel=(3, 3), pad=(1, 1), num_filter=f,
+                             num_deformable_group=g)),
+                    grad=[0, 1, 2, 3], tol=REDUCE)
+    b['DeformableConvolution'] = dconv
+
+    def dpsroi(rng, ex):
+        n, h, w, r, dim, p, scale = (1, 38, 63, 300, 21, 7, 1 / 16.) if ex \
+            else (1, 9, 11, 4, 2, 3, 0.5)
+        return case(one([_normal(rng, (n, dim * p * p, h, w)),
+                         _rois(rng, r, n, h, w, scale),
+                         _normal(rng, (r, 2, p, p))],
+                        dict(spatial_scale=scale, output_dim=dim,
+                             pooled_size=p, group_size=p, part_size=p,
+                             sample_per_part=4, trans_std=0.1)),
+                    grad=[0, 2], card_tol=REDUCE)
+    b['DeformablePSROIPooling'] = dpsroi
+
+    def ctc(rng, ex):
+        t, n, c, num_l = (18, 64, 11, 3) if ex else (6, 3, 5, 3)
+        lab = _f32(rng.integers(1, c, (n, num_l)))
+        lab[0, 1:] = 0                     # a shorter label
+        lab[1, 1] = lab[1, 0]              # a repeat: no skip
+        return case(one([_normal(rng, (t, n, c)), lab], {}), grad=[0],
+                    card_tol=REDUCE)
+    b['ctc_loss'] = ctc
+    b['fft'] = lambda rng, ex: case(
+        one([_normal(rng, (256, 1024) if ex else (3, 8))], {}), grad=[0],
+        tol=REDUCE)
+    b['ifft'] = lambda rng, ex: case(
+        one([_normal(rng, (256, 2048) if ex else (3, 16))], {}), grad=[0],
+        tol=REDUCE)
+
+    def sketch(rng, ex):
+        n, d, out = (64, 2048, 16000) if ex else (4, 10, 6)
+        return case(one([_normal(rng, (n, d)),
+                         _f32(rng.integers(0, out, (1, d))),
+                         _f32(rng.choice([-1.0, 1.0], (1, d)))],
+                        dict(out_dim=out)), grad=[0])
+    b['count_sketch'] = sketch
+
+    def quant(rng, ex):
+        shape = (1024, 1024) if ex else (5, 7)
+        x = _f32(rng.uniform(-1.2, 0.9, shape))
+        x.flat[:4] = [-1.0, 0.5 / 127, -0.5 / 127, 0.0]     # .5 ties
+        lo, hi = _f32([-1.0]), _f32([0.8])
+        return case(one([x, lo, hi], dict(out_type='uint8')) +
+                    one([x, lo, hi], dict(out_type='int8')),
+                    exact=lambda outs, auxs: outs)
+    b['quantize'] = quant
+
+    def dequant(rng, ex):
+        shape = (1024, 1024) if ex else (5, 7)
+        lo, hi = _f32([-1.0]), _f32([0.8])
+        return case(one([rng.integers(0, 256, shape).astype(np.uint8), lo,
+                         hi], dict(out_type='float32')) +
+                    one([rng.integers(-127, 128, shape).astype(np.int8), lo,
+                         hi], dict(out_type='float32')))
+    b['dequantize'] = dequant
+    return b
+
+
+_CONTRIB_BUILDERS = _contrib_builders()
+CONTRIB_NAMES = tuple(sorted(set(_CONTRIB_BUILDERS) | set(CONTRIB_ALIASES)))
+
+# further cases beside one per name: name -> (op, builder keyword args)
+CONTRIB_VARIANTS = {
+    'MultiBoxTarget/ties': ('MultiBoxTarget', dict(ties=True)),
+    'MultiBoxTarget/no_mining': ('MultiBoxTarget', dict(neg_ratio=-1.0)),
+    'MultiBoxDetection/topk_all': ('MultiBoxDetection', dict(topk=-1)),
+    'MultiBoxDetection/ties': ('MultiBoxDetection', dict(ties=True)),
+    'MultiBoxDetection/force_suppress': ('MultiBoxDetection',
+                                         dict(force=True)),
+    'MultiProposal/score': ('Proposal', dict(batch=2, score=True)),
+}
+
+
+def contrib_op(name):
+    """The registered op that contrib case `name` runs."""
+    if name in CONTRIB_VARIANTS:
+        return CONTRIB_VARIANTS[name][0]
+    return CONTRIB_ALIASES.get(name, name)
+
+
+def contrib_case(name, example=False, seed=0):
+    """The case dict of `name` (of CONTRIB_NAMES or CONTRIB_VARIANTS), its
+    inputs drawn from a generator seeded by seed and the name. MultiProposal
+    and its alias run at batch 2, Proposal at batch 1."""
+    rng = np.random.default_rng([seed, zlib.crc32(name.encode())])
+    op = contrib_op(name)
+    kwargs = CONTRIB_VARIANTS[name][1] if name in CONTRIB_VARIANTS else {}
+    if name in ('MultiProposal', '_contrib_MultiProposal'):
+        kwargs = dict(batch=2)
+    return _CONTRIB_BUILDERS[op](rng, example, **kwargs)
+
+
+def contrib_cotangents(shapes, seed=0):
+    """The seeded float32 cotangents of outputs of these shapes."""
+    rng = np.random.default_rng(seed)
+    return [_normal(rng, s) for s in shapes]
+
+
+def run_contrib_call(torch, op, args, auxs, attrs, train, grad, device,
+                     seed=0):
+    """One call of `op` (an OpDef of the port's registry) on torch tensors
+    on `device`: (outputs, new auxs, gradients of grad's args against
+    seeded cotangents), all as numpy."""
+    from ..ops.registry import OpContext
+    xs = [torch.tensor(a, device=device, requires_grad=i in grad)
+          for i, a in enumerate(args)]
+    ax = [torch.tensor(a, device=device) for a in auxs]
+    ctx = OpContext(is_train=train, device=torch.device(device))
+    with torch.enable_grad():
+        outs, new_auxs = op.apply(attrs, xs, ax, ctx)
+    grads = []
+    if grad:
+        cots = contrib_cotangents([tuple(o.shape) for o in outs], seed)
+        live = [(o, torch.tensor(c, device=device))
+                for o, c in zip(outs, cots) if o.requires_grad]
+        got = torch.autograd.grad([o for o, _ in live],
+                                  [xs[i] for i in grad],
+                                  [c for _, c in live], allow_unused=True)
+        grads = [np.zeros(args[i].shape, np.float32) if g is None
+                 else g.detach().cpu().numpy() for i, g in zip(grad, got)]
+    return ([o.detach().cpu().numpy() for o in outs],
+            [a.detach().cpu().numpy() for a in new_auxs], grads)
+
+
+def run_contrib(torch, dev_a, dev_b, example=True, names=None, seed=0):
+    """Every contrib case (CONTRIB_NAMES and CONTRIB_VARIANTS) on torch
+    devices dev_a and dev_b from the same inputs, forward and gradient:
+    ({name: mismatch}, {name: host ms of one call on dev_a, its first
+    call excluded}). Integer and `exact` results must be equal; floats
+    within the case's tolerance class."""
+    import time
+    from ..ops import registry
+    bad, host_ms = {}, {}
+    names = names or (CONTRIB_NAMES + tuple(sorted(CONTRIB_VARIANTS)))
+    for name in names:
+        c = contrib_case(name, example, seed)
+        op = registry.get(contrib_op(name))
+        for k, (args, auxs, attrs) in enumerate(c['calls']):
+            res = []
+            for dev in (dev_a, dev_b):
+                res.append(run_contrib_call(torch, op, args, auxs, attrs,
+                                            c['train'], c['grad'], dev))
+            if k == 0 and name not in CONTRIB_ALIASES:
+                t0 = time.perf_counter()
+                run_contrib_call(torch, op, args, auxs, attrs, c['train'],
+                                 (), dev_a)
+                if 'cuda' in str(dev_a):
+                    torch.cuda.synchronize()
+                host_ms[name] = (time.perf_counter() - t0) * 1e3
+            why = contrib_mismatch(c, res[0], res[1], c['card_tol'])
+            if why:
+                bad['%s[%d]' % (name, k)] = why
+    return bad, host_ms
+
+
+def contrib_mismatch(c, got, ref, tol=None):
+    """None if one call's (outputs, auxs, grads) `got` matches `ref` under
+    case c (its float class, or `tol`), else a description."""
+    outs, auxs, grads = got
+    routs, rauxs, rgrads = ref
+    if len(outs) != len(routs) or len(grads) != len(rgrads):
+        return 'output count %d vs %d' % (len(outs), len(routs))
+    if c['exact'] is not None:
+        for i, (g, r) in enumerate(zip(c['exact'](outs, auxs),
+                                       c['exact'](routs, rauxs))):
+            why = mismatch(np.asarray(g), np.asarray(r), EXACT)
+            if why:
+                return 'exact result %d: %s' % (i, why)
+    for kind, mine, theirs in (('output', outs, routs),
+                               ('aux', auxs, rauxs),
+                               ('gradient', grads, rgrads)):
+        for i, (g, r) in enumerate(zip(mine, theirs)):
+            kind_tol = EXACT if g.dtype.kind in 'iub' else (tol or c['tol'])
+            if kind_tol == REDUCE and g.shape == r.shape and r.size:
+                # sums of products: rtol 1e-4 and, for the elements near
+                # 0, 1e-5 of the largest magnitude
+                g64, r64 = g.astype(np.float64), r.astype(np.float64)
+                atol = 1e-5 * float(np.abs(r64).max())
+                if not np.allclose(g64, r64, rtol=1e-4, atol=atol,
+                                   equal_nan=True):
+                    return '%s %d: max |diff| %.3g (atol %.3g)' % (
+                        kind, i, float(np.abs(g64 - r64).max()), atol)
+                continue
+            why = mismatch(g, r, kind_tol)
+            if why:
+                return '%s %d: %s' % (kind, i, why)
+    return None

@@ -159,9 +159,11 @@ def test_prefetch_to_device_raises_the_source_error():
 
 
 def test_image_record_iter_raises():
-    with pytest.raises(mx.MXNetError, match='Queue A 4'):
+    """ImageRecordIter is ported (tests/test_torch_image.py); what it
+    still refuses is the JAX package's native C++ pipeline."""
+    with pytest.raises(mx.MXNetError, match='Queue A 7'):
         tio.ImageRecordIter(path_imgrec='x.rec', data_shape=(3, 8, 8),
-                            batch_size=2)
+                            batch_size=2, use_native=True)
 
 
 # -- RecordIO --------------------------------------------------------------

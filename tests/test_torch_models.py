@@ -25,7 +25,8 @@ the CPU.
   BatchNorm pair route at every pair `executor.conv_bn_pairs` finds (94
   and 37), each one call of the conv + statistics Function (its plain
   version on the CPU); ResNeXt's grouped convs stay off it.
-- `get_symbol('ssd')` raises, naming Queue A 4c.
+- `get_symbol('ssd')` builds the JAX package's SSD training symbol
+  (tests/test_torch_ssd.py holds the SSD itself).
 """
 import math
 
@@ -39,7 +40,6 @@ from mxnet_tpu import models as jmodels
 
 import mxnet_tpu_torch as mx
 from mxnet_tpu_torch import cuda_conv, executor
-from mxnet_tpu_torch.base import MXNetError
 
 # (factory, kwargs) at full width: each network's JSON
 JSON_CASES = {
@@ -105,8 +105,10 @@ def test_factory_json_equals_jax(case):
 
 
 def test_ssd_raises_naming_its_item():
-    with pytest.raises(MXNetError, match='Queue A 4c\\)'):
-        mx.models.get_symbol('ssd')
+    """get_symbol('ssd') no longer raises (Queue A 4c is ported): it
+    builds the JAX package's training symbol, JSON for JSON."""
+    assert _factory(mx, 'ssd', num_classes=20).tojson() == \
+        _factory(jmx, 'ssd', num_classes=20).tojson()
 
 
 def no_dropout(pkg, symbol):
