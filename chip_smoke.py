@@ -15,6 +15,7 @@
     python3 chip_smoke.py --phases 17,18,19    # build, the last 50 ops,
                                                # ImageRecordIter -> fit,
                                                # VGG16-SSD300
+    python3 chip_smoke.py --phases 20          # build, the serving fleet
     python3 chip_smoke.py --mutants            # phases 2, 4 and 6 against
                                                # broken kernels
 
@@ -258,6 +259,39 @@ Phases, each of which exits non-zero on failure:
    MultiBoxTarget's device ms, the detection forward's ms and NMS's,
    kernel launches a step, the device-busy share, peak memory, the loc
    loss by epoch.
+20. fleet: one serving_fleet.ModelRegistry on gpu(0) holds phase 11's
+   bf16 ResNet-50 checkpoint three ways (resnet50, SLO 50 ms priority
+   1; resnet50-int8, quantize='int8'; resnet50-paged, page_dtype='int8',
+   paged in from an int8 image in pinned host memory), ptb-lstm (a
+   ContinuousEngine over the PTB LSTM LM's cell at phase 14's widths,
+   stepped once a token and scoring the next one, 32 slots,
+   tick_chunk='auto') and a pinned gpt2-medium scorer (TransformerLM at
+   phase 3's widths, bf16, on the flash kernel: 24 launches a request),
+   under a byte budget of gpt2 + resnet50 + ptb-lstm + half of
+   resnet50-int8, so that one ResNet tenant is resident at a time. An
+   HttpFront on 127.0.0.1 takes 16 client threads for 20 s (8 1-image
+   resnet50 clients, 4 4-image clients alternating resnet50-int8 and
+   resnet50-paged, 2 sending 256 PTB sentences, 2 sending 1024-token
+   scoring requests), then a 3 s burst at 4 times the clients. Gated by
+   fleet_gate: (a) every answer agrees with a direct serve (ResNet
+   within SERVE_SERIAL_REL_TOL of a serial forward, the scorer and
+   ptb-lstm bit for bit); (b) 3 evict / re-warm cycles of each ResNet
+   tenant, no program built after warm-up, the peak resident bytes
+   within the budget, and an eviction giving back 90 % of the tenant's
+   bytes to the allocator; (c) every reply 200 or 429, each 429 with
+   Retry-After, /healthz and /statsz parsing, an Overloaded shed in the
+   burst; (d) ptb-lstm bit-equal co-resident against solo, at K = 4
+   and 16 against 1, staged against serialized and across an
+   export_state / admit_state hand-over; (e) one 60-token sequence
+   within 1e-5 of cell.unroll(60) on the card and within cpu(0)'s own
+   spread of cpu(0)'s engine; (f) the flash kernel against its plain
+   version at (1, 16, 1024, 64) bf16, 24 launches a scorer request, no
+   backward or conv launch. Printed: per tenant requests, p50 / p99,
+   answers/s and 429s; the registry's loads, evictions, page-ins and
+   their ms, resident and peak bytes; ptb-lstm's ticks, chunks, auto-K,
+   boundary wait, lone path, launches and host / device ms a tick, the
+   chunk ladder K = 1, 4, 16, 32 and the convoy baseline; the scorer's
+   ms a request; the device-busy share and peak memory.
 
 It prints one JSON line with every kernel's numbers, then the card's
 name and power limit from nvidia-smi, and last
@@ -275,11 +309,13 @@ forward mutant, phase 4's LM case every backward mutant, phase 6's
 ragged float32 case every FMA conv mutant, its bf16 main case every
 tensor-core conv mutant, and the unchanged copy passes all four.
 """
+import contextlib
 import json
 import math
 import random
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -540,7 +576,7 @@ CONV_SM90_MUTANTS = {
                          ': ' + _TRUNCATE + 'v[0], v[1]));'),
 }
 
-ALL_PHASES = frozenset(range(2, 20))
+ALL_PHASES = frozenset(range(2, 21))
 # phase 7: the imperative NDArray path's size (n x n inputs)
 ND_SIZE = 1024
 ND_HOST_CALLS = 2000
@@ -6482,6 +6518,925 @@ def ssd_phase(torch, mx, cuda_conv, cuda_ops, root, ctx=None):
     return run
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: the serving fleet (ModelRegistry, ContinuousEngine, HttpFront)
+# ---------------------------------------------------------------------------
+
+# the ptb-lstm tenant: phase 14's widths (examples/rnn's bucketing LM)
+FLEET_PTB = dict(vocab=PTB['vocab'], embed=PTB['embed'],
+                 hidden=PTB['hidden'], layers=PTB['layers'])
+FLEET_PTB_WEIGHT_STD = 0.1
+
+
+def fleet_cell(mx, vocab, embed, hidden, layers):
+    """The PTB LSTM LM's per-timestep cell as a scorer: a step's input is
+    (token, next token), as float32 ids; Embedding, `layers` mx.rnn.
+    LSTMCells stepped once (states l<i>_h, l<i>_c in and out),
+    FullyConnected to the vocabulary, log_softmax, and the next token's
+    log-probability picked: outputs [score (slots,), l0_h, l0_c, ...].
+    The package `mx` builds it (the port, or the JAX package in the
+    tests)."""
+    data = mx.sym.Variable('data')
+    tok, nxt = mx.sym.SliceChannel(data, num_outputs=2, axis=1,
+                                   squeeze_axis=True)
+    x = mx.sym.Embedding(tok, input_dim=vocab, output_dim=embed,
+                         name='embed')
+    states = []
+    for i in range(layers):
+        cell = mx.rnn.LSTMCell(hidden, prefix='lstm_l%d_' % i)
+        x, (h, c) = cell(x, [mx.sym.Variable('l%d_h' % i),
+                             mx.sym.Variable('l%d_c' % i)])
+        states += [h, c]
+    logp = mx.sym.log_softmax(mx.sym.FullyConnected(
+        x, num_hidden=vocab, name='pred'))
+    return mx.sym.Group([mx.sym.pick(logp, nxt, axis=-1)] + states)
+
+
+def fleet_cell_states(hidden, layers):
+    """(state_shapes, state_outputs) of fleet_cell."""
+    names = ['l%d_%s' % (i, k) for i in range(layers) for k in 'hc']
+    return ({n: (hidden,) for n in names},
+            {n: 1 + j for j, n in enumerate(names)})
+
+
+def fleet_cell_params(mx, cell, hidden, layers, seed):
+    """Seeded float32 weights of fleet_cell, normal * FLEET_PTB_WEIGHT_STD,
+    biases 0, as numpy arrays by name."""
+    shapes, _ = fleet_cell_states(hidden, layers)
+    known = dict({n: (1,) + s for n, s in shapes.items()}, data=(1, 2))
+    arg_shapes, _, _ = cell.infer_shape(**known)
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, shape in zip(cell.list_arguments(), arg_shapes):
+        if name in known:
+            continue
+        out[name] = np.zeros(shape, np.float32) if name.endswith('_bias') \
+            else (rng.standard_normal(shape) *
+                  FLEET_PTB_WEIGHT_STD).astype(np.float32)
+    return out
+
+
+def fleet_unrolled(mx, vocab, embed, hidden, layers, steps):
+    """fleet_cell's weights over a whole sequence: data (1, steps, 2),
+    the LSTMCells' unroll(steps) from zero states, the scores (steps,)."""
+    data = mx.sym.Variable('data')
+    tok, nxt = mx.sym.SliceChannel(data, num_outputs=2, axis=2,
+                                   squeeze_axis=True)
+    x = mx.sym.Embedding(tok, input_dim=vocab, output_dim=embed,
+                         name='embed')
+    stack = mx.rnn.SequentialRNNCell()
+    for i in range(layers):
+        stack.add(mx.rnn.LSTMCell(hidden, prefix='lstm_l%d_' % i))
+    outputs, _ = stack.unroll(steps, x, layout='NTC', merge_outputs=True)
+    logp = mx.sym.log_softmax(mx.sym.FullyConnected(
+        mx.sym.Reshape(outputs, shape=(-1, hidden)), num_hidden=vocab,
+        name='pred'))
+    return mx.sym.pick(logp, mx.sym.Reshape(nxt, shape=(-1,)), axis=-1)
+
+
+class FleetScorer(object):
+    """The gpt2-medium tenant, an engine-like object the registry takes
+    by source=: infer(tokens, targets) -> [log p(targets) (1, T) float32]
+    through a TransformerLM (its attention on the flash kernel when its
+    config says use_flash). The logits stay where the model is; requests
+    are serialized on one stream."""
+
+    def __init__(self, torch, model, counter=None):
+        self._torch = torch
+        self._model = model
+        # counter() reads a launch count: each call's delta joins per_call
+        self._counter = counter
+        self.per_call = []
+        self._device = model.embed.device
+        self._lock = threading.Lock()
+        self._closed = False
+        self._stream = None
+        if self._device.type == 'cuda':
+            self._stream = torch.cuda.Stream(self._device)
+            self._stream.wait_stream(torch.cuda.current_stream(
+                self._device))
+
+    def infer(self, tokens, targets):
+        torch = self._torch
+        if self._closed:
+            from mxnet_tpu_torch.base import MXNetError
+            raise MXNetError('FleetScorer is closed')
+        tok = torch.as_tensor(np.asarray(tokens).reshape(1, -1)).long()
+        tgt = torch.as_tensor(np.asarray(targets).reshape(1, -1)).long()
+        stream = contextlib.nullcontext() if self._stream is None else \
+            torch.cuda.stream(self._stream)
+        with self._lock, stream, torch.inference_mode():
+            before = self._counter() if self._counter else 0
+            logits = self._model(tok.to(self._device))
+            if self._counter:
+                self.per_call.append(self._counter() - before)
+            logp = torch.log_softmax(logits.float(), dim=-1).gather(
+                -1, tgt.to(self._device)[..., None])[..., 0]
+            return [logp.cpu().numpy()]
+
+    @property
+    def closed(self):
+        return self._closed
+
+    def close(self):
+        self._closed = True
+        return self
+
+    def resident_bytes(self):
+        return sum(p.numel() * p.element_size()
+                   for p in self._model.parameters())
+
+
+FLEET_SLOTS = PTB['batch']  # the ptb-lstm engine's slots: PTB's batch
+FLEET_SEQS = 256            # ptb-lstm sequences through the front
+FLEET_MAX_LEN = max(PTB['buckets'])
+FLEET_TRAFFIC_S = 20.0      # the mixed traffic's window
+FLEET_BURST_S = 3.0         # the burst at FLEET_BURST_MULT x the clients
+FLEET_BURST_MULT = 4
+# client threads by class: 1-image requests to resnet50, 4-image requests
+# alternating between resnet50-int8 and resnet50-paged, the PTB
+# sequences, 1024-token scoring requests
+FLEET_CLIENTS = (('resnet50', 8), ('alternate', 4), ('ptb-lstm', 2),
+                 ('gpt2-medium', 2))
+FLEET_INFLIGHT = 48         # the front's in-flight admission bound
+FLEET_IMAGES = 32           # distinct 1-image requests
+FLEET_QUADS = 8             # distinct 4-image requests
+FLEET_SCORES = 4            # distinct scoring requests
+FLEET_DIGITS = 3            # decimals of the images in the JSON bodies
+FLEET_LADDER = (1, 4, 16, 32)
+FLEET_SOLO = 16             # ptb-lstm sequences also run alone
+FLEET_MIN_CYCLES = 3        # evict / re-warm cycles of each ResNet tenant
+FLEET_EVICT_FREED = 0.9     # share of an evicted tenant's bytes the
+                            # allocator must give back
+FLEET_UNROLL_TOL = 1e-5     # the engine against cell.unroll(60), relative
+# the card's engine against cpu(0)'s, relative to the largest score:
+# within FLEET_CPU_FACTOR times cpu(0)'s own move under a
+# FLEET_CPU_NUDGE nudge of the embedding, plus FLEET_CPU_SLACK
+FLEET_CPU_NUDGE = 2.0 ** -22
+FLEET_CPU_FACTOR, FLEET_CPU_SLACK = 2.0, 1e-6
+FLEET_PROFILE_S = 3.0       # the torch.profiler window inside the traffic
+# SLO priorities: the registry evicts the lowest first, so with one
+# ResNet tenant resident at a time ptb-lstm (2) is never the victim of a
+# ResNet load, and resnet50 (1) goes only when no int8 tenant is resident
+FLEET_PRIORITY = {'resnet50': 1, 'resnet50-int8': 0, 'resnet50-paged': 0,
+                  'ptb-lstm': 2, 'gpt2-medium': 1}
+FLEET_RESNETS = ('resnet50', 'resnet50-int8', 'resnet50-paged')
+
+
+def fleet_sequences(n, seed):
+    """n PTB-like sentences (ptb_sentences' corpus, 1 to FLEET_MAX_LEN
+    words) as ptb-lstm requests: step i is (word i, word i + 1), the
+    last word's next token 0 (the invalid label); float32 (T, 2)."""
+    out = []
+    for words in ptb_sentences(n, FLEET_PTB['vocab'], FLEET_MAX_LEN, seed):
+        ids = [int(w[1:]) for w in words] + [0]
+        out.append(np.stack([ids[:-1], ids[1:]], axis=1).astype(np.float32))
+    return out
+
+
+def fleet_ptb_engine(mx, params, ctx, **kw):
+    """A ContinuousEngine over fleet_cell at FLEET_PTB's widths."""
+    from mxnet_tpu_torch.serving_fleet import ContinuousEngine
+    cell = fleet_cell(mx, **FLEET_PTB)
+    shapes, outs = fleet_cell_states(FLEET_PTB['hidden'],
+                                     FLEET_PTB['layers'])
+    kw.setdefault('slots', FLEET_SLOTS)
+    return ContinuousEngine(
+        cell, arg_params={k: mx.nd.array(v, ctx=mx.cpu())
+                          for k, v in params.items()},
+        data_shape=(2,), state_shapes=shapes, state_outputs=outs, ctx=ctx,
+        **kw)
+
+
+def fleet_same(a, b):
+    """Two lists of per-sequence answers equal bit for bit."""
+    return len(a) == len(b) and all(
+        len(x) == len(y) and all(np.array_equal(u, v) for u, v in zip(x, y))
+        for x, y in zip(a, b))
+
+
+def busy_union_ms(events):
+    """The device-busy time of profiler kernel events: the union of their
+    intervals (engines' streams overlap), in ms."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    total, cur_s, cur_e = 0.0, None, None
+    for a, b in spans:
+        if cur_e is None or a > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total / 1e3
+
+
+def cuda_kernel_events(prof):
+    return [e for e in prof.events()
+            if str(getattr(e, 'device_type', '')).endswith('CUDA')]
+
+
+def fleet_ladder(torch, mx, params, ctx, seqs):
+    """The PTB sequences through engines of FLEET_SLOTS slots: each K of
+    FLEET_LADDER (stage_ahead 1), K = 16 serialized (stage_ahead 0), the
+    convoy baseline, and a K = 16 run handed over mid-traffic by
+    export_state / admit_state to a fresh engine; answers, seq/s and
+    ticks. One K = 16 run under torch.profiler: kernel launches and the
+    host and device ms of a tick."""
+    from torch.profiler import ProfilerActivity, profile
+    tokens = sum(len(x) for x in seqs)
+    runs, answers = {}, {}
+
+    def run(name, **kw):
+        eng = fleet_ptb_engine(mx, params, ctx, **kw)
+        try:
+            t0 = time.perf_counter()
+            answers[name] = eng.infer_many(seqs)
+            wall = time.perf_counter() - t0
+            st = eng.stats()
+        finally:
+            eng.close()
+        runs[name] = dict(seqs_per_s=len(seqs) / wall,
+                          tokens_per_s=tokens / wall, wall_s=wall,
+                          ticks=st['ticks'], chunks=st['chunks'],
+                          utilization=st['utilization'],
+                          lone_fast_path=st['lone_fast_path'],
+                          lone_fast_path_width=st['lone_fast_path_width'],
+                          exact_fill_admits=st['exact_fill_admits'],
+                          boundary_wait_ms=st['boundary_wait_ms'],
+                          compiles_after_warmup=st['compiles_after_warmup'])
+
+    for k in FLEET_LADDER:
+        run('k%d' % k, tick_chunk=k)
+    run('k16_serialized', tick_chunk=16, stage_ahead=0)
+    run('convoy', tick_chunk=1, convoy=True)
+
+    # the hand-over: export after a few chunks, admit into a fresh engine
+    old = fleet_ptb_engine(mx, params, ctx, tick_chunk=16)
+    got = {}
+    t = threading.Thread(target=lambda: got.update(a=old.infer_many(seqs)))
+    t.start()
+    deadline = time.perf_counter() + 60
+    while old.stats()['chunks'] < 4 and time.perf_counter() < deadline:
+        time.sleep(0.001)
+    exported = old.export_state()
+    new = fleet_ptb_engine(mx, params, ctx, tick_chunk=16)
+    migrated = new.admit_state(exported)
+    t.join(timeout=300)
+    new.close()
+    old.close()
+    if t.is_alive():
+        fail('fleet: the handed-over PTB requests did not finish')
+    answers['swap'] = got.get('a')
+
+    # one K = 16 run under the profiler
+    eng = fleet_ptb_engine(mx, params, ctx, tick_chunk=16)
+    window = seqs[:FLEET_SLOTS]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.infer_many(window)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    st = eng.stats()
+    eng.close()
+    kernels = cuda_kernel_events(prof)
+    ticks = max(st['ticks'], 1)
+    profile_row = dict(ticks=st['ticks'], chunks=st['chunks'],
+                       launches=len(kernels),
+                       launches_per_tick=len(kernels) / ticks,
+                       host_ms_per_tick=wall * 1e3 / ticks,
+                       device_ms_per_tick=busy_union_ms(kernels) / ticks)
+    return runs, answers, dict(migrated=migrated,
+                               dropped=exported['dropped']), profile_row
+
+
+def fleet_unroll_check(torch, mx, params, ctx, seq):
+    """(e): one FLEET_MAX_LEN-step sequence through an engine on ctx,
+    against the same weights unrolled by the cells' unroll() and run
+    once on ctx, and against cpu(0)'s engine, within cpu(0)'s own move
+    under a nudge of the embedding."""
+    steps = len(seq)
+    sym = fleet_unrolled(mx, steps=steps, **FLEET_PTB)
+    ex = sym.simple_bind(ctx, grad_req='null', data=(1, steps, 2))
+    ex.copy_params_from({k: mx.nd.array(v, ctx=mx.cpu())
+                         for k, v in params.items()})
+    unrolled = ex.forward(is_train=False, data=seq[None])[0].asnumpy()
+
+    def engine_scores(c, p):
+        with fleet_ptb_engine(mx, p, c, tick_chunk=1) as eng:
+            return eng.infer(seq)[0]
+
+    card = engine_scores(ctx, params)
+    cpu = engine_scores(mx.cpu(), params)
+    nudged = dict(params, embed_weight=params['embed_weight'] *
+                  np.float32(1.0 + FLEET_CPU_NUDGE))
+    cpu_nudged = engine_scores(mx.cpu(), nudged)
+    scale = float(np.abs(cpu).max())
+    own = float(np.abs(cpu_nudged - cpu).max()) / scale
+    return dict(steps=steps,
+                unroll_rel_err=float(np.abs(card - unrolled).max() /
+                                     np.abs(unrolled).max()),
+                unroll_tol=FLEET_UNROLL_TOL,
+                cpu_err=float(np.abs(card - cpu).max()) / scale,
+                cpu_own=own,
+                cpu_bound=FLEET_CPU_FACTOR * own + FLEET_CPU_SLACK)
+
+
+def fleet_client(address, work, window, out, once=False):
+    """One HTTP client: once `window['go']` is set, POST each (tenant,
+    key, body) of `work` in turn on one keep-alive connection, once
+    through `work` (`once`), or else until `window['stop_at']`
+    (perf_counter); one record a reply in `out`."""
+    import http.client
+    window['go'].wait(timeout=600)
+    conn = http.client.HTTPConnection(*address, timeout=300)
+    i = 0
+    try:
+        while (i < len(work)) if once else \
+                (time.perf_counter() < window['stop_at']):
+            tenant, key, body = work[i % len(work)]
+            i += 1
+            t0 = time.perf_counter()
+            try:
+                conn.request('POST', '/v1/models/%s:predict' % tenant, body,
+                             {'Content-Type': 'application/json'})
+                r = conn.getresponse()
+                data = r.read()
+            except (OSError, http.client.HTTPException) as e:
+                out.append(dict(tenant=tenant, key=key, code=None,
+                                error=repr(e)))
+                conn.close()
+                conn = http.client.HTTPConnection(*address, timeout=300)
+                continue
+            rec = dict(tenant=tenant, key=key, code=r.status,
+                       ms=(time.perf_counter() - t0) * 1e3,
+                       retry_after=r.getheader('Retry-After'))
+            if r.status == 200:
+                rec['out'] = json.loads(data)['outputs'][0]
+            elif r.status == 429:
+                rec['overloaded'] = 'backlog_rows' in json.loads(data)
+            out.append(rec)
+    finally:
+        conn.close()
+
+
+def fleet_drive(address, work_by_client, seconds):
+    """Client threads, one per (work list, once) pair, released together
+    once all have started, the timed ones for `seconds`: (threads, their
+    records, the perf_counter of the release)."""
+    records = []
+    window = dict(go=threading.Event(), stop_at=None)
+    threads = [threading.Thread(target=fleet_client,
+                                args=(address, work, window, records, once))
+               for work, once in work_by_client]
+    for t in threads:
+        t.start()
+    t0 = time.perf_counter()
+    window['stop_at'] = t0 + seconds
+    window['go'].set()
+    return threads, records, t0
+
+
+def fleet_codes(records):
+    codes = {}
+    for r in records:
+        codes[str(r['code'])] = codes.get(str(r['code']), 0) + 1
+    return codes
+
+
+def fleet_tenant_rows(records, seconds):
+    """Per tenant: requests, answers/s, p50 / p99 client latency of the
+    answered requests, 429s."""
+    rows = {}
+    for tenant in sorted({r['tenant'] for r in records}):
+        mine = [r for r in records if r['tenant'] == tenant]
+        ok = [r['ms'] for r in mine if r['code'] == 200]
+        rows[tenant] = dict(
+            requests=len(mine), answered=len(ok),
+            answers_per_s=len(ok) / seconds,
+            p50_ms=float(np.percentile(ok, 50)) if ok else None,
+            p99_ms=float(np.percentile(ok, 99)) if ok else None,
+            rejected_429=sum(1 for r in mine if r['code'] == 429))
+    return rows
+
+
+def fleet_gate(run):
+    """Phase 20's checks on a run's numbers: a list of what failed, empty
+    when it passed."""
+    bad = []
+    for part in ('http', 'burst'):
+        codes = run[part]['codes']
+        other = {c: n for c, n in codes.items() if c not in ('200', '429')}
+        if other:
+            bad.append('%s: replies other than 200 and 429 (5xx or none): '
+                       '%s' % (part, other))
+    if run['http']['retry_after_missing']:
+        bad.append('%d 429 replies carried no Retry-After'
+                   % run['http']['retry_after_missing'])
+    if not (run['http']['healthz_ok'] and run['http']['statsz_ok']):
+        bad.append('/healthz or /statsz did not parse')
+    if run['burst']['overloaded'] < 1:
+        bad.append('the burst showed no Overloaded shed')
+    silent = sorted(t for t in FLEET_PRIORITY
+                    if not run['tenants'].get(t, {}).get('answered'))
+    if silent:
+        bad.append('tenants answered nothing in the traffic: %s' % silent)
+    a = run['answers']
+    if not a['resnet_max_rel_err'] <= a['resnet_tol'] or \
+            not a['resnet_answers']:
+        bad.append('ResNet answers %.4g of the largest output from the '
+                   'serial forward (tol %g, %d answers)'
+                   % (a['resnet_max_rel_err'], a['resnet_tol'],
+                      a['resnet_answers']))
+    if not (a['gpt2_bit_equal'] and a['gpt2_answers']):
+        bad.append('gpt2-medium answers not bit-equal to the scorer called '
+                   'directly (%d answers)' % a['gpt2_answers'])
+    if not (a['ptb_bit_equal'] and a['ptb_answers']):
+        bad.append('ptb-lstm answers not bit-equal to the same sequences '
+                   'run alone (%d answers)' % a['ptb_answers'])
+    r = run['registry']
+    few = {t: n for t, n in r['cycles'].items() if n < FLEET_MIN_CYCLES}
+    if few or set(r['cycles']) != set(FLEET_RESNETS):
+        bad.append('evict / re-warm cycles %s, want %d of each ResNet '
+                   'tenant' % (r['cycles'], FLEET_MIN_CYCLES))
+    if r['compiles_after_warmup']:
+        bad.append('%d rung builds after warm-up'
+                   % r['compiles_after_warmup'])
+    if r['peak_resident_bytes'] > r['budget_bytes']:
+        bad.append('peak resident bytes %d over the budget %d'
+                   % (r['peak_resident_bytes'], r['budget_bytes']))
+    if not r['evict_freed_share'] >= FLEET_EVICT_FREED:
+        bad.append('the allocator gave back %.3f of an evicted tenant\'s '
+                   'bytes (want >= %g)' % (r['evict_freed_share'],
+                                           FLEET_EVICT_FREED))
+    p = run['ptb']
+    for key, what in (('co_resident_vs_solo', 'co-resident against solo'),
+                      ('k4_vs_k1', 'K=4 against K=1'),
+                      ('k16_vs_k1', 'K=16 against K=1'),
+                      ('staged_vs_serialized', 'stage_ahead=1 against 0'),
+                      ('swap_vs_unswapped',
+                       'export_state / admit_state against unswapped')):
+        if not p[key]:
+            bad.append('ptb-lstm not bit-equal: %s' % what)
+    if not p['unroll_rel_err'] <= p['unroll_tol']:
+        bad.append('ptb-lstm %.3g from its cell.unroll (tol %g)'
+                   % (p['unroll_rel_err'], p['unroll_tol']))
+    if not p['cpu_err'] <= p['cpu_bound']:
+        bad.append('ptb-lstm on the card %.3g from cpu(0) (bound %.3g)'
+                   % (p['cpu_err'], p['cpu_bound']))
+    f = run['flash']
+    if not f['kernel_ok']:
+        bad.append('the flash kernel disagrees with its plain version at '
+                   'the scorer\'s shape')
+    if not f['per_request'] or \
+            any(n != f['layers'] for n in f['per_request']):
+        bad.append('flash forward launches per scorer request %s, want %d'
+                   % (sorted(set(f['per_request'])), f['layers']))
+    if tuple(f['bwd_launches']) != (0, 0) or f['conv_launches']:
+        bad.append('the phase launched backward (%s) or conv (%d) kernels'
+                   % (f['bwd_launches'], f['conv_launches']))
+    return bad
+
+
+def fleet_phase(torch, mx, cuda_conv, cuda_ops, tfm, root, ctx=None):
+    """Phase 20: one ModelRegistry on ctx holding the bf16 ResNet-50
+    checkpoint three ways (resnet50; resnet50-int8, quantize='int8';
+    resnet50-paged, page_dtype='int8'), the PTB LSTM cell in a
+    ContinuousEngine (ptb-lstm) and a pinned GPT-2-medium scorer on the
+    flash kernel (gpt2-medium), under a byte budget that holds one ResNet
+    tenant at a time; an HttpFront on 127.0.0.1 takes 16 client threads
+    for FLEET_TRAFFIC_S, then a burst at FLEET_BURST_MULT x the clients.
+    Gated by fleet_gate."""
+    import gc
+    import shutil
+    from mxnet_tpu_torch import exec_cache, quantization
+    from mxnet_tpu_torch.predictor import Predictor
+    from mxnet_tpu_torch.serving_fleet import SLO, HttpFront, ModelRegistry
+    ctx = ctx or mx.gpu(0)
+    device = ctx.torch_device
+    torch.cuda.empty_cache()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    ckpt_dir = root / 'build' / 'phase20'
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ckpt_dir.mkdir(parents=True)
+    prefix = str(ckpt_dir / 'resnet50')
+    t_phase = time.perf_counter()
+    try:
+        # -- the tenants' weights, the requests and their references ----
+        symbol, shape = serve_checkpoint(torch, mx, prefix, ctx)
+        rng = np.random.default_rng(SEED + 400)
+        images = np.round(rng.standard_normal(
+            (FLEET_IMAGES + 4 * FLEET_QUADS,) + shape), FLEET_DIGITS)
+        img_bodies = [json.dumps({'instances': images[i:i + 1].tolist()})
+                      .encode() for i in range(FLEET_IMAGES)]
+        quad_bodies = [json.dumps({'instances': images[
+            FLEET_IMAGES + 4 * q:FLEET_IMAGES + 4 * q + 4].tolist()})
+            .encode() for q in range(FLEET_QUADS)]
+        images = images.astype(np.float32)
+        serial = Predictor.from_checkpoint(
+            prefix, 0, {'data': (SERVE_BATCH,) + shape}, ctx=ctx)
+        fp_ref = serial_outputs(serial, images)
+        # the int8 codes' weights, dequantized as the int8 engine does
+        sex = serial._executor
+        weights = {n: a._data for n, a in sex.arg_dict.items()
+                   if n != 'data'}
+        cfg = quantization.QuantConfig.resolve('int8')
+        quantized, passthrough = quantization.quantize_weights(weights, cfg)
+        deq = {n: quantization.dequantize_weight(q, sc, cfg, dtype=dt)
+               for n, (q, sc, dt) in quantized.items()}
+        deq.update({n: weights[n] for n in passthrough})
+        q_serial = Predictor(symbol=symbol, arg_params=deq,
+                             aux_params={n: a._data for n, a in
+                                         sex.aux_dict.items()},
+                             input_shapes={'data': (SERVE_BATCH,) + shape},
+                             ctx=ctx)
+        q_ref = serial_outputs(q_serial, images)
+        del serial, q_serial, sex, weights, quantized, deq
+        ref_scale = float(np.abs(fp_ref).max())
+
+        lm_cfg = tfm.lm_config(use_flash=True, **GPT2_MEDIUM)
+        lm_params = tfm.params_from_jax(seeded_tree(lm_cfg, SEED + 401),
+                                        dtype=torch.bfloat16, device=device)
+        scorer = FleetScorer(torch, tfm.TransformerLM(lm_cfg, lm_params)
+                             .eval(), counter=lambda: (
+                                 cuda_ops.FLASH_FWD_LAUNCHES))
+        del lm_params
+        srng = np.random.default_rng(SEED + 402)
+        scores_in = [srng.integers(0, lm_cfg['vocab'], SEQ + 1)
+                     for _ in range(FLEET_SCORES)]
+        score_bodies = [json.dumps({'inputs': {
+            'tokens': t[:-1].tolist(), 'targets': t[1:].tolist()}})
+            .encode() for t in scores_in]
+        score_ref = [scorer.infer(t[:-1], t[1:])[0] for t in scores_in]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in scores_in:
+            scorer.infer(t[:-1], t[1:])
+        torch.cuda.synchronize()
+        gpt2_ms = (time.perf_counter() - t0) * 1e3 / FLEET_SCORES
+
+        cell = fleet_cell(mx, **FLEET_PTB)
+        ptb_params = fleet_cell_params(mx, cell, FLEET_PTB['hidden'],
+                                       FLEET_PTB['layers'], SEED + 403)
+        seqs = fleet_sequences(FLEET_SEQS, SEED + 404)
+        seq_bodies = [json.dumps({'instances': x.tolist()}).encode()
+                      for x in seqs]
+        print('fleet: checkpoint, %d images, %d sequences (%d tokens) and '
+              'the references in %.1f s' % (
+                  len(images), len(seqs), sum(len(x) for x in seqs),
+                  time.perf_counter() - t_phase))
+
+        # -- (d) and (e): the PTB cell's engines, before the traffic ----
+        ladder, ptb_answers, swap, tick_profile = fleet_ladder(
+            torch, mx, ptb_params, ctx, seqs)
+        solo_idx = list(range(0, FLEET_SEQS, FLEET_SEQS // FLEET_SOLO))
+        with fleet_ptb_engine(mx, ptb_params, ctx, tick_chunk=1) as eng:
+            solo = [eng.infer(seqs[i]) for i in solo_idx]
+        seq60 = np.concatenate(fleet_sequences(64, SEED + 405))[
+            :FLEET_MAX_LEN]
+        unroll = fleet_unroll_check(torch, mx, ptb_params, ctx, seq60)
+        k1 = ptb_answers['k1']
+
+        def ptb_loader(tick_chunk=None):
+            return fleet_ptb_engine(mx, ptb_params, ctx,
+                                    tick_chunk=tick_chunk,
+                                    slo=SLO(deadline_ms=200.0))
+
+        def register(reg, est=None):
+            est = est or {}
+            reg.register('resnet50', prefix=prefix, epoch=0,
+                         input_shapes={'data': (1,) + shape},
+                         slo=SLO(deadline_ms=50.0,
+                                 priority=FLEET_PRIORITY['resnet50']),
+                         max_batch=SERVE_BATCH,
+                         est_bytes=est.get('resnet50'))
+            q_est = est.get('resnet50-int8')
+            reg.register('resnet50-int8', prefix=prefix, epoch=0,
+                         input_shapes={'data': (1,) + shape},
+                         quantize='int8', slo=SLO(
+                             deadline_ms=150.0,
+                             priority=FLEET_PRIORITY['resnet50-int8']),
+                         max_batch=8, est_bytes=None if q_est is None else
+                         int(math.ceil(q_est / cfg.est_ratio())))
+            reg.register('resnet50-paged', prefix=prefix, epoch=0,
+                         input_shapes={'data': (1,) + shape},
+                         page_dtype='int8', slo=SLO(
+                             deadline_ms=150.0,
+                             priority=FLEET_PRIORITY['resnet50-paged']),
+                         max_batch=8, est_bytes=est.get('resnet50-paged'))
+            reg.register('ptb-lstm', loader=ptb_loader, tick_chunk='auto',
+                         slo=SLO(deadline_ms=200.0,
+                                 priority=FLEET_PRIORITY['ptb-lstm']),
+                         est_bytes=est.get('ptb-lstm'))
+
+        # -- warm-up: every program built, every tenant's bytes measured -
+        t0 = time.perf_counter()
+        with ModelRegistry(ctx=ctx) as warm:
+            register(warm)
+            warm.infer('resnet50', images[:1])
+            warm.infer('resnet50-int8', images[:4])
+            warm.infer('resnet50-paged', images[:4])
+            warm.infer('ptb-lstm', seqs[0])
+            nbytes = {m: v['bytes']
+                      for m, v in warm.stats()['models'].items()}
+        nbytes['gpt2-medium'] = scorer.resident_bytes()
+        budget = (nbytes['gpt2-medium'] + nbytes['resnet50'] +
+                  nbytes['ptb-lstm'] + nbytes['resnet50-int8'] // 2)
+        print('fleet: warm-up %.1f s; bytes %s; budget %d'
+              % (time.perf_counter() - t0, nbytes, budget))
+
+        # -- the registry under the budget -------------------------------
+        reg = ModelRegistry(budget_bytes=budget, ctx=ctx)
+        reg.register('gpt2-medium', source=scorer,
+                     slo=SLO(priority=FLEET_PRIORITY['gpt2-medium']))
+        register(reg, nbytes)
+        evictions, loads, page_in_ms = {}, {}, []
+        count_lock = threading.Lock()
+        evict_one, load_locked, page_in = (reg._evict_one, reg._load_locked,
+                                           reg._page_in)
+
+        def counting_evict(ent):
+            resident = ent.engine is not None
+            evict_one(ent)
+            if resident:
+                with count_lock:
+                    evictions[ent.name] = evictions.get(ent.name, 0) + 1
+
+        def counting_load(ent):
+            # a load, unless a concurrent one made the entry resident
+            fresh = ent.engine is None or ent.engine.closed
+            eng = load_locked(ent)
+            if fresh:
+                with count_lock:
+                    loads[ent.name] = loads.get(ent.name, 0) + 1
+            return eng
+
+        def timed_page_in(ent):
+            t1 = time.perf_counter()
+            pred = page_in(ent)
+            if pred is not None:
+                page_in_ms.append((time.perf_counter() - t1) * 1e3)
+            return pred
+
+        reg._evict_one, reg._load_locked, reg._page_in = (
+            counting_evict, counting_load, timed_page_in)
+        for name in ('gpt2-medium', 'ptb-lstm', 'resnet50'):
+            reg.engine(name)
+        front = HttpFront(reg, host='127.0.0.1', port=0,
+                          max_inflight=FLEET_INFLIGHT).start()
+        address = front.address
+
+        def work_lists(mult):
+            lists = []
+            for cls, n in FLEET_CLIENTS:
+                for c in range(n * mult):
+                    if cls == 'resnet50':
+                        work = [('resnet50', (c + j) % FLEET_IMAGES,
+                                 img_bodies[(c + j) % FLEET_IMAGES])
+                                for j in range(FLEET_IMAGES)]
+                        lists.append((work, False))
+                    elif cls == 'alternate':
+                        # half the clients start on each tenant
+                        work = [(FLEET_RESNETS[1 + (c + j) % 2],
+                                 (c + j) % FLEET_QUADS,
+                                 quad_bodies[(c + j) % FLEET_QUADS])
+                                for j in range(2 * FLEET_QUADS)]
+                        lists.append((work, False))
+                    elif cls == 'ptb-lstm':
+                        # the traffic sends the sentences once; the burst
+                        # cycles through its share of them
+                        lists.append(([('ptb-lstm', i, seq_bodies[i])
+                                       for i in range(c, FLEET_SEQS,
+                                                      n * mult)],
+                                      mult == 1))
+                    else:
+                        work = [('gpt2-medium', (c + g) % FLEET_SCORES,
+                                 score_bodies[(c + g) % FLEET_SCORES])
+                                for g in range(FLEET_SCORES)]
+                        lists.append((work, False))
+            return lists
+
+        # -- the traffic ---------------------------------------------------
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        misses0 = exec_cache.stats()['misses']
+        cuda_conv.CONV_BN_STATS_LAUNCHES = 0
+        reset_counts(cuda_ops)
+        scorer.per_call.clear()
+        threads, records, t_start = fleet_drive(address, work_lists(1),
+                                                FLEET_TRAFFIC_S)
+        time.sleep(1.0)
+        health = json.loads(urllib_get(address, '/healthz'))
+        statsz = json.loads(urllib_get(address, '/statsz'))
+        time.sleep(2.0)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t_p = time.perf_counter()
+            time.sleep(FLEET_PROFILE_S)
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t_p
+        busy_ms = busy_union_ms(cuda_kernel_events(prof))
+        del prof
+        for t in threads:
+            t.join(timeout=FLEET_TRAFFIC_S + 600)
+        traffic_s = time.perf_counter() - t_start
+        if any(t.is_alive() for t in threads):
+            fail('fleet: clients did not finish')
+        ptb_stats = reg.engine('ptb-lstm').stats()
+        st1 = reg.stats()
+        health_after = json.loads(urllib_get(address, '/healthz'))
+
+        # -- the burst ----------------------------------------------------
+        # resnet50 resident with a measured service time, as after its
+        # own traffic, when the burst's clients arrive together (served
+        # by the engine itself: the registry's admission would shed on
+        # the traffic's estimate)
+        r50 = reg.engine('resnet50')
+        for i in range(4):
+            r50.infer(images[i:i + 1])
+        svc_before_burst = r50.service_estimate()
+        del r50
+        burst_threads, burst, _ = fleet_drive(
+            address, work_lists(FLEET_BURST_MULT), FLEET_BURST_S)
+        for t in burst_threads:
+            t.join(timeout=FLEET_BURST_S + 600)
+        if any(t.is_alive() for t in burst_threads):
+            fail('fleet: burst clients did not finish')
+        st2 = reg.stats()
+        ev_snap, ld_snap = dict(evictions), dict(loads)
+        statsz_after = json.loads(urllib_get(address, '/statsz'))
+        torch.cuda.synchronize()
+        peak_bytes = torch.cuda.max_memory_allocated()
+        misses = exec_cache.stats()['misses'] - misses0
+        flash_launches = cuda_ops.FLASH_FWD_LAUNCHES
+        launches = read_counts(cuda_ops)
+        conv_launches = cuda_conv.CONV_BN_STATS_LAUNCHES
+        per_call = list(scorer.per_call)
+        front.close()
+
+        # -- (b) the allocator after an eviction --------------------------
+        reg.engine('resnet50')
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        r50_bytes = reg.stats()['models']['resnet50']['bytes']
+        reg.evict('resnet50')
+        gc.collect()
+        torch.cuda.synchronize()
+        freed = before - torch.cuda.memory_allocated()
+        final = reg.stats()
+        reg.close()
+
+        # -- (f) the flash kernel at the scorer's shape --------------------
+        flash_case = kernel_case(torch, cuda_ops, 'fleet_scorer',
+                                 (1, GPT2_MEDIUM['heads'], SEQ,
+                                  GPT2_MEDIUM['dim'] // GPT2_MEDIUM['heads']),
+                                 SEQ, torch.bfloat16, True, iters=20)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+    # -- (a) the answers against their references ------------------------
+    errs = []
+    for r in records + burst:
+        if r['code'] != 200 or r['tenant'] not in FLEET_RESNETS:
+            continue
+        got = np.asarray(r['out'], np.float32)
+        if r['tenant'] == 'resnet50':
+            rows = [r['key']]
+        else:
+            rows = list(range(FLEET_IMAGES + 4 * r['key'],
+                              FLEET_IMAGES + 4 * r['key'] + 4))
+        e_fp = float(np.abs(got - fp_ref[rows]).max()) / ref_scale
+        e_q = float(np.abs(got - q_ref[rows]).max()) / ref_scale
+        errs.append(dict(resnet50=e_fp, **{'resnet50-int8': e_q,
+                                           'resnet50-paged': min(e_fp, e_q)}
+                         )[r['tenant']])
+    gpt2_recs = [r for r in records + burst
+                 if r['tenant'] == 'gpt2-medium' and r['code'] == 200]
+    gpt2_equal = all(np.array_equal(np.asarray(r['out'], np.float32),
+                                    score_ref[r['key']]) for r in gpt2_recs)
+    ptb_ok = [r for r in records + burst
+              if r['tenant'] == 'ptb-lstm' and r['code'] == 200]
+    ptb_equal = all(np.array_equal(np.asarray(r['out'], np.float32),
+                                   k1[r['key']][0]) for r in ptb_ok)
+    retry_missing = sum(1 for r in records + burst
+                        if r['code'] == 429 and not r['retry_after'])
+    # 429s whose body is an Overloaded shed's (the registry's or an
+    # engine's), not the admission gate's
+    overloaded = sum(1 for r in burst if r.get('overloaded'))
+    reloads = {t: n - 1 for t, n in ld_snap.items()}
+    cycles = {t: min(ev_snap.get(t, 0), reloads.get(t, 0))
+              for t in FLEET_RESNETS}
+    run = dict(
+        http=dict(codes=fleet_codes(records), retry_after_missing=retry_missing,
+                  healthz_ok=health.get('status') == 'ok' and
+                  health_after.get('status') == 'ok',
+                  statsz_ok='models' in statsz and 'fleet' in statsz and
+                  'http' in statsz_after),
+        burst=dict(codes=fleet_codes(burst), overloaded=overloaded,
+                   resnet50_service_estimate=svc_before_burst,
+                   shed_requests=st2['shed_requests'] - st1['shed_requests'],
+                   tenants=fleet_tenant_rows(burst, FLEET_BURST_S)),
+        answers=dict(resnet_max_rel_err=max(errs) if errs else float('inf'),
+                     resnet_tol=SERVE_SERIAL_REL_TOL,
+                     resnet_answers=len(errs), gpt2_bit_equal=gpt2_equal,
+                     gpt2_answers=len(gpt2_recs), ptb_bit_equal=ptb_equal,
+                     ptb_answers=len(ptb_ok)),
+        registry=dict(cycles=cycles, evictions=ev_snap, reloads=reloads,
+                      loads=final['loads'], total_evictions=final['evictions'],
+                      page_ins=final['page_ins'],
+                      page_drops=final['page_drops'],
+                      page_in_ms_mean=float(np.mean(page_in_ms))
+                      if page_in_ms else None, page_ins_timed=len(page_in_ms),
+                      resident_bytes=st1['resident_bytes'],
+                      peak_resident_bytes=final['peak_resident_bytes'],
+                      budget_bytes=budget, bytes=nbytes,
+                      compiles_after_warmup=misses,
+                      evict_freed_bytes=freed, evicted_bytes=r50_bytes,
+                      evict_freed_share=freed / max(r50_bytes, 1)),
+        ptb=dict(co_resident_vs_solo=fleet_same(
+                     [k1[i] for i in solo_idx], solo),
+                 k4_vs_k1=fleet_same(ptb_answers['k4'], k1),
+                 k16_vs_k1=fleet_same(ptb_answers['k16'], k1),
+                 staged_vs_serialized=fleet_same(
+                     ptb_answers['k16'], ptb_answers['k16_serialized']),
+                 swap_vs_unswapped=fleet_same(ptb_answers['swap'],
+                                              ptb_answers['k16']),
+                 swap=swap, ladder=ladder,
+                 convoy_ratio=dict(
+                     seqs_per_s=ladder['k1']['seqs_per_s'] /
+                     ladder['convoy']['seqs_per_s'],
+                     ticks=ladder['convoy']['ticks'] / ladder['k1']['ticks']),
+                 engine=dict((k, ptb_stats[k]) for k in (
+                     'ticks', 'chunks', 'tick_chunk', 'auto_k_decisions',
+                     'boundary_wait_ms', 'lone_fast_path',
+                     'lone_fast_path_width', 'exact_fill_admits',
+                     'lone_fast_path_hits', 'utilization', 'staged_chunks',
+                     'tick_ms_ema')),
+                 http_seqs_per_s=len(ptb_ok) / traffic_s,
+                 http_tokens_per_s=sum(len(seqs[r['key']])
+                                       for r in ptb_ok) / traffic_s,
+                 tick_profile=tick_profile, **unroll),
+        flash=dict(kernel_ok=bool(flash_case.get('ok')) and
+                   flash_case['same_bits_twice'], per_request=per_call,
+                   layers=GPT2_MEDIUM['layers'], launches=flash_launches,
+                   bwd_launches=launches[1:], conv_launches=conv_launches,
+                   case=flash_case),
+        tenants=fleet_tenant_rows(records, traffic_s),
+        gpt2=dict(ms_per_request=gpt2_ms,
+                  tokens_per_s=SEQ / (gpt2_ms / 1e3),
+                  flash_launches_per_request=sorted(set(per_call))),
+        device=dict(busy_share=busy_ms / (prof_wall * 1e3),
+                    profile_window_ms=prof_wall * 1e3, busy_ms=busy_ms,
+                    peak_bytes=peak_bytes),
+        traffic_s=traffic_s, phase_s=time.perf_counter() - t_phase)
+    print('fleet ' + json.dumps(run, default=str))
+    bad = fleet_gate(run)
+    if bad:
+        fail('fleet: ' + '; '.join(bad))
+    for tenant, row in sorted(run['tenants'].items()):
+        print('fleet tenant %s: %d requests, p50 %s ms, p99 %s ms, %.1f '
+              'answers/s, %d 429s' % (tenant, row['requests'], row['p50_ms'],
+                                      row['p99_ms'], row['answers_per_s'],
+                                      row['rejected_429']))
+    g = run['registry']
+    print('fleet registry: %d loads, %d evictions, cycles %s, %d page-ins '
+          '(mean %s ms), %d page drops, resident %d, peak %d of budget %d, '
+          '%d rung builds after warm-up, evict freed %.3f of %d bytes'
+          % (g['loads'], g['total_evictions'], g['cycles'], g['page_ins'],
+             g['page_in_ms_mean'], g['page_drops'], g['resident_bytes'],
+             g['peak_resident_bytes'], g['budget_bytes'],
+             g['compiles_after_warmup'], g['evict_freed_share'],
+             g['evicted_bytes']))
+    p = run['ptb']
+    print('fleet ptb-lstm: %.1f seqs/s, %.0f tokens/s through the front; '
+          'engine %s; %.1f launches a tick, host %.3f ms and device %.3f ms '
+          'a tick' % (p['http_seqs_per_s'], p['http_tokens_per_s'],
+                      p['engine'], p['tick_profile']['launches_per_tick'],
+                      p['tick_profile']['host_ms_per_tick'],
+                      p['tick_profile']['device_ms_per_tick']))
+    print('fleet ptb-lstm ladder (slots %d): %s; continuous / convoy: %.2fx '
+          'seqs/s, %.2fx fewer ticks' % (
+              FLEET_SLOTS, {k: round(v['seqs_per_s'], 1)
+                            for k, v in p['ladder'].items()},
+              p['convoy_ratio']['seqs_per_s'], p['convoy_ratio']['ticks']))
+    print('fleet gpt2-medium: %.2f ms a request, %.0f tokens/s, %s flash '
+          'launches a request; device busy %.3f of the traffic, peak %.2f GB'
+          % (run['gpt2']['ms_per_request'], run['gpt2']['tokens_per_s'],
+             run['gpt2']['flash_launches_per_request'],
+             run['device']['busy_share'], peak_bytes / 1e9))
+    return run
+
+
+def urllib_get(address, path):
+    import urllib.request
+    return urllib.request.urlopen('http://%s:%d%s' % (tuple(address) +
+                                                     (path,)),
+                                  timeout=60).read()
+
+
 def main(argv=None):
     import argparse
     parser = argparse.ArgumentParser(
@@ -6497,7 +7452,7 @@ def main(argv=None):
                                                     v.split(',')},
                         default=ALL_PHASES,
                         help='build, then run only these phases (a comma '
-                             'list of 2-19); the kernels line needs all')
+                             'list of 2-20); the kernels line needs all')
     parser.add_argument('--mutants', action='store_true',
                         help='check that phase 2\'s LM case fails each of '
                              'FWD_MUTANTS, phase 4\'s each of BWD_MUTANTS '
@@ -6517,7 +7472,7 @@ def main(argv=None):
         return
     phases = args.phases
     if not phases <= ALL_PHASES:
-        fail('--phases takes phases 2 to 19; got %s' % sorted(phases))
+        fail('--phases takes phases 2 to 20; got %s' % sorted(phases))
     sys.path.insert(0, str(root))
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import _build, cuda_conv, cuda_ops
@@ -6655,6 +7610,10 @@ def main(argv=None):
     if 19 in phases:
         ssd_phase(torch, mx, cuda_conv, cuda_ops, root)
 
+    # 20. the serving fleet: ModelRegistry, ContinuousEngine, HttpFront
+    if 20 in phases:
+        fleet = fleet_phase(torch, mx, cuda_conv, cuda_ops, tfm, root)
+
     if phases != ALL_PHASES:
         print('phases %s passed' % sorted(phases))
         return
@@ -6674,7 +7633,8 @@ def main(argv=None):
                               lstm_ptb_train=ptb['kernel_launches'][
                                   'flash_fwd'],
                               gluon_lstm_train=gluon_lm['kernel_launches'][
-                                  'flash_fwd']),
+                                  'flash_fwd'],
+                              fleet_lm_serve=fleet['flash']['launches']),
         max_abs_err=main_case['max_abs_err'],
         share_differ=main_case['share_differ'],
         ms=main_case['ms'], tflops=main_case['tflops'],

@@ -57,7 +57,13 @@ far:
   max_batch=32)` answers `infer()` calls from many threads on `gpu(0)`;
   `exec_cache` keys the rung programs; `monitor` (`mx.mon.Monitor`) and
   the executor's `reshape`, `partial_forward`, `memory_cost` and
-  `debug_str`.
+  `debug_str`;
+- the serving fleet (`mx.serving_fleet`): `ModelRegistry` pages many
+  models' weights under a byte budget (int8 page-out images in pinned
+  host memory), `SLO` deadlines drive batching and typed `Overloaded`
+  shedding, `ContinuousEngine` batches a per-timestep sequence cell
+  continuously in K-tick chunks on the card, and `HttpFront` serves the
+  registry over HTTP (`tools/serve_http.py`).
 
 Importing the package builds and compiles nothing: the kernels are
 compiled by `nvcc` at their first launch (`_build`), an `Rtc` body by
@@ -104,6 +110,8 @@ from . import exec_cache
 from . import quantization
 from . import predictor
 from . import serving
+from . import elastic
+from . import serving_fleet
 from . import gluon
 from . import rnn
 from . import image
@@ -116,4 +124,4 @@ __all__ = ['AttrScope', 'Context', 'DataBatch', 'DataDesc', 'DataIter',
            'mod', 'model', 'models', 'module', 'mon', 'monitor', 'nd',
            'ndarray', 'num_gpus', 'optimizer', 'predictor', 'profiler',
            'quantization', 'random', 'recordio', 'resolve_device', 'rnn',
-           'rtc', 'serving', 'sym', 'symbol', 'tpu']
+           'rtc', 'serving', 'serving_fleet', 'sym', 'symbol', 'tpu']

@@ -368,10 +368,12 @@ class Executor:
         y, s1, s2 = cuda_conv.conv2d_bn_stats(x, w, stride, pad)
         return y, (s1, s2)
 
-    def _run_graph(self, arg_vals, aux_vals, is_train, collect=None):
+    def _run_graph(self, arg_vals, aux_vals, is_train, collect=None,
+                   rng=None):
         """Walk the DAG; returns (outputs, new aux values). A list
         `collect` receives every op node's outputs in topo order, in the
-        semantic (NCHW) layout, for the monitor."""
+        semantic (NCHW) layout, for the monitor. `rng`, a torch.Generator,
+        feeds the ops that draw in place of the device's generator."""
         topo = self._topo
         results = [None] * len(topo)   # per node: list of outputs
         layouts = [None] * len(topo)   # per node: layout per output
@@ -433,7 +435,8 @@ class Executor:
                 auxs = [v.to(device) for v in auxs]
             op_ctx = OpContext(
                 is_train=is_train,
-                rng=_random.generator(device) if op.needs_rng else None,
+                rng=(rng if rng is not None else
+                     _random.generator(device)) if op.needs_rng else None,
                 device=device,
                 out_shapes=self._node_shapes.get(ni)
                 if op.needs_out_shapes else None)
@@ -560,15 +563,18 @@ class Executor:
                 monitor(name, nd.NDArray(v.detach(), self._ctx))
         return self.outputs
 
-    def serve(self, arg_vals, aux_vals):
+    def serve(self, arg_vals, aux_vals, rng=None):
         """The eval walk on the given tensors, one per argument and aux
         state in list order: the outputs, fresh tensors each call. No
         state of the executor is read or written but its graph, and the
         device is not synchronised (the counterpart of the JAX
-        package's raw_forward, which the serving engine jits)."""
+        package's raw_forward, which the serving engine jits). `rng`, a
+        torch.Generator on the executor's device, feeds the ops that
+        draw (the JAX package's PRNG key argument); default the
+        device's generator."""
         with torch.inference_mode():
             outs, _ = self._run_graph(list(arg_vals), list(aux_vals),
-                                      False)
+                                      False, rng=rng)
         return outs
 
     def partial_forward(self, step=None, is_train=False, **kwargs):

@@ -14,10 +14,11 @@ its XLA trace's device lanes.
 MXNET_PROFILER_AUTOSTART=1 starts it at import, as in the reference.
 The per-subsystem counters come with the subsystems they count: the
 program cache's (exec_cache), the serving engine's, the quantization,
-the bucketed-training and the input pipeline's counters so far;
-`summary()` prints them, and `dump_profile` writes each as a metadata
-event ('exec_cache', 'serving', 'quant', 'bucketing',
-'input_pipeline').
+the serving fleet's (registry, HTTP front, continuous batcher), its
+hot-swap and host-hiding counters, the bucketed-training and the input
+pipeline's counters so far; `summary()` prints them, and `dump_profile`
+writes each as a metadata event ('exec_cache', 'serving', 'fleet',
+'quant', 'loop', 'overlap', 'bucketing', 'input_pipeline').
 """
 import json
 import os
@@ -144,6 +145,133 @@ def quant_stats():
         return dict(_QUANT)
 
 
+# fleet serving-tier counters (serving_fleet.ModelRegistry, the HTTP
+# front and the continuous batcher): registry paging, SLO sheds, HTTP
+# admission, and the continuous batcher's ticks, chunks and slot use.
+# fleet_resident_bytes is a gauge; the rest accumulate, the float-seeded
+# ones in fractions.
+_FLEET = {
+    'fleet_models_registered': 0,
+    'fleet_loads': 0,            # model made resident (engine warmed)
+    'fleet_evictions': 0,        # byte-budget LRU paged a model out
+    'fleet_shed_requests': 0,    # Overloaded raised at admission
+    'fleet_http_requests': 0,
+    'fleet_http_429': 0,         # backpressure surfaced to a client
+    'fleet_resident_bytes': 0,   # gauge: registry-resident weight bytes
+    'cont_ticks': 0,             # continuous-batcher timesteps run
+    'cont_active_row_ticks': 0,  # slot-ticks doing real sequence work
+    'cont_slot_ticks': 0,        # slot-ticks available (ticks x slots)
+    'cont_admitted': 0,
+    'cont_retired': 0,
+    'cont_chunks_dispatched': 0,    # K-tick chunk dispatches
+    'cont_chunk_ticks': 0,          # timesteps run inside those chunks
+    'cont_boundary_wait_ms': 0.0,   # est. queue wait behind slots freed
+                                    # mid-chunk (masked to the boundary)
+    'cont_lone_fast_path': 0,       # lone-request rung dispatches
+    'cont_exact_fill_admits': 0,    # chunk stagings that skipped the pad
+                                    # fill (every slot active all K ticks)
+    'cont_staged_chunks': 0,        # chunks staged while the previous
+                                    # dispatch ran
+    'cont_stage_overlap_ms': 0.0,   # host staging time spent behind an
+                                    # in-flight chunk
+}
+
+
+def add_fleet_stats(resident_bytes=None, **deltas):
+    """Accumulate fleet counters (resident_bytes is a gauge and set;
+    everything else adds, keys with or without the fleet_ prefix)."""
+    with _STATE['lock']:
+        for k, v in deltas.items():
+            key = 'fleet_' + k if 'fleet_' + k in _FLEET else k
+            _FLEET[key] += float(v) if isinstance(_FLEET[key], float) \
+                else int(v)
+        if resident_bytes is not None:
+            _FLEET['fleet_resident_bytes'] = int(resident_bytes)
+
+
+def fleet_stats():
+    """Snapshot of the fleet counters and cont_utilization (active
+    slot-ticks over available slot-ticks)."""
+    with _STATE['lock']:
+        out = dict(_FLEET)
+    st = out['cont_slot_ticks']
+    out['cont_utilization'] = \
+        out['cont_active_row_ticks'] / st if st else 0.0
+    return out
+
+
+# train -> serve loop counters: pushes and verdicts (the fleet
+# supervisor's, not ported yet) and the continuous batcher's hot-swap
+# migration: slots re-admitted into a replacement engine, slots whose
+# exported state was dropped (MXNET_TPU_FAULT_SWAP_DROP_STATE, replayed
+# from t=0), slots migrated across a model change.
+# loop_consecutive_rollbacks is a gauge.
+_LOOP = {
+    'loop_pushes': 0,
+    'loop_push_failures': 0,
+    'loop_push_queue_skipped': 0,
+    'loop_verdicts_promoted': 0,
+    'loop_verdicts_rolled_back': 0,
+    'loop_consecutive_rollbacks': 0,    # gauge
+    'loop_swap_migrated_slots': 0,
+    'loop_swap_dropped_slots': 0,
+    'loop_swap_divergent_slots': 0,
+    'loop_lr_backoffs': 0,
+}
+
+
+def add_loop_stats(consecutive_rollbacks=None, **deltas):
+    """Accumulate loop counters (consecutive_rollbacks is a gauge; keys
+    without the loop_ prefix: swap_migrated_slots=n, ...)."""
+    with _STATE['lock']:
+        for k, v in deltas.items():
+            _LOOP['loop_' + k] += int(v)
+        if consecutive_rollbacks is not None:
+            _LOOP['loop_consecutive_rollbacks'] = \
+                int(consecutive_rollbacks)
+
+
+def loop_stats():
+    """Snapshot of the loop counters."""
+    with _STATE['lock']:
+        return dict(_LOOP)
+
+
+# host-hiding counters: train-step pipelining (not ported yet), the
+# continuous batcher's chunk staging and its adaptive tick chunk.
+# overlap_steps_ahead and overlap_auto_k are gauges.
+_OVERLAP = {
+    'overlap_train_steps': 0,
+    'overlap_steps_ahead': 0,           # gauge
+    'overlap_dispatch_wait_ms': 0.0,
+    'overlap_deferred_metric_folds': 0,
+    'overlap_stage_chunks': 0,          # serving chunks staged ahead
+    'overlap_stage_overlap_ms': 0.0,    # their staging time
+    'overlap_auto_k_decisions': 0,      # the adaptive chooser changed K
+    'overlap_auto_k': 0,                # gauge: the K it chose last
+}
+
+
+def add_overlap_stats(steps_ahead=None, auto_k=None, **deltas):
+    """Accumulate host-hiding counters (steps_ahead and auto_k are
+    gauges; keys without the overlap_ prefix)."""
+    with _STATE['lock']:
+        for k, v in deltas.items():
+            key = 'overlap_' + k
+            _OVERLAP[key] += float(v) \
+                if isinstance(_OVERLAP[key], float) else int(v)
+        if steps_ahead is not None:
+            _OVERLAP['overlap_steps_ahead'] = int(steps_ahead)
+        if auto_k is not None:
+            _OVERLAP['overlap_auto_k'] = int(auto_k)
+
+
+def overlap_stats():
+    """Snapshot of the host-hiding counters."""
+    with _STATE['lock']:
+        return dict(_OVERLAP)
+
+
 # bucketed-training counters (BucketingModule's bucket ladder): bucket
 # switches, the label rows padded up to a rung, and per rung its steps,
 # dispatches, the dispatches during which a program was built
@@ -267,7 +395,8 @@ def exec_cache_stats():
 
 def summary(print_out=True):
     """Human-readable profile summary: span time by category, then the
-    input pipeline, program cache, serving and quantization counters."""
+    input pipeline, program cache, serving, fleet, quantization, loop,
+    overlap and bucketing counters."""
     with _STATE['lock']:
         records = list(_STATE['records'])
     by_cat = {}
@@ -309,6 +438,38 @@ def summary(print_out=True):
                     qt['quant_wire_bytes_saved'],
                     qt['quant_error_feedback_norm'],
                     qt['quant_page_ins'], qt['quant_paged_bytes']))
+    fl = fleet_stats()
+    lines.append('  fleet_loads=%d fleet_evictions=%d '
+                 'fleet_shed_requests=%d fleet_http_requests=%d '
+                 'fleet_http_429=%d fleet_resident_bytes=%d '
+                 'cont_ticks=%d cont_utilization=%.3f'
+                 % (fl['fleet_loads'], fl['fleet_evictions'],
+                    fl['fleet_shed_requests'],
+                    fl['fleet_http_requests'], fl['fleet_http_429'],
+                    fl['fleet_resident_bytes'], fl['cont_ticks'],
+                    fl['cont_utilization']))
+    lines.append('  cont_chunks_dispatched=%d cont_chunk_ticks=%d '
+                 'cont_boundary_wait_ms=%.3f cont_lone_fast_path=%d '
+                 'cont_exact_fill_admits=%d'
+                 % (fl['cont_chunks_dispatched'],
+                    fl['cont_chunk_ticks'],
+                    fl['cont_boundary_wait_ms'],
+                    fl['cont_lone_fast_path'],
+                    fl['cont_exact_fill_admits']))
+    lp = loop_stats()
+    lines.append('  loop_swap_migrated_slots=%d '
+                 'loop_swap_dropped_slots=%d '
+                 'loop_swap_divergent_slots=%d'
+                 % (lp['loop_swap_migrated_slots'],
+                    lp['loop_swap_dropped_slots'],
+                    lp['loop_swap_divergent_slots']))
+    ov = overlap_stats()
+    lines.append('  overlap_stage_chunks=%d overlap_stage_overlap_ms'
+                 '=%.3f overlap_auto_k_decisions=%d overlap_auto_k=%d'
+                 % (ov['overlap_stage_chunks'],
+                    ov['overlap_stage_overlap_ms'],
+                    ov['overlap_auto_k_decisions'],
+                    ov['overlap_auto_k']))
     bk = bucketing_stats()
     lines.append('  train_bucket_switches=%d train_pad_waste_rows=%d '
                  'train_pad_waste_frac=%.3f'
@@ -417,8 +578,14 @@ def dump_profile():
                'args': exec_cache_stats()},
               {'ph': 'M', 'name': 'serving', 'pid': 0,
                'args': serving_stats()},
+              {'ph': 'M', 'name': 'fleet', 'pid': 0,
+               'args': fleet_stats()},
               {'ph': 'M', 'name': 'quant', 'pid': 0,
                'args': quant_stats()},
+              {'ph': 'M', 'name': 'loop', 'pid': 0,
+               'args': loop_stats()},
+              {'ph': 'M', 'name': 'overlap', 'pid': 0,
+               'args': overlap_stats()},
               {'ph': 'M', 'name': 'bucketing', 'pid': 0,
                'args': bucketing_stats()},
               {'ph': 'M', 'name': 'input_pipeline', 'pid': 0,
@@ -460,6 +627,12 @@ def clear():
             _SERVING[k] = type(_SERVING[k])()
         for k in _QUANT:
             _QUANT[k] = type(_QUANT[k])()
+        for k in _FLEET:
+            _FLEET[k] = type(_FLEET[k])()
+        for k in _LOOP:
+            _LOOP[k] = 0
+        for k in _OVERLAP:
+            _OVERLAP[k] = type(_OVERLAP[k])()
         for k in _BUCKET:
             _BUCKET[k] = 0
         _BUCKET_RUNGS.clear()

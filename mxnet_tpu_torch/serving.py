@@ -683,6 +683,12 @@ class InferenceEngine(object):
         max_batch: the request is split and its answers joined). Returns
         a list of np.ndarrays, one per model output, with the request's
         own rows."""
+        return self.submit(*pos_inputs, **named_inputs)()
+
+    def submit(self, *pos_inputs, **named_inputs):
+        """Enqueue one request as infer() does and return at once a
+        function that waits for its outputs. A request enqueued before a
+        close() is answered: close drains the queue."""
         if self._closed:
             raise MXNetError('InferenceEngine is closed')
         arrays = self._canonical_inputs(pos_inputs, named_inputs)
@@ -696,15 +702,18 @@ class InferenceEngine(object):
         reqs = self._submit_all(
             [[a[i:i + self.max_batch] for a in arrays]
              for i in range(0, rows, self.max_batch)])
-        for r in reqs:
-            r.event.wait()
-        for r in reqs:
-            if r.error is not None:
-                raise r.error
-        if len(reqs) == 1:
-            return reqs[0].outputs
-        return [np.concatenate([r.outputs[k] for r in reqs], axis=0)
-                for k in range(len(reqs[0].outputs))]
+
+        def wait():
+            for r in reqs:
+                r.event.wait()
+            for r in reqs:
+                if r.error is not None:
+                    raise r.error
+            if len(reqs) == 1:
+                return reqs[0].outputs
+            return [np.concatenate([r.outputs[k] for r in reqs], axis=0)
+                    for k in range(len(reqs[0].outputs))]
+        return wait
 
     def _submit_all(self, chunks):
         """Enqueue a request's chunks in one lock hold, every bucket pick

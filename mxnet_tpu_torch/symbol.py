@@ -16,8 +16,11 @@ Dtypes are torch dtypes inside; `infer_type` answers as the JAX
 package's does, with `np.dtype` objects, and torch.bfloat16 for
 bfloat16 (numpy has no bfloat16 of its own).
 """
+import hashlib
 import json
 import sys
+import threading
+from collections import OrderedDict
 
 from . import attribute
 import numpy as np
@@ -33,6 +36,14 @@ _py_slice = slice
 # so attr edits through one handle invalidate caches on every handle
 # sharing the nodes
 _ATTR_EPOCH = 0
+
+# complete shape inferences by the graph JSON's hash and the known shapes,
+# process-wide: a symbol loaded again from a checkpoint (another object,
+# the same graph) binds without inferring its shapes again (a serving
+# registry's re-warm binds one executor per ladder rung)
+_JSON_SHAPES = OrderedDict()
+_JSON_SHAPES_MAX = 256
+_JSON_SHAPES_LOCK = threading.Lock()
 
 
 def _np_dtype(t):
@@ -234,6 +245,17 @@ class Symbol:
             if want_entries:
                 return dict(var_out), list(outs), dict(entry_shape)
             return dict(var_out), list(outs)
+        json_key = None
+        if not want_entries:
+            json_key = (hashlib.blake2b(self.tojson().encode(),
+                                        digest_size=20).digest(),
+                        cache_key[0])
+            with _JSON_SHAPES_LOCK:
+                hit = _JSON_SHAPES.get(json_key)
+                if hit is not None:
+                    _JSON_SHAPES.move_to_end(json_key)
+            if hit is not None:
+                return dict(hit[0]), list(hit[1])
         topo = self._topo()
         entry_shape = {}   # (id(node), idx) -> partial shape
         var_shapes = dict(var_shapes)
@@ -311,6 +333,11 @@ class Symbol:
         self._shape_infer_cache = (cache_key, partial,
                                    (dict(var_shapes), list(outs),
                                     dict(entry_shape)))
+        if json_key is not None and not partial:
+            with _JSON_SHAPES_LOCK:
+                _JSON_SHAPES[json_key] = (dict(var_shapes), list(outs))
+                while len(_JSON_SHAPES) > _JSON_SHAPES_MAX:
+                    _JSON_SHAPES.popitem(last=False)
         if want_entries:
             return var_shapes, outs, entry_shape
         return var_shapes, outs
