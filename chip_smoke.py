@@ -16,6 +16,8 @@
                                                # ImageRecordIter -> fit,
                                                # VGG16-SSD300
     python3 chip_smoke.py --phases 20          # build, the serving fleet
+    python3 chip_smoke.py --phases 21,22       # build, training across
+                                               # worker processes
     python3 chip_smoke.py --mutants            # phases 2, 4 and 6 against
                                                # broken kernels
 
@@ -292,6 +294,33 @@ Phases, each of which exits non-zero on failure:
    boundary wait, lone path, launches and host / device ms a tick, the
    chunk ladder K = 1, 4, 16, 32 and the convoy baseline; the scorer's
    ms a request; the device-busy share and peak memory.
+21. dist_ps: `python -m mxnet_tpu_torch.tools.launch -n 2 -s 1 --launcher
+   local` runs two worker processes of this script on gpu(0) and one
+   CPU parameter server (`python -m mxnet_tpu_torch.kvstore_server`);
+   each worker trains the bf16 ResNet-50 of phase 10 at full width on 64
+   images a step of its own half of a seeded set with
+   Module.fit(kvstore='dist_sync') and phase 10's momentum SGD, 1
+   warm-up, 6 timed and 2 profiled steps. Gated: (a) 32 conv launches a
+   worker step; (b) the ranks' weights bit-equal at the end; (c) the
+   server's first update of conv0_weight, stage3_unit1_conv2_weight and
+   fc1_weight bit-equal to the port's optimizer on cpu(0) over the sum
+   of the two workers' pushes; (d) a server that never initialized CUDA.
+   Printed: each rank's median step ms, the wire bytes of a worker step,
+   the server's update ms a round, the device's busy share.
+22. dist_coord: the same network through `tools.launch -s 0` and the
+   coordinator's allreduce, 32 images a rank and step, a
+   CheckpointManager(every_n_steps=2, incremental=2) each; arms:
+   straight (world 1, 10 steps); elastic (world 2 on the same batches,
+   MXNET_TPU_FAULT_KILL_AT_STEP=7 on rank 1, --elastic --elastic-shrink:
+   rank 0 sees the death by heartbeat, commits, prints PREEMPTED and
+   exits 75, the relaunch at world 1 resumes and ends bit-equal to the
+   straight arm); shard (world 2 on the ring, each rank its own half:
+   the ranks bit-equal, the allreduced probe gradients the bit-exact
+   sum of the ranks'). Then, on the card, the straight arm's last commit
+   exported by export_serving_checkpoint answers bit-equal to its final
+   parameters, and InferenceEngine.apply_delta of the last delta on an
+   engine serving the commit before it answers bit-equal to an engine
+   loaded in full. Printed: each arm's length and step ms.
 
 It prints one JSON line with every kernel's numbers, then the card's
 name and power limit from nvidia-smi, and last
@@ -312,6 +341,7 @@ tensor-core conv mutant, and the unchanged copy passes all four.
 import contextlib
 import json
 import math
+import os
 import random
 import subprocess
 import sys
@@ -576,7 +606,7 @@ CONV_SM90_MUTANTS = {
                          ': ' + _TRUNCATE + 'v[0], v[1]));'),
 }
 
-ALL_PHASES = frozenset(range(2, 21))
+ALL_PHASES = frozenset(range(2, 23))
 # phase 7: the imperative NDArray path's size (n x n inputs)
 ND_SIZE = 1024
 ND_HOST_CALLS = 2000
@@ -1439,14 +1469,16 @@ def conv_phase(torch, cuda_ops, cuda_conv, bench_conv_bn):
 
 
 def conv_kernel_entry(conv, sass, resnet, module, serve, bucketing,
-                      gluon_run, ptb, gluon_lm, factories, record):
+                      gluon_run, ptb, gluon_lm, factories, record, dist_ps,
+                      dist_coord):
     """The conv_bn_stats entry of the kernels line: times at the main
     case's shape from the bench, errors from the cases, launches from the
     ResNet-50 train steps of phase 9 (its main path), of phase 10's
     Module.fit, of phase 11's serving (0), of phase 12's bucket steps, of
     phase 13's Gluon training (0), of phases 14 and 15's LSTM LMs (0),
-    of phase 16's Inception-v3 and ResNeXt-50 steps and of phase 18's
-    Module.fit fed by ImageRecordIter."""
+    of phase 16's Inception-v3 and ResNeXt-50 steps, of phase 18's
+    Module.fit fed by ImageRecordIter, and of the worker processes of
+    phases 21 and 22 (each counts its own and reports them)."""
     xs, ws = CONV_CASES['main'][:2]
     main_shape = [xs[1], xs[3], ws[3], ws[0], CONV_CASES['main'][2][0]]
     bench = conv['bench']
@@ -1487,6 +1519,9 @@ def conv_kernel_entry(conv, sass, resnet, module, serve, bucketing,
                               resnext50_train=factories['bf16'][
                                   'resnext50']['path_launches'],
                               imagerecord_fit=record['fit_launches'],
+                              dist_ps_train=dist_ps['path_launches'],
+                              dist_coordinator_train=dist_coord[
+                                  'path_launches'],
                               conv_bn_bench=bench['launches']),
         stem_split=resnet['stem_split'],
         launches_per_train_step=resnet['train_launches'],
@@ -7437,6 +7472,546 @@ def urllib_get(address, path):
                                   timeout=60).read()
 
 
+# ---------------------------------------------------------------------------
+# Phases 21 and 22: the bf16 ResNet-50 trained across two worker processes
+# on the card, through the parameter server (21) and through the
+# coordinator's allreduce with an elastic restart, the ring and serving of
+# the checkpoints (22)
+# ---------------------------------------------------------------------------
+
+DIST_PS_BATCH = 64           # each worker's images a step, phase 21
+DIST_PS_STEPS = 7            # 1 warm-up + 6 timed steps
+DIST_PS_PROFILED = 2         # then steps under torch.profiler
+DIST_COORD_BATCH = 32        # each rank's images a step, phase 22
+DIST_COORD_STEPS = 10
+DIST_KILL_AT = 7             # rank 1 SIGKILLs itself after this step
+# one key of each end of the net and one in between: the probes whose
+# pushed gradients and weights before and after the first step the
+# workers dump
+DIST_PROBES = ('conv0_weight', 'stage3_unit1_conv2_weight', 'fc1_weight')
+DIST_OPT = dict(learning_rate=0.1, momentum=0.9, wd=1e-4,
+                multi_precision=True)
+# a fit step's host walk is about 135 ms and the first step loads the
+# kernel library and cuDNN: heartbeats every 0.5 s and a death only after
+# 10 s of silence leave a wide margin against a false death
+DIST_ENV = {'MXNET_TPU_DIST_HEARTBEAT_S': '0.5',
+            'MXNET_TPU_DIST_DEAD_AFTER_S': '10',
+            'MXNET_TPU_BARRIER_TIMEOUT_S': '180',
+            'MXNET_TPU_DIST_INIT_TIMEOUT_S': '180'}
+DIST_STALE_ENV = ('DMLC_PS_ROOT_URI', 'DMLC_PS_ROOT_PORT', 'DMLC_ROLE',
+                  'DMLC_NUM_WORKER', 'DMLC_NUM_SERVER', 'DMLC_WORKER_ID',
+                  'MXNET_TPU_DIST_PORT', 'MXNET_TPU_DIST_TOPOLOGY',
+                  'MXNET_TPU_DIST_WIRE_DTYPE', 'MXNET_TPU_FAULT_KILL_AT_STEP',
+                  'MXNET_TPU_FAULT_KILL_RANK')
+DIST_LAUNCH_TIMEOUT_S = 420
+DIST_SERVE_BATCH = 8
+
+
+def dist_images(n, seed):
+    shape = tuple(int(v) for v in RESNET['image_shape'].split(','))
+    return module_data(RESNET['num_classes'], n, shape, seed)
+
+
+def dist_worker(kind, out_dir, tag):
+    """One worker of phase 21 (kind 'ps') or 22 ('coord'), run by the
+    port's launcher: Module.fit trains the bf16 ResNet-50 with a
+    'dist_sync' store on gpu(0), its conv launches counted per step; the
+    probe keys' first-step gradients and weights are dumped. Phase 22's
+    workers keep a CheckpointManager and exit PREEMPTED_EXIT when a
+    peer's death preempts them."""
+    import pickle
+    import torch
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    root = Path(__file__).resolve().parent
+    sys.path.insert(0, str(root))
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import _build, cuda_conv, dist, elastic, profiler
+    from mxnet_tpu_torch import _hostarray as ha
+    # the CUDA context and the kernel library before the runtime's
+    # heartbeats start
+    torch.zeros(1, device='cuda')
+    _build.library()
+    rank = int(os.environ['DMLC_WORKER_ID'])
+    ctx = mx.gpu(0)
+    out_dir = Path(out_dir)
+    rt = None
+    if kind == 'ps':
+        batch, steps = DIST_PS_BATCH, DIST_PS_STEPS + DIST_PS_PROFILED
+        x, y = dist_images(batch * steps, SEED + 2100 + rank)
+    else:
+        rt = dist.initialize()
+        shard = tag == 'shard'
+        batch, steps = DIST_COORD_BATCH, DIST_COORD_STEPS
+        x, y = dist_images(batch * steps,
+                           SEED + 2200 + (rank if shard else 0))
+    kv = mx.kv.create('dist_sync')
+    dump = {'probe_keys': list(DIST_PROBES)}
+
+    # the probes: the first round's pushed gradients, weights before and
+    # after it, the cross-process sum (phase 22) and the optimizer shipped
+    orig_ppa, orig_sum = kv.push_pull_all, kv._cross_host_sum
+    orig_set = kv.set_optimizer
+    state = {'keys': None}
+
+    def push_pull_all(keys, grads, outs):
+        first = 'grad' not in dump
+        if first:
+            idx = {k: i for i, k in enumerate(keys)}
+            state['keys'] = list(keys)
+            dump['grad'] = {k: ha.host(grads[idx[k]]) for k in DIST_PROBES}
+            dump['before'] = {k: ha.host(outs[idx[k]]).clone()
+                              for k in DIST_PROBES}
+            dump['push_bytes'] = sum(g._data.numel() * g._data.element_size()
+                                     for g in grads)
+            dump['pull_bytes'] = sum(o._data.numel() * o._data.element_size()
+                                     for o in outs)
+        orig_ppa(keys, grads, outs)
+        if first:
+            dump['after'] = {k: ha.host(outs[idx[k]]) for k in DIST_PROBES}
+
+    def cross_host_sum(merged):
+        out = orig_sum(merged)
+        if 'summed' not in dump and state['keys'] is not None:
+            idx = {k: i for i, k in enumerate(state['keys'])}
+            dump['summed'] = {k: ha.host(out[idx[k]]) for k in DIST_PROBES}
+        return out
+
+    def set_optimizer(optimizer):
+        sym_ref, optimizer.sym = optimizer.sym, None
+        try:
+            dump['optimizer'] = pickle.dumps(optimizer)
+        finally:
+            optimizer.sym = sym_ref
+        orig_set(optimizer)
+    kv.push_pull_all = push_pull_all
+    kv._cross_host_sum = cross_host_sum
+    kv.set_optimizer = set_optimizer
+
+    symbol, init = module_symbol_params(mx)
+    mod = mx.mod.Module(symbol, context=ctx)
+    np.random.seed(SEED)
+    mx.random.seed(SEED)
+    train = mx.io.NDArrayIter(x, y, batch_size=batch)
+    mgr = None
+    if kind == 'coord':
+        mgr = elastic.CheckpointManager(str(out_dir / ('ck_' + tag)),
+                                        every_n_steps=2, incremental=2)
+    times, launches = [], []
+    count = [0]
+    prof = {}
+
+    def record(param):
+        torch.cuda.synchronize()
+        times.append(time.perf_counter())
+        launches.append(cuda_conv.CONV_BN_STATS_LAUNCHES - count[0])
+        count[0] = cuda_conv.CONV_BN_STATS_LAUNCHES
+        if kind == 'ps' and DIST_PS_PROFILED and \
+                param.nbatch == DIST_PS_STEPS - 1:
+            from torch.profiler import ProfilerActivity, profile
+            prof['p'] = profile(activities=[ProfilerActivity.CUDA])
+            prof['p'].start()
+            prof['t0'] = time.perf_counter()
+        if kind == 'ps' and param.nbatch == steps - 1 and 'p' in prof:
+            prof['wall_ms'] = (time.perf_counter() - prof['t0']) * 1e3
+            prof['p'].stop()
+
+    cuda_conv.CONV_BN_STATS_LAUNCHES = 0
+    t0 = time.perf_counter()
+    try:
+        mod.fit(train, kvstore=kv, optimizer='sgd',
+                optimizer_params=dict(DIST_OPT), initializer=init,
+                eval_metric='acc', num_epoch=1, batch_end_callback=record,
+                checkpoint=mgr)
+    except elastic.Preempted as e:
+        print('PREEMPTED step=%d dead_ranks=%s ckpt=%s heartbeat_deaths=%d'
+              % (e.step, sorted(e.dead_ranks), e.checkpoint_dir,
+                 profiler.dist_stats()['dist_dead_hosts_detected']))
+        sys.stdout.flush()
+        mgr.close()
+        os._exit(dist.PREEMPTED_EXIT)
+    fit_s = time.perf_counter() - t0
+    if mgr is not None:
+        if mgr.last_resume is not None:
+            print('RESUMED step=%d world=%d' % (mgr.last_resume.step,
+                                                rt.world))
+        mgr.wait()
+        if mgr._last_save_step != mgr.step:
+            # the last cadence save was skipped behind a write in flight
+            mgr.save(epoch=1, sync=True)
+        mgr.close()
+    if prof.get('p') is not None:
+        kernels = [e for e in prof['p'].key_averages()
+                   if str(getattr(e, 'device_type', '')).endswith('CUDA')]
+        dump['profile'] = dict(
+            device_ms=sum(device_us(e) for e in kernels) / 1e3,
+            wall_ms=prof['wall_ms'], steps=DIST_PS_PROFILED)
+    args, auxs = mod.get_params()
+    dump.update(
+        rank=rank, world=int(os.environ['DMLC_NUM_WORKER']), tag=tag,
+        params={n: ha.host(v) for n, v in args.items()},
+        aux={n: ha.host(v) for n, v in auxs.items()},
+        step_times=times, launches=launches, fit_s=fit_s,
+        resumed_step=None if mgr is None or mgr.last_resume is None
+        else mgr.last_resume.step,
+        dist_stats=profiler.dist_stats(), ckpt_stats=profiler.ckpt_stats(),
+        delta_stats=profiler.delta_stats())
+    torch.save(dump, str(out_dir / ('%s_r%d.pt' % (tag, rank))))
+    kv.barrier()
+    if kind == 'ps':
+        if rank == 0:
+            kv.stop_servers()
+            report = Path(os.environ['MXNET_TPU_PS_REPORT'])
+            deadline = time.monotonic() + 30
+            while not report.exists() and time.monotonic() < deadline:
+                time.sleep(0.1)
+        kv.close()
+    else:
+        dist.shutdown()
+    print('DIST_WORKER_OK tag=%s rank=%d steps=%d' % (tag, rank,
+                                                     len(times)))
+
+
+def dist_launch(root, out_dir, tag, kind, n, servers, env=None,
+                elastic=False):
+    """Run `n` dist_worker processes (and `servers` parameter servers)
+    through `python -m mxnet_tpu_torch.tools.launch`; returns (the
+    completed process, wall seconds). The launcher's output is kept under
+    chiprun_out/."""
+    e = {k: v for k, v in os.environ.items() if k not in DIST_STALE_ENV}
+    e.update(DIST_ENV)
+    e.update(env or {})
+    cmd = [sys.executable, '-m', 'mxnet_tpu_torch.tools.launch', '-n',
+           str(n), '-s', str(servers), '--launcher', 'local']
+    if elastic:
+        cmd += ['--elastic', '--elastic-shrink', '--max-restarts', '2',
+                '--elastic-grace', '60']
+    cmd += [sys.executable, str(root / 'chip_smoke.py'), '--dist-worker',
+            kind, '--dist-out', str(out_dir), '--dist-tag', tag]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True, cwd=str(root),
+                         env=e, timeout=DIST_LAUNCH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    log = root / 'chiprun_out' / ('dist_%s.log' % tag)
+    log.parent.mkdir(exist_ok=True)
+    log.write_text('$ %s\nrc %d, %.1f s\n--- stdout\n%s\n--- stderr\n%s\n'
+                   % (' '.join(cmd), res.returncode, wall, res.stdout,
+                      res.stderr))
+    print('dist %s: launcher rc %d in %.1f s (log %s)'
+          % (tag, res.returncode, wall, log.relative_to(root)))
+    return res, wall
+
+
+def dist_load(torch, out_dir, tag, rank):
+    path = Path(out_dir) / ('%s_r%d.pt' % (tag, rank))
+    if not path.exists():
+        fail('dist %s: rank %d wrote no result (%s)' % (tag, rank, path))
+    return torch.load(str(path), weights_only=False)
+
+
+def tensors_equal(torch, a, b):
+    """Names whose tensors differ in any bit (or are missing) between two
+    {name: host tensor or numpy array} dicts."""
+    from mxnet_tpu_torch import _hostarray as ha
+    bad = sorted(set(a) ^ set(b))
+    for n in sorted(set(a) & set(b)):
+        x, y = ha.host(a[n]), ha.host(b[n])
+        if ha.dtype_name(x) != ha.dtype_name(y) or \
+                tuple(x.shape) != tuple(y.shape) or \
+                ha.raw_bytes(x).tobytes() != ha.raw_bytes(y).tobytes():
+            bad.append(n)
+    return bad
+
+
+def step_ms_median(times, skip_first=1, upto=None):
+    t = times[:upto] if upto else times
+    iv = [(b - a) * 1e3 for a, b in zip(t, t[1:])][skip_first - 1:]
+    return median(iv) if iv else float('nan')
+
+
+def ps_phase(torch, mx, root):
+    """Phase 21: `tools.launch -n 2 -s 1`: two workers on gpu(0) and one
+    CPU parameter server; Module.fit(kvstore='dist_sync') with the
+    momentum SGD of phase 10, 64 images a step each on its own half of a
+    seeded set. Gated: 32 conv launches a worker step, the ranks' weights
+    bit-equal, the server's update of the probe keys equal bit for bit to
+    the port's optimizer on cpu(0) over the summed pushes, and a server
+    that never initialized CUDA."""
+    import pickle
+    import shutil
+    from mxnet_tpu_torch import optimizer as opt_mod
+    out = root / 'build' / 'phase21'
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    torch.cuda.empty_cache()
+    report_path = out / 'server.json'
+    res, wall = dist_launch(root, out, 'ps', 'ps', 2, 1,
+                            env={'MXNET_TPU_PS_REPORT': str(report_path)})
+    if res.returncode != 0:
+        fail('phase 21: the launcher exited %d:\n%s\n%s'
+             % (res.returncode, res.stdout[-3000:], res.stderr[-3000:]))
+    w = [dist_load(torch, out, 'ps', r) for r in (0, 1)]
+    if not report_path.exists():
+        fail('phase 21: the server wrote no report')
+    report = json.loads(report_path.read_text())
+    steps = DIST_PS_STEPS + DIST_PS_PROFILED
+    bad = []
+    for r in (0, 1):
+        if w[r]['launches'] != [RESNET_PAIRS - 1] * steps:
+            bad.append('rank %d conv launches a step %s, want %d each'
+                       % (r, w[r]['launches'], RESNET_PAIRS - 1))
+    differ = tensors_equal(torch, w[0]['params'], w[1]['params'])
+    if differ:
+        bad.append('the ranks\' weights differ in %d tensors (%s)'
+                   % (len(differ), differ[:4]))
+    # the server's arithmetic: the port's optimizer on cpu(0), from the
+    # weights before the first round and the sum of the two pushes
+    server_check = {}
+    optimizer = pickle.loads(w[0]['optimizer'])
+    updater = opt_mod.get_updater(optimizer)
+    cpu = mx.cpu(0)
+    from mxnet_tpu_torch import _hostarray as ha
+    for k in DIST_PROBES:
+        g = ha.host(w[0]['grad'][k]) + ha.host(w[1]['grad'][k])
+        wt = mx.nd.NDArray(ha.to_tensor(ha.copy(w[0]['before'][k])), cpu)
+        with cpu:
+            updater(k, mx.nd.NDArray(ha.to_tensor(g), cpu), wt)
+        got = [tensors_equal(torch, {k: wt._data}, {k: w[r]['after'][k]})
+               for r in (0, 1)]
+        server_check[k] = dict(equal=not any(got), dtype=ha.dtype_name(g),
+                               shape=list(g.shape))
+        if any(got):
+            bad.append('the server\'s update of %s differs from the '
+                       'optimizer on cpu(0)' % k)
+    if report['cuda_initialized']:
+        bad.append('the server process initialized CUDA')
+    prof = [wr.get('profile') for wr in w]
+    busy = [p['device_ms'] / p['wall_ms'] for p in prof if p]
+    run = dict(
+        config=dict(RESNET, batch_per_worker=DIST_PS_BATCH, workers=2,
+                    servers=1, steps=steps, optimizer='sgd', **DIST_OPT),
+        launcher_s=wall,
+        step_ms=[step_ms_median(wr['step_times'], upto=DIST_PS_STEPS)
+                 for wr in w],
+        wire_bytes_per_step=[wr['push_bytes'] + wr['pull_bytes']
+                             for wr in w],
+        server=report,
+        server_update_ms_per_round=report['update_ms'] / steps,
+        device_busy_share_per_rank=busy,
+        device_busy_share=sum(busy),
+        launches=[wr['launches'] for wr in w],
+        server_check=server_check, fit_s=[wr['fit_s'] for wr in w])
+    print('dist_ps ' + json.dumps(run))
+    if bad:
+        fail('phase 21: ' + '; '.join(bad))
+    print('dist_ps: 2 workers x %d images, step %.1f / %.1f ms (median, '
+          'ranks 0 / 1), %.1f MB on the wire a worker step, server update '
+          '%.1f ms a round, device busy %.1f %% (both ranks over %d '
+          'profiled steps); ranks bit-equal, server arithmetic bit-equal on '
+          '%s, server CUDA initialized: %s'
+          % (DIST_PS_BATCH, run['step_ms'][0], run['step_ms'][1],
+             run['wire_bytes_per_step'][0] / 1e6,
+             run['server_update_ms_per_round'],
+             100 * run['device_busy_share'], DIST_PS_PROFILED,
+             list(DIST_PROBES), report['cuda_initialized']))
+    run['path_launches'] = sum(sum(wr['launches']) for wr in w)
+    shutil.rmtree(out, ignore_errors=True)
+    return run
+
+
+def coord_phase(torch, mx, root):
+    """Phase 22: `tools.launch -s 0`, the coordinator's allreduce, each
+    rank 32 images a step with a CheckpointManager(every_n_steps=2,
+    incremental=2). Arms: straight (world 1, 10 steps); elastic (world 2
+    on the same batches, rank 1 SIGKILLed after step 7, rank 0 preempted
+    by the heartbeats, a relaunch at world 1 that resumes and ends
+    bit-equal to the straight arm); shard (world 2 on the ring, each rank
+    its own half: the ranks bit-equal, the allreduced probe gradients the
+    bit-exact sum of the ranks'). Then the straight arm's checkpoints
+    served on the card: the exported last commit against the final
+    parameters, and a delta applied to an engine against an engine loaded
+    in full."""
+    import shutil
+    from mxnet_tpu_torch import _hostarray as ha
+    from mxnet_tpu_torch import delta as delta_mod
+    from mxnet_tpu_torch import dist, elastic, serving
+    out = root / 'build' / 'phase22'
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    torch.cuda.empty_cache()
+    bad = []
+    arms = {}
+
+    res, wall = dist_launch(root, out, 'straight', 'coord', 1, 0)
+    if res.returncode != 0:
+        fail('phase 22 straight arm: rc %d\n%s\n%s'
+             % (res.returncode, res.stdout[-3000:], res.stderr[-3000:]))
+    straight = dist_load(torch, out, 'straight', 0)
+    arms['straight'] = dict(wall_s=wall, fit_s=straight['fit_s'],
+                            step_ms=step_ms_median(straight['step_times']),
+                            launches=straight['launches'],
+                            ckpt_stats=straight['ckpt_stats'],
+                            delta_stats=straight['delta_stats'])
+
+    res, wall = dist_launch(
+        root, out, 'elastic', 'coord', 2, 0, elastic=True,
+        env={'MXNET_TPU_FAULT_KILL_AT_STEP': str(DIST_KILL_AT),
+             'MXNET_TPU_FAULT_KILL_RANK': '1'})
+    if res.returncode != 0:
+        fail('phase 22 elastic arm: rc %d\n%s\n%s'
+             % (res.returncode, res.stdout[-3000:], res.stderr[-3000:]))
+    preempt = [ln for ln in res.stdout.splitlines()
+               if ln.startswith('PREEMPTED')]
+    resumed = [ln for ln in res.stdout.splitlines()
+               if ln.startswith('RESUMED step=')]
+    if not preempt or 'dead_ranks=[1]' not in preempt[0] or \
+            'heartbeat_deaths=0' in preempt[0]:
+        bad.append('elastic: rank 0 was not preempted by the heartbeats '
+                   '(%s)' % preempt)
+    if not resumed:
+        bad.append('elastic: the relaunch did not resume')
+    if 'elastic restart 1/' not in res.stderr or \
+            'preempted' not in res.stderr:
+        bad.append('elastic: the launcher did not relaunch after exit %d'
+                   % dist.PREEMPTED_EXIT)
+    elastic_r0 = dist_load(torch, out, 'elastic', 0)
+    differ = tensors_equal(torch, straight['params'], elastic_r0['params'])
+    differ_aux = tensors_equal(torch, straight['aux'], elastic_r0['aux'])
+    if differ or differ_aux:
+        bad.append('elastic: the resumed run differs from the straight one '
+                   'in %d weights and %d aux states (%s)'
+                   % (len(differ), len(differ_aux), (differ + differ_aux)[:4]))
+    arms['elastic'] = dict(wall_s=wall, preempted=preempt, resumed=resumed,
+                           resumed_step=elastic_r0['resumed_step'],
+                           relaunch_launches=elastic_r0['launches'],
+                           equal_to_straight=not (differ or differ_aux))
+
+    res, wall = dist_launch(root, out, 'shard', 'coord', 2, 0,
+                            env={'MXNET_TPU_DIST_TOPOLOGY': 'ring'})
+    if res.returncode != 0:
+        fail('phase 22 shard arm: rc %d\n%s\n%s'
+             % (res.returncode, res.stdout[-3000:], res.stderr[-3000:]))
+    s = [dist_load(torch, out, 'shard', r) for r in (0, 1)]
+    differ = tensors_equal(torch, s[0]['params'], s[1]['params'])
+    if differ:
+        bad.append('shard: the ranks differ in %d weights (%s)'
+                   % (len(differ), differ[:4]))
+    want = {k: ha.host(s[0]['grad'][k]) + ha.host(s[1]['grad'][k])
+            for k in DIST_PROBES}
+    probe_bad = tensors_equal(torch, want, s[0]['summed'])
+    if probe_bad:
+        bad.append('shard: the ring\'s sum of %s is not the ranks\' sum'
+                   % probe_bad)
+    for r in (0, 1):
+        if s[r]['launches'] != [RESNET_PAIRS - 1] * DIST_COORD_STEPS:
+            bad.append('shard: rank %d conv launches %s'
+                       % (r, s[r]['launches']))
+    arms['shard'] = dict(
+        wall_s=wall, step_ms=[step_ms_median(x['step_times']) for x in s],
+        ring_bytes=[x['dist_stats']['dist_ring_bytes'] for x in s],
+        rounds=[x['dist_stats']['dist_allreduce_rounds'] for x in s],
+        probe_sum_equal=not probe_bad)
+    if straight['launches'] != [RESNET_PAIRS - 1] * DIST_COORD_STEPS:
+        bad.append('straight: conv launches %s' % straight['launches'])
+
+    # serving the straight arm's checkpoints on the card
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        ck = out / 'ck_straight'
+        commits = sorted(
+            [(s_, 'full') for s_ in elastic.list_checkpoints(str(ck))] +
+            [(s_, 'delta') for s_ in elastic.list_deltas(str(ck))])
+        last_step, last_kind = commits[-1]
+        last_dir = ck / ((elastic._STEP_DIR if last_kind == 'full'
+                          else elastic._DELTA_DIR) % last_step)
+        symbol, _ = module_symbol_params(mx)
+        shape = (DIST_SERVE_BATCH,) + tuple(
+            int(v) for v in RESNET['image_shape'].split(','))
+        x, _ = dist_images(DIST_SERVE_BATCH, SEED + 2300)
+        prefix = str(out / 'served')
+        serving.export_serving_checkpoint(str(last_dir), symbol, prefix, 0)
+        gpu = mx.gpu(0)
+        exported = mx.predictor.Predictor.from_checkpoint(
+            prefix, 0, {'data': shape}, ctx=gpu).predict(x)
+        final = mx.predictor.Predictor(
+            symbol=symbol, input_shapes={'data': shape}, ctx=gpu,
+            arg_params={n: mx.nd.NDArray(ha.to_tensor(v), mx.cpu())
+                        for n, v in straight['params'].items()},
+            aux_params={n: mx.nd.NDArray(ha.to_tensor(v), mx.cpu())
+                        for n, v in straight['aux'].items()}).predict(x)
+        export_equal = bool(np.array_equal(exported, final))
+        if last_step != DIST_COORD_STEPS or not export_equal:
+            bad.append('serving: the export of %s (step %d) does not answer '
+                       'as the final parameters' % (last_dir.name, last_step))
+        # the last delta in the serving key space, applied to an engine
+        # serving the commit before it
+        prev_step, prev_kind = commits[-2]
+        prev_dir = ck / ((elastic._STEP_DIR if prev_kind == 'full'
+                          else elastic._DELTA_DIR) % prev_step)
+        base = serving.serving_state(str(prev_dir))
+        new = serving.serving_state(str(last_dir))
+        base_fp = delta_mod.fingerprint(base)
+        entries, meta, _ = delta_mod.make_delta(
+            base, new, seq=1, base_fp=base_fp,
+            config=delta_mod.DeltaConfig(dense='raw'))
+        serving.export_serving_checkpoint(str(prev_dir), symbol,
+                                          prefix + '_prev', 0)
+        eng_a = mx.predictor.Predictor.from_checkpoint(
+            prefix + '_prev', 0, {'data': shape}, ctx=gpu).serve(
+                max_batch=DIST_SERVE_BATCH)
+        eng_b = mx.predictor.Predictor.from_checkpoint(
+            prefix, 0, {'data': shape}, ctx=gpu).serve(
+                max_batch=DIST_SERVE_BATCH)
+        try:
+            before = eng_a.infer(x)
+            new_fp = eng_a.apply_delta(dict(entries), meta,
+                                       expect_fp=base_fp)
+            after = eng_a.infer(x)
+            full = eng_b.infer(x)
+        finally:
+            eng_a.close()
+            eng_b.close()
+        delta_equal = bool(np.array_equal(np.asarray(after),
+                                          np.asarray(full)))
+        changed = not np.array_equal(np.asarray(before), np.asarray(after))
+        if not delta_equal or not changed:
+            bad.append('serving: the engine with the delta applied answers '
+                       'otherwise than the engine loaded in full (equal %s, '
+                       'changed %s)' % (delta_equal, changed))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    run = dict(
+        config=dict(RESNET, batch_per_rank=DIST_COORD_BATCH,
+                    steps=DIST_COORD_STEPS, kill_at=DIST_KILL_AT,
+                    optimizer='sgd', **DIST_OPT, env=DIST_ENV),
+        arms=arms,
+        serving=dict(last_commit=last_dir.name, previous=prev_dir.name,
+                     export_equal=export_equal, delta_equal=delta_equal,
+                     delta_bytes=meta['bytes'],
+                     delta_full_bytes=meta['full_bytes'], new_fp=new_fp,
+                     commits=['%s-%08d' % (('step' if k == 'full'
+                                            else 'delta'), s_)
+                              for s_, k in commits]))
+    print('dist_coord ' + json.dumps(run))
+    if bad:
+        fail('phase 22: ' + '; '.join(bad))
+    print('dist_coord: straight %.1f s (%.1f ms a step), elastic %.1f s '
+          '(%s; %s), shard on the ring %.1f s (%.1f / %.1f ms a step); '
+          'resumed bit-equal, ring sum bit-exact, export and delta serve '
+          'bit-equal (%s <- %s, %d of %d bytes)'
+          % (arms['straight']['wall_s'], arms['straight']['step_ms'],
+             arms['elastic']['wall_s'], preempt[0], resumed[0],
+             arms['shard']['wall_s'], arms['shard']['step_ms'][0],
+             arms['shard']['step_ms'][1], last_dir.name, prev_dir.name,
+             meta['bytes'], meta['full_bytes']))
+    run['path_launches'] = sum(straight['launches']) + \
+        sum(elastic_r0['launches']) + sum(sum(x['launches']) for x in s)
+    shutil.rmtree(out, ignore_errors=True)
+    return run
+
+
 def main(argv=None):
     import argparse
     parser = argparse.ArgumentParser(
@@ -7452,7 +8027,11 @@ def main(argv=None):
                                                     v.split(',')},
                         default=ALL_PHASES,
                         help='build, then run only these phases (a comma '
-                             'list of 2-20); the kernels line needs all')
+                             'list of 2-22); the kernels line needs all')
+    parser.add_argument('--dist-worker', choices=('ps', 'coord'),
+                        help=argparse.SUPPRESS)
+    parser.add_argument('--dist-out', help=argparse.SUPPRESS)
+    parser.add_argument('--dist-tag', help=argparse.SUPPRESS)
     parser.add_argument('--mutants', action='store_true',
                         help='check that phase 2\'s LM case fails each of '
                              'FWD_MUTANTS, phase 4\'s each of BWD_MUTANTS '
@@ -7460,6 +8039,10 @@ def main(argv=None):
                              'CONV_MUTANTS, broken copies of the kernels')
     args = parser.parse_args(argv)
     import torch
+    if args.dist_worker:
+        # one worker of phase 21 or 22, started by the port's launcher
+        dist_worker(args.dist_worker, args.dist_out, args.dist_tag)
+        return
     if not torch.cuda.is_available():
         fail('torch.cuda.is_available() is False: this script needs a '
              'CUDA device')
@@ -7472,7 +8055,7 @@ def main(argv=None):
         return
     phases = args.phases
     if not phases <= ALL_PHASES:
-        fail('--phases takes phases 2 to 20; got %s' % sorted(phases))
+        fail('--phases takes phases 2 to 22; got %s' % sorted(phases))
     sys.path.insert(0, str(root))
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import _build, cuda_conv, cuda_ops
@@ -7614,6 +8197,15 @@ def main(argv=None):
     if 20 in phases:
         fleet = fleet_phase(torch, mx, cuda_conv, cuda_ops, tfm, root)
 
+    # 21. two workers and a parameter server train the ResNet-50
+    if 21 in phases:
+        dist_ps = ps_phase(torch, mx, root)
+
+    # 22. the coordinator's allreduce, an elastic restart, the ring and
+    # the checkpoints served
+    if 22 in phases:
+        dist_coord = coord_phase(torch, mx, root)
+
     if phases != ALL_PHASES:
         print('phases %s passed' % sorted(phases))
         return
@@ -7686,7 +8278,8 @@ def main(argv=None):
             cases=per_case))
     kernels.append(conv_kernel_entry(conv, sass, resnet, module, serve,
                                      bucketing, gluon_run, ptb, gluon_lm,
-                                     factories, record))
+                                     factories, record, dist_ps,
+                                     dist_coord))
     kernels.append(rtc_kernel_entry(rtc_run, ptb, gluon_lm))
     for kern in kernels:
         if kern['launches'] == 0:

@@ -63,7 +63,14 @@ far:
   host memory), `SLO` deadlines drive batching and typed `Overloaded`
   shedding, `ContinuousEngine` batches a per-timestep sequence cell
   continuously in K-tick chunks on the card, and `HttpFront` serves the
-  registry over HTTP (`tools/serve_http.py`).
+  registry over HTTP (`tools/serve_http.py`);
+- distributed training (`mx.kvstore`, `mx.kvstore_server`, `mx.dist`,
+  `mx.elastic`, `mx.delta`): the local store over several contexts, the
+  parameter-server processes, the coordinator's allreduce (star or
+  ring) across worker processes started by `tools.launch`, elastic
+  checkpoints with delta chains, preemption and the coordinated
+  restart; `Module.fit(kvstore='dist_sync', checkpoint=mgr)` trains
+  across processes and survives the loss of one.
 
 Importing the package builds and compiles nothing: the kernels are
 compiled by `nvcc` at their first launch (`_build`), an `Rtc` body by
@@ -110,6 +117,11 @@ from . import exec_cache
 from . import quantization
 from . import predictor
 from . import serving
+from . import kvstore
+from . import kvstore as kv
+from . import kvstore_server
+from . import dist
+from . import delta
 from . import elastic
 from . import serving_fleet
 from . import gluon
@@ -119,8 +131,10 @@ from . import image
 __all__ = ['AttrScope', 'Context', 'DataBatch', 'DataDesc', 'DataIter',
            'Executor', 'FeedForward', 'MXNetError', 'Module', 'NDArrayIter',
            'NameManager', 'Optimizer', 'Prefix', 'attribute', 'autograd',
-           'callback', 'cpu', 'current_context', 'exec_cache', 'executor',
-           'gluon', 'gpu', 'image', 'init', 'initializer', 'io', 'lr_scheduler', 'metric',
+           'callback', 'cpu', 'current_context', 'delta', 'dist', 'elastic',
+           'exec_cache', 'executor', 'gluon', 'gpu', 'image', 'init',
+           'initializer', 'io', 'kv', 'kvstore', 'kvstore_server',
+           'lr_scheduler', 'metric',
            'mod', 'model', 'models', 'module', 'mon', 'monitor', 'nd',
            'ndarray', 'num_gpus', 'optimizer', 'predictor', 'profiler',
            'quantization', 'random', 'recordio', 'resolve_device', 'rnn',

@@ -3,13 +3,19 @@
 set of Parameters through the per-key `Updater`, one per context.
 
 On one context the Trainer creates no store, as the JAX package's does
-(trainer.py:85-91); a kvstore over several contexts needs the port's
-KVStore (Queue A 5), and `step_fused`, the whole-step program of
-`gluon.fuse_step`, needs gluon/fused.py (Queue A 6): both raise.
-`save_states` and `load_states` write and read the Updater's states,
-the JAX package's format.
+(trainer.py:85-91); over several contexts (cpu(0)..cpu(n), gpu(0)) it
+keeps a KVStore as the distribution facade and sums each step's
+gradients over the contexts in one stacked reduction per dtype
+(`_batched_reduce_grads`), written back to every context's gradient.
+`step_fused`, the whole-step program of `gluon.fuse_step`, needs
+gluon/fused.py (Queue A 6) and raises. `save_states` and `load_states`
+write and read the Updater's states, the JAX package's format.
 """
+import torch
+
+from .. import kvstore as kvs
 from .. import optimizer as opt
+from .. import profiler
 from ..base import atomic_file, unported
 from .parameter import ParameterDict, Parameter
 
@@ -70,9 +76,42 @@ class Trainer(object):
 
     def _init_kvstore(self):
         if self._kv_type and len(self._contexts) > 1:
-            raise unported('the Trainer\'s kvstore over %d contexts'
-                           % len(self._contexts), '5')
+            # the store is the distribution facade (rank, size,
+            # barrier); the gradients' sum is _batched_reduce_grads
+            self._kvstore = kvs.create(self._kv_type)
         self._kv_initialized = True
+
+    def _batched_reduce_grads(self):
+        """Sum every parameter's gradients over the contexts in one
+        stacked reduction per dtype (each context's gradients flattened
+        and joined on the first context's device, stacked, summed), and
+        write the sum back to every context's gradient (its own copy on
+        each)."""
+        work = [p for p in self._params
+                if p.grad_req != 'null' and len(p.list_grad()) > 1]
+        if not work:
+            return
+        groups = {}
+        for p in work:
+            groups.setdefault(p.list_grad()[0]._data.dtype, []).append(p)
+        with profiler.scope('trainer_batched_reduce', 'kvstore'):
+            for params in groups.values():
+                glists = [p.list_grad() for p in params]
+                ndev = len(glists[0])
+                dev0 = glists[0][0]._data.device
+                flats = [torch.cat([gl[d]._data.to(dev0).reshape(-1)
+                                    for gl in glists])
+                         for d in range(ndev)]
+                total = torch.stack(flats).sum(0)
+                for d in range(ndev):
+                    tot_d = total if d == 0 else total.to(
+                        glists[0][d]._data.device, copy=True)
+                    off = 0
+                    for gl in glists:
+                        n = gl[0].size
+                        gl[d]._data = tot_d[off:off + n].reshape(
+                            gl[0].shape)
+                        off += n
 
     @property
     def learning_rate(self):
@@ -87,6 +126,8 @@ class Trainer(object):
         if not self._kv_initialized:
             self._init_kvstore()
         self._optimizer.rescale_grad = self._scale / batch_size
+        if self._kvstore is not None:
+            self._batched_reduce_grads()
         for i, param in enumerate(self._params):
             if param.grad_req == 'null':
                 continue

@@ -4,43 +4,85 @@ checkpoints and the legacy FeedForward.
 
 Checkpoints are `prefix-symbol.json` (the symbol's JSON) and
 `prefix-%04d.params` (`nd.save` of 'arg:' and 'aux:' entries), both
-byte-compatible with the JAX package's. The port has no kvstore yet:
-one device with no store or a non-dist store name runs without one, as
-the JAX package decides; anything that needs a store raises.
+byte-compatible with the JAX package's. One device with no store or a
+non-dist store name runs without one, as the JAX package decides.
 """
 import logging
 from collections import namedtuple
 
+from . import kvstore as kvs
 from . import ndarray as nd
 from . import symbol as sym
-from .base import MXNetError, unported
+from .base import MXNetError
 
 BatchEndParam = namedtuple('BatchEndParams',
                            ['epoch', 'nbatch', 'eval_metric', 'locals'])
 
 
 def _create_kvstore(kvstore, num_device, arg_params):
-    """(kvstore, update_on_kvstore): (None, False) without a store, and
-    for one device with a store name that is not dist, the JAX
-    package's answer; stores themselves are not ported."""
+    """(kvstore, update_on_kvstore) (reference model.py:57): no store
+    for None, or for one device with a store name that is not dist; a
+    KVStore object as it is; else `kvstore.create(name)`, with the
+    reference's >16M-element heuristic turning update_on_kvstore off
+    for a 'local' store."""
     if kvstore is None:
         return None, False
-    if isinstance(kvstore, str) and num_device == 1 and \
-            'dist' not in kvstore:
+    if isinstance(kvstore, kvs.KVStore):
+        return kvstore, True
+    if not isinstance(kvstore, str):
+        raise TypeError('kvstore must be KVStore, str or None')
+    if num_device == 1 and 'dist' not in kvstore:
         return None, False
-    raise unported('kvstore %r (kvstore.py, dist stores)' % (kvstore,), '5')
+    kv = kvs.create(kvstore)
+    update_on_kvstore = True
+    if kvstore == 'local' and arg_params:
+        biggest = max(p.size for p in arg_params.values())
+        update_on_kvstore = biggest <= 1024 * 1024 * 16
+    return kv, update_on_kvstore
 
 
-def _update_params(param_arrays, grad_arrays, updater, num_device,
-                   kvstore=None, param_names=None):
-    """Run the per-key updater over every parameter with a gradient."""
-    if kvstore:
-        raise unported('gradient aggregation through a kvstore', '5')
+def _initialize_kvstore(kvstore, param_arrays, arg_params, param_names,
+                        update_on_kvstore):
+    """Init every parameter on the store, and pull it back onto the
+    devices when the store updates (reference model.py:96)."""
+    for idx, param_on_devs in enumerate(param_arrays):
+        name = param_names[idx]
+        kvstore.init(name, arg_params[name])
+        if update_on_kvstore:
+            kvstore.pull(name, param_on_devs, priority=-idx)
+
+
+def _update_params_on_kvstore(param_arrays, grad_arrays, kvstore,
+                              param_names):
+    """Push the gradients, pull the weights (reference model.py:106), as
+    one `push_pull_all`, so that a dist store batches the step's round."""
+    names, grads, args = [], [], []
     for index, pair in enumerate(zip(param_arrays, grad_arrays)):
         arg_list, grad_list = pair
         if grad_list is None or (isinstance(grad_list, list) and
                                  grad_list[0] is None):
             continue
+        names.append(param_names[index])
+        grads.append(grad_list)
+        args.append(arg_list)
+    kvstore.push_pull_all(names, grads, args)
+
+
+def _update_params(param_arrays, grad_arrays, updater, num_device,
+                   kvstore=None, param_names=None):
+    """Sum the gradients through the store where there is one (push and
+    pull back into the gradients), then run the per-key updater
+    (reference model.py:118)."""
+    for index, pair in enumerate(zip(param_arrays, grad_arrays)):
+        arg_list, grad_list = pair
+        if grad_list is None or (isinstance(grad_list, list) and
+                                 grad_list[0] is None):
+            continue
+        index_name = param_names[index] if param_names is not None \
+            else index
+        if kvstore:
+            kvstore.push(index_name, grad_list, priority=-index)
+            kvstore.pull(index_name, grad_list, priority=-index)
         if isinstance(arg_list, list):
             for k, (w, g) in enumerate(zip(arg_list, grad_list)):
                 updater(index * num_device + k, g, w)

@@ -10,16 +10,18 @@ device. `monitor=` installs a `monitor.Monitor` on the executor and
 ticks it around each batch. `bulk=K` runs the epoch in K-step
 dispatches (`bulk_step`), the metric folded on the device; a monitor,
 or a metric with no device fold (fit warns), keeps the per-batch loop.
-The overlap, `pipeline=` and `checkpoint=` (the elastic runtime) are
-not ported and raise.
+`checkpoint=` runs the elastic runtime (auto-resume, the per-step
+cadence, preemption; `elastic.CheckpointManager`). The overlap and
+`pipeline=` are not ported (`pipeline=` raises naming Queue A item 6).
 """
 import logging
+import threading
 import time
 from collections import namedtuple
 
 from .. import metric as metric_mod
 from .. import ndarray as nd
-from ..base import unported
+from ..base import MXNetError, unported
 from ..initializer import Uniform
 
 BatchEndParam = namedtuple('BatchEndParams',
@@ -154,12 +156,20 @@ class BaseModule:
             begin_epoch=0, num_epoch=None, validation_metric=None,
             monitor=None, bulk=None, checkpoint=None, pipeline=None):
         """Train: bind, init_params, init_optimizer, then the epoch loop
-        with its callbacks and validation."""
+        with its callbacks and validation.
+
+        checkpoint: an elastic.CheckpointManager. Training resumes from
+        the newest intact checkpoint in its directory (parameters,
+        optimizer state, RNG, the epoch's partial metric; the iterator
+        fast-forwards to the consumed-sample watermark, so the run
+        continues as the uninterrupted one would), every step feeds its
+        cadence, SIGTERM and SIGINT (armed here when fit runs on the
+        main thread) or a peer's death seen by the dist runtime commit
+        a final checkpoint at the next step boundary and raise
+        elastic.Preempted."""
         assert num_epoch is not None, 'please specify number of epochs'
         if pipeline is not None:
             raise unported('fit(pipeline=) (parallel/pipeline.py)', '6')
-        if checkpoint is not None:
-            raise unported('fit(checkpoint=) (elastic.py)', '5')
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label, for_training=True,
                   force_rebind=force_rebind)
@@ -187,6 +197,43 @@ class BaseModule:
         if warm is not None:
             warm(bulk=int(bulk) if use_bulk else None,
                  eval_metric=eval_metric if use_bulk else None)
+        # elastic resume: restore the newest intact checkpoint and
+        # fast-forward the RAW iterator to its watermark, before the
+        # staging wrapper hides the position
+        resume_info = None
+        signals_installed_here = False
+        watched_runtime = None
+        batch_size = getattr(train_data, 'batch_size', 0)
+        if checkpoint is not None:
+            from .. import dist, elastic
+            checkpoint.attach(self)
+            if not checkpoint._old_handlers and \
+                    threading.current_thread() is \
+                    threading.main_thread():
+                checkpoint.install_signal_handlers()
+                signals_installed_here = True
+            # a peer's death seen by the heartbeats preempts the
+            # manager: the next step boundary commits and raises
+            watched_runtime = dist.runtime()
+            if watched_runtime is not None:
+                watched_runtime.watch(checkpoint)
+            resume_info = checkpoint.restore()
+            if resume_info is not None:
+                begin_epoch = max(begin_epoch, resume_info.epoch)
+                elastic.fast_forward(
+                    train_data, epochs=resume_info.epoch,
+                    batches=resume_info.batches_in_epoch,
+                    batch_size=batch_size)
+
+        def ckpt_step(nbatch_done, steps, epoch):
+            """nbatch_done: the batches consumed this epoch, the resumed
+            epoch's offset included (the manifest's watermark)."""
+            if checkpoint is not None:
+                checkpoint.step_end(epoch=epoch,
+                                    batches_in_epoch=nbatch_done,
+                                    batch_size=batch_size, steps=steps,
+                                    metric=eval_metric)
+
         # stage upcoming batches on the device so that the copy of batch
         # N+1 overlaps step N (Module's hook; the default is identity)
         staged = self._wrap_train_iter(train_data)
@@ -196,30 +243,55 @@ class BaseModule:
                              batch_end_callback, eval_end_callback,
                              eval_batch_end_callback, begin_epoch,
                              num_epoch, monitor,
-                             int(bulk) if use_bulk else None)
+                             int(bulk) if use_bulk else None,
+                             resume_info=resume_info,
+                             checkpoint=checkpoint, ckpt_step=ckpt_step)
         finally:
             if staged is not train_data:
                 staged.close()      # the staging thread fit started
+            if signals_installed_here:
+                # fit armed the handlers, fit disarms them
+                checkpoint.uninstall_signal_handlers()
+            if watched_runtime is not None:
+                watched_runtime.unwatch(checkpoint)
 
     def _fit_epochs(self, train_data, eval_data, eval_metric,
                     validation_metric, epoch_end_callback,
                     batch_end_callback, eval_end_callback,
                     eval_batch_end_callback, begin_epoch, num_epoch,
-                    monitor=None, bulk=None):
+                    monitor=None, bulk=None, resume_info=None,
+                    checkpoint=None, ckpt_step=None):
         """The epoch loop of fit, batch by batch, or in K-step dispatches
-        with bulk=K."""
+        with bulk=K; the resumed epoch continues at its watermark with
+        its partial metric, and each step (dispatch) ends at the
+        checkpoint's step_end."""
         for epoch in range(begin_epoch, num_epoch):
             epoch_start = time.time()
             eval_metric.reset()
+            epoch_off = 0
+            if resume_info is not None and epoch == resume_info.epoch:
+                from .. import elastic
+                elastic._restore_metric(
+                    eval_metric, resume_info.manifest.get('metric'))
+                epoch_off = resume_info.batches_in_epoch
             if bulk is not None:
                 self._fit_epoch_bulk(train_data, bulk, eval_metric,
-                                     batch_end_callback, epoch)
+                                     batch_end_callback, epoch,
+                                     step_cb=ckpt_step, nbatch0=epoch_off,
+                                     checkpoint=checkpoint)
             else:
                 for nbatch, data_batch in enumerate(train_data):
+                    nbatch += epoch_off
                     if monitor is not None:
                         monitor.tic()
-                    self.forward_backward(data_batch)
-                    self.update()
+                    aux = self._aux_snapshot(checkpoint)
+                    try:
+                        self.forward_backward(data_batch)
+                        self.update()
+                    except MXNetError:
+                        self._peer_death_preempt(checkpoint, ckpt_step,
+                                                 nbatch, epoch, aux)
+                        raise
                     self.update_metric(eval_metric, data_batch.label)
                     if monitor is not None:
                         monitor.toc_print()
@@ -228,6 +300,8 @@ class BaseModule:
                               BatchEndParam(epoch=epoch, nbatch=nbatch,
                                             eval_metric=eval_metric,
                                             locals=locals()))
+                    if ckpt_step is not None:
+                        ckpt_step(nbatch + 1, 1, epoch)
             for name, val in eval_metric.get_name_value():
                 self.logger.info('Epoch[%d] Train-%s=%f', epoch, name, val)
             self.logger.info('Epoch[%d] Time cost=%.3f', epoch,
@@ -248,23 +322,84 @@ class BaseModule:
                     self.logger.info('Epoch[%d] Validation-%s=%f',
                                      epoch, name, val)
             train_data.reset()
+            if checkpoint is not None and checkpoint.preempted:
+                # a signal after the epoch's last step_end: commit the
+                # epoch boundary as the final checkpoint and unwind
+                from .. import elastic
+                ckpt = checkpoint.save(epoch=epoch + 1,
+                                       batches_in_epoch=0,
+                                       batch_size=0, sync=True)
+                raise elastic.Preempted(
+                    checkpoint.step, ckpt,
+                    dead_ranks=checkpoint.preempt_dead_ranks)
+        if checkpoint is not None:
+            checkpoint.wait()   # drain pending async commits
+
+    def _aux_snapshot(self, checkpoint):
+        """Copies of the auxiliary states (BatchNorm's moving statistics)
+        before a step, when a peer's death could fail it: the step's
+        forward has updated them by the time its cross-process sum
+        fails. None otherwise."""
+        if checkpoint is None:
+            return None
+        from .. import dist
+        if dist.runtime() is None:
+            return None
+        eg = getattr(self, '_exec_group', None)
+        if eg is None:
+            mod = getattr(self, '_curr_module', None)
+            eg = getattr(mod, '_exec_group', None)
+        if eg is None:
+            return None
+        return [(a, a._data.clone()) for a in eg.aux_arrays]
+
+    @staticmethod
+    def _peer_death_preempt(checkpoint, step_cb, nbatch, epoch, aux=None):
+        """A cross-process step that failed because a peer died (the
+        heartbeats say so) becomes a coordinated preemption: the
+        parameters are the consistent state after the previous step
+        (the batched cross-process sum fails before any key updates),
+        the auxiliary states go back to their copies from before the
+        step, and the final checkpoint is committed and Preempted
+        raised. The caller re-raises the original error when no manager
+        is wired or no peer is dead."""
+        if checkpoint is None or step_cb is None:
+            return
+        from .. import dist
+        dead = dist.detect_dead()
+        if not dead:
+            return
+        for a, saved in aux or ():
+            a._data = saved
+        checkpoint.request_preempt(dead_ranks=dead)
+        step_cb(nbatch, 0, epoch)   # commits and raises Preempted
 
     def _fit_epoch_bulk(self, train_data, bulk, eval_metric,
-                        batch_end_callback, epoch):
+                        batch_end_callback, epoch, step_cb=None,
+                        nbatch0=0, checkpoint=None):
         """One fit epoch in dispatches of up to `bulk` batches, for
         Module and BucketingModule alike: consecutive batches group while
         `_bulk_group_key` stays the same (the ladder rung; the base key
         never splits), and `_bulk_dispatch_group` runs a group. Callbacks
-        fire once a dispatch, with nbatch at its last batch."""
-        state = {'nbatch': 0}
+        and step_cb(nbatch_done, steps, epoch) fire once a dispatch, with
+        nbatch at its last batch; nbatch0 is the resumed epoch's
+        watermark."""
+        state = {'nbatch': int(nbatch0)}
         group = []
         group_key = [None]
 
         def flush():
             if not group:
                 return
-            self._bulk_dispatch_group(list(group), bulk, eval_metric)
-            state['nbatch'] += len(group)
+            k = len(group)
+            aux = self._aux_snapshot(checkpoint)
+            try:
+                self._bulk_dispatch_group(list(group), bulk, eval_metric)
+            except MXNetError:
+                self._peer_death_preempt(checkpoint, step_cb,
+                                         state['nbatch'], epoch, aux)
+                raise
+            state['nbatch'] += k
             del group[:]
             if batch_end_callback is not None:
                 _fire(batch_end_callback,
@@ -272,6 +407,8 @@ class BaseModule:
                                     nbatch=state['nbatch'] - 1,
                                     eval_metric=eval_metric,
                                     locals=locals()))
+            if step_cb is not None:
+                step_cb(state['nbatch'], k, epoch)
 
         for data_batch in train_data:
             key = self._bulk_group_key(data_batch)

@@ -20,8 +20,15 @@ folded on the device (`metric.device_fold`), and no host
 synchronisation among the steps. A step that cannot fuse takes the
 per-step loop, as in the JAX package.
 
-Not ported, each raising: several contexts, kvstore objects and dist
-stores, ZeRO and sparse embedding tables.
+A store (`kvstore=` a name or a KVStore) takes the JAX package's
+routing: `dist*_sync` multiplies the batch of rescale_grad by the
+number of workers; the parameter-server store and the dist runtime's
+store update key by key (the servers' optimizer, or the store's updater
+after the cross-process sum), with no FusedSGD; a local store over one
+device is no store at all.
+
+Not ported, each raising: several contexts, ZeRO and sparse embedding
+tables (Queue A item 6).
 """
 import logging
 import os
@@ -295,7 +302,11 @@ class Module(BaseModule):
             raise unported('ZeRO optimizer-state sharding', '6')
         kvstore, update_on_kvstore = model_mod._create_kvstore(
             kvstore, len(self._context), self._arg_params)
-        rescale_grad = 1.0 / self._exec_group.batch_size
+        batch_size = self._exec_group.batch_size
+        if kvstore and 'dist' in kvstore.type and \
+                '_sync' in kvstore.type:
+            batch_size *= kvstore.num_workers
+        rescale_grad = 1.0 / batch_size
         if isinstance(optimizer, str):
             idx2name = {i: n for i, n in enumerate(self._param_names)}
             optimizer_params = dict(optimizer_params)
@@ -309,10 +320,34 @@ class Module(BaseModule):
         self._optimizer = optimizer
         self._kvstore = kvstore
         self._update_on_kvstore = update_on_kvstore
-        self._fused_updater = opt_mod.create_fused_updater(
-            optimizer, self._param_names)
-        self._updater = None if self._fused_updater is not None \
-            else opt_mod.get_updater(optimizer)
+        self._updater = None
+        if kvstore:
+            # the initialized parameters to the store
+            model_mod._initialize_kvstore(
+                kvstore=kvstore,
+                param_arrays=self._exec_group.param_arrays,
+                arg_params=self._arg_params,
+                param_names=self._param_names,
+                update_on_kvstore=update_on_kvstore)
+        # the parameter-server store updates on its servers and the
+        # dist runtime's store after its cross-process sum, key by key;
+        # otherwise FusedSGD takes the whole list at once (a store is
+        # then the parameters' facade only)
+        from .. import dist
+        from .. import kvstore as kvs_mod
+        ps = isinstance(kvstore, kvs_mod.KVStoreDistPS)
+        host_span = kvstore is not None and kvstore._is_dist and \
+            not ps and dist.host_span_active()
+        self._fused_updater = None
+        if kvstore is None or (not ps and not host_span):
+            self._fused_updater = opt_mod.create_fused_updater(
+                optimizer, self._param_names)
+        if self._fused_updater is not None:
+            self._update_on_kvstore = False
+        elif update_on_kvstore:
+            kvstore.set_optimizer(self._optimizer)
+        else:
+            self._updater = opt_mod.get_updater(optimizer)
         self.optimizer_initialized = True
         if self._preload_opt_states is not None:
             self.load_optimizer_states(self._preload_opt_states)
@@ -545,11 +580,16 @@ class Module(BaseModule):
             self._fused_updater.param_names = names
             self._fused_updater(weights, grads)
             return
-        model_mod._update_params(eg.param_arrays, eg.grad_arrays,
-                                 updater=self._updater,
-                                 num_device=len(self._context),
-                                 kvstore=self._kvstore,
-                                 param_names=self._param_names)
+        if self._update_on_kvstore:
+            model_mod._update_params_on_kvstore(
+                eg.param_arrays, eg.grad_arrays, self._kvstore,
+                self._param_names)
+        else:
+            model_mod._update_params(eg.param_arrays, eg.grad_arrays,
+                                     updater=self._updater,
+                                     num_device=len(self._context),
+                                     kvstore=self._kvstore,
+                                     param_names=self._param_names)
 
     def get_outputs(self, merge_multi_context=True):
         assert self.binded and self.params_initialized
@@ -566,12 +606,18 @@ class Module(BaseModule):
     # -- optimizer states --------------------------------------------------
     def save_optimizer_states(self, fname):
         assert self.optimizer_initialized
+        if self._update_on_kvstore:
+            self._kvstore.save_optimizer_states(fname)
+            return
         updater = self._fused_updater or self._updater
         with atomic_file(fname) as fout:
             fout.write(updater.get_states())
 
     def load_optimizer_states(self, fname):
         assert self.optimizer_initialized
+        if self._update_on_kvstore:
+            self._kvstore.load_optimizer_states(fname)
+            return
         updater = self._fused_updater or self._updater
         with open(fname, 'rb') as fin:
             updater.set_states(fin.read())

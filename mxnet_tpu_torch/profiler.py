@@ -16,9 +16,11 @@ The per-subsystem counters come with the subsystems they count: the
 program cache's (exec_cache), the serving engine's, the quantization,
 the serving fleet's (registry, HTTP front, continuous batcher), its
 hot-swap and host-hiding counters, the bucketed-training and the input
-pipeline's counters so far; `summary()` prints them, and `dump_profile`
-writes each as a metadata event ('exec_cache', 'serving', 'fleet',
-'quant', 'loop', 'overlap', 'bucketing', 'input_pipeline').
+pipeline's counters, the elastic checkpoints', the dist runtime's and
+the weight deltas'; `summary()` prints them, and `dump_profile` writes
+each as a metadata event ('exec_cache', 'serving', 'fleet', 'quant',
+'loop', 'overlap', 'bucketing', 'input_pipeline', 'checkpoint', 'dist',
+'delta').
 """
 import json
 import os
@@ -392,6 +394,135 @@ def exec_cache_stats():
             'exec_cache_misses': st['misses'],
             'total_compile_s': st['total_compile_s']}
 
+# elastic-checkpoint counters (elastic.CheckpointManager): snapshots
+# committed, payload bytes written, the writer thread's host time while
+# training went on (ckpt_async_overlap_ms; 0 for synchronous and final
+# commits), end-to-end commit time, torn checkpoints skipped at resume,
+# restores, cadence snapshots skipped behind a write in flight, and
+# write failures survived
+_CKPT = {
+    'ckpt_snapshots': 0,
+    'ckpt_bytes': 0,
+    'ckpt_async_overlap_ms': 0.0,
+    'ckpt_commit_ms': 0.0,
+    'ckpt_torn_fallbacks': 0,
+    'ckpt_restores': 0,
+    'ckpt_skipped': 0,
+    'ckpt_failed_writes': 0,
+}
+
+
+def add_ckpt_stats(snapshots=0, bytes=0, async_overlap_ms=0.0,
+                   commit_ms=0.0, torn_fallbacks=0, restores=0,
+                   skipped=0, failed_writes=0):
+    """Accumulate elastic-checkpoint counters (one call per event)."""
+    with _STATE['lock']:
+        _CKPT['ckpt_snapshots'] += int(snapshots)
+        _CKPT['ckpt_bytes'] += int(bytes)
+        _CKPT['ckpt_async_overlap_ms'] += float(async_overlap_ms)
+        _CKPT['ckpt_commit_ms'] += float(commit_ms)
+        _CKPT['ckpt_torn_fallbacks'] += int(torn_fallbacks)
+        _CKPT['ckpt_restores'] += int(restores)
+        _CKPT['ckpt_skipped'] += int(skipped)
+        _CKPT['ckpt_failed_writes'] += int(failed_writes)
+
+
+def ckpt_stats():
+    """Snapshot of the elastic-checkpoint counters."""
+    with _STATE['lock']:
+        return dict(_CKPT)
+
+
+# dist-runtime counters (dist.py): heartbeats sent and missed, barrier
+# rounds and the ms waited in them, deaths learned of, allreduce rounds,
+# wire bytes per direction and per topology ('star', 'ring', 'sparse'),
+# the ms async rounds overlapped their caller, and the elastic
+# relaunches this process is downstream of
+_DIST = {
+    'dist_heartbeats_sent': 0,
+    'dist_heartbeats_missed': 0,
+    'dist_barriers': 0,
+    'dist_barrier_wait_ms': 0.0,
+    'dist_dead_hosts_detected': 0,
+    'dist_allreduce_rounds': 0,
+    'dist_allreduce_bytes': 0,
+    'dist_tx_bytes': 0,
+    'dist_rx_bytes': 0,
+    'dist_star_bytes': 0,
+    'dist_ring_bytes': 0,
+    'dist_sparse_bytes': 0,
+    'dist_overlap_ms': 0.0,
+    'dist_restarts': 0,
+}
+
+
+def add_dist_stats(heartbeats_sent=0, heartbeats_missed=0, barriers=0,
+                   barrier_wait_ms=0.0, dead_hosts_detected=0,
+                   allreduce_rounds=0, allreduce_bytes=0, restarts=0,
+                   tx_bytes=0, rx_bytes=0, topology=None,
+                   overlap_ms=0.0):
+    """Accumulate dist-runtime counters; `topology` attributes the
+    directional bytes to the transport that moved them, and
+    allreduce_bytes defaults to tx + rx."""
+    if (tx_bytes or rx_bytes) and not allreduce_bytes:
+        allreduce_bytes = int(tx_bytes) + int(rx_bytes)
+    with _STATE['lock']:
+        _DIST['dist_heartbeats_sent'] += int(heartbeats_sent)
+        _DIST['dist_heartbeats_missed'] += int(heartbeats_missed)
+        _DIST['dist_barriers'] += int(barriers)
+        _DIST['dist_barrier_wait_ms'] += float(barrier_wait_ms)
+        _DIST['dist_dead_hosts_detected'] += int(dead_hosts_detected)
+        _DIST['dist_allreduce_rounds'] += int(allreduce_rounds)
+        _DIST['dist_allreduce_bytes'] += int(allreduce_bytes)
+        _DIST['dist_tx_bytes'] += int(tx_bytes)
+        _DIST['dist_rx_bytes'] += int(rx_bytes)
+        if topology is not None:
+            _DIST['dist_%s_bytes' % topology] += \
+                int(tx_bytes) + int(rx_bytes)
+        _DIST['dist_overlap_ms'] += float(overlap_ms)
+        _DIST['dist_restarts'] += int(restarts)
+
+
+def dist_stats():
+    """Snapshot of the dist-runtime counters."""
+    with _STATE['lock']:
+        return dict(_DIST)
+
+
+# weight-delta counters (delta.py and its users): delta commits and
+# applies, payload bytes beside the full state's, the chain length
+# (a gauge), rebases and fallbacks, and lossy-parity refusals
+_DELTA = {
+    'delta_committed': 0,
+    'delta_applied': 0,
+    'delta_bytes': 0,
+    'delta_full_bytes': 0,
+    'delta_chain_len': 0,       # gauge
+    'delta_rebases': 0,
+    'delta_fallbacks': 0,
+    'delta_pushes': 0,
+    'delta_push_fallbacks': 0,
+    'delta_page_applies': 0,
+    'delta_parity_refusals': 0,
+}
+
+
+def add_delta_stats(chain_len=None, **deltas):
+    """Accumulate weight-delta counters (chain_len is set, the rest
+    add; keys without the delta_ prefix)."""
+    with _STATE['lock']:
+        for k, v in deltas.items():
+            _DELTA['delta_' + k] += int(v)
+        if chain_len is not None:
+            _DELTA['delta_chain_len'] = int(chain_len)
+
+
+def delta_stats():
+    """Snapshot of the weight-delta counters."""
+    with _STATE['lock']:
+        return dict(_DELTA)
+
+
 
 def summary(print_out=True):
     """Human-readable profile summary: span time by category, then the
@@ -482,6 +613,9 @@ def summary(print_out=True):
                      'warmups=%d warm_compiles=%d'
                      % (rung, e['steps'], e['dispatches'], e['compiles'],
                         e['warmups'], e['warm_compiles']))
+    for stats in (ckpt_stats(), dist_stats(), delta_stats()):
+        lines.append('  ' + ' '.join('%s=%s' % kv
+                                     for kv in sorted(stats.items())))
     text = '\n'.join(lines)
     if print_out:
         print(text)
@@ -589,7 +723,13 @@ def dump_profile():
               {'ph': 'M', 'name': 'bucketing', 'pid': 0,
                'args': bucketing_stats()},
               {'ph': 'M', 'name': 'input_pipeline', 'pid': 0,
-               'args': input_stats()}]
+               'args': input_stats()},
+              {'ph': 'M', 'name': 'checkpoint', 'pid': 0,
+               'args': ckpt_stats()},
+              {'ph': 'M', 'name': 'dist', 'pid': 0,
+               'args': dist_stats()},
+              {'ph': 'M', 'name': 'delta', 'pid': 0,
+               'args': delta_stats()}]
     with _STATE['lock']:
         records = list(_STATE['records'])
     for name, cat, ts, dur, tid in records:
@@ -638,6 +778,9 @@ def clear():
         _BUCKET_RUNGS.clear()
         for k in _INPUT:
             _INPUT[k] = type(_INPUT[k])()
+        for d in (_CKPT, _DIST, _DELTA):
+            for k in d:
+                d[k] = type(d[k])()
         del _SERVE_LAT[:]
         _SERVE_LAT_POS[0] = 0
 

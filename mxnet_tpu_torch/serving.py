@@ -43,10 +43,10 @@ p50/p99) feed `profiler.serving_stats()` / `profiler.summary()` /
 a dispatch into the batch's assembly, its staging, the graph walk's
 launches and the completion's copy to the host.
 
-Not ported yet, each raising: `hot_rows=` (the hot-row embedding cache,
-ROADMAP Queue A 6), `apply_delta` (Queue A 5),
-`export_serving_checkpoint` and `serving_state` (elastic checkpoints,
-Queue A 5).
+`apply_delta` applies a weight delta (`delta.py`) to the resident
+weights in place; `export_serving_checkpoint` and `serving_state` read
+an elastic checkpoint (full or delta) for serving. Not ported, raising:
+`hot_rows=` (the hot-row embedding cache, ROADMAP Queue A 6).
 
 Typical use::
 
@@ -72,6 +72,7 @@ import torch
 
 from . import exec_cache
 from . import io as mxio
+from . import ndarray as nd
 from . import profiler
 from . import quantization
 from .base import MXNetError, numpy_dtype, unported
@@ -609,9 +610,101 @@ class InferenceEngine(object):
                 total += s.numel() * s.element_size()
         return total
 
+    # -- in-place weight deltas (the delta push channel) ----------------
+    def _resident_host_state(self):
+        """The resident weights as a flat {'arg:NAME'/'aux:NAME': host
+        array} state (the serving_state key space). Quantized weights
+        dequantize back to their original dtype (lossy: apply_delta
+        exempts them from the crc gate)."""
+        from . import _hostarray as ha
+        ex = self._base_ex
+        state = {}
+        for prefix, d in (('arg:', ex.arg_dict), ('aux:', ex.aux_dict)):
+            for n, a in d.items():
+                if n in self._input_names:
+                    continue
+                if prefix == 'arg:' and n in self._quant_names:
+                    codes = a._data
+                    s = self._quant_scales[n]
+                    dt = self._quant_orig_dtype.get(n, torch.float32)
+                    if s is None:       # bf16 swap: a plain cast back
+                        v = codes.to(dt)
+                    else:
+                        v = (codes.float() * s).to(dt)
+                    state[prefix + n] = ha.host(v)
+                else:
+                    state[prefix + n] = ha.host(a._data)
+        return state
+
     def apply_delta(self, entries, meta, expect_fp=None, parity_tol=None):
-        raise unported('InferenceEngine.apply_delta (weight deltas, '
-                       'delta.py)', '5')
+        """Apply one weight delta (delta.make_delta's output, or a
+        shipped delta payload) to the resident weights, with no re-warm:
+        each rung reads its weight tensors at every dispatch, so
+        swapping them updates every rung.
+
+        Every gate runs before anything changes: a base-fingerprint
+        mismatch or a crc divergence raises DeltaChainError, a lossy
+        delta whose rel_err exceeds `parity_tol` DeltaParityError, and
+        the engine then serves its previous weights bit for bit.
+        Quantized weights are requantized through the engine's own
+        QuantConfig (codes and scales swap together). parity_tol
+        defaults to the QuantConfig's (the DeltaConfig default for an
+        fp engine). Returns the delta's new_fp."""
+        from . import _hostarray as ha
+        from . import delta as delta_mod
+        if self._closed:
+            raise MXNetError('InferenceEngine is closed')
+        if parity_tol is None:
+            parity_tol = (self._quant.parity_tol
+                          if self._quant is not None
+                          else delta_mod.DeltaConfig().parity_tol)
+        state = self._resident_host_state()
+        lossy = {'arg:' + n for n in self._quant_names}
+        new_state = delta_mod.apply_delta(
+            state, meta, entries, expect_fp=expect_fp,
+            parity_tol=parity_tol, skip_crc=lossy)
+        ex = self._base_ex
+        resolved = []
+        for key in meta.get('entries', {}):
+            if key.startswith('arg:'):
+                n, d = key[4:], ex.arg_dict
+            elif key.startswith('aux:'):
+                n, d = key[4:], ex.aux_dict
+            else:
+                raise delta_mod.DeltaChainError(
+                    'delta entry %r is not in the serving key space '
+                    "('arg:'/'aux:')" % key)
+            if n not in d:
+                raise delta_mod.DeltaChainError(
+                    'delta touches %r which this engine does not hold'
+                    % key)
+            resolved.append((key, n, d))
+        for key, n, d in resolved:
+            new = ha.to_tensor(new_state[key])
+            if d is ex.arg_dict and n in self._quant_names:
+                quantized, _ = quantization.quantize_weights(
+                    {n: new.to(self._device)}, self._quant)
+                q, sc, _orig = quantized[n]
+                d[n]._data = q
+                if sc is None:
+                    self._quant_scales[n] = None
+                else:
+                    if self._quant.per_channel:
+                        sc = sc.reshape((-1,) + (1,) * (q.ndim - 1))
+                    self._quant_scales[n] = sc
+            else:
+                a = d[n]
+                d[n]._data = new.to(a._data.device, a._data.dtype)
+        if self._quant_names:
+            self._quant_scale_vals = tuple(
+                self._quant_scales[n] for n in self._quant_names
+                if self._quant_scales[n] is not None)
+        if self._device.type == 'cuda':
+            # the copies ran on this thread's stream: done before any
+            # dispatch reads them
+            torch.cuda.current_stream(self._device).synchronize()
+        profiler.add_delta_stats(applied=1)
+        return meta.get('new_fp')
 
     def warmup(self):
         """Run every ladder rung (batch buckets x free-dim buckets) once,
@@ -1235,9 +1328,57 @@ def _slice_out(out, off, req, prog, mirror):
 
 
 def export_serving_checkpoint(step_dir, symbol, prefix, epoch=0):
-    raise unported('export_serving_checkpoint (elastic checkpoints, '
-                   'elastic.py)', '5')
+    """Convert one committed elastic checkpoint dir (a full `step-*` or
+    a `delta-*`, whose chain is replayed) into the `save_checkpoint`
+    serving format ('<prefix>-symbol.json' + '<prefix>-%04d.params').
+    Module commits ('param:NAME', 'aux:NAME') map onto the symbol's
+    names; gluon commits ('gparam:i:NAME', ...) by the parameter name.
+    Optimizer state and RNG are dropped. The checkpoint validates end to
+    end before anything is written. Returns `prefix`."""
+    from . import _hostarray as ha
+    from .context import cpu
+    from .elastic import load_state
+    from .model import save_checkpoint
+    _manifest, arrays = load_state(step_dir)
+    args, auxs = serving_arrays(arrays)
+    if not args:
+        raise MXNetError(
+            'export_serving_checkpoint: %s holds no parameter entries '
+            '(is it an elastic checkpoint dir?)' % step_dir)
+
+    def nds(d):
+        return {n: nd.NDArray(ha.to_tensor(ha.copy(a)), cpu())
+                for n, a in d.items()}
+    save_checkpoint(prefix, int(epoch), symbol, nds(args), nds(auxs))
+    return prefix
+
+
+def serving_arrays(arrays):
+    """(args, auxs) host-array dicts of the weight entries of one elastic
+    checkpoint's flat array dict (export_serving_checkpoint's mapping)."""
+    args, auxs = {}, {}
+    for key, v in arrays.items():
+        if key.startswith('param:'):
+            args[key[len('param:'):]] = v
+        elif key.startswith('aux:'):
+            auxs[key[len('aux:'):]] = v
+        elif key.startswith(('gparam:', 'gaux:')):
+            kind, _i, name = key.split(':', 2)
+            dest = auxs if kind == 'gaux' else args
+            dest[name] = v
+        elif key.startswith('gfrozen:'):
+            _k, _i, name = key.split(':', 2)
+            args[name] = v
+    return args, auxs
 
 
 def serving_state(step_dir):
-    raise unported('serving_state (elastic checkpoints, elastic.py)', '5')
+    """Flat {'arg:NAME'/'aux:NAME': host array} serving state of one
+    committed checkpoint dir (full or delta): the key space the delta
+    push channel speaks, resolved by InferenceEngine.apply_delta."""
+    from .elastic import load_state
+    _manifest, arrays = load_state(step_dir)
+    args, auxs = serving_arrays(arrays)
+    state = {'arg:' + n: a for n, a in args.items()}
+    state.update({'aux:' + n: a for n, a in auxs.items()})
+    return state

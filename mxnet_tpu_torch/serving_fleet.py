@@ -57,9 +57,8 @@ Where the port departs from the JAX package:
   * `HttpFront` listens with a backlog of 128 connections; the JAX
     package's server keeps socketserver's 5, which resets the
     connections of a burst of clients that connect at once;
-  * `ModelRegistry.apply_delta` (weight deltas) is ROADMAP Queue A 5 and
-    raises; `export_artifacts` reaches `Predictor.export_compiled`,
-    which raises naming Queue A 3.
+  * `export_artifacts` reaches `Predictor.export_compiled`, which raises
+    naming Queue A 3.
 
 Env knobs (the JAX package's docs/SERVING.md has the table):
   MXNET_TPU_SERVE_REGISTRY_BYTES   registry byte budget (0 = unbounded)
@@ -93,7 +92,7 @@ from . import exec_cache
 from . import io as mxio
 from . import profiler
 from . import quantization
-from .base import MXNetError, unported
+from .base import MXNetError
 from .quantization import QuantConfig
 from .serving import (InferenceEngine, _env_int, chunk_for_deadline,
                       resolve_tick_chunk)
@@ -714,8 +713,92 @@ class ModelRegistry(object):
 
     def apply_delta(self, name, entries, meta, expect_fp=None,
                     parity_tol=None):
-        raise unported('ModelRegistry.apply_delta (weight deltas, '
-                       'delta.py)', '5')
+        """Apply one weight delta to a registered model with no full
+        reload: a resident model updates its engine's weights in place
+        (InferenceEngine.apply_delta); a paged-out model with a
+        quantized host image updates the image (dequantize, apply,
+        requantize each touched weight), so that its next page-in holds
+        the new weights. The delta's gates apply (DeltaChainError,
+        DeltaParityError; nothing changes on a refusal); a model neither
+        resident nor imaged raises MXNetError (the caller loads it in
+        full). Returns the delta's new_fp."""
+        from . import _hostarray as ha
+        from . import delta as delta_mod
+        ent = self._entry(name)
+        with ent.lock:
+            if ent.dead:
+                raise MXNetError('model %r is shutting down' % name)
+            if ent.engine is not None and not ent.engine.closed:
+                if not hasattr(ent.engine, 'apply_delta'):
+                    raise MXNetError(
+                        'model %r is served by %s, which does not '
+                        'take in-place deltas: full reload required'
+                        % (name, type(ent.engine).__name__))
+                fp = ent.engine.apply_delta(entries, meta,
+                                            expect_fp=expect_fp,
+                                            parity_tol=parity_tol)
+                ent.last_used = time.time()
+                return fp
+            if ent.paged is None:
+                raise MXNetError(
+                    'model %r is neither resident nor paged: apply '
+                    'the delta after a load, or full-load instead'
+                    % name)
+            image = ent.paged
+            cfg = ent.page_dtype
+            if parity_tol is None:
+                parity_tol = getattr(cfg, 'parity_tol', None) or \
+                    delta_mod.DeltaConfig().parity_tol
+            state = {}
+            for n, (q, s, dt) in image['quantized'].items():
+                state['arg:' + n] = ha.host(quantization.dequantize_weight(
+                    q, s, cfg, dtype=dt))
+            for n, a in image['passthrough'].items():
+                state['arg:' + n] = ha.host(a)
+            for n, a in image['aux'].items():
+                state['aux:' + n] = ha.host(a)
+            lossy = {'arg:' + n for n in image['quantized']}
+            new_state = delta_mod.apply_delta(
+                state, meta, entries, expect_fp=expect_fp,
+                parity_tol=parity_tol, skip_crc=lossy)
+            plan = []
+            for key in meta.get('entries', {}):
+                n = key[4:]
+                if key.startswith('arg:') and n in image['quantized']:
+                    plan.append((key, n, 'quantized'))
+                elif key.startswith('arg:') and \
+                        n in image['passthrough']:
+                    plan.append((key, n, 'passthrough'))
+                elif key.startswith('aux:') and n in image['aux']:
+                    plan.append((key, n, 'aux'))
+                else:
+                    raise delta_mod.DeltaChainError(
+                        'delta touches %r which the page image of %r '
+                        'does not hold' % (key, name))
+            for key, n, dest in plan:
+                new = ha.to_tensor(new_state[key])
+                if dest == 'quantized':
+                    requant, _pass = quantization.quantize_weights(
+                        {n: new}, cfg)
+                    q, s, dt = requant[n]
+                    image['quantized'][n] = (
+                        _to_host(q), None if s is None else _to_host(s),
+                        dt)
+                elif dest == 'passthrough':
+                    image['passthrough'][n] = _to_host(new)
+                else:
+                    image['aux'][n] = _to_host(new)
+            nbytes = quantization.quantized_nbytes(
+                image['quantized'],
+                list(image['passthrough'].values()) +
+                list(image['aux'].values()))
+            with self._lock:
+                self._paged_bytes += int(nbytes) - ent.paged_bytes
+                ent.paged_bytes = int(nbytes)
+            image['nbytes'] = int(nbytes)
+            profiler.add_delta_stats(applied=1, page_applies=1)
+            self._note_quant_gauges()
+            return meta.get('new_fp')
 
     def _note_quant_gauges(self):
         with self._lock:

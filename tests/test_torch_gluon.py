@@ -359,12 +359,40 @@ def test_trainer_states_load_across_packages(tmp_path):
     _same(_values(jnet2), _values(jnet), PARAMS)
 
 
-def test_trainer_over_several_contexts_and_step_fused_raise():
-    net = tgluon.nn.Dense(3, in_units=2)
-    net.initialize(ctx=[mx.cpu(0), mx.cpu(1)])
-    tr = tgluon.Trainer(net.collect_params(), 'sgd')
-    with pytest.raises(MXNetError, match='Queue A 5\\)'):
-        tr.step(1)
+def test_trainer_over_several_contexts_matches_jax():
+    """The Trainer's store over cpu(0) and cpu(1) (Queue A item 5): the
+    gradients summed over the contexts, the replicas kept equal, against
+    the JAX Trainer over the same contexts."""
+    rng = np.random.RandomState(12)
+    w = rng.randn(3, 2).astype(np.float32)
+    b = rng.randn(3).astype(np.float32)
+    xs = [rng.randn(4, 2).astype(np.float32) for _ in range(2)]
+    out = []
+    for pkg, gl in ((mx, tgluon), (jmx, jgluon)):
+        ctxs = [pkg.cpu(0), pkg.cpu(1)]
+        net = gl.nn.Dense(3, in_units=2)
+        net.initialize(ctx=ctxs)
+        net.weight.set_data(pkg.nd.array(w, ctx=ctxs[0]))
+        net.bias.set_data(pkg.nd.array(b, ctx=ctxs[0]))
+        tr = gl.Trainer(net.collect_params(), 'sgd',
+                        {'learning_rate': 0.1, 'momentum': 0.9})
+        for _ in range(2):
+            with pkg.autograd.record():
+                losses = [(net(pkg.nd.array(x, ctx=c)) ** 2).sum()
+                          for x, c in zip(xs, ctxs)]
+            for loss in losses:
+                loss.backward()
+            tr.step(8)
+        assert tr._kvstore is not None
+        out.append([[d.asnumpy() for d in p.list_data()]
+                    for p in (net.weight, net.bias)])
+    for tp, jp in zip(*out):
+        np.testing.assert_array_equal(tp[0], tp[1])
+        for td, jd in zip(tp, jp):
+            np.testing.assert_allclose(td, jd, rtol=1e-5, atol=1e-6)
+
+
+def test_trainer_step_fused_raises():
     net1 = tgluon.nn.Dense(3, in_units=2)
     net1.initialize(ctx=mx.cpu())
     with pytest.raises(MXNetError, match='Queue A 6\\)'):

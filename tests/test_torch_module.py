@@ -11,7 +11,8 @@
   multi-precision momentum SGD: float32 within F32_STATE, bf16 (the pair
   route on) weights and moving statistics within 0.02 in relative norm;
 - the executor's fused train step against the JAX package's;
-- every feature cut from this slice raises, naming its ROADMAP item;
+- every feature cut from this slice raises, naming its ROADMAP item,
+  and the store features of Queue A item 5 work;
 - SequentialModule, FeedForward and the callbacks;
 - chip_smoke.py's gate of phase 10.
 """
@@ -284,35 +285,74 @@ def _cut(case):
     mod, it = _bound_mlp()
     if case == 'contexts':
         mx.mod.Module(_mlp(mx), context=[mx.cpu(0), mx.cpu(1)])
-    elif case == 'dist_kvstore':
-        mod.init_optimizer(kvstore='dist_sync')
-    elif case == 'kvstore_object':
-        mod.init_optimizer(kvstore=object())
     elif case == 'zero':
         mod.init_optimizer(zero=1)
-    elif case in ('pipeline', 'checkpoint'):
-        value = {'pipeline': (2, 2)}.get(case, object())
-        mod.fit(it, num_epoch=1, **{case: value})
+    elif case == 'pipeline':
+        mod.fit(it, num_epoch=1, pipeline=(2, 2))
     elif case == 'zero_fused':
         mx.optimizer.FusedSGD(mx.optimizer.SGD(), ['w'], zero=1)
     elif case == 'sparse_fused':
         mx.optimizer.FusedSGD(mx.optimizer.SGD(), ['w'], sparse_idx=(0,))
     elif case == 'mesh_staging':
         mx.io.prefetch_to_device(it, mesh=object())
-    elif case == 'kvstore_update':
-        mx.model._update_params([], [], None, 1, kvstore=object())
 
 
-CUTS = {'contexts': '6', 'dist_kvstore': '5', 'kvstore_object': '5',
-        'zero': '6', 'pipeline': '6', 'checkpoint': '5',
-        'zero_fused': '6', 'sparse_fused': '6',
-        'mesh_staging': '6', 'kvstore_update': '5'}
+CUTS = {'contexts': '6', 'zero': '6', 'pipeline': '6',
+        'zero_fused': '6', 'sparse_fused': '6', 'mesh_staging': '6'}
 
 
 @pytest.mark.parametrize('case', sorted(CUTS))
 def test_cut_feature_raises_naming_its_roadmap_item(case):
     with pytest.raises(mx.MXNetError, match='Queue A %s\\)' % CUTS[case]):
         _cut(case)
+
+
+def _store_step(mod, batch):
+    mod.forward_backward(batch)
+    mod.update()
+    return {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+
+
+@pytest.mark.parametrize('case', ['dist_kvstore', 'kvstore_object',
+                                  'checkpoint', 'kvstore_update'])
+def test_store_feature_works(case, tmp_path):
+    """The features of Queue A item 5 that this slice's cut refused: a
+    dist store name and a KVStore object at init_optimizer (without a
+    dist runtime the dist store is the parameters' facade and FusedSGD
+    updates; a local store object over one device too), fit(checkpoint=)
+    and the per-key update through a store."""
+    mod, it = _bound_mlp()
+    ref, _ = _bound_mlp()
+    ref.set_params(*mod.get_params())
+    ref.init_optimizer(optimizer_params={'learning_rate': 0.1})
+    if case in ('dist_kvstore', 'kvstore_object'):
+        kv = 'dist_sync' if case == 'dist_kvstore' else \
+            mx.kvstore.create('local')
+        mod.init_optimizer(kvstore=kv,
+                           optimizer_params={'learning_rate': 0.1})
+        assert type(mod._kvstore) is mx.kvstore.KVStore
+        assert mod._fused_updater is not None
+        assert not mod._update_on_kvstore
+        assert mod._optimizer.rescale_grad == 1 / 40.
+        batch = next(iter(it))
+        got, want = _store_step(mod, batch), _store_step(ref, batch)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    elif case == 'checkpoint':
+        mgr = mx.elastic.CheckpointManager(str(tmp_path), every_n_steps=1,
+                                           async_=False)
+        mod.fit(it, num_epoch=1, checkpoint=mgr)
+        assert mx.elastic.list_checkpoints(str(tmp_path))[0] == 2
+        mgr.close()
+    else:
+        kv = mx.kvstore.create('local')
+        g = mx.nd.array(np.ones((3,), np.float32), ctx=mx.cpu())
+        w = mx.nd.array(np.zeros((3,), np.float32), ctx=mx.cpu())
+        kv.init('w', g.copy())
+        upd = mx.optimizer.get_updater(mx.optimizer.SGD(learning_rate=0.5))
+        mx.model._update_params([w], [g], upd, 1, kvstore=kv,
+                                param_names=['w'])
+        np.testing.assert_array_equal(w.asnumpy(), [-0.5] * 3)
 
 
 def test_module_without_a_context_takes_gpu0(monkeypatch):

@@ -597,22 +597,13 @@ def _deferred(case, tmp_path, monkeypatch):
     elif case == 'hot_rows_env':
         monkeypatch.setenv('MXNET_TPU_SERVE_HOT_ROWS', '8')
         pred.serve(max_batch=2)
-    elif case == 'apply_delta':
-        with pred.serve(max_batch=2, max_wait_us=0) as eng:
-            eng.apply_delta({}, {})
-    elif case == 'export_serving_checkpoint':
-        mx.serving.export_serving_checkpoint(str(tmp_path), _mlp(),
-                                             str(tmp_path / 'p'))
-    elif case == 'serving_state':
-        mx.serving.serving_state(str(tmp_path))
     elif case == 'export_compiled':
         pred.export_compiled()
     elif case == 'export_artifact':
         pred.export_artifact(str(tmp_path / 'artifact'))
 
 
-DEFERRED = {'hot_rows': '6', 'hot_rows_env': '6', 'apply_delta': '5',
-            'export_serving_checkpoint': '5', 'serving_state': '5',
+DEFERRED = {'hot_rows': '6', 'hot_rows_env': '6',
             'export_compiled': '3', 'export_artifact': '3'}
 
 
@@ -621,6 +612,63 @@ def test_deferred_argument_raises_naming_its_roadmap_item(case, tmp_path,
                                                           monkeypatch):
     with pytest.raises(MXNetError, match='Queue A %s\\)' % DEFERRED[case]):
         _deferred(case, tmp_path, monkeypatch)
+
+
+def _checkpoint(tmp_path, params):
+    """An elastic checkpoint dir of a Module holding `params`."""
+    mod = mx.mod.Module(mx.sym.LinearRegressionOutput(_mlp(), name='lro'),
+                        context=mx.cpu(), label_names=('lro_label',))
+    mod.bind(data_shapes=[('data', (2, DIM))],
+             label_shapes=[('lro_label', (2, OUT))])
+    mod.init_params(arg_params={k: mx.nd.array(v, ctx=mx.cpu())
+                                for k, v in params.items()})
+    mod.init_optimizer()
+    mgr = mx.elastic.CheckpointManager(str(tmp_path), async_=False)
+    d = mgr.attach(mod).save(sync=True)
+    mgr.close()
+    return d
+
+
+@pytest.mark.parametrize('case', ['apply_delta', 'export_serving_checkpoint',
+                                  'serving_state'])
+def test_checkpoint_serving_feature(case, tmp_path):
+    """The serving parts of Queue A item 5 that this slice's cut refused:
+    a delta applied in place answers as the new weights loaded in full;
+    an elastic checkpoint exports to the serving format and reads as a
+    serving state."""
+    x = np.random.RandomState(3).randn(2, DIM).astype(np.float32)
+    new = _params(seed=8)
+    if case == 'apply_delta':
+        base = {'arg:' + k: v for k, v in _params().items()}
+        want = {'arg:' + k: v for k, v in new.items()}
+        fp = mx.delta.fingerprint(base)
+        ent, meta, _ = mx.delta.make_delta(base, want, seq=1, base_fp=fp,
+                                           config='raw')
+        full = Predictor(symbol=_mlp(), arg_params=new, ctx=mx.cpu(),
+                         input_shapes={'data': (1, DIM)})
+        with _predictor().serve(max_batch=2, max_wait_us=0) as eng, \
+                full.serve(max_batch=2, max_wait_us=0) as ref:
+            assert eng.apply_delta(dict(ent), meta, expect_fp=fp) == \
+                meta['new_fp']
+            np.testing.assert_array_equal(eng.infer(x)[0], ref.infer(x)[0])
+    elif case == 'export_serving_checkpoint':
+        d = _checkpoint(tmp_path / 'ck', new)
+        prefix = mx.serving.export_serving_checkpoint(d, _mlp(),
+                                                      str(tmp_path / 'p'))
+        got = Predictor.from_checkpoint(prefix, 0, {'data': (2, DIM)},
+                                        ctx=mx.cpu()).predict(x)
+        np.testing.assert_allclose(got, _mlp_numpy_of(new, x), rtol=1e-5,
+                                   atol=1e-5)
+    else:
+        state = mx.serving.serving_state(_checkpoint(tmp_path / 'ck', new))
+        assert sorted(state) == sorted('arg:' + k for k in new)
+        for k, v in new.items():
+            np.testing.assert_array_equal(state['arg:' + k], v)
+
+
+def _mlp_numpy_of(p, x):
+    h = np.maximum(x @ p['fc1_weight'].T + p['fc1_bias'], 0)
+    return h @ p['fc2_weight'].T + p['fc2_bias']
 
 
 def _mlp_numpy(x):
