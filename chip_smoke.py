@@ -18,6 +18,9 @@
     python3 chip_smoke.py --phases 20          # build, the serving fleet
     python3 chip_smoke.py --phases 21,22       # build, training across
                                                # worker processes
+    python3 chip_smoke.py --phases 23,24,25    # build, the train -> serve
+                                               # loop, the router, the
+                                               # artifact and the C API
     python3 chip_smoke.py --mutants            # phases 2, 4 and 6 against
                                                # broken kernels
 
@@ -320,7 +323,50 @@ Phases, each of which exits non-zero on failure:
    exported by export_serving_checkpoint answers bit-equal to its final
    parameters, and InferenceEngine.apply_delta of the last delta on an
    engine serving the commit before it answers bit-equal to an engine
-   loaded in full. Printed: each arm's length and step ms.
+   loaded in full. Printed: each arm's length and step ms; phase 21
+   also the frame MAC the workers and the server ran.
+23. train_serve: a fleet_supervisor.FleetSupervisor of two replica
+   processes on gpu(0) serves phase 11's bf16 ResNet-50 checkpoint
+   (max_batch 4); in this process Module.fit trains the same network
+   from it at 64 images a step (phase 10's 256 cut so that three
+   processes share the card), a CheckpointManager(every_n_steps=2)
+   committing and a CheckpointPusher(frac=0.5, delta=True) pushing each
+   commit into the fleet as a canary while 2 closed-loop clients, each
+   a process of its own, post post_with_backoff predicts through the
+   router. Knobs: heartbeat
+   0.25 s, dead after 1.5 s, canary min samples 6, promote samples 12,
+   MXNET_TPU_FAULT_CANARY_DEGRADE_MS='@v1:100' in the replicas. Gated
+   by loop_gate: 32 conv launches every trainer step; the trainer sees
+   the first candidate rolled back; a replica SIGKILLed while a later
+   push is judged respawns and serves the promoted arm; a candidate
+   promoted; at least one push as a delta and one in full, none
+   refused; no request lost, every reply 200; the router's answers
+   after the promotion within SERVE_SERIAL_REL_TOL of a Predictor on
+   gpu(0) over the last promoted export. Printed: the replicas' boot
+   s, push -> verdict s per candidate, delta bytes against full bytes,
+   the router's p50 / p99 during the pushes, SIGKILL -> healthy respawn
+   s, the trainer's step ms with the fleet up and alone, commits
+   skipped by the writer, fleet_supervisor_stats() and loop_stats().
+24. router: two in-process ReplicaServers on gpu(0), each serving a
+   FleetScorer over phase 20's GPT-2-medium TransformerLM on the flash
+   kernel (registered by loader=), behind one FleetRouter; a shadow
+   arm with the same weights tees the traffic; then one replica closes
+   while 2 clients send. Gated by router_gate: every answer bit-equal
+   to the scorer called directly, 24 flash launches a request, no
+   shadow divergence, the requests in flight at the close answered 200
+   or a typed 502 / 503 within the deadline and none hung, the
+   survivor bit-equal after it.
+25. artifact: Predictor.export_artifact writes phase 11's checkpoint as
+   a .pt2 and a .manifest; `python3 -I` importing torch alone loads it
+   with torch.export.load and runs it on cuda:0 (held against
+   Predictor.forward within SERVE_SERIAL_REL_TOL; bit-equality
+   reported); export_compiled(batch_buckets=(1, 8, 32)) twice, the
+   second all exec_cache hits; the C predict API built by g++
+   (_build.c_predict_library), and examples/c_predict/predict.c
+   linked against it classifying a seeded image as the Predictor does,
+   on the CPU (dev_type 1, as written) and on the card (dev_type 2,
+   through a shim compiled beside it). No hand-written kernel launches
+   here. Gated by artifact_gate.
 
 It prints one JSON line with every kernel's numbers, then the card's
 name and power limit from nvidia-smi, and last
@@ -606,7 +652,7 @@ CONV_SM90_MUTANTS = {
                          ': ' + _TRUNCATE + 'v[0], v[1]));'),
 }
 
-ALL_PHASES = frozenset(range(2, 23))
+ALL_PHASES = frozenset(range(2, 26))
 # phase 7: the imperative NDArray path's size (n x n inputs)
 ND_SIZE = 1024
 ND_HOST_CALLS = 2000
@@ -1470,15 +1516,16 @@ def conv_phase(torch, cuda_ops, cuda_conv, bench_conv_bn):
 
 def conv_kernel_entry(conv, sass, resnet, module, serve, bucketing,
                       gluon_run, ptb, gluon_lm, factories, record, dist_ps,
-                      dist_coord):
+                      dist_coord, loop):
     """The conv_bn_stats entry of the kernels line: times at the main
     case's shape from the bench, errors from the cases, launches from the
     ResNet-50 train steps of phase 9 (its main path), of phase 10's
     Module.fit, of phase 11's serving (0), of phase 12's bucket steps, of
     phase 13's Gluon training (0), of phases 14 and 15's LSTM LMs (0),
     of phase 16's Inception-v3 and ResNeXt-50 steps, of phase 18's
-    Module.fit fed by ImageRecordIter, and of the worker processes of
-    phases 21 and 22 (each counts its own and reports them)."""
+    Module.fit fed by ImageRecordIter, of the worker processes of
+    phases 21 and 22 (each counts its own and reports them), and of
+    phase 23's trainer."""
     xs, ws = CONV_CASES['main'][:2]
     main_shape = [xs[1], xs[3], ws[3], ws[0], CONV_CASES['main'][2][0]]
     bench = conv['bench']
@@ -1522,6 +1569,7 @@ def conv_kernel_entry(conv, sass, resnet, module, serve, bucketing,
                               dist_ps_train=dist_ps['path_launches'],
                               dist_coordinator_train=dist_coord[
                                   'path_launches'],
+                              train_serve_fit=loop['path_launches'],
                               conv_bn_bench=bench['launches']),
         stem_split=resnet['stem_split'],
         launches_per_train_step=resnet['train_launches'],
@@ -6636,14 +6684,15 @@ class FleetScorer(object):
     config says use_flash). The logits stay where the model is; requests
     are serialized on one stream."""
 
-    def __init__(self, torch, model, counter=None):
+    def __init__(self, torch, model, counter=None, lock=None):
         self._torch = torch
         self._model = model
         # counter() reads a launch count: each call's delta joins per_call
         self._counter = counter
         self.per_call = []
         self._device = model.embed.device
-        self._lock = threading.Lock()
+        # scorers that share a lock share one count exactly (phase 24)
+        self._lock = lock or threading.Lock()
         self._closed = False
         self._stream = None
         if self._device.type == 'cuda':
@@ -7788,10 +7837,16 @@ def ps_phase(torch, mx, root):
         bad.append('the server process initialized CUDA')
     prof = [wr.get('profile') for wr in w]
     busy = [p['device_ms'] / p['wall_ms'] for p in prof if p]
+    # the frame MAC the workers and the server ran: the same interpreter
+    # and environment choose it (MXNET_TPU_PS_MAC, else Poly1305 where
+    # the cryptography package imports, else HMAC-SHA256)
+    from mxnet_tpu_torch import kvstore_server
+    mac = 'poly1305' if kvstore_server._mac_alg() == \
+        kvstore_server._ALG_POLY else 'hmac-sha256'
     run = dict(
         config=dict(RESNET, batch_per_worker=DIST_PS_BATCH, workers=2,
                     servers=1, steps=steps, optimizer='sgd', **DIST_OPT),
-        launcher_s=wall,
+        frame_mac=mac, launcher_s=wall,
         step_ms=[step_ms_median(wr['step_times'], upto=DIST_PS_STEPS)
                  for wr in w],
         wire_bytes_per_step=[wr['push_bytes'] + wr['pull_bytes']
@@ -7809,12 +7864,12 @@ def ps_phase(torch, mx, root):
           'ranks 0 / 1), %.1f MB on the wire a worker step, server update '
           '%.1f ms a round, device busy %.1f %% (both ranks over %d '
           'profiled steps); ranks bit-equal, server arithmetic bit-equal on '
-          '%s, server CUDA initialized: %s'
+          '%s, server CUDA initialized: %s; frame MAC %s'
           % (DIST_PS_BATCH, run['step_ms'][0], run['step_ms'][1],
              run['wire_bytes_per_step'][0] / 1e6,
              run['server_update_ms_per_round'],
              100 * run['device_busy_share'], DIST_PS_PROFILED,
-             list(DIST_PROBES), report['cuda_initialized']))
+             list(DIST_PROBES), report['cuda_initialized'], mac))
     run['path_launches'] = sum(sum(wr['launches']) for wr in w)
     shutil.rmtree(out, ignore_errors=True)
     return run
@@ -8012,6 +8067,836 @@ def coord_phase(torch, mx, root):
     return run
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the train -> serve loop
+# ---------------------------------------------------------------------------
+
+LOOP_MODEL = 'resnet50'
+LOOP_BATCH = 64             # the trainer's images a step (phase 10: 256)
+LOOP_BATCHES = 8            # batches an epoch of the seeded set
+LOOP_MAX_EPOCHS = 40        # the drill's bound, in epochs
+LOOP_EVERY = 2              # CheckpointManager(every_n_steps=)
+LOOP_FRAC = 0.5             # CheckpointPusher(frac=)
+LOOP_PACE_S = 0.05          # the trainer's pause a step: canary time
+LOOP_CLIENTS = 2
+LOOP_ALONE_STEPS = 5        # trainer steps with the fleet down, timed
+LOOP_OPT = dict(learning_rate=0.01, momentum=0.9, wd=1e-4,
+                multi_precision=True)
+LOOP_KNOBS = {'MXNET_TPU_FLEET_HEARTBEAT_S': '0.25',
+              'MXNET_TPU_FLEET_DEAD_AFTER_S': '1.5',
+              'MXNET_TPU_FLEET_CANARY_MIN_SAMPLES': '6',
+              'MXNET_TPU_FLEET_CANARY_PROMOTE_SAMPLES': '12'}
+LOOP_DEGRADE = '@v1:100'    # MXNET_TPU_FAULT_CANARY_DEGRADE_MS: v1 only
+LOOP_SETTLE_S = 120.0       # bound of each wait: a verdict, a respawn
+LOOP_CHECK_IMAGES = 4       # 1-image requests held against the Predictor
+
+
+class _LoopDone(Exception):
+    """The drill saw every event it waits for: stop the trainer."""
+
+
+def percentile(vals, q):
+    return float(np.percentile(vals, q)) if vals else None
+
+
+# one closed-loop client, in a process of its own (its JSON encoding of
+# each 1.1 MB body then holds no interpreter lock of the trainer's and the
+# router's process): post_with_backoff the body until the stop file
+# appears, one JSON line a request (wall-clock start, status or error, ms)
+LOOP_CLIENT = r'''
+import json, os, sys, time
+sys.path.insert(0, sys.argv[1])
+from mxnet_tpu_torch.fleet_supervisor import post_with_backoff
+url, body_path, stop_path, out_path = sys.argv[2:6]
+with open(body_path) as f:
+    body = json.load(f)
+with open(out_path, 'w') as out:
+    while not os.path.exists(stop_path):
+        t0 = time.time()
+        rec = {'t0': t0}
+        try:
+            rec['code'] = post_with_backoff(url, body, deadline_s=60)[0]
+        except Exception as e:
+            rec['error'] = repr(e)
+        rec['ms'] = (time.time() - t0) * 1e3
+        out.write(json.dumps(rec) + '\n')
+        out.flush()
+'''
+
+
+def loop_clients(root, out, url, body):
+    """LOOP_CLIENTS client processes posting `body` to `url`; returns
+    stop(), which ends them and gives their records."""
+    body_path, stop_path = out / 'client_body.json', out / 'client_stop'
+    body_path.write_text(json.dumps(body))
+    procs = [subprocess.Popen([sys.executable, '-c', LOOP_CLIENT,
+                               str(root), url, str(body_path),
+                               str(stop_path), str(out / ('client%d' % i))])
+             for i in range(LOOP_CLIENTS)]
+
+    def stop():
+        stop_path.touch()
+        for p in procs:
+            try:
+                p.wait(timeout=120)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait(timeout=30)
+        records = []
+        for i in range(LOOP_CLIENTS):
+            path = out / ('client%d' % i)
+            if path.exists():
+                records += [json.loads(line) for line in
+                            path.read_text().splitlines() if line]
+        return records, [p.returncode for p in procs]
+    return stop
+
+
+def loop_gate(run):
+    """Phase 23's checks on a run's numbers: a list of what failed, empty
+    when it passed."""
+    bad = []
+    want = RESNET_PAIRS - 1
+    steps = run['launches_per_step']
+    if not steps or any(n != want for n in steps):
+        bad.append('trainer conv launches a step %s, want %d each'
+                   % (sorted(set(steps)), want))
+    first = run['verdicts'][0] if run['verdicts'] else None
+    if first is None or first['kind'] != 'rolled_back' or \
+            not first['candidate'].endswith('@v1'):
+        bad.append('the trainer did not see the first candidate rolled '
+                   'back (verdicts %s)' % run['verdicts'][:3])
+    if not run['killed']:
+        bad.append('no replica was SIGKILLed while a push was judged')
+    if run['respawn_s'] is None or run['restarts'] < 1:
+        bad.append('the SIGKILLed replica did not respawn (restarts %d)'
+                   % run['restarts'])
+    if not run['reconciled']:
+        bad.append('a replica does not serve the promoted arm: %s'
+                   % run['replica_codes'])
+    if run['promotions'] < 1:
+        bad.append('no candidate was promoted')
+    if run['delta_pushes'] < 1 or run['full_pushes'] < 1:
+        bad.append('%d delta and %d full pushes, want one of each at least'
+                   % (run['delta_pushes'], run['full_pushes']))
+    if run['lost'] or run['non_200']:
+        bad.append('%d requests lost, %d answered otherwise than 200: %s'
+                   % (len(run['lost']), run['non_200'], run['lost'][:3]))
+    if run['client_ok'] < 1 or any(run['client_rcs']):
+        bad.append('no client request was answered, or a client exited '
+                   'with an error (%s)' % run['client_rcs'])
+    if not run['models_match']:
+        bad.append('the fleet serves %s, the last promoted is %s'
+                   % (run['fleet_model'], run['last_promoted']))
+    if not run['final_rel_err'] <= SERVE_SERIAL_REL_TOL:
+        bad.append('the router answers %.4g of the largest output from a '
+                   'direct Predictor over the last promoted export, over '
+                   '%.4g' % (run['final_rel_err'], SERVE_SERIAL_REL_TOL))
+    if run['push_fallbacks']:
+        bad.append('%d delta pushes were refused (chain or parity) with no '
+                   'fault injected' % run['push_fallbacks'])
+    return bad
+
+
+def train_serve_phase(torch, mx, cuda_conv, root, ctx=None):
+    """Phase 23: a FleetSupervisor of two replica processes on the card
+    serves phase 11's bf16 ResNet-50 checkpoint; in this process
+    Module.fit trains the same network from it at LOOP_BATCH, a
+    CheckpointManager(every_n_steps=LOOP_EVERY) committing and a
+    CheckpointPusher(frac=LOOP_FRAC, delta=True) pushing each commit into
+    the fleet, while LOOP_CLIENTS closed-loop client processes post
+    through the router. The first candidate is degraded (LOOP_DEGRADE)
+    and rolls back; one replica is SIGKILLed while a later push is
+    judged; the drill ends once a candidate was promoted and one went
+    out as a delta. Gated by loop_gate."""
+    import shutil
+    import signal
+    from mxnet_tpu_torch import elastic, profiler
+    from mxnet_tpu_torch.fleet_supervisor import (CheckpointPusher,
+                                                  FleetSupervisor,
+                                                  _http_json,
+                                                  post_with_backoff)
+    from mxnet_tpu_torch.predictor import Predictor
+    ctx = ctx or mx.gpu(0)
+    out = root / 'build' / 'phase23'
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    torch.cuda.empty_cache()
+    prior = {k: os.environ.get(k) for k in LOOP_KNOBS}
+    os.environ.update(LOOP_KNOBS)
+    profiler.clear()
+    prefix0 = str(out / 'initial')
+    symbol, shape = serve_checkpoint(torch, mx, prefix0, ctx)
+    _s, args0, auxs0 = mx.model.load_checkpoint(prefix0, 0, ctx=mx.cpu())
+    x, y = module_data(RESNET['num_classes'], LOOP_BATCH * LOOP_BATCHES,
+                       shape, SEED + 600)
+    # the bodies carry float64 values of FLEET_DIGITS decimals (short
+    # JSON: a float32's repr is twice as long and twice the decode); the
+    # references take the same values as float32, as the replicas do
+    rng = np.random.default_rng(SEED + 601)
+    images = np.round(rng.standard_normal(
+        (1 + LOOP_CHECK_IMAGES, 1) + shape), FLEET_DIGITS)
+    sup = pusher = mgr = stop_clients = None
+    records, client_rcs = [], []
+    state = dict(killed=False, restarts_at_kill=0, t_kill=None,
+                 respawn_s=None)
+    pushes, verdict_t = {}, {}
+    launches, step_ms, marks = [], [], {}
+    try:
+        t0 = time.perf_counter()
+        sup = FleetSupervisor(
+            models=[{'name': LOOP_MODEL, 'prefix': prefix0, 'epoch': 0,
+                     'input_shapes': {'data': [1] + list(shape)},
+                     'max_batch': 4, 'max_wait_us': 0,
+                     'deadline_ms': 10000}],
+            replicas=2, ctx=ctx,
+            env={'MXNET_TPU_FAULT_CANARY_DEGRADE_MS': LOOP_DEGRADE})
+        sup.start()
+        sup.wait_healthy()
+        boot_s = time.perf_counter() - t0
+        host, port = sup.router.address
+        url = 'http://%s:%d/v1/models/%s:predict' % (host, port,
+                                                     LOOP_MODEL)
+        push = sup.push
+
+        # wall clocks: the clients' records come from other processes
+        def timed_push(*a, **kw):
+            cand = push(*a, **kw)
+            pushes[cand] = dict(t=time.time(), delta='delta' in kw)
+            return cand
+        sup.push = timed_push
+        sup.on_push_verdict(lambda v: verdict_t.setdefault(
+            v.candidate, time.time()))
+        stop_clients = loop_clients(root, out, url,
+                                    {'instances': images[0].tolist()})
+
+        pusher = CheckpointPusher(sup, LOOP_MODEL, symbol=symbol,
+                                  frac=LOOP_FRAC, delta=True,
+                                  max_consecutive_rollbacks=0,
+                                  push_dir=str(out / 'push'))
+        mgr = pusher.attach(elastic.CheckpointManager(
+            str(out / 'ck'), every_n_steps=LOOP_EVERY))
+
+        def watch_respawn():
+            while time.perf_counter() - state['t_kill'] < LOOP_SETTLE_S:
+                live = sup.replicas()
+                if sup.stats()['restarts'] > state['restarts_at_kill'] \
+                        and len(live) >= 2 and \
+                        all(sup._probe(r) for r in live):
+                    state['respawn_s'] = time.perf_counter() - \
+                        state['t_kill']
+                    return
+                time.sleep(0.05)
+
+        def on_batch(param):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            if 'end' in marks:
+                step_ms.append((now - marks['end']) * 1e3)
+            launches.append(cuda_conv.CONV_BN_STATS_LAUNCHES -
+                            marks.get('count', 0))
+            time.sleep(LOOP_PACE_S)
+            verds = pusher.verdicts()
+            rolled = any(v.kind == 'rolled_back' for v in verds)
+            promoted = any(v.kind == 'promoted' for v in verds)
+            reps = sup.replicas()
+            if rolled and not state['killed'] and \
+                    sup.push_active(LOOP_MODEL) and reps:
+                state['restarts_at_kill'] = sup.stats()['restarts']
+                reps[0].proc.send_signal(signal.SIGKILL)
+                state['t_kill'] = time.perf_counter()
+                state['killed'] = True
+                threading.Thread(target=watch_respawn, daemon=True).start()
+            if rolled and promoted and state['killed'] and \
+                    profiler.delta_stats()['delta_pushes'] >= 1:
+                mgr.request_stop(_LoopDone())
+            marks['count'] = cuda_conv.CONV_BN_STATS_LAUNCHES
+            marks['end'] = time.perf_counter()
+
+        mod = mx.mod.Module(symbol, context=ctx)
+        train = mx.io.NDArrayIter(x, y, batch_size=LOOP_BATCH)
+        marks['count'] = cuda_conv.CONV_BN_STATS_LAUNCHES
+        t_fit = time.perf_counter()
+        try:
+            mod.fit(train, optimizer='sgd', optimizer_params=dict(LOOP_OPT),
+                    arg_params=args0, aux_params=auxs0, eval_metric='acc',
+                    num_epoch=LOOP_MAX_EPOCHS, checkpoint=mgr,
+                    batch_end_callback=on_batch)
+            fail('phase 23: no promote and delta push in %d epochs '
+                 '(verdicts %r)' % (LOOP_MAX_EPOCHS, pusher.verdicts()))
+        except _LoopDone:
+            pass
+        fit_s = time.perf_counter() - t_fit
+        # the clients keep the last candidate's canary judged
+        t_wait = time.perf_counter()
+        while sup.push_active(LOOP_MODEL) and \
+                time.perf_counter() - t_wait < LOOP_SETTLE_S:
+            time.sleep(0.05)
+        while state['killed'] and state['respawn_s'] is None and \
+                time.perf_counter() - state['t_kill'] < LOOP_SETTLE_S:
+            time.sleep(0.05)
+        records, client_rcs = stop_clients()
+        stop_clients = None
+        verds = pusher.verdicts()
+        promoted = [v for v in verds if v.kind == 'promoted']
+        last = promoted[-1] if promoted else None
+        fleet_model = sup.stats()['models'][LOOP_MODEL]
+        # every replica, the respawned one too, serves the promoted arm,
+        # and the router answers as a Predictor over its export
+        replica_codes, final_rel = {}, float('inf')
+        if last is not None:
+            for rep in sup.replicas():
+                st_, _h, _b = _http_json(
+                    'POST', rep.host, rep.port,
+                    '/v1/models/%s:predict' % last.candidate,
+                    {'instances': images[1].tolist()}, timeout=60)
+                replica_codes[rep.index] = st_
+            ref = Predictor.from_checkpoint(
+                os.path.join(pusher.push_dir, 'push-%08d' % last.step), 0,
+                {'data': (1,) + shape}, ctx=ctx)
+            errs = []
+            for img in images[1:]:
+                status, ans = post_with_backoff(
+                    url, {'instances': img.tolist()}, deadline_s=60)
+                want = ref.predict(img.astype(np.float32))
+                got = np.asarray(ans['outputs'][0], np.float32) \
+                    if status == 200 else np.full_like(want, np.inf)
+                errs.append(float(np.abs(got - want).max() /
+                                  np.abs(want).max()))
+            final_rel = max(errs)
+            del ref
+        fs_stats = profiler.fleet_supervisor_stats()
+        lp = profiler.loop_stats()
+        ds = profiler.delta_stats()
+        ck = profiler.ckpt_stats()
+        sup_stats = sup.stats()
+    finally:
+        if stop_clients is not None:
+            stop_clients()
+        if pusher is not None:
+            pusher.close()
+        if mgr is not None:
+            mgr.close()
+        if sup is not None:
+            sup.stop()
+        for k, v in prior.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    # the same trainer with the fleet down
+    batch = next(iter(mx.io.NDArrayIter(x[:LOOP_BATCH], y[:LOOP_BATCH],
+                                        batch_size=LOOP_BATCH)))
+    alone = []
+    for i in range(LOOP_ALONE_STEPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mod.forward_backward(batch)
+        mod.update()
+        torch.cuda.synchronize()
+        if i:
+            alone.append((time.perf_counter() - t0) * 1e3)
+    del mod
+    during = [r['ms'] for r in records
+              if any(p['t'] <= r['t0'] <= verdict_t.get(c, float('inf'))
+                     for c, p in pushes.items())]
+    lost = [r for r in records if 'error' in r]
+    run = dict(
+        config=dict(RESNET, batch=LOOP_BATCH, every_n_steps=LOOP_EVERY,
+                    frac=LOOP_FRAC, replicas=2, clients=LOOP_CLIENTS,
+                    degrade=LOOP_DEGRADE, knobs=LOOP_KNOBS,
+                    optimizer='sgd', **LOOP_OPT),
+        replica_boot_s=boot_s, fit_s=fit_s,
+        launches_per_step=launches,
+        trainer_step_ms_fleet_up=median(step_ms) if step_ms else None,
+        trainer_step_ms_alone=median(alone), steps=len(launches),
+        verdicts=[dict(kind=v.kind, candidate=v.candidate, step=v.step)
+                  for v in verds],
+        push_to_verdict_s={c: verdict_t[c] - p['t'] for c, p in
+                           sorted(pushes.items()) if c in verdict_t},
+        pushed_as={c: 'delta' if p['delta'] else 'full'
+                   for c, p in sorted(pushes.items())},
+        delta_pushes=ds['delta_pushes'],
+        full_pushes=lp['loop_pushes'] - ds['delta_pushes'],
+        delta_bytes=ds['delta_bytes'], delta_full_bytes=ds['delta_full_bytes'],
+        push_fallbacks=ds['delta_push_fallbacks'],
+        router_ms_during_push=dict(p50=percentile(during, 50),
+                                   p99=percentile(during, 99),
+                                   n=len(during)),
+        router_ms_all=dict(p50=percentile([r['ms'] for r in records], 50),
+                           p99=percentile([r['ms'] for r in records], 99)),
+        killed=state['killed'], respawn_s=state['respawn_s'],
+        restarts=sup_stats['restarts'],
+        reconciled=bool(replica_codes) and
+        all(c == 200 for c in replica_codes.values()),
+        replica_codes=replica_codes,
+        promotions=len(promoted),
+        client_ok=sum(1 for r in records if r.get('code') == 200),
+        client_rcs=client_rcs,
+        non_200=sum(1 for r in records if r.get('code') not in (None, 200)),
+        lost=[r['error'] for r in lost],
+        fleet_model=fleet_model,
+        last_promoted=last.candidate if last is not None else None,
+        models_match=last is not None and fleet_model == last.candidate,
+        final_rel_err=final_rel, final_tol=SERVE_SERIAL_REL_TOL,
+        commits_skipped=ck['ckpt_skipped'],
+        fleet_supervisor_stats=fs_stats, loop_stats=lp)
+    print('train_serve ' + json.dumps(run))
+    bad = loop_gate(run)
+    if bad:
+        fail('phase 23: ' + '; '.join(bad))
+    print('train_serve: replicas booted in %.1f s; %d trainer steps at %d '
+          'images, %.1f ms a step with the fleet up, %.1f ms alone, %d conv '
+          'launches each; %d pushes (%d delta, %d full; delta %.1f of %.1f '
+          'MB), push -> verdict %s s; router p50 / p99 %.1f / %.1f ms during '
+          'the pushes; SIGKILL -> healthy respawn %.1f s; %d requests, 0 '
+          'lost; answers %.3g of the largest output from the last promoted '
+          'export (%s); %d commits skipped by the writer'
+          % (boot_s, run['steps'], LOOP_BATCH,
+             run['trainer_step_ms_fleet_up'] or 0.0,
+             run['trainer_step_ms_alone'], RESNET_PAIRS - 1,
+             lp['loop_pushes'], run['delta_pushes'], run['full_pushes'],
+             run['delta_bytes'] / 1e6, run['delta_full_bytes'] / 1e6,
+             {c: round(s_, 2) for c, s_ in
+              run['push_to_verdict_s'].items()},
+             run['router_ms_during_push']['p50'] or 0.0,
+             run['router_ms_during_push']['p99'] or 0.0,
+             run['respawn_s'], run['client_ok'], final_rel,
+             run['last_promoted'], run['commits_skipped']))
+    run['path_launches'] = sum(launches)
+    shutil.rmtree(out, ignore_errors=True)
+    return run
+
+
+# ---------------------------------------------------------------------------
+# phase 24: the GPT-2-medium scorer behind the router
+# ---------------------------------------------------------------------------
+
+ROUTER_REQUESTS = 8         # distinct scoring requests, each sent twice
+ROUTER_CLIENTS = 2
+ROUTER_DEADLINE_MS = 30000  # the scorer's SLO: the router's retry budget
+ROUTER_CLOSE_REQUESTS = 12  # each client's requests around the close
+
+
+def router_gate(run):
+    """Phase 24's checks on a run's numbers: a list of what failed, empty
+    when it passed."""
+    bad = []
+    if run['answers'] != run['sent'] or run['unequal']:
+        bad.append('%d of %d answers through the router, %d not bit-equal '
+                   'to the scorer called directly'
+                   % (run['answers'], run['sent'], len(run['unequal'])))
+    want = GPT2_MEDIUM['layers']
+    calls = run['launches_per_call']
+    if not calls or any(n != want for n in calls):
+        bad.append('flash launches a request %s, want %d each'
+                   % (sorted(set(calls)), want))
+    if run['shadow_requests'] < 1 or run['shadow_divergences']:
+        bad.append('shadow: %d requests, %d divergences'
+                   % (run['shadow_requests'], run['shadow_divergences']))
+    if run['close_hung']:
+        bad.append('%d requests hung across the replica close'
+                   % run['close_hung'])
+    if run['in_flight_at_close'] < 1:
+        bad.append('no request was in flight when the replica closed')
+    if run['close_untyped']:
+        bad.append('requests around the replica close ended otherwise '
+                   'than 200 or a typed error: %s' % run['close_untyped'][:3])
+    if not run['close_max_s'] <= ROUTER_DEADLINE_MS / 1e3 + 5:
+        bad.append('a request around the close took %.1f s, over the '
+                   'deadline' % run['close_max_s'])
+    if run['after_close_unequal'] or not run['after_close_ok']:
+        bad.append('the survivor answered %d requests after the close, %d '
+                   'not bit-equal' % (run['after_close_ok'],
+                                      run['after_close_unequal']))
+    for kernel, n in sorted(run['other_launches'].items()):
+        if n:
+            bad.append('the scorer launched the %s kernel %d times'
+                       % (kernel, n))
+    return bad
+
+
+def scorer_router_phase(torch, mx, cuda_conv, cuda_ops, tfm, ctx=None):
+    """Phase 24: two in-process ReplicaServers on gpu(0), each serving a
+    FleetScorer over one GPT-2-medium TransformerLM on the flash kernel
+    (registered by loader=), behind one FleetRouter; a shadow arm with
+    the same weights takes a tee of the traffic; then one replica closes
+    while ROUTER_CLIENTS clients send. Gated by router_gate."""
+    from mxnet_tpu_torch import profiler
+    from mxnet_tpu_torch.fleet_supervisor import (FleetRouter, ReplicaServer,
+                                                  _http_json)
+    ctx = ctx or mx.gpu(0)
+    device = ctx.torch_device
+    torch.cuda.empty_cache()
+    profiler.clear()
+    cfg = tfm.lm_config(use_flash=True, **GPT2_MEDIUM)
+    params = tfm.params_from_jax(seeded_tree(cfg, SEED + 700),
+                                 dtype=torch.bfloat16, device=device)
+    model = tfm.TransformerLM(cfg, params).eval()
+    del params
+    lock = threading.Lock()         # one scorer call at a time: exact counts
+    scorers = []
+
+    def loader():
+        s_ = FleetScorer(torch, model, counter=lambda:
+                         cuda_ops.FLASH_FWD_LAUNCHES, lock=lock)
+        scorers.append(s_)
+        return s_
+    direct = FleetScorer(torch, model)
+    rng = np.random.default_rng(SEED + 701)
+    seqs = [rng.integers(0, cfg['vocab'], SEQ + 1)
+            for _ in range(ROUTER_REQUESTS)]
+    bodies = [{'inputs': {'tokens': t[:-1].tolist(),
+                          'targets': t[1:].tolist()}} for t in seqs]
+    refs = [direct.infer(t[:-1], t[1:])[0] for t in seqs]
+    spec = {'name': 'scorer', 'loader': loader}
+    reps = [ReplicaServer(models=[spec], index=i, ctx=ctx).start()
+            for i in range(2)]
+    for r in reps:
+        r.warm_all()
+    router = FleetRouter(deadlines={'scorer': ROUTER_DEADLINE_MS}).start()
+    for i, r in enumerate(reps):
+        router.add_backend('r%d' % i, *r.address)
+    host, port = router.address
+    before = hand_written_launches(cuda_conv, cuda_ops)
+    unequal, answers, sent = [], 0, 0
+    t0 = time.perf_counter()
+    try:
+        # the shadow arm: the same weights, a tee of the logged traffic
+        for r in reps:
+            r.load_model('scorer@shadow', {'name': 'scorer@shadow',
+                                           'loader': loader})
+        router.start_canary('scorer', 'scorer@shadow', mode='shadow')
+        results = [[] for _ in range(ROUTER_CLIENTS)]
+
+        def client(i):
+            for j in range(i, 2 * ROUTER_REQUESTS, ROUTER_CLIENTS):
+                k = j % ROUTER_REQUESTS
+                st_, _h, b = _http_json('POST', host, port,
+                                        '/v1/models/scorer:predict',
+                                        bodies[k], timeout=120)
+                results[i].append((k, st_, b))
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(ROUTER_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        for res in results:
+            for k, st_, b in res:
+                sent += 1
+                if st_ == 200:
+                    answers += 1
+                    got = np.asarray(b['outputs'][0], np.float32)
+                    if not np.array_equal(got, refs[k]):
+                        unequal.append(k)
+        traffic_s = time.perf_counter() - t0
+        drained = router.shadow_drain(timeout=300)
+        report = router.canary_report('scorer')
+        replay = router.replay('scorer', arm='scorer@shadow')
+        # one replica closes while the clients send
+        close_recs = []
+
+        def close_client(i):
+            for j in range(ROUTER_CLOSE_REQUESTS):
+                k = (i + j) % ROUTER_REQUESTS
+                t1 = time.perf_counter()
+                try:
+                    st_, _h, b = _http_json(
+                        'POST', host, port, '/v1/models/scorer:predict',
+                        bodies[k], timeout=ROUTER_DEADLINE_MS / 1e3 + 30)
+                    rec = dict(k=k, code=st_, body=b)
+                except Exception as e:
+                    rec = dict(k=k, error=repr(e))
+                rec.update(t0=t1, t1=time.perf_counter())
+                rec['s'] = rec['t1'] - t1
+                close_recs.append(rec)
+        threads = [threading.Thread(target=close_client, args=(i,))
+                   for i in range(ROUTER_CLIENTS)]
+        for t in threads:
+            t.start()
+        t1 = time.perf_counter()
+        while len(close_recs) < ROUTER_CLIENTS and \
+                time.perf_counter() - t1 < 120:
+            time.sleep(0.001)
+        t_close = time.perf_counter()
+        reps[1].close()
+        router.remove_backend('r1')
+        for t in threads:
+            t.join(timeout=ROUTER_DEADLINE_MS / 1e3 + 120)
+        hung = sum(1 for t in threads if t.is_alive())
+        untyped = [r for r in close_recs
+                   if r.get('code') != 200 and
+                   not (r.get('code') in (502, 503) and
+                        'error' in (r.get('body') or {}))]
+        after_ok = after_unequal = 0
+        for k in range(ROUTER_REQUESTS):
+            st_, _h, b = _http_json('POST', host, port,
+                                    '/v1/models/scorer:predict', bodies[k],
+                                    timeout=120)
+            if st_ == 200:
+                after_ok += 1
+                if not np.array_equal(np.asarray(b['outputs'][0],
+                                                 np.float32), refs[k]):
+                    after_unequal += 1
+        close_equal = all(np.array_equal(np.asarray(
+            r['body']['outputs'][0], np.float32), refs[r['k']])
+            for r in close_recs if r.get('code') == 200)
+        after = hand_written_launches(cuda_conv, cuda_ops)
+        fs_stats = profiler.fleet_supervisor_stats()
+    finally:
+        router.close()
+        for r in reps:
+            r.close()
+    per_call = [n for s_ in scorers for n in s_.per_call]
+    other = {k: after[k] - before[k] for k in after if k != 'flash_fwd'}
+    run = dict(
+        config=dict(GPT2_MEDIUM, seq=SEQ, dtype='bfloat16', replicas=2,
+                    clients=ROUTER_CLIENTS, deadline_ms=ROUTER_DEADLINE_MS),
+        sent=sent, answers=answers, unequal=unequal,
+        traffic_s=traffic_s, launches_per_call=per_call,
+        flash_launches=after['flash_fwd'] - before['flash_fwd'],
+        shadow_drained=drained,
+        shadow_requests=report['shadow_requests'],
+        shadow_divergences=report['shadow_divergences'],
+        replay=replay,
+        close_requests=len(close_recs), close_hung=hung,
+        in_flight_at_close=sum(1 for r in close_recs
+                               if r['t0'] <= t_close <= r['t1']),
+        close_untyped=[dict(code=r.get('code'), error=r.get('error'))
+                       for r in untyped],
+        close_codes=sorted(str(r.get('code')) for r in close_recs),
+        close_max_s=max([r['s'] for r in close_recs] or [0.0]),
+        close_answers_equal=close_equal,
+        after_close_ok=after_ok, after_close_unequal=after_unequal,
+        other_launches=other, fleet_supervisor_stats=fs_stats)
+    if not close_equal:
+        run['after_close_unequal'] += 1
+    print('router ' + json.dumps(run))
+    bad = router_gate(run)
+    if bad:
+        fail('phase 24: ' + '; '.join(bad))
+    print('router: %d scoring requests of %d tokens through 2 replicas, '
+          'bit-equal to the scorer, %d flash launches each; shadow %d '
+          'requests, 0 divergences; replica closed with %d requests in '
+          'flight (%d around it: %s), longest %.2f s, survivor bit-equal'
+          % (answers, SEQ, GPT2_MEDIUM['layers'], run['shadow_requests'],
+             run['in_flight_at_close'], len(close_recs),
+             ','.join(run['close_codes']), run['close_max_s']))
+    run['path_launches'] = run['flash_launches']
+    return run
+
+
+# ---------------------------------------------------------------------------
+# phase 25: the deployment artifact and the C predict API
+# ---------------------------------------------------------------------------
+
+ART_BATCH = 8
+ART_BUCKETS = (1, 8, 32)
+ART_RUNNER = r'''
+import sys
+import torch
+prog = torch.export.load(sys.argv[1]).module()
+x = torch.load(sys.argv[2]).to('cuda:0')
+with torch.no_grad():
+    out = prog(x)
+torch.cuda.synchronize()
+assert not any(m.startswith('mxnet_tpu') for m in sys.modules), \
+    sorted(m for m in sys.modules if m.startswith('mxnet_tpu'))
+torch.save([o.cpu() for o in out], sys.argv[3])
+'''
+# examples/c_predict/predict.c passes dev_type 1 (the CPU); compiled with
+# -DMXTPredCreate=mxt_example_create_on_card it calls this shim instead
+# (compiled on its own, without the define), which passes dev_type 2
+ART_CARD_SHIM = r'''
+#include <stdint.h>
+extern int MXTPredCreate(const char*, const void*, int, int, int, uint32_t,
+                         const char**, const uint32_t*, const uint32_t*,
+                         void**);
+int mxt_example_create_on_card(const char* json, const void* params,
+                               int size, int dev_type, int dev_id,
+                               uint32_t n, const char** keys,
+                               const uint32_t* indptr,
+                               const uint32_t* shapes, void** out) {
+  (void)dev_type;
+  return MXTPredCreate(json, params, size, 2, dev_id, n, keys, indptr,
+                       shapes, out);
+}
+'''
+
+
+def artifact_gate(run):
+    """Phase 25's checks on a run's numbers: a list of what failed, empty
+    when it passed."""
+    bad = []
+    want = ['input data float32 %d,%s' % (ART_BATCH, RESNET['image_shape']),
+            'output 0 float32 %d,%d' % (ART_BATCH, RESNET['num_classes'])]
+    if run['manifest'] != want:
+        bad.append('manifest %s, want %s' % (run['manifest'], want))
+    if run['runner_rc'] != 0:
+        bad.append('the torch-only runner exited %d: %s'
+                   % (run['runner_rc'], run['runner_err']))
+    elif not run['pt2_rel_err'] <= SERVE_SERIAL_REL_TOL:
+        bad.append('the .pt2 answers %.4g of the largest output from '
+                   'Predictor.forward, over %.4g'
+                   % (run['pt2_rel_err'], SERVE_SERIAL_REL_TOL))
+    if sorted(run['rungs']) != sorted(ART_BUCKETS):
+        bad.append('export_compiled gave rungs %s' % run['rungs'])
+    if run['second_hits'] != len(ART_BUCKETS) or run['second_misses']:
+        bad.append('the second export_compiled: %d hits, %d misses'
+                   % (run['second_hits'], run['second_misses']))
+    for dev in ('cpu', 'card'):
+        c = run['c_predict'][dev]
+        if c['rc'] != 0 or c['predicted'] != c['want']:
+            bad.append('predict.c on the %s: exit %s, class %s, the '
+                       'Predictor\'s %s (%s)' % (dev, c['rc'], c['predicted'],
+                                                 c['want'], c['err']))
+    for kernel, n in sorted(run['launches'].items()):
+        if n:
+            bad.append('the phase launched the %s kernel %d times'
+                       % (kernel, n))
+    return bad
+
+
+def predicted_class(text):
+    for line in text.splitlines():
+        if line.startswith('predicted='):
+            return int(line.split()[0].split('=', 1)[1])
+    return None
+
+
+def artifact_phase(torch, mx, cuda_conv, cuda_ops, root, ctx=None):
+    """Phase 25: export_artifact writes phase 11's bf16 ResNet-50 as .pt2
+    and .manifest; a python3 -I that imports torch alone runs it on
+    cuda:0 against Predictor.forward; export_compiled(batch_buckets=
+    ART_BUCKETS) twice, the second all cache hits; the C predict API
+    built with the host compiler, and examples/c_predict/predict.c
+    linked against it classifying a seeded image on the CPU (dev_type 1,
+    as written) and on the card (dev_type 2, through ART_CARD_SHIM), each
+    as the Predictor on that device. Gated by artifact_gate."""
+    import shutil
+    from mxnet_tpu_torch import _build, exec_cache
+    from mxnet_tpu_torch.predictor import Predictor
+    ctx = ctx or mx.gpu(0)
+    out = root / 'build' / 'phase25'
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    torch.cuda.empty_cache()
+    before = hand_written_launches(cuda_conv, cuda_ops)
+    prefix = str(out / 'resnet50')
+    symbol, shape = serve_checkpoint(torch, mx, prefix, ctx)
+    pred = Predictor.from_checkpoint(prefix, 0,
+                                     {'data': (ART_BATCH,) + shape}, ctx=ctx)
+    t0 = time.perf_counter()
+    manifest = pred.export_artifact(str(out / 'artifact'))
+    export_s = time.perf_counter() - t0
+    x = np.random.default_rng(SEED + 800).standard_normal(
+        (ART_BATCH,) + shape, dtype=np.float32)
+    torch.save(torch.from_numpy(x), str(out / 'in.pt'))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, '-I', '-c', ART_RUNNER,
+                           str(out / 'artifact.pt2'), str(out / 'in.pt'),
+                           str(out / 'out.pt')], capture_output=True,
+                          text=True, timeout=600, cwd=str(out))
+    runner_s = time.perf_counter() - t0
+    want = pred.forward(data=x)[0].asnumpy()
+    pt2_rel = float('inf')
+    bit_equal = False
+    if proc.returncode == 0:
+        got = torch.load(str(out / 'out.pt'))[0].float().numpy()
+        pt2_rel = float(np.abs(got - want).max() / np.abs(want).max())
+        bit_equal = bool(np.array_equal(got, want))
+    # the rungs, twice
+    t0 = time.perf_counter()
+    s0 = exec_cache.stats()
+    rungs = pred.export_compiled(batch_buckets=ART_BUCKETS)
+    first_s = time.perf_counter() - t0
+    s1 = exec_cache.stats()
+    t0 = time.perf_counter()
+    again = pred.export_compiled(batch_buckets=ART_BUCKETS)
+    second_s = time.perf_counter() - t0
+    s2 = exec_cache.stats()
+    same = all(again[b]['program'] is rungs[b]['program'] for b in rungs)
+    # the C predict API
+    t0 = time.perf_counter()
+    lib = _build.c_predict_library()
+    c_build_s = time.perf_counter() - t0
+    libdir = str(lib.parent)
+    img = x[:1]
+    img.tofile(str(out / 'input.f32'))
+    c_runs = {}
+    (out / 'card_shim.c').write_text(ART_CARD_SHIM)
+    shim = str(out / 'card_shim.o')
+    cc = subprocess.run(['gcc', '-O2', '-c', str(out / 'card_shim.c'),
+                         '-o', shim], capture_output=True, text=True,
+                        timeout=300)
+    if cc.returncode != 0:
+        fail('phase 25: the shim failed to compile:\n%s%s'
+             % (cc.stdout, cc.stderr))
+    for dev, extra, ctx_dev in (
+            ('cpu', [], mx.cpu()),
+            ('card', ['-DMXTPredCreate=mxt_example_create_on_card', shim],
+             ctx)):
+        exe = str(out / ('predict_' + dev))
+        cc = subprocess.run(['gcc', '-O2', *extra,
+                             str(root / 'examples' / 'c_predict' /
+                                 'predict.c'), '-o', exe, '-L' + libdir,
+                             '-lmxt_predict', '-Wl,-rpath,' + libdir],
+                            capture_output=True, text=True, timeout=300)
+        if cc.returncode != 0:
+            fail('phase 25: predict.c failed to compile:\n%s%s'
+                 % (cc.stdout, cc.stderr))
+        env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
+        t0 = time.perf_counter()
+        run_ = subprocess.run([exe, prefix + '-symbol.json',
+                               prefix + '-0000.params',
+                               str(out / 'input.f32')] +
+                              [str(d) for d in (1,) + shape],
+                              capture_output=True, text=True, env=env,
+                              timeout=600, cwd=str(out))
+        one = Predictor.from_checkpoint(prefix, 0, {'data': (1,) + shape},
+                                        ctx=ctx_dev)
+        c_runs[dev] = dict(rc=run_.returncode,
+                           predicted=predicted_class(run_.stdout),
+                           want=int(np.argmax(one.predict(img)[0])),
+                           s=time.perf_counter() - t0,
+                           out=run_.stdout.strip()[-300:],
+                           err=run_.stderr.strip()[-1500:])
+        del one
+    after = hand_written_launches(cuda_conv, cuda_ops)
+    run = dict(
+        config=dict(RESNET, batch=ART_BATCH, buckets=ART_BUCKETS),
+        manifest=manifest, export_s=export_s,
+        pt2_bytes=os.path.getsize(str(out / 'artifact.pt2')),
+        runner_rc=proc.returncode, runner_err=proc.stderr[-1500:],
+        runner_s=runner_s, pt2_rel_err=pt2_rel, pt2_bit_equal=bit_equal,
+        pt2_tol=SERVE_SERIAL_REL_TOL,
+        rungs=sorted(rungs), first_export_s=first_s,
+        first_misses=s1['misses'] - s0['misses'],
+        first_hits=s1['hits'] - s0['hits'],
+        second_export_s=second_s, second_hits=s2['hits'] - s1['hits'],
+        second_misses=s2['misses'] - s1['misses'], second_same=same,
+        c_build_s=c_build_s, c_library=str(lib),
+        c_predict=c_runs,
+        launches={k: after[k] - before[k] for k in after})
+    print('artifact ' + json.dumps(run))
+    bad = artifact_gate(run)
+    if bad:
+        fail('phase 25: ' + '; '.join(bad))
+    print('artifact: .pt2 of %.1f MB exported in %.1f s, run by torch alone '
+          'in %.1f s, %s Predictor.forward (%.3g of the largest output); '
+          'export_compiled %s: %.1f s, then %d hits in %.3f s; the C '
+          'library built in %.1f s; predict.c classifies as the Predictor '
+          'on the CPU (%d) and the card (%d)'
+          % (run['pt2_bytes'] / 1e6, export_s, runner_s,
+             'bit-equal to' if bit_equal else 'within tolerance of',
+             pt2_rel, list(ART_BUCKETS), first_s, run['second_hits'],
+             second_s, c_build_s, c_runs['cpu']['predicted'],
+             c_runs['card']['predicted']))
+    shutil.rmtree(out, ignore_errors=True)
+    return run
+
+
 def main(argv=None):
     import argparse
     parser = argparse.ArgumentParser(
@@ -8027,7 +8912,7 @@ def main(argv=None):
                                                     v.split(',')},
                         default=ALL_PHASES,
                         help='build, then run only these phases (a comma '
-                             'list of 2-22); the kernels line needs all')
+                             'list of 2-25); the kernels line needs all')
     parser.add_argument('--dist-worker', choices=('ps', 'coord'),
                         help=argparse.SUPPRESS)
     parser.add_argument('--dist-out', help=argparse.SUPPRESS)
@@ -8055,7 +8940,7 @@ def main(argv=None):
         return
     phases = args.phases
     if not phases <= ALL_PHASES:
-        fail('--phases takes phases 2 to 22; got %s' % sorted(phases))
+        fail('--phases takes phases 2 to 25; got %s' % sorted(phases))
     sys.path.insert(0, str(root))
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import _build, cuda_conv, cuda_ops
@@ -8206,6 +9091,19 @@ def main(argv=None):
     if 22 in phases:
         dist_coord = coord_phase(torch, mx, root)
 
+    # 23. the train -> serve loop: fit pushes its commits into a fleet of
+    # two replica processes
+    if 23 in phases:
+        loop = train_serve_phase(torch, mx, cuda_conv, root)
+
+    # 24. the GPT-2-medium scorer behind the router
+    if 24 in phases:
+        router = scorer_router_phase(torch, mx, cuda_conv, cuda_ops, tfm)
+
+    # 25. the deployment artifact and the C predict API
+    if 25 in phases:
+        artifact_phase(torch, mx, cuda_conv, cuda_ops, root)
+
     if phases != ALL_PHASES:
         print('phases %s passed' % sorted(phases))
         return
@@ -8226,7 +9124,8 @@ def main(argv=None):
                                   'flash_fwd'],
                               gluon_lstm_train=gluon_lm['kernel_launches'][
                                   'flash_fwd'],
-                              fleet_lm_serve=fleet['flash']['launches']),
+                              fleet_lm_serve=fleet['flash']['launches'],
+                              fleet_router_scorer=router['path_launches']),
         max_abs_err=main_case['max_abs_err'],
         share_differ=main_case['share_differ'],
         ms=main_case['ms'], tflops=main_case['tflops'],
@@ -8279,7 +9178,7 @@ def main(argv=None):
     kernels.append(conv_kernel_entry(conv, sass, resnet, module, serve,
                                      bucketing, gluon_run, ptb, gluon_lm,
                                      factories, record, dist_ps,
-                                     dist_coord))
+                                     dist_coord, loop))
     kernels.append(rtc_kernel_entry(rtc_run, ptb, gluon_lm))
     for kern in kernels:
         if kern['launches'] == 0:

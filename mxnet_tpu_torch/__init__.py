@@ -70,12 +70,24 @@ far:
   ring) across worker processes started by `tools.launch`, elastic
   checkpoints with delta chains, preemption and the coordinated
   restart; `Module.fit(kvstore='dist_sync', checkpoint=mgr)` trains
-  across processes and survives the loss of one.
+  across processes and survives the loss of one;
+- the self-healing fleet (`mx.fleet_supervisor`): replica processes
+  behind a router with retry on replica death, canary pushes with
+  auto-rollback, shadow replay, and `CheckpointPusher`, which pushes a
+  training run's commits into the fleet and feeds the verdicts back
+  (`tools/serve_fleet.py`);
+- deployment: `Predictor.export_compiled` and `export_artifact`
+  (`torch.export` programs; a `.pt2` with the weights baked in runs
+  under torch alone), and the C predict API (`_c_predict_bridge` and
+  `csrc/capi/`, built with the host C++ compiler by
+  `_build.c_predict_library`).
 
 Importing the package builds and compiles nothing: the kernels are
 compiled by `nvcc` at their first launch (`_build`), an `Rtc` body by
 NVRTC at its first push.
 """
+__version__ = '0.1.0'
+
 from . import base
 from .base import MXNetError
 from . import context
@@ -124,6 +136,7 @@ from . import dist
 from . import delta
 from . import elastic
 from . import serving_fleet
+from . import fleet_supervisor
 from . import gluon
 from . import rnn
 from . import image
@@ -132,9 +145,9 @@ __all__ = ['AttrScope', 'Context', 'DataBatch', 'DataDesc', 'DataIter',
            'Executor', 'FeedForward', 'MXNetError', 'Module', 'NDArrayIter',
            'NameManager', 'Optimizer', 'Prefix', 'attribute', 'autograd',
            'callback', 'cpu', 'current_context', 'delta', 'dist', 'elastic',
-           'exec_cache', 'executor', 'gluon', 'gpu', 'image', 'init',
-           'initializer', 'io', 'kv', 'kvstore', 'kvstore_server',
-           'lr_scheduler', 'metric',
+           'exec_cache', 'executor', 'fleet_supervisor', 'gluon', 'gpu',
+           'image', 'init', 'initializer', 'io', 'kv', 'kvstore',
+           'kvstore_server', 'lr_scheduler', 'metric',
            'mod', 'model', 'models', 'module', 'mon', 'monitor', 'nd',
            'ndarray', 'num_gpus', 'optimizer', 'predictor', 'profiler',
            'quantization', 'random', 'recordio', 'resolve_device', 'rnn',

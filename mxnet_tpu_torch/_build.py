@@ -7,12 +7,20 @@ library lands in `build/mxnet_tpu_torch/<hash of the sources>/` beside
 the package, at first use, so a changed source builds anew and an
 unchanged one is loaded from disk. A missing `nvcc` or a failed compile
 raises with the compiler's output; nothing falls back.
+
+The C predict API (`csrc/capi/`, which embeds CPython) is not a kernel
+and stays out of that library: `c_predict_library` builds it with the
+host C++ compiler against the running interpreter's headers and
+libpython (sysconfig's paths) into `build/mxnet_tpu_torch/capi/<hash>/`,
+at first use.
 """
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import sys
+import sysconfig
 import threading
 from pathlib import Path
 
@@ -144,3 +152,62 @@ def check(lib, err, what):
     if err != 0:
         raise RuntimeError('%s: CUDA error %d (%s)' % (
             what, err, lib.mxt_error_string(err).decode()))
+
+
+# -- the C predict API -----------------------------------------------------
+
+_CAPI = _CSRC / 'capi'
+_CAPI_LIB = 'libmxt_predict.so'
+
+
+def _capi_flags():
+    """(compile flags, link flags) for the running interpreter's headers
+    and libpython; the compile flags bake in (MXT_PY_PATHS) the paths its
+    embedded copy needs to import mxnet_tpu_torch and torch."""
+    inc = sysconfig.get_paths()['include']
+    libdir = sysconfig.get_config_var('LIBDIR')
+    ver = sysconfig.get_config_var('LDVERSION') or \
+        sysconfig.get_config_var('VERSION')
+    paths = []
+    for p in (str(_PKG.parent), sysconfig.get_paths()['purelib'],
+              sysconfig.get_paths()['platlib']):
+        if p not in paths:
+            paths.append(p)
+    flags = ['-O2', '-std=c++17', '-fPIC', '-shared', '-Wall', '-pthread',
+             '-I' + inc, '-DMXT_PY_PATHS="%s"' % ':'.join(paths)]
+    libs = ['-L' + libdir, '-Wl,-rpath,' + libdir, '-lpython' + ver,
+            '-ldl']
+    return flags, libs
+
+
+def c_predict_library():
+    """Build the C predict API library if this hash has none yet, with
+    the host C++ compiler ($CXX, else g++); returns its path. A failed
+    build raises with the compiler's output."""
+    flags, libs = _capi_flags()
+    h = hashlib.sha256(' '.join(flags + libs + [sys.version]).encode())
+    srcs = sorted(_CAPI.glob('*.cc')) + sorted(_CAPI.glob('*.h'))
+    for path in srcs:
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    out_dir = _BUILD_ROOT / 'capi' / h.hexdigest()[:16]
+    lib_path = out_dir / _CAPI_LIB
+    if lib_path.exists():
+        return lib_path
+    cxx = os.environ.get('CXX') or shutil.which('g++')
+    if not cxx:
+        raise RuntimeError('mxnet_tpu_torch: no C++ compiler ($CXX or '
+                           'g++) to build the C predict API')
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / ('%s.%d.tmp' % (_CAPI_LIB, os.getpid()))
+    cmd = [cxx, *flags, '-o', str(tmp),
+           *[str(p) for p in srcs if p.suffix == '.cc'], *libs]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    (out_dir / 'build.log').write_text('$ %s\n%s%s' % (
+        ' '.join(cmd), proc.stdout, proc.stderr))
+    if proc.returncode != 0:
+        raise RuntimeError('mxnet_tpu_torch: the C predict API failed to '
+                           'build:\n$ %s\n%s%s' % (' '.join(cmd),
+                                                   proc.stdout, proc.stderr))
+    os.replace(tmp, lib_path)
+    return lib_path

@@ -59,6 +59,14 @@ The port's states are host arrays (`_hostarray`): numpy, and torch CPU
 tensors for bfloat16. Codes, payload bytes, crcs and fingerprints equal
 the JAX package's for the same state, so a delta written by either
 package applies in the other.
+
+Where the port departs from the JAX package: an int8 entry whose
+measured relative error is not finite (a NaN or inf in the current
+value or the diff) records ``rel_err`` inf, in the entry and in the
+meta, so that ``apply_delta(parity_tol=...)`` refuses it with
+DeltaParityError. The JAX package's ``max(worst, rel)`` drops a NaN,
+records 0.0, and its parity gate passes a delta whose applied
+elements are all NaN.
 """
 import hashlib
 import os
@@ -270,6 +278,10 @@ def make_delta(base, current, seq, base_fp, config=None):
             payload += codes.nbytes + 4
             spread = float(np.max(np.abs(c32))) or 1.0
             rel = float(np.max(np.abs(c32 - ha.to_float32(new)))) / spread
+            if not np.isfinite(rel):
+                # a NaN or inf in the diff: the gate must refuse it
+                # (max() would drop a NaN and record 0.0)
+                rel = float('inf')
             worst_rel = max(worst_rel, rel)
             emeta[name] = {'kind': 'int8', 'crc': _crc(new),
                            'rel_err': rel}

@@ -11,14 +11,28 @@ param blob), binds a forward-only executor and answers `forward` calls;
 The default device is the card: with no ctx a predictor binds to
 `current_context()`, `gpu(0)` unless a `with mx.cpu():` block says
 otherwise, and raises when CUDA is absent (the JAX package's default is
-`cpu()`). `export_compiled` and `export_artifact`, which lower the
-forward to StableHLO in the JAX package, have no counterpart yet.
+`cpu()`).
+
+The deployment artifact. The JAX package lowers the serve forward to
+StableHLO; the port's counterpart is a `torch.export` program of the
+executor's eval walk (`Executor.serve`'s walk), traced non-strict on
+fake tensors. `export_compiled` exports the walk with the weights as
+program inputs (weight-independent, so cached per graph signature);
+`export_artifact` bakes the weights in as buffers and writes
+`<prefix>.pt2` (torch.export.save) and `<prefix>.manifest`, which
+`torch.export.load` runs in a process that imports torch alone. A walk
+that reads the host inside (`.item()`, `.cpu()`, a shape taken from
+data) cannot be traced: the export raises MXNetError naming the op, and
+never falls back to a pickled module.
 """
+import torch
+
 from . import context as ctx_mod
+from . import exec_cache
 from . import model as model_mod
 from . import ndarray as nd
 from . import symbol as sym_mod
-from .base import MXNetError, unported
+from .base import MXNetError
 
 
 def _split_params(loaded):
@@ -119,11 +133,145 @@ class Predictor(object):
         return InferenceEngine(self, **engine_kwargs)
 
     def export_compiled(self, batch_buckets=None):
-        raise unported('Predictor.export_compiled (the JAX package lowers '
-                       'the forward to StableHLO; the port\'s deployment '
-                       'artifact)', '3')
+        """The forward as a `torch.export` program: a dict with
+        'program' (the ExportedProgram, whose inputs are every argument
+        then every aux state of the executor, in list order) and 'graph'
+        (its graph's text). The export takes the weights as inputs, so
+        it depends on the graph signature alone and is cached in
+        exec_cache under it with an export tag: a repeated export (or
+        one of an equally bound predictor) is a cache hit.
+
+        With `batch_buckets` (batch sizes, e.g. a serving engine's
+        ladder) it returns {batch: dict}, one export for each rung, each
+        cached under its rung's signature; the rung executors share this
+        predictor's weight arrays."""
+        if batch_buckets is not None:
+            out = {}
+            for b in sorted(set(int(x) for x in batch_buckets)):
+                shapes = {
+                    n: (b,) + tuple(self._executor.arg_dict[n].shape[1:])
+                    for n in self._input_names}
+                ex = self._symbol.simple_bind(
+                    self._ctx, grad_req='null',
+                    shared_exec=self._executor, **shapes)
+                out[b] = self._export_one(ex)
+            return out
+        return self._export_one(self._executor)
+
+    @staticmethod
+    def _export_one(ex):
+        key = (ex._sig, 'export_compiled')
+        cached = exec_cache.get(key, count=True)
+        if cached is not None:
+            return dict(cached)
+        vals = [ex.arg_dict[n]._data for n in ex._arg_names] + \
+            [ex.aux_dict[n]._data for n in ex._aux_names]
+        ep = _export(ex, _ServeWalk(ex), tuple(vals))
+        out = {'program': ep,
+               'graph': ep.graph_module.print_readable(print_output=False)}
+        exec_cache.put(key, dict(out))
+        return out
 
     def export_artifact(self, prefix):
-        raise unported('Predictor.export_artifact (a self-contained '
-                       'StableHLO artifact in the JAX package; the '
-                       'port\'s deployment artifact)', '3')
+        """Write a self-contained deployment artifact: the forward with
+        every weight baked in, as `<prefix>.pt2` (torch.export.save; its
+        inputs are the data inputs alone, in this predictor's order),
+        and `<prefix>.manifest`, one line per data input (`input NAME
+        DTYPE DIMS`) and per output (`output I DTYPE DIMS`), the JAX
+        package's format. `torch.export.load(prefix + '.pt2').module()`
+        runs it in a process that imports torch alone. Returns the
+        manifest lines."""
+        ex = self._executor
+        walk = _ServeWalk(ex, data_names=self._input_names)
+        data = tuple(ex.arg_dict[n]._data for n in self._input_names)
+        ep = _export(ex, walk, data)
+        out_vals = [n.meta['val'] for n in
+                    ep.graph.find_nodes(op='output')[0].args[0]]
+        manifest = []
+        for n, v in zip(self._input_names, data):
+            manifest.append('input %s %s %s' % (
+                n, _dtype_name(v.dtype), ','.join(str(d) for d in v.shape)))
+        for i, o in enumerate(out_vals):
+            manifest.append('output %d %s %s' % (
+                i, _dtype_name(o.dtype), ','.join(str(d) for d in o.shape)))
+        torch.export.save(ep, prefix + '.pt2')
+        with open(prefix + '.manifest', 'w') as f:
+            f.write('\n'.join(manifest) + '\n')
+        return manifest
+
+
+class _ServeWalk(torch.nn.Module):
+    """The executor's eval walk as a module for torch.export. With no
+    `data_names` its inputs are every argument then every aux state;
+    with them, only those arguments, and the other weights are buffers
+    (baked into the export)."""
+
+    def __init__(self, ex, data_names=None):
+        super().__init__()
+        self._ex = ex
+        self._data_pos = None
+        if data_names is not None:
+            self._data_pos = [ex._arg_names.index(n) for n in data_names]
+            for i, n in enumerate(ex._arg_names):
+                if i not in self._data_pos:
+                    self.register_buffer('arg%d' % i, ex.arg_dict[n]._data)
+            for i, n in enumerate(ex._aux_names):
+                self.register_buffer('aux%d' % i, ex.aux_dict[n]._data)
+
+    def forward(self, *inputs):
+        ex = self._ex
+        n_arg = len(ex._arg_names)
+        if self._data_pos is None:
+            args, auxs = list(inputs[:n_arg]), list(inputs[n_arg:])
+        else:
+            given = dict(zip(self._data_pos, inputs))
+            args = [given[i] if i in given else getattr(self, 'arg%d' % i)
+                    for i in range(n_arg)]
+            auxs = [getattr(self, 'aux%d' % i)
+                    for i in range(len(ex._aux_names))]
+        with torch.no_grad():
+            outs, _ = ex._run_graph(args, auxs, False)
+        return tuple(outs)
+
+
+def _export(ex, module, inputs):
+    """torch.export (non-strict) of the walk; an op that cannot be traced
+    raises MXNetError naming it."""
+    try:
+        return torch.export.export(module, inputs, strict=False)
+    except Exception as e:
+        node = _walk_node(e, ex)
+        where = ' at op %s (%s)' % (node.name, node.op.name) \
+            if node is not None else ''
+        raise MXNetError('export: the serve walk cannot be traced%s: '
+                         '%s: %s' % (where, type(e).__name__, e)) from e
+
+
+def _walk_node(exc, ex):
+    """The graph node the walk was at when `exc` (or an exception it was
+    raised from) left Executor._run_graph."""
+    code = type(ex)._run_graph.__code__
+    seen = set()
+    while exc is not None and id(exc) not in seen:
+        seen.add(id(exc))
+        node = None
+        tb = exc.__traceback__
+        while tb is not None:
+            if tb.tb_frame.f_code is code:
+                node = tb.tb_frame.f_locals.get('node')
+            tb = tb.tb_next
+        if node is not None:
+            return node
+        exc = exc.__cause__ or exc.__context__
+    return None
+
+
+def _dtype_name(dtype):
+    """numpy's name of a torch dtype ('float32', 'bfloat16', ...)."""
+    return str(dtype).replace('torch.', '')
+
+
+def _load_param_bytes(blob):
+    """Param blob bytes -> {name: NDArray} on the host (the C predict
+    API's MXTNDListCreate takes the .params bytes)."""
+    return nd.load_buffer(bytes(blob), ctx=ctx_mod.cpu())

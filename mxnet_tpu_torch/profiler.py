@@ -14,13 +14,14 @@ its XLA trace's device lanes.
 MXNET_PROFILER_AUTOSTART=1 starts it at import, as in the reference.
 The per-subsystem counters come with the subsystems they count: the
 program cache's (exec_cache), the serving engine's, the quantization,
-the serving fleet's (registry, HTTP front, continuous batcher), its
-hot-swap and host-hiding counters, the bucketed-training and the input
-pipeline's counters, the elastic checkpoints', the dist runtime's and
-the weight deltas'; `summary()` prints them, and `dump_profile` writes
-each as a metadata event ('exec_cache', 'serving', 'fleet', 'quant',
-'loop', 'overlap', 'bucketing', 'input_pipeline', 'checkpoint', 'dist',
-'delta').
+the serving fleet's (registry, HTTP front, continuous batcher), the
+self-healing fleet's (supervisor, router, canary), the train -> serve
+loop's, the hot-swap and host-hiding counters, the bucketed-training
+and the input pipeline's counters, the elastic checkpoints', the dist
+runtime's and the weight deltas'; `summary()` prints them, and
+`dump_profile` writes each as a metadata event ('exec_cache',
+'serving', 'fleet', 'quant', 'fleet_supervisor', 'loop', 'overlap',
+'bucketing', 'input_pipeline', 'checkpoint', 'dist', 'delta').
 """
 import json
 import os
@@ -202,8 +203,8 @@ def fleet_stats():
     return out
 
 
-# train -> serve loop counters: pushes and verdicts (the fleet
-# supervisor's, not ported yet) and the continuous batcher's hot-swap
+# train -> serve loop counters: pushes and verdicts (fleet_supervisor.
+# CheckpointPusher) and the continuous batcher's hot-swap
 # migration: slots re-admitted into a replacement engine, slots whose
 # exported state was dropped (MXNET_TPU_FAULT_SWAP_DROP_STATE, replayed
 # from t=0), slots migrated across a model change.
@@ -237,6 +238,46 @@ def loop_stats():
     """Snapshot of the loop counters."""
     with _STATE['lock']:
         return dict(_LOOP)
+
+
+# the self-healing fleet's counters (fleet_supervisor.FleetRouter and
+# FleetSupervisor): replica lifecycle (spawns, restarts, retires and the
+# live gauge), the router's retries and fast 503s under replica death,
+# and continuous deployment (canary pushes, promotions, rollbacks,
+# shadow traffic and divergences). fleet_supervisor_replicas_live is a
+# gauge.
+_FLEET_SUP = {
+    'fleet_supervisor_replica_spawns': 0,
+    'fleet_supervisor_replica_restarts': 0,
+    'fleet_supervisor_replica_retires': 0,
+    'fleet_supervisor_replicas_live': 0,    # gauge
+    'fleet_supervisor_router_requests': 0,
+    'fleet_supervisor_router_retries': 0,
+    'fleet_supervisor_router_503': 0,
+    'fleet_supervisor_canary_pushes': 0,
+    'fleet_supervisor_canary_promotions': 0,
+    'fleet_supervisor_canary_rollbacks': 0,
+    'fleet_supervisor_shadow_requests': 0,
+    'fleet_supervisor_shadow_divergences': 0,
+}
+
+
+def add_fleet_supervisor_stats(replicas_live=None, **deltas):
+    """Accumulate fleet-supervisor counters (replicas_live is a gauge;
+    keys without the fleet_supervisor_ prefix: router_retries=1, ...)."""
+    with _STATE['lock']:
+        for k, v in deltas.items():
+            _FLEET_SUP['fleet_supervisor_' + k] += int(v)
+        if replicas_live is not None:
+            _FLEET_SUP['fleet_supervisor_replicas_live'] = \
+                int(replicas_live)
+
+
+def fleet_supervisor_stats():
+    """Snapshot of the fleet-supervisor counters (also in summary(),
+    dump_profile's 'fleet_supervisor' lane and the router's /statsz)."""
+    with _STATE['lock']:
+        return dict(_FLEET_SUP)
 
 
 # host-hiding counters: train-step pipelining (not ported yet), the
@@ -587,7 +628,19 @@ def summary(print_out=True):
                     fl['cont_boundary_wait_ms'],
                     fl['cont_lone_fast_path'],
                     fl['cont_exact_fill_admits']))
+    fs = fleet_supervisor_stats()
+    lines.append('  ' + ' '.join('%s=%d' % kv for kv in fs.items()))
     lp = loop_stats()
+    lines.append('  loop_pushes=%d loop_push_failures=%d '
+                 'loop_push_queue_skipped=%d loop_verdicts_promoted=%d '
+                 'loop_verdicts_rolled_back=%d '
+                 'loop_consecutive_rollbacks=%d loop_lr_backoffs=%d'
+                 % (lp['loop_pushes'], lp['loop_push_failures'],
+                    lp['loop_push_queue_skipped'],
+                    lp['loop_verdicts_promoted'],
+                    lp['loop_verdicts_rolled_back'],
+                    lp['loop_consecutive_rollbacks'],
+                    lp['loop_lr_backoffs']))
     lines.append('  loop_swap_migrated_slots=%d '
                  'loop_swap_dropped_slots=%d '
                  'loop_swap_divergent_slots=%d'
@@ -716,6 +769,8 @@ def dump_profile():
                'args': fleet_stats()},
               {'ph': 'M', 'name': 'quant', 'pid': 0,
                'args': quant_stats()},
+              {'ph': 'M', 'name': 'fleet_supervisor', 'pid': 0,
+               'args': fleet_supervisor_stats()},
               {'ph': 'M', 'name': 'loop', 'pid': 0,
                'args': loop_stats()},
               {'ph': 'M', 'name': 'overlap', 'pid': 0,
@@ -769,8 +824,9 @@ def clear():
             _QUANT[k] = type(_QUANT[k])()
         for k in _FLEET:
             _FLEET[k] = type(_FLEET[k])()
-        for k in _LOOP:
-            _LOOP[k] = 0
+        for d in (_LOOP, _FLEET_SUP):
+            for k in d:
+                d[k] = 0
         for k in _OVERLAP:
             _OVERLAP[k] = type(_OVERLAP[k])()
         for k in _BUCKET:

@@ -45,8 +45,14 @@ launches and the completion's copy to the host.
 
 `apply_delta` applies a weight delta (`delta.py`) to the resident
 weights in place; `export_serving_checkpoint` and `serving_state` read
-an elastic checkpoint (full or delta) for serving. Not ported, raising:
-`hot_rows=` (the hot-row embedding cache, ROADMAP Queue A 6).
+an elastic checkpoint (full or delta) for serving. Where the port
+departs from the JAX package: the resident state that a delta's base
+fingerprint is held against leaves out the arguments that feed a loss
+head's label (SoftmaxOutput's softmax_label), which no checkpoint
+holds; the JAX package counts them, so a model served with its loss
+head never matches a commit's fingerprint and refuses every delta.
+Not ported, raising: `hot_rows=` (the hot-row embedding cache, ROADMAP
+Queue A 6).
 
 Typical use::
 
@@ -272,6 +278,7 @@ class InferenceEngine(object):
         self._device = ctx.torch_device
         self._base_ex = ex
         self._input_names = list(input_names)
+        self._label_names = _label_args(ex)
         self.max_batch = int(max_batch if max_batch is not None else
                              _env_int('MXNET_TPU_SERVE_MAX_BATCH', 8))
         self.max_wait_us = int(max_wait_us if max_wait_us is not None else
@@ -613,15 +620,17 @@ class InferenceEngine(object):
     # -- in-place weight deltas (the delta push channel) ----------------
     def _resident_host_state(self):
         """The resident weights as a flat {'arg:NAME'/'aux:NAME': host
-        array} state (the serving_state key space). Quantized weights
-        dequantize back to their original dtype (lossy: apply_delta
-        exempts them from the crc gate)."""
+        array} state (the serving_state key space: a loss head's label
+        argument is left out). Quantized weights dequantize back to their
+        original dtype (lossy: apply_delta exempts them from the crc
+        gate)."""
         from . import _hostarray as ha
         ex = self._base_ex
         state = {}
         for prefix, d in (('arg:', ex.arg_dict), ('aux:', ex.aux_dict)):
             for n, a in d.items():
-                if n in self._input_names:
+                if n in self._input_names or \
+                        (prefix == 'arg:' and n in self._label_names):
                     continue
                 if prefix == 'arg:' and n in self._quant_names:
                     codes = a._data
@@ -1215,6 +1224,20 @@ class InferenceEngine(object):
 # ---------------------------------------------------------------------------
 # helpers
 # ---------------------------------------------------------------------------
+
+def _label_args(ex):
+    """The arguments that feed an op's 'label' input (a loss head's
+    label): no weight, and in no checkpoint."""
+    out = set()
+    for node in ex._topo:
+        if node.op is None:
+            continue
+        for name, (src, _i) in zip(node.op.input_names(node.attrs),
+                                   node.inputs):
+            if name == 'label' and src.op is None:
+                out.add(src.name)
+    return frozenset(out)
+
 
 def _source_parts(source):
     """(executor, symbol, ctx, input_names) of a Predictor or a bound

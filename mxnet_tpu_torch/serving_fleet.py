@@ -57,8 +57,8 @@ Where the port departs from the JAX package:
   * `HttpFront` listens with a backlog of 128 connections; the JAX
     package's server keeps socketserver's 5, which resets the
     connections of a burst of clients that connect at once;
-  * `export_artifacts` reaches `Predictor.export_compiled`, which raises
-    naming Queue A 3.
+  * `export_artifacts` returns `Predictor.export_compiled`'s
+    `torch.export` programs where the JAX package's returns StableHLO.
 
 Env knobs (the JAX package's docs/SERVING.md has the table):
   MXNET_TPU_SERVE_REGISTRY_BYTES   registry byte budget (0 = unbounded)
@@ -968,8 +968,8 @@ class ModelRegistry(object):
         return out
 
     def export_artifacts(self, name, batch_buckets=None):
-        """The model's `export_compiled` artifacts (not ported: the
-        Predictor's raises naming its ROADMAP item)."""
+        """The model's `Predictor.export_compiled` artifacts (one
+        `torch.export` program, or one for each of `batch_buckets`)."""
         ent = self._entry(name)
         self.engine(name)               # ensure resident
         holder = ent.holder

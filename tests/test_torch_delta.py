@@ -150,6 +150,29 @@ def test_encoder_chain_and_gates():
     assert enc.rebase(tc) == delta.fingerprint(tc) and enc.seq == 0
 
 
+def test_nan_int8_delta_is_refused_by_the_parity_gate():
+    """One NaN element in an int8 delta's current value. The JAX
+    package's encoder drops the NaN relative error (max(0.0, nan) is
+    0.0), so its 0.05 parity gate passes the delta and every applied
+    element is NaN; the port records rel_err inf and the gate raises
+    DeltaParityError."""
+    rng = np.random.RandomState(0)
+    base = {'w': rng.randn(4096).astype(np.float32)}
+    cur = {'w': base['w'] + 0.01 * rng.randn(4096).astype(np.float32)}
+    cur['w'][1234] = np.nan
+    jent, jmeta, _ = jdelta.make_delta(base, cur, seq=1, base_fp='b')
+    assert jmeta['entries']['w']['kind'] == 'int8'
+    assert jmeta['rel_err'] == 0.0
+    applied = jdelta.apply_delta(base, jmeta, dict(jent), parity_tol=0.05)
+    assert np.isnan(applied['w']).all()
+    ent, meta, _ = delta.make_delta(base, cur, seq=1, base_fp='b')
+    assert meta['entries']['w']['kind'] == 'int8'
+    assert meta['rel_err'] == float('inf')
+    assert meta['entries']['w']['rel_err'] == float('inf')
+    with pytest.raises(delta.DeltaParityError):
+        delta.apply_delta(base, meta, dict(ent), parity_tol=0.05)
+
+
 # -- serving ---------------------------------------------------------------
 
 def _mlp():

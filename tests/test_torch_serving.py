@@ -597,14 +597,9 @@ def _deferred(case, tmp_path, monkeypatch):
     elif case == 'hot_rows_env':
         monkeypatch.setenv('MXNET_TPU_SERVE_HOT_ROWS', '8')
         pred.serve(max_batch=2)
-    elif case == 'export_compiled':
-        pred.export_compiled()
-    elif case == 'export_artifact':
-        pred.export_artifact(str(tmp_path / 'artifact'))
 
 
-DEFERRED = {'hot_rows': '6', 'hot_rows_env': '6',
-            'export_compiled': '3', 'export_artifact': '3'}
+DEFERRED = {'hot_rows': '6', 'hot_rows_env': '6'}
 
 
 @pytest.mark.parametrize('case', sorted(DEFERRED))

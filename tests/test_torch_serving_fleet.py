@@ -18,9 +18,8 @@ on the CPU, then held against the JAX package's.
   a tiny LM scorer registered by source= (the JAX one on Pallas flash in
   interpret mode, the port's on plain attention), fault_knob and the
   SWAP_DROP_STATE drill;
-- the default device without CUDA, the refusals of apply_delta and
-  export_artifacts, tools/serve_http.py, and chip_smoke.py's gate of
-  phase 20.
+- the default device without CUDA, the refusals of apply_delta,
+  tools/serve_http.py, and chip_smoke.py's gate of phase 20.
 
 Every thread join and wait has a timeout.
 """
@@ -1585,14 +1584,6 @@ def test_apply_delta_on_a_resident_model():
         with pytest.raises(MXNetError, match='neither resident'):
             reg.register('cold', loader=_loader(3), max_batch=2)
             reg.apply_delta('cold', dict(ent), meta)
-
-
-def test_export_artifacts_refuses_naming_queue_item():
-    with _registry() as reg:
-        reg.register('m', loader=_loader(1), max_batch=2, max_wait_us=0)
-        with pytest.raises(MXNetError, match='Queue A 3'):
-            reg.export_artifacts('m', batch_buckets=(1, 2))
-        assert reg.stats()['models']['m']['resident']
 
 
 def test_page_dtype_round_trip_on_host_image(tmp_path):
