@@ -21,6 +21,9 @@
     python3 chip_smoke.py --phases 23,24,25    # build, the train -> serve
                                                # loop, the router, the
                                                # artifact and the C API
+    python3 chip_smoke.py --phases 26,27       # build, the LM through the
+                                               # mesh, four ranks sharing
+                                               # the card over gloo
     python3 chip_smoke.py --mutants            # phases 2, 4 and 6 against
                                                # broken kernels
 
@@ -367,6 +370,37 @@ Phases, each of which exits non-zero on failure:
    on the CPU (dev_type 1, as written) and on the card (dev_type 2,
    through a shim compiled beside it). No hand-written kernel launches
    here. Gated by artifact_gate.
+26. mesh_step: the train step of phase 5 (GPT-2-medium widths, bf16, 24
+   layers, 8 x 1024 tokens) through the mesh path: one rank in an NCCL
+   group (parallel.mesh.init_process_group, a file:// rendezvous), mesh
+   {'data': 1, 'sp': 1, 'model': 1}, place_params, make_train_step(cfg,
+   mesh), attention on the flash kernels (an sp axis of one rank runs no
+   ring). Gated: NCCL; its loss within LM_NLL_ATOL of the one-device
+   step's on the same weights and tokens, every gathered updated
+   parameter within MESH_W_RTOL (one bf16 step) of the one-device step's;
+   24 forward, 24 dK/dV and 24 dQ launches a step; no byte staged
+   through the host; in float32 at FP32_LAYERS layers one step's updates
+   within MESH_UPDATE_RTOL of the one-device step's (updates_within).
+   Printed: the step ms beside phase 5's, the device-busy share.
+27. ring: MESH_RANKS processes (parallel.mesh.spawn) share the card in
+   a gloo group, mesh {'data': 1, 'sp': 2, 'model': 2}: 8 heads a model
+   shard, 512 tokens an sp shard, the ring's hops on the flash kernels,
+   the collectives staged through pinned host memory. Gated by
+   ring_gate: 24 forward, dK/dV and dQ launches a step on each sp-rank-0
+   process and 48 on each sp-rank-1 process (144 forward launches over
+   the ranks); the bf16 loss, the same on every rank, within LM_NLL_ATOL
+   of the one-device loss; in float32 at FP32_LAYERS layers one step's
+   gathered parameters within F32_TOL and its updates within
+   MESH_UPDATE_RTOL of the one-device step's; on each rank the diagonal
+   hop's kernels (hop 0, causal) and on each sp-rank-1 rank the past
+   hop's (sp-rank 0's block, unmasked), at the main path's shape: the
+   forward against its plain version (FWD_TOL, LSE_TOL), the dK/dV and
+   dQ kernels with the ring's merged lse and D against theirs (BWD_TOL);
+   attention(impl='ring') against impl='full' in float32 at
+   dryrun_multichip phase (j)'s shape over sp = 4, plain and flash,
+   within F32_TOL. Printed: each rank's step ms and device ms of one
+   profiled step, the bytes staged through the host a step, the card's
+   busy share (the ranks' device ms summed over the slowest median step).
 
 It prints one JSON line with every kernel's numbers, then the card's
 name and power limit from nvidia-smi, and last
@@ -389,6 +423,7 @@ import json
 import math
 import os
 import random
+import shutil
 import subprocess
 import sys
 import threading
@@ -652,7 +687,7 @@ CONV_SM90_MUTANTS = {
                          ': ' + _TRUNCATE + 'v[0], v[1]));'),
 }
 
-ALL_PHASES = frozenset(range(2, 26))
+ALL_PHASES = frozenset(range(2, 28))
 # phase 7: the imperative NDArray path's size (n x n inputs)
 ND_SIZE = 1024
 ND_HOST_CALLS = 2000
@@ -8897,6 +8932,482 @@ def artifact_phase(torch, mx, cuda_conv, cuda_ops, root, ctx=None):
     return run
 
 
+# -- phases 26-27: the mesh, the collectives and ring attention -------------
+
+MESH_ONE = {'data': 1, 'sp': 1, 'model': 1}
+# phase 26's updated parameters against phase 5's one-device step on the
+# same bf16 weights and tokens. The mesh path runs the same kernels on the
+# same inputs (attention on one device: no ring over an sp axis of one
+# rank) and the same products; what may differ is float32 rounding where
+# the loss is scaled (a block's mean times its share of the tokens, here
+# 1.0), and a float32 difference in a gradient can move a bf16 update
+# across one rounding. So each parameter is held within one bf16 step of
+# the one-device value (bf16 keeps 8 significant bits: a step is at most
+# 2^-7 of the value), and the share that differs at all is printed. Most
+# bf16 updates round away below half a step, so this bound cannot tell a
+# step that skipped its update: the float32 steps below are gated on the
+# update itself.
+MESH_W_RTOL = 2.0 ** -7
+# The float32 steps of phases 26 and 27 (FP32_LAYERS layers at full
+# width) are gated on their updates: per leaf, |(w_new - w_old) - (w_ref
+# - w_old)| <= MESH_UPDATE_RTOL * max|w_ref - w_old| + eps |w_old|, with
+# w_ref the one-device step's. eps |w_old| is one float32 rounding of the
+# weight (each step rounds w - lr g once, at most half a unit in the last
+# place). The sharded step sums the same float32 gradient in another
+# order (the products split over 'model', the ring's lse merge, the loss
+# as block means over data x sp), a relative error of order 1e-6 of the
+# leaf's largest element; a hop's dK / dV dropped or the update skipped
+# moves some leaf by order one of its largest update. 1e-3 sits between
+# (the CPU rehearsal in tests/test_torch_ring_attention.py,
+# test_update_gate_fails_planted_faults, reads both).
+MESH_UPDATE_RTOL = 1e-3
+MESH_RING = {'data': 1, 'sp': 2, 'model': 2}
+MESH_RANKS = 4
+MESH_RING_STEPS = 3          # timed steps a rank, after one warm-up
+MESH_J_SP = 4                # __graft_entry__ dryrun phase (j), at sp = 4
+
+
+def lm_batch(torch, vocab, device):
+    """Phase 3's first request, (tokens, targets) of BATCH x SEQ."""
+    tok = np.random.default_rng(SEED + 1).integers(0, vocab,
+                                                   (BATCH, SEQ + 1))
+    tok = torch.from_numpy(tok).to(device)
+    return tok[:, :-1], tok[:, 1:]
+
+
+def leaves_within(torch, got, ref, rtol, atol):
+    """Leaf by leaf, |got - ref| <= atol + rtol |ref|: (all within, the
+    largest error, the largest error over its bound, the share of the
+    elements that differ at all, every leaf bit-equal)."""
+    worst = worst_ratio = 0.0
+    differ = total = 0
+    for g, r in zip(got, ref):
+        g, r = g.detach().float(), r.detach().float()
+        err = (g - r).abs()
+        worst = max(worst, float(err.max()))
+        worst_ratio = max(worst_ratio, float(
+            (err / (atol + rtol * r.abs()).clamp(min=1e-30)).max()))
+        differ += int((err > 0).sum())
+        total += err.numel()
+    return dict(ok=worst_ratio <= 1.0, max_abs_err=worst,
+                max_err_over_bound=worst_ratio,
+                share_differ=differ / max(total, 1), bit_equal=differ == 0,
+                rtol=rtol, atol=atol)
+
+
+def updates_within(torch, new, old, ref, rtol):
+    """Leaf by leaf, the update new - old against the reference update
+    ref - old: |(new - old) - (ref - old)| <= rtol max|ref - old| + eps
+    |old| (eps of old's dtype: one rounding of the weight). Returns (all
+    within, the largest error over its bound, the largest error as a
+    share of its leaf's largest reference update, the smallest such
+    largest update, rtol)."""
+    worst = worst_rel = 0.0
+    smallest = math.inf
+    for n, o, r in zip(new, old, ref):
+        eps = torch.finfo(o.dtype).eps
+        n, o, r = (t.detach().float() for t in (n, o, r))
+        want = r - o
+        err = ((n - o) - want).abs()
+        top = float(want.abs().max())
+        bound = rtol * top + eps * o.abs()
+        worst = max(worst, float((err / bound.clamp(min=1e-30)).max()))
+        worst_rel = max(worst_rel, float(err.max()) / max(top, 1e-30))
+        smallest = min(smallest, top)
+    return dict(ok=worst <= 1.0, max_err_over_bound=worst,
+                max_err_of_leaf_update=worst_rel,
+                smallest_leaf_update=smallest, rtol=rtol)
+
+
+def fp32_mesh_step(torch, cuda_ops, tfm, mesh, tokens, targets,
+                   reference):
+    """One float32 step at GPT-2-medium widths and FP32_LAYERS layers
+    through `mesh` (every rank of it takes part): its flash launches and
+    loss; with `reference`, also the one-device step from the same
+    weights on this rank, and the gathered parameters (leaves_within,
+    F32_TOL) and updates (updates_within, MESH_UPDATE_RTOL) held against
+    it."""
+    cfg = tfm.lm_config(use_flash=True,
+                        **dict(GPT2_MEDIUM, layers=FP32_LAYERS))
+    tree = seeded_tree(cfg, SEED + 3)
+    old = tfm.params_from_jax(tree, dtype=torch.float32, device=mesh.device)
+    counts = read_counts(cuda_ops)
+    loss, new = tfm.make_train_step(cfg, mesh, lr=LR)(
+        tfm.place_params(old, cfg, mesh), tokens, targets)
+    row = dict(fp32_launches=[a - b for a, b in zip(read_counts(cuda_ops),
+                                                     counts)],
+               fp32_loss=float(loss))
+    new = tfm.tree_leaves(tfm.gather_params(new, cfg, mesh))
+    if reference:
+        model = tfm.TransformerLM(cfg, tfm.params_from_jax(
+            tree, dtype=torch.float32, device=mesh.device))
+        row['fp32_one_device_loss'] = float(tfm.make_train_step(
+            cfg, lr=LR)(model, tokens, targets))
+        ref = list(model.parameters())
+        row['fp32_params'] = leaves_within(torch, new, ref, F32_TOL['rtol'],
+                                           F32_TOL['atol'])
+        row['fp32_updates'] = updates_within(
+            torch, new, tfm.tree_leaves(old), ref, MESH_UPDATE_RTOL)
+    return row
+
+
+def mesh_step_phase(torch, cuda_ops, tfm, pmesh, profiler, root, batch,
+                    train=None):
+    """Phase 26: the GPT-2-medium bf16 train step through the mesh path at
+    world 1 over NCCL, held against the one-device step."""
+    cfg = tfm.lm_config(use_flash=True, **GPT2_MEDIUM)
+    tokens, targets = batch
+    out = root / 'build' / 'phase26'
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    pmesh.init_process_group(device='cuda:0', rank=0, world_size=1,
+                             init_method='file://%s' % (out / 'rendezvous'))
+    try:
+        mesh = pmesh.make_mesh(MESH_ONE)
+        tree = seeded_tree(cfg, SEED + 26)
+        params = tfm.params_from_jax(tree, dtype=torch.bfloat16,
+                                     device='cuda')
+        del tree
+        local = tfm.place_params(params, cfg, mesh)   # copies
+        # the one-device step (phase 5's) from the same weights, in place
+        model = tfm.TransformerLM(cfg, params)
+        one_loss = float(tfm.make_train_step(cfg, lr=LR)(model, tokens,
+                                                          targets))
+        ref = [p.detach() for p in model.parameters()]
+        del model, params
+
+        step = tfm.make_train_step(cfg, mesh, lr=LR)
+        stats = profiler.mesh_stats()
+        reset_counts(cuda_ops)
+        loss, local = step(local, tokens, targets)
+        torch.cuda.synchronize()
+        first = read_counts(cuda_ops)
+        check = leaves_within(torch, tfm.tree_leaves(
+            tfm.gather_params(local, cfg, mesh)), ref, MESH_W_RTOL, 0.0)
+        del ref
+
+        reset_counts(cuda_ops)
+        times, per_step = [], []
+        for _ in range(TRAIN_STEPS):
+            counts = read_counts(cuda_ops)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, local = step(local, tokens, targets)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            per_step.append([a - b for a, b in zip(read_counts(cuda_ops),
+                                                    counts)])
+        launches = read_counts(cuda_ops)
+        staged = profiler.mesh_stats()['mesh_staged_bytes'] - \
+            stats['mesh_staged_bytes']
+        dev_ms, top, _ = profile_device(
+            torch, lambda: step(local, tokens, targets),
+            'mesh step profile, one step', 8)
+        backend = mesh.backend
+        del local, step
+        torch.cuda.empty_cache()
+        fp32 = fp32_mesh_step(torch, cuda_ops, tfm, mesh, tokens, targets,
+                              True)
+        torch.cuda.empty_cache()
+    finally:
+        pmesh.destroy_process_group()
+    step_ms = sorted(times)[len(times) // 2] * 1e3
+    run = dict(config='gpt2-medium widths, %d layers, bf16, mesh %s'
+               % (cfg['layers'], MESH_ONE), backend=backend,
+               loss=float(loss), one_device_loss=one_loss,
+               loss_atol=LM_NLL_ATOL, params=check, first_launches=first,
+               launches=launches, launches_per_step=per_step,
+               step_ms=[t * 1e3 for t in times], step_ms_median=step_ms,
+               one_device_step_ms_median=None if train is None else
+               train['step_ms_median'], staged_bytes=staged,
+               profiled_device_ms=dev_ms,
+               device_busy_share=dev_ms / step_ms, profile_top=top, **fp32)
+    print('mesh step ' + json.dumps(run))
+    want = [cfg['layers']] * 3
+    if backend != 'nccl':
+        fail('phase 26: world 1 on one card took %s, not NCCL' % backend)
+    if list(first) != want or per_step != [want] * TRAIN_STEPS:
+        fail('phase 26: launches (fwd, dK/dV, dQ) %s then %s, expected %s '
+             'a step' % (first, per_step, want))
+    if abs(run['loss'] - one_loss) > LM_NLL_ATOL:
+        fail('phase 26: mesh loss %.5f vs one-device %.5f (tol %g)'
+             % (run['loss'], one_loss, LM_NLL_ATOL))
+    if not check['ok']:
+        fail('phase 26: updated parameters off the one-device step: %s'
+             % check)
+    if fp32['fp32_launches'] != [FP32_LAYERS] * 3:
+        fail('phase 26: float32 launches %s' % fp32['fp32_launches'])
+    if not fp32['fp32_updates']['ok']:
+        fail('phase 26: float32 updates off the one-device step: %s'
+             % fp32['fp32_updates'])
+    if staged:
+        fail('phase 26: an NCCL group staged %d bytes' % staged)
+    print('mesh step: %.1f ms a step (phase 5: %s ms), 24/24/24 launches, '
+          'loss %.5f vs %.5f, parameters %s; float32 updates within %.3g '
+          'of their leaf\'s largest (%.3g of the bound)' % (
+              step_ms, run['one_device_step_ms_median'], run['loss'],
+              one_loss, 'bit-equal' if check['bit_equal'] else
+              'within one bf16 step (%.3g %% differ)'
+              % (100 * check['share_differ']),
+              fp32['fp32_updates']['max_err_of_leaf_update'],
+              fp32['fp32_updates']['max_err_over_bound']))
+    return run
+
+
+def hop_check(torch, out, lse, ref_out, ref_lse, grads, ref_grads):
+    """One bf16 hop's forward (FWD_TOL, LSE_TOL) and dq, dk, dv (BWD_TOL)
+    against their plain versions."""
+    ltol = LSE_TOL['bfloat16']
+    err = (lse - ref_lse).abs()
+    return dict(
+        out=grad_mismatch(torch, out, ref_out, FWD_TOL['bfloat16']),
+        lse_max_abs_err=float(err.max()),
+        lse_ok=bool((err <= ltol['atol'] + ltol['rtol']
+                     * ref_lse.abs()).all()),
+        **{name: grad_mismatch(torch, got, ref, BWD_TOL['bfloat16'])
+           for name, got, ref in zip(('dq', 'dk', 'dv'), grads,
+                                     ref_grads)})
+
+
+def mesh_rank(rank, out_dir):
+    """Phase 27, one rank of MESH_RANKS sharing the card over gloo."""
+    import torch
+    from mxnet_tpu_torch import _build, cuda_ops, profiler
+    from mxnet_tpu_torch.parallel import mesh as pmesh
+    from mxnet_tpu_torch.parallel import transformer as tfm
+    from mxnet_tpu_torch.parallel.ring_attention import (_rotate,
+                                                        ring_forward)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.library()                # built by the parent
+    mesh = pmesh.make_mesh(MESH_RING)
+    sp = mesh.axis_index('sp')
+    dev = mesh.device
+    row = dict(rank=rank, coordinate=mesh.coordinate, device=str(dev),
+               backend=mesh.backend, staged=mesh.staged)
+    cfg = tfm.lm_config(use_flash=True, **GPT2_MEDIUM)
+    tokens, targets = lm_batch(torch, cfg['vocab'], dev)
+    tree = seeded_tree(cfg, SEED + 26)     # phase 26's weights
+    local = tfm.place_params(tfm.params_from_jax(
+        tree, dtype=torch.bfloat16, device=dev), cfg, mesh)
+    step = tfm.make_train_step(cfg, mesh, lr=LR)
+    loss, local = step(local, tokens, targets)
+    torch.cuda.synchronize()
+    row['loss'] = float(loss)
+
+    # the main path: MESH_RING_STEPS steps, counted and timed
+    stats = profiler.mesh_stats()
+    reset_counts(cuda_ops)
+    times, per_step = [], []
+    for _ in range(MESH_RING_STEPS):
+        counts = read_counts(cuda_ops)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, local = step(local, tokens, targets)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        per_step.append([a - b for a, b in zip(read_counts(cuda_ops),
+                                                counts)])
+    row['launches'] = read_counts(cuda_ops)
+    after = profiler.mesh_stats()
+    row.update(launches_per_step=per_step, step_ms=[t * 1e3 for t in times],
+               **{k + '_per_step': (after['mesh_' + k] - stats['mesh_' + k])
+                  / MESH_RING_STEPS for k in ('collectives', 'payload_bytes',
+                                              'staged_bytes', 'ring_hops')})
+    events = device_events(torch, lambda: step(local, tokens, targets))
+    row['profiled_device_ms'] = sum(device_us(e) for e in events) / 1e3
+    del local, step
+    if rank == 0:                   # the one-device loss, same weights
+        with torch.inference_mode():
+            model = tfm.TransformerLM(cfg, tfm.params_from_jax(
+                tree, dtype=torch.bfloat16, device=dev))
+            row['one_device_loss'] = float(model.loss(tokens, targets))
+        del model
+    del tree
+    torch.cuda.empty_cache()
+
+    # float32 at full width, FP32_LAYERS layers: one step's parameters
+    # and updates
+    row.update(fp32_mesh_step(torch, cuda_ops, tfm, mesh, tokens, targets,
+                              rank == 0))
+    torch.cuda.empty_cache()
+
+    # the hops' kernels against their plain versions, with the ring's
+    # merged lse and D: hop 0 is this rank's own block, the diagonal
+    # (causal); on sp-rank 1 hop 1 holds sp-rank 0's block, the past
+    # (unmasked), as on the main path
+    heads = GPT2_MEDIUM['heads'] // MESH_RING['model']
+    dh = GPT2_MEDIUM['dim'] // GPT2_MEDIUM['heads']
+    shape = (BATCH, heads, SEQ // MESH_RING['sp'], dh)
+    scale = 1.0 / math.sqrt(dh)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 27 + rank)
+    q, k, v, do = (torch.randn(shape, generator=gen, device=dev,
+                               dtype=torch.bfloat16) for _ in range(4))
+    out, lse = ring_forward(q, k, v, mesh, 'sp', True, scale, True)
+    kout, klse = cuda_ops._flash_fwd_cuda(q, k, v, True, scale)
+    ref_out, ref_lse = cuda_ops.flash_attention_online_reference(
+        q, k, v, True, scale, block_k=FWD_BLOCK_K)
+    dd = cuda_ops.attention_bwd_delta(out, do).contiguous()
+    args = (q, k, v, do, lse, dd, True, scale)
+    dk, dv = cuda_ops.flash_attention_bwd_dkdv_cuda(*args)
+    dq = cuda_ops.flash_attention_bwd_dq_cuda(*args)
+    ref_dk, ref_dv = cuda_ops.flash_attention_bwd_dkdv_reference(*args)
+    ref_dq = cuda_ops.flash_attention_bwd_dq_reference(*args)
+    row['hop'] = hop_check(torch, kout, klse, ref_out, ref_lse,
+                           (dq, dk, dv), (ref_dq, ref_dk, ref_dv))
+    row['hop'].update(shape=list(shape), hops_merged=sp + 1,
+                      merged_lse_minus_hop_lse_max=float(
+                          (lse - klse).abs().max()))
+    kb, vb = (t.contiguous() for t in _rotate(mesh, 'sp', k, v))
+    if sp:
+        pout, plse = cuda_ops._flash_fwd_cuda(q, kb, vb, False, scale)
+        ref_out, ref_lse = cuda_ops.flash_attention_online_reference(
+            q, kb, vb, False, scale, block_k=FWD_BLOCK_K)
+        args = (q, kb, vb, do, lse, dd, False, scale)
+        dk, dv = cuda_ops.flash_attention_bwd_dkdv_cuda(*args)
+        dq = cuda_ops.flash_attention_bwd_dq_cuda(*args)
+        ref_dk, ref_dv = cuda_ops.flash_attention_bwd_dkdv_reference(*args)
+        ref_dq = cuda_ops.flash_attention_bwd_dq_reference(*args)
+        row['past_hop'] = hop_check(torch, pout, plse, ref_out, ref_lse,
+                                    (dq, dk, dv), (ref_dq, ref_dk, ref_dv))
+
+    # attention(impl='ring') against impl='full' at dryrun phase (j)'s
+    # shape, float32, over an sp axis of all four ranks
+    mesh4 = pmesh.make_mesh({'sp': MESH_J_SP})
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    qkv = [torch.randn((2, 2, 16 * MESH_J_SP, 8), generator=gen, device=dev)
+           for _ in range(3)]
+    with pmesh.use_mesh(mesh4):
+        full = tfm.attention(*qkv, causal=True, impl='full')
+        row['ring_vs_full'] = {}
+        for use_flash in (False, True):
+            ring = tfm.attention(*qkv, causal=True, impl='ring',
+                                 use_flash=use_flash)
+            err = (ring - full).abs()
+            row['ring_vs_full']['flash' if use_flash else 'plain'] = dict(
+                max_abs_err=float(err.max()), ok=bool(
+                    (err <= F32_TOL['atol'] + F32_TOL['rtol'] *
+                     full.abs()).all()))
+    with open(os.path.join(out_dir, 'rank%d.json' % rank), 'w') as f:
+        json.dump(row, f)
+
+
+def ring_gate(rows):
+    """What is wrong with phase 27's ranks' rows (empty when nothing)."""
+    bad = []
+    layers = GPT2_MEDIUM['layers']
+    fwd = [0] * MESH_RING_STEPS
+    for row in rows:
+        r, sp = row['rank'], row['coordinate']['sp']
+        want = [layers * (sp + 1)] * 3
+        if row['launches_per_step'] != [want] * MESH_RING_STEPS:
+            bad.append('rank %d (sp %d): launches %s, expected %s a step'
+                       % (r, sp, row['launches_per_step'], want))
+        for i, counts in enumerate(row['launches_per_step']):
+            fwd[i] += counts[0]
+        if row['fp32_launches'] != [FP32_LAYERS * (sp + 1)] * 3:
+            bad.append('rank %d: float32 launches %s' % (r,
+                                                         row['fp32_launches']))
+        if row['backend'] != 'gloo' or not row['staged'] or \
+                not row['staged_bytes_per_step'] > 0:
+            bad.append('rank %d: backend %s, staged %s, %s bytes' % (
+                r, row['backend'], row['staged'],
+                row['staged_bytes_per_step']))
+        if row['loss'] != rows[0]['loss']:
+            bad.append('rank %d: loss %r, rank 0 %r' % (r, row['loss'],
+                                                         rows[0]['loss']))
+        hops = [('diagonal', row['hop'])]
+        if sp:              # sp-rank 1's past block runs unmasked
+            if 'past_hop' not in row:
+                bad.append('rank %d (sp %d): the past hop\'s kernels '
+                           'were not checked' % (r, sp))
+            else:
+                hops.append(('past', row['past_hop']))
+        for kind, hop in hops:
+            for name in ('out', 'dq', 'dk', 'dv'):
+                if not hop[name]['ok']:
+                    bad.append('rank %d: the %s hop\'s %s kernel off its '
+                               'plain version: %s' % (r, kind, name,
+                                                      hop[name]))
+            if not hop['lse_ok']:
+                bad.append('rank %d: %s hop lse off by %.3g' % (
+                    r, kind, hop['lse_max_abs_err']))
+        for kind, check in row['ring_vs_full'].items():
+            if not check['ok']:
+                bad.append('rank %d: %s ring vs full attention %.3g'
+                           % (r, kind, check['max_abs_err']))
+    want_fwd = layers * sum(c['sp'] + 1 for c in
+                            (row['coordinate'] for row in rows))
+    if fwd != [want_fwd] * MESH_RING_STEPS:
+        bad.append('forward launches over the ranks %s a step, expected %d'
+                   % (fwd, want_fwd))
+    r0 = rows[0]
+    if abs(r0['loss'] - r0['one_device_loss']) > LM_NLL_ATOL:
+        bad.append('bf16 loss %.5f vs one-device %.5f (tol %g)' % (
+            r0['loss'], r0['one_device_loss'], LM_NLL_ATOL))
+    if not r0['fp32_params']['ok']:
+        bad.append('float32 parameters off the one-device step: %s'
+                   % r0['fp32_params'])
+    if not r0['fp32_updates']['ok']:
+        bad.append('float32 updates off the one-device step: %s'
+                   % r0['fp32_updates'])
+    return bad
+
+
+def ring_phase(torch, pmesh, root, smi):
+    """Phase 27: MESH_RANKS processes share the card over gloo and train
+    the LM at MESH_RING; their rows are gated by ring_gate."""
+    out = root / 'build' / 'phase27'
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    try:
+        pmesh.spawn(mesh_rank, MESH_RANKS, out / 'rendezvous',
+                    args=(str(out),))
+    except Exception as e:          # a rank's own traceback is above
+        fail('phase 27: a rank failed: %s' % e)
+    wall_s = time.perf_counter() - t0
+    rows = []
+    for r in range(MESH_RANKS):
+        with open(out / ('rank%d.json' % r)) as f:
+            rows.append(json.load(f))
+    shutil.rmtree(out, ignore_errors=True)
+    step_ms = [sorted(row['step_ms'])[len(row['step_ms']) // 2]
+               for row in rows]
+    # the busy share: every rank's device time in one profiled step, taken
+    # after its timed steps, summed over the slowest rank's median step
+    device_ms = [row['profiled_device_ms'] for row in rows]
+    busy = sum(device_ms) / max(step_ms)
+    run = dict(config='gpt2-medium widths, %d layers, bf16, mesh %s, %d '
+               'ranks on one card over gloo' % (GPT2_MEDIUM['layers'],
+                                                MESH_RING, MESH_RANKS),
+               card=smi, wall_s=wall_s, step_ms_by_rank=step_ms,
+               profiled_device_ms_by_rank=device_ms,
+               launches=[sum(row['launches'][i] for row in rows)
+                         for i in range(3)],
+               staged_bytes_per_step_by_rank=[
+                   row['staged_bytes_per_step'] for row in rows],
+               device_busy_share=busy, ranks=rows)
+    print('ring ' + json.dumps(run))
+    bad = ring_gate(rows)
+    if bad:
+        fail('phase 27: ' + '; '.join(bad))
+    print('ring: %d ranks on one card (%s): step ms by rank %s, host-staged '
+          'MB a step by rank %s, device ms of a profiled step by rank %s, '
+          'the card busy %.1f %% of a step (their sum over the slowest '
+          'rank\'s median step), float32 parameters within F32_TOL (max '
+          '%.3g) and updates within %.3g of their leaf\'s largest (%.3g of '
+          'the bound), bf16 loss %.5f vs %.5f; phase took %.1f s' % (
+              MESH_RANKS, smi, ['%.1f' % ms for ms in step_ms],
+              ['%.1f' % (row['staged_bytes_per_step'] / 1e6) for row in rows],
+              ['%.1f' % ms for ms in device_ms], 100 * busy,
+              rows[0]['fp32_params']['max_abs_err'],
+              rows[0]['fp32_updates']['max_err_of_leaf_update'],
+              rows[0]['fp32_updates']['max_err_over_bound'], rows[0]['loss'], rows[0]['one_device_loss'], wall_s))
+    return run
+
+
 def main(argv=None):
     import argparse
     parser = argparse.ArgumentParser(
@@ -8912,7 +9423,7 @@ def main(argv=None):
                                                     v.split(',')},
                         default=ALL_PHASES,
                         help='build, then run only these phases (a comma '
-                             'list of 2-25); the kernels line needs all')
+                             'list of 2-27); the kernels line needs all')
     parser.add_argument('--dist-worker', choices=('ps', 'coord'),
                         help=argparse.SUPPRESS)
     parser.add_argument('--dist-out', help=argparse.SUPPRESS)
@@ -8940,10 +9451,12 @@ def main(argv=None):
         return
     phases = args.phases
     if not phases <= ALL_PHASES:
-        fail('--phases takes phases 2 to 25; got %s' % sorted(phases))
+        fail('--phases takes phases 2 to 27; got %s' % sorted(phases))
     sys.path.insert(0, str(root))
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import _build, cuda_conv, cuda_ops
+    from mxnet_tpu_torch import profiler
+    from mxnet_tpu_torch.parallel import mesh as pmesh
     from mxnet_tpu_torch.parallel import transformer as tfm
     from mxnet_tpu_torch.tools import bench_conv_bn
 
@@ -8985,12 +9498,14 @@ def main(argv=None):
                  in FWD_CASES.items()]
 
     # 3. the LM forward, the port's serving path
-    if phases & {3, 5}:
+    if phases & {3, 5, 26}:
         cfg = tfm.lm_config(use_flash=True, **GPT2_MEDIUM)
+    if phases & {3, 5}:
         t0 = time.perf_counter()
         params = tfm.params_from_jax(seeded_tree(cfg, SEED),
                                      dtype=torch.bfloat16, device='cuda')
         print('lm: parameters made in %.1f s' % (time.perf_counter() - t0))
+    if phases & {3, 5, 26}:
         rng = np.random.default_rng(SEED + 1)
         requests = []
         for _ in range(REQUESTS):
@@ -9104,6 +9619,17 @@ def main(argv=None):
     if 25 in phases:
         artifact_phase(torch, mx, cuda_conv, cuda_ops, root)
 
+    # 26. the LM step through the mesh path, world 1 over NCCL
+    if 26 in phases:
+        mesh_run = mesh_step_phase(torch, cuda_ops, tfm, pmesh, profiler,
+                                   root, requests[0],
+                                   train if 5 in phases else None)
+
+    # 27. four ranks share the card: dp x sp x tp = 1 x 2 x 2 over gloo,
+    # the ring's hops on the flash kernels
+    if 27 in phases:
+        ring_run = ring_phase(torch, pmesh, root, smi)
+
     if phases != ALL_PHASES:
         print('phases %s passed' % sorted(phases))
         return
@@ -9125,7 +9651,9 @@ def main(argv=None):
                               gluon_lstm_train=gluon_lm['kernel_launches'][
                                   'flash_fwd'],
                               fleet_lm_serve=fleet['flash']['launches'],
-                              fleet_router_scorer=router['path_launches']),
+                              fleet_router_scorer=router['path_launches'],
+                              lm_train_mesh=mesh_run['launches'][0],
+                              lm_train_ring=ring_run['launches'][0]),
         max_abs_err=main_case['max_abs_err'],
         share_differ=main_case['share_differ'],
         ms=main_case['ms'], tflops=main_case['tflops'],
@@ -9165,7 +9693,9 @@ def main(argv=None):
                 lstm_ptb_train=ptb['kernel_launches'][
                     ('flash_bwd_dkdv', 'flash_bwd_dq')[i]],
                 gluon_lstm_train=gluon_lm['kernel_launches'][
-                    ('flash_bwd_dkdv', 'flash_bwd_dq')[i]]),
+                    ('flash_bwd_dkdv', 'flash_bwd_dq')[i]],
+                lm_train_mesh=mesh_run['launches'][1 + i],
+                lm_train_ring=ring_run['launches'][1 + i]),
             max_abs_err=main_case['max_abs_err'], ms=main_case['ms'],
             plain_ms=main_case['plain_ms'], bound_ms=main_case['bound_ms'],
             bound_by=main_case['bound_by'],

@@ -35,6 +35,7 @@ import hashlib
 import hmac
 import os
 import pickle
+import signal
 import socket
 import struct
 import threading
@@ -1097,6 +1098,14 @@ def main():
     sync = os.environ.get('MXNET_KVSTORE_SYNC', '1') == '1'
     server = KVStoreServer(base_port + server_id, num_workers,
                            sync_mode=sync)
+
+    def _stop(signum, frame):
+        # the launcher SIGTERMs its servers as soon as the workers have
+        # exited, which can be before the run loop has seen a worker's
+        # STOP: end the run as STOP does, so the report is still written
+        server.stopped = True
+
+    signal.signal(signal.SIGTERM, _stop)
     server.run()
     report = server.report()
     if report['cuda_initialized']:

@@ -1,6 +1,31 @@
-"""Parallel layers of the port. So far one device: `full_attention` and
-the transformer LM (`transformer`); the mesh, collectives and the ring
-across devices come with the multi-GPU slice."""
-from .ring_attention import full_attention
+"""Parallelism over torch.distributed: the counterpart of
+mxnet_tpu/parallel.
 
-__all__ = ['full_attention']
+One process per rank in the default process group; a `Mesh` names axes
+over the ranks (`mesh.py`), the collectives run over an axis's group
+(`collectives.py`), ring attention shards the sequence (`ring_attention.py`)
+and the transformer LM trains at dp x tp x sp (`transformer.py`).
+`pipeline`, `moe`, `zero` and `embedding` are not ported yet (ROADMAP
+Queue A 6b-6d): reaching them raises.
+"""
+from .mesh import (make_mesh, data_sharding, replicated, flat_sharding,
+                   shard_batch, replicate_params, current_mesh,
+                   set_current_mesh)
+from .ring_attention import ring_attention, full_attention
+from . import collectives
+
+_UNPORTED = {'pipeline': '6d', 'moe': '6d', 'zero': '6b', 'embedding': '6c'}
+
+
+def __getattr__(name):
+    if name in _UNPORTED:
+        from ..base import unported
+        raise unported('mxnet_tpu_torch.parallel.%s (item %s)'
+                       % (name, _UNPORTED[name]), '6')
+    raise AttributeError('module %r has no attribute %r' % (__name__, name))
+
+
+__all__ = ['make_mesh', 'data_sharding', 'replicated', 'flat_sharding',
+           'shard_batch', 'replicate_params', 'current_mesh',
+           'set_current_mesh', 'ring_attention', 'full_attention',
+           'collectives']

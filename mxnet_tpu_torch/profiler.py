@@ -18,10 +18,11 @@ the serving fleet's (registry, HTTP front, continuous batcher), the
 self-healing fleet's (supervisor, router, canary), the train -> serve
 loop's, the hot-swap and host-hiding counters, the bucketed-training
 and the input pipeline's counters, the elastic checkpoints', the dist
-runtime's and the weight deltas'; `summary()` prints them, and
-`dump_profile` writes each as a metadata event ('exec_cache',
-'serving', 'fleet', 'quant', 'fleet_supervisor', 'loop', 'overlap',
-'bucketing', 'input_pipeline', 'checkpoint', 'dist', 'delta').
+runtime's, the weight deltas' and the mesh collectives'; `summary()`
+prints them, and `dump_profile` writes each as a metadata event
+('exec_cache', 'serving', 'fleet', 'quant', 'fleet_supervisor', 'loop',
+'overlap', 'bucketing', 'input_pipeline', 'checkpoint', 'dist',
+'delta', 'mesh').
 """
 import json
 import os
@@ -564,6 +565,33 @@ def delta_stats():
         return dict(_DELTA)
 
 
+# mesh collective counters (parallel/collectives.py): collectives issued
+# over an axis of more than one rank, their payload bytes (what each
+# rank handed to the collective), the bytes copied between the card and
+# pinned host memory to carry CUDA tensors over a gloo group (an NCCL
+# group never stages), and the ring attention hops that ran a block
+_MESH = {
+    'mesh_collectives': 0,
+    'mesh_payload_bytes': 0,
+    'mesh_staged_bytes': 0,
+    'mesh_ring_hops': 0,
+}
+
+
+def add_mesh_stats(**deltas):
+    """Accumulate mesh collective counters (keys without the mesh_
+    prefix)."""
+    with _STATE['lock']:
+        for k, v in deltas.items():
+            _MESH['mesh_' + k] += int(v)
+
+
+def mesh_stats():
+    """Snapshot of the mesh collective counters."""
+    with _STATE['lock']:
+        return dict(_MESH)
+
+
 
 def summary(print_out=True):
     """Human-readable profile summary: span time by category, then the
@@ -666,7 +694,7 @@ def summary(print_out=True):
                      'warmups=%d warm_compiles=%d'
                      % (rung, e['steps'], e['dispatches'], e['compiles'],
                         e['warmups'], e['warm_compiles']))
-    for stats in (ckpt_stats(), dist_stats(), delta_stats()):
+    for stats in (ckpt_stats(), dist_stats(), delta_stats(), mesh_stats()):
         lines.append('  ' + ' '.join('%s=%s' % kv
                                      for kv in sorted(stats.items())))
     text = '\n'.join(lines)
@@ -784,7 +812,9 @@ def dump_profile():
               {'ph': 'M', 'name': 'dist', 'pid': 0,
                'args': dist_stats()},
               {'ph': 'M', 'name': 'delta', 'pid': 0,
-               'args': delta_stats()}]
+               'args': delta_stats()},
+              {'ph': 'M', 'name': 'mesh', 'pid': 0,
+               'args': mesh_stats()}]
     with _STATE['lock']:
         records = list(_STATE['records'])
     for name, cat, ts, dur, tid in records:
@@ -834,7 +864,7 @@ def clear():
         _BUCKET_RUNGS.clear()
         for k in _INPUT:
             _INPUT[k] = type(_INPUT[k])()
-        for d in (_CKPT, _DIST, _DELTA):
+        for d in (_CKPT, _DIST, _DELTA, _MESH):
             for k in d:
                 d[k] = type(d[k])()
         del _SERVE_LAT[:]

@@ -21,7 +21,8 @@ import jax.numpy as jnp
 from mxnet_tpu import pallas_ops
 from mxnet_tpu.parallel.ring_attention import full_attention as jax_full
 from mxnet_tpu_torch import cuda_ops
-from mxnet_tpu_torch.parallel import ring_attention as torch_ring
+from mxnet_tpu_torch.parallel.ring_attention import (
+    full_attention as torch_full)
 
 REPO = Path(__file__).resolve().parent.parent
 # the JAX package's own flash tolerance (tests/test_parallel.py)
@@ -116,7 +117,7 @@ def test_full_attention_rejects_causal_tq_gt_tk():
     q = torch.zeros(1, 1, 64, 16)
     k = torch.zeros(1, 1, 32, 16)
     with pytest.raises(ValueError, match='q_len <= kv_len'):
-        torch_ring.full_attention(q, k, k, causal=True)
+        torch_full(q, k, k, causal=True)
 
 
 @pytest.mark.parametrize('use_flash', [False, True])
@@ -127,9 +128,9 @@ def test_full_attention_matches_jax(use_flash, q_len, causal):
     ref = jax_full(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                    causal=causal, use_flash=use_flash)
     launches = cuda_ops.FLASH_FWD_LAUNCHES
-    out = torch_ring.full_attention(torch.from_numpy(q), torch.from_numpy(k),
-                                    torch.from_numpy(v), causal=causal,
-                                    use_flash=use_flash)
+    out = torch_full(torch.from_numpy(q), torch.from_numpy(k),
+                     torch.from_numpy(v), causal=causal,
+                     use_flash=use_flash)
     # on the CPU no kernel launches, whichever path is taken
     assert cuda_ops.FLASH_FWD_LAUNCHES == launches
     np.testing.assert_allclose(out.numpy(), np.asarray(ref),
@@ -173,7 +174,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         'mxnet_tpu_torch.cuda_conv, mxnet_tpu_torch.tools, '
         'mxnet_tpu_torch.tools.bench_conv_bn, '
         'mxnet_tpu_torch.parallel, mxnet_tpu_torch.parallel.ring_attention, '
-        'mxnet_tpu_torch.parallel.transformer\n'
+        'mxnet_tpu_torch.parallel.transformer, '
+        'mxnet_tpu_torch.parallel.mesh, mxnet_tpu_torch.parallel.collectives\n'
         'added = set(sys.modules) - before\n'
         "bad = sorted(m for m in added if m == 'jax' or "
         "m.startswith('jax.') or m == 'mxnet_tpu' or "

@@ -127,7 +127,9 @@ def test_prefetch_to_device_serves_the_source_and_stops():
     x, y = _data(14)
     src = tio.NDArrayIter(x, y, batch_size=4)
     ref = _epochs(tio.NDArrayIter(x, y, batch_size=4))
-    before = threading.active_count()
+    # threads of earlier tests may still be ending: only the iterator's
+    # own must be gone after close()
+    before = set(threading.enumerate())
     it = tio.prefetch_to_device(src, size=2, device=mx.cpu())
     got = _epochs(it)
     _assert_same(got, ref)
@@ -138,7 +140,7 @@ def test_prefetch_to_device_serves_the_source_and_stops():
     np.testing.assert_array_equal(it.next().data[0].asnumpy(),
                                   first.data[0].asnumpy())
     it.close()
-    assert threading.active_count() == before
+    assert not set(threading.enumerate()) - before
     staged = tio.stage_to_device([x[:2], mx.nd.array(x[:2], ctx=mx.cpu())],
                                  device=mx.cpu())
     for t in staged:

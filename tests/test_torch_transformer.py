@@ -221,3 +221,165 @@ def test_entry_points_without_device_need_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tfm.params_from_jax(tree)
     assert context.resolve_device('cpu') == torch.device('cpu')
+
+
+# -- the sharded step: eight ranks of a gloo group on the CPU -----------------
+
+STEP_CFG = dict(vocab=64, dim=32, heads=4, layers=2, mlp_mult=4)
+STEP_LR, STEP_STEPS = 0.1, 2
+# the port's sharded step against the JAX sharded program with the
+# corrected layout: float32 on both sides, other summing orders
+STEP_RTOL, STEP_ATOL = 1e-5, 1e-7
+
+
+def _step_inputs():
+    cfg = jax_tfm.lm_config(**STEP_CFG)
+    tree = _numpy_tree(jax_tfm.init_params(cfg, jax.random.PRNGKey(7)))
+    leaves = tfm.tree_leaves(tree)
+    rs = np.random.RandomState(8)
+    tok = rs.randint(0, STEP_CFG['vocab'], (4, 17)).astype(np.int32)
+    inputs = {'p_%d' % i: w for i, w in enumerate(leaves)}
+    inputs.update({'cfg_' + k: v for k, v in STEP_CFG.items()})
+    inputs.update(tokens=tok[:, :-1], targets=tok[:, 1:], steps=STEP_STEPS,
+                  lr=STEP_LR)
+    return tree, inputs
+
+
+@pytest.fixture(scope='module')
+def sharded_run(tmp_path_factory):
+    import _torch_parallel_ranks as ranks
+    tree, inputs = _step_inputs()
+    res = ranks.run(ranks.step_suite, 8, tmp_path_factory.mktemp('step'),
+                    **inputs)
+    return tree, inputs, res
+
+
+def _qkv_order(dim, model):
+    """Column order of wqkv that gives JAX's contiguous model shard s
+    [q_s | k_s | v_s], the heads of shard s."""
+    blk = dim // model
+    return np.concatenate([np.arange(s * blk, (s + 1) * blk) + part * dim
+                           for s in range(model) for part in range(3)])
+
+
+def _jax_sharded(tree, shape, use_flash, tokens, targets, lr, steps,
+                 correct=True):
+    """The JAX package's sharded program from the global `tree`; with
+    `correct`, its wqkv columns ordered so that each model shard holds its
+    own heads' q, k and v, at lr / mesh size (ROADMAP Queue C, findings in
+    the JAX package). Returns the losses and the global tree after."""
+    n = int(np.prod(list(shape.values())))
+    mesh = make_mesh(shape, devices=jax.devices()[:n])
+    cfg = jax_tfm.lm_config(use_flash=use_flash, **STEP_CFG)
+    order = _qkv_order(cfg['dim'], shape['model'])
+    tree = jax.tree_util.tree_map(np.array, tree)
+    if correct:
+        for lp in tree['layers']:
+            lp['wqkv'] = lp['wqkv'][:, order]
+    params = jax_tfm.place_params(jax.tree_util.tree_map(jnp.asarray, tree),
+                                  cfg, mesh)
+    step = jax_tfm.make_train_step(cfg, mesh, lr=lr / n if correct else lr)
+    losses = []
+    for _ in range(steps):
+        loss, params = step(params, jnp.asarray(tokens), jnp.asarray(targets))
+        losses.append(float(loss))
+    out = _numpy_tree(params)
+    if correct:
+        for lp in out['layers']:
+            back = np.empty_like(lp['wqkv'])
+            back[:, order] = lp['wqkv']
+            lp['wqkv'] = back
+    return np.array(losses), out
+
+
+STEP_CASES = [(tag, flash) for tag in ('222', '141') for flash in (False,
+                                                                    True)]
+
+
+def _shape(tag):
+    return dict(zip(('data', 'sp', 'model'), (int(c) for c in tag)))
+
+
+@pytest.mark.parametrize('tag,use_flash', STEP_CASES)
+def test_sharded_step_matches_the_corrected_jax_program(sharded_run, tag,
+                                                        use_flash):
+    """The port's step at dp x sp x tp = (2, 2, 2) and (1, 4, 1), plain and
+    on the flash ring, two steps against the JAX sharded program with each
+    model shard's own heads and lr / mesh size: every loss and every
+    gathered parameter."""
+    tree, inputs, res = sharded_run
+    key = '%s_%s' % (tag, 'flash' if use_flash else 'plain')
+    losses, want = _jax_sharded(tree, _shape(tag), use_flash,
+                                inputs['tokens'], inputs['targets'],
+                                STEP_LR, STEP_STEPS)
+    np.testing.assert_allclose(res[0]['loss_' + key], losses,
+                               rtol=STEP_RTOL, atol=STEP_ATOL)
+    for i, ref in enumerate(tfm.tree_leaves(want)):
+        np.testing.assert_allclose(res[0]['w_%s_%d' % (key, i)], ref,
+                                   rtol=STEP_RTOL, atol=STEP_ATOL,
+                                   err_msg='leaf %d' % i)
+
+
+@pytest.mark.parametrize('tag,use_flash', STEP_CASES)
+def test_sharded_step_equals_the_one_device_step(sharded_run, tag,
+                                                 use_flash):
+    """Every rank of the mesh reports the same loss, and the gathered
+    parameters equal the port's one-device step's from the same tree."""
+    _, _, res = sharded_run
+    key = '%s_%s' % (tag, 'flash' if use_flash else 'plain')
+    on_mesh = 8 if tag == '222' else 4
+    for r in range(on_mesh):
+        np.testing.assert_array_equal(res[r]['loss_' + key],
+                                      res[0]['loss_' + key])
+        for i in range(2 + 6 * STEP_CFG['layers']):
+            np.testing.assert_array_equal(res[r]['w_%s_%d' % (key, i)],
+                                          res[0]['w_%s_%d' % (key, i)])
+    np.testing.assert_allclose(res[0]['loss_' + key], res[0]['loss_one'],
+                               rtol=STEP_RTOL, atol=STEP_ATOL)
+    for i in range(2 + 6 * STEP_CFG['layers']):
+        np.testing.assert_allclose(res[0]['w_%s_%d' % (key, i)],
+                                   res[0]['w_one_%d' % i], rtol=STEP_RTOL,
+                                   atol=STEP_ATOL, err_msg='leaf %d' % i)
+
+
+def test_place_params_gives_each_model_shard_its_heads(sharded_run):
+    tree, _, res = sharded_run
+    w = tree['layers'][0]['wqkv']
+    d = STEP_CFG['dim']
+    for r in range(8):
+        s = int(res[r]['coord_222'][2])         # the model index
+        cols = slice(s * d // 2, (s + 1) * d // 2)
+        want = np.concatenate([w[:, :d][:, cols], w[:, d:2 * d][:, cols],
+                               w[:, 2 * d:][:, cols]], axis=1)
+        np.testing.assert_array_equal(res[r]['wqkv_local_222'], want)
+    specs = tfm.param_specs(tfm.lm_config(**STEP_CFG))
+    ref = jax_tfm.param_specs(jax_tfm.lm_config(**STEP_CFG))
+    assert tuple(specs['layers'][0]['wqkv']) == \
+        tuple(ref['layers'][0]['wqkv'])
+    assert {k: tuple(v) for k, v in specs['layers'][1].items()} == \
+        {k: tuple(v) for k, v in ref['layers'][1].items()}
+
+
+def test_jax_sharded_step_departures(sharded_run):
+    """The two faults of the JAX package's sharded step that the port does
+    not copy, beside the port's agreement with the one-device step: at
+    {'data': 2} the JAX update is twice the one-device update, and at
+    {'model': 2} the JAX loss is another function's (shard 0's wqkv
+    columns are q's first heads and part of k)."""
+    tree, inputs, res = sharded_run
+    tok, tgt = inputs['tokens'], inputs['targets']
+    one_loss, one = _jax_sharded(tree, _shape('111'), False, tok, tgt,
+                                 STEP_LR, 1, correct=False)
+    _, dp = _jax_sharded(tree, _shape('211'), False, tok, tgt, STEP_LR, 1,
+                         correct=False)
+    tp_loss, _ = _jax_sharded(tree, _shape('112'), False, tok, tgt, STEP_LR,
+                              1, correct=False)
+    for w0, w1, w2 in zip(tfm.tree_leaves(tree), tfm.tree_leaves(one),
+                          tfm.tree_leaves(dp)):
+        ratio = np.linalg.norm(w2 - w0) / np.linalg.norm(w1 - w0)
+        np.testing.assert_allclose(ratio, 2.0, rtol=1e-3)
+    assert abs(tp_loss[0] - one_loss[0]) > 1e-4
+    # the port: its sharded step's first loss and update are the
+    # one-device step's
+    np.testing.assert_allclose(res[0]['loss_222_plain'][0], one_loss[0],
+                               rtol=STEP_RTOL, atol=STEP_ATOL)
