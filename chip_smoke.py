@@ -401,6 +401,29 @@ Phases, each of which exits non-zero on failure:
    within F32_TOL. Printed: each rank's step ms and device ms of one
    profiled step, the bytes staged through the host a step, the card's
    busy share (the ranks' device ms summed over the slowest median step).
+28. dp_mesh: phase 10's bf16 ResNet-50 (batch 256, seeded He-normal)
+   through Module(context=[gpu(0)]) as the one rank of a data mesh over
+   NCCL (world 1): DP_STEPS steps with ZeRO 0, its optimizer states
+   carried into ZeRO 1 for DP_STEPS more, then fit(bulk=2) on
+   io.prefetch_to_device(mesh=). Gated: the parameters and moving
+   statistics against the one-device Module's on the same batches
+   (MESH_W_RTOL; bit-equal expected), 32 conv launches a step, no byte
+   staged. Printed: the step ms beside the one-device Module's, the
+   optimizer-state bytes with ZeRO 0 and 1.
+29. dp_ranks: DP_RANKS workers of the port's tools/launch.py with
+   MXNET_TPU_DIST_JAX=1 share the card over gloo and train the same
+   network through Module(context=[gpu(0), gpu(1)]) at global batch
+   256, ZeRO 1 (dp_worker). Gated by dp_gate: on each rank 32 conv
+   launches a step and the kernel at each of its pair shapes (batch
+   128) against its plain version; the first step's loss and gathered
+   outputs within DP_LOSS_ATOL / DP_OUT_ATOL of phase 28's world-1 step;
+   parameters and moving statistics equal on both ranks; a rank's
+   optimizer state at most DP_STATE_SHARE of phase 28's ZeRO-0 bytes;
+   a float32 step of the cut ResNet's updates within MESH_UPDATE_RTOL
+   of the one-device step's, which per-rank statistics planted must
+   fail; the ranks' elastic ZeRO checkpoint restored at world 1 with
+   the gathered momenta and masters bit for bit. Printed: each rank's
+   step ms, collectives and bytes staged a step, the card's busy share.
 
 It prints one JSON line with every kernel's numbers, then the card's
 name and power limit from nvidia-smi, and last
@@ -687,7 +710,7 @@ CONV_SM90_MUTANTS = {
                          ': ' + _TRUNCATE + 'v[0], v[1]));'),
 }
 
-ALL_PHASES = frozenset(range(2, 28))
+ALL_PHASES = frozenset(range(2, 30))
 # phase 7: the imperative NDArray path's size (n x n inputs)
 ND_SIZE = 1024
 ND_HOST_CALLS = 2000
@@ -1551,7 +1574,7 @@ def conv_phase(torch, cuda_ops, cuda_conv, bench_conv_bn):
 
 def conv_kernel_entry(conv, sass, resnet, module, serve, bucketing,
                       gluon_run, ptb, gluon_lm, factories, record, dist_ps,
-                      dist_coord, loop):
+                      dist_coord, loop, dp_mesh, dp_ranks):
     """The conv_bn_stats entry of the kernels line: times at the main
     case's shape from the bench, errors from the cases, launches from the
     ResNet-50 train steps of phase 9 (its main path), of phase 10's
@@ -1559,8 +1582,9 @@ def conv_kernel_entry(conv, sass, resnet, module, serve, bucketing,
     phase 13's Gluon training (0), of phases 14 and 15's LSTM LMs (0),
     of phase 16's Inception-v3 and ResNeXt-50 steps, of phase 18's
     Module.fit fed by ImageRecordIter, of the worker processes of
-    phases 21 and 22 (each counts its own and reports them), and of
-    phase 23's trainer."""
+    phases 21 and 22 (each counts its own and reports them), of phase
+    23's trainer, of phase 28's Module as the one rank of a data mesh
+    (its steps and fit), and of phase 29's two ranks (their sum)."""
     xs, ws = CONV_CASES['main'][:2]
     main_shape = [xs[1], xs[3], ws[3], ws[0], CONV_CASES['main'][2][0]]
     bench = conv['bench']
@@ -1605,6 +1629,8 @@ def conv_kernel_entry(conv, sass, resnet, module, serve, bucketing,
                               dist_coordinator_train=dist_coord[
                                   'path_launches'],
                               train_serve_fit=loop['path_launches'],
+                              resnet_dp_mesh=dp_mesh['launches'],
+                              resnet_dp_ranks=dp_ranks['launches'],
                               conv_bn_bench=bench['launches']),
         stem_split=resnet['stem_split'],
         launches_per_train_step=resnet['train_launches'],
@@ -9408,6 +9434,498 @@ def ring_phase(torch, pmesh, root, smi):
     return run
 
 
+# -- phases 28 and 29: a Module over several contexts, ZeRO-1 -----------------
+
+DP_STEPS = 3                 # steps with ZeRO 0, then 3 with ZeRO 1
+DP_FIT_BULK = 2              # fit(bulk=2) over 2 batches: one dispatch
+DP_OPT = dict(learning_rate=0.1, momentum=0.9, wd=1e-4,
+              multi_precision=True)
+DP_RANKS = 2
+DP_SEED = SEED + 2800
+# phase 29's ZeRO-1 optimizer state a rank against phase 28's replicated
+# one: half of it and the padding of each bucket to the data size
+DP_STATE_SHARE = 0.55
+# phase 29's first step against phase 28's world-1 step, from the same
+# seeded weights on the same global batch: the ranks sum each BatchNorm's
+# float32 statistics over the two halves of the batch, which rounds them
+# otherwise than the one device's sum over all of it; a bf16 activation
+# can then move by one bf16 step (2^-8 of it), and the network carries
+# that to its output. The loss (the batch's mean NLL, about ln 1000) is
+# held within DP_LOSS_ATOL, each output probability within DP_OUT_ATOL.
+DP_LOSS_ATOL = 0.02
+DP_OUT_ATOL = 0.02
+DP_CUT_BATCH = 8             # the float32 cut ResNet's global batch
+
+
+def dp_resnet(mx, batch):
+    """Phase 10's bf16 ResNet-50 symbol and seeded He-normal values, the
+    data and label left out."""
+    symbol = mx.models.resnet.get_symbol(**RESNET)
+    shape = tuple(int(v) for v in RESNET['image_shape'].split(','))
+    args, auxs = resnet_params(symbol, dict(data=(batch,) + shape),
+                               RESNET['num_classes'], DP_SEED)
+    return symbol, shape, ({k: v for k, v in args.items()
+                            if k not in NO_GRAD}, auxs)
+
+
+def dp_batches(mx, shape, n, seed):
+    """n seeded global batches of RESNET_BATCH images on the host, batch i
+    drawn from seed + i (so that a prefix of them is the same batches):
+    the numpy arrays (x, y) and the DataBatches."""
+    xy = [module_data(RESNET['num_classes'], RESNET_BATCH, shape, seed + i)
+          for i in range(n)]
+    return xy, [mx.io.DataBatch(data=[mx.nd.array(x, ctx=mx.cpu())],
+                                label=[mx.nd.array(y, ctx=mx.cpu())])
+                for x, y in xy]
+
+
+def dp_module(mx, symbol, ctxs, batch, shape, params, zero, opt=None):
+    mod = mx.mod.Module(symbol, context=ctxs)
+    mod.bind(data_shapes=[mx.io.DataDesc('data', (batch,) + shape)],
+             label_shapes=[mx.io.DataDesc('softmax_label', (batch,))])
+    cpu = mx.cpu()
+    mod.init_params(initializer=None,
+                    arg_params={k: mx.nd.array(v, ctx=cpu)
+                                for k, v in params[0].items()},
+                    aux_params={k: mx.nd.array(v, ctx=cpu)
+                                for k, v in params[1].items()})
+    mod.init_optimizer(optimizer='sgd',
+                       optimizer_params=dict(opt or DP_OPT), zero=zero)
+    return mod
+
+
+def dp_nll(torch, out, label):
+    """The batch's mean NLL of the (gathered) softmax output."""
+    p = out.handle.float()
+    lab = label.handle.long().to(p.device)
+    return float(-torch.log(p.gather(1, lab[:, None]).clamp(min=1e-30))
+                 .mean())
+
+
+def dp_steps(torch, mx, cuda_conv, mod, batches):
+    """forward_backward + update over `batches`: each step's ms, conv
+    launches, loss and (for the first) its gathered output."""
+    rows = []
+    for i, b in enumerate(batches):
+        before = cuda_conv.CONV_BN_STATS_LAUNCHES
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mod.forward_backward(b)
+        mod.update()
+        torch.cuda.synchronize()
+        row = dict(ms=(time.perf_counter() - t0) * 1e3,
+                   launches=cuda_conv.CONV_BN_STATS_LAUNCHES - before)
+        out = mod.get_outputs()[0]
+        row['loss'] = dp_nll(torch, out, b.label[0])
+        if i == 0:
+            row['output'] = out.handle.float().cpu()
+        rows.append(row)
+    return rows
+
+
+def dp_state(mod):
+    """Weights and moving statistics by name, host copies."""
+    args, auxs = mod.get_params()
+    state = {'arg ' + k: v.handle.cpu() for k, v in args.items()}
+    state.update(('aux ' + k, v.handle.cpu()) for k, v in auxs.items())
+    return state
+
+
+def dp_digest(torch, tensors):
+    """One sha256 over the bytes of every tensor, by sorted name."""
+    import hashlib
+    h = hashlib.sha256()
+    for name in sorted(tensors):
+        t = tensors[name].detach().contiguous().cpu()
+        h.update(name.encode())
+        h.update(t.view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_mesh_phase(torch, mx, cuda_conv, pmesh, profiler, root, smi):
+    """Phase 28: the bf16 ResNet-50 through Module(context=[gpu(0)]) as
+    the one rank of a data mesh over NCCL: 3 steps with ZeRO 0, its
+    states carried into ZeRO 1 for 3 more, then fit(bulk=2) on
+    io.prefetch_to_device(mesh=); held against the one-device Module on
+    the same batches (no process group)."""
+    out = root / 'build' / 'phase28'
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    torch.cuda.empty_cache()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    symbol, shape, params = dp_resnet(mx, RESNET_BATCH)
+    xy, batches = dp_batches(mx, shape, 2 * DP_STEPS + DP_FIT_BULK,
+                             DP_SEED + 1)
+    fit_x = np.concatenate([x for x, _ in xy[2 * DP_STEPS:]])
+    fit_y = np.concatenate([y for _, y in xy[2 * DP_STEPS:]])
+    del xy
+    try:
+        # the one-device Module: six steps and the same fit
+        ref = dp_module(mx, symbol, [mx.gpu(0)], RESNET_BATCH, shape,
+                        params, 0)
+        assert ref._exec_group.mesh is None
+        ref_rows = dp_steps(torch, mx, cuda_conv, ref,
+                            batches[:2 * DP_STEPS])
+        ref.fit(mx.io.NDArrayIter(fit_x, fit_y, batch_size=RESNET_BATCH),
+                num_epoch=1, bulk=DP_FIT_BULK, eval_metric='acc')
+        ref_state = dp_state(ref)
+        del ref
+        torch.cuda.empty_cache()
+
+        pmesh.init_process_group(device='cuda:0', rank=0, world_size=1,
+                                 init_method='file://%s' % (out / 'rdv'))
+        try:
+            mod = dp_module(mx, symbol, [mx.gpu(0)], RESNET_BATCH, shape,
+                            params, 0)
+            eg = mod._exec_group
+            mesh = eg.mesh
+            backend = None if mesh is None else mesh.backend
+            profiler.clear()
+            stats = profiler.mesh_stats()
+            # the main path: the count set to 0 just before, read after
+            cuda_conv.CONV_BN_STATS_LAUNCHES = 0
+            z0 = dp_steps(torch, mx, cuda_conv, mod, batches[:DP_STEPS])
+            z0_bytes = mod._fused_updater.state_bytes_per_device()
+            blob = mod._fused_updater.get_states()
+            mod.init_optimizer(optimizer='sgd',
+                               optimizer_params=dict(DP_OPT), zero=1,
+                               force_init=True)
+            mod._fused_updater.set_states(blob)
+            z1 = dp_steps(torch, mx, cuda_conv, mod,
+                          batches[DP_STEPS:2 * DP_STEPS])
+            z1_bytes = mod._fused_updater.state_bytes_per_device()
+            staged = mx.io.prefetch_to_device(
+                mx.io.NDArrayIter(fit_x, fit_y, batch_size=RESNET_BATCH),
+                mesh=mesh)
+            before = cuda_conv.CONV_BN_STATS_LAUNCHES
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mod.fit(staged, num_epoch=1, bulk=DP_FIT_BULK,
+                    eval_metric='acc')
+            torch.cuda.synchronize()
+            fit_ms = (time.perf_counter() - t0) * 1e3
+            fit_launches = cuda_conv.CONV_BN_STATS_LAUNCHES - before
+            launches = cuda_conv.CONV_BN_STATS_LAUNCHES
+            after = profiler.mesh_stats()
+            comm = profiler.comm_stats()
+            state = dp_state(mod)
+            del mod, eg, staged
+        finally:
+            pmesh.destroy_process_group()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        shutil.rmtree(out, ignore_errors=True)
+    names = sorted(ref_state)
+    check = leaves_within(torch, [state[k] for k in names],
+                          [ref_state[k] for k in names], MESH_W_RTOL, 0.0)
+    per_step = [r['launches'] for r in z0 + z1]
+    want = route_pairs(RESNET_PAIRS, stem_split_on())
+    run = dict(
+        config='bf16 ResNet-50, batch %d, Module(context=[gpu(0)]) as '
+               'the one rank of a data mesh' % RESNET_BATCH,
+        card=smi, backend=backend, launches=launches,
+        launches_per_step=per_step, fit_launches=fit_launches,
+        step_ms_z0=[r['ms'] for r in z0], step_ms_z1=[r['ms'] for r in z1],
+        one_device_step_ms=[r['ms'] for r in ref_rows],
+        fit_ms=fit_ms, loss=[r['loss'] for r in z0 + z1],
+        one_device_loss=[r['loss'] for r in ref_rows],
+        state_bytes_z0=z0_bytes, state_bytes_z1=z1_bytes,
+        staged_bytes=after['mesh_staged_bytes'] - stats['mesh_staged_bytes'],
+        collectives=after['mesh_collectives'] - stats['mesh_collectives'],
+        comm=comm, params=check)
+    print('dp mesh ' + json.dumps(run))
+    if backend != 'nccl':
+        fail('phase 28: world 1 on one card took %s, not NCCL' % backend)
+    if per_step != [want] * (2 * DP_STEPS) or \
+            fit_launches != want * DP_FIT_BULK:
+        fail('phase 28: conv launches %s a step and %d in fit, expected %d '
+             'a step' % (per_step, fit_launches, want))
+    if run['staged_bytes']:
+        fail('phase 28: an NCCL group staged %d bytes' % run['staged_bytes'])
+    if not check['ok']:
+        fail('phase 28: parameters or moving statistics off the one-device '
+             'Module\'s: %s' % check)
+    run['reference'] = dict(output=z0[0]['output'], loss=z0[0]['loss'])
+    print('dp mesh: world 1 over NCCL, %d conv launches a step, step ms '
+          'ZeRO 0 %s, ZeRO 1 %s (one device %s), fit(bulk=%d) %.1f ms, '
+          'optimizer state %.1f MB (ZeRO 0) / %.1f MB (ZeRO 1) a rank, '
+          'parameters and moving statistics %s' % (
+              want, ['%.1f' % r['ms'] for r in z0],
+              ['%.1f' % r['ms'] for r in z1],
+              ['%.1f' % r['ms'] for r in ref_rows], DP_FIT_BULK, fit_ms,
+              z0_bytes / 1e6, z1_bytes / 1e6,
+              'bit-equal' if check['bit_equal'] else
+              'within one bf16 step (%.3g %% differ)'
+              % (100 * check['share_differ'])))
+    return run
+
+
+def dp_cut_step(torch, mx, ctxs, plant=None):
+    """One float32 step of the cut ResNet at DP_CUT_BATCH: the weights
+    before and after, by name; `plant` replaces BatchNorm's statistic
+    sum (ops.nn._sync_sum)."""
+    from mxnet_tpu_torch.ops import nn as ops_nn
+    symbol = mx.models.resnet.resnet(dtype='float32', **CUT_RESNET)
+    shape = CUT_RESNET['image_shape']
+    args, auxs = resnet_params(symbol, dict(data=(DP_CUT_BATCH,) + shape),
+                               CUT_RESNET['num_classes'], DP_SEED + 5)
+    batch = mx.io.DataBatch(data=[mx.nd.array(args['data'], ctx=mx.cpu())],
+                            label=[mx.nd.array(args['softmax_label'],
+                                               ctx=mx.cpu())])
+    params = ({k: v for k, v in args.items() if k not in NO_GRAD}, auxs)
+    mod = dp_module(mx, symbol, ctxs, DP_CUT_BATCH, shape, params, 0,
+                    opt=dict(learning_rate=0.1, momentum=0.9, wd=1e-4))
+    old = {k: v.handle.clone() for k, v in mod.get_params()[0].items()}
+    sync_sum = ops_nn._sync_sum
+    if plant is not None:
+        ops_nn._sync_sum = plant
+    try:
+        mod.forward_backward(batch)
+        mod.update()
+    finally:
+        ops_nn._sync_sum = sync_sum
+    new = {k: v.handle.clone() for k, v in mod.get_params()[0].items()}
+    return old, new
+
+
+def dp_worker(out_dir):
+    """One rank of phase 29, run by the port's launcher with
+    MXNET_TPU_DIST_JAX=1: the dist runtime and one torch.distributed
+    group over the two workers (gloo: they share the card), then
+    Module(context=[gpu(0), gpu(1)]) trains the bf16 ResNet-50 at global
+    batch 256 with ZeRO 1, interleave on; its row, digests, checkpoint
+    and (rank 0) the gathered optimizer states go to out_dir."""
+    import torch
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    root = Path(__file__).resolve().parent
+    sys.path.insert(0, str(root))
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import _build, cuda_conv, dist, elastic, profiler
+    from mxnet_tpu_torch import executor as executor_mod
+    torch.zeros(1, device='cuda')
+    _build.library()
+    rt = dist.initialize()
+    rank = rt.rank
+    out_dir = Path(out_dir)
+    symbol, shape, params = dp_resnet(mx, RESNET_BATCH)
+    _, batches = dp_batches(mx, shape, DP_STEPS, DP_SEED + 1)
+    mod = dp_module(mx, symbol, [mx.gpu(0), mx.gpu(1)], RESNET_BATCH, shape,
+                    params, 1)
+    eg = mod._exec_group
+    mesh = eg.mesh
+    ex = eg.executor
+    row = dict(rank=rank, data=mesh.shape['data'], backend=mesh.backend,
+               staged=mesh.staged, device=str(mesh.device),
+               local_batch=eg.local_batch,
+               host_span=dist.host_span_active())
+    profiler.clear()
+    stats = profiler.mesh_stats()
+    cuda_conv.CONV_BN_STATS_LAUNCHES = 0
+    steps = dp_steps(torch, mx, cuda_conv, mod, batches)
+    row['launches'] = cuda_conv.CONV_BN_STATS_LAUNCHES
+    after = profiler.mesh_stats()
+    row.update(launches_per_step=[s['launches'] for s in steps],
+               step_ms=[s['ms'] for s in steps],
+               loss=[s['loss'] for s in steps], comm=profiler.comm_stats(),
+               **{k + '_per_step': (after['mesh_' + k] - stats['mesh_' + k])
+                  / DP_STEPS for k in ('collectives', 'payload_bytes',
+                                       'staged_bytes')})
+    row['state_bytes'] = mod._fused_updater.state_bytes_per_device()
+    state = dp_state(mod)
+    row['param_digest'] = dp_digest(torch, {k: v for k, v in state.items()
+                                           if k.startswith('arg ')})
+    row['aux_digest'] = dp_digest(torch, {k: v for k, v in state.items()
+                                         if k.startswith('aux ')})
+    if rank == 0:
+        torch.save(steps[0]['output'], str(out_dir / 'output0.pt'))
+    # the elastic ZeRO checkpoint: each rank its blocks; and the states
+    # gathered over the mesh, for the world-1 restore
+    mgr = elastic.CheckpointManager(str(out_dir / 'ckpt'), async_=False)
+    mgr.attach(mod)
+    mgr._step = DP_STEPS
+    mgr.save(sync=True)
+    blob = mod._fused_updater.get_states()
+    if rank == 0:
+        (out_dir / 'states.pkl').write_bytes(blob)
+    del blob, state
+    # the busy share: one profiled step's device time
+    b = batches[0]
+    events = device_events(torch, lambda: (mod.forward_backward(b),
+                                           mod.update()))
+    row['profiled_device_ms'] = sum(device_us(e) for e in events) / 1e3
+    shapes = pair_shapes(symbol, eg.local_batch, shape, executor_mod,
+                         pairs=dict(ex.pairs))
+    del mod, eg, ex
+    torch.cuda.empty_cache()
+    # the kernel at this rank's shapes against its plain version
+    checks = resnet_kernel_checks(torch, cuda_conv, executor_mod, shapes,
+                                  mesh.device)
+    row['kernel_checks'] = [dict(x=r['x'], w=r['w'], stride=r['stride'],
+                                 pairs=r['pairs'],
+                                 max_abs_err=r['y']['max_abs_err'],
+                                 ok=r['ok']) for r in checks]
+    # the float32 cut ResNet's step against the one-device step, and with
+    # per-rank statistics planted
+    old, new = dp_cut_step(torch, mx, [mx.gpu(0), mx.gpu(1)])
+    _, planted = dp_cut_step(torch, mx, [mx.gpu(0), mx.gpu(1)],
+                             plant=lambda x, m: x * m.axis_size('data'))
+    if rank == 0:
+        _, ref = dp_cut_step(torch, mx, [mx.gpu(0)])
+        names = sorted(ref)
+        row['cut_updates'] = updates_within(
+            torch, [new[k] for k in names], [old[k] for k in names],
+            [ref[k] for k in names], MESH_UPDATE_RTOL)
+        row['cut_planted_updates'] = updates_within(
+            torch, [planted[k] for k in names], [old[k] for k in names],
+            [ref[k] for k in names], MESH_UPDATE_RTOL)
+    with open(out_dir / ('rank%d.json' % rank), 'w') as f:
+        json.dump(row, f)
+    dist.shutdown()
+
+
+def dp_gate(rows, world1):
+    """What is wrong with phase 29's ranks' rows (empty when nothing)."""
+    bad = []
+    want = route_pairs(RESNET_PAIRS, stem_split_on())
+    for row in rows:
+        r = row['rank']
+        if (row['data'], row['backend'], row['staged'],
+                row['local_batch'], row['host_span']) != \
+                (DP_RANKS, 'gloo', True, RESNET_BATCH // DP_RANKS, False):
+            bad.append('rank %d: data %s, backend %s, staged %s, local '
+                       'batch %s, host span %s' % (
+                           r, row['data'], row['backend'], row['staged'],
+                           row['local_batch'], row['host_span']))
+        if row['launches_per_step'] != [want] * DP_STEPS:
+            bad.append('rank %d: conv launches %s, expected %d a step'
+                       % (r, row['launches_per_step'], want))
+        for c in row['kernel_checks']:
+            if not c['ok']:
+                bad.append('rank %d: the kernel off its plain version at '
+                           '%s %s' % (r, c['x'], c['w']))
+        limit = DP_STATE_SHARE * world1['state_bytes_z0']
+        if row['state_bytes'] > limit:
+            bad.append('rank %d: optimizer state %d bytes > %.0f'
+                       % (r, row['state_bytes'], limit))
+        if row['comm']['zero_wire_all_reduce'] <= 0 or \
+                row['comm']['bytes_reduce_scattered'] <= 0:
+            bad.append('rank %d: no ZeRO bucket on the wire: %s'
+                       % (r, row['comm']))
+        for key in ('param_digest', 'aux_digest', 'loss'):
+            if row[key] != rows[0][key]:
+                bad.append('rank %d: %s differs from rank 0\'s' % (r, key))
+    r0 = rows[0]
+    if abs(r0['loss'][0] - world1['reference']['loss']) > DP_LOSS_ATOL:
+        bad.append('first-step loss %.5f vs world 1 %.5f (tol %g)' % (
+            r0['loss'][0], world1['reference']['loss'], DP_LOSS_ATOL))
+    if r0['output_max_abs_err'] > DP_OUT_ATOL:
+        bad.append('first-step outputs %.4g from world 1\'s (tol %g)' % (
+            r0['output_max_abs_err'], DP_OUT_ATOL))
+    if not r0['cut_updates']['ok']:
+        bad.append('float32 cut ResNet updates off the one-device step: %s'
+                   % r0['cut_updates'])
+    if r0['cut_planted_updates']['ok']:
+        bad.append('the planted per-rank statistics passed the update '
+                   'gate: %s' % r0['cut_planted_updates'])
+    if not r0['restore']['ok']:
+        bad.append('the ZeRO checkpoint restored at world 1 differs: %s'
+                   % r0['restore'])
+    return bad
+
+
+def dp_restore_check(torch, mx, out):
+    """The ranks' ZeRO checkpoint restored into a world-1 Module (2 -> 1):
+    its momenta and masters against the ones the ranks gathered."""
+    import pickle
+    from mxnet_tpu_torch import elastic
+    symbol, shape, params = dp_resnet(mx, RESNET_BATCH)
+    mod = dp_module(mx, symbol, [mx.gpu(0)], RESNET_BATCH, shape, params, 1)
+    info = elastic.resume(elastic.CheckpointManager(str(out / 'ckpt')), mod)
+    got = pickle.loads(mod._fused_updater.get_states())
+    want = pickle.loads((out / 'states.pkl').read_bytes())
+    del mod
+    torch.cuda.empty_cache()
+    differ = []
+    for part in (0, 2):
+        if sorted(got[part]) != sorted(want[part]):
+            differ.append('names of part %d' % part)
+            continue
+        for k, v in want[part].items():
+            if v is None and got[part][k] is None:
+                continue
+            if not np.array_equal(np.asarray(got[part][k]), np.asarray(v)):
+                differ.append(k)
+    return dict(ok=info is not None and info.step == DP_STEPS and
+                not differ, step=None if info is None else info.step,
+                differ=differ[:8], momenta=len(want[0]),
+                masters=sum(v is not None for v in want[2].values()))
+
+
+def dp_ranks_phase(torch, mx, root, smi, world1):
+    """Phase 29: DP_RANKS workers of the port's launcher share the card
+    (MXNET_TPU_DIST_JAX=1, gloo) and train the bf16 ResNet-50 as one data
+    mesh with ZeRO 1; gated by dp_gate against phase 28's world-1 step."""
+    out = root / 'build' / 'phase29'
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    torch.cuda.empty_cache()
+    try:
+        res, wall = dist_launch(root, out, 'dp', 'dp', DP_RANKS, 0,
+                                env={'MXNET_TPU_DIST_JAX': '1',
+                                     'MXNET_TPU_INTERLEAVE_REDUCE': '1'})
+        if res.returncode != 0:
+            fail('phase 29: the launcher exited %d (its log is named above)'
+                 % res.returncode)
+        rows = []
+        for r in range(DP_RANKS):
+            with open(out / ('rank%d.json' % r)) as f:
+                rows.append(json.load(f))
+        got = torch.load(str(out / 'output0.pt'))
+        rows[0]['output_max_abs_err'] = float(
+            (got - world1['reference']['output']).abs().max())
+        rows[0]['restore'] = dp_restore_check(torch, mx, out)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    step_ms = [median(row['step_ms']) for row in rows]
+    device_ms = [row['profiled_device_ms'] for row in rows]
+    busy = sum(device_ms) / max(step_ms)
+    run = dict(config='bf16 ResNet-50, global batch %d, Module(context='
+               '[gpu(0), gpu(1)]), ZeRO 1, %d ranks on one card over gloo'
+               % (RESNET_BATCH, DP_RANKS), card=smi, wall_s=wall,
+               step_ms_by_rank=step_ms, profiled_device_ms_by_rank=device_ms,
+               device_busy_share=busy,
+               launches=sum(row['launches'] for row in rows),
+               state_bytes_by_rank=[row['state_bytes'] for row in rows],
+               world1_state_bytes_z0=world1['state_bytes_z0'],
+               ranks=rows)
+    print('dp ranks ' + json.dumps(run))
+    bad = dp_gate(rows, world1)
+    if bad:
+        fail('phase 29: ' + '; '.join(bad))
+    r0 = rows[0]
+    print('dp ranks: %d ranks on one card (%s): step ms by rank %s, '
+          'collectives %s and host-staged MB %s a step by rank, optimizer '
+          'state %.1f MB a rank (world 1, ZeRO 0: %.1f MB), the card busy '
+          '%.1f %% of a step; first-step loss %.5f vs %.5f, outputs within '
+          '%.3g; float32 cut ResNet updates within %.3g of their leaf\'s '
+          'largest, the planted per-rank statistics %.3g of the bound; the '
+          'checkpoint restored at world 1 (%d momenta, %d masters); phase '
+          'took %.1f s' % (
+              DP_RANKS, smi, ['%.1f' % ms for ms in step_ms],
+              [row['collectives_per_step'] for row in rows],
+              ['%.1f' % (row['staged_bytes_per_step'] / 1e6) for row in rows],
+              r0['state_bytes'] / 1e6, world1['state_bytes_z0'] / 1e6,
+              100 * busy, r0['loss'][0], world1['reference']['loss'],
+              r0['output_max_abs_err'],
+              r0['cut_updates']['max_err_of_leaf_update'],
+              r0['cut_planted_updates']['max_err_over_bound'],
+              r0['restore']['momenta'], r0['restore']['masters'], wall))
+    return run
+
+
 def main(argv=None):
     import argparse
     parser = argparse.ArgumentParser(
@@ -9423,8 +9941,8 @@ def main(argv=None):
                                                     v.split(',')},
                         default=ALL_PHASES,
                         help='build, then run only these phases (a comma '
-                             'list of 2-27); the kernels line needs all')
-    parser.add_argument('--dist-worker', choices=('ps', 'coord'),
+                             'list of 2-29); the kernels line needs all')
+    parser.add_argument('--dist-worker', choices=('ps', 'coord', 'dp'),
                         help=argparse.SUPPRESS)
     parser.add_argument('--dist-out', help=argparse.SUPPRESS)
     parser.add_argument('--dist-tag', help=argparse.SUPPRESS)
@@ -9435,6 +9953,10 @@ def main(argv=None):
                              'CONV_MUTANTS, broken copies of the kernels')
     args = parser.parse_args(argv)
     import torch
+    if args.dist_worker == 'dp':
+        # one rank of phase 29, started by the port's launcher
+        dp_worker(args.dist_out)
+        return
     if args.dist_worker:
         # one worker of phase 21 or 22, started by the port's launcher
         dist_worker(args.dist_worker, args.dist_out, args.dist_tag)
@@ -9451,7 +9973,7 @@ def main(argv=None):
         return
     phases = args.phases
     if not phases <= ALL_PHASES:
-        fail('--phases takes phases 2 to 27; got %s' % sorted(phases))
+        fail('--phases takes phases 2 to 29; got %s' % sorted(phases))
     sys.path.insert(0, str(root))
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import _build, cuda_conv, cuda_ops
@@ -9630,6 +10152,17 @@ def main(argv=None):
     if 27 in phases:
         ring_run = ring_phase(torch, pmesh, root, smi)
 
+    # 28. Module(context=[gpu(0)]) as the one rank of a data mesh over
+    # NCCL, ZeRO 0 then 1, fit(bulk=2) on the mesh's staging
+    if phases & {28, 29}:
+        dp_mesh = dp_mesh_phase(torch, mx, cuda_conv, pmesh, profiler, root,
+                                smi)
+
+    # 29. two launcher workers share the card as a data mesh over gloo,
+    # ZeRO 1, against phase 28's world-1 step
+    if 29 in phases:
+        dp_ranks = dp_ranks_phase(torch, mx, root, smi, dp_mesh)
+
     if phases != ALL_PHASES:
         print('phases %s passed' % sorted(phases))
         return
@@ -9708,7 +10241,7 @@ def main(argv=None):
     kernels.append(conv_kernel_entry(conv, sass, resnet, module, serve,
                                      bucketing, gluon_run, ptb, gluon_lm,
                                      factories, record, dist_ps,
-                                     dist_coord, loop))
+                                     dist_coord, loop, dp_mesh, dp_ranks))
     kernels.append(rtc_kernel_entry(rtc_run, ptb, gluon_lm))
     for kern in kernels:
         if kern['launches'] == 0:

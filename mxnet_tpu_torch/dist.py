@@ -31,9 +31,15 @@ Everything rides host sockets with the kvstore_server framing, whose
 frames equal the JAX package's, so results are bit for bit the JAX
 runtime's for the same inputs. Arrays are host arrays (`_hostarray`):
 numpy, and torch CPU tensors for bfloat16, whose sums round as
-ml_dtypes' do. There is no in-step collective here: the JAX package's
-MXNET_TPU_DIST_JAX=1 (jax.distributed) raises, as the torch.distributed
-counterpart is ROADMAP Queue A 6.
+ml_dtypes' do. With MXNET_TPU_DIST_JAX=1 (the JAX package's
+jax.distributed mode) `initialize` also brings up one torch.distributed
+process group across the workers, from the same variables at port + 1
+(MXNET_TPU_DIST_JAX_ADDR overrides the address): a Module over the
+workers' contexts is then one data mesh whose gradients meet in the
+step's collectives (module/executor_group.py), and `host_span_active`
+is False, so no host allreduce runs on the way. A rank's device is
+cuda:LOCAL_RANK % device_count, or MXNET_TPU_DIST_DEVICE ('cpu' on the
+CPU).
 
 Fault injection: MXNET_TPU_FAULT_HEARTBEAT_DROP suppresses a rank's
 heartbeats without killing it; MXNET_TPU_FAULT_BARRIER_STALL_S and
@@ -53,7 +59,7 @@ import numpy as np
 import torch
 
 from . import _hostarray as ha
-from .base import MXNetError, unported
+from .base import MXNetError
 from .kvstore_server import _recv_msg, _send_msg, _tune_sock_bufs
 
 # bound on live wire-codec streams per endpoint: each stream pins
@@ -1769,6 +1775,29 @@ class DistRuntime(object):
 # ---------------------------------------------------------------------------
 
 _RUNTIME = None
+# the torch.distributed group that MXNET_TPU_DIST_JAX=1 brought up
+_SPMD = {'group': False, 'owned': False}
+
+
+def _init_spmd(rank, world, address, port):
+    """One torch.distributed group across the workers (MXNET_TPU_DIST_JAX
+    =1): tcp rendezvous at MXNET_TPU_DIST_JAX_ADDR, else the coordinator's
+    address at port + 1."""
+    import torch.distributed as tdist
+    from .parallel import mesh as pmesh
+    if tdist.is_initialized():
+        _SPMD['group'] = True
+        return
+    _SPMD['owned'] = True
+    addr = os.environ.get('MXNET_TPU_DIST_JAX_ADDR') or \
+        '%s:%d' % (address, (port or 9090) + 1)
+    local = os.environ.get('LOCAL_RANK')
+    if local is None:
+        os.environ['LOCAL_RANK'] = str(rank)
+    device = os.environ.get('MXNET_TPU_DIST_DEVICE') or None
+    pmesh.init_process_group(device=device, init_method='tcp://' + addr,
+                             rank=rank, world_size=world)
+    _SPMD['group'] = True
 
 
 def initialize(rank=None, world=None, address=None, port=None,
@@ -1778,8 +1807,9 @@ def initialize(rank=None, world=None, address=None, port=None,
     DMLC_NUM_WORKER / DMLC_PS_ROOT_URI / MXNET_TPU_DIST_PORT (falling
     back to DMLC_PS_ROOT_PORT).  Rank 0 hosts the coordinator.
     Cross-process data parallelism rides `dist.allreduce` through the
-    KVStore facade; MXNET_TPU_DIST_JAX=1 (one program across
-    processes) raises.  Returns the DistRuntime."""
+    KVStore facade; with MXNET_TPU_DIST_JAX=1 the workers also join one
+    torch.distributed group (module docstring), over which a Module's
+    data mesh reduces in the step.  Returns the DistRuntime."""
     global _RUNTIME
     if _RUNTIME is not None:
         return _RUNTIME
@@ -1792,11 +1822,10 @@ def initialize(rank=None, world=None, address=None, port=None,
     if port is None:
         p = env.get('MXNET_TPU_DIST_PORT') or env.get('DMLC_PS_ROOT_PORT')
         port = int(p) if p else None
-    if env.get('MXNET_TPU_DIST_JAX', '').strip() in ('1', 'true'):
-        raise unported('MXNET_TPU_DIST_JAX=1 (one program across '
-                       'processes, torch.distributed)', '6')
     _RUNTIME = DistRuntime(rank, world, address=address, port=port,
                            timeout=timeout, heartbeat=heartbeat)
+    if env.get('MXNET_TPU_DIST_JAX', '').strip() in ('1', 'true'):
+        _init_spmd(rank, world, _RUNTIME.address, _RUNTIME.port)
     restarts = env.get('MXNET_TPU_DIST_RESTART_COUNT', '').strip()
     if restarts:
         try:
@@ -1889,9 +1918,10 @@ def allreduce_coo(uids, rows, name='embed', vocab=None, topology=None):
 
 def host_span_active():
     """True when cross-process data parallelism rides the host-level
-    `dist.allreduce` through the KVStore facade: the runtime is up (the
-    port has no in-step collective across processes)."""
-    return _RUNTIME is not None
+    `dist.allreduce` through the KVStore facade: the runtime is up and
+    the workers are not one torch.distributed group
+    (MXNET_TPU_DIST_JAX=1), whose data mesh reduces in the step."""
+    return _RUNTIME is not None and not _SPMD['group']
 
 
 def shutdown():
@@ -1900,3 +1930,7 @@ def shutdown():
     rt, _RUNTIME = _RUNTIME, None
     if rt is not None:
         rt.shutdown()
+    if _SPMD['owned']:
+        from .parallel import mesh as pmesh
+        pmesh.destroy_process_group()
+    _SPMD['group'] = _SPMD['owned'] = False

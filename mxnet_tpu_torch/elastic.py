@@ -32,8 +32,11 @@ Shard files and deltas are byte-compatible with the JAX package's in
 both directions; arrays are host arrays (`_hostarray`). The RNG entry
 differs by nature: the port stores each device's torch.Generator state
 ('rng:torch:<device>'), and the JAX package's key ('rng:step') is
-skipped at restore with a logged warning. What needs item 6 (ZeRO
-shards of the optimizer state) raises naming it. Counters:
+skipped at restore with a logged warning. Under ZeRO-1 each rank writes
+its own block of every optimizer-state bucket ('zmom:<bucket>:<lo>:<hi>'
+and 'zmaster:...', manifest mode 'zero'); a restore reassembles the
+buckets and the restoring updater re-buckets them, at any data width
+and stage. Counters:
 profiler.ckpt_stats() and profiler.delta_stats().
 """
 import json
@@ -50,7 +53,7 @@ import zlib
 import numpy as np
 
 from . import _hostarray as ha
-from .base import MXNetError, atomic_file, unported
+from .base import MXNetError, atomic_file
 
 _CKPT_MAGIC = b'MXTPUCKv1\n'
 _CKPT_END = b'MXTPUCKEND'
@@ -295,10 +298,47 @@ def _device_snap(x):
 
 
 def _local_full(arr):
-    """One full local copy of a parameter or state tensor (the port has
-    no mesh-sharded arrays: ZeRO and row-sharded tables are Queue A
-    item 6)."""
+    """One full local copy of a parameter or state tensor (replicated on
+    every rank of a data mesh)."""
     return _device_snap(arr)
+
+
+def _torch_world():
+    """The world size of the torch.distributed group (1 when none)."""
+    import torch.distributed as tdist
+    return tdist.get_world_size() if tdist.is_initialized() else 1
+
+
+_STORE_ROUNDS = {}
+
+
+def _store_barrier(name, world, timeout):
+    """A barrier of the torch.distributed group through its key-value
+    store, which is safe from the checkpoint writer's thread while the
+    training thread runs collectives on the group; best-effort, as the
+    runtime's live-only barrier is."""
+    import torch.distributed as tdist
+    from torch.distributed import distributed_c10d
+    store = distributed_c10d._get_default_store()
+    rnd = _STORE_ROUNDS[name] = _STORE_ROUNDS.get(name, 0) + 1
+    key = 'mxt/%s/%d' % (name, rnd)
+    store.add(key, 1)
+    deadline = time.monotonic() + timeout
+    while store.add(key, 0) < world:
+        if time.monotonic() > deadline:
+            logging.warning('elastic: store barrier %s timed out on rank %d',
+                            key, tdist.get_rank())
+            return
+        time.sleep(0.01)
+
+
+def _np32(v):
+    """A loaded entry as numpy, bfloat16 (a torch CPU tensor on the
+    host) widened to float32 (exactly)."""
+    v = ha.host(v)
+    if ha.is_torch(v):
+        return v.float().numpy()
+    return np.asarray(v)
 
 
 def _snap_event(entries):
@@ -426,6 +466,39 @@ def _capture_optimizer(target):
                 'num_update': int(opt.num_update),
                 'sched': _sched_state(opt),
                 'param_names': list(fu.param_names)}
+        if fu.zero and fu._staged is not None:
+            # restored but not yet bucketed: the per-name staged values
+            staged_moms, staged_masters = fu._staged
+            meta['mode'] = 'replicated'
+            for n, v in staged_moms.items():
+                entries.append(('mom:%s' % n, _local_full(v)))
+            for n, v in staged_masters.items():
+                if v is not None:
+                    entries.append(('master:%s' % n, _local_full(v)))
+            return entries, meta
+        if fu.zero and fu._zero_moms is not None:
+            # this rank's block of each bucket, named by its range
+            lay = fu._layout
+            index = 0 if fu.mesh is None else fu.mesh.axis_index('data')
+            meta['mode'] = 'zero'
+            meta['param_names'] = list(fu._layout_names)
+            meta['zero_buckets'] = [
+                {'index': b.index, 'size': b.size, 'padded': b.padded,
+                 'sizes': list(b.sizes), 'offsets': list(b.offsets),
+                 'shapes': [list(x) for x in b.shapes],
+                 'param_idx': list(b.param_idx),
+                 'acc_dtype': str(b.acc_dtype).split('.')[-1],
+                 'mp': bool(b.mp)}
+                for b in lay.buckets]
+            for b, mom, mas in zip(lay.buckets, fu._zero_moms,
+                                   fu._zero_masters):
+                lo, hi = lay.shard_range(b, index)
+                entries.append(('zmom:%d:%d:%d' % (b.index, lo, hi),
+                                _device_snap(mom)))
+                if b.mp and mas is not None:
+                    entries.append(('zmaster:%d:%d:%d' % (b.index, lo, hi),
+                                    _device_snap(mas)))
+            return entries, meta
         meta['mode'] = 'replicated'
         for n in fu.param_names:
             v = fu.states.get(n)
@@ -462,8 +535,40 @@ def _assemble_optimizer(meta, arrays):
             elif key.startswith('master:'):
                 masters[key[7:]] = v
     else:
-        raise unported('restoring the ZeRO shards of a checkpoint\'s '
-                       'optimizer state (mode %r)' % (mode,), '6')
+        # 'zero': each bucket reassembled from its per-rank blocks and
+        # unpacked by the manifest's layout, whatever the data width and
+        # stage of either run (the restoring updater re-buckets)
+        for key, v in arrays.items():
+            if key.startswith('mom:'):
+                moms[key[4:]] = v
+            elif key.startswith('master:'):
+                masters[key[7:]] = v
+        for b in meta['zero_buckets']:
+            for kind, dest in (('zmom', moms), ('zmaster', masters)):
+                pieces = []
+                for key, v in arrays.items():
+                    parts = key.split(':')
+                    if parts[0] != kind or int(parts[1]) != b['index']:
+                        continue
+                    pieces.append((int(parts[2]), int(parts[3]), v))
+                if not pieces:
+                    continue
+                pieces.sort(key=lambda p: p[0])
+                dt = np.float32 if b['acc_dtype'] == 'bfloat16' \
+                    else np.dtype(b['acc_dtype'])
+                flat = np.zeros((b['padded'],), dtype=dt)
+                covered = 0
+                for lo, hi, v in pieces:
+                    flat[lo:hi] = _np32(v).reshape(-1)
+                    covered += hi - lo
+                if covered < b['size']:
+                    raise MXNetError(
+                        'checkpoint bucket %d incomplete: %d of %d '
+                        'elements covered' % (b['index'], covered,
+                                              b['size']))
+                for i, off, n, shape in zip(b['param_idx'], b['offsets'],
+                                            b['sizes'], b['shapes']):
+                    dest[names[i]] = flat[off:off + n].reshape(shape)
     # normalize gluon integer param names (JSON round-trips keys fine
     # as list pairs, but entry names are strings)
     def fix(d):
@@ -820,6 +925,11 @@ class CheckpointManager(object):
                 # identity (each launched process owns its shard file)
                 rank = rt.rank if rank is None else rank
                 world = rt.world if world is None else world
+            elif _torch_world() > 1:
+                # the ranks of a torch.distributed group (a data mesh)
+                import torch.distributed as tdist
+                rank = tdist.get_rank() if rank is None else rank
+                world = tdist.get_world_size() if world is None else world
             else:
                 rank, world = rank or 0, world or 1
         self.rank = int(rank)
@@ -1153,13 +1263,15 @@ class CheckpointManager(object):
 
     @staticmethod
     def _multiprocess():
-        """True on a real multi-process run (the dist runtime's world is
-        above 1), where each process owns exactly its rank's shard
-        file. The single-process case, including the virtual-host
-        harness, splits entries itself."""
+        """True on a real multi-process run (the dist runtime's world, or
+        the torch.distributed group's, is above 1), where each process
+        owns exactly its rank's shard file. The single-process case,
+        including the virtual-host harness, splits entries itself."""
         from . import dist
         rt = dist.runtime()
-        return rt is not None and rt.world > 1
+        if rt is not None:
+            return rt.world > 1
+        return _torch_world() > 1
 
     def _rank_of_entry(self, name, ordinal):
         """Which virtual rank's shard file an entry lands in
@@ -1185,6 +1297,9 @@ class CheckpointManager(object):
             return
         from . import dist
         rt = dist.runtime()
+        if rt is None:
+            _store_barrier('elastic_ckpt', self.world, self.deadline)
+            return
         try:
             # bounded by the manager deadline: a desynced peer (skipped
             # cadence save) must not pin the writer thread for the full

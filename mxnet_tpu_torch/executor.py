@@ -71,7 +71,22 @@ forward while it is active (`monitor.Monitor`); `partial_forward` runs
 the graph op by op in steps; `memory_cost` measures the card's
 allocator over one run; `reshape` rebinds new shapes, sharing the
 arrays whose shapes did not change.
+
+Data parallelism (a Module over several contexts, module/
+executor_group.py). The group sets `_mesh`, the 'data' mesh whose rank
+this executor is, bound at this rank's rows of the batch: each walk runs
+in `mesh.data_mesh_scope`, so the ops that reduce over the batch reduce
+over the mesh (ops/nn.py), and an op that would reduce a batch-carrying
+tensor over its batch axis where the port has no global form
+(`_BATCH_REDUCERS`: sum, mean, ... over axis 0) raises naming it. The
+group also sets `grad_reduce` (`collectives.GradReduce`), the in-step
+all-reduce of the parameters' gradients over the data axis, started from
+the backward's hooks when interleaved; `make_fused_train_step` and
+`make_fused_multistep` take another for their steps (`grad_reduce=`).
+Under ZeRO the group's is None: the sharded update reduce-scatters this
+rank's own gradients itself (parallel/zero.py).
 """
+import contextlib
 import os
 import warnings
 from collections import OrderedDict
@@ -86,8 +101,41 @@ from . import profiler
 from . import random as _random
 from .base import MXNetError, torch_dtype, unported
 from .context import Context
+from .parallel import mesh as _pmesh
 from .ops import nn as _nn
 from .ops.registry import OpContext, asbool, astuple, normalize_axis
+
+def _axis_reduced(attrs, ndim, default_all=True, key='axis'):
+    """True when the op's `axis` (None: every axis when default_all)
+    covers axis 0."""
+    from .base import parse_attr_value
+    axis = parse_attr_value(attrs.get(key, None))
+    if axis is None or axis == ():
+        axes = tuple(range(ndim)) if default_all else ()
+    elif isinstance(axis, int):
+        axes = (normalize_axis(axis, ndim),)
+    else:
+        axes = tuple(normalize_axis(a, ndim) for a in axis)
+    if asbool(attrs.get('exclude', False)):
+        axes = tuple(a for a in range(ndim) if a not in axes)
+    return 0 in axes
+
+
+def _sort_axis0(attrs, ndim):
+    from .base import parse_attr_value
+    axis = parse_attr_value(attrs.get('axis', -1))
+    return axis is None or normalize_axis(axis, ndim) == 0
+
+
+# registered ops that reduce over axis 0 of their input (attrs, ndim ->
+# bool): under a data mesh a batch-carrying input would give this rank's
+# answer only, and they raise
+_BATCH_REDUCERS = dict(
+    {name: _axis_reduced for name in (
+        'sum', 'sum_axis', 'mean', 'prod', 'nansum', 'nanprod', 'max',
+        'max_axis', 'min', 'min_axis', 'norm')},
+    softmax_cross_entropy=lambda attrs, ndim: True,
+    sort=_sort_axis0, argsort=_sort_axis0, topk=_sort_axis0)
 
 # elementwise ops whose outputs follow the input permutation unchanged
 _LAYOUT_FLEX = frozenset((
@@ -282,6 +330,12 @@ class Executor:
         self._partial_state = None
         # fused train dispatches run (run_fused_multistep)
         self.fused_dispatches = 0
+        # data parallelism (module docstring): the data mesh, the batch
+        # inputs (data and labels) and the in-step gradient all-reduce
+        self._mesh = None
+        self._batch_inputs = ()
+        self._batch_dep = None
+        self.grad_reduce = None
         self._build()
 
     def _build(self):
@@ -368,12 +422,47 @@ class Executor:
         y, s1, s2 = cuda_conv.conv2d_bn_stats(x, w, stride, pad)
         return y, (s1, s2)
 
+    def set_data_mesh(self, mesh, batch_inputs):
+        """Make this executor a rank of the data mesh `mesh` (None: one
+        device), `batch_inputs` the names of its batch-carrying
+        arguments."""
+        self._mesh = mesh
+        self._batch_inputs = tuple(batch_inputs)
+        self._batch_dep = None
+
+    def _batch_nodes(self):
+        """Indices of the nodes whose value depends on a batch input."""
+        if self._batch_dep is None:
+            dep = set()
+            for ni, node in enumerate(self._topo):
+                if node.op is None:
+                    if node.name in self._batch_inputs:
+                        dep.add(ni)
+                elif any(self._node_index[id(src)] in dep
+                         for src, _ in node.inputs):
+                    dep.add(ni)
+            self._batch_dep = dep
+        return self._batch_dep
+
+    def _check_batch_reduce(self, ni, node, vals):
+        check = _BATCH_REDUCERS.get(node.op.name)
+        if check is not None and vals and ni in self._batch_nodes() and \
+                check(node.attrs, vals[0].ndim):
+            raise unported('%s (node %s) over the batch axis under a data '
+                           'mesh: it would reduce this rank\'s rows only'
+                           % (node.op.name, node.name), '6')
+
     def _run_graph(self, arg_vals, aux_vals, is_train, collect=None,
                    rng=None):
         """Walk the DAG; returns (outputs, new aux values). A list
         `collect` receives every op node's outputs in topo order, in the
         semantic (NCHW) layout, for the monitor. `rng`, a torch.Generator,
         feeds the ops that draw in place of the device's generator."""
+        with _pmesh.data_mesh_scope(self._mesh) as dp:
+            return self._walk(arg_vals, aux_vals, is_train, collect, rng,
+                              dp is not None)
+
+    def _walk(self, arg_vals, aux_vals, is_train, collect, rng, dp):
         topo = self._topo
         results = [None] * len(topo)   # per node: list of outputs
         layouts = [None] * len(topo)   # per node: layout per output
@@ -395,6 +484,8 @@ class Executor:
             op = node.op
             vals = [results[self._node_index[id(src)]][idx]
                     for src, idx in node.inputs]
+            if dp:
+                self._check_batch_reduce(ni, node, vals)
             in_l = [layouts[self._node_index[id(src)]][idx]
                     for src, idx in node.inputs]
             if ni in pairs and vals[0].dtype == torch.bfloat16 and \
@@ -767,6 +858,11 @@ class Executor:
         heads = self._default_head_grads(out_grads)
         live = [(o, h) for o, h in zip(outs, heads) if o.requires_grad]
         grads = [None] * len(leaves)
+        # the in-step reduce: a GradReduce's pass hooks the leaves; a
+        # plain function of the gradients applies after the backward
+        red = self.grad_reduce
+        rpass = red.begin(leaves) if hasattr(red, 'begin') and live and \
+            leaves else None
         if live and leaves:
             grads = torch.autograd.grad([o for o, _ in live],
                                         leaves, [h for _, h in live],
@@ -775,6 +871,10 @@ class Executor:
         # stop-gradient (fix_gamma's gamma), gets a zero gradient
         grads = [torch.zeros_like(t) if g is None else g
                  for t, g in zip(leaves, grads)]
+        if rpass is not None:
+            grads = rpass.finish(grads)
+        elif red is not None and not hasattr(red, 'begin'):
+            grads = red(grads)
         self._write_grads(grads)
         return grads
 
@@ -838,25 +938,41 @@ class Executor:
         on the bound weights of the differentiable arguments, in
         _diff_names order, which it updates in place. Torch has no
         single dispatch to fuse them into, and there is no program to
-        cache, so `step_key` is not used."""
-        if grad_reduce is not None:
-            raise unported('the in-step gradient all-reduce', '6')
+        cache, so `step_key` is not used.
 
+        `grad_reduce`, for the step's backward in place of the
+        executor's own: a `collectives.GradReduce` (the in-step
+        all-reduce over the data axis, interleaved with the backward by
+        its hooks or after it) or a function of the list of gradients,
+        applied after the backward."""
         def step(diff_names, moms, masters, lrs, wds):
-            self.forward_backward()
+            with self._reducing(grad_reduce):
+                self.forward_backward()
             ws = [self.arg_dict[n]._data for n in diff_names]
             gs = [self.grad_dict[n]._data for n in diff_names]
             return step_math(ws, gs, moms, masters, lrs, wds)
         return step
+
+    @contextlib.contextmanager
+    def _reducing(self, grad_reduce):
+        """A scope in which the backward reduces by `grad_reduce` (None:
+        the executor's own)."""
+        prev = self.grad_reduce
+        if grad_reduce is not None:
+            self.grad_reduce = grad_reduce
+        try:
+            yield
+        finally:
+            self.grad_reduce = prev
 
     def run_fused_train_step(self, step, diff_names, moms, masters,
                              lrs, wds, zero=False):
         """Run a step of make_fused_train_step on the bound arrays and
         return (new_moms, new_masters) for the optimizer; the weights it
         returns are bound (they are the same tensors when step_math
-        updates in place)."""
-        if zero:
-            raise unported('ZeRO optimizer-state sharding', '6')
+        updates in place). `zero`: step_math is the ZeRO-1 sharded
+        update, whose moms and masters are this rank's bucket blocks
+        (the executor's gradients are then this rank's own)."""
         new_ws, new_moms, new_masters = step(diff_names, moms, masters,
                                              lrs, wds)
         for n, w in zip(diff_names, new_ws):
@@ -885,9 +1001,8 @@ class Executor:
         exec_cache under (graph signature, ..., step_key), as in the JAX
         package; its first call is billed to the cache's build time.
         Returns None for a grouped executor, whose steps run one by
-        one."""
-        if grad_reduce is not None:
-            raise unported('the in-step gradient all-reduce', '6')
+        one. `grad_reduce` as in make_fused_train_step, for every step's
+        backward."""
         if self._grouped:
             return None
         diff_set = set(self._diff_names)
@@ -918,7 +1033,8 @@ class Executor:
                             v = v.to(bound.dtype)
                         ex.arg_dict[n]._data = v
                     sv.append(ex.arg_dict[n]._data)
-                ex.forward_backward()
+                with ex._reducing(grad_reduce):
+                    ex.forward_backward()
                 ws = [ex.arg_dict[n]._data for n in diff_names]
                 gs = [ex.grad_dict[n]._data for n in diff_names]
                 lr_t = lrs[i] if lr_stacked else lrs
@@ -940,9 +1056,8 @@ class Executor:
         """Run a make_fused_multistep program on the bound arrays:
         `scan_stacks` {name: (K, ...) tensor}, or None in repeat mode.
         The weights update in place; returns (new_moms, new_masters,
-        metric_carry), the carry () without a metric."""
-        if zero:
-            raise unported('ZeRO optimizer-state sharding', '6')
+        metric_carry), the carry () without a metric. `zero` as in
+        run_fused_train_step."""
         self.fused_dispatches += 1
         with profiler.scope(self._name('fused_multistep')):
             new_moms, new_masters, mcarry = step(

@@ -411,13 +411,32 @@ class _Staged:
         return self.tensors
 
 
-def stage(arrays, device=None, stream=None):
+def _mesh_rows(mesh, a):
+    """This data rank's rows of a batch array (its first dimension split
+    over the mesh's data axis), cut where it lies."""
+    n = mesh.shape.get('data', 1)
+    if n <= 1:
+        return a
+    b = a.shape[0]
+    if b % n:
+        raise ValueError('a batch of %d rows does not split over %d data '
+                         'ranks' % (b, n))
+    lo = mesh.axis_index('data') * (b // n)
+    if isinstance(a, NDArray):
+        a = a._data
+    return a[lo:lo + b // n]
+
+
+def stage(arrays, device=None, stream=None, mesh=None):
     """Start the copies of `arrays` (NDArrays, tensors or numpy arrays) to
     `device`: a _Staged whose take() gives the tensors there. A CPU
     source headed for a CUDA device goes through pinned memory and a
     non-blocking copy on `stream` (a side stream), and an event is
-    recorded after the copies; other sources are placed synchronously."""
+    recorded after the copies; other sources are placed synchronously.
+    With `mesh`, only this data rank's rows of each array are copied."""
     device = _device_of(device)
+    if mesh is not None:
+        arrays = [_mesh_rows(mesh, a) for a in arrays]
     srcs = []
     for a in arrays:
         if isinstance(a, NDArray):
@@ -440,13 +459,16 @@ def stage(arrays, device=None, stream=None):
 
 def stage_to_device(arrays, device=None, mesh=None, stream=None):
     """The tensors of `arrays` on `device`, ready to read on the current
-    stream (the copy itself went through pinned memory on `stream`)."""
-    if mesh is not None:
-        raise unported('batch sharding over a device mesh', '6')
-    return stage(arrays, device, stream).take()
+    stream (the copy itself went through pinned memory on `stream`).
+    With `mesh` (a data mesh), this rank's rows of each array on the
+    mesh's device (`device` defaults to it): each rank moves 1/N of the
+    batch's bytes."""
+    if mesh is not None and device is None:
+        device = mesh.device
+    return stage(arrays, device, stream, mesh).take()
 
 
-def _stage_worker(src, out, stop, device, stream):
+def _stage_worker(src, out, stop, device, stream, mesh=None):
     """PrefetchToDeviceIter's worker: pull batches from `src` and start
     their copies until `stop` is set, handing (batch, staged data,
     staged label) to `out`, then None at the end of the epoch (or the
@@ -470,8 +492,8 @@ def _stage_worker(src, out, stop, device, stream):
         except Exception as e:      # handed to the consumer, raised there
             put(e)
             return
-        item = (batch, stage(batch.data, device, stream),
-                stage(batch.label or [], device, stream))
+        item = (batch, stage(batch.data, device, stream, mesh),
+                stage(batch.label or [], device, stream, mesh))
         if not put(item):
             return
 
@@ -485,15 +507,21 @@ class PrefetchToDeviceIter(_StagedBatchMixin, DataIter):
     consumer's stream, which the executor group takes without another
     copy.
 
+    With `mesh` (a data mesh) only this rank's rows of each batch are
+    staged, on the mesh's device unless `device` is given: each rank
+    moves 1/N of the bytes, and the executor group binds the rows as
+    they are (module/executor_group.py).
+
     input_stall_ms adds up the host time spent in next(): the time the
     loop waited for input."""
 
     def __init__(self, data_iter, size=2, device=None, mesh=None):
         super().__init__(data_iter.batch_size)
-        if mesh is not None:
-            raise unported('batch sharding over a device mesh', '6')
         self.data_iter = data_iter
         self.size = max(1, int(size))
+        self.mesh = mesh
+        if mesh is not None and device is None:
+            device = mesh.device
         self.device = _device_of(device)
         self.ctx = Context.from_device(self.device) \
             if self.device is not None else None
@@ -522,7 +550,7 @@ class PrefetchToDeviceIter(_StagedBatchMixin, DataIter):
         self._worker = threading.Thread(
             target=_stage_worker,
             args=(self.data_iter, self._queue, self._stop, self.device,
-                  self._stream), daemon=True)
+                  self._stream, self.mesh), daemon=True)
         self._worker.start()
 
     def close(self):

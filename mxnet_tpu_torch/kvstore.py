@@ -197,16 +197,11 @@ class KVStore:
     # -- updater / optimizer ----------------------------------------------
     @property
     def zero_stage(self):
-        """The ZeRO stage asked for (the constructor's, else
-        MXNET_TPU_ZERO): 0, as the port shards no optimizer state; any
-        other stage raises naming Queue A item 6."""
-        stage = self._zero
-        if stage is None:
-            stage = os.environ.get('MXNET_TPU_ZERO', '').strip() or 0
-        if int(stage):
-            raise unported('ZeRO optimizer-state sharding (zero_stage=%s)'
-                           % stage, '6')
-        return 0
+        """The ZeRO stage asked for: the constructor's, else
+        MXNET_TPU_ZERO (parallel.zero.zero_stage); Module.init_optimizer
+        takes it when it is given no `zero`."""
+        from .parallel import zero as zero_mod
+        return zero_mod.zero_stage(self._zero)
 
     def _key_index(self, key):
         return key

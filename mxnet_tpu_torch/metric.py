@@ -554,6 +554,19 @@ class DeviceFold:
         for m, (s, c) in zip(self.leaves, carry):
             m.update_device(s, c)
 
+    @staticmethod
+    def global_carry(carry, mesh):
+        """The carry summed over the data axis of `mesh` (each rank's
+        carry holds its rows' pairs), so every rank commits the global
+        batch's; the carry itself without a mesh."""
+        if mesh is None or mesh.shape.get('data', 1) <= 1:
+            return carry
+        from .parallel.collectives import _all_reduce
+        flat = [t for pair in carry for t in pair]
+        out = [_all_reduce(t, mesh, 'data') for t in flat]
+        return tuple((out[2 * i], out[2 * i + 1])
+                     for i in range(len(carry)))
+
 
 def device_fold(metric):
     """The device-resident fold of `metric`, or None when any part of it

@@ -1,11 +1,17 @@
 """Module: a symbol, its executor and an optimizer; the counterpart of
 mxnet_tpu/module/module.py (reference python/mxnet/module/module.py).
 
-One context, `current_context()` (gpu(0)) when none is given. With SGD
-or NAG the update is `optimizer.FusedSGD` over the whole parameter list,
-in place on the executor's tensors; any other optimizer takes the
-per-key `Updater`. `rescale_grad` is 1 / batch. Checkpoints, parameter
-files and optimizer-state files are the JAX package's formats.
+`current_context()` (gpu(0)) when no context is given. Several contexts
+are a data mesh of as many ranks, one process each
+(module/executor_group.py): every rank runs the same script, and its
+step equals the JAX package's one program over the global batch. With
+SGD or NAG the update is `optimizer.FusedSGD` over the whole parameter
+list, in place on the executor's tensors, and with `zero=1` (or
+MXNET_TPU_ZERO=1, or a store's zero_stage) its ZeRO-1 form, the
+optimizer state sharded over the data axis (parallel/zero.py); any
+other optimizer takes the per-key `Updater`. `rescale_grad` is 1 /
+global batch. Checkpoints, parameter files and optimizer-state files are
+the JAX package's formats.
 
 The JAX package defers `forward_backward` to `update`, so that XLA sees
 forward, backward and the update as one program; torch has no such
@@ -27,8 +33,9 @@ store update key by key (the servers' optimizer, or the store's updater
 after the cross-process sum), with no FusedSGD; a local store over one
 device is no store at all.
 
-Not ported, each raising: several contexts, ZeRO and sparse embedding
-tables (Queue A item 6).
+Not ported, each raising: sparse embedding tables (Queue A item 6c),
+and a data mesh inside each worker beside the parameter server or the
+dist runtime's host all-reduce across workers (the rest of 6b).
 """
 import logging
 import os
@@ -58,10 +65,7 @@ class Module(BaseModule):
             context = ctx_mod.current_context()
         if isinstance(context, ctx_mod.Context):
             context = [context]
-        if len(context) != 1:
-            raise unported('a Module over %d contexts (data-parallel '
-                           'mesh)' % len(context), '6')
-        self._context = context
+        self._context = list(context)
         if work_load_list is None:
             work_load_list = [1] * len(self._context)
         self._work_load_list = work_load_list
@@ -176,7 +180,7 @@ class Module(BaseModule):
         if self.params_initialized and not force_init:
             return
         assert self.binded, 'call bind before initializing the parameters'
-        ctx = self._context[0]
+        ctx = self._exec_group.context
         if self._arg_params is None:
             self._arg_params = {
                 name: nd.zeros(arr.shape, ctx, dtype=arr._data.dtype)
@@ -298,13 +302,17 @@ class Module(BaseModule):
             self.logger.warning('optimizer already initialized, '
                                 'ignoring...')
             return
-        if zero:
-            raise unported('ZeRO optimizer-state sharding', '6')
+        from ..parallel import zero as zero_mod
+        eg = self._exec_group
         kvstore, update_on_kvstore = model_mod._create_kvstore(
             kvstore, len(self._context), self._arg_params)
-        batch_size = self._exec_group.batch_size
+        if zero is None and kvstore is not None:
+            zero = kvstore.zero_stage
+        zero = zero_mod.zero_stage(zero)
+        # the batch of a data mesh is the global batch already
+        batch_size = eg.batch_size
         if kvstore and 'dist' in kvstore.type and \
-                '_sync' in kvstore.type:
+                '_sync' in kvstore.type and eg.mesh is None:
             batch_size *= kvstore.num_workers
         rescale_grad = 1.0 / batch_size
         if isinstance(optimizer, str):
@@ -338,10 +346,29 @@ class Module(BaseModule):
         ps = isinstance(kvstore, kvs_mod.KVStoreDistPS)
         host_span = kvstore is not None and kvstore._is_dist and \
             not ps and dist.host_span_active()
+        if eg.dp > 1 and (ps or host_span):
+            raise unported(
+                'a data mesh inside each worker with the %s across '
+                'workers (the rest of item 6b; the JAX package\'s dryrun '
+                'phase (f)); run every worker\'s device as a rank of one '
+                'mesh instead (MXNET_TPU_DIST_JAX=1)'
+                % ('parameter server' if ps else
+                   "dist runtime's host all-reduce"), '6')
         self._fused_updater = None
         if kvstore is None or (not ps and not host_span):
             self._fused_updater = opt_mod.create_fused_updater(
-                optimizer, self._param_names)
+                optimizer, self._param_names, zero=zero, mesh=eg.mesh)
+        if zero and self._fused_updater is None:
+            self.logger.warning(
+                'ZeRO stage-1 requested but %s; running without the '
+                'sharded update',
+                'the parameter-server store updates on its servers' if ps
+                else "the dist runtime's store updates key by key"
+                if host_span else 'the %s optimizer has no fused update'
+                % type(optimizer).__name__)
+        # ZeRO-1 reduce-scatters this rank's own gradients in the update
+        eg.use_grad_reduce(not (self._fused_updater is not None and
+                                self._fused_updater.zero))
         if self._fused_updater is not None:
             self._update_on_kvstore = False
         elif update_on_kvstore:
@@ -362,6 +389,8 @@ class Module(BaseModule):
         self._update_on_kvstore = shared_module._update_on_kvstore
         self._updater = shared_module._updater
         self._fused_updater = shared_module._fused_updater
+        fu = self._fused_updater
+        self._exec_group.use_grad_reduce(not (fu is not None and fu.zero))
         self.optimizer_initialized = True
 
     # -- per batch ---------------------------------------------------------
@@ -407,8 +436,9 @@ class Module(BaseModule):
                              scan_dtype, fold):
         """The executor's K-step program with the fold's metric update in
         it, kept while the executor, updater, K and fold stay."""
+        plan = self._exec_group.reduce_plan
         fkey = (fu.cache_key(), fold.key if fold is not None else None,
-                'lrstack')
+                'lrstack', plan.key if plan is not None else None)
         cache_key = (id(ex), id(fu), 'stacked' if stacked else 'repeat',
                      k, str(scan_dtype), fkey)
         if self._bulk_cache_key != cache_key:
@@ -426,7 +456,9 @@ class Module(BaseModule):
                 metric_arg = (fold.init, m_update)
             self._bulk_step_fn = ex.make_fused_multistep(
                 fu.step_math, scan_names, repeat=None if stacked else k,
-                step_key=fkey, metric=metric_arg, lr_stacked=True)
+                step_key=fkey, metric=metric_arg, lr_stacked=True,
+                grad_reduce=self._ensure_reduce_plan(
+                    ex, fu, ex._diff_names))
             self._bulk_cache_key = cache_key
         return self._bulk_step_fn
 
@@ -435,7 +467,7 @@ class Module(BaseModule):
         executor's device, the data in scan_dtype where given."""
         eg = self._exec_group
         ex = eg.executor
-        device = self._context[0].torch_device
+        device = eg.context.torch_device
         data_set = set(eg.data_names)
         per_name = {n: [] for n in scan_names}
         for b in batches:
@@ -446,7 +478,8 @@ class Module(BaseModule):
                 store = scan_dtype if (scan_dtype is not None and
                                        n in data_set) \
                     else ex.arg_dict[n]._data.dtype
-                per_name[n].append(_tensor_of(vals[n], store, device))
+                per_name[n].append(_tensor_of(eg.local_rows(vals[n]), store,
+                                              device))
         return {n: torch.stack(v) for n, v in per_name.items()}
 
     def warmup_fused(self, bulk=None, eval_metric=None, scan_dtype=None,
@@ -469,7 +502,7 @@ class Module(BaseModule):
         fu.param_names = list(fnames)
         weights = [ex.arg_dict[n] for n in fnames]
         scan_names = self._scan_names(ex, fnames)
-        device = self._context[0].torch_device
+        device = eg.context.torch_device
         plan = [(1, None)] if single else []
         if bulk is not None and int(bulk) > 1:
             plan.append((int(bulk), metric_mod.device_fold(eval_metric)
@@ -553,11 +586,39 @@ class Module(BaseModule):
                                        batches is not None, scan_dtype,
                                        fold)
         new_moms, new_masters, mcarry = ex.run_fused_multistep(
-            fn, fnames, scan_names, scan_stacks, moms, masters, lrs, wds)
+            fn, fnames, scan_names, scan_stacks, moms, masters, lrs, wds,
+            zero=bool(fu.zero))
         fu.commit(new_moms, new_masters)
         if fold is not None:
-            fold.commit(mcarry)
+            fold.commit(fold.global_carry(mcarry, eg.mesh))
         self._params_dirty = True
+        self._note_step_counters(k, metric_steps=k if fold is not None
+                                 else 0)
+
+    def _note_step_counters(self, k, metric_steps=0):
+        """The profiler's comm_stats after k fused steps: the ZeRO
+        payload bytes, this rank's optimizer-state bytes, and the steps
+        whose metric folded on the device."""
+        from .. import profiler
+        fu = self._fused_updater
+        if fu is None:
+            return
+        rs, ag = fu.comm_bytes_per_step()
+        if rs or ag:
+            profiler.add_comm_bytes(reduce_scattered=rs * k,
+                                    all_gathered=ag * k)
+        profiler.set_optimizer_state_bytes(fu.state_bytes_per_device())
+        if metric_steps:
+            profiler.add_reduce_stats(metric_steps=metric_steps)
+
+    def _ensure_reduce_plan(self, ex, fu, fnames):
+        """The in-step all-reduce of the gradients (collectives.
+        GradReduce over the data axis), or None where none applies: one
+        rank, or ZeRO, whose sharded update reduce-scatters them."""
+        eg = self._exec_group
+        if eg.dp == 1 or fu.zero:
+            return None
+        return ex.grad_reduce
 
     def _single_step(self, data_batch):
         self.forward_backward(data_batch)
@@ -579,6 +640,7 @@ class Module(BaseModule):
                     grads.append(g)
             self._fused_updater.param_names = names
             self._fused_updater(weights, grads)
+            self._note_step_counters(1)
             return
         if self._update_on_kvstore:
             model_mod._update_params_on_kvstore(
@@ -587,7 +649,7 @@ class Module(BaseModule):
         else:
             model_mod._update_params(eg.param_arrays, eg.grad_arrays,
                                      updater=self._updater,
-                                     num_device=len(self._context),
+                                     num_device=1,
                                      kvstore=self._kvstore,
                                      param_names=self._param_names)
 
@@ -644,8 +706,10 @@ class Module(BaseModule):
         if depth <= 0 or not self.binded or \
                 isinstance(train_data, mxio.PrefetchToDeviceIter):
             return train_data
-        return mxio.prefetch_to_device(train_data, size=depth,
-                                       device=self._context[0])
+        eg = self._exec_group
+        return mxio.prefetch_to_device(
+            train_data, size=depth, device=eg.context,
+            mesh=eg.mesh if eg.dp > 1 else None)
 
     def reshape(self, data_shapes, label_shapes=None):
         """Rebind to new input shapes, sharing the parameters."""

@@ -16,6 +16,15 @@ the op context's generator and is the identity when not training.
 The executor's conv -> BatchNorm pair route hands BatchNorm the sums of
 the conv kernel (`cuda_conv.conv2d_bn_stats`) through `batch_norm`'s
 `sums`, in place of its own.
+
+Under a data mesh (a Module over several contexts: each rank holds 1/N
+of the batch's rows, `parallel.mesh.current_data_mesh`) every reduction
+over the batch is made global, so that the step is the one-device step
+on the global batch: BatchNorm's statistics are summed over the data
+axis (`collectives.allreduce_sum_sync`, whose backward sums the
+cotangent too), SoftmaxOutput's 'batch' and 'valid' normalizations
+count the global batch, and Dropout draws the global batch's mask and
+keeps this rank's rows.
 """
 import math
 
@@ -25,6 +34,16 @@ import torch.nn.functional as F
 from .registry import (register, astuple, asbool, asint, asfloat,
                        normalize_axis)
 from ..base import parse_attr_value
+
+
+def _data_mesh():
+    from ..parallel.mesh import current_data_mesh
+    return current_data_mesh()
+
+
+def _sync_sum(x, mesh):
+    from ..parallel.collectives import allreduce_sum_sync
+    return allreduce_sum_sync(x, 'data', mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -109,10 +128,11 @@ class _SoftmaxOutput(torch.autograd.Function):
     mxnet_tpu/ops/nn.py's _softmax_output_fn."""
 
     @staticmethod
-    def forward(ctx, data, label, params):
+    def forward(ctx, data, label, params, mesh):
         out = torch.softmax(data, dim=_softmax_axis(params, data.ndim))
         ctx.save_for_backward(out, label)
         ctx.params = params
+        ctx.mesh = mesh
         return out
 
     @staticmethod
@@ -127,19 +147,26 @@ class _SoftmaxOutput(torch.autograd.Function):
         onehot = (lab.unsqueeze(-1) == torch.arange(
             k, device=out.device)).to(out.dtype)
         grad = out - torch.movedim(onehot, -1, axis)
+        # under a data mesh the counts are the global batch's
+        mesh = ctx.mesh
+        n = 1 if mesh is None else mesh.axis_size('data')
         valid = None
         if use_ignore:
             mask = (lab != int(ignore_label)).to(out.dtype)
             grad = grad * mask.unsqueeze(axis)
-            valid = torch.clamp(mask.sum(), min=1.0)
+            count = mask.sum()
+            if mesh is not None:
+                from ..parallel.collectives import _all_reduce
+                count = _all_reduce(count, mesh, 'data')
+            valid = torch.clamp(count, min=1.0)
         grad = grad * grad_scale
         if normalization == 'batch':
-            grad = grad / out.shape[0]
+            grad = grad / (out.shape[0] * n)
         elif normalization == 'valid':
-            grad = grad / (valid if valid is not None else lab.numel())
+            grad = grad / (valid if valid is not None else lab.numel() * n)
         # the head cotangent scales it: ones from the executor, so the
         # identity there, and a zero cotangent gives a zero gradient
-        return grad * g, torch.zeros_like(label), None
+        return grad * g, torch.zeros_like(label), None, None
 
 
 def _softmax_label_shape(attrs, dshape):
@@ -160,7 +187,7 @@ def _softmax_output(attrs, data, label):
               asbool(attrs.get('multi_output', False)),
               str(parse_attr_value(attrs.get('normalization', 'null'))),
               asbool(attrs.get('preserve_shape', False)))
-    return _SoftmaxOutput.apply(data, label, params)
+    return _SoftmaxOutput.apply(data, label, params, _data_mesh())
 
 
 # ---------------------------------------------------------------------------
@@ -335,7 +362,13 @@ def batch_norm(attrs, inputs, auxs, op_ctx, sums=None):
 
     `sums` = (s1, s2), the float32 sum and sum of squares of the data per
     channel taken elsewhere (the conv kernel of the executor's pair
-    route), replaces the one-pass sums; the gradient reaches them."""
+    route), replaces the one-pass sums; the gradient reaches them.
+
+    Under a data mesh the statistics are the global batch's: the sums
+    (one (2, C) all-reduce), or for float32 the mean and then the sum of
+    squared deviations from it (two), each summed over the data axis
+    with a backward that sums too; the moving statistics follow from
+    them and are the same on every rank."""
     data, gamma, beta = inputs
     moving_mean, moving_var = auxs
     in_dtype = data.dtype
@@ -362,21 +395,31 @@ def batch_norm(attrs, inputs, auxs, op_ctx, sums=None):
 
     if op_ctx.is_train and not use_global:
         nelem = math.prod(data.shape[i] for i in red)
+        mesh = _data_mesh()
+        if mesh is not None:
+            nelem *= mesh.axis_size('data')
+        if sums is None and data.dtype != torch.float32:
+            # low precision: one pass over the data for both sums
+            dataf = data.to(torch.float32)
+            sums = (torch.sum(dataf, dim=red),
+                    torch.sum(dataf * dataf, dim=red))
         if sums is not None:
+            if mesh is not None:
+                s12 = _sync_sum(torch.stack(sums), mesh)
+                sums = (s12[0], s12[1])
             mean = sums[0] / nelem
             var = torch.clamp(sums[1] / nelem - mean * mean, min=0.0)
-        elif data.dtype == torch.float32:
+        elif mesh is not None:
+            # float32 over the mesh: the two-pass variance, each pass's
+            # sum global
+            mean = _sync_sum(torch.sum(data, dim=red), mesh) / nelem
+            dev = data - mean.reshape(bshape)
+            var = _sync_sum(torch.sum(dev * dev, dim=red), mesh) / nelem
+        else:
             # full precision: the two-pass variance, which does not cancel
             # when |mean| >> std
             mean = torch.mean(data, dim=red)
             var = torch.var(data, dim=red, unbiased=False)
-        else:
-            # low precision: one pass over the data for both sums
-            dataf = data.to(torch.float32)
-            mean = torch.sum(dataf, dim=red) / nelem
-            var = torch.clamp(
-                torch.sum(dataf * dataf, dim=red) / nelem - mean * mean,
-                min=0.0)
         smean, svar = mean.detach(), var.detach()
         new_mean = moving_mean * momentum + smean * (1 - momentum)
         new_var = moving_var * momentum + svar * (1 - momentum)
@@ -626,7 +669,19 @@ def _dropout_compute(attrs, inputs, auxs, op_ctx):
     p = asfloat(attrs.get('p', 0.5))
     mode = str(parse_attr_value(attrs.get('mode', 'training')))
     if (op_ctx.is_train or mode == 'always') and p > 0:
-        return [dropout(data, p, op_ctx.rng)], []
+        mesh = _data_mesh()
+        if mesh is None or data.device.type == 'meta':
+            return [dropout(data, p, op_ctx.rng)], []
+        # the global batch's mask, drawn as the one device draws it
+        # (every rank's generator in the same state), and this rank's
+        # rows of it
+        n, i = mesh.axis_size('data'), mesh.axis_index('data')
+        b = data.shape[0]
+        u = torch.rand((b * n,) + tuple(data.shape[1:]),
+                       generator=op_ctx.rng, device=data.device)
+        keep = 1.0 - p
+        return [torch.where(u[i * b:(i + 1) * b] < keep, data / keep,
+                            torch.zeros_like(data))], []
     return [data], []
 
 

@@ -619,21 +619,27 @@ def sgd_update_math(acc, g, m, lr, wd, momentum=0.0, rescale=1.0,
 
 
 class FusedSGD:
-    """The whole-model SGD / NAG update (the JAX package's replicated
-    FusedSGD): `sgd_update_math` on every parameter, on float32 masters
-    for float16 and bfloat16 weights when multi_precision is set, the
-    weight then the master rounded to nearest. `host_prep` bumps the
-    per-name update counts and evaluates lr and wd; `step_math` applies
-    the update in place with torch._foreach_* calls over the whole list.
+    """The whole-model SGD / NAG update (the JAX package's FusedSGD):
+    `sgd_update_math` on every parameter, on float32 masters for float16
+    and bfloat16 weights when multi_precision is set, the weight then the
+    master rounded to nearest. `host_prep` bumps the per-name update
+    counts and evaluates lr and wd; `step_math` applies the update in
+    place with torch._foreach_* calls over the whole list.
+
+    ZeRO stage 1 (`zero=1`, parallel/zero.py): the same update on the
+    parameters flattened into buckets, with the momenta and masters
+    sharded over the data axis of `mesh`: this rank holds and updates
+    its 1/N block of each bucket, the gradients (this rank's own, not
+    yet summed) are reduce-scattered and the updated buckets
+    all-gathered into the weights. `interleave` is the reduction
+    schedule (collectives.interleave_reduce_enabled), carried in the
+    cache key. Checkpoints keep per-parameter arrays whatever the mode,
+    so they restore across data widths and stages.
     """
 
     def __init__(self, optimizer, param_names, zero=0, mesh=None,
                  interleave=None, sparse_idx=()):
         assert type(optimizer) in (SGD, NAG)
-        if zero:
-            raise base.unported('ZeRO optimizer-state sharding', '6')
-        if mesh is not None or interleave is not None:
-            raise base.unported('the fused update over a device mesh', '6')
         if tuple(sparse_idx):
             raise base.unported('the rows-only update of sparse embedding '
                                 'tables', '6')
@@ -648,15 +654,45 @@ class FusedSGD:
         self.nesterov = isinstance(optimizer, NAG)
         self.multi_precision = bool(getattr(optimizer, 'multi_precision',
                                             False))
+        self.zero = int(zero or 0)
+        self.mesh = mesh
+        if mesh is not None and 'data' not in mesh.shape:
+            raise ValueError("FusedSGD runs over the 'data' axis of a mesh; "
+                             'its axes are %s' % (mesh.axis_names,))
+        from .parallel import collectives
+        from .parallel.mesh import mesh_fingerprint
+        self._mesh_fp = mesh_fingerprint(mesh)
+        self._interleave = collectives.interleave_reduce_enabled(interleave)
+        self._layout = self._layout_inputs = self._layout_names = None
+        self._zero_moms = self._zero_masters = None
+        # per-name (momenta, masters) waiting to be bucketed (set_states,
+        # or the state of a layout that changed)
+        self._staged = None
+        if self.zero:
+            self.step_math = None     # bound with each layout
+
+    def _hyper(self):
+        return {'momentum': self.momentum, 'rescale': self.rescale,
+                'clip': self.clip, 'nesterov': self.nesterov,
+                'interleave': self._interleave}
+
+    def _dp(self):
+        return 1 if self.mesh is None else int(self.mesh.shape['data'])
 
     def _is_mp(self, w):
         return self.multi_precision and w._data.dtype in _LOW_PRECISION
 
     def cache_key(self):
         """The identity of step_math: what it reads of the optimizer (lr
-        and wd are its arguments)."""
-        return ('FusedSGD', type(self.optimizer).__name__, self.momentum,
-                self.rescale, self.clip, self.multi_precision)
+        and wd are its arguments), and under ZeRO the stage, the bucket
+        layout, the mesh and the schedule."""
+        key = ('FusedSGD', type(self.optimizer).__name__, self.momentum,
+               self.rescale, self.clip, self.multi_precision)
+        if self.zero:
+            key += (('zero', self.zero, self._layout.key
+                     if self._layout is not None else None, self._mesh_fp,
+                     self._interleave),)
+        return key
 
     def _snapshot_schedule_state(self):
         """All that _get_lr changes: the update counts and the stateful
@@ -703,8 +739,21 @@ class FusedSGD:
         """Create the momenta and masters a parameter lacks (zeros; the
         master from the weight), put loaded ones on the weight's device
         in their dtype, bump the update counts and evaluate lr and wd.
-        Returns (moms, masters, lrs, wds) aligned with param_names."""
+        Returns (moms, masters, lrs, wds) aligned with param_names, or
+        under ZeRO with the layout's buckets (this rank's blocks)."""
         opt = self.optimizer
+        if self.zero:
+            moms, masters = self._host_prep_zero(weights)
+        else:
+            moms, masters = self._host_prep_replicated(weights)
+        lrs, wds = [], []
+        for name in self.param_names:
+            opt._update_count(name)
+            lrs.append(opt._get_lr(name))
+            wds.append(opt._get_wd(name))
+        return moms, masters, lrs, wds
+
+    def _host_prep_replicated(self, weights):
         for name, w in zip(self.param_names, weights):
             t = w._data
             mp = self._is_mp(w)
@@ -722,14 +771,75 @@ class FusedSGD:
             elif master.device != t.device:
                 self.masters[name] = _tensor(master, dtype=torch.float32,
                                              device=t.device)
-        moms = [self.states[n] for n in self.param_names]
-        masters = [self.masters[n] for n in self.param_names]
-        lrs, wds = [], []
-        for name in self.param_names:
-            opt._update_count(name)
-            lrs.append(opt._get_lr(name))
-            wds.append(opt._get_wd(name))
-        return moms, masters, lrs, wds
+        return ([self.states[n] for n in self.param_names],
+                [self.masters[n] for n in self.param_names])
+
+    def _host_prep_zero(self, weights):
+        """(Re)build the bucket layout when the parameter list, its
+        dtypes, the data size or the bucket target changed, and make
+        this rank's blocks of the momenta and masters: from the staged
+        per-name values where there are any, else zeros and the
+        weights."""
+        from .parallel import zero as zero_mod
+        names = list(self.param_names)
+        dp = self._dp()
+        inputs = (tuple(tuple(w.shape) for w in weights),
+                  tuple(w._data.dtype for w in weights),
+                  tuple(self._is_mp(w) for w in weights), dp,
+                  zero_mod.bucket_bytes(), tuple(names))
+        if self._layout_inputs != inputs:
+            if self._zero_moms is not None:
+                self._staged = self._gather_zero()
+            self._layout = zero_mod.ZeroBucketLayout(
+                [tuple(w.shape) for w in weights],
+                [w._data.dtype for w in weights],
+                [self._is_mp(w) for w in weights], dp)
+            self._layout_inputs = inputs
+            self._layout_names = names
+            self._zero_moms = self._zero_masters = None
+            self.step_math = zero_mod.make_sharded_sgd_step(
+                self._layout, self.mesh, self._hyper())
+        if self._zero_moms is None:
+            staged_moms, staged_masters = self._staged or ({}, {})
+            self._staged = None
+            index = 0 if self.mesh is None else \
+                self.mesh.axis_index('data')
+            lay = self._layout
+
+            def block(b, per_name, fallback):
+                vals = []
+                for i in b.param_idx:
+                    w = weights[i]._data
+                    v = per_name.get(names[i])
+                    vals.append(fallback(w) if v is None else
+                                _tensor(v, device=w.device).reshape(w.shape))
+                lo, hi = lay.shard_range(b, index)
+                return lay.pack(b, vals)[lo:hi].clone()
+
+            self._zero_moms = [block(b, staged_moms, torch.zeros_like)
+                               for b in lay.buckets]
+            self._zero_masters = [
+                block(b, staged_masters, lambda w: w.detach().float())
+                if b.mp else None for b in lay.buckets]
+        return list(self._zero_moms), list(self._zero_masters)
+
+    def _gather_zero(self):
+        """The ZeRO blocks gathered over the data axis and unpacked:
+        ({name: momentum}, {name: master}) of full per-parameter tensors
+        (a collective: every rank of the mesh calls it)."""
+        from .parallel import collectives
+        moms, masters = {}, {}
+        lay = self._layout
+        for b, mom, mas in zip(lay.buckets, self._zero_moms,
+                               self._zero_masters):
+            full = collectives.all_gather_flat(mom, self.mesh)
+            for i, v in zip(b.param_idx, lay.unpack(b, full)):
+                moms[self._layout_names[i]] = v.clone()
+            if b.mp and mas is not None:
+                full = collectives.all_gather_flat(mas, self.mesh)
+                for i, v in zip(b.param_idx, lay.unpack(b, full)):
+                    masters[self._layout_names[i]] = v.clone()
+        return moms, masters
 
     def step_math(self, ws, gs, moms, masters, lrs, wds):
         """The update of tensors ws (weights) from gs (gradients, left as
@@ -766,7 +876,11 @@ class FusedSGD:
 
     def commit(self, new_moms, new_masters):
         """Keep the momenta and masters a step returned (the same tensors
-        when step_math ran in place)."""
+        when step_math ran in place; per bucket under ZeRO)."""
+        if self.zero:
+            self._zero_moms = list(new_moms)
+            self._zero_masters = list(new_masters)
+            return
         for n, m, w in zip(self.param_names, new_moms, new_masters):
             self.states[n] = m
             self.masters[n] = w
@@ -775,14 +889,27 @@ class FusedSGD:
         """weights and grads: NDArrays aligned with param_names; the
         weights' own tensors are updated in place."""
         moms, masters, lrs, wds = self.host_prep(weights)
-        self.step_math([w._data for w in weights], [g._data for g in grads],
-                       moms, masters, lrs, wds)
+        _, new_moms, new_masters = self.step_math(
+            [w._data for w in weights], [g._data for g in grads], moms,
+            masters, lrs, wds)
+        self.commit(new_moms, new_masters)
 
     def state_bytes_per_device(self):
-        """Bytes of momenta and float32 masters on the device."""
+        """Bytes of momenta and float32 masters on this rank's device:
+        its blocks under ZeRO."""
+        if self.zero:
+            return self._layout.state_bytes_per_device() \
+                if self._layout is not None else 0
         return sum(t.numel() * t.element_size()
                    for t in list(self.states.values()) +
                    list(self.masters.values()) if t is not None)
+
+    def comm_bytes_per_step(self):
+        """(bytes_reduce_scattered, bytes_all_gathered) of one ZeRO step;
+        (0, 0) replicated."""
+        if self.zero and self._layout is not None:
+            return self._layout.comm_bytes_per_step()
+        return 0, 0
 
     @staticmethod
     def _split_updater_states(states, masters):
@@ -802,20 +929,41 @@ class FusedSGD:
                 moms[n] = v
         return moms, out_masters
 
+    def _per_name(self):
+        """({name: momentum}, {name: master}) of full tensors, whatever
+        the mode (under ZeRO a gather over the data axis)."""
+        if self._staged is not None:
+            return self._staged
+        if self.zero:
+            if self._zero_moms is None:
+                return {}, {}
+            return self._gather_zero()
+        return self.states, self.masters
+
     def get_states(self):
+        """The states as per-parameter arrays in either mode, so that a
+        ZeRO run's file restores into a replicated one and back (under
+        ZeRO every rank of the mesh calls it: it gathers)."""
+        moms, masters = self._per_name()
         return pickle.dumps(
-            ({n: _host(v) for n, v in self.states.items()},
+            ({n: _host(v) for n, v in moms.items()},
              dict(self.optimizer._index_update_count),
-             {n: _host(v) for n, v in self.masters.items()}))
+             {n: _host(v) for n, v in masters.items()}))
 
     def set_states(self, states):
         """Restore from either layout; the values stay on the host until
-        host_prep puts each beside its weight."""
+        host_prep puts each beside its weight (under ZeRO, its block of
+        each bucket)."""
         states, counts, masters = _load_pickle(states)
         moms, masters = self._split_updater_states(states, masters)
-        self.states = {n: _tensor(v) for n, v in moms.items()}
-        self.masters = {n: _tensor(v, dtype=torch.float32)
-                        for n, v in masters.items()}
+        moms = {n: _tensor(v) for n, v in moms.items()}
+        masters = {n: _tensor(v, dtype=torch.float32)
+                   for n, v in masters.items()}
+        if self.zero:
+            self._staged = (moms, masters)
+            self._zero_moms = self._zero_masters = None
+        else:
+            self.states, self.masters = moms, masters
         if counts is not None:
             self.optimizer._index_update_count = dict(counts)
 

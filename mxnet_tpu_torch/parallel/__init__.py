@@ -3,18 +3,20 @@ mxnet_tpu/parallel.
 
 One process per rank in the default process group; a `Mesh` names axes
 over the ranks (`mesh.py`), the collectives run over an axis's group
-(`collectives.py`), ring attention shards the sequence (`ring_attention.py`)
-and the transformer LM trains at dp x tp x sp (`transformer.py`).
-`pipeline`, `moe`, `zero` and `embedding` are not ported yet (ROADMAP
-Queue A 6b-6d): reaching them raises.
+(`collectives.py`), ring attention shards the sequence (`ring_attention.py`),
+the transformer LM trains at dp x tp x sp (`transformer.py`), and ZeRO-1
+shards the optimizer state over the data axis (`zero.py`).
+`pipeline`, `moe` and `embedding` are not ported yet (ROADMAP Queue A
+6c-6d): reaching them raises.
 """
 from .mesh import (make_mesh, data_sharding, replicated, flat_sharding,
                    shard_batch, replicate_params, current_mesh,
                    set_current_mesh)
 from .ring_attention import ring_attention, full_attention
 from . import collectives
+from . import zero
 
-_UNPORTED = {'pipeline': '6d', 'moe': '6d', 'zero': '6b', 'embedding': '6c'}
+_UNPORTED = {'pipeline': '6d', 'moe': '6d', 'embedding': '6c'}
 
 
 def __getattr__(name):
@@ -28,4 +30,4 @@ def __getattr__(name):
 __all__ = ['make_mesh', 'data_sharding', 'replicated', 'flat_sharding',
            'shard_batch', 'replicate_params', 'current_mesh',
            'set_current_mesh', 'ring_attention', 'full_attention',
-           'collectives']
+           'collectives', 'zero']

@@ -30,8 +30,22 @@ group never stages.
 Also home of `GradReducePlan`, the JAX package's bucketing of gradients
 for the in-step all-reduce: the same buckets for the same shapes, dtypes
 and knobs (MXNET_TPU_REDUCE_BUCKETS, MXNET_TPU_ZERO_BUCKET_MB), one
-explicit all-reduce a bucket.
+explicit all-reduce a bucket. `GradReduce` binds a plan to the data axis
+of a mesh for one backward at a time: with MXNET_TPU_INTERLEAVE_REDUCE on
+(the default) a bucket's all-reduce starts, asynchronously, from the
+gradient hooks as soon as the backward has made the bucket's last
+gradient; off, every bucket is reduced after the backward. The buckets
+are issued in the plan's order on every rank either way, and both
+schedules give the same bits.
+
+`allreduce_sum_sync` is the data-parallel statistic sum (SyncBatchNorm's):
+its backward sums the cotangent over the axis too, since each rank's loss
+covers only its own rows. `reduce_scatter_flat` and `all_gather_flat`
+carry the ZeRO-1 buckets (parallel/zero.py): NCCL's reduce-scatter and
+all-gather, and on gloo, which has no reduce-scatter, the all-reduce's own
+block (`profiler.comm_stats` counts which one the wire carried).
 """
+import functools
 import os
 
 import numpy as np
@@ -182,6 +196,17 @@ class _AllReduceSum(torch.autograd.Function):
         return g, None, None
 
 
+class _SyncSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return _all_reduce(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.mesh, ctx.axis), None, None
+
+
 class _CopyToAxis(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axis):
@@ -263,6 +288,19 @@ def allreduce_sum(x, axis_name, mesh=None):
     for axis in _axes(axis_name):
         if mesh.axis_size(axis) > 1:
             x = _AllReduceSum.apply(x, mesh, axis)
+    return x
+
+
+def allreduce_sum_sync(x, axis_name='data', mesh=None):
+    """Sum over the axis whose gradient is summed over the axis as well:
+    a statistic of the batch that every rank's rows feed and every
+    rank's loss reads (BatchNorm's sums under a data mesh). Each rank
+    holds only its own loss's part of the statistic's cotangent, so the
+    backward adds them up."""
+    mesh = _mesh(mesh)
+    for axis in _axes(axis_name):
+        if mesh.axis_size(axis) > 1:
+            x = _SyncSum.apply(x, mesh, axis)
     return x
 
 
@@ -431,7 +469,62 @@ def replicate_constraint(x):
                    'gluon.nn.MoE)', '6')
 
 
+# -- the ZeRO-1 wire ---------------------------------------------------------
+
+def reduce_scatter_flat(x, mesh, axis='data'):
+    """This rank's block of the sum of the flat `x` over the axis (x's
+    length a multiple of the axis size): NCCL's reduce-scatter, or on
+    gloo the all-reduce's own block. Not differentiable; the identity
+    without a mesh or over one rank."""
+    if mesh is None or mesh.axis_size(axis) == 1:
+        return x
+    n = mesh.axis_size(axis)
+    if mesh.backend == 'nccl':
+        x = x.contiguous()
+        out = torch.empty(x.numel() // n, dtype=x.dtype, device=x.device)
+        profiler.add_mesh_stats(collectives=1, payload_bytes=_nbytes(x))
+        dist.reduce_scatter_tensor(out, x, group=mesh.group(axis))
+        profiler.add_comm_wire(reduce_scatter=1)
+        return out
+    profiler.add_comm_wire(reduce_scatter_as_all_reduce=1)
+    return _block(_all_reduce(x, mesh, axis), mesh, axis, 0).contiguous()
+
+
+def all_gather_flat(x, mesh, axis='data'):
+    """The axis's flat blocks joined by axis index (NCCL's
+    all_gather_into_tensor, gloo's all_gather). Not differentiable; the
+    identity without a mesh or over one rank."""
+    if mesh is None or mesh.axis_size(axis) == 1:
+        return x
+    if mesh.backend == 'nccl':
+        x = x.contiguous()
+        out = torch.empty(x.numel() * mesh.axis_size(axis), dtype=x.dtype,
+                          device=x.device)
+        profiler.add_mesh_stats(collectives=1, payload_bytes=_nbytes(x))
+        dist.all_gather_into_tensor(out, x, group=mesh.group(axis))
+        return out
+    return _all_gather(x, mesh, axis, 0)
+
+
 # -- the gradient-reduction plan --------------------------------------------
+
+def interleave_reduce_enabled(explicit=None):
+    """The gradient-reduction schedule: an explicit value wins, else
+    MXNET_TPU_INTERLEAVE_REDUCE (default on: each bucket reduced from
+    the backward's hooks as soon as it is whole; 0: every bucket after
+    the backward)."""
+    if explicit is not None:
+        return bool(explicit)
+    return os.environ.get('MXNET_TPU_INTERLEAVE_REDUCE', '1').strip() \
+        not in ('0',)
+
+
+def grad_barrier(grads):
+    """The end-of-backward schedule's barrier: the identity on values.
+    The torch step reaches it only once autograd has returned every
+    gradient, so there is nothing to order."""
+    return list(grads)
+
 
 def reduce_bucket_count():
     """MXNET_TPU_REDUCE_BUCKETS as an int, or None (fill buckets by the
@@ -473,11 +566,13 @@ class GradReducePlan:
     bucket_bytes() or split into MXNET_TPU_REDUCE_BUCKETS equal-byte
     shares."""
 
-    def __init__(self, shapes, dtypes, max_bytes=None, n_buckets=None):
+    def __init__(self, shapes, dtypes, max_bytes=None, n_buckets=None,
+                 interleave=None):
         if max_bytes is None:
             max_bytes = bucket_bytes()
         if n_buckets is None:
             n_buckets = reduce_bucket_count()
+        self.interleave = interleave_reduce_enabled(interleave)
         self.shapes = [tuple(int(d) for d in s) for s in shapes]
         keys = [_dtype_key(d) for d in dtypes]
         sizes = [int(np.prod(s)) if len(s) else 1 for s in self.shapes]
@@ -500,6 +595,9 @@ class GradReducePlan:
         if cur:
             buckets.append(cur)
         self.buckets = buckets
+        self.key = ('gradreduce', self.interleave,
+                    tuple(tuple(b) for b in buckets),
+                    tuple((s, k[1]) for s, k in zip(self.shapes, keys)))
 
     @property
     def n_buckets(self):
@@ -522,4 +620,91 @@ class GradReducePlan:
                 n = grads[i].numel()
                 out[i] = red[off:off + n].reshape(grads[i].shape)
                 off += n
+        return out
+
+
+class GradReduce:
+    """A GradReducePlan bound to `axis` of `mesh`: the in-step all-reduce
+    of the gradients at `positions` of an executor's differentiable
+    arguments (aligned with the plan's parameters). `begin(leaves)`
+    starts one backward's pass; its `finish(grads)` returns the grads
+    with those positions summed over the axis."""
+
+    def __init__(self, plan, mesh, positions, axis='data'):
+        self.plan, self.mesh, self.axis = plan, mesh, axis
+        self.positions = list(positions)
+        self.key = (plan.key, axis)
+
+    def begin(self, leaves):
+        return _ReducePass(self, leaves)
+
+
+class _ReducePass:
+    """One backward's bucketed all-reduce. Interleaved, each plan leaf
+    gets a hook that files its gradient; buckets are issued (async_op)
+    in the plan's order as soon as each is whole, so every rank issues
+    the same collectives in the same order. `finish` issues what is
+    left (a parameter no output reaches has no hook call: its zeros go
+    in then), waits for the collectives in order and unpacks."""
+
+    def __init__(self, red, leaves):
+        self.red = red
+        plan = red.plan
+        self.grads = [None] * len(red.positions)
+        self.missing = [len(b) for b in plan.buckets]
+        self.bucket_of = {}
+        for k, b in enumerate(plan.buckets):
+            for i in b:
+                self.bucket_of[i] = k
+        self.issued = []            # (bucket, work or None, wire tensor)
+        self.next = 0
+        self.leaves = [leaves[p] for p in red.positions]
+        if plan.interleave:
+            for i, t in enumerate(self.leaves):
+                t.register_hook(functools.partial(self._ready, i))
+
+    def _ready(self, i, g):
+        if self.grads[i] is None:
+            self.missing[self.bucket_of[i]] -= 1
+        self.grads[i] = g
+        self._issue_ready(async_op=True)
+
+    def _issue_ready(self, async_op):
+        plan = self.red.plan
+        while self.next < len(plan.buckets) and \
+                self.missing[self.next] == 0:
+            self._issue(self.next, async_op)
+            self.next += 1
+
+    def _issue(self, k, async_op):
+        mesh, axis = self.red.mesh, self.red.axis
+        b = self.red.plan.buckets[k]
+        flat = torch.cat([self.grads[i].reshape(-1) for i in b])
+        wire = _to_wire(mesh, flat)
+        profiler.add_reduce_stats(buckets_issued=1)
+        work = dist.all_reduce(wire, group=mesh.group(axis),
+                               async_op=async_op)
+        self.issued.append((k, work, wire))
+
+    def finish(self, grads):
+        """grads: autograd's gradients of every leaf of the executor
+        (zeros where it had none); returns them with the plan's
+        positions all-reduced."""
+        out = list(grads)
+        for i, p in enumerate(self.red.positions):
+            if self.grads[i] is None:
+                self.missing[self.bucket_of[i]] -= 1
+                self.grads[i] = grads[p]
+        self._issue_ready(async_op=self.red.plan.interleave)
+        for k, work, wire in self.issued:
+            if work is not None:
+                work.wait()
+            red = _from_wire(self.red.mesh, wire)
+            off = 0
+            for i in self.red.plan.buckets[k]:
+                n = self.grads[i].numel()
+                out[self.red.positions[i]] = \
+                    red[off:off + n].view(self.grads[i].shape)
+                off += n
+        self.grads = None
         return out

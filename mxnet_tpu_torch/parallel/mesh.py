@@ -117,6 +117,7 @@ def destroy_process_group():
     if dist.is_initialized():
         dist.destroy_process_group()
     _PROC['device'] = None
+    _WORLD_MESH.clear()
 
 
 def _spawned_rank(rank, fn, world_size, init_file, device, args):
@@ -247,6 +248,49 @@ class use_mesh:
 
     def __exit__(self, *exc):
         set_current_mesh(self._prev)
+
+
+def current_data_mesh():
+    """The data mesh of the executor whose graph this thread is walking,
+    when its 'data' axis has more than one rank, else None: the ops that
+    reduce over the batch (BatchNorm, the loss heads' normalization,
+    Dropout's mask) read it."""
+    return getattr(_state, 'data_mesh', None)
+
+
+class data_mesh_scope:
+    """Scoped current data mesh (per thread; None or a data axis of one
+    rank leaves the ops one-device)."""
+
+    def __init__(self, mesh):
+        if mesh is not None and mesh.shape.get('data', 1) <= 1:
+            mesh = None
+        self._mesh = mesh
+        self._prev = None
+
+    def __enter__(self):
+        self._prev = current_data_mesh()
+        _state.data_mesh = self._mesh
+        return self._mesh
+
+    def __exit__(self, *exc):
+        _state.data_mesh = self._prev
+
+
+_WORLD_MESH = {}
+
+
+def world_data_mesh():
+    """The 1-D 'data' mesh over every rank of the default group, made
+    once per group (make_mesh is a collective: every rank asks for it at
+    the same point), or None when no group is up."""
+    if not dist.is_initialized():
+        return None
+    key = (id(dist.group.WORLD), dist.get_world_size())
+    mesh = _WORLD_MESH.get(key)
+    if mesh is None:
+        mesh = _WORLD_MESH[key] = make_mesh()
+    return mesh
 
 
 def data_sharding(mesh, ndim=None, axis='data'):

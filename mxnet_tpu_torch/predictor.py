@@ -249,8 +249,8 @@ def _export(ex, module, inputs):
 
 def _walk_node(exc, ex):
     """The graph node the walk was at when `exc` (or an exception it was
-    raised from) left Executor._run_graph."""
-    code = type(ex)._run_graph.__code__
+    raised from) left Executor._walk, the loop of Executor._run_graph."""
+    code = type(ex)._walk.__code__
     seen = set()
     while exc is not None and id(exc) not in seen:
         seen.add(id(exc))

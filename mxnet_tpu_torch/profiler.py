@@ -592,6 +592,60 @@ def mesh_stats():
         return dict(_MESH)
 
 
+# data-parallel step counters (the JAX package's comm_stats): the logical
+# bytes the ZeRO-1 steps reduce-scattered and all-gathered, the
+# optimizer-state bytes this rank holds (a gauge, set after each step),
+# the gradient buckets the in-step all-reduce issued, the train steps
+# whose metric folded on the device inside a bulk dispatch; and which
+# collective carried each ZeRO bucket's reduce-scatter on the wire (a
+# reduce-scatter on NCCL; on gloo, which has none, an all-reduce)
+_COMM = {
+    'bytes_reduce_scattered': 0,
+    'bytes_all_gathered': 0,
+    'optimizer_state_bytes_per_device': 0,
+    'reduce_buckets_issued': 0,
+    'scan_fused_metric_steps': 0,
+    'zero_wire_reduce_scatter': 0,
+    'zero_wire_all_reduce': 0,
+}
+
+
+def add_reduce_stats(buckets_issued=0, metric_steps=0):
+    """Gradient buckets issued by the in-step all-reduce, and steps
+    whose metric folded on the device."""
+    with _STATE['lock']:
+        _COMM['reduce_buckets_issued'] += int(buckets_issued)
+        _COMM['scan_fused_metric_steps'] += int(metric_steps)
+
+
+def add_comm_bytes(reduce_scattered=0, all_gathered=0):
+    """Logical payload bytes of the ZeRO-1 steps: gradients
+    reduce-scattered, updated parameters all-gathered."""
+    with _STATE['lock']:
+        _COMM['bytes_reduce_scattered'] += int(reduce_scattered)
+        _COMM['bytes_all_gathered'] += int(all_gathered)
+
+
+def add_comm_wire(reduce_scatter=0, reduce_scatter_as_all_reduce=0):
+    """One ZeRO bucket's reduce-scatter, as the wire carried it."""
+    with _STATE['lock']:
+        _COMM['zero_wire_reduce_scatter'] += int(reduce_scatter)
+        _COMM['zero_wire_all_reduce'] += int(reduce_scatter_as_all_reduce)
+
+
+def set_optimizer_state_bytes(n):
+    """The optimizer-state bytes resident on this rank (momenta and
+    float32 masters; 1/dp of them under ZeRO-1)."""
+    with _STATE['lock']:
+        _COMM['optimizer_state_bytes_per_device'] = int(n)
+
+
+def comm_stats():
+    """Snapshot of the data-parallel step counters."""
+    with _STATE['lock']:
+        return dict(_COMM)
+
+
 
 def summary(print_out=True):
     """Human-readable profile summary: span time by category, then the
@@ -694,6 +748,17 @@ def summary(print_out=True):
                      'warmups=%d warm_compiles=%d'
                      % (rung, e['steps'], e['dispatches'], e['compiles'],
                         e['warmups'], e['warm_compiles']))
+    cm = comm_stats()
+    lines.append('  bytes_reduce_scattered=%d bytes_all_gathered=%d '
+                 'optimizer_state_bytes_per_device=%d'
+                 % (cm['bytes_reduce_scattered'], cm['bytes_all_gathered'],
+                    cm['optimizer_state_bytes_per_device']))
+    lines.append('  reduce_buckets_issued=%d scan_fused_metric_steps=%d '
+                 'zero_wire_reduce_scatter=%d zero_wire_all_reduce=%d'
+                 % (cm['reduce_buckets_issued'],
+                    cm['scan_fused_metric_steps'],
+                    cm['zero_wire_reduce_scatter'],
+                    cm['zero_wire_all_reduce']))
     for stats in (ckpt_stats(), dist_stats(), delta_stats(), mesh_stats()):
         lines.append('  ' + ' '.join('%s=%s' % kv
                                      for kv in sorted(stats.items())))
@@ -814,7 +879,9 @@ def dump_profile():
               {'ph': 'M', 'name': 'delta', 'pid': 0,
                'args': delta_stats()},
               {'ph': 'M', 'name': 'mesh', 'pid': 0,
-               'args': mesh_stats()}]
+               'args': mesh_stats()},
+              {'ph': 'M', 'name': 'comm', 'pid': 0,
+               'args': comm_stats()}]
     with _STATE['lock']:
         records = list(_STATE['records'])
     for name, cat, ts, dur, tid in records:
@@ -864,7 +931,7 @@ def clear():
         _BUCKET_RUNGS.clear()
         for k in _INPUT:
             _INPUT[k] = type(_INPUT[k])()
-        for d in (_CKPT, _DIST, _DELTA, _MESH):
+        for d in (_CKPT, _DIST, _DELTA, _MESH, _COMM):
             for k in d:
                 d[k] = type(d[k])()
         del _SERVE_LAT[:]

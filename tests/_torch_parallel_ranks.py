@@ -330,3 +330,462 @@ def gate_suite(rank, tmp_path):
         for i, w in enumerate(model.parameters()):
             res['w_one_%d' % i] = w
     _save(tmp_path, rank, res)
+
+
+# -- Module data parallelism and ZeRO-1 (test_torch_module_dp.py,
+# test_torch_zero.py) --------------------------------------------------------
+# The nets, parameters and steps are written once for either package
+# (`pkg` is mxnet_tpu_torch here, the JAX package in the parent).
+
+DP_BATCH, DP_FEAT, DP_CLASSES = 16, 12, 5
+DP_IMAGE = (3, 4, 4)
+DP_OPT = {'learning_rate': 0.1, 'momentum': 0.9, 'wd': 1e-3}
+
+
+def dp_mlp(pkg, dtype='float32', normalization='null', use_ignore=False,
+           dropout=0.0):
+    S = pkg.sym
+    data = S.Variable('data')
+    x = data if dtype == 'float32' else S.Cast(data, dtype=dtype)
+    if dropout:
+        x = S.Dropout(x, p=dropout)
+    fc1 = S.FullyConnected(x, name='fc1', num_hidden=24)
+    act = S.Activation(fc1, act_type='relu')
+    fc2 = S.FullyConnected(act, name='fc2', num_hidden=DP_CLASSES)
+    if dtype != 'float32':
+        fc2 = S.Cast(fc2, dtype='float32')
+    return S.SoftmaxOutput(fc2, name='softmax', normalization=normalization,
+                           use_ignore=use_ignore, ignore_label=-1)
+
+
+def dp_bn_net(pkg, dtype='float32'):
+    """Two conv -> BatchNorm pairs (the pair route in bfloat16) and a
+    classifier."""
+    S = pkg.sym
+    data = S.Variable('data')
+    x = data if dtype == 'float32' else S.Cast(data, dtype=dtype)
+    x = S.Convolution(x, name='c1', num_filter=8, kernel=(3, 3), pad=(1, 1),
+                      no_bias=True)
+    x = S.BatchNorm(x, name='bn1', fix_gamma=False)
+    x = S.Activation(x, act_type='relu')
+    x = S.Convolution(x, name='c2', num_filter=8, kernel=(1, 1),
+                      no_bias=True)
+    x = S.BatchNorm(x, name='bn2', fix_gamma=False)
+    x = S.Activation(x, act_type='relu')
+    x = S.Pooling(x, global_pool=True, pool_type='avg', kernel=(1, 1))
+    fc = S.FullyConnected(S.Flatten(x), name='fc', num_hidden=DP_CLASSES)
+    if dtype != 'float32':
+        fc = S.Cast(fc, dtype='float32')
+    return S.SoftmaxOutput(fc, name='softmax')
+
+
+def dp_seq_net(pkg, key):
+    """A bucketing net over (batch, key) inputs whose parameters do not
+    depend on the key."""
+    S = pkg.sym
+    x = S.mean(S.Variable('data'), axis=1, keepdims=True)
+    fc1 = S.FullyConnected(x, name='fc1', num_hidden=24)
+    act = S.Activation(fc1, act_type='relu')
+    fc2 = S.FullyConnected(act, name='fc2', num_hidden=DP_CLASSES)
+    return S.SoftmaxOutput(fc2, name='softmax')
+
+
+def dp_params(net, data_shape, seed=3):
+    """(args, auxs) as numpy: uniform weights, gammas near 1, moving
+    means 0 and variances 1."""
+    rs = np.random.RandomState(seed)
+    arg_shapes, _, aux_shapes = net.infer_shape(data=data_shape)
+    args = {}
+    for name, shape in zip(net.list_arguments(), arg_shapes):
+        if name in ('data', 'softmax_label'):
+            continue
+        v = (rs.rand(*shape).astype(np.float32) - 0.5) * 0.4
+        args[name] = v + 1.0 if name.endswith('_gamma') else v
+    auxs = {name: (np.zeros if name.endswith('mean') else np.ones)(
+        shape, np.float32)
+        for name, shape in zip(net.list_auxiliary_states(), aux_shapes)}
+    return args, auxs
+
+
+def dp_module(pkg, net, ctxs, data_shape, args, auxs, zero=0, opt=None,
+              inputs_need_grad=False, bind_only=False):
+    mod = pkg.mod.Module(net, context=ctxs)
+    mod.bind(data_shapes=[pkg.io.DataDesc('data', data_shape)],
+             label_shapes=[pkg.io.DataDesc('softmax_label',
+                                           (data_shape[0],))],
+             inputs_need_grad=inputs_need_grad)
+    mod.init_params(initializer=None,
+                    arg_params={k: pkg.nd.array(v) for k, v in args.items()},
+                    aux_params={k: pkg.nd.array(v) for k, v in auxs.items()})
+    if not bind_only:
+        mod.init_optimizer(optimizer='sgd',
+                           optimizer_params=dict(opt or DP_OPT), zero=zero)
+    return mod
+
+
+def dp_batches(pkg, X, y):
+    return [pkg.io.DataBatch(data=[pkg.nd.array(x)], label=[pkg.nd.array(t)])
+            for x, t in zip(X, y)]
+
+
+def _f32(a):
+    return a.asnumpy().astype(np.float32)
+
+
+def dp_result(mod, prefix, res):
+    """The module's parameters, aux states and optimizer states into res
+    (the states from get_states: full per-parameter arrays)."""
+    import pickle
+    args, auxs = mod.get_params()
+    for k, v in args.items():
+        res['%s__p__%s' % (prefix, k)] = _f32(v)
+    for k, v in auxs.items():
+        res['%s__a__%s' % (prefix, k)] = _f32(v)
+    fu = getattr(mod, '_fused_updater', None)
+    if fu is not None:
+        moms, _, masters = pickle.loads(fu.get_states())
+        for k, v in moms.items():
+            res['%s__m__%s' % (prefix, k)] = np.asarray(v, np.float32)
+        for k, v in (masters or {}).items():
+            if v is not None:
+                res['%s__w__%s' % (prefix, k)] = np.asarray(v, np.float32)
+
+
+def dp_train(pkg, mod, batches, res, prefix, metric=None):
+    outs = []
+    for b in batches:
+        mod.forward_backward(b)
+        mod.update()
+        outs.append(_f32(mod.get_outputs()[0]))
+        if metric is not None:
+            mod.update_metric(metric, b.label)
+    res[prefix + '__out'] = np.stack(outs)
+    if metric is not None:
+        res[prefix + '__metric'] = np.float64(metric.get()[1])
+    dp_result(mod, prefix, res)
+
+
+class _env:
+    """Environment variables set for a block (None: unset)."""
+
+    def __init__(self, **kv):
+        self.kv, self.prev = kv, {}
+
+    def __enter__(self):
+        for k, v in self.kv.items():
+            self.prev[k] = os.environ.get(k)
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = str(v)
+
+    def __exit__(self, *exc):
+        for k, v in self.prev.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _planted_sum(kind):
+    """BatchNorm's statistic sum with a fault planted: 'local' leaves
+    every rank its own rows' statistics, 'identity_backward' sums with
+    the Megatron form, whose backward does not sum the cotangent."""
+    if kind == 'local':
+        return lambda x, mesh: x * mesh.axis_size('data')
+    return lambda x, mesh: C.allreduce_sum(x, 'data', mesh)
+
+
+def module_dp_suite(rank, tmp_path):
+    """Module over two contexts (two gloo ranks): the MLP with ZeRO 0
+    and 1 under both reduce schedules, bfloat16 with float32 masters,
+    clipping, the loss heads' normalizations, the BatchNorm nets in
+    float32 and bfloat16 with planted faults, bulk_step with the device
+    metric fold, fit on the mesh's staging, Dropout, the input
+    gradients, BucketingModule, and ZeRO checkpoints both ways."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import elastic, profiler
+    from mxnet_tpu_torch.ops import nn as ops_nn
+    inp = _inputs(tmp_path)
+    res = {}
+    ctxs = [mx.cpu(0), mx.cpu(1)]
+    mlp_shape = (DP_BATCH, DP_FEAT)
+    bn_shape = (DP_BATCH,) + DP_IMAGE
+    with mx.cpu():
+        batches = dp_batches(mx, inp['X'], inp['y'])
+        for zero in (0, 1):
+            for il in (1, 0):
+                with _env(MXNET_TPU_INTERLEAVE_REDUCE=il):
+                    profiler.clear()
+                    net = dp_mlp(mx)
+                    mod = dp_module(mx, net, ctxs, mlp_shape,
+                                    *dp_params(net, mlp_shape), zero=zero)
+                    tag = 'mlp_z%d_i%d' % (zero, il)
+                    dp_train(mx, mod, batches, res, tag,
+                             metric=mx.metric.Accuracy())
+                    st = profiler.comm_stats()
+                    for k in ('reduce_buckets_issued',
+                              'optimizer_state_bytes_per_device',
+                              'bytes_reduce_scattered',
+                              'bytes_all_gathered',
+                              'zero_wire_all_reduce'):
+                        res['%s__stat__%s' % (tag, k)] = st[k]
+                    res[tag + '__state_bytes'] = \
+                        mod._fused_updater.state_bytes_per_device()
+        for case, kw in (('bf16', dict(dtype='bfloat16')), ('clip', {})):
+            for zero in (0, 1):
+                net = dp_mlp(mx, **kw)
+                opt = dict(DP_OPT, multi_precision=True) \
+                    if case == 'bf16' else dict(DP_OPT, clip_gradient=0.05)
+                mod = dp_module(mx, net, ctxs, mlp_shape,
+                                *dp_params(net, mlp_shape), zero=zero,
+                                opt=opt)
+                dp_train(mx, mod, batches, res, '%s_z%d' % (case, zero))
+        ign = dp_batches(mx, inp['X'], inp['y_ign'])
+        for norm in ('batch', 'valid'):
+            net = dp_mlp(mx, normalization=norm, use_ignore=True)
+            mod = dp_module(mx, net, ctxs, mlp_shape,
+                            *dp_params(net, mlp_shape))
+            dp_train(mx, mod, ign, res, 'norm_' + norm)
+        bn_batches = dp_batches(mx, inp['Xi'], inp['y'])[:3]
+        sync_sum = ops_nn._sync_sum
+        for dtype in ('float32', 'bfloat16'):
+            for plant in ('clean', 'local', 'identity_backward'):
+                if plant != 'clean':
+                    ops_nn._sync_sum = _planted_sum(plant)
+                try:
+                    net = dp_bn_net(mx, dtype)
+                    mod = dp_module(mx, net, ctxs, bn_shape,
+                                    *dp_params(net, bn_shape),
+                                    opt=dict(DP_OPT, multi_precision=True))
+                    dp_train(mx, mod, bn_batches, res,
+                             'bn_%s_%s' % (dtype, plant))
+                finally:
+                    ops_nn._sync_sum = sync_sum
+        for zero in (0, 1):
+            net = dp_mlp(mx)
+            mod = dp_module(mx, net, ctxs, mlp_shape,
+                            *dp_params(net, mlp_shape), zero=zero)
+            metric = mx.metric.Accuracy()
+            profiler.clear()
+            mod.bulk_step(batches=batches, eval_metric=metric)
+            res['bulk_z%d__metric' % zero] = np.float64(metric.get()[1])
+            res['bulk_z%d__dispatches' % zero] = \
+                mod._exec_group.executor.fused_dispatches
+            res['bulk_z%d__metric_steps' % zero] = \
+                profiler.comm_stats()['scan_fused_metric_steps']
+            dp_result(mod, 'bulk_z%d' % zero, res)
+        net = dp_mlp(mx)
+        mod = dp_module(mx, net, ctxs, mlp_shape, *dp_params(net, mlp_shape),
+                        bind_only=True)
+        it = mx.io.NDArrayIter(inp['X'].reshape(-1, DP_FEAT),
+                               inp['y'].reshape(-1), batch_size=DP_BATCH)
+        profiler.clear()
+        mod.fit(it, num_epoch=1, optimizer_params=dict(DP_OPT),
+                eval_metric='acc', bulk=2)
+        res['fit__staged_bytes'] = profiler.mesh_stats()['mesh_staged_bytes']
+        dp_result(mod, 'fit', res)
+        mx.random.seed(7)
+        net = dp_mlp(mx, dropout=0.3)
+        mod = dp_module(mx, net, ctxs, mlp_shape, *dp_params(net, mlp_shape))
+        dp_train(mx, mod, batches[:2], res, 'dropout')
+        net = dp_mlp(mx)
+        mod = dp_module(mx, net, ctxs, mlp_shape, *dp_params(net, mlp_shape),
+                        inputs_need_grad=True)
+        mod.forward_backward(batches[0])
+        res['igrad'] = _f32(mod.get_input_grads()[0])
+        for zero in (0, 1):
+            bmod = mx.mod.BucketingModule(
+                lambda key: (dp_seq_net(mx, key), ('data',),
+                             ('softmax_label',)),
+                default_bucket_key=8, context=ctxs)
+            bmod.bind(data_shapes=[mx.io.DataDesc('data', (DP_BATCH, 8))],
+                      label_shapes=[mx.io.DataDesc('softmax_label',
+                                                   (DP_BATCH,))])
+            bargs, _ = dp_params(dp_seq_net(mx, 8), (DP_BATCH, 8))
+            bmod.init_params(initializer=None, arg_params={
+                k: mx.nd.array(v) for k, v in bargs.items()})
+            bmod.init_optimizer(optimizer='sgd',
+                                optimizer_params=dict(DP_OPT), zero=zero)
+            for i, key in enumerate((8, 4, 8, 4)):
+                x = inp['Xs'][i][:, :key]
+                bmod.forward_backward(mx.io.DataBatch(
+                    data=[mx.nd.array(x)], label=[mx.nd.array(inp['y'][i])],
+                    bucket_key=key,
+                    provide_data=[mx.io.DataDesc('data', x.shape)],
+                    provide_label=[mx.io.DataDesc('softmax_label',
+                                                  (DP_BATCH,))]))
+                bmod.update()
+            dp_result(bmod, 'bucketing_z%d' % zero, res)
+        # ZeRO checkpoints: the port's two ranks commit one; the JAX
+        # package's (eight devices) restores here at data 2
+        net = dp_mlp(mx)
+        mod = dp_module(mx, net, ctxs, mlp_shape, *dp_params(net, mlp_shape),
+                        zero=1)
+        for b in batches[:2]:
+            mod.forward_backward(b)
+            mod.update()
+        mgr = elastic.CheckpointManager(os.path.join(tmp_path, 'ckpt_port'),
+                                        async_=False)
+        mgr.attach(mod)
+        mgr._step = 2
+        mgr.save(sync=True)
+        dp_result(mod, 'ckpt_saved', res)
+        mod = dp_module(mx, net, ctxs, mlp_shape,
+                        *dp_params(net, mlp_shape, seed=9), zero=1)
+        info = elastic.resume(elastic.CheckpointManager(
+            os.path.join(tmp_path, 'ckpt_jax')), mod)
+        res['ckpt_jax__step'] = -1 if info is None else info.step
+        dp_result(mod, 'ckpt_jax', res)
+    _save(tmp_path, rank, res)
+
+
+def zero_suite(rank, tmp_path):
+    """ZeRO-1 over four ranks (tests/test_zero.py and the dryrun's ZeRO
+    and schedule phases on the port): parity with the replicated update,
+    clipping, bfloat16 masters, bulk, tiny buckets, the env knob, state
+    bytes and shard shapes, the comm counters, the cache keys, states
+    across modes, a relayout mid-run, and both schedules."""
+    import pickle
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import exec_cache, profiler
+    from mxnet_tpu_torch import optimizer as opt_mod
+    inp = _inputs(tmp_path)
+    res = {}
+    n = M.make_mesh(device='cpu').shape['data']
+    ctxs = [mx.cpu(i) for i in range(n)]
+    shape = (DP_BATCH, DP_FEAT)
+
+    def run(tag, zero, dtype='float32', opt=None, bulk=False, steps=4,
+            **env):
+        with _env(**env):
+            net = dp_mlp(mx, dtype)
+            kw = dict(DP_OPT, multi_precision=dtype != 'float32')
+            kw.update(opt or {})
+            mod = dp_module(mx, net, ctxs, shape, *dp_params(net, shape),
+                            zero=zero, opt=kw)
+            batches = dp_batches(mx, inp['X'], inp['y'])[:steps]
+            if bulk:
+                mod.bulk_step(batches=batches)
+                dp_result(mod, tag, res)
+            elif batches:
+                dp_train(mx, mod, batches, res, tag)
+        return mod
+
+    with mx.cpu():
+        for zero in (0, 1):
+            run('base_z%d' % zero, zero)
+            run('clip_z%d' % zero, zero, opt={'clip_gradient': 0.05})
+            run('bf16_z%d' % zero, zero, dtype='bfloat16')
+            exec_cache.clear()
+            run('bulk_z%d' % zero, zero, bulk=True)
+            with exec_cache._LOCK:
+                res['bulk_z%d__multistep_keys' % zero] = len(
+                    [k for k in exec_cache._CACHE if isinstance(k, tuple)
+                     and len(k) > 1 and k[1] == 'multistep'])
+        run('tiny_z1', 1, MXNET_TPU_ZERO_BUCKET_MB='0.0001')
+        mod = run('env_knob', None, steps=1, MXNET_TPU_ZERO=1)
+        res['env_knob__zero'] = mod._fused_updater.zero
+        for zero in (0, 1):
+            profiler.clear()
+            mod = run('acct_z%d' % zero, zero, steps=3)
+            fu = mod._fused_updater
+            st = profiler.comm_stats()
+            res['acct_z%d__rs_ag' % zero] = np.array(
+                fu.comm_bytes_per_step())
+            res['acct_z%d__stats' % zero] = np.array(
+                [st['bytes_reduce_scattered'], st['bytes_all_gathered'],
+                 st['optimizer_state_bytes_per_device'],
+                 st['zero_wire_all_reduce'],
+                 st['zero_wire_reduce_scatter'],
+                 st['reduce_buckets_issued']])
+            res['acct_z%d__state_bytes' % zero] = fu.state_bytes_per_device()
+            res['acct_z%d__n_buckets' % zero] = len(fu._layout.buckets) \
+                if fu.zero else mod._exec_group.reduce_plan.n_buckets
+            if zero:
+                res['acct_z1__shard_sizes'] = np.array(
+                    [m.numel() for m in fu._zero_moms])
+                res['acct_z1__padded'] = np.array(
+                    [b.padded for b in fu._layout.buckets])
+                ex = mod._exec_group.executor
+                res['acct_z1__weights_full'] = all(
+                    tuple(ex.arg_dict[k].shape) == tuple(v.shape)
+                    for k, v in mod.get_params()[0].items())
+                blob = fu.get_states()
+                states, _, _ = pickle.loads(blob)
+                rep = opt_mod.FusedSGD(opt_mod.SGD(momentum=0.9),
+                                       list(states))
+                rep.set_states(blob)
+                res['cross__equal'] = all(
+                    np.array_equal(np.asarray(rep.states[k]), states[k])
+                    for k in states)
+                res['cross__moved'] = any(np.abs(v).sum() > 0
+                                          for v in states.values())
+                fresh = run('fresh', 1, steps=0)
+                fresh._fused_updater.set_states(blob)
+                again, _, _ = pickle.loads(fresh._fused_updater.get_states())
+                res['staged__equal'] = all(
+                    np.array_equal(again[k], states[k]) for k in states)
+                b = dp_batches(mx, inp['X'], inp['y'])[0]
+                fresh.forward_backward(b)
+                fresh.update()
+                after, _, _ = pickle.loads(
+                    fresh._fused_updater.get_states())
+                res['staged__keys'] = sorted(after) == sorted(states)
+        # the bucket target shrunk after two steps: the layout rebuilds
+        net = dp_mlp(mx)
+        mod = dp_module(mx, net, ctxs, shape, *dp_params(net, shape), zero=1)
+        for i, b in enumerate(dp_batches(mx, inp['X'], inp['y'])):
+            with _env(MXNET_TPU_ZERO_BUCKET_MB='0.0001' if i >= 2 else None):
+                mod.forward_backward(b)
+                mod.update()
+        dp_result(mod, 'relayout', res)
+        for zero in (0, 1):
+            for il in (1, 0):
+                profiler.clear()
+                run('sched_z%d_i%d' % (zero, il), zero,
+                    MXNET_TPU_INTERLEAVE_REDUCE=il)
+                res['sched_z%d_i%d__buckets' % (zero, il)] = \
+                    profiler.comm_stats()['reduce_buckets_issued']
+        # the dryrun's (e3) epoch-fused metric bulk against the host loop
+        net = dp_mlp(mx)
+        host = mx.metric.Accuracy()
+        mod = dp_module(mx, net, ctxs, shape, *dp_params(net, shape))
+        dp_train(mx, mod, dp_batches(mx, inp['X'], inp['y']), res, 'host',
+                 metric=host)
+        dev = mx.metric.Accuracy()
+        mod = dp_module(mx, net, ctxs, shape, *dp_params(net, shape))
+        profiler.clear()
+        mod.bulk_step(batches=dp_batches(mx, inp['X'], inp['y']),
+                      eval_metric=dev)
+        res['fold__metric'] = np.float64(dev.get()[1])
+        res['fold__dispatches'] = mod._exec_group.executor.fused_dispatches
+        res['fold__metric_steps'] = \
+            profiler.comm_stats()['scan_fused_metric_steps']
+        dp_result(mod, 'fold', res)
+    _save(tmp_path, rank, res)
+
+
+def launch_worker(out_dir):
+    """A worker of tools/launch.py with MXNET_TPU_DIST_JAX=1: the dist
+    runtime and one torch.distributed group, a Module over the workers'
+    two contexts with ZeRO-1, three steps; writes r<rank>.npz."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import dist
+    rt = dist.initialize()
+    inp = dict(np.load(os.path.join(out_dir, 'inputs.npz')))
+    res = {'host_span': dist.host_span_active(),
+           'world': torch.distributed.get_world_size()}
+    with mx.cpu():
+        net = dp_mlp(mx)
+        shape = (DP_BATCH, DP_FEAT)
+        mod = dp_module(mx, net, [mx.cpu(0), mx.cpu(1)], shape,
+                        *dp_params(net, shape), zero=1)
+        dp_train(mx, mod, dp_batches(mx, inp['X'], inp['y'])[:3], res, 'w')
+    _save(out_dir, rt.rank, res)
+    dist.shutdown()
+    print('WORKER_OK %d' % rt.rank)
+
+
+if __name__ == '__main__':
+    launch_worker(sys.argv[1])

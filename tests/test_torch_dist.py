@@ -255,11 +255,34 @@ def test_world_one_and_no_runtime_are_identity():
     np.testing.assert_array_equal(h.wait()[0], np.ones(2))
 
 
-def test_dist_jax_mode_raises_naming_item_6(monkeypatch):
+def test_dist_jax_mode_brings_up_one_process_group(monkeypatch):
+    """MXNET_TPU_DIST_JAX=1: initialize also joins the workers into one
+    torch.distributed group (at MXNET_TPU_DIST_JAX_ADDR here), over which
+    a Module's data mesh reduces in the step, so the host allreduce is
+    off; shutdown leaves the group. Two workers through the launcher:
+    tests/test_torch_module_dp.py."""
+    import socket
+    import torch.distributed as tdist
+    from mxnet_tpu_torch.parallel import mesh as pmesh
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        free = s.getsockname()[1]
     monkeypatch.setenv('MXNET_TPU_DIST_JAX', '1')
-    with pytest.raises(MXNetError, match='Queue A 6\\)'):
-        dist.initialize(rank=0, world=1, port=0)
-    assert dist.runtime() is None
+    monkeypatch.setenv('MXNET_TPU_DIST_JAX_ADDR', '127.0.0.1:%d' % free)
+    monkeypatch.setenv('MXNET_TPU_DIST_DEVICE', 'cpu')
+    monkeypatch.setenv('LOCAL_RANK', '0')
+    # init_process_group sets it for a one-host gloo group: restored
+    monkeypatch.setenv('GLOO_SOCKET_IFNAME', 'lo')
+    rt = dist.initialize(rank=0, world=1, port=0)
+    try:
+        assert dist.runtime() is rt and tdist.is_initialized()
+        assert tdist.get_world_size() == 1
+        assert not dist.host_span_active()
+        mesh = pmesh.world_data_mesh()
+        assert mesh.shape == {'data': 1} and mesh.device.type == 'cpu'
+    finally:
+        dist.shutdown()
+    assert dist.runtime() is None and not tdist.is_initialized()
 
 
 def test_initialize_from_the_env_contract_and_kvstore_facade(monkeypatch):

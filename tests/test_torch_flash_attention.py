@@ -175,7 +175,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         'mxnet_tpu_torch.tools.bench_conv_bn, '
         'mxnet_tpu_torch.parallel, mxnet_tpu_torch.parallel.ring_attention, '
         'mxnet_tpu_torch.parallel.transformer, '
-        'mxnet_tpu_torch.parallel.mesh, mxnet_tpu_torch.parallel.collectives\n'
+        'mxnet_tpu_torch.parallel.mesh, mxnet_tpu_torch.parallel.collectives, '
+        'mxnet_tpu_torch.parallel.zero\n'
         'added = set(sys.modules) - before\n'
         "bad = sorted(m for m in added if m == 'jax' or "
         "m.startswith('jax.') or m == 'mxnet_tpu' or "
@@ -188,6 +189,32 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == '[]'
+
+
+def test_no_module_of_the_port_imports_jax_or_the_jax_package():
+    """Every module of the port (pkgutil's walk of the package), imported
+    in a fresh interpreter, adds no jax and no mxnet_tpu module."""
+    code = (
+        'import importlib, pkgutil, sys\n'
+        'before = set(sys.modules)\n'
+        'import mxnet_tpu_torch\n'
+        'names = sorted(m.name for m in pkgutil.walk_packages('
+        "mxnet_tpu_torch.__path__, 'mxnet_tpu_torch.'))\n"
+        'for n in names:\n'
+        '    importlib.import_module(n)\n'
+        'added = set(sys.modules) - before\n'
+        "bad = sorted(m for m in added if m == 'jax' or "
+        "m.startswith('jax.') or m == 'mxnet_tpu' or "
+        "m.startswith('mxnet_tpu.'))\n"
+        'print(len(names), repr(bad))\n')
+    env = dict(os.environ, PYTHONPATH=str(REPO) + os.pathsep +
+               os.environ.get('PYTHONPATH', ''))
+    proc = subprocess.run([sys.executable, '-c', code], cwd=str(REPO),
+                          env=env, capture_output=True, text=True,
+                          timeout=240)
+    assert proc.returncode == 0, proc.stderr
+    count, bad = proc.stdout.split(' ', 1)
+    assert int(count) > 90 and bad.strip() == '[]'
 
 
 def test_port_sources_name_neither_jax_nor_the_jax_package():

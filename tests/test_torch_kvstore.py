@@ -353,17 +353,26 @@ def test_local_store_without_updater_and_its_states(tmp_path):
     kv.barrier()
 
 
-@pytest.mark.parametrize('what', ['mark_sparse', 'zero_stage'])
+@pytest.mark.parametrize('what', ['mark_sparse'])
 def test_item_6_parts_raise(what, monkeypatch):
     kv = mx.kv.create('local')
     with pytest.raises(mx.MXNetError, match='Queue A 6\\)'):
-        if what == 'mark_sparse':
-            kv.mark_sparse('emb', 100)
-        else:
-            monkeypatch.setenv('MXNET_TPU_ZERO', '1')
-            kv.zero_stage
+        kv.mark_sparse('emb', 100)
+
+
+def test_zero_stage_facade(monkeypatch):
+    """tests/test_zero.py::test_kvstore_zero_stage_facade on the port:
+    the constructor's stage, else MXNET_TPU_ZERO; the JAX package's
+    store answers the same."""
     monkeypatch.delenv('MXNET_TPU_ZERO', raising=False)
+    assert mx.kv.create('local', zero=1).zero_stage == 1
+    monkeypatch.setenv('MXNET_TPU_ZERO', '1')
+    assert mx.kv.create('local').zero_stage == 1
+    assert jmx.kvstore.create('local').zero_stage == 1
+    monkeypatch.delenv('MXNET_TPU_ZERO')
     assert mx.kv.create('local').zero_stage == 0
+    with pytest.raises(ValueError):
+        mx.kv.create('local', zero=2).zero_stage
 
 
 # -- Module through an in-process parameter server ---------------------------

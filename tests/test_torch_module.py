@@ -283,28 +283,79 @@ def _bound_mlp():
 
 def _cut(case):
     mod, it = _bound_mlp()
-    if case == 'contexts':
-        mx.mod.Module(_mlp(mx), context=[mx.cpu(0), mx.cpu(1)])
-    elif case == 'zero':
-        mod.init_optimizer(zero=1)
-    elif case == 'pipeline':
+    if case == 'pipeline':
         mod.fit(it, num_epoch=1, pipeline=(2, 2))
-    elif case == 'zero_fused':
-        mx.optimizer.FusedSGD(mx.optimizer.SGD(), ['w'], zero=1)
     elif case == 'sparse_fused':
         mx.optimizer.FusedSGD(mx.optimizer.SGD(), ['w'], sparse_idx=(0,))
-    elif case == 'mesh_staging':
-        mx.io.prefetch_to_device(it, mesh=object())
 
 
-CUTS = {'contexts': '6', 'zero': '6', 'pipeline': '6',
-        'zero_fused': '6', 'sparse_fused': '6', 'mesh_staging': '6'}
+CUTS = {'pipeline': '6', 'sparse_fused': '6'}
 
 
 @pytest.mark.parametrize('case', sorted(CUTS))
 def test_cut_feature_raises_naming_its_roadmap_item(case):
     with pytest.raises(mx.MXNetError, match='Queue A %s\\)' % CUTS[case]):
         _cut(case)
+
+
+class _StubMesh:
+    """What io's staging reads of a data mesh: its shape, this rank's
+    index and its device."""
+    shape = {'data': 2}
+    device = torch.device('cpu')
+
+    def axis_index(self, axis):
+        return 1
+
+
+@pytest.mark.parametrize('case', ['contexts', 'zero', 'zero_fused',
+                                  'mesh_staging'])
+def test_item_6b_feature_works(case):
+    """The features of Queue A item 6b that this slice's cut refused.
+    Several contexts in one process name the launchers (each context is
+    a rank of its own process; tests/test_torch_module_dp.py runs
+    them); ZeRO-1 over one device equals the replicated update bit for
+    bit; FusedSGD(zero=1) buckets and keys its layout; staging over a
+    data mesh moves this rank's rows only."""
+    if case == 'contexts':
+        mod = mx.mod.Module(_mlp(mx), context=[mx.cpu(0), mx.cpu(1)])
+        with pytest.raises(mx.MXNetError, match='torchrun.*launch -n 2'):
+            mod.bind([('data', (40, 10))], [('softmax_label', (40,))])
+    elif case == 'zero':
+        out = {}
+        start = _bound_mlp()[0].get_params()
+        for zero in (0, 1):
+            mod, it = _bound_mlp()
+            mod.set_params(*start)
+            mod.init_optimizer(optimizer_params={'learning_rate': 0.1,
+                                                 'momentum': 0.9},
+                               zero=zero)
+            assert mod._fused_updater.zero == zero
+            for batch in it:
+                mod.forward_backward(batch)
+                mod.update()
+            out[zero] = {k: v.asnumpy()
+                         for k, v in mod.get_params()[0].items()}
+        for k in out[0]:
+            np.testing.assert_array_equal(out[1][k], out[0][k], err_msg=k)
+    elif case == 'zero_fused':
+        fu = mx.optimizer.FusedSGD(mx.optimizer.SGD(momentum=0.9), ['w'],
+                                   zero=1)
+        plain = mx.optimizer.FusedSGD(mx.optimizer.SGD(momentum=0.9),
+                                      ['w'])
+        assert fu.cache_key() != plain.cache_key()
+        moms, masters, _, _ = fu.host_prep(
+            [mx.nd.ones((3, 5), ctx=mx.cpu())])
+        assert [m.shape for m in moms] == [(15,)] and masters == [None]
+        assert any('zero' in str(part) for part in fu.cache_key())
+    else:
+        X, y = _blobs(n=80)
+        it = mx.io.NDArrayIter(X, y, batch_size=40)
+        staged = mx.io.prefetch_to_device(it, mesh=_StubMesh())
+        batch = next(iter(staged))
+        np.testing.assert_array_equal(batch.data[0].asnumpy(), X[20:40])
+        np.testing.assert_array_equal(batch.label[0].asnumpy(), y[20:40])
+        staged.close()
 
 
 def _store_step(mod, batch):
