@@ -24,6 +24,10 @@
     python3 chip_smoke.py --phases 26,27       # build, the LM through the
                                                # mesh, four ranks sharing
                                                # the card over gloo
+    python3 chip_smoke.py --phases 28,29       # build, Module over a data
+                                               # mesh, ZeRO-1
+    python3 chip_smoke.py --phases 30,31       # build, the fused Gluon
+                                               # step, sparse tables
     python3 chip_smoke.py --mutants            # phases 2, 4 and 6 against
                                                # broken kernels
 
@@ -243,7 +247,7 @@ Phases, each of which exits non-zero on failure:
    examples/image_classification/common/data.py makes it (shuffle, random
    crop and mirror, 8 decode workers each on its own CUDA stream,
    nvJPEG) feeds Module.fit on phase 10's bf16 ResNet-50 for 2 epochs of
-   6 batches, then score on the val iterator (resize 256, centre crop).
+   3 batches, then score on the val iterator (resize 256, centre crop).
    Gated by record_gate: 32 kernel launches a fit step, 0 in score; (a)
    one step on an ImageRecordIter batch bit-equal to the same batch
    through NDArrayIter; (b) each image of a batch decoded within 30 dB
@@ -424,6 +428,46 @@ Phases, each of which exits non-zero on failure:
    fail; the ranks' elastic ZeRO checkpoint restored at world 1 with
    the gathered momenta and masters bit for bit. Printed: each rank's
    step ms, collectives and bytes staged a step, the card's busy share.
+30. gluon_fused: gluon.fuse_step trains gluon.model_zoo.vision.
+   resnet50_v1 (1000 classes, 3x224x224) in bf16 at batch 256, SGD
+   momentum 0.9, wd 1e-4, float32 masters, seeded Xavier weights: GF_STEPS
+   single fused steps, then from the same weights bulk(GF_BULK) and a
+   step_ahead-0 step. Gated by gf_gate: GF_PAIRS (21, counted from the
+   code by gf_pairs) conv launches and routed pairs a step; the kernel at
+   every routed shape against its plain version; the first loss within
+   GF_LOSS_ATOL of the unfused step's (autograd.record + Trainer.step,
+   phase 13's path) on the same weights and batch; bulk(2) bit-equal to
+   two single steps, and the step_ahead-0 step's loss and weights to the
+   step_ahead-1 run's; a float32 cut v1 ResNet's step with its pairs on
+   the (float32) kernel within MESH_UPDATE_RTOL (updates_within) of the
+   unrouted step, which statistics planted from the wrong pair must
+   fail. Printed: the step ms and images/s, bulk's.
+31. sparse: matrix factorization at MovieLens-20M's counts (138,493
+   users, 27,278 movies, rank 64, float32, both tables sparse_grad)
+   through Module on gpu(0), batches of 4096 Zipf-skewed (user, item)
+   pairs, SGD momentum 0.9. Gated by mf_gate: after MF_STEPS rows-only
+   steps the rows no batch touched, weight and momentum, unchanged; a
+   plain-SGD step bit-equal to the dense Module's; the embed_* counters'
+   touched bytes as the rungs give them, below the dense update's; two
+   runs bit-equal; then MF_RANKS workers of the launcher
+   (MXNET_TPU_DIST_JAX=1) share the card over gloo with the tables
+   striped over the data mesh: a rank's table bytes within MF_SHARE of
+   world 1's, the step's updates within MESH_UPDATE_RTOL of world 1's on
+   the same global batch, their elastic checkpoint restored at world 1
+   bit for bit; last InferenceEngine(hot_rows=8192) serves the predict
+   symbol from pinned host tables, bit-equal to the full-table engine.
+   Printed: the step ms, the touched share, the ranks' table shares, the
+   hot-row hits, misses and device table bytes against the full tables'.
+
+The phases do not run in their numbers' order. After phase 20 the
+launches of phases 21, 22 (its three arms) and 31 start together and
+share the card, and phases 7 and 14-17, which gate no time, run beside
+them; phase 29's launch starts as soon as phase 21's has ended, and
+phase 23 once every launch has ended. Their host times and the ranks' step times
+are taken beside each other's. Phase 25's runner and C programs run
+beside its export, and the SASS is dumped during phases 2-3. Each
+phase's host seconds are printed as it ends, and all of them on a
+"phase seconds" line before the kernels line.
 
 It prints one JSON line with every kernel's numbers, then the card's
 name and power limit from nvidia-smi, and last
@@ -441,6 +485,7 @@ forward mutant, phase 4's LM case every backward mutant, phase 6's
 ragged float32 case every FMA conv mutant, its bf16 main case every
 tensor-core conv mutant, and the unchanged copy passes all four.
 """
+import atexit
 import contextlib
 import json
 import math
@@ -710,7 +755,7 @@ CONV_SM90_MUTANTS = {
                          ': ' + _TRUNCATE + 'v[0], v[1]));'),
 }
 
-ALL_PHASES = frozenset(range(2, 30))
+ALL_PHASES = frozenset(range(2, 32))
 # phase 7: the imperative NDArray path's size (n x n inputs)
 ND_SIZE = 1024
 ND_HOST_CALLS = 2000
@@ -841,6 +886,27 @@ def fail(msg):
     sys.exit(1)
 
 
+class PhaseClock:
+    """The host seconds of each phase of a run, printed as each ends; a
+    phase started again adds to its count."""
+
+    def __init__(self):
+        self.seconds, self._phase, self._t0 = {}, None, None
+        self.t_start = time.perf_counter()
+
+    def start(self, phase):
+        self.stop()
+        self._phase, self._t0 = phase, time.perf_counter()
+
+    def stop(self):
+        if self._phase is not None:
+            s = self.seconds.get(self._phase, 0.0) + \
+                time.perf_counter() - self._t0
+            self.seconds[self._phase] = round(s, 1)
+            print('phase %d: %.1f s' % (self._phase, s), flush=True)
+            self._phase = None
+
+
 def cuda_ms(torch, fn, iters):
     """Mean device time of fn over iters launches, after one warm-up."""
     fn()
@@ -940,17 +1006,24 @@ def backward_flops_done(b, h, tq, tk, d, dtype_name, causal):
                 dq=(2 * groups + 1) * per_product)
 
 
-def sass_check(lib_path, build_log):
-    """Phase 1: the tensor-core kernels run on the tensor cores: every
-    instance of each of SM90_KERNELS, in each of its 16-bit types, in the
-    built library's SASS (cuobjdump -sass) holds HGMMA instructions, and
-    ptxas serialised no wgmma (warning C7520) in the build log."""
-    import os
-    import shutil
+def sass_start(lib_path):
+    """The built library's SASS (cuobjdump -sass), dumped in the
+    background while phases 2-3 run; sass_check reads it."""
     tool = shutil.which('cuobjdump') or os.path.join(
         os.environ.get('CUDA_HOME', '/usr/local/cuda'), 'bin', 'cuobjdump')
-    sass = subprocess.run([tool, '-sass', str(lib_path)], capture_output=True,
-                          text=True, check=True, timeout=300).stdout
+    return Background([tool, '-sass', str(lib_path)], 300)
+
+
+def sass_check(job, build_log):
+    """Phase 1: the tensor-core kernels run on the tensor cores: every
+    instance of each of SM90_KERNELS, in each of its 16-bit types, in the
+    built library's SASS (sass_start's job) holds HGMMA instructions, and
+    ptxas serialised no wgmma (warning C7520) in the build log."""
+    res, _ = job.wait()
+    if res.returncode != 0:
+        fail('cuobjdump -sass exited %d: %s' % (res.returncode,
+                                                res.stderr[-2000:]))
+    sass = res.stdout
     functions = sass.split('Function : ')[1:]
     found = {}
     for name, types in SM90_KERNELS.items():
@@ -1574,7 +1647,7 @@ def conv_phase(torch, cuda_ops, cuda_conv, bench_conv_bn):
 
 def conv_kernel_entry(conv, sass, resnet, module, serve, bucketing,
                       gluon_run, ptb, gluon_lm, factories, record, dist_ps,
-                      dist_coord, loop, dp_mesh, dp_ranks):
+                      dist_coord, loop, dp_mesh, dp_ranks, gluon_fused):
     """The conv_bn_stats entry of the kernels line: times at the main
     case's shape from the bench, errors from the cases, launches from the
     ResNet-50 train steps of phase 9 (its main path), of phase 10's
@@ -1584,7 +1657,9 @@ def conv_kernel_entry(conv, sass, resnet, module, serve, bucketing,
     Module.fit fed by ImageRecordIter, of the worker processes of
     phases 21 and 22 (each counts its own and reports them), of phase
     23's trainer, of phase 28's Module as the one rank of a data mesh
-    (its steps and fit), and of phase 29's two ranks (their sum)."""
+    (its steps and fit), of phase 29's two ranks (their sum) and of
+    phase 30's fused Gluon steps; its checks at phase 30's routed
+    shapes beside the others."""
     xs, ws = CONV_CASES['main'][:2]
     main_shape = [xs[1], xs[3], ws[3], ws[0], CONV_CASES['main'][2][0]]
     bench = conv['bench']
@@ -1631,6 +1706,7 @@ def conv_kernel_entry(conv, sass, resnet, module, serve, bucketing,
                               train_serve_fit=loop['path_launches'],
                               resnet_dp_mesh=dp_mesh['launches'],
                               resnet_dp_ranks=dp_ranks['launches'],
+                              gluon_fused=gluon_fused['launches'],
                               conv_bn_bench=bench['launches']),
         stem_split=resnet['stem_split'],
         launches_per_train_step=resnet['train_launches'],
@@ -1642,6 +1718,7 @@ def conv_kernel_entry(conv, sass, resnet, module, serve, bucketing,
                                   s2_rel_err=r['s2']['rel_err'])
                              for r in resnet['kernel_checks'] +
                              bucketing['kernel_checks']],
+        gluon_fused_shape_checks=gluon_fused['kernel_checks'],
         imagerecord_shape_checks=[dict(x=r['x'], w=r['w'],
                                        stride=r['stride'], pairs=r['pairs'],
                                        max_abs_err=r['y']['max_abs_err'],
@@ -4635,14 +4712,17 @@ def gluon_transform(data, label):
 
 
 def gluon_param_state(net):
-    """Every parameter's value (moving statistics included), by name."""
-    return {n: p.data().handle.detach().clone()
-            for n, p in net.collect_params().items()}
+    """Every parameter's value (moving statistics included), by name
+    without the net's auto-prefix (so another instance takes it)."""
+    n = len(net.prefix)
+    return {k[n:]: p.data().handle.detach().clone()
+            for k, p in net.collect_params().items()}
 
 
 def gluon_set_state(net, state):
-    for n, p in net.collect_params().items():
-        p.data()._data = state[n].clone()
+    n = len(net.prefix)
+    for k, p in net.collect_params().items():
+        p.data()._data = state[k[n:]].clone()
 
 
 def gluon_zoo_check(torch, mx, ctx):
@@ -5910,7 +5990,7 @@ def contrib_phase(torch, cuda_conv, cuda_ops, device='cuda'):
 # Phase 18: the train_imagenet input path (ImageRecordIter -> Module.fit)
 # ---------------------------------------------------------------------------
 
-RECORD_IMAGES = 1536        # 6 batches of RESNET_BATCH an epoch
+RECORD_IMAGES = 768         # 3 batches of RESNET_BATCH an epoch
 RECORD_SIDES = (256, 500)
 RECORD_QUALITY = 95
 RECORD_THREADS = 8          # preprocess_threads of the train iterator
@@ -7783,12 +7863,111 @@ def dist_worker(kind, out_dir, tag):
                                                      len(times)))
 
 
-def dist_launch(root, out_dir, tag, kind, n, servers, env=None,
-                elastic=False):
-    """Run `n` dist_worker processes (and `servers` parameter servers)
-    through `python -m mxnet_tpu_torch.tools.launch`; returns (the
-    completed process, wall seconds). The launcher's output is kept under
+class Background:
+    """A command run in the background while the script goes on: its
+    output goes to temporary files and its wall clock stops when it
+    exits. wait() gives (the completed process, wall seconds), or stops
+    it and raises subprocess.TimeoutExpired after `timeout` seconds from
+    its start; one not waited for is stopped when the script exits."""
+
+    running = []
+
+    def __init__(self, cmd, timeout, **popen):
+        import tempfile
+        self.cmd, self.timeout = cmd, timeout
+        self.out, self.err = (tempfile.TemporaryFile('w+') for _ in 'oe')
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(cmd, stdout=self.out, stderr=self.err,
+                                     text=True, **popen)
+        self.wall, self.result = None, None
+        self._lock, self._after = threading.Lock(), []
+        self.watch = threading.Thread(target=self._watch, daemon=True)
+        self.watch.start()
+        Background.running.append(self)
+
+    def _watch(self):
+        self.proc.wait()
+        with self._lock:
+            self.wall = time.perf_counter() - self.t0
+            after, self._after = self._after, []
+        for fn in after:
+            fn()
+
+    def after(self, fn):
+        """Call fn once the command has exited: from the thread that
+        watches it (wait() returns after fn has), or now if it has."""
+        with self._lock:
+            if self.wall is None:
+                self._after.append(fn)
+                return
+        fn()
+
+    def wait(self):
+        if self.result is None:
+            self.watch.join(max(1.0, self.t0 + self.timeout -
+                                time.perf_counter()))
+            if self.wall is None:
+                self.stop()
+                raise subprocess.TimeoutExpired(self.cmd, self.timeout)
+            Background.running.remove(self)
+            for f in (self.out, self.err):
+                f.seek(0)
+            self.result = (subprocess.CompletedProcess(
+                self.cmd, self.proc.returncode, self.out.read(),
+                self.err.read()), self.wall)
+            self.out.close()
+            self.err.close()
+        return self.result
+
+    def stop(self):
+        """SIGTERM (the launcher passes it to its workers), then SIGKILL
+        after 30 s."""
+        if self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(timeout=30)
+        if self in Background.running:
+            Background.running.remove(self)
+
+    @classmethod
+    def stop_all(cls):
+        for job in list(cls.running):
+            job.stop()
+
+
+class Launch(Background):
+    """One run of the port's launcher: the launches of phases 21, 22 and
+    31 run at once. wait() also keeps the launcher's output under
     chiprun_out/."""
+
+    def __init__(self, root, tag, cmd, env):
+        self.root, self.tag = root, tag
+        super().__init__(cmd, DIST_LAUNCH_TIMEOUT_S, cwd=str(root), env=env)
+
+    def wait(self):
+        first = self.result is None
+        res, wall = super().wait()
+        if first:
+            log = self.root / 'chiprun_out' / ('dist_%s.log' % self.tag)
+            log.parent.mkdir(exist_ok=True)
+            log.write_text(
+                '$ %s\nrc %d, %.1f s\n--- stdout\n%s\n--- stderr\n%s\n'
+                % (' '.join(self.cmd), res.returncode, wall, res.stdout,
+                   res.stderr))
+            print('dist %s: launcher rc %d in %.1f s (log %s)'
+                  % (self.tag, res.returncode, wall,
+                     log.relative_to(self.root)))
+        return res, wall
+
+
+def start_launch(root, out_dir, tag, kind, n, servers, env=None,
+                 elastic=False):
+    """Start `n` dist_worker processes (and `servers` parameter servers)
+    through `python -m mxnet_tpu_torch.tools.launch`; returns the
+    Launch."""
     e = {k: v for k, v in os.environ.items() if k not in DIST_STALE_ENV}
     e.update(DIST_ENV)
     e.update(env or {})
@@ -7799,18 +7978,15 @@ def dist_launch(root, out_dir, tag, kind, n, servers, env=None,
                 '--elastic-grace', '60']
     cmd += [sys.executable, str(root / 'chip_smoke.py'), '--dist-worker',
             kind, '--dist-out', str(out_dir), '--dist-tag', tag]
-    t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True, cwd=str(root),
-                         env=e, timeout=DIST_LAUNCH_TIMEOUT_S)
-    wall = time.perf_counter() - t0
-    log = root / 'chiprun_out' / ('dist_%s.log' % tag)
-    log.parent.mkdir(exist_ok=True)
-    log.write_text('$ %s\nrc %d, %.1f s\n--- stdout\n%s\n--- stderr\n%s\n'
-                   % (' '.join(cmd), res.returncode, wall, res.stdout,
-                      res.stderr))
-    print('dist %s: launcher rc %d in %.1f s (log %s)'
-          % (tag, res.returncode, wall, log.relative_to(root)))
-    return res, wall
+    return Launch(root, tag, cmd, e)
+
+
+def fresh_dir(root, phase):
+    """build/phase<N>, emptied."""
+    out = root / 'build' / ('phase%d' % phase)
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    return out
 
 
 def dist_load(torch, out_dir, tag, rank):
@@ -7840,7 +8016,15 @@ def step_ms_median(times, skip_first=1, upto=None):
     return median(iv) if iv else float('nan')
 
 
-def ps_phase(torch, mx, root):
+def ps_start(root):
+    """Phase 21's launch, started: (its directory, the Launch)."""
+    out = fresh_dir(root, 21)
+    return out, start_launch(
+        root, out, 'ps', 'ps', 2, 1,
+        env={'MXNET_TPU_PS_REPORT': str(out / 'server.json')})
+
+
+def ps_phase(torch, mx, root, started=None):
     """Phase 21: `tools.launch -n 2 -s 1`: two workers on gpu(0) and one
     CPU parameter server; Module.fit(kvstore='dist_sync') with the
     momentum SGD of phase 10, 64 images a step each on its own half of a
@@ -7851,13 +8035,12 @@ def ps_phase(torch, mx, root):
     import pickle
     import shutil
     from mxnet_tpu_torch import optimizer as opt_mod
-    out = root / 'build' / 'phase21'
-    shutil.rmtree(out, ignore_errors=True)
-    out.mkdir(parents=True)
-    torch.cuda.empty_cache()
+    if started is None:
+        torch.cuda.empty_cache()
+        started = ps_start(root)
+    out, launch = started
     report_path = out / 'server.json'
-    res, wall = dist_launch(root, out, 'ps', 'ps', 2, 1,
-                            env={'MXNET_TPU_PS_REPORT': str(report_path)})
+    res, wall = launch.wait()
     if res.returncode != 0:
         fail('phase 21: the launcher exited %d:\n%s\n%s'
              % (res.returncode, res.stdout[-3000:], res.stderr[-3000:]))
@@ -7936,7 +8119,21 @@ def ps_phase(torch, mx, root):
     return run
 
 
-def coord_phase(torch, mx, root):
+def coord_start(root):
+    """Phase 22's three launches, started together: (their directory,
+    {arm: Launch})."""
+    out = fresh_dir(root, 22)
+    return out, dict(
+        straight=start_launch(root, out, 'straight', 'coord', 1, 0),
+        elastic=start_launch(
+            root, out, 'elastic', 'coord', 2, 0, elastic=True,
+            env={'MXNET_TPU_FAULT_KILL_AT_STEP': str(DIST_KILL_AT),
+                 'MXNET_TPU_FAULT_KILL_RANK': '1'}),
+        shard=start_launch(root, out, 'shard', 'coord', 2, 0,
+                           env={'MXNET_TPU_DIST_TOPOLOGY': 'ring'}))
+
+
+def coord_phase(torch, mx, root, started=None):
     """Phase 22: `tools.launch -s 0`, the coordinator's allreduce, each
     rank 32 images a step with a CheckpointManager(every_n_steps=2,
     incremental=2). Arms: straight (world 1, 10 steps); elastic (world 2
@@ -7952,14 +8149,14 @@ def coord_phase(torch, mx, root):
     from mxnet_tpu_torch import _hostarray as ha
     from mxnet_tpu_torch import delta as delta_mod
     from mxnet_tpu_torch import dist, elastic, serving
-    out = root / 'build' / 'phase22'
-    shutil.rmtree(out, ignore_errors=True)
-    out.mkdir(parents=True)
-    torch.cuda.empty_cache()
+    if started is None:
+        torch.cuda.empty_cache()
+        started = coord_start(root)
+    out, launches = started
     bad = []
     arms = {}
 
-    res, wall = dist_launch(root, out, 'straight', 'coord', 1, 0)
+    res, wall = launches['straight'].wait()
     if res.returncode != 0:
         fail('phase 22 straight arm: rc %d\n%s\n%s'
              % (res.returncode, res.stdout[-3000:], res.stderr[-3000:]))
@@ -7970,10 +8167,7 @@ def coord_phase(torch, mx, root):
                             ckpt_stats=straight['ckpt_stats'],
                             delta_stats=straight['delta_stats'])
 
-    res, wall = dist_launch(
-        root, out, 'elastic', 'coord', 2, 0, elastic=True,
-        env={'MXNET_TPU_FAULT_KILL_AT_STEP': str(DIST_KILL_AT),
-             'MXNET_TPU_FAULT_KILL_RANK': '1'})
+    res, wall = launches['elastic'].wait()
     if res.returncode != 0:
         fail('phase 22 elastic arm: rc %d\n%s\n%s'
              % (res.returncode, res.stdout[-3000:], res.stderr[-3000:]))
@@ -8003,8 +8197,7 @@ def coord_phase(torch, mx, root):
                            relaunch_launches=elastic_r0['launches'],
                            equal_to_straight=not (differ or differ_aux))
 
-    res, wall = dist_launch(root, out, 'shard', 'coord', 2, 0,
-                            env={'MXNET_TPU_DIST_TOPOLOGY': 'ring'})
+    res, wall = launches['shard'].wait()
     if res.returncode != 0:
         fail('phase 22 shard arm: rc %d\n%s\n%s'
              % (res.returncode, res.stdout[-3000:], res.stderr[-3000:]))
@@ -8854,19 +9047,45 @@ def artifact_phase(torch, mx, cuda_conv, cuda_ops, root, ctx=None):
     x = np.random.default_rng(SEED + 800).standard_normal(
         (ART_BATCH,) + shape, dtype=np.float32)
     torch.save(torch.from_numpy(x), str(out / 'in.pt'))
+    # the torch-only runner and the two C programs run in processes of
+    # their own while this one exports the rungs
+    runner = Background([sys.executable, '-I', '-c', ART_RUNNER,
+                         str(out / 'artifact.pt2'), str(out / 'in.pt'),
+                         str(out / 'out.pt')], 600, cwd=str(out))
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, '-I', '-c', ART_RUNNER,
-                           str(out / 'artifact.pt2'), str(out / 'in.pt'),
-                           str(out / 'out.pt')], capture_output=True,
-                          text=True, timeout=600, cwd=str(out))
-    runner_s = time.perf_counter() - t0
+    lib = _build.c_predict_library()
+    c_build_s = time.perf_counter() - t0
+    libdir = str(lib.parent)
+    img = x[:1]
+    img.tofile(str(out / 'input.f32'))
+    (out / 'card_shim.c').write_text(ART_CARD_SHIM)
+    shim = str(out / 'card_shim.o')
+    cc = subprocess.run(['gcc', '-O2', '-c', str(out / 'card_shim.c'),
+                         '-o', shim], capture_output=True, text=True,
+                        timeout=300)
+    if cc.returncode != 0:
+        fail('phase 25: the shim failed to compile:\n%s%s'
+             % (cc.stdout, cc.stderr))
+    c_jobs = {}
+    for dev, extra in (('cpu', []),
+                       ('card', ['-DMXTPredCreate=mxt_example_create_on_card',
+                                 shim])):
+        exe = str(out / ('predict_' + dev))
+        cc = subprocess.run(['gcc', '-O2', *extra,
+                             str(root / 'examples' / 'c_predict' /
+                                 'predict.c'), '-o', exe, '-L' + libdir,
+                             '-lmxt_predict', '-Wl,-rpath,' + libdir],
+                            capture_output=True, text=True, timeout=300)
+        if cc.returncode != 0:
+            fail('phase 25: predict.c failed to compile:\n%s%s'
+                 % (cc.stdout, cc.stderr))
+        env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
+        c_jobs[dev] = Background([exe, prefix + '-symbol.json',
+                                  prefix + '-0000.params',
+                                  str(out / 'input.f32')] +
+                                 [str(d) for d in (1,) + shape], 600,
+                                 env=env, cwd=str(out))
     want = pred.forward(data=x)[0].asnumpy()
-    pt2_rel = float('inf')
-    bit_equal = False
-    if proc.returncode == 0:
-        got = torch.load(str(out / 'out.pt'))[0].float().numpy()
-        pt2_rel = float(np.abs(got - want).max() / np.abs(want).max())
-        bit_equal = bool(np.array_equal(got, want))
     # the rungs, twice
     t0 = time.perf_counter()
     s0 = exec_cache.stats()
@@ -8878,52 +9097,25 @@ def artifact_phase(torch, mx, cuda_conv, cuda_ops, root, ctx=None):
     second_s = time.perf_counter() - t0
     s2 = exec_cache.stats()
     same = all(again[b]['program'] is rungs[b]['program'] for b in rungs)
-    # the C predict API
-    t0 = time.perf_counter()
-    lib = _build.c_predict_library()
-    c_build_s = time.perf_counter() - t0
-    libdir = str(lib.parent)
-    img = x[:1]
-    img.tofile(str(out / 'input.f32'))
     c_runs = {}
-    (out / 'card_shim.c').write_text(ART_CARD_SHIM)
-    shim = str(out / 'card_shim.o')
-    cc = subprocess.run(['gcc', '-O2', '-c', str(out / 'card_shim.c'),
-                         '-o', shim], capture_output=True, text=True,
-                        timeout=300)
-    if cc.returncode != 0:
-        fail('phase 25: the shim failed to compile:\n%s%s'
-             % (cc.stdout, cc.stderr))
-    for dev, extra, ctx_dev in (
-            ('cpu', [], mx.cpu()),
-            ('card', ['-DMXTPredCreate=mxt_example_create_on_card', shim],
-             ctx)):
-        exe = str(out / ('predict_' + dev))
-        cc = subprocess.run(['gcc', '-O2', *extra,
-                             str(root / 'examples' / 'c_predict' /
-                                 'predict.c'), '-o', exe, '-L' + libdir,
-                             '-lmxt_predict', '-Wl,-rpath,' + libdir],
-                            capture_output=True, text=True, timeout=300)
-        if cc.returncode != 0:
-            fail('phase 25: predict.c failed to compile:\n%s%s'
-                 % (cc.stdout, cc.stderr))
-        env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
-        t0 = time.perf_counter()
-        run_ = subprocess.run([exe, prefix + '-symbol.json',
-                               prefix + '-0000.params',
-                               str(out / 'input.f32')] +
-                              [str(d) for d in (1,) + shape],
-                              capture_output=True, text=True, env=env,
-                              timeout=600, cwd=str(out))
+    for dev, ctx_dev in (('cpu', mx.cpu()), ('card', ctx)):
         one = Predictor.from_checkpoint(prefix, 0, {'data': (1,) + shape},
                                         ctx=ctx_dev)
+        c_want = int(np.argmax(one.predict(img)[0]))
+        del one
+        run_, c_s = c_jobs[dev].wait()
         c_runs[dev] = dict(rc=run_.returncode,
                            predicted=predicted_class(run_.stdout),
-                           want=int(np.argmax(one.predict(img)[0])),
-                           s=time.perf_counter() - t0,
+                           want=c_want, s=c_s,
                            out=run_.stdout.strip()[-300:],
                            err=run_.stderr.strip()[-1500:])
-        del one
+    proc, runner_s = runner.wait()
+    pt2_rel = float('inf')
+    bit_equal = False
+    if proc.returncode == 0:
+        got = torch.load(str(out / 'out.pt'))[0].float().numpy()
+        pt2_rel = float(np.abs(got - want).max() / np.abs(want).max())
+        bit_equal = bool(np.array_equal(got, want))
     after = hand_written_launches(cuda_conv, cuda_ops)
     run = dict(
         config=dict(RESNET, batch=ART_BATCH, buckets=ART_BUCKETS),
@@ -8989,7 +9181,7 @@ MESH_W_RTOL = 2.0 ** -7
 MESH_UPDATE_RTOL = 1e-3
 MESH_RING = {'data': 1, 'sp': 2, 'model': 2}
 MESH_RANKS = 4
-MESH_RING_STEPS = 3          # timed steps a rank, after one warm-up
+MESH_RING_STEPS = 1          # timed steps a rank, after one warm-up
 MESH_J_SP = 4                # __graft_entry__ dryrun phase (j), at sp = 4
 
 
@@ -9864,18 +10056,24 @@ def dp_restore_check(torch, mx, out):
                 masters=sum(v is not None for v in want[2].values()))
 
 
-def dp_ranks_phase(torch, mx, root, smi, world1):
+def dp_start(root):
+    """Phase 29's launch, started: (its directory, the Launch)."""
+    out = fresh_dir(root, 29)
+    return out, start_launch(root, out, 'dp', 'dp', DP_RANKS, 0,
+                             env={'MXNET_TPU_DIST_JAX': '1',
+                                  'MXNET_TPU_INTERLEAVE_REDUCE': '1'})
+
+
+def dp_ranks_phase(torch, mx, root, smi, world1, started=None):
     """Phase 29: DP_RANKS workers of the port's launcher share the card
     (MXNET_TPU_DIST_JAX=1, gloo) and train the bf16 ResNet-50 as one data
     mesh with ZeRO 1; gated by dp_gate against phase 28's world-1 step."""
-    out = root / 'build' / 'phase29'
-    shutil.rmtree(out, ignore_errors=True)
-    out.mkdir(parents=True)
-    torch.cuda.empty_cache()
+    if started is None:
+        torch.cuda.empty_cache()
+        started = dp_start(root)
+    out, launch = started
     try:
-        res, wall = dist_launch(root, out, 'dp', 'dp', DP_RANKS, 0,
-                                env={'MXNET_TPU_DIST_JAX': '1',
-                                     'MXNET_TPU_INTERLEAVE_REDUCE': '1'})
+        res, wall = launch.wait()
         if res.returncode != 0:
             fail('phase 29: the launcher exited %d (its log is named above)'
                  % res.returncode)
@@ -9926,6 +10124,696 @@ def dp_ranks_phase(torch, mx, root, smi, world1):
     return run
 
 
+# ---------------------------------------------------------------------------
+# Phase 30: the fused Gluon step trains the bf16 ResNet-50 v1
+# ---------------------------------------------------------------------------
+
+GF_BATCH = 256
+GF_SIDE = 224
+GF_CLASSES = 1000
+GF_OPT = dict(learning_rate=0.1, momentum=0.9, wd=1e-4,
+              multi_precision=True)
+GF_SEED = SEED + 3000
+GF_STEPS = 3                 # single fused steps, then bulk(GF_BULK)
+GF_BULK = 2
+# gluon.model_zoo.vision.resnet50_v1's conv -> BatchNorm pairs the route
+# takes, counted from the code (gf_pairs): the stem, the 16 bottlenecks'
+# 3x3 convs and the 4 projections; each bottleneck's two 1x1 convs carry
+# a bias (BottleneckV1, vision.py) and stay on cuDNN
+GF_PAIRS = 21
+# the fused step's first loss (mean over the batch, about ln 1000)
+# against the unfused step's (autograd.record + Trainer.step, phase 13's
+# path, cuDNN convs and BatchNorm's one-pass sums of the rounded bf16 y)
+# on the same weights and batch: the two round the statistics otherwise,
+# and bf16 carries that through 50 layers
+GF_LOSS_ATOL = 0.02
+# the float32 cut net: ResNetV1 with one bottleneck a stage at 64^2
+GF_CUT = dict(layers=[1, 1, 1, 1], channels=[16, 64, 128, 256, 512],
+              classes=10)
+GF_CUT_BATCH = 8
+GF_CUT_SIDE = 64
+
+
+def gf_pairs(gluon, net):
+    """The conv -> BatchNorm pairs of `net` the fused step's route takes
+    (gluon/fused.py: adjacent children of a HybridSequential, a 2-D conv
+    with no bias, no activation, groups 1 and dilation 1, then a
+    BatchNorm on axis 1 without use_global_stats)."""
+    nn = gluon.nn
+    count = 0
+    stack = [net]
+    while stack:
+        b = stack.pop()
+        kids = list(b._children)
+        stack.extend(kids)
+        if type(b) is not nn.HybridSequential:
+            continue
+        for c, n in zip(kids, kids[1:]):
+            kw = getattr(c, '_kwargs', {})
+            if type(c) is nn.Conv2D and type(n) is nn.BatchNorm and \
+                    kw['no_bias'] and c.act is None and \
+                    len(kw['kernel']) == 2 and kw['num_group'] == 1 and \
+                    all(d == 1 for d in kw['dilate']) and \
+                    n._kwargs['axis'] in (1, -3) and \
+                    not n._kwargs['use_global_stats']:
+                count += 1
+    return count
+
+
+def gf_net(torch, mx, ctx, state=None):
+    """resnet50_v1 (1000 classes) on ctx in bf16, its shapes completed by
+    one float32 forward; Xavier from GF_SEED, or `state`."""
+    mx.random.seed(GF_SEED)
+    net = mx.gluon.model_zoo.vision.resnet50_v1(classes=GF_CLASSES)
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    net(mx.nd.zeros((1, 3, GF_SIDE, GF_SIDE), ctx=ctx))
+    net.cast('bfloat16')
+    if state is not None:
+        gluon_set_state(net, state)
+    return net
+
+
+def gf_batches(torch, mx, ctx, n):
+    """n seeded batches of GF_BATCH bf16 images and labels on ctx."""
+    dev = ctx.torch_device
+    gen = torch.Generator(device=dev).manual_seed(GF_SEED + 1)
+    out = []
+    for _ in range(n):
+        x = torch.randn((GF_BATCH, 3, GF_SIDE, GF_SIDE), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        y = torch.randint(0, GF_CLASSES, (GF_BATCH,), generator=gen,
+                          device=dev).float()
+        out.append((mx.nd.NDArray(x, ctx), mx.nd.NDArray(y, ctx)))
+    return out
+
+
+def gf_cut_step(torch, mx, ctx, route, plant=False):
+    """One fused float32 step of the cut ResNet v1 (GF_CUT) on ctx: the
+    weights before and after, by name. `route` puts its float32 pairs on
+    the conv kernel (float32 FMA); `plant` hands each pair's BatchNorm
+    the statistics of an earlier pair of its width (or its own, one
+    channel off)."""
+    from mxnet_tpu_torch import executor as ex_mod
+    from mxnet_tpu_torch.gluon import fused
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    gluon = mx.gluon
+    mx.random.seed(GF_SEED + 7)
+    net = vision.ResNetV1(vision.BottleneckV1, GF_CUT['layers'],
+                          GF_CUT['channels'], classes=GF_CUT['classes'])
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    dev = ctx.torch_device
+    gen = torch.Generator(device=dev).manual_seed(GF_SEED + 8)
+    x = torch.randn((GF_CUT_BATCH, 3, GF_CUT_SIDE, GF_CUT_SIDE),
+                    generator=gen, device=dev)
+    y = torch.randint(0, GF_CUT['classes'], (GF_CUT_BATCH,), generator=gen,
+                      device=dev).float()
+    x, y = mx.nd.NDArray(x, ctx), mx.nd.NDArray(y, ctx)
+    net(x)
+    tr = gluon.Trainer(net.collect_params(), 'sgd',
+                       dict(learning_rate=0.1, momentum=0.9, wd=1e-4))
+    fs = gluon.fuse_step(net, gluon.loss.SoftmaxCrossEntropyLoss(), tr)
+    old = {k: v.clone() for k, v in gluon_param_state(net).items()}
+    dtypes, pair_conv = fused._PairRoute.dtypes, ex_mod.pair_conv
+    seen = {}
+
+    def planted(xt, w, stride, pad):
+        yt, (s1, s2) = pair_conv(xt, w, stride, pad)
+        prev = seen.get(s1.shape[0])
+        seen[s1.shape[0]] = (s1, s2)
+        if prev is None:
+            return yt, (s1.roll(1), s2.roll(1))
+        return yt, prev
+
+    if route:
+        fused._PairRoute.dtypes = (torch.bfloat16, torch.float32)
+    if plant:
+        ex_mod.pair_conv = planted
+    try:
+        fs(x, y)
+    finally:
+        fused._PairRoute.dtypes, ex_mod.pair_conv = dtypes, pair_conv
+    new = gluon_param_state(net)
+    return old, new, fs.routed_pairs
+
+
+def gf_gate(run):
+    """Phase 30's checks on a run's numbers: a list of what failed."""
+    bad = []
+    if run['pairs_in_code'] != GF_PAIRS:
+        bad.append('resnet50_v1 has %d routable pairs in the code, not %d'
+                   % (run['pairs_in_code'], GF_PAIRS))
+    want = [GF_PAIRS] * GF_STEPS
+    if run['launches_per_step'] != want or \
+            run['routed_per_step'] != want:
+        bad.append('conv launches %s (routed %s) a step, expected %d'
+                   % (run['launches_per_step'], run['routed_per_step'],
+                      GF_PAIRS))
+    if run['bulk_launches'] != GF_PAIRS * GF_BULK:
+        bad.append('bulk(%d) launched the kernel %d times, expected %d'
+                   % (GF_BULK, run['bulk_launches'], GF_PAIRS * GF_BULK))
+    for c in run['kernel_checks']:
+        if not c['ok']:
+            bad.append('the kernel off its plain version at %s %s'
+                       % (c['x'], c['w']))
+    if sum(c['pairs'] for c in run['kernel_checks']) != GF_PAIRS:
+        bad.append('the shapes checked cover %d pairs, not %d' % (
+            sum(c['pairs'] for c in run['kernel_checks']), GF_PAIRS))
+    if not all(math.isfinite(v) for v in run['losses']):
+        bad.append('losses %s' % run['losses'])
+    if abs(run['losses'][0] - run['unfused_loss']) > GF_LOSS_ATOL:
+        bad.append('first fused loss %.5f vs the unfused step\'s %.5f '
+                   '(tol %g)' % (run['losses'][0], run['unfused_loss'],
+                                 GF_LOSS_ATOL))
+    if not run['bulk_equal']:
+        bad.append('bulk(%d) differs from %d single steps in %s'
+                   % (GF_BULK, GF_BULK, run['bulk_differ']))
+    if not run['step_ahead_equal']:
+        bad.append('step_ahead 0 and 1 gave different losses or weights')
+    if run['cut_routed'] <= 0 or not run['cut_updates']['ok']:
+        bad.append('float32 cut net: %d pairs routed, updates %s'
+                   % (run['cut_routed'], run['cut_updates']))
+    if run['cut_planted_updates']['ok']:
+        bad.append('statistics from the wrong pair passed the update gate: '
+                   '%s' % run['cut_planted_updates'])
+    return bad
+
+
+def gluon_fused_phase(torch, mx, cuda_conv, smi, ctx=None):
+    """Phase 30: gluon.fuse_step trains model_zoo resnet50_v1 in bf16 at
+    batch 256 (SGD, momentum 0.9, wd 1e-4, float32 masters): GF_STEPS
+    single fused steps (step_ahead 1), then on a second net from the same
+    weights bulk(GF_BULK) and one more step with step_ahead 0; the
+    unfused step (autograd.record + Trainer.step) from the same weights
+    on the first batch; the kernel at every routed shape against its
+    plain version; a float32 cut net's step with its pairs on the kernel
+    against it with them off, and with the statistics planted from the
+    wrong pair. Gated by gf_gate."""
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch import executor as executor_mod
+    gluon = mx.gluon
+    ctx = ctx or mx.gpu(0)
+    torch.cuda.empty_cache()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    try:
+        net = gf_net(torch, mx, ctx)
+        pairs_in_code = gf_pairs(gluon, net)
+        state = {k: v.clone() for k, v in gluon_param_state(net).items()}
+        batches = gf_batches(torch, mx, ctx, GF_STEPS)
+
+        # the unfused step, phase 13's path, on the first batch
+        ref = gf_net(torch, mx, ctx, state)
+        tr = gluon.Trainer(ref.collect_params(), 'sgd', dict(GF_OPT))
+        with autograd.record():
+            loss = loss_fn(ref(batches[0][0]), batches[0][1])
+        loss.backward()
+        tr.step(GF_BATCH)
+        unfused_loss = float(loss.mean().asscalar())
+        del ref, tr, loss
+        torch.cuda.empty_cache()
+
+        # the main path: GF_STEPS fused steps, the count set to 0 before
+        tr = gluon.Trainer(net.collect_params(), 'sgd', dict(GF_OPT))
+        fs = gluon.fuse_step(net, loss_fn, tr)
+        cuda_conv.CONV_BN_STATS_LAUNCHES = 0
+        rows, losses, routed, shapes = [], [], [], {}
+        for i, (x, y) in enumerate(batches):
+            before = cuda_conv.CONV_BN_STATS_LAUNCHES
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = fs(x, y)
+            torch.cuda.synchronize()
+            rows.append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                             launches=cuda_conv.CONV_BN_STATS_LAUNCHES -
+                             before))
+            losses.append(loss.handle.float().mean().item())
+            routed.append(fs.routed_pairs)
+            shapes = fs.routed_shapes
+            if i == GF_BULK - 1:
+                after_bulk = {k: v.clone()
+                              for k, v in gluon_param_state(net).items()}
+        main_launches = cuda_conv.CONV_BN_STATS_LAUNCHES
+        final = gluon_param_state(net)
+        stats = mx.profiler.gluon_fused_stats()
+        del fs, tr, net
+        torch.cuda.empty_cache()
+
+        # bulk(2) and a step_ahead-0 step on a second net, same weights
+        net = gf_net(torch, mx, ctx, state)
+        tr = gluon.Trainer(net.collect_params(), 'sgd', dict(GF_OPT))
+        fs = gluon.fuse_step(net, loss_fn, tr, step_ahead=0)
+        xs = mx.nd.NDArray(torch.stack([b[0].handle
+                                        for b in batches[:GF_BULK]]), ctx)
+        ys = mx.nd.NDArray(torch.stack([b[1].handle
+                                        for b in batches[:GF_BULK]]), ctx)
+        before = cuda_conv.CONV_BN_STATS_LAUNCHES
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fs.bulk(xs, ys)
+        torch.cuda.synchronize()
+        bulk_ms = (time.perf_counter() - t0) * 1e3
+        bulk_launches = cuda_conv.CONV_BN_STATS_LAUNCHES - before
+        got = gluon_param_state(net)
+        bulk_differ = sorted(k for k in after_bulk
+                             if not torch.equal(got[k], after_bulk[k]))
+        loss3 = fs(*batches[GF_BULK]).handle.float().mean().item()
+        got = gluon_param_state(net)
+        ahead_equal = loss3 == losses[GF_BULK] and all(
+            torch.equal(got[k], final[k]) for k in final)
+        del fs, tr, net, xs, ys, got, final, after_bulk, state, batches
+        torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+    # the kernel at every routed shape against its plain version
+    checks = resnet_kernel_checks(
+        torch, cuda_conv, executor_mod,
+        {k: ['pair'] * n for k, n in shapes.items()}, ctx.torch_device)
+    # the float32 cut net: the route against no route, and planted
+    old, ref_new, _ = gf_cut_step(torch, mx, ctx, route=False)
+    _, new, cut_routed = gf_cut_step(torch, mx, ctx, route=True)
+    _, planted, _ = gf_cut_step(torch, mx, ctx, route=True, plant=True)
+    # the moving statistics are no update; the bias of a 1x1 conv that
+    # feeds a BatchNorm has a zero gradient, its update rounding noise
+    names = sorted(k for k in old if 'running' not in k and
+                   not ('conv' in k and k.endswith('bias')))
+    cut = updates_within(torch, [new[k] for k in names],
+                         [old[k] for k in names],
+                         [ref_new[k] for k in names], MESH_UPDATE_RTOL)
+    cut_planted = updates_within(torch, [planted[k] for k in names],
+                                 [old[k] for k in names],
+                                 [ref_new[k] for k in names],
+                                 MESH_UPDATE_RTOL)
+    step_ms = median([r['ms'] for r in rows[1:]])
+    run = dict(
+        config='gluon.model_zoo.vision.resnet50_v1, bf16, batch %d, %dx%d, '
+               'gluon.fuse_step, SGD momentum 0.9 wd 1e-4 multi_precision'
+               % (GF_BATCH, GF_SIDE, GF_SIDE),
+        card=smi, pairs_in_code=pairs_in_code,
+        launches=main_launches,
+        launches_per_step=[r['launches'] for r in rows],
+        routed_per_step=routed, step_ms=[r['ms'] for r in rows],
+        step_ms_median=step_ms, images_per_s=GF_BATCH / (step_ms / 1e3),
+        bulk_ms=bulk_ms, bulk_images_per_s=GF_BULK * GF_BATCH /
+        (bulk_ms / 1e3), bulk_launches=bulk_launches,
+        losses=losses, unfused_loss=unfused_loss,
+        bulk_equal=not bulk_differ, bulk_differ=bulk_differ[:8],
+        step_ahead_equal=ahead_equal, gluon_fused_stats=stats,
+        kernel_checks=[dict(x=r['x'], w=r['w'], stride=r['stride'],
+                            pairs=r['pairs'],
+                            max_abs_err=r['y']['max_abs_err'],
+                            s1_rel_err=r['s1']['rel_err'],
+                            s2_rel_err=r['s2']['rel_err'], ms=r['ms'],
+                            library_ms=r['library_ms'],
+                            bound_ms=r['bound_ms'], ok=r['ok'])
+                       for r in checks],
+        cut_routed=cut_routed, cut_updates=cut,
+        cut_planted_updates=cut_planted)
+    print('gluon fused ' + json.dumps(run))
+    bad = gf_gate(run)
+    if bad:
+        fail('phase 30: ' + '; '.join(bad))
+    print('gluon fused: resnet50_v1 bf16 batch %d on %s: %.1f ms a step '
+          '(%.1f images/s), bulk(%d) %.1f ms, %d conv launches a step; '
+          'first loss %.5f vs unfused %.5f; bulk and step_ahead 0 bit-equal '
+          'to single steps; float32 cut net updates within %.3g of their '
+          'leaf\'s largest (%d pairs routed), the planted statistics %.3g '
+          'of the bound' % (
+              GF_BATCH, smi, step_ms, run['images_per_s'], GF_BULK, bulk_ms,
+              GF_PAIRS, losses[0], unfused_loss,
+              cut['max_err_of_leaf_update'], cut_routed,
+              cut_planted['max_err_over_bound']))
+    return run
+
+
+# ---------------------------------------------------------------------------
+# Phase 31: the sparse tier at a recommender's size
+# ---------------------------------------------------------------------------
+
+# matrix factorization at MovieLens-20M's counts (GroupLens: 138,493
+# users, 27,278 movies), rank 64, float32, both tables sparse_grad
+MF = dict(users=138493, items=27278, rank=64)
+MF_BATCH = 4096              # (user, item) pairs a step
+MF_STEPS = 5
+MF_ZIPF = 1.1                # the ids' popularity skew
+MF_OPT = dict(learning_rate=0.05, momentum=0.9)
+MF_SEED = SEED + 3100
+MF_RANKS = 2
+MF_SHARE = (0.45, 0.55)      # a rank's table bytes over world 1's
+MF_HOT_ROWS = 8192
+MF_SERVE_BATCH = 1024        # the engine's max_batch
+MF_REQUESTS = 16             # requests of MF_REQUEST_ROWS pairs
+MF_REQUEST_ROWS = 512
+
+
+def mf_ids(rng, vocab, n):
+    """n ids of a table of `vocab` rows, Zipf(MF_ZIPF)-skewed over a
+    seeded permutation of the rows."""
+    p = 1.0 / np.arange(1, vocab + 1) ** MF_ZIPF
+    cdf = np.cumsum(p / p.sum())
+    ranks = np.minimum(np.searchsorted(cdf, rng.random(n)), vocab - 1)
+    perm = np.random.default_rng(MF_SEED).permutation(vocab)
+    return perm[ranks].astype(np.float32)
+
+
+def mf_batches(n, seed):
+    """n host batches (user ids, item ids, scores) of MF_BATCH pairs."""
+    rng = np.random.default_rng(seed)
+    return [(mf_ids(rng, MF['users'], MF_BATCH),
+             mf_ids(rng, MF['items'], MF_BATCH),
+             rng.standard_normal(MF_BATCH).astype(np.float32))
+            for _ in range(n)]
+
+
+def mf_symbol(mx, sparse=True, head=True):
+    """user . item, through LinearRegressionOutput when `head`."""
+    s = mx.sym
+    u = s.Embedding(s.Variable('user'), input_dim=MF['users'],
+                    output_dim=MF['rank'], sparse_grad=sparse,
+                    name='user_embed')
+    v = s.Embedding(s.Variable('item'), input_dim=MF['items'],
+                    output_dim=MF['rank'], sparse_grad=sparse,
+                    name='item_embed')
+    pred = s.sum(u * v, axis=1)
+    return s.LinearRegressionOutput(pred, s.Variable('score'), name='lro') \
+        if head else pred
+
+
+def mf_params():
+    rng = np.random.default_rng(MF_SEED + 1)
+    return {'user_embed_weight': (rng.standard_normal(
+                (MF['users'], MF['rank'])) * 0.1).astype(np.float32),
+            'item_embed_weight': (rng.standard_normal(
+                (MF['items'], MF['rank'])) * 0.1).astype(np.float32)}
+
+
+def mf_module(mx, ctxs, params, sparse=True, opt=None):
+    mod = mx.mod.Module(mf_symbol(mx, sparse), data_names=['user', 'item'],
+                        label_names=['score'], context=ctxs)
+    mod.bind(data_shapes=[mx.io.DataDesc('user', (MF_BATCH,)),
+                          mx.io.DataDesc('item', (MF_BATCH,))],
+             label_shapes=[mx.io.DataDesc('score', (MF_BATCH,))])
+    mod.init_params(initializer=None, arg_params={
+        k: mx.nd.array(v, ctx=mx.cpu()) for k, v in params.items()})
+    mod.init_optimizer(optimizer='sgd',
+                       optimizer_params=dict(opt or MF_OPT))
+    return mod
+
+
+def mf_batch(mx, b):
+    return mx.io.DataBatch(data=[mx.nd.array(b[0], ctx=mx.cpu()),
+                                 mx.nd.array(b[1], ctx=mx.cpu())],
+                           label=[mx.nd.array(b[2], ctx=mx.cpu())])
+
+
+def mf_train(torch, mx, mod, batches):
+    """forward_backward + update over `batches`; each step's ms."""
+    ms = []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mod.forward_backward(mf_batch(mx, b))
+        mod.update()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms
+
+
+def mf_tables(mod):
+    """The full tables, host copies, by name."""
+    args, _ = mod.get_params()
+    return {k: v.handle.cpu() for k, v in args.items()}
+
+
+def mf_worker(out_dir):
+    """One rank of phase 31, run by the port's launcher with
+    MXNET_TPU_DIST_JAX=1 (gloo: the ranks share the card):
+    Module(context=[gpu(0), gpu(1)]) trains the factorization one step
+    on the global batch, its tables striped over the data mesh; its row,
+    the full tables (rank 0) and an elastic checkpoint go to out_dir."""
+    import torch
+    root = Path(__file__).resolve().parent
+    sys.path.insert(0, str(root))
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import dist, elastic
+    torch.zeros(1, device='cuda')
+    rt = dist.initialize()
+    rank = rt.rank
+    out_dir = Path(out_dir)
+    mod = mf_module(mx, [mx.gpu(0), mx.gpu(1)], mf_params())
+    eg = mod._exec_group
+    ex = eg.executor
+    row = dict(rank=rank, data=eg.mesh.shape['data'],
+               backend=eg.mesh.backend, local_batch=eg.local_batch,
+               striped=sorted(eg.sparse_tables))
+    row['table_bytes'] = sum(
+        ex.arg_dict[n]._data.numel() * ex.arg_dict[n]._data.element_size()
+        for n in eg.sparse_tables)
+    row['step_ms'] = mf_train(torch, mx, mod, mf_batches(1, MF_SEED + 2))
+    tables = mf_tables(mod)
+    if rank == 0:
+        torch.save(tables, str(out_dir / 'tables.pt'))
+    mgr = elastic.CheckpointManager(str(out_dir / 'ckpt'), async_=False)
+    mgr.attach(mod)
+    mgr._step = 1
+    mgr.save(sync=True)
+    with open(out_dir / ('rank%d.json' % rank), 'w') as f:
+        json.dump(row, f)
+    dist.shutdown()
+
+
+def mf_serve_check(torch, mx, params, ctx):
+    """The predict symbol served by InferenceEngine with hot_rows (both
+    tables in pinned host memory, a (MF_HOT_ROWS, rank) buffer each on
+    the card) against the full-table engine on the same requests."""
+    from mxnet_tpu_torch.predictor import Predictor
+    from mxnet_tpu_torch.serving import InferenceEngine
+    rng = np.random.default_rng(MF_SEED + 9)
+    reqs = [(mf_ids(rng, MF['users'], MF_REQUEST_ROWS),
+             mf_ids(rng, MF['items'], MF_REQUEST_ROWS))
+            for _ in range(MF_REQUESTS)]
+    outs, stats = {}, {}
+    for hot in (None, MF_HOT_ROWS):
+        pred = Predictor(symbol=mf_symbol(mx, head=False),
+                         arg_params={k: mx.nd.array(v, ctx=mx.cpu())
+                                     for k, v in params.items()},
+                         input_shapes={'user': (1,), 'item': (1,)},
+                         ctx=ctx)
+        eng = InferenceEngine(pred, max_batch=MF_SERVE_BATCH,
+                              quantize=False, hot_rows=hot)
+        try:
+            outs[hot] = [eng.predict(u, i) for u, i in reqs]
+            st = eng.stats()
+            stats[hot] = dict(resident_bytes=eng.resident_bytes(),
+                              hot_rows=st.get('hot_rows'))
+            if hot:
+                stats[hot]['pinned'] = all(
+                    t.host.is_pinned() for t in eng._hotrows.values())
+        finally:
+            eng.close()
+    equal = all(np.array_equal(np.asarray(a), np.asarray(b))
+                for a, b in zip(outs[None], outs[MF_HOT_ROWS]))
+    hr = stats[MF_HOT_ROWS]['hot_rows']
+    return dict(equal=equal, pinned=stats[MF_HOT_ROWS]['pinned'],
+                device_table_bytes=sum(v['resident_bytes']
+                                       for v in hr.values()),
+                full_table_bytes=sum(v['table_bytes'] for v in hr.values()),
+                hits=sum(v['hits'] for v in hr.values()),
+                misses=sum(v['misses'] for v in hr.values()),
+                evictions=sum(v['evictions'] for v in hr.values()),
+                prefetch_hits=sum(v['prefetch_hits'] for v in hr.values()),
+                engine_resident_bytes=stats[MF_HOT_ROWS]['resident_bytes'],
+                full_engine_resident_bytes=stats[None]['resident_bytes'])
+
+
+def mf_gate(run):
+    """Phase 31's checks on a run's numbers: a list of what failed."""
+    bad = []
+    if run['untouched_changed']:
+        bad.append('rows no batch touched changed: %s'
+                   % run['untouched_changed'])
+    if not run['touched_changed']:
+        bad.append('the steps changed no touched row')
+    if run['plain_sgd_differ']:
+        bad.append('the plain-SGD sparse step differs from the dense one in '
+                   '%s' % run['plain_sgd_differ'])
+    e = run['embed_stats']
+    if not 0 < e['embed_touched_bytes'] < e['embed_dense_equiv_bytes'] or \
+            e['embed_touched_bytes'] != run['touched_bytes_expected'] or \
+            e['embed_steps'] != MF_STEPS:
+        bad.append('embed counters %s (touched bytes expected %d)'
+                   % (e, run['touched_bytes_expected']))
+    if not run['same_bits_twice']:
+        bad.append('two runs of the sparse steps differ')
+    ranks = run['ranks']
+    for r in ranks:
+        if (r['data'], r['backend'], r['striped']) != \
+                (MF_RANKS, 'gloo', ['item_embed_weight',
+                                    'user_embed_weight']):
+            bad.append('rank %d: data %s, backend %s, striped %s'
+                       % (r['rank'], r['data'], r['backend'], r['striped']))
+        share = r['table_bytes'] / run['world1_table_bytes']
+        if not MF_SHARE[0] <= share <= MF_SHARE[1]:
+            bad.append('rank %d holds %.3f of the tables\' bytes'
+                       % (r['rank'], share))
+    if not run['rank_updates']['ok']:
+        bad.append('the 2-rank step\'s updates off world 1\'s: %s'
+                   % run['rank_updates'])
+    if not run['restore']['ok']:
+        bad.append('the ranks\' checkpoint restored at world 1 differs: %s'
+                   % run['restore'])
+    s = run['serve']
+    if not s['equal'] or not s['pinned'] or s['hits'] <= 0 or \
+            s['device_table_bytes'] != 2 * MF_HOT_ROWS * MF['rank'] * 4:
+        bad.append('hot-row serving: %s' % s)
+    return bad
+
+
+def sparse_start(root):
+    """Phase 31's launch, started: (its directory, the Launch)."""
+    out = fresh_dir(root, 31)
+    return out, start_launch(root, out, 'sparse', 'sparse', MF_RANKS, 0,
+                             env={'MXNET_TPU_DIST_JAX': '1'})
+
+
+def sparse_phase(torch, mx, root, smi, ctx=None, started=None):
+    """Phase 31: the factorization at MovieLens-20M's counts through
+    Module on gpu(0): MF_STEPS rows-only steps (SGD, momentum 0.9) on
+    Zipf-skewed batches, twice; a plain-SGD step against the dense one;
+    then MF_RANKS workers of the launcher share the card as a data mesh
+    with the tables striped, against the world-1 step; their elastic
+    checkpoint restored at world 1; last the predict symbol served with
+    hot_rows against the full-table engine. Gated by mf_gate."""
+    from mxnet_tpu_torch import elastic, profiler
+    ctx = ctx or mx.gpu(0)
+    out = root / 'build' / 'phase31'
+    torch.cuda.empty_cache()
+    params = mf_params()
+    batches = mf_batches(MF_STEPS, MF_SEED + 2)
+    try:
+        # the rows-only steps, twice from the same weights
+        runs = []
+        for _ in range(2):
+            profiler.clear()
+            mod = mf_module(mx, [ctx], params)
+            step_ms = mf_train(torch, mx, mod, batches)
+            fu = mod._fused_updater
+            runs.append((mf_tables(mod), {k: v.cpu() for k, v in
+                                          fu.states.items()},
+                         profiler.embed_stats(), step_ms,
+                         fu.state_bytes_per_device()))
+            ents = mod._exec_group.executor._sparse_embed_entries()
+            world1_bytes = sum(
+                mod._exec_group.executor.arg_dict[e['weight']]._data.numel()
+                * 4 for e in ents)
+            rungs = [e['rung'] for e in ents]
+            del mod, fu
+        tables, moms, embed, step_ms, state_bytes = runs[0]
+        same_bits = all(torch.equal(tables[k], runs[1][0][k])
+                        for k in tables) and all(
+            torch.equal(moms[k], runs[1][1][k]) for k in moms)
+        untouched_changed, touched_changed = [], False
+        for name, col, vocab in (('user_embed_weight', 0, MF['users']),
+                                 ('item_embed_weight', 1, MF['items'])):
+            seen = np.zeros(vocab, bool)
+            for b in batches:
+                seen[b[col].astype(np.int64)] = True
+            idle = torch.from_numpy(~seen)
+            start = torch.from_numpy(params[name])
+            if not torch.equal(tables[name][idle], start[idle]) or \
+                    bool(moms[name][idle].abs().max() > 0):
+                untouched_changed.append(name)
+            touched_changed |= not torch.equal(tables[name][~idle],
+                                               start[~idle])
+        expected = MF_STEPS * sum(2 * r * MF['rank'] * 4 * 2 for r in rungs)
+
+        # plain SGD: the sparse step against the dense one, bit for bit
+        plain = {}
+        for sparse in (True, False):
+            mod = mf_module(mx, [ctx], params, sparse=sparse,
+                            opt=dict(learning_rate=0.05))
+            mf_train(torch, mx, mod, batches[:1])
+            plain[sparse] = mf_tables(mod)
+            del mod
+        plain_differ = sorted(k for k in plain[True]
+                              if not torch.equal(plain[True][k],
+                                                 plain[False][k]))
+
+        # world 1's step on the ranks' global batch, and the ranks
+        mod = mf_module(mx, [ctx], params)
+        mf_train(torch, mx, mod, mf_batches(1, MF_SEED + 2))
+        world1 = mf_tables(mod)
+        del mod
+        if started is None:
+            torch.cuda.empty_cache()
+            started = sparse_start(root)
+        out, launch = started
+        res, wall = launch.wait()
+        if res.returncode != 0:
+            fail('phase 31: the launcher exited %d (its log is named above)'
+                 % res.returncode)
+        ranks = []
+        for r in range(MF_RANKS):
+            with open(out / ('rank%d.json' % r)) as f:
+                ranks.append(json.load(f))
+        got = torch.load(str(out / 'tables.pt'))
+        names = sorted(world1)
+        start = [torch.from_numpy(params[k]) for k in names]
+        rank_updates = updates_within(torch, [got[k] for k in names], start,
+                                      [world1[k] for k in names],
+                                      MESH_UPDATE_RTOL)
+        # the ranks' checkpoint restored into a world-1 Module
+        mod = mf_module(mx, [ctx], params)
+        info = elastic.resume(elastic.CheckpointManager(str(out / 'ckpt')),
+                              mod)
+        restored = mf_tables(mod)
+        del mod
+        differ = sorted(k for k in got if not torch.equal(got[k],
+                                                          restored[k]))
+        restore = dict(ok=info is not None and info.step == 1 and
+                       not differ, differ=differ,
+                       step=None if info is None else info.step)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    serve = mf_serve_check(torch, mx, {k: v.numpy()
+                                       for k, v in tables.items()}, ctx)
+    med = median(step_ms[1:])
+    run = dict(
+        config='matrix factorization, MovieLens-20M counts (%d users, %d '
+               'items), rank %d, float32, batch %d, Zipf %.2f ids, SGD '
+               'momentum 0.9, sparse_grad tables through Module'
+               % (MF['users'], MF['items'], MF['rank'], MF_BATCH, MF_ZIPF),
+        card=smi, step_ms=step_ms, step_ms_median=med,
+        pairs_per_s=MF_BATCH / (med / 1e3), rungs=rungs,
+        optimizer_state_bytes=state_bytes,
+        untouched_changed=untouched_changed,
+        touched_changed=touched_changed, plain_sgd_differ=plain_differ,
+        embed_stats=embed, touched_bytes_expected=expected,
+        same_bits_twice=same_bits, world1_table_bytes=world1_bytes,
+        ranks=ranks, rank_wall_s=wall, rank_updates=rank_updates,
+        restore=restore, serve=serve)
+    print('sparse ' + json.dumps(run))
+    bad = mf_gate(run)
+    if bad:
+        fail('phase 31: ' + '; '.join(bad))
+    print('sparse: factorization at MovieLens-20M counts on %s: %.2f ms a '
+          'step (%.0f pairs/s), rungs %s, touched %.3f of the dense '
+          'update\'s bytes; untouched rows and their momenta unchanged, '
+          'plain SGD bit-equal to dense, two runs bit-equal; %d ranks hold '
+          '%s of the table bytes, updates within %.3g of world 1\'s, the '
+          'checkpoint restored at world 1 bit for bit; hot-row serving '
+          'bit-equal, %d hits %d misses, %.2f MB of tables on the card '
+          'against %.2f MB' % (
+              smi, med, run['pairs_per_s'], rungs,
+              embed['embed_touched_frac'], MF_RANKS,
+              ['%.3f' % (r['table_bytes'] / world1_bytes) for r in ranks],
+              rank_updates['max_err_of_leaf_update'], serve['hits'],
+              serve['misses'], serve['device_table_bytes'] / 1e6,
+              serve['full_table_bytes'] / 1e6))
+    return run
+
+
 def main(argv=None):
     import argparse
     parser = argparse.ArgumentParser(
@@ -9941,8 +10829,9 @@ def main(argv=None):
                                                     v.split(',')},
                         default=ALL_PHASES,
                         help='build, then run only these phases (a comma '
-                             'list of 2-29); the kernels line needs all')
-    parser.add_argument('--dist-worker', choices=('ps', 'coord', 'dp'),
+                             'list of 2-31); the kernels line needs all')
+    parser.add_argument('--dist-worker', choices=('ps', 'coord', 'dp',
+                                                  'sparse'),
                         help=argparse.SUPPRESS)
     parser.add_argument('--dist-out', help=argparse.SUPPRESS)
     parser.add_argument('--dist-tag', help=argparse.SUPPRESS)
@@ -9956,6 +10845,10 @@ def main(argv=None):
     if args.dist_worker == 'dp':
         # one rank of phase 29, started by the port's launcher
         dp_worker(args.dist_out)
+        return
+    if args.dist_worker == 'sparse':
+        # one rank of phase 31, started by the port's launcher
+        mf_worker(args.dist_out)
         return
     if args.dist_worker:
         # one worker of phase 21 or 22, started by the port's launcher
@@ -9971,9 +10864,10 @@ def main(argv=None):
     if args.mutants:
         mutant_check(root)
         return
+    atexit.register(Background.stop_all)
     phases = args.phases
     if not phases <= ALL_PHASES:
-        fail('--phases takes phases 2 to 29; got %s' % sorted(phases))
+        fail('--phases takes phases 2 to 31; got %s' % sorted(phases))
     sys.path.insert(0, str(root))
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import _build, cuda_conv, cuda_ops
@@ -9994,14 +10888,17 @@ def main(argv=None):
         torch.cuda.device_count()))
 
     # 1. build
+    clock = PhaseClock()
+    clock.start(1)
     t0 = time.perf_counter()
     _build.library()
     build_s = time.perf_counter() - t0
     print('build: %.1f s' % build_s)
     build_log = _build.build_log().strip()
     print(build_log)
-    sass = sass_check(_build.build(), build_log)
+    sass_job = sass_start(_build.build())
     if args.forward_case or args.backward_case or args.conv_case:
+        sass_check(sass_job, build_log)
         if args.forward_case:
             shape_q, tk, dtype_name, iters = FWD_CASES[args.forward_case]
             kernel_case(torch, cuda_ops, args.forward_case, shape_q, tk,
@@ -10014,6 +10911,7 @@ def main(argv=None):
 
     # 2. each kernel against its plain version, at the LM's shape first
     if 2 in phases:
+        clock.start(2)
         cases = [kernel_case(torch, cuda_ops, name, shape_q, tk,
                              getattr(torch, dtype_name), True, iters=iters)
                  for name, (shape_q, tk, dtype_name, iters)
@@ -10035,6 +10933,7 @@ def main(argv=None):
             tok = torch.from_numpy(tok).cuda()
             requests.append((tok[:, :-1], tok[:, 1:]))
     if 3 in phases:
+        clock.start(3)
         lm = lm_phase(torch, cuda_ops, tfm, cfg, params, requests)
         lm['wide_heads'] = lm_variant_check(
             torch, cuda_ops, tfm, requests[0], LM_WIDE_HEADS, torch.bfloat16,
@@ -10043,106 +10942,157 @@ def main(argv=None):
             torch, cuda_ops, tfm, requests[0],
             dict(GPT2_MEDIUM, layers=F16_LAYERS), torch.float16, SEED + 8,
             'float16')
+    clock.start(1)
+    sass = sass_check(sass_job, build_log)
+    clock.stop()
 
     # 4. the backward kernels against their plain versions
     if 4 in phases:
+        clock.start(4)
         bwd_cases = backward_phase(torch, cuda_ops, BWD_CASES)
 
     # 5. the train step, the port's training path
     if 5 in phases:
+        clock.start(5)
         train = train_phase(torch, cuda_ops, tfm, params, requests[0])
     if phases & {3, 5}:
         del params
 
     # 6. the conv + BN statistics kernel and its bench path
     if 6 in phases:
+        clock.start(6)
         conv = conv_phase(torch, cuda_ops, cuda_conv, bench_conv_bn)
-
-    # 7. the NDArray core, gpu(0) against cpu(0)
-    if 7 in phases:
-        nd_phase(torch, mx)
 
     # 8. mx.rtc: the RTC_CASES kernels and the imperative loop
     if 8 in phases:
+        clock.start(8)
         rtc_run = rtc_phase(torch, mx)
 
     # 9. the bf16 ResNet-50 through Symbol and the executor
     if 9 in phases:
+        clock.start(9)
         resnet = resnet_phase(torch, mx, cuda_conv)
 
     # 10. Module.fit trains the same network
     if 10 in phases:
+        clock.start(10)
         module = module_phase(torch, mx, cuda_conv, root,
                               resnet if 9 in phases else None)
 
     # 11. the checkpoint served: Predictor and the InferenceEngine
     if 11 in phases:
+        clock.start(11)
         serve = serve_phase(torch, mx, cuda_conv, cuda_ops, root)
 
     # 12. the Module remainder: BucketingModule, bulk_step, fit(bulk=),
     # the stem split and group2ctx
     if 12 in phases:
+        clock.start(12)
         bucketing = bucketing_phase(torch, mx, cuda_conv,
                                     resnet if 9 in phases else None)
 
     # 13. Gluon trains ResNet-50 v1
     if 13 in phases:
+        clock.start(13)
         gluon_run = gluon_phase(torch, mx, cuda_conv, cuda_ops, root)
-
-    # 14. the PTB LSTM LM through mx.rnn and BucketingModule
-    if 14 in phases:
-        ptb = ptb_phase(torch, mx, cuda_conv, cuda_ops, root)
-
-    # 15. gluon.rnn: the medium word LM
-    if 15 in phases:
-        gluon_lm = gluon_lm_phase(torch, mx, cuda_conv, cuda_ops)
-
-    # 16. the model factories: Inception-v3 and ResNeXt-50 on the conv
-    # kernel, the rest in float32
-    if 16 in phases:
-        factories = factories_phase(torch, mx, cuda_conv)
-
-    # 17. the last 50 op names, gpu(0) against cpu(0)
-    if 17 in phases:
-        contrib_phase(torch, cuda_conv, cuda_ops)
 
     # 18. the train_imagenet input path: ImageRecordIter feeds Module.fit
     if 18 in phases:
+        clock.start(18)
         record = record_phase(torch, mx, cuda_conv, root,
                               module if 10 in phases else None)
 
     # 19. VGG16-SSD300 through ImageDetIter and Module.fit
     if 19 in phases:
+        clock.start(19)
         ssd_phase(torch, mx, cuda_conv, cuda_ops, root)
 
     # 20. the serving fleet: ModelRegistry, ContinuousEngine, HttpFront
     if 20 in phases:
+        clock.start(20)
         fleet = fleet_phase(torch, mx, cuda_conv, cuda_ops, tfm, root)
+
+    # the launches of phases 21, 22 and 31 start together and share the
+    # card: each phase then waits for its own
+    started = {}
+    if phases & {21, 22, 31}:
+        torch.cuda.empty_cache()
+        for phase, start in ((21, ps_start), (22, coord_start),
+                             (31, sparse_start)):
+            if phase in phases:
+                started[phase] = start(root)
+        if 21 in started and 29 in phases:
+            # phase 29's launch takes the memory phase 21's workers give
+            # back, as soon as they have
+            started[21][1].after(
+                lambda: started.setdefault(29, dp_start(root)))
+
+    # phases that gate no time run while those launches run (their host
+    # times are taken beside the launches')
+
+    # 7. the NDArray core, gpu(0) against cpu(0)
+    if 7 in phases:
+        clock.start(7)
+        nd_phase(torch, mx)
+
+    # 14. the PTB LSTM LM through mx.rnn and BucketingModule
+    if 14 in phases:
+        clock.start(14)
+        ptb = ptb_phase(torch, mx, cuda_conv, cuda_ops, root)
+
+    # 15. gluon.rnn: the medium word LM
+    if 15 in phases:
+        clock.start(15)
+        gluon_lm = gluon_lm_phase(torch, mx, cuda_conv, cuda_ops)
+
+    # 16. the model factories: Inception-v3 and ResNeXt-50 on the conv
+    # kernel, the rest in float32
+    if 16 in phases:
+        clock.start(16)
+        factories = factories_phase(torch, mx, cuda_conv)
+
+    # 17. the last 50 op names, gpu(0) against cpu(0)
+    if 17 in phases:
+        clock.start(17)
+        contrib_phase(torch, cuda_conv, cuda_ops)
 
     # 21. two workers and a parameter server train the ResNet-50
     if 21 in phases:
-        dist_ps = ps_phase(torch, mx, root)
+        clock.start(21)
+        dist_ps = ps_phase(torch, mx, root, started.get(21))
 
     # 22. the coordinator's allreduce, an elastic restart, the ring and
     # the checkpoints served
     if 22 in phases:
-        dist_coord = coord_phase(torch, mx, root)
+        clock.start(22)
+        dist_coord = coord_phase(torch, mx, root, started.get(22))
+
+    # no launch runs beside phase 23's timed canary
+    for phase in (29, 31):
+        if phase in started:
+            clock.start(phase)
+            started[phase][1].wait()
+            clock.stop()
 
     # 23. the train -> serve loop: fit pushes its commits into a fleet of
     # two replica processes
     if 23 in phases:
+        clock.start(23)
         loop = train_serve_phase(torch, mx, cuda_conv, root)
 
     # 24. the GPT-2-medium scorer behind the router
     if 24 in phases:
+        clock.start(24)
         router = scorer_router_phase(torch, mx, cuda_conv, cuda_ops, tfm)
 
     # 25. the deployment artifact and the C predict API
     if 25 in phases:
+        clock.start(25)
         artifact_phase(torch, mx, cuda_conv, cuda_ops, root)
 
     # 26. the LM step through the mesh path, world 1 over NCCL
     if 26 in phases:
+        clock.start(26)
         mesh_run = mesh_step_phase(torch, cuda_ops, tfm, pmesh, profiler,
                                    root, requests[0],
                                    train if 5 in phases else None)
@@ -10150,19 +11100,38 @@ def main(argv=None):
     # 27. four ranks share the card: dp x sp x tp = 1 x 2 x 2 over gloo,
     # the ring's hops on the flash kernels
     if 27 in phases:
+        clock.start(27)
         ring_run = ring_phase(torch, pmesh, root, smi)
 
     # 28. Module(context=[gpu(0)]) as the one rank of a data mesh over
     # NCCL, ZeRO 0 then 1, fit(bulk=2) on the mesh's staging
     if phases & {28, 29}:
+        clock.start(28)
         dp_mesh = dp_mesh_phase(torch, mx, cuda_conv, pmesh, profiler, root,
                                 smi)
 
     # 29. two launcher workers share the card as a data mesh over gloo,
     # ZeRO 1, against phase 28's world-1 step
     if 29 in phases:
-        dp_ranks = dp_ranks_phase(torch, mx, root, smi, dp_mesh)
+        clock.start(29)
+        dp_ranks = dp_ranks_phase(torch, mx, root, smi, dp_mesh,
+                                  started.get(29))
 
+    # 30. gluon.fuse_step trains the bf16 resnet50_v1, its conv ->
+    # BatchNorm pairs on the conv kernel
+    if 30 in phases:
+        clock.start(30)
+        gluon_fused = gluon_fused_phase(torch, mx, cuda_conv, smi)
+
+    # 31. sparse_grad tables at MovieLens-20M's counts: rows-only steps,
+    # striped over two ranks, served from a hot-row cache
+    if 31 in phases:
+        clock.start(31)
+        sparse_phase(torch, mx, root, smi, started=started.get(31))
+
+    clock.stop()
+    print('phase seconds ' + json.dumps(dict(
+        clock.seconds, total=round(time.perf_counter() - clock.t_start, 1))))
     if phases != ALL_PHASES:
         print('phases %s passed' % sorted(phases))
         return
@@ -10241,7 +11210,8 @@ def main(argv=None):
     kernels.append(conv_kernel_entry(conv, sass, resnet, module, serve,
                                      bucketing, gluon_run, ptb, gluon_lm,
                                      factories, record, dist_ps,
-                                     dist_coord, loop, dp_mesh, dp_ranks))
+                                     dist_coord, loop, dp_mesh, dp_ranks,
+                                     gluon_fused))
     kernels.append(rtc_kernel_entry(rtc_run, ptb, gluon_lm))
     for kern in kernels:
         if kern['launches'] == 0:

@@ -403,14 +403,18 @@ def _restore_metric(metric, state):
 
 
 # ---------------------------------------------------------------------------
-# Target adapters: Module / BucketingModule (gluon's FusedStep is Queue A
-# item 6)
+# Target adapters: Module / BucketingModule / gluon FusedStep / Trainer
 # ---------------------------------------------------------------------------
 
 def _updater_of(target):
     """(fused_updater, per_key_updater) of the training target."""
     if hasattr(target, '_curr_module'):          # BucketingModule
         target = target._buckets[target._default_bucket_key]
+    if hasattr(target, '_trainer'):              # gluon FusedStep
+        target = target._trainer
+    if hasattr(target, '_updaters'):             # gluon Trainer
+        per_key = target._updaters[0] if target._updaters else None
+        return target._fused_updater, per_key
     per_key = getattr(target, '_updater', None)
     if per_key is None:
         # update_on_kvstore: the optimizer state lives in the STORE's
@@ -428,10 +432,27 @@ def _capture_params(target):
     target trains, read straight off the device buffers (the host
     mirror can be stale mid-epoch)."""
     entries = []
+    if hasattr(target, '_trainer'):              # gluon FusedStep
+        # positional names: a re-created net gets fresh auto-prefixes,
+        # so the trainer's order (and the sorted aux and frozen order)
+        # is the identity, as FusedSGD's integer state keys are; a
+        # striped sparse table is assembled whole (every rank calls)
+        target._collect_params()
+        for kind, plist in (('gparam', target._params),
+                            ('gaux', target._aux_params),
+                            ('gfrozen', target._frozen_params)):
+            for i, p in enumerate(plist):
+                entries.append(('%s:%d:%s' % (kind, i, p.name),
+                                _local_full(target.full_param(p))))
+        return entries
     mod = getattr(target, '_curr_module', target)   # BucketingModule
-    ex = mod._exec_group.executor
+    eg = mod._exec_group
+    ex = eg.executor
     for n in mod._param_names:
-        if n in ex.arg_dict:
+        if n in eg.sparse_tables:
+            # a striped table whole, from every rank (a collective)
+            entries.append(('param:%s' % n, _local_full(eg.full_param(n))))
+        elif n in ex.arg_dict:
             entries.append(('param:%s' % n,
                             _local_full(ex.arg_dict[n]._data)))
     for n in mod._aux_names:
@@ -490,6 +511,11 @@ def _capture_optimizer(target):
                  'acc_dtype': str(b.acc_dtype).split('.')[-1],
                  'mp': bool(b.mp)}
                 for b in lay.buckets]
+            sparse_moms = fu._full_sparse(
+                {fu.param_names[j]: fu.states[fu.param_names[j]]
+                 for j in fu.sparse_idx if fu.param_names[j] in fu.states})
+            for n, v in sparse_moms.items():
+                entries.append(('mom:%s' % n, _local_full(v)))
             for b, mom, mas in zip(lay.buckets, fu._zero_moms,
                                    fu._zero_masters):
                 lo, hi = lay.shard_range(b, index)
@@ -500,8 +526,10 @@ def _capture_optimizer(target):
                                     _device_snap(mas)))
             return entries, meta
         meta['mode'] = 'replicated'
+        # striped sparse momenta whole (a collective over the data axis)
+        moms = fu._full_sparse(dict(fu.states))
         for n in fu.param_names:
-            v = fu.states.get(n)
+            v = moms.get(n)
             if v is not None:
                 entries.append(('mom:%s' % n, _local_full(v)))
             m = fu.masters.get(n)
@@ -611,10 +639,19 @@ def _apply_optimizer(target, asm):
         if u is not None:
             u.set_states(payload)
             applied = True
+    tr = target._trainer if hasattr(target, '_trainer') else \
+        target if hasattr(target, '_updaters') else None
+    if tr is not None:
+        if tr._fused_updater is None:
+            # the fused updater takes them when fuse_step builds it
+            tr._pending_fused_states = payload
+            applied = True
+        tr._last_update_mode = None
     if not applied:
         raise MXNetError('restore: target has no optimizer to restore '
                          'into (call init_optimizer first)')
-    opt = fu.optimizer if fu is not None else per_key.optimizer
+    opt = fu.optimizer if fu is not None else \
+        per_key.optimizer if per_key is not None else tr._optimizer
     if opt is not None:
         if asm['num_update'] is not None:
             opt.num_update = int(asm['num_update'])
@@ -630,6 +667,24 @@ def _host_nd(v):
 
 
 def _restore_params(target, arrays):
+    if hasattr(target, '_trainer'):              # gluon FusedStep
+        target._collect_params()
+        lists = {'gparam': target._params, 'gaux': target._aux_params,
+                 'gfrozen': target._frozen_params}
+        for key, v in arrays.items():
+            parts = key.split(':', 2)
+            plist = lists.get(parts[0])
+            if plist is None:
+                continue
+            i = int(parts[1])
+            if i >= len(plist):
+                raise MXNetError(
+                    'checkpoint parameter %s has no positional match in '
+                    'the restoring net (%d %s params)'
+                    % (key, len(plist), parts[0][1:]))
+            # the step re-replicates (and re-stripes) a replaced slot
+            plist[i].set_data(_host_nd(v))
+        return
     args = {k[6:]: _host_nd(v) for k, v in arrays.items()
             if k.startswith('param:')}
     auxs = {k[4:]: _host_nd(v) for k, v in arrays.items()

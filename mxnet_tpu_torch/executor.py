@@ -85,6 +85,18 @@ the backward's hooks when interleaved; `make_fused_train_step` and
 `make_fused_multistep` take another for their steps (`grad_reduce=`).
 Under ZeRO the group's is None: the sharded update reduce-scatters this
 rank's own gradients itself (parallel/zero.py).
+
+Sparse embedding tables (Embedding nodes with sparse_grad=True whose
+weight is a differentiable argument, `_sparse_embed_entries`) train
+rows-only once the Module's updater takes them (`set_sparse_tables`):
+each train-mode forward deduplicates the table's ids, the bound id
+inputs of the global batch, at the static rung min(vocab, id slots),
+gathers the touched rows as a leaf and serves the table's lookups as
+rows[inverse] (parallel/embedding.py); the backward leaves the table
+without a dense gradient and puts (ids, row gradients, lo) in
+`sparse_grads`, summed over the data mesh, where the table is striped
+(rank r holding rows [lo, ...)). Ids computed in the graph, and ids that
+are a differentiable argument, are refused.
 """
 import contextlib
 import os
@@ -184,6 +196,31 @@ KERNEL_CIN_MULTIPLE = 8
 def padded_cin(cin):
     """The input channels the pair route gives the kernel for `cin`."""
     return -(-cin // KERNEL_CIN_MULTIPLE) * KERNEL_CIN_MULTIPLE
+
+
+def pair_conv(x, w, stride, pad):
+    """The conv of a conv -> BatchNorm pair on the conv + statistics
+    kernel: x NHWC, w OIHW (given to the kernel as HWIO); returns (y
+    NHWC, (s1, s2)). Input channels short of KERNEL_CIN_MULTIPLE are
+    zero-padded (the same y and sums; autograd slices the gradients of
+    x and w back). The executor's pair route and the fused Gluon step's
+    (gluon/fused.py) both run their pairs through it."""
+    w = w.permute(2, 3, 1, 0)       # OIHW -> HWIO
+    extra = padded_cin(x.shape[3]) - x.shape[3]
+    if extra:
+        x = torch.nn.functional.pad(x, (0, extra))
+        w = torch.nn.functional.pad(w, (0, 0, 0, extra))
+    y, s1, s2 = cuda_conv.conv2d_bn_stats(x, w, stride, pad)
+    return y, (s1, s2)
+
+
+def pair_batch_norm(attrs, inputs, auxs, op_ctx, sums):
+    """The BatchNorm of a pair on its NHWC data (inputs: data, gamma,
+    beta; auxs: the moving statistics), its statistics the conv
+    kernel's s1 and s2 (ops/nn.batch_norm, summed over the data mesh
+    there): (outputs, updated moving statistics)."""
+    return _nn.batch_norm(dict(attrs, __layout__='NHWC'), inputs, auxs,
+                          op_ctx, sums=sums)
 
 
 def conv_bn_pairs(topo, heads):
@@ -336,6 +373,14 @@ class Executor:
         self._batch_inputs = ()
         self._batch_dep = None
         self.grad_reduce = None
+        # the sparse embedding tier (parallel/embedding.py): the tables
+        # that train rows-only once the Module's updater takes them
+        # (set_sparse_tables), each train forward's touched rows, and
+        # the (ids, row gradients, lo) its backward gave each table
+        self._sparse_entries = None
+        self._sparse_on = False
+        self._sparse_active = None
+        self.sparse_grads = {}
         self._build()
 
     def _build(self):
@@ -411,16 +456,91 @@ class Executor:
         """The conv of a pair on the conv + statistics kernel: (y NHWC,
         (s1, s2))."""
         _, stride, _, pad, _ = _nn.conv_params(node.attrs)
-        x = _to_nhwc(vals[0], in_l[0])
-        w = vals[1].permute(2, 3, 1, 0)       # OIHW -> HWIO
-        extra = padded_cin(x.shape[3]) - x.shape[3]
-        if extra:
-            # zero channels: the same y and sums; autograd slices the
-            # gradients of x and w back
-            x = torch.nn.functional.pad(x, (0, extra))
-            w = torch.nn.functional.pad(w, (0, 0, 0, extra))
-        y, s1, s2 = cuda_conv.conv2d_bn_stats(x, w, stride, pad)
-        return y, (s1, s2)
+        return pair_conv(_to_nhwc(vals[0], in_l[0]), vals[1], stride, pad)
+
+    # -- the sparse embedding tier --------------------------------------
+    def sparse_diff_positions(self):
+        """Positions, in _diff_names order, of the sparse tables."""
+        return tuple(e['dpos'] for e in self._sparse_embed_entries())
+
+    def _sparse_embed_entries(self):
+        """One entry per sparse_grad table that is a differentiable
+        argument (its lookups grouped): weight, dpos, ids (the id
+        inputs), vocab, dim and the static rung min(vocab, the global
+        batch's id slots). Raises on ids computed in the graph or ids
+        that are a differentiable argument."""
+        if self._sparse_entries is not None:
+            return self._sparse_entries
+        entries = []
+        if not self._grouped:
+            from .parallel import embedding as embed_mod
+            diff_set = set(self._diff_names)
+            dpos = {n: j for j, n in enumerate(self._diff_names)}
+            dp = 1 if self._mesh is None else \
+                self._mesh.shape.get('data', 1)
+            by_w = OrderedDict()
+            for t in embed_mod.find_symbol_tables(self._symbol):
+                if t['weight'] not in diff_set:
+                    continue
+                if t['ids_input'] is None:
+                    raise MXNetError(
+                        'sparse embedding (Module path): table %r is looked '
+                        'up with graph-derived ids; the sparse rewrite needs '
+                        'the ids as a bound input variable. Feed the ids '
+                        'directly or set sparse_grad=False on this table.'
+                        % t['weight'])
+                if t['ids_input'] in diff_set:
+                    raise MXNetError(
+                        'sparse embedding (Module path): ids input %r of '
+                        'table %r is a differentiable arg; integer ids carry '
+                        "no gradient, rebind it with grad_req='null'."
+                        % (t['ids_input'], t['weight']))
+                by_w.setdefault(t['weight'], []).append(t)
+            for w, ts in by_w.items():
+                slots = sum(max(1, int(np.prod(
+                    self.arg_dict[t['ids_input']].shape))) * dp for t in ts)
+                entries.append({
+                    'weight': w, 'dpos': dpos[w],
+                    'ids': [t['ids_input'] for t in ts],
+                    'vocab': int(ts[0]['vocab']), 'dim': int(ts[0]['dim']),
+                    'rung': min(int(ts[0]['vocab']), slots)})
+        self._sparse_entries = entries
+        return entries
+
+    def set_sparse_tables(self, on):
+        """Train the sparse tables rows-only (on) or densely."""
+        self._sparse_on = bool(on) and bool(self._sparse_embed_entries())
+
+    def _sparse_prep(self):
+        """The touched rows of each sparse table for one train forward:
+        {weight: (override, uids, rows, lo)}."""
+        from .parallel import embedding as embed_mod
+        mesh = self._mesh
+        n, index = embed_mod._data_split(mesh)
+        active = {}
+        for e in self._sparse_embed_entries():
+            glob = [embed_mod.gather_global_ids(self.arg_dict[i]._data, mesh)
+                    for i in e['ids']]
+            uids, invs = embed_mod.dedup_ids(glob, e['rung'], e['vocab'])
+            local = [inv[index * (inv.numel() // n):
+                         (index + 1) * (inv.numel() // n)] for inv in invs]
+            rows = embed_mod.striped_gather(
+                self.arg_dict[e['weight']]._data, uids, e['vocab'], mesh)
+            rows = rows.detach().requires_grad_(True)
+            lo = embed_mod.stripe_range(e['vocab'], n, index)[0]
+            active[e['weight']] = (embed_mod._Override(rows, local, e['dim']),
+                                   uids, rows, lo)
+        return active
+
+    def _sparse_lookup(self, node, vals):
+        """The lookup of a sparse table served from its touched rows, or
+        None."""
+        ent = self._sparse_active.get(node.inputs[1][0].name)
+        if ent is None:
+            return None
+        ov = ent[0]
+        inv = ov.invs.pop(0)
+        return ov.rows[inv].reshape(tuple(vals[0].shape) + (ov.dim,))
 
     def set_data_mesh(self, mesh, batch_inputs):
         """Make this executor a rank of the data mesh `mesh` (None: one
@@ -429,6 +549,7 @@ class Executor:
         self._mesh = mesh
         self._batch_inputs = tuple(batch_inputs)
         self._batch_dep = None
+        self._sparse_entries = None
 
     def _batch_nodes(self):
         """Indices of the nodes whose value depends on a batch input."""
@@ -486,6 +607,13 @@ class Executor:
                     for src, idx in node.inputs]
             if dp:
                 self._check_batch_reduce(ni, node, vals)
+            if self._sparse_active and op.name == 'Embedding':
+                out = self._sparse_lookup(node, vals)
+                if out is not None:
+                    results[ni], layouts[ni] = [out], ['NCHW']
+                    if collect is not None:
+                        collect.append(out)
+                    continue
             in_l = [layouts[self._node_index[id(src)]][idx]
                     for src, idx in node.inputs]
             if ni in pairs and vals[0].dtype == torch.bfloat16 and \
@@ -539,8 +667,8 @@ class Executor:
                 split_beta[ni] = args[2]
                 args[2] = torch.zeros_like(args[2].detach())
             if ni in sums:
-                outs, updated = _nn.batch_norm(eff_attrs, args, auxs, op_ctx,
-                                               sums=sums.pop(ni))
+                outs, updated = pair_batch_norm(eff_attrs, args, auxs,
+                                                op_ctx, sums.pop(ni))
             else:
                 outs, updated = op.apply(eff_attrs, args, auxs, op_ctx)
             if ni in split_conv:
@@ -612,10 +740,15 @@ class Executor:
         arg_vals = []
         leaves = []
         diff = set(self._diff_names)
+        self._sparse_active = self._sparse_prep() if self._sparse_on \
+            else None
+        sparse = self._sparse_active or {}
         for n in self._arg_names:
             t = self.arg_dict[n]._data.detach()
             if n in diff:
-                t = t.requires_grad_(True)
+                # a sparse table takes no dense gradient
+                if n not in sparse:
+                    t = t.requires_grad_(True)
                 leaves.append(t)
             arg_vals.append(t)
         aux_vals = [self.aux_dict[n]._data.detach() for n in self._aux_names]
@@ -857,24 +990,41 @@ class Executor:
         self._stash = None
         heads = self._default_head_grads(out_grads)
         live = [(o, h) for o, h in zip(outs, heads) if o.requires_grad]
+        sparse = self._sparse_active or {}
+        self._sparse_active = None
+        rows = [v[2] for v in sparse.values()]
+        want = [i for i, t in enumerate(leaves) if t.requires_grad]
         grads = [None] * len(leaves)
         # the in-step reduce: a GradReduce's pass hooks the leaves; a
         # plain function of the gradients applies after the backward
         red = self.grad_reduce
         rpass = red.begin(leaves) if hasattr(red, 'begin') and live and \
             leaves else None
-        if live and leaves:
-            grads = torch.autograd.grad([o for o, _ in live],
-                                        leaves, [h for _, h in live],
-                                        allow_unused=True)
+        row_grads = [None] * len(rows)
+        if live and (want or rows):
+            gs = torch.autograd.grad([o for o, _ in live],
+                                     [leaves[i] for i in want] + rows,
+                                     [h for _, h in live],
+                                     allow_unused=True)
+            for i, g in zip(want, gs):
+                grads[i] = g
+            row_grads = list(gs[len(want):])
         # an argument no output depends on, or one cut off by a
-        # stop-gradient (fix_gamma's gamma), gets a zero gradient
-        grads = [torch.zeros_like(t) if g is None else g
-                 for t, g in zip(leaves, grads)]
+        # stop-gradient (fix_gamma's gamma), gets a zero gradient; a
+        # sparse table none (its gradient is its rows')
+        grads = [torch.zeros_like(t) if g is None and t.requires_grad
+                 else g for t, g in zip(leaves, grads)]
         if rpass is not None:
             grads = rpass.finish(grads)
         elif red is not None and not hasattr(red, 'begin'):
             grads = red(grads)
+        self.sparse_grads = {}
+        for (name, (_, uids, r, lo)), g in zip(sparse.items(), row_grads):
+            g = torch.zeros_like(r) if g is None else g
+            if self._mesh is not None and self._mesh.shape.get('data', 1) > 1:
+                from .parallel.collectives import _all_reduce
+                g = _all_reduce(g, self._mesh, 'data')
+            self.sparse_grads[name] = (uids, g, lo)
         self._write_grads(grads)
         return grads
 
@@ -921,7 +1071,7 @@ class Executor:
     def _write_grads(self, grads):
         for n, g in zip(self._diff_names, grads):
             holder = self.grad_dict.get(n)
-            if holder is None:
+            if holder is None or g is None:
                 continue
             if self._grad_req.get(n) == 'add':
                 holder._data = holder._data + g
@@ -949,9 +1099,15 @@ class Executor:
             with self._reducing(grad_reduce):
                 self.forward_backward()
             ws = [self.arg_dict[n]._data for n in diff_names]
-            gs = [self.grad_dict[n]._data for n in diff_names]
-            return step_math(ws, gs, moms, masters, lrs, wds)
+            return step_math(ws, self.step_grads(diff_names), moms,
+                             masters, lrs, wds)
         return step
+
+    def step_grads(self, names):
+        """The gradients of `names` for the optimizer: a sparse table's
+        (ids, row gradients, lo), every other one's tensor."""
+        return [self.sparse_grads[n] if n in self.sparse_grads
+                else self.grad_dict[n]._data for n in names]
 
     @contextlib.contextmanager
     def _reducing(self, grad_reduce):
@@ -1036,7 +1192,7 @@ class Executor:
                 with ex._reducing(grad_reduce):
                     ex.forward_backward()
                 ws = [ex.arg_dict[n]._data for n in diff_names]
-                gs = [ex.grad_dict[n]._data for n in diff_names]
+                gs = ex.step_grads(diff_names)
                 lr_t = lrs[i] if lr_stacked else lrs
                 wd_t = wds[i] if lr_stacked else wds
                 _, moms, masters = step_math(ws, gs, moms, masters,

@@ -422,6 +422,11 @@ def _set_tracing(value):
 # the parameter substitution stack of cached functions
 _SUBSTITUTION = []
 
+# the fused step's conv -> BatchNorm pair route (gluon/fused.py): while
+# set, a HybridSequential offers it each child with the child after it,
+# and takes its output for the two where it gives one
+_PAIR_ROUTE = [None]
+
 
 def _push_param_substitution(sub):
     _SUBSTITUTION.append(sub)

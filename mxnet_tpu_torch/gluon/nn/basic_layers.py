@@ -5,6 +5,7 @@ Dropout, BatchNorm, LeakyReLU, Embedding, Flatten, Lambda)."""
 import numpy as np
 
 from ... import ndarray as nd
+from .. import block as _block_mod
 from ..block import Block, HybridBlock
 
 
@@ -31,7 +32,9 @@ class Sequential(Block):
 
 
 class HybridSequential(HybridBlock):
-    """Stack of HybridBlocks; hybridizes into one cached function."""
+    """Stack of HybridBlocks; hybridizes into one cached function. Inside
+    the fused step a Conv2D followed by a BatchNorm may run as one pair
+    on the conv + statistics kernel (gluon/fused.py)."""
 
     def __init__(self, prefix=None, params=None):
         super(HybridSequential, self).__init__(prefix=prefix, params=params)
@@ -41,8 +44,18 @@ class HybridSequential(HybridBlock):
             self.register_child(block)
 
     def hybrid_forward(self, F, x):
-        for block in self._children:
-            x = block(x)
+        route = _block_mod._PAIR_ROUTE[0]
+        children = self._children
+        i = 0
+        while i < len(children):
+            if route is not None and i + 1 < len(children):
+                y = route(children[i], children[i + 1], x)
+                if y is not None:
+                    x = y
+                    i += 2
+                    continue
+            x = children[i](x)
+            i += 1
         return x
 
     def __len__(self):
@@ -185,9 +198,15 @@ class LeakyReLU(HybridBlock):
 
 
 class Embedding(HybridBlock):
-    """Index -> dense vector lookup (op Embedding). sparse_grad marks the
-    table for the fused step's row-sparse update (Queue A 6); its
-    gradient here is dense."""
+    """Index -> dense vector lookup (op Embedding).
+
+    sparse_grad=True puts the table in the sparse tier
+    (parallel/embedding.py): the fused step's backward gives (unique ids,
+    rows) pairs instead of a dense (input_dim, output_dim) gradient, the
+    optimizer updates only those rows (lazy momentum and wd,
+    docs/SPARSE.md), and under a data mesh the table and its momentum
+    are striped over the ranks by rows. Outside the fused step
+    (autograd.record + Trainer.step) its gradient is dense."""
 
     def __init__(self, input_dim, output_dim, dtype=np.float32,
                  weight_initializer=None, sparse_grad=False, **kwargs):

@@ -43,8 +43,8 @@ class Parameter(object):
         self.wd_mult = wd_mult
         self.init = init
         self.allow_deferred_init = allow_deferred_init
-        # the row-sparse gradient of the fused step (Queue A 6); kept
-        # as the parameter's attribute, dense here
+        # a table the fused step trains rows-only (gluon/fused.py,
+        # parallel/embedding.py); its gradient elsewhere is dense
         self.sparse_grad = bool(sparse_grad)
         if not differentiable:
             grad_req = 'null'

@@ -7,16 +7,18 @@ On one context the Trainer creates no store, as the JAX package's does
 keeps a KVStore as the distribution facade and sums each step's
 gradients over the contexts in one stacked reduction per dtype
 (`_batched_reduce_grads`), written back to every context's gradient.
-`step_fused`, the whole-step program of `gluon.fuse_step`, needs
-gluon/fused.py (Queue A 6) and raises. `save_states` and `load_states`
-write and read the Updater's states, the JAX package's format.
+`step_fused` runs the whole step of `gluon.fuse_step` (gluon/fused.py),
+whose FusedSGD holds the fused path's optimizer state: switching between
+`step` and the fused step carries the momenta and masters across, and
+`save_states` / `load_states` write and read whichever path ran last in
+the one format both take (the JAX package's).
 """
 import torch
 
 from .. import kvstore as kvs
 from .. import optimizer as opt
 from .. import profiler
-from ..base import atomic_file, unported
+from ..base import atomic_file
 from .parameter import ParameterDict, Parameter
 
 
@@ -44,6 +46,12 @@ class Trainer(object):
         self._kv_type = kvstore
         self._kvstore = None
         self._kv_initialized = False
+        # the fused step (gluon/fused.py) registers itself here; its
+        # FusedSGD holds the fused path's optimizer state
+        self._fused_step = None
+        self._fused_updater = None
+        self._pending_fused_states = None
+        self._last_update_mode = None   # 'fused' | 'unfused' | None
 
     def _check_contexts(self):
         contexts = None
@@ -126,6 +134,13 @@ class Trainer(object):
         if not self._kv_initialized:
             self._init_kvstore()
         self._optimizer.rescale_grad = self._scale / batch_size
+        if self._last_update_mode == 'fused' and \
+                self._fused_updater is not None:
+            # the fused path trained last: its momenta and update counts
+            # carry over, one state history for both paths
+            states = self._fused_updater.get_states()
+            for updater in self._updaters:
+                updater.set_states(states)
         if self._kvstore is not None:
             self._batched_reduce_grads()
         for i, param in enumerate(self._params):
@@ -134,15 +149,31 @@ class Trainer(object):
             for upd, d, g in zip(self._updaters, param.list_data(),
                                  param.list_grad()):
                 upd(i, g, d)
+        self._last_update_mode = 'unfused'
 
     def step_fused(self, batch_size, *args):
-        raise unported('Trainer.step_fused (gluon/fused.py)', '6')
+        """One fused step (forward, loss, backward, reduce, update) of the
+        FusedStep `gluon.fuse_step(net, loss, trainer)` attached; args
+        are its inputs then the label. Returns the per-sample loss."""
+        if self._fused_step is None:
+            raise ValueError(
+                'step_fused: no fused step attached to this Trainer; '
+                'build one with gluon.fuse_step(net, loss, trainer)')
+        return self._fused_step(*args, batch_size=batch_size)
 
     def save_states(self, fname):
-        """Checkpoint the optimizer states (the Updater's format)."""
+        """Checkpoint the optimizer states of the path that ran last (the
+        fused updater before any step once it exists), in the format
+        both paths read."""
         assert self._optimizer is not None
+        if self._last_update_mode == 'fused' or (
+                self._last_update_mode is None and
+                self._fused_updater is not None):
+            updater = self._fused_updater
+        else:
+            updater = self._updaters[0]
         with atomic_file(fname) as f:
-            f.write(self._updaters[0].get_states())
+            f.write(updater.get_states())
 
     def load_states(self, fname):
         if not self._kv_initialized:
@@ -151,3 +182,9 @@ class Trainer(object):
             states = f.read()
         for updater in self._updaters:
             updater.set_states(states)
+        if self._fused_updater is not None:
+            self._fused_updater.set_states(states)
+        else:
+            # the fused updater takes them when fuse_step builds it
+            self._pending_fused_states = states
+        self._last_update_mode = None

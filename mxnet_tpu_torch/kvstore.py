@@ -18,9 +18,12 @@ rank/size/barrier) over three data paths:
   the `kvstore_server` processes, which run the optimizer and answer
   pulls with the reference's sync semantics.
 
-Sparse rows (`mark_sparse`) and ZeRO stages wait for ROADMAP Queue A
-item 6 and raise naming it. 'dist_async' without servers runs with
-synchronous semantics, as in the JAX package.
+Sparse embedding keys (`mark_sparse`): on the dist runtime's host
+all-reduce their gradient crosses the processes as deduplicated (unique
+ids, rows) pairs (`dist.allreduce_coo`) instead of a dense (vocab, dim)
+array, and the store applies it rows-only (`_apply_sparse_coo`,
+parallel/embedding.sparse_row_update, lazy momentum). 'dist_async'
+without servers runs with synchronous semantics, as in the JAX package.
 """
 import os
 import pickle
@@ -31,7 +34,7 @@ import torch
 from . import _hostarray as ha
 from . import ndarray as nd
 from . import optimizer as opt
-from .base import MXNetError, unported
+from .base import MXNetError
 
 
 def _ctype_key_value(keys, vals):
@@ -61,6 +64,8 @@ class KVStore:
         self._optimizer = None
         self._zero = zero
         self._pending = {}
+        self._sparse_meta = {}    # key -> vocab (mark_sparse)
+        self._sparse_state = {}   # key -> momentum of a sparse key
         self._is_dist = 'dist' in kv_type
         if 'async' in kv_type and type(self) is KVStore:
             warnings.warn('dist_async without parameter servers runs with '
@@ -159,40 +164,103 @@ class KVStore:
         if self._is_dist and dist.host_span_active():
             merged = [self._merge_local(g if isinstance(g, list)
                                         else [g]) for g in grad_lists]
+            # a marked key crosses as COO rows when its gradient is 2-D
+            sparse = [str(k) in self._sparse_meta and m.ndim == 2
+                      for k, m in zip(keys, merged)]
             if dist.overlap_active():
-                self._push_pull_overlapped(keys, merged, out_lists)
+                self._push_pull_overlapped(keys, merged, out_lists, sparse)
                 return
-            summed = self._cross_host_sum(merged)
-            for k, s, o in zip(keys, summed, out_lists):
-                self._push_impl(k, s, _cross_summed=True)
+            summed = iter(self._cross_host_sum(
+                [m for m, sp in zip(merged, sparse) if not sp]))
+            for k, m, sp, o in zip(keys, merged, sparse, out_lists):
+                if sp:
+                    self._apply_sparse_coo(k, *self._coo_cross_host(k, m))
+                else:
+                    self._push_impl(k, next(summed), _cross_summed=True)
                 self.pull(k, o)
             return
         for k, g, o in zip(keys, grad_lists, out_lists):
             self.push(k, g)
             self.pull(k, o)
 
-    def _push_pull_overlapped(self, keys, merged, out_lists):
-        """MXNET_TPU_DIST_OVERLAP=1: every key's cross-process round
+    def _push_pull_overlapped(self, keys, merged, out_lists, sparse):
+        """MXNET_TPU_DIST_OVERLAP=1: every dense key's cross-process round
         launched up front (the runtime's FIFO worker keeps the launch
-        order the same on every rank), each waited at its update."""
+        order the same on every rank), each waited at its update; sparse
+        keys' COO rounds stay synchronous."""
         from . import dist
-        handles = [dist.allreduce_async([ha.host(m)],
-                                        name='kv_grad:%s' % k)
-                   for k, m in zip(keys, merged)]
-        for k, m, h, o in zip(keys, merged, handles, out_lists):
-            self._push_impl(k, _on_device(h.wait()[0], m),
-                            _cross_summed=True)
+        handles = [None if sp else
+                   dist.allreduce_async([ha.host(m)], name='kv_grad:%s' % k)
+                   for k, m, sp in zip(keys, merged, sparse)]
+        for k, m, sp, h, o in zip(keys, merged, sparse, handles, out_lists):
+            if sp:
+                self._apply_sparse_coo(k, *self._coo_cross_host(k, m))
+            else:
+                self._push_impl(k, _on_device(h.wait()[0], m),
+                                _cross_summed=True)
             self.pull(k, o)
 
     def mark_sparse(self, key, vocab):
-        """Declare a sparse-embedding key whose gradient would cross as
-        (ids, rows) pairs: the rows-only update is Queue A item 6."""
-        raise unported('KVStore.mark_sparse (the rows-only update of '
-                       'sparse embedding tables)', '6')
+        """Declare `key` a sparse embedding table of `vocab` rows: on the
+        dist runtime's host all-reduce its gradient crosses as COO (unique
+        ids, rows) pairs and applies rows-only. Module.init_optimizer
+        marks its sparse_grad tables."""
+        self._sparse_meta[str(key)] = int(vocab)
+
+    def _coo_cross_host(self, key, merged):
+        """The touched rows of one marked key's gradient (an embedding's
+        backward writes only those; every other row is exact zeros),
+        summed over the processes by dist.allreduce_coo. A touched row
+        whose gradient is all zero drops out: its lazy update would
+        change nothing."""
+        import numpy as np
+        from . import dist
+        g = ha.host(merged._data).astype(np.float32)
+        nz = np.flatnonzero(np.any(g != 0.0, axis=1))
+        return dist.allreduce_coo(nz, np.ascontiguousarray(g[nz]),
+                                  name='kv_grad_coo:%s' % key,
+                                  vocab=self._sparse_meta[str(key)])
 
     def _apply_sparse_coo(self, key, uids, rows):
-        raise unported('KVStore._apply_sparse_coo (the rows-only update '
-                       'of sparse embedding tables)', '6')
+        """The rows-only update of the stored weight by the summed COO
+        gradient (parallel/embedding.sparse_row_update, the fused
+        update's arithmetic), its momentum kept per key with lazy
+        semantics. An optimizer other than plain-precision SGD applies a
+        dense gradient made of the rows (the wire carried COO all the
+        same)."""
+        import numpy as np
+        stored = self._store[key]
+        opt_ = self._optimizer
+        sgd = type(opt_).__name__ == 'SGD' and \
+            not getattr(opt_, 'multi_precision', False)
+        if self._updater is None or not sgd:
+            dense = np.zeros(stored.shape, np.float32)
+            if len(uids):
+                dense[np.asarray(uids)] = np.asarray(rows)
+            self._push_impl(key, _on_device(dense, stored),
+                            _cross_summed=True)
+            return
+        from .parallel.embedding import sparse_row_update
+        index = self._key_index(key)
+        lr = opt_._get_lr(index)
+        wd = opt_._get_wd(index)
+        opt_._update_count(index)
+        if not len(uids):
+            return
+        mom = float(getattr(opt_, 'momentum', 0.0) or 0.0)
+        w = stored._data.clone()
+        m = self._sparse_state.get(key)
+        if m is None:
+            m = torch.zeros_like(w) if mom != 0.0 else w
+        dev = w.device
+        sparse_row_update(
+            w, m, torch.as_tensor(np.asarray(uids), device=dev).long(),
+            torch.as_tensor(np.asarray(rows), device=dev), lr, wd,
+            momentum=mom, rescale=float(getattr(opt_, 'rescale_grad', 1.0)),
+            clip=getattr(opt_, 'clip_gradient', None))
+        self._store[key] = nd.NDArray(w, stored.context)
+        if mom != 0.0:
+            self._sparse_state[key] = m
 
     # -- updater / optimizer ----------------------------------------------
     @property

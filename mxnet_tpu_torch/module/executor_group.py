@@ -38,7 +38,7 @@ from ..parallel import collectives
 from ..parallel import mesh as pmesh
 
 LAUNCH_HINT = (
-    'a Module over %d contexts runs as %d processes, one rank of a data '
+    '%s over %d contexts runs as %d processes, one rank of a data '
     'mesh each, every rank running the same script: launch it with '
     'torchrun --nproc-per-node %d, mxnet_tpu_torch.parallel.mesh.spawn, '
     'or python -m mxnet_tpu_torch.tools.launch -n %d with '
@@ -50,17 +50,18 @@ def _name_shape(d):
         (d.name, d.shape)
 
 
-def data_mesh_for(contexts):
-    """The data mesh a Module over `contexts` runs on, or None (one
-    device). Raises when several contexts have no process group to run
-    on, or a data axis of another size."""
+def data_mesh_for(contexts, what='a Module'):
+    """The data mesh `what` (a Module, a fused Gluon step) over
+    `contexts` runs on, or None (one device). Raises when several
+    contexts have no process group to run on, or a data axis of another
+    size."""
     n = len(contexts)
     mesh = pmesh.current_mesh()
     if mesh is None or 'data' not in mesh.shape:
         mesh = pmesh.world_data_mesh()
     if mesh is None:
         if n > 1:
-            raise MXNetError(LAUNCH_HINT % (n, n, n, n) +
+            raise MXNetError(LAUNCH_HINT % (what, n, n, n, n) +
                              ' (no torch.distributed process group is up '
                              'in this process)')
         return None
@@ -68,9 +69,9 @@ def data_mesh_for(contexts):
     if n == 1 and size > 1:
         return None
     if size != n:
-        raise MXNetError('a Module over %d contexts needs a data mesh of %d '
+        raise MXNetError('%s over %d contexts needs a data mesh of %d '
                          'ranks; this one has %d (%s)'
-                         % (n, n, size, LAUNCH_HINT % (n, n, n, n)))
+                         % (what, n, n, size, LAUNCH_HINT % (what, n, n, n, n)))
     return mesh
 
 
@@ -107,6 +108,9 @@ class DataParallelExecutorGroup:
         self.context = contexts[0] if self.mesh is None else \
             Context.from_device(self.mesh.device)
         self._reduce_grads = True
+        # sparse embedding tables training rows-only: name -> vocab; under
+        # a data mesh each rank's executor holds its stripe of them
+        self.sparse_tables = {}
         self._set_shapes(data_shapes, label_shapes)
 
         input_names = set(self.data_names) | set(self.label_names)
@@ -158,7 +162,8 @@ class DataParallelExecutorGroup:
         ex.set_data_mesh(self.mesh, self.data_names + self.label_names)
         ex.grad_reduce = None
         if self.dp > 1 and self.for_training and self._reduce_grads:
-            params = set(self.param_names)
+            # a sparse table's row gradients are reduced in its backward
+            params = set(self.param_names) - set(self.sparse_tables)
             pos = [j for j, n in enumerate(ex._diff_names) if n in params]
             names = [ex._diff_names[j] for j in pos]
             if names:
@@ -166,6 +171,29 @@ class DataParallelExecutorGroup:
                     [ex.arg_dict[n].shape for n in names],
                     [ex.arg_dict[n]._data.dtype for n in names])
                 ex.grad_reduce = collectives.GradReduce(plan, self.mesh, pos)
+
+    def set_sparse_tables(self, tables):
+        """Train `tables` ({weight name: vocab}) rows-only; under a data
+        mesh each rank keeps its stripe of each (parallel/embedding)."""
+        from ..parallel import embedding as embed_mod
+        ex = self.executor
+        for name, vocab in tables.items():
+            t = ex.arg_dict[name]._data
+            if t.shape[0] == vocab:
+                ex.arg_dict[name]._data = embed_mod.stripe_of(t, self.mesh)
+        self.sparse_tables = dict(tables)
+        ex.set_sparse_tables(bool(tables))
+        self._attach()
+
+    def full_param(self, name):
+        """The full value of parameter `name`: a striped table assembled
+        from every rank (a collective), else the bound tensor."""
+        t = self.executor.arg_dict[name]._data
+        vocab = self.sparse_tables.get(name)
+        if vocab is not None and t.shape[0] != vocab:
+            from ..parallel import embedding as embed_mod
+            t = embed_mod.unstripe(t, vocab, self.mesh)
+        return t
 
     def use_grad_reduce(self, on):
         """on: the backward all-reduces the parameters' gradients over the
@@ -275,18 +303,31 @@ class DataParallelExecutorGroup:
 
     def get_params(self, arg_params, aux_params):
         for name in self.param_names:
-            if name in self.executor.arg_dict:
+            if name in self.sparse_tables:
+                arg_params[name] = nd.NDArray(
+                    self.full_param(name).clone(), self.context)
+            elif name in self.executor.arg_dict:
                 arg_params[name] = self.executor.arg_dict[name].copy()
         for name in self.aux_names:
             aux_params[name] = self.executor.aux_dict[name].copy()
 
     def set_params(self, arg_params, aux_params, allow_extra=False):
+        striped = {k for k, v in self.sparse_tables.items()
+                   if self.dp > 1 and k in arg_params}
         self.executor.copy_params_from(
             {k: v for k, v in arg_params.items()
-             if k in self.executor.arg_dict},
+             if k in self.executor.arg_dict and k not in striped},
             {k: v for k, v in (aux_params or {}).items()
              if k in self.executor.aux_dict})
         self.broadcast_params()
+        if striped:
+            from ..parallel import embedding as embed_mod
+            ex = self.executor
+            for k in sorted(striped):
+                full, = pmesh.replicate_params(self.mesh, [_tensor_of(
+                    arg_params[k], ex.arg_dict[k]._data.dtype,
+                    self.mesh.device)])
+                ex.arg_dict[k]._data = embed_mod.stripe_of(full, self.mesh)
 
     def broadcast_params(self):
         """Data index 0's weights and aux states on every rank (one
@@ -295,8 +336,10 @@ class DataParallelExecutorGroup:
         if self.dp == 1:
             return
         ex = self.executor
+        # a striped table's stripes differ by rank (set_params replicates
+        # it whole before cutting)
         arrays = [ex.arg_dict[n] for n in self.param_names
-                  if n in ex.arg_dict] + \
+                  if n in ex.arg_dict and n not in self.sparse_tables] + \
             [ex.aux_dict[n] for n in self.aux_names]
         by_dtype = {}
         for a in arrays:
@@ -316,6 +359,7 @@ class DataParallelExecutorGroup:
         shapes did not change, the parameters among them, are shared)."""
         self._set_shapes(data_shapes, label_shapes)
         self.executor = self.executor.reshape(**self._local_shapes())
+        self.executor.set_sparse_tables(bool(self.sparse_tables))
         self._attach()
 
     @property

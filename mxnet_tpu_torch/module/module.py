@@ -355,9 +355,27 @@ class Module(BaseModule):
                 % ('parameter server' if ps else
                    "dist runtime's host all-reduce"), '6')
         self._fused_updater = None
+        ex = eg.executor
+        # sparse_grad Embedding tables train rows-only in the fused
+        # update; their positions are in the order of the parameters with
+        # a gradient, the order update() and the fused step hand it
+        sparse_idx, sparse_vocab = (), {}
         if kvstore is None or (not ps and not host_span):
+            if not ex._grouped and type(optimizer) in (opt_mod.SGD,
+                                                       opt_mod.NAG):
+                ents = {e['weight']: e for e in ex._sparse_embed_entries()}
+                fnames = [n for n, g in zip(self._param_names,
+                                            eg.grad_arrays) if g is not None]
+                sparse_idx = tuple(j for j, n in enumerate(fnames)
+                                   if n in ents)
+                sparse_vocab = {j: ents[fnames[j]]['vocab']
+                                for j in sparse_idx}
             self._fused_updater = opt_mod.create_fused_updater(
-                optimizer, self._param_names, zero=zero, mesh=eg.mesh)
+                optimizer, self._param_names, zero=zero, mesh=eg.mesh,
+                sparse_idx=sparse_idx, sparse_vocab=sparse_vocab)
+            if sparse_idx:
+                eg.set_sparse_tables({e['weight']: e['vocab'] for e in
+                                      ex._sparse_embed_entries()})
         if zero and self._fused_updater is None:
             self.logger.warning(
                 'ZeRO stage-1 requested but %s; running without the '
@@ -373,6 +391,14 @@ class Module(BaseModule):
             self._update_on_kvstore = False
         elif update_on_kvstore:
             kvstore.set_optimizer(self._optimizer)
+            if host_span and not ex._grouped:
+                # sparse_grad tables cross the processes as COO rows
+                try:
+                    entries = ex._sparse_embed_entries()
+                except MXNetError:
+                    entries = ()
+                for e in entries:
+                    kvstore.mark_sparse(e['weight'], e['vocab'])
         else:
             self._updater = opt_mod.get_updater(optimizer)
         self.optimizer_initialized = True
@@ -610,6 +636,25 @@ class Module(BaseModule):
         profiler.set_optimizer_state_bytes(fu.state_bytes_per_device())
         if metric_steps:
             profiler.add_reduce_stats(metric_steps=metric_steps)
+        if fu.sparse_idx:
+            # the rows-only update's bytes against the dense update's (the
+            # JAX package's Module path counts none; its Gluon path does)
+            from ..parallel import embedding as embed_mod
+            ents = self._exec_group.executor._sparse_embed_entries()
+            ex = self._exec_group.executor
+            plan = embed_mod.SparseEmbedPlan([
+                {'pos': e['dpos'], 'vocab': e['vocab'], 'dim': e['dim'],
+                 'dtype': embed_mod._np_dtype(
+                     ex.arg_dict[e['weight']]._data.dtype)} for e in ents])
+            rungs = [e['rung'] for e in ents]
+            mom = fu.momentum != 0.0
+            profiler.add_embed_stats(
+                steps=k, dispatches=1,
+                lookups=k * sum(len(e['ids']) for e in ents),
+                unique_rows=k * sum(rungs),
+                touched_bytes=k * plan.touched_bytes(rungs, mom),
+                dense_equiv_bytes=k * plan.dense_equiv_bytes(mom),
+                max_rung=max(rungs))
 
     def _ensure_reduce_plan(self, ex, fu, fnames):
         """The in-step all-reduce of the gradients (collectives.
@@ -638,8 +683,13 @@ class Module(BaseModule):
                     names.append(n)
                     weights.append(w)
                     grads.append(g)
-            self._fused_updater.param_names = names
-            self._fused_updater(weights, grads)
+            fu = self._fused_updater
+            fu.param_names = names
+            if fu.sparse_idx:
+                sg = eg.executor.sparse_grads
+                grads = [sg[n] if n in sg else g
+                         for n, g in zip(names, grads)]
+            fu(weights, grads)
             self._note_step_counters(1)
             return
         if self._update_on_kvstore:

@@ -10,12 +10,12 @@ inputs mutated on every call (`aux_always`), so
 reference. Each op is the JAX op's arithmetic in the same order on torch
 tensors. The whole-model update Module uses is `optimizer.FusedSGD`.
 
-`sparse_sgd_update` and `sparse_sgd_mom_update` are registered under
-their names and raise: their rows-only update needs parallel/embedding.
+`sparse_sgd_update` and `sparse_sgd_mom_update` are the rows-only
+updates of sparse embedding tables (parallel/embedding.sparse_row_update)
+from the (unique ids, row gradients) pair the fused sparse backward makes.
 """
 import torch
 
-from ..base import unported
 from .registry import register, asfloat
 
 
@@ -96,17 +96,44 @@ def _mp_sgd_mom_update(attrs, inputs, auxs, op_ctx):
     return [w.to(weight.dtype)], [new_mom, w]
 
 
-def _sparse_unported(attrs, inputs, auxs, op_ctx):
-    raise unported('the rows-only sparse SGD update (parallel/embedding)',
-                   '6')
+def _sparse_update(attrs, weight, uids, grad_rows, mom=None):
+    from ..parallel.embedding import sparse_row_update
+    lr, wd, momentum = _hypers(attrs, ('lr', None), ('wd', 0.0),
+                               ('momentum', 0.0))
+    clip = asfloat(attrs.get('clip_gradient', -1.0))
+    w = weight.clone()
+    m = mom.clone() if mom is not None else w
+    sparse_row_update(
+        w, m, uids.to(torch.int32).long(), grad_rows, lr, wd,
+        momentum=momentum if mom is not None else 0.0,
+        rescale=asfloat(attrs.get('rescale_grad', 1.0)),
+        clip=clip if clip >= 0.0 else None)
+    return w, m
 
 
-register('sparse_sgd_update', input_names=('weight', 'uids', 'grad_rows'),
-         simple=False, hint='sparse_sgd_update')(_sparse_unported)
-register('sparse_sgd_mom_update',
-         input_names=('weight', 'uids', 'grad_rows', 'mom'), num_aux=1,
-         mutable_aux=True, aux_always=True, simple=False,
-         hint='sparse_sgd_mom_update')(_sparse_unported)
+@register('sparse_sgd_update', input_names=('weight', 'uids', 'grad_rows'),
+          hint='sparse_sgd_update')
+def _sparse_sgd_update(attrs, weight, uids, grad_rows):
+    """Rows-only SGD (docs/SPARSE.md): `uids` the touched row ids, unique
+    as parallel.embedding.dedup_ids makes them (entries == vocab are
+    padding and write nothing), `grad_rows` their summed row gradients.
+    The same rescale / clip / wd arithmetic as sgd_update on those rows
+    only."""
+    return _sparse_update(attrs, weight, uids, grad_rows)[0]
+
+
+@register('sparse_sgd_mom_update',
+          input_names=('weight', 'uids', 'grad_rows', 'mom'), num_aux=1,
+          mutable_aux=True, aux_always=True, simple=False,
+          hint='sparse_sgd_mom_update')
+def _sparse_sgd_mom_update(attrs, inputs, auxs, op_ctx):
+    """Rows-only momentum SGD with lazy semantics: an untouched row keeps
+    its weight and its momentum (no decay), so it equals sgd_mom_update
+    only where every row is touched every step."""
+    weight, uids, grad_rows = inputs
+    mom, = auxs
+    w, m = _sparse_update(attrs, weight, uids, grad_rows, mom)
+    return [w], [m]
 
 
 def _wd_grad(grad, weight, attrs):

@@ -704,9 +704,20 @@ def _embedding_infer_shape(attrs, in_shapes):
     return in_shapes
 
 
+# The sparse embedding tier's interception point (parallel/embedding.py
+# binds it at import): inside one of its scopes a lookup of a sparse_grad
+# table is recorded or served from the step's touched rows; outside one
+# it returns None and the dense gather below runs.
+_embed_hook = None
+
+
 @register('Embedding', input_names=('data', 'weight'),
           infer_shape=_embedding_infer_shape)
 def _embedding(attrs, data, weight):
+    if _embed_hook is not None:
+        out = _embed_hook(attrs, data, weight)
+        if out is not None:
+            return out
     # the reference clips out-of-range ids to the table's edge
     idx = _as_index(data).clamp(0, weight.shape[0] - 1)
     return weight[idx]

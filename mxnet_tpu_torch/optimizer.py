@@ -27,7 +27,7 @@ import pickle
 import numpy as np
 import torch
 
-from . import base
+from .base import MXNetError
 from . import ndarray as nd
 from .ndarray import NDArray, zeros
 
@@ -635,14 +635,29 @@ class FusedSGD:
     schedule (collectives.interleave_reduce_enabled), carried in the
     cache key. Checkpoints keep per-parameter arrays whatever the mode,
     so they restore across data widths and stages.
+
+    `sparse_idx`: the positions of sparse embedding tables
+    (parallel/embedding.py), whose gradient arrives as a (unique ids,
+    row gradients) pair, or (ids, rows, lo) for a table striped over the
+    data axis that holds rows [lo, ...), and which update rows-only
+    (lazy momentum and wd). They stay out of the ZeRO buckets; their
+    momenta have the weight's rows (a stripe under a mesh, where
+    `sparse_vocab` {position: rows} gives each table's full size, which
+    checkpoints gather to). Sparse tables do not take multi_precision.
     """
 
     def __init__(self, optimizer, param_names, zero=0, mesh=None,
-                 interleave=None, sparse_idx=()):
+                 interleave=None, sparse_idx=(), sparse_vocab=None):
         assert type(optimizer) in (SGD, NAG)
-        if tuple(sparse_idx):
-            raise base.unported('the rows-only update of sparse embedding '
-                                'tables', '6')
+        self.sparse_idx = tuple(sorted(set(int(i) for i in sparse_idx)))
+        if self.sparse_idx and bool(getattr(optimizer, 'multi_precision',
+                                            False)):
+            raise MXNetError(
+                'sparse_grad embedding tables do not compose with '
+                'multi_precision: a row-sliced float32 master would need '
+                'its own lazy materialization; keep sparse tables '
+                'float32 (their update touches only rows already)')
+        self.sparse_vocab = dict(sparse_vocab or {})
         self.optimizer = optimizer
         self.param_names = list(param_names)
         self.states = {}      # name -> momentum tensor
@@ -688,6 +703,8 @@ class FusedSGD:
         layout, the mesh and the schedule."""
         key = ('FusedSGD', type(self.optimizer).__name__, self.momentum,
                self.rescale, self.clip, self.multi_precision)
+        if self.sparse_idx:
+            key += (('sparse', self.sparse_idx),)
         if self.zero:
             key += (('zero', self.zero, self._layout.key
                      if self._layout is not None else None, self._mesh_fp,
@@ -753,9 +770,33 @@ class FusedSGD:
             wds.append(opt._get_wd(name))
         return moms, masters, lrs, wds
 
+    def _sparse_momentum(self, name, j, t):
+        """The momentum of sparse table `name` (position j) beside its
+        weight `t`: None without momentum; a loaded full table cut to
+        this rank's stripe."""
+        if self.momentum == 0.0:
+            self.states.pop(name, None)
+            return None
+        m = self.states.get(name)
+        if m is None:
+            m = torch.zeros_like(t)
+        else:
+            if m.shape[0] != t.shape[0]:
+                from .parallel.embedding import stripe_of
+                m = stripe_of(_tensor(m), self.mesh)
+            if m.device != t.device or m.dtype != t.dtype:
+                m = _tensor(m, dtype=t.dtype, device=t.device)
+        self.states[name] = m
+        return m
+
     def _host_prep_replicated(self, weights):
-        for name, w in zip(self.param_names, weights):
+        sparse = set(self.sparse_idx)
+        for j, (name, w) in enumerate(zip(self.param_names, weights)):
             t = w._data
+            if j in sparse:
+                self._sparse_momentum(name, j, t)
+                self.masters[name] = None
+                continue
             mp = self._is_mp(w)
             mdtype = torch.float32 if mp else t.dtype
             m = self.states.get(name)
@@ -771,7 +812,7 @@ class FusedSGD:
             elif master.device != t.device:
                 self.masters[name] = _tensor(master, dtype=torch.float32,
                                              device=t.device)
-        return ([self.states[n] for n in self.param_names],
+        return ([self.states.get(n) for n in self.param_names],
                 [self.masters[n] for n in self.param_names])
 
     def _host_prep_zero(self, weights):
@@ -781,12 +822,18 @@ class FusedSGD:
         per-name values where there are any, else zeros and the
         weights."""
         from .parallel import zero as zero_mod
-        names = list(self.param_names)
+        all_names = list(self.param_names)
+        sparse = set(self.sparse_idx)
+        # sparse tables stay out of the buckets: their update is rows-only
+        dense_idx = [j for j in range(len(all_names)) if j not in sparse]
+        names = [all_names[j] for j in dense_idx]
+        sparse_w = [weights[j] for j in self.sparse_idx]
+        weights = [weights[j] for j in dense_idx]
         dp = self._dp()
         inputs = (tuple(tuple(w.shape) for w in weights),
                   tuple(w._data.dtype for w in weights),
                   tuple(self._is_mp(w) for w in weights), dp,
-                  zero_mod.bucket_bytes(), tuple(names))
+                  zero_mod.bucket_bytes(), tuple(names), self.sparse_idx)
         if self._layout_inputs != inputs:
             if self._zero_moms is not None:
                 self._staged = self._gather_zero()
@@ -797,8 +844,11 @@ class FusedSGD:
             self._layout_inputs = inputs
             self._layout_names = names
             self._zero_moms = self._zero_masters = None
-            self.step_math = zero_mod.make_sharded_sgd_step(
+            step = zero_mod.make_sharded_sgd_step(
                 self._layout, self.mesh, self._hyper())
+            self.step_math = step if not sparse else \
+                self._make_zero_sparse_step(step, len(self._layout.buckets),
+                                            dense_idx)
         if self._zero_moms is None:
             staged_moms, staged_masters = self._staged or ({}, {})
             self._staged = None
@@ -821,7 +871,28 @@ class FusedSGD:
             self._zero_masters = [
                 block(b, staged_masters, lambda w: w.detach().float())
                 if b.mp else None for b in lay.buckets]
-        return list(self._zero_moms), list(self._zero_masters)
+            for j in self.sparse_idx:
+                v = staged_moms.get(all_names[j])
+                if v is not None:
+                    self.states[all_names[j]] = v
+        sparse_moms = [self._sparse_momentum(all_names[j], j, w._data)
+                       for j, w in zip(self.sparse_idx, sparse_w)]
+        return list(self._zero_moms) + sparse_moms, list(self._zero_masters)
+
+    def _make_zero_sparse_step(self, step, nb, dense_idx):
+        """The ZeRO-1 step with sparse tables beside the buckets: moms
+        arrive as [bucket blocks...] + [sparse momenta...]."""
+        sparse_idx = self.sparse_idx
+
+        def step_math(ws, gs, moms, masters, lrs, wds):
+            dws, new_bm, new_masters = step(
+                [ws[j] for j in dense_idx], [gs[j] for j in dense_idx],
+                list(moms[:nb]), masters, [lrs[j] for j in dense_idx],
+                [wds[j] for j in dense_idx])
+            new_sm = [self._sparse_step(ws[j], gs[j], m, lrs[j], wds[j])
+                      for j, m in zip(sparse_idx, moms[nb:])]
+            return ws, list(new_bm) + new_sm, new_masters
+        return step_math
 
     def _gather_zero(self):
         """The ZeRO blocks gathered over the data axis and unpacked:
@@ -841,10 +912,38 @@ class FusedSGD:
                     masters[self._layout_names[i]] = v.clone()
         return moms, masters
 
+    def _sparse_step(self, w, g, m, lr, wd):
+        """The rows-only update of one sparse table from its (ids, rows[,
+        lo]) gradient, in place; returns its momentum."""
+        from .parallel.embedding import sparse_row_update
+        uids, d_rows = g[0], g[1]
+        lo = g[2] if len(g) > 2 else 0
+        sparse_row_update(w, m, uids, d_rows, lr, wd,
+                          momentum=self.momentum, rescale=self.rescale,
+                          clip=self.clip, nesterov=self.nesterov, lo=lo)
+        return m
+
     def step_math(self, ws, gs, moms, masters, lrs, wds):
         """The update of tensors ws (weights) from gs (gradients, left as
         they are), moms and masters (updated in place); returns (ws,
         moms, masters), the same tensors."""
+        if self.sparse_idx:
+            moms = list(moms)
+            for j in self.sparse_idx:
+                moms[j] = self._sparse_step(ws[j], gs[j], moms[j], lrs[j],
+                                            wds[j])
+            dense = [j for j in range(len(ws)) if j not in
+                     set(self.sparse_idx)]
+            self._dense_step([ws[j] for j in dense], [gs[j] for j in dense],
+                             [moms[j] for j in dense],
+                             [masters[j] for j in dense],
+                             [lrs[j] for j in dense], [wds[j] for j in dense])
+            return ws, moms, masters
+        return self._dense_step(ws, gs, moms, masters, lrs, wds)
+
+    def _dense_step(self, ws, gs, moms, masters, lrs, wds):
+        if not ws:
+            return ws, moms, masters
         accs = [m if m is not None else w for w, m in zip(ws, masters)]
         # the gradient in the accumulator's dtype, times rescale: new
         # tensors (the executor's gradients stay unscaled)
@@ -878,19 +977,28 @@ class FusedSGD:
         """Keep the momenta and masters a step returned (the same tensors
         when step_math ran in place; per bucket under ZeRO)."""
         if self.zero:
-            self._zero_moms = list(new_moms)
+            nb = len(new_moms) - len(self.sparse_idx)
+            self._zero_moms = list(new_moms[:nb])
             self._zero_masters = list(new_masters)
+            for j, m in zip(self.sparse_idx, new_moms[nb:]):
+                if m is not None:
+                    self.states[self.param_names[j]] = m
             return
         for n, m, w in zip(self.param_names, new_moms, new_masters):
-            self.states[n] = m
+            if m is None:
+                self.states.pop(n, None)
+            else:
+                self.states[n] = m
             self.masters[n] = w
 
     def __call__(self, weights, grads):
-        """weights and grads: NDArrays aligned with param_names; the
-        weights' own tensors are updated in place."""
+        """weights and grads: NDArrays aligned with param_names (a sparse
+        table's gradient its (ids, rows[, lo]) tuple); the weights' own
+        tensors are updated in place."""
         moms, masters, lrs, wds = self.host_prep(weights)
         _, new_moms, new_masters = self.step_math(
-            [w._data for w in weights], [g._data for g in grads], moms,
+            [w._data for w in weights],
+            [g if isinstance(g, tuple) else g._data for g in grads], moms,
             masters, lrs, wds)
         self.commit(new_moms, new_masters)
 
@@ -898,8 +1006,13 @@ class FusedSGD:
         """Bytes of momenta and float32 masters on this rank's device:
         its blocks under ZeRO."""
         if self.zero:
-            return self._layout.state_bytes_per_device() \
+            total = self._layout.state_bytes_per_device() \
                 if self._layout is not None else 0
+            for j in self.sparse_idx:
+                v = self.states.get(self.param_names[j])
+                if v is not None:
+                    total += v.numel() * v.element_size()
+            return total
         return sum(t.numel() * t.element_size()
                    for t in list(self.states.values()) +
                    list(self.masters.values()) if t is not None)
@@ -910,6 +1023,20 @@ class FusedSGD:
         if self.zero and self._layout is not None:
             return self._layout.comm_bytes_per_step()
         return 0, 0
+
+    def transfer_states_from(self, other):
+        """Take another FusedSGD's state (the same parameters): the fused
+        Gluon step rebuilds its updater when rescale_grad changes.
+        Replicated to replicated shares the tensors; otherwise through
+        the checkpoint format."""
+        if not self.zero and not other.zero:
+            self.states = dict(other.states)
+            self.masters = dict(other.masters)
+            if other.optimizer is not self.optimizer:
+                self.optimizer._index_update_count = \
+                    dict(other.optimizer._index_update_count)
+            return
+        self.set_states(other.get_states())
 
     @staticmethod
     def _split_updater_states(states, masters):
@@ -936,9 +1063,31 @@ class FusedSGD:
             return self._staged
         if self.zero:
             if self._zero_moms is None:
-                return {}, {}
-            return self._gather_zero()
-        return self.states, self.masters
+                moms, masters = {}, {}
+            else:
+                moms, masters = self._gather_zero()
+            for j in self.sparse_idx:
+                n = self.param_names[j]
+                if n in self.states:
+                    moms[n] = self.states[n]
+        else:
+            moms, masters = dict(self.states), dict(self.masters)
+        return self._full_sparse(moms), masters
+
+    def _full_sparse(self, moms):
+        """moms with each striped sparse momentum gathered to its full
+        table (a collective over the data axis)."""
+        if self.mesh is None or self._dp() <= 1:
+            return moms
+        from .parallel.embedding import unstripe
+        for j in self.sparse_idx:
+            n = self.param_names[j]
+            v = moms.get(n)
+            vocab = self.sparse_vocab.get(j)
+            if v is not None and vocab is not None and \
+                    v.shape[0] != vocab:
+                moms[n] = unstripe(_tensor(v), vocab, self.mesh)
+        return moms
 
     def get_states(self):
         """The states as per-parameter arrays in either mode, so that a
@@ -969,10 +1118,11 @@ class FusedSGD:
 
 
 def create_fused_updater(optimizer, param_names, zero=0, mesh=None,
-                         interleave=None, sparse_idx=()):
+                         interleave=None, sparse_idx=(), sparse_vocab=None):
     """A FusedSGD for SGD and NAG, else None (the caller takes the
-    per-key Updater)."""
+    per-key Updater; with sparse tables the caller must refuse None)."""
     if type(optimizer) in (SGD, NAG):
         return FusedSGD(optimizer, param_names, zero=zero, mesh=mesh,
-                        interleave=interleave, sparse_idx=sparse_idx)
+                        interleave=interleave, sparse_idx=sparse_idx,
+                        sparse_vocab=sparse_vocab)
     return None

@@ -440,11 +440,16 @@ def allgather_bucket(x, mesh, axis='data'):
 
 
 def row_shard_constraint(x, mesh, axis='data'):
-    """Used only by the sparse embedding tables (ROADMAP Queue A 6c)."""
+    """A sparse embedding table (or its momentum) pinned row-striped over
+    `axis`: this rank's rows [r*s, min(n, (r+1)*s)), s = ceil(n / N), of
+    the full table `x` (parallel/embedding.stripe_range); `x` itself
+    without a mesh or over an axis of one rank."""
     if mesh is None or axis not in mesh.shape or mesh.shape[axis] <= 1:
         return x
-    raise unported('row_shard_constraint over a mesh (item 6c, parallel/'
-                   'embedding.py)', '6')
+    from .embedding import stripe_range
+    n = mesh.axis_size(axis)
+    lo, hi = stripe_range(x.shape[0], n, mesh.axis_index(axis))
+    return x[lo:hi]
 
 
 def expert_shard(x, dim=0, axis='data'):

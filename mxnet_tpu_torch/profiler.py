@@ -18,11 +18,13 @@ the serving fleet's (registry, HTTP front, continuous batcher), the
 self-healing fleet's (supervisor, router, canary), the train -> serve
 loop's, the hot-swap and host-hiding counters, the bucketed-training
 and the input pipeline's counters, the elastic checkpoints', the dist
-runtime's, the weight deltas' and the mesh collectives'; `summary()`
-prints them, and `dump_profile` writes each as a metadata event
-('exec_cache', 'serving', 'fleet', 'quant', 'fleet_supervisor', 'loop',
-'overlap', 'bucketing', 'input_pipeline', 'checkpoint', 'dist',
-'delta', 'mesh').
+runtime's, the weight deltas', the mesh collectives', the fused Gluon
+step's and the sparse embedding tier's; `summary()` prints them, and
+`dump_profile` writes each as a metadata event ('exec_cache',
+'serving', 'fleet', 'quant', 'fleet_supervisor', 'loop', 'overlap',
+'bucketing', 'input_pipeline', 'checkpoint', 'dist', 'delta', 'mesh',
+'comm', 'gluon_fused', 'embed'). The fused Gluon step's spans have the
+category 'gluon_fused'.
 """
 import json
 import os
@@ -592,6 +594,88 @@ def mesh_stats():
         return dict(_MESH)
 
 
+# sparse embedding counters (Embedding(sparse_grad=True) through the
+# fused steps, and the serving engine's hot-row cache): the bytes the
+# rows-only update touched against what the dense update would have
+_EMBED = {
+    'embed_steps': 0,
+    'embed_dispatches': 0,
+    'embed_lookups': 0,
+    'embed_unique_rows': 0,          # ladder-padded rows updated
+    'embed_touched_bytes': 0,        # optimizer-touched (rows-only)
+    'embed_dense_equiv_bytes': 0,    # dense-path equivalent
+    'embed_max_rung': 0,             # largest ladder rung seen
+    'hotrow_hits': 0,
+    'hotrow_misses': 0,
+    'hotrow_evictions': 0,
+    'hotrow_resident_bytes': 0,      # gauge, not cumulative
+    'hotrow_prefetched': 0,          # rows paged ahead of demand
+    'hotrow_prefetch_hits': 0,       # prefetched rows later demanded
+}
+
+
+def add_embed_stats(steps=0, dispatches=0, lookups=0, unique_rows=0,
+                    touched_bytes=0, dense_equiv_bytes=0, max_rung=0,
+                    hits=0, misses=0, evictions=0, prefetched=0,
+                    prefetch_hits=0, resident_bytes=None):
+    """Accumulate sparse-embedding counters (one call per sparse fused
+    dispatch; the hot-row cache's per batch and per prefetch)."""
+    with _STATE['lock']:
+        _EMBED['embed_steps'] += int(steps)
+        _EMBED['embed_dispatches'] += int(dispatches)
+        _EMBED['embed_lookups'] += int(lookups)
+        _EMBED['embed_unique_rows'] += int(unique_rows)
+        _EMBED['embed_touched_bytes'] += int(touched_bytes)
+        _EMBED['embed_dense_equiv_bytes'] += int(dense_equiv_bytes)
+        _EMBED['embed_max_rung'] = max(_EMBED['embed_max_rung'],
+                                       int(max_rung))
+        _EMBED['hotrow_hits'] += int(hits)
+        _EMBED['hotrow_misses'] += int(misses)
+        _EMBED['hotrow_evictions'] += int(evictions)
+        _EMBED['hotrow_prefetched'] += int(prefetched)
+        _EMBED['hotrow_prefetch_hits'] += int(prefetch_hits)
+        if resident_bytes is not None:
+            _EMBED['hotrow_resident_bytes'] = int(resident_bytes)
+
+
+def embed_stats():
+    """Snapshot of the sparse-embedding counters, with the touched
+    fraction and the hot-row hit rate."""
+    with _STATE['lock']:
+        out = dict(_EMBED)
+    out['embed_touched_frac'] = (
+        out['embed_touched_bytes'] / out['embed_dense_equiv_bytes']
+        if out['embed_dense_equiv_bytes'] else 0.0)
+    lookups = out['hotrow_hits'] + out['hotrow_misses']
+    out['hotrow_hit_rate'] = \
+        out['hotrow_hits'] / lookups if lookups else 0.0
+    return out
+
+
+# fused Gluon step counters (gluon/fused.py): optimizer steps and the
+# calls that ran them (a bulk call runs K)
+_GLUON_FUSED = {
+    'gluon_fused_steps': 0,
+    'gluon_fused_dispatches': 0,
+}
+
+
+def add_gluon_fused_stats(steps=0, dispatches=0):
+    with _STATE['lock']:
+        _GLUON_FUSED['gluon_fused_steps'] += int(steps)
+        _GLUON_FUSED['gluon_fused_dispatches'] += int(dispatches)
+
+
+def gluon_fused_stats():
+    """Snapshot of the fused Gluon step counters, with steps a call."""
+    with _STATE['lock']:
+        out = dict(_GLUON_FUSED)
+    out['gluon_fused_steps_per_dispatch'] = (
+        out['gluon_fused_steps'] / out['gluon_fused_dispatches']
+        if out['gluon_fused_dispatches'] else 0.0)
+    return out
+
+
 # data-parallel step counters (the JAX package's comm_stats): the logical
 # bytes the ZeRO-1 steps reduce-scattered and all-gathered, the
 # optimizer-state bytes this rank holds (a gauge, set after each step),
@@ -759,6 +843,26 @@ def summary(print_out=True):
                     cm['scan_fused_metric_steps'],
                     cm['zero_wire_reduce_scatter'],
                     cm['zero_wire_all_reduce']))
+    gf = gluon_fused_stats()
+    lines.append('  gluon_fused_steps=%d gluon_fused_dispatches=%d '
+                 'gluon_fused_steps_per_dispatch=%.2f'
+                 % (gf['gluon_fused_steps'], gf['gluon_fused_dispatches'],
+                    gf['gluon_fused_steps_per_dispatch']))
+    em = embed_stats()
+    lines.append('  embed_steps=%d embed_lookups=%d embed_unique_rows=%d '
+                 'embed_touched_bytes=%d embed_dense_equiv_bytes=%d '
+                 'embed_touched_frac=%.4f embed_max_rung=%d'
+                 % (em['embed_steps'], em['embed_lookups'],
+                    em['embed_unique_rows'], em['embed_touched_bytes'],
+                    em['embed_dense_equiv_bytes'],
+                    em['embed_touched_frac'], em['embed_max_rung']))
+    lines.append('  hotrow_hits=%d hotrow_misses=%d hotrow_hit_rate=%.3f '
+                 'hotrow_evictions=%d hotrow_resident_bytes=%d '
+                 'hotrow_prefetched=%d hotrow_prefetch_hits=%d'
+                 % (em['hotrow_hits'], em['hotrow_misses'],
+                    em['hotrow_hit_rate'], em['hotrow_evictions'],
+                    em['hotrow_resident_bytes'], em['hotrow_prefetched'],
+                    em['hotrow_prefetch_hits']))
     for stats in (ckpt_stats(), dist_stats(), delta_stats(), mesh_stats()):
         lines.append('  ' + ' '.join('%s=%s' % kv
                                      for kv in sorted(stats.items())))
@@ -881,7 +985,11 @@ def dump_profile():
               {'ph': 'M', 'name': 'mesh', 'pid': 0,
                'args': mesh_stats()},
               {'ph': 'M', 'name': 'comm', 'pid': 0,
-               'args': comm_stats()}]
+               'args': comm_stats()},
+              {'ph': 'M', 'name': 'gluon_fused', 'pid': 0,
+               'args': gluon_fused_stats()},
+              {'ph': 'M', 'name': 'embed', 'pid': 0,
+               'args': embed_stats()}]
     with _STATE['lock']:
         records = list(_STATE['records'])
     for name, cat, ts, dur, tid in records:
@@ -931,7 +1039,8 @@ def clear():
         _BUCKET_RUNGS.clear()
         for k in _INPUT:
             _INPUT[k] = type(_INPUT[k])()
-        for d in (_CKPT, _DIST, _DELTA, _MESH, _COMM):
+        for d in (_CKPT, _DIST, _DELTA, _MESH, _COMM, _EMBED,
+                  _GLUON_FUSED):
             for k in d:
                 d[k] = type(d[k])()
         del _SERVE_LAT[:]

@@ -51,8 +51,18 @@ fingerprint is held against leaves out the arguments that feed a loss
 head's label (SoftmaxOutput's softmax_label), which no checkpoint
 holds; the JAX package counts them, so a model served with its loss
 head never matches a commit's fingerprint and refuses every delta.
-Not ported, raising: `hot_rows=` (the hot-row embedding cache, ROADMAP
-Queue A 6).
+
+The hot-row embedding cache (`hot_rows=`, MXNET_TPU_SERVE_HOT_ROWS,
+docs/SPARSE.md): an Embedding table whose ids arrive as an engine input
+keeps only a (C, dim) buffer on the card, the full table in pinned host
+memory; the dispatcher maps each batch's ids onto cache slots (LRU) and
+pages the missing rows in before the walk, and after launching a batch
+pages in the rows of requests still queued
+(MXNET_TPU_SERVE_HOTROW_PREFETCH, default 8 of them; 'off'). Every
+page-in is an in-place write on the engine's compute stream, queued
+behind the walks already launched there: a walk still reading a slot
+runs before the write that replaces it (the JAX package writes a new
+buffer instead).
 
 Typical use::
 
@@ -65,6 +75,8 @@ Env knobs:
   MXNET_TPU_SERVE_MAX_BATCH     default max_batch (8)
   MXNET_TPU_SERVE_WAIT_US       default max_wait_us (2000)
   MXNET_TPU_SERVE_QUANTIZE      default quantize (off)
+  MXNET_TPU_SERVE_HOT_ROWS      default hot_rows capacity (0 = off)
+  MXNET_TPU_SERVE_HOTROW_PREFETCH  queued requests paged ahead (8)
 """
 import contextlib
 import os
@@ -81,7 +93,7 @@ from . import io as mxio
 from . import ndarray as nd
 from . import profiler
 from . import quantization
-from .base import MXNetError, numpy_dtype, unported
+from .base import MXNetError, numpy_dtype
 from .quantization import QuantConfig, QuantParityError
 
 
@@ -193,6 +205,40 @@ class _Request(object):
         self.error = None
 
 
+def _host_table(t, device):
+    """A host copy of a full embedding table, pinned when it feeds a
+    card (its rows page in by asynchronous copies)."""
+    t = t.detach().to('cpu').contiguous()
+    return t.pin_memory() if device.type == 'cuda' else t.clone()
+
+
+class _HotRowTable(object):
+    """The host side of one hot-row-cached table: the full (vocab, dim)
+    table on the host, the LRU map id -> slot of the (capacity, dim)
+    buffer on the card, and the counters. Only the dispatcher thread
+    changes it (stats() reads it)."""
+    __slots__ = ('name', 'ids_idx', 'vocab', 'dim', 'capacity', 'host',
+                 'arg', 'resident', 'free', 'hits', 'misses', 'evictions',
+                 'prefetched', 'prefetch_hits', 'prefetch_rows')
+
+    def __init__(self, name, ids_idx, vocab, dim, capacity, host, arg):
+        self.name = name
+        self.ids_idx = ids_idx          # engine-input positions
+        self.vocab = vocab
+        self.dim = dim
+        self.capacity = capacity
+        self.host = host                # full table, a CPU tensor
+        self.arg = arg                  # the NDArray holding the buffer
+        self.resident = OrderedDict()   # id -> slot, LRU order
+        self.free = list(range(capacity))
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+        self.prefetched = set()         # paged-ahead ids not yet hit
+        self.prefetch_hits = 0
+        self.prefetch_rows = 0
+
+
 class _Program(object):
     """One (batch bucket x free bucket) rung: a forward-only executor
     sharing the base weights, and its serve function."""
@@ -253,7 +299,15 @@ class InferenceEngine(object):
         Inputs of the quantization parity gate (each batch one array for
         a single-input model, or a list aligned with the input names);
         default one seeded unit-gaussian batch at the top rung.
-    hot_rows : not ported (raises).
+    hot_rows : int or dict, optional
+        The hot-row embedding cache (module docstring; unset:
+        MXNET_TPU_SERVE_HOT_ROWS, 0 off). An int caches every eligible
+        table at that capacity, a dict {weight name: C} the tables
+        named (each must be eligible: its ids an engine input). C is
+        clamped to vocab and must cover the worst case of one dispatch
+        (max_batch x the ids input's largest free extent), refused
+        otherwise; a quantized table is refused. stats()['hot_rows']
+        reports each table's hits, misses and bytes.
     """
 
     def __init__(self, source, max_batch=None, batch_buckets=None,
@@ -270,9 +324,6 @@ class InferenceEngine(object):
                              'device')
         if hot_rows is None:
             hot_rows = _env_int('MXNET_TPU_SERVE_HOT_ROWS', 0) or None
-        if hot_rows:
-            raise unported('InferenceEngine(hot_rows=), the hot-row '
-                           'embedding cache (parallel/embedding.py)', '6')
         self._symbol = symbol
         self._ctx = ctx
         self._device = ctx.torch_device
@@ -382,8 +433,22 @@ class InferenceEngine(object):
         self._quant_orig_dtype = {}     # name -> torch dtype
         self._quant_live = False        # serve functions dequantize
         self._quant_parity = None       # the gate's measured difference
+        self._hotrows = OrderedDict()   # weight name -> _HotRowTable
+        self._hotrow_shapes = {}        # weight name -> (C, dim)
         if self._quant is not None:
             self._setup_quantization(calibrate)
+        # after quantization: eligibility sees the swapped dtypes
+        if hot_rows:
+            self._setup_hotrows(hot_rows)
+        pf = os.environ.get('MXNET_TPU_SERVE_HOTROW_PREFETCH',
+                            '').strip().lower()
+        if pf in ('0', 'off', 'none', 'false'):
+            self._hotrow_peek = 0
+        else:
+            try:
+                self._hotrow_peek = int(pf) if pf else 8
+            except ValueError:
+                self._hotrow_peek = 8
         if warmup:
             self.warmup()
         self._dispatcher = threading.Thread(
@@ -470,11 +535,17 @@ class InferenceEngine(object):
             t0 = time.perf_counter()
             shapes = {n: (batch,) + f
                       for n, f in zip(self._input_names, free_entry)}
+            # a hot-row table binds at its (C, dim) cache shape, sharing
+            # the base executor's buffer the dispatcher pages into
+            shapes.update(self._hotrow_shapes)
             ex = self._symbol.simple_bind(self._ctx, grad_req='null',
                                           shared_exec=self._base_ex,
                                           **shapes)
+            embed_tok = tuple((n, st.capacity)
+                              for n, st in self._hotrows.items()) or None
             prog = _Program(ex, _make_serve_fn(ex, self._input_names,
-                                               quant=self._quant_info()),
+                                               quant=self._quant_info(),
+                                               embed=embed_tok),
                             [n for n in ex.arg_dict
                              if n not in self._input_names],
                             batch, free_entry)
@@ -601,6 +672,215 @@ class InferenceEngine(object):
         self._quant_orig_dtype = {}
         self._programs.clear()
 
+    # ------------------------------------------------------------------
+    # the hot-row embedding cache
+    # ------------------------------------------------------------------
+    def _setup_hotrows(self, spec):
+        """Swap each selected Embedding table for a (C, dim) buffer on the
+        card, the full table moving to (pinned) host memory; every rung
+        executor binds the buffer through shared_exec. Runs before any
+        rung exists."""
+        from .parallel import embedding as embed_mod
+        if isinstance(spec, dict):
+            req = {str(k): int(v) for k, v in spec.items()}
+            blanket = None
+        else:
+            req, blanket = {}, int(spec)
+        groups = OrderedDict()          # weight -> its lookups
+        for t in embed_mod.find_symbol_tables(self._symbol,
+                                              sparse_only=False):
+            g = groups.setdefault(t['weight'], {
+                'ids': [], 'vocab': t['vocab'], 'dim': t['dim'],
+                'why': None})
+            if t['ids_input'] is None:
+                g['why'] = 'its ids are graph-derived'
+            elif t['ids_input'] not in self._input_names:
+                g['why'] = ('its ids input %r is not an engine input'
+                            % t['ids_input'])
+            else:
+                idx = self._input_names.index(t['ids_input'])
+                if idx not in g['ids']:
+                    g['ids'].append(idx)
+        unknown = set(req) - set(groups)
+        if unknown:
+            raise MXNetError('hot_rows: %s are not Embedding weights of '
+                             'this model (tables: %s)'
+                             % (sorted(unknown), sorted(groups)))
+        for name, g in groups.items():
+            cap = req.get(name, blanket)
+            if cap is None:
+                continue
+            if g['why'] is not None:
+                if name in req:
+                    raise MXNetError(
+                        'hot_rows[%r]: table is not cacheable: %s (the '
+                        'dispatcher can only remap ids it receives)'
+                        % (name, g['why']))
+                continue
+            if name in self._quant_names:
+                raise MXNetError(
+                    'hot_rows[%r]: table is weight-quantized; the hot '
+                    'buffer pages fp rows: exclude the table via the '
+                    'hot_rows dict form or pass quantize=False' % name)
+            vocab, dim = g['vocab'], g['dim']
+            cap = min(int(cap), vocab)
+            # one coalesced dispatch must fit: max_batch rows times the
+            # ids input's largest free extent, over the table's lookups
+            worst = min(vocab, max(
+                sum(self.max_batch * (int(np.prod(entry[k])) if entry[k]
+                                      else 1) for k in g['ids'])
+                for entry in self._free_buckets))
+            if cap < worst:
+                raise MXNetError(
+                    'hot_rows[%r]: capacity %d < worst-case %d distinct '
+                    'ids per dispatch (max_batch %d x the ids free '
+                    'extent): a single batch could not be served from '
+                    'the cache' % (name, cap, worst, self.max_batch))
+            arg = self._base_ex.arg_dict[name]
+            host = _host_table(arg._data.detach().to('cpu'), self._device)
+            # rungs share this NDArray, and so the buffer
+            arg._data = torch.zeros((cap, dim), dtype=host.dtype,
+                                    device=self._device)
+            self._hotrows[name] = _HotRowTable(name, tuple(g['ids']), vocab,
+                                               dim, cap, host, arg)
+            self._hotrow_shapes[name] = (cap, dim)
+        if not self._hotrows:
+            raise MXNetError('hot_rows: no cacheable Embedding tables (need '
+                             'a table whose ids arrive as an engine input)')
+        claimed = {}
+        for st in self._hotrows.values():
+            for k in st.ids_idx:
+                if k in claimed:
+                    raise MXNetError(
+                        'hot_rows: input %r feeds both table %r and %r: '
+                        'one ids array cannot be remapped onto two caches; '
+                        'exclude one via the dict form'
+                        % (self._input_names[k], claimed[k], st.name))
+                claimed[k] = st.name
+        self._programs.clear()
+
+    def _page_in(self, st, missing, slots):
+        """Write the host rows `missing` into `slots` of the table's
+        buffer, in place on the current (compute) stream."""
+        idx = torch.as_tensor(np.asarray(missing, np.int64))
+        rows = st.host.index_select(0, idx)
+        dev = self._device
+        if dev.type == 'cuda':
+            rows = rows.pin_memory().to(dev, non_blocking=True)
+        slots = torch.as_tensor(np.asarray(slots, np.int64)).to(
+            dev, non_blocking=dev.type == 'cuda')
+        st.arg._data.index_copy_(0, slots, rows)
+
+    @staticmethod
+    def _claim_slots(st, missing, victims):
+        """A slot for each of `missing`: a free one, else the next of
+        `victims` (resident ids) evicted."""
+        slots = []
+        for _u in missing:
+            if st.free:
+                slots.append(st.free.pop())
+            else:
+                v = next(victims)
+                slots.append(st.resident.pop(v))
+                st.prefetched.discard(v)
+                st.evictions += 1
+        return slots
+
+    @staticmethod
+    def _table_ids(st, arrays):
+        """Each of the table's id inputs in `arrays` as clipped int64."""
+        out = []
+        for k in st.ids_idx:
+            a = np.asarray(arrays[k])
+            ids = a.astype(np.int64) if a.dtype.kind in 'iu' \
+                else np.rint(a).astype(np.int64)
+            np.clip(ids, 0, st.vocab - 1, out=ids)
+            out.append(ids)
+        return out
+
+    def _hotrow_remap(self, host):
+        """The dispatcher's step (its thread alone touches the LRU): map
+        each table's batch ids onto cache slots, paging missing rows in
+        first. Returns a new host list (the caller's arrays are not
+        written)."""
+        out = list(host)
+        ev_batch = miss_batch = hit_batch = pf_batch = 0
+        for st in self._hotrows.values():
+            per_k = self._table_ids(st, host)
+            flat = np.concatenate([i.ravel() for i in per_k])
+            uniq, inv = np.unique(flat, return_inverse=True)
+            uniq_l = uniq.tolist()
+            curset = set(uniq_l)
+            missing = [u for u in uniq_l if u not in st.resident]
+            hits = len(uniq_l) - len(missing)
+            slots_new = []
+            if missing:
+                evictions = st.evictions
+                # the capacity covers one batch: a victim always exists
+                slots_new = self._claim_slots(
+                    st, missing,
+                    (u for u in list(st.resident) if u not in curset))
+                ev_batch += st.evictions - evictions
+                self._page_in(st, missing, slots_new)
+            for u in uniq_l:
+                if u in st.resident:
+                    st.resident.move_to_end(u)
+                    if u in st.prefetched:
+                        st.prefetched.discard(u)
+                        st.prefetch_hits += 1
+                        pf_batch += 1
+            for u, slot in zip(missing, slots_new):
+                st.resident[u] = slot
+            st.hits += hits
+            st.misses += len(missing)
+            hit_batch += hits
+            miss_batch += len(missing)
+            slot_per_uniq = np.asarray([st.resident[u] for u in uniq_l],
+                                       np.int64)
+            remapped = slot_per_uniq[inv.reshape(-1)]
+            off = 0
+            for k, ids in zip(st.ids_idx, per_k):
+                n = ids.size
+                out[k] = remapped[off:off + n].reshape(ids.shape).astype(
+                    np.asarray(host[k]).dtype)
+                off += n
+        profiler.add_embed_stats(
+            hits=hit_batch, misses=miss_batch, evictions=ev_batch,
+            prefetch_hits=pf_batch,
+            resident_bytes=sum(st.capacity * st.dim *
+                               st.host.element_size()
+                               for st in self._hotrows.values()))
+        return out
+
+    def _hotrow_prefetch(self, peek):
+        """Page the rows of still-queued requests (their input tuples,
+        `peek`) in behind the batch just launched: at most the free
+        slots, and by eviction at most the LRU half of the cache, never
+        a row a queued request wants."""
+        for st in self._hotrows.values():
+            ids = [i.ravel() for inputs in peek
+                   for i in self._table_ids(st, inputs)]
+            if not ids:
+                continue
+            uniq = np.unique(np.concatenate(ids)).tolist()
+            missing = [u for u in uniq if u not in st.resident]
+            curset = set(uniq)
+            evictable = [u for u in st.resident if u not in curset]
+            budget = min(max(len(st.free), st.capacity // 2),
+                         len(st.free) + len(evictable))
+            missing = missing[:budget]
+            if not missing:
+                continue
+            slots_new = self._claim_slots(st, missing, iter(evictable))
+            self._page_in(st, missing, slots_new)
+            # an untouched guess is the first row demand reclaims
+            for u, slot in zip(missing, slots_new):
+                st.resident[u] = slot
+                st.resident.move_to_end(u, last=False)
+                st.prefetched.add(u)
+                st.prefetch_rows += 1
+            profiler.add_embed_stats(prefetched=len(missing))
+
     def resident_bytes(self):
         """Bytes the engine's weights and aux states hold on the device
         (int8 codes count 1 byte each), plus the dequantization
@@ -632,7 +912,9 @@ class InferenceEngine(object):
                 if n in self._input_names or \
                         (prefix == 'arg:' and n in self._label_names):
                     continue
-                if prefix == 'arg:' and n in self._quant_names:
+                if prefix == 'arg:' and n in self._hotrows:
+                    state[prefix + n] = self._hotrows[n].host.numpy()
+                elif prefix == 'arg:' and n in self._quant_names:
                     codes = a._data
                     s = self._quant_scales[n]
                     dt = self._quant_orig_dtype.get(n, torch.float32)
@@ -690,7 +972,23 @@ class InferenceEngine(object):
             resolved.append((key, n, d))
         for key, n, d in resolved:
             new = ha.to_tensor(new_state[key])
-            if d is ex.arg_dict and n in self._quant_names:
+            if d is ex.arg_dict and n in self._hotrows:
+                st = self._hotrows[n]
+                st.host = _host_table(new.to(st.host.dtype), self._device)
+                # the rows the delta touched leave the cache: the next
+                # dispatch that wants them pages the new values in
+                ids = entries.get(delta_mod._KIND_IDS + key)
+                if ids is None:
+                    st.resident.clear()
+                    st.prefetched.clear()
+                    st.free = list(range(st.capacity))
+                else:
+                    for u in np.asarray(ids).ravel().tolist():
+                        slot = st.resident.pop(int(u), None)
+                        if slot is not None:
+                            st.free.append(slot)
+                        st.prefetched.discard(int(u))
+            elif d is ex.arg_dict and n in self._quant_names:
                 quantized, _ = quantization.quantize_weights(
                     {n: new.to(self._device)}, self._quant)
                 q, sc, _orig = quantized[n]
@@ -918,6 +1216,24 @@ class InferenceEngine(object):
             out['quantized']['weights'] = len(self._quant_names)
             out['quantized']['parity_measured'] = self._quant_parity
             out['resident_bytes'] = self.resident_bytes()
+        if self._hotrows:
+            hr = {}
+            for name, st in self._hotrows.items():
+                tot = st.hits + st.misses
+                item = st.host.element_size()
+                hr[name] = {
+                    'capacity': st.capacity,
+                    'resident': len(st.resident),
+                    'hits': st.hits,
+                    'misses': st.misses,
+                    'evictions': st.evictions,
+                    'hit_rate': st.hits / tot if tot else 0.0,
+                    'resident_bytes': st.capacity * st.dim * item,
+                    'table_bytes': st.vocab * st.dim * item,
+                    'prefetch_rows': st.prefetch_rows,
+                    'prefetch_hits': st.prefetch_hits,
+                }
+            out['hot_rows'] = hr
         with self._lock:
             snap = self._warm_snapshot
             if snap is not None:
@@ -1001,10 +1317,16 @@ class InferenceEngine(object):
                         self._cond.wait(timeout=left)
                     depth = self._n_queued
                     reqs, rows = self._coalesce_locked(entry)
+                    # the still-queued heads' inputs (frozen at submit),
+                    # whose hot rows page in behind this batch
+                    peek = None
+                    if self._hotrows and self._hotrow_peek:
+                        peek = [r.inputs for q in self._queues.values()
+                                for r in q][:self._hotrow_peek]
                 if not reqs:
                     continue
                 try:
-                    self._launch(entry, reqs, rows, depth)
+                    self._launch(entry, reqs, rows, depth, peek)
                 except Exception as e:       # raised to each caller
                     with self._lock:
                         self._inflight_rows -= rows
@@ -1016,7 +1338,7 @@ class InferenceEngine(object):
             self._inflight.append(None)
             self._inflight_cond.notify_all()
 
-    def _launch(self, entry, reqs, rows, depth):
+    def _launch(self, entry, reqs, rows, depth, peek=None):
         """Assemble the padded host batch, stage it, launch the walk and
         record its completion event. The bounded in-flight queue lets
         batch N+1 stage and launch while the completion thread drains
@@ -1046,6 +1368,8 @@ class InferenceEngine(object):
                     buf[sl] = a
                     off += r.rows
                 host.append(buf)
+        if self._hotrows:
+            host = self._hotrow_remap(host)
         t1 = time.perf_counter()
         with profiler.scope('serve_stage', 'serving'):
             dvals = self._to_device(host)
@@ -1058,6 +1382,9 @@ class InferenceEngine(object):
             if self._stream is not None:
                 done = torch.cuda.Event(enable_timing=True)
                 done.record(self._stream)
+        if peek:
+            # the queued requests' rows, paged in behind this walk
+            self._hotrow_prefetch(peek)
         t3 = time.perf_counter()
         # the staged buffers: their memory waits for this walk
         # (record_stream in io.stage_to_device's take)
@@ -1252,7 +1579,7 @@ def _source_parts(source):
                      'Module, got %r' % (source,))
 
 
-def _make_serve_fn(ex, input_names, quant=None):
+def _make_serve_fn(ex, input_names, quant=None, embed=None):
     """The rung's serve function, serve(ex, data_vals, weight_vals,
     aux_vals) -> outputs: the data values (in input_names order) and the
     weights (the other arguments, in argument order) merged into the
@@ -1278,7 +1605,8 @@ def _make_serve_fn(ex, input_names, quant=None):
         cfg, qnames, orig_dtype = quant
         qflags = tuple(n in qnames for n in other_names)
         token = cfg.key(tuple(i for i, f in enumerate(qflags) if f))
-    key = exec_cache.serve_step_key(ex._sig, input_names, quant=token)
+    key = exec_cache.serve_step_key(ex._sig, input_names, quant=token,
+                                    embed=embed)
     fn = exec_cache.get(key, count=True)
     if fn is not None:
         return fn

@@ -160,8 +160,10 @@ def collectives_suite(rank, tmp_path):
     after = profiler.mesh_stats()
     res['unstaged_staged_bytes'] = after['mesh_staged_bytes'] - \
         before['mesh_staged_bytes']
-    for name, fn in (('row', lambda: C.row_shard_constraint(x, d)),
-                     ('expert', lambda: C.expert_shard(
+    # a sparse table's stripe over the data axis: rows [r*s, (r+1)*s)
+    res['row_stripe'] = C.row_shard_constraint(
+        torch.arange(20.0).reshape(10, 2), d)
+    for name, fn in (('expert', lambda: C.expert_shard(
                          torch.zeros(4, 2), 0)),
                      ('replicate', lambda: C.replicate_constraint(x))):
         try:
@@ -764,6 +766,180 @@ def zero_suite(rank, tmp_path):
             profiler.comm_stats()['scan_fused_metric_steps']
         dp_result(mod, 'fold', res)
     _save(tmp_path, rank, res)
+
+
+# -- the fused Gluon step and sparse tables over a data mesh -----------------
+
+GF_BATCH, GF_FEAT, GF_NCLS = 8, 6, 4
+GF_OPT_MOM = {'learning_rate': 0.1, 'momentum': 0.9, 'wd': 1e-3}
+SP_VOCAB, SP_DIM, SP_BATCH = 64, 8, 16
+
+
+def gf_seed_params(pkg, net, seed):
+    rs = np.random.RandomState(seed)
+    for _, p in sorted(net.collect_params().items()):
+        p.set_data(pkg.nd.array(
+            (rs.rand(*p.shape).astype(np.float32) - 0.5) * 0.4))
+
+
+def gf_mlp(pkg, seed, ctx=None, in_units=GF_FEAT):
+    """tests/test_gluon_fused.py's net: Dense(16, relu) -> Dense(4)."""
+    nn = pkg.gluon.nn
+    net = nn.HybridSequential()
+    with net.name_scope():
+        net.add(nn.Dense(16, activation='relu', in_units=in_units))
+        net.add(nn.Dense(GF_NCLS, in_units=16))
+    net.initialize(ctx=ctx)
+    if in_units:
+        gf_seed_params(pkg, net, seed)
+    return net
+
+
+def gf_pvals(net, fused=None):
+    """Parameter values in sorted-name order (a striped table whole,
+    through the fused step: a collective)."""
+    out = []
+    for _, p in sorted(net.collect_params().items()):
+        if fused is not None and getattr(p, 'sparse_grad', False):
+            v = fused.full_param(p)
+        else:
+            v = p.list_data()[0]._data
+        out.append(np.array(v.detach().float().cpu().numpy()))
+    return out
+
+
+def sp_net(pkg, sparse, seed=3, ctxs=None):
+    """tests/test_sparse_embed.py's net: Embedding -> Dense(4)."""
+    nn = pkg.gluon.nn
+    net = nn.HybridSequential()
+    net.add(nn.Embedding(SP_VOCAB, SP_DIM, sparse_grad=sparse))
+    net.add(nn.Dense(4, flatten=False, in_units=SP_DIM))
+    net.initialize(force_reinit=True, ctx=ctxs)
+    rs = np.random.RandomState(seed)
+    for _, p in sorted(net.collect_params().items()):
+        p.set_data(pkg.nd.array(
+            (rs.rand(*p.shape).astype(np.float32) - 0.5) * 0.2))
+    return net
+
+
+def sp_train(pkg, net, opt, ids, targets, upto=None, start=0, **fuse_kw):
+    tr = pkg.gluon.Trainer(net.collect_params(), 'sgd', dict(opt))
+    fs = pkg.gluon.fuse_step(net, pkg.gluon.loss.L2Loss(), tr, **fuse_kw)
+    upto = len(ids) if upto is None else upto
+    for x, y in zip(ids[start:upto], targets[start:upto]):
+        fs(pkg.nd.array(x), pkg.nd.array(y))
+    return fs, tr
+
+
+def _put(res, prefix, vals):
+    for i, v in enumerate(vals):
+        res['%s__%d' % (prefix, i)] = v
+
+
+def gluon_fused_suite(rank, tmp_path):
+    """The fused Gluon step over two contexts (two gloo ranks): the MLP
+    with momentum and wd under ZeRO 0 and 1, eager eval and set_data
+    after it; the sparse net's tables striped, ZeRO 0 and 1; an elastic
+    checkpoint of the striped tables at data 2; the JAX package's
+    checkpoint (tmp_path/jax_ckpt) restored at data 2."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import elastic
+    inp = _inputs(tmp_path)
+    res = {}
+    ctxs = [mx.cpu(0), mx.cpu(1)]
+    with mx.cpu():
+        for zero in (0, 1):
+            net = gf_mlp(mx, 3, ctx=ctxs)
+            tr = mx.gluon.Trainer(net.collect_params(), 'sgd',
+                                  dict(GF_OPT_MOM))
+            fs = mx.gluon.fuse_step(net, mx.gluon.loss.
+                                    SoftmaxCrossEntropyLoss(), tr, zero=zero)
+            for x, y in zip(inp['X'][:3], inp['y'][:3]):
+                loss = fs(mx.nd.array(x), mx.nd.array(y))
+            _put(res, 'mlp_z%d' % zero, gf_pvals(net))
+            res['mlp_z%d_loss' % zero] = loss.asnumpy()
+            res['mlp_z%d_state_bytes' % zero] = \
+                tr._fused_updater.state_bytes_per_device()
+            res['mlp_z%d_dp' % zero] = fs._dp
+        # eager eval after the mesh steps, and set_data honoured
+        res['eval_shape'] = np.array(net(mx.nd.array(inp['X'][0])).shape)
+        w0 = net[0].weight
+        w0.set_data(mx.nd.zeros(w0.shape))
+        res['set_data_max'] = float(fs._gather_param(w0).abs().max())
+        fs(mx.nd.array(inp['X'][0]), mx.nd.array(inp['y'][0]))
+        # sparse tables striped over the two ranks, ZeRO 0 and 1
+        opt = {'learning_rate': 0.1, 'momentum': 0.9}
+        for zero in (0, 1):
+            net = sp_net(mx, True, ctxs=ctxs)
+            fs, tr = sp_train(mx, net, opt, inp['ids'][:3], inp['tg'][:3],
+                              zero=zero)
+            _put(res, 'sp_z%d' % zero, gf_pvals(net, fs))
+            table = next(p for p in tr._params if p.sparse_grad)
+            res['sp_z%d_rows' % zero] = fs._gather_param(table).shape[0]
+        # an elastic checkpoint of the striped tables at data 2, step 3
+        net = sp_net(mx, True, ctxs=ctxs)
+        mgr = elastic.CheckpointManager(os.path.join(tmp_path, 'port_ckpt'),
+                                        async_=False, every_n_steps=3)
+        fs, _ = sp_train(mx, net, opt, inp['ids'], inp['tg'], upto=3,
+                         checkpoint=mgr)
+        mgr.close()
+        # the JAX package's checkpoint (step 3) restored at data 2
+        net = sp_net(mx, True, seed=99, ctxs=ctxs)
+        mgr = elastic.CheckpointManager(os.path.join(tmp_path, 'jax_ckpt'),
+                                        async_=False)
+        fs, _ = sp_train(mx, net, opt, inp['ids'], inp['tg'], start=3,
+                         checkpoint=mgr)
+        res['jax_resume_step'] = mgr.last_resume.step
+        _put(res, 'from_jax', gf_pvals(net, fs))
+        mgr.close()
+        # a Module's sparse tables striped: one step, the full tables
+        mod = mf_module(mx, ctxs)
+        ex = mod._exec_group.executor
+        res['mf_rows'] = np.array([ex.arg_dict[n]._data.shape[0]
+                                   for n in sorted(mod._exec_group.
+                                                   sparse_tables)])
+        mf_step(mx, mod, inp)
+        args, _ = mod.get_params()
+        for k, v in args.items():
+            res['mf__' + k] = v.asnumpy()
+    _save(tmp_path, rank, res)
+
+
+MF_VOCABS, MF_RANK, MF_BATCH = (50, 20), 4, 16
+
+
+def mf_module(pkg, ctxs):
+    """A factorization Module: user . item through
+    LinearRegressionOutput, both tables sparse_grad, seeded."""
+    s = pkg.sym
+    u = s.Embedding(s.Variable('user'), input_dim=MF_VOCABS[0],
+                    output_dim=MF_RANK, sparse_grad=True, name='user_embed')
+    v = s.Embedding(s.Variable('item'), input_dim=MF_VOCABS[1],
+                    output_dim=MF_RANK, sparse_grad=True, name='item_embed')
+    net = s.LinearRegressionOutput(s.sum(u * v, axis=1), s.Variable('score'),
+                                   name='lro')
+    mod = pkg.mod.Module(net, data_names=['user', 'item'],
+                         label_names=['score'], context=ctxs)
+    mod.bind(data_shapes=[pkg.io.DataDesc('user', (MF_BATCH,)),
+                          pkg.io.DataDesc('item', (MF_BATCH,))],
+             label_shapes=[pkg.io.DataDesc('score', (MF_BATCH,))])
+    rs = np.random.RandomState(1)
+    mod.init_params(initializer=None, arg_params={
+        'user_embed_weight': pkg.nd.array(
+            rs.randn(MF_VOCABS[0], MF_RANK).astype(np.float32)),
+        'item_embed_weight': pkg.nd.array(
+            rs.randn(MF_VOCABS[1], MF_RANK).astype(np.float32))})
+    mod.init_optimizer(optimizer='sgd', optimizer_params=dict(
+        learning_rate=0.5, momentum=0.9))
+    return mod
+
+
+def mf_step(pkg, mod, inp):
+    b = pkg.io.DataBatch(data=[pkg.nd.array(inp['mf_user']),
+                               pkg.nd.array(inp['mf_item'])],
+                         label=[pkg.nd.array(inp['mf_score'])])
+    mod.forward_backward(b)
+    mod.update()
 
 
 def launch_worker(out_dir):

@@ -214,9 +214,17 @@ def test_constraint_forms_without_a_mesh_are_the_identity(coll_run):
                lambda: collectives.expert_shard(x),
                lambda: collectives.replicate_constraint(x)):
         assert fn() is x
-    for name in ('row', 'expert', 'replicate'):
+    for name in ('expert', 'replicate'):
         msg = str(coll_run[0]['refusal_' + name])
         assert 'Queue A 6)' in msg and 'item 6' in msg
+    # over a mesh the row form is a sparse table's stripe: 10 rows over
+    # the data axis, ceil(10 / n) a rank, the last rank's short
+    table = np.arange(20.0).reshape(10, 2)
+    n = len(coll_run)
+    s = -(-10 // n)
+    for r, res in enumerate(coll_run):
+        np.testing.assert_array_equal(res['row_stripe'],
+                                      table[r * s:(r + 1) * s])
     with pytest.raises(ValueError, match='use_mesh'):
         collectives.allreduce_sum(x, 'data')
     with pytest.raises(MXNetError, match='Queue A 6\\)'):

@@ -355,9 +355,31 @@ def test_local_store_without_updater_and_its_states(tmp_path):
 
 @pytest.mark.parametrize('what', ['mark_sparse'])
 def test_item_6_parts_raise(what, monkeypatch):
-    kv = mx.kv.create('local')
-    with pytest.raises(mx.MXNetError, match='Queue A 6\\)'):
-        kv.mark_sparse('emb', 100)
+    """A marked sparse key's COO gradient applies rows-only, as in the
+    JAX package's store: twice with momentum 0.9 and wd, equal tables,
+    and the untouched rows (weight and lazy momentum) unchanged."""
+    rng = np.random.RandomState(4)
+    w0 = rng.randn(12, 3).astype(np.float32)
+    coo = [(np.array([1, 4, 7]), rng.randn(3, 3).astype(np.float32)),
+           (np.array([4, 11]), rng.randn(2, 3).astype(np.float32))]
+    out = []
+    for pkg, ctx in ((jmx, jmx.cpu()), (mx, mx.cpu())):
+        with ctx:
+            kv = pkg.kvstore.create('local')
+            kv.init('emb', pkg.nd.array(w0))
+            kv.set_optimizer(pkg.optimizer.SGD(learning_rate=0.1,
+                                               momentum=0.9, wd=0.01))
+            kv.mark_sparse('emb', 12)
+            assert kv._sparse_meta == {'emb': 12}
+            for uids, rows in coo:
+                kv._apply_sparse_coo('emb', uids, rows)
+            o = pkg.nd.zeros((12, 3))
+            kv.pull('emb', out=o)
+            out.append(o.asnumpy())
+    np.testing.assert_allclose(out[1], out[0], rtol=1e-6, atol=1e-6)
+    untouched = [0, 2, 3, 5, 6, 8, 9, 10]
+    np.testing.assert_array_equal(out[1][untouched], w0[untouched])
+    assert np.abs(out[1][[1, 4, 7, 11]] - w0[[1, 4, 7, 11]]).min() > 0
 
 
 def test_zero_stage_facade(monkeypatch):

@@ -216,15 +216,38 @@ def test_optimizer_op_matches_jax(op):
 
 
 def test_sparse_optimizer_ops_are_registered_and_raise():
-    with mx.cpu():
-        w = mx.nd.zeros((4, 2))
-        for op in ('sparse_sgd_update', 'sparse_sgd_mom_update'):
-            assert mx.ops.exists(op)
-            args = [w, mx.nd.zeros((2,)), mx.nd.zeros((2, 2))]
-            if op == 'sparse_sgd_mom_update':
-                args.append(mx.nd.zeros((4, 2)))
-            with pytest.raises(mx.MXNetError, match='Queue A 6'):
-                getattr(mx.nd, op)(*args, lr=0.1)
+    """The rows-only ops (parallel/embedding) against the JAX package's
+    over 3 calls, padded ids (== vocab) included: equal weights and
+    momenta, and the rows no id touched unchanged. A call with ids past
+    the table raises nothing: the padding is inert."""
+    V, D = 10, 4
+    rng = np.random.RandomState(0)
+    w0 = rng.randn(V, D).astype(np.float32)
+    uids = np.array([1, 3, 5, V - 1, V, V], dtype=np.int32)
+    rows = [rng.randn(6, D).astype(np.float32) for _ in range(3)]
+    outs = {}
+    for name, pkg, ctx in (('jax', jmx, jmx.cpu()), ('port', mx, mx.cpu())):
+        with ctx:
+            w = pkg.nd.array(w0.copy())
+            wm = pkg.nd.array(w0.copy())
+            m = pkg.nd.zeros((V, D))
+            for r in rows:
+                pkg.nd.sparse_sgd_update(w, pkg.nd.array(uids),
+                                         pkg.nd.array(r), out=w, lr=0.1,
+                                         wd=0.01, rescale_grad=0.5)
+                pkg.nd.sparse_sgd_mom_update(wm, pkg.nd.array(uids),
+                                             pkg.nd.array(r), m, out=wm,
+                                             lr=0.1, wd=0.01, momentum=0.9)
+            outs[name] = (w.asnumpy(), wm.asnumpy(), m.asnumpy())
+    for a, b in zip(outs['port'], outs['jax']):
+        np.testing.assert_allclose(a, b, **F32)
+    assert mx.ops.exists('sparse_sgd_mom_update')
+    w, wm, m = outs['port']
+    untouched = [0, 2, 4, 6, 7, 8]
+    np.testing.assert_array_equal(w[untouched], w0[untouched])
+    np.testing.assert_array_equal(wm[untouched], w0[untouched])
+    np.testing.assert_array_equal(m[untouched], 0.0)
+    assert np.abs(w[V - 1] - w0[V - 1]).max() > 0
 
 
 # -- FusedSGD ---------------------------------------------------------------

@@ -599,14 +599,22 @@ def _deferred(case, tmp_path, monkeypatch):
         pred.serve(max_batch=2)
 
 
-DEFERRED = {'hot_rows': '6', 'hot_rows_env': '6'}
+DEFERRED = {'hot_rows': 'no cacheable Embedding',
+            'hot_rows_env': 'no cacheable Embedding'}
 
 
 @pytest.mark.parametrize('case', sorted(DEFERRED))
 def test_deferred_argument_raises_naming_its_roadmap_item(case, tmp_path,
                                                           monkeypatch):
-    with pytest.raises(MXNetError, match='Queue A %s\\)' % DEFERRED[case]):
+    """hot_rows (argument or MXNET_TPU_SERVE_HOT_ROWS) is ported: on a
+    model with no Embedding table it refuses as the JAX package's engine
+    does, with the same words."""
+    with pytest.raises(MXNetError, match=DEFERRED[case]):
         _deferred(case, tmp_path, monkeypatch)
+    if case == 'hot_rows':
+        from mxnet_tpu.serving import InferenceEngine as JEngine
+        with pytest.raises(Exception, match=DEFERRED[case]):
+            JEngine(_jax_predictor(), max_batch=2, hot_rows=8)
 
 
 def _checkpoint(tmp_path, params):
