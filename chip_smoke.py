@@ -28,6 +28,9 @@
                                                # mesh, ZeRO-1
     python3 chip_smoke.py --phases 30,31       # build, the fused Gluon
                                                # step, sparse tables
+    python3 chip_smoke.py --phases 32,33,34    # build, the LM in two
+                                               # pipeline stages, the
+                                               # pipelined trainers, MoE
     python3 chip_smoke.py --mutants            # phases 2, 4 and 6 against
                                                # broken kernels
 
@@ -458,12 +461,49 @@ Phases, each of which exits non-zero on failure:
    symbol from pinned host tables, bit-equal to the full-table engine.
    Printed: the step ms, the touched share, the ranks' table shares, the
    hot-row hits, misses and device table bytes against the full tables'.
+32. pipe: the bf16 GPT-2-medium LM in two pipeline stages (blocks 0-11
+   and 12-23), two launcher workers sharing the card over gloo on a
+   {'data': 1, 'pipe': 2} mesh, parallel/pipeline.make_pipe_step_fn
+   over transformer.pipe_lm_fns: PIPE_STEPS steps of BATCH x SEQ in
+   PIPE_MICRO microbatches, SGD momentum 0.9. Gated by pipe_gate: each
+   rank launches each flash kernel PIPE_STAGE_LAUNCHES (48) times a step
+   (no bubble tick runs anything); the bytes a rank stages a step equal
+   pipe_staged_bytes' count from the code; the bubble the engine
+   recorded from its stage calls 0.2 and the parameter bytes of the
+   leaves it returned below world 1's; the first loss within LM_NLL_ATOL
+   of the tied one-device LM's, every loss of the one-device steps' of
+   the same untied function, their updates within PIPE_UPDATE_RTOL
+   (updates_within, PIPE_STEPS roundings), and a float32 run at
+   FP32_LAYERS layers within MESH_UPDATE_RTOL; each fault of
+   PIPE_PLANTS (microbatch 1 dropped, counted twice, the stem and head
+   gradients not summed over 'pipe') planted into the float32 run fails
+   that gate against the clean run, and microbatch 1 dropped from the
+   bf16 run fails the bf16 gate; the flash forward and backward kernels
+   at a microbatch's shape (2, 16, 1024, 64), bf16 and float32, within
+   phases 2 and 4's tolerances of their plain versions. Printed: a
+   rank's step ms and the card's busy share.
+33. pipe4: four launcher workers on a {'data': 2, 'pipe': 2} mesh train
+   a float32 net of a Dense stem, 8 identical Dense(1024, tanh) and a
+   head by fuse_step(pipeline=(2, 4)), with and without ZeRO-1, and its
+   symbol by Module.fit(pipeline=(2, 4)). Gated by pipe4_gate: each
+   within atol 3e-6 / rtol 1e-4 of the one-device step, ZeRO-1's state
+   half the replicated arm's, a re-created trainer the same bits with
+   the same computation fingerprint and step signatures.
+34. moe: gluon.nn.MoE at Switch-Base-8's widths (d_model 768, d_ff
+   3072, 8 experts, capacity factor 1.25) between two Dense layers by
+   fuse_step on 4096 tokens a step, at world 1 twice and over a data
+   mesh of phase 32's two ranks (4 experts each), and one
+   make_moe_train_step over an 'expert' axis of 2. Gated by moe_gate:
+   routed + dropped tokens are the tokens fed, the per-expert tables and
+   the blocks' counts equal the profiler's, the ranks within atol 3e-6 /
+   rtol 1e-4 of world 1, two runs bit-equal.
 
 The phases do not run in their numbers' order. After phase 20 the
-launches of phases 21, 22 (its three arms) and 31 start together and
-share the card, and phases 7 and 14-17, which gate no time, run beside
-them; phase 29's launch starts as soon as phase 21's has ended, and
-phase 23 once every launch has ended. Their host times and the ranks' step times
+launches of phases 21, 22 (its three arms), 31 and 33 start together
+and share the card, and phases 7 and 14-17, which gate no time, run
+beside them; phase 29's launch starts as soon as phase 21's has ended,
+phase 32's (phase 34's ranks too) as soon as phase 31's has, and phase
+23 once every launch has ended. Their host times and the ranks' step times
 are taken beside each other's. Phase 25's runner and C programs run
 beside its export, and the SASS is dumped during phases 2-3. Each
 phase's host seconds are printed as it ends, and all of them on a
@@ -755,7 +795,7 @@ CONV_SM90_MUTANTS = {
                          ': ' + _TRUNCATE + 'v[0], v[1]));'),
 }
 
-ALL_PHASES = frozenset(range(2, 32))
+ALL_PHASES = frozenset(range(2, 35))
 # phase 7: the imperative NDArray path's size (n x n inputs)
 ND_SIZE = 1024
 ND_HOST_CALLS = 2000
@@ -9213,13 +9253,14 @@ def leaves_within(torch, got, ref, rtol, atol):
                 rtol=rtol, atol=atol)
 
 
-def updates_within(torch, new, old, ref, rtol):
+def updates_within(torch, new, old, ref, rtol, roundings=1):
     """Leaf by leaf, the update new - old against the reference update
-    ref - old: |(new - old) - (ref - old)| <= rtol max|ref - old| + eps
-    |old| (eps of old's dtype: one rounding of the weight). Returns (all
-    within, the largest error over its bound, the largest error as a
-    share of its leaf's largest reference update, the smallest such
-    largest update, rtol)."""
+    ref - old: |(new - old) - (ref - old)| <= rtol max|ref - old| +
+    roundings eps |old| (eps of old's dtype: one rounding of the weight,
+    once a step where `roundings` steps may each round it apart).
+    Returns (all within, the largest error over its bound, the largest
+    error as a share of its leaf's largest reference update, the
+    smallest such largest update, rtol)."""
     worst = worst_rel = 0.0
     smallest = math.inf
     for n, o, r in zip(new, old, ref):
@@ -9228,7 +9269,7 @@ def updates_within(torch, new, old, ref, rtol):
         want = r - o
         err = ((n - o) - want).abs()
         top = float(want.abs().max())
-        bound = rtol * top + eps * o.abs()
+        bound = rtol * top + roundings * eps * o.abs()
         worst = max(worst, float((err / bound.clamp(min=1e-30)).max()))
         worst_rel = max(worst_rel, float(err.max()) / max(top, 1e-30))
         smallest = min(smallest, top)
@@ -10814,6 +10855,960 @@ def sparse_phase(torch, mx, root, smi, ctx=None, started=None):
     return run
 
 
+# ---------------------------------------------------------------------------
+# Phases 32-34: pipeline and expert parallelism
+# ---------------------------------------------------------------------------
+
+PIPE_RANKS = 2               # {'data': 1, 'pipe': 2}: two processes, one card
+PIPE_MICRO = 4               # microbatches of BATCH // PIPE_MICRO = 2 rows
+PIPE_STEPS = 2
+PIPE_MOMENTUM = 0.9
+PIPE_SEED = SEED + 3200
+# The flash kernels' launches a rank and step: each stage runs its
+# GPT2_MEDIUM['layers'] / PIPE_RANKS blocks once a microbatch forward and
+# once backward, and nothing on the bubble ticks (parallel/pipeline.py).
+PIPE_STAGE_LAUNCHES = GPT2_MEDIUM['layers'] // PIPE_RANKS * PIPE_MICRO
+# Phase 32's bf16 updates after PIPE_STEPS steps against the one-device
+# steps of the same untied function (updates_within, PIPE_STEPS roundings
+# of the weight). Each microbatch's weight gradient is rounded to bf16
+# (2^-9 of itself) before the drain sums the four in float32, where the
+# whole-batch backward rounds once, and the 2-row and 8-row products
+# round their bf16 activations apart: a few 2^-9 of a leaf's update a
+# step, and with momentum 0.9 the second update carries the first's;
+# 2^-6 of the leaf's largest update covers that. Each step may also
+# round a weight one bf16 step apart, hence the roundings term (2^-6 of
+# |w| at two steps), larger than most bf16 updates here; the elements
+# near zero still carry the rtol term alone, so microbatch 1 dropped
+# from the bf16 run must fail this gate against the clean run. The
+# float32 run (FP32_LAYERS layers at full width, the same engine) is
+# gated at MESH_UPDATE_RTOL, as phases 26-27's are, and each fault of
+# PIPE_PLANTS planted into it must fail that gate against the clean run.
+PIPE_UPDATE_RTOL = 2.0 ** -6
+
+# faults planted into phase 32's float32 run, each on microbatch 1 or on
+# the 'pipe' sums: its gradient zeroed into the stages and the stem, its
+# gradient counted twice (both with the forward unchanged bit for bit),
+# the stem and head gradients not summed over 'pipe'
+PIPE_PLANTS = ('drop', 'double', 'unsummed')
+# the flash kernels at the shapes phase 32's microbatches give them
+PIPE_KERNEL_SHAPE = (BATCH // PIPE_MICRO, GPT2_MEDIUM['heads'], SEQ,
+                     GPT2_MEDIUM['dim'] // GPT2_MEDIUM['heads'])
+PIPE_KERNEL_CHECKS = [(way, dtype) for way in ('forward', 'backward')
+                      for dtype in ('bfloat16', 'float32')]
+
+PG = dict(feat=768, units=1024, body=8, classes=16, batch=256, steps=3)
+PG_PIPE = (2, 4)             # stages, microbatches: {'data': 2, 'pipe': 2}
+PG_RANKS = 4
+PG_OPT = dict(learning_rate=0.1, momentum=0.9, wd=1e-4)
+PG_SEED = SEED + 3300
+PG_TOL = dict(atol=3e-6, rtol=1e-4)      # the dryrun's (__graft_entry__.py)
+
+# google/switch-base-8's published config (d_model, d_ff, num_experts);
+# capacity factor 1.25 as in Fedus et al.'s training runs
+SWITCH = dict(d_model=768, d_ff=3072, experts=8, capacity_factor=1.25)
+MOE_TOKENS = 4096            # a step's tokens: C = ceil(1.25 * 4096 / 8)
+MOE_CLASSES = 16
+MOE_STEPS = 2
+MOE_OPT = dict(learning_rate=0.05, momentum=0.9)
+MOE_SEED = SEED + 3400
+MOE_TOL = dict(atol=3e-6, rtol=1e-4)     # tests/test_pipeline_train.py's
+
+
+def pipe_staged_bytes(cfg):
+    """The bytes a phase-32 rank stages through host memory a step, from
+    the code: each of the PIPE_MICRO activations and cotangents goes out
+    on one rank and in on the other (a (2, SEQ, dim) bf16 tensor each
+    way, once each end), the stem's and head's gradients are summed over
+    'pipe' (embed, ln_f, head_w in bf16: out and back), and the loss (a
+    float32 scalar) is broadcast from the last stage (out and back)."""
+    act = (BATCH // PIPE_MICRO) * SEQ * cfg['dim'] * 2
+    hops = 2 * PIPE_MICRO * act
+    edges = 2 * 2 * (2 * cfg['vocab'] * cfg['dim'] + cfg['dim'])
+    return hops + edges + 2 * 4
+
+
+def pipe_lm_init(torch, tfm, mesh, cfg, dtype, seed):
+    """This rank's leaves of the LM of `cfg` in PIPE_RANKS stages from
+    `seed`'s weights in `dtype`: (stage leaves with their stage dim of 1,
+    stem leaves, head leaves)."""
+    params = tfm.params_from_jax(seeded_tree(cfg, seed), dtype=dtype,
+                                 device=mesh.device)
+    stages, stem, head = tfm.pipe_lm_leaves(params, PIPE_RANKS)
+    return ([w[None].clone() for w in stages[mesh.axis_index('pipe')]],
+            stem, head)
+
+
+@contextlib.contextmanager
+def pipe_unsummed(collectives):
+    """The 'unsummed' plant: sums over 'pipe' return this rank's own
+    value (the engine's stem and head gradient sums)."""
+    real = collectives._all_reduce
+
+    def local(x, mesh, axis):
+        return x if axis == 'pipe' else real(x, mesh, axis)
+
+    collectives._all_reduce = local
+    try:
+        yield
+    finally:
+        collectives._all_reduce = real
+
+
+def pipe_planted_fns(torch, fns, plant, rows=BATCH // PIPE_MICRO):
+    """(stem_fn, stage_fn, head_fn) with `plant` ('drop' or 'double', on
+    microbatch 1's rows of the head's input, microbatches of `rows`
+    rows) planted in the head."""
+    stem_fn, stage_fn, head_fn = fns
+    lo, hi = rows, 2 * rows
+
+    def planted(ws, acts, label, rng):
+        part = acts[lo:hi]
+        part = part.detach() if plant == 'drop' else \
+            part * 2 - part.detach()
+        return head_fn(ws, torch.cat([acts[:lo], part, acts[hi:]]), label,
+                       rng)
+
+    return stem_fn, stage_fn, planted
+
+
+def pipe_lm_run(torch, pp, tfm, cuda_ops, profiler, mesh, cfg, init,
+                tokens, targets, plant=None):
+    """PIPE_STEPS steps of the LM of `cfg` in PIPE_RANKS stages
+    (parallel/pipeline.make_pipe_step_fn over transformer.pipe_lm_fns)
+    from this rank's leaves `init` (pipe_lm_init), counted and timed,
+    with a fault of PIPE_PLANTS planted when `plant`: (this rank's row,
+    its final leaves [stage..., stem..., head...], a function running one
+    more step). The row's pipe counters are what the engine recorded."""
+    from mxnet_tpu_torch.parallel import collectives
+    stage_ws, stem, head = ([w.clone() for w in ws] for ws in init)
+    hyper = dict(momentum=PIPE_MOMENTUM, rescale=1.0, clip=None,
+                 nesterov=False)
+    fns = tfm.pipe_lm_fns(cfg, PIPE_RANKS)
+    if plant in ('drop', 'double'):
+        fns = pipe_planted_fns(torch, fns, plant)
+    step = pp.make_pipe_step_fn(mesh, PIPE_RANKS, PIPE_MICRO, *fns, hyper)
+    opt = pp.init_pipe_opt_state(mesh, None, PIPE_RANKS, stage_ws, stem,
+                                 head)
+    n = len(stage_ws) + len(stem) + len(head)
+    lrs, wds = [LR] * n, [0.0] * n
+    profiler.clear()
+    stats = profiler.mesh_stats()
+    rng, losses, times, per_step = 0, [], [], []
+    with pipe_unsummed(collectives) if plant == 'unsummed' else \
+            contextlib.nullcontext():
+        for _ in range(PIPE_STEPS):
+            counts = read_counts(cuda_ops)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            leaves, stage_ws, stem, head, opt, rng = step(
+                stage_ws, stem, head, opt, rng, tokens, targets, lrs, wds)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            per_step.append([a - b for a, b in zip(read_counts(cuda_ops),
+                                                    counts)])
+            losses.append(float(leaves[0].reshape(-1)[0]))
+    after = profiler.mesh_stats()
+    pipe = profiler.pipe_stats()
+    row = dict(launches_per_step=per_step, step_ms=times, loss=losses,
+               pipe=pipe, param_bytes=pipe['pipe_param_bytes_per_device'],
+               edge_digest=dp_digest(torch, {str(i): w for i, w in
+                                             enumerate(stem + head)}),
+               **{k + '_per_step': (after['mesh_' + k] - stats['mesh_' + k])
+                  / PIPE_STEPS for k in ('collectives', 'payload_bytes',
+                                         'staged_bytes')})
+    final = [w[0] for w in stage_ws] + stem + head
+
+    def one_more():
+        step(stage_ws, stem, head, opt, rng, tokens, targets, lrs, wds)
+
+    return row, final, one_more
+
+
+def pipe_leaves(init):
+    """pipe_lm_init's leaves as pipe_lm_run's final ones are listed."""
+    return [w[0] for w in init[0]] + list(init[1]) + list(init[2])
+
+
+def pipe_save(torch, path, final, n_stage, rank):
+    """A rank's final leaves for the main process: its stage's, and rank
+    0's stem and head."""
+    torch.save({'stage': [w.cpu() for w in final[:n_stage]],
+                'edge': [w.cpu() for w in final[n_stage:]] if rank == 0
+                else []}, str(path))
+
+
+def pipe_kernel_checks(torch, cuda_ops):
+    """The flash kernels at PIPE_KERNEL_SHAPE against their plain
+    versions (phase 2's and 4's checks and tolerances, which fail the
+    run on a disagreement): one row per PIPE_KERNEL_CHECKS entry."""
+    out = []
+    for way, dtype_name in PIPE_KERNEL_CHECKS:
+        dtype = getattr(torch, dtype_name)
+        name = 'pipe_micro_%s_%s' % (way, dtype_name)
+        if way == 'forward':
+            r = kernel_case(torch, cuda_ops, name, PIPE_KERNEL_SHAPE, SEQ,
+                            dtype, True, 2)
+            err = r['max_abs_err']
+        else:
+            r = bwd_case(torch, cuda_ops, name, PIPE_KERNEL_SHAPE, SEQ,
+                         dtype, True, False, 2)
+            err = max(e['max_abs_err'] for e in r['errors'].values())
+        out.append(dict(way=way, dtype=dtype_name, q=r['q'],
+                        max_abs_err=err, tol=r['tol'],
+                        same_bits_twice=r['same_bits_twice']))
+    return out
+
+
+def pipe_worker(out_dir):
+    """One rank of phase 32 and the data-mesh part of phase 34, run by the
+    port's launcher with MXNET_TPU_DIST_JAX=1 (gloo: the two share the
+    card). Phase 32: the bf16 GPT-2-medium LM in two pipeline stages,
+    PIPE_STEPS steps of BATCH x SEQ in PIPE_MICRO microbatches, counted,
+    timed, saved and profiled, then again with microbatch 1 dropped
+    (its updates held against the clean run's); the float32 LM at
+    FP32_LAYERS layers, clean and with each of PIPE_PLANTS; the flash
+    kernels at the microbatches' shape against their plain versions.
+    Phase 34: gluon.nn.MoE at Switch-Base-8's widths through fuse_step
+    over a data mesh of the two ranks, each computing 4 experts, then one
+    make_moe_train_step over an 'expert' axis of 2."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    root = Path(__file__).resolve().parent
+    sys.path.insert(0, str(root))
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import _build, cuda_ops, dist, profiler
+    from mxnet_tpu_torch.parallel import collectives
+    from mxnet_tpu_torch.parallel import mesh as pmesh
+    from mxnet_tpu_torch.parallel import moe as pmoe
+    from mxnet_tpu_torch.parallel import pipeline as pp
+    from mxnet_tpu_torch.parallel import transformer as tfm
+    torch.zeros(1, device='cuda')
+    _build.library()
+    rt = dist.initialize()
+    rank = rt.rank
+    out_dir = Path(out_dir)
+    mesh = pp.make_pipe_mesh(PIPE_RANKS, PIPE_RANKS)
+    dev = mesh.device
+    cfg = tfm.lm_config(use_flash=True, **GPT2_MEDIUM)
+    tokens, targets = lm_batch(torch, cfg['vocab'], dev)
+    init = pipe_lm_init(torch, tfm, mesh, cfg, torch.bfloat16, PIPE_SEED)
+    reset_counts(cuda_ops)
+    row, final, one_more = pipe_lm_run(
+        torch, pp, tfm, cuda_ops, profiler, mesh, cfg, init, tokens,
+        targets)
+    row.update(rank=rank, stage=mesh.axis_index('pipe'),
+               backend=mesh.backend, staged=mesh.staged, device=str(dev),
+               launches=list(read_counts(cuda_ops)))
+    pipe_save(torch, out_dir / ('pipe_r%d.pt' % rank), final,
+              len(init[0]), rank)
+    # the busy share: one more step under torch.profiler (not saved)
+    events = device_events(torch, one_more)
+    row['profiled_device_ms'] = sum(device_us(e) for e in events) / 1e3
+    row['peak_bytes'] = torch.cuda.max_memory_allocated()
+    del one_more, events
+    # microbatch 1 dropped from the bf16 run (pipe_gate: the bf16 update
+    # gate must fail it)
+    _, planted, _ = pipe_lm_run(torch, pp, tfm, cuda_ops, profiler, mesh,
+                                cfg, init, tokens, targets, plant='drop')
+    row['bf16_planted_drop'] = updates_within(
+        torch, planted, pipe_leaves(init), final, PIPE_UPDATE_RTOL,
+        roundings=PIPE_STEPS)
+    del init, final, planted
+    torch.cuda.empty_cache()
+    # float32 at full width, FP32_LAYERS layers, clean and planted
+    cfg32 = tfm.lm_config(use_flash=True,
+                          **dict(GPT2_MEDIUM, layers=FP32_LAYERS))
+    init = pipe_lm_init(torch, tfm, mesh, cfg32, torch.float32,
+                        PIPE_SEED + 1)
+    f32, final, _ = pipe_lm_run(torch, pp, tfm, cuda_ops, profiler, mesh,
+                                cfg32, init, tokens, targets)
+    row['fp32'] = {k: f32[k] for k in ('launches_per_step', 'loss',
+                                       'step_ms', 'edge_digest')}
+    pipe_save(torch, out_dir / ('pipe32_r%d.pt' % rank), final,
+              len(init[0]), rank)
+    row['fp32']['planted'] = {}
+    for plant in PIPE_PLANTS:
+        _, planted, _ = pipe_lm_run(torch, pp, tfm, cuda_ops, profiler,
+                                    mesh, cfg32, init, tokens, targets,
+                                    plant=plant)
+        row['fp32']['planted'][plant] = updates_within(
+            torch, planted, pipe_leaves(init), final, MESH_UPDATE_RTOL)
+        del planted
+    del init, final
+    torch.cuda.empty_cache()
+    row['kernel_checks'] = pipe_kernel_checks(torch, cuda_ops)
+    torch.cuda.empty_cache()
+
+    # phase 34 over a data mesh of the two ranks
+    profiler.clear()
+    profiler.profiler_set_state('run')
+    try:
+        net, moe_losses, moe_ms = moe_train(torch, mx,
+                                            [mx.cpu(0), mx.cpu(1)])
+    finally:
+        profiler.profiler_set_state('stop')
+    row['moe'] = moe_counters(profiler, net)
+    row['moe'].update(step_ms=moe_ms, loss=moe_losses)
+    with pmesh.data_mesh_scope(pmesh.world_data_mesh()):
+        row['moe']['experts'] = list(collectives.expert_range(
+            SWITCH['experts']))
+    if rank == 0:
+        torch.save(moe_values(net), str(out_dir / 'moe.pt'))
+    del net
+    torch.cuda.empty_cache()
+    emesh = pmesh.make_mesh({'expert': PIPE_RANKS})
+    D, H, E = SWITCH['d_model'], SWITCH['d_ff'], SWITCH['experts']
+    tok = MOE_TOKENS // PIPE_RANKS
+    cap = pmoe.capacity_for(tok, E, SWITCH['capacity_factor'])
+    full = pmoe.init_moe_params(D, H, E, torch.Generator().manual_seed(
+        MOE_SEED + 1), device=dev)
+    eparams = pmoe.place_moe_params(full, emesh)
+    del full
+    gen = np.random.default_rng(MOE_SEED + 2)
+    x = torch.from_numpy(gen.standard_normal((MOE_TOKENS, D),
+                                             dtype=np.float32)).to(dev)
+    estep = pmoe.make_moe_train_step(emesh, D, H, E, cap)
+    t0 = time.perf_counter()
+    eloss, eparams = estep(eparams, x, torch.tanh(x) * 0.5)
+    torch.cuda.synchronize()
+    row['moe']['expert_step'] = dict(
+        loss=float(eloss), ms=(time.perf_counter() - t0) * 1e3,
+        capacity=cap, local_experts=int(eparams['w1'].shape[0]),
+        finite=all(bool(torch.isfinite(v).all())
+                   for v in eparams.values()))
+    with open(out_dir / ('rank%d.json' % rank), 'w') as f:
+        json.dump(row, f)
+    dist.shutdown()
+
+
+def pipe_start(root):
+    """Phase 32's launch (phase 34's ranks too), started: (its directory,
+    the Launch)."""
+    out = fresh_dir(root, 32)
+    return out, start_launch(root, out, 'pipe', 'pipe', PIPE_RANKS, 0,
+                             env={'MXNET_TPU_DIST_JAX': '1'})
+
+
+def pipe_reference(torch, tfm, cfg, dtype, seed, dev, tokens, targets,
+                   tied=True):
+    """The one-device references of phase 32 from `seed`'s weights: the
+    tied TransformerLM's loss (when `tied`), then PIPE_STEPS steps of the
+    same untied function as the pipeline's (pipe_lm_fns with one stage,
+    the whole batch, plain autograd, sgd_update_math): (tied loss,
+    losses, initial leaves, final leaves), leaves in the pipeline's order
+    [stage 0, stage 1, embed, ln_f, head_w]."""
+    from mxnet_tpu_torch.optimizer import sgd_update_math
+    params = tfm.params_from_jax(seeded_tree(cfg, seed), dtype=dtype,
+                                 device=dev)
+    tied_loss = None
+    if tied:
+        model = tfm.TransformerLM(cfg, params)
+        with torch.no_grad():
+            tied_loss = float(model.loss(tokens, targets))
+        del model
+    stages, stem, head = tfm.pipe_lm_leaves(params, PIPE_RANKS)
+    old = [w for st in stages for w in st] + stem + head
+    del params, stages
+    stem_fn, stage_fn, head_fn = tfm.pipe_lm_fns(cfg, 1)
+    ws = [w.clone() for w in old]
+    moms = [torch.zeros_like(w) for w in ws]
+    n = len(ws) - 3
+    losses = []
+    for _ in range(PIPE_STEPS):
+        leaves = [w.detach().requires_grad_() for w in ws]
+        x = stage_fn(leaves[:n], stem_fn(leaves[n:n + 1], tokens, 0), 0)
+        (loss,), total = head_fn(leaves[n + 1:], x, targets, 0)
+        grads = torch.autograd.grad(total, leaves)
+        losses.append(float(loss.detach()))
+        with torch.no_grad():
+            new = [sgd_update_math(w, g, m, LR, 0.0, momentum=PIPE_MOMENTUM)
+                   for w, g, m in zip(leaves, grads, moms)]
+        ws = [w.detach() for w, _ in new]
+        moms = [m for _, m in new]
+        del leaves, grads, x, total, new
+    return tied_loss, losses, old, ws
+
+
+def pipe_gate(rows, cfg, ref):
+    """What is wrong with phase 32's ranks (empty when nothing)."""
+    bad = []
+    want = [PIPE_STAGE_LAUNCHES] * 3
+    staged = pipe_staged_bytes(cfg)
+    for row in rows:
+        r = row['rank']
+        if (row['backend'], row['staged']) != ('gloo', True):
+            bad.append('rank %d: backend %s, staged %s'
+                       % (r, row['backend'], row['staged']))
+        if row['launches_per_step'] != [want] * PIPE_STEPS:
+            bad.append('rank %d: launches (fwd, dK/dV, dQ) %s, expected %s '
+                       'a step' % (r, row['launches_per_step'], want))
+        if row['staged_bytes_per_step'] != staged:
+            bad.append('rank %d: %s bytes staged a step, the code counts %d'
+                       % (r, row['staged_bytes_per_step'], staged))
+        if abs(row['pipe']['pipe_bubble_frac'] - 0.2) > 1e-12 or \
+                row['pipe']['pipe_steps'] != PIPE_STEPS:
+            bad.append('rank %d: pipe_stats %s' % (r, row['pipe']))
+        if not row['param_bytes'] < ref['world1_param_bytes']:
+            bad.append('rank %d: %d parameter bytes, world 1 %d'
+                       % (r, row['param_bytes'], ref['world1_param_bytes']))
+        if row['loss'] != rows[0]['loss']:
+            bad.append('rank %d: losses %s, rank 0 %s'
+                       % (r, row['loss'], rows[0]['loss']))
+        if row['edge_digest'] != rows[0]['edge_digest']:
+            bad.append('rank %d: stem and head leaves differ from rank 0\'s'
+                       % r)
+        f32 = [[FP32_LAYERS // PIPE_RANKS * PIPE_MICRO] * 3] * PIPE_STEPS
+        if row['fp32']['launches_per_step'] != f32:
+            bad.append('rank %d: float32 launches %s, expected %s'
+                       % (r, row['fp32']['launches_per_step'], f32))
+        checked = [(c['way'], c['dtype']) for c in row['kernel_checks']
+                   if c['q'] == list(PIPE_KERNEL_SHAPE)]
+        if checked != PIPE_KERNEL_CHECKS:
+            bad.append('rank %d: the flash kernels were checked at %s, not '
+                       'at %s for each of %s' % (
+                           r, [(c['way'], c['dtype'], c['q'])
+                               for c in row['kernel_checks']],
+                           list(PIPE_KERNEL_SHAPE), PIPE_KERNEL_CHECKS))
+    if all(row.get('bf16_planted_drop', {}).get('ok', True)
+           for row in rows):
+        bad.append('the bf16 gate passed microbatch 1 dropped: %s'
+                   % [row.get('bf16_planted_drop') for row in rows])
+    for plant in PIPE_PLANTS:
+        caught = [not row['fp32']['planted'][plant]['ok'] for row in rows
+                  if plant in row['fp32'].get('planted', {})]
+        if len(caught) != len(rows) or not any(caught):
+            bad.append('the float32 gate passed the planted fault %r: %s'
+                       % (plant, [row['fp32'].get('planted', {}).get(plant)
+                                  for row in rows]))
+    if abs(rows[0]['loss'][0] - ref['tied_loss']) > LM_NLL_ATOL:
+        bad.append('first loss %.5f vs the tied one-device LM\'s %.5f (tol '
+                   '%g)' % (rows[0]['loss'][0], ref['tied_loss'],
+                            LM_NLL_ATOL))
+    for i, (a, b) in enumerate(zip(rows[0]['loss'], ref['losses'])):
+        if abs(a - b) > LM_NLL_ATOL:
+            bad.append('step %d loss %.5f vs the one-device step\'s %.5f'
+                       % (i, a, b))
+    if not ref['params']['ok']:
+        bad.append('bf16 updates off the one-device steps: %s'
+                   % ref['params'])
+    if not ref['fp32_updates']['ok']:
+        bad.append('float32 updates off the one-device steps: %s'
+                   % ref['fp32_updates'])
+    return bad
+
+
+def pipe_phase(torch, cuda_ops, tfm, root, smi, started=None,
+               device='cuda'):
+    """Phase 32: PIPE_RANKS launcher workers share the card on a {'data':
+    1, 'pipe': 2} mesh and train the bf16 GPT-2-medium LM, blocks 0-11 on
+    stage 0 and 12-23 on stage 1, on the flash kernels; gated by
+    pipe_gate against the one-device references (pipe_reference)."""
+    if started is None:
+        torch.cuda.empty_cache()
+        started = pipe_start(root)
+    out, launch = started
+    res, wall = launch.wait()
+    if res.returncode != 0:
+        fail('phase 32: the launcher exited %d (its log is named above)'
+             % res.returncode)
+    rows = []
+    for r in range(PIPE_RANKS):
+        with open(out / ('rank%d.json' % r)) as f:
+            rows.append(json.load(f))
+    cfg = tfm.lm_config(use_flash=True, **GPT2_MEDIUM)
+    tokens, targets = lm_batch(torch, cfg['vocab'], device)
+    torch.cuda.empty_cache()
+
+    def final(name):
+        saved = [torch.load(str(out / ('%s_r%d.pt' % (name, r))))
+                 for r in range(PIPE_RANKS)]
+        return [w.to(device) for sv in saved for w in sv['stage']] + \
+            [w.to(device) for w in saved[0]['edge']]
+
+    tied, ref_losses, old, ref_ws = pipe_reference(
+        torch, tfm, cfg, torch.bfloat16, PIPE_SEED, torch.device(device),
+        tokens, targets)
+    params = updates_within(torch, final('pipe'), old, ref_ws,
+                            PIPE_UPDATE_RTOL, roundings=PIPE_STEPS)
+    world1_param_bytes = sum(w.numel() * w.element_size() for w in old)
+    del old, ref_ws
+    torch.cuda.empty_cache()
+    cfg32 = tfm.lm_config(use_flash=True,
+                          **dict(GPT2_MEDIUM, layers=FP32_LAYERS))
+    _, losses32, old, ref_ws = pipe_reference(
+        torch, tfm, cfg32, torch.float32, PIPE_SEED + 1,
+        torch.device(device), tokens, targets, tied=False)
+    fp32_updates = updates_within(torch, final('pipe32'), old, ref_ws,
+                                  MESH_UPDATE_RTOL)
+    del old, ref_ws
+    torch.cuda.empty_cache()
+    ref = dict(tied_loss=tied, losses=ref_losses, params=params,
+               fp32_losses=losses32, fp32_updates=fp32_updates,
+               world1_param_bytes=world1_param_bytes)
+    # a worker's first step carries its process's warm-up (its first
+    # backward on the card, cuBLAS's handles, the gloo pairs' first use):
+    # the steps after it are the step time
+    step_ms = [median(row['step_ms'][1:]) for row in rows]
+    device_ms = [row['profiled_device_ms'] for row in rows]
+    busy = sum(device_ms) / max(step_ms)
+    run = dict(config='bf16 gpt2-medium widths, %d layers in %d stages of '
+               '%d blocks, batch %d x %d in %d microbatches, %d ranks on one '
+               'card over gloo' % (cfg['layers'], PIPE_RANKS,
+                                   cfg['layers'] // PIPE_RANKS, BATCH, SEQ,
+                                   PIPE_MICRO, PIPE_RANKS),
+               card=smi, wall_s=wall, step_ms_by_rank=step_ms,
+               first_step_ms_by_rank=[row['step_ms'][0] for row in rows],
+               profiled_device_ms_by_rank=device_ms,
+               device_busy_share=busy,
+               launches=[sum(row['launches'][i] for row in rows)
+                         for i in range(3)],
+               staged_bytes_per_step_by_rank=[row['staged_bytes_per_step']
+                                              for row in rows],
+               staged_bytes_counted=pipe_staged_bytes(cfg),
+               planted_fp32_over_bound={
+                   plant: [row['fp32']['planted'][plant]['max_err_over_bound']
+                           for row in rows] for plant in PIPE_PLANTS},
+               planted_bf16_drop_over_bound=[
+                   row['bf16_planted_drop']['max_err_over_bound']
+                   for row in rows],
+               reference=ref, ranks=rows)
+    print('pipe ' + json.dumps(run))
+    bad = pipe_gate(rows, cfg, ref)
+    if bad:
+        fail('phase 32: ' + '; '.join(bad))
+    print('pipe: %d ranks on one card (%s): step ms by rank %s (the first, '
+          'warm-up included, %s), %d flash '
+          'forward / dK-dV / dQ launches a rank and step, %d bytes staged a '
+          'rank and step (counted from the code), the card busy %.1f %% of a '
+          'step; losses %s against the one-device %s (tied first %.5f); '
+          'bf16 parameters %s; float32 updates within %.3g of their leaf\'s '
+          'largest (%.3g of the bound); planted faults at %s of the float32 '
+          'bound by rank, a dropped microbatch at %s of the bf16 one; the '
+          'flash kernels at %s checked in bf16 and float32; bubble %.2f, '
+          '%.1f MB of parameters a rank against %.1f (the engine\'s '
+          'record); phase took %.1f s' % (
+              PIPE_RANKS, smi, ['%.1f' % ms for ms in step_ms],
+              ['%.1f' % row['step_ms'][0] for row in rows],
+              PIPE_STAGE_LAUNCHES, rows[0]['staged_bytes_per_step'],
+              100 * busy, ['%.5f' % l for l in rows[0]['loss']],
+              ['%.5f' % l for l in ref_losses], tied,
+              'updates within %.3g of the bound' %
+              params['max_err_over_bound'],
+              fp32_updates['max_err_of_leaf_update'],
+              fp32_updates['max_err_over_bound'],
+              {k: ['%.3g' % v for v in vs] for k, vs in
+               run['planted_fp32_over_bound'].items()},
+              ['%.3g' % v for v in run['planted_bf16_drop_over_bound']],
+              list(PIPE_KERNEL_SHAPE),
+              rows[0]['pipe']['pipe_bubble_frac'],
+              max(row['param_bytes'] for row in rows) / 1e6,
+              world1_param_bytes / 1e6, wall))
+    return run
+
+
+def pg_seeded(mx, net, seed):
+    """A phase-33 net's parameters from numpy draws: weights uniform in
+    +-0.05, biases zero."""
+    rng = np.random.default_rng(seed)
+    for _, p in sorted(net.collect_params().items()):
+        v = np.zeros(p.shape, np.float32) if p.name.endswith('bias') else \
+            ((rng.random(p.shape, dtype=np.float32) - 0.5) * 0.1)
+        p.set_data(mx.nd.array(v))
+
+
+def pg_net(mx, ctx):
+    """A stem Dense, PG['body'] identical Dense(units, 'tanh') and a head
+    Dense, float32, seeded."""
+    nn = mx.gluon.nn
+    net = nn.HybridSequential()
+    with net.name_scope():
+        net.add(nn.Dense(PG['units'], activation='relu',
+                         in_units=PG['feat']))
+        for _ in range(PG['body']):
+            net.add(nn.Dense(PG['units'], activation='tanh',
+                             in_units=PG['units']))
+        net.add(nn.Dense(PG['classes'], in_units=PG['units']))
+    net.initialize(ctx=ctx)
+    pg_seeded(mx, net, PG_SEED)
+    return net
+
+
+def pg_batches():
+    rng = np.random.default_rng(PG_SEED + 1)
+    return [(rng.standard_normal((PG['batch'], PG['feat']),
+                                 dtype=np.float32),
+             rng.integers(0, PG['classes'], PG['batch']).astype(np.float32))
+            for _ in range(PG['steps'])]
+
+
+def pg_values(torch, net):
+    return [p.list_data()[0]._data.detach().float().cpu().clone()
+            for _, p in sorted(net.collect_params().items())]
+
+
+def pg_train(torch, mx, ctx, pipeline=None, zero=None):
+    """PG['steps'] fuse_step steps of pg_net over `ctx`: (net, step, step
+    ms)."""
+    net = pg_net(mx, ctx)
+    tr = mx.gluon.Trainer(net.collect_params(), 'sgd', dict(PG_OPT))
+    fs = mx.gluon.fuse_step(net, mx.gluon.loss.SoftmaxCrossEntropyLoss(),
+                            tr, pipeline=pipeline, zero=zero)
+    times = []
+    for x, y in pg_batches():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fs(mx.nd.array(x), mx.nd.array(y))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    if pipeline is not None:
+        fs.sync_params()
+    return net, fs, times
+
+
+def pg_symbol(mx):
+    S = mx.sym
+    h = S.Activation(S.FullyConnected(S.Variable('data'), name='stem',
+                                      num_hidden=PG['units']),
+                     act_type='relu')
+    for i in range(PG['body']):
+        h = S.Activation(S.FullyConnected(h, name='body%d' % i,
+                                          num_hidden=PG['units']),
+                         act_type='tanh')
+    h = S.FullyConnected(h, name='out', num_hidden=PG['classes'])
+    return S.SoftmaxOutput(h, name='softmax')
+
+
+def pg_fit(torch, mx, ctxs, pipeline=None):
+    """Module.fit of pg_symbol over pg_batches, one epoch: the parameters
+    by name, host copies."""
+    sym = pg_symbol(mx)
+    shapes, _, _ = sym.infer_shape(data=(PG['batch'], PG['feat']))
+    rng = np.random.default_rng(PG_SEED + 2)
+    args = {n: mx.nd.array(np.zeros(s, np.float32) if n.endswith('bias')
+                           else (rng.random(s, dtype=np.float32) - 0.5)
+                           * 0.1)
+            for n, s in zip(sym.list_arguments(), shapes)
+            if n not in ('data', 'softmax_label')}
+    bs = pg_batches()
+    it = mx.io.NDArrayIter(np.concatenate([x for x, _ in bs]),
+                           np.concatenate([y for _, y in bs]),
+                           batch_size=PG['batch'])
+    mod = mx.mod.Module(sym, context=ctxs)
+    mod.fit(it, num_epoch=1, optimizer='sgd', optimizer_params=dict(PG_OPT),
+            arg_params=args, initializer=None, pipeline=pipeline)
+    ap, _ = mod.get_params()
+    return {k: v._data.detach().float().cpu().clone()
+            for k, v in sorted(ap.items())}
+
+
+def pg_step_key(fs):
+    """A pipelined fused step's computation fingerprint (the stages' op
+    trace with the stem, head and loss) and step signatures."""
+    d = fs._dispatch
+    return repr((d.fingerprint, sorted(map(repr, d.fns))))
+
+
+def pipe4_worker(out_dir):
+    """One rank of phase 33 (four launcher workers share the card on a
+    {'data': 2, 'pipe': 2} mesh): fuse_step(pipeline=(2, 4)) on pg_net
+    with and without ZeRO-1, a re-created ZeRO trainer, and
+    Module.fit(pipeline=(2, 4)) on pg_symbol over [gpu(0), ..., gpu(3)].
+    The Gluon trainers get cpu(0..3) contexts: a net initialized over
+    gpu(i) would allocate on cuda:i, which one card lacks; the steps run
+    on each rank's mesh device. Rank 0 also runs the one-device steps on
+    gpu(0) and holds the ranks' results against them."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    root = Path(__file__).resolve().parent
+    sys.path.insert(0, str(root))
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import dist, exec_cache
+    torch.zeros(1, device='cuda')
+    rt = dist.initialize()
+    rank = rt.rank
+    out_dir = Path(out_dir)
+    ctxs = [mx.cpu(i) for i in range(PG_RANKS)]
+    row = dict(rank=rank)
+    vals = {}
+    for arm, zero in (('z0', 0), ('z1', 1)):
+        net, fs, times = pg_train(torch, mx, ctxs, pipeline=PG_PIPE,
+                                  zero=zero)
+        vals[arm] = pg_values(torch, net)
+        row[arm] = dict(step_ms=times, device=str(fs._device),
+                        mesh=dict(fs._mesh.shape),
+                        accounting=list(fs._pipe_state_accounting()))
+    key = pg_step_key(fs)
+    n_cached = exec_cache.size()
+    net, fs, _ = pg_train(torch, mx, ctxs, pipeline=PG_PIPE, zero=1)
+    row['recreate'] = dict(same_key=pg_step_key(fs) == key,
+                           cache_entries=exec_cache.size() - n_cached,
+                           same_bits=all(torch.equal(a, b) for a, b in zip(
+                               vals['z1'], pg_values(torch, net))))
+    got_fit = pg_fit(torch, mx, [mx.gpu(i) for i in range(PG_RANKS)],
+                     pipeline=PG_PIPE)
+    if rank == 0:
+        ref_net, _, ref_times = pg_train(torch, mx, [mx.gpu(0)])
+        ref = pg_values(torch, ref_net)
+        row['one_device_step_ms'] = ref_times
+        for arm in ('z0', 'z1'):
+            row[arm]['parity'] = leaves_within(torch, vals[arm], ref,
+                                               PG_TOL['rtol'],
+                                               PG_TOL['atol'])
+        ref_fit = pg_fit(torch, mx, [mx.gpu(0)])
+        row['fit_parity'] = leaves_within(
+            torch, [got_fit[k] for k in sorted(ref_fit)],
+            [ref_fit[k] for k in sorted(ref_fit)], PG_TOL['rtol'],
+            PG_TOL['atol'])
+    row['peak_bytes'] = torch.cuda.max_memory_allocated()
+    with open(out_dir / ('rank%d.json' % rank), 'w') as f:
+        json.dump(row, f)
+    dist.shutdown()
+
+
+def pipe4_start(root):
+    """Phase 33's launch, started: (its directory, the Launch)."""
+    out = fresh_dir(root, 33)
+    return out, start_launch(root, out, 'pipe4', 'pipe4', PG_RANKS, 0,
+                             env={'MXNET_TPU_DIST_JAX': '1'})
+
+
+def pipe4_gate(rows):
+    """What is wrong with phase 33's ranks (empty when nothing)."""
+    bad = []
+    for row in rows:
+        r = row['rank']
+        for arm in ('z0', 'z1'):
+            if row[arm]['mesh'] != {'data': 2, 'pipe': 2} or \
+                    not row[arm]['device'].startswith('cuda'):
+                bad.append('rank %d %s: mesh %s on %s' % (
+                    r, arm, row[arm]['mesh'], row[arm]['device']))
+        z0, z1 = row['z0']['accounting'], row['z1']['accounting']
+        if z1[0] != z0[0] or not z1[1] <= z0[1] // 2 + 4096:
+            bad.append('rank %d: ZeRO-1 state %d bytes against the '
+                       'replicated %d (parameters %d, %d)'
+                       % (r, z1[1], z0[1], z1[0], z0[0]))
+        rc = row['recreate']
+        if not rc['same_key'] or rc['cache_entries'] or \
+                not rc['same_bits']:
+            bad.append('rank %d: the re-created ZeRO trainer %s' % (r, rc))
+    r0 = rows[0]
+    for name, check in (('gluon', r0['z0']['parity']),
+                        ('gluon ZeRO-1', r0['z1']['parity']),
+                        ('Module.fit', r0['fit_parity'])):
+        if not check['ok']:
+            bad.append('%s off the one-device step: %s' % (name, check))
+    return bad
+
+
+def pipe4_phase(torch, root, smi, started=None):
+    """Phase 33: PG_RANKS launcher workers train pg_net through
+    fuse_step(pipeline=) and pg_symbol through Module.fit(pipeline=) at
+    dp x pipe = 2 x 2; gated by pipe4_gate."""
+    if started is None:
+        torch.cuda.empty_cache()
+        started = pipe4_start(root)
+    out, launch = started
+    try:
+        res, wall = launch.wait()
+        if res.returncode != 0:
+            fail('phase 33: the launcher exited %d (its log is named above)'
+                 % res.returncode)
+        rows = []
+        for r in range(PG_RANKS):
+            with open(out / ('rank%d.json' % r)) as f:
+                rows.append(json.load(f))
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    run = dict(config='float32 Dense stem, %d x Dense(%d, tanh), head; batch '
+               '%d; pipeline=%s over %d ranks on one card over gloo'
+               % (PG['body'], PG['units'], PG['batch'], PG_PIPE, PG_RANKS),
+               card=smi, wall_s=wall, ranks=rows)
+    print('pipe4 ' + json.dumps(run))
+    bad = pipe4_gate(rows)
+    if bad:
+        fail('phase 33: ' + '; '.join(bad))
+    r0 = rows[0]
+    print('pipe4: %d ranks (%s): step ms rank 0 %s (one device %s); the '
+          'Gluon step within %.3g, %.3g (ZeRO-1) and Module.fit within %.3g '
+          'of the one-device steps (of the bound); ZeRO-1 state %d bytes a '
+          'rank against %d; a re-created trainer the same bits and step '
+          'key; phase took %.1f s' % (
+              PG_RANKS, smi, ['%.1f' % t for t in r0['z0']['step_ms']],
+              ['%.1f' % t for t in r0['one_device_step_ms']],
+              r0['z0']['parity']['max_err_over_bound'],
+              r0['z1']['parity']['max_err_over_bound'],
+              r0['fit_parity']['max_err_over_bound'],
+              r0['z1']['accounting'][1], r0['z0']['accounting'][1], wall))
+    return run
+
+
+def moe_net(mx, ctx):
+    """Dense(d_model, relu), MoE(d_model, d_ff, 8 experts, capacity factor
+    1.25), Dense(MOE_CLASSES), float32; weights normal * 0.02 from numpy,
+    biases zero."""
+    nn = mx.gluon.nn
+    D = SWITCH['d_model']
+    net = nn.HybridSequential()
+    with net.name_scope():
+        net.add(nn.Dense(D, activation='relu', in_units=D))
+        net.add(nn.MoE(D, SWITCH['d_ff'], num_experts=SWITCH['experts'],
+                       capacity_factor=SWITCH['capacity_factor']))
+        net.add(nn.Dense(MOE_CLASSES, in_units=D))
+    net.initialize(ctx=ctx)
+    rng = np.random.default_rng(MOE_SEED)
+    for _, p in sorted(net.collect_params().items()):
+        if p.grad_req == 'null':
+            continue
+        v = np.zeros(p.shape, np.float32) if p.name.endswith('bias') else \
+            rng.standard_normal(p.shape, dtype=np.float32) * np.float32(0.02)
+        p.set_data(mx.nd.array(v))
+    return net
+
+
+def moe_train(torch, mx, ctx):
+    """MOE_STEPS fuse_step steps of moe_net on MOE_TOKENS-token batches:
+    (net, losses, step ms)."""
+    net = moe_net(mx, ctx)
+    tr = mx.gluon.Trainer(net.collect_params(), 'sgd', dict(MOE_OPT))
+    fs = mx.gluon.fuse_step(net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), tr)
+    rng = np.random.default_rng(MOE_SEED + 3)
+    losses, times = [], []
+    for _ in range(MOE_STEPS):
+        x = rng.standard_normal((MOE_TOKENS, SWITCH['d_model']),
+                                dtype=np.float32)
+        y = rng.integers(0, MOE_CLASSES, MOE_TOKENS).astype(np.float32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = fs(mx.nd.array(x), mx.nd.array(y))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss.asnumpy().mean()))
+    return net, losses, times
+
+
+def moe_values(net):
+    return [p.list_data()[0]._data.detach().float().cpu().clone()
+            for _, p in sorted(net.collect_params().items())]
+
+
+def moe_counters(profiler, net):
+    """The profiler's MoE counters and the blocks' cumulative counts."""
+    st = profiler.moe_stats()
+    out = {k: st[k] for k in ('moe_routed_tokens', 'moe_dropped_tokens',
+                              'moe_dispatches', 'moe_drop_frac')}
+    out['per_expert'] = st['moe_experts']
+    for _, p in net.collect_params().items():
+        kind = getattr(p, '_moe_counter', None)
+        if kind:
+            out['block_' + kind] = float(p.list_data()[0]._data.sum())
+    return out
+
+
+def moe_gate(world1, rows, parity, same_bits):
+    """What is wrong with phase 34 (empty when nothing)."""
+    bad = []
+    fed = MOE_TOKENS * MOE_STEPS
+    for name, c in [('world 1', world1)] + [('rank %d' % r['rank'], r['moe'])
+                                           for r in rows]:
+        if c['moe_routed_tokens'] + c['moe_dropped_tokens'] != fed or \
+                c['moe_dispatches'] != MOE_STEPS:
+            bad.append('%s: %d routed + %d dropped in %d dispatches, %d fed'
+                       % (name, c['moe_routed_tokens'],
+                          c['moe_dropped_tokens'], c['moe_dispatches'], fed))
+        per = c['per_expert'].values()
+        if sum(e['routed'] for e in per) != c['moe_routed_tokens'] or \
+                sum(e['dropped'] for e in per) != c['moe_dropped_tokens']:
+            bad.append('%s: the per-expert table %s does not sum to the '
+                       'totals' % (name, c['per_expert']))
+        if c['block_routed'] != c['moe_routed_tokens'] or \
+                c['block_dropped'] != c['moe_dropped_tokens']:
+            bad.append('%s: the blocks count %s / %s, the profiler %d / %d'
+                       % (name, c['block_routed'], c['block_dropped'],
+                          c['moe_routed_tokens'], c['moe_dropped_tokens']))
+    for r in rows:
+        lo, hi = r['moe']['experts']
+        if hi - lo != SWITCH['experts'] // PIPE_RANKS:
+            bad.append('rank %d computes experts %d-%d' % (r['rank'], lo, hi))
+        es = r['moe']['expert_step']
+        if not (es['finite'] and math.isfinite(es['loss'])) or \
+                es['local_experts'] != SWITCH['experts'] // PIPE_RANKS:
+            bad.append('rank %d: make_moe_train_step %s' % (r['rank'], es))
+        if (r['moe']['moe_routed_tokens'], r['moe']['moe_dropped_tokens']) \
+                != (world1['moe_routed_tokens'],
+                    world1['moe_dropped_tokens']):
+            bad.append('rank %d: routed / dropped %d / %d, world 1 %d / %d'
+                       % (r['rank'], r['moe']['moe_routed_tokens'],
+                          r['moe']['moe_dropped_tokens'],
+                          world1['moe_routed_tokens'],
+                          world1['moe_dropped_tokens']))
+    if not parity['ok']:
+        bad.append('the two ranks\' parameters off world 1\'s: %s' % parity)
+    if not same_bits:
+        bad.append('two world-1 runs differ')
+    return bad
+
+
+def moe_phase(torch, mx, root, smi, out=None):
+    """Phase 34: gluon.nn.MoE at Switch-Base-8's widths through fuse_step:
+    at world 1 on gpu(0), twice (the same bits), under the profiler; its
+    parameters held against phase 32's two ranks' data-mesh run (each
+    computing 4 experts) and their make_moe_train_step; gated by
+    moe_gate."""
+    from mxnet_tpu_torch import profiler
+    out = out or root / 'build' / 'phase32'
+    try:
+        rows = []
+        for r in range(PIPE_RANKS):
+            with open(out / ('rank%d.json' % r)) as f:
+                rows.append(json.load(f))
+        ranks_vals = torch.load(str(out / 'moe.pt'))
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.empty_cache()
+    runs = []
+    for _ in range(2):
+        profiler.clear()
+        profiler.profiler_set_state('run')
+        try:
+            net, losses, times = moe_train(torch, mx, [mx.gpu(0)])
+        finally:
+            profiler.profiler_set_state('stop')
+        runs.append((moe_values(net), moe_counters(profiler, net), losses,
+                     times))
+        del net
+    vals, world1, losses, times = runs[0]
+    same = all(torch.equal(a, b) for a, b in zip(vals, runs[1][0]))
+    parity = leaves_within(torch, ranks_vals, vals, MOE_TOL['rtol'],
+                           MOE_TOL['atol'])
+    world1.update(loss=losses, step_ms=times)
+    run = dict(config='Dense(%d, relu), MoE(%d, %d, %d experts, capacity '
+               'factor %g), Dense(%d), float32, %d tokens a step'
+               % (SWITCH['d_model'], SWITCH['d_model'], SWITCH['d_ff'],
+                  SWITCH['experts'], SWITCH['capacity_factor'], MOE_CLASSES,
+                  MOE_TOKENS), card=smi, world1=world1,
+               capacity=int(math.ceil(SWITCH['capacity_factor'] * MOE_TOKENS
+                                      / SWITCH['experts'])),
+               parity=parity, same_bits_twice=same,
+               ranks=[r['moe'] for r in rows])
+    print('moe ' + json.dumps(run))
+    bad = moe_gate(world1, rows, parity, same)
+    if bad:
+        fail('phase 34: ' + '; '.join(bad))
+    print('moe: Switch-Base-8 widths (%s): world 1 %s ms a step, %d routed '
+          'and %d dropped of %d tokens; two ranks %s ms a step, each 4 '
+          'experts, within %.3g of world 1 (of the bound); two runs '
+          'bit-equal; make_moe_train_step over 2 ranks %.1f ms' % (
+              smi, ['%.1f' % t for t in times], world1['moe_routed_tokens'],
+              world1['moe_dropped_tokens'], MOE_TOKENS * MOE_STEPS,
+              ['%.1f' % t for t in rows[0]['moe']['step_ms']],
+              parity['max_err_over_bound'],
+              rows[0]['moe']['expert_step']['ms']))
+    return run
+
+
 def main(argv=None):
     import argparse
     parser = argparse.ArgumentParser(
@@ -10829,9 +11824,9 @@ def main(argv=None):
                                                     v.split(',')},
                         default=ALL_PHASES,
                         help='build, then run only these phases (a comma '
-                             'list of 2-31); the kernels line needs all')
+                             'list of 2-34); the kernels line needs all')
     parser.add_argument('--dist-worker', choices=('ps', 'coord', 'dp',
-                                                  'sparse'),
+                                                  'sparse', 'pipe', 'pipe4'),
                         help=argparse.SUPPRESS)
     parser.add_argument('--dist-out', help=argparse.SUPPRESS)
     parser.add_argument('--dist-tag', help=argparse.SUPPRESS)
@@ -10850,6 +11845,14 @@ def main(argv=None):
         # one rank of phase 31, started by the port's launcher
         mf_worker(args.dist_out)
         return
+    if args.dist_worker == 'pipe':
+        # one rank of phases 32 and 34, started by the port's launcher
+        pipe_worker(args.dist_out)
+        return
+    if args.dist_worker == 'pipe4':
+        # one rank of phase 33, started by the port's launcher
+        pipe4_worker(args.dist_out)
+        return
     if args.dist_worker:
         # one worker of phase 21 or 22, started by the port's launcher
         dist_worker(args.dist_worker, args.dist_out, args.dist_tag)
@@ -10867,7 +11870,7 @@ def main(argv=None):
     atexit.register(Background.stop_all)
     phases = args.phases
     if not phases <= ALL_PHASES:
-        fail('--phases takes phases 2 to 31; got %s' % sorted(phases))
+        fail('--phases takes phases 2 to 34; got %s' % sorted(phases))
     sys.path.insert(0, str(root))
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import _build, cuda_conv, cuda_ops
@@ -11012,13 +12015,13 @@ def main(argv=None):
         clock.start(20)
         fleet = fleet_phase(torch, mx, cuda_conv, cuda_ops, tfm, root)
 
-    # the launches of phases 21, 22 and 31 start together and share the
-    # card: each phase then waits for its own
+    # the launches of phases 21, 22, 31 and 33 start together and share
+    # the card: each phase then waits for its own
     started = {}
-    if phases & {21, 22, 31}:
+    if phases & {21, 22, 31, 32, 33, 34}:
         torch.cuda.empty_cache()
         for phase, start in ((21, ps_start), (22, coord_start),
-                             (31, sparse_start)):
+                             (31, sparse_start), (33, pipe4_start)):
             if phase in phases:
                 started[phase] = start(root)
         if 21 in started and 29 in phases:
@@ -11026,6 +12029,13 @@ def main(argv=None):
             # back, as soon as they have
             started[21][1].after(
                 lambda: started.setdefault(29, dp_start(root)))
+        if phases & {32, 34}:
+            # phases 32 and 34's ranks take what phase 31's give back
+            if 31 in started:
+                started[31][1].after(
+                    lambda: started.setdefault(32, pipe_start(root)))
+            else:
+                started[32] = pipe_start(root)
 
     # phases that gate no time run while those launches run (their host
     # times are taken beside the launches')
@@ -11067,8 +12077,9 @@ def main(argv=None):
         clock.start(22)
         dist_coord = coord_phase(torch, mx, root, started.get(22))
 
-    # no launch runs beside phase 23's timed canary
-    for phase in (29, 31):
+    # no launch runs beside phase 23's timed canary (phase 32's starts
+    # when phase 31's ends, so it is there once 31's wait returns)
+    for phase in (29, 31, 33, 32):
         if phase in started:
             clock.start(phase)
             started[phase][1].wait()
@@ -11129,6 +12140,26 @@ def main(argv=None):
         clock.start(31)
         sparse_phase(torch, mx, root, smi, started=started.get(31))
 
+    # 32. the GPT-2-medium LM in two pipeline stages, two ranks sharing the
+    # card over gloo, on the flash kernels
+    if phases & {32, 34}:
+        clock.start(32)
+        pipe_run = pipe_phase(torch, cuda_ops, tfm, root, smi,
+                              started.get(32))
+
+    # 33. fuse_step(pipeline=) and Module.fit(pipeline=) at dp x pipe = 2 x 2
+    if 33 in phases:
+        clock.start(33)
+        pipe4_phase(torch, root, smi, started.get(33))
+
+    # 34. gluon.nn.MoE at Switch-Base-8's widths, at world 1 and over phase
+    # 32's two ranks
+    if 34 in phases:
+        clock.start(34)
+        moe_phase(torch, mx, root, smi)
+    elif 32 in phases:
+        shutil.rmtree(root / 'build' / 'phase32', ignore_errors=True)
+
     clock.stop()
     print('phase seconds ' + json.dumps(dict(
         clock.seconds, total=round(time.perf_counter() - clock.t_start, 1))))
@@ -11155,7 +12186,8 @@ def main(argv=None):
                               fleet_lm_serve=fleet['flash']['launches'],
                               fleet_router_scorer=router['path_launches'],
                               lm_train_mesh=mesh_run['launches'][0],
-                              lm_train_ring=ring_run['launches'][0]),
+                              lm_train_ring=ring_run['launches'][0],
+                              lm_train_pipe=pipe_run['launches'][0]),
         max_abs_err=main_case['max_abs_err'],
         share_differ=main_case['share_differ'],
         ms=main_case['ms'], tflops=main_case['tflops'],
@@ -11197,7 +12229,8 @@ def main(argv=None):
                 gluon_lstm_train=gluon_lm['kernel_launches'][
                     ('flash_bwd_dkdv', 'flash_bwd_dq')[i]],
                 lm_train_mesh=mesh_run['launches'][1 + i],
-                lm_train_ring=ring_run['launches'][1 + i]),
+                lm_train_ring=ring_run['launches'][1 + i],
+                lm_train_pipe=pipe_run['launches'][1 + i]),
             max_abs_err=main_case['max_abs_err'], ms=main_case['ms'],
             plain_ms=main_case['plain_ms'], bound_ms=main_case['bound_ms'],
             bound_by=main_case['bound_by'],

@@ -1,5 +1,4 @@
-"""The fused Gluon train step: the counterpart of mxnet_tpu/gluon/fused.py
-without its pipelined mode (PipelinedStep, ROADMAP Queue A 6d).
+"""The fused Gluon train step: the counterpart of mxnet_tpu/gluon/fused.py.
 
     net = nn.HybridSequential(); ...; net.initialize()
     trainer = gluon.Trainer(net.collect_params(), 'sgd', {...})
@@ -55,6 +54,7 @@ changes when the host waits, never a bit of what is computed.
 Counters: profiler.gluon_fused_stats(), the 'gluon_fused' span
 category, the overlap_* counters and, with sparse tables, embed_stats().
 """
+import contextlib
 import hashlib
 import os
 import time
@@ -69,7 +69,7 @@ from .. import metric as metric_mod
 from .. import ndarray as nd
 from .. import optimizer as opt_mod
 from .. import profiler
-from ..base import MXNetError, unported
+from ..base import MXNetError
 from ..context import Context
 from ..ops.registry import OpContext, normalize_axis
 from ..parallel import collectives
@@ -95,15 +95,6 @@ def resolve_step_ahead(step_ahead=None):
         return 1
 
 
-def _pipe_spec(pipeline):
-    """The pipelined mode's (stages, micro) from the argument or
-    MXNET_TPU_PIPE, or None."""
-    if pipeline is not None:
-        return tuple(pipeline)
-    raw = (os.environ.get('MXNET_TPU_PIPE', '') or '').strip()
-    return tuple(int(v) for v in raw.split(',')) if raw else None
-
-
 def fuse_step(net, loss, trainer, mesh=None, zero=None, metric=None,
               ema_decay=None, interleave=None, checkpoint=None,
               pipeline=None, step_ahead=None):
@@ -117,10 +108,13 @@ def fuse_step(net, loss, trainer, mesh=None, zero=None, metric=None,
     interleave: the gradient reduction schedule (None:
     MXNET_TPU_INTERLEAVE_REDUCE); checkpoint: an
     elastic.CheckpointManager restored before the first step and fed
-    every step; step_ahead: see resolve_step_ahead. pipeline (or
-    MXNET_TPU_PIPE) is the pipelined mode, not ported yet. After this
-    call `trainer.step_fused(batch_size, *args)` runs the step too."""
-    spec = _pipe_spec(pipeline)
+    every step; step_ahead: see resolve_step_ahead. pipeline: (stages,
+    micro), or None for MXNET_TPU_PIPE='stages,micro': the dp x pipe GPipe
+    mode (PipelinedStep), which takes none of metric, ema_decay,
+    checkpoint, mesh and interleave. After this call
+    `trainer.step_fused(batch_size, *args)` runs the step too."""
+    from ..parallel import pipeline as pipe_mod
+    spec = pipe_mod.pipe_spec(pipeline)
     if spec is not None:
         sparse = [p.name for p in trainer._params
                   if getattr(p, 'sparse_grad', False)]
@@ -129,8 +123,14 @@ def fuse_step(net, loss, trainer, mesh=None, zero=None, metric=None,
                 'fuse_step: the pipelined mode (pipeline=%r) does not take '
                 'sparse_grad embedding tables (%s): their row-sharded COO '
                 'update has no stage placement' % (spec, ', '.join(sparse)))
-        raise unported('fuse_step(pipeline=) (PipelinedStep, gluon/fused.py)',
-                       '6')
+        for bad, name in ((metric, 'metric'), (ema_decay, 'ema_decay'),
+                          (checkpoint, 'checkpoint'), (mesh, 'mesh'),
+                          (interleave, 'interleave')):
+            if bad is not None:
+                raise ValueError(
+                    'fuse_step: %s= does not compose with the pipelined '
+                    'mode yet (pipeline=%r)' % (name, spec))
+        return PipelinedStep(net, loss, trainer, spec, zero=zero)
     return FusedStep(net, loss, trainer, mesh=mesh, zero=zero,
                      metric=metric, ema_decay=ema_decay,
                      interleave=interleave, checkpoint=checkpoint,
@@ -273,6 +273,7 @@ class FusedStep:
         self._ema_state = None
         self._interleave = collectives.interleave_reduce_enabled(interleave)
         self._reduce_plan = None
+        self._moe_aux = []
         if type(trainer._optimizer) not in (opt_mod.SGD, opt_mod.NAG):
             raise ValueError(
                 'fuse_step: optimizer %s has no fused whole-model update '
@@ -511,7 +512,10 @@ class FusedStep:
         for p in self._frozen_params:
             sub[p] = nd.NDArray(self._gather_param(p).detach(), ctx)
         in_nd = [nd.NDArray(t, ctx) for t in ins]
-        with block_mod.param_trace(sub, train_mode=True):
+        from .nn import moe as moe_mod
+        moe_aux = []
+        with block_mod.param_trace(sub, train_mode=True), \
+                moe_mod.aux_loss_scope(moe_aux):
             if self._loss is not None:
                 out = self._net(*in_nd[:-1])
                 outs = list(out) if isinstance(out, (list, tuple)) \
@@ -521,6 +525,7 @@ class FusedStep:
                 outs = []
                 l = self._net(*in_nd)
         leaves, self._loss_structure = block_mod._flatten(l)
+        self._moe_aux = moe_aux
         return leaves, outs, sub
 
     def _one_step(self, ins, full_ins, moms, masters, lrs, wds, mcarry,
@@ -549,6 +554,10 @@ class FusedStep:
             for x in loss_leaves:
                 s = x._data.sum().float()
                 total = s if total is None else total + s
+            # MoE auxiliary losses join the differentiated total, not the
+            # reported loss
+            for a in self._moe_aux:
+                total = total + a.sum().float()
         self.routed_pairs = route.pairs
         self.routed_shapes = route.shapes
         targets = [leaves[j] for j in dense] + [r for _, r, _ in srows]
@@ -742,11 +751,19 @@ class FusedStep:
         prog = self._program(fkey, bulk, k, shapes, rungs)
         t0 = time.perf_counter()
         synced = profiler.is_running()
+        # the MoE counters before the dispatch (read when the profiler
+        # runs, as in the JAX package)
+        moe_idx = [p for p in self._aux_params
+                   if getattr(p, '_moe_counter', None)]
+        moe_pre = [self._gather_param(p).clone() for p in moe_idx] \
+            if moe_idx and synced else None
         with profiler.scope('gluon_fused_%s' % ('bulk' if bulk else 'step'),
                             'gluon_fused'):
             losses = prog(self, bulk, k, arrays, full_arrays, rungs)
             if synced:
                 profiler.synchronize([t for l in losses for t in l])
+        if moe_pre is not None:
+            self._note_moe_counters(moe_idx, moe_pre)
         if self._splan is not None:
             exec_cache.put(self._splan.facts_key(),
                            (dict(self._splan.src), dict(self._splan.srcs),
@@ -814,6 +831,19 @@ class FusedStep:
             dense_equiv_bytes=k * plan.dense_equiv_bytes(mom),
             max_rung=max(rungs))
 
+    def _note_moe_counters(self, params, pre):
+        """profiler.add_moe_stats from the dispatch's deltas of the MoE
+        blocks' cumulative counts (per-expert tables summed over blocks
+        by expert index)."""
+        totals = {'routed': 0.0, 'dropped': 0.0}
+        for p, before in zip(params, pre):
+            delta = (self._gather_param(p) - before).cpu().numpy()
+            totals[p._moe_counter] += float(delta.sum())
+            profiler.add_moe_stats(**{'per_expert_%s' % p._moe_counter:
+                                      delta})
+        profiler.add_moe_stats(routed=totals['routed'],
+                               dropped=totals['dropped'], dispatches=1)
+
     def ema(self):
         """The weight EMA as {parameter name: NDArray}; before the first
         step it equals the weights."""
@@ -824,3 +854,387 @@ class FusedStep:
             [self._gather_param(p) for p in self._params]
         return {p.name: nd.NDArray(v.clone(), self._ctx)
                 for p, v in zip(self._params, vals)}
+
+
+# -- the dp x pipe pipelined mode ----------------------------------------------
+
+def _child_struct_sig(block):
+    """The structure of one child for the stage partition: its class and
+    its parameters' (relative name, shape, dtype, grad_req). Equal
+    signatures are stacking-compatible; whether they compute the same is
+    the homogeneity check's to say."""
+    plist = sorted(block._collect_params_with_prefix().items())
+    psig = tuple((name, tuple(p.shape) if p.shape else None,
+                  str(np.dtype(p.dtype)) if p.dtype else None, p.grad_req)
+                 for name, p in plist)
+    return (type(block).__name__, psig)
+
+
+def _partition_pipeline_children(net, num_stages):
+    """(stem children, [stage children...], head children) of a
+    Sequential-style net: the longest run of consecutive structurally
+    identical children is the stage body (its length must divide by
+    num_stages), what comes before it the stem (run by stage 0), what
+    comes after it the head (run with the loss by the last stage)."""
+    children = list(getattr(net, '_children', ()))
+    if len(children) < num_stages:
+        raise ValueError(
+            'fuse_step(pipeline=(%d, ...)): net has %d children; the '
+            'pipelined mode partitions a Sequential of repeated blocks - '
+            'need at least one block per stage'
+            % (num_stages, len(children)))
+    sigs = [_child_struct_sig(c) for c in children]
+    best_start, best_len = 0, 1
+    start = 0
+    for i in range(1, len(sigs) + 1):
+        if i == len(sigs) or sigs[i] != sigs[start]:
+            if i - start > best_len:
+                best_start, best_len = start, i - start
+            start = i
+    if best_len % num_stages:
+        raise ValueError(
+            'fuse_step(pipeline): the longest run of identical children '
+            'has length %d, not divisible into %d stages - stack a '
+            'multiple of %d identical blocks'
+            % (best_len, num_stages, num_stages))
+    per = best_len // num_stages
+    stages = [children[best_start + s * per:best_start + (s + 1) * per]
+              for s in range(num_stages)]
+    return (children[:best_start], stages,
+            children[best_start + best_len:])
+
+
+def _ordered_child_params(children):
+    """The parameters of a run of children in structural order (each
+    child's relative names: aligned across identical stages whatever
+    their prefixes)."""
+    out = []
+    for c in children:
+        out.extend(p for _, p in
+                   sorted(c._collect_params_with_prefix().items()))
+    return out
+
+
+class PipelinedStep(FusedStep):
+    """GPipe dp x pipe training, one whole step a call (the pipeline=(S,
+    M) mode of fuse_step).
+
+    The net's children partition into a stem, S architecturally
+    identical stages and a head (_partition_pipeline_children). A trainer
+    over N contexts is N ranks of the {'data': N / S, 'pipe': S} mesh
+    (parallel/pipeline.make_pipe_mesh), each its own process running the
+    same script with the global batch; in one process several contexts
+    raise, naming the launchers. Rank (d, s) trains stage s's parameters
+    only and the stem and head whole, and every step runs
+    parallel/pipeline.make_pipe_step_fn: the fill-drain schedule of M
+    microbatches of this rank's rows, stem and head gradients summed
+    over 'pipe', the data-axis sum (or ZeRO-1's reduce-scatter and
+    all-gather, which also shard the momenta: a rank's optimizer state
+    is about 1/(dp S) of one device's) and the SGD / NAG update. `bulk`
+    runs K steps a call.
+
+    After a step a rank's parameters of the other stages are stale: call
+    `sync_params()` (a collective over 'pipe') before reading them or
+    running the net eagerly; the next step re-places what user code
+    changed. The dispatch (parallel/pipeline.PipeDispatch) builds one
+    step function per input signature and hyperparameters, after holding
+    every stage's op trace against stage 0's."""
+
+    def __init__(self, net, loss, trainer, pipeline, zero=None):
+        from ..parallel import pipeline as pipe_mod
+        self._pipe_mod = pipe_mod
+        self._pipe_s, self._pipe_m = pipe_mod.pipe_spec(pipeline)
+        S = self._pipe_s
+        if loss is None:
+            raise ValueError(
+                'fuse_step(pipeline): loss=None nets are not supported - '
+                'the pipelined head needs an explicit loss on the last '
+                'stage')
+        ctxs = list(trainer._contexts)
+        if len(ctxs) < S or len(ctxs) % S:
+            raise ValueError(
+                'fuse_step(pipeline=(%d, %d)): %d trainer contexts do not '
+                'divide into %d pipeline stages'
+                % (S, self._pipe_m, len(ctxs), S))
+        from ..module.executor_group import pipe_mesh_for
+        mesh = pipe_mesh_for(ctxs, S, 'a pipelined fused Gluon step')
+        super().__init__(net, loss, trainer, mesh=mesh, zero=zero)
+        if bool(getattr(trainer._optimizer, 'multi_precision', False)):
+            raise ValueError('fuse_step(pipeline): multi_precision is not '
+                             'composed with the pipelined update yet')
+        if any(getattr(p, 'sparse_grad', False) for p in trainer._params):
+            raise MXNetError(
+                'fuse_step(pipeline): sparse_grad embedding tables are not '
+                'composed with the pipelined schedule yet')
+        self._mesh = mesh
+        self._dp = mesh.shape['data']
+        self._stage = mesh.axis_index('pipe')
+        self._device = mesh.device
+        self._ctx = Context.from_device(mesh.device)
+        self._partitioned = False
+        self._dispatch = pipe_mod.PipeDispatch(
+            mesh, S, self._pipe_m, self._zero, 'fuse_step', ValueError)
+        self._structure_shared = False
+
+    # -- partition ---------------------------------------------------------
+    def _partition(self):
+        if self._partitioned:
+            return
+        stem, stages, head = _partition_pipeline_children(
+            self._net, self._pipe_s)
+        plists = [_ordered_child_params(cs) for cs in stages]
+        n_leaf = len(plists[0])
+        for s, pl in enumerate(plists):
+            if len(pl) != n_leaf:
+                raise ValueError('pipeline stage %d has %d parameters, '
+                                 'stage 0 has %d' % (s, len(pl), n_leaf))
+        groups = []
+        for j in range(n_leaf):
+            group = [plists[s][j] for s in range(self._pipe_s)]
+            shapes = {tuple(p.shape) for p in group}
+            dts = {str(np.dtype(p.dtype)) for p in group}
+            if len(shapes) != 1 or len(dts) != 1:
+                raise ValueError(
+                    'pipeline stages are not stacking-compatible: leaf %d '
+                    'has shapes %s dtypes %s'
+                    % (j, sorted(shapes), sorted(dts)))
+            groups.append(group)
+        stem_params = _ordered_child_params(stem)
+        head_params = _ordered_child_params(head)
+        allp = [p for g in groups for p in g] + stem_params + head_params
+        if any(p.grad_req == 'null' for p in allp):
+            raise ValueError(
+                'fuse_step(pipeline): grad_req=null (aux) parameters '
+                '(BatchNorm running stats, MoE counters) are not composed '
+                'with the pipelined schedule yet')
+        if hasattr(self._loss, 'collect_params') and \
+                list(self._loss.collect_params().items()):
+            raise ValueError('fuse_step(pipeline): losses with their own '
+                             'parameters are not supported')
+        trainable = {id(p) for p in self._trainer._params}
+        missing = [p.name for p in allp if id(p) not in trainable]
+        if missing or len(self._trainer._params) != len(allp):
+            raise ValueError(
+                "fuse_step(pipeline): the trainer must own exactly the "
+                "net's parameters (missing from trainer: %s; trainer has "
+                "%d params, net has %d)"
+                % (missing, len(self._trainer._params), len(allp)))
+        tr_idx = {id(p): i for i, p in enumerate(self._trainer._params)}
+        self._stem_children, self._stage_children, self._head_children = \
+            stem, stages, head
+        self._stage_groups = groups
+        self._stem_params2 = stem_params
+        self._head_params2 = head_params
+        self._group_tr_idx = ([[tr_idx[id(p)] for p in g] for g in groups] +
+                              [[tr_idx[id(p)]] for p in stem_params] +
+                              [[tr_idx[id(p)]] for p in head_params])
+        self._partitioned = True
+
+    # -- placement -----------------------------------------------------------
+    def _own_stage_params(self):
+        return [g[self._stage] for g in self._stage_groups]
+
+    def _gather_pipe(self, p, over):
+        """The tensor the step trains for `p`: kept from the last step, or
+        (first step, or user code replaced it) broadcast from index 0 of
+        the axes `over`."""
+        cur = p.list_data()[0]._data
+        kept = self._repl.get(id(p))
+        if kept is not None and cur is kept:
+            return kept
+        t = cur.detach().to(self._mesh.device).clone()
+        for axis in over:
+            if self._mesh.shape[axis] > 1:
+                t = collectives._broadcast(t, self._mesh, axis)
+        self._bind(p, t)
+        return t
+
+    def _stage_leaves(self):
+        return [self._gather_pipe(p, ('data',))[None]
+                for p in self._own_stage_params()]
+
+    def _edge_leaves(self, params):
+        return [self._gather_pipe(p, ('data', 'pipe')) for p in params]
+
+    def sync_params(self):
+        """Every stage's trained weights on every rank (one all-gather over
+        'pipe' a stage leaf; every rank calls it), for eager evaluation,
+        predict or save outside the step. The stem and head are current
+        on every rank already."""
+        self._collect_params()
+        if not self._partitioned:
+            return
+        for group in self._stage_groups:
+            mine = self._gather_pipe(group[self._stage], ('data',))
+            rows = collectives._all_gather(mine[None].contiguous(),
+                                           self._mesh, 'pipe', 0)
+            for s, p in enumerate(group):
+                if s == self._stage:
+                    continue
+                self._bind(p, rows[s].clone())
+
+    def ema(self):
+        raise ValueError('fuse_step(pipeline) has no EMA arm')
+
+    # -- the stage, stem and head bodies --------------------------------------
+    def _seq_forward(self, children, params, values, x, record=True):
+        """A run of children applied to x with their parameters bound to
+        `values` (tensors)."""
+        ctx = self._ctx
+        sub = {p: nd.NDArray(v, ctx) for p, v in zip(params, values)}
+        scope = autograd._nested_recording(list(values) + [x]) if record \
+            else contextlib.nullcontext()
+        with scope, block_mod.param_trace(sub, train_mode=True):
+            out = nd.NDArray(x, ctx)
+            for c in children:
+                out = c(out)
+        return out._data
+
+    def _make_fns(self):
+        stage0 = self._stage_children[self._stage]
+        stage_params = self._own_stage_params()
+        stem, stem_params = self._stem_children, self._stem_params2
+        head, head_params = self._head_children, self._head_params2
+        seq = self._seq_forward
+        outer = self
+
+        def stem_fn(ws, mb, rng):
+            if not stem:
+                return mb
+            return seq(stem, stem_params, ws, mb)
+
+        def stage_fn(ws, act, rng):
+            return seq(stage0, stage_params, ws, act)
+
+        def head_fn(ws, acts, label, rng):
+            ctx = outer._ctx
+            sub = {p: nd.NDArray(v, ctx) for p, v in zip(head_params, ws)}
+            with autograd._nested_recording(list(ws) + [acts, label]), \
+                    block_mod.param_trace(sub, train_mode=True):
+                out = nd.NDArray(acts, ctx)
+                for c in head:
+                    out = c(out)
+                l = outer._loss(out, nd.NDArray(label, ctx))
+            leaves, outer._loss_structure = block_mod._flatten(l)
+            leaves = [x._data for x in leaves]
+            total = None
+            for x in leaves:
+                s = x.sum().float()
+                total = s if total is None else total + s
+            return leaves, total
+
+        return stem_fn, stage_fn, head_fn
+
+    def _fingerprint_stages(self, mb, stem_fn):
+        """The op trace of every stage on stem(mb) (check_stage_
+        homogeneity: each must equal stage 0's), and the fingerprint of
+        the step's computation: that trace with the stem, head and loss
+        structure and the input shapes."""
+        with torch.no_grad():
+            act = stem_fn(self._edge_leaves(self._stem_params2), mb, 0)
+
+        def trace(children):
+            params = _ordered_child_params(children)
+            ws = [torch.zeros_like(p.list_data()[0]._data,
+                                   device=act.device) for p in params]
+
+            def fn(w, x, rng, _c=children, _p=params):
+                return self._seq_forward(_c, _p, w, x, record=False)
+
+            return (fn, ws, act, 0)
+
+        fp = self._pipe_mod.check_stage_homogeneity(
+            [trace(c) for c in self._stage_children],
+            lambda s: ValueError(
+                'fuse_step(pipeline): stage %d traces a different '
+                'computation than stage 0 - pipeline stages must be '
+                'architecturally identical (same layer types, activations '
+                'and shapes)' % s))
+        sig = repr((fp, [_block_signature(c) for c in self._stem_children],
+                    [_block_signature(c) for c in self._head_children],
+                    _block_signature(self._loss)
+                    if isinstance(self._loss, block_mod.Block)
+                    else type(self._loss).__name__))
+        return hashlib.blake2b(sig.encode(), digest_size=16).hexdigest()
+
+    # -- schedules -----------------------------------------------------------
+    def _pipe_hyper(self, batch_size):
+        tr = self._trainer
+        opt = tr._optimizer
+        rescale = float(tr._scale / batch_size)
+        opt.rescale_grad = rescale
+        clip = opt.clip_gradient
+        return {'momentum': float(getattr(opt, 'momentum', 0.0) or 0.0),
+                'rescale': rescale,
+                'clip': None if clip is None else float(clip),
+                'nesterov': isinstance(opt, opt_mod.NAG)}
+
+    def _pipe_schedules(self, k):
+        return self._pipe_mod.grouped_schedule_rows(
+            self._trainer._optimizer, len(self._trainer._params),
+            self._group_tr_idx, k,
+            lambda lrs, wds: ValueError(
+                'fuse_step(pipeline): stage parameters of one stacked group '
+                'have diverging lr/wd (%s / %s) - per-stage lr_mult does '
+                'not compose with stacked stages' % (lrs, wds)))
+
+    def _pipe_state_accounting(self):
+        """(param_bytes, opt_state_bytes) resident on this rank
+        (parallel/pipeline.pipe_residency)."""
+        self._partition()
+        leaves = self._own_stage_params() + self._stem_params2 + \
+            self._head_params2
+        return self._pipe_mod.pipe_residency(
+            [tuple(p.shape) for p in leaves],
+            [p.list_data()[0]._data.dtype for p in leaves],
+            self._dispatch.layout)
+
+    # -- the step ------------------------------------------------------------
+    def _run(self, args, bulk, batch_size):
+        if len(args) != 2:
+            raise ValueError('pipelined fused step takes exactly (data, '
+                             'label); got %d argument(s)' % len(args))
+        arrays = [self._tensor(a) for a in args]
+        k = int(arrays[0].shape[0]) if bulk else 1
+        if bulk and k == 0:
+            raise ValueError('bulk: stacked inputs have K=0 steps')
+        B = int(arrays[0].shape[1 if bulk else 0])
+        if batch_size is None:
+            batch_size = B
+        self._dispatch.check_batch(B)
+        self._collect_params()
+        self._finish_deferred(arrays, bulk)
+        self._partition()
+        arrays = [a.to(self._device) for a in arrays]
+        ws = (self._stage_leaves(), self._edge_leaves(self._stem_params2),
+              self._edge_leaves(self._head_params2))
+        t0 = time.perf_counter()
+        synced = profiler.is_running()
+        loss_out, new_stage, new_stem, new_head = self._dispatch.run(
+            ws, arrays[0], arrays[1], bulk, self._pipe_hyper(batch_size),
+            self._pipe_schedules, self._make_fns, self._fingerprint_stages,
+            ('gluon_pipe_%s' % ('bulk' if bulk else 'step'), 'gluon_fused'))
+        for p, w in zip(self._own_stage_params(), new_stage):
+            self._bind(p, w[0])
+        for p, w in zip(self._stem_params2 + self._head_params2,
+                        new_stem + new_head):
+            self._bind(p, w)
+        self._share_structure()
+        self._trainer._last_update_mode = 'fused'
+        profiler.add_gluon_fused_stats(steps=k, dispatches=1)
+        self._bound_ahead([loss_out] * k, synced, t0)
+        out = [nd.NDArray(v, self._ctx) for v in loss_out]
+        return block_mod._unflatten(self._loss_structure, out)
+
+    def _share_structure(self):
+        """The loss's structure (the last stage runs the loss) on every
+        rank, once."""
+        if self._structure_shared:
+            return
+        import torch.distributed as dist
+        S = self._pipe_s
+        obj = [self._loss_structure if self._stage == S - 1 else None]
+        dist.broadcast_object_list(obj, src=self._mesh.axis_ranks('pipe')[
+            S - 1], group=self._mesh.group('pipe'))
+        self._loss_structure = obj[0]
+        self._structure_shared = True

@@ -11,8 +11,10 @@ ticks it around each batch. `bulk=K` runs the epoch in K-step
 dispatches (`bulk_step`), the metric folded on the device; a monitor,
 or a metric with no device fold (fit warns), keeps the per-batch loop.
 `checkpoint=` runs the elastic runtime (auto-resume, the per-step
-cadence, preemption; `elastic.CheckpointManager`). The overlap and
-`pipeline=` are not ported (`pipeline=` raises naming Queue A item 6).
+cadence, preemption; `elastic.CheckpointManager`). `pipeline=(S, M)`
+(or MXNET_TPU_PIPE) trains a Module through the GPipe engine
+(module/pipeline_fit.py); other module types raise. The overlap is not
+ported.
 """
 import logging
 import threading
@@ -21,7 +23,7 @@ from collections import namedtuple
 
 from .. import metric as metric_mod
 from .. import ndarray as nd
-from ..base import MXNetError, unported
+from ..base import MXNetError
 from ..initializer import Uniform
 
 BatchEndParam = namedtuple('BatchEndParams',
@@ -168,8 +170,6 @@ class BaseModule:
         a final checkpoint at the next step boundary and raise
         elastic.Preempted."""
         assert num_epoch is not None, 'please specify number of epochs'
-        if pipeline is not None:
-            raise unported('fit(pipeline=) (parallel/pipeline.py)', '6')
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label, for_training=True,
                   force_rebind=force_rebind)
@@ -183,6 +183,20 @@ class BaseModule:
         validation_metric = validation_metric or eval_metric
         if not isinstance(eval_metric, metric_mod.EvalMetric):
             eval_metric = metric_mod.create(eval_metric)
+        from ..parallel import pipeline as pipe_mod
+        pipe_spec = pipe_mod.pipe_spec(pipeline)
+        if pipe_spec is not None:
+            for bad, name in ((monitor, 'monitor'),
+                              (checkpoint, 'checkpoint')):
+                if bad is not None:
+                    raise ValueError(
+                        'fit(pipeline=%r): %s= does not compose with the '
+                        'pipelined mode yet' % (pipe_spec, name))
+            return self._fit_pipeline(
+                train_data, pipe_spec, eval_data, eval_metric,
+                validation_metric, epoch_end_callback, batch_end_callback,
+                eval_end_callback, eval_batch_end_callback, begin_epoch,
+                num_epoch, bulk)
         use_bulk = bulk is not None and int(bulk) > 1 and \
             hasattr(self, 'bulk_step') and monitor is None
         if use_bulk and metric_mod.device_fold(eval_metric) is None:
@@ -254,6 +268,18 @@ class BaseModule:
                 checkpoint.uninstall_signal_handlers()
             if watched_runtime is not None:
                 watched_runtime.unwatch(checkpoint)
+
+    def _fit_pipeline(self, train_data, spec, eval_data, eval_metric,
+                      validation_metric, epoch_end_callback,
+                      batch_end_callback, eval_end_callback,
+                      eval_batch_end_callback, begin_epoch, num_epoch,
+                      bulk):
+        """fit(pipeline=...): Module implements it
+        (module/pipeline_fit.py); other module types do not partition
+        into pipeline stages."""
+        raise NotImplementedError(
+            'fit(pipeline=...) is only supported on Module (%s does not '
+            'partition into pipeline stages)' % type(self).__name__)
 
     def _fit_epochs(self, train_data, eval_data, eval_metric,
                     validation_metric, epoch_end_callback,

@@ -29,6 +29,7 @@ in the update (`use_grad_reduce(False)`). `get_outputs`,
 the global batch, so that every rank sees the JAX package's values.
 """
 import torch
+import torch.distributed as dist
 
 from .. import ndarray as nd
 from ..base import MXNetError
@@ -73,6 +74,25 @@ def data_mesh_for(contexts, what='a Module'):
                          'ranks; this one has %d (%s)'
                          % (what, n, n, size, LAUNCH_HINT % (what, n, n, n, n)))
     return mesh
+
+
+def pipe_mesh_for(contexts, num_stages, what):
+    """The {'data', 'pipe'} mesh `what` (a pipelined Module or fused Gluon
+    step) over `contexts` runs on: one rank a context of the default
+    process group (raises naming the launchers when there is none, or
+    one of another size)."""
+    from ..parallel import pipeline as pipe_mod
+    n = len(contexts)
+    if not dist.is_initialized():
+        raise MXNetError(LAUNCH_HINT % (what, n, n, n, n) +
+                         ' (no torch.distributed process group is up in '
+                         'this process)')
+    if dist.get_world_size() != n:
+        raise MXNetError('%s over %d contexts needs %d ranks; the process '
+                         'group has %d (%s)'
+                         % (what, n, n, dist.get_world_size(),
+                            LAUNCH_HINT % (what, n, n, n, n)))
+    return pipe_mod.make_pipe_mesh(n, num_stages)
 
 
 def _rows(value, lo, hi):

@@ -33,9 +33,12 @@ store update key by key (the servers' optimizer, or the store's updater
 after the cross-process sum), with no FusedSGD; a local store over one
 device is no store at all.
 
-Not ported, each raising: sparse embedding tables (Queue A item 6c),
-and a data mesh inside each worker beside the parameter server or the
-dist runtime's host all-reduce across workers (the rest of 6b).
+`fit(pipeline=(S, M))` trains over a {'data', 'pipe'} mesh of the
+contexts' ranks through the GPipe engine (module/pipeline_fit.py).
+
+Not ported, raising: a data mesh inside each worker beside the parameter
+server or the dist runtime's host all-reduce across workers (the rest of
+6b).
 """
 import logging
 import os
@@ -668,6 +671,20 @@ class Module(BaseModule):
     def _single_step(self, data_batch):
         self.forward_backward(data_batch)
         self.update()
+
+    def _fit_pipeline(self, train_data, spec, eval_data, eval_metric,
+                      validation_metric, epoch_end_callback,
+                      batch_end_callback, eval_end_callback,
+                      eval_batch_end_callback, begin_epoch, num_epoch,
+                      bulk):
+        """fit(pipeline=(S, M)): the dp x pipe GPipe mode, the symbol's
+        chain partitioned into stages (module/pipeline_fit.py)."""
+        from .pipeline_fit import fit_pipeline
+        return fit_pipeline(
+            self, train_data, spec, eval_data, eval_metric,
+            validation_metric, epoch_end_callback, batch_end_callback,
+            eval_end_callback, eval_batch_end_callback, begin_epoch,
+            num_epoch, bulk)
 
     def update(self):
         """The optimizer's update of every parameter with a gradient."""

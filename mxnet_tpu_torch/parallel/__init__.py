@@ -5,9 +5,10 @@ One process per rank in the default process group; a `Mesh` names axes
 over the ranks (`mesh.py`), the collectives run over an axis's group
 (`collectives.py`), ring attention shards the sequence (`ring_attention.py`),
 the transformer LM trains at dp x tp x sp (`transformer.py`), ZeRO-1
-shards the optimizer state over the data axis (`zero.py`), and sparse
-embedding tables stripe their rows over it (`embedding.py`). `pipeline`
-and `moe` are not ported yet (ROADMAP Queue A 6d): reaching them raises.
+shards the optimizer state over the data axis (`zero.py`), sparse
+embedding tables stripe their rows over it (`embedding.py`), the GPipe
+engine trains stages over a 'pipe' axis (`pipeline.py`), and switch-routed
+experts run over an 'expert' axis (`moe.py`).
 """
 from .mesh import (make_mesh, data_sharding, replicated, flat_sharding,
                    shard_batch, replicate_params, current_mesh,
@@ -16,19 +17,10 @@ from .ring_attention import ring_attention, full_attention
 from . import collectives
 from . import zero
 from . import embedding
-
-_UNPORTED = {'pipeline': '6d', 'moe': '6d'}
-
-
-def __getattr__(name):
-    if name in _UNPORTED:
-        from ..base import unported
-        raise unported('mxnet_tpu_torch.parallel.%s (item %s)'
-                       % (name, _UNPORTED[name]), '6')
-    raise AttributeError('module %r has no attribute %r' % (__name__, name))
-
+from . import pipeline
+from . import moe
 
 __all__ = ['make_mesh', 'data_sharding', 'replicated', 'flat_sharding',
            'shard_batch', 'replicate_params', 'current_mesh',
            'set_current_mesh', 'ring_attention', 'full_attention',
-           'collectives', 'zero', 'embedding']
+           'collectives', 'zero', 'embedding', 'pipeline', 'moe']

@@ -53,7 +53,6 @@ import torch
 import torch.distributed as dist
 
 from .. import profiler
-from ..base import unported
 from .mesh import current_mesh
 
 _ZERO_BUCKET_MB = 32.0      # the JAX package's zero.DEFAULT_BUCKET_MB
@@ -452,26 +451,98 @@ def row_shard_constraint(x, mesh, axis='data'):
     return x[lo:hi]
 
 
+def _expert_mesh(axis):
+    """The mesh an expert-parallel block runs over: the fused step's data
+    mesh for 'data', else the current mesh, when `axis` has more than
+    one rank on it; else None."""
+    from .mesh import current_data_mesh
+    for mesh in ((current_data_mesh() if axis == 'data' else None),
+                 current_mesh()):
+        if mesh is not None and mesh.shape.get(axis, 1) > 1:
+            return mesh
+    return None
+
+
+def expert_range(n, axis='data'):
+    """(lo, hi): the experts of n this rank computes over `axis` of the
+    expert mesh (contiguous, as even as n allows); (0, n) without one."""
+    mesh = _expert_mesh(axis)
+    if mesh is None:
+        return 0, n
+    size, i = mesh.axis_size(axis), mesh.axis_index(axis)
+    return i * n // size, (i + 1) * n // size
+
+
+class _ExpertShard(torch.autograd.Function):
+    """This rank's experts of the sum over the axis; the cotangent of
+    every rank's block is every rank's input's."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim, lo, hi):
+        ctx.args = (mesh, axis, dim, lo, hi, tuple(x.shape))
+        return _all_reduce(x, mesh, axis).narrow(dim, lo, hi - lo) \
+            .contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, dim, lo, hi, shape = ctx.args
+        full = g.new_zeros(shape)
+        full.narrow(dim, lo, hi - lo).copy_(g)
+        return _all_reduce(full, mesh, axis), None, None, None, None, None
+
+
+class _ExpertGather(torch.autograd.Function):
+    """Every rank's experts joined; each rank's cotangent covers only its
+    own tokens, so a block's is their sum over the axis."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim, lo, n):
+        ctx.args = (mesh, axis, dim, lo, x.shape[dim])
+        shape = list(x.shape)
+        shape[dim] = n
+        full = x.new_zeros(shape)
+        full.narrow(dim, lo, x.shape[dim]).copy_(x)
+        return _all_reduce(full, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, dim, lo, size = ctx.args
+        return (_all_reduce(g, mesh, axis).narrow(dim, lo, size)
+                .contiguous(), None, None, None, None, None)
+
+
 def expert_shard(x, dim=0, axis='data'):
-    """Used only by gluon.nn.MoE (ROADMAP Queue A 6d): the identity
-    without an active mesh, as in JAX."""
-    mesh = current_mesh()
-    if mesh is None or axis not in mesh.shape:
+    """The expert-parallel dispatch of gluon.nn.MoE: over the fused
+    step's data mesh (or the current mesh's `axis`), this rank's experts
+    (expert_range) of the sum over the axis of every rank's (E, C, D)
+    buffer, which holds each rank's tokens at their global slots; the
+    identity without one. Its gradient gives every rank the whole
+    buffer's cotangent."""
+    mesh = _expert_mesh(axis)
+    if mesh is None:
         return x
-    n = mesh.shape[axis]
-    if n <= 1 or x.shape[dim] % n:
+    lo, hi = expert_range(x.shape[dim], axis)
+    return _ExpertShard.apply(x, mesh, axis, dim, lo, hi)
+
+
+def expert_gather(x, num_experts, dim=0, axis='data'):
+    """The inverse of expert_shard: every rank's experts' outputs joined
+    into the (E, C, D) buffer on every rank; the identity without a
+    mesh. Its gradient sums each block's cotangent over the axis."""
+    mesh = _expert_mesh(axis)
+    if mesh is None:
         return x
-    raise unported('expert_shard over a mesh (item 6d, gluon.nn.MoE)',
-                   '6')
+    lo, _ = expert_range(num_experts, axis)
+    return _ExpertGather.apply(x, mesh, axis, dim, lo, num_experts)
 
 
 def replicate_constraint(x):
-    """Used only by gluon.nn.MoE (ROADMAP Queue A 6d): the identity
-    without an active mesh."""
-    if current_mesh() is None:
-        return x
-    raise unported('replicate_constraint over a mesh (item 6d, '
-                   'gluon.nn.MoE)', '6')
+    """A parameter held whole on every rank: the identity. In the JAX
+    package it pins the expert weights replicated against the sharded
+    dispatch; here every rank holds them whole already, and their
+    gradients are summed over the data mesh with every other
+    parameter's (GradReduce)."""
+    return x
 
 
 # -- the ZeRO-1 wire ---------------------------------------------------------

@@ -20,8 +20,10 @@ one GPU); a gloo group carries CUDA tensors through pinned host memory
 unless the caller passes one, and without CUDA the entry points raise
 unless they are given `device='cpu'`.
 """
+import gc
 import os
 import socket
+import sys
 import threading
 
 import numpy as np
@@ -129,15 +131,28 @@ def _spawned_rank(rank, fn, world_size, init_file, device, args):
     try:
         fn(rank, *args)
     finally:
+        # what fn left in reference cycles (a fused step and its trainer)
+        # goes before the group does, not at the interpreter's exit
+        gc.collect()
         destroy_process_group()
+    # a rank that returned exits here, as a forked process does: the
+    # interpreter's teardown can destroy a thread still joinable and
+    # abort the process after its work is done (ROADMAP Queue C2: the
+    # owner is not found; ranks of other launchers are not covered)
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
 
 
 def spawn(fn, world_size, init_file, args=(), device=None):
     """Run fn(rank, *args) in world_size new processes on this host, each
     in the default group (a `file://` rendezvous at init_file, which must
     not exist yet), on `device` or cuda:rank % device_count. fn must be
-    importable by name (a module's top-level function). Raises when a
-    rank fails."""
+    importable by name (a module's top-level function). A rank whose fn
+    returned leaves its group and exits at once (os._exit, after
+    flushing stdout and stderr; no atexit handlers run), which keeps an
+    abort at interpreter exit off ranks whose work is done (ROADMAP
+    Queue C2). Raises when a rank fails."""
     import torch.multiprocessing as mp
     mp.spawn(_spawned_rank, args=(fn, world_size, str(init_file), device,
                                   tuple(args)),
@@ -278,6 +293,18 @@ class data_mesh_scope:
 
 
 _WORLD_MESH = {}
+
+
+def shared_mesh(shape, device=None):
+    """make_mesh(shape, device=device) made once per default group (a
+    collective: every rank asks for it at the same point); the meshes
+    are dropped with the group (destroy_process_group)."""
+    key = (id(dist.group.WORLD), dist.get_world_size(),
+           tuple(shape.items()), None if device is None else str(device))
+    mesh = _WORLD_MESH.get(key)
+    if mesh is None:
+        mesh = _WORLD_MESH[key] = make_mesh(shape, device=device)
+    return mesh
 
 
 def world_data_mesh():

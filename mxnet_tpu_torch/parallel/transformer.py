@@ -127,6 +127,28 @@ def _rmsnorm(x, scale):
     return x * torch.rsqrt(var + 1e-6) * scale
 
 
+def block_apply(lp, x, heads, head_dim, use_flash):
+    """One block on x (batch, seq, dim) with its parameters `lp` (a dict
+    of _LAYER_KEYS, or their tensors in that order): the function a
+    pipeline stage of the LM runs."""
+    if not isinstance(lp, dict):
+        lp = dict(zip(_LAYER_KEYS, lp))
+    b, t, _ = x.shape
+    h = _rmsnorm(x, lp['ln1'])
+    q, k, v = (h @ lp['wqkv']).chunk(3, dim=-1)
+
+    def split_heads(z):
+        return z.reshape(b, t, heads, head_dim).transpose(1, 2)
+
+    att = full_attention(split_heads(q), split_heads(k), split_heads(v),
+                         causal=True, use_flash=use_flash)
+    att = att.transpose(1, 2).reshape(b, t, heads * head_dim)
+    x = x + att @ lp['wo']
+    h = _rmsnorm(x, lp['ln2'])
+    y = F.gelu(h @ lp['w1'], approximate='tanh')   # jax.nn.gelu's default
+    return x + y @ lp['w2']
+
+
 class _Block(nn.Module):
     def __init__(self, lp):
         super().__init__()
@@ -134,20 +156,8 @@ class _Block(nn.Module):
             self.register_parameter(key, nn.Parameter(lp[key]))
 
     def forward(self, x, heads, head_dim, use_flash):
-        b, t, _ = x.shape
-        h = _rmsnorm(x, self.ln1)
-        q, k, v = (h @ self.wqkv).chunk(3, dim=-1)
-
-        def split_heads(z):
-            return z.reshape(b, t, heads, head_dim).transpose(1, 2)
-
-        att = full_attention(split_heads(q), split_heads(k), split_heads(v),
-                             causal=True, use_flash=use_flash)
-        att = att.transpose(1, 2).reshape(b, t, heads * head_dim)
-        x = x + att @ self.wo
-        h = _rmsnorm(x, self.ln2)
-        y = F.gelu(h @ self.w1, approximate='tanh')   # jax.nn.gelu's default
-        return x + y @ self.w2
+        return block_apply({key: getattr(self, key) for key in _LAYER_KEYS},
+                           x, heads, head_dim, use_flash)
 
 
 class TransformerLM(nn.Module):
@@ -181,6 +191,54 @@ def nll(logits, targets):
     """Mean negative log-likelihood of `targets` (batch, seq) under
     `logits` (batch, seq, vocab), taken in float32."""
     return F.cross_entropy(logits.float().flatten(0, 1), targets.flatten())
+
+
+def pipe_lm_fns(cfg, num_stages):
+    """(stem_fn, stage_fn, head_fn) of the LM cut into num_stages stages of
+    layers / num_stages blocks each, for pipeline.make_pipe_step_fn: the
+    stem is the embedding lookup (stem leaves [embed]), a stage its
+    blocks (six leaves a block, _LAYER_KEYS order), the head RMSNorm
+    ln_f, the logits x @ head_w^T and the mean NLL (head leaves [ln_f,
+    head_w]). The head's projection is a leaf of its own: the engine
+    updates stem and head leaves apart, so an LM tied there trains as
+    the untied one (pipe_lm_leaves starts head_w equal to embed). The
+    loss leaves are ([nll],) and the differentiated total the nll."""
+    if cfg['layers'] % num_stages:
+        raise ValueError('%d layers do not split into %d stages'
+                         % (cfg['layers'], num_stages))
+    per = cfg['layers'] // num_stages
+    n = len(_LAYER_KEYS)
+
+    def stem_fn(ws, tokens, rng):
+        return ws[0][tokens]
+
+    def stage_fn(ws, x, rng):
+        for i in range(per):
+            x = block_apply(ws[i * n:(i + 1) * n], x, cfg['heads'],
+                            cfg['head_dim'], cfg['use_flash'])
+        return x
+
+    def head_fn(ws, x, targets, rng):
+        loss = nll(_rmsnorm(x, ws[0]) @ ws[1].t(), targets)
+        return [loss], loss
+
+    return stem_fn, stage_fn, head_fn
+
+
+def pipe_lm_leaves(params, num_stages):
+    """The LM tree (init_params / params_from_jax) as the pipelined LM's
+    leaves: ([stage s's leaves for each s], [embed], [ln_f, head_w]),
+    head_w a copy of embed."""
+    layers = params['layers']
+    per = len(layers) // num_stages
+    stages = []
+    for s in range(num_stages):
+        leaves = []
+        for lp in layers[s * per:(s + 1) * per]:
+            leaves.extend(lp[key] for key in _LAYER_KEYS)
+        stages.append(leaves)
+    return stages, [params['embed']], [params['ln_f'],
+                                       params['embed'].clone()]
 
 
 def make_train_step(cfg, mesh=None, lr=0.1):

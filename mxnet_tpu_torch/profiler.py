@@ -19,11 +19,12 @@ self-healing fleet's (supervisor, router, canary), the train -> serve
 loop's, the hot-swap and host-hiding counters, the bucketed-training
 and the input pipeline's counters, the elastic checkpoints', the dist
 runtime's, the weight deltas', the mesh collectives', the fused Gluon
-step's and the sparse embedding tier's; `summary()` prints them, and
-`dump_profile` writes each as a metadata event ('exec_cache',
-'serving', 'fleet', 'quant', 'fleet_supervisor', 'loop', 'overlap',
-'bucketing', 'input_pipeline', 'checkpoint', 'dist', 'delta', 'mesh',
-'comm', 'gluon_fused', 'embed'). The fused Gluon step's spans have the
+step's, the pipeline's, the mixture of experts' and the sparse
+embedding tier's; `summary()` prints them, and `dump_profile` writes
+each as a metadata event ('exec_cache', 'serving', 'fleet', 'quant',
+'fleet_supervisor', 'loop', 'overlap', 'bucketing', 'input_pipeline',
+'checkpoint', 'dist', 'delta', 'mesh', 'comm', 'gluon_fused',
+'pipeline', 'moe', 'embed'). The fused Gluon step's spans have the
 category 'gluon_fused'.
 """
 import json
@@ -730,6 +731,89 @@ def comm_stats():
         return dict(_COMM)
 
 
+# pipeline-parallel counters (parallel/pipeline.py, both pipelined
+# trainers; one call a pipelined dispatch). stages, num_micro,
+# bubble_frac and the per-rank parameter and optimizer-state bytes are
+# gauges (the last dispatch's); the rest accumulate. bubble_frac is the
+# fill-drain schedule's (S-1)/(M+S-1): the share of its ticks on which a
+# stage has no microbatch (the port runs nothing on them)
+_PIPE = {
+    'pipe_dispatches': 0,
+    'pipe_steps': 0,
+    'pipe_microbatches': 0,
+    'pipe_stages': 0,
+    'pipe_num_micro': 0,
+    'pipe_bubble_frac': 0.0,
+    'pipe_param_bytes_per_device': 0,
+    'pipe_state_bytes_per_device': 0,
+}
+
+
+def note_pipe_dispatch(stages, micro, k, bubble_frac, param_bytes=0,
+                       state_bytes=0):
+    """One pipelined dispatch of k steps (the Gluon and Module paths
+    share it)."""
+    with _STATE['lock']:
+        _PIPE['pipe_dispatches'] += 1
+        _PIPE['pipe_steps'] += int(k)
+        _PIPE['pipe_microbatches'] += int(micro) * int(k)
+        _PIPE['pipe_stages'] = int(stages)
+        _PIPE['pipe_num_micro'] = int(micro)
+        _PIPE['pipe_bubble_frac'] = float(bubble_frac)
+        if param_bytes:
+            _PIPE['pipe_param_bytes_per_device'] = int(param_bytes)
+        if state_bytes:
+            _PIPE['pipe_state_bytes_per_device'] = int(state_bytes)
+
+
+def pipe_stats():
+    """Snapshot of the pipeline counters (also in summary() and
+    dump_profile's 'pipeline' lane)."""
+    with _STATE['lock']:
+        return dict(_PIPE)
+
+
+# mixture-of-experts counters (gluon.nn.MoE through the fused step):
+# tokens routed to an expert and tokens dropped at its capacity (they
+# ride the residual, silently otherwise), and the per-expert table
+_MOE = {
+    'moe_routed_tokens': 0,
+    'moe_dropped_tokens': 0,
+    'moe_dispatches': 0,
+}
+_MOE_EXPERTS = {}       # 'e<i>' -> {'routed': n, 'dropped': n}
+
+
+def add_moe_stats(routed=0, dropped=0, per_expert_routed=None,
+                  per_expert_dropped=None, dispatches=0):
+    """Accumulate the routing counters (the fused step feeds one call a
+    dispatch from the blocks' count deltas)."""
+    with _STATE['lock']:
+        _MOE['moe_routed_tokens'] += int(routed)
+        _MOE['moe_dropped_tokens'] += int(dropped)
+        _MOE['moe_dispatches'] += int(dispatches)
+        for key, vals in (('routed', per_expert_routed),
+                          ('dropped', per_expert_dropped)):
+            if vals is None:
+                continue
+            for i, v in enumerate(vals):
+                e = _MOE_EXPERTS.setdefault('e%d' % i,
+                                            {'routed': 0, 'dropped': 0})
+                e[key] += int(v)
+
+
+def moe_stats():
+    """Snapshot of the routing counters, the drop fraction and the
+    per-expert table."""
+    with _STATE['lock']:
+        out = dict(_MOE)
+        out['moe_experts'] = {k: dict(v) for k, v in _MOE_EXPERTS.items()}
+    total = out['moe_routed_tokens'] + out['moe_dropped_tokens']
+    out['moe_drop_frac'] = \
+        out['moe_dropped_tokens'] / total if total else 0.0
+    return out
+
+
 
 def summary(print_out=True):
     """Human-readable profile summary: span time by category, then the
@@ -848,6 +932,26 @@ def summary(print_out=True):
                  'gluon_fused_steps_per_dispatch=%.2f'
                  % (gf['gluon_fused_steps'], gf['gluon_fused_dispatches'],
                     gf['gluon_fused_steps_per_dispatch']))
+    pi = pipe_stats()
+    lines.append('  pipe_dispatches=%d pipe_steps=%d '
+                 'pipe_microbatches=%d pipe_stages=%d '
+                 'pipe_num_micro=%d pipe_bubble_frac=%.3f '
+                 'pipe_param_bytes_per_device=%d '
+                 'pipe_state_bytes_per_device=%d'
+                 % (pi['pipe_dispatches'], pi['pipe_steps'],
+                    pi['pipe_microbatches'], pi['pipe_stages'],
+                    pi['pipe_num_micro'], pi['pipe_bubble_frac'],
+                    pi['pipe_param_bytes_per_device'],
+                    pi['pipe_state_bytes_per_device']))
+    mo = moe_stats()
+    lines.append('  moe_routed_tokens=%d moe_dropped_tokens=%d '
+                 'moe_drop_frac=%.3f moe_dispatches=%d'
+                 % (mo['moe_routed_tokens'], mo['moe_dropped_tokens'],
+                    mo['moe_drop_frac'], mo['moe_dispatches']))
+    for ek in sorted(mo['moe_experts'], key=lambda s: int(s[1:])):
+        e = mo['moe_experts'][ek]
+        lines.append('    expert %-4s routed=%d dropped=%d'
+                     % (ek, e['routed'], e['dropped']))
     em = embed_stats()
     lines.append('  embed_steps=%d embed_lookups=%d embed_unique_rows=%d '
                  'embed_touched_bytes=%d embed_dense_equiv_bytes=%d '
@@ -988,6 +1092,10 @@ def dump_profile():
                'args': comm_stats()},
               {'ph': 'M', 'name': 'gluon_fused', 'pid': 0,
                'args': gluon_fused_stats()},
+              {'ph': 'M', 'name': 'pipeline', 'pid': 0,
+               'args': pipe_stats()},
+              {'ph': 'M', 'name': 'moe', 'pid': 0,
+               'args': moe_stats()},
               {'ph': 'M', 'name': 'embed', 'pid': 0,
                'args': embed_stats()}]
     with _STATE['lock']:
@@ -1043,6 +1151,11 @@ def clear():
                   _GLUON_FUSED):
             for k in d:
                 d[k] = type(d[k])()
+        for k in _PIPE:
+            _PIPE[k] = type(_PIPE[k])()
+        for k in _MOE:
+            _MOE[k] = 0
+        _MOE_EXPERTS.clear()
         del _SERVE_LAT[:]
         _SERVE_LAT_POS[0] = 0
 

@@ -163,14 +163,18 @@ def collectives_suite(rank, tmp_path):
     # a sparse table's stripe over the data axis: rows [r*s, (r+1)*s)
     res['row_stripe'] = C.row_shard_constraint(
         torch.arange(20.0).reshape(10, 2), d)
-    for name, fn in (('expert', lambda: C.expert_shard(
-                         torch.zeros(4, 2), 0)),
-                     ('replicate', lambda: C.replicate_constraint(x))):
-        try:
-            with M.use_mesh(d):
-                fn()
-        except Exception as e:          # the test checks what it says
-            res['refusal_' + name] = str(e)
+    # the expert-parallel pair over the data axis: this rank's experts of
+    # the sum of every rank's buffer, and every rank's blocks joined back
+    buf = torch.arange(8.0).reshape(4, 2) * (rank + 1)
+    with M.use_mesh(d):
+        block = C.expert_shard(buf.requires_grad_(), 0)
+        back = C.expert_gather(block, 4)
+        res['expert_range'] = np.array(C.expert_range(4))
+        res['replicate_is_x'] = C.replicate_constraint(x) is x
+    res['expert_block'] = block
+    res['expert_back'] = back
+    res['expert_grad'], = torch.autograd.grad(
+        (back * (rank + 1)).sum(), buf)
     _save(tmp_path, rank, res)
 
 
@@ -903,6 +907,528 @@ def gluon_fused_suite(rank, tmp_path):
         for k, v in args.items():
             res['mf__' + k] = v.asnumpy()
     _save(tmp_path, rank, res)
+
+
+# -- pipeline and expert parallelism ---------------------------------------
+
+PP_BATCH, PP_FEAT, PP_UNITS, PP_NCLS = 8, 6, 12, 4
+PP_OPT = {'learning_rate': 0.1, 'momentum': 0.9, 'wd': 1e-3}
+PP_LM = dict(vocab=64, dim=32, heads=4, layers=4, mlp_mult=4)
+PP_LM_HYPER = dict(momentum=0.9, clip=None, nesterov=False)
+PP_LM_LR, PP_LM_WD, PP_LM_STEPS, PP_LM_MICRO = 0.1, 1e-3, 2, 2
+
+
+def pp_net(pkg, ctx=None, body=4, act='tanh', moe=False, bn=False):
+    """tests/test_pipeline_train.py's nets: a stem Dense, `body`
+    identical Dense layers (act, or relu / tanh alternating for
+    act='mixed'), a head Dense; moe: two MoE blocks for the body; bn:
+    two BatchNorms."""
+    nn = pkg.gluon.nn
+    net = nn.HybridSequential()
+    with net.name_scope():
+        if moe:
+            net.add(nn.MoE(PP_FEAT, 2 * PP_FEAT, num_experts=2))
+            net.add(nn.MoE(PP_FEAT, 2 * PP_FEAT, num_experts=2))
+            net.add(nn.Dense(PP_NCLS, in_units=PP_FEAT))
+        elif bn:
+            net.add(nn.Dense(PP_UNITS, in_units=PP_FEAT))
+            net.add(nn.BatchNorm(in_channels=PP_UNITS))
+            net.add(nn.BatchNorm(in_channels=PP_UNITS))
+            net.add(nn.Dense(PP_NCLS, in_units=PP_UNITS))
+        else:
+            net.add(nn.Dense(PP_UNITS, activation='relu', in_units=PP_FEAT))
+            for i in range(body):
+                a = act if act != 'mixed' else ('tanh', 'relu')[i % 2]
+                net.add(nn.Dense(PP_UNITS, activation=a, in_units=PP_UNITS))
+            net.add(nn.Dense(PP_NCLS, in_units=PP_UNITS))
+    net.initialize(ctx=ctx)
+    if not (moe or bn):
+        rs = np.random.RandomState(5)
+        for _, p in sorted(net.collect_params().items()):
+            p.set_data(pkg.nd.array(
+                (rs.rand(*p.shape).astype(np.float32) - 0.5) * 0.4))
+    return net
+
+
+def pp_batches(k=3, seed=42):
+    rs = np.random.RandomState(seed)
+    return [(rs.rand(PP_BATCH, PP_FEAT).astype(np.float32),
+             (rs.rand(PP_BATCH) * PP_NCLS).astype(np.float32))
+            for _ in range(k)]
+
+
+def pp_pvals(net):
+    return [np.array(p.list_data()[0]._data.detach().float().cpu().numpy()
+                     if hasattr(p.list_data()[0]._data, 'detach')
+                     else p.list_data()[0].asnumpy(), np.float32)
+            for _, p in sorted(net.collect_params().items())]
+
+
+def pp_train(pkg, ctx, pipeline=None, zero=None, bulk=False, k=3):
+    """The pipelined (or one-device) fused step over pp_batches(k);
+    (net, step, last loss)."""
+    net = pp_net(pkg, ctx)
+    tr = pkg.gluon.Trainer(net.collect_params(), 'sgd', dict(PP_OPT))
+    fs = pkg.gluon.fuse_step(net, pkg.gluon.loss.SoftmaxCrossEntropyLoss(),
+                             tr, pipeline=pipeline, zero=zero)
+    bs = pp_batches(k)
+    if bulk:
+        loss = fs.bulk(pkg.nd.array(np.stack([x for x, _ in bs])),
+                       pkg.nd.array(np.stack([y for _, y in bs])))
+    else:
+        for x, y in bs:
+            loss = fs(pkg.nd.array(x), pkg.nd.array(y))
+    if pipeline is not None and hasattr(fs, 'sync_params') and \
+            type(fs).__module__.startswith('mxnet_tpu_torch'):
+        fs.sync_params()
+    return net, fs, loss
+
+
+def pp_chain_symbol(pkg):
+    S = pkg.sym
+    d = S.Variable('data')
+    h = S.FullyConnected(d, name='stem', num_hidden=PP_UNITS)
+    h = S.Activation(h, act_type='relu')
+    for i in range(4):
+        h = S.FullyConnected(h, name='body%d' % i, num_hidden=PP_UNITS)
+        h = S.Activation(h, act_type='tanh')
+    h = S.FullyConnected(h, name='out', num_hidden=PP_NCLS)
+    return S.SoftmaxOutput(h, name='softmax')
+
+
+def pp_fit(pkg, ctx, pipeline=None, bulk=None):
+    """Module.fit of the chain over three batches, one epoch; the
+    parameters by name."""
+    sym = pp_chain_symbol(pkg)
+    arg_shapes, _, _ = sym.infer_shape(data=(PP_BATCH, PP_FEAT))
+    rs = np.random.RandomState(5)
+    args = {n: pkg.nd.array((rs.rand(*sh).astype(np.float32) - 0.5) * 0.4)
+            for n, sh in zip(sym.list_arguments(), arg_shapes)
+            if n not in ('data', 'softmax_label')}
+    bs = pp_batches(3)
+    X = np.concatenate([x for x, _ in bs])
+    y = np.concatenate([t for _, t in bs])
+    it = pkg.io.NDArrayIter(X, y, batch_size=PP_BATCH)
+    mod = pkg.mod.Module(sym, context=ctx)
+    mod.fit(it, num_epoch=1, optimizer='sgd', optimizer_params=dict(PP_OPT),
+            arg_params={k: v.copy() for k, v in args.items()},
+            initializer=None, pipeline=pipeline, bulk=bulk)
+    ap, _ = mod.get_params()
+    return {k: np.array(v.asnumpy(), np.float32) for k, v in ap.items()}
+
+
+def chip_smoke():
+    """chip_smoke.py at the repo's root, as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        'chip_smoke', os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), 'chip_smoke.py'))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def pp_lm_planted(inp, mesh):
+    """chip_smoke's phase-32 plants (PIPE_PLANTS) in the float32
+    pipelined LM on `mesh`: for each, whether this rank's final leaves
+    pass chip_smoke.updates_within at MESH_UPDATE_RTOL against the clean
+    run's, and the clean run against itself."""
+    cs = chip_smoke()
+    from mxnet_tpu_torch.parallel import collectives
+    from mxnet_tpu_torch.parallel import pipeline as pp
+    cfg = tfm.lm_config(use_flash=True, **PP_LM)
+    S = mesh.shape['pipe']
+    rows = inp['lm_tok'].shape[0] // (mesh.shape['data'] * PP_LM_MICRO)
+    stages, stem, head = tfm.pipe_lm_leaves(_tree(inp, 'lmp_'), S)
+    init = ([w[None].clone() for w in stages[mesh.axis_index('pipe')]],
+            stem, head)
+    old = [w[0] for w in init[0]] + stem + head
+    tokens, targets = torch.from_numpy(inp['lm_tok']), \
+        torch.from_numpy(inp['lm_tgt'])
+
+    def run(plant):
+        fns = tfm.pipe_lm_fns(cfg, S)
+        if plant in ('drop', 'double'):
+            fns = cs.pipe_planted_fns(torch, fns, plant, rows=rows)
+        step = pp.make_pipe_step_fn(mesh, S, PP_LM_MICRO, *fns, dict(
+            PP_LM_HYPER, rescale=1.0 / mesh.shape['data']))
+        ws, st, hd = ([w.clone() for w in t] for t in init)
+        opt = pp.init_pipe_opt_state(mesh, None, S, ws, st, hd)
+        n = len(ws) + len(st) + len(hd)
+        rng = 0
+        with cs.pipe_unsummed(collectives) if plant == 'unsummed' else \
+                cs.contextlib.nullcontext():
+            for _ in range(PP_LM_STEPS):
+                _, ws, st, hd, opt, rng = step(
+                    ws, st, hd, opt, rng, tokens, targets,
+                    [PP_LM_LR] * n, [PP_LM_WD] * n)
+        return [w[0] for w in ws] + st + hd
+
+    clean = run(None)
+    out = {'clean': cs.updates_within(torch, clean, old, clean,
+                                      cs.MESH_UPDATE_RTOL)['ok']}
+    for plant in cs.PIPE_PLANTS:
+        out[plant] = cs.updates_within(torch, run(plant), old, clean,
+                                       cs.MESH_UPDATE_RTOL)['ok']
+    return out
+
+
+def pp_lm_run(inp, mesh, use_flash, zero=False, bulk=False):
+    """PP_LM_STEPS steps of the pipelined LM (transformer.pipe_lm_fns)
+    on `mesh` from the numpy tree in inp ('lmp_*'); every stage's leaves
+    gathered over 'pipe', the stem and head leaves, the losses."""
+    from mxnet_tpu_torch.parallel import pipeline as pp
+    from mxnet_tpu_torch.parallel import zero as zmod
+    cfg = tfm.lm_config(use_flash=use_flash, **PP_LM)
+    S = mesh.shape['pipe']
+    dp = mesh.shape['data']
+    stages, stem, head = tfm.pipe_lm_leaves(_tree(inp, 'lmp_'), S)
+    stage_ws = [w[None].clone() for w in stages[mesh.axis_index('pipe')]]
+    hyper = dict(PP_LM_HYPER, rescale=1.0 / dp)
+    layout = None
+    if zero:
+        ws = stage_ws + stem + head
+        layout = zmod.ZeroBucketLayout(
+            [tuple(w.shape[1:]) for w in stage_ws] +
+            [tuple(w.shape) for w in stem + head],
+            [w.dtype for w in ws], [False] * len(ws), dp)
+    step = pp.make_pipe_step_fn(mesh, S, PP_LM_MICRO, *tfm.pipe_lm_fns(
+        cfg, S), hyper, layout=layout, bulk=bulk)
+    opt = pp.init_pipe_opt_state(mesh, layout, S, stage_ws, stem, head)
+    n = len(stage_ws) + len(stem) + len(head)
+    tokens, targets = torch.from_numpy(inp['lm_tok']), \
+        torch.from_numpy(inp['lm_tgt'])
+    losses = []
+    rng = 0
+    if bulk:
+        lrs = np.full((PP_LM_STEPS, n), PP_LM_LR, np.float32)
+        wds = np.full((PP_LM_STEPS, n), PP_LM_WD, np.float32)
+        leaves, stage_ws, stem, head, opt, rng = step(
+            stage_ws, stem, head, opt, rng,
+            tokens[None].expand(PP_LM_STEPS, -1, -1),
+            targets[None].expand(PP_LM_STEPS, -1, -1), lrs, wds)
+        losses = leaves[0].reshape(PP_LM_STEPS, -1)
+    else:
+        for _ in range(PP_LM_STEPS):
+            leaves, stage_ws, stem, head, opt, rng = step(
+                stage_ws, stem, head, opt, rng, tokens, targets,
+                [PP_LM_LR] * n, [PP_LM_WD] * n)
+            losses.append(leaves[0].reshape(-1))
+        losses = torch.stack(losses)
+    # each data rank's mean NLL: the first's, and their mean (the
+    # global batch's)
+    out = {'losses': losses[:, 0].numpy(),
+           'losses_mean': losses.mean(dim=1).numpy()}
+    for j, w in enumerate(stage_ws):
+        out['stage%d' % j] = C._all_gather(w.contiguous(), mesh, 'pipe', 0) \
+            .numpy()
+    for j, w in enumerate(stem + head):
+        out['edge%d' % j] = w.numpy()
+    return out
+
+
+def pipeline_suite(rank, tmp_path):
+    """The pipelined trainers over four gloo ranks: the Gluon step at
+    dp x pipe 2 x 2 and 1 x 4, ZeRO-1, bulk, a re-created trainer, the
+    int8 and bf16 wires, sync_params, the refusals and the counters;
+    Module.fit(pipeline=); pipeline_run and make_pipeline_train_step
+    over a pipe axis of 4; the pipelined LM (make_pipe_step_fn) at 2 x 2
+    and 1 x 4, flash and plain, ZeRO-1 and bulk."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import exec_cache
+    from mxnet_tpu_torch.base import MXNetError
+    from mxnet_tpu_torch.parallel import pipeline as pp
+    inp = _inputs(tmp_path)
+    res = {}
+    ctx4 = [mx.cpu(i) for i in range(4)]
+
+    def err(fn):
+        try:
+            fn()
+        except (ValueError, MXNetError, NotImplementedError) as e:
+            return '%s: %s' % (type(e).__name__, e)
+        return 'no error'
+
+    with mx.cpu():
+        for name, kw in (('g22', dict(pipeline=(2, 2))),
+                         ('g14', dict(pipeline=(4, 2))),
+                         ('g22b', dict(pipeline=(2, 2), bulk=True)),
+                         ('g22z', dict(pipeline=(2, 2), zero=1))):
+            net, fs, loss = pp_train(mx, ctx4, **kw)
+            _put(res, name, pp_pvals(net))
+            res[name + '_loss'] = loss.asnumpy()
+            res[name + '_acct'] = np.array(fs._pipe_state_accounting())
+        res['repl_bytes'] = sum(int(np.prod(p.shape)) * 4 for p in
+                                net.collect_params().values())
+        # a re-created ZeRO trainer: the same bits, the same computation's
+        # fingerprint and step signatures, nothing in exec_cache
+        def keys(fs):
+            d = fs._dispatch
+            return repr((d.fingerprint, sorted(map(repr, d.fns))))
+
+        key0, n_cached = keys(fs), exec_cache.size()
+        net, fs, _ = pp_train(mx, ctx4, pipeline=(2, 2), zero=1)
+        _put(res, 'g22z2', pp_pvals(net))
+        res['recreate_same_key'] = keys(fs) == key0
+        res['recreate_cache_entries'] = exec_cache.size() - n_cached
+        # sync_params, then an eager forward, then a step on the step
+        # function already built
+        net, fs, _ = pp_train(mx, ctx4, pipeline=(2, 2), k=2)
+        _put(res, 'sync', pp_pvals(net))
+        x, y = pp_batches(1)[0]
+        res['eager_shape'] = np.array(net(mx.nd.array(x)).shape)
+        n_fns = len(fs._dispatch.fns)
+        fs(mx.nd.array(x), mx.nd.array(y))
+        res['resync_new_fns'] = len(fs._dispatch.fns) - n_fns
+        # the int8 and bf16 wires of the data-axis sum
+        for wire in ('int8', 'bf16'):
+            os.environ['MXNET_TPU_DIST_WIRE_DTYPE'] = wire
+            try:
+                for run in (0, 1):
+                    net, _, _ = pp_train(mx, ctx4, pipeline=(2, 2))
+                    _put(res, 'w%s%d' % (wire, run), pp_pvals(net))
+            finally:
+                del os.environ['MXNET_TPU_DIST_WIRE_DTYPE']
+        # MXNET_TPU_PIPE picks the mode
+        os.environ['MXNET_TPU_PIPE'] = '2,2'
+        try:
+            net = pp_net(mx, ctx4)
+            tr = mx.gluon.Trainer(net.collect_params(), 'sgd', dict(PP_OPT))
+            res['env_kind'] = type(mx.gluon.fuse_step(
+                net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), tr)).__name__
+        finally:
+            del os.environ['MXNET_TPU_PIPE']
+        # refusals that need the mesh
+        loss = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+        def step_of(net):
+            tr = mx.gluon.Trainer(net.collect_params(), 'sgd', dict(PP_OPT))
+            return mx.gluon.fuse_step(net, loss, tr, pipeline=(2, 2))
+
+        fs = step_of(pp_net(mx, ctx4))
+        res['err_batch'] = err(lambda: fs(
+            mx.nd.array(np.zeros((6, PP_FEAT), np.float32)),
+            mx.nd.array(np.zeros((6,), np.float32))))
+        x, y = (mx.nd.array(a) for a in pp_batches(1)[0])
+        fs = step_of(pp_net(mx, ctx4, body=2, act='mixed'))
+        res['err_hetero'] = err(lambda: fs(x, y))
+        fs = step_of(pp_net(mx, ctx4, bn=True))
+        res['err_aux'] = err(lambda: fs(x, y))
+        fs = step_of(pp_net(mx, ctx4, moe=True))
+        res['err_moe'] = err(lambda: fs(x, y))
+        # the partition's, the loss's and the trainer's refusals
+        fs = step_of(pp_net(mx, ctx4, body=3))
+        res['err_odd_run'] = err(lambda: fs(x, y))
+        net = pp_net(mx, ctx4, body=1)
+        tr = mx.gluon.Trainer(net.collect_params(), 'sgd', dict(PP_OPT))
+        fs = mx.gluon.fuse_step(net, loss, tr, pipeline=(4, 2))
+        res['err_few_children'] = err(lambda: fs(x, y))
+        net = pp_net(mx, ctx4)
+        res['err_mp'] = err(lambda: mx.gluon.fuse_step(
+            net, loss, mx.gluon.Trainer(net.collect_params(), 'sgd', dict(
+                PP_OPT, multi_precision=True)), pipeline=(2, 2)))
+
+        class ParamLoss(mx.gluon.loss.SoftmaxCrossEntropyLoss):
+            def __init__(self):
+                super(ParamLoss, self).__init__()
+                self.scale = self.params.get('scale', shape=(1,))
+
+        net = pp_net(mx, ctx4)
+        fs = mx.gluon.fuse_step(net, ParamLoss(), mx.gluon.Trainer(
+            net.collect_params(), 'sgd', dict(PP_OPT)), pipeline=(2, 2))
+        res['err_loss_params'] = err(lambda: fs(x, y))
+        net = pp_net(mx, ctx4)
+        params = net.collect_params()
+        fs = mx.gluon.fuse_step(net, loss, mx.gluon.Trainer(
+            [p for k, p in sorted(params.items()) if 'dense0' not in k],
+            'sgd', dict(PP_OPT)), pipeline=(2, 2))
+        res['err_trainer_params'] = err(lambda: fs(x, y))
+        net = pp_net(mx, ctx4)
+        net[1].weight.lr_mult = 2.0
+        fs = step_of(net)
+        res['err_lr_mult'] = err(lambda: fs(x, y))
+        # the counters, the summary and the profile's lanes
+        profiler.clear()
+        profiler.profiler_set_state('run')
+        try:
+            pp_train(mx, ctx4, pipeline=(2, 2), k=2)
+        finally:
+            profiler.profiler_set_state('stop')
+        st = profiler.pipe_stats()
+        for key, v in st.items():
+            res['pipe_stat_' + key] = v
+        res['summary'] = profiler.summary(print_out=False)
+        fname = os.path.join(tmp_path, 'prof%d.json' % rank)
+        profiler.profiler_set_config(filename=fname)
+        profiler.dump_profile()
+        import json
+        with open(fname) as f:
+            lanes = {e.get('name'): e.get('args') for e in
+                     json.load(f)['traceEvents'] if e.get('ph') == 'M'}
+        res['lane_pipe_steps'] = lanes['pipeline']['pipe_steps']
+        res['lane_moe_keys'] = np.array(sorted(lanes['moe']))
+        # Module.fit(pipeline=)
+        for name, kw in (('m22', dict(pipeline=(2, 2))),
+                         ('m22b', dict(pipeline=(2, 2), bulk=3))):
+            for k, v in pp_fit(mx, ctx4, **kw).items():
+                res['%s__%s' % (name, k)] = v
+        sym = pp_chain_symbol(mx)
+        X = np.concatenate([a for a, _ in pp_batches(3)])
+        Y = np.concatenate([b for _, b in pp_batches(3)])
+        it = mx.io.NDArrayIter(X, Y, batch_size=PP_BATCH)
+        mod = mx.mod.Module(sym, context=ctx4)
+        res['err_monitor'] = err(lambda: mod.fit(
+            it, num_epoch=1, pipeline=(2, 2), monitor=mx.monitor.Monitor(1)))
+        d = mx.sym.Variable('data')
+        a = mx.sym.FullyConnected(d, name='a', num_hidden=PP_UNITS)
+        b = mx.sym.FullyConnected(d, name='b', num_hidden=PP_UNITS)
+        mod2 = mx.mod.Module(mx.sym.SoftmaxOutput(a + b, name='softmax'),
+                             context=ctx4)
+        it.reset()
+        res['err_branch'] = err(lambda: mod2.fit(
+            it, num_epoch=1, optimizer='sgd', optimizer_params=dict(PP_OPT),
+            pipeline=(2, 2)))
+        # the Module path's restrictions
+        h = mx.sym.BatchNorm(mx.sym.FullyConnected(
+            mx.sym.Variable('data'), name='fc', num_hidden=PP_UNITS),
+            name='bn')
+        cases = {
+            'aux': (mx.sym.SoftmaxOutput(h, name='softmax'), {}, {}),
+            'fixed': (sym, {'fixed_param_names': ['stem_weight']}, {}),
+            'mp': (sym, {}, {'optimizer_params': dict(
+                PP_OPT, multi_precision=True)}),
+            'ckpt': (sym, {}, {'checkpoint': object()})}
+        for name, (msym, mkw, fkw) in sorted(cases.items()):
+            it.reset()
+            fkw.setdefault('optimizer_params', dict(PP_OPT))
+            m = mx.mod.Module(msym, context=ctx4, **mkw)
+            res['err_mod_' + name] = err(lambda: m.fit(
+                it, num_epoch=1, optimizer='sgd', pipeline=(2, 2), **fkw))
+    # pipeline_run and the plain pipeline step over a pipe axis of 4
+    mesh = M.make_mesh({'pipe': 4}, device='cpu')
+    ws = [_t(inp['seq_w%d' % s]) for s in range(4)]
+    bs = [_t(inp['seq_b%d' % s]) for s in range(4)]
+    me = mesh.axis_index('pipe')
+    micro = _t(inp['seq_x'], grad=True)
+    w, b = ws[me].clone().requires_grad_(), bs[me].clone().requires_grad_()
+    outs = pp.pipeline_run(lambda p, v: torch.tanh(v @ p['w'] + p['b']),
+                           {'w': w, 'b': b}, micro, 4, 'pipe', mesh=mesh)
+    res['run_out'] = C.allreduce_sum(outs, 'pipe', mesh)
+    gw, gb, gx = torch.autograd.grad((outs * _t(inp['seq_g'])).sum(),
+                                     [w, b, micro])
+    res['run_gw'], res['run_gb'], res['run_gx'] = gw, gb, gx
+    step = pp.make_pipeline_train_step(
+        lambda p, v: v @ p['w'], lambda yv, tv: ((yv - tv) ** 2).mean(),
+        mesh, num_micro=4, lr=0.05)
+    params = pp.place_pipeline_params(pp.stack_stage_params(
+        [{'w': inp['learn_w%d' % s]} for s in range(4)]), mesh)
+    losses = []
+    for _ in range(30):
+        loss, params = step(params, inp['learn_x'], inp['learn_t'])
+        losses.append(float(loss))
+    res['learn_losses'] = np.array(losses)
+    step = pp.make_pipeline_train_step(
+        lambda p, v: v @ p['w'], lambda yv, tv: ((yv - tv) ** 2).mean(),
+        mesh, num_micro=8, lr=1.0)
+    params = pp.place_pipeline_params(pp.stack_stage_params(
+        [{'w': inp['grad_w%d' % s]} for s in range(4)]), mesh)
+    _, newp = step(params, inp['grad_x'], inp['grad_t'])
+    res['grad_pipe'] = inp['grad_w%d' % me] - newp['w'][0].numpy()
+    # the pipelined LM through make_pipe_step_fn
+    m22 = pp.make_pipe_mesh(4, 2, device='cpu')
+    for flash in (0, 1):
+        for k, v in pp_lm_run(inp, m22, bool(flash)).items():
+            res['lm22f%d_%s' % (flash, k)] = v
+    for k, v in pp_lm_run(inp, m22, True, zero=True).items():
+        res['lm22z_%s' % k] = v
+    for k, v in pp_lm_run(inp, m22, True, bulk=True).items():
+        res['lm22b_%s' % k] = v
+    m14 = pp.make_pipe_mesh(4, 4, device='cpu')
+    for k, v in pp_lm_run(inp, m14, True).items():
+        res['lm14_%s' % k] = v
+    for k, v in pp_lm_planted(inp, m22).items():
+        res['planted_%s' % k] = v
+    _save(tmp_path, rank, res)
+
+
+def moe_suite(rank, tmp_path):
+    """gluon.nn.MoE through the fused step over a data mesh of all the
+    ranks: three steps under the profiler, two runs of two steps (the
+    same bits twice), and make_moe_train_step over an 'expert' axis of
+    all the ranks."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.parallel import moe as pmoe
+    inp = _inputs(tmp_path)
+    n = torch.distributed.get_world_size()
+    res = {}
+    with mx.cpu():
+        ctxs = [mx.cpu(i) for i in range(n)]
+        profiler.clear()
+        profiler.profiler_set_state('run')
+        try:
+            net, losses = moe_train(mx, ctxs, k=3)
+        finally:
+            profiler.profiler_set_state('stop')
+        st = profiler.moe_stats()
+        for key in ('moe_routed_tokens', 'moe_dropped_tokens',
+                    'moe_dispatches', 'moe_drop_frac'):
+            res[key] = st[key]
+        res['per_expert_routed'] = sum(e['routed'] for e in
+                                       st['moe_experts'].values())
+        res['per_expert_dropped'] = sum(e['dropped'] for e in
+                                        st['moe_experts'].values())
+        res['summary'] = profiler.summary(print_out=False)
+        res['losses_finite'] = all(np.isfinite(l.asnumpy()).all()
+                                   for l in losses)
+        for _, p in net.collect_params().items():
+            kind = getattr(p, '_moe_counter', None)
+            if kind:
+                res['block_' + kind] = float(p.list_data()[0].asnumpy().sum())
+        for run in (0, 1):
+            net, _ = moe_train(mx, ctxs, k=2)
+            _put(res, 'par%d' % run, pp_pvals(net))
+    mesh = M.make_mesh({'expert': n}, device='cpu')
+    E, D, H, Cap = 8, 4, 8, 16
+    params = pmoe.place_moe_params(
+        {k: inp['moe_' + k] for k in ('router', 'w1', 'w2')}, mesh)
+    step = pmoe.make_moe_train_step(mesh, D, H, E, Cap, lr=2.0)
+    losses = []
+    for _ in range(40):
+        loss, params = step(params, inp['moe_x'], inp['moe_y'])
+        losses.append(float(loss))
+    res['moe_losses'] = np.array(losses)
+    _save(tmp_path, rank, res)
+
+
+def moe_net(pkg, ctx):
+    """tests/test_pipeline_train.py's MoE net: Dense(relu), MoE(4
+    experts, capacity factor 1), Dense; seeded."""
+    nn = pkg.gluon.nn
+    net = nn.HybridSequential()
+    with net.name_scope():
+        net.add(nn.Dense(PP_FEAT, activation='relu', in_units=PP_FEAT))
+        net.add(nn.MoE(PP_FEAT, 2 * PP_FEAT, num_experts=4,
+                       capacity_factor=1.0))
+        net.add(nn.Dense(PP_NCLS, in_units=PP_FEAT))
+    net.initialize(ctx=ctx)
+    rs = np.random.RandomState(9)
+    for _, p in sorted(net.collect_params().items()):
+        if p.grad_req == 'null':
+            continue
+        p.set_data(pkg.nd.array(
+            (rs.rand(*p.shape).astype(np.float32) - 0.5) * 0.4))
+    return net
+
+
+def moe_train(pkg, ctx, k=3):
+    net = moe_net(pkg, ctx)
+    tr = pkg.gluon.Trainer(net.collect_params(), 'sgd',
+                           {'learning_rate': 0.05, 'momentum': 0.9})
+    fs = pkg.gluon.fuse_step(net, pkg.gluon.loss.SoftmaxCrossEntropyLoss(),
+                             tr)
+    losses = [fs(pkg.nd.array(x), pkg.nd.array(y))
+              for x, y in pp_batches(k)]
+    return net, losses
 
 
 MF_VOCABS, MF_RANK, MF_BATCH = (50, 20), 4, 16

@@ -214,9 +214,19 @@ def test_constraint_forms_without_a_mesh_are_the_identity(coll_run):
                lambda: collectives.expert_shard(x),
                lambda: collectives.replicate_constraint(x)):
         assert fn() is x
-    for name in ('expert', 'replicate'):
-        msg = str(coll_run[0]['refusal_' + name])
-        assert 'Queue A 6)' in msg and 'item 6' in msg
+    # over a mesh (item 6d): each rank its experts of the summed buffer,
+    # the blocks joined back, and the cotangent of every rank's tokens
+    # summed into each block; replicate_constraint is the identity
+    n = len(coll_run)
+    total = np.arange(8.0).reshape(4, 2) * sum(range(1, n + 1))
+    for r, res in enumerate(coll_run):
+        lo, hi = res['expert_range']
+        assert (lo, hi) == (r * 4 // n, (r + 1) * 4 // n)
+        np.testing.assert_array_equal(res['expert_block'], total[lo:hi])
+        np.testing.assert_array_equal(res['expert_back'], total)
+        np.testing.assert_array_equal(res['expert_grad'],
+                                      np.full((4, 2), sum(range(1, n + 1))))
+        assert bool(res['replicate_is_x'])
     # over a mesh the row form is a sparse table's stripe: 10 rows over
     # the data axis, ceil(10 / n) a rank, the last rank's short
     table = np.arange(20.0).reshape(10, 2)
@@ -227,5 +237,9 @@ def test_constraint_forms_without_a_mesh_are_the_identity(coll_run):
                                       table[r * s:(r + 1) * s])
     with pytest.raises(ValueError, match='use_mesh'):
         collectives.allreduce_sum(x, 'data')
-    with pytest.raises(MXNetError, match='Queue A 6\\)'):
-        from mxnet_tpu_torch.parallel import pipeline  # noqa: F401
+    # pipeline and moe are ported (item 6d): their modules import
+    from mxnet_tpu_torch.parallel import moe, pipeline
+    assert callable(pipeline.make_pipe_step_fn)
+    assert callable(moe.make_moe_train_step)
+    assert collectives.expert_shard(x) is x     # no mesh: the identity
+    assert collectives.replicate_constraint(x) is x

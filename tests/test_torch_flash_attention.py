@@ -177,6 +177,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         'mxnet_tpu_torch.parallel.transformer, '
         'mxnet_tpu_torch.parallel.mesh, mxnet_tpu_torch.parallel.collectives, '
         'mxnet_tpu_torch.parallel.zero, mxnet_tpu_torch.parallel.embedding, '
+        'mxnet_tpu_torch.parallel.pipeline, mxnet_tpu_torch.parallel.moe, '
+        'mxnet_tpu_torch.gluon.nn.moe, mxnet_tpu_torch.module.pipeline_fit, '
         'mxnet_tpu_torch.gluon.fused\n'
         'added = set(sys.modules) - before\n'
         "bad = sorted(m for m in added if m == 'jax' or "
