@@ -31,6 +31,9 @@
     python3 chip_smoke.py --phases 32,33,34    # build, the LM in two
                                                # pipeline stages, the
                                                # pipelined trainers, MoE
+    python3 chip_smoke.py --phases 35,36       # build, hybrid workers and
+                                               # the reductions over the
+                                               # batch, the Custom head
     python3 chip_smoke.py --mutants            # phases 2, 4 and 6 against
                                                # broken kernels
 
@@ -497,14 +500,44 @@ Phases, each of which exits non-zero on failure:
    routed + dropped tokens are the tokens fed, the per-expert tables and
    the blocks' counts equal the profiler's, the ranks within atol 3e-6 /
    rtol 1e-4 of world 1, two runs bit-equal.
+35. hybrid: `tools.launch -n 2 -s 1 --ranks-per-worker 2`: two workers of
+   two ranks each (four processes sharing the card over gloo), each
+   worker's ranks a data mesh of their own, one CPU parameter server;
+   every rank checks the probe key's sync-SGD arithmetic, then
+   Module(context=[gpu(0), gpu(1)]) trains the bf16 ResNet-50 at 64
+   images a rank step (256 in all) with kvstore 'dist_sync', 1 warm-up,
+   2 timed and 1 profiled step; then the reductions over the batch
+   (HYBRID_BR_CASES) on the worker's mesh against one device, and a
+   bf16 ResNet-50 step whose loss is MakeLoss(mean(softmax_cross_
+   entropy)). Gated by hybrid_gate: the probe exact, 32 conv launches a
+   rank step, one push a key and round from each worker's leader and
+   none from the other rank, the pushed gradient the sum of the
+   worker's two ranks' own, the four ranks' weights bit-equal, the
+   server's update bit-equal to the optimizer on cpu(0), a server that
+   never initialized CUDA, the kernel at a rank's shapes, every
+   reduction within the CPU tests' tolerance, the loss step within
+   DP_LOSS_ATOL of one device, each rank finished and exiting 0 through
+   the interpreter;
+36. custom: the bf16 ResNet-50 at batch 256 through Module with a Custom
+   numpy softmax-loss head (examples/numpy_ops/custom_softmax.py's) for
+   two steps against SoftmaxOutput(normalization='batch'), a legacy
+   NumpyOp step, and test_utils.check_consistency of a conv ->
+   BatchNorm pair over cpu float32, gpu float32 and gpu bfloat16.
+   Gated by custom_gate: 32 conv launches a step, both steps' losses,
+   the float32 weights and masters within MODULE_STATE_REL of the
+   SoftmaxOutput steps' (the bf16 weights and momenta reported) and a
+   head whose backward is planted x1.5 outside it, the NumpyOp
+   bit-exact, check_consistency within 1e-1 with bfloat16 and
+   1e-3 over float32 alone.
 
 The phases do not run in their numbers' order. After phase 20 the
 launches of phases 21, 22 (its three arms), 31 and 33 start together
 and share the card, and phases 7 and 14-17, which gate no time, run
 beside them; phase 29's launch starts as soon as phase 21's has ended,
 phase 32's (phase 34's ranks too) as soon as phase 31's has, and phase
-23 once every launch has ended. Their host times and the ranks' step times
-are taken beside each other's. Phase 25's runner and C programs run
+23 once every launch has ended. Phase 35's launch starts after phase 24
+and runs beside phase 25, which gates no time. Their host times and the
+ranks' step times are taken beside each other's. Phase 25's runner and C programs run
 beside its export, and the SASS is dumped during phases 2-3. Each
 phase's host seconds are printed as it ends, and all of them on a
 "phase seconds" line before the kernels line.
@@ -527,6 +560,7 @@ tensor-core conv mutant, and the unchanged copy passes all four.
 """
 import atexit
 import contextlib
+import faulthandler
 import json
 import math
 import os
@@ -795,7 +829,7 @@ CONV_SM90_MUTANTS = {
                          ': ' + _TRUNCATE + 'v[0], v[1]));'),
 }
 
-ALL_PHASES = frozenset(range(2, 35))
+ALL_PHASES = frozenset(range(2, 37))
 # phase 7: the imperative NDArray path's size (n x n inputs)
 ND_SIZE = 1024
 ND_HOST_CALLS = 2000
@@ -1687,7 +1721,8 @@ def conv_phase(torch, cuda_ops, cuda_conv, bench_conv_bn):
 
 def conv_kernel_entry(conv, sass, resnet, module, serve, bucketing,
                       gluon_run, ptb, gluon_lm, factories, record, dist_ps,
-                      dist_coord, loop, dp_mesh, dp_ranks, gluon_fused):
+                      dist_coord, loop, dp_mesh, dp_ranks, gluon_fused,
+                      hybrid, custom):
     """The conv_bn_stats entry of the kernels line: times at the main
     case's shape from the bench, errors from the cases, launches from the
     ResNet-50 train steps of phase 9 (its main path), of phase 10's
@@ -1697,9 +1732,11 @@ def conv_kernel_entry(conv, sass, resnet, module, serve, bucketing,
     Module.fit fed by ImageRecordIter, of the worker processes of
     phases 21 and 22 (each counts its own and reports them), of phase
     23's trainer, of phase 28's Module as the one rank of a data mesh
-    (its steps and fit), of phase 29's two ranks (their sum) and of
-    phase 30's fused Gluon steps; its checks at phase 30's routed
-    shapes beside the others."""
+    (its steps and fit), of phase 29's two ranks (their sum), of phase
+    30's fused Gluon steps, of phase 35's four ranks of two hybrid
+    workers (their sum) and of phase 36's Custom-head Module steps; its
+    checks at phase 30's and phase 35's routed shapes beside the
+    others."""
     xs, ws = CONV_CASES['main'][:2]
     main_shape = [xs[1], xs[3], ws[3], ws[0], CONV_CASES['main'][2][0]]
     bench = conv['bench']
@@ -1747,6 +1784,8 @@ def conv_kernel_entry(conv, sass, resnet, module, serve, bucketing,
                               resnet_dp_mesh=dp_mesh['launches'],
                               resnet_dp_ranks=dp_ranks['launches'],
                               gluon_fused=gluon_fused['launches'],
+                              resnet_hybrid_workers=hybrid['launches'],
+                              resnet_custom_head=custom['launches'],
                               conv_bn_bench=bench['launches']),
         stem_split=resnet['stem_split'],
         launches_per_train_step=resnet['train_launches'],
@@ -1759,6 +1798,8 @@ def conv_kernel_entry(conv, sass, resnet, module, serve, bucketing,
                              for r in resnet['kernel_checks'] +
                              bucketing['kernel_checks']],
         gluon_fused_shape_checks=gluon_fused['kernel_checks'],
+        hybrid_shape_checks=next(r['kernel_checks'] for r in hybrid['ranks']
+                                 if r.get('kernel_checks')),
         imagerecord_shape_checks=[dict(x=r['x'], w=r['w'],
                                        stride=r['stride'], pairs=r['pairs'],
                                        max_abs_err=r['y']['max_abs_err'],
@@ -7732,7 +7773,8 @@ DIST_STALE_ENV = ('DMLC_PS_ROOT_URI', 'DMLC_PS_ROOT_PORT', 'DMLC_ROLE',
                   'DMLC_NUM_WORKER', 'DMLC_NUM_SERVER', 'DMLC_WORKER_ID',
                   'MXNET_TPU_DIST_PORT', 'MXNET_TPU_DIST_TOPOLOGY',
                   'MXNET_TPU_DIST_WIRE_DTYPE', 'MXNET_TPU_FAULT_KILL_AT_STEP',
-                  'MXNET_TPU_FAULT_KILL_RANK')
+                  'MXNET_TPU_FAULT_KILL_RANK', 'MXNET_TPU_WORKER_RANKS',
+                  'MXNET_TPU_WORKER_RANK')
 DIST_LAUNCH_TIMEOUT_S = 420
 DIST_SERVE_BATCH = 8
 
@@ -8004,15 +8046,17 @@ class Launch(Background):
 
 
 def start_launch(root, out_dir, tag, kind, n, servers, env=None,
-                 elastic=False):
+                 elastic=False, ranks_per_worker=1):
     """Start `n` dist_worker processes (and `servers` parameter servers)
-    through `python -m mxnet_tpu_torch.tools.launch`; returns the
-    Launch."""
+    through `python -m mxnet_tpu_torch.tools.launch`, each worker
+    `ranks_per_worker` ranks; returns the Launch."""
     e = {k: v for k, v in os.environ.items() if k not in DIST_STALE_ENV}
     e.update(DIST_ENV)
     e.update(env or {})
     cmd = [sys.executable, '-m', 'mxnet_tpu_torch.tools.launch', '-n',
            str(n), '-s', str(servers), '--launcher', 'local']
+    if ranks_per_worker > 1:
+        cmd += ['--ranks-per-worker', str(ranks_per_worker)]
     if elastic:
         cmd += ['--elastic', '--elastic-shrink', '--max-restarts', '2',
                 '--elastic-grace', '60']
@@ -9690,22 +9734,22 @@ DP_OUT_ATOL = 0.02
 DP_CUT_BATCH = 8             # the float32 cut ResNet's global batch
 
 
-def dp_resnet(mx, batch):
+def dp_resnet(mx, batch, seed=DP_SEED):
     """Phase 10's bf16 ResNet-50 symbol and seeded He-normal values, the
     data and label left out."""
     symbol = mx.models.resnet.get_symbol(**RESNET)
     shape = tuple(int(v) for v in RESNET['image_shape'].split(','))
     args, auxs = resnet_params(symbol, dict(data=(batch,) + shape),
-                               RESNET['num_classes'], DP_SEED)
+                               RESNET['num_classes'], seed)
     return symbol, shape, ({k: v for k, v in args.items()
                             if k not in NO_GRAD}, auxs)
 
 
-def dp_batches(mx, shape, n, seed):
-    """n seeded global batches of RESNET_BATCH images on the host, batch i
+def dp_batches(mx, shape, n, seed, batch=RESNET_BATCH):
+    """n seeded global batches of `batch` images on the host, batch i
     drawn from seed + i (so that a prefix of them is the same batches):
     the numpy arrays (x, y) and the DataBatches."""
-    xy = [module_data(RESNET['num_classes'], RESNET_BATCH, shape, seed + i)
+    xy = [module_data(RESNET['num_classes'], batch, shape, seed + i)
           for i in range(n)]
     return xy, [mx.io.DataBatch(data=[mx.nd.array(x, ctx=mx.cpu())],
                                 label=[mx.nd.array(y, ctx=mx.cpu())])
@@ -11809,6 +11853,886 @@ def moe_phase(torch, mx, root, smi, out=None):
     return run
 
 
+# ---------------------------------------------------------------------------
+# Phase 35: hybrid workers. `tools.launch -n 2 -s 1 --ranks-per-worker 2`:
+# two workers of two ranks each share the card over gloo, each worker's
+# ranks a data mesh of their own, the workers synced through one CPU
+# parameter server (the JAX package's dryrun phase (f)); the reductions
+# over the batch on each worker's data mesh
+# ---------------------------------------------------------------------------
+
+HYBRID_WORKERS = 2
+HYBRID_RANKS = 2             # a worker's ranks: four processes on the card
+HYBRID_BATCH = 64            # a rank's images a step: 128 a worker, 256 all
+HYBRID_STEPS = 3             # 1 warm-up + 2 timed, then one profiled step
+HYBRID_SEED = SEED + 3500
+HYBRID_PROBE_ROUNDS = 3
+# the graphs of the reductions over the batch (tests/_torch_parallel_ranks.py
+# BR_CASES), a parameter before each (fc1, or w1 for the ties) and one after
+# (w2), at the CPU tests' tolerance (tests/test_torch_module_dp.py STEP)
+HYBRID_BR_CASES = ('sum', 'sum_axis', 'mean', 'prod', 'nansum', 'nanprod',
+                   'max', 'max_axis', 'min', 'min_axis', 'norm', 'norm_ord1',
+                   'softmax_cross_entropy', 'sort', 'argsort', 'topk',
+                   'max_ties', 'min_ties', 'chain', 'center')
+HYBRID_BR_SHAPE = (16, 12)   # the global batch, the features
+HYBRID_BR_HIDDEN = 6
+HYBRID_BR_TOL = dict(rtol=1e-4, atol=1e-5)
+# a bf16 ResNet-50 step whose loss reduces over axis 0,
+# MakeLoss(mean(softmax_cross_entropy(fc1))), over a worker's data mesh
+# against one device on the same global batch; the loss within phase 29's
+# DP_LOSS_ATOL (the ranks sum BatchNorm's statistics in another order)
+HYBRID_SCE_BATCH = 32
+
+
+def hybrid_reducer_net(mx, case):
+    """The reduction case's graph; whether its data gradient is kept."""
+    S = mx.sym
+    data = S.Variable('data')
+    ties = case.endswith('_ties')
+    feat = HYBRID_BR_SHAPE[1]
+    if ties:
+        h = S.broadcast_mul(data, S.Variable('w1', shape=(1, feat)))
+        width = feat
+    else:
+        h = S.tanh(S.FullyConnected(data, name='fc1',
+                                    num_hidden=HYBRID_BR_HIDDEN))
+        width = HYBRID_BR_HIDDEN
+    vec = (1, width)
+    if case in ('sum', 'sum_axis', 'mean', 'nansum', 'max', 'max_axis',
+                'min', 'min_axis'):
+        r = getattr(S, case)(h, axis=0, keepdims=True)
+    elif case in ('prod', 'nanprod'):
+        r = getattr(S, case)(h * 0.3 + 1.0, axis=0, keepdims=True)
+    elif case in ('norm', 'norm_ord1'):
+        r = S.norm(h, ord=1 if case == 'norm_ord1' else 2)
+        vec = (1,)
+    elif case == 'softmax_cross_entropy':
+        r = S.softmax_cross_entropy(h, S.Variable('softmax_label'))
+        vec = (1,)
+    elif case in ('sort', 'argsort'):
+        r = getattr(S, case)(h, axis=0)
+    elif case == 'topk':
+        r = S.topk(h, axis=0, k=3, ret_typ='value')
+    elif ties:
+        r = getattr(S, case[:3])(h, axis=0, keepdims=True)
+    elif case == 'chain':
+        r = S.sum(S.max(h, axis=0, keepdims=True), axis=1, keepdims=True)
+        vec = (1, 1)
+    else:
+        c = S.broadcast_sub(h, S.mean(h, axis=0, keepdims=True))
+        r = S.sum(S.square(c), axis=0, keepdims=True)
+    z = S.broadcast_mul(r, S.Variable('w2', shape=vec))
+    return S.MakeLoss(z, name='loss'), ties
+
+
+def hybrid_reducer_inputs():
+    """The reductions' seeded data (tied rows 3, 5 and 12 at the maximum
+    of every column, 1 and 9 at the minimum: they straddle the two
+    ranks' halves) and labels."""
+    rng = np.random.default_rng(HYBRID_SEED + 7)
+    x = rng.random(HYBRID_BR_SHAPE, dtype=np.float32)
+    ties = x.copy()
+    ties[[3, 5, 12]] = 2.0
+    ties[[1, 9]] = -1.0
+    y = rng.integers(0, 5, HYBRID_BR_SHAPE[0]).astype(np.float32)
+    return x, ties, y
+
+
+def hybrid_reducer_step(mx, case, ctxs):
+    """One SGD step of the case's Module over `ctxs`: the outputs, the
+    parameters' gradients, the data's gradient for the ties and the
+    updated parameters, as float64 numpy arrays by name."""
+    net, ties = hybrid_reducer_net(mx, case)
+    x, x_ties, y = hybrid_reducer_inputs()
+    n = HYBRID_BR_SHAPE[0]
+    shapes = {'data': HYBRID_BR_SHAPE}
+    label = case == 'softmax_cross_entropy'
+    if label:
+        shapes['softmax_label'] = (n,)
+    rng = np.random.default_rng(HYBRID_SEED + 9)
+    args = {name: ((rng.random(s, dtype=np.float32) - 0.5) * 0.8 +
+                   (1.0 if name == 'w1' else 0.0)).astype(np.float32)
+            for name, s in zip(net.list_arguments(),
+                               net.infer_shape(**shapes)[0])
+            if name not in NO_GRAD}
+    cpu = mx.cpu()
+    mod = mx.mod.Module(net, context=ctxs)
+    mod.bind(data_shapes=[mx.io.DataDesc('data', HYBRID_BR_SHAPE)],
+             label_shapes=[mx.io.DataDesc('softmax_label', (n,))]
+             if label else None, inputs_need_grad=ties)
+    mod.init_params(initializer=None, arg_params={
+        k: mx.nd.array(v, ctx=cpu) for k, v in args.items()})
+    mod.init_optimizer(kvstore=None, optimizer='sgd',
+                       optimizer_params={'learning_rate': 0.1})
+    mod.forward_backward(mx.io.DataBatch(
+        data=[mx.nd.array(x_ties if ties else x, ctx=cpu)],
+        label=[mx.nd.array(y, ctx=cpu)] if label else None))
+    res = {'out': mod.get_outputs()[0].asnumpy()}
+    for k, g in zip(mod._param_names, mod._exec_group.grad_arrays):
+        res['grad ' + k] = g.asnumpy()
+    if ties:
+        res['data grad'] = mod.get_input_grads()[0].asnumpy()
+    mod.update()
+    for k, v in mod.get_params()[0].items():
+        res['param ' + k] = v.asnumpy()
+    return {k: np.asarray(v, np.float64) for k, v in res.items()}
+
+
+def hybrid_reducer_checks(mx):
+    """Every reduction case over the worker's data mesh against one device
+    on the global batch: a row a case (within HYBRID_BR_TOL, every shape
+    the same)."""
+    rows = {}
+    ctxs = [mx.gpu(i) for i in range(HYBRID_RANKS)]
+    for case in HYBRID_BR_CASES:
+        got = hybrid_reducer_step(mx, case, ctxs)
+        ref = hybrid_reducer_step(mx, case, [mx.gpu(0)])
+        worst, differ = 0.0, []
+        for k in sorted(set(got) | set(ref)):
+            if k not in got or k not in ref or got[k].shape != ref[k].shape:
+                differ.append(k)
+                continue
+            bound = HYBRID_BR_TOL['atol'] + HYBRID_BR_TOL['rtol'] * \
+                np.abs(ref[k])
+            worst = max(worst, float((np.abs(got[k] - ref[k]) / bound)
+                                     .max()))
+        rows[case] = dict(ok=not differ and worst <= 1.0,
+                          max_err_over_bound=worst, differ=differ,
+                          keys=len(ref))
+    return rows
+
+
+def hybrid_sce_symbol(mx):
+    """The bf16 ResNet-50 with its loss reduced over axis 0:
+    MakeLoss(mean(softmax_cross_entropy(fc1 in float32, label)))."""
+    body = mx.models.resnet.get_symbol(**RESNET)
+    fc = body.get_internals()['cast_out_output']
+    sce = mx.sym.softmax_cross_entropy(fc, mx.sym.Variable('softmax_label'))
+    return mx.sym.MakeLoss(mx.sym.mean(sce), name='sce_loss')
+
+
+def hybrid_sce_step(torch, mx, cuda_conv, ctxs):
+    """One step of hybrid_sce_symbol over `ctxs` at HYBRID_SCE_BATCH: the
+    loss (a replicated output), the conv launches, and whether every
+    gradient is finite."""
+    symbol = hybrid_sce_symbol(mx)
+    shape = tuple(int(v) for v in RESNET['image_shape'].split(','))
+    n = HYBRID_SCE_BATCH
+    args, auxs = resnet_params(symbol, dict(data=(n,) + shape,
+                                            softmax_label=(n,)),
+                               RESNET['num_classes'], HYBRID_SEED + 11)
+    cpu = mx.cpu()
+    mod = mx.mod.Module(symbol, context=ctxs, label_names=['softmax_label'])
+    mod.bind(data_shapes=[mx.io.DataDesc('data', (n,) + shape)],
+             label_shapes=[mx.io.DataDesc('softmax_label', (n,))])
+    mod.init_params(initializer=None,
+                    arg_params={k: mx.nd.array(v, ctx=cpu)
+                                for k, v in args.items()
+                                if k not in NO_GRAD},
+                    aux_params={k: mx.nd.array(v, ctx=cpu)
+                                for k, v in auxs.items()})
+    mod.init_optimizer(kvstore=None, optimizer='sgd',
+                       optimizer_params=dict(DIST_OPT))
+    before = cuda_conv.CONV_BN_STATS_LAUNCHES
+    mod.forward_backward(mx.io.DataBatch(
+        data=[mx.nd.array(args['data'], ctx=cpu)],
+        label=[mx.nd.array(args['softmax_label'], ctx=cpu)]))
+    torch.cuda.synchronize()
+    launches = cuda_conv.CONV_BN_STATS_LAUNCHES - before
+    out = mod.get_outputs()[0]
+    finite = all(bool(torch.isfinite(g.handle).all())
+                 for g in mod._exec_group.grad_arrays if g is not None)
+    mod.update()
+    row = dict(loss=float(out.handle.float().reshape(-1)[0]),
+               out_shape=list(out.shape), launches=launches,
+               grads_finite=finite,
+               replicated=mod._exec_group.executor.replicated_outputs())
+    del mod
+    torch.cuda.empty_cache()
+    return row
+
+
+def hybrid_worker(out_dir):
+    """One rank of phase 35, run by the port's launcher with
+    --ranks-per-worker: the probe key's sync-SGD arithmetic, then
+    Module(context=[gpu(0), gpu(1)]) over the worker's own data mesh
+    trains the bf16 ResNet-50 with kvstore 'dist_sync' (the worker's
+    leader pushes the mesh-summed gradients and hands the pulled weights
+    to the other rank); then the reductions over the batch on the
+    worker's mesh, and a bf16 ResNet-50 step whose loss reduces over
+    axis 0. Writes w<worker>_r<rank>.json and .pt, and exits through the
+    interpreter."""
+    import torch
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    root = Path(__file__).resolve().parent
+    sys.path.insert(0, str(root))
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import _build, cuda_conv
+    from mxnet_tpu_torch import _hostarray as ha
+    from mxnet_tpu_torch import executor as executor_mod
+    from mxnet_tpu_torch.parallel import collectives, worker_group
+    torch.zeros(1, device='cuda')
+    _build.library()
+    kv = mx.kv.create('dist_sync')
+    group = worker_group.current()
+    worker, rank = kv.rank, group.rank
+    out_dir = Path(out_dir)
+    row = dict(worker=worker, rank=rank, workers=kv.num_workers,
+               group_size=group.size,
+               world=torch.distributed.get_world_size(),
+               backend=torch.distributed.get_backend())
+    cpu = mx.cpu()
+    with cpu:
+        kv.init('probe', mx.nd.zeros((2, 2)))
+        kv.set_optimizer(mx.optimizer.create('test', rescale_grad=1.0))
+        row['probe'] = []
+        for _ in range(HYBRID_PROBE_ROUNDS):
+            kv.push('probe', mx.nd.array(np.full((2, 2), float(worker + 1),
+                                                 np.float32)))
+            got = mx.nd.zeros((2, 2))
+            kv.pull('probe', out=got)
+            row['probe'].append(got.asnumpy().tolist())
+            kv.barrier()
+    wbatch = HYBRID_BATCH * HYBRID_RANKS
+    symbol, shape, params = dp_resnet(mx, wbatch, HYBRID_SEED)
+    mod = mx.mod.Module(symbol, context=[mx.gpu(i)
+                                         for i in range(HYBRID_RANKS)])
+    mod.bind(data_shapes=[mx.io.DataDesc('data', (wbatch,) + shape)],
+             label_shapes=[mx.io.DataDesc('softmax_label', (wbatch,))])
+    mod.init_params(initializer=None,
+                    arg_params={k: mx.nd.array(v, ctx=cpu)
+                                for k, v in params[0].items()},
+                    aux_params={k: mx.nd.array(v, ctx=cpu)
+                                for k, v in params[1].items()})
+    eg = mod._exec_group
+    ex = eg.executor
+    # the first step's probes: this rank's own gradients before the
+    # worker's sum, the pushed (summed) ones, the weights before and after
+    dump = {}
+    finish = collectives._ReducePass.finish
+
+    def finish_probed(self, grads):
+        if 'local' not in dump:
+            dump['local'] = {}
+            for i, p in enumerate(self.red.positions):
+                name = ex._diff_names[p]
+                if name in DIST_PROBES:
+                    g = self.grads[i] if self.grads[i] is not None \
+                        else grads[p]
+                    dump['local'][name] = ha.host(g)
+        return finish(self, grads)
+    collectives._ReducePass.finish = finish_probed
+    push_pull_all = kv.push_pull_all
+    rounds = []
+
+    def push_pull_probed(keys, grads, outs):
+        first = not rounds
+        rounds.append(len(keys))
+        if first:
+            idx = {k: i for i, k in enumerate(keys)}
+            dump['grad'] = {k: ha.host(grads[idx[k]]) for k in DIST_PROBES}
+            dump['before'] = {k: ha.host(outs[idx[k]]).clone()
+                              for k in DIST_PROBES}
+        push_pull_all(keys, grads, outs)
+        if first:
+            dump['after'] = {k: ha.host(outs[idx[k]]) for k in DIST_PROBES}
+    kv.push_pull_all = push_pull_probed
+    mod.init_optimizer(kvstore=kv, optimizer='sgd',
+                       optimizer_params=dict(DIST_OPT))
+    row.update(rescale_grad=mod._optimizer.rescale_grad, dp=eg.dp,
+               local_batch=eg.local_batch)
+    import pickle
+    sym_ref, mod._optimizer.sym = mod._optimizer.sym, None
+    try:
+        dump['optimizer'] = pickle.dumps(mod._optimizer)
+    finally:
+        mod._optimizer.sym = sym_ref
+    _, batches = dp_batches(mx, shape, HYBRID_STEPS + 1,
+                            HYBRID_SEED + 100 * (worker + 1), wbatch)
+    pushes = kv.pushes
+    cuda_conv.CONV_BN_STATS_LAUNCHES = 0
+    steps = dp_steps(torch, mx, cuda_conv, mod, batches[:HYBRID_STEPS])
+    row['launches'] = cuda_conv.CONV_BN_STATS_LAUNCHES
+    row.update(launches_per_step=[s['launches'] for s in steps],
+               step_ms=[s['ms'] for s in steps],
+               loss=[s['loss'] for s in steps])
+    b = batches[HYBRID_STEPS]
+    events = device_events(torch, lambda: (mod.forward_backward(b),
+                                           mod.update()))
+    row['profiled_device_ms'] = sum(device_us(e) for e in events) / 1e3
+    collectives._ReducePass.finish = finish
+    row.update(pushes=kv.pushes - pushes, rounds=len(rounds),
+               keys=rounds[0] if rounds else 0)
+    state = dp_state(mod)
+    row['param_digest'] = dp_digest(torch, {k: v for k, v in state.items()
+                                           if k.startswith('arg ')})
+    row['aux_digest'] = dp_digest(torch, {k: v for k, v in state.items()
+                                         if k.startswith('aux ')})
+    shapes = pair_shapes(symbol, eg.local_batch, shape, executor_mod,
+                         pairs=dict(ex.pairs))
+    device = eg.mesh.device
+    del mod, eg, ex, state
+    torch.cuda.empty_cache()
+    if worker == 0 and rank == 0:
+        # the kernel at a rank's shapes against its plain version
+        checks = resnet_kernel_checks(torch, cuda_conv, executor_mod,
+                                      shapes, device)
+        row['kernel_checks'] = [dict(
+            x=r['x'], w=r['w'], stride=r['stride'], pairs=r['pairs'],
+            max_abs_err=r['y']['max_abs_err'], ms=r['ms'],
+            bound_ms=r['bound_ms'], library_ms=r['library_ms'], ok=r['ok'])
+            for r in checks]
+    t0 = time.perf_counter()
+    row['reducers'] = hybrid_reducer_checks(mx)
+    row['reducers_s'] = time.perf_counter() - t0
+    row['sce'] = hybrid_sce_step(torch, mx, cuda_conv,
+                                 [mx.gpu(i) for i in range(HYBRID_RANKS)])
+    if rank == 0:
+        row['sce_one_device'] = hybrid_sce_step(torch, mx, cuda_conv,
+                                                [mx.gpu(0)])
+    with open(out_dir / ('w%d_r%d.json' % (worker, rank)), 'w') as f:
+        json.dump(row, f)
+    torch.save(dump, str(out_dir / ('w%d_r%d.pt' % (worker, rank))))
+    kv.barrier()
+    if worker == 0 and rank == 0:
+        kv.stop_servers()
+        report = Path(os.environ['MXNET_TPU_PS_REPORT'])
+        deadline = time.monotonic() + 30
+        while not report.exists() and time.monotonic() < deadline:
+            time.sleep(0.1)
+    kv.close()
+    print('HYBRID_RANK_OK worker=%d rank=%d' % (worker, rank), flush=True)
+
+
+def hybrid_start(root):
+    """Phase 35's launch, started: (its directory, the Launch)."""
+    out = fresh_dir(root, 35)
+    return out, start_launch(
+        root, out, 'hybrid', 'hybrid', HYBRID_WORKERS, 1,
+        env={'MXNET_TPU_PS_REPORT': str(out / 'server.json')},
+        ranks_per_worker=HYBRID_RANKS)
+
+
+def hybrid_group_sums(torch, dumps):
+    """Per worker and probe key, whether the gradient its leader pushed is
+    the sum of its two ranks' own gradients (rounded once to their dtype,
+    as the all-reduce rounds it)."""
+    from mxnet_tpu_torch import _hostarray as ha
+    out = {}
+    for w in range(HYBRID_WORKERS):
+        ranks = [dumps[(w, r)] for r in range(HYBRID_RANKS)]
+        for k in DIST_PROBES:
+            parts = [torch.as_tensor(ha.to_float32(d['local'][k]))
+                     for d in ranks]
+            pushed = ha.host(ranks[0]['grad'][k])
+            want = ha.from_float32(sum(parts).numpy(), pushed)
+            out['worker %d %s' % (w, k)] = not tensors_equal(
+                torch, {k: want}, {k: pushed})
+    return out
+
+
+def hybrid_server_check(torch, mx, dumps):
+    """The server's update of each probe key against the port's optimizer
+    on cpu(0) over the two workers' pushes, from the weights before the
+    first round, bit for bit, as phase 21 holds it."""
+    import pickle
+    from mxnet_tpu_torch import _hostarray as ha
+    from mxnet_tpu_torch import optimizer as opt_mod
+    leaders = [dumps[(w, 0)] for w in range(HYBRID_WORKERS)]
+    updater = opt_mod.get_updater(pickle.loads(leaders[0]['optimizer']))
+    cpu = mx.cpu(0)
+    out = {}
+    for k in DIST_PROBES:
+        g = sum(ha.host(d['grad'][k]) for d in leaders)
+        wt = mx.nd.NDArray(ha.to_tensor(ha.copy(leaders[0]['before'][k])),
+                           cpu)
+        with cpu:
+            updater(k, mx.nd.NDArray(ha.to_tensor(g), cpu), wt)
+        out[k] = not any(tensors_equal(torch, {k: wt._data},
+                                       {k: dumps[(w, r)]['after'][k]})
+                         for w in range(HYBRID_WORKERS)
+                         for r in range(HYBRID_RANKS))
+    return out
+
+
+def hybrid_gate(rows, run):
+    """What is wrong with phase 35's ranks' rows and the run's checks
+    (empty when nothing)."""
+    bad = []
+    want = route_pairs(RESNET_PAIRS, stem_split_on())
+    total = sum(range(1, HYBRID_WORKERS + 1))
+    probe = [[[float((r + 1) * total)] * 2] * 2
+             for r in range(HYBRID_PROBE_ROUNDS)]
+    keys = rows[0]['keys']
+    for row in rows:
+        w, r = row['worker'], row['rank']
+        who = 'worker %d rank %d' % (w, r)
+        if (row['workers'], row['group_size'], row['world'], row['dp'],
+                row['local_batch']) != (HYBRID_WORKERS, HYBRID_RANKS,
+                                        HYBRID_RANKS, HYBRID_RANKS,
+                                        HYBRID_BATCH):
+            bad.append('%s: workers %s, group %s, world %s, data %s, local '
+                       'batch %s' % (who, row['workers'], row['group_size'],
+                                     row['world'], row['dp'],
+                                     row['local_batch']))
+        if row['probe'] != probe:
+            bad.append('%s: probe pulls %s, expected %s' % (
+                who, [p[0][0] for p in row['probe']],
+                [p[0][0] for p in probe]))
+        if row['launches_per_step'] != [want] * HYBRID_STEPS:
+            bad.append('%s: conv launches %s, expected %d a step'
+                       % (who, row['launches_per_step'], want))
+        # the leader pushes every key once a round, the other rank never
+        if row['rounds'] != HYBRID_STEPS + 1 or row['keys'] != keys or \
+                row['pushes'] != (row['rounds'] * keys if r == 0 else 0):
+            bad.append('%s: %d pushes over %d rounds of %d keys'
+                       % (who, row['pushes'], row['rounds'], row['keys']))
+        if abs(row['rescale_grad'] - 1.0 / (
+                HYBRID_BATCH * HYBRID_RANKS * HYBRID_WORKERS)) > 1e-12:
+            bad.append('%s: rescale_grad %g' % (who, row['rescale_grad']))
+        if row['param_digest'] != rows[0]['param_digest']:
+            bad.append('%s: weights differ from worker 0 rank 0\'s' % who)
+        mate = next(x for x in rows if x['worker'] == w and x['rank'] == 0)
+        for key in ('aux_digest', 'loss'):
+            if row[key] != mate[key]:
+                bad.append('%s: %s differs from its worker\'s rank 0'
+                           % (who, key))
+        for case, c in row['reducers'].items():
+            if not c['ok']:
+                bad.append('%s: %s over the data mesh off the one-device '
+                           'step (%.3g of the bound, differ %s)'
+                           % (who, case, c['max_err_over_bound'],
+                              c['differ']))
+        if sorted(row['reducers']) != sorted(HYBRID_BR_CASES):
+            bad.append('%s: reduction cases %s' % (who,
+                                                   sorted(row['reducers'])))
+        sce = row['sce']
+        if sce['launches'] != want or not sce['grads_finite'] or \
+                sce['replicated'] != [True] or \
+                math.prod(sce['out_shape']) != 1:
+            bad.append('%s: the softmax_cross_entropy step: %s' % (who, sce))
+        if r == 0:
+            ref = row['sce_one_device']
+            if abs(sce['loss'] - ref['loss']) > DP_LOSS_ATOL:
+                bad.append('%s: the softmax_cross_entropy loss %.5f vs one '
+                           'device %.5f (tol %g)' % (who, sce['loss'],
+                                                     ref['loss'],
+                                                     DP_LOSS_ATOL))
+        for c in row.get('kernel_checks', ()):
+            if not c['ok']:
+                bad.append('%s: the kernel off its plain version at %s %s'
+                           % (who, c['x'], c['w']))
+    if not any(row.get('kernel_checks') for row in rows):
+        bad.append('no rank checked the kernel at its shapes')
+    for name, ok in sorted(run['group_sums'].items()):
+        if not ok:
+            bad.append('%s: the pushed gradient is not its ranks\' sum'
+                       % name)
+    for name, ok in sorted(run['server_check'].items()):
+        if not ok:
+            bad.append('the server\'s update of %s differs from the '
+                       'optimizer on cpu(0)' % name)
+    if run['server_cuda_initialized'] is not False:
+        bad.append('the server initialized CUDA (or wrote no report)')
+    if run['ranks_exited_ok'] != HYBRID_WORKERS * HYBRID_RANKS:
+        bad.append('%d of %d ranks finished' % (
+            run['ranks_exited_ok'], HYBRID_WORKERS * HYBRID_RANKS))
+    return bad
+
+
+def hybrid_phase(torch, mx, root, smi, started=None):
+    """Phase 35: hybrid workers (the module comment above); gated by
+    hybrid_gate."""
+    if started is None:
+        torch.cuda.empty_cache()
+        started = hybrid_start(root)
+    out, launch = started
+    try:
+        res, wall = launch.wait()
+        if res.returncode != 0:
+            fail('phase 35: the launcher exited %d (its log is named above)'
+                 % res.returncode)
+        rows, dumps = [], {}
+        for w in range(HYBRID_WORKERS):
+            for r in range(HYBRID_RANKS):
+                with open(out / ('w%d_r%d.json' % (w, r))) as f:
+                    rows.append(json.load(f))
+                dumps[(w, r)] = torch.load(
+                    str(out / ('w%d_r%d.pt' % (w, r))), weights_only=False)
+        report_path = out / 'server.json'
+        report = json.loads(report_path.read_text()) \
+            if report_path.exists() else {}
+        group_sums = hybrid_group_sums(torch, dumps)
+        server_check = hybrid_server_check(torch, mx, dumps)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    step_ms = [median(row['step_ms'][1:]) for row in rows]
+    device_ms = [row['profiled_device_ms'] for row in rows]
+    busy = sum(device_ms) / max(step_ms)
+    checks = next(row['kernel_checks'] for row in rows
+                  if row.get('kernel_checks'))
+    run = dict(
+        config='bf16 ResNet-50, %d workers x %d ranks sharing the card '
+               'over gloo, %d images a rank step (%d a worker, %d in all), '
+               'one CPU parameter server, dist_sync' % (
+                   HYBRID_WORKERS, HYBRID_RANKS, HYBRID_BATCH,
+                   HYBRID_BATCH * HYBRID_RANKS,
+                   HYBRID_BATCH * HYBRID_RANKS * HYBRID_WORKERS),
+        card=smi, wall_s=wall, step_ms_by_rank=step_ms,
+        profiled_device_ms_by_rank=device_ms, device_busy_share=busy,
+        launches=sum(row['launches'] for row in rows),
+        kernel_pairs_ms=sum(c['ms'] * c['pairs'] for c in checks),
+        kernel_pairs_bound_ms=sum(c['bound_ms'] * c['pairs']
+                                  for c in checks),
+        kernel_pairs_library_ms=sum(c['library_ms'] * c['pairs']
+                                    for c in checks),
+        group_sums=group_sums, server_check=server_check,
+        server_cuda_initialized=report.get('cuda_initialized'),
+        ranks_exited_ok=res.stdout.count('HYBRID_RANK_OK'),
+        reducers_s=max(row['reducers_s'] for row in rows), ranks=rows)
+    print('hybrid ' + json.dumps(run))
+    bad = hybrid_gate(rows, run)
+    if bad:
+        fail('phase 35: ' + '; '.join(bad))
+    r0 = rows[0]
+    print('hybrid: %d workers x %d ranks on one card (%s): a rank\'s step '
+          '%s ms by rank, the card busy %.1f %% of a step; %d conv launches '
+          '(32 a rank step), %d pushes a leader over %d rounds of %d keys; '
+          'the four ranks bit-equal; the server\'s update bit-equal on %s; '
+          'the %d reductions within the CPU tests\' tolerance of one '
+          'device on every rank; the softmax_cross_entropy step\'s loss '
+          '%.5f vs one device %.5f; launch %.1f s' % (
+              HYBRID_WORKERS, HYBRID_RANKS, smi,
+              ['%.1f' % ms for ms in step_ms], 100 * busy, run['launches'],
+              r0['pushes'], r0['rounds'], r0['keys'], list(DIST_PROBES),
+              len(HYBRID_BR_CASES), r0['sce']['loss'],
+              r0['sce_one_device']['loss'], wall))
+    return run
+
+
+# ---------------------------------------------------------------------------
+# Phase 36: a Custom numpy loss head trains the bf16 ResNet-50 through
+# Module; a legacy NumpyOp step; test_utils.check_consistency of a conv ->
+# BatchNorm pair over cpu, gpu and bfloat16
+# ---------------------------------------------------------------------------
+
+CUSTOM_BATCH = 256
+CUSTOM_STEPS = 2
+CUSTOM_SEED = SEED + 3600
+CUSTOM_OPT = dict(learning_rate=0.1, momentum=0.9, wd=1e-4,
+                  multi_precision=True)
+# the Custom head's steps against SoftmaxOutput(normalization='batch')'s
+# (the same loss and gradient, the softmax and its gradient computed on
+# the host in numpy instead of by torch on the card), from phase 16's
+# conditioned values: both steps' losses within phase 9's
+# RESNET_LOSS_ATOL, and after two steps the float32 weights and masters
+# within phase 10's MODULE_STATE_REL in relative norm. The bf16 weights
+# in bf16 steps and the momenta are reported, not gated: the two heads'
+# float32 gradients differ in their last bits (numpy's softmax against
+# torch's), a bf16 gradient then rounds one step apart here and there,
+# and where a leaf's gradient nearly cancels, or a weight is near zero
+# (its bf16 spacing finer than an update), that is a large share (on an
+# H100 80GB HBM3: momenta up to 0.285 apart, a weight 2 steps) while the
+# masters moved 3.2e-8 apart
+# check_consistency's specs and tolerances: cpu float32, gpu float32 and
+# gpu bfloat16 at the reference's low-precision tolerance (its
+# check_consistency takes 1e-1 for float16; bfloat16 keeps 3 bits fewer),
+# then cpu float32 against gpu float32 alone at the JAX test's 1e-3
+CUSTOM_CONSISTENCY = dict(data=(16, 16, 14, 14), num_filter=32,
+                          rtol=1e-1, atol=1e-1, f32_rtol=1e-3,
+                          f32_atol=1e-3)
+
+
+def custom_register(mx):
+    """examples/numpy_ops/custom_softmax.py's loss head, registered as
+    'chip_np_softmax_loss', and a legacy NumpyOp (x squared)."""
+    op_mod = mx.operator
+
+    class NumpySoftmaxLoss(op_mod.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            z = np.asarray(in_data[0])
+            z = z - z.max(axis=1, keepdims=True)
+            e = np.exp(z)
+            self.assign(out_data[0], req[0],
+                        e / e.sum(axis=1, keepdims=True))
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            p = np.asarray(out_data[0])
+            labels = np.asarray(in_data[1]).astype(int)
+            grad = p.copy()
+            grad[np.arange(len(labels)), labels] -= 1.0
+            self.assign(in_grad[0], req[0],
+                        grad / len(labels) * CUSTOM_GRAD_SCALE[0])
+
+    @op_mod.register('chip_np_softmax_loss')
+    class NumpySoftmaxLossProp(op_mod.CustomOpProp):
+        def __init__(self, **kwargs):
+            super().__init__(need_top_grad=False)
+
+        def list_arguments(self):
+            return ['data', 'label']
+
+        def infer_shape(self, in_shape):
+            return [in_shape[0], (in_shape[0][0],)], [in_shape[0]], []
+
+        def create_operator(self, ctx, in_shapes, in_dtypes):
+            return NumpySoftmaxLoss()
+
+    class Square(op_mod.NumpyOp):
+        def forward(self, in_data, out_data):
+            out_data[0][:] = np.asarray(in_data[0]) ** 2
+
+        def backward(self, out_grad, in_data, out_data, in_grad):
+            in_grad[0][:] = 2 * np.asarray(in_data[0]) * \
+                np.asarray(out_grad[0])
+    return Square
+
+
+# the Custom head's backward is scaled by this (1: the example's); the
+# phase runs the head once more with CUSTOM_PLANT_SCALE, which the state
+# gate must fail
+CUSTOM_GRAD_SCALE = [1.0]
+CUSTOM_PLANT_SCALE = 1.5
+
+
+def custom_symbols(mx):
+    """(the SoftmaxOutput net, the Custom-head net): the bf16 ResNet-50,
+    its head cast to float32."""
+    ref = mx.models.resnet.get_symbol(**RESNET)
+    fc = ref.get_internals()['cast_out_output']
+    ref = mx.sym.SoftmaxOutput(fc, name='softmax', normalization='batch')
+    custom = mx.sym.Custom(fc, mx.sym.Variable('softmax_label'),
+                           op_type='chip_np_softmax_loss', name='softmax')
+    return ref, custom
+
+
+def custom_steps(torch, mx, cuda_conv, symbol, params, batches, ctx):
+    """CUSTOM_STEPS Module steps of `symbol` on ctx from `params`: the
+    first loss, the conv launches a step, the ms a step and the state
+    after (module_state)."""
+    cpu = mx.cpu()
+    shape = tuple(int(v) for v in RESNET['image_shape'].split(','))
+    mod = mx.mod.Module(symbol, context=ctx, label_names=['softmax_label'])
+    mod.bind(data_shapes=[mx.io.DataDesc('data', (CUSTOM_BATCH,) + shape)],
+             label_shapes=[mx.io.DataDesc('softmax_label', (CUSTOM_BATCH,))])
+    mod.init_params(initializer=None,
+                    arg_params={k: mx.nd.array(v, ctx=cpu)
+                                for k, v in params[0].items()},
+                    aux_params={k: mx.nd.array(v, ctx=cpu)
+                                for k, v in params[1].items()})
+    mod.init_optimizer(kvstore=None, optimizer='sgd',
+                       optimizer_params=dict(CUSTOM_OPT))
+    launches, ms, losses = [], [], []
+    for b in batches:
+        before = cuda_conv.CONV_BN_STATS_LAUNCHES
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mod.forward_backward(b)
+        mod.update()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append(cuda_conv.CONV_BN_STATS_LAUNCHES - before)
+        losses.append(dp_nll(torch, mod.get_outputs()[0], b.label[0]))
+    state = module_state(mod)
+    del mod
+    torch.cuda.empty_cache()
+    return dict(launches=launches, ms=ms, losses=losses), state
+
+
+def custom_compare(torch, got, ref):
+    """The Custom head's state against SoftmaxOutput's: bf16 weights in
+    bf16 steps, float32 weights and masters and the momenta in relative
+    norm."""
+    steps, rel, moms = {}, {}, {}
+    for key, r in ref.items():
+        kind, _, name = key.partition(' ')
+        if kind == 'arg' and r.dtype == torch.bfloat16:
+            steps[name] = bf16_steps(torch, got[key], r)
+        elif kind == 'mom':
+            moms[name] = rel_err(torch, got[key], r)
+        elif kind in ('arg', 'master'):
+            rel[key] = rel_err(torch, got[key], r)
+    worst = max(rel, key=rel.get)
+    return dict(weight_steps_max=max(steps.values()),
+                weight_steps_worst=max(steps, key=steps.get),
+                state_rel_max=rel[worst], state_rel_worst=worst,
+                mom_rel_max=max(moms.values()),
+                mom_rel_worst=max(moms, key=moms.get),
+                bf16_weights=len(steps), float32_states=len(rel))
+
+
+def custom_gate(run):
+    """What is wrong with phase 36's run (empty when nothing)."""
+    bad = []
+    want = route_pairs(RESNET_PAIRS, stem_split_on())
+    for head in ('custom', 'softmax'):
+        if run[head]['launches'] != [want] * CUSTOM_STEPS:
+            bad.append('the %s head\'s steps launched the kernel %s times, '
+                       'expected %d a step' % (head, run[head]['launches'],
+                                               want))
+    for i, (a, b) in enumerate(zip(run['custom']['losses'],
+                                   run['softmax']['losses'])):
+        if not abs(a - b) <= RESNET_LOSS_ATOL:
+            bad.append('step %d loss %.5f vs SoftmaxOutput\'s %.5f'
+                       % (i, a, b))
+    cmp_ = run['compare']
+    if not cmp_['state_rel_max'] <= MODULE_STATE_REL:
+        bad.append('%s differs by %.3g (bound %g)' % (
+            cmp_['state_rel_worst'], cmp_['state_rel_max'],
+            MODULE_STATE_REL))
+    if run['planted']['state_rel_max'] <= MODULE_STATE_REL:
+        bad.append('the Custom head\'s backward x%g passed the state gate '
+                   '(%.3g)' % (run['planted']['scale'],
+                               run['planted']['state_rel_max']))
+    if not run['legacy']['ok']:
+        bad.append('the NumpyOp step: %s' % run['legacy'])
+    for key in ('consistency', 'consistency_f32'):
+        if not run[key]['ok']:
+            bad.append('check_consistency over %s: %s'
+                       % (run[key]['specs'], run[key]['error']))
+    if run['consistency']['launches'] < 1:
+        bad.append('check_consistency\'s bf16 run did not reach the kernel')
+    return bad
+
+
+def custom_legacy_check(torch, mx, Square, ctx):
+    """One train forward and backward of the NumpyOp x squared on ctx:
+    the output x^2 and the gradient 2 x g, bit for bit."""
+    rng = np.random.default_rng(CUSTOM_SEED + 1)
+    x = rng.standard_normal(4096).astype(np.float32)
+    g = rng.standard_normal(4096).astype(np.float32)
+    net = Square().get_symbol(mx.sym.Variable('x'), name='square')
+    ex = net.simple_bind(ctx, grad_req='write', x=x.shape)
+    ex.forward(is_train=True, x=mx.nd.array(x, ctx=ctx))
+    out = ex.outputs[0]
+    ex.backward(out_grads=mx.nd.array(g, ctx=ctx))
+    grad = ex.grad_dict['x']
+    on_card = out.handle.device.type == ctx.torch_device.type
+    ok = on_card and np.array_equal(out.asnumpy(), x ** 2) and \
+        np.array_equal(grad.asnumpy(), 2 * x * g)
+    return dict(ok=bool(ok), on_device=str(out.handle.device),
+                elements=x.size)
+
+
+def custom_consistency(torch, mx, cuda_conv, ctx, low=True):
+    """test_utils.check_consistency of a conv -> BatchNorm pair weighted
+    by an argument (under its head of ones the BatchNorm's output alone
+    has gradients of exactly 0) over [cpu float32, ctx float32, ctx
+    bfloat16] (`low`), else [cpu float32, ctx float32] at float32's
+    tolerance; the conv launches."""
+    c = CUSTOM_CONSISTENCY
+    S = mx.sym
+    x = S.Convolution(S.Variable('data'), num_filter=c['num_filter'],
+                      kernel=(3, 3), pad=(1, 1), no_bias=True, name='conv')
+    x = S.BatchNorm(x, name='bn', fix_gamma=False)
+    net = x * S.Variable('head')
+    specs = [dict(ctx=mx.cpu(), data=c['data']), dict(ctx=ctx, data=c['data'])]
+    names = ['cpu float32', '%s float32' % ctx]
+    if low:
+        specs.append(dict(ctx=ctx, data=c['data'], type_dict={
+            'data': 'bfloat16', 'conv_weight': 'bfloat16'}))
+        names.append('%s bfloat16' % ctx)
+    rtol, atol = (c['rtol'], c['atol']) if low else (c['f32_rtol'],
+                                                     c['f32_atol'])
+    np.random.seed(CUSTOM_SEED + 2)
+    before = cuda_conv.CONV_BN_STATS_LAUNCHES
+    try:
+        mx.test_utils.check_consistency(net, specs, scale=0.5, rtol=rtol,
+                                        atol=atol)
+        err = None
+    except AssertionError as e:
+        err = str(e)
+    return dict(ok=err is None, error=err, rtol=rtol, atol=atol,
+                launches=cuda_conv.CONV_BN_STATS_LAUNCHES - before,
+                specs=names)
+
+
+def custom_phase(torch, mx, cuda_conv, smi, ctx=None):
+    """Phase 36: the bf16 ResNet-50 through Module with the Custom numpy
+    softmax-loss head against SoftmaxOutput(normalization='batch'), a
+    NumpyOp step and check_consistency; gated by custom_gate."""
+    ctx = ctx or mx.gpu(0)
+    Square = custom_register(mx)
+    ref_sym, custom_sym = custom_symbols(mx)
+    shape = tuple(int(v) for v in RESNET['image_shape'].split(','))
+    args, auxs = resnet_params(ref_sym, dict(data=(CUSTOM_BATCH,) + shape,
+                                             softmax_label=(CUSTOM_BATCH,)),
+                               RESNET['num_classes'], CUSTOM_SEED)
+    # phase 16's conditioned values: the seeded He-normal net is chaotic
+    # at initialisation, and a last-bit difference of the head's float32
+    # gradient (numpy's softmax against torch's) that rounds one bf16
+    # gradient apart grows through its backward beyond any bound
+    params = (conditioned({k: v for k, v in args.items()
+                           if k not in NO_GRAD}), auxs)
+    _, batches = dp_batches(mx, shape, CUSTOM_STEPS, CUSTOM_SEED + 3,
+                            CUSTOM_BATCH)
+    torch.backends.cudnn.deterministic = True
+    def fresh():
+        # each run its own copy: a bound array on the host may share the
+        # numpy array's memory, and the update writes it in place
+        return tuple({k: v.copy() for k, v in part.items()}
+                     for part in params)
+    try:
+        cuda_conv.CONV_BN_STATS_LAUNCHES = 0
+        custom, got = custom_steps(torch, mx, cuda_conv, custom_sym,
+                                   fresh(), batches, ctx)
+        custom['path_launches'] = cuda_conv.CONV_BN_STATS_LAUNCHES
+        softmax, ref = custom_steps(torch, mx, cuda_conv, ref_sym, fresh(),
+                                    batches, ctx)
+        # the gate's reading of a Custom head whose backward is off by
+        # CUSTOM_PLANT_SCALE
+        CUSTOM_GRAD_SCALE[0] = CUSTOM_PLANT_SCALE
+        try:
+            _, planted = custom_steps(torch, mx, cuda_conv, custom_sym,
+                                      fresh(), batches, ctx)
+        finally:
+            CUSTOM_GRAD_SCALE[0] = 1.0
+    finally:
+        torch.backends.cudnn.deterministic = False
+    compare = custom_compare(torch, got, ref)
+    planted_compare = custom_compare(torch, planted, ref)
+    del got, ref, planted
+    run = dict(config='bf16 ResNet-50 at batch %d, %d Module steps, the '
+               'Custom numpy softmax-loss head against SoftmaxOutput('
+               'normalization=\'batch\')' % (CUSTOM_BATCH, CUSTOM_STEPS),
+               card=smi, custom=custom, softmax=softmax, compare=compare,
+               planted=dict(scale=CUSTOM_PLANT_SCALE,
+                            state_rel_max=planted_compare['state_rel_max'],
+                            state_rel_worst=planted_compare[
+                                'state_rel_worst']),
+               launches=custom['path_launches'],
+               legacy=custom_legacy_check(torch, mx, Square, ctx),
+               consistency=custom_consistency(torch, mx, cuda_conv, ctx),
+               consistency_f32=custom_consistency(torch, mx, cuda_conv, ctx,
+                                                  low=False))
+    print('custom ' + json.dumps(run))
+    bad = custom_gate(run)
+    if bad:
+        fail('phase 36: ' + '; '.join(bad))
+    print('custom: the Custom head\'s steps %s ms (SoftmaxOutput\'s %s), %s '
+          'conv launches a step; losses %s vs %s; after %d steps the float32 '
+          'state within %.3g (%s), the bf16 weights %.3g bf16 steps apart '
+          '(%s), the momenta %.3g (%s); its backward x%g planted %.3g apart; '
+          'the NumpyOp step bit-exact on %s; '
+          'check_consistency over %s within %g (%d conv launches) and over '
+          '%s within %g' % (
+              ['%.1f' % t for t in custom['ms']],
+              ['%.1f' % t for t in softmax['ms']], custom['launches'],
+              ['%.5f' % v for v in custom['losses']],
+              ['%.5f' % v for v in softmax['losses']], CUSTOM_STEPS,
+              compare['state_rel_max'], compare['state_rel_worst'],
+              compare['weight_steps_max'], compare['weight_steps_worst'],
+              compare['mom_rel_max'], compare['mom_rel_worst'],
+              CUSTOM_PLANT_SCALE, run['planted']['state_rel_max'],
+              run['legacy']['on_device'], run['consistency']['specs'],
+              run['consistency']['rtol'], run['consistency']['launches'],
+              run['consistency_f32']['specs'],
+              run['consistency_f32']['rtol']))
+    return run
+
+
 def main(argv=None):
     import argparse
     parser = argparse.ArgumentParser(
@@ -11824,9 +12748,10 @@ def main(argv=None):
                                                     v.split(',')},
                         default=ALL_PHASES,
                         help='build, then run only these phases (a comma '
-                             'list of 2-34); the kernels line needs all')
+                             'list of 2-36); the kernels line needs all')
     parser.add_argument('--dist-worker', choices=('ps', 'coord', 'dp',
-                                                  'sparse', 'pipe', 'pipe4'),
+                                                  'sparse', 'pipe', 'pipe4',
+                                                  'hybrid'),
                         help=argparse.SUPPRESS)
     parser.add_argument('--dist-out', help=argparse.SUPPRESS)
     parser.add_argument('--dist-tag', help=argparse.SUPPRESS)
@@ -11836,6 +12761,10 @@ def main(argv=None):
                              'and phase 6\'s main case each of '
                              'CONV_MUTANTS, broken copies of the kernels')
     args = parser.parse_args(argv)
+    # a crash in native code prints every thread's Python stack to
+    # stderr, in this process and in every process it starts
+    faulthandler.enable(all_threads=True)
+    os.environ.setdefault('PYTHONFAULTHANDLER', '1')
     import torch
     if args.dist_worker == 'dp':
         # one rank of phase 29, started by the port's launcher
@@ -11852,6 +12781,10 @@ def main(argv=None):
     if args.dist_worker == 'pipe4':
         # one rank of phase 33, started by the port's launcher
         pipe4_worker(args.dist_out)
+        return
+    if args.dist_worker == 'hybrid':
+        # one rank of a worker of phase 35, started by the port's launcher
+        hybrid_worker(args.dist_out)
         return
     if args.dist_worker:
         # one worker of phase 21 or 22, started by the port's launcher
@@ -11870,7 +12803,7 @@ def main(argv=None):
     atexit.register(Background.stop_all)
     phases = args.phases
     if not phases <= ALL_PHASES:
-        fail('--phases takes phases 2 to 34; got %s' % sorted(phases))
+        fail('--phases takes phases 2 to 36; got %s' % sorted(phases))
     sys.path.insert(0, str(root))
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import _build, cuda_conv, cuda_ops
@@ -12096,10 +13029,24 @@ def main(argv=None):
         clock.start(24)
         router = scorer_router_phase(torch, mx, cuda_conv, cuda_ops, tfm)
 
+    # 35's launch starts once every other launch has ended (beside the
+    # others and phases 14-17 its four ranks ran the card out of memory)
+    # and runs beside phase 25, which gates no time
+    if 35 in phases:
+        torch.cuda.empty_cache()
+        started[35] = hybrid_start(root)
+
     # 25. the deployment artifact and the C predict API
     if 25 in phases:
         clock.start(25)
         artifact_phase(torch, mx, cuda_conv, cuda_ops, root)
+
+    # 35. hybrid workers: 2 workers x 2 ranks, each worker's ranks a data
+    # mesh, the workers synced through a parameter server; the reductions
+    # over the batch on a worker's mesh
+    if 35 in phases:
+        clock.start(35)
+        hybrid = hybrid_phase(torch, mx, root, smi, started.get(35))
 
     # 26. the LM step through the mesh path, world 1 over NCCL
     if 26 in phases:
@@ -12159,6 +13106,12 @@ def main(argv=None):
         moe_phase(torch, mx, root, smi)
     elif 32 in phases:
         shutil.rmtree(root / 'build' / 'phase32', ignore_errors=True)
+
+    # 36. a Custom numpy loss head trains the ResNet-50 through Module; a
+    # NumpyOp step; check_consistency over cpu, gpu and bfloat16
+    if 36 in phases:
+        clock.start(36)
+        custom = custom_phase(torch, mx, cuda_conv, smi)
 
     clock.stop()
     print('phase seconds ' + json.dumps(dict(
@@ -12244,7 +13197,7 @@ def main(argv=None):
                                      bucketing, gluon_run, ptb, gluon_lm,
                                      factories, record, dist_ps,
                                      dist_coord, loop, dp_mesh, dp_ranks,
-                                     gluon_fused))
+                                     gluon_fused, hybrid, custom))
     kernels.append(rtc_kernel_entry(rtc_run, ptb, gluon_lm))
     for kern in kernels:
         if kern['launches'] == 0:

@@ -76,6 +76,10 @@ far:
   auto-rollback, shadow replay, and `CheckpointPusher`, which pushes a
   training run's commits into the fleet and feeds the verdicts back
   (`tools/serve_fleet.py`);
+- the pure-Python remainder: `mx.operator` (CustomOp and the legacy
+  NumpyOp / NDArrayOp, whose forward and backward run on the host inside
+  the graph), `mx.contrib`, `mx.viz`, `mx.test_utils`,
+  `mx.executor_manager`, `mx.log` and `mx.registry`;
 - deployment: `Predictor.export_compiled` and `export_artifact`
   (`torch.export` programs; a `.pt2` with the weights baked in runs
   under torch alone), and the C predict API (`_c_predict_bridge` and
@@ -140,15 +144,25 @@ from . import fleet_supervisor
 from . import gluon
 from . import rnn
 from . import image
+from . import operator
+from . import contrib
+from . import visualization
+from . import visualization as viz
+from . import registry
+from . import log
+from . import executor_manager
+from . import test_utils
 
 __all__ = ['AttrScope', 'Context', 'DataBatch', 'DataDesc', 'DataIter',
            'Executor', 'FeedForward', 'MXNetError', 'Module', 'NDArrayIter',
            'NameManager', 'Optimizer', 'Prefix', 'attribute', 'autograd',
-           'callback', 'cpu', 'current_context', 'delta', 'dist', 'elastic',
-           'exec_cache', 'executor', 'fleet_supervisor', 'gluon', 'gpu',
-           'image', 'init', 'initializer', 'io', 'kv', 'kvstore',
-           'kvstore_server', 'lr_scheduler', 'metric',
-           'mod', 'model', 'models', 'module', 'mon', 'monitor', 'nd',
-           'ndarray', 'num_gpus', 'optimizer', 'predictor', 'profiler',
-           'quantization', 'random', 'recordio', 'resolve_device', 'rnn',
-           'rtc', 'serving', 'serving_fleet', 'sym', 'symbol', 'tpu']
+           'callback', 'contrib', 'cpu', 'current_context', 'delta', 'dist',
+           'elastic', 'exec_cache', 'executor', 'executor_manager',
+           'fleet_supervisor', 'gluon', 'gpu', 'image', 'init',
+           'initializer', 'io', 'kv', 'kvstore', 'kvstore_server', 'log',
+           'lr_scheduler', 'metric', 'mod', 'model', 'models', 'module',
+           'mon', 'monitor', 'nd', 'ndarray', 'num_gpus', 'operator',
+           'optimizer', 'predictor', 'profiler', 'quantization', 'random',
+           'recordio', 'registry', 'resolve_device', 'rnn', 'rtc',
+           'serving', 'serving_fleet', 'sym', 'symbol', 'test_utils', 'tpu',
+           'visualization', 'viz']

@@ -25,7 +25,10 @@ the counterpart of mxnet_tpu/dist.py (reference ps-lite tracker stack).
   rotation order; MXNET_TPU_DIST_TOPOLOGY), optionally on a compressed
   int8 or bf16 wire with error feedback (MXNET_TPU_DIST_WIRE_DTYPE,
   `quantization.WireCodec`). `allreduce_async` overlaps a round with
-  the caller; `allreduce_coo` sums sparse (ids, rows) pairs.
+  the caller; `allreduce_coo` sums sparse (ids, rows) pairs. A worker of
+  several ranks (`tools.launch --ranks-per-worker`,
+  parallel/worker_group.py) is one rank of the runtime: its leader takes
+  part, and the others get each result from it (`_WorkerRuntime`).
 
 Everything rides host sockets with the kvstore_server framing, whose
 frames equal the JAX package's, so results are bit for bit the JAX
@@ -1770,6 +1773,80 @@ class DistRuntime(object):
             coord.stop()
 
 
+class _WorkerRuntime(object):
+    """The runtime of a worker of several ranks (parallel/worker_group.py):
+    the group's leader holds the worker's DistRuntime, and every result
+    it gets (a sum, a barrier's passing) reaches the other ranks of the
+    group from it, so the job's other workers see one rank per worker.
+    An async round runs at once and returns a finished handle."""
+
+    def __init__(self, inner, rank, world):
+        self._inner = inner
+        self.rank, self.world = rank, world
+        self.address = inner.address if inner is not None else None
+        self.port = inner.port if inner is not None else None
+
+    # the liveness table is the leader's (no collective: a rank reads it
+    # whenever it likes)
+    def dead_ranks(self):
+        return self._inner.dead_ranks() if self._inner is not None \
+            else frozenset()
+
+    def poll_dead(self):
+        return self._inner.poll_dead() if self._inner is not None \
+            else frozenset()
+
+    def num_dead(self):
+        return len(self.dead_ranks())
+
+    def watch(self, manager):
+        if self._inner is not None:
+            self._inner.watch(manager)
+        return manager
+
+    def unwatch(self, manager):
+        if self._inner is not None:
+            self._inner.unwatch(manager)
+
+    def barrier(self, name='user', timeout=None, live_only=False):
+        from .parallel import worker_group
+        if self._inner is not None:
+            self._inner.barrier(name, timeout=timeout, live_only=live_only)
+        worker_group.barrier()
+
+    def allreduce(self, arrays, name='grad', timeout=None, wire=None,
+                  topology=None):
+        from .parallel import worker_group
+        out = None
+        if self._inner is not None:
+            out = self._inner.allreduce(arrays, name=name, timeout=timeout,
+                                        wire=wire, topology=topology)
+        return worker_group.broadcast_host(out)
+
+    def allreduce_async(self, arrays, name='grad', timeout=None, wire=None,
+                        topology=None):
+        h = AllreduceHandle()
+        h._result = self.allreduce(arrays, name=name, timeout=timeout,
+                                   wire=wire, topology=topology)
+        h._t_done = time.perf_counter()
+        h._event.set()
+        return h
+
+    def allreduce_coo(self, uids, rows, name='embed', vocab=None,
+                      topology=None):
+        from .parallel import worker_group
+        out = None
+        if self._inner is not None:
+            out = self._inner.allreduce_coo(uids, rows, name=name,
+                                            vocab=vocab, topology=topology)
+        return tuple(worker_group.broadcast_host(
+            None if out is None else [np.asarray(out[0]), out[1]]))
+
+    def shutdown(self):
+        if self._inner is not None:
+            self._inner.shutdown()
+
+
 # ---------------------------------------------------------------------------
 # process-level singleton
 # ---------------------------------------------------------------------------
@@ -1822,9 +1899,24 @@ def initialize(rank=None, world=None, address=None, port=None,
     if port is None:
         p = env.get('MXNET_TPU_DIST_PORT') or env.get('DMLC_PS_ROOT_PORT')
         port = int(p) if p else None
-    _RUNTIME = DistRuntime(rank, world, address=address, port=port,
-                           timeout=timeout, heartbeat=heartbeat)
-    if env.get('MXNET_TPU_DIST_JAX', '').strip() in ('1', 'true'):
+    from .parallel import worker_group
+    spmd = env.get('MXNET_TPU_DIST_JAX', '').strip() in ('1', 'true')
+    group = worker_group.init()
+    if group is not None:
+        if spmd:
+            raise MXNetError(
+                'MXNET_TPU_DIST_JAX=1 makes the workers one process group; '
+                'a worker of several ranks (tools.launch '
+                '--ranks-per-worker) has a group of its own')
+        # the worker's leader is its rank in the job's runtime
+        _RUNTIME = _WorkerRuntime(
+            DistRuntime(rank, world, address=address, port=port,
+                        timeout=timeout, heartbeat=heartbeat)
+            if group.leader else None, rank, world)
+    else:
+        _RUNTIME = DistRuntime(rank, world, address=address, port=port,
+                               timeout=timeout, heartbeat=heartbeat)
+    if spmd:
         _init_spmd(rank, world, _RUNTIME.address, _RUNTIME.port)
     restarts = env.get('MXNET_TPU_DIST_RESTART_COUNT', '').strip()
     if restarts:
@@ -1832,7 +1924,7 @@ def initialize(rank=None, world=None, address=None, port=None,
             profiler.add_dist_stats(restarts=int(restarts))
         except ValueError:
             pass
-    logging.info('dist: initialized rank %d of %d (coordinator %s:%d)',
+    logging.info('dist: initialized rank %d of %d (coordinator %s:%s)',
                  _RUNTIME.rank, _RUNTIME.world, _RUNTIME.address,
                  _RUNTIME.port)
     return _RUNTIME
@@ -1920,7 +2012,9 @@ def host_span_active():
     """True when cross-process data parallelism rides the host-level
     `dist.allreduce` through the KVStore facade: the runtime is up and
     the workers are not one torch.distributed group
-    (MXNET_TPU_DIST_JAX=1), whose data mesh reduces in the step."""
+    (MXNET_TPU_DIST_JAX=1), whose data mesh reduces in the step. A
+    worker of several ranks reduces over its own group in the step, and
+    across the workers here."""
     return _RUNTIME is not None and not _SPMD['group']
 
 

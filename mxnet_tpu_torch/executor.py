@@ -76,9 +76,16 @@ Data parallelism (a Module over several contexts, module/
 executor_group.py). The group sets `_mesh`, the 'data' mesh whose rank
 this executor is, bound at this rank's rows of the batch: each walk runs
 in `mesh.data_mesh_scope`, so the ops that reduce over the batch reduce
-over the mesh (ops/nn.py), and an op that would reduce a batch-carrying
-tensor over its batch axis where the port has no global form
-(`_BATCH_REDUCERS`: sum, mean, ... over axis 0) raises naming it. The
+over the mesh (ops/nn.py). The walk also tells each value's kind
+(`_node_kind`): this rank's rows of a batch-carrying value, or a
+replicated one. A registered op that reduces a batch-carrying value over
+axis 0 (sum, mean, prod, max, norm, softmax_cross_entropy, sort, topk,
+...) runs in its global form (parallel/batch_reduce.py), and what
+follows it is replicated: it runs as the one-device op on every rank, a
+replicated value entering a batch-carrying op sums its cotangent over
+the mesh, and a parameter entering replicated math keeps its gradient
+on data index 0, so that the all-reduce below counts it once. The
+group gathers a replicated output once (`replicated_outputs`). The
 group also sets `grad_reduce` (`collectives.GradReduce`), the in-step
 all-reduce of the parameters' gradients over the data axis, started from
 the backward's hooks when interleaved; `make_fused_train_step` and
@@ -111,43 +118,12 @@ from . import exec_cache
 from . import ndarray as nd
 from . import profiler
 from . import random as _random
-from .base import MXNetError, torch_dtype, unported
+from .base import MXNetError, torch_dtype
 from .context import Context
+from .parallel import batch_reduce as _breduce
 from .parallel import mesh as _pmesh
 from .ops import nn as _nn
 from .ops.registry import OpContext, asbool, astuple, normalize_axis
-
-def _axis_reduced(attrs, ndim, default_all=True, key='axis'):
-    """True when the op's `axis` (None: every axis when default_all)
-    covers axis 0."""
-    from .base import parse_attr_value
-    axis = parse_attr_value(attrs.get(key, None))
-    if axis is None or axis == ():
-        axes = tuple(range(ndim)) if default_all else ()
-    elif isinstance(axis, int):
-        axes = (normalize_axis(axis, ndim),)
-    else:
-        axes = tuple(normalize_axis(a, ndim) for a in axis)
-    if asbool(attrs.get('exclude', False)):
-        axes = tuple(a for a in range(ndim) if a not in axes)
-    return 0 in axes
-
-
-def _sort_axis0(attrs, ndim):
-    from .base import parse_attr_value
-    axis = parse_attr_value(attrs.get('axis', -1))
-    return axis is None or normalize_axis(axis, ndim) == 0
-
-
-# registered ops that reduce over axis 0 of their input (attrs, ndim ->
-# bool): under a data mesh a batch-carrying input would give this rank's
-# answer only, and they raise
-_BATCH_REDUCERS = dict(
-    {name: _axis_reduced for name in (
-        'sum', 'sum_axis', 'mean', 'prod', 'nansum', 'nanprod', 'max',
-        'max_axis', 'min', 'min_axis', 'norm')},
-    softmax_cross_entropy=lambda attrs, ndim: True,
-    sort=_sort_axis0, argsort=_sort_axis0, topk=_sort_axis0)
 
 # elementwise ops whose outputs follow the input permutation unchanged
 _LAYOUT_FLEX = frozenset((
@@ -371,7 +347,7 @@ class Executor:
         # inputs (data and labels) and the in-step gradient all-reduce
         self._mesh = None
         self._batch_inputs = ()
-        self._batch_dep = None
+        self._kinds = None
         self.grad_reduce = None
         # the sparse embedding tier (parallel/embedding.py): the tables
         # that train rows-only once the Module's updater takes them
@@ -548,30 +524,56 @@ class Executor:
         arguments."""
         self._mesh = mesh
         self._batch_inputs = tuple(batch_inputs)
-        self._batch_dep = None
+        self._kinds = None
         self._sparse_entries = None
 
-    def _batch_nodes(self):
-        """Indices of the nodes whose value depends on a batch input."""
-        if self._batch_dep is None:
-            dep = set()
-            for ni, node in enumerate(self._topo):
-                if node.op is None:
-                    if node.name in self._batch_inputs:
-                        dep.add(ni)
-                elif any(self._node_index[id(src)] in dep
-                         for src, _ in node.inputs):
-                    dep.add(ni)
-            self._batch_dep = dep
-        return self._batch_dep
+    # under a data mesh each node's value is one of: 'B' this rank's rows
+    # of a batch-carrying value; 'R' replicated, a reduction over the
+    # batch or downstream of one; 'P' replicated, of the parameters and
+    # constants alone. 'G' marks an op that reduces a batch-carrying
+    # value over axis 0, which runs in its global form
+    # (parallel/batch_reduce.py); its value is 'R', or 'B' for this
+    # rank's block of a global sort
+    def _node_kind(self, node, vals):
+        if node.op is None:
+            return 'B' if node.name in self._batch_inputs else 'P'
+        kinds = [self._kinds[self._node_index[id(src)]]
+                 for src, _ in node.inputs]
+        if kinds and kinds[0] == 'B' and _breduce.reduces_batch(
+                node.op.name, node.attrs, vals[0].ndim):
+            return 'G'
+        if 'B' in kinds:
+            return 'B'
+        return 'R' if 'R' in kinds else 'P'
 
-    def _check_batch_reduce(self, ni, node, vals):
-        check = _BATCH_REDUCERS.get(node.op.name)
-        if check is not None and vals and ni in self._batch_nodes() and \
-                check(node.attrs, vals[0].ndim):
-            raise unported('%s (node %s) over the batch axis under a data '
-                           'mesh: it would reduce this rank\'s rows only'
-                           % (node.op.name, node.name), '6')
+    def replicated_outputs(self):
+        """Per output, whether every rank of the data mesh holds the same
+        whole value (a reduction over the batch, or of the parameters
+        alone), not its rows; known after a forward under the mesh."""
+        kinds = self._kinds
+        return [kinds is not None and kinds[ni] != 'B'
+                for ni, _ in self._out_entries]
+
+    def _mesh_vals(self, ni, node, vals):
+        """The kind of node `ni` under the data mesh, recorded, and its
+        inputs: a replicated value entering a batch-carrying op sums its
+        cotangent over the mesh; a parameter's value entering replicated
+        math keeps its gradient on one rank (batch_reduce)."""
+        kind = self._node_kind(node, vals)
+        srcs = [self._kinds[self._node_index[id(src)]]
+                for src, _ in node.inputs]
+        if kind == 'G':
+            self._kinds[ni] = 'R' if _breduce.output_replicated(
+                node.op.name, node.attrs, vals[0].ndim) else 'B'
+            return kind, vals
+        self._kinds[ni] = kind
+        if kind == 'B':
+            vals = [_breduce.enter_batch(v, self._mesh) if k == 'R' else v
+                    for v, k in zip(vals, srcs)]
+        elif kind == 'R':
+            vals = [_breduce.root_grad(v, self._mesh) if k == 'P' else v
+                    for v, k in zip(vals, srcs)]
+        return kind, vals
 
     def _run_graph(self, arg_vals, aux_vals, is_train, collect=None,
                    rng=None):
@@ -585,6 +587,8 @@ class Executor:
 
     def _walk(self, arg_vals, aux_vals, is_train, collect, rng, dp):
         topo = self._topo
+        if dp:
+            self._kinds = [None] * len(topo)
         results = [None] * len(topo)   # per node: list of outputs
         layouts = [None] * len(topo)   # per node: layout per output
         new_aux = list(aux_vals)
@@ -601,12 +605,26 @@ class Executor:
                 else:
                     results[ni] = [new_aux[self._aux_pos[node.name]]]
                 layouts[ni] = ['NCHW']
+                if dp:
+                    self._kinds[ni] = self._node_kind(node, None)
                 continue
             op = node.op
             vals = [results[self._node_index[id(src)]][idx]
                     for src, idx in node.inputs]
+            kind = 'B'
             if dp:
-                self._check_batch_reduce(ni, node, vals)
+                kind, vals = self._mesh_vals(ni, node, vals)
+                if kind == 'G':
+                    in_l = [layouts[self._node_index[id(src)]][idx]
+                            for src, idx in node.inputs]
+                    outs = _breduce.global_reduce(
+                        op, node.attrs,
+                        [_to_nchw(v, l) for v, l in zip(vals, in_l)],
+                        self._mesh)
+                    results[ni], layouts[ni] = outs, ['NCHW'] * len(outs)
+                    if collect is not None:
+                        collect.extend(outs)
+                    continue
             if self._sparse_active and op.name == 'Embedding':
                 out = self._sparse_lookup(node, vals)
                 if out is not None:
@@ -669,6 +687,10 @@ class Executor:
             if ni in sums:
                 outs, updated = pair_batch_norm(eff_attrs, args, auxs,
                                                 op_ctx, sums.pop(ni))
+            elif kind != 'B':
+                # replicated math: the same one-device op on every rank
+                with _pmesh.data_mesh_scope(None):
+                    outs, updated = op.apply(eff_attrs, args, auxs, op_ctx)
             else:
                 outs, updated = op.apply(eff_attrs, args, auxs, op_ctx)
             if ni in split_conv:

@@ -18,6 +18,11 @@ rank/size/barrier) over three data paths:
   the `kvstore_server` processes, which run the optimizer and answer
   pulls with the reference's sync semantics.
 
+A worker of several ranks (`tools.launch --ranks-per-worker`,
+parallel/worker_group.py) is one worker to the servers and the runtime:
+its ranks' data mesh sums their gradients in the step, its leader
+pushes them once and the pulled weights reach every rank from it.
+
 Sparse embedding keys (`mark_sparse`): on the dist runtime's host
 all-reduce their gradient crosses the processes as deduplicated (unique
 ids, rows) pairs (`dist.allreduce_coo`) instead of a dense (vocab, dim)
@@ -373,15 +378,23 @@ class KVStoreDistPS(KVStore):
     def __init__(self, kv_type, zero=None):
         super().__init__(kv_type, zero=zero)
         from . import kvstore_server as ps
+        from .parallel import worker_group
         host = os.environ['DMLC_PS_ROOT_URI']
         port = int(os.environ['DMLC_PS_ROOT_PORT'])
         self._num_servers = int(os.environ.get('DMLC_NUM_SERVER', '1'))
         self._num_workers_env = int(os.environ.get('DMLC_NUM_WORKER', '1'))
         self._rank = int(os.environ.get('DMLC_WORKER_ID', '0'))
-        self._client = ps.DistServerClient(host, port, self._num_servers,
-                                           rank=self._rank)
+        # a worker of several ranks (parallel/worker_group.py): its
+        # leader alone speaks to the servers
+        self._group = worker_group.init()
+        self._leader = self._group is None or self._group.leader
+        self._client = ps.DistServerClient(
+            host, port, self._num_servers, rank=self._rank) \
+            if self._leader else None
+        # push frames this rank sent: one a key and step for a worker
+        self.pushes = 0
         self._update_on_kvstore = True
-        if 'async' in kv_type and self._rank == 0:
+        if 'async' in kv_type and self._rank == 0 and self._leader:
             # reference: rank 0 sends the sync/async mode command to the
             # servers (kvstore.cc:48-52 kSyncMode)
             self._client.set_sync_mode(False)
@@ -391,7 +404,7 @@ class KVStoreDistPS(KVStore):
         keys, vals = _ctype_key_value(key, value)
         for k, vlist in zip(keys, vals):
             # only rank 0 initializes (reference kvstore_dist.h:96)
-            if self.rank == 0:
+            if self.rank == 0 and self._leader:
                 self._client.init(k, ha.host(vlist[0]))
         self.barrier()
 
@@ -406,32 +419,50 @@ class KVStoreDistPS(KVStore):
             o._data = ha.to_tensor(val, device=o._data.device,
                                    dtype=o._data.dtype)
 
+    def _from_leader(self, vals):
+        """The leader's pulled values on every rank of the worker."""
+        if self._group is None:
+            return vals
+        from .parallel import worker_group
+        return worker_group.broadcast_host(vals)
+
     def push(self, key, value, priority=0):
+        """Push gradients (the values of several contexts summed); in a
+        worker of several ranks, whose gradients the data mesh already
+        summed, the leader's push is the worker's."""
         keys, vals = _ctype_key_value(key, value)
         for k, vlist in zip(keys, vals):
-            self._client.push(k, self._merge_grads(vlist))
+            if self._leader:
+                self._client.push(k, self._merge_grads(vlist))
+                self.pushes += 1
 
     def pull(self, key, out=None, priority=0):
         keys, outs = _ctype_key_value(key, out)
         for k, olist in zip(keys, outs):
-            self._write(olist, self._client.pull(k))
+            val = self._client.pull(k) if self._leader else None
+            self._write(olist, self._from_leader([val])[0])
 
     def push_pull_all(self, keys, grad_lists, out_lists):
         """A step's round: every gradient in one frame per server, every
         weight back in its reply (2 x #servers round trips, not 2 x
         #keys)."""
-        pairs = [(k, self._merge_grads(value))
-                 for k, value in zip(keys, grad_lists)]
-        vals = self._client.push_pull_multi(pairs)
-        for k, out in zip(keys, out_lists):
-            self._write(out, vals[k])
+        vals = None
+        if self._leader:
+            pairs = [(k, self._merge_grads(value))
+                     for k, value in zip(keys, grad_lists)]
+            got = self._client.push_pull_multi(pairs)
+            self.pushes += len(pairs)
+            vals = [got[k] for k in keys]
+        vals = self._from_leader(vals)
+        for val, out in zip(vals, out_lists):
+            self._write(out, val)
 
     def set_optimizer(self, optimizer):
         """Pickle the optimizer to the servers, from rank 0 only, as the
         reference does (every re-send would rebuild the server updater
         and drop its state)."""
         err = None
-        if self.rank == 0:
+        if self.rank == 0 and self._leader:
             sym_ref = getattr(optimizer, 'sym', None)
             optimizer.sym = None
             try:
@@ -448,7 +479,7 @@ class KVStoreDistPS(KVStore):
         self.barrier()
         if err is not None:
             raise err
-        if not self._client.has_updater():
+        if self._leader and not self._client.has_updater():
             raise MXNetError(
                 'set_optimizer did not install a server-side updater '
                 '(rank 0 was refused: is DMLC_PS_TOKEN set?)')
@@ -474,40 +505,46 @@ class KVStoreDistPS(KVStore):
 
     def barrier(self, timeout=None):
         """PS-store barrier; `timeout` bounds each server's wait (None
-        blocks, as the reference)."""
+        blocks, as the reference). A worker's ranks meet behind their
+        leader."""
         from . import elastic
+        from .parallel import worker_group
         elastic.check_barrier()
-        self._client.barrier(timeout=timeout)
+        if self._leader:
+            self._client.barrier(timeout=timeout)
+        worker_group.barrier()
 
     def send_heartbeat(self):
         """Stamp liveness on the servers (ps-lite heartbeats)."""
-        self._client.heartbeat(self._rank)
+        if self._leader:
+            self._client.heartbeat(self._rank)
 
     def get_num_dead_node(self, node_id=0, timeout_sec=60):
         """Workers silent on the servers longer than timeout_sec
         (reference KVStore::get_num_dead_node, kvstore.h:287), plus the
         injected dead virtual hosts."""
         from . import elastic
-        return self._client.num_dead(timeout_sec) + \
-            elastic.num_dead_node()
+        dead = self._client.num_dead(timeout_sec) if self._leader else 0
+        return dead + elastic.num_dead_node()
 
     @property
     def num_dead_node(self):
         return self.get_num_dead_node()
 
     def send_command_to_servers(self, head, body):
-        if head == 'stop':
+        if head == 'stop' and self._leader:
             self._client.stop_servers()
 
     _send_command_to_servers = send_command_to_servers
 
     def stop_servers(self):
         """Rank-0 teardown (reference ~KVStoreDist sends kStopServer)."""
-        if self.rank == 0:
+        if self.rank == 0 and self._leader:
             self._client.stop_servers()
 
     def close(self):
-        self._client.close()
+        if self._leader:
+            self._client.close()
 
 
 def create(name='local', zero=None):

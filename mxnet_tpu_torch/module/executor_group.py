@@ -26,7 +26,9 @@ normalization, and the gradients of the parameters, all-reduced in the
 backward (`collectives.GradReduce`) unless ZeRO-1 reduce-scatters them
 in the update (`use_grad_reduce(False)`). `get_outputs`,
 `get_input_grads` and `update_metric` gather this rank's rows back into
-the global batch, so that every rank sees the JAX package's values.
+the global batch, so that every rank sees the JAX package's values; an
+output that reduces over the batch is replicated (executor.py) and comes
+back as it is.
 """
 import torch
 import torch.distributed as dist
@@ -56,8 +58,12 @@ def data_mesh_for(contexts, what='a Module'):
     `contexts` runs on, or None (one device). Raises when several
     contexts have no process group to run on, or a data axis of another
     size."""
+    from ..parallel import worker_group
     n = len(contexts)
     mesh = pmesh.current_mesh()
+    if n > 1 and not dist.is_initialized():
+        # a rank of a worker of several ranks joins its worker's group
+        worker_group.init()
     if mesh is None or 'data' not in mesh.shape:
         mesh = pmesh.world_data_mesh()
     if mesh is None:
@@ -275,9 +281,11 @@ class DataParallelExecutorGroup:
     def backward(self, out_grads=None):
         assert self.for_training, 're-bind with for_training=True'
         if out_grads is not None and self.dp > 1:
-            out_grads = [self.local_rows(g) for g in (
+            # a replicated output's head gradient is whole on every rank
+            rep = self.executor.replicated_outputs()
+            out_grads = [g if r else self.local_rows(g) for g, r in zip(
                 [out_grads] if isinstance(out_grads, nd.NDArray)
-                else out_grads)]
+                else out_grads, rep)]
         self.executor.backward(out_grads=out_grads)
 
     def forward_backward(self, data_batch=None):
@@ -286,17 +294,19 @@ class DataParallelExecutorGroup:
         return self.executor.forward_backward()
 
     # -- the global batch back ---------------------------------------------
-    def gather_rows(self, arrays):
+    def gather_rows(self, arrays, replicated=None):
         """NDArrays (or tensors) of this rank's rows joined into the
         global batch, by data index; arrays without this rank's batch as
-        their first dimension as they are. A collective: every rank
+        their first dimension, and those `replicated` flags (a value
+        every rank holds whole), as they are. A collective: every rank
         calls it."""
         if self.dp == 1:
             return list(arrays)
         out = []
-        for a in arrays:
+        for j, a in enumerate(arrays):
             t = a._data if isinstance(a, nd.NDArray) else a
-            if t is None or t.dim() == 0 or t.shape[0] != self.local_batch:
+            if t is None or t.dim() == 0 or t.shape[0] != self.local_batch \
+                    or (replicated is not None and replicated[j]):
                 out.append(a)
                 continue
             with torch.no_grad():
@@ -313,7 +323,8 @@ class DataParallelExecutorGroup:
             return outs
         cached = getattr(self, '_gathered', None)
         if cached is None or cached[0] is not outs:
-            cached = (outs, self.gather_rows(outs))
+            cached = (outs, self.gather_rows(
+                outs, self.executor.replicated_outputs()))
             self._gathered = cached
         return cached[1]
 

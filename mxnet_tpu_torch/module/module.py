@@ -36,9 +36,12 @@ device is no store at all.
 `fit(pipeline=(S, M))` trains over a {'data', 'pipe'} mesh of the
 contexts' ranks through the GPipe engine (module/pipeline_fit.py).
 
-Not ported, raising: a data mesh inside each worker beside the parameter
-server or the dist runtime's host all-reduce across workers (the rest of
-6b).
+A worker of several ranks (`tools.launch --ranks-per-worker`,
+parallel/worker_group.py), the JAX package's hybrid worker: the Module
+over the worker's contexts is a data mesh of the worker's ranks, which
+sums the gradients in the step, and the workers sync through the
+parameter server or the dist runtime's host all-reduce key by key; the
+batch of rescale_grad is the worker's times the number of workers.
 """
 import logging
 import os
@@ -52,7 +55,7 @@ from .. import metric as metric_mod
 from .. import model as model_mod
 from .. import ndarray as nd
 from .. import optimizer as opt_mod
-from ..base import MXNetError, atomic_file, torch_dtype, unported
+from ..base import MXNetError, atomic_file, torch_dtype
 from ..executor import _tensor_of
 from .base_module import BaseModule
 from .executor_group import DataParallelExecutorGroup
@@ -312,10 +315,15 @@ class Module(BaseModule):
         if zero is None and kvstore is not None:
             zero = kvstore.zero_stage
         zero = zero_mod.zero_stage(zero)
-        # the batch of a data mesh is the global batch already
+        # the batch of a data mesh over the workers is the global batch
+        # already; a worker's own mesh (parallel/worker_group.py) holds
+        # its share
+        from ..parallel import worker_group
+        group = worker_group.current()
         batch_size = eg.batch_size
         if kvstore and 'dist' in kvstore.type and \
-                '_sync' in kvstore.type and eg.mesh is None:
+                '_sync' in kvstore.type and (eg.mesh is None or
+                                             group is not None):
             batch_size *= kvstore.num_workers
         rescale_grad = 1.0 / batch_size
         if isinstance(optimizer, str):
@@ -349,14 +357,15 @@ class Module(BaseModule):
         ps = isinstance(kvstore, kvs_mod.KVStoreDistPS)
         host_span = kvstore is not None and kvstore._is_dist and \
             not ps and dist.host_span_active()
-        if eg.dp > 1 and (ps or host_span):
-            raise unported(
-                'a data mesh inside each worker with the %s across '
-                'workers (the rest of item 6b; the JAX package\'s dryrun '
-                'phase (f)); run every worker\'s device as a rank of one '
-                'mesh instead (MXNET_TPU_DIST_JAX=1)'
-                % ('parameter server' if ps else
-                   "dist runtime's host all-reduce"), '6')
+        if eg.dp > 1 and (ps or host_span) and (
+                group is None or group.size != eg.dp):
+            # the data mesh must be the worker's own: one over the
+            # workers would sum the gradients twice
+            raise MXNetError(
+                'a Module over %d contexts syncs through the %s only as a '
+                'worker of %d ranks (tools.launch --ranks-per-worker %d)'
+                % (eg.dp, 'parameter server' if ps else
+                   "dist runtime's host all-reduce", eg.dp, eg.dp))
         self._fused_updater = None
         ex = eg.executor
         # sparse_grad Embedding tables train rows-only in the fused

@@ -6,8 +6,8 @@ the samplers (`random_ops`), the layers (`nn`), the optimizer updates
 (`spatial`), the losses and linalg family (`extra`) and the contrib ops
 (`contrib_ops`: MultiBox, Proposal, the PSROI and deformable ops, CTC,
 FFT, count-sketch, quantize), under the names of their JAX namesakes in
-mxnet_tpu/ops/. The JAX registry's Custom, _Native and _NDArray
-(operator.py) are not here yet (ROADMAP Queue A 7).
+mxnet_tpu/ops/. Custom, _Native and _NDArray are registered by the
+package's `operator` module, as in the JAX package.
 """
 from . import registry
 from . import tensor

@@ -19,20 +19,33 @@ one GPU); a gloo group carries CUDA tensors through pinned host memory
 (collectives.py). A rank's device is `cuda:LOCAL_RANK % device_count`
 unless the caller passes one, and without CUDA the entry points raise
 unless they are given `device='cpu'`.
+
+A rank leaves through `destroy_process_group`, which init_process_group
+also registers to run at the interpreter's exit. It drops every mesh's
+DeviceMesh, whose registry holds the gloo groups, so that their worker
+threads are joined while the interpreter is whole: a gloo thread that
+outlives it, and drops the last reference to a tensor that Python made,
+takes the GIL during finalization and aborts the process ("terminate
+called without an active exception").
 """
+import atexit
 import gc
 import os
 import socket
-import sys
 import threading
+import weakref
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
 _state = threading.local()
-# this process's rank device, set by init_process_group
-_PROC = {'device': None}
+# this process's rank device, set by init_process_group; whether the
+# exit teardown is registered
+_PROC = {'device': None, 'atexit': False}
+# every Mesh made in this process: destroy_process_group releases their
+# process groups
+_MESHES = weakref.WeakSet()
 
 
 class P(tuple):
@@ -111,15 +124,28 @@ def init_process_group(device=None, init_method=None, rank=None,
     dist.init_process_group(backend, init_method=init_method, rank=rank,
                             world_size=world_size)
     _PROC['device'] = device
+    if not _PROC['atexit']:
+        atexit.register(destroy_process_group)
+        _PROC['atexit'] = True
     return device
 
 
 def destroy_process_group():
-    """Leave the default group (the counterpart of init_process_group)."""
+    """Leave the default group (the counterpart of init_process_group;
+    idempotent). Every mesh made in this process lets go of its
+    DeviceMesh, and the process groups they held are destroyed here,
+    their worker threads joined (the module docstring)."""
     if dist.is_initialized():
         dist.destroy_process_group()
+    for mesh in list(_MESHES):
+        mesh.device_mesh = None
+    from . import worker_group
+    worker_group.reset()
     _PROC['device'] = None
     _WORLD_MESH.clear()
+    # a mesh in a reference cycle (a fused step and its trainer) goes
+    # now, not at the interpreter's exit
+    gc.collect()
 
 
 def _spawned_rank(rank, fn, world_size, init_file, device, args):
@@ -131,17 +157,7 @@ def _spawned_rank(rank, fn, world_size, init_file, device, args):
     try:
         fn(rank, *args)
     finally:
-        # what fn left in reference cycles (a fused step and its trainer)
-        # goes before the group does, not at the interpreter's exit
-        gc.collect()
         destroy_process_group()
-    # a rank that returned exits here, as a forked process does: the
-    # interpreter's teardown can destroy a thread still joinable and
-    # abort the process after its work is done (ROADMAP Queue C2: the
-    # owner is not found; ranks of other launchers are not covered)
-    sys.stdout.flush()
-    sys.stderr.flush()
-    os._exit(0)
 
 
 def spawn(fn, world_size, init_file, args=(), device=None):
@@ -149,10 +165,8 @@ def spawn(fn, world_size, init_file, args=(), device=None):
     in the default group (a `file://` rendezvous at init_file, which must
     not exist yet), on `device` or cuda:rank % device_count. fn must be
     importable by name (a module's top-level function). A rank whose fn
-    returned leaves its group and exits at once (os._exit, after
-    flushing stdout and stderr; no atexit handlers run), which keeps an
-    abort at interpreter exit off ranks whose work is done (ROADMAP
-    Queue C2). Raises when a rank fails."""
+    returned leaves its group and exits through the interpreter. Raises
+    when a rank fails."""
     import torch.multiprocessing as mp
     mp.spawn(_spawned_rank, args=(fn, world_size, str(init_file), device,
                                   tuple(args)),
@@ -188,6 +202,7 @@ class Mesh:
         dist.all_gather_object(names, '%s/%s' % (socket.gethostname(),
                                                  self.device))
         self.devices = tuple(names[:self.size])
+        _MESHES.add(self)
 
     def _check_axis(self, axis):
         if axis not in self.shape:
@@ -199,6 +214,9 @@ class Mesh:
 
     def group(self, axis):
         self._check_axis(axis)
+        if self.device_mesh is None:
+            raise RuntimeError('this mesh\'s process group was destroyed '
+                               '(destroy_process_group)')
         return self.device_mesh.get_group(axis)
 
     def axis_size(self, axis):

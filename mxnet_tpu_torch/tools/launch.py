@@ -22,6 +22,10 @@ worker. The options and the behaviour are the JAX launcher's:
     --elastic-shrink, up to --max-restarts times
     (MXNET_TPU_DIST_RESTART_COUNT counts them).
   * a token (DMLC_PS_TOKEN) minted for each job, unless one is set.
+  * --ranks-per-worker R (local, not elastic): each worker is R
+    processes, the ranks of a data mesh of its own over a process group
+    of its own (parallel/worker_group.py); the servers and the dist
+    runtime see -n workers. A worker's code is its first failing rank's.
 
 The package directory's parent goes first on the children's PYTHONPATH,
 so that `-m mxnet_tpu_torch.kvstore_server` resolves from any working
@@ -126,7 +130,11 @@ def _launch_round(args, command, world, restarts):
     # listeners (rank r binds MXNET_TPU_DIST_RING_PORT + r under
     # MXNET_TPU_DIST_TOPOLOGY=ring) — all probed free up front instead
     # of failing mid-first-step on a busy port
-    port = args.port or _free_port_range(args.num_servers + 2 + world)
+    rpw = args.ranks_per_worker
+    # and, for workers of several ranks, one rendezvous port a worker
+    group_base = args.num_servers + 2 + world
+    port = args.port or _free_port_range(
+        group_base + (world if rpw > 1 else 0))
     base_env = dict(os.environ)
     base_env.update({
         'DMLC_PS_ROOT_URI': host,
@@ -172,30 +180,39 @@ def _launch_round(args, command, world, restarts):
                  'mxnet_tpu_torch.kvstore_server'],
                 env=env, start_new_session=True))
         for wid in range(world):
-            env = dict(base_env)
-            env.update({'DMLC_ROLE': 'worker',
-                        'DMLC_WORKER_ID': str(wid)})
-            workers.append(subprocess.Popen(command, env=env,
-                                            start_new_session=True))
+            for r in range(rpw):
+                env = dict(base_env)
+                env.update({'DMLC_ROLE': 'worker',
+                            'DMLC_WORKER_ID': str(wid)})
+                if rpw > 1:
+                    env.update(_group_env(wid, r, rpw, world, host,
+                                          port + group_base + wid))
+                workers.append(subprocess.Popen(command, env=env,
+                                                start_new_session=True))
+        # a worker's code: the first non-zero code of its ranks
         rcs = {}
+        proc_rcs = {}
         launcher_killed = set()
         grace_deadline = None
-        while len(rcs) < world:
-            for wid, p in enumerate(workers):
-                if wid in rcs:
+        while len(proc_rcs) < len(workers):
+            for j, p in enumerate(workers):
+                if j in proc_rcs:
                     continue
                 rc = p.poll()
                 if rc is None:
                     continue
-                rcs[wid] = rc
+                proc_rcs[j] = rc
+                wid = j // rpw
+                if rcs.get(wid, 0) == 0:
+                    rcs[wid] = rc
                 if rc != 0 and not got_signal:
                     if not args.elastic:
                         # fail-fast: kill the sibling process groups
                         # and exit with this worker's code + rank —
                         # a crashed worker must not leave siblings
                         # blocked in a barrier forever
-                        _stop_procs([q for j, q in enumerate(workers)
-                                     if j != wid] + servers,
+                        _stop_procs([q for i, q in enumerate(workers)
+                                     if i != j] + servers,
                                     grace=args.grace)
                         print('launcher: worker %d exited with %s — '
                               'killed %d sibling(s), aborting'
@@ -217,7 +234,7 @@ def _launch_round(args, command, world, restarts):
                 launcher_killed.update(j for j in range(world)
                                        if j not in rcs)
                 _stop_procs([q for j, q in enumerate(workers)
-                             if j not in rcs], grace=args.grace)
+                             if j not in proc_rcs], grace=args.grace)
                 grace_deadline = None
             time.sleep(0.05)
         return rcs, launcher_killed, bool(got_signal)
@@ -225,6 +242,22 @@ def _launch_round(args, command, world, restarts):
         _stop_procs(workers + servers, grace=args.grace)
         for s, h in old_handlers.items():
             signal.signal(s, h)
+
+
+def _group_env(wid, rank, size, world, host, port):
+    """The variables of rank `rank` of worker `wid`'s `size` ranks: its
+    place in the worker (parallel/worker_group.py) and torchrun's, for
+    the worker's own process group. The card of a rank is LOCAL_RANK
+    modulo the host's cards."""
+    return {
+        'MXNET_TPU_WORKER_RANKS': str(size),
+        'MXNET_TPU_WORKER_RANK': str(rank),
+        'RANK': str(rank), 'WORLD_SIZE': str(size),
+        'LOCAL_RANK': str(wid * size + rank),
+        'LOCAL_WORLD_SIZE': str(world * size),
+        'MASTER_ADDR': host, 'MASTER_PORT': str(port),
+        'GLOO_SOCKET_IFNAME': os.environ.get('GLOO_SOCKET_IFNAME', 'lo'),
+    }
 
 
 def launch_local(args, command):
@@ -325,6 +358,11 @@ def main():
     parser.add_argument('-s', '--num-servers', type=int, default=0)
     parser.add_argument('--launcher', default='local',
                         choices=['local', 'ssh'])
+    parser.add_argument('--ranks-per-worker', type=int, default=1,
+                        help='processes of each worker: its ranks, one '
+                        'data mesh of their own, one worker to the '
+                        'servers and the dist runtime (local launcher; '
+                        'default 1)')
     parser.add_argument('-H', '--hostfile', default=None)
     parser.add_argument('--port', type=int, default=None)
     parser.add_argument('--elastic', action='store_true',
@@ -354,6 +392,10 @@ def main():
         args.command = args.command[1:]
     if not args.command:
         raise SystemExit('no command given')
+    if args.ranks_per_worker > 1 and (args.launcher != 'local' or
+                                      args.elastic):
+        raise SystemExit('--ranks-per-worker takes the local launcher '
+                         'without --elastic')
     if args.launcher == 'local':
         sys.exit(launch_local(args, args.command))
     sys.exit(launch_ssh(args, args.command))

@@ -502,6 +502,110 @@ def _planted_sum(kind):
     return lambda x, mesh: C.allreduce_sum(x, 'data', mesh)
 
 
+# the registered ops that reduce over the batch axis (executor.py,
+# parallel/batch_reduce.py): one graph a case, a parameter before the
+# reduction (fc1, or w1 for the ties) and one after (w2)
+BR_HIDDEN = 6
+BR_CASES = ('sum', 'sum_axis', 'mean', 'prod', 'nansum', 'nanprod', 'max',
+            'max_axis', 'min', 'min_axis', 'norm', 'norm_ord1',
+            'softmax_cross_entropy', 'sort', 'argsort', 'topk', 'max_ties',
+            'min_ties', 'chain', 'center')
+# tied rows: 3, 5 (data index 0) and 12 (index 1) hold the maximum of
+# every column, 1 and 9 the minimum
+BR_TIE_MAX, BR_TIE_MIN = (3, 5, 12), (1, 9)
+
+
+def br_net(pkg, case):
+    """The case's graph and whether its data gradient is checked."""
+    S = pkg.sym
+    data = S.Variable('data')
+    ties = case.endswith('_ties')
+    if ties:
+        h = S.broadcast_mul(data, S.Variable('w1', shape=(1, DP_FEAT)))
+        width = DP_FEAT
+    else:
+        h = S.tanh(S.FullyConnected(data, name='fc1', num_hidden=BR_HIDDEN))
+        width = BR_HIDDEN
+    vec = (1, width)
+    if case in ('sum', 'sum_axis', 'mean', 'nansum', 'max', 'max_axis',
+                'min', 'min_axis'):
+        r = getattr(S, case)(h, axis=0, keepdims=True)
+    elif case in ('prod', 'nanprod'):
+        r = getattr(S, case)(h * 0.3 + 1.0, axis=0, keepdims=True)
+    elif case in ('norm', 'norm_ord1'):
+        r = S.norm(h, ord=1 if case == 'norm_ord1' else 2)
+        vec = (1,)
+    elif case == 'softmax_cross_entropy':
+        r = S.softmax_cross_entropy(h, S.Variable('softmax_label'))
+        vec = (1,)
+    elif case in ('sort', 'argsort'):
+        r = getattr(S, case)(h, axis=0)
+    elif case == 'topk':
+        r = S.topk(h, axis=0, k=3, ret_typ='value')
+    elif ties:
+        r = getattr(S, case[:3])(h, axis=0, keepdims=True)
+    elif case == 'chain':
+        r = S.sum(S.max(h, axis=0, keepdims=True), axis=1, keepdims=True)
+        vec = (1, 1)
+    else:   # center: a replicated mean enters the batch-carrying rows
+        c = S.broadcast_sub(h, S.mean(h, axis=0, keepdims=True))
+        r = S.sum(S.square(c), axis=0, keepdims=True)
+    z = S.broadcast_mul(r, S.Variable('w2', shape=vec))
+    return S.MakeLoss(z, name='loss'), ties
+
+
+def br_inputs(X):
+    """The data of a case: X with the tied rows set."""
+    X = np.array(X, np.float32)
+    X[list(BR_TIE_MAX)] = 2.0
+    X[list(BR_TIE_MIN)] = -1.0
+    return X
+
+
+def br_params(net, case):
+    rs = np.random.RandomState(5)
+    shapes = {'data': (DP_BATCH, DP_FEAT)}
+    if 'softmax_label' in net.list_arguments():
+        shapes['softmax_label'] = (DP_BATCH,)
+    arg_shapes, _, _ = net.infer_shape(**shapes)
+    args = {}
+    for name, shape in zip(net.list_arguments(), arg_shapes):
+        if name in ('data', 'softmax_label'):
+            continue
+        v = (rs.rand(*shape).astype(np.float32) - 0.5) * 0.8
+        args[name] = v + 1.0 if name == 'w1' else v
+    return args
+
+
+def br_step(pkg, case, ctxs, X, y, res, prefix):
+    """One SGD step of the case's Module: the outputs, the parameters'
+    gradients, the data's gradient for the ties, the updated
+    parameters."""
+    net, ties = br_net(pkg, case)
+    mod = pkg.mod.Module(net, context=ctxs)
+    label = [pkg.io.DataDesc('softmax_label', (DP_BATCH,))] \
+        if case == 'softmax_cross_entropy' else None
+    mod.bind(data_shapes=[pkg.io.DataDesc('data', (DP_BATCH, DP_FEAT))],
+             label_shapes=label, inputs_need_grad=ties)
+    mod.init_params(initializer=None, arg_params={
+        k: pkg.nd.array(v) for k, v in br_params(net, case).items()})
+    mod.init_optimizer(optimizer='sgd',
+                       optimizer_params={'learning_rate': 0.1})
+    X = br_inputs(X) if ties else X
+    mod.forward_backward(pkg.io.DataBatch(
+        data=[pkg.nd.array(X)],
+        label=[pkg.nd.array(y)] if label else None))
+    res[prefix + '__out'] = _f32(mod.get_outputs()[0])
+    grads = dict(zip(mod._param_names, mod._exec_group.grad_arrays))
+    for k, g in grads.items():
+        res['%s__g__%s' % (prefix, k)] = _f32(g)
+    if ties:
+        res[prefix + '__igrad'] = _f32(mod.get_input_grads()[0])
+    mod.update()
+    for k, v in mod.get_params()[0].items():
+        res['%s__p__%s' % (prefix, k)] = _f32(v)
+
+
 def module_dp_suite(rank, tmp_path):
     """Module over two contexts (two gloo ranks): the MLP with ZeRO 0
     and 1 under both reduce schedules, bfloat16 with float32 masters,
@@ -600,6 +704,9 @@ def module_dp_suite(rank, tmp_path):
                         inputs_need_grad=True)
         mod.forward_backward(batches[0])
         res['igrad'] = _f32(mod.get_input_grads()[0])
+        for case in BR_CASES:
+            br_step(mx, case, ctxs, inp['X'][0], inp['y'][0], res,
+                    'br_' + case)
         for zero in (0, 1):
             bmod = mx.mod.BucketingModule(
                 lambda key: (dp_seq_net(mx, key), ('data',),

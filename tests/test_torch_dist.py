@@ -11,7 +11,8 @@ thread) exercise the cross-process protocol:
   fp32, int8 and bf16 wires, with float32 and bfloat16 arrays, are bit
   for bit the JAX DistRuntime's for the same inputs, and so is
   `allreduce_coo`;
-- MXNET_TPU_DIST_JAX=1 raises naming ROADMAP Queue A 6.
+- MXNET_TPU_DIST_JAX=1 brings up one torch.distributed group across the
+  workers, and the dist store's facade then runs no host all-reduce.
 """
 import os
 import threading

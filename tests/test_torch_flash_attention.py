@@ -179,7 +179,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         'mxnet_tpu_torch.parallel.zero, mxnet_tpu_torch.parallel.embedding, '
         'mxnet_tpu_torch.parallel.pipeline, mxnet_tpu_torch.parallel.moe, '
         'mxnet_tpu_torch.gluon.nn.moe, mxnet_tpu_torch.module.pipeline_fit, '
-        'mxnet_tpu_torch.gluon.fused\n'
+        'mxnet_tpu_torch.gluon.fused, mxnet_tpu_torch.operator, '
+        'mxnet_tpu_torch.contrib, mxnet_tpu_torch.contrib.autograd, '
+        'mxnet_tpu_torch.visualization, mxnet_tpu_torch.test_utils, '
+        'mxnet_tpu_torch.executor_manager, mxnet_tpu_torch.log, '
+        'mxnet_tpu_torch.registry, mxnet_tpu_torch.parallel.worker_group, '
+        'mxnet_tpu_torch.parallel.batch_reduce\n'
         'added = set(sys.modules) - before\n'
         "bad = sorted(m for m in added if m == 'jax' or "
         "m.startswith('jax.') or m == 'mxnet_tpu' or "

@@ -350,15 +350,55 @@ class _StubMesh:
 
 
 @pytest.mark.parametrize('case', ['contexts', 'zero', 'zero_fused',
-                                  'mesh_staging'])
+                                  'mesh_staging', 'batch_reduce',
+                                  'hybrid_worker'])
 def test_item_6b_feature_works(case):
     """The features of Queue A item 6b that this slice's cut refused.
     Several contexts in one process name the launchers (each context is
     a rank of its own process; tests/test_torch_module_dp.py runs
     them); ZeRO-1 over one device equals the replicated update bit for
     bit; FusedSGD(zero=1) buckets and keys its layout; staging over a
-    data mesh moves this rank's rows only."""
-    if case == 'contexts':
+    data mesh moves this rank's rows only. The two refusals item 6b
+    kept last are gone: every registered op that reduces over the batch
+    has a global form (the CPU ranks of test_torch_module_dp.py hold
+    them against the JAX Module), and a worker of several ranks syncs
+    through the parameter server or the host all-reduce
+    (test_torch_hybrid.py); only io.py's item 7b refusal is left."""
+    if case == 'batch_reduce':
+        from mxnet_tpu_torch.parallel import batch_reduce
+        for name, attrs, ndim in (
+                ('sum', {'axis': 0}, 2), ('mean', {}, 3),
+                ('max', {'axis': (0, 1)}, 2), ('prod', {'axis': 0}, 1),
+                ('norm', {'ord': 1}, 2), ('softmax_cross_entropy', {}, 2),
+                ('sort', {'axis': 0}, 2), ('argsort', {'axis': None}, 2),
+                ('topk', {'axis': 0, 'k': 2}, 2)):
+            assert batch_reduce.reduces_batch(name, attrs, ndim), name
+        assert not batch_reduce.reduces_batch('sum', {'axis': 1}, 2)
+        assert not batch_reduce.reduces_batch('sort', {}, 2)
+        assert batch_reduce.output_replicated('topk', {'axis': 0}, 2)
+        assert not batch_reduce.output_replicated('sort', {'axis': 0}, 2)
+        assert not batch_reduce.output_replicated(
+            'topk', {'axis': 0, 'ret_typ': 'mask'}, 2)
+        import subprocess
+        sites = subprocess.run(
+            ['grep', '-rn', 'unported(', 'mxnet_tpu_torch',
+             '--include=*.py'], cwd=str(REPO), capture_output=True,
+            text=True).stdout.splitlines()
+        calls = [l for l in sites if 'def unported' not in l and
+                 'import' not in l]
+        assert len(calls) == 1 and calls[0].startswith(
+            'mxnet_tpu_torch/io.py:'), calls
+    elif case == 'hybrid_worker':
+        from mxnet_tpu_torch.parallel import worker_group
+        from mxnet_tpu_torch.tools import launch
+        assert not worker_group.configured()
+        assert worker_group.init() is None
+        env = launch._group_env(1, 1, 2, 2, '127.0.0.1', 9000)
+        assert (env['MXNET_TPU_WORKER_RANK'], env['RANK'],
+                env['WORLD_SIZE'], env['LOCAL_RANK'],
+                env['LOCAL_WORLD_SIZE'], env['MASTER_PORT']) == \
+            ('1', '1', '2', '3', '4', '9000')
+    elif case == 'contexts':
         mod = mx.mod.Module(_mlp(mx), context=[mx.cpu(0), mx.cpu(1)])
         with pytest.raises(mx.MXNetError, match='torchrun.*launch -n 2'):
             mod.bind([('data', (40, 10))], [('softmax_label', (40,))])

@@ -29,10 +29,10 @@ import mxnet_tpu_torch as mx
 from mxnet_tpu_torch import elastic
 
 import _torch_parallel_ranks as ranks
-from _torch_parallel_ranks import (DP_BATCH, DP_FEAT, DP_IMAGE, DP_OPT,
-                                   dp_batches, dp_bn_net, dp_mlp, dp_module,
-                                   dp_params, dp_result, dp_seq_net,
-                                   dp_train)
+from _torch_parallel_ranks import (BR_CASES, DP_BATCH, DP_FEAT, DP_IMAGE,
+                                   DP_OPT, br_step, dp_batches, dp_bn_net,
+                                   dp_mlp, dp_module, dp_params, dp_result,
+                                   dp_seq_net, dp_train)
 
 REPO = Path(__file__).resolve().parents[1]
 N = 2
@@ -389,6 +389,39 @@ def test_input_gradients_are_gathered(dp_run):
                                    **ONE_DEVICE)
     np.testing.assert_allclose(out[0]['igrad'],
                                _ref('jax', 'igrad', N)['igrad'], **STEP)
+
+
+@functools.lru_cache(maxsize=None)
+def _br_ref(pkg_name, case, ndev):
+    """The reducer case of br_step run by one package over ndev devices."""
+    pkg = jmx if pkg_name == 'jax' else mx
+    res = {}
+    with (mx.cpu() if pkg is mx else _Null()):
+        br_step(pkg, case, _ctxs(pkg, ndev), INPUTS['X'][0], INPUTS['y'][0],
+                res, 'r')
+    return _pick(res, 'r')
+
+
+@pytest.mark.parametrize('case', BR_CASES)
+def test_batch_reduction_is_global_under_the_data_mesh(dp_run, case):
+    """Each registered op that reduces over the batch axis, at data 2,
+    between a parameter before it (fc1, or w1) and one after it (w2):
+    the gathered (or replicated) outputs, every parameter's gradient and
+    one SGD update equal the JAX Module's over two devices and the
+    port's one-device step on the global batch, on both ranks bit for
+    bit. The cases add ties of max and min that straddle the ranks
+    (the data's gradient splits over all of them), a chain of two
+    reductions, and a replicated mean entering the batch's rows."""
+    out, _, _ = dp_run
+    got = _ranks_equal(out, 'br_' + case)
+    one = _br_ref('port', case, 1)
+    assert sorted(got) == sorted(one)
+    _close(got, one, STEP, what='one device')
+    _close(got, _br_ref('jax', case, N), STEP, what='jax')
+    # every gradient is live but fc1's through argsort's indices
+    for k in got:
+        if k.startswith('g__') and not (case == 'argsort' and 'fc1' in k):
+            assert np.abs(got[k]).sum() > 0, k
 
 
 @pytest.mark.parametrize('zero', [0, 1])
