@@ -34,6 +34,8 @@
     python3 chip_smoke.py --phases 35,36       # build, hybrid workers and
                                                # the reductions over the
                                                # batch, the Custom head
+    python3 chip_smoke.py --phases 37,38       # build, the native runtime
+                                               # and the C training API
     python3 chip_smoke.py --mutants            # phases 2, 4 and 6 against
                                                # broken kernels
 
@@ -528,7 +530,36 @@ Phases, each of which exits non-zero on failure:
    SoftmaxOutput steps' (the bf16 weights and momenta reported) and a
    head whose backward is planted x1.5 outside it, the NumpyOp
    bit-exact, check_consistency within 1e-1 with bfloat16 and
-   1e-3 over float32 alone.
+   1e-3 over float32 alone;
+37. native: the native runtime (csrc/native/, host C++ on OpenCV, built
+   by _build.native_library beside phases 2 on): mx.engine on the native
+   ThreadedEngine (writes in push order, readers between two writes,
+   duplicate variables refused, ENGINE_PUSHES seeded pushes over
+   ENGINE_VARS variables ending as on NaiveEngine), RecordIO between the
+   C writer and reader and recordio.MXRecordIO both ways, then
+   ImageRecordIter(use_native=True, 8 threads) over phase 18's .rec:
+   alone against the nvJPEG iterator (images/s), NATIVE_RESETS resets
+   mid-epoch each followed by an epoch bit-equal to the first, and
+   Module.fit on the bf16 ResNet-50 at batch 256 fed by it. Gated by
+   native_gate: 32 conv launches a step, finite losses whose last
+   epoch's mean is below the first's;
+38. c_train: C_TRAIN_PROGRAM, a C program with no Python in its source,
+   linked against the port's C API library, loads the bf16 ResNet-50's
+   symbol JSON and seeded parameters, binds it on the card (dev_type 2,
+   batch 64, grad_req write: the stem's pair stays on the route, 33
+   launches a step) and takes C_TRAIN_STEPS SGD steps fed by
+   MXTDataIterCreate("ImageRecordIter", use_native=1) through
+   MXTNDArrayCopyFromNDArray, in a process of its own beside phases
+   28-37; the same program's function then runs twice in this process
+   through ctypes, where the conv launches are counted, and its first
+   run's steps are made again past the C API (c_train_replay:
+   Executor.forward_backward on the recorded batches, an SGD updater
+   made in Python). Gated by c_train_gate: the two runs here bit-equal,
+   the program's batches, outputs and weights bit-equal to the first
+   run's and the replay's to the program's (phase 36's bounds instead
+   only where C_TRAIN_NONDETERMINISTIC names a kernel); cpp-package's
+   rec_train.cpp, as written, trains on the CPU through the same
+   library.
 
 The phases do not run in their numbers' order. After phase 20 the
 launches of phases 21, 22 (its three arms), 31 and 33 start together
@@ -538,7 +569,10 @@ phase 32's (phase 34's ranks too) as soon as phase 31's has, and phase
 23 once every launch has ended. Phase 35's launch starts after phase 24
 and runs beside phase 25, which gates no time. Their host times and the
 ranks' step times are taken beside each other's. Phase 25's runner and C programs run
-beside its export, and the SASS is dumped during phases 2-3. Each
+beside its export, and the SASS is dumped during phases 2-3. Phase 18
+keeps its .rec for phases 37 and 38, which run last: phase 38's C
+program and rec_train.cpp start after phase 27 and run beside phases
+28-37. Each
 phase's host seconds are printed as it ends, and all of them on a
 "phase seconds" line before the kernels line.
 
@@ -829,7 +863,7 @@ CONV_SM90_MUTANTS = {
                          ': ' + _TRUNCATE + 'v[0], v[1]));'),
 }
 
-ALL_PHASES = frozenset(range(2, 37))
+ALL_PHASES = frozenset(range(2, 39))
 # phase 7: the imperative NDArray path's size (n x n inputs)
 ND_SIZE = 1024
 ND_HOST_CALLS = 2000
@@ -1722,7 +1756,7 @@ def conv_phase(torch, cuda_ops, cuda_conv, bench_conv_bn):
 def conv_kernel_entry(conv, sass, resnet, module, serve, bucketing,
                       gluon_run, ptb, gluon_lm, factories, record, dist_ps,
                       dist_coord, loop, dp_mesh, dp_ranks, gluon_fused,
-                      hybrid, custom):
+                      hybrid, custom, native, c_train):
     """The conv_bn_stats entry of the kernels line: times at the main
     case's shape from the bench, errors from the cases, launches from the
     ResNet-50 train steps of phase 9 (its main path), of phase 10's
@@ -1734,9 +1768,10 @@ def conv_kernel_entry(conv, sass, resnet, module, serve, bucketing,
     23's trainer, of phase 28's Module as the one rank of a data mesh
     (its steps and fit), of phase 29's two ranks (their sum), of phase
     30's fused Gluon steps, of phase 35's four ranks of two hybrid
-    workers (their sum) and of phase 36's Custom-head Module steps; its
-    checks at phase 30's and phase 35's routed shapes beside the
-    others."""
+    workers (their sum), of phase 36's Custom-head Module steps, of
+    phase 37's Module.fit fed by the native iterator and of phase 38's
+    C program's steps made in this process (its first run); its checks
+    at phase 30's and phase 35's routed shapes beside the others."""
     xs, ws = CONV_CASES['main'][:2]
     main_shape = [xs[1], xs[3], ws[3], ws[0], CONV_CASES['main'][2][0]]
     bench = conv['bench']
@@ -1786,6 +1821,10 @@ def conv_kernel_entry(conv, sass, resnet, module, serve, bucketing,
                               gluon_fused=gluon_fused['launches'],
                               resnet_hybrid_workers=hybrid['launches'],
                               resnet_custom_head=custom['launches'],
+                              native_iter_fit=sum(native['fit']['launches'])
+                              if native['image']['built'] else None,
+                              c_train_api=c_train['inprocess']['first'][
+                                  'launches'],
                               conv_bn_bench=bench['launches']),
         stem_split=resnet['stem_split'],
         launches_per_train_step=resnet['train_launches'],
@@ -6296,11 +6335,13 @@ def record_gate(run):
     return bad
 
 
-def record_phase(torch, mx, cuda_conv, root, module=None, ctx=None):
+def record_phase(torch, mx, cuda_conv, root, module=None, ctx=None,
+                 keep=None):
     """Phase 18: RECORD_IMAGES seeded JPEGs written on the card by
     pack_img, ImageRecordIter (8 decode workers on their own streams)
     feeding Module.fit on the bf16 ResNet-50 of phase 10, then score on
-    the val iterator; gated by record_gate."""
+    the val iterator; gated by record_gate. With `keep` (a directory) the
+    .rec and .idx are moved there at the end, for phases 37 and 38."""
     import shutil
     from mxnet_tpu_torch import executor
     phase_t0 = time.perf_counter()
@@ -6395,6 +6436,11 @@ def record_phase(torch, mx, cuda_conv, root, module=None, ctx=None):
         torch.cuda.empty_cache()
         kernel_checks = resnet_kernel_checks(torch, cuda_conv, executor,
                                              shapes, ctx.torch_device)
+        if keep is not None:
+            shutil.rmtree(keep, ignore_errors=True)
+            keep.mkdir(parents=True)
+            for ext in ('.rec', '.idx'):
+                shutil.move(prefix + ext, str(keep / ('train' + ext)))
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -12733,6 +12779,988 @@ def custom_phase(torch, mx, cuda_conv, smi, ctx=None):
     return run
 
 
+# -- phase 37: the native runtime -------------------------------------------
+
+ENGINE_PUSHES = 2000        # pushes of the seeded engine program
+ENGINE_VARS = 32            # its variables
+ENGINE_WORKERS = 8          # the native engine's workers
+ENGINE_MOD = (1 << 61) - 1  # the program's values live mod this prime
+
+
+def engine_program(eng, seed, pushes=ENGINE_PUSHES, nvars=ENGINE_VARS):
+    """A seeded program of `pushes` ops over `nvars` variables on `eng`
+    (an mx.engine Engine, or the JAX package's): each op reads up to four
+    variables' values and folds them, with its index, into the values of
+    the ones it writes; a wait_for_var now and then. Under the engine's
+    rules (a variable's ops in push order, readers together, a writer
+    alone) the final values are fixed by the program: returns them."""
+    rng = random.Random(seed)
+    handles = [eng.new_variable() for _ in range(nvars)]
+    state = [v + 1 for v in range(nvars)]
+
+    def op(i, reads, writes):
+        def f():
+            acc = i
+            for r in reads:
+                acc = (acc * 1000003 + state[r]) % ENGINE_MOD
+            for w in writes:
+                state[w] = (state[w] * 31 + acc + w) % ENGINE_MOD
+        return f
+    for i in range(pushes):
+        picks = rng.sample(range(nvars), rng.randint(0, 4))
+        n_write = rng.randint(0, len(picks))
+        writes, reads = picks[:n_write], picks[n_write:]
+        eng.push(op(i, reads, writes),
+                 const_vars=[handles[r] for r in reads],
+                 mutable_vars=[handles[w] for w in writes])
+        if rng.random() < 0.01:
+            eng.wait_for_var(handles[rng.randrange(nvars)])
+    eng.wait_all()
+    return list(state)
+
+
+NATIVE_THREADS = 8          # preprocess_threads of the native iterator
+NATIVE_EPOCHS = 2           # fit epochs over phase 18's 768 images
+NATIVE_RESETS = 20          # resets mid-epoch, each then a full epoch
+NATIVE_RECORDS = 8          # records of the RecordIO cross-reads
+
+
+def engine_checks(mx):
+    """mx.engine on the native ThreadedEngine: writes to one variable in
+    push order, four readers between two writers see the first write,
+    duplicate variables refused, and engine_program's state (two seeds)
+    the same on the native engine as on NaiveEngine."""
+    from mxnet_tpu_torch import _core, engine as engine_mod
+    eng = engine_mod.Engine(num_workers=ENGINE_WORKERS)
+    native = isinstance(eng._impl, engine_mod._NativeEngine)
+    var = eng.new_variable()
+    order = []
+    for i in range(64):
+        eng.push(lambda i=i: order.append(i), mutable_vars=(var,))
+    eng.wait_all()
+    box, seen = [0], []
+
+    def write(v):
+        def f():
+            time.sleep(0.002)
+            box[0] = v
+        return f
+    eng.push(write(1), mutable_vars=(var,))
+    for _ in range(4):
+        eng.push(lambda: seen.append(box[0]), const_vars=(var,))
+    eng.push(write(2), mutable_vars=(var,))
+    for _ in range(4):
+        eng.push(lambda: seen.append(box[0]), const_vars=(var,))
+    eng.wait_all()
+    refused = 0
+    for const, mut in (((), (var, var)), ((var,), (var,)), ((var, var), ())):
+        try:
+            eng.push(lambda: None, const_vars=const, mutable_vars=mut)
+        except _core.NativeError:
+            refused += 1
+    programs = []
+    for seed in (SEED, SEED + 1):
+        t0 = time.perf_counter()
+        got = engine_program(eng, seed)
+        native_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = engine_program(engine_mod._PyEngine(), seed)  # NaiveEngine
+        programs.append(dict(seed=seed, equal=got == want, native_s=native_s,
+                             naive_s=time.perf_counter() - t0))
+    eng.close()
+    return dict(native=native, serial=order == list(range(64)),
+                read_write=seen == [1] * 4 + [2] * 4,
+                duplicates_refused=refused, programs=programs,
+                pushes=ENGINE_PUSHES, variables=ENGINE_VARS)
+
+
+def recordio_checks(mx, work):
+    """The C writer's records read by recordio.MXRecordIO, and
+    MXRecordIO's records read by the C reader, byte for byte."""
+    import ctypes
+    from mxnet_tpu_torch import _core
+    lib = _core.lib()
+    rng = np.random.default_rng(SEED + 370)
+    payloads = [rng.integers(0, 256, int(n), dtype=np.uint8).tobytes()
+                for n in rng.integers(0, 5000, NATIVE_RECORDS)]
+    c_path, py_path = str(work / 'c.rec'), str(work / 'py.rec')
+    w = lib.MXTRecordWriterCreate(c_path.encode())
+    for p in payloads:
+        lib.MXTRecordWriterWrite(w, p, len(p))
+    lib.MXTRecordWriterFree(w)
+    r = mx.recordio.MXRecordIO(c_path, 'r')
+    c_to_py = [r.read() for _ in payloads] + [r.read()]
+    r.close()
+    w = mx.recordio.MXRecordIO(py_path, 'w')
+    for p in payloads:
+        w.write(p)
+    w.close()
+    r = lib.MXTRecordReaderCreate(py_path.encode())
+    data_p, size = ctypes.c_char_p(), ctypes.c_uint64()
+    py_to_c = []
+    while lib.MXTRecordReaderNext(r, ctypes.byref(data_p),
+                                  ctypes.byref(size)) == 1:
+        py_to_c.append(ctypes.string_at(data_p, size.value))
+    lib.MXTRecordReaderFree(r)
+    return dict(records=len(payloads),
+                c_to_py=c_to_py == payloads + [None],
+                py_to_c=py_to_c == payloads,
+                same_bytes=open(c_path, 'rb').read() ==
+                open(py_path, 'rb').read())
+
+
+def native_iter(mx, prefix, ctx, train=True):
+    """ImageRecordIter(use_native=True) over prefix.rec: shuffled with
+    random crops and mirrors (seeded) for training, else in file order,
+    centre-cropped."""
+    shape = tuple(int(v) for v in RESNET['image_shape'].split(','))
+    return mx.io.ImageRecordIter(
+        path_imgrec=prefix + '.rec', data_shape=shape,
+        batch_size=RESNET_BATCH, shuffle=train, rand_crop=train,
+        rand_mirror=train, seed=SEED, preprocess_threads=NATIVE_THREADS,
+        use_native=True, ctx=ctx)
+
+
+def reset_check(torch, it, resets=NATIVE_RESETS):
+    """`resets` times: reset, take a seeded number of batches (at least
+    one, fewer than an epoch), reset, take a whole epoch; each such epoch
+    against the first one's batches, bit for bit."""
+    def epoch():
+        return [(b.data[0].handle.clone(), b.label[0].handle.clone(), b.pad)
+                for b in it]
+    it.reset()
+    first = epoch()
+    rng = np.random.default_rng(SEED + 371)
+    equal, taken = [], []
+    t0 = time.perf_counter()
+    for _ in range(resets):
+        it.reset()
+        k = int(rng.integers(1, max(2, len(first))))
+        for _ in range(k):
+            it.next()
+        taken.append(k)
+        it.reset()
+        again = epoch()
+        equal.append(len(again) == len(first) and all(
+            torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) and
+            a[2] == b[2] for a, b in zip(again, first)))
+    return dict(resets=resets, batches=len(first), taken=taken,
+                equal=equal, s=time.perf_counter() - t0)
+
+
+def iter_images_per_s(it, sync):
+    """Images a second over one epoch of `it` after its reset."""
+    it.reset()
+    sync()
+    t0 = time.perf_counter()
+    n = 0
+    for b in it:
+        n += b.data[0].shape[0] - (b.pad or 0)
+    sync()
+    return n / (time.perf_counter() - t0)
+
+
+def native_fit(torch, mx, cuda_conv, prefix, ctx, counter):
+    """Module.fit on phase 10's bf16 ResNet-50 fed by the native iterator:
+    per batch, the conv launches (`counter`, set to 0 just before the fit
+    and read after each batch) and the NLL of its output."""
+    symbol, init = module_symbol_params(mx)
+    mod = mx.mod.Module(symbol, context=ctx)
+    it = native_iter(mx, prefix, ctx)
+    launches, losses, last = [], [], [0]
+
+    def record(param):
+        b = param.locals['data_batch']
+        losses.append(dp_nll(torch, mod.get_outputs()[0], b.label[0]))
+        now = counter()
+        launches.append(now - last[0])
+        last[0] = now
+    cuda_conv.CONV_BN_STATS_LAUNCHES = 0
+    cuda_conv.CONV_BN_STATS_PLAIN_CALLS = 0
+    last[0] = counter()
+    t0 = time.perf_counter()
+    mod.fit(it, eval_metric='acc', optimizer='sgd',
+            optimizer_params=module_optimizer_params(mx), initializer=init,
+            batch_end_callback=record, num_epoch=NATIVE_EPOCHS)
+    if ctx.device_type == 'gpu':
+        torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    it.close()
+    ex = mod._exec_group.executor
+    finite = all(bool(torch.isfinite(a.handle).all())
+                 for a in list(ex.arg_dict.values()) +
+                 list(ex.aux_dict.values()))
+    pairs = graph_pairs(symbol)
+    del mod, ex
+    return dict(launches=launches, losses=losses, fit_s=fit_s,
+                finite=finite, batches_an_epoch=len(losses) // NATIVE_EPOCHS,
+                want=route_pairs(pairs, stem_split_on()))
+
+
+def native_gate(run):
+    """Phase 37's checks on a run's numbers: what failed, empty when it
+    passed."""
+    bad = []
+    eng = run['engine']
+    if not eng['native']:
+        bad.append('mx.engine.Engine() is not the native engine')
+    for key, what in (('serial', 'writes out of push order'),
+                      ('read_write', 'readers saw the wrong write')):
+        if not eng[key]:
+            bad.append('engine: ' + what)
+    if eng['duplicates_refused'] != 3:
+        bad.append('engine: %d of 3 duplicate-var pushes refused'
+                   % eng['duplicates_refused'])
+    for p in eng['programs']:
+        if not p['equal']:
+            bad.append('engine: the program of seed %d ends apart from '
+                       'NaiveEngine\'s' % p['seed'])
+    io_ = run['recordio']
+    for key in ('c_to_py', 'py_to_c', 'same_bytes'):
+        if not io_[key]:
+            bad.append('recordio: %s failed' % key)
+    if not run['image']['built']:
+        if 'OpenCV' not in run['image']['refused']:
+            bad.append('ImageRecordIter(use_native=True) without its '
+                       'library did not raise naming OpenCV: %r'
+                       % run['image']['refused'])
+        return bad
+    fit = run['fit']
+    n = fit['batches_an_epoch']
+    if n < 1 or fit['launches'] != [fit['want']] * (n * NATIVE_EPOCHS):
+        bad.append('fit launched the kernel %s times a step, expected %d'
+                   % (fit['launches'], fit['want']))
+    losses = fit['losses']
+    if not losses or not all(math.isfinite(v) for v in losses) or \
+            not fit['finite']:
+        bad.append('fit: a loss or a parameter is not finite: %s' % losses)
+    elif not np.mean(losses[-n:]) < np.mean(losses[:n]):
+        bad.append('fit: the loss did not fall: %s' % losses)
+    r = run['resets']
+    if len(r['equal']) != NATIVE_RESETS or not all(r['equal']):
+        bad.append('after reset %s the epoch differs from the first'
+                   % [i for i, e in enumerate(r['equal']) if not e])
+    return bad
+
+
+def native_phase(torch, mx, cuda_conv, root, prefix=None, build=None,
+                 ctx=None, counter=None):
+    """Phase 37: the native runtime (csrc/native/, built on the card's
+    host): mx.engine's ordering and refusals and engine_program against
+    NaiveEngine, RecordIO between the C writer / reader and
+    recordio.MXRecordIO; then, where the image iterator's library builds
+    (OpenCV 4), ImageRecordIter(use_native=True, 8 threads) over phase
+    18's .rec alone against the nvJPEG iterator, NATIVE_RESETS resets
+    mid-epoch, and Module.fit on the bf16 ResNet-50 fed by it, and where
+    it does not, use_native=True raising and naming what is missing.
+    `prefix` is phase 18's kept .rec (written here when None), `build`
+    host_builds' results (built here when None); gated by native_gate."""
+    from mxnet_tpu_torch import _core
+    ctx = ctx or mx.gpu(0)
+    counter = counter or (lambda: cuda_conv.CONV_BN_STATS_LAUNCHES)
+    work = fresh_dir(root, 37)
+    if build is None:
+        build = {}
+        host_builds(build)
+    if isinstance(build['native'], Exception):
+        fail('phase 37: the native runtime failed to build: %s'
+             % build['native'])
+    if prefix is None:
+        prefix = str(work / 'train')
+        write_record_images(torch, mx, prefix, RECORD_IMAGES,
+                            RESNET['num_classes'], ctx)
+    run = dict(library=str(build['native'][0]), build_s=build['native'][1],
+               engine=engine_checks(mx), recordio=recordio_checks(mx, work),
+               threads=NATIVE_THREADS)
+    image = build['image']
+    if isinstance(image, Exception):
+        # no OpenCV: the iterator must refuse, naming it
+        try:
+            native_iter(mx, prefix, ctx).close()
+            refused = None
+        except _core.NativeError as e:
+            refused = str(e)
+        run['image'] = dict(built=False, error=str(image)[:600],
+                            refused=(refused or '')[:600])
+    else:
+        run['image'] = dict(built=True, library=str(image[0]),
+                            build_s=image[1])
+        sync = torch.cuda.synchronize if ctx.device_type == 'gpu' else \
+            (lambda: None)
+        it = native_iter(mx, prefix, ctx)
+        run['native_images_per_s'] = iter_images_per_s(it, sync)
+        it.close()
+        nvjpeg = record_iter(mx, prefix, ctx)
+        random.seed(SEED)
+        run['nvjpeg_images_per_s'] = iter_images_per_s(nvjpeg, sync)
+        nvjpeg.close()
+        it = native_iter(mx, prefix, mx.cpu(), train=False)
+        run['resets'] = reset_check(torch, it)
+        it.close()
+        run['fit'] = native_fit(torch, mx, cuda_conv, prefix, ctx, counter)
+    shutil.rmtree(work, ignore_errors=True)
+    print('native ' + json.dumps(run))
+    bad = native_gate(run)
+    if bad:
+        fail('phase 37: ' + '; '.join(bad))
+    if run['image']['built']:
+        fit = run['fit']
+        what = ('the iterator alone %.0f images/s (%d threads) against '
+                'nvJPEG\'s %.0f; %d resets, each epoch bit-equal; fit %s '
+                'launches a step, loss %.3f -> %.3f'
+                % (run['native_images_per_s'], NATIVE_THREADS,
+                   run['nvjpeg_images_per_s'], NATIVE_RESETS,
+                   sorted(set(fit['launches'])), fit['losses'][0],
+                   fit['losses'][-1]))
+    else:
+        what = ('no native image iterator on this host: use_native=True '
+                'raises (%s)' % run['image']['refused'][:200])
+    print('native: engine and RecordIO built in %.1f s; engine program '
+          '(%d pushes, %d vars) equal to NaiveEngine; RecordIO both ways; '
+          '%s' % (run['build_s'], ENGINE_PUSHES, ENGINE_VARS, what))
+    return run
+
+
+# -- phase 38: the C training API ------------------------------------------
+
+C_TRAIN_BATCH = 64
+C_TRAIN_STEPS = 3
+C_TRAIN_SEED = SEED + 380
+# the program's optimizer: SGD with momentum on the summed loss, rescaled
+# by 1 / batch inside it
+C_TRAIN_LR, C_TRAIN_MOMENTUM = '0.1', '0.9'
+# a kernel on the program's path found to give other bits on a second run
+# of the same inputs: its name. None: none is known, so the two runs in
+# the script's process must agree bit for bit, and the program and the
+# replay with them. Named, the program and the replay are held to phase
+# 36's bounds instead: each loss within RESNET_LOSS_ATOL, each weight
+# array within MODULE_STATE_REL in relative norm
+C_TRAIN_NONDETERMINISTIC = None
+# the program: no Python in its source. Built twice, as an executable and
+# (-DMXT_C_TRAIN_NO_MAIN) as a shared object whose mxt_c_train the
+# script calls through ctypes in its own process, so both make the same
+# calls, and writes its outputs, labels, batches and final weights under
+# out_dir. argv: dev_type symbol.json params rec side batch steps out_dir
+# source [a step at which the first weight's update is skipped: a planted
+# fault]; source "native" takes the native iterator (shuffled, random
+# crops and mirrors, seeded), a context such as "gpu(0)" the port's
+# pipeline there in file order (nvJPEG on the card)
+C_TRAIN_PROGRAM = r"""
+#include <stdint.h>
+#include <stdio.h>
+#include <stdlib.h>
+#include <string.h>
+
+extern const char* MXTTrainGetLastError(void);
+extern int MXTSymbolCreateFromJSON(const char* json, void** out);
+extern int MXTSymbolListArguments(void* sym, uint32_t* n,
+                                  const char*** names);
+extern void MXTSymbolFree(void* sym);
+extern int MXTExecutorSimpleBind(void* sym, int dev_type, int dev_id,
+                                 const char* grad_req, uint32_t n,
+                                 const char** keys, const uint32_t* indptr,
+                                 const uint32_t* shapes, void** out);
+extern int MXTExecutorArgArray(void* ex, const char* name, void** out);
+extern int MXTExecutorGradArray(void* ex, const char* name, void** out);
+extern int MXTExecutorForward(void* ex, int is_train);
+extern int MXTExecutorBackward(void* ex);
+extern int MXTExecutorOutput(void* ex, uint32_t index, void** out);
+extern void MXTExecutorFree(void* ex);
+extern int MXTNDArrayLoad(const char* fname, void** list, uint32_t* n);
+extern int MXTNDArrayLoadGet(void* list, uint32_t i, const char** key,
+                             void** nd);
+extern int MXTNDArrayCopyFromNDArray(void* dst, void* src);
+extern int MXTNDArrayGetShape(void* nd, uint32_t* ndim,
+                              const uint32_t** shape);
+extern int MXTNDArraySyncCopyToCPU(void* nd, float* data, size_t size);
+extern void MXTNDArrayFree(void* nd);
+extern int MXTNDArrayWaitAll(void);
+extern int MXTDataIterCreate(const char* name, uint32_t n,
+                             const char** keys, const char** vals,
+                             void** out);
+extern int MXTDataIterNext(void* it, int* has_next);
+extern int MXTDataIterGetData(void* it, void** out);
+extern int MXTDataIterGetLabel(void* it, void** out);
+extern void MXTDataIterFree(void* it);
+extern int MXTUpdaterCreate(const char* name, uint32_t n, const char** keys,
+                            const char** vals, void** out);
+extern int MXTUpdaterStep(void* upd, int index, void* grad, void* weight);
+extern void MXTUpdaterFree(void* upd);
+
+#define CHECK(x)                                                        \
+  do {                                                                  \
+    if ((x) != 0) {                                                     \
+      fprintf(stderr, "line %d: %s: %s\n", __LINE__, #x,                \
+              MXTTrainGetLastError());                                  \
+      return 1;                                                         \
+    }                                                                   \
+  } while (0)
+
+static int write_array(FILE* f, void* nd) {
+  uint32_t ndim;
+  const uint32_t* shape;
+  size_t n = 1;
+  CHECK(MXTNDArrayGetShape(nd, &ndim, &shape));
+  for (uint32_t i = 0; i < ndim; ++i) n *= shape[i];
+  float* buf = (float*)malloc(n * sizeof(float));
+  CHECK(MXTNDArraySyncCopyToCPU(nd, buf, n));
+  fwrite(buf, sizeof(float), n, f);
+  free(buf);
+  return 0;
+}
+
+int mxt_c_train(int argc, char** argv) {
+  if (argc < 10) {
+    fprintf(stderr, "usage: %s dev_type symbol.json params rec side batch "
+                    "steps out_dir source [skip_step]\n", argv[0]);
+    return 2;
+  }
+  int dev_type = atoi(argv[1]), side = atoi(argv[5]);
+  int batch = atoi(argv[6]), steps = atoi(argv[7]);
+  int native = !strcmp(argv[9], "native");
+  int skip_step = argc > 10 ? atoi(argv[10]) : -1;
+  char path[4096];
+
+  FILE* f = fopen(argv[2], "rb");
+  if (!f) return 1;
+  fseek(f, 0, SEEK_END);
+  long len = ftell(f);
+  fseek(f, 0, SEEK_SET);
+  char* json = (char*)malloc(len + 1);
+  if (fread(json, 1, len, f) != (size_t)len) return 1;
+  json[len] = 0;
+  fclose(f);
+  void* sym;
+  CHECK(MXTSymbolCreateFromJSON(json, &sym));
+  free(json);
+  uint32_t n_args;
+  const char** listed;
+  CHECK(MXTSymbolListArguments(sym, &n_args, &listed));
+  char** names = (char**)malloc(n_args * sizeof(char*));
+  for (uint32_t i = 0; i < n_args; ++i) names[i] = strdup(listed[i]);
+
+  const char* keys[2] = {"data", "softmax_label"};
+  uint32_t indptr[3] = {0, 4, 5};
+  uint32_t shapes[5] = {(uint32_t)batch, 3, (uint32_t)side, (uint32_t)side,
+                        (uint32_t)batch};
+  void* ex;
+  CHECK(MXTExecutorSimpleBind(sym, dev_type, 0, "write", 2, keys, indptr,
+                              shapes, &ex));
+  void* list;
+  uint32_t n_saved;
+  CHECK(MXTNDArrayLoad(argv[3], &list, &n_saved));
+  for (uint32_t i = 0; i < n_saved; ++i) {
+    const char* key;
+    void *saved, *arg;
+    CHECK(MXTNDArrayLoadGet(list, i, &key, &saved));
+    CHECK(MXTExecutorArgArray(ex, key, &arg));
+    CHECK(MXTNDArrayCopyFromNDArray(arg, saved));
+    MXTNDArrayFree(arg);
+    MXTNDArrayFree(saved);
+  }
+  MXTNDArrayFree(list);
+
+  char rescale[64], shape_param[64], batch_param[32];
+  snprintf(rescale, sizeof(rescale), "%.9g", 1.0 / batch);
+  const char* okeys[3] = {"learning_rate", "momentum", "rescale_grad"};
+  const char* ovals[3] = {"LR", "MOMENTUM", rescale};
+  void* upd;
+  CHECK(MXTUpdaterCreate("sgd", 3, okeys, ovals, &upd));
+
+  snprintf(shape_param, sizeof(shape_param), "(3,%d,%d)", side, side);
+  snprintf(batch_param, sizeof(batch_param), "%d", batch);
+  const char* ikeys[8] = {"path_imgrec", "data_shape", "batch_size",
+                          "shuffle", "rand_crop", "rand_mirror",
+                          "use_native", native ? "seed" : "ctx"};
+  const char* flag = native ? "1" : "0";
+  const char* ivals[8] = {argv[4], shape_param, batch_param, flag, flag,
+                          flag, flag, native ? "SEED" : argv[9]};
+  void* it;
+  CHECK(MXTDataIterCreate("ImageRecordIter", 8, ikeys, ivals, &it));
+  void *data_arg, *label_arg;
+  CHECK(MXTExecutorArgArray(ex, "data", &data_arg));
+  CHECK(MXTExecutorArgArray(ex, "softmax_label", &label_arg));
+
+  snprintf(path, sizeof(path), "%s/outputs.f32", argv[8]);
+  FILE* outs = fopen(path, "wb");
+  snprintf(path, sizeof(path), "%s/labels.f32", argv[8]);
+  FILE* labels = fopen(path, "wb");
+  snprintf(path, sizeof(path), "%s/data.f32", argv[8]);
+  FILE* datas = fopen(path, "wb");
+  if (!outs || !labels || !datas) return 1;
+  for (int step = 0; step < steps; ++step) {
+    int has_next;
+    void *data, *label, *out;
+    CHECK(MXTDataIterNext(it, &has_next));
+    if (!has_next) {
+      fprintf(stderr, "the iterator ended at step %d\n", step);
+      return 1;
+    }
+    CHECK(MXTDataIterGetData(it, &data));
+    CHECK(MXTDataIterGetLabel(it, &label));
+    CHECK(MXTNDArrayCopyFromNDArray(data_arg, data));
+    CHECK(MXTNDArrayCopyFromNDArray(label_arg, label));
+    if (write_array(labels, label) || write_array(datas, data)) return 1;
+    MXTNDArrayFree(data);
+    MXTNDArrayFree(label);
+    CHECK(MXTExecutorForward(ex, 1));
+    CHECK(MXTExecutorBackward(ex));
+    int index = 0, skipped = 0;
+    for (uint32_t i = 0; i < n_args; ++i) {
+      void *grad, *weight;
+      if (!strcmp(names[i], "data") || !strcmp(names[i], "softmax_label"))
+        continue;
+      if (step == skip_step && !skipped && strstr(names[i], "_weight")) {
+        skipped = 1;
+        ++index;
+        continue;
+      }
+      CHECK(MXTExecutorGradArray(ex, names[i], &grad));
+      CHECK(MXTExecutorArgArray(ex, names[i], &weight));
+      CHECK(MXTUpdaterStep(upd, index++, grad, weight));
+      MXTNDArrayFree(grad);
+      MXTNDArrayFree(weight);
+    }
+    CHECK(MXTExecutorOutput(ex, 0, &out));
+    if (write_array(outs, out)) return 1;
+    MXTNDArrayFree(out);
+  }
+  fclose(outs);
+  fclose(labels);
+  fclose(datas);
+  CHECK(MXTNDArrayWaitAll());
+  snprintf(path, sizeof(path), "%s/weights.f32", argv[8]);
+  FILE* weights = fopen(path, "wb");
+  if (!weights) return 1;
+  for (uint32_t i = 0; i < n_args; ++i) {
+    void* w;
+    if (!strcmp(names[i], "data") || !strcmp(names[i], "softmax_label"))
+      continue;
+    CHECK(MXTExecutorArgArray(ex, names[i], &w));
+    if (write_array(weights, w)) return 1;
+    MXTNDArrayFree(w);
+  }
+  fclose(weights);
+  MXTNDArrayFree(data_arg);
+  MXTNDArrayFree(label_arg);
+  MXTDataIterFree(it);
+  MXTUpdaterFree(upd);
+  MXTExecutorFree(ex);
+  MXTSymbolFree(sym);
+  for (uint32_t i = 0; i < n_args; ++i) free(names[i]);
+  free(names);
+  printf("C TRAIN OK steps=%d\n", steps);
+  return 0;
+}
+
+#ifndef MXT_C_TRAIN_NO_MAIN
+int main(int argc, char** argv) { return mxt_c_train(argc, argv); }
+#endif
+""".replace('"LR"', '"%s"' % C_TRAIN_LR).replace(
+    '"MOMENTUM"', '"%s"' % C_TRAIN_MOMENTUM).replace('"SEED"', '"%d"' % SEED)
+
+
+def host_builds(box):
+    """The native runtime's two libraries, built (for a thread): box
+    ['native'] and box['image'] become (path, seconds), or the exception
+    the build raised (the image iterator's names an absent OpenCV)."""
+    from mxnet_tpu_torch import _build
+    for key, fn in (('native', _build.native_library),
+                    ('image', _build.native_image_library)):
+        t0 = time.perf_counter()
+        try:
+            box[key] = (fn(), time.perf_counter() - t0)
+        except Exception as e:      # judged where the result is used
+            box[key] = e
+
+
+def native_rec(torch, mx, root, kept):
+    """The prefix of phase 18's .rec (moved under build/native_rec when
+    `kept`), else the same images written there now."""
+    prefix = root / 'build' / 'native_rec' / 'train'
+    if not kept:
+        prefix.parent.mkdir(parents=True, exist_ok=True)
+        write_record_images(torch, mx, str(prefix), RECORD_IMAGES,
+                            RESNET['num_classes'], mx.gpu(0))
+    return str(prefix)
+
+
+def c_train_build(lib, out):
+    """The program as an executable and as a shared object, both linked
+    against the C API library `lib`; raises with the compiler's output."""
+    src = out / 'c_train.c'
+    src.write_text(C_TRAIN_PROGRAM)
+    libdir = str(lib.parent)
+    link = ['-L' + libdir, '-lmxt_predict', '-Wl,-rpath,' + libdir]
+    exe, so = out / 'c_train', out / 'c_train.so'
+    for cmd in (['gcc', '-O2', '-Wall', str(src), '-o', str(exe)] + link,
+                ['gcc', '-O2', '-Wall', '-fPIC', '-shared',
+                 '-DMXT_C_TRAIN_NO_MAIN', str(src), '-o', str(so)] + link):
+        cc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+        if cc.returncode != 0:
+            raise RuntimeError('the C program failed to build:\n$ %s\n%s%s'
+                               % (' '.join(cmd), cc.stdout, cc.stderr))
+    return exe, so
+
+
+def c_train_inputs(mx, out, image_shape, batch, net=None):
+    """The symbol JSON (models/resnet.py's bf16 ResNet-50 unless `net`)
+    and its seeded He-normal parameters (nd.save, by name)."""
+    symbol = net if net is not None else mx.models.resnet.get_symbol(**RESNET)
+    (out / 'symbol.json').write_text(symbol.tojson())
+    args, _ = resnet_params(symbol, {'data': (batch,) + image_shape,
+                                     'softmax_label': (batch,)},
+                            1000, C_TRAIN_SEED)
+    mx.nd.save(str(out / 'params.nd'),
+               {k: mx.nd.array(v, ctx=mx.cpu()) for k, v in args.items()
+                if k not in ('data', 'softmax_label')})
+    return symbol
+
+
+def c_train_argv(started, run_dir, skip=None):
+    out, shape = started['out'], started['image_shape']
+    argv = [str(started['dev_type']), str(out / 'symbol.json'),
+            str(out / 'params.nd'), started['prefix'] + '.rec',
+            str(shape[1]), str(started['batch']), str(started['steps']),
+            str(run_dir), started['source']]
+    return argv + ([str(skip)] if skip is not None else [])
+
+
+def c_train_inprocess(so, argv):
+    """mxt_c_train(argv) called through ctypes in this process: the
+    program's own calls, on the interpreter already running here."""
+    import ctypes
+    prog = ctypes.CDLL(str(so))
+    args = ['c_train'] + argv
+    arr = (ctypes.c_char_p * len(args))(*[a.encode() for a in args])
+    return prog.mxt_c_train(len(args), arr)
+
+
+def c_train_read(run_dir, steps, batch, classes):
+    """What a run wrote: the outputs of each step, (steps, batch,
+    classes); its labels, (steps, batch); its batches, (steps, batch, ...);
+    the final weights, flat float32 in the symbol's argument order."""
+    def read(name):
+        return np.fromfile(str(run_dir / name), np.float32)
+    return dict(outputs=read('outputs.f32').reshape(steps, batch, classes),
+                labels=read('labels.f32').reshape(steps, batch),
+                data=read('data.f32').reshape(steps, batch, -1),
+                weights=read('weights.f32'))
+
+
+def c_train_replay(mx, started, recorded, counter):
+    """The steps of a run made again in Python, past the C API: the
+    symbol bound by simple_bind on the program's device with grad_req
+    write, its parameters from params.nd, each recorded batch and label
+    through Executor.forward_backward, and an SGD updater made here with
+    the program's settings. A fault of the C API's bridge, which the
+    program and the runs in this process share (an optimizer setting
+    parsed wrongly, a gradient not written, an update that does nothing),
+    sets the replay apart from the program. Returns its outputs and
+    weights, laid out as c_train_read's, and its conv launches."""
+    symbol, batch = started['symbol'], started['batch']
+    ctx = mx.gpu(0) if started['dev_type'] == 2 else mx.cpu()
+    ex = symbol.simple_bind(ctx, grad_req='write',
+                            data=(batch,) + started['image_shape'],
+                            softmax_label=(batch,))
+    for key, value in mx.nd.load(str(started['out'] / 'params.nd'),
+                                 ctx=mx.cpu()).items():
+        value.copyto(ex.arg_dict[key])
+    updater = mx.optimizer.get_updater(mx.optimizer.SGD(
+        learning_rate=float(C_TRAIN_LR), momentum=float(C_TRAIN_MOMENTUM),
+        rescale_grad=1.0 / batch))
+    names = [n for n in symbol.list_arguments() if n not in NO_GRAD]
+    outputs = []
+    before = counter()
+    for x, y in zip(recorded['data'], recorded['labels']):
+        mx.nd.array(x.reshape(ex.arg_dict['data'].shape), ctx=ctx,
+                    dtype=np.float32).copyto(ex.arg_dict['data'])
+        mx.nd.array(y, ctx=ctx, dtype=np.float32).copyto(
+            ex.arg_dict['softmax_label'])
+        ex.forward_backward()
+        for index, name in enumerate(names):
+            updater(index, ex.grad_dict[name], ex.arg_dict[name])
+        outputs.append(ex.outputs[0].asnumpy().astype(np.float32))
+    launches = counter() - before
+    weights = np.concatenate([
+        ex.arg_dict[n].astype('float32').asnumpy().ravel() for n in names])
+    return dict(outputs=np.stack(outputs), weights=weights,
+                launches=launches)
+
+
+def c_train_weights_rel(symbol, batch, image_shape, a, b):
+    """The largest relative-norm difference of one weight array between
+    two flat weight vectors, cut by the symbol's argument shapes."""
+    shapes, _, _ = symbol.infer_shape(data=(batch,) + image_shape,
+                                      softmax_label=(batch,))
+    worst, at = 0.0, 0
+    for name, shape in zip(symbol.list_arguments(), shapes):
+        if name in NO_GRAD:
+            continue
+        n = int(np.prod(shape))
+        x, y = a[at:at + n].astype(np.float64), b[at:at + n].astype(
+            np.float64)
+        at += n
+        worst = max(worst, float(np.linalg.norm(x - y) /
+                                 max(np.linalg.norm(y), 1e-30)))
+    return worst
+
+
+def c_train_losses(outs, labels):
+    return [float(-np.log(np.maximum(
+        o[np.arange(len(l)), l.astype(np.int64)], 1e-30)).mean())
+        for o, l in zip(outs, labels)]
+
+
+REC_TRAIN_IMAGES, REC_TRAIN_EDGE, REC_TRAIN_CLASSES = 160, 16, 10
+
+
+def rec_train_start(torch, mx, out):
+    """cpp-package/example/rec_train.cpp, as written, built against the
+    port's C API library and started with its executor on the CPU
+    (kCPU) over a .rec of colour-coded class images (the JAX test's, JPEG
+    by nvJPEG here); its ImageRecordIter names no ctx, so the port's
+    pipeline decodes on gpu(0) and MXTNDArrayCopyFromNDArray brings each
+    batch to the host. The Background."""
+    rng = np.random.default_rng(SEED + 381)
+    prefix = str(out / 'colors')
+    w = mx.recordio.MXIndexedRecordIO(prefix + '.idx', prefix + '.rec', 'w')
+    centers = rng.integers(40, 215, (REC_TRAIN_CLASSES, 3))
+    for i in range(REC_TRAIN_IMAGES):
+        c = i % REC_TRAIN_CLASSES
+        img = (centers[c][None, None, :] + rng.integers(
+            -25, 25, (REC_TRAIN_EDGE, REC_TRAIN_EDGE, 3))).clip(0, 255)
+        w.write_idx(i, mx.recordio.pack_img(
+            mx.recordio.IRHeader(0, float(c), i, 0),
+            torch.from_numpy(img.astype(np.uint8)).cuda()))
+    w.close()
+    from mxnet_tpu_torch import _build
+    lib = _build.c_predict_library()
+    exe = str(out / 'rec_train')
+    cc = subprocess.run(
+        ['g++', '-O2', '-std=c++14', '-I' + str(Path(__file__).resolve()
+                                                 .parent / 'cpp-package' /
+                                                 'include'),
+         str(Path(__file__).resolve().parent / 'cpp-package' / 'example' /
+             'rec_train.cpp'), '-o', exe, '-L' + str(lib.parent),
+         '-lmxt_predict', '-Wl,-rpath,' + str(lib.parent)],
+        capture_output=True, text=True, timeout=300)
+    if cc.returncode != 0:
+        fail('phase 38: rec_train.cpp failed to compile:\n%s%s'
+             % (cc.stdout, cc.stderr))
+    env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
+    return Background([exe, prefix + '.rec', str(REC_TRAIN_EDGE),
+                       str(REC_TRAIN_CLASSES)], 900, env=env, cwd=str(out))
+
+
+def c_train_gate(run):
+    """Phase 38's checks on a run's numbers: what failed, empty when it
+    passed."""
+    bad = []
+    prog = run['program']
+    if prog['rc'] != 0 or 'C TRAIN OK' not in prog['out']:
+        bad.append('the C program exited %s: %s' % (prog['rc'],
+                                                    prog['err']))
+    for key in ('first', 'second'):
+        if run['inprocess'][key]['rc'] != 0:
+            bad.append('the in-process run exited %s'
+                       % run['inprocess'][key]['rc'])
+    want = run['want_launches'] * run['steps']
+    for key in ('first', 'second'):
+        n = run['inprocess'][key]['launches']
+        if n != want:
+            bad.append('the in-process %s run launched the kernel %d times '
+                       'in %d steps, expected %d' % (key, n, run['steps'],
+                                                     want))
+    if not bad and run['replay']['launches'] != want:
+        bad.append('the replay launched the kernel %d times in %d steps, '
+                   'expected %d' % (run['replay']['launches'], run['steps'],
+                                    want))
+    if not bad:
+        cmp_ = run['compare']
+        losses = cmp_['losses']
+        if not all(math.isfinite(v) for v in losses):
+            bad.append('a loss is not finite: %s' % losses)
+        if not cmp_['labels_equal']:
+            bad.append('the C program\'s batches carry other labels than '
+                       'the in-process run\'s')
+        kernel = run['nondeterministic_kernel']
+        if cmp_['deterministic']:
+            for what, against in (('program', 'the in-process run'),
+                                  ('replay', 'the C program')):
+                c = cmp_[what]
+                if not (c['data_equal'] and c['outputs_equal'] and
+                        c['weights_equal']):
+                    bad.append('the %s\'s batches / outputs / weights differ '
+                               'from %s (%s, %s, %s): max |diff| %g / %g, '
+                               'weights %.3g apart in relative norm'
+                               % (what, against, c['data_equal'],
+                                  c['outputs_equal'], c['weights_equal'],
+                                  c['outputs_max_diff'],
+                                  c['weights_max_diff'], c['weights_rel']))
+        elif kernel is None:
+            bad.append('the two in-process runs differ (outputs %g apart) '
+                       'and no nondeterministic kernel is named'
+                       % cmp_['rerun_outputs_max_diff'])
+        else:
+            for what, against in (('program', 'in process'),
+                                  ('replay', 'in the program')):
+                c = cmp_[what]
+                for i, (a, b) in enumerate(zip(c['losses'], c['against'])):
+                    if not abs(a - b) <= RESNET_LOSS_ATOL:
+                        bad.append('the %s\'s step %d loss %.5f against '
+                                   '%.5f %s (%s is nondeterministic)'
+                                   % (what, i, a, b, against, kernel))
+                if not c['weights_rel'] <= MODULE_STATE_REL:
+                    bad.append('the %s\'s weights %.3g apart from those %s '
+                               'in relative norm (bound %g; %s is '
+                               'nondeterministic)'
+                               % (what, c['weights_rel'], against,
+                                  MODULE_STATE_REL, kernel))
+    rec_ = run.get('rec_train')
+    if rec_ is not None and (rec_['rc'] != 0 or
+                             'final train-accuracy' not in rec_['out']):
+        bad.append('rec_train.cpp on the CPU exited %s: %s'
+                   % (rec_['rc'], rec_['err']))
+    return bad
+
+
+def c_train_start(mx, root, prefix, lib, source='native', dev_type=2,
+                  steps=C_TRAIN_STEPS, batch=C_TRAIN_BATCH, image_shape=None,
+                  net=None, skip=None, classes=RESNET['num_classes']):
+    """Phase 38's inputs and program, built, and the program started in
+    a process of its own, its batches from `source` ('native', or a
+    context for the port's pipeline): the state c_train_run finishes
+    from."""
+    image_shape = image_shape or tuple(
+        int(v) for v in RESNET['image_shape'].split(','))
+    out = fresh_dir(root, 38)
+    symbol = c_train_inputs(mx, out, image_shape, batch, net)
+    exe, so = c_train_build(lib, out)
+    run_dir = out / 'program'
+    run_dir.mkdir()
+    started = dict(out=out, so=so, symbol=symbol, dev_type=dev_type,
+                   steps=steps, batch=batch, image_shape=image_shape,
+                   prefix=prefix, source=source, classes=classes)
+    env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
+    started['job'] = Background(
+        [str(exe)] + c_train_argv(started, run_dir, skip), 900, env=env,
+        cwd=str(out))
+    return started
+
+
+def c_train_run(torch, mx, cuda_conv, started, counter=None,
+                rec_train=None):
+    """Phase 38: the C program of C_TRAIN_PROGRAM (started by
+    c_train_start) binds the bf16 ResNet-50 from its symbol JSON on the
+    card (dev_type 2) at batch 64, loads its seeded parameters, and takes
+    C_TRAIN_STEPS SGD steps (momentum 0.9) fed by
+    ImageRecordIter(use_native=1) through MXTNDArrayCopyFromNDArray;
+    here the same program's function runs twice in this process (the conv
+    launches counted), and c_train_replay makes the first run's steps
+    again past the C API. The program's batches, outputs and weights are
+    held against the first run's, and the replay's outputs and weights
+    against the program's: bit for bit, or, where
+    C_TRAIN_NONDETERMINISTIC names a kernel, within phase 36's bounds.
+    `rec_train` is the Background of cpp-package's rec_train.cpp on the
+    CPU, or None. Returns the run's numbers, for c_train_gate."""
+    counter = counter or (lambda: cuda_conv.CONV_BN_STATS_LAUNCHES)
+    out, steps, batch = started['out'], started['steps'], started['batch']
+    classes, symbol = started['classes'], started['symbol']
+    inproc = {}
+    for key in ('first', 'second'):
+        run_dir = out / key
+        run_dir.mkdir()
+        argv = c_train_argv(started, run_dir)
+        before = counter()
+        t0 = time.perf_counter()
+        rc = c_train_inprocess(started['so'], argv)
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        inproc[key] = dict(rc=rc, launches=counter() - before,
+                           s=time.perf_counter() - t0)
+    proc, prog_s = started['job'].wait()
+    program = dict(rc=proc.returncode, s=prog_s,
+                   out=proc.stdout.strip()[-300:],
+                   err=proc.stderr.strip()[-2000:])
+    rec_run = None
+    if rec_train is not None:
+        p, s = rec_train.wait()
+        rec_run = dict(rc=p.returncode, s=s, out=p.stdout.strip()[-300:],
+                       err=p.stderr.strip()[-1500:])
+    # the program binds every argument with grad_req 'write': the data
+    # has a gradient, so the stem's pair stays on the route (no split)
+    run = dict(steps=steps, batch=batch, dev_type=started['dev_type'],
+               source=started['source'], want_launches=graph_pairs(symbol),
+               nondeterministic_kernel=C_TRAIN_NONDETERMINISTIC,
+               program=program, inprocess=inproc, rec_train=rec_run)
+    if program['rc'] == 0 and all(v['rc'] == 0 for v in inproc.values()):
+        a, b, c = (c_train_read(out / key, steps, batch, classes)
+                   for key in ('first', 'second', 'program'))
+        t0 = time.perf_counter()
+        replay = c_train_replay(mx, started, a, counter)
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        run['replay'] = dict(launches=replay['launches'],
+                             s=time.perf_counter() - t0)
+        replay.update(labels=c['labels'], data=c['data'])
+
+        def against(x, y):
+            """x's numbers held against y's."""
+            return dict(
+                data_equal=bool(np.array_equal(x['data'], y['data'])),
+                outputs_equal=bool(np.array_equal(x['outputs'],
+                                                  y['outputs'])),
+                weights_equal=bool(np.array_equal(x['weights'],
+                                                  y['weights'])),
+                outputs_max_diff=float(np.abs(x['outputs'] -
+                                              y['outputs']).max()),
+                weights_max_diff=float(np.abs(x['weights'] -
+                                              y['weights']).max()),
+                weights_rel=c_train_weights_rel(
+                    symbol, batch, started['image_shape'], x['weights'],
+                    y['weights']),
+                losses=c_train_losses(x['outputs'], x['labels']),
+                against=c_train_losses(y['outputs'], y['labels']))
+        run['compare'] = dict(
+            deterministic=bool(all(np.array_equal(a[k], b[k]) for k in a)),
+            labels_equal=bool(np.array_equal(c['labels'], a['labels'])),
+            program=against(c, a), replay=against(replay, c),
+            rerun_outputs_max_diff=float(np.abs(b['outputs'] -
+                                                a['outputs']).max()),
+            weights=int(a['weights'].size),
+            losses=c_train_losses(a['outputs'], a['labels']))
+    return run
+
+
+def c_train_phase(torch, mx, cuda_conv, started, rec_train=None):
+    """Phase 38 (c_train_run), gated by c_train_gate."""
+    run = c_train_run(torch, mx, cuda_conv, started, rec_train=rec_train)
+    out, steps, batch = started['out'], run['steps'], run['batch']
+    prog_s, inproc, rec_run = (run['program']['s'], run['inprocess'],
+                               run['rec_train'])
+    print('c_train ' + json.dumps(run))
+    bad = c_train_gate(run)
+    if bad:
+        fail('phase 38: ' + '; '.join(bad))
+    cmp_ = run['compare']
+    print('c_train: the C program (%.1f s, its own process, batches from '
+          '%s) %s the same calls in this process over %d steps at batch %d '
+          '(%d weights), and the replay through Executor.forward_backward '
+          'and a Python SGD updater (%.1f s) %s the program; losses %s; '
+          '%d conv launches a step here; rec_train.cpp on the CPU %s'
+          % (prog_s, run['source'],
+             'bit-equal to' if cmp_['deterministic'] else 'within phase '
+             '36\'s bounds of', steps, batch, cmp_['weights'],
+             run['replay']['s'], 'bit-equal to' if cmp_['deterministic']
+             else 'within phase 36\'s bounds of',
+             ['%.4f' % v for v in cmp_['program']['losses']],
+             inproc['first']['launches'] // steps,
+             rec_run['out'].splitlines()[-1] if rec_run else 'not run'))
+    shutil.rmtree(out, ignore_errors=True)
+    return run
+
+
 def main(argv=None):
     import argparse
     parser = argparse.ArgumentParser(
@@ -12748,7 +13776,7 @@ def main(argv=None):
                                                     v.split(',')},
                         default=ALL_PHASES,
                         help='build, then run only these phases (a comma '
-                             'list of 2-36); the kernels line needs all')
+                             'list of 2-38); the kernels line needs all')
     parser.add_argument('--dist-worker', choices=('ps', 'coord', 'dp',
                                                   'sparse', 'pipe', 'pipe4',
                                                   'hybrid'),
@@ -12803,7 +13831,7 @@ def main(argv=None):
     atexit.register(Background.stop_all)
     phases = args.phases
     if not phases <= ALL_PHASES:
-        fail('--phases takes phases 2 to 36; got %s' % sorted(phases))
+        fail('--phases takes phases 2 to 38; got %s' % sorted(phases))
     sys.path.insert(0, str(root))
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import _build, cuda_conv, cuda_ops
@@ -12830,6 +13858,12 @@ def main(argv=None):
     _build.library()
     build_s = time.perf_counter() - t0
     print('build: %.1f s' % build_s)
+    # the native runtime (host C++) builds beside phases 2 on
+    native_build = {}
+    if phases & {37, 38}:
+        native_thread = threading.Thread(target=host_builds,
+                                         args=(native_build,), daemon=True)
+        native_thread.start()
     build_log = _build.build_log().strip()
     print(build_log)
     sass_job = sass_start(_build.build())
@@ -12936,7 +13970,9 @@ def main(argv=None):
     if 18 in phases:
         clock.start(18)
         record = record_phase(torch, mx, cuda_conv, root,
-                              module if 10 in phases else None)
+                              module if 10 in phases else None,
+                              keep=(root / 'build' / 'native_rec'
+                                    if phases & {37, 38} else None))
 
     # 19. VGG16-SSD300 through ImageDetIter and Module.fit
     if 19 in phases:
@@ -13061,6 +14097,25 @@ def main(argv=None):
         clock.start(27)
         ring_run = ring_phase(torch, pmesh, root, smi)
 
+    # 38's C program starts in a process of its own, and rec_train.cpp
+    # on the CPU in another, and both run beside phases 28-37
+    if phases & {37, 38}:
+        clock.start(37)
+        native_thread.join()
+        if isinstance(native_build['native'], Exception):
+            fail('the native runtime failed to build: %s'
+                 % native_build['native'])
+        rec_prefix = native_rec(torch, mx, root, 18 in phases)
+    if 38 in phases:
+        clock.start(38)
+        # without OpenCV (no native iterator) the program's batches come
+        # from the port's nvJPEG pipeline on the card
+        c_started = c_train_start(
+            mx, root, rec_prefix, _build.c_predict_library(),
+            source='gpu(0)' if isinstance(native_build['image'], Exception)
+            else 'native')
+        rec_train = rec_train_start(torch, mx, c_started['out'])
+
     # 28. Module(context=[gpu(0)]) as the one rank of a data mesh over
     # NCCL, ZeRO 0 then 1, fit(bulk=2) on the mesh's staging
     if phases & {28, 29}:
@@ -13112,6 +14167,22 @@ def main(argv=None):
     if 36 in phases:
         clock.start(36)
         custom = custom_phase(torch, mx, cuda_conv, smi)
+
+    # 37. the native runtime: mx.engine, RecordIO's C reader and writer,
+    # ImageRecordIter(use_native=True) feeding Module.fit
+    if 37 in phases:
+        clock.start(37)
+        native = native_phase(torch, mx, cuda_conv, root, rec_prefix,
+                              native_build)
+
+    # 38. the C training API: the C program against the same calls made
+    # in this process
+    if 38 in phases:
+        clock.start(38)
+        c_train = c_train_phase(torch, mx, cuda_conv, c_started,
+                                rec_train=rec_train)
+    if phases & {37, 38}:
+        shutil.rmtree(root / 'build' / 'native_rec', ignore_errors=True)
 
     clock.stop()
     print('phase seconds ' + json.dumps(dict(
@@ -13197,7 +14268,8 @@ def main(argv=None):
                                      bucketing, gluon_run, ptb, gluon_lm,
                                      factories, record, dist_ps,
                                      dist_coord, loop, dp_mesh, dp_ranks,
-                                     gluon_fused, hybrid, custom))
+                                     gluon_fused, hybrid, custom, native,
+                                     c_train))
     kernels.append(rtc_kernel_entry(rtc_run, ptb, gluon_lm))
     for kern in kernels:
         if kern['launches'] == 0:

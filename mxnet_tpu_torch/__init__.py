@@ -82,13 +82,20 @@ far:
   `mx.executor_manager`, `mx.log` and `mx.registry`;
 - deployment: `Predictor.export_compiled` and `export_artifact`
   (`torch.export` programs; a `.pt2` with the weights baked in runs
-  under torch alone), and the C predict API (`_c_predict_bridge` and
-  `csrc/capi/`, built with the host C++ compiler by
-  `_build.c_predict_library`).
+  under torch alone), and the C API (`_c_predict_bridge`,
+  `_c_api_bridge` and `csrc/capi/`: the MXTPred* predict and the MXT*
+  training surfaces, built with the host C++ compiler by
+  `_build.c_predict_library`);
+- the native runtime (`csrc/native/`, host C++ built by
+  `_build.native_library`): `mx.engine`, the dependency-scheduling
+  engine, RecordIO's C reader and writer, and
+  `io.ImageRecordIter(use_native=True)`, the threaded OpenCV decode
+  pipeline.
 
 Importing the package builds and compiles nothing: the kernels are
 compiled by `nvcc` at their first launch (`_build`), an `Rtc` body by
-NVRTC at its first push.
+NVRTC at its first push, the native runtime by the host C++ compiler at
+its first use.
 """
 __version__ = '0.1.0'
 
@@ -152,12 +159,13 @@ from . import registry
 from . import log
 from . import executor_manager
 from . import test_utils
+from . import engine
 
 __all__ = ['AttrScope', 'Context', 'DataBatch', 'DataDesc', 'DataIter',
            'Executor', 'FeedForward', 'MXNetError', 'Module', 'NDArrayIter',
            'NameManager', 'Optimizer', 'Prefix', 'attribute', 'autograd',
            'callback', 'contrib', 'cpu', 'current_context', 'delta', 'dist',
-           'elastic', 'exec_cache', 'executor', 'executor_manager',
+           'elastic', 'engine', 'exec_cache', 'executor', 'executor_manager',
            'fleet_supervisor', 'gluon', 'gpu', 'image', 'init',
            'initializer', 'io', 'kv', 'kvstore', 'kvstore_server', 'log',
            'lr_scheduler', 'metric', 'mod', 'model', 'models', 'module',

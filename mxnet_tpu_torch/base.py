@@ -165,13 +165,6 @@ def numpy_dtype(dtype):
     return np.dtype(name).type
 
 
-def unported(what, item):
-    """The error of a feature the port does not have yet: `what` names
-    it, `item` the ROADMAP Queue A item that brings it."""
-    return MXNetError('%s is not ported yet (ROADMAP Queue A %s)'
-                      % (what, item))
-
-
 # -- name registries (reference python/mxnet/registry.py): optimizers,
 # initializers and metrics are registered and created by lowercase name
 _REGISTRIES = {}

@@ -20,10 +20,16 @@ before the step that reads it has run.
 ImageRecordIter layers the port's image.ImageIter under a
 PrefetchingIter, as the JAX package's Python pipeline does: decode
 workers under a batch-prefetch thread, its batches made on the
-iterator's context (nvJPEG and the card on a GPU context). The native
-C++ pipeline (`use_native=True`) is the JAX package's libmxtpu.so, which
-the port does not have yet.
+iterator's context (nvJPEG and the card on a GPU context). With
+`use_native=True` it runs the port's native C++ pipeline instead
+(`csrc/native/image_record_iter.cc`: a reader thread and a pool of
+OpenCV decode workers filling host float32 batches), whose batches go
+through pinned memory to the iterator's context.
 """
+import atexit
+import ctypes
+import os
+import weakref
 import queue
 import threading
 import time
@@ -35,7 +41,6 @@ import torch
 
 from . import ndarray as nd
 from . import profiler
-from .base import unported
 from .context import Context, cpu
 from .ndarray import NDArray
 
@@ -660,6 +665,115 @@ class CSVIter(DataIter):
         return self._inner.next()
 
 
+_NATIVE_ITERS = weakref.WeakSet()   # native iterators to close at exit
+
+
+class _NativeImageRecordIter(DataIter):
+    """The native threaded decode pipeline (csrc/native/
+    image_record_iter.cc): a reader thread, a pool of OpenCV decode
+    workers and a bounded queue of host float32 batches, after the
+    reference's iter_image_recordio_2.cc. Each batch is copied out of the
+    pipeline's buffer: through pinned memory to the card on a GPU `ctx`,
+    into a fresh host tensor on the CPU. The pipeline's threads are
+    joined at close() and at interpreter exit."""
+
+    def __init__(self, path_imgrec, idx_path, data_shape, batch_size,
+                 label_width, shuffle, rand_crop, rand_mirror, resize,
+                 mean, std, num_parts, part_index, preprocess_threads,
+                 prefetch_buffer, seed, data_name, label_name, ctx=None):
+        from . import _core
+        super().__init__(batch_size)
+        self._core = _core
+        lib = _core.image_lib()
+        self._lib = lib
+        from .image.image import _ctx_of
+        self._ctx = _ctx_of(ctx)
+        self._shape = tuple(data_shape)
+        self._label_width = label_width
+        self._data_name = data_name
+        self._label_name = label_name
+        c3 = (ctypes.c_float * 3)
+        mean_arr = c3(*([float(m) for m in mean] if mean is not None
+                        else [0., 0., 0.]))
+        std_arr = c3(*([float(v) for v in std] if std is not None
+                       else [1., 1., 1.]))
+        self._handle = lib.MXTImageRecordIterCreate(
+            path_imgrec.encode(), idx_path.encode(), batch_size,
+            self._shape[0], self._shape[1], self._shape[2], label_width,
+            int(shuffle), int(rand_crop), int(rand_mirror), int(resize),
+            mean_arr, std_arr, num_parts, part_index,
+            preprocess_threads, prefetch_buffer, seed)
+        if not self._handle:
+            raise _core.NativeError(lib.MXTGetLastError().decode())
+        _NATIVE_ITERS.add(self)
+
+    def close(self):
+        """Join the pipeline's threads and free it (idempotent)."""
+        handle, self._handle = getattr(self, '_handle', None), None
+        if handle:
+            self._lib.MXTImageRecordIterFree(handle)
+
+    def __del__(self):
+        self.close()
+
+    @property
+    def provide_data(self):
+        return [DataDesc(self._data_name,
+                         (self.batch_size,) + self._shape)]
+
+    @property
+    def provide_label(self):
+        shape = (self.batch_size,) if self._label_width == 1 \
+            else (self.batch_size, self._label_width)
+        return [DataDesc(self._label_name, shape)]
+
+    def _live(self):
+        if not self._handle:
+            raise RuntimeError('the iterator is closed')
+        return self._handle
+
+    def reset(self):
+        self._core.check_call(
+            self._lib.MXTImageRecordIterReset(self._live()), self._lib)
+
+    def next(self):
+        data_p = ctypes.POINTER(ctypes.c_float)()
+        label_p = ctypes.POINTER(ctypes.c_float)()
+        pad = ctypes.c_int()
+        ret = self._lib.MXTImageRecordIterNext(
+            self._live(), ctypes.byref(data_p), ctypes.byref(label_p),
+            ctypes.byref(pad))
+        if ret < 0:
+            raise self._core.NativeError(
+                self._lib.MXTGetLastError().decode())
+        if ret == 0:
+            raise StopIteration
+        n = self.batch_size
+        lshape = (n, self._label_width) if self._label_width > 1 \
+            else (n,)
+        # views of the pipeline's buffer, valid until the next call
+        data = torch.from_numpy(np.ctypeslib.as_array(
+            data_p, shape=(n,) + self._shape))
+        label = torch.from_numpy(np.ctypeslib.as_array(
+            label_p, shape=(n * self._label_width,))).reshape(lshape)
+        device = self._ctx.torch_device
+        if device.type == 'cuda':
+            data, label = stage([data, label], device).take()
+        else:
+            data, label = data.clone(), label.clone()
+        return DataBatch(data=[NDArray(data, self._ctx)],
+                         label=[NDArray(label, self._ctx)],
+                         pad=pad.value, index=None,
+                         provide_data=self.provide_data,
+                         provide_label=self.provide_label)
+
+
+@atexit.register
+def _close_native_iters():
+    for it in list(_NATIVE_ITERS):
+        it.close()
+
+
 class ImageRecordIter(DataIter):
     """RecordIO image iterator with augmentation and prefetch (reference
     src/io/iter_image_recordio_2.cc): image.ImageIter, its decode pool
@@ -668,8 +782,14 @@ class ImageRecordIter(DataIter):
     subtracts a mean image, resize resizes the shorter side first,
     num_parts / part_index shard. The batches are made on `ctx` (the
     current context when None: gpu(0) unless the caller is in
-    `with mx.cpu():`). use_native=True asks for the JAX package's C++
-    pipeline, which the port does not have: it raises."""
+    `with mx.cpu():`).
+
+    use_native=True runs the port's native C++ pipeline over the
+    record file and its `.idx` (`_NativeImageRecordIter`, seeded by
+    `seed`, no mean_img), and raises if its library cannot be built (it
+    needs OpenCV 4's C++ headers and libraries). None and False keep the pipeline above: nvJPEG on the
+    workers' streams on a GPU context. (In the JAX package None means
+    the native pipeline whenever it is built and an `.idx` exists.)"""
 
     def __init__(self, path_imgrec, data_shape, batch_size,
                  label_width=1, shuffle=False, rand_crop=False,
@@ -683,8 +803,20 @@ class ImageRecordIter(DataIter):
                  **kwargs):
         super().__init__(batch_size)
         if use_native:
-            raise unported('ImageRecordIter(use_native=True), the native '
-                           'C++ pipeline of libmxtpu.so', '7')
+            if mean_img is not None:
+                raise ValueError('mean_img needs the Python pipeline '
+                                 '(use_native=False)')
+            mean = [mean_r, mean_g, mean_b] \
+                if (mean_r or mean_g or mean_b) else None
+            std = [std_r, std_g, std_b] if (std_r or std_g or std_b) \
+                else None
+            self._inner = _NativeImageRecordIter(
+                path_imgrec, os.path.splitext(path_imgrec)[0] + '.idx',
+                tuple(data_shape), batch_size, label_width, shuffle,
+                rand_crop, rand_mirror, resize, mean, std, num_parts,
+                part_index, preprocess_threads, prefetch_buffer, seed,
+                data_name, label_name, ctx)
+            return
         from .image import image as img_mod
         mean = std = None
         if mean_r or mean_g or mean_b:
@@ -728,7 +860,8 @@ class ImageRecordIter(DataIter):
     def close(self):
         """Join the prefetch thread and the decode workers (idempotent)."""
         self._inner.close()
-        self._inner.iters[0].close()
+        if isinstance(self._inner, PrefetchingIter):
+            self._inner.iters[0].close()
 
 
 class _MeanImageAug:

@@ -214,6 +214,16 @@ class OpDef:
 
 _OP_REGISTRY = {}
 _OP_ALIASES = {}
+# bumped by every register(), so that what the C API caches of the
+# registry (its op names and op infos) keys on generation(), not len()
+_GENERATION = [0]
+
+
+def generation():
+    """Monotonic registry mutation stamp: changes whenever register()
+    runs. The dict sizes are folded in as a tripwire for direct del/pop
+    edits (tests), as the JAX package's generation() does."""
+    return (_GENERATION[0] << 20) + len(_OP_REGISTRY) + len(_OP_ALIASES)
 
 
 def register(name, input_names=('data',), num_aux=0, num_outputs=1,
@@ -249,6 +259,7 @@ def register(name, input_names=('data',), num_aux=0, num_outputs=1,
         _OP_REGISTRY[name] = op
         for alias in aliases:
             _OP_ALIASES[alias] = name
+        _GENERATION[0] += 1
         fn.op = op
         return fn
     return do_register

@@ -22,7 +22,8 @@ the JAX package's, on the CPU.
 - A cut ResNet Module step fed by ImageRecordIter against the JAX
   package's on the same batch: the batch equal, the loss and outputs
   within 1e-5.
-- What the port refuses: use_native=True names Queue A 7; a decode for
+- What the port refuses: use_native=True when the native runtime
+  cannot be built (tests/test_torch_native.py runs it); a decode for
   the card with no CUDA raises, and nvJPEG without its library raises.
 """
 import random as pyrandom
@@ -345,9 +346,24 @@ def test_image_record_iter_mean_img_and_resize(tmp_path):
     _assert_epochs_close(_epoch(it), ref, atol=1.0 + 1e-4)
 
 
-def test_image_record_iter_refuses_the_native_pipeline(tmp_path):
+def test_image_record_iter_refuses_the_native_pipeline(tmp_path,
+                                                      monkeypatch):
+    """use_native=True with a native runtime that cannot be built
+    raises, naming the failure, and makes no Python pipeline in its
+    place; mean_img, which the native pipeline does not take, is
+    refused beside it."""
+    from mxnet_tpu_torch import _build, _core
     prefix = _write_rec(tmp_path, n=2)
-    with pytest.raises(MXNetError, match='Queue A 7'):
+    with pytest.raises(ValueError, match='mean_img'):
+        mx.io.ImageRecordIter(path_imgrec=prefix + '.rec',
+                              data_shape=(3, 8, 8), batch_size=1,
+                              mean_img='mean.nd', use_native=True, ctx=CPU)
+
+    def broken():
+        raise RuntimeError('OpenCV 4 not found')
+    monkeypatch.setattr(_build, 'native_image_library', broken)
+    monkeypatch.setattr(_core, '_LIBS', {})
+    with pytest.raises(_core.NativeError, match='OpenCV 4 not found'):
         mx.io.ImageRecordIter(path_imgrec=prefix + '.rec',
                               data_shape=(3, 8, 8), batch_size=1,
                               use_native=True, ctx=CPU)

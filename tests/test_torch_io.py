@@ -161,11 +161,14 @@ def test_prefetch_to_device_raises_the_source_error():
 
 
 def test_image_record_iter_raises():
-    """ImageRecordIter is ported (tests/test_torch_image.py); what it
-    still refuses is the JAX package's native C++ pipeline."""
-    with pytest.raises(mx.MXNetError, match='Queue A 7'):
+    """ImageRecordIter is ported (tests/test_torch_image.py), and so is
+    its native pipeline (tests/test_torch_native.py): use_native=True
+    over a record file with no index raises the pipeline's error, where
+    no Python pipeline is made in its place."""
+    from mxnet_tpu_torch import _core
+    with pytest.raises(_core.NativeError, match='cannot open idx'):
         tio.ImageRecordIter(path_imgrec='x.rec', data_shape=(3, 8, 8),
-                            batch_size=2, use_native=True)
+                            batch_size=2, use_native=True, ctx=mx.cpu())
 
 
 # -- RecordIO --------------------------------------------------------------

@@ -363,7 +363,9 @@ def test_item_6b_feature_works(case):
     has a global form (the CPU ranks of test_torch_module_dp.py hold
     them against the JAX Module), and a worker of several ranks syncs
     through the parameter server or the host all-reduce
-    (test_torch_hybrid.py); only io.py's item 7b refusal is left."""
+    (test_torch_hybrid.py). Item 7b's last refusal (io.py's native
+    pipeline) is gone too, and with it base.unported: nothing in the
+    port refuses a feature as not ported."""
     if case == 'batch_reduce':
         from mxnet_tpu_torch.parallel import batch_reduce
         for name, attrs, ndim in (
@@ -384,10 +386,7 @@ def test_item_6b_feature_works(case):
             ['grep', '-rn', 'unported(', 'mxnet_tpu_torch',
              '--include=*.py'], cwd=str(REPO), capture_output=True,
             text=True).stdout.splitlines()
-        calls = [l for l in sites if 'def unported' not in l and
-                 'import' not in l]
-        assert len(calls) == 1 and calls[0].startswith(
-            'mxnet_tpu_torch/io.py:'), calls
+        assert sites == []
     elif case == 'hybrid_worker':
         from mxnet_tpu_torch.parallel import worker_group
         from mxnet_tpu_torch.tools import launch

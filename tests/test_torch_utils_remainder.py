@@ -23,9 +23,12 @@ from mxnet_tpu_torch import test_utils as tu
 
 
 def _both(fn):
-    with mx.cpu():
+    # each package names unnamed ops from a fresh counter, so that the
+    # symbols other tests of the process made leave the names alike
+    with mx.cpu(), mx.NameManager():
         port = fn(mx)
-    return port, fn(jmx)
+    with jmx.NameManager():
+        return port, fn(jmx)
 
 
 # -- contrib -----------------------------------------------------------------
