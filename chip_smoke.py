@@ -43,10 +43,11 @@ Phases, each of which exits non-zero on failure:
 
 1. build: compile every kernel from mxnet_tpu_torch/csrc with nvcc; the
    SASS of every instance of the tensor-core kernels (SM90_KERNELS: the
-   flash kernels in bf16 and float16, the conv in bf16) must hold HGMMA,
-   and ptxas must report no serialised wgmma (C7520);
+   flash kernels in bf16 and float16, the float32 (3xTF32) backward
+   pair, the conv in bf16) must hold HGMMA, and ptxas must report no
+   serialised wgmma (C75xx);
 2. kernels: launch the forward kernel on the card at the LM's shapes in
-   bf16 and float16 (and decode-shaped cases, a ragged float32 one,
+   bf16, float16 and float32 (and decode-shaped cases, a ragged float32 one,
    head_dim 192, a ragged head_dim 100 in both dtypes, and head_dim 320),
    hold it against its plain PyTorch version (16-bit: the online
    recurrence at the kernel's 64-key tile, element by element, the same
@@ -63,10 +64,11 @@ Phases, each of which exits non-zero on failure:
    one request in float16 at full width and 4 layers;
 4. backward kernels: launch the dK/dV and dQ kernels on the card at the
    shapes of phase 2 (and a rectangular float32 case with a nonzero lse
-   cotangent), hold each against its plain PyTorch version element by
-   element, check that the autograd Function gives the kernels'
-   gradients, and time each beside its bound, its plain version and the
-   backward of scaled_dot_product_attention;
+   cotangent, and a float32 head_dim of 50, on plain loads), hold each
+   against its plain PyTorch version element by element, check that the
+   autograd Function gives the kernels' gradients, and time each beside
+   its bound, its plain version and the backward of
+   scaled_dot_product_attention (its backend named);
 5. train: the train step at the widths of phase 3, bf16, on one batch
    of 8 x 1024 tokens. Every parameter's gradient must be finite and
    nonzero on the flash path and on plain attention and agree between
@@ -75,13 +77,17 @@ Phases, each of which exits non-zero on failure:
    dQ kernels once per layer; a torch.profiler breakdown of one step;
    then one float16 step at full width and 4 layers, whose gradients
    must agree with plain attention's and which must launch each kernel
-   once per layer; last, five float32 steps at full width and 4 layers
-   on one batch, whose loss must fall;
+   once per layer; then five timed float32 steps at full width and 4
+   layers on one batch, whose loss must fall; last, float32 at full
+   depth: one warm-up and two timed steps, each launching each kernel
+   once per layer;
 6. conv + BatchNorm statistics: the kernels (bf16 on the tensor cores,
    float32 on FMAs) against their plain version, element by element, at
-   the main ResNet-50 shape (3x3, 64 -> 64 at 56^2, batch 256, bf16), a
-   strided 1x1, a ragged float32 case and a stem-like 7x7 stride-2 one,
-   and the same bits on a second run; the autograd Function's dx and dw
+   the main ResNet-50 shape (3x3, 64 -> 64 at 56^2, batch 256, bf16 and
+   float32, the float32 one timed beside cuDNN's float32 conv with TF32
+   off and on), a strided 1x1, a ragged float32 case and a stem-like
+   7x7 stride-2 one, and the same bits on a second run; the autograd
+   Function's dx and dw
    against the fold of the statistics' cotangents and the transposed
    convs on the plain version's y; then the bench path
    (mxnet_tpu_torch.tools.bench_conv_bn) over all 19 conv shapes of the
@@ -583,14 +589,17 @@ needs a CUDA device and the repository beside it.
 
 --mutants builds each of FWD_MUTANTS and BWD_MUTANTS (a rounding left
 out, a tile skipped, the causal mask widened, the forward's running
-correction left out), CONV_MUTANTS of the float32 kernel (a tap skipped,
-the padding one pixel off, one M tile's statistics left out) and
-CONV_SM90_MUTANTS of the bf16 one (a K step skipped, a tap's copy one
-pixel off, one tile's partials left out, y truncated) in a copy of the
-port under build/mutants/ and fails unless phase 2's LM case fails every
-forward mutant, phase 4's LM case every backward mutant, phase 6's
-ragged float32 case every FMA conv mutant, its bf16 main case every
-tensor-core conv mutant, and the unchanged copy passes all four.
+correction left out), TF32_BWD_MUTANTS of the float32 backward pair (the
+small parts of dK/dV's or of dQ's products dropped, a q tile skipped,
+the causal mask widened), CONV_MUTANTS of the float32 conv kernel (a tap
+skipped, the padding one pixel off, one M tile's statistics left out)
+and CONV_SM90_MUTANTS of the bf16 one (a K step skipped, a tap's copy
+one pixel off, one tile's partials left out, y truncated) in a copy of
+the port under build/mutants/ and fails unless phase 2's LM case fails
+every forward mutant, phase 4's LM case every 16-bit backward mutant
+and its lm_f32 case every float32 one, phase 6's ragged float32 case
+every FMA conv mutant, its bf16 main case every tensor-core conv
+mutant, and the unchanged copy passes all five.
 """
 import atexit
 import contextlib
@@ -610,9 +619,13 @@ import numpy as np
 
 SEED = 0
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, dense
-# bf16 and fp16 tensor-core FLOP/s, float32 FLOP/s outside the tensor cores
+# bf16 and fp16 tensor-core FLOP/s. float32: a product accurate to float32
+# runs on the tensor cores as three TF32 products (big x big, big x small,
+# small x big; csrc/flash_attention_bwd_tf32.cu), so the card's float32
+# rate is the dense TF32 peak over three, 165 TFLOP/s, above the 67 of the
+# CUDA cores' FMAs: no float32 reading can pass 100 % of it
 HBM_BYTES_S = 3.35e12
-PEAK_FLOPS = {'bfloat16': 989e12, 'float16': 989e12, 'float32': 67e12}
+PEAK_FLOPS = {'bfloat16': 989e12, 'float16': 989e12, 'float32': 495e12 / 3}
 
 GPT2_MEDIUM = dict(vocab=50257, dim=1024, heads=16, layers=24, mlp_mult=4)
 BATCH, SEQ, REQUESTS = 8, 1024, 4
@@ -679,17 +692,20 @@ GRAD_REL_TOL = 0.05
 TRAIN_STEPS = 4
 LR = 0.1                 # the JAX package's make_train_step default
 FP32_LAYERS, FP32_STEPS = 4, 5
+FP32_FULL_TIMED = 2      # timed float32 steps at full depth, after a warm-up
 
 # phase 2: name -> (q shape, kv length, dtype, iterations), all causal.
 # 16-bit runs on the tensor-core kernel, float32 on the FMA one: the LM's
-# shape and decode (a 64-row tile of which 48 rows are padding) in both
-# 16-bit types, a ragged float32 one, head_dim 192 (column groups of 128
-# and 64), a ragged head_dim of 100 (not a multiple of 8: plain loads
-# instead of TMA) in both kernels, and head_dim 320 in both (the
-# contraction in chunks of 128; column groups of 256 in the FMA kernel)
+# shape in all three types, decode (a 64-row tile of which 48 rows are
+# padding) in both 16-bit types, a ragged float32 one, head_dim 192
+# (column groups of 128 and 64), a ragged head_dim of 100 (not a
+# multiple of 8: plain loads instead of TMA) in both kernels, and
+# head_dim 320 in both (the contraction in chunks of 128; column groups
+# of 256 in the FMA kernel)
 FWD_CASES = {
     'lm': ((BATCH, 16, SEQ, 64), SEQ, 'bfloat16', 20),
     'lm_f16': ((BATCH, 16, SEQ, 64), SEQ, 'float16', 20),
+    'lm_f32': ((BATCH, 16, SEQ, 64), SEQ, 'float32', 10),
     'decode': ((BATCH, 16, 16, 64), SEQ, 'bfloat16', 50),
     'decode_f16': ((BATCH, 16, 16, 64), SEQ, 'float16', 50),
     'ragged_f32': ((2, 4, 1000, 128), 1000, 'float32', 20),
@@ -700,15 +716,17 @@ FWD_CASES = {
     'head320_f32': ((1, 2, 200, 320), 200, 'float32', 10),
 }
 # phase 4: name -> (q shape, kv length, dtype, lse cotangent, iterations),
-# all causal. 16-bit runs on the tensor-core kernels, float32 on the FMA
-# ones: the LM's shape (bf16 and float16), decode, head_dim 192 (groups of
-# 128 and 64), a ragged head_dim of 100 (plain loads instead of TMA;
-# columns padded to 112; bf16 and float16), rectangular with an lse
-# cotangent, head_dim 320 (the contraction in chunks of 128), and float32
-# cases of each kind
+# all causal. 16-bit runs on the 16-bit tensor-core kernels, float32 on
+# the 3xTF32 ones: the LM's shape (all three types), decode, head_dim 192
+# (groups of 128 and 64), a ragged head_dim of 100 (16-bit: plain loads
+# instead of TMA, columns padded to 112), rectangular with an lse
+# cotangent, head_dim 320 (the contraction in chunks), float32 cases of
+# each kind, and a float32 head_dim of 50 (not a multiple of 4: plain
+# loads instead of TMA)
 BWD_CASES = {
     'lm': ((BATCH, 16, SEQ, 64), SEQ, 'bfloat16', False, 10),
     'lm_f16': ((BATCH, 16, SEQ, 64), SEQ, 'float16', False, 10),
+    'lm_f32': ((BATCH, 16, SEQ, 64), SEQ, 'float32', False, 5),
     'decode': ((BATCH, 16, 16, 64), SEQ, 'bfloat16', False, 20),
     'ragged_f32': ((2, 4, 1000, 128), 1000, 'float32', False, 10),
     'rect_glse_f32': ((2, 4, 300, 64), 700, 'float32', True, 10),
@@ -719,10 +737,11 @@ BWD_CASES = {
     'rect_glse': ((2, 4, 300, 64), 700, 'bfloat16', True, 10),
     'head320': ((2, 4, 512, 320), 512, 'bfloat16', False, 5),
     'head320_f32': ((1, 2, 200, 320), 200, 'float32', False, 5),
+    'head50_f32': ((2, 3, 300, 50), 300, 'float32', False, 10),
 }
-# output columns of one block of the backward kernels: the tensor-core
-# (16-bit) kernels' groups, the FMA (float32) kernels' groups
-BWD_GROUP = {'bfloat16': 128, 'float16': 128, 'float32': 256}
+# output columns of one block of the backward kernels: the 16-bit kernels'
+# groups, the float32 (3xTF32) kernels' groups (one 64-row wgmma tile)
+BWD_GROUP = {'bfloat16': 128, 'float16': 128, 'float32': 64}
 # phase 3's second model: head_dim 192 through the whole LM
 LM_WIDE_HEADS = dict(GPT2_MEDIUM, dim=768, heads=4, layers=2)
 # phases 3 and 5 in float16: full width, cut depth. The train step's
@@ -761,6 +780,21 @@ BWD_MUTANTS = {
                           'return make_int2(0, last);'),
     'mask_one_key_wide': ('k <= q + offset)', 'k <= q + offset + 1)'),
 }
+# --mutants: edits of csrc/flash_attention_bwd_tf32.cu, the float32
+# kernels of phase 4's lm_f32 case, each of which that case must catch:
+# the small parts of every product of dK/dV, or of dQ, dropped (one TF32
+# product, which misses the float32 gate: tests/test_torch_flash_backward.py
+# emulates it), the first q tile of dK/dV skipped, the causal mask one key
+# wide
+TF32_BWD_MUTANTS = {
+    'tf32_dkdv_small_parts_dropped': ('constexpr int TERMS_DKDV = 3;',
+                                      'constexpr int TERMS_DKDV = 1;'),
+    'tf32_dq_small_parts_dropped': ('constexpr int TERMS_DQ = 3;',
+                                    'constexpr int TERMS_DQ = 1;'),
+    'tf32_dkdv_q_tile_skipped': ('max(r0 - offset, 0) / BN : 0;',
+                                 'max(r0 - offset, 0) / BN + 1 : 0;'),
+    'tf32_mask_one_key_wide': ('k <= q + offset)', 'k <= q + offset + 1)'),
+}
 # --mutants: edits of csrc/flash_attention_sm90.cu, the kernel of phase
 # 2's bf16 LM case, each of which that case must catch: p rounded toward
 # zero, the running correction of acc left out, the last live k tile (the
@@ -775,20 +809,24 @@ FWD_MUTANTS = {
     'fwd_mask_one_key_wide': ('(!p.causal || k <= q + offset));',
                               '(!p.causal || k <= q + offset + 1));'),
 }
-# the tensor-core kernels and the 16-bit types each is instantiated for,
-# every instance of which must hold tensor-core instructions (HGMMA) in its
-# SASS
+# the tensor-core kernels and the types each is instantiated for, every
+# instance of which must hold tensor-core instructions (HGMMA) in its SASS
 SM90_KERNELS = {'flash_fwd_sm90': ('bfloat16', 'float16'),
                 'flash_bwd_dkdv_sm90': ('bfloat16', 'float16'),
                 'flash_bwd_dq_sm90': ('bfloat16', 'float16'),
+                'flash_bwd_dkdv_tf32': ('float32',),
+                'flash_bwd_dq_tf32': ('float32',),
                 'conv_bn_stats_sm90': ('bfloat16',)}
 # a 16-bit type as it appears in a mangled instance name; the conv kernel
-# is templated on its tile width alone, so its instances name no type
+# is templated on its tile width alone and the float32 (3xTF32) flash
+# kernels on nothing, so their instances name no type
 SM90_TYPES = {'bfloat16': '__nv_bfloat16', 'float16': '6__half'}
-SM90_UNTYPED = frozenset({'conv_bn_stats_sm90'})
+SM90_UNTYPED = frozenset({'conv_bn_stats_sm90', 'flash_bwd_dkdv_tf32',
+                          'flash_bwd_dq_tf32'})
 
 # phase 6: name -> (x NHWC, w HWIO, stride, pad, dtype): the main
-# ResNet-50 shape, a strided 1x1 of the ResNet-50 body, a ragged float32
+# ResNet-50 shape in bf16 and float32 (the FMA kernel's time at it), a
+# strided 1x1 of the ResNet-50 body, a ragged float32
 # case (M = 507 and Cout = 96 fill no tile, Cin = 24 no chunk), and a
 # stem-like 7x7 stride-2 conv on a non-square image whose Cin = 3 and
 # Cout = 30 take the kernel's element-wise loads and stores
@@ -796,6 +834,8 @@ CONV_BATCH = 256
 CONV_CASES = {
     'main': ((CONV_BATCH, 56, 56, 64), (3, 3, 64, 64), (1, 1), (1, 1),
              'bfloat16'),
+    'main_f32': ((CONV_BATCH, 56, 56, 64), (3, 3, 64, 64), (1, 1), (1, 1),
+                 'float32'),
     'strided': ((CONV_BATCH, 56, 56, 256), (1, 1, 256, 512), (2, 2), (0, 0),
                 'bfloat16'),
     'ragged_f32': ((3, 13, 13, 24), (3, 3, 24, 96), (1, 1), (1, 1),
@@ -1049,14 +1089,35 @@ def device_events(torch, fn, iters=1):
             if str(getattr(e, 'device_type', '')).endswith('CUDA')]
 
 
-def profiled_ms(torch, fn, iters):
+def profiled(torch, fn, iters):
     """Mean device time of fn over iters calls, summed over its kernels,
-    after one warm-up: for a call whose host work may outlast its
-    kernels, where CUDA events around the calls would time the host."""
+    after one warm-up, and those kernels' names, heaviest first: for a
+    call whose host work may outlast its kernels, where CUDA events
+    around the calls would time the host."""
     fn()
     torch.cuda.synchronize()
-    return sum(device_us(e) for e in device_events(torch, fn, iters)) \
-        / 1e3 / iters
+    events = sorted(device_events(torch, fn, iters), key=lambda e:
+                    -device_us(e))
+    return (sum(device_us(e) for e in events) / 1e3 / iters,
+            [e.key[:120] for e in events])
+
+
+def profiled_ms(torch, fn, iters):
+    """The mean device time of `profiled`."""
+    return profiled(torch, fn, iters)[0]
+
+
+def sdpa_backend(names):
+    """The backend of scaled_dot_product_attention that ran, read from the
+    names of its kernels: cudnn (whose kernels' names also say flash),
+    flash, efficient (CUTLASS's fmha), or math (plain products and a
+    softmax)."""
+    text = ' '.join(names).lower()
+    for key, backend in (('cudnn', 'cudnn'), ('flash', 'flash'),
+                         ('fmha', 'efficient'), ('efficient', 'efficient')):
+        if key in text:
+            return backend
+    return 'math'
 
 
 def attention_bound(b, h, tq, tk, d, dtype_name, causal):
@@ -1124,9 +1185,10 @@ def sass_start(lib_path):
 
 def sass_check(job, build_log):
     """Phase 1: the tensor-core kernels run on the tensor cores: every
-    instance of each of SM90_KERNELS, in each of its 16-bit types, in the
-    built library's SASS (sass_start's job) holds HGMMA instructions, and
-    ptxas serialised no wgmma (warning C7520) in the build log."""
+    instance of each of SM90_KERNELS, in each of its types, in the built
+    library's SASS (sass_start's job) holds HGMMA instructions, and ptxas
+    serialised no wgmma (no C75xx warning that says so, C7515 and C7520
+    among them) in the build log."""
     res, _ = job.wait()
     if res.returncode != 0:
         fail('cuobjdump -sass exited %d: %s' % (res.returncode,
@@ -1203,10 +1265,12 @@ def kernel_case(torch, cuda_ops, name, shape_q, tk, dtype, causal, iters):
     ms = cuda_ms(torch, lambda: cuda_ops.flash_attention_with_lse(
         q, k, v, causal=causal), iters)
     plain_ms = cuda_ms(torch, plain, max(2, iters // 4))
-    library_ms = None
+    library_ms, library_kernels = None, None
     if tq == tk:   # SDPA's is_causal aligns top-left: same function only
-        library_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=causal), iters)
+        sdpa = lambda: F.scaled_dot_product_attention(q, k, v,
+                                                      is_causal=causal)
+        library_ms = cuda_ms(torch, sdpa, iters)
+        library_kernels = [e.key[:120] for e in device_events(torch, sdpa)]
     bound_ms, bound_by, nbytes, flops = attention_bound(
         b, h, tq, tk, d, dtype_name, causal)
     row = dict(case=name, q=list(shape_q), tk=tk, dtype=dtype_name,
@@ -1216,6 +1280,9 @@ def kernel_case(torch, cuda_ops, name, shape_q, tk, dtype, causal, iters):
                lse_max_abs_err=float(lse_err.max()), lse_tol=ltol,
                same_bits_twice=same_bits, ms=ms, tflops=flops / ms / 1e9,
                plain_ms=plain_ms, library_ms=library_ms,
+               library_backend=library_kernels and sdpa_backend(
+                   library_kernels),
+               library_kernels=library_kernels,
                bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
                flops=flops)
     print('kernel case ' + json.dumps(row))
@@ -1302,7 +1369,7 @@ def bwd_case(torch, cuda_ops, name, shape_q, tk, dtype, causal, with_glse,
     dq_plain_ms = cuda_ms(
         torch, lambda: cuda_ops.flash_attention_bwd_dq_reference(*args),
         plain_iters)
-    library_ms = None
+    library_ms, library_kernels = None, None
     if tq == tk and not with_glse:   # SDPA's is_causal aligns top-left
         sq, sk, sv = (t.detach().clone().requires_grad_(True)
                       for t in (q, k, v))
@@ -1310,8 +1377,10 @@ def bwd_case(torch, cuda_ops, name, shape_q, tk, dtype, causal, with_glse,
                                                   is_causal=causal)
         # device time: the autograd engine's host work per call can
         # outlast these kernels
-        library_ms = profiled_ms(torch, lambda: torch.autograd.grad(
-            sdpa_out, (sq, sk, sv), do, retain_graph=True), iters)
+        library_ms, library_kernels = profiled(
+            torch, lambda: torch.autograd.grad(
+                sdpa_out, (sq, sk, sv), do, retain_graph=True), iters)
+        del sq, sk, sv, sdpa_out
     bounds = backward_bounds(b, h, tq, tk, d, dtype_name, causal)
     done = backward_flops_done(b, h, tq, tk, d, dtype_name, causal)
     rates = {key: dict(tflops=bounds[key]['flops'] / ms / 1e9,
@@ -1324,7 +1393,9 @@ def bwd_case(torch, cuda_ops, name, shape_q, tk, dtype, causal, with_glse,
                function_equals_kernels=same,
                dkdv_ms=dkdv_ms, dq_ms=dq_ms, dkdv_plain_ms=dkdv_plain_ms,
                dq_plain_ms=dq_plain_ms, sdpa_backward_ms=library_ms,
-               bounds=bounds, rates=rates)
+               sdpa_backend=library_kernels and sdpa_backend(
+                   library_kernels),
+               sdpa_kernels=library_kernels, bounds=bounds, rates=rates)
     print('backward case ' + json.dumps(row))
     if not ok:
         fail('%s: a backward kernel disagrees with its plain version: %s'
@@ -1516,13 +1587,18 @@ def train_phase(torch, cuda_ops, tfm, params, batch):
         seeded_tree(cfg32, SEED + 3), dtype=torch.float32, device='cuda'))
     step = tfm.make_train_step(cfg32, lr=LR)
     counts = read_counts(cuda_ops)
-    fp32_losses = [float(step(model, tokens, targets))
-                   for _ in range(FP32_STEPS)]
+    fp32_losses, fp32_ms = [], []
+    torch.cuda.synchronize()
+    for _ in range(FP32_STEPS):
+        t0 = time.perf_counter()
+        fp32_losses.append(float(step(model, tokens, targets)))  # syncs
+        fp32_ms.append((time.perf_counter() - t0) * 1e3)
     fp32_launches = [a - b for a, b in zip(read_counts(cuda_ops), counts)]
     del model
     fp32 = dict(config='gpt2-medium widths, %d layers, float32'
                 % FP32_LAYERS, lr=LR, losses=fp32_losses,
-                launches=fp32_launches)
+                launches=fp32_launches, step_ms=fp32_ms,
+                step_ms_median_after_first=median(fp32_ms[1:]))
     print('train fp32 ' + json.dumps(fp32))
     if not all(math.isfinite(x) for x in fp32_losses) or \
             not fp32_losses[-1] < fp32_losses[0]:
@@ -1531,7 +1607,53 @@ def train_phase(torch, cuda_ops, tfm, params, batch):
     if fp32_launches != [FP32_LAYERS * FP32_STEPS] * 3:
         fail('float32 steps launched %s kernels, expected %d each'
              % (fp32_launches, FP32_LAYERS * FP32_STEPS))
+    fp32['full_depth'] = train_f32_full_depth(torch, cuda_ops, tfm, params,
+                                              batch)
     return dict(train, grad_check=grad_check, fp32=fp32, f16=f16)
+
+
+def train_f32_full_depth(torch, cuda_ops, tfm, params, batch):
+    """Phase 5 in float32 at full depth and width: the bf16 weights
+    widened to float32, one warm-up step and FP32_FULL_TIMED timed steps
+    on the flash path, each of which must launch the forward, dK/dV and
+    dQ kernels once per layer and give a finite loss; the peak bytes."""
+    cfg = tfm.lm_config(use_flash=True, **GPT2_MEDIUM)
+    wide = {'embed': params['embed'].float(), 'ln_f': params['ln_f'].float(),
+            'layers': [{key: t.float() for key, t in lp.items()}
+                       for lp in params['layers']]}
+    model = tfm.TransformerLM(cfg, wide)
+    del wide
+    step = tfm.make_train_step(cfg, lr=LR)
+    tokens, targets = batch
+    losses = [float(step(model, tokens, targets))]    # the warm-up
+    torch.cuda.reset_peak_memory_stats()
+    times, per_step = [], []
+    for _ in range(FP32_FULL_TIMED):
+        counts = read_counts(cuda_ops)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(model, tokens, targets)))  # syncs
+        times.append((time.perf_counter() - t0) * 1e3)
+        per_step.append([a - b for a, b in zip(read_counts(cuda_ops),
+                                                counts)])
+    peak = torch.cuda.max_memory_allocated()
+    del model
+    torch.cuda.empty_cache()
+    row = dict(config='gpt2-medium widths, %d layers, float32'
+               % cfg['layers'], batch=BATCH, seq=SEQ, lr=LR,
+               weights='phase 5\'s bf16 weights widened to float32',
+               step_ms=times, step_ms_median=median(times),
+               tokens_per_s=BATCH * SEQ / (median(times) / 1e3),
+               losses=losses, launches_per_step=per_step,
+               peak_bytes_step=peak)
+    print('train fp32 full depth ' + json.dumps(row))
+    want = [cfg['layers']] * 3
+    if per_step != [want] * FP32_FULL_TIMED:
+        fail('float32 full-depth steps launched (fwd, dK/dV, dQ) %s, '
+             'expected %s each' % (per_step, want))
+    if not all(math.isfinite(x) for x in losses):
+        fail('non-finite float32 full-depth loss %s' % losses)
+    return row
 
 
 def train_f16_check(torch, cuda_ops, tfm, batch):
@@ -1650,12 +1772,16 @@ def conv_case(torch, cuda_conv, name):
     s1_check = stats_mismatch(torch, s1, p1, pf.abs().sum((0, 1, 2)))
     s2_check = stats_mismatch(torch, s2, p2, (pf * pf).sum((0, 1, 2)))
     ok = y_check['ok'] and s1_check['ok'] and s2_check['ok']
+    del py, pf
     row = dict(case=name, x=list(x.shape), w=list(w.shape),
                stride=list(stride), pad=list(pad), dtype=dtype_name,
                y=y_check, s1=s1_check, s2=s2_check,
                y_tol=CONV_Y_TOL if dtype_name == 'bfloat16' else
                '%d * K * 2^-24 * (|x| conv |w|)' % CONV_F32_ORDERS,
                stats_rtol=CONV_STATS_RTOL, same_bits_twice=same_bits)
+    if dtype_name == 'float32':
+        # the bf16 shapes are timed by the bench path; float32 here
+        row['times'] = conv_f32_times(torch, cuda_conv, x, w, stride, pad)
     print('conv case ' + json.dumps(row))
     if not ok:
         fail('conv %s: the kernel disagrees with its plain version: y %s, '
@@ -1663,6 +1789,36 @@ def conv_case(torch, cuda_conv, name):
     if not same_bits:
         fail('conv %s: a second run of the kernel gave other bits' % name)
     return row
+
+
+def conv_f32_times(torch, cuda_conv, x, w, stride, pad):
+    """A float32 conv case's device times, as the bench times the bf16
+    ones: the kernel, its plain version, and the yardstick (cuDNN's conv
+    on channels-last tensors with the float32 statistics after it) with
+    TF32 off, the float32 function, and beside it with TF32 on, cuDNN's
+    default for float32 convs; the bound at the float32 rate."""
+    from mxnet_tpu_torch.tools import bench_conv_bn as bench
+    x_cl = x.permute(0, 3, 1, 2)
+    w_cl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    library = lambda: bench.yardstick(x_cl, w_cl, stride, pad)
+    before = torch.backends.cudnn.allow_tf32
+    try:
+        torch.backends.cudnn.allow_tf32 = False
+        library_ms = bench.cuda_ms(library, bench.ITERS)
+        torch.backends.cudnn.allow_tf32 = True
+        library_tf32_ms = bench.cuda_ms(library, bench.ITERS)
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+    return dict(
+        ms=bench.cuda_ms(lambda: cuda_conv.conv_bn_stats_cuda(
+            x, w, stride, pad), bench.ITERS),
+        plain_ms=bench.cuda_ms(lambda: cuda_conv.conv_bn_stats_plain(
+            x, w, stride, pad), bench.PLAIN_ITERS),
+        library_ms=library_ms, library_tf32_ms=library_tf32_ms,
+        library_call='cuDNN F.conv2d (TF32 off) on channels-last tensors, '
+                     'then the float32 sum and sum of squares of y',
+        **bench.conv_bound(list(x.shape), list(w.shape), stride, pad,
+                           'float32'))
 
 
 def conv_grad_check(torch, cuda_conv):
@@ -1776,6 +1932,7 @@ def conv_kernel_entry(conv, sass, resnet, module, serve, bucketing,
     main_shape = [xs[1], xs[3], ws[3], ws[0], CONV_CASES['main'][2][0]]
     bench = conv['bench']
     row = next(r for r in bench['rows'] if r['shape'] == main_shape)
+    f32_conv = next(c for c in conv['cases'] if c['case'] == 'main_f32')
     cases = [dict(case=c['case'], x=c['x'], w=c['w'], dtype=c['dtype'],
                   max_abs_err=c['y']['max_abs_err'],
                   share_differ=c['y']['share_differ'],
@@ -1854,6 +2011,16 @@ def conv_kernel_entry(conv, sass, resnet, module, serve, bucketing,
                         bound_ms=r['bound_ms'], bound_by=r['bound_by'])
                    for r in f['kernel_checks']]
             for name, f in factories['bf16'].items()},
+        float32=dict(
+            route='cuda', source='mxnet_tpu_torch/csrc/conv_bn_stats.cu',
+            kernel='conv_bn_stats_kernel (fp32 FMA)', case='main_f32',
+            launches=0, launches_note='no framework path routes a float32 '
+            'pair to the kernel (the executor and the fused Gluon step keep '
+            'float32 pairs unfused); phase 6 launches it at its cases',
+            max_abs_err=f32_conv['y']['max_abs_err'],
+            **{k: f32_conv['times'][k] for k in (
+                'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms',
+                'library_tf32_ms', 'library_call')}),
         max_abs_err=cases[0]['max_abs_err'], ms=row['ms'],
         plain_ms=row['plain_ms'], bound_ms=row['bound_ms'],
         bound_by=row['bound_by'], library_ms=row['library_ms'],
@@ -1867,26 +2034,30 @@ def conv_kernel_entry(conv, sass, resnet, module, serve, bucketing,
 
 
 def mutant_check(root):
-    """--mutants: build each of FWD_MUTANTS, BWD_MUTANTS, CONV_MUTANTS and
-    CONV_SM90_MUTANTS in its own copy of the port under build/mutants/ and
-    run there, all at once, phase 2's LM case (a forward mutant), phase
-    4's LM case (a backward mutant), phase 6's ragged float32 case (an FMA
-    conv mutant) or its bf16 main case (a tensor-core conv mutant); each
-    must fail its case and the copy with no edit must pass all four. Times
-    from these runs mean nothing: they share the card."""
+    """--mutants: build each of FWD_MUTANTS, BWD_MUTANTS,
+    TF32_BWD_MUTANTS, CONV_MUTANTS and CONV_SM90_MUTANTS in its own copy of
+    the port under build/mutants/ and run there, all at once, phase 2's LM
+    case (a forward mutant), phase 4's LM case (a 16-bit backward mutant)
+    or its lm_f32 case (a float32 one), phase 6's ragged float32 case (an
+    FMA conv mutant) or its bf16 main case (a tensor-core conv mutant);
+    each must fail its case and the copy with no edit must pass all five.
+    Times from these runs mean nothing: they share the card."""
     import shutil
     base = root / 'build' / 'mutants'
     shutil.rmtree(base, ignore_errors=True)
     fwd = ('flash_attention_sm90.cu', ['--forward-case', 'lm'])
     bwd = ('flash_attention_bwd_sm90.cu', ['--backward-case', 'lm'])
+    tf32 = ('flash_attention_bwd_tf32.cu', ['--backward-case', 'lm_f32'])
     conv = ('conv_bn_stats.cu', ['--conv-case', CONV_FMA_MUTANT_CASE])
     sm90 = ('conv_bn_stats_sm90.cu', ['--conv-case', 'main'])
     plan = [('unchanged', None, None,
-             fwd[1] + bwd[1] + conv[1] + sm90[1][1:])]
+             fwd[1] + bwd[1] + tf32[1][1:] + conv[1] + sm90[1][1:])]
     plan += [(name, edit, fwd[0], fwd[1])
              for name, edit in FWD_MUTANTS.items()]
     plan += [(name, edit, bwd[0], bwd[1])
              for name, edit in BWD_MUTANTS.items()]
+    plan += [(name, edit, tf32[0], tf32[1])
+             for name, edit in TF32_BWD_MUTANTS.items()]
     plan += [(name, edit, conv[0], conv[1])
              for name, edit in CONV_MUTANTS.items()]
     plan += [(name, edit, sm90[0], sm90[1])
@@ -1945,11 +2116,13 @@ def mutant_check(root):
     if wrong:
         fail('mutant check: ' + '\n'.join(wrong))
     print('mutants: all %d forward mutants caught by phase 2\'s LM case, '
-          'all %d backward mutants by phase 4\'s, all %d FMA conv mutants '
-          'by the %s conv case and all %d tensor-core conv mutants by the '
-          'main one; the unchanged copy passes all four'
-          % (len(FWD_MUTANTS), len(BWD_MUTANTS), len(CONV_MUTANTS),
-             CONV_FMA_MUTANT_CASE, len(CONV_SM90_MUTANTS)))
+          'all %d 16-bit backward mutants by phase 4\'s, all %d float32 '
+          'backward mutants by its lm_f32 case, all %d FMA conv mutants by '
+          'the %s conv case and all %d tensor-core conv mutants by the main '
+          'one; the unchanged copy passes all five'
+          % (len(FWD_MUTANTS), len(BWD_MUTANTS), len(TF32_BWD_MUTANTS),
+             len(CONV_MUTANTS), CONV_FMA_MUTANT_CASE,
+             len(CONV_SM90_MUTANTS)))
 
 
 def lm_variant_check(torch, cuda_ops, tfm, request, widths, dtype, seed,
@@ -13768,7 +13941,8 @@ def main(argv=None):
     parser.add_argument('--forward-case', choices=sorted(FWD_CASES),
                         help='build, then run only this case of phase 2')
     parser.add_argument('--backward-case', choices=sorted(BWD_CASES),
-                        help='build, then run only this case of phase 4')
+                        nargs='+',
+                        help='build, then run only these cases of phase 4')
     parser.add_argument('--conv-case', choices=sorted(CONV_CASES),
                         nargs='+',
                         help='build, then run only these cases of phase 6')
@@ -13874,7 +14048,7 @@ def main(argv=None):
             kernel_case(torch, cuda_ops, args.forward_case, shape_q, tk,
                         getattr(torch, dtype_name), True, iters)
         if args.backward_case:
-            backward_phase(torch, cuda_ops, [args.backward_case])
+            backward_phase(torch, cuda_ops, args.backward_case)
         for name in args.conv_case or ():
             conv_case(torch, cuda_conv, name)
         return
@@ -14191,6 +14365,13 @@ def main(argv=None):
         print('phases %s passed' % sorted(phases))
         return
     main_case = cases[0]
+    fwd32 = next(c for c in cases if c['case'] == 'lm_f32')
+    bwd32 = next(c for c in bwd_cases if c['case'] == 'lm_f32')
+    # launches on the float32 path: phase 5's float32 steps at 4 layers
+    # and at full depth (fwd, dK/dV, dQ)
+    f32_path = [a + sum(b) for a, b in zip(
+        train['fp32']['launches'],
+        zip(*train['fp32']['full_depth']['launches_per_step']))]
     kernels = [dict(
         name='flash_attention_fwd', route='cuda',
         source='mxnet_tpu_torch/csrc/flash_attention_sm90.cu',
@@ -14219,6 +14400,14 @@ def main(argv=None):
         bound_ms=main_case['bound_ms'], bound_by=main_case['bound_by'],
         library_ms=main_case['library_ms'],
         library_call='scaled_dot_product_attention forward (is_causal)',
+        float32=dict(
+            route='cuda', source='mxnet_tpu_torch/csrc/flash_attention.cu',
+            kernel='flash_fwd_kernel (fp32 FMA)', case='lm_f32',
+            launches=f32_path[0], max_abs_err=fwd32['max_abs_err'],
+            ms=fwd32['ms'], plain_ms=fwd32['plain_ms'],
+            bound_ms=fwd32['bound_ms'], bound_by=fwd32['bound_by'],
+            library_ms=fwd32['library_ms'],
+            library_backend=fwd32['library_backend']),
         build_s=build_s, cases=cases)]
     for i, (name, key, grads, line) in enumerate((
             ('flash_attention_bwd_dkdv', 'dkdv', ('dk', 'dv'), 313),
@@ -14233,10 +14422,11 @@ def main(argv=None):
             **c['rates'][key])
             for c in bwd_cases]
         main_case = per_case[0]
+        f32 = next(c for c in per_case if c['case'] == 'lm_f32')
         kernels.append(dict(
             name=name, route='cuda',
             source='mxnet_tpu_torch/csrc/flash_attention_bwd_sm90.cu',
-            float32_source='mxnet_tpu_torch/csrc/flash_attention_bwd.cu',
+            float32_route=name + '_f32',
             sass=sass[('flash_bwd_dkdv_sm90', 'flash_bwd_dq_sm90')[i]],
             tflops=main_case['tflops'], tflops_done=main_case['tflops_done'],
             replaces='mxnet_tpu/pallas_ops.py:%d' % line,
@@ -14263,7 +14453,29 @@ def main(argv=None):
                          'and dv together), device time by torch.profiler',
             whole_backward_bound_ms=bwd_cases[0]['bounds']['whole'][
                 'bound_ms'],
-            cases=per_case))
+            cases=[c for c in per_case if c['dtype'] != 'float32']))
+        # the float32 route: the 3xTF32 kernels, on phase 5's float32 path
+        kern = ('flash_bwd_dkdv_tf32', 'flash_bwd_dq_tf32')[i]
+        kernels.append(dict(
+            name=name + '_f32', route='cuda',
+            source='mxnet_tpu_torch/csrc/flash_attention_bwd_tf32.cu',
+            kernel=kern + ' (3xTF32 wgmma)', sass=sass[kern],
+            replaces='mxnet_tpu/pallas_ops.py:%d' % line,
+            launches=f32_path[1 + i],
+            launches_by_path=dict(
+                lm_train_f32=train['fp32']['launches'][1 + i],
+                lm_train_f32_full_depth=sum(
+                    step[1 + i] for step in
+                    train['fp32']['full_depth']['launches_per_step'])),
+            max_abs_err=f32['max_abs_err'], ms=f32['ms'],
+            plain_ms=f32['plain_ms'], bound_ms=f32['bound_ms'],
+            bound_by=f32['bound_by'], library_ms=f32['library_ms'],
+            library_backend=bwd32['sdpa_backend'],
+            library_call='scaled_dot_product_attention backward in float32 '
+                         '(dq, dk and dv together), device time by '
+                         'torch.profiler',
+            tflops=f32['tflops'], main_case='lm_f32',
+            cases=[c for c in per_case if c['dtype'] == 'float32']))
     kernels.append(conv_kernel_entry(conv, sass, resnet, module, serve,
                                      bucketing, gluon_run, ptb, gluon_lm,
                                      factories, record, dist_ps,

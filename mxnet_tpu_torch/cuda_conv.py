@@ -16,12 +16,15 @@ counterpart: `supported` states the kernel's own limits, and
 `conv2d_bn_stats` raises ValueError on what it refuses. The library's C
 entry (`csrc/conv_bn_stats.cu`) routes by dtype: bfloat16 to the
 tensor-core kernel (`csrc/conv_bn_stats_sm90.cu`: bf16 wgmma fed by TMA),
-float32 to the FMA kernel beside the entry.
+float32 to the FMA kernel beside the entry, on the CUDA cores (the flash
+backward's float32 pair moved to the tensor cores as three TF32
+products, `csrc/flash_attention_bwd_tf32.cu`; the float32 conv has not).
 
 Dispatch is by the tensors' device: CPU tensors take the plain version
 (`conv_bn_stats_plain`), CUDA tensors launch the kernel of their dtype or
-raise. There is no fallback from one to the other. The float32 backward and the plain
-version go through cuDNN on the card, in TF32 unless
+raise. There is no fallback from one to the other. The Function's
+backward (dx and dw, cuDNN's transposed convs) and the plain version go
+through cuDNN on the card, in float32 in TF32 unless
 `torch.backends.cudnn.allow_tf32` is False.
 """
 import numpy as np

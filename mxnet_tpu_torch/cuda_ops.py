@@ -10,20 +10,23 @@ the counterpart of the custom VJPs `_flash` and `_flash_lse`: its
 forward is the forward kernel (`csrc/flash_attention.cu`), its backward
 the dK/dV and dQ kernels, and the lse is differentiable, its cotangent
 folding into D = rowsum(dO * O) - glse. Both directions dispatch by
-dtype inside the library: bfloat16 and float16 run on the tensor cores
-(`csrc/flash_attention_sm90.cu` forward and
-`csrc/flash_attention_bwd_sm90.cu` backward: wgmma, TMA, mbarriers),
-float32 on the FMA kernels (`csrc/flash_attention.cu`,
-`csrc/flash_attention_bwd.cu`), since TF32 would fail the float32
-tolerances. The kernels take any length and any
-head_dim, so the JAX package's tiling limits
+dtype inside the library (`mxt_flash_attention_fwd` in
+`csrc/flash_attention.cu`, `launch()` in `csrc/flash_attention_bwd.cu`):
+bfloat16 and float16 run on the tensor cores (`csrc/flash_attention_sm90.cu`
+forward and `csrc/flash_attention_bwd_sm90.cu` backward: wgmma, TMA,
+mbarriers). The float32 backward runs on the tensor cores too
+(`csrc/flash_attention_bwd_tf32.cu`): one TF32 product would fail the
+float32 tolerances, so each product is taken as three (big and small
+TF32 parts of each operand), which pass them. The float32 forward is
+still the FMA kernel of `csrc/flash_attention.cu`. The kernels take any
+length and any head_dim, so the JAX package's tiling limits
 (`_fit_block`, the dense forward fallback, the `_blocked_backward` XLA
 fallback) have no counterpart here.
 
 Dispatch is by the tensors' device: CPU tensors take the plain PyTorch
 versions (`flash_attention_reference`, `flash_attention_bwd_reference`);
 CUDA tensors launch the kernels or raise. There is no fallback from one
-to the other, nor from a 16-bit kernel to the FMA ones.
+to the other, nor from one dtype's kernel to another's.
 `flash_attention_online_reference` is the plain version of the 16-bit
 forward's own recurrence, which the kernel is held to on the card.
 """
@@ -40,8 +43,8 @@ FLASH_FWD_LAUNCHES = 0
 FLASH_BWD_DKDV_LAUNCHES = 0
 FLASH_BWD_DQ_LAUNCHES = 0
 
-# the library's dtype codes: float32 on the FMA kernels, bfloat16 and
-# float16 on the tensor-core ones
+# the library's dtype codes: float32 (the FMA forward, the 3xTF32
+# backward), bfloat16 and float16 (the 16-bit tensor-core kernels)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 

@@ -45,9 +45,11 @@ from .. import cuda_conv
 from ..context import resolve_device
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, dense bf16
-# tensor-core FLOP/s, float32 FLOP/s outside the tensor cores
+# tensor-core FLOP/s; float32 as three TF32 products on the tensor cores
+# (the dense TF32 peak over three), the least time a float32-accurate
+# product can take there
 HBM_BYTES_S = 3.35e12
-PEAK_FLOPS = {'bfloat16': 989e12, 'float32': 67e12}
+PEAK_FLOPS = {'bfloat16': 989e12, 'float32': 495e12 / 3}
 # timed launches a shape, after one warm-up: the kernel and the yardstick
 # take 0.1-2 ms a launch at batch 256, the plain version up to 4 ms
 ITERS, PLAIN_ITERS = 10, 3

@@ -273,6 +273,62 @@ def test_tensor_core_accumulation_passes_the_bf16_gate(truncate):
         assert check['ok'] and check['share_differ'] < 5e-3, check
 
 
+def _tf32(x):
+    """x rounded to TF32 as cvt.rna.tf32.f32 rounds it: to nearest, ties
+    away from zero, 10 mantissa bits (the low 13 of float32's cleared)."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tf32_matmul(a, b, terms):
+    """a @ b as the float32 backward kernels take it on the tensor cores:
+    each operand split into big = tf32(x) and small = tf32(x - big), the
+    products big big (+ big small + small big with terms 3) summed in
+    float32."""
+    a_big, b_big = _tf32(a), _tf32(b)
+    out = a_big @ b_big
+    if terms == 3:
+        out = out + a_big @ _tf32(b - b_big) + _tf32(a - a_big) @ b_big
+    return out
+
+
+@pytest.mark.parametrize('terms', [1, 3])
+def test_tf32_split_products_against_the_float32_gate(terms):
+    """csrc/flash_attention_bwd_tf32.cu takes each of the backward's five
+    products (S, dP, dV, dK, dQ) on the tensor cores in TF32. Emulated at
+    (1, 2, 512, 64) causal with chip_smoke.py's float32 inputs: three
+    split products (big x big, big x small, small x big) pass
+    chip_smoke.py's float32 gate on every gradient, as the FMA kernels
+    did, while one TF32 product fails it on every gradient."""
+    import chip_smoke
+    rs = np.random.RandomState(23)
+    shape = (1, 2, 512, 64)
+    q, k, v, do = (torch.from_numpy(rs.randn(*shape).astype(np.float32))
+                   for _ in range(4))
+    scale = 0.125
+    out, lse = cuda_ops.flash_attention_reference(q, k, v, True, scale)
+    dd = cuda_ops.attention_bwd_delta(out, do)
+    args = (q, k, v, do, lse, dd, True, scale)
+    ref = (cuda_ops.flash_attention_bwd_dq_reference(*args),
+           *cuda_ops.flash_attention_bwd_dkdv_reference(*args))
+    Q, K, V, dO = (t.numpy() for t in (q, k, v, do))
+    T = lambda x: np.swapaxes(x, -1, -2)
+    f32 = np.float32
+    s = _tf32_matmul(Q, T(K), terms) * f32(scale)
+    live = np.tril(np.ones((512, 512), bool))
+    p = np.where(live, np.exp(s - lse.reshape(1, 2, 512, 1).numpy()),
+                 f32(0)).astype(f32)
+    dp = _tf32_matmul(dO, T(V), terms)
+    ds = (p * (dp - dd.reshape(1, 2, 512, 1).numpy())).astype(f32)
+    got = (_tf32_matmul(ds, K, terms) * f32(scale),
+           _tf32_matmul(T(ds), Q, terms) * f32(scale),
+           _tf32_matmul(T(p), dO, terms))
+    tol = chip_smoke.BWD_TOL['float32']
+    for name, a, b in zip(('dq', 'dk', 'dv'), got, ref):
+        check = chip_smoke.grad_mismatch(torch, torch.from_numpy(a), b, tol)
+        assert check['ok'] == (terms == 3), (name, check)
+
+
 def test_cpu_backward_launches_no_kernel():
     q, k, v = _qkv(15, (1, 2, 16, 8), (1, 2, 16, 8))
     tq, tk, tv = _leaves(q, k, v)

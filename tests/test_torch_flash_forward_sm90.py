@@ -326,7 +326,8 @@ def test_forward_wrapper_passes_each_dtype_to_the_library(monkeypatch,
 
 @pytest.mark.parametrize('source,table', [
     ('flash_attention_sm90.cu', 'FWD_MUTANTS'),
-    ('flash_attention_bwd_sm90.cu', 'BWD_MUTANTS')])
+    ('flash_attention_bwd_sm90.cu', 'BWD_MUTANTS'),
+    ('flash_attention_bwd_tf32.cu', 'TF32_BWD_MUTANTS')])
 def test_each_mutant_edits_its_source_once(source, table):
     """chip_smoke.py --mutants edits each text once in its kernel's
     source; a text that is gone or repeated would refuse the check."""
