@@ -2,7 +2,7 @@
 """Drive the port (mxnet_tpu_torch) on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py                      # every phase
-    python3 chip_smoke.py --forward-case lm    # build, one case of phase 2
+    python3 chip_smoke.py --forward-case lm    # build, cases of phase 2
     python3 chip_smoke.py --backward-case lm   # build, one case of phase 4
     python3 chip_smoke.py --conv-case main     # build, cases of phase 6
     python3 chip_smoke.py --phases 7,8         # build, phases 7 and 8 only
@@ -43,13 +43,14 @@ Phases, each of which exits non-zero on failure:
 
 1. build: compile every kernel from mxnet_tpu_torch/csrc with nvcc; the
    SASS of every instance of the tensor-core kernels (SM90_KERNELS: the
-   flash kernels in bf16 and float16, the float32 (3xTF32) backward
-   pair, the conv in bf16) must hold HGMMA, and ptxas must report no
-   serialised wgmma (C75xx);
+   flash kernels in bf16 and float16, the float32 (3xTF32) forward and
+   backward pair, the conv in bf16 and float32) must hold HGMMA, and
+   ptxas must report no serialised wgmma (C75xx);
 2. kernels: launch the forward kernel on the card at the LM's shapes in
-   bf16, float16 and float32 (and decode-shaped cases, a ragged float32 one,
-   head_dim 192, a ragged head_dim 100 in both dtypes, and head_dim 320),
-   hold it against its plain PyTorch version (16-bit: the online
+   bf16, float16 and float32 (and decode-shaped cases in all three, a
+   ragged float32 one, a rectangular float32 one, head_dim 192, a ragged
+   head_dim 100 in both dtypes, a float32 head_dim 50 on plain loads, and
+   head_dim 320), hold it against its plain PyTorch version (16-bit: the online
    recurrence at the kernel's 64-key tile, element by element, the same
    bits on a second launch), and time it beside its bound, the plain
    version and, where one exists, one PyTorch call that computes the
@@ -81,8 +82,9 @@ Phases, each of which exits non-zero on failure:
    layers on one batch, whose loss must fall; last, float32 at full
    depth: one warm-up and two timed steps, each launching each kernel
    once per layer;
-6. conv + BatchNorm statistics: the kernels (bf16 on the tensor cores,
-   float32 on FMAs) against their plain version, element by element, at
+6. conv + BatchNorm statistics: the kernels (bf16 and float32, as three
+   TF32 products, on the tensor cores) against their plain version,
+   element by element, at
    the main ResNet-50 shape (3x3, 64 -> 64 at 56^2, batch 256, bf16 and
    float32, the float32 one timed beside cuDNN's float32 conv with TF32
    off and on), a strided 1x1, a ragged float32 case and a stem-like
@@ -589,17 +591,22 @@ needs a CUDA device and the repository beside it.
 
 --mutants builds each of FWD_MUTANTS and BWD_MUTANTS (a rounding left
 out, a tile skipped, the causal mask widened, the forward's running
+correction left out), TF32_FWD_MUTANTS of the float32 forward (the small
+parts dropped, a tile skipped, the causal mask widened, the running
 correction left out), TF32_BWD_MUTANTS of the float32 backward pair (the
 small parts of dK/dV's or of dQ's products dropped, a q tile skipped,
-the causal mask widened), CONV_MUTANTS of the float32 conv kernel (a tap
-skipped, the padding one pixel off, one M tile's statistics left out)
-and CONV_SM90_MUTANTS of the bf16 one (a K step skipped, a tap's copy
-one pixel off, one tile's partials left out, y truncated) in a copy of
+the causal mask widened), CONV_MUTANTS of the finalize both conv kernels
+share (one M tile's statistics left out), CONV_TF32_MUTANTS of the
+float32 conv kernel (the small parts dropped, a K step skipped, a tap's
+coordinate off) and CONV_SM90_MUTANTS of the bf16 one (a K step
+skipped, a tap's copy one pixel off, one tile's partials left out, y
+truncated) in a copy of
 the port under build/mutants/ and fails unless phase 2's LM case fails
-every forward mutant, phase 4's LM case every 16-bit backward mutant
+every 16-bit forward mutant and its lm_f32 case every float32 one, phase
+4's LM case every 16-bit backward mutant
 and its lm_f32 case every float32 one, phase 6's ragged float32 case
-every FMA conv mutant, its bf16 main case every tensor-core conv
-mutant, and the unchanged copy passes all five.
+every finalize and float32 conv mutant, its bf16 main case every bf16
+conv mutant, and the unchanged copy passes all six.
 """
 import atexit
 import contextlib
@@ -621,7 +628,7 @@ SEED = 0
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, dense
 # bf16 and fp16 tensor-core FLOP/s. float32: a product accurate to float32
 # runs on the tensor cores as three TF32 products (big x big, big x small,
-# small x big; csrc/flash_attention_bwd_tf32.cu), so the card's float32
+# small x big; csrc/tf32_common.cuh), so the card's float32
 # rate is the dense TF32 peak over three, 165 TFLOP/s, above the 67 of the
 # CUDA cores' FMAs: no float32 reading can pass 100 % of it
 HBM_BYTES_S = 3.35e12
@@ -695,19 +702,23 @@ FP32_LAYERS, FP32_STEPS = 4, 5
 FP32_FULL_TIMED = 2      # timed float32 steps at full depth, after a warm-up
 
 # phase 2: name -> (q shape, kv length, dtype, iterations), all causal.
-# 16-bit runs on the tensor-core kernel, float32 on the FMA one: the LM's
-# shape in all three types, decode (a 64-row tile of which 48 rows are
-# padding) in both 16-bit types, a ragged float32 one, head_dim 192
-# (column groups of 128 and 64), a ragged head_dim of 100 (not a
-# multiple of 8: plain loads instead of TMA) in both kernels, and
-# head_dim 320 in both (the contraction in chunks of 128; column groups
-# of 256 in the FMA kernel)
+# 16-bit runs on the 16-bit tensor-core kernel, float32 on the 3xTF32 one:
+# the LM's shape in all three types, decode (16 rows of a 64-row tile, of
+# a 128-row one in float32) in all three, a ragged float32 one (head_dim
+# 128: chunks of 64), a rectangular float32 one (tq < tk), head_dim 192
+# (column groups of 128 and 64), a ragged head_dim of 100 (16-bit: not a
+# multiple of 8, plain loads instead of TMA), a float32 head_dim of 50
+# (not a multiple of 4: plain loads), and head_dim 320 in both (the
+# contraction in chunks of 128 in 16 bits, 64 in float32)
 FWD_CASES = {
     'lm': ((BATCH, 16, SEQ, 64), SEQ, 'bfloat16', 20),
     'lm_f16': ((BATCH, 16, SEQ, 64), SEQ, 'float16', 20),
     'lm_f32': ((BATCH, 16, SEQ, 64), SEQ, 'float32', 10),
     'decode': ((BATCH, 16, 16, 64), SEQ, 'bfloat16', 50),
     'decode_f16': ((BATCH, 16, 16, 64), SEQ, 'float16', 50),
+    'decode_f32': ((BATCH, 16, 16, 64), SEQ, 'float32', 50),
+    'rect_f32': ((2, 4, 300, 64), 700, 'float32', 20),
+    'head50_f32': ((2, 3, 300, 50), 300, 'float32', 20),
     'ragged_f32': ((2, 4, 1000, 128), 1000, 'float32', 20),
     'head192': ((BATCH, 4, SEQ, 192), SEQ, 'bfloat16', 10),
     'head100_f32': ((2, 3, 300, 100), 300, 'float32', 20),
@@ -809,27 +820,50 @@ FWD_MUTANTS = {
     'fwd_mask_one_key_wide': ('(!p.causal || k <= q + offset));',
                               '(!p.causal || k <= q + offset + 1));'),
 }
+# --mutants: edits of csrc/flash_attention_tf32.cu, the kernel of phase
+# 2's lm_f32 case, each of which that case must catch: the small parts of
+# both products dropped (one TF32 product, which misses the float32 gate:
+# tests/test_torch_flash_attention.py emulates it), the last live k tile
+# (the diagonal's) skipped, the causal mask one key wide, the running
+# correction of acc left out
+TF32_FWD_MUTANTS = {
+    'tf32_fwd_small_parts_dropped': ('constexpr int TERMS = 3;',
+                                     'constexpr int TERMS = 1;'),
+    'tf32_fwd_last_tile_skipped': (
+        'const int last = last_k_tile(r0, BM, p);',
+        'const int last = last_k_tile(r0, BM, p) - 1;'),
+    'tf32_fwd_mask_one_key_wide': ('(!p.causal || k <= q + offset));',
+                                   '(!p.causal || k <= q + offset + 1));'),
+    'tf32_fwd_correction_left_out': (
+        'e < 2; ++e) acc[4 * j + 2 * h + e] *= corr;',
+        'e < 2; ++e) (void)corr;'),
+}
 # the tensor-core kernels and the types each is instantiated for, every
 # instance of which must hold tensor-core instructions (HGMMA) in its SASS
 SM90_KERNELS = {'flash_fwd_sm90': ('bfloat16', 'float16'),
+                'flash_fwd_tf32': ('float32',),
                 'flash_bwd_dkdv_sm90': ('bfloat16', 'float16'),
                 'flash_bwd_dq_sm90': ('bfloat16', 'float16'),
                 'flash_bwd_dkdv_tf32': ('float32',),
                 'flash_bwd_dq_tf32': ('float32',),
-                'conv_bn_stats_sm90': ('bfloat16',)}
-# a 16-bit type as it appears in a mangled instance name; the conv kernel
-# is templated on its tile width alone and the float32 (3xTF32) flash
-# kernels on nothing, so their instances name no type
+                'conv_bn_stats_sm90': ('bfloat16',),
+                'conv_bn_stats_tf32': ('float32',)}
+# a 16-bit type as it appears in a mangled instance name; the bf16 conv
+# kernel is templated on its tile width alone, the float32 (3xTF32) forward
+# on its consumer warpgroups and the backward pair and the float32 conv on
+# nothing, so their instances name no type
 SM90_TYPES = {'bfloat16': '__nv_bfloat16', 'float16': '6__half'}
-SM90_UNTYPED = frozenset({'conv_bn_stats_sm90', 'flash_bwd_dkdv_tf32',
+SM90_UNTYPED = frozenset({'conv_bn_stats_sm90', 'conv_bn_stats_tf32',
+                          'flash_fwd_tf32', 'flash_bwd_dkdv_tf32',
                           'flash_bwd_dq_tf32'})
 
 # phase 6: name -> (x NHWC, w HWIO, stride, pad, dtype): the main
-# ResNet-50 shape in bf16 and float32 (the FMA kernel's time at it), a
+# ResNet-50 shape in bf16 and float32 (the 3xTF32 kernel's time at it), a
 # strided 1x1 of the ResNet-50 body, a ragged float32
 # case (M = 507 and Cout = 96 fill no tile, Cin = 24 no chunk), and a
 # stem-like 7x7 stride-2 conv on a non-square image whose Cin = 3 and
-# Cout = 30 take the kernel's element-wise loads and stores
+# Cout = 30 take the kernel's element-wise loads and stores, in bf16 and
+# float32
 CONV_BATCH = 256
 CONV_CASES = {
     'main': ((CONV_BATCH, 56, 56, 64), (3, 3, 64, 64), (1, 1), (1, 1),
@@ -841,6 +875,7 @@ CONV_CASES = {
     'ragged_f32': ((3, 13, 13, 24), (3, 3, 24, 96), (1, 1), (1, 1),
                    'float32'),
     'odd_bf16': ((2, 15, 17, 3), (7, 7, 3, 30), (2, 2), (3, 3), 'bfloat16'),
+    'odd_f32': ((2, 15, 17, 3), (7, 7, 3, 30), (2, 2), (3, 3), 'float32'),
 }
 CONV_GRAD_CASE = 'strided'
 # the conv's y against its plain version, element by element. bf16: both
@@ -855,31 +890,39 @@ CONV_GRAD_CASE = 'strided'
 CONV_Y_TOL = dict(rtol=2.0 ** -7, atol=0.0, atol_of_max=1e-3, differ=1e-2)
 CONV_F32_ORDERS = 2
 # s1 and s2 against the plain version's, relative to sum |y| and sum y^2
-# per channel. The longest chain of float32 additions behind a sum: in the
-# bf16 tensor-core kernel (csrc/conv_bn_stats_sm90.cu) a thread's 2 rows
-# (1 add), the lanes of its column (3), the 8 warps of the 128-row tile
-# (8); in the float32 FMA kernel (csrc/conv_bn_stats.cu) 8 rows, then 16
-# row groups; then, for both, the finalize kernel's 8 groups of up to 784
-# tiles at batch 256, and the 8 groups: at most 1 + 3 + 8 + 784 + 8 = 804
-# (bf16) or 8 + 16 + 784 + 8 = 816 (float32) adds, under 1,024, so each
-# lies within 1024 * 2^-24 = 2^-14 of the exact sum on that scale, and the
-# plain version's tree sums closer. One 128-row tile of 802,816 left out
-# moves s2 by about 1.6e-4 of it.
+# per channel. The longest chain of float32 additions behind a sum, the
+# same in both tensor-core kernels (csrc/conv_bn_stats_sm90.cu, bf16, and
+# csrc/conv_bn_stats_tf32.cu, float32): a thread's 2 rows (1 add), the 8
+# lanes of its column (3), the 8 warps of the 128-row tile (8); then the
+# finalize kernel's (csrc/conv_bn_stats.cu) 8 groups of up to 784 tiles at
+# batch 256, and the 8 groups: at most 1 + 3 + 8 + 784 + 8 = 804 adds,
+# under 1,024, so each lies within 1024 * 2^-24 = 2^-14 of the exact sum on
+# that scale, and the plain version's tree sums closer. One 128-row tile of
+# 802,816 left out moves s2 by about 1.6e-4 of it.
 CONV_STATS_RTOL = 2.0 ** -14
-# --mutants: edits of csrc/conv_bn_stats.cu, the float32 (FMA) kernel and
-# the finalize both kernels share, each of which phase 6's ragged float32
-# case (CONV_FMA_MUTANT_CASE) must catch: a tap skipped, the padding one
-# pixel off, one M tile's partials left out of the second pass
-CONV_FMA_MUTANT_CASE = 'ragged_f32'
+# --mutants: edits of csrc/conv_bn_stats.cu, the finalize both kernels
+# share, and of csrc/conv_bn_stats_tf32.cu, the float32 kernel, each of
+# which phase 6's ragged float32 case (CONV_F32_MUTANT_CASE) must catch:
+# one M tile's partials left out of the second pass; the small parts of
+# every product dropped (one TF32 product, which misses the float32 y gate:
+# tests/test_torch_conv_bn.py emulates it), the middle K step's big x big
+# products skipped, the middle tap's im2col copy one pixel off along w
+CONV_F32_MUTANT_CASE = 'ragged_f32'
 CONV_MUTANTS = {
-    'conv_tap_skipped': ('wi >= 0 && wi < s.w;',
-                         'wi >= 0 && wi < s.w && tap != taps / 2;'),
-    'conv_pad_off_by_one': ('const int hbase = ho * s.sh - s.ph;',
-                            'const int hbase = ho * s.sh - s.ph + 1;'),
     'conv_partial_left_out': (
         'for (int b = g; b < m_tiles; b += FIN_GROUPS) {',
         'for (int b = g; b < m_tiles; b += FIN_GROUPS) {'
         ' if (b == m_tiles / 2) continue;'),
+}
+CONV_TF32_MUTANTS = {
+    'tf32_conv_small_parts_dropped': ('constexpr int TERMS = 3;',
+                                      'constexpr int TERMS = 1;'),
+    'tf32_conv_k_step_skipped': (
+        'wgmma_tf32_rs64(kacc, xa[0], b);',
+        'if (it != nt / 2) wgmma_tf32_rs64(kacc, xa[0], b);'),
+    'tf32_conv_tap_coordinate_off': (
+        'img, (uint16_t)dx,',
+        'img, (uint16_t)(dx + (tap == p.kh * p.kw / 2)),'),
 }
 # --mutants: edits of csrc/conv_bn_stats_sm90.cu, the bf16 tensor-core
 # kernel, each of which phase 6's main case must catch: one K step's
@@ -1198,10 +1241,14 @@ def sass_check(job, build_log):
     found = {}
     for name, types in SM90_KERNELS.items():
         found[name] = {}
+        # the kernel's name as the mangled name spells it (length first),
+        # so that another kernel of its file, whose mangled name holds the
+        # file's name in its namespace, is not taken for it
+        tag = '%d%s' % (len(name), name)
         for dtype_name in types:
             mangled = '' if name in SM90_UNTYPED else SM90_TYPES[dtype_name]
             bodies = [f for f in functions
-                      if name in f.split('\n', 1)[0] and
+                      if tag in f.split('\n', 1)[0] and
                       mangled in f.split('\n', 1)[0]]
             found[name][dtype_name] = dict(
                 instances=len(bodies),
@@ -1944,13 +1991,14 @@ def conv_kernel_entry(conv, sass, resnet, module, serve, bucketing,
     return dict(
         name='conv_bn_stats', route='cuda',
         source='mxnet_tpu_torch/csrc/conv_bn_stats_sm90.cu',
-        float32_source='mxnet_tpu_torch/csrc/conv_bn_stats.cu',
+        float32_source='mxnet_tpu_torch/csrc/conv_bn_stats_tf32.cu',
         routes=dict(bfloat16='conv_bn_stats_sm90 (wgmma fed by TMA), '
                              'csrc/conv_bn_stats_sm90.cu',
-                    float32='conv_bn_stats_kernel (fp32 FMA), '
-                            'csrc/conv_bn_stats.cu, which holds the C '
-                            'entry that routes by dtype and the finalize '
-                            'kernel both share'),
+                    float32='conv_bn_stats_tf32 (3xTF32 wgmma fed by TMA), '
+                            'csrc/conv_bn_stats_tf32.cu',
+                    entry='csrc/conv_bn_stats.cu holds the C entry that '
+                          'routes by dtype and the finalize kernel both '
+                          'share'),
         sass=sass['conv_bn_stats_sm90'],
         replaces='mxnet_tpu/pallas_conv.py:101',
         launches=resnet['train_path_launches'],
@@ -2012,8 +2060,10 @@ def conv_kernel_entry(conv, sass, resnet, module, serve, bucketing,
                    for r in f['kernel_checks']]
             for name, f in factories['bf16'].items()},
         float32=dict(
-            route='cuda', source='mxnet_tpu_torch/csrc/conv_bn_stats.cu',
-            kernel='conv_bn_stats_kernel (fp32 FMA)', case='main_f32',
+            route='cuda', source='mxnet_tpu_torch/csrc/conv_bn_stats_tf32.cu',
+            kernel='conv_bn_stats_tf32 (3xTF32 wgmma)', case='main_f32',
+            sass=sass['conv_bn_stats_tf32'],
+            replaces='mxnet_tpu/pallas_conv.py:101',
             launches=0, launches_note='no framework path routes a float32 '
             'pair to the kernel (the executor and the fused Gluon step keep '
             'float32 pairs unfused); phase 6 launches it at its cases',
@@ -2034,32 +2084,40 @@ def conv_kernel_entry(conv, sass, resnet, module, serve, bucketing,
 
 
 def mutant_check(root):
-    """--mutants: build each of FWD_MUTANTS, BWD_MUTANTS,
-    TF32_BWD_MUTANTS, CONV_MUTANTS and CONV_SM90_MUTANTS in its own copy of
-    the port under build/mutants/ and run there, all at once, phase 2's LM
-    case (a forward mutant), phase 4's LM case (a 16-bit backward mutant)
-    or its lm_f32 case (a float32 one), phase 6's ragged float32 case (an
-    FMA conv mutant) or its bf16 main case (a tensor-core conv mutant);
-    each must fail its case and the copy with no edit must pass all five.
+    """--mutants: build each of FWD_MUTANTS, TF32_FWD_MUTANTS, BWD_MUTANTS,
+    TF32_BWD_MUTANTS, CONV_MUTANTS, CONV_TF32_MUTANTS and CONV_SM90_MUTANTS
+    in its own copy of the port under build/mutants/ and run there, all at
+    once, phase 2's LM case (a 16-bit forward mutant) or its lm_f32 case (a
+    float32 one), phase 4's LM case (a 16-bit backward mutant) or its
+    lm_f32 case (a float32 one), phase 6's ragged float32 case (a finalize
+    or float32 conv mutant) or its bf16 main case (a bf16 conv mutant);
+    each must fail its case and the copy with no edit must pass all six.
     Times from these runs mean nothing: they share the card."""
     import shutil
     base = root / 'build' / 'mutants'
     shutil.rmtree(base, ignore_errors=True)
     fwd = ('flash_attention_sm90.cu', ['--forward-case', 'lm'])
+    tf32_fwd = ('flash_attention_tf32.cu', ['--forward-case', 'lm_f32'])
     bwd = ('flash_attention_bwd_sm90.cu', ['--backward-case', 'lm'])
     tf32 = ('flash_attention_bwd_tf32.cu', ['--backward-case', 'lm_f32'])
-    conv = ('conv_bn_stats.cu', ['--conv-case', CONV_FMA_MUTANT_CASE])
+    conv = ('conv_bn_stats.cu', ['--conv-case', CONV_F32_MUTANT_CASE])
+    tf32_conv = ('conv_bn_stats_tf32.cu', conv[1])
     sm90 = ('conv_bn_stats_sm90.cu', ['--conv-case', 'main'])
     plan = [('unchanged', None, None,
-             fwd[1] + bwd[1] + tf32[1][1:] + conv[1] + sm90[1][1:])]
+             fwd[1] + tf32_fwd[1][1:] + bwd[1] + tf32[1][1:] + conv[1] +
+             sm90[1][1:])]
     plan += [(name, edit, fwd[0], fwd[1])
              for name, edit in FWD_MUTANTS.items()]
+    plan += [(name, edit, tf32_fwd[0], tf32_fwd[1])
+             for name, edit in TF32_FWD_MUTANTS.items()]
     plan += [(name, edit, bwd[0], bwd[1])
              for name, edit in BWD_MUTANTS.items()]
     plan += [(name, edit, tf32[0], tf32[1])
              for name, edit in TF32_BWD_MUTANTS.items()]
     plan += [(name, edit, conv[0], conv[1])
              for name, edit in CONV_MUTANTS.items()]
+    plan += [(name, edit, tf32_conv[0], tf32_conv[1])
+             for name, edit in CONV_TF32_MUTANTS.items()]
     plan += [(name, edit, sm90[0], sm90[1])
              for name, edit in CONV_SM90_MUTANTS.items()]
     runs = []
@@ -2115,13 +2173,16 @@ def mutant_check(root):
             wrong.append('%s (rc %d):\n%s' % (name, rc, text[-3000:]))
     if wrong:
         fail('mutant check: ' + '\n'.join(wrong))
-    print('mutants: all %d forward mutants caught by phase 2\'s LM case, '
-          'all %d 16-bit backward mutants by phase 4\'s, all %d float32 '
-          'backward mutants by its lm_f32 case, all %d FMA conv mutants by '
-          'the %s conv case and all %d tensor-core conv mutants by the main '
-          'one; the unchanged copy passes all five'
-          % (len(FWD_MUTANTS), len(BWD_MUTANTS), len(TF32_BWD_MUTANTS),
-             len(CONV_MUTANTS), CONV_FMA_MUTANT_CASE,
+    print('mutants: all %d 16-bit forward mutants caught by phase 2\'s LM '
+          'case, all %d float32 forward mutants by its lm_f32 case, all %d '
+          '16-bit backward mutants by phase 4\'s, all %d float32 '
+          'backward mutants by its lm_f32 case, all %d finalize and float32 '
+          'conv mutants by the %s conv case and all %d bf16 conv mutants by '
+          'the main one; the unchanged copy passes all six'
+          % (len(FWD_MUTANTS), len(TF32_FWD_MUTANTS), len(BWD_MUTANTS),
+             len(TF32_BWD_MUTANTS),
+             len(CONV_MUTANTS) + len(CONV_TF32_MUTANTS),
+             CONV_F32_MUTANT_CASE,
              len(CONV_SM90_MUTANTS)))
 
 
@@ -7996,6 +8057,29 @@ DIST_STALE_ENV = ('DMLC_PS_ROOT_URI', 'DMLC_PS_ROOT_PORT', 'DMLC_ROLE',
                   'MXNET_TPU_WORKER_RANK')
 DIST_LAUNCH_TIMEOUT_S = 420
 DIST_SERVE_BATCH = 8
+# a worker whose Python threads cannot run for this long (half the death
+# threshold) prints every thread's stack to its stderr
+DIST_STALL_S = 5.0
+
+
+def stall_watchdog(seconds):
+    """Print every thread's stack to stderr whenever this process's
+    Python threads cannot run for `seconds`: a thread re-arms
+    faulthandler's timer each second, and the timer, a native thread,
+    fires only if no re-arm came (the GIL held by one long call, or the
+    process starved of CPU). The stacks name what held the process while
+    its heartbeats could not go out. Returns the function that stops
+    it."""
+    stop = threading.Event()
+
+    def rearm():
+        while not stop.is_set():
+            faulthandler.dump_traceback_later(seconds)
+            stop.wait(1.0)
+        faulthandler.cancel_dump_traceback_later()
+    threading.Thread(target=rearm, name='stall-watchdog',
+                     daemon=True).start()
+    return stop.set
 
 
 def dist_images(n, seed):
@@ -8020,8 +8104,8 @@ def dist_worker(kind, out_dir, tag):
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import _build, cuda_conv, dist, elastic, profiler
     from mxnet_tpu_torch import _hostarray as ha
-    # the CUDA context and the kernel library before the runtime's
-    # heartbeats start
+    # the CUDA context, the kernel library, the batches and the symbol
+    # before the runtime's heartbeats start
     torch.zeros(1, device='cuda')
     _build.library()
     rank = int(os.environ['DMLC_WORKER_ID'])
@@ -8032,11 +8116,13 @@ def dist_worker(kind, out_dir, tag):
         batch, steps = DIST_PS_BATCH, DIST_PS_STEPS + DIST_PS_PROFILED
         x, y = dist_images(batch * steps, SEED + 2100 + rank)
     else:
-        rt = dist.initialize()
-        shard = tag == 'shard'
         batch, steps = DIST_COORD_BATCH, DIST_COORD_STEPS
         x, y = dist_images(batch * steps,
-                           SEED + 2200 + (rank if shard else 0))
+                           SEED + 2200 + (rank if tag == 'shard' else 0))
+    symbol, init = module_symbol_params(mx)
+    stop_watchdog = stall_watchdog(DIST_STALL_S)
+    if kind == 'coord':
+        rt = dist.initialize()
     kv = mx.kv.create('dist_sync')
     dump = {'probe_keys': list(DIST_PROBES)}
 
@@ -8080,7 +8166,6 @@ def dist_worker(kind, out_dir, tag):
     kv._cross_host_sum = cross_host_sum
     kv.set_optimizer = set_optimizer
 
-    symbol, init = module_symbol_params(mx)
     mod = mx.mod.Module(symbol, context=ctx)
     np.random.seed(SEED)
     mx.random.seed(SEED)
@@ -8160,6 +8245,7 @@ def dist_worker(kind, out_dir, tag):
         kv.close()
     else:
         dist.shutdown()
+    stop_watchdog()
     print('DIST_WORKER_OK tag=%s rank=%d steps=%d' % (tag, rank,
                                                      len(times)))
 
@@ -10514,7 +10600,7 @@ def gf_batches(torch, mx, ctx, n):
 def gf_cut_step(torch, mx, ctx, route, plant=False):
     """One fused float32 step of the cut ResNet v1 (GF_CUT) on ctx: the
     weights before and after, by name. `route` puts its float32 pairs on
-    the conv kernel (float32 FMA); `plant` hands each pair's BatchNorm
+    the conv kernel (float32, 3xTF32); `plant` hands each pair's BatchNorm
     the statistics of an earlier pair of its width (or its own, one
     channel off)."""
     from mxnet_tpu_torch import executor as ex_mod
@@ -13939,7 +14025,8 @@ def main(argv=None):
     parser = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
     parser.add_argument('--forward-case', choices=sorted(FWD_CASES),
-                        help='build, then run only this case of phase 2')
+                        nargs='+',
+                        help='build, then run only these cases of phase 2')
     parser.add_argument('--backward-case', choices=sorted(BWD_CASES),
                         nargs='+',
                         help='build, then run only these cases of phase 4')
@@ -13958,10 +14045,10 @@ def main(argv=None):
     parser.add_argument('--dist-out', help=argparse.SUPPRESS)
     parser.add_argument('--dist-tag', help=argparse.SUPPRESS)
     parser.add_argument('--mutants', action='store_true',
-                        help='check that phase 2\'s LM case fails each of '
-                             'FWD_MUTANTS, phase 4\'s each of BWD_MUTANTS '
-                             'and phase 6\'s main case each of '
-                             'CONV_MUTANTS, broken copies of the kernels')
+                        help='check that phases 2, 4 and 6 fail each of '
+                             'FWD_MUTANTS, TF32_FWD_MUTANTS, BWD_MUTANTS, '
+                             'TF32_BWD_MUTANTS and the conv mutants, broken '
+                             'copies of the kernels')
     args = parser.parse_args(argv)
     # a crash in native code prints every thread's Python stack to
     # stderr, in this process and in every process it starts
@@ -14043,9 +14130,9 @@ def main(argv=None):
     sass_job = sass_start(_build.build())
     if args.forward_case or args.backward_case or args.conv_case:
         sass_check(sass_job, build_log)
-        if args.forward_case:
-            shape_q, tk, dtype_name, iters = FWD_CASES[args.forward_case]
-            kernel_case(torch, cuda_ops, args.forward_case, shape_q, tk,
+        for name in args.forward_case or ():
+            shape_q, tk, dtype_name, iters = FWD_CASES[name]
+            kernel_case(torch, cuda_ops, name, shape_q, tk,
                         getattr(torch, dtype_name), True, iters)
         if args.backward_case:
             backward_phase(torch, cuda_ops, args.backward_case)
@@ -14375,7 +14462,7 @@ def main(argv=None):
     kernels = [dict(
         name='flash_attention_fwd', route='cuda',
         source='mxnet_tpu_torch/csrc/flash_attention_sm90.cu',
-        float32_source='mxnet_tpu_torch/csrc/flash_attention.cu',
+        float32_route='flash_attention_fwd_f32',
         sass=sass['flash_fwd_sm90'],
         replaces='mxnet_tpu/pallas_ops.py:95',
         launches=lm['flash_launches'],
@@ -14400,15 +14487,28 @@ def main(argv=None):
         bound_ms=main_case['bound_ms'], bound_by=main_case['bound_by'],
         library_ms=main_case['library_ms'],
         library_call='scaled_dot_product_attention forward (is_causal)',
-        float32=dict(
-            route='cuda', source='mxnet_tpu_torch/csrc/flash_attention.cu',
-            kernel='flash_fwd_kernel (fp32 FMA)', case='lm_f32',
-            launches=f32_path[0], max_abs_err=fwd32['max_abs_err'],
-            ms=fwd32['ms'], plain_ms=fwd32['plain_ms'],
-            bound_ms=fwd32['bound_ms'], bound_by=fwd32['bound_by'],
-            library_ms=fwd32['library_ms'],
-            library_backend=fwd32['library_backend']),
-        build_s=build_s, cases=cases)]
+        build_s=build_s,
+        cases=[c for c in cases if c['dtype'] != 'float32'])]
+    # the float32 route: the 3xTF32 kernel, on phase 5's float32 path
+    kernels.append(dict(
+        name='flash_attention_fwd_f32', route='cuda',
+        source='mxnet_tpu_torch/csrc/flash_attention_tf32.cu',
+        kernel='flash_fwd_tf32 (3xTF32 wgmma)', sass=sass['flash_fwd_tf32'],
+        replaces='mxnet_tpu/pallas_ops.py:95',
+        launches=f32_path[0],
+        launches_by_path=dict(
+            lm_train_f32=train['fp32']['launches'][0],
+            lm_train_f32_full_depth=sum(
+                step[0] for step in
+                train['fp32']['full_depth']['launches_per_step'])),
+        max_abs_err=fwd32['max_abs_err'], ms=fwd32['ms'],
+        tflops=fwd32['tflops'], plain_ms=fwd32['plain_ms'],
+        bound_ms=fwd32['bound_ms'], bound_by=fwd32['bound_by'],
+        library_ms=fwd32['library_ms'],
+        library_backend=fwd32['library_backend'],
+        library_call='scaled_dot_product_attention forward in float32 '
+                     '(is_causal)', main_case='lm_f32',
+        cases=[c for c in cases if c['dtype'] == 'float32']))
     for i, (name, key, grads, line) in enumerate((
             ('flash_attention_bwd_dkdv', 'dkdv', ('dk', 'dv'), 313),
             ('flash_attention_bwd_dq', 'dq', ('dq',), 362))):

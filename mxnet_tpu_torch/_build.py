@@ -129,13 +129,16 @@ def _declare(lib):
     fn.argtypes = [ptr] * 7 + [i32] * 4 + [ctypes.c_float, i32, i32, ptr]
     fn.restype = i32
     fn = lib.mxt_conv_bn_stats
-    # x, w, y, s1, s2, part, n, h, w, cin, cout, kh, kw, sh, sw, ph, pw,
-    # dtype, stream
-    fn.argtypes = [ptr] * 6 + [i32] * 12 + [ptr]
+    # x, w, y, s1, s2, part, ws, n, h, w, cin, cout, kh, kw, sh, sw, ph,
+    # pw, dtype, stream
+    fn.argtypes = [ptr] * 7 + [i32] * 12 + [ptr]
     fn.restype = i32
     # dtype -> the M-tile height of that dtype's kernel
     lib.mxt_conv_bn_stats_block_rows.argtypes = [i32]
     lib.mxt_conv_bn_stats_block_rows.restype = i32
+    # dtype, kh, kw, cin, cout -> the floats of its weight scratch ws
+    lib.mxt_conv_bn_stats_weight_floats.argtypes = [i32] * 5
+    lib.mxt_conv_bn_stats_weight_floats.restype = ctypes.c_longlong
     lib.mxt_error_string.argtypes = [i32]
     lib.mxt_error_string.restype = ctypes.c_char_p
     return lib

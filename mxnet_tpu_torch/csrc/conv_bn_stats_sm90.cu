@@ -4,7 +4,7 @@
 // s2 = sum(y * y) per (M tile, channel), in fp32, taken from the fp32
 // accumulators before y is rounded. conv_bn_stats.cu's finalize kernel sums
 // the partials over the tiles; its mxt_conv_bn_stats sends bf16 here and
-// keeps float32 on its FMA kernel.
+// float32 to the 3xTF32 kernel of conv_bn_stats_tf32.cu.
 //
 // Replaces mxnet_tpu/pallas_conv.py:_conv_bn_kernel (:101, launched by
 // _conv_bn_stats_impl) for bf16. The conv is an implicit GEMM: M = N * Ho *
@@ -337,12 +337,6 @@ __global__ void __launch_bounds__(THREADS, 2)
 }
 
 // ---- host ----
-bool aligned16(const void* ptr) {
-  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
-}
-
-bool corner_ok(int v) { return v >= -128 && v <= 127; }
-
 template <int BN>
 cudaError_t launch_bn(const Params& p, unsigned blocks, cudaStream_t stream) {
   static int configured = 0;
@@ -384,9 +378,7 @@ int mxt_conv_bn_stats_sm90(const void* x, const void* w, void* y, void* part,
   p.m = (int)m;
   p.m_tiles = (p.m + BM - 1) / BM;
   p.chunks = (cin + BK - 1) / BK;
-  p.tma_x = cin % 8 == 0 && aligned16(x) && sh <= 8 && sw <= 8 &&
-            kh <= 256 && kw <= 256 && corner_ok(-ph) && corner_ok(-pw) &&
-            corner_ok(ph - (kh - 1)) && corner_ok(pw - (kw - 1));
+  p.tma_x = im2col_fits<__nv_bfloat16>(x, cin, kh, kw, sh, sw, ph, pw);
   p.tma_w = cout % 8 == 0 && aligned16(w);
   p.vec_y = cout % 8 == 0 && aligned16(y);
   if (p.tma_x) {

@@ -6,12 +6,12 @@
 //
 // Replaces mxnet_tpu/pallas_ops.py:_bwd_dkdv_kernel (:313) and its
 // streaming twin _bwd_dkdv_stream_kernel (:403), and _bwd_dq_kernel (:362)
-// and _bwd_dq_stream_kernel (:458), for 16-bit inputs. float32 inputs stay on
-// the FMA kernels of flash_attention_bwd.cu: the tensor cores take fp32
-// only as TF32, whose 10-bit mantissa fails the JAX package's float32
-// gradient tolerance (rtol 2e-4 / atol 2e-5). That is a dispatch by dtype,
-// made in flash_attention_bwd.cu's launch(); a bf16 or float16 CUDA input
-// always comes here.
+// and _bwd_dq_stream_kernel (:458), for 16-bit inputs. float32 inputs go
+// to flash_attention_bwd_tf32.cu, which takes each product as three TF32
+// ones (one would fail the JAX package's float32 gradient tolerance, rtol
+// 2e-4 / atol 2e-5). That is a dispatch by dtype, made in
+// flash_attention_bwd.cu's launch(); a bf16 or float16 CUDA input always
+// comes here.
 //
 // The function is the Pallas kernels', with their roundings
 // (pallas_ops.py:329-351, :375-391): s = q.k in fp32 times scale,

@@ -1,8 +1,10 @@
 // Flash-attention backward for float32 on Hopper's tensor cores (sm_90a):
 // dK, dV and dQ of O = softmax(Q K^T * scale) V, recomputed tile by tile
 // from the forward's logsumexp, with every product on wgmma in TF32 split
-// three ways, so that it keeps float32's accuracy. The PTX building blocks
-// (mbarriers, wgmma fences, tensor maps) are in sm90_common.cuh, shared
+// three ways, so that it keeps float32's accuracy. The TF32 building
+// blocks (the split, the swizzled fp32 layout, its copies, tf32 wgmma) are
+// in tf32_common.cuh, shared with the float32 forward and conv; the PTX
+// ones (mbarriers, wgmma fences, tensor maps) in sm90_common.cuh, shared
 // with the 16-bit kernels (flash_attention_bwd_sm90.cu), whose structure
 // this file follows.
 //
@@ -25,7 +27,8 @@
 // into big = tf32(x) and small = tf32(x - big) (cvt.rna: to nearest, ties
 // away), and a b is taken as big_a big_b + big_a small_b + small_a big_b,
 // summed in the fp32 accumulators (small_a small_b, about 2^-22 of a b, is
-// left out). tests/test_torch_flash_backward.py emulates both on the CPU.
+// left out; tf32_common.cuh). tests/test_torch_flash_backward.py emulates
+// both on the CPU.
 //
 // Bound at the LM's shape (batch 8, heads 16, T 1024, head_dim 64, causal)
 // on an H100 SXM, taking a float32-accurate product at the TF32 rate over
@@ -87,14 +90,13 @@
 
 #include <math.h>
 
-#include "sm90_common.cuh"
+#include "tf32_common.cuh"
 
 namespace {
 
 constexpr int kDkDv = 0, kDq = 1;
 constexpr int BM = 64;          // resident rows: the first products' M
 constexpr int BN = 32;          // streamed rows per tile: their N
-constexpr int CW = 64;          // columns of a contraction chunk
 constexpr int GROUP = CW;       // output columns of a block: a wgmma M
 constexpr int STAGES = 2;
 constexpr int CONSUMERS = 128;  // one warpgroup
@@ -130,114 +132,6 @@ struct Params {
   int nchunks, nres;  // contraction chunks, resident slots
   float scale;
 };
-
-// x rounded to TF32 (to nearest, ties away), as fp32 bits
-__device__ __forceinline__ float to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return __uint_as_float(r);
-}
-
-// the byte offset of element (row r, column c) in a tile of `rows` rows:
-// 32-column atoms of rows x 128 bytes, the 16-byte chunk c / 4 of row r at
-// chunk (c / 4) ^ (r % 8) (TMA's CU_TENSOR_MAP_SWIZZLE_128B, wgmma's B128)
-__device__ __forceinline__ int swz(int rows, int r, int c) {
-  return (c >> 5) * rows * 128 + r * 128 +
-         ((((c & 31) >> 2) ^ (r & 7)) << 4) + (c & 3) * 4;
-}
-
-// K-major wgmma descriptor of k-step ks (8 tf32 columns, 32 bytes) of a
-// tile of `rows` rows; 8-row groups 1024 bytes apart (SBO)
-__device__ __forceinline__ uint64_t desc_tf32(const uint8_t* tile, int rows,
-                                              int ks) {
-  const uint32_t a = smem_u32(tile + (ks >> 2) * rows * 128 + (ks & 3) * 32);
-  return (uint64_t)((a & 0x3FFFF) >> 4) | (uint64_t)1 << 16 |
-         (uint64_t)64 << 32 | (uint64_t)1 << 62;
-}
-
-// the CW-column chunk at col0 of rows row0.. of a (t, d) head, by TMA
-__device__ __forceinline__ void tma_chunk(const CUtensorMap* tm,
-                                          uint8_t* dst, int rows, int col0,
-                                          int row0, int bh, uint64_t* bar) {
-  for (int b = 0; b < CW / 32; ++b)
-    asm volatile(
-        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::"
-        "complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(
-            smem_u32(dst + b * rows * 128)),
-        "l"(reinterpret_cast<uint64_t>(tm)), "r"(smem_u32(bar)),
-        "r"(col0 + 32 * b), "r"(row0), "r"(bh)
-        : "memory");
-}
-
-// the same by plain loads from one warp, zero past row t and column d
-__device__ __forceinline__ void copy_chunk(const float* head, int t, int d,
-                                           uint8_t* dst, int rows, int col0,
-                                           int row0, int lane) {
-  constexpr int chunks = CW / 4;  // 16-byte chunks of a row
-  for (int e = lane; e < rows * chunks; e += 32) {
-    const int r = e / chunks, c = (e % chunks) * 4;
-    const int row = row0 + r;
-    float v[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-      v[u] = (row < t && col0 + c + u < d)
-                 ? head[(long long)row * d + col0 + c + u]
-                 : 0.f;
-    *reinterpret_cast<float4*>(dst + swz(rows, r, c)) =
-        make_float4(v[0], v[1], v[2], v[3]);
-  }
-}
-
-// the consumers' split of a tile: x -> big = tf32(x) in place and
-// small = tf32(x - big) `bytes` further on
-__device__ __forceinline__ void split_tile(uint8_t* tile, int bytes, int tid) {
-  for (int o = tid * 16; o < bytes; o += CONSUMERS * 16) {
-    const float4 v = *reinterpret_cast<const float4*>(tile + o);
-    const float4 b = make_float4(to_tf32(v.x), to_tf32(v.y), to_tf32(v.z),
-                                 to_tf32(v.w));
-    *reinterpret_cast<float4*>(tile + o) = b;
-    *reinterpret_cast<float4*>(tile + bytes + o) =
-        make_float4(to_tf32(v.x - b.x), to_tf32(v.y - b.y),
-                    to_tf32(v.z - b.z), to_tf32(v.w - b.w));
-  }
-}
-
-// the consumer warpgroup meets (named barrier 1; the producer warp does not
-// take part)
-__device__ __forceinline__ void consumers_sync() {
-  asm volatile("bar.sync 1, 128;" ::: "memory");
-}
-
-#define MXT_F8(i)                                                       \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),           \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-
-// d (64 x 32) (+)= A B^T, A and B K-major tf32 in shared memory
-__device__ __forceinline__ void wgmma_tf32_ss32(float* d, uint64_t da,
-                                                uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15}, %16, %17, p, 1, 1;\n}"
-      : MXT_F8(0), MXT_F8(8)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d (64 x 64) += A B^T, A (64 x 8 tf32) in registers, B K-major tf32 in
-// shared memory
-__device__ __forceinline__ void wgmma_tf32_rs64(float* d, const uint32_t* a,
-                                                uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}"
-      : MXT_F8(0), MXT_F8(8), MXT_F8(16), MXT_F8(24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-#undef MXT_F8
 
 // The streamed tiles [lo, hi) that a block whose resident tile starts at
 // row r0 meets: for dK/dV the q tiles from the first whose rows reach key
@@ -397,8 +291,8 @@ __device__ __forceinline__ void bwd_block(const Params& p) {
     for (int i = 0; i < 32; ++i) acc[o][i] = 0.f;
   mbar_wait(res_bar, 0);
   if (p.nres == 1) {  // fenced with the first streamed tile's split
-    split_tile(res, RES_TILE, tid);
-    split_tile(res + 2 * RES_TILE, RES_TILE, tid);
+    split_tile<CONSUMERS>(res, RES_TILE, tid);
+    split_tile<CONSUMERS>(res + 2 * RES_TILE, RES_TILE, tid);
   }
 
   int it = 0;
@@ -412,11 +306,11 @@ __device__ __forceinline__ void bwd_block(const Params& p) {
       mbar_wait(&full[s], (it / STAGES) & 1);
       uint8_t* st = str + s * 4 * STR_TILE;
       uint8_t* rt = res + (p.nres == 1 ? 0 : s * 4 * RES_TILE);
-      split_tile(st, STR_TILE, tid);
-      split_tile(st + 2 * STR_TILE, STR_TILE, tid);
+      split_tile<CONSUMERS>(st, STR_TILE, tid);
+      split_tile<CONSUMERS>(st + 2 * STR_TILE, STR_TILE, tid);
       if (p.nres > 1) {
-        split_tile(rt, RES_TILE, tid);
-        split_tile(rt + 2 * RES_TILE, RES_TILE, tid);
+        split_tile<CONSUMERS>(rt, RES_TILE, tid);
+        split_tile<CONSUMERS>(rt + 2 * RES_TILE, RES_TILE, tid);
       }
       fence_async_smem();
       consumers_sync();
@@ -588,25 +482,6 @@ __global__ void __launch_bounds__(THREADS, 1)
 }
 
 // ---- host ----
-// (d, t, bh) of fp32, boxes of 32 columns (128 bytes) x `rows` rows,
-// 128-byte swizzle, zeros out of range
-cudaError_t tensor_map_f32(CUtensorMap* tm, const void* ptr, int bh, int t,
-                           int d, int rows) {
-  EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorSymbolNotFound;
-  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)t, (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {(cuuint64_t)d * 4, (cuuint64_t)t * d * 4};
-  const cuuint32_t box[3] = {32, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  CUresult r = encode(tm, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
-                      const_cast<void*>(ptr), dims, strides, box, elem,
-                      CU_TENSOR_MAP_INTERLEAVE_NONE,
-                      CU_TENSOR_MAP_SWIZZLE_128B,
-                      CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 int launch(int which, Params& p, int bh, cudaStream_t s) {
   if (p.use_tma)
     for (int i = 0; i < 4; ++i) {

@@ -5,11 +5,10 @@
 //
 // Replaces mxnet_tpu/pallas_ops.py:_attn_kernel_resident (:95) and
 // _attn_kernel (:55), both launched by _flash_fwd_impl, for 16-bit inputs.
-// float32 inputs stay on the FMA kernel of flash_attention.cu: the tensor
-// cores take fp32 only as TF32, whose 10-bit mantissa fails the float32
-// tolerance (rtol 2e-4). That is a dispatch by dtype, made in
-// flash_attention.cu's mxt_flash_attention_fwd; a bf16 or float16 CUDA
-// input always comes here.
+// float32 inputs go to flash_attention_tf32.cu, which takes each product as
+// three TF32 ones (one would fail the float32 tolerance, rtol 2e-4). That
+// is a dispatch by dtype, made in flash_attention.cu's
+// mxt_flash_attention_fwd; a bf16 or float16 CUDA input always comes here.
 //
 // The function is _online_softmax_step (pallas_ops.py:34-52) and its
 // finalisation (:122-124): s = q.k in fp32 times scale; a suffix-aligned

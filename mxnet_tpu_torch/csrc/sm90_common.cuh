@@ -1,11 +1,12 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels
 // (flash_attention_sm90.cu, flash_attention_bwd_sm90.cu,
-// conv_bn_stats_sm90.cu): mbarriers, TMA (tiled and im2col) and plain
-// copies into the 128-byte swizzled tile layout, wgmma descriptors and
-// instructions, and the host's tensor maps. Whatever names
-// the 16-bit type (the wgmma instruction, the tensor map's data type, the
-// packing of two values) is templated on T16, __nv_bfloat16 or __half;
-// wgmma takes both with the same layouts.
+// conv_bn_stats_sm90.cu; the float32 ones through tf32_common.cuh):
+// mbarriers, TMA (tiled and im2col) and plain copies into the 128-byte
+// swizzled tile layout, wgmma descriptors and instructions, and the host's
+// tensor maps. Whatever names the 16-bit type (the wgmma instruction, the
+// tensor map's data type, the packing of two values) is templated on T16,
+// __nv_bfloat16 or __half; wgmma takes both with the same layouts. The
+// im2col map takes float as well.
 //
 // Every definition sits in an anonymous namespace: each source that
 // includes this file gets its own copy.
@@ -113,8 +114,8 @@ __device__ __forceinline__ void copy_tile(const void* head, int t, int d,
   }
 }
 
-// One im2col column of an NHWC tensor map (`im2col_map`): the channels
-// c .. c + 63 of each of the map's `pixels` pixels, walked from the pixel
+// One im2col column of an NHWC tensor map (`im2col_map`): 128 bytes of
+// channels from c of each of the map's `pixels` pixels, walked from the pixel
 // (w, h, n) through the map's bounding box at its traversal strides, row
 // by row and image by image, each read at (w + dx, h + dy); one 128-byte
 // swizzled row a pixel, zeros outside the tensor.
@@ -409,33 +410,54 @@ EncodeIm2col encode_im2col() {
   return fn;
 }
 
-// The im2col map of an NHWC (n, h, w, c) tensor of T16 for a conv of
-// kernel (kh, kw), stride (sh, sw) and padding (ph, pw): each copy
-// (tma_im2col) brings 64 channels of `pixels` consecutive output pixels,
-// the pixel of output (ho, wo) starting at input (ho sh - ph, wo sw - pw).
-// The bounding box runs from -pad to (size - 1) + pad - (k - 1) on each
-// axis, so one traversal step is one output pixel and a row of the box is
-// a row of the output; 128-byte swizzle, zeros out of range. The caller
-// keeps c % 8 == 0, a 16-byte aligned ptr, strides <= 8, each corner in
-// [-128, 127] and each kernel size <= 256 (a 4-D map's limits).
-template <typename T16>
+bool aligned16(const void* ptr) {
+  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
+}
+
+// Whether im2col_map can address the NHWC x of T (c channels) of a conv
+// of kernel (kh, kw), stride (sh, sw) and padding (ph, pw): a pixel pitch
+// of whole 16-byte units, a 16-byte aligned pointer, strides <= 8, each
+// corner of the bounding box in [-128, 127] and each kernel size <= 256
+// (a 4-D map's limits)
+template <typename T>
+bool im2col_fits(const void* x, int c, int kh, int kw, int sh, int sw,
+                 int ph, int pw) {
+  auto corner_ok = [](int v) { return v >= -128 && v <= 127; };
+  return c * sizeof(T) % 16 == 0 && aligned16(x) && sh <= 8 && sw <= 8 &&
+         kh <= 256 && kw <= 256 && corner_ok(-ph) && corner_ok(-pw) &&
+         corner_ok(ph - (kh - 1)) && corner_ok(pw - (kw - 1));
+}
+
+// The im2col map of an NHWC (n, h, w, c) tensor of T (bf16, float16 or
+// float) for a conv of kernel (kh, kw), stride (sh, sw) and padding
+// (ph, pw): each copy (tma_im2col) brings 128 bytes of channels (64 16-bit
+// or 32 fp32 ones) of `pixels` consecutive output pixels, the pixel of
+// output (ho, wo) starting at input (ho sh - ph, wo sw - pw). The bounding
+// box runs from -pad to (size - 1) + pad - (k - 1) on each axis, so one
+// traversal step is one output pixel and a row of the box is a row of the
+// output; 128-byte swizzle, zeros out of range. The caller keeps
+// im2col_fits.
+template <typename T>
 cudaError_t im2col_map(CUtensorMap* tm, const void* ptr, int n, int h, int w,
                        int c, int kh, int kw, int sh, int sw, int ph, int pw,
                        int pixels) {
   EncodeIm2col encode = encode_im2col();
   if (encode == nullptr) return cudaErrorSymbolNotFound;
+  constexpr cuuint64_t b = sizeof(T);
   const cuuint64_t dims[4] = {(cuuint64_t)c, (cuuint64_t)w, (cuuint64_t)h,
                               (cuuint64_t)n};
-  const cuuint64_t strides[3] = {(cuuint64_t)c * 2, (cuuint64_t)w * c * 2,
-                                 (cuuint64_t)h * w * c * 2};
+  const cuuint64_t strides[3] = {(cuuint64_t)c * b, (cuuint64_t)w * c * b,
+                                 (cuuint64_t)h * w * c * b};
   const int lower[2] = {-pw, -ph};
   const int upper[2] = {pw - (kw - 1), ph - (kh - 1)};
   const cuuint32_t elem[4] = {1, (cuuint32_t)sw, (cuuint32_t)sh, 1};
   CUresult r = encode(tm,
-                      is_bf16<T16> ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                                   : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
+                      std::is_same<T, float>::value
+                          ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                          : is_bf16<T> ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                       : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
                       4, const_cast<void*>(ptr), dims, strides, lower, upper,
-                      64, (cuuint32_t)pixels, elem,
+                      (cuuint32_t)(128 / b), (cuuint32_t)pixels, elem,
                       CU_TENSOR_MAP_INTERLEAVE_NONE,
                       CU_TENSOR_MAP_SWIZZLE_128B,
                       CU_TENSOR_MAP_L2_PROMOTION_L2_128B,

@@ -14,11 +14,11 @@ padding and ragged sizes, so the JAX package's gates (Cin < 8, Cout % 64,
 a power-of-two batch, 1x1 strides only, the VMEM budget) have no
 counterpart: `supported` states the kernel's own limits, and
 `conv2d_bn_stats` raises ValueError on what it refuses. The library's C
-entry (`csrc/conv_bn_stats.cu`) routes by dtype: bfloat16 to the
-tensor-core kernel (`csrc/conv_bn_stats_sm90.cu`: bf16 wgmma fed by TMA),
-float32 to the FMA kernel beside the entry, on the CUDA cores (the flash
-backward's float32 pair moved to the tensor cores as three TF32
-products, `csrc/flash_attention_bwd_tf32.cu`; the float32 conv has not).
+entry (`csrc/conv_bn_stats.cu`) routes by dtype to a tensor-core kernel
+fed by TMA: bfloat16 to `csrc/conv_bn_stats_sm90.cu` (bf16 wgmma),
+float32 to `csrc/conv_bn_stats_tf32.cu`, where each product is taken as
+three TF32 ones (big and small TF32 parts of each operand), which keep
+the float32 tolerance one TF32 product would fail.
 
 Dispatch is by the tensors' device: CPU tensors take the plain version
 (`conv_bn_stats_plain`), CUDA tensors launch the kernel of their dtype or
@@ -160,10 +160,20 @@ def _partials(m, cout, dtype, device):
                        device=device)
 
 
+def _weight_scratch(w, device):
+    """Scratch for the weights as w's dtype's kernel takes them (float32:
+    their big and small TF32 parts, K-major, written by the kernel's
+    pre-pass), float32; empty in bfloat16."""
+    kh, kw, cin, cout = w.shape
+    floats = _build.library().mxt_conv_bn_stats_weight_floats(
+        _KERNEL_DTYPES[w.dtype], kh, kw, cin, cout)
+    return torch.empty((floats,), dtype=torch.float32, device=device)
+
+
 def conv_bn_stats_cuda(x, w, stride=(1, 1), pad=(0, 0)):
     """The kernel on contiguous CUDA tensors: NHWC x, HWIO w, both float32
-    (the FMA kernel) or both bfloat16 (the tensor-core kernel). Returns
-    (y, s1, s2)."""
+    (the 3xTF32 kernel) or both bfloat16 (the bf16 one). Returns (y, s1,
+    s2)."""
     global CONV_BN_STATS_LAUNCHES
     stride, pad = _pair(stride), _pair(pad)
     _check_kernel_inputs(x, w, stride, pad)
@@ -176,10 +186,12 @@ def conv_bn_stats_cuda(x, w, stride=(1, 1), pad=(0, 0)):
     s1 = torch.empty((cout,), dtype=torch.float32, device=dev)
     s2 = torch.empty((cout,), dtype=torch.float32, device=dev)
     part = _partials(n * ho * wo, cout, x.dtype, dev)
+    ws = _weight_scratch(w, dev)
     _launch('mxt_conv_bn_stats', 'conv + BN statistics', x.data_ptr(),
             w.data_ptr(), y.data_ptr(), s1.data_ptr(), s2.data_ptr(),
-            part.data_ptr(), n, h, wd, cin, cout, kh, kw, stride[0],
-            stride[1], pad[0], pad[1], _KERNEL_DTYPES[x.dtype], device=dev)
+            part.data_ptr(), ws.data_ptr(), n, h, wd, cin, cout, kh, kw,
+            stride[0], stride[1], pad[0], pad[1], _KERNEL_DTYPES[x.dtype],
+            device=dev)
     CONV_BN_STATS_LAUNCHES += 1
     return y, s1, s2
 

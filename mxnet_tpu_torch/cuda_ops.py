@@ -14,11 +14,11 @@ dtype inside the library (`mxt_flash_attention_fwd` in
 `csrc/flash_attention.cu`, `launch()` in `csrc/flash_attention_bwd.cu`):
 bfloat16 and float16 run on the tensor cores (`csrc/flash_attention_sm90.cu`
 forward and `csrc/flash_attention_bwd_sm90.cu` backward: wgmma, TMA,
-mbarriers). The float32 backward runs on the tensor cores too
+mbarriers). float32 runs on the tensor cores too, forward
+(`csrc/flash_attention_tf32.cu`) and backward
 (`csrc/flash_attention_bwd_tf32.cu`): one TF32 product would fail the
 float32 tolerances, so each product is taken as three (big and small
-TF32 parts of each operand), which pass them. The float32 forward is
-still the FMA kernel of `csrc/flash_attention.cu`. The kernels take any
+TF32 parts of each operand), which pass them. The kernels take any
 length and any head_dim, so the JAX package's tiling limits
 (`_fit_block`, the dense forward fallback, the `_blocked_backward` XLA
 fallback) have no counterpart here.
@@ -43,8 +43,8 @@ FLASH_FWD_LAUNCHES = 0
 FLASH_BWD_DKDV_LAUNCHES = 0
 FLASH_BWD_DQ_LAUNCHES = 0
 
-# the library's dtype codes: float32 (the FMA forward, the 3xTF32
-# backward), bfloat16 and float16 (the 16-bit tensor-core kernels)
+# the library's dtype codes: float32 (the 3xTF32 tensor-core kernels),
+# bfloat16 and float16 (the 16-bit tensor-core kernels)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
@@ -229,9 +229,9 @@ def _launch(entry, what, *args, device):
 def _flash_fwd_cuda(q, k, v, causal, scale):
     """Forward kernel on contiguous (batch, heads, seq, head_dim) CUDA
     tensors: (out, lse (batch*heads, q_len, 1) float32). bfloat16 and
-    float16 run on the tensor-core kernel (`flash_fwd_sm90`), float32 on
-    the FMA one; the library raises, never falls back, if the one for the
-    dtype does not launch."""
+    float16 run on the 16-bit tensor-core kernel (`flash_fwd_sm90`),
+    float32 on the 3xTF32 one (`flash_fwd_tf32`); the library raises,
+    never falls back, if the one for the dtype does not launch."""
     global FLASH_FWD_LAUNCHES
     _check_kernel_inputs(q, k, v, 'flash attention')
     b, h, tq, d = q.shape

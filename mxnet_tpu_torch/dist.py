@@ -234,6 +234,7 @@ class Coordinator(object):
             else float(dead_after)
         self._cv = threading.Condition()
         self._last_seen = {}          # rank -> time.monotonic()
+        self._last_scan = None        # time.monotonic() of the last scan
         self._registered = set()
         self._departed = set()        # clean byes (not deaths)
         self._dead = set()            # sticky
@@ -282,8 +283,22 @@ class Coordinator(object):
     def _scan_dead_locked(self):
         """Mark registered ranks silent past the threshold dead.
         Called under self._cv from every handler that cares — the
-        clients' heartbeat cadence is the clock, no timer thread."""
+        clients' heartbeat cadence is the clock, no timer thread.
+
+        Scans come at least once a heartbeat interval while any rank
+        lives (rank 0, whose process hosts this, heartbeats too). A gap between two scans of over half the threshold means this
+        process was not running its handlers (its GIL held by a long
+        call, its host starved of CPU): the heartbeats of that gap wait
+        unread in the sockets, so the gap is counted as no rank's
+        silence."""
         now = time.monotonic()
+        last, self._last_scan = self._last_scan, now
+        if last is not None and now - last > 0.5 * self.dead_after:
+            gap = now - last
+            logging.warning('dist coordinator: no handler ran for %.1fs; '
+                            'that gap counts as no rank\'s silence', gap)
+            for r, t in self._last_seen.items():
+                self._last_seen[r] = min(now, t + gap)
         newly = [r for r, t in self._last_seen.items()
                  if r not in self._departed and r not in self._dead and
                  now - t > self.dead_after]

@@ -10,8 +10,8 @@ spin of the card so that they run back to back (device time, not the
 host's pace):
 
 - kernel: the conv + statistics kernel (`cuda_conv.conv_bn_stats_cuda`;
-  y is written to device memory): the tensor-core kernel in bfloat16,
-  the FMA kernel in float32;
+  y is written to device memory): the bf16 tensor-core kernel in
+  bfloat16, the 3xTF32 one in float32;
 - library: the yardstick, cuDNN `F.conv2d` on channels-last tensors and
   the float32 sum and sum of squares of its output (the counterpart of
   the JAX tool's XLA column); timed only, never called by the port;

@@ -320,9 +320,10 @@ def test_bench_needs_a_card_and_its_yardstick_is_the_oracle():
     assert errs['y_max_abs_err'] == 0 and errs['s2_err'] == 0
 
 
-# the kernels' sources: float32 on the FMA kernel, bfloat16 on the
-# tensor-core one
-FMA_SOURCE, SM90_SOURCE = 'conv_bn_stats.cu', 'conv_bn_stats_sm90.cu'
+# the kernels' sources: float32 on the 3xTF32 tensor-core kernel, bfloat16
+# on the bf16 one; the C entry and the finalize both share
+TF32_SOURCE, SM90_SOURCE = 'conv_bn_stats_tf32.cu', 'conv_bn_stats_sm90.cu'
+ENTRY_SOURCE = 'conv_bn_stats.cu'
 
 
 def _source(name):
@@ -381,7 +382,7 @@ def test_chip_smoke_conv_y_gate(variant, broken):
         assert check['share_differ'] > 0.05, check
 
 
-@pytest.mark.parametrize('source', [FMA_SOURCE, SM90_SOURCE])
+@pytest.mark.parametrize('source', [TF32_SOURCE, SM90_SOURCE])
 @pytest.mark.parametrize('left_out', [False, True])
 def test_chip_smoke_conv_stats_gate(left_out, source):
     """The statistics check at the main case's M (batch 256 at 56^2,
@@ -413,15 +414,29 @@ def test_chip_smoke_conv_stats_gate(left_out, source):
         assert c2['rel_err'] > 2 * chip_smoke.CONV_STATS_RTOL, c2
 
 
-def test_chip_smoke_conv_mutants_edit_the_source_once():
+@pytest.mark.parametrize('name', ['conv_partial_left_out',
+                                  'tf32_conv_small_parts_dropped',
+                                  'tf32_conv_k_step_skipped',
+                                  'tf32_conv_tap_coordinate_off'])
+def test_chip_smoke_conv_mutants_edit_the_source_once(name):
+    """Each finalize mutant edits one text of conv_bn_stats.cu once, and
+    each float32 conv mutant one text of conv_bn_stats_tf32.cu; a text that
+    is gone or repeated would refuse the --mutants check. They are held
+    against a float32 case, which runs the 3xTF32 kernel and the
+    finalize."""
     import chip_smoke
-    text = _source(FMA_SOURCE)
-    assert len(chip_smoke.CONV_MUTANTS) == 3
-    for name, (old, new) in chip_smoke.CONV_MUTANTS.items():
-        assert text.count(old) == 1, name
-        assert new != old
-    # they are held against a float32 case, which runs the FMA kernel
-    case = chip_smoke.CONV_CASES[chip_smoke.CONV_FMA_MUTANT_CASE]
+    assert sorted(chip_smoke.CONV_MUTANTS) == ['conv_partial_left_out']
+    assert sorted(chip_smoke.CONV_TF32_MUTANTS) == sorted([
+        'tf32_conv_small_parts_dropped', 'tf32_conv_k_step_skipped',
+        'tf32_conv_tap_coordinate_off'])
+    if name in chip_smoke.CONV_MUTANTS:
+        old, new = chip_smoke.CONV_MUTANTS[name]
+        text = _source(ENTRY_SOURCE)
+    else:
+        old, new = chip_smoke.CONV_TF32_MUTANTS[name]
+        text = _source(TF32_SOURCE)
+    assert text.count(old) == 1 and new != old
+    case = chip_smoke.CONV_CASES[chip_smoke.CONV_F32_MUTANT_CASE]
     assert case[-1] == 'float32'
 
 
@@ -501,16 +516,22 @@ def test_tensor_core_order_passes_the_conv_gate(toward_zero):
 def test_conv_wrapper_passes_each_dtype_to_the_library(monkeypatch, dtype,
                                                        code):
     """The wrapper hands the library the dtype code of its dispatch
-    (float32 to the FMA kernel, bfloat16 to the tensor-core one), sizes
-    the partials from that dtype's tile height, counts the launch, and
-    returns x's dtype and float32 statistics."""
+    (float32 to the 3xTF32 kernel, bfloat16 to the bf16 one), sizes
+    the partials from that dtype's tile height and the weights' scratch
+    from its count, counts the launch, and returns x's dtype and float32
+    statistics."""
     rows = {0: 128, 1: 64}     # distinct, so the scratch shows which
+    weight_floats = {0: 7, 1: 0}
     asked, calls, made = [], [], []
 
     class Library:
         def mxt_conv_bn_stats_block_rows(self, c):
             asked.append(c)
             return rows.get(c, 0)
+
+        def mxt_conv_bn_stats_weight_floats(self, c, kh, kw, cin, cout):
+            assert (kh, kw, cin, cout) == (3, 3, 8, 16)
+            return weight_floats[c]
 
     monkeypatch.setattr(cuda_conv._build, 'library', Library)
     monkeypatch.setattr(cuda_conv, '_check_kernel_inputs',
@@ -531,7 +552,53 @@ def test_conv_wrapper_passes_each_dtype_to_the_library(monkeypatch, dtype,
     assert asked == [code]
     assert tuple(made[0].shape) == (2, -(-300 // rows[code]), 16)
     assert args[5] == made[0].data_ptr()
+    assert args[7:11] == (3, 10, 10, 8)
     assert y.dtype == dtype and y.shape == (3, 10, 10, 16)
     assert s1.dtype == s2.dtype == torch.float32
     with pytest.raises(TypeError, match='no torch.float16 route'):
         partials(300, 16, torch.float16, 'cpu')
+
+
+def _tf32(x):
+    """x rounded to TF32 as cvt.rna.tf32.f32 rounds it: to nearest, ties
+    away from zero, 10 mantissa bits (the low 13 of float32's cleared)."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+@pytest.mark.parametrize('case', ['ragged_f32', 'main_f32'])
+@pytest.mark.parametrize('terms', [1, 3])
+def test_tf32_split_conv_against_the_float32_gate(case, terms):
+    """csrc/conv_bn_stats_tf32.cu takes the conv's products on the tensor
+    cores in TF32. Emulated at chip_smoke.py's float32 cases (main_f32 at
+    batch 2) with their weights' scale: three split products (big x big,
+    big x small, small x big) pass chip_smoke.py's float32 y gate
+    (CONV_F32_ORDERS * K * 2^-24 of |x| conv |w|) and its statistics gate,
+    as the FMA kernel did, while one TF32 product fails the y gate."""
+    import chip_smoke
+    xs, ws, stride, pad, dtype_name = chip_smoke.CONV_CASES[case]
+    assert dtype_name == 'float32'
+    xs = (min(xs[0], 2),) + tuple(xs[1:])
+    rs = np.random.RandomState(31)
+    x = rs.randn(*xs).astype(np.float32)
+    w = (rs.randn(*ws) * 0.05).astype(np.float32)
+    conv = lambda a, b: cuda_conv._conv_acc(torch.from_numpy(a),
+                                            torch.from_numpy(b), stride, pad)
+    x_big, w_big = _tf32(x), _tf32(w)
+    y = conv(x_big, w_big)
+    if terms == 3:
+        y = y + conv(x_big, _tf32(w - w_big)) + conv(_tf32(x - x_big), w_big)
+    y = y.contiguous()
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+    py, p1, p2 = cuda_conv.conv_bn_stats_plain(xt, wt, stride, pad)
+    check = chip_smoke.conv_y_mismatch(torch, cuda_conv, y, py, xt, wt,
+                                       stride, pad)
+    assert check['ok'] == (terms == 3), check
+    if terms == 3:
+        pf = py.float()
+        for got_s, ref_s, scale in ((y.sum((0, 1, 2)), p1,
+                                     pf.abs().sum((0, 1, 2))),
+                                    ((y * y).sum((0, 1, 2)), p2,
+                                     (pf * pf).sum((0, 1, 2)))):
+            assert chip_smoke.stats_mismatch(torch, got_s, ref_s,
+                                             scale)['ok']

@@ -121,6 +121,31 @@ def test_heartbeat_loss_fails_barrier_and_allreduce(monkeypatch):
         _teardown(coord, rts)
 
 
+def test_a_stalled_coordinator_blames_no_rank():
+    """A gap between two of the coordinator's scans (its process not
+    running its handlers) counts as no rank's silence; a rank silent
+    while the scans go on is declared dead as before."""
+    coord = dist.Coordinator(port=0, world=2, bind_addr='127.0.0.1',
+                             dead_after=1.0)
+    try:
+        for r in (0, 1):
+            coord._handle_hello(r)
+        assert coord._handle_dead() == ('ok', [])
+        # no handler ran for 3 s: both ranks' heartbeats wait unread
+        with coord._cv:
+            coord._last_scan -= 3.0
+            for r in (0, 1):
+                coord._last_seen[r] -= 3.0
+        assert coord._handle_heartbeat(0) == ('ok', [])
+        assert coord._handle_heartbeat(1) == ('ok', [])
+        # rank 1 silent for 3 s while rank 0's heartbeats are handled
+        with coord._cv:
+            coord._last_seen[1] -= 3.0
+        assert coord._handle_heartbeat(0) == ('ok', [1])
+    finally:
+        coord.stop()
+
+
 def test_heartbeat_loss_preempts_a_watched_manager(monkeypatch, tmp_path):
     profiler.clear()
     coord, rts = _pair(dist, dead_after=0.5)

@@ -234,3 +234,94 @@ def test_port_sources_name_neither_jax_nor_the_jax_package():
     assert len(files) >= 10
     for path in files:
         assert not pattern.search(path.read_text()), path
+
+
+def _tf32(x):
+    """x rounded to TF32 as cvt.rna.tf32.f32 rounds it: to nearest, ties
+    away from zero, 10 mantissa bits (the low 13 of float32's cleared)."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tf32_matmul(a, b, terms):
+    """a @ b as csrc/flash_attention_tf32.cu takes it on the tensor cores:
+    each operand split into big = tf32(x) and small = tf32(x - big), the
+    products big big (+ big small + small big with terms 3) summed in
+    float32."""
+    a_big, b_big = _tf32(a), _tf32(b)
+    out = a_big @ b_big
+    if terms == 3:
+        out = out + a_big @ _tf32(b - b_big) + _tf32(a - a_big) @ b_big
+    return out
+
+
+def _tf32_forward(q, k, v, scale, terms, block=64):
+    """The float32 forward kernel's recurrence in numpy float32: over
+    64-key tiles, s = q k^T and acc += p v as split TF32 products, the
+    suffix-aligned causal mask, a running max m and sum l; (out, lse)."""
+    f32 = np.float32
+    tq, tk = q.shape[2], k.shape[2]
+    rows = np.arange(tq)[:, None] + (tk - tq)
+    m = np.full(q.shape[:3] + (1,), -np.inf, f32)
+    l = np.zeros_like(m)
+    acc = np.zeros(q.shape[:3] + (v.shape[-1],), f32)
+    for k0 in range(0, tk, block):
+        kt, vt = k[:, :, k0:k0 + block], v[:, :, k0:k0 + block]
+        s = _tf32_matmul(q, np.swapaxes(kt, -1, -2), terms) * f32(scale)
+        live = rows >= np.arange(k0, k0 + kt.shape[2])[None, :]
+        s = np.where(live, s, -np.inf).astype(f32)
+        m_new = np.maximum(m, s.max(-1, keepdims=True))
+        m_use = np.where(m_new == -np.inf, f32(0), m_new)
+        corr = np.exp(m - m_use)
+        p = np.exp(s - m_use).astype(f32)
+        l = l * corr + p.sum(-1, keepdims=True)
+        acc = acc * corr + _tf32_matmul(p, vt, terms)
+        m = m_new
+    return (acc / l).astype(f32), (m + np.log(l)).astype(f32)
+
+
+@pytest.mark.parametrize('terms', [1, 3])
+def test_tf32_split_forward_against_the_float32_gate(terms):
+    """csrc/flash_attention_tf32.cu takes both of the forward's products
+    (S = q k^T, acc += p v) on the tensor cores in TF32. Emulated at
+    (1, 2, 512, 64) causal with float32 inputs: three split products (big
+    x big, big x small, small x big) pass chip_smoke.py's float32 gate
+    (F32_TOL on out, LSE_TOL on lse) against the dense plain version, as
+    the FMA kernel did, while one TF32 product fails it on out."""
+    import chip_smoke
+    rs = np.random.RandomState(29)
+    shape = (1, 2, 512, 64)
+    q, k, v = (rs.randn(*shape).astype(np.float32) for _ in range(3))
+    scale = 0.125
+    ref, ref_lse = cuda_ops.flash_attention_reference(
+        *(torch.from_numpy(x) for x in (q, k, v)), True, scale)
+    out, lse = _tf32_forward(q, k, v, scale, terms)
+    tol, ltol = chip_smoke.F32_TOL, chip_smoke.LSE_TOL['float32']
+    over = np.abs(out - ref.numpy()) > tol['atol'] + tol['rtol'] * np.abs(
+        ref.numpy())
+    ref_lse = ref_lse.numpy().reshape(lse.shape)
+    lse_over = np.abs(lse - ref_lse) > ltol['atol'] + ltol['rtol'] * np.abs(
+        ref_lse)
+    assert (not over.any()) == (terms == 3), int(over.sum())
+    if terms == 3:
+        assert not lse_over.any(), int(lse_over.sum())
+
+
+@pytest.mark.parametrize('name', ['tf32_fwd_small_parts_dropped',
+                                  'tf32_fwd_last_tile_skipped',
+                                  'tf32_fwd_mask_one_key_wide',
+                                  'tf32_fwd_correction_left_out'])
+def test_chip_smoke_tf32_forward_mutants_edit_the_source_once(name):
+    """Each float32 forward mutant edits one text of
+    csrc/flash_attention_tf32.cu once; a text that is gone or repeated
+    would refuse the --mutants check. They are held against phase 2's
+    lm_f32 case, which runs that kernel."""
+    import chip_smoke
+    assert sorted(chip_smoke.TF32_FWD_MUTANTS) == sorted([
+        'tf32_fwd_small_parts_dropped', 'tf32_fwd_last_tile_skipped',
+        'tf32_fwd_mask_one_key_wide', 'tf32_fwd_correction_left_out'])
+    text = (REPO / 'mxnet_tpu_torch' / 'csrc' /
+            'flash_attention_tf32.cu').read_text()
+    old, new = chip_smoke.TF32_FWD_MUTANTS[name]
+    assert text.count(old) == 1 and new != old
+    assert chip_smoke.FWD_CASES['lm_f32'][2] == 'float32'

@@ -306,8 +306,9 @@ def test_tensor_core_accumulation_passes_the_float16_backward_gate(truncate):
 def test_forward_wrapper_passes_each_dtype_to_the_library(monkeypatch,
                                                           dtype, code):
     """The wrapper hands the library the dtype code of its dispatch
-    (float32 to the FMA kernel, bfloat16 and float16 to the tensor-core
-    one), counts the launch, and returns q's dtype and a float32 lse."""
+    (float32 to the 3xTF32 tensor-core kernel, bfloat16 and float16 to
+    the 16-bit one), counts the launch, and returns q's dtype and a
+    float32 lse."""
     calls = []
     monkeypatch.setattr(cuda_ops, '_launch',
                         lambda entry, what, *args, device: calls.append(

@@ -523,7 +523,10 @@ with mx.cpu():
     kv.barrier()
     if rank == 0:
         kv.stop_servers()
-    print('WORKER_OK', rank, type(kv).__name__)
+    # each worker's report in a file of its own: two workers' lines on one
+    # shared stdout can interleave
+    with open(os.path.join(sys.argv[1], 'r%d.ok' % rank), 'w') as f:
+        f.write('WORKER_OK %d %s\n' % (rank, type(kv).__name__))
 '''
 
 
@@ -544,8 +547,9 @@ def test_launcher_ps_job_without_ml_dtypes_or_cryptography(tmp_path):
          str(tmp_path)], capture_output=True, text=True, timeout=240,
         env=env, cwd=str(tmp_path))
     assert res.returncode == 0, (res.stdout, res.stderr)
-    assert 'WORKER_OK 0 KVStoreDistPS' in res.stdout
-    assert 'WORKER_OK 1 KVStoreDistPS' in res.stdout
+    for rank in (0, 1):
+        assert (tmp_path / ('r%d.ok' % rank)).read_text() == \
+            'WORKER_OK %d KVStoreDistPS\n' % rank, (res.stdout, res.stderr)
     a, b = np.load(tmp_path / 'r0.npz'), np.load(tmp_path / 'r1.npz')
     assert sorted(a.files) == sorted(b.files)
     for k in a.files:
