@@ -36,6 +36,9 @@
                                                # batch, the Custom head
     python3 chip_smoke.py --phases 37,38       # build, the native runtime
                                                # and the C training API
+    python3 chip_smoke.py --phases 39,40       # build, train_imagenet.py
+                                               # and two more examples
+                                               # through the runner
     python3 chip_smoke.py --mutants            # phases 2, 4 and 6 against
                                                # broken kernels
 
@@ -567,7 +570,22 @@ Phases, each of which exits non-zero on failure:
    run's and the replay's to the program's (phase 36's bounds instead
    only where C_TRAIN_NONDETERMINISTIC names a kernel); cpp-package's
    rec_train.cpp, as written, trains on the CPU through the same
-   library.
+   library;
+39. example: the repository's own
+   examples/image_classification/train_imagenet.py, unedited, run by
+   `python -m mxnet_tpu_torch.tools.run_script` in a process of its own
+   (--tpus 0, bf16 ResNet-50, batch 64, one epoch) on a .rec that
+   `python -m mxnet_tpu_torch.tools.im2rec` packs from EXAMPLE_IMAGES
+   seeded JPEGs (written and packed on the host beside the launches of
+   phases 21-34). Gated by example_gate: the runner's exit line names
+   the port as mxnet_tpu, no jax and 32 conv launches a step; a
+   Speedometer line every batch, its values finite; the checkpoint the
+   script writes finite;
+40. more_examples: examples/gluon/mnist_gluon.py and
+   examples/rnn/lstm_bucketing.py, unedited, through the runner on the
+   card at their smallest settings (EXAMPLE_MORE), started beside the
+   launches: each exits 0 with the port as mxnet_tpu and no jax, its
+   metric finite and within its bound.
 
 The phases do not run in their numbers' order. After phase 20 the
 launches of phases 21, 22 (its three arms), 31 and 33 start together
@@ -615,6 +633,7 @@ import json
 import math
 import os
 import random
+import re
 import shutil
 import subprocess
 import sys
@@ -946,7 +965,7 @@ CONV_SM90_MUTANTS = {
                          ': ' + _TRUNCATE + 'v[0], v[1]));'),
 }
 
-ALL_PHASES = frozenset(range(2, 39))
+ALL_PHASES = frozenset(range(2, 41))
 # phase 7: the imperative NDArray path's size (n x n inputs)
 ND_SIZE = 1024
 ND_HOST_CALLS = 2000
@@ -1959,7 +1978,7 @@ def conv_phase(torch, cuda_ops, cuda_conv, bench_conv_bn):
 def conv_kernel_entry(conv, sass, resnet, module, serve, bucketing,
                       gluon_run, ptb, gluon_lm, factories, record, dist_ps,
                       dist_coord, loop, dp_mesh, dp_ranks, gluon_fused,
-                      hybrid, custom, native, c_train):
+                      hybrid, custom, native, c_train, example):
     """The conv_bn_stats entry of the kernels line: times at the main
     case's shape from the bench, errors from the cases, launches from the
     ResNet-50 train steps of phase 9 (its main path), of phase 10's
@@ -1972,8 +1991,9 @@ def conv_kernel_entry(conv, sass, resnet, module, serve, bucketing,
     (its steps and fit), of phase 29's two ranks (their sum), of phase
     30's fused Gluon steps, of phase 35's four ranks of two hybrid
     workers (their sum), of phase 36's Custom-head Module steps, of
-    phase 37's Module.fit fed by the native iterator and of phase 38's
-    C program's steps made in this process (its first run); its checks
+    phase 37's Module.fit fed by the native iterator, of phase 38's
+    C program's steps made in this process (its first run) and of phase
+    39's train_imagenet.py (read in its process by the runner); its checks
     at phase 30's and phase 35's routed shapes beside the others."""
     xs, ws = CONV_CASES['main'][:2]
     main_shape = [xs[1], xs[3], ws[3], ws[0], CONV_CASES['main'][2][0]]
@@ -2030,6 +2050,7 @@ def conv_kernel_entry(conv, sass, resnet, module, serve, bucketing,
                               if native['image']['built'] else None,
                               c_train_api=c_train['inprocess']['first'][
                                   'launches'],
+                              train_imagenet_example=example['launches'],
                               conv_bn_bench=bench['launches']),
         stem_split=resnet['stem_split'],
         launches_per_train_step=resnet['train_launches'],
@@ -14020,6 +14041,216 @@ def c_train_phase(torch, mx, cuda_conv, started, rec_train=None):
     return run
 
 
+# phase 39: the repository's own examples/image_classification/
+# train_imagenet.py, unedited, through the runner (python -m
+# mxnet_tpu_torch.tools.run_script), on a .rec that the port's im2rec
+# packs from seeded JPEGs
+EXAMPLE_SCRIPT = 'examples/image_classification/train_imagenet.py'
+EXAMPLE_IMAGES = 640        # 10 steps of EXAMPLE_BATCH in the one epoch
+EXAMPLE_BATCH = 64
+EXAMPLE_CLASSES = 10        # class folders: im2rec --recursive's labels
+EXAMPLE_SIDES = (224, 288)
+EXAMPLE_SHAPE = '3,224,224'
+EXAMPLE_TIMEOUT_S = 600
+EXAMPLE_SPEED = re.compile(r'Epoch\[0\] Batch \[(\d+)\]\tSpeed: ([\d.]+) '
+                           r'samples/sec((?:\t\S+=\S+)*)')
+
+
+def example_start(torch, root):
+    """Phase 39's host half, started beside the launches: EXAMPLE_IMAGES
+    seeded JPEGs (phase 18's synthetic_image, made on the CPU, written
+    by cv2) in EXAMPLE_CLASSES folders, then `python -m
+    mxnet_tpu_torch.tools.im2rec --list --recursive` and the pack, in
+    the background. Returns (the phase's directory, the Background)."""
+    import cv2
+    import shlex
+    out = fresh_dir(root, 39)
+    images = out / 'images'
+    rng = np.random.default_rng(SEED + 390)
+    for i in range(EXAMPLE_IMAGES):
+        label = i % EXAMPLE_CLASSES
+        folder = images / ('class%d' % label)
+        folder.mkdir(parents=True, exist_ok=True)
+        img = synthetic_image(torch, rng, label, EXAMPLE_CLASSES,
+                              EXAMPLE_SIDES, 'cpu')
+        if not cv2.imwrite(str(folder / ('img%04d.jpg' % i)), img.numpy(),
+                           [cv2.IMWRITE_JPEG_QUALITY, RECORD_QUALITY]):
+            fail('phase 39: cv2 wrote no JPEG')
+    im2rec = '%s -m mxnet_tpu_torch.tools.im2rec' % shlex.quote(
+        sys.executable)
+    prefix, folder = shlex.quote(str(out / 'train')), shlex.quote(str(images))
+    cmd = ['sh', '-c', '%s --list --recursive %s %s && %s %s %s'
+           % (im2rec, prefix, folder, im2rec, prefix, folder)]
+    return out, Background(cmd, EXAMPLE_TIMEOUT_S, cwd=str(root))
+
+
+def example_phase(torch, mx, root, smi, started=None):
+    """Phase 39: the .rec packed by the port's im2rec (example_start),
+    then train_imagenet.py through the runner in a process of its own
+    on the card: bf16 ResNet-50, batch EXAMPLE_BATCH, one epoch,
+    Speedometer every batch, a checkpoint at the end. Gated by
+    example_gate on the runner's exit line (the port as `mxnet_tpu`, no
+    jax, the conv launches) and on the script's own output and
+    checkpoint."""
+    if started is None:
+        started = example_start(torch, root)
+    out, packing = started
+    try:
+        res, pack_s = packing.wait()
+        if res.returncode != 0 or \
+                'packed %d records' % EXAMPLE_IMAGES not in res.stdout:
+            fail('phase 39: im2rec exited %d:\n%s\n%s'
+                 % (res.returncode, res.stdout[-3000:], res.stderr[-3000:]))
+        rec = out / 'train.rec'
+        cmd = [sys.executable, '-m', 'mxnet_tpu_torch.tools.run_script',
+               EXAMPLE_SCRIPT, '--tpus', '0', '--network', 'resnet',
+               '--num-layers', '50', '--dtype', 'bfloat16', '--data-train',
+               str(rec), '--image-shape', EXAMPLE_SHAPE, '--batch-size',
+               str(EXAMPLE_BATCH), '--num-epochs', '1', '--disp-batches',
+               '1', '--model-prefix', str(out / 'ckpt')]
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        child = subprocess.run(cmd, cwd=str(root), capture_output=True,
+                               text=True, timeout=EXAMPLE_TIMEOUT_S)
+        child_s = time.perf_counter() - t0
+        (out / 'child.log').write_text(child.stdout + child.stderr)
+        if child.returncode != 0:
+            fail('phase 39: the script exited %d:\n%s'
+                 % (child.returncode, child.stderr[-4000:]))
+        params = mx.nd.load(str(out / 'ckpt-0001.params'))
+        finite = {name: bool(torch.isfinite(a.handle.float()).all())
+                  for name, a in params.items()}
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    reports = [json.loads(line[len('run_script: '):])
+               for line in child.stderr.splitlines()
+               if line.startswith('run_script: ')]
+    speeds = [(int(b), float(v), dict(kv.split('=') for kv in
+                                      extra.split('\t') if kv))
+              for b, v, extra in EXAMPLE_SPEED.findall(child.stderr)]
+    steps = EXAMPLE_IMAGES // EXAMPLE_BATCH
+    rates = [v for b, v, _ in speeds if b >= 3]
+    rate = median(rates) if rates else None
+    report = reports[-1] if reports else {}
+    launches = report.get('launches', {}).get('CONV_BN_STATS_LAUNCHES')
+    run = dict(
+        config=dict(script=EXAMPLE_SCRIPT, images=EXAMPLE_IMAGES,
+                    sides=list(EXAMPLE_SIDES), classes=EXAMPLE_CLASSES,
+                    batch=EXAMPLE_BATCH, steps=steps, command=cmd[2:]),
+        pack_s=pack_s, child_s=child_s, report=report,
+        launches=launches, launches_per_step=(launches / steps
+                                              if launches is not None
+                                              else None),
+        speedometer=[dict(batch=b, samples_per_s=v, **m)
+                     for b, v, m in speeds],
+        images_per_s=rate,
+        step_ms=EXAMPLE_BATCH / rate * 1e3 if rate else None,
+        peak_bytes=report.get('peak_bytes'),
+        params=len(finite), params_finite=all(finite.values()),
+        train_accuracy=[float(v) for v in re.findall(
+            r'Epoch\[0\] Train-accuracy=([\d.naif]+)', child.stderr)])
+    print('example ' + json.dumps(run))
+    bad = example_gate(run, len(reports), steps)
+    if bad:
+        fail('phase 39: ' + '; '.join(bad))
+    print('example: train_imagenet.py through the runner, %.1f ms a step, '
+          '%.1f images/s (Speedometer, median of batches 3-%d), peak %.2f '
+          'GB, %d conv launches a step; %s'
+          % (run['step_ms'], rate, steps - 1, run['peak_bytes'] / 1e9,
+             run['launches_per_step'], smi))
+    return run
+
+
+def example_gate(run, n_reports, steps):
+    """Phase 39's gates; the reasons they fail (empty when all hold)."""
+    bad = []
+    report = run['report']
+    if n_reports != 1:
+        bad.append('%d run_script exit lines, want 1' % n_reports)
+    if report.get('mxnet_tpu') != 'mxnet_tpu_torch':
+        bad.append('mxnet_tpu was %r, not the port' % report.get('mxnet_tpu'))
+    if report.get('jax') is not False:
+        bad.append('jax was imported')
+    if run['launches'] != (RESNET_PAIRS - 1) * steps:
+        bad.append('%s conv launches in %d steps, want %d a step'
+                   % (run['launches'], steps, RESNET_PAIRS - 1))
+    batches = [s['batch'] for s in run['speedometer']]
+    if batches != list(range(1, steps)):
+        bad.append('Speedometer lines for batches %s, want 1-%d'
+                   % (batches, steps - 1))
+    values = [v for s in run['speedometer'] for k, v in s.items()
+              if k != 'batch']
+    if not all(math.isfinite(float(v)) for v in values):
+        bad.append('a Speedometer value is not finite')
+    if len(run['train_accuracy']) != 1:
+        # its value is nan: the Speedometer reset the metric after the
+        # epoch's last batch
+        bad.append('%d epoch-end lines, want 1' % len(run['train_accuracy']))
+    if not run['params'] or not run['params_finite']:
+        bad.append('the checkpoint holds a non-finite array (of %d)'
+                   % run['params'])
+    if not run['peak_bytes']:
+        bad.append('no peak memory reported')
+    return bad
+
+
+# phase 40: two more examples through the runner on the card, unedited,
+# at their smallest settings: script, arguments, the metric's pattern
+# and its bound (accuracy above, perplexity below the vocabulary of 64)
+EXAMPLE_MORE = (
+    ('examples/gluon/mnist_gluon.py', ['--epochs', '1'],
+     r'epoch 0 acc ([\d.]+|nan|inf)', ('above', 0.5)),
+    ('examples/rnn/lstm_bucketing.py',
+     ['--num-epochs', '1', '--num-hidden', '32', '--num-layers', '1',
+      '--num-embed', '16', '--buckets', '8,16'],
+     r'Epoch\[0\] Train-perplexity=([\d.]+|nan|inf)', ('below', 64.0)),
+)
+
+
+def more_examples_start(root):
+    """Phase 40's runs, started beside the launches: one runner process
+    an example (they launch no kernel of the port's)."""
+    return [Background([sys.executable, '-m',
+                        'mxnet_tpu_torch.tools.run_script', script] + args,
+                       EXAMPLE_TIMEOUT_S, cwd=str(root))
+            for script, args, _, _ in EXAMPLE_MORE]
+
+
+def more_examples_phase(root, started=None):
+    """Phase 40: each run exits 0, its runner's exit line names the port
+    as mxnet_tpu and no jax, and its metric is finite and within its
+    bound."""
+    started = started or more_examples_start(root)
+    runs, bad = [], []
+    for (script, args, pattern, (side, bound)), job in zip(EXAMPLE_MORE,
+                                                           started):
+        res, wall = job.wait()
+        text = res.stdout + res.stderr
+        reports = [json.loads(line[len('run_script: '):])
+                   for line in res.stderr.splitlines()
+                   if line.startswith('run_script: ')]
+        found = re.findall(pattern, text)
+        metric = float(found[-1]) if found else None
+        runs.append(dict(script=script, args=args, rc=res.returncode,
+                         wall_s=wall, metric=metric,
+                         report=reports[-1] if reports else None))
+        if res.returncode != 0:
+            bad.append('%s exited %d: %s' % (script, res.returncode,
+                                             res.stderr[-2000:]))
+            continue
+        if len(reports) != 1 or reports[0]['mxnet_tpu'] != \
+                'mxnet_tpu_torch' or reports[0]['jax'] is not False:
+            bad.append('%s: runner exit lines %s' % (script, reports))
+        if metric is None or not math.isfinite(metric) or \
+                (metric <= bound if side == 'above' else metric >= bound):
+            bad.append('%s: metric %s, want %s %s' % (script, metric, side,
+                                                      bound))
+    print('more_examples ' + json.dumps(runs))
+    if bad:
+        fail('phase 40: ' + '; '.join(bad))
+    return runs
+
+
 def main(argv=None):
     import argparse
     parser = argparse.ArgumentParser(
@@ -14037,7 +14268,7 @@ def main(argv=None):
                                                     v.split(',')},
                         default=ALL_PHASES,
                         help='build, then run only these phases (a comma '
-                             'list of 2-38); the kernels line needs all')
+                             'list of 2-40); the kernels line needs all')
     parser.add_argument('--dist-worker', choices=('ps', 'coord', 'dp',
                                                   'sparse', 'pipe', 'pipe4',
                                                   'hybrid'),
@@ -14092,7 +14323,7 @@ def main(argv=None):
     atexit.register(Background.stop_all)
     phases = args.phases
     if not phases <= ALL_PHASES:
-        fail('--phases takes phases 2 to 38; got %s' % sorted(phases))
+        fail('--phases takes phases 2 to 40; got %s' % sorted(phases))
     sys.path.insert(0, str(root))
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import _build, cuda_conv, cuda_ops
@@ -14248,6 +14479,11 @@ def main(argv=None):
     # the launches of phases 21, 22, 31 and 33 start together and share
     # the card: each phase then waits for its own
     started = {}
+    if 39 in phases:
+        # phase 39's images and im2rec, on the host beside the launches
+        started[39] = example_start(torch, root)
+    if 40 in phases:
+        started[40] = more_examples_start(root)
     if phases & {21, 22, 31, 32, 33, 34}:
         torch.cuda.empty_cache()
         for phase, start in ((21, ps_start), (22, coord_start),
@@ -14445,6 +14681,18 @@ def main(argv=None):
     if phases & {37, 38}:
         shutil.rmtree(root / 'build' / 'native_rec', ignore_errors=True)
 
+    # 39. the repository's own train_imagenet.py, unedited, through the
+    # runner, on a .rec packed by the port's im2rec
+    if 39 in phases:
+        clock.start(39)
+        example = example_phase(torch, mx, root, smi, started.get(39))
+
+    # 40. two more examples through the runner: the Gluon MNIST and the
+    # bucketing LSTM
+    if 40 in phases:
+        clock.start(40)
+        more_examples_phase(root, started.get(40))
+
     clock.stop()
     print('phase seconds ' + json.dumps(dict(
         clock.seconds, total=round(time.perf_counter() - clock.t_start, 1))))
@@ -14581,7 +14829,7 @@ def main(argv=None):
                                      factories, record, dist_ps,
                                      dist_coord, loop, dp_mesh, dp_ranks,
                                      gluon_fused, hybrid, custom, native,
-                                     c_train))
+                                     c_train, example))
     kernels.append(rtc_kernel_entry(rtc_run, ptb, gluon_lm))
     for kern in kernels:
         if kern['launches'] == 0:

@@ -108,17 +108,20 @@ are a differentiable argument, are refused.
 import contextlib
 import os
 import warnings
+import weakref
 from collections import OrderedDict
 
 import numpy as np
 import torch
+from torch.utils import _pytree
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from . import cuda_conv
 from . import exec_cache
 from . import ndarray as nd
 from . import profiler
 from . import random as _random
-from .base import MXNetError, torch_dtype
+from .base import MXNetError, parse_attr_value, torch_dtype
 from .context import Context
 from .parallel import batch_reduce as _breduce
 from .parallel import mesh as _pmesh
@@ -269,6 +272,47 @@ def stem_splits(topo, heads, grad_req, aux_names):
     return out
 
 
+# the ops whose output is a storage of its own (no view of an input),
+# which an activation of the eval walk may write in place
+_FRESH_OUTPUT_OPS = ('Convolution', 'FullyConnected', 'BatchNorm')
+
+
+class _LiveBytes(TorchDispatchMode):
+    """The bytes of the storages that the ops run under this mode
+    allocate and that are alive at once, and their peak (`peak`): the
+    CPU allocator keeps no peak of its own. A storage counts from the op
+    that returns it until it is freed (a weak reference to the storage,
+    which lives as long as any tensor or saved value holds it); an
+    output that shares an input's storage (a view, an in-place op)
+    allocates nothing."""
+
+    def __init__(self):
+        super().__init__()
+        self.live = {}
+        self.current = self.peak = 0
+
+    def _free(self, key):
+        self.current -= self.live.pop(key)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        inputs = {t.untyped_storage()._cdata
+                  for t in _pytree.tree_leaves((args, kwargs))
+                  if isinstance(t, torch.Tensor)}
+        for t in _pytree.tree_leaves(out):
+            if not isinstance(t, torch.Tensor):
+                continue
+            storage = t.untyped_storage()
+            key = storage._cdata
+            if key in self.live or key in inputs:
+                continue
+            self.live[key] = storage.nbytes()
+            self.current += self.live[key]
+            self.peak = max(self.peak, self.current)
+            weakref.finalize(storage, self._free, key)
+        return out
+
+
 def _tensor_of(value, dtype, device, copy=False):
     """A tensor of `value` (an NDArray, a torch tensor or anything
     numpy takes, a bfloat16 numpy array included) in `dtype` on
@@ -367,6 +411,37 @@ class Executor:
         self._aux_pos = {n: i for i, n in enumerate(self._aux_names)}
         self._out_entries = [(self._node_index[id(n)], i)
                              for n, i in sym._outputs]
+        # per node: the op nodes whose values the walk drops before it,
+        # those whose last reader is the node before it (the graph's
+        # outputs are kept)
+        last_read = {}
+        for ni, n in enumerate(topo):
+            for src, _ in n.inputs:
+                last_read[self._node_index[id(src)]] = ni
+        for ni, _ in self._out_entries:
+            last_read.pop(ni, None)
+        self._release = {}
+        for si, ni in last_read.items():
+            if topo[si].op is not None:
+                self._release.setdefault(ni + 1, []).append(si)
+        # Activations the eval walk runs in place (the reference's
+        # inplace plan): those whose input is the fresh output of an op
+        # that no other node reads and that is no graph output
+        readers = {}
+        for n in topo:
+            for src, _ in n.inputs:
+                readers[id(src)] = readers.get(id(src), 0) + 1
+        self._inplace = set()
+        for ni, n in enumerate(topo):
+            if n.op is None or n.op.name != 'Activation':
+                continue
+            src = n.inputs[0][0]
+            if str(parse_attr_value(n.attrs['act_type'])) in \
+                    _nn.ACTS_INPLACE and src.op is not None and \
+                    src.op.name in _FRESH_OUTPUT_OPS and \
+                    readers[id(src)] == 1 and \
+                    self._node_index[id(src)] in last_read:
+                self._inplace.add(ni)
         # shape-carrying init ops (zeros(shape=(0, H))) take their
         # bidirectionally inferred shapes, when their attr has 0 dims
         node_shapes = {}
@@ -599,6 +674,10 @@ class Executor:
         split_beta = {}                # split BatchNorm index -> beta
         node_ctx = self._node_ctx
         for ni, node in enumerate(topo):
+            # a value no later node reads goes now (autograd keeps what
+            # the backward needs)
+            for si in self._release.get(ni, ()):
+                results[si] = None
             if node.op is None:
                 if node.name in self._arg_pos:
                     results[ni] = [arg_vals[self._arg_pos[node.name]]]
@@ -684,6 +763,10 @@ class Executor:
                 args = list(args)
                 split_beta[ni] = args[2]
                 args[2] = torch.zeros_like(args[2].detach())
+            if ni in self._inplace and collect is None and \
+                    not torch.is_grad_enabled() and \
+                    args[0].is_floating_point():
+                eff_attrs = dict(eff_attrs, __inplace__=True)
             if ni in sums:
                 outs, updated = pair_batch_norm(eff_attrs, args, auxs,
                                                 op_ctx, sums.pop(ni))
@@ -917,8 +1000,13 @@ class Executor:
         temp_bytes (peak less arguments and outputs) and
         generated_code_bytes (0: nothing is compiled). The run changes
         no state of the executor, but it resets the device's peak
-        memory statistics. On a CPU executor peak_memory_bytes and
-        temp_bytes are None: the CPU allocator keeps no peak."""
+        memory statistics. The CPU allocator keeps no peak, so on a CPU
+        executor the peak is that of the bytes of the storages the run's
+        ops allocate and that are alive at once (`_LiveBytes`). Both are
+        what one eager run really holds, op by op; XLA's buffer
+        assignment in the JAX package is a static plan of the whole
+        compiled program, which reuses and fuses buffers, so its temp
+        bytes are not these."""
         if mode not in ('forward', 'train', 'train_backward'):
             raise ValueError("memory_cost mode must be 'forward', "
                              "'train' or 'train_backward', got %r" % mode)
@@ -933,6 +1021,23 @@ class Executor:
                     for n in self._arg_names]
         aux_vals = [self.aux_dict[n]._data.detach()
                     for n in self._aux_names]
+        tracker = contextlib.nullcontext() if on_card else _LiveBytes()
+        with tracker:
+            results = self._memory_cost_run(mode, arg_vals, aux_vals)
+        out_bytes = sum(t.numel() * t.element_size() for t in results)
+        if on_card:
+            torch.cuda.synchronize(device)
+            peak = torch.cuda.max_memory_allocated(device) - before
+        else:
+            peak = tracker.peak
+        peak += arg_bytes
+        return dict(argument_bytes=arg_bytes, output_bytes=out_bytes,
+                    temp_bytes=int(max(peak - arg_bytes - out_bytes, 0)),
+                    peak_memory_bytes=int(peak), generated_code_bytes=0)
+
+    def _memory_cost_run(self, mode, arg_vals, aux_vals):
+        """memory_cost's run: the walk of `mode`; returns what it
+        leaves alive (outputs, new aux states, gradients)."""
         if mode == 'forward':
             with torch.no_grad():
                 outs, _ = self._run_graph(arg_vals, aux_vals, False)
@@ -952,17 +1057,7 @@ class Executor:
                     live, leaves, [torch.ones_like(o) for o in live],
                     allow_unused=True) if live and leaves else []
                 results += [g for g in grads if g is not None]
-        out_bytes = sum(t.numel() * t.element_size() for t in results)
-        out = dict(argument_bytes=arg_bytes, output_bytes=out_bytes,
-                   temp_bytes=None, peak_memory_bytes=None,
-                   generated_code_bytes=0)
-        if on_card:
-            torch.cuda.synchronize(device)
-            peak = torch.cuda.max_memory_allocated(device) - before + \
-                arg_bytes
-            out['peak_memory_bytes'] = int(peak)
-            out['temp_bytes'] = int(max(peak - arg_bytes - out_bytes, 0))
-        return out
+        return results
 
     def debug_str(self):
         """Plan dump: the topo-ordered ops and the bytes of the bound

@@ -262,10 +262,18 @@ class ResizeIter(_StagedBatchMixin, DataIter):
         return True
 
 
-def _prefetch_worker(src, slot, next_batch, taken, ready, alive):
+def _prefetch_worker(src, slot, next_batch, taken, ready, alive,
+                     ctx=None):
     """PrefetchingIter's worker: refill `slot` whenever the consumer
-    takes it. It holds only the shared cells, never the iterator, so
-    the iterator can be collected while workers run."""
+    takes it, with the next batch, None at the end or the exception
+    that `src` raised. It holds only the shared cells, never the
+    iterator, so the iterator can be collected while workers run. `ctx`
+    is the default context of the thread that made it, as in
+    `_stage_worker`."""
+    if ctx is not None:
+        with Context(ctx):
+            return _prefetch_worker(src, slot, next_batch, taken, ready,
+                                    alive)
     while True:
         taken.wait()
         if not alive[0]:
@@ -274,6 +282,8 @@ def _prefetch_worker(src, slot, next_batch, taken, ready, alive):
             fetched = src.next()
         except StopIteration:
             fetched = None
+        except Exception as e:      # handed to the consumer, raised there
+            fetched = e
         next_batch[slot] = fetched
         taken.clear()
         ready.set()
@@ -306,7 +316,8 @@ class PrefetchingIter(_StagedBatchMixin, DataIter):
                 target=_prefetch_worker,
                 args=(self.iters[i], i, self.next_batch,
                       self.data_taken[i], self.data_ready[i],
-                      self._alive),
+                      self._alive,
+                      getattr(Context._default_ctx, 'value', None)),
                 daemon=True)
             self.prefetch_threads.append(worker)
             worker.start()
@@ -366,6 +377,9 @@ class PrefetchingIter(_StagedBatchMixin, DataIter):
         for gate in self.data_ready:
             gate.wait()
         staged = self.next_batch
+        for b in staged:
+            if isinstance(b, Exception):
+                raise b
         if staged[0] is None:
             assert all(b is None for b in staged), \
                 'Number of entry mismatches between iterators'
@@ -473,12 +487,18 @@ def stage_to_device(arrays, device=None, mesh=None, stream=None):
     return stage(arrays, device, stream, mesh).take()
 
 
-def _stage_worker(src, out, stop, device, stream, mesh=None):
+def _stage_worker(src, out, stop, device, stream, mesh=None, ctx=None):
     """PrefetchToDeviceIter's worker: pull batches from `src` and start
     their copies until `stop` is set, handing (batch, staged data,
     staged label) to `out`, then None at the end of the epoch (or the
     exception that ended it). It holds only the shared cells, never the
-    iterator."""
+    iterator. `ctx`, the default context of the thread that started it,
+    is this thread's too, so `src` makes its arrays where its caller's
+    thread would."""
+    if ctx is not None:
+        with Context(ctx):
+            return _stage_worker(src, out, stop, device, stream, mesh)
+
     def put(item):
         while not stop.is_set():
             try:
@@ -555,7 +575,9 @@ class PrefetchToDeviceIter(_StagedBatchMixin, DataIter):
         self._worker = threading.Thread(
             target=_stage_worker,
             args=(self.data_iter, self._queue, self._stop, self.device,
-                  self._stream, self.mesh), daemon=True)
+                  self._stream, self.mesh,
+                  getattr(Context._default_ctx, 'value', None)),
+            daemon=True)
         self._worker.start()
 
     def close(self):

@@ -106,9 +106,18 @@ _ACTS = {
 }
 
 
+# the activations that can write their input: the executor's eval walk
+# asks for that (attrs['__inplace__']) where nothing else reads it
+ACTS_INPLACE = {'relu': torch.relu_, 'sigmoid': torch.sigmoid_,
+                'tanh': torch.tanh_}
+
+
 @register('Activation', input_names=('data',), hint='activation')
 def _activation(attrs, data):
-    return _ACTS[str(parse_attr_value(attrs['act_type']))](data)
+    act = str(parse_attr_value(attrs['act_type']))
+    if attrs.get('__inplace__'):
+        return ACTS_INPLACE[act](data)
+    return _ACTS[act](data)
 
 
 # ---------------------------------------------------------------------------
@@ -278,6 +287,16 @@ def _window_sum(x, kernel, stride):
     return x.sum(tuple(range(x.ndim - nd, x.ndim)))
 
 
+def _window_max(x, kernel, stride):
+    """Max over each window of the spatial dims of an NC... tensor (no
+    padding), over a strided view: no argmax indices, which only a
+    backward reads."""
+    nd = len(kernel)
+    for i, (k, s) in enumerate(zip(kernel, stride)):
+        x = x.unfold(2 + i, k, s)
+    return x.amax(tuple(range(x.ndim - nd, x.ndim)))
+
+
 @register('Pooling', input_names=('data',), hint='pooling',
           aliases=('Pooling_v1',))
 def _pooling(attrs, data):
@@ -307,11 +326,14 @@ def _pooling(attrs, data):
             torch.iinfo(data.dtype).min
     else:
         fill = 0
-    x = F.pad(data, flat, value=fill)
+    # F.pad copies even when it pads nothing
+    x = F.pad(data, flat, value=fill) if any(flat) else data
     if nhwc_io:
         x = x.permute(0, 3, 1, 2)      # channels-last NCHW view
     if pool_type == 'max':
-        out = _MAX_POOL[nspatial](x, kernel, stride)
+        out = _MAX_POOL[nspatial](x, kernel, stride) \
+            if torch.is_grad_enabled() and x.requires_grad else \
+            _window_max(x, kernel, stride)
     else:
         out = _window_sum(x, kernel, stride)
         if pool_type == 'avg':

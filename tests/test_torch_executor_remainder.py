@@ -156,8 +156,15 @@ def test_memory_cost_counts_the_bound_and_produced_bytes(mode):
     want = {'forward': outs, 'train': outs + aux,
             'train_backward': outs + aux + grads}[mode]
     assert cost['output_bytes'] == want
-    # the CPU allocator keeps no peak
-    assert cost['peak_memory_bytes'] is None and cost['temp_bytes'] is None
+    # on the CPU, the peak of the bytes of the storages alive at once
+    # (the CPU allocator keeps no peak of its own): integers, the same
+    # for the same run, the temp bytes the peak less what is bound and
+    # what stays
+    peak, temp = cost['peak_memory_bytes'], cost['temp_bytes']
+    assert isinstance(peak, int) and isinstance(temp, int)
+    assert temp == peak - cost['argument_bytes'] - cost['output_bytes']
+    assert temp > 0
+    assert tex.memory_cost(mode) == cost
     assert set(cost) == set(jex.memory_cost(mode))
     # the run changes no state of the executor
     assert not tex.outputs
